@@ -1,0 +1,224 @@
+"""The flagship causal transformer LM, dense and single-device.
+
+Counterpart of ``akka_allreduce_tpu/models/transformer.py``. Parameters
+are a plain nested dict with the JAX pytree's names, shapes and layout
+(``wq`` is ``(d_model, d_model)`` and used as ``h @ wq``), so
+``convert.params_from_jax`` carries weights across unchanged and both
+packages compute the same function. The tensor-parallel and expert axes
+are not ported yet; a config with ``moe`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from akka_allreduce_tpu_torch.parallel.ring_attention import \
+    local_causal_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Same fields and validation as the JAX config; ``dtype`` is a
+    torch dtype. ``moe`` must stay None (the expert layers are a later
+    slice of the port)."""
+
+    vocab_size: int = 256
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 512
+    max_seq: int = 128
+    dtype: torch.dtype = torch.float32
+    moe: Optional[object] = None
+    moe_every: int = 1
+    n_kv_heads: Optional[int] = None
+    rope: bool = False
+    rope_theta: float = 10000.0
+    ffn: str = "gelu"
+    attn_window: Optional[int] = None
+    tie_embeddings: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads if self.n_kv_heads is not None \
+            else self.n_heads
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                "MoE layers are not ported yet (ROADMAP.md queue A, the "
+                "tp/sp/pp/ep slice); use a dense config")
+        if self.n_kv_heads is not None and not (
+                0 < self.n_kv_heads <= self.n_heads):
+            raise ValueError(
+                f"n_kv_heads={self.n_kv_heads} must be in "
+                f"[1, n_heads={self.n_heads}] (None = multi-head; the "
+                f"CLI's 0 sentinel maps to None before reaching here)")
+        if self.n_heads % self.kv_heads:
+            raise ValueError(
+                f"n_kv_heads={self.kv_heads} must divide "
+                f"n_heads={self.n_heads}")
+        if self.ffn not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown ffn {self.ffn!r}")
+        if self.rope and self.head_dim % 2:
+            raise ValueError(
+                f"rope needs an even head_dim, got {self.head_dim} "
+                f"(d_model={self.d_model} / n_heads={self.n_heads})")
+        if self.attn_window is not None and self.attn_window < 1:
+            raise ValueError(
+                f"attn_window must be >= 1, got {self.attn_window}")
+
+
+def rope_angles(positions: torch.Tensor, d: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of ``pos * theta^(-2i/d)`` in f32, shape (len, d/2)."""
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    angles = positions.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rotate_half_split(x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x's (x[i], x[i + D/2]) pairs by the broadcast angles, in
+    f32, result in x's dtype."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over (B, T, H, D), half-split pairing,
+    phases in f32 (the JAX package's convention)."""
+    cos, sin = rope_angles(positions, x.shape[-1], theta)
+    return rotate_half_split(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMS statistics in f32 whatever the compute dtype, cast back to x's
+    dtype before the scale."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
+
+
+def lm_logits(params: dict, x: torch.Tensor,
+              cfg: TransformerConfig) -> torch.Tensor:
+    """Output head: the lm_head product, or the transposed embedding
+    under weight tying."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
+                     device: "torch.device | str | None" = None) -> dict:
+    """Random parameters from ``generator`` (normal * d_model^-0.5, norms
+    at 1), on ``device`` (default: the generator's device). The draws
+    differ from ``jax.random``'s; tests carry JAX weights across with
+    ``convert.params_from_jax`` instead."""
+    device = torch.device(device if device is not None
+                          else generator.device)
+    dt = cfg.dtype
+    scale = cfg.d_model ** -0.5
+    d_kv = cfg.kv_heads * cfg.head_dim
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=dt) * scale
+
+    def ones(n):
+        return torch.ones((n,), device=device, dtype=dt)
+
+    params = {"embed": normal(cfg.vocab_size, cfg.d_model),
+              "out_norm": ones(cfg.d_model), "layers": []}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(cfg.d_model, cfg.vocab_size)
+    if not cfg.rope:
+        params["pos"] = normal(cfg.max_seq, cfg.d_model)
+    for _ in range(cfg.n_layers):
+        layer = {"ln1": ones(cfg.d_model),
+                 "wq": normal(cfg.d_model, cfg.d_model),
+                 "wk": normal(cfg.d_model, d_kv),
+                 "wv": normal(cfg.d_model, d_kv),
+                 "wo": normal(cfg.d_model, cfg.d_model),
+                 "ln2": ones(cfg.d_model),
+                 "w1": normal(cfg.d_model, cfg.d_ff),
+                 "w2": normal(cfg.d_ff, cfg.d_model)}
+        if cfg.ffn == "swiglu":
+            layer["w3"] = normal(cfg.d_model, cfg.d_ff)
+        params["layers"].append(layer)
+    return params
+
+
+def attention_projections(layer: dict, h: torch.Tensor,
+                          cfg: TransformerConfig
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(B, T, d_model) normed input -> q (B, T, H, D), k and v
+    (B, T, H_kv, D)."""
+    b, t, _ = h.shape
+    q = (h @ layer["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = (h @ layer["wk"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = (h @ layer["wv"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def feed_forward(layer: dict, h: torch.Tensor) -> torch.Tensor:
+    """The dense FF: gelu (tanh approximation, ``jax.nn.gelu``'s
+    default) or swiglu when the layer carries ``w3``."""
+    if "w3" in layer:
+        return (F.silu(h @ layer["w1"]) * (h @ layer["w3"])) @ layer["w2"]
+    return F.gelu(h @ layer["w1"], approximate="tanh") @ layer["w2"]
+
+
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def transformer_block(layer: dict, x: torch.Tensor, cfg: TransformerConfig,
+                      attn_fn: Optional[AttnFn] = None,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One residual block (attention + FF). ``positions`` feed rope
+    (default 0..T-1); ``attn_fn`` defaults to the window-aware causal
+    oracle and receives the narrow GQA K/V."""
+    b, t, _ = x.shape
+    if attn_fn is None:
+        def attn_fn(q, k, v):
+            return local_causal_attention(q, k, v, window=cfg.attn_window)
+    q, k, v = attention_projections(layer, rmsnorm(x, layer["ln1"]), cfg)
+    if cfg.rope:
+        if positions is None:
+            positions = torch.arange(t, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    x = x + attn_fn(q, k, v).reshape(b, t, -1) @ layer["wo"]
+    return x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+
+
+def transformer_apply(params: dict, tokens: torch.Tensor,
+                      cfg: TransformerConfig,
+                      positions: Optional[torch.Tensor] = None,
+                      attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+    """tokens (B, T) int -> logits (B, T, vocab)."""
+    t = tokens.shape[1]
+    if positions is None:
+        positions = torch.arange(t, device=tokens.device)
+    x = params["embed"][tokens]
+    if not cfg.rope:
+        x = x + params["pos"][positions]
+    for layer in params["layers"]:
+        x = transformer_block(layer, x, cfg, attn_fn, positions=positions)
+    return lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)

@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases, one JSON line each (any failure raises and exits non-zero):
+
+1. device  — the card's name and power limit; TF32 off for matmuls and
+   convolutions, so every f32 product runs in full f32.
+2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
+   per source, all started together), timed, with ptxas's report.
+3. kernels — hold each kernel against its plain PyTorch version on the
+   same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
+   the serving slice's shape, MHA, MQA, a larger page, and the position
+   edge cases (0, P-1, P, the last position, a lane parked on the
+   scratch page). At the slice's shape: kernel, plain version and
+   library call timed with CUDA events (median of 20 after warm-up,
+   L2 flushed before each), and the kernel's bound computed.
+4. serve   — the port's ``serve`` at the full width of the repo's gqa4
+   decode model (d_model 2048, 16 heads, 4 KV heads, 8 layers, d_ff
+   8192, vocab 32768, rope, f32, random weights from --seed 0) over 16
+   requests through ``--paged --paged-attention kernel``, in turns with
+   ``--paged-attention gather`` (gather, kernel, kernel, gather); asserts
+   every request completes and the kernel launched once per layer per
+   decode step of the first kernel run; one decode step's logits through
+   the kernel match the gather path on the same pool state (atol 1e-3),
+   with a torch.profiler breakdown of that step; the greedy tokens match
+   the gather run's wherever its top-2 logit gap exceeds 1e-3.
+
+Then, on lines of their own: nvidia-smi's name and power limit, the
+kernels JSON line, and last ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, 700 W
+
+SERVE_ARGV = [
+    "serve", "--vocab", "32768", "--d-model", "2048", "--n-heads", "16",
+    "--kv-heads", "4", "--n-layers", "8", "--d-ff", "8192", "--rope",
+    "--max-seq", "512", "--paged", "--page-size", "16", "--slots", "8",
+    "--requests", "16", "--prompt-len", "64:256", "--max-new-tokens", "64",
+    "--decode-steps", "4", "--load", "closed", "--seed", "0",
+    "--device", "cuda"]
+
+# (B, H, h_kv, D, P, n_pt): the slice's decode shape first — 8 lanes of
+# the gqa4 model, 16-position pages, max_seq 512 — then MHA, MQA, P=32
+KERNEL_SHAPES = [(8, 16, 4, 128, 16, 32), (8, 16, 16, 128, 16, 32),
+                 (8, 16, 1, 128, 16, 32), (8, 16, 4, 128, 32, 16)]
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_case(torch, shape, dtype, seed, positions="edges", device="cuda"):
+    """Random q and pools on the card, each lane with its own pages.
+    ``positions="edges"``: lanes at 0, P-1, P, the last position and one
+    parked on the scratch page (table row 0, pos 0), the rest random;
+    ``"serve"``: every lane at a random position in [64, 320), the range
+    the serve phase's requests decode over."""
+    b, h, h_kv, d, p, n_pt = shape
+    gen = torch.Generator().manual_seed(seed)
+    num_pages = b * n_pt + 1
+    q = torch.randn((b, 1, h, d), generator=gen)
+    k = torch.randn((num_pages, p, h_kv, d), generator=gen)
+    v = torch.randn((num_pages, p, h_kv, d), generator=gen)
+    table = (torch.randperm(num_pages - 1, generator=gen) + 1)[
+        :b * n_pt].reshape(b, n_pt).to(torch.int32)
+    last = n_pt * p - 1
+    if positions == "serve":
+        pos = torch.randint(min(64, last), min(320, last + 1), (b,),
+                            generator=gen)
+    else:
+        pos = torch.randint(0, last + 1, (b,), generator=gen)
+        pos[:4] = torch.tensor([0, p - 1, p, last])
+        table[-1] = 0
+        pos[-1] = 0
+    dev = torch.device(device)
+    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            table.to(dev), pos.to(dev, torch.int32))
+
+
+def time_ms(torch, fn, flush, reps=20, warmup=3) -> float:
+    """Median over ``reps`` single calls, each between two CUDA events,
+    with the L2 flushed before it (the decode step finds its KV cold).
+    A ~1 ms device spin after the flush keeps the card busy while the
+    host enqueues the call, so the events time the device work and not
+    the Python launch latency."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def paged_bound(torch, q, k_pages, table, pos) -> "tuple[float, str]":
+    """Least time for this call's work: the K/V rows at positions <= pos
+    read once, q and table entries read, out written; ~4 * D flops per
+    query head and live position (q.k and p.v), at the card's peaks."""
+    b, _, h, d = q.shape
+    _, p, h_kv, _ = k_pages.shape
+    live = int((pos.long() + 1).sum())
+    es = q.element_size()
+    n_pages = int(((pos.long() // p) + 1).sum())
+    nbytes = (2 * live * h_kv * d * es + 2 * q.numel() * es
+              + 4 * (n_pages + b))
+    flops = 4 * h * d * live
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_attention(torch, q, k_pages, v_pages, table, pos):
+    """One PyTorch attention call over the gathered pages, the yardstick
+    for ``library_ms``: gather + scaled_dot_product_attention with a
+    boolean position mask. Timed only; the port never calls it."""
+    import torch.nn.functional as F
+
+    from akka_allreduce_tpu_torch.ops.kernels.attention import \
+        paged_gather_kv
+    k_all = paged_gather_kv(k_pages, table).transpose(1, 2)
+    v_all = paged_gather_kv(v_pages, table).transpose(1, 2)
+    t = k_all.shape[2]
+    mask = (torch.arange(t, device=q.device)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k_all, v_all,
+                                         attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def phase_kernels(torch) -> dict:
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    seed = 0
+    for shape in KERNEL_SHAPES:
+        for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)),
+                           (torch.bfloat16, dict(atol=2e-2, rtol=0.0))):
+            for positions in ("edges", "serve"):
+                seed += 1
+                args = make_case(torch, shape, dtype, seed, positions)
+                out = attention.paged_attention(*args)
+                ref = attention.paged_gather_attention(*args)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                finite = bool(torch.isfinite(out).all())
+                ok = finite and torch.allclose(out.float(), ref.float(),
+                                               **tol)
+                row = {"shape": list(shape), "dtype": str(dtype),
+                       "positions": positions, "max_abs_err": err,
+                       "finite": finite, "ok": ok}
+                if shape == KERNEL_SHAPES[0] and positions == "serve":
+                    bound, by = paged_bound(torch, args[0], args[1],
+                                            args[3], args[4])
+                    row.update(
+                        ms=time_ms(torch, lambda: attention.paged_attention(
+                            *args), flush),
+                        plain_ms=time_ms(torch, lambda: attention
+                                         .paged_gather_attention(*args),
+                                         flush),
+                        library_ms=time_ms(torch, lambda: library_attention(
+                            torch, *args), flush),
+                        bound_ms=bound, bound_by=by)
+                    timed[str(dtype)] = row
+                emit("kernels", kernel="paged_attention", **row)
+                if not ok:
+                    raise AssertionError(f"paged_attention disagrees with "
+                                         f"its plain version: {row}")
+    return timed
+
+
+def reference_logits(torch, params, cfg, prompt, tokens):
+    """The logits that picked each of ``tokens`` after ``prompt``, from
+    one full forward (the cached decode's parity oracle)."""
+    from akka_allreduce_tpu_torch.models.transformer import \
+        transformer_apply
+    seq = torch.tensor(list(prompt) + list(tokens[:-1]),
+                       device=params["embed"].device)
+    with torch.no_grad():
+        logits = transformer_apply(params, seq[None], cfg)[0]
+    return logits[len(prompt) - 1:].float().cpu().numpy()
+
+
+def decode_step_breakdown(torch, engine, reqs) -> dict:
+    """Admit the first lanes' requests into a fresh kernel engine on the
+    same weights, then on copies of that pool state: one decode step
+    through the kernel and one through the gather path (their logits
+    must agree), and a torch.profiler window over 4 steps of each —
+    wall time per step against summed device kernel time, the
+    paged_attention kernel's share and the top kernels."""
+    from akka_allreduce_tpu_torch.serving.engine import (
+        PagedEngineConfig, PagedServingEngine, _paged_decode_step)
+    fresh = PagedServingEngine(engine.params, engine.cfg, PagedEngineConfig(
+        num_slots=engine.num_slots, page_size=engine.ecfg.page_size,
+        attention_impl="kernel"))
+    for req in reqs[:fresh.num_slots]:
+        fresh.admit(req)
+    tok = fresh._state["logits"].argmax(dim=-1).to(torch.int32)
+    pos = torch.as_tensor(fresh._pos, device=fresh.device)
+    table = fresh._page_table_device()
+    logits, out = {}, {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        for impl in ("kernel", "gather"):
+            kv = {n: fresh._state[n].clone() for n in ("k", "v")}
+
+            def step():
+                return _paged_decode_step(engine.params, kv, tok, pos,
+                                          table, engine.cfg, impl)[1]
+            logits[impl] = step()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+            rows = [(e.key, e.self_device_time_total / 1e3 / 4)
+                    for e in prof.key_averages()
+                    if e.self_device_time_total > 0]
+            device_ms = sum(ms for _, ms in rows)
+            out[impl] = {
+                "wall_ms_per_step": wall_ms,
+                "device_ms_per_step": device_ms if rows else "not measured",
+                "device_idle_share": (1 - device_ms / wall_ms) if rows
+                else "not measured",
+                "paged_attention_kernel_ms_per_step": sum(
+                    ms for k, ms in rows if "paged_attention" in k),
+                "top_kernels": sorted(rows, key=lambda r: -r[1])[:6]}
+    out["max_abs_diff"] = float(
+        (logits["kernel"] - logits["gather"]).abs().max())
+    return out
+
+
+def serve_run(torch, impl: str):
+    """One ``serve`` run through the CLI's entry point; returns (args,
+    report, results, engine) and emits the run's end-to-end numbers."""
+    from akka_allreduce_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        SERVE_ARGV + ["--paged-attention", impl])
+    report, results, engine = cli.run_serve(args)
+    torch.cuda.synchronize()
+    emit("serve_run", attention=impl,
+         completed=report["requests"]["completed"],
+         completed_reasons=report["completed_reasons"],
+         decode_tokens_per_s=report.get("decode_tokens_per_s"),
+         wall_s=report.get("wall_s"), ttft_ms=report["ttft_ms"],
+         tpot_ms=report["tpot_ms"], decode_dispatches=report[
+             "decode_dispatches"], kv_cache_mb=report["kv_cache_mb"],
+         device=report["device"])
+    if report["requests"]["completed"] != args.requests:
+        raise AssertionError(f"{impl}: {report['requests']} of "
+                             f"{args.requests} requests completed")
+    return args, report, results, engine
+
+
+def phase_serve(torch) -> dict:
+    """Runs in turns — gather, kernel, kernel, gather — so the two read
+    paths are compared on one card with warm-up and drift balanced; the
+    first kernel run is the main path whose launches are counted."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+
+    _, _, g_results, _ = serve_run(torch, "gather")
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    args, report, results, engine = serve_run(torch, "kernel")
+    launches = attention.PAGED_ATTENTION_LAUNCHES
+    steps = engine.decode_dispatches * args.decode_steps
+    expected = engine.cfg.n_layers * steps
+    emit("serve_main_path", launches=launches, expected_launches=expected,
+         decode_steps_run=steps)
+    if launches != expected or launches == 0:
+        raise AssertionError(f"paged_attention launched {launches} times, "
+                             f"expected {expected} (n_layers x steps)")
+    serve_run(torch, "kernel")
+    serve_run(torch, "gather")
+
+    reqs = cli.make_requests(args, *cli._validate(args))
+    breakdown = decode_step_breakdown(torch, engine, reqs)
+    emit("serve_decode_step", atol=1e-3, **breakdown)
+    if not breakdown["max_abs_diff"] <= 1e-3:
+        raise AssertionError(f"kernel vs gather step logits differ by "
+                             f"{breakdown['max_abs_diff']}")
+
+    identical, verdicts = 0, []
+    for req in reqs:
+        ref_toks = g_results[req.rid][0]
+        got_toks = results[req.rid][0]
+        ok, why = greedy_agree(
+            ref_toks, got_toks,
+            reference_logits(torch, engine.params, engine.cfg, req.prompt,
+                             ref_toks))
+        identical += ref_toks == got_toks
+        verdicts.append((req.rid, ok, why))
+    emit("serve_greedy_parity", requests=len(reqs), identical=identical,
+         failures=[v for v in verdicts if not v[1]])
+    if not all(ok for _, ok, _ in verdicts):
+        raise AssertionError(f"greedy tokens disagree: {verdicts}")
+    return {"launches": launches}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this "
+              "script needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from akka_allreduce_tpu_torch.ops.kernels import build
+
+    # 1. device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, count=torch.cuda.device_count(),
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    # 2. build
+    t0 = time.perf_counter()
+    info = build.build_all()
+    for kernel in build.KERNELS:
+        build.load(kernel)
+    emit("build", seconds=time.perf_counter() - t0, kernels=info)
+
+    # 3. kernels vs plain versions
+    timed = phase_kernels(torch)
+
+    # 4. the main path
+    served = phase_serve(torch)
+
+    row = timed["torch.float32"]
+    kernels = [{
+        "name": "paged_attention", "route": "cuda",
+        "source": "akka_allreduce_tpu_torch/ops/kernels/csrc/"
+                  "paged_attention.cu",
+        "replaces": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:516",
+        "launches": served["launches"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]}]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: it never loads JAX or the JAX package.
+
+Two pins: a fresh interpreter imports every module of
+``akka_allreduce_tpu_torch`` (the CLI included) and finds neither ``jax``
+nor ``akka_allreduce_tpu`` in ``sys.modules``; and an AST scan of the
+package's sources finds no import statement naming either.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "akka_allreduce_tpu_torch"
+
+
+def _modules() -> list:
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "akka_allreduce_tpu_torch.cli" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'akka_allreduce_tpu' "
+        "or m.startswith('akka_allreduce_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _imported_names(tree: ast.AST) -> list:
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def test_ast_scan_finds_no_jax_import():
+    offenders = []
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for name in _imported_names(ast.parse(path.read_text())):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "akka_allreduce_tpu"):
+                offenders.append(f"{path.relative_to(REPO)}: {name}")
+    assert offenders == []
