@@ -1,15 +1,27 @@
-"""Command line of the port: ``serve``.
+"""Command line of the port: ``serve`` and ``train``.
 
-Counterpart of ``akka_allreduce_tpu/cli.py serve`` for the flags the
-first slice of the port carries (model shape, slot or paged engine,
-closed or open synthetic load). It builds a model from ``--seed``, runs
-the synthetic load through ``serve_loop`` and prints ONE JSON summary
-line shaped like the JAX command's. It runs on ``cuda`` unless
-``--device cpu`` is given, and raises when CUDA is asked for and absent::
+Counterparts of ``akka_allreduce_tpu/cli.py serve`` and ``train`` for the
+flags the port's slices carry. Both run on ``cuda`` unless ``--device
+cpu`` is given, and raise when CUDA is asked for and absent.
+
+``serve`` (model shape, slot or paged engine, closed or open synthetic
+load) builds a model from ``--seed``, runs the synthetic load through
+``serve_loop`` and prints ONE JSON summary line shaped like the JAX
+command's::
 
     python -m akka_allreduce_tpu_torch.cli serve --paged \\
         --paged-attention kernel --d-model 2048 --n-heads 16 \\
         --kv-heads 4 --n-layers 8 --d-ff 8192 --vocab 32768 --rope
+
+``train`` (one process, one card) trains the flagship transformer from
+random weights on synthetic tokens or ``--data-file``, drawing the JAX
+command's per-step batches and printing its ``step N: loss X (Y tok/s)``
+lines; its attention runs the CUDA flash kernels
+(``ops/kernels/csrc/flash_attention.cu``)::
+
+    python -m akka_allreduce_tpu_torch.cli train --d-model 2048 \\
+        --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
+        --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1
 """
 
 from __future__ import annotations
@@ -82,10 +94,77 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
                    help="cuda (default) or cpu; cuda without CUDA raises")
 
 
+def _add_train(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("train", help="train the flagship transformer on "
+                                     "one card")
+    p.add_argument("--steps", type=int, default=20)
+    # -- model
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--n-layers", type=int, default=2)
+    p.add_argument("--n-heads", type=int, default=4)
+    p.add_argument("--d-ff", type=int, default=512)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--kv-heads", type=int, default=0,
+                   help="KV heads for grouped-query attention "
+                        "(0 = multi-head: one per query head)")
+    p.add_argument("--rope", action="store_true",
+                   help="rotary position embeddings instead of a learned "
+                        "positional table")
+    p.add_argument("--ffn", choices=("gelu", "swiglu"), default="gelu")
+    p.add_argument("--attn-window", type=int, default=0,
+                   help="sliding-window causal attention: each position "
+                        "sees itself + N-1 predecessors (0 = full causal)")
+    p.add_argument("--tie-embeddings", action="store_true",
+                   help="output head reuses the input embedding")
+    # -- batch and optimizer
+    p.add_argument("--batch", type=int, default=0,
+                   help="batch (0 = 2 x --grad-accum)")
+    p.add_argument("--seq", type=int, default=0,
+                   help="sequence length (0 = 32)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lr-schedule", choices=("constant", "cosine"),
+                   default="constant",
+                   help="cosine = linear warmup then cosine decay to 0 "
+                        "at --steps")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--clip-norm", type=float, default=0.0,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--bucket-elems", type=int, default=1 << 16,
+                   help="gradient bucket size of the multi-rank sync "
+                        "(carried; one card has no sync)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute with f32 master weights")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's activations in the "
+                        "backward pass (memory saver)")
+    p.add_argument("--grad-accum", type=int, default=1, metavar="K",
+                   help="split the batch into K microbatches, summing "
+                        "their gradients before one update")
+    p.add_argument("--optimizer", default="adamw",
+                   choices=("adamw", "adafactor", "sgd", "lion"),
+                   help="optimizer family; only adamw is ported yet")
+    # -- checkpoints, data, logging, device
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory; resumes from the latest "
+                        "checkpoint if one exists")
+    p.add_argument("--ckpt-every", type=int, default=10,
+                   help="save interval in steps")
+    p.add_argument("--data-file", default=None,
+                   help="train on a corpus: raw bytes (vocab 256) or "
+                        "*.bin little-endian uint16 tokens (vocab 65536); "
+                        "omitted = synthetic random tokens. Batches are "
+                        "deterministic in the step index")
+    p.add_argument("--log-every", type=int, default=10,
+                   help="print a progress line every N steps")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda without CUDA raises")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="akka_allreduce_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_serve(sub)
+    _add_train(sub)
     return parser
 
 
@@ -233,9 +312,174 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def train_config(args: argparse.Namespace, seq: int,
+                 attn_impl: "str | None" = None):
+    """The ``train`` flags -> TrainConfig (f32 master weights)."""
+    from akka_allreduce_tpu_torch.models.train import TrainConfig
+    from akka_allreduce_tpu_torch.models.transformer import \
+        TransformerConfig
+    mcfg = TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, max_seq=seq,
+        n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
+        attn_window=args.attn_window or None,
+        tie_embeddings=args.tie_embeddings)
+    return TrainConfig(
+        model=mcfg, learning_rate=args.lr, bucket_elems=args.bucket_elems,
+        compute_dtype="bf16" if args.bf16 else "f32", remat=args.remat,
+        lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+        total_steps=args.steps, clip_norm=args.clip_norm,
+        optimizer=args.optimizer, grad_accum=args.grad_accum,
+        attn_impl=attn_impl or "auto")
+
+
+def run_train(args: argparse.Namespace, params: "dict | None" = None,
+              attn_impl: "str | None" = None) -> dict:
+    """Train for ``args.steps`` steps and return the report: per-step
+    losses and wall ms, tokens/s and MFU over the steps after the first,
+    and the flash kernels' launch counts during the run. ``params``
+    (optional) are the starting weights, updated in place; otherwise
+    they are random from seed 0. ``attn_impl`` overrides the config's
+    "auto" (the flash path). Raises ValueError on bad flags,
+    NotImplementedError on what the port has not ported, RuntimeError
+    when CUDA is asked for and absent."""
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.models import flops
+    from akka_allreduce_tpu_torch.models.train import (make_train_state,
+                                                       make_train_step,
+                                                       tree_leaves)
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+
+    device = resolve_device(args.device)
+    if args.steps < 0 or args.grad_accum < 1:
+        raise ValueError("--steps must be >= 0 and --grad-accum >= 1")
+    b = args.batch or 2 * args.grad_accum
+    if b % args.grad_accum:
+        raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
+                         f"batch {b}")
+    t = args.seq or 32
+    log_every = max(1, args.log_every)
+    corpus = None
+    if args.data_file:
+        from akka_allreduce_tpu_torch.data import load_corpus
+        corpus = load_corpus(args.data_file)
+        needed = (corpus.max_token() + 1
+                  if args.vocab < corpus.vocab_size else 0)
+        if args.vocab < needed:
+            print(f"note: raising --vocab {args.vocab} -> {needed} to "
+                  f"cover the corpus (largest token id {needed - 1})")
+            args.vocab = needed
+    cfg = train_config(args, t, attn_impl)
+    generator = None
+    if params is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    state = make_train_state(cfg, generator=generator, params=params,
+                             device=device)
+    step = make_train_step(cfg)
+
+    start, mgr = 0, None
+    if args.ckpt_dir:
+        from akka_allreduce_tpu_torch.runtime.checkpoint import (
+            CheckpointConfig, restore_or_init)
+        start, loaded, opt_state, extra, mgr = restore_or_init(
+            CheckpointConfig(args.ckpt_dir,
+                             save_interval_steps=args.ckpt_every),
+            state.params, _opt_state(state))
+        if start:
+            with torch.no_grad():
+                for live, saved in zip(tree_leaves(state.params),
+                                       tree_leaves(loaded)):
+                    live.copy_(saved)
+            state.optimizer.load_state_dict(opt_state["optimizer"])
+            state.step = int(opt_state["count"])
+            print(f"resumed from step {start - 1} "
+                  f"(data position {extra.get('data_step', '?')})")
+
+    print(f"device {device.type}; batch={b} seq={t} "
+          f"grad_accum={args.grad_accum} attn={cfg.attn_impl}")
+
+    def build_batch(i):
+        # deterministic per-step data stream, drawn as the JAX command
+        # draws it: a resumed run sees the tokens the dead run would have
+        if corpus is not None:
+            return corpus.batch(i, b, t)
+        return np.random.default_rng(i).integers(0, args.vocab, size=(b, t),
+                                                 dtype=np.int32)
+
+    before = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    losses, step_ms = [], []
+    tic = time.perf_counter()
+    steps_in_window = 0
+    for i in range(start, args.steps):
+        t0 = time.perf_counter()
+        tokens = torch.from_numpy(build_batch(i)).to(device)
+        metrics = step(state, tokens)
+        loss = float(metrics["loss"])  # waits for the step's device work
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if mgr is not None:
+            mgr.maybe_save(i, state.params, _opt_state(state),
+                           {"data_step": i})
+        steps_in_window += 1
+        if i == start or (i + 1) % log_every == 0:
+            toks = float(metrics["tokens"])
+            dt = time.perf_counter() - tic
+            print(f"step {i + 1:4d}: loss {loss:.4f} "
+                  f"({toks * steps_in_window / dt:.0f} tok/s)", flush=True)
+            tic = time.perf_counter()
+            steps_in_window = 0
+    if mgr is not None and args.steps > start \
+            and mgr.latest_step() != args.steps - 1:
+        mgr.save(args.steps - 1, state.params, _opt_state(state),
+                 {"data_step": args.steps - 1}, force=True)
+
+    steady = step_ms[1:] or step_ms
+    step_s = sum(steady) / len(steady) / 1e3 if steady else None
+    peak = flops.chip_peak_flops(device)
+    step_flops = flops.transformer_step_flops(cfg.model, b, t)
+    after = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+             fa.FLASH_DKV_LAUNCHES)
+    return {
+        "config": {"batch": b, "seq": t, "steps": args.steps,
+                   "start_step": start, "compute_dtype": cfg.compute_dtype,
+                   "attn_impl": cfg.attn_impl, "n_layers": args.n_layers,
+                   "params": sum(p.numel()
+                                 for p in tree_leaves(state.params))},
+        "device": {"type": device.type,
+                   "name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu"),
+                   "matmul_allow_tf32":
+                       torch.backends.cuda.matmul.allow_tf32},
+        "losses": losses,
+        "step_ms": step_ms,
+        "wall_ms_per_step": step_s * 1e3 if step_s else None,
+        "tokens_per_s": b * t / step_s if step_s else None,
+        "step_flops": step_flops,
+        "mfu": step_flops / step_s / peak if step_s and peak else None,
+        "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                             (a - c for a, c in zip(after, before)))),
+    }
+
+
+def _opt_state(state) -> dict:
+    """What a checkpoint keeps of the optimizer: its state dict and the
+    step count the LR schedule reads."""
+    return {"optimizer": state.optimizer.state_dict(), "count": state.step}
+
+
+def _cmd_train(args: argparse.Namespace) -> int:
+    try:
+        run_train(args)
+    except (ValueError, NotImplementedError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    return 0
+
+
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"serve": _cmd_serve}[args.cmd](args)
+    return {"serve": _cmd_serve, "train": _cmd_train}[args.cmd](args)
 
 
 if __name__ == "__main__":

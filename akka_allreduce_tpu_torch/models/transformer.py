@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from akka_allreduce_tpu_torch.parallel.ring_attention import \
     local_causal_attention
@@ -208,11 +209,23 @@ def transformer_block(layer: dict, x: torch.Tensor, cfg: TransformerConfig,
     return x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
 
 
-def transformer_apply(params: dict, tokens: torch.Tensor,
-                      cfg: TransformerConfig,
-                      positions: Optional[torch.Tensor] = None,
-                      attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """tokens (B, T) int -> logits (B, T, vocab)."""
+def _finalize_aux(device) -> dict:
+    """The aux of a dense model, as the JAX ``_finalize_aux`` gives it
+    for no MoE layers: no load-balance loss, every token dispatched."""
+    return {"aux_loss": torch.zeros((), device=device),
+            "dispatch_fraction": torch.ones((), device=device)}
+
+
+def transformer_apply_with_aux(params: dict, tokens: torch.Tensor,
+                               cfg: TransformerConfig,
+                               positions: Optional[torch.Tensor] = None,
+                               attn_fn: Optional[AttnFn] = None,
+                               remat: bool = False
+                               ) -> tuple[torch.Tensor, dict]:
+    """tokens (B, T) int -> (logits (B, T, vocab), aux). ``remat``
+    checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
+    its activations are recomputed in the backward pass instead of
+    stored; the gradients are the same."""
     t = tokens.shape[1]
     if positions is None:
         positions = torch.arange(t, device=tokens.device)
@@ -220,5 +233,70 @@ def transformer_apply(params: dict, tokens: torch.Tensor,
     if not cfg.rope:
         x = x + params["pos"][positions]
     for layer in params["layers"]:
-        x = transformer_block(layer, x, cfg, attn_fn, positions=positions)
-    return lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                transformer_block, layer, x, cfg, attn_fn, positions,
+                use_reentrant=False)
+        else:
+            x = transformer_block(layer, x, cfg, attn_fn,
+                                  positions=positions)
+    logits = lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
+    return logits, _finalize_aux(tokens.device)
+
+
+def transformer_apply(params: dict, tokens: torch.Tensor,
+                      cfg: TransformerConfig,
+                      positions: Optional[torch.Tensor] = None,
+                      attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+    """tokens (B, T) int -> logits (B, T, vocab)."""
+    return transformer_apply_with_aux(params, tokens, cfg, positions,
+                                      attn_fn)[0]
+
+
+def weighted_ce(logits: torch.Tensor, targets: torch.Tensor,
+                weights: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Summed weighted cross-entropy (f32 log-softmax) and total weight."""
+    if weights is None:
+        weights = torch.ones(targets.shape, device=logits.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -(ll * weights).sum(), weights.sum()
+
+
+def next_token_loss_and_aux(params: dict, tokens: torch.Tensor,
+                            cfg: TransformerConfig,
+                            positions: Optional[torch.Tensor] = None,
+                            attn_fn: Optional[AttnFn] = None,
+                            targets: Optional[torch.Tensor] = None,
+                            weights: Optional[torch.Tensor] = None,
+                            remat: bool = False
+                            ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Weighted summed next-token cross-entropy, total weight and aux
+    (sums, not means, so losses over several pieces combine exactly).
+    Without ``targets`` the shift happens here (the last token has no
+    target and is dropped); with them, ``weights`` masks the positions
+    that do not count. The aux loss (0 for a dense model) is folded in
+    scaled by the token weight, as the JAX function does."""
+    logits, aux = transformer_apply_with_aux(params, tokens, cfg, positions,
+                                             attn_fn, remat=remat)
+    if targets is None:
+        logits = logits[:, :-1]
+        targets = tokens[:, 1:]
+    ce_sum, w_sum = weighted_ce(logits, targets, weights)
+    return ce_sum + aux["aux_loss"] * w_sum, w_sum, aux
+
+
+def next_token_loss(params: dict, tokens: torch.Tensor,
+                    cfg: TransformerConfig,
+                    positions: Optional[torch.Tensor] = None,
+                    attn_fn: Optional[AttnFn] = None,
+                    targets: Optional[torch.Tensor] = None,
+                    weights: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss_sum, weight_sum) wrapper over
+    :func:`next_token_loss_and_aux`."""
+    loss_sum, w_sum, _ = next_token_loss_and_aux(
+        params, tokens, cfg, positions, attn_fn, targets=targets,
+        weights=weights)
+    return loss_sum, w_sum

@@ -1,0 +1,214 @@
+"""Checkpoint / resume of training state, on torch state dicts.
+
+Counterpart of ``akka_allreduce_tpu/runtime/checkpoint.py``. A checkpoint
+is one directory per step, ``<directory>/<step>/``, holding
+``params.pt`` (the nested params dict), ``opt_state.pt`` (the
+optimizer's ``state_dict()``) and ``extra.json`` (free-form JSON: data
+position, counters). It is written into a temporary directory beside it
+and renamed into place, so a crash mid-save never leaves a torn
+checkpoint; the newest ``keep`` are retained. Saves are synchronous, so
+``wait_until_finished`` has nothing to wait for.
+
+The JAX package's orbax checkpoints are not read here (nor these by it):
+the formats differ, and carrying a run across is a later item (ROADMAP.md
+A2). The JSON sidecars (``save_state_json`` / ``load_state_json``) are
+the JAX package's: one atomic file per name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import torch
+
+_ITEMS = ("params", "opt_state")
+
+
+def _atomic_write_text(path: str, text: str) -> str:
+    """Write ``text`` to ``path`` through a temporary file, fsync and
+    rename: a crash mid-write leaves the previous complete file."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def save_state_json(directory: str, name: str, payload: dict) -> str:
+    """Atomically write ``payload`` as ``<directory>/<name>.json``;
+    returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    return _atomic_write_text(os.path.join(directory, f"{name}.json"),
+                              json.dumps(payload))
+
+
+def load_state_json(directory: str, name: str) -> Optional[dict]:
+    """Read a :func:`save_state_json` file; None when absent."""
+    try:
+        with open(os.path.join(directory, f"{name}.json")) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """``keep`` bounds the retained checkpoints; ``save_interval_steps``
+    is the :meth:`CheckpointManager.maybe_save` cadence."""
+
+    directory: str
+    keep: int = 3
+    save_interval_steps: int = 100
+
+
+def _like(template: Any, loaded: Any) -> Any:
+    """``loaded`` with the template's nesting, each tensor on the
+    template tensor's device and dtype; a shape mismatch raises."""
+    if isinstance(template, dict):
+        if set(template) != set(loaded):
+            raise ValueError(f"restored keys {sorted(loaded)} != template "
+                             f"{sorted(template)}")
+        return {k: _like(template[k], loaded[k]) for k in template}
+    if isinstance(template, (list, tuple)):
+        if len(template) != len(loaded):
+            raise ValueError(f"restored list of {len(loaded)} != template "
+                             f"{len(template)}")
+        return [_like(t, x) for t, x in zip(template, loaded)]
+    if tuple(template.shape) != tuple(loaded.shape):
+        raise ValueError(f"restored leaf shape {tuple(loaded.shape)} != "
+                         f"template {tuple(template.shape)}")
+    return loaded.to(template.device, template.dtype)
+
+
+class CheckpointManager:
+    """Save/restore (params, opt_state, extra) keyed by step."""
+
+    def __init__(self, config: CheckpointConfig):
+        self.config = config
+        os.makedirs(config.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.config.directory, str(step))
+
+    def steps(self) -> list:
+        return sorted(int(n) for n in os.listdir(self.config.directory)
+                      if n.isdigit())
+
+    # -- save --------------------------------------------------------------
+
+    def save(self, step: int, params: Any, opt_state: Any,
+             extra: Optional[dict] = None, force: bool = False) -> bool:
+        """Save unconditionally (``force``) or per the interval policy
+        (``step % save_interval_steps == 0``). Returns whether a save
+        happened (as orbax's policy, never at or before the latest saved
+        step unless forced)."""
+        if not force:
+            latest = self.latest_step()
+            if step % max(1, self.config.save_interval_steps) or (
+                    latest is not None and latest >= step):
+                return False
+        final = self._path(step)
+        tmp = f"{final}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        for name, tree in (("params", params), ("opt_state", opt_state)):
+            torch.save(tree, os.path.join(tmp, f"{name}.pt"))
+        _atomic_write_text(os.path.join(tmp, "extra.json"),
+                           json.dumps(extra or {}))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        for old in self.steps()[:-self.config.keep]:
+            shutil.rmtree(self._path(old), ignore_errors=True)
+        return True
+
+    def maybe_save(self, step: int, params: Any, opt_state: Any,
+                   extra: Optional[dict] = None) -> bool:
+        """Interval-gated save — safe to call every step."""
+        return self.save(step, params, opt_state, extra, force=False)
+
+    # -- restore -----------------------------------------------------------
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def _resolve_step(self, step: Optional[int]) -> int:
+        if step is None:
+            step = self.latest_step()
+        if step is None or not os.path.isdir(self._path(step)):
+            raise FileNotFoundError(
+                f"no checkpoint under {self.config.directory}"
+                + ("" if step is None else f" at step {step}"))
+        return step
+
+    def _load(self, step: int, name: str, device) -> Any:
+        return torch.load(os.path.join(self._path(step), f"{name}.pt"),
+                          map_location=device, weights_only=True)
+
+    def _extra(self, step: int) -> dict:
+        with open(os.path.join(self._path(step), "extra.json")) as f:
+            return json.load(f)
+
+    def restore(self, params_like: Any, opt_state_like: Any,
+                step: Optional[int] = None) -> tuple[int, Any, Any, dict]:
+        """``(step, params, opt_state, extra)``: params take the nesting,
+        devices and dtypes of ``params_like`` (shapes must match);
+        ``opt_state`` is the saved ``state_dict()``, its tensors on the
+        params' device, for ``optimizer.load_state_dict``."""
+        step = self._resolve_step(step)
+        device = _first_device(params_like)
+        params = _like(params_like, self._load(step, "params", device))
+        opt_state = self._load(step, "opt_state", device)
+        if isinstance(opt_state_like, dict) and \
+                len(opt_state.get("param_groups", [])) != \
+                len(opt_state_like.get("param_groups", [])):
+            raise ValueError("restored optimizer state has another "
+                             "parameter-group layout than the template")
+        return step, params, opt_state, self._extra(step)
+
+    def restore_params(self, params_like: Any, step: Optional[int] = None,
+                       item: str = "params") -> tuple[int, Any, dict]:
+        """Restore one item without the optimizer state (the weights-only
+        consumer path)."""
+        if item not in _ITEMS:
+            raise KeyError(f"item {item!r} not in checkpoint; available "
+                           f"items: {list(_ITEMS)}")
+        step = self._resolve_step(step)
+        loaded = self._load(step, item, _first_device(params_like))
+        return step, _like(params_like, loaded), self._extra(step)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def wait_until_finished(self) -> None:
+        """Saves are synchronous: nothing is ever in flight."""
+
+    def close(self) -> None:
+        """Nothing to release (no background writer)."""
+
+
+def _first_device(tree: Any) -> torch.device:
+    if isinstance(tree, dict):
+        return _first_device(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _first_device(tree[0])
+    return tree.device
+
+
+def restore_or_init(config: CheckpointConfig, params: Any, opt_state: Any
+                    ) -> tuple[int, Any, Any, dict, CheckpointManager]:
+    """Open the manager and either restore the latest checkpoint or keep
+    the given state. Returns (next_step, params, opt_state, extra,
+    manager)."""
+    mgr = CheckpointManager(config)
+    step = mgr.latest_step()
+    if step is None:
+        return 0, params, opt_state, {}, mgr
+    step, params, opt_state, extra = mgr.restore(params, opt_state, step)
+    return step + 1, params, opt_state, extra, mgr

@@ -27,6 +27,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    with a torch.profiler breakdown of that step; the greedy tokens match
    the gather run's wherever its top-2 logit gap exceeds 1e-3.
 
+5. kernels (flash) — hold the flash forward, dq and dk/dv kernels
+   against their plain PyTorch versions on the same CUDA tensors: f32 at
+   2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the JAX package's
+   tolerances), over the training slice's shape (B 8, T 2048, 16 heads of
+   128), GQA (4 KV heads), MQA, a 256 window, non-causal, a ragged T of
+   1000, Tq != Tk with offsets, and head_dim 64. At the slice's shape, in
+   bf16 and f32: each kernel, the plain version and the library call
+   (``scaled_dot_product_attention``, forward, and its backward) timed as
+   above, and each kernel's bound computed from the live (q, k) pairs.
+6. train   — the port's ``train`` at the flagship training configuration
+   (d_model 2048, 16 heads, 8 layers, d_ff 8192 gelu, vocab 32768, bf16
+   compute, f32 masters, adamw lr 1e-4, batch 8, seq 2048, 6 steps,
+   random weights from seed 0) through ``run_train``; asserts finite
+   losses and each flash counter at n_layers x steps; reports wall ms
+   per step after step 1, tokens/s and MFU against the bf16 peak; then a
+   torch.profiler window of 2 steps on the trained weights: device ms by
+   kernel, the flash kernels' share, the device's idle share.
+7. train parity — f32, full width, the gqa4 variant (4 KV heads, rope),
+   batch 2, seq 2048, from one set of weights: step-0 loss and grads
+   through the kernels against ``attn_impl="local"`` (loss within 1e-5
+   relative; every gradient leaf within 1e-3 of that leaf's largest
+   value: f32 sums in other orders over 2048 keys and 8 layers stay near
+   1e-5, while a GQA head's lost share would be O(1)), then two steps of
+   each (step-1 loss within 1e-4 relative).
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -34,6 +59,7 @@ kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,6 +67,7 @@ import time
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, 700 W
+DEVICE = "cuda"  # the training phases' device (a CPU rehearsal sets "cpu")
 
 SERVE_ARGV = [
     "serve", "--vocab", "32768", "--d-model", "2048", "--n-heads", "16",
@@ -54,6 +81,35 @@ SERVE_ARGV = [
 # the gqa4 model, 16-position pages, max_seq 512 — then MHA, MQA, P=32
 KERNEL_SHAPES = [(8, 16, 4, 128, 16, 32), (8, 16, 16, 128, 16, 32),
                  (8, 16, 1, 128, 16, 32), (8, 16, 4, 128, 32, 16)]
+
+TRAIN_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--n-layers", "8",
+    "--d-ff", "8192", "--vocab", "32768", "--seq", "2048", "--batch", "8",
+    "--bf16", "--lr", "1e-4", "--steps", "6", "--log-every", "1",
+    "--device", "cuda"]
+PARITY_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--kv-heads", "4",
+    "--rope", "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768",
+    "--seq", "2048", "--batch", "2", "--lr", "1e-4", "--steps", "2",
+    "--log-every", "1", "--device", "cuda"]
+
+# (name, B, Tq, Tk, H, h_kv, D, causal, window, q_off, k_off): the
+# training slice's shape first
+FLASH_SHAPES = [
+    ("slice", 8, 2048, 2048, 16, 16, 128, True, None, 0, 0),
+    ("gqa4", 2, 1024, 1024, 16, 4, 128, True, None, 0, 0),
+    ("mqa", 2, 1024, 1024, 16, 1, 128, True, None, 0, 0),
+    ("window256", 2, 1024, 1024, 16, 4, 128, True, 256, 0, 0),
+    ("noncausal", 2, 512, 512, 16, 4, 128, False, None, 0, 0),
+    ("ragged1000", 2, 1000, 1000, 16, 4, 128, True, None, 0, 0),
+    ("offsets", 2, 512, 1024, 16, 4, 128, True, 384, 512, 0),
+    ("d64", 2, 1024, 1024, 16, 4, 64, True, None, 0, 0)]
+FLASH_TOL = {"torch.float32": (2e-5, 5e-5), "torch.bfloat16": (3e-2, 3e-2)}
+FLASH_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
+    "flash_dq": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:153",
+    "flash_dkv": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:184"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -118,6 +174,13 @@ def time_ms(torch, fn, flush, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float, dtype: str) -> "tuple[float, str]":
+    """The larger of the byte time and the operation time, in ms."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def paged_bound(torch, q, k_pages, table, pos) -> "tuple[float, str]":
     """Least time for this call's work: the K/V rows at positions <= pos
     read once, q and table entries read, out written; ~4 * D flops per
@@ -129,10 +192,7 @@ def paged_bound(torch, q, k_pages, table, pos) -> "tuple[float, str]":
     n_pages = int(((pos.long() // p) + 1).sum())
     nbytes = (2 * live * h_kv * d * es + 2 * q.numel() * es
               + 4 * (n_pages + b))
-    flops = 4 * h * d * live
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(4 * h * d * live, nbytes, str(q.dtype).split(".")[-1])
 
 
 def library_attention(torch, q, k_pages, v_pages, table, pos):
@@ -194,6 +254,243 @@ def phase_kernels(torch) -> dict:
     return timed
 
 
+def flash_bounds(torch, q, k, causal, window, q_off, k_off) -> dict:
+    """Each flash kernel's least time for this call: its own matmul
+    flops over the live (q, k) pairs (2 D each: fwd QK and PV; dq also
+    dO.V and dS.K; dk/dv QK, dO.V, P.dO and dS.Q), and its tensors read
+    or written once (lse and delta in f32)."""
+    from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
+        score_mask
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    mask = score_mask(tq, tk, causal, window, q_off, k_off, q.device)
+    pairs = b * h * (tq * tk if mask is None else int(mask.sum()))
+    es = q.element_size()
+    qb, kb, rows = q.numel() * es, k.numel() * es, 4 * b * h * tq
+    dtype = str(q.dtype).split(".")[-1]
+    return {"flash_fwd": bound(4 * d * pairs, 2 * qb + 2 * kb + rows, dtype),
+            "flash_dq": bound(6 * d * pairs, 3 * qb + 2 * kb + 2 * rows,
+                              dtype),
+            "flash_dkv": bound(8 * d * pairs, 2 * qb + 4 * kb + 2 * rows,
+                               dtype)}
+
+
+def flash_case(torch, shape, dtype, seed):
+    _, b, tq, tk, h, h_kv, d, *_ = shape
+    gen = torch.Generator().manual_seed(seed)
+    sizes = ((b, tq, h, d), (b, tk, h_kv, d), (b, tk, h_kv, d), (b, tq, h, d))
+    return [torch.randn(s, generator=gen).to(DEVICE, dtype) for s in sizes]
+
+
+def library_backward(torch, q, k, v, do):
+    """``scaled_dot_product_attention`` forward once, and a function that
+    runs its backward (dq, dk, dv) for ``do``: the yardstick of the
+    backward pair. Timed only; the port never calls it."""
+    import torch.nn.functional as F
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, do_t, retain_graph=True)
+
+
+def phase_flash_kernels(torch) -> dict:
+    """Every listed shape in f32 and bf16 through the three kernels and
+    the plain versions; the slice's shape also timed. Returns the timed
+    rows by dtype."""
+    import torch.nn.functional as F
+
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    timed = {}
+    for n, shape in enumerate(FLASH_SHAPES):
+        name, *_, causal, window, q_off, k_off = shape
+        opts = (causal, window, q_off, k_off)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_case(torch, shape, dtype, seed=100 + n)
+            o, lse = fa.flash_forward(q, k, v, *opts)
+            want_o, want_lse = fa.flash_forward_reference(q, k, v, *opts)
+            delta = fa.attention_delta(want_o, do)
+            got = {"o": o, "lse": lse,
+                   "dq": fa.flash_dq(q, k, v, do, want_lse, delta, *opts)}
+            got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, want_lse,
+                                                delta, *opts)
+            want = dict(zip(("dq", "dk", "dv"), fa.flash_backward_reference(
+                q, k, v, want_o, want_lse, do, *opts)), o=want_o,
+                lse=want_lse)
+            torch.cuda.synchronize()
+            tol_fwd, tol_bwd = FLASH_TOL[str(dtype)]
+            errs, ok = {}, True
+            for key, g in got.items():
+                tol = tol_fwd if key in ("o", "lse") else tol_bwd
+                w = want[key].float()
+                errs[key] = float((g.float() - w).abs().max())
+                ok = ok and bool(torch.isfinite(g).all()) and \
+                    torch.allclose(g.float(), w, atol=tol, rtol=tol)
+            row = {"shape": name, "dtype": str(dtype), "max_abs_err": errs,
+                   "ok": ok}
+            del got, want
+            if name == "slice":
+                bounds = flash_bounds(torch, q, k, *opts)
+                lib_bwd = library_backward(torch, q, k, v, do)
+                row["ms"] = {
+                    "flash_fwd": time_ms(torch, lambda: fa.flash_forward(
+                        q, k, v, *opts), flush),
+                    "flash_dq": time_ms(torch, lambda: fa.flash_dq(
+                        q, k, v, do, lse, delta, *opts), flush),
+                    "flash_dkv": time_ms(torch, lambda: fa.flash_dkv(
+                        q, k, v, do, lse, delta, *opts), flush)}
+                row["plain_ms"] = {
+                    "forward": time_ms(torch, lambda: fa
+                                       .flash_forward_reference(
+                                           q, k, v, *opts), flush),
+                    "backward": time_ms(torch, lambda: fa
+                                        .flash_backward_reference(
+                                            q, k, v, o, lse, do, *opts),
+                                        flush)}
+                row["library_ms"] = {
+                    "forward": time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), is_causal=True), flush),
+                    "backward": time_ms(torch, lib_bwd, flush)}
+                row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
+                row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+                del lib_bwd
+                timed[str(dtype)] = row
+            emit("kernels", kernel="flash_attention", **row)
+            del q, k, v, do, o, lse, delta, want_o, want_lse
+            torch.cuda.empty_cache()
+            if not ok:
+                raise AssertionError(f"a flash kernel disagrees with its "
+                                     f"plain version: {row}")
+    return timed
+
+
+def profile_train_steps(torch, args, params, n_steps=2) -> dict:
+    """A torch.profiler window over ``n_steps`` train steps on
+    ``params`` (one warm-up step first, so the optimizer's state exists):
+    wall ms per step, device ms per step by kernel, the flash kernels'
+    share and the device's idle share."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import (make_train_state,
+                                                       make_train_step)
+    cfg = cli.train_config(args, args.seq)
+    state = make_train_state(cfg, params=params)
+    step = make_train_step(cfg)
+
+    def tokens(i):
+        return torch.from_numpy(np.random.default_rng(i).integers(
+            0, args.vocab, size=(args.batch, args.seq),
+            dtype=np.int32)).to(DEVICE)
+    step(state, tokens(args.steps))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(state, tokens(args.steps + 1 + i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    rows = device_kernel_rows(torch, prof.key_averages(), n_steps)
+    device_ms = sum(ms for _, ms in rows)
+    flash_ms = sum(ms for key, ms in rows if "flash_" in key)
+    gemm_ms = sum(ms for key, ms in rows if any(
+        tag in key for tag in ("gemm", "nvjet", "cutlass", "xmma")))
+    return {
+        "steps": n_steps, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else "not measured",
+        "device_idle_share": (1 - device_ms / wall_ms) if rows
+        else "not measured",
+        "flash_kernels_ms_per_step": flash_ms,
+        "flash_share_of_device": flash_ms / device_ms if rows
+        else "not measured",
+        "gemm_kernels_ms_per_step": gemm_ms,
+        "top_kernels": sorted(rows, key=lambda r: -r[1])[:12]}
+
+
+def phase_train(torch) -> dict:
+    """The main path: ``run_train`` at the flagship configuration, every
+    flash counter set to 0 just before and read just after."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    args = cli.build_parser().parse_args(TRAIN_ARGV)
+    params = init_transformer(torch.Generator(DEVICE).manual_seed(0),
+                              cli.train_config(args, args.seq).model,
+                              DEVICE)
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    report = cli.run_train(args, params=params)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+                "flash_dq": fa.FLASH_DQ_LAUNCHES,
+                "flash_dkv": fa.FLASH_DKV_LAUNCHES}
+    expected = args.n_layers * args.steps
+    emit("train_run", **{k: report[k] for k in (
+        "config", "device", "losses", "step_ms", "wall_ms_per_step",
+        "tokens_per_s", "step_flops", "mfu")}, launches=launches,
+        expected_launches=expected,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"{expected} each (n_layers x steps)")
+    if not all(math.isfinite(x) for x in report["losses"]):
+        raise AssertionError(f"non-finite losses {report['losses']}")
+    emit("train_step_profile", **profile_train_steps(torch, args, params))
+    return launches
+
+
+def phase_train_parity(torch) -> dict:
+    """f32 gqa4 at full width: step-0 loss and grads through the kernels
+    against the plain local attention, then two steps of each from the
+    same weights and batches."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import (make_grad_step,
+                                                       make_train_state,
+                                                       tree_leaves, tree_map)
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    args = cli.build_parser().parse_args(PARITY_ARGV)
+    cfg = {impl: cli.train_config(args, args.seq, impl)
+           for impl in ("flash", "local")}
+    params0 = init_transformer(torch.Generator(DEVICE).manual_seed(0),
+                               cfg["flash"].model, DEVICE)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, args.vocab, size=(args.batch, args.seq),
+        dtype=np.int32)).to(DEVICE)
+    state = make_train_state(cfg["flash"], params=params0)
+    grads, loss0 = {}, {}
+    for impl in ("flash", "local"):
+        g, metrics = make_grad_step(cfg[impl])(state.params, tokens)
+        grads[impl], loss0[impl] = tree_leaves(g), float(metrics["loss"])
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(grads["flash"], grads["local"]))
+    del grads, state
+    runs = {}
+    for impl in ("flash", "local"):
+        runs[impl] = cli.run_train(
+            args, params=tree_map(lambda p: p.detach().clone(), params0),
+            attn_impl=impl)
+        torch.cuda.empty_cache()
+    rel = [abs(f - l) / abs(l) for f, l in zip(runs["flash"]["losses"],
+                                               runs["local"]["losses"])]
+    out = {"loss0_grad_step": loss0, "max_grad_err_rel_to_leaf_max":
+           grad_err, "losses": {k: r["losses"] for k, r in runs.items()},
+           "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+           "loss_rel_err": rel, "tolerances": {
+               "loss0": 1e-5, "grads": 1e-3, "loss1": 1e-4}}
+    emit("train_parity", **out)
+    ok = (abs(loss0["flash"] - loss0["local"]) <= 1e-5 * abs(loss0["local"])
+          and grad_err <= 1e-3 and rel[0] <= 1e-5 and rel[1] <= 1e-4)
+    if not ok:
+        raise AssertionError(f"flash vs local training parity failed: {out}")
+    return out
+
+
 def reference_logits(torch, params, cfg, prompt, tokens):
     """The logits that picked each of ``tokens`` after ``prompt``, from
     one full forward (the cached decode's parity oracle)."""
@@ -204,6 +501,21 @@ def reference_logits(torch, params, cfg, prompt, tokens):
     with torch.no_grad():
         logits = transformer_apply(params, seq[None], cfg)[0]
     return logits[len(prompt) - 1:].float().cpu().numpy()
+
+
+def device_kernel_rows(torch, averages, n_steps: int) -> list:
+    """``(name, ms per step)`` of each kernel in a profiler's
+    ``key_averages()``: the rows that ran on the card, less the
+    annotated ranges. A CPU op's row (``aten::mm``, an autograd node)
+    carries in its ``self_device_time_total`` the time of the kernels it
+    launched, and a ``record_function`` range (``Optimizer.step``) shows
+    on the card as a span over its kernels; both repeat time that the
+    kernels' own rows hold, so summing them would count it twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.key, e.self_device_time_total / 1e3 / n_steps)
+            for e in averages
+            if e.device_type == cuda and not e.is_user_annotation
+            and e.self_device_time_total > 0]
 
 
 def decode_step_breakdown(torch, engine, reqs) -> dict:
@@ -241,9 +553,7 @@ def decode_step_breakdown(torch, engine, reqs) -> dict:
                     step()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3 / 4
-            rows = [(e.key, e.self_device_time_total / 1e3 / 4)
-                    for e in prof.key_averages()
-                    if e.self_device_time_total > 0]
+            rows = device_kernel_rows(torch, prof.key_averages(), 4)
             device_ms = sum(ms for _, ms in rows)
             out[impl] = {
                 "wall_ms_per_step": wall_ms,
@@ -354,8 +664,15 @@ def main() -> int:
     # 3. kernels vs plain versions
     timed = phase_kernels(torch)
 
-    # 4. the main path
+    # 4. the serving path
     served = phase_serve(torch)
+
+    # 5. the flash kernels vs plain versions
+    flash = phase_flash_kernels(torch)
+
+    # 6. the training path, 7. its parity with the plain attention
+    trained = phase_train(torch)
+    phase_train_parity(torch)
 
     row = timed["torch.float32"]
     kernels = [{
@@ -367,6 +684,18 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]}]
+    frow = flash["torch.bfloat16"]  # the training path runs bf16
+    for kernel, err_keys, part in (("flash_fwd", ("o", "lse"), "forward"),
+                                   ("flash_dq", ("dq",), "backward"),
+                                   ("flash_dkv", ("dk", "dv"), "backward")):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[kernel], "launches": trained[kernel],
+            "max_abs_err": max(frow["max_abs_err"][k] for k in err_keys),
+            "ms": frow["ms"][kernel], "plain_ms": frow["plain_ms"][part],
+            "bound_ms": frow["bound_ms"][kernel],
+            "bound_by": frow["bound_by"][kernel],
+            "library_ms": frow["library_ms"][part]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""The port's ``serve`` command on the CPU.
+"""The port's ``serve`` and ``train`` commands on the CPU.
 
 ``serve --device cpu`` on the tiny model prints one JSON line carrying
 the JAX serve command's summary keys; ``--device cuda`` on a machine
 without CUDA exits non-zero; the kernel read path with a sliding window
 is refused; and one seed draws the same synthetic load as the JAX
-command. TF32 is off for CUDA matmuls (``allow_tf32 = False``).
+command. ``train --device cpu`` prints the JAX command's step lines and
+its report carries losses, times and launch counts (0: the CPU runs the
+kernels' plain versions); without ``--device cpu`` and without CUDA it
+raises. TF32 is off for CUDA matmuls (``allow_tf32 = False``).
 """
 
 import argparse
@@ -54,14 +57,14 @@ def test_serve_cpu_prints_one_json_line_with_jax_keys(capsys, engine):
         assert report["config"]["paged_attention"] == "kernel"
 
 
-def test_cuda_without_cuda_exits_nonzero():
+@pytest.mark.parametrize("command", [["serve", *TINY], ["train"]])
+def test_cuda_without_cuda_exits_nonzero(command):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal needs one without")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run(
-        [sys.executable, "-m", "akka_allreduce_tpu_torch.cli", "serve",
-         *TINY], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=120)
+        [sys.executable, "-m", "akka_allreduce_tpu_torch.cli", *command],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""
     assert "torch.cuda.is_available() is False" in out.stderr
@@ -96,3 +99,50 @@ def test_synthetic_load_matches_the_jax_command():
         assert req.prompt == prompt and req.rid == i
         assert req.arrival - reqs[0].arrival == pytest.approx(
             arrivals[i] - arrivals[0])
+
+
+TRAIN_TINY = ["train", "--device", "cpu", "--vocab", "61", "--d-model", "64",
+              "--n-heads", "4", "--kv-heads", "2", "--rope", "--d-ff", "128",
+              "--seq", "24", "--steps", "3", "--log-every", "2"]
+
+
+def test_train_cpu_prints_step_lines_and_reports(capsys):
+    assert cli.main(TRAIN_TINY) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    # the JAX command's cadence: the first step, then every --log-every
+    assert [ln.split(":")[0] for ln in steps] == ["step    1", "step    2"]
+    assert all("loss" in ln and "tok/s)" in ln for ln in steps)
+    report = cli.run_train(cli.build_parser().parse_args(TRAIN_TINY))
+    assert len(report["losses"]) == len(report["step_ms"]) == 3
+    assert all(np.isfinite(report["losses"]))
+    assert report["config"]["batch"] == 2 and report["config"]["seq"] == 24
+    assert report["launches"] == {"flash_fwd": 0, "flash_dq": 0,
+                                  "flash_dkv": 0}
+    assert report["mfu"] is None and report["device"]["type"] == "cpu"
+
+
+def test_train_draws_the_jax_commands_batches():
+    """Step i's synthetic batch is default_rng(i).integers(0, vocab,
+    (b, t), int32), as akka_allreduce_tpu/cli.py train draws it: the same
+    seed gives the same first loss from the same weights."""
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    args = cli.build_parser().parse_args(TRAIN_TINY + ["--steps", "1"])
+    report = cli.run_train(args)
+    cfg = cli.train_config(args, 24)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg.model)
+    state = train.make_train_state(cfg, params=params)
+    tokens = np.random.default_rng(0).integers(0, 61, size=(2, 24),
+                                               dtype=np.int32)
+    _, metrics = train.make_grad_step(cfg)(state.params,
+                                           torch.from_numpy(tokens))
+    assert report["losses"] == [float(metrics["loss"])]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--optimizer", "sgd"], "A2"),
+    (["--batch", "4", "--grad-accum", "3"], "divide")])
+def test_train_refusals_exit_2(capsys, flags, match):
+    assert cli.main(TRAIN_TINY + flags) == 2
+    assert match in capsys.readouterr().err

@@ -29,7 +29,12 @@ def _modules() -> list:
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "akka_allreduce_tpu_torch.cli" in mods
+    assert {"akka_allreduce_tpu_torch.cli",
+            "akka_allreduce_tpu_torch.data",
+            "akka_allreduce_tpu_torch.models.flops",
+            "akka_allreduce_tpu_torch.models.train",
+            "akka_allreduce_tpu_torch.ops.kernels.flash_attention",
+            "akka_allreduce_tpu_torch.runtime.checkpoint"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

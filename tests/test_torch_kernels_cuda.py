@@ -7,7 +7,9 @@ runs on the GPU machine, from the repository root::
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-f32 at atol = rtol = 1e-5 (another summation order), bf16 at atol 2e-2;
+paged attention: f32 at atol = rtol = 1e-5 (another summation order),
+bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
+2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2;
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
@@ -75,3 +77,84 @@ def test_paged_attention_rejects_non_contiguous(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         attention.paged_attention(q, k.transpose(0, 1).contiguous()
                                   .transpose(0, 1), v, table, pos)
+
+
+# -- flash attention (forward, dq, dk/dv) ---------------------------------
+
+# (h_kv, head_dim, causal, window, tq, tk, q_off, k_off) over H = 8 heads:
+# MHA, GQA and MQA, D 64 and 128, non-causal, a window, a ragged length
+# (not a multiple of the 64-row tile) and Tq != Tk with offsets
+FLASH_CASES = [(8, 64, True, None, 256, 256, 0, 0),
+               (2, 128, True, None, 256, 256, 0, 0),
+               (1, 64, True, None, 192, 192, 0, 0),
+               (2, 64, False, None, 128, 128, 0, 0),
+               (2, 64, True, 48, 256, 256, 0, 0),
+               (2, 128, True, None, 100, 100, 0, 0),
+               (2, 64, True, 80, 128, 256, 128, 0)]
+FLASH_TOL = {torch.float32: (2e-5, 5e-5), torch.bfloat16: (3e-2, 3e-2)}
+
+
+def flash_inputs(h_kv, d, tq, tk, seed, device, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((2, tq, 8, d), generator=gen)
+    k = torch.randn((2, tk, h_kv, d), generator=gen)
+    v = torch.randn((2, tk, h_kv, d), generator=gen)
+    do = torch.randn((2, tq, 8, d), generator=gen)
+    return [t.to(device, dtype) for t in (q, k, v, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    h_kv, d, causal, window, tq, tk, q_off, k_off = case
+    q, k, v, do = flash_inputs(h_kv, d, tq, tk, seed=tq + h_kv + d,
+                               device=cuda_device, dtype=dtype)
+    opts = (causal, window, q_off, k_off)
+    counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    o, lse = fa.flash_forward(q, k, v, *opts)
+    want_o, want_lse = fa.flash_forward_reference(q, k, v, *opts)
+    delta = fa.attention_delta(want_o, do)
+    dq = fa.flash_dq(q, k, v, do, want_lse, delta, *opts)
+    dk, dv = fa.flash_dkv(q, k, v, do, want_lse, delta, *opts)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+            fa.FLASH_DKV_LAUNCHES) == tuple(c + 1 for c in counts)
+    want = fa.flash_backward_reference(q, k, v, want_o, want_lse, do, *opts)
+    tol_fwd, tol_bwd = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol_fwd,
+                               rtol=tol_fwd)
+    torch.testing.assert_close(lse, want_lse, atol=tol_fwd, rtol=tol_fwd)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), w.float(), atol=tol_bwd,
+                                   rtol=tol_bwd)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_launches_each_kernel_once(cuda_device):
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, do = flash_inputs(2, 64, 128, 128, 0, cuda_device,
+                               torch.float32)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    counts = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+              fa.FLASH_DKV_LAUNCHES)
+    out = fa.flash_causal_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+            fa.FLASH_DKV_LAUNCHES) == tuple(c + 1 for c in counts)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_forward_reference(*ref)[0], ref, do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_flash_rejects_unsupported_head_dim(cuda_device):
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, _ = flash_inputs(2, 32, 64, 64, 0, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q, k, v)
