@@ -13,15 +13,19 @@ command's::
         --paged-attention kernel --d-model 2048 --n-heads 16 \\
         --kv-heads 4 --n-layers 8 --d-ff 8192 --vocab 32768 --rope
 
-``train`` (one process, one card) trains the flagship transformer from
-random weights on synthetic tokens or ``--data-file``, drawing the JAX
-command's per-step batches and printing its ``step N: loss X (Y tok/s)``
-lines; its attention runs the CUDA flash kernels
-(``ops/kernels/csrc/flash_attention.cu``)::
+``train`` trains the flagship transformer from random weights on
+synthetic tokens or ``--data-file``, drawing the JAX command's per-step
+batches and printing its ``step N: loss X (Y tok/s)`` lines; its attention
+runs the CUDA flash kernels (``ops/kernels/csrc/flash_attention.cu``).
+With ``--dp N`` it runs N rank processes, each on its rows of the global
+batch, whose gradients meet in the bucketed allreduce (``--grad-quant``,
+``--grad-schedule``; the sync's CUDA kernels in
+``ops/kernels/csrc/masked_reduce.cu`` and ``quantize.cu``)::
 
     python -m akka_allreduce_tpu_torch.cli train --d-model 2048 \\
         --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
-        --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1
+        --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1 \\
+        [--dp 2 --dist-backend gloo --grad-quant ef8]
 """
 
 from __future__ import annotations
@@ -130,8 +134,46 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--clip-norm", type=float, default=0.0,
                    help="global-norm gradient clipping (0 = off)")
     p.add_argument("--bucket-elems", type=int, default=1 << 16,
-                   help="gradient bucket size of the multi-rank sync "
-                        "(carried; one card has no sync)")
+                   help="gradient bucket size of the multi-rank sync: the "
+                        "flattened gradients cut into rows of this many "
+                        "elements, one wire chunk each")
+    # -- data parallelism and the gradient wire
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one process each; rank r "
+                        "trains on rows [r*B/N, (r+1)*B/N) of each global "
+                        "batch (1 = this process alone)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend with --dp > 1 (default: "
+                        "nccl on cuda, gloo on cpu). nccl needs one GPU "
+                        "per rank; gloo runs several ranks on one card "
+                        "and moves the wire through host memory")
+    p.add_argument("--int8-grads", action="store_true",
+                   help="int8-quantized gradient allreduce transport "
+                        "(alias of --grad-quant int8)")
+    p.add_argument("--bf16-grads", action="store_true",
+                   help="bf16 gradient allreduce transport (alias of "
+                        "--grad-quant bf16); masters/optimizer stay f32")
+    p.add_argument("--grad-quant",
+                   choices=("none", "bf16", "int8", "ef8"), default=None,
+                   help="gradient-wire format: none = f32; bf16 = half "
+                        "the bytes, plain rounding; int8 = per-bucket-row "
+                        "scales, stochastic rounding on both hops; ef8 = "
+                        "int8 with one scale per 512 columns and an "
+                        "error-feedback residual carried across steps. "
+                        "Supersedes --int8-grads/--bf16-grads")
+    p.add_argument("--grad-schedule",
+                   choices=("fused", "windowed", "swing", "hierarchical",
+                            "auto"), default="fused",
+                   help="gradient-collective schedule: fused (one "
+                        "reduce-scatter + all-gather per sync); windowed "
+                        "(the bucket axis in --grad-windows windows, one "
+                        "window's all-gather issued after the next one's "
+                        "reduce-scatter); swing (log2(N) exchanges of the "
+                        "running sum with the rank at XOR distance 2^t; "
+                        "power-of-two --dp). hierarchical and auto are "
+                        "not ported yet (ROADMAP.md A3b)")
+    p.add_argument("--grad-windows", type=int, default=4, metavar="W",
+                   help="window count for --grad-schedule windowed")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute with f32 master weights")
     p.add_argument("--remat", action="store_true",
@@ -312,6 +354,24 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def grad_wire(args: argparse.Namespace) -> str:
+    """The gradient wire from --grad-quant and its legacy aliases, as the
+    JAX command resolves them (ValueError when they contradict)."""
+    if args.int8_grads and args.bf16_grads:
+        raise ValueError("pick ONE gradient wire: --int8-grads or "
+                         "--bf16-grads")
+    legacy = ("int8" if args.int8_grads
+              else "bf16" if args.bf16_grads else None)
+    if args.grad_quant is None:
+        return legacy or "f32"
+    wire = "f32" if args.grad_quant == "none" else args.grad_quant
+    if legacy is not None and legacy != wire:
+        raise ValueError(f"--grad-quant {args.grad_quant} contradicts "
+                         f"--{legacy}-grads — drop the legacy flag "
+                         f"(--grad-quant is the one spelling)")
+    return wire
+
+
 def train_config(args: argparse.Namespace, seq: int,
                  attn_impl: "str | None" = None):
     """The ``train`` flags -> TrainConfig (f32 master weights)."""
@@ -330,34 +390,109 @@ def train_config(args: argparse.Namespace, seq: int,
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
         total_steps=args.steps, clip_norm=args.clip_norm,
         optimizer=args.optimizer, grad_accum=args.grad_accum,
-        attn_impl=attn_impl or "auto")
+        attn_impl=attn_impl or "auto", grad_transport=grad_wire(args),
+        transport_schedule=args.grad_schedule, num_windows=args.grad_windows)
+
+
+def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
+    """Flag checks with the arithmetic spelled out; returns (global batch,
+    sequence, backend). ValueError / NotImplementedError on a bad or an
+    unported combination."""
+    from akka_allreduce_tpu_torch.models.train import check_supported
+    from akka_allreduce_tpu_torch.parallel.group import check_backend
+    if args.steps < 0 or args.grad_accum < 1:
+        raise ValueError("--steps must be >= 0 and --grad-accum >= 1")
+    if args.dp < 1:
+        raise ValueError(f"--dp must be >= 1, got {args.dp}")
+    if args.grad_windows < 1:
+        raise ValueError(f"--grad-windows must be >= 1, got "
+                         f"{args.grad_windows}")
+    dp = args.dp
+    b = args.batch or 2 * dp * args.grad_accum
+    if b % dp:
+        raise ValueError(f"--batch {b} must divide over --dp {dp} ranks")
+    if (b // dp) % args.grad_accum:
+        raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
+                         f"per-rank batch {b // dp} (= batch {b} / {dp} "
+                         f"ranks)")
+    if args.grad_schedule == "swing" and dp & (dp - 1):
+        raise ValueError(f"--grad-schedule swing needs a power-of-two "
+                         f"--dp (the ±2^t exchange pairing), got {dp}; use "
+                         f"--grad-schedule fused or windowed")
+    check_supported(train_config(args, args.seq or 32))
+    device = "cuda" if args.device.startswith("cuda") else args.device
+    backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
+    if dp > 1:
+        check_backend(backend, device, dp)
+    return b, args.seq or 32, backend
 
 
 def run_train(args: argparse.Namespace, params: "dict | None" = None,
               attn_impl: "str | None" = None) -> dict:
     """Train for ``args.steps`` steps and return the report: per-step
     losses and wall ms, tokens/s and MFU over the steps after the first,
-    and the flash kernels' launch counts during the run. ``params``
-    (optional) are the starting weights, updated in place; otherwise
-    they are random from seed 0. ``attn_impl`` overrides the config's
-    "auto" (the flash path). Raises ValueError on bad flags,
-    NotImplementedError on what the port has not ported, RuntimeError
-    when CUDA is asked for and absent."""
+    and the kernels' launch counts during the run (``launches``: flash;
+    ``sync_launches``: the gradient sync's). ``params`` (optional) are
+    the starting weights (on one rank updated in place; with ``--dp`` > 1
+    each rank trains a copy); otherwise they are random from seed 0.
+    ``attn_impl`` overrides the config's "auto" (the flash path).
+
+    With ``--dp N`` > 1 the CUDA kernels are built here first (the ranks
+    never race ``nvcc``), then N rank processes train (``parallel/
+    group.py spawn_ranks``); only rank 0 prints, and the report is rank
+    0's, with ``dist`` (backend, world) and ``ranks`` (each rank's peak
+    memory, sync ms per step and parameter checksum) added. Raises
+    ValueError on bad flags, NotImplementedError on what the port has not
+    ported, RuntimeError when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
-    from akka_allreduce_tpu_torch.models import flops
-    from akka_allreduce_tpu_torch.models.train import (make_train_state,
-                                                       make_train_step,
-                                                       tree_leaves)
-    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.models.train import tree_map
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 
     device = resolve_device(args.device)
-    if args.steps < 0 or args.grad_accum < 1:
-        raise ValueError("--steps must be >= 0 and --grad-accum >= 1")
-    b = args.batch or 2 * args.grad_accum
-    if b % args.grad_accum:
-        raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
-                         f"batch {b}")
-    t = args.seq or 32
+    _b, _t, backend = _check_train_flags(args)
+    if args.dp == 1:
+        return _train(args, params, attn_impl, None, device)
+    if device.type == "cuda":
+        from akka_allreduce_tpu_torch.ops.kernels import build
+        build.build_all()
+    host = None if params is None else tree_map(
+        lambda p: p.detach().cpu(), params)
+    reports = spawn_ranks(_train_rank, args.dp, backend, device.type, args,
+                          host, attn_impl)
+    report = reports[0]
+    report["ranks"] = [r.pop("rank_info") for r in reports]
+    return report
+
+
+def _train_rank(group, args: argparse.Namespace, params, attn_impl):
+    """One rank of a ``--dp`` run (a spawned process)."""
+    return _train(args, params, attn_impl, group, group.device)
+
+
+def _param_checksum(params) -> int:
+    """The sum of every parameter's 32-bit patterns, in leaf order: equal
+    on ranks whose parameters are bitwise equal."""
+    from akka_allreduce_tpu_torch.models.train import tree_leaves
+    return sum(int(p.detach().contiguous().view(torch.int32).sum(
+        dtype=torch.int64)) for p in tree_leaves(params))
+
+
+def _train(args: argparse.Namespace, params, attn_impl, group, device
+           ) -> dict:
+    from akka_allreduce_tpu_torch.models import flops
+    from akka_allreduce_tpu_torch.models.train import (elapsed_ms,
+                                                       make_train_state,
+                                                       make_train_step,
+                                                       tree_leaves, tree_map)
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
+    from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
+
+    world = 1 if group is None else group.world
+    rank = 0 if group is None else group.rank
+    log = print if rank == 0 else (lambda *a, **k: None)
+    b, t, backend = _check_train_flags(args)
+    local_b = b // world
     log_every = max(1, args.log_every)
     corpus = None
     if args.data_file:
@@ -366,16 +501,21 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
         needed = (corpus.max_token() + 1
                   if args.vocab < corpus.vocab_size else 0)
         if args.vocab < needed:
-            print(f"note: raising --vocab {args.vocab} -> {needed} to "
-                  f"cover the corpus (largest token id {needed - 1})")
+            log(f"note: raising --vocab {args.vocab} -> {needed} to "
+                f"cover the corpus (largest token id {needed - 1})")
             args.vocab = needed
     cfg = train_config(args, t, attn_impl)
     generator = None
     if params is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    elif group is not None:
+        # each rank trains its own copy (a CPU rank would otherwise share
+        # the spawned tensors' memory with its peers)
+        params = tree_map(lambda p: p.detach().clone().to(device), params)
     state = make_train_state(cfg, generator=generator, params=params,
                              device=device)
-    step = make_train_step(cfg)
+    sync_times: list = []
+    step = make_train_step(cfg, group, sync_times)
 
     start, mgr = 0, None
     if args.ckpt_dir:
@@ -392,60 +532,86 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
                     live.copy_(saved)
             state.optimizer.load_state_dict(opt_state["optimizer"])
             state.step = int(opt_state["count"])
-            print(f"resumed from step {start - 1} "
-                  f"(data position {extra.get('data_step', '?')})")
+            log(f"resumed from step {start - 1} "
+                f"(data position {extra.get('data_step', '?')})")
+            if state.residual is not None:
+                # this rank's ef8 residual, bitwise (the JAX ``sync`` item)
+                saved = mgr.restore_sync(state.residual, start - 1, rank)
+                if saved is None:
+                    log("note: no ef8 residual in the checkpoint; error "
+                        "feedback restarts from zero")
+                else:
+                    state.residual.copy_(saved)
 
-    print(f"device {device.type}; batch={b} seq={t} "
-          f"grad_accum={args.grad_accum} attn={cfg.attn_impl}")
+    dist_note = (f" dp={world} ({backend}) wire={cfg.grad_transport} "
+                 f"schedule={cfg.transport_schedule}" if world > 1 else "")
+    log(f"device {device.type}; batch={b} seq={t} "
+        f"grad_accum={args.grad_accum} attn={cfg.attn_impl}{dist_note}")
 
     def build_batch(i):
         # deterministic per-step data stream, drawn as the JAX command
-        # draws it: a resumed run sees the tokens the dead run would have
+        # draws it: a resumed run sees the tokens the dead run would have;
+        # rank r takes rows [r * B/N, (r + 1) * B/N) of the global batch
         if corpus is not None:
-            return corpus.batch(i, b, t)
-        return np.random.default_rng(i).integers(0, args.vocab, size=(b, t),
-                                                 dtype=np.int32)
+            batch = corpus.batch(i, b, t)
+        else:
+            batch = np.random.default_rng(i).integers(
+                0, args.vocab, size=(b, t), dtype=np.int32)
+        return batch[rank * local_b:(rank + 1) * local_b]
 
-    before = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
-              fa.FLASH_DKV_LAUNCHES)
-    losses, step_ms = [], []
+    counters = (lambda: (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
+                         fa.FLASH_DKV_LAUNCHES),
+                lambda: {"masked_reduce": mr.MASKED_REDUCE_LAUNCHES,
+                         **qz.launch_counts()})
+    before = [c() for c in counters]
+    losses, step_ms, sync_ms = [], [], []
     tic = time.perf_counter()
     steps_in_window = 0
     for i in range(start, args.steps):
         t0 = time.perf_counter()
-        tokens = torch.from_numpy(build_batch(i)).to(device)
+        tokens = torch.from_numpy(np.ascontiguousarray(build_batch(i))).to(
+            device)
         metrics = step(state, tokens)
         loss = float(metrics["loss"])  # waits for the step's device work
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if sync_times:
+            sync_ms.append(elapsed_ms(*sync_times.pop()))
         losses.append(loss)
         if mgr is not None:
             mgr.maybe_save(i, state.params, _opt_state(state),
-                           {"data_step": i})
+                           {"data_step": i}, sync=state.residual,
+                           group=group)
         steps_in_window += 1
         if i == start or (i + 1) % log_every == 0:
             toks = float(metrics["tokens"])
             dt = time.perf_counter() - tic
-            print(f"step {i + 1:4d}: loss {loss:.4f} "
-                  f"({toks * steps_in_window / dt:.0f} tok/s)", flush=True)
+            log(f"step {i + 1:4d}: loss {loss:.4f} "
+                f"({toks * steps_in_window / dt:.0f} tok/s)", flush=True)
             tic = time.perf_counter()
             steps_in_window = 0
     if mgr is not None and args.steps > start \
             and mgr.latest_step() != args.steps - 1:
         mgr.save(args.steps - 1, state.params, _opt_state(state),
-                 {"data_step": args.steps - 1}, force=True)
+                 {"data_step": args.steps - 1}, force=True,
+                 sync=state.residual, group=group)
 
     steady = step_ms[1:] or step_ms
     step_s = sum(steady) / len(steady) / 1e3 if steady else None
+    cards = min(world, torch.cuda.device_count()) \
+        if device.type == "cuda" else 1
     peak = flops.chip_peak_flops(device)
+    peak = peak * cards if peak else None
     step_flops = flops.transformer_step_flops(cfg.model, b, t)
-    after = (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
-             fa.FLASH_DKV_LAUNCHES)
-    return {
+    after = [c() for c in counters]
+    report = {
         "config": {"batch": b, "seq": t, "steps": args.steps,
                    "start_step": start, "compute_dtype": cfg.compute_dtype,
                    "attn_impl": cfg.attn_impl, "n_layers": args.n_layers,
                    "params": sum(p.numel()
-                                 for p in tree_leaves(state.params))},
+                                 for p in tree_leaves(state.params)),
+                   "dp": world, "grad_transport": cfg.grad_transport,
+                   "transport_schedule": cfg.transport_schedule,
+                   "bucket_elems": cfg.bucket_elems},
         "device": {"type": device.type,
                    "name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
@@ -458,8 +624,17 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
         "step_flops": step_flops,
         "mfu": step_flops / step_s / peak if step_s and peak else None,
         "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
-                             (a - c for a, c in zip(after, before)))),
+                             (a - c for a, c in zip(after[0], before[0])))),
+        "sync_launches": {k: after[1][k] - before[1][k] for k in after[1]},
     }
+    if group is not None:
+        report["dist"] = {"backend": backend, "world": world}
+        report["rank_info"] = {
+            "rank": rank, "sync_ms": sync_ms,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                               if device.type == "cuda" else None),
+            "param_checksum": _param_checksum(state.params)}
+    return report
 
 
 def _opt_state(state) -> dict:

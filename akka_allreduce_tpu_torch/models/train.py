@@ -1,10 +1,29 @@
-"""The one-card training step of the dense flagship transformer.
+"""The training step of the dense flagship transformer, on one rank or many.
 
-Counterpart of ``akka_allreduce_tpu/models/train.py`` for one rank: loss,
-backprop and the optimizer update. On one card the JAX step's gradient
-sync reduces over size-1 mesh axes and is the identity, so there is no
-sync here; ``min_bucket_count`` is reported as the one-device JAX step
-reports it (1). More than one rank is ROADMAP.md item A3.
+Counterpart of ``akka_allreduce_tpu/models/train.py``: loss, backprop,
+the bucketed gradient sync across the data-parallel ranks, and the
+optimizer update. With a group of more than one rank
+(``parallel/group.py``) the step works as the JAX ``grad_local`` /
+``sync_and_metrics`` pair does:
+
+* each rank's loss divides by the GLOBAL token count (every rank holds
+  the same batch shape, so world x local is the JAX psum without a
+  collective), so the sum of the ranks' gradients is the gradient of the
+  global mean;
+* the gradients go through ``parallel/dp.py allreduce_gradients``
+  (``rescale_target`` = world, ``average=True``, no per-element counts)
+  on the configured wire and schedule; int8/ef8 rounding keys derive
+  from ``(17, step count, 0)`` as the JAX ``derive_quant_key`` and the
+  dense sync's tag do;
+* global-norm clipping comes after the sync (it is in the optax chain
+  after ``sync_and_metrics``);
+* the loss metric is the ranks' losses summed, ``min_bucket_count`` the
+  smallest per-bucket count;
+* the ef8 residual is ``TrainState.residual`` (buckets-shaped f32),
+  threaded through every step.
+
+On one rank the sync is the identity and is skipped, as the JAX step's
+reduces over size-1 mesh axes; ``min_bucket_count`` is then 1.
 
 PyTorch idiom in place of the JAX package's pure functions:
 
@@ -14,21 +33,23 @@ PyTorch idiom in place of the JAX package's pure functions:
 * the optimizer is ``torch.optim.AdamW`` over two parameter groups, the
   rank >= 2 leaves with ``weight_decay`` and the rest (norm gains) with
   none: optax's decay mask. Its update equals ``optax.adamw``'s;
-* the step updates the parameters and the optimizer state IN PLACE
-  (``TrainState`` holds them) and returns the metrics; the JAX step
-  returns new arrays instead;
+* the step updates the parameters, the optimizer state and the residual
+  IN PLACE (``TrainState`` holds them) and returns the metrics; the JAX
+  step returns new arrays instead;
 * ``compute_dtype="bf16"`` runs the model on bf16 copies of the masters;
-  autograd casts the gradients back to f32, so the update stays f32.
+  autograd casts the gradients back to f32, so the sync and the update
+  stay f32.
 
-Left out of this slice and refused with ``NotImplementedError`` (ROADMAP
-A2): optimizers other than adamw, ``ema_decay``, and
-``accum_schedule="overlap"``.
+Left out and refused with ``NotImplementedError``: optimizers other than
+adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A2);
+the ``hierarchical`` and ``auto`` sync schedules (A3b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from functools import partial
 from typing import Callable, Optional, Union
 
@@ -36,21 +57,31 @@ import torch
 
 from akka_allreduce_tpu_torch.models.transformer import (
     TransformerConfig, init_transformer, next_token_loss_and_aux)
+from akka_allreduce_tpu_torch.ops.bucketing import (
+    tree_bucket_spec, tree_leaves, tree_map, tree_unflatten)
 from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
     flash_causal_attention
+from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                  allreduce_gradients,
+                                                  check_sync_config)
+from akka_allreduce_tpu_torch.parallel.group import RankGroup
 from akka_allreduce_tpu_torch.parallel.ring_attention import (
     blockwise_causal_attention, local_causal_attention)
 
 LEFT_OUT = "left out of the port's one-card training slice (ROADMAP.md A2)"
+# the JAX derive_quant_key's root key, key(17)
+QUANT_ROOT = 17
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX ``TrainConfig`` fields this slice uses, with their names
-    and defaults. ``bucket_elems`` sizes the gradient buckets of the
-    multi-rank sync (A3) and is carried for it; ``attn_block_size``
-    serves ``attn_impl="blockwise"`` (the flash kernels' tile is their
-    own constant)."""
+    """The JAX ``TrainConfig`` fields the port uses, with their names and
+    defaults. ``bucket_elems`` sizes the gradient buckets of the
+    multi-rank sync; ``grad_transport`` (f32 | bf16 | int8 | ef8),
+    ``transport_schedule`` (fused | windowed | swing) and ``num_windows``
+    select its wire and schedule.
+    ``attn_block_size`` serves ``attn_impl="blockwise"`` (the flash
+    kernels' tile is their own constant)."""
 
     model: TransformerConfig
     learning_rate: float = 1e-3
@@ -68,47 +99,42 @@ class TrainConfig:
     accum_schedule: str = "deferred"
     ema_decay: float = 0.0
     attn_impl: str = "auto"
+    grad_transport: str = "f32"
+    transport_schedule: str = "fused"
+    num_windows: int = 4
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters, their optimizer and its step count (optax's
-    ``count``: the steps taken, which the LR schedule reads before it
-    increments). The train step mutates all three."""
+    """Parameters, their optimizer, its step count (optax's ``count``:
+    the steps taken, which the LR schedule and the rounding keys read
+    before it increments) and the ef8 error-feedback residual (None on
+    the other wires). The train step mutates all four."""
 
     params: dict
     optimizer: torch.optim.Optimizer
     step: int = 0
+    residual: Optional[torch.Tensor] = None
 
 
-def tree_leaves(tree) -> list:
-    """The tensors of a params-shaped tree, in a fixed order (dict keys
-    sorted, lists in order)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+def sync_config(cfg: TrainConfig, world: int) -> GradSyncConfig:
+    """The gradient sync of the step, as the JAX ``make_grad_step``
+    builds it."""
+    return GradSyncConfig(bucket_elems=cfg.bucket_elems, average=True,
+                          rescale_target=float(world),
+                          return_elem_counts=False,
+                          transport=cfg.grad_transport,
+                          transport_schedule=cfg.transport_schedule,
+                          num_windows=cfg.num_windows)
 
 
-def tree_unflatten(like, leaves):
-    """The inverse of :func:`tree_leaves` against a template tree."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-    return build(like)
+def quant_key(step: int) -> tuple:
+    """The dense sync's rounding key of step ``step``: the JAX
+    ``fold_in(fold_in(key(17), step), 0)`` as a key tuple."""
+    return (QUANT_ROOT, int(step), 0)
 
 
-def tree_map(fn, tree):
-    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
-
-
-def _check_supported(cfg: TrainConfig) -> None:
+def check_supported(cfg: TrainConfig) -> None:
     if cfg.optimizer != "adamw":
         if cfg.optimizer not in ("adafactor", "sgd", "lion"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}: adamw "
@@ -126,12 +152,7 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
     if cfg.compute_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "training on more than one rank (the bucketed gradient sync) "
-            "is not ported yet: ROADMAP.md A3")
+    check_sync_config(sync_config(cfg, 1))
 
 
 def make_lr_schedule(cfg: TrainConfig) -> Union[float,
@@ -170,7 +191,7 @@ def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.AdamW:
     adamw) with optax's decay mask: rank >= 2 leaves decay, the rest
     (norm gains, vectors) do not. The learning rate is set per step by
     the train step from :func:`make_lr_schedule`."""
-    _check_supported(cfg)
+    check_supported(cfg)
     leaves = tree_leaves(params)
     decay = [p for p in leaves if p.dim() >= 2]
     no_decay = [p for p in leaves if p.dim() < 2]
@@ -221,7 +242,8 @@ def make_train_state(cfg: TrainConfig,
                      device: "torch.device | str | None" = None
                      ) -> TrainState:
     """Parameters (``params``, or random from ``generator``) as leaves
-    that require grad, and their optimizer."""
+    that require grad, their optimizer and, on the ef8 wire, a zero
+    residual of the bucket matrix's shape (the JAX ``init_ef_state``)."""
     if params is None:
         if generator is None:
             raise ValueError("make_train_state needs params or a generator")
@@ -230,22 +252,58 @@ def make_train_state(cfg: TrainConfig,
         params = tree_map(lambda p: p.to(device), params)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return TrainState(params=params, optimizer=make_optimizer(cfg, params))
+    residual = None
+    if cfg.grad_transport == "ef8":
+        spec = tree_bucket_spec(params, cfg.bucket_elems)
+        residual = torch.zeros((spec.num_buckets, spec.bucket_elems),
+                               dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+    return TrainState(params=params, optimizer=make_optimizer(cfg, params),
+                      residual=residual)
 
 
-def make_grad_step(cfg: TrainConfig):
-    """``grad_step(params, tokens) -> (grads, metrics)``: the next-token
-    loss over tokens (B, T) (the last column has weight 0, as in the
-    JAX step without sequence parallelism), its gradients as a params-
-    shaped dict of f32 tensors, and the JAX step's metrics. With
-    ``grad_accum`` K > 1 the batch splits into K microbatches whose
-    gradients and losses sum (each scaled by the whole batch's token
-    count, so the sum is the full-batch mean), aux terms averaged: the
-    JAX "deferred" schedule."""
-    _check_supported(cfg)
+def _timer_mark(device: torch.device):
+    """A point in time on ``device``'s clock: a recorded CUDA event, or
+    the host clock on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def elapsed_ms(start, end) -> float:
+    """Milliseconds between two :func:`_timer_mark` marks (waits for a
+    CUDA end event)."""
+    if isinstance(start, float):
+        return (end - start) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
+                   sync_times: Optional[list] = None):
+    """``grad_step(params, tokens, quant_seed=None, residual=None) ->
+    (grads, metrics)`` (``(grads, metrics, residual)`` on the ef8 wire):
+    the next-token loss over this rank's tokens (B, T) (the last column
+    has weight 0, as in the JAX step without sequence parallelism), its
+    gradients synced across ``group`` as a params-shaped dict of f32
+    tensors, and the JAX step's metrics. With ``grad_accum`` K > 1 the
+    batch splits into K microbatches whose gradients and losses sum (each
+    scaled by the whole batch's token count), aux terms averaged: the JAX
+    "deferred" schedule, one sync after the last microbatch.
+    ``quant_seed`` (the step count) keys the int8/ef8 rounding;
+    ``residual`` is the ef8 state. ``sync_times``, when given, receives
+    a ``(start, end)`` pair of time marks around each sync
+    (:func:`elapsed_ms`)."""
+    check_supported(cfg)
     mcfg = cfg.model
     attn = select_local_attention(cfg)
     accum = cfg.grad_accum
+    world = 1 if group is None else group.world
+    gcfg = sync_config(cfg, world)
+    quantized = cfg.grad_transport in ("int8", "ef8")
+    use_ef = cfg.grad_transport == "ef8"
 
     def cast_compute(params):
         if cfg.compute_dtype == "f32":
@@ -253,13 +311,14 @@ def make_grad_step(cfg: TrainConfig):
         return tree_map(lambda p: p.to(torch.bfloat16)
                         if p.dtype == torch.float32 else p, params)
 
-    def grad_step(params, tokens):
+    def local_grads(params, tokens):
         b, t = tokens.shape
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         weights = torch.ones((b, t), device=tokens.device)
         weights[:, -1] = 0.0
         positions = torch.arange(t, device=tokens.device)
-        total_count = weights.sum()
+        # the global count: every rank holds this batch shape
+        total_count = weights.sum() * world
         leaves = tree_leaves(params)
         if b % accum:
             raise ValueError(f"local batch {b} must divide into "
@@ -277,32 +336,68 @@ def make_grad_step(cfg: TrainConfig):
                 k: aux[k] + mb_aux[k] for k in aux}
             grads = mb_grads if grads is None else [
                 g + m for g, m in zip(grads, mb_grads)]
-        metrics = {
-            "loss": loss, "tokens": total_count,
-            "min_bucket_count": torch.ones((), dtype=torch.int32,
-                                           device=tokens.device),
-            "aux_loss": aux["aux_loss"] / accum,
-            "dispatch_fraction": aux["dispatch_fraction"] / accum}
-        return tree_unflatten(params, grads), metrics
+        return loss, total_count, aux, tree_unflatten(params, grads)
+
+    def grad_step(params, tokens, quant_seed=None, residual=None):
+        if world > 1 and quantized and quant_seed is None:
+            raise ValueError(f"{cfg.grad_transport} grad transport needs a "
+                             f"per-round quant_seed")
+        if world > 1 and use_ef and residual is None:
+            raise ValueError(
+                "ef8 grad transport needs the error-feedback state "
+                "(TrainState.residual, from make_train_state): dropping it "
+                "silently degrades ef8 to plain block-int8")
+        loss, total_count, aux, grads = local_grads(params, tokens)
+        aux_loss = aux["aux_loss"] / accum
+        dispatch = aux["dispatch_fraction"] / accum
+        min_count = torch.ones((), dtype=torch.int32, device=tokens.device)
+        if world > 1:
+            start = _timer_mark(tokens.device)
+            res = allreduce_gradients(
+                grads, gcfg, group,
+                quant_key=quant_key(quant_seed) if quantized else None,
+                residual=residual)
+            if sync_times is not None:
+                sync_times.append((start, _timer_mark(tokens.device)))
+            grads, residual = res.grads, res.residual
+            min_count = res.bucket_counts.min()
+            # the metrics' psum: the ranks' (loss, aux, dispatch) summed
+            mine = torch.stack([torch.as_tensor(loss), aux_loss, dispatch])
+            loss, aux_loss, dispatch = group.all_gather(
+                mine.float()[None]).sum(dim=0)
+            aux_loss = aux_loss / world
+            dispatch = dispatch / world
+        metrics = {"loss": loss, "tokens": total_count,
+                   "min_bucket_count": min_count, "aux_loss": aux_loss,
+                   "dispatch_fraction": dispatch}
+        if use_ef:
+            return grads, metrics, residual
+        return grads, metrics
 
     return grad_step
 
 
-def make_train_step(cfg: TrainConfig):
-    """``step(state, tokens) -> metrics``: gradients, then the optax
-    chain's order — global-norm clip (``clip_norm > 0``), then AdamW at
-    the schedule's rate for ``state.step`` — applied to ``state`` in
-    place."""
-    grad_step = make_grad_step(cfg)
+def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
+                    sync_times: Optional[list] = None):
+    """``step(state, tokens) -> metrics``: synced gradients (keyed by
+    ``state.step``), then the optax chain's order — global-norm clip
+    (``clip_norm > 0``), then AdamW at the schedule's rate for
+    ``state.step`` — applied to ``state`` in place."""
+    grad_step = make_grad_step(cfg, group, sync_times)
+    use_ef = cfg.grad_transport == "ef8"
 
     def step(state: TrainState, tokens: torch.Tensor) -> dict:
-        grads, metrics = grad_step(state.params, tokens)
+        out = grad_step(state.params, tokens, quant_seed=state.step,
+                        residual=state.residual)
+        grads, metrics = out[0], out[1]
+        if use_ef:
+            state.residual = out[2]
         grads = tree_leaves(grads)
         if cfg.clip_norm > 0:
             clip_by_global_norm_(grads, cfg.clip_norm)
         lr = lr_at(cfg, state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pgroup in state.optimizer.param_groups:
+            pgroup["lr"] = lr
         for p, g in zip(tree_leaves(state.params), grads):
             p.grad = g
         state.optimizer.step()

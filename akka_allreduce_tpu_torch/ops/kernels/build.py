@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "masked_reduce", "quantize")
 
 _LIBS: dict = {}
 # per kernel: {"seconds": build wall time (0.0 when reused), "ptxas": the

@@ -1,0 +1,305 @@
+"""Process groups of the port's data-parallel ranks.
+
+Counterpart of ``akka_allreduce_tpu/parallel/mesh.py`` (the ``dp`` axis)
+and ``utils/vma.py`` ``psum_all`` for ranks that are processes. The JAX
+package's rank-local collectives name a mesh axis; the port's name a
+:class:`RankGroup`: this rank, the world size and the backend.
+
+The group moves bytes and never reduces. Its collectives are the three
+that the JAX sync issues besides ``psum``: ``all_to_all`` (split and
+concatenate along axis 0), ``all_gather`` (tiled along axis 0) and the
+pairwise ``exchange`` of ``ppermute``. Every sum over ranks is taken on
+the rank's own device by the caller (``ops/collectives.py``, through the
+masked-reduce kernel), so the transport never adds floats.
+
+Backends:
+
+* ``nccl`` — one rank per GPU, device tensors on the wire, no staging.
+  Needs as many GPUs as ranks.
+* ``gloo`` — the wire is host memory: a CUDA tensor is copied to the host,
+  the collective runs there, and the result is copied back to the
+  tensor's device. This is how several ranks share one card (NCCL refuses
+  two ranks on one device), and how the tests run ranks on the CPU.
+* a group of one (:meth:`RankGroup.single`) needs no process group: every
+  collective is the identity.
+
+:func:`spawn_ranks` starts ``world`` processes with the ``spawn`` start
+method (a fork after CUDA is initialised breaks), joins them through a
+``file://`` store in a fresh temporary directory (concurrent runs never
+contend for a port), calls ``fn(group, *args)`` in each, and returns the
+ranks' return values in rank order. ``fn`` must be importable by name in
+the child, from a module that does not import JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import os
+import pickle
+import queue as queue_mod
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+# all_gather_into_tensor was renamed all_gather_single (same arguments)
+_all_gather_flat = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGroup:
+    """This process's place in the data-parallel group. ``backend`` is
+    ``"nccl"``, ``"gloo"`` or ``"none"`` (a group of one, no process
+    group behind it); ``device`` is where this rank's tensors live."""
+
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+
+    @staticmethod
+    def single(device: "torch.device | str" = "cpu") -> "RankGroup":
+        return RankGroup(0, 1, "none", torch.device(device))
+
+    # -- staging -----------------------------------------------------------
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        """The tensor the transport takes: a contiguous host copy for
+        gloo, the tensor itself (made contiguous) for nccl."""
+        x = x.contiguous()
+        if self.backend == "gloo" and x.device.type != "cpu":
+            return x.cpu()
+        return x
+
+    def _unstage(self, out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return out if out.device == like.device else out.to(like.device)
+
+    # -- collectives (each rank calls each, in the same order) -------------
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (world, ...): block p goes to rank p; returns (world, ...)
+        whose block p is rank p's block for this rank (``lax.all_to_all``
+        with split and concat axis 0)."""
+        if x.shape[0] != self.world:
+            raise ValueError(f"all_to_all needs a leading axis of "
+                             f"{self.world} blocks, got {tuple(x.shape)}")
+        if self.world == 1:
+            return x
+        src = self._stage(x)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+        return self._unstage(out, x)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along axis 0, in rank order
+        (``lax.all_gather`` tiled on axis 0)."""
+        if self.world == 1:
+            return x
+        src = self._stage(x)
+        out = torch.empty((self.world * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        _all_gather_flat(out, src)
+        return self._unstage(out, x)
+
+    def exchange(self, x: torch.Tensor, peer: int) -> torch.Tensor:
+        """Send ``x`` to ``peer`` and return what ``peer`` sent here: one
+        pair of a ``lax.ppermute`` whose permutation is an involution."""
+        if peer == self.rank:
+            return x
+        src = self._stage(x)
+        out = torch.empty_like(src)
+        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, peer),
+                                        dist.P2POp(dist.irecv, out, peer)])
+        for w in works:
+            w.wait()
+        return self._unstage(out, x)
+
+    def barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
+
+
+def rank_device(device: str, rank: int, backend: str) -> torch.device:
+    """The device of ``rank``: the CPU, or GPU ``rank`` modulo the count
+    (gloo ranks may share a card; nccl needs one card per rank)."""
+    if device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % max(1, torch.cuda.device_count()))
+
+
+def check_backend(backend: str, device: str, world: int) -> None:
+    """Refuse what the backend cannot run; never switch backend."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: {BACKENDS}")
+    if backend == "nccl":
+        if device != "cuda":
+            raise ValueError("the nccl backend needs --device cuda; on the "
+                             "CPU use --dist-backend gloo")
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < world:
+            raise ValueError(
+                f"nccl needs one GPU per rank: {world} ranks, {have} "
+                f"GPU(s). Run them on shared cards with --dist-backend "
+                f"gloo (the wire then goes through host memory)")
+
+
+def _worker(rank: int, world: int, backend: str, device: str, store: str,
+            fn: Callable, args: tuple, results) -> None:
+    try:
+        dev = rank_device(device, rank, backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.set_num_threads(1 if dev.type == "cpu"
+                              else max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            out = fn(RankGroup(rank, world, backend, dev), *args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, pickle.dumps(_to_cpu(out))))
+    except Exception:  # noqa: BLE001 - the rank's boundary: reported
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+
+def _to_cpu(obj: Any) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
+                *args, timeout: float = 900.0) -> list:
+    """Run ``fn(group, *args)`` in ``world`` new processes and return
+    their results in rank order (tensors come back on the CPU). A rank
+    that raises, dies or outlasts ``timeout`` seconds ends every rank and
+    raises here with that rank's traceback."""
+    check_backend(backend, device, world)
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_worker, daemon=True,
+                         args=(r, world, backend, device,
+                               os.path.join(tmp, "store"), fn, args,
+                               results))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        got: dict = {}
+        deadline = time.monotonic() + timeout
+        while len(got) < world:
+            try:
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"rank(s) {dead or 'all'} "
+                        + ("died (exit codes "
+                           f"{[procs[r].exitcode for r in dead]})" if dead
+                           else f"did not finish within {timeout:.0f} s"))
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n"
+                                   f"{payload}")
+            got[rank] = pickle.loads(payload)
+        for p in procs:
+            p.join(timeout=60)
+        return [got[r] for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- a generic rank job: call named functions with per-rank inputs --------
+
+@dataclasses.dataclass(frozen=True)
+class PerRank:
+    """An argument of :func:`run_calls` that differs by rank: rank r
+    receives ``values[r]``."""
+
+    values: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Ref:
+    """An argument of :func:`run_calls` that is the result of an earlier
+    call of the same list (item ``item`` of it when given): threads state
+    such as a residual from one round into the next."""
+
+    call: int
+    item: Optional[int] = None
+
+
+def _resolve(target: str) -> Callable:
+    module, _, name = target.partition(":")
+    obj = importlib.import_module(module)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _bind(arg: Any, group: RankGroup, done: list) -> Any:
+    if isinstance(arg, Ref):
+        out = done[arg.call]
+        return out if arg.item is None else out[arg.item]
+    if isinstance(arg, PerRank):
+        arg = arg.values[group.rank]
+    if isinstance(arg, np.ndarray):
+        return torch.from_numpy(arg.copy()).to(group.device)
+    if isinstance(arg, torch.Tensor):
+        return arg.clone().to(group.device)
+    if isinstance(arg, dict):
+        return {k: _bind(v, group, done) for k, v in arg.items()}
+    if isinstance(arg, (list, tuple)):
+        return type(arg)(_bind(v, group, done) for v in arg)
+    return arg
+
+
+def run_calls(group: RankGroup, calls: list) -> list:
+    """Run ``calls`` in order on this rank and return their results.
+    Each call is ``(target, args, kwargs)``: ``target`` names a function
+    as ``"package.module:function"``, numpy arrays and tensors among the
+    arguments arrive as tensors on the rank's device, a
+    :class:`PerRank` argument is replaced by this rank's value, a
+    :class:`Ref` by an earlier call's result, and the group is passed as
+    the keyword ``group``. A driver for tests and checks that hold
+    several ranks' inputs in one place."""
+    out: list = []
+    for target, args, kwargs in calls:
+        fn = _resolve(target)
+        out.append(fn(*_bind(tuple(args), group, out),
+                      **_bind(dict(kwargs), group, out), group=group))
+    return out
+
+
+def loaded_modules(group: Optional[RankGroup] = None) -> list:
+    """The names of the modules this process has imported (a rank's
+    import hygiene is checked through it)."""
+    return sorted(sys.modules)

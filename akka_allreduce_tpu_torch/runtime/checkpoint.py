@@ -9,6 +9,14 @@ and renamed into place, so a crash mid-save never leaves a torn
 checkpoint; the newest ``keep`` are retained. Saves are synchronous, so
 ``wait_until_finished`` has nothing to wait for.
 
+A data-parallel run passes its group (``parallel/group.py``): rank 0
+writes params, optimizer state and extra, every rank writes its own ef8
+error-feedback residual as ``sync-<rank>.pt`` (the JAX package's ``sync``
+item, one plane per rank), and barriers hold the rename of the step
+directory until every rank has written, and every rank until it is
+renamed. :meth:`CheckpointManager.restore_sync` gives a rank its residual
+back bitwise.
+
 The JAX package's orbax checkpoints are not read here (nor these by it):
 the formats differ, and carrying a run across is a later item (ROADMAP.md
 A2). The JSON sidecars (``save_state_json`` / ``load_state_json``) are
@@ -103,35 +111,54 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
 
     def save(self, step: int, params: Any, opt_state: Any,
-             extra: Optional[dict] = None, force: bool = False) -> bool:
+             extra: Optional[dict] = None, force: bool = False,
+             sync: Optional[torch.Tensor] = None, group=None) -> bool:
         """Save unconditionally (``force``) or per the interval policy
         (``step % save_interval_steps == 0``). Returns whether a save
         happened (as orbax's policy, never at or before the latest saved
-        step unless forced)."""
+        step unless forced). ``sync`` is this rank's ef8 residual;
+        ``group`` makes the save collective: every rank of it calls
+        ``save`` with the same step and takes the same decision (it
+        reads the directory before any rank renames into it)."""
         if not force:
             latest = self.latest_step()
             if step % max(1, self.config.save_interval_steps) or (
                     latest is not None and latest >= step):
                 return False
+        rank = 0 if group is None else group.rank
         final = self._path(step)
-        tmp = f"{final}.tmp-{os.getpid()}"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        for name, tree in (("params", params), ("opt_state", opt_state)):
-            torch.save(tree, os.path.join(tmp, f"{name}.pt"))
-        _atomic_write_text(os.path.join(tmp, "extra.json"),
-                           json.dumps(extra or {}))
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.replace(tmp, final)
-        for old in self.steps()[:-self.config.keep]:
-            shutil.rmtree(self._path(old), ignore_errors=True)
+        tmp = f"{final}.tmp" if group is not None \
+            else f"{final}.tmp-{os.getpid()}"
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        if group is not None:
+            group.barrier()  # the directory exists for every rank
+        if rank == 0:
+            for name, tree in (("params", params), ("opt_state", opt_state)):
+                torch.save(tree, os.path.join(tmp, f"{name}.pt"))
+            _atomic_write_text(os.path.join(tmp, "extra.json"),
+                               json.dumps(extra or {}))
+        if sync is not None:
+            torch.save(sync, os.path.join(tmp, f"sync-{rank}.pt"))
+        if group is not None:
+            group.barrier()  # every rank has written its part
+        if rank == 0:
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            for old in self.steps()[:-self.config.keep]:
+                shutil.rmtree(self._path(old), ignore_errors=True)
+        if group is not None:
+            group.barrier()  # no rank reads before the rename
         return True
 
     def maybe_save(self, step: int, params: Any, opt_state: Any,
-                   extra: Optional[dict] = None) -> bool:
+                   extra: Optional[dict] = None,
+                   sync: Optional[torch.Tensor] = None, group=None) -> bool:
         """Interval-gated save — safe to call every step."""
-        return self.save(step, params, opt_state, extra, force=False)
+        return self.save(step, params, opt_state, extra, force=False,
+                         sync=sync, group=group)
 
     # -- restore -----------------------------------------------------------
 
@@ -183,6 +210,18 @@ class CheckpointManager:
         step = self._resolve_step(step)
         loaded = self._load(step, item, _first_device(params_like))
         return step, _like(params_like, loaded), self._extra(step)
+
+    def restore_sync(self, like: torch.Tensor, step: Optional[int] = None,
+                     rank: int = 0) -> Optional[torch.Tensor]:
+        """This rank's saved ef8 residual at ``step`` (latest by default)
+        on ``like``'s device, bitwise; None when the checkpoint has none
+        (a resume then restarts the error accumulator at zero)."""
+        step = self._resolve_step(step)
+        path = os.path.join(self._path(step), f"sync-{rank}.pt")
+        if not os.path.exists(path):
+            return None
+        return _like(like, torch.load(path, map_location=like.device,
+                                      weights_only=True))
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -52,12 +52,47 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    1e-5, while a GQA head's lost share would be O(1)), then two steps of
    each (step-1 loss within 1e-4 relative).
 
+8. sync kernels — hold the gradient sync's kernels against their plain
+   PyTorch versions on the same CUDA tensors: the masked reduce (allclose
+   at rtol 1e-6, the count exact) on the staging matrix that phase 9's
+   f32 sync gives it (2 ranks x half the flattened bucket matrix, every
+   rank valid, target 2), bench_suite's (8 x 3,276,800 f32, peer 3
+   masked, target 8), zero contributors and a ragged width; the six int8
+   kernels bitwise (values and scales) on the flagship's bucket matrix
+   (ceil(params / 65,536) rows x 65,536 f32, per-row scales and
+   512-column blocks; the in-kernel Philox against the plain Philox) and
+   on (5, 1000), (3, 1001) and blocks 128 and 512. At the main shapes
+   each kernel, its plain version and the one PyTorch call that computes
+   the same function (where there is one) timed as above, and each
+   kernel's byte bound computed. A quantize kernel is timed as its launch
+   alone on precomputed scales; the scale pass (abs-max, outside the
+   kernel as in the JAX package) and the whole wrapper are timed beside
+   it.
+9. train, dp=2 — ``train --dp 2 --dist-backend gloo`` at the flagship
+   configuration of phase 6, 3 steps each on the f32 (``none``), int8 and
+   ef8 wires: two rank processes share the card and their wire goes
+   through host memory, not NVLink. Asserts finite losses, parameters
+   bitwise equal on both ranks (a checksum each), rank 0's flash and
+   sync launch counts equal to what the schedule implies per step x
+   steps (computed here); the f32 run's losses within 5e-5 relative of
+   phase 6's first 3 steps (same seed-0 weights, same global batches:
+   a sum that drops or repeats a rank's gradient moves step 1 and 2 far
+   more), and the int8 and ef8 runs' within 0.05 of the f32 run's (the
+   JAX tests' bound). Reports wall and sync ms per step and each rank's
+   peak memory.
+10. sync at four ranks — ``allreduce_gradients`` on 64 x 65,536 random
+   bucket matrices, four gloo ranks on the card: every wire x schedule
+   (f32, bf16, int8, ef8 x fused, windowed, swing) and masked rounds.
+   Asserts every rank's output identical, each inside its wire's
+   envelope of the exact sum, and the counts exact.
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -105,6 +140,60 @@ FLASH_SHAPES = [
     ("offsets", 2, 512, 1024, 16, 4, 128, True, 384, 512, 0),
     ("d64", 2, 1024, 1024, 16, 4, 64, True, None, 0, 0)]
 FLASH_TOL = {"torch.float32": (2e-5, 5e-5), "torch.bfloat16": (3e-2, 3e-2)}
+
+# the gradient sync's kernels: name -> (source, TPU kernel body replaced)
+SYNC_KERNELS = {
+    "masked_reduce": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/masked_reduce.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/reduce.py:30"),
+    "quantize_int8": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:52"),
+    "dequantize_int8": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:57"),
+    "quantize_int8_prng": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:122"),
+    "quantize_int8_block": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:205"),
+    "quantize_int8_block_rtn": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:211"),
+    "dequantize_int8_block": (
+        "akka_allreduce_tpu_torch/ops/kernels/csrc/quantize.cu",
+        "akka_allreduce_tpu/ops/pallas_kernels/quantized.py:285")}
+BUCKET_ELEMS = 65536  # the train command's default --bucket-elems
+EF_BLOCK = 512        # the ef8 wire's scale block
+# (peers, elems, valid, target) besides the main path's staging matrix:
+# bench_suite's first
+REDUCE_CASES = [(8, 3_276_800, (1, 1, 1, 0, 1, 1, 1, 1), 8.0),
+                (3, 1000, (0, 0, 0), 1.0), (3, 1001, (1, 0, 1), 2.0),
+                (5, 4096, (1, 1, 0, 1, 1), 1.0)]
+# phase 9: the flagship at dp=2 on one card, 3 steps per wire
+DP_WORLD = 2
+DP_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--n-layers", "8",
+    "--d-ff", "8192", "--vocab", "32768", "--seq", "2048", "--batch", "8",
+    "--bf16", "--lr", "1e-4", "--steps", "3", "--log-every", "1",
+    "--device", "cuda", "--dp", str(DP_WORLD), "--dist-backend", "gloo"]
+DP_WIRES = ("none", "int8", "ef8")
+DP_LOSS_RTOL = 5e-5   # f32 wire vs one card, per step (measured ~1.4e-5)
+QUANT_LOSS_ATOL = 0.05  # int8/ef8 vs the f32 wire (TestEf8Training)
+# the sync kernels that phase 9's wires launch: all but row 2, the
+# bits-tensor per-row quantizer (the JAX package's non-default int8
+# path; the int8 wire draws its bits in the kernel, row 4)
+MAIN_PATH_SYNC = tuple(k for k in SYNC_KERNELS if k != "quantize_int8")
+# phase 10: four ranks, every wire x schedule, and masked rounds
+SYNC4_SHAPE = (64, 65536)
+SYNC4_CASES = [
+    {"transport": tr, "schedule": sc, "masked": False}
+    for tr in ("f32", "bf16", "int8", "ef8")
+    for sc in ("fused", "windowed", "swing")] + [
+    {"transport": tr, "schedule": sc, "masked": True}
+    for tr, sc in (("f32", "fused"), ("bf16", "windowed"), ("int8", "fused"),
+                   ("ef8", "fused"), ("ef8", "swing"))]
 FLASH_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
@@ -440,7 +529,8 @@ def phase_train(torch) -> dict:
     if not all(math.isfinite(x) for x in report["losses"]):
         raise AssertionError(f"non-finite losses {report['losses']}")
     emit("train_step_profile", **profile_train_steps(torch, args, params))
-    return launches
+    return {"launches": launches, "losses": report["losses"],
+            "params": report["config"]["params"]}
 
 
 def phase_train_parity(torch) -> dict:
@@ -489,6 +579,449 @@ def phase_train_parity(torch) -> dict:
     if not ok:
         raise AssertionError(f"flash vs local training parity failed: {out}")
     return out
+
+
+def reduce_bound(peers: int, elems: int) -> "tuple[float, str]":
+    """The masked reduce's least time: the staging matrix read once, the
+    output written once (and the mask and count); 2 f32 flops per staged
+    value."""
+    return bound(2 * peers * elems, 4 * (peers * elems + elems + peers + 1),
+                 "float32")
+
+
+def quant_bound(kernel: str, rows: int, cols: int, nb: int
+                ) -> "tuple[float, str]":
+    """A quantize or dequantize kernel's least time: x (4 B), a bits
+    tensor (4 B) where it reads one, the scales, and the int8 values
+    (1 B) read or written once; ~5 f32 operations per quantized element
+    (division, floor, subtraction, comparison, addition), 1 per
+    dequantized one. (The in-kernel Philox's ~20 integer operations per
+    element have no entry in the card's table of peaks and are not
+    counted.)"""
+    n = rows * cols
+    per = {"quantize_int8": 9, "quantize_int8_block": 9,
+           "quantize_int8_prng": 5, "quantize_int8_block_rtn": 5,
+           "dequantize_int8": 5, "dequantize_int8_block": 5}[kernel]
+    flops = n if kernel.startswith("dequantize") else 5 * n
+    return bound(flops, per * n + 4 * rows * nb, "float32")
+
+
+def _same(a, b) -> "tuple[bool, float]":
+    """(bitwise equal, max |a - b|) of two tensors."""
+    err = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    return torch_equal(a, b), err
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+def library_quantize_rtn(torch, x, scales, block):
+    """``torch.quantize_per_channel`` over the (rows * blocks, block) view
+    with one scale per block: the library's round-to-nearest int8
+    quantizer, the yardstick of the block RTN kernel. Timed only; the
+    port never calls it."""
+    rows, cols = x.shape
+    ch = x.view(rows * (cols // block), block)
+    zp = torch.zeros(ch.shape[0], dtype=torch.int64, device=x.device)
+    return torch.quantize_per_channel(ch, scales.reshape(-1).double(), zp, 0,
+                                      torch.qint8)
+
+
+def main_path_staging(n_params: int, world: int = DP_WORLD,
+                      bucket_elems: int = BUCKET_ELEMS) -> "tuple[int, int]":
+    """The masked reduce's shape on phase 9's f32 sync: the bucket matrix
+    (ceil(params / bucket_elems) rows of bucket_elems) flattened, padded
+    to the world and scattered, so each rank sums ``world`` blocks of
+    ceil(rows * bucket_elems / world) (ops/collectives.py
+    ``psum_allreduce`` -> ``_rank_sum``)."""
+    rows = -(-n_params // bucket_elems)
+    return world, -(-rows * bucket_elems // world)
+
+
+def phase_sync_kernels(torch, n_params: int) -> dict:
+    """Rows 1-7 against their plain versions (see the module docstring);
+    returns the timed row of each kernel at its main shape."""
+    from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
+    from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    timed = {}
+
+    peers0, elems0 = main_path_staging(n_params)
+    cases = [(peers0, elems0, (1,) * peers0, float(peers0))] + REDUCE_CASES
+    for n, (peers, elems, mask, target) in enumerate(cases):
+        gen = torch.Generator(DEVICE).manual_seed(200 + n)
+        staged = torch.randn((peers, elems), generator=gen, device=DEVICE)
+        valid = torch.tensor(mask, dtype=torch.int32, device=DEVICE)
+        out, count = mr.masked_reduce(staged, valid, target)
+        ref, ref_count = mr.masked_reduce_reference(staged, valid, target)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ok = bool(torch.isfinite(out).all()) and int(count) == int(
+            ref_count) and torch.allclose(out, ref, rtol=1e-6, atol=1e-7)
+        row = {"shape": [peers, elems], "valid": list(mask),
+               "target": target, "count": int(count), "max_abs_err": err,
+               "bitwise": torch_equal(out, ref), "ok": ok}
+        if n == 0:
+            w = valid.float() * (target / float(valid.sum()))
+            b_ms, by = reduce_bound(peers, elems)
+            row.update(
+                ms=time_ms(torch, lambda: mr.masked_reduce(
+                    staged, valid, target), flush),
+                plain_ms=time_ms(torch, lambda: mr.masked_reduce_reference(
+                    staged, valid, target), flush, reps=5, warmup=1),
+                library_ms=time_ms(torch, lambda: torch.mv(staged.t(), w),
+                                   flush),
+                library_call="torch.mv(staged.t(), valid * target / count)",
+                bound_ms=b_ms, bound_by=by, main_path=True)
+            timed["masked_reduce"] = row
+        emit("sync_kernels", kernel="masked_reduce", **row)
+        if not ok:
+            raise AssertionError(f"masked_reduce disagrees with its plain "
+                                 f"version: {row}")
+        del staged, out, ref
+
+    rows = -(-n_params // BUCKET_ELEMS)
+    shapes = [("flagship", rows, BUCKET_ELEMS, EF_BLOCK),
+              ("small", 5, 1000, 128), ("small", 5, 1000, 512),
+              ("ragged", 3, 1001, 128)]
+    for name, r, c, block in shapes:
+        gen = torch.Generator(DEVICE).manual_seed(300 + r + c + block)
+        x = torch.randn((r, c), generator=gen, device=DEVICE)
+        x[0, :7] *= 50.0  # an outlier block
+        bits = torch.randint(-2 ** 31, 2 ** 31, (r, c), dtype=torch.int32,
+                             generator=gen, device=DEVICE)
+        seed = 0x9E3779B97F4A7C15 + r
+        rs, bs = qz.row_scales(x), qz.block_scales(x, block)
+        # each quantize kernel's launch alone, on the scales computed
+        # above (the wrappers compute them first, outside the kernel)
+        launch = {
+            "quantize_int8": lambda: qz._quantize(x, rs, c, "bits", bits, 0),
+            "quantize_int8_prng": lambda: qz._quantize(x, rs, c, "philox",
+                                                       None, seed),
+            "quantize_int8_block": lambda: qz._quantize(x, bs, block, "bits",
+                                                        bits, 0),
+            "quantize_int8_block_rtn": lambda: qz._quantize(x, bs, block,
+                                                            "rtn", None, 0)}
+        scale_pass = {"quantize_int8": lambda: qz.row_scales(x),
+                      "quantize_int8_prng": lambda: qz.row_scales(x),
+                      "quantize_int8_block": lambda: qz.block_scales(x, block),
+                      "quantize_int8_block_rtn":
+                          lambda: qz.block_scales(x, block)}
+        runs = {
+            "quantize_int8": (lambda: qz.quantize_int8(x, bits),
+                              lambda: qz.quantize_reference(x, rs, c, "bits",
+                                                            bits), rs),
+            "quantize_int8_prng": (
+                lambda: qz.quantize_int8_prng(x, seed),
+                lambda: qz.quantize_reference(x, rs, c, "philox",
+                                              seed=seed), rs),
+            "quantize_int8_block": (
+                lambda: qz.quantize_int8_block(x, bits, block),
+                lambda: qz.quantize_reference(x, bs, block, "bits", bits),
+                bs),
+            "quantize_int8_block_rtn": (
+                lambda: qz.quantize_int8_block_rtn(x, block),
+                lambda: qz.quantize_reference(x, bs, block, "rtn"), bs)}
+        values = {}
+        for kernel, (run, plain, want_s) in runs.items():
+            v, s = run()
+            ref = plain()
+            alone = launch[kernel]()
+            torch.cuda.synchronize()
+            bitwise, err = _same(v, ref)
+            scales_ok = torch_equal(s, want_s)
+            alone_ok = torch_equal(alone, v)
+            values[kernel] = (v, s)
+            row = {"shape": [r, c], "block": block if "block" in kernel
+                   else c, "max_abs_err": err, "bitwise": bitwise,
+                   "scales_bitwise": scales_ok, "launch_alone_bitwise":
+                   alone_ok, "ok": bitwise and scales_ok and alone_ok}
+            del alone
+            if name == "flagship" and kernel not in timed:
+                nb = s.shape[1]
+                b_ms, by = quant_bound(kernel, r, c, nb)
+                slow = kernel == "quantize_int8_prng"
+                row.update(
+                    ms=time_ms(torch, launch[kernel], flush),
+                    scales_ms=time_ms(torch, scale_pass[kernel], flush),
+                    wrapper_ms=time_ms(torch, run, flush),
+                    plain_ms=time_ms(torch, plain, flush,
+                                     reps=2 if slow else 3, warmup=1),
+                    bound_ms=b_ms, bound_by=by, library_ms=None,
+                    main_path=kernel in MAIN_PATH_SYNC)
+                if kernel == "quantize_int8_block_rtn":
+                    lib = library_quantize_rtn(torch, x, s, block)
+                    match = torch_equal(lib.int_repr().view(r, c), v)
+                    row["library_matches"] = match
+                    if match:
+                        row["library_ms"] = time_ms(
+                            torch, lambda: library_quantize_rtn(
+                                torch, x, s, block), flush)
+                        row["library_call"] = "torch.quantize_per_channel"
+                    del lib
+                timed[kernel] = row
+            emit("sync_kernels", kernel=kernel, **row)
+            if not row["ok"]:
+                raise AssertionError(f"{kernel} disagrees with its plain "
+                                     f"version: {row}")
+        for kernel, q_name, block_of in (
+                ("dequantize_int8", "quantize_int8", c),
+                ("dequantize_int8_block", "quantize_int8_block", block)):
+            v, s = values[q_name]
+            run = ((lambda: qz.dequantize_int8(v, s))
+                   if kernel == "dequantize_int8"
+                   else (lambda: qz.dequantize_int8_block(v, s, block)))
+            out = run()
+            ref = qz.dequantize_reference(v, s, block_of)
+            torch.cuda.synchronize()
+            bitwise, err = _same(out, ref)
+            row = {"shape": [r, c], "block": block_of, "max_abs_err": err,
+                   "bitwise": bitwise, "ok": bitwise}
+            if name == "flagship" and kernel not in timed:
+                b_ms, by = quant_bound(kernel, r, c, s.shape[1])
+                if kernel == "dequantize_int8":
+                    lib = (lambda: torch.mul(v, s))
+                    call = "torch.mul(values, scales)"
+                else:
+                    lib = (lambda: torch.mul(
+                        v.view(r, -1, block), s.view(r, -1, 1)))
+                    call = "torch.mul(values.view(r, nb, block), scales)"
+                match = torch_equal(lib().reshape(r, c), out)
+                row.update(
+                    ms=time_ms(torch, run, flush),
+                    plain_ms=time_ms(torch, lambda: qz.dequantize_reference(
+                        v, s, block_of), flush, reps=3, warmup=1),
+                    bound_ms=b_ms, bound_by=by, library_matches=match,
+                    library_ms=time_ms(torch, lib, flush) if match else None,
+                    library_call=call, main_path=True)
+                timed[kernel] = row
+            emit("sync_kernels", kernel=kernel, **row)
+            if not row["ok"]:
+                raise AssertionError(f"{kernel} disagrees with its plain "
+                                     f"version: {row}")
+            del out, ref
+        del x, bits, values
+        torch.cuda.empty_cache()
+    return timed
+
+
+def window_count(rows: int, num_windows: int) -> int:
+    """The windowed f32/bf16 schedule's window count (parallel/dp.py's
+    rule, restated): degraded until the zero-row pad is under a window."""
+    w = min(num_windows, rows)
+    while w > 1 and (-rows) % w >= -(-rows // w):
+        w -= 1
+    return max(w, 1)
+
+
+def expected_sync_launches(transport: str, schedule: str, world: int,
+                           num_buckets: int, num_windows: int = 4) -> dict:
+    """Kernel launches of ONE gradient sync: the fused two-phase sums its
+    ranks' blocks with one masked reduce (f32/bf16); the int8 wire
+    quantizes twice and dequantizes once; ef8 quantizes to nearest once
+    (phase 1), stochastically once (phase 2) and dequantizes three times
+    (its own send, what it received, the broadcast). The windowed
+    schedule repeats that per window; swing runs log2(world) hops of one
+    quantize and two dequantizes (ef8: the first hop to nearest) and
+    sums f32/bf16 with plain adds."""
+    out = dict.fromkeys(SYNC_KERNELS, 0)
+    quant = "quantize_int8_prng"
+    if world == 1:
+        return out
+    if schedule == "swing":
+        hops = world.bit_length() - 1
+        if transport == "int8":
+            out.update({quant: hops, "dequantize_int8": 2 * hops})
+        elif transport == "ef8":
+            out.update({"quantize_int8_block_rtn": 1,
+                        "quantize_int8_block": hops - 1,
+                        "dequantize_int8_block": 2 * hops})
+        return out
+    if transport in ("f32", "bf16"):
+        out["masked_reduce"] = (window_count(num_buckets, num_windows)
+                                if schedule == "windowed" else 1)
+        return out
+    padded = num_buckets + (-num_buckets) % world
+    w = min(num_windows, padded // world) if schedule == "windowed" else 1
+    if transport == "int8":
+        out.update({quant: 2 * w, "dequantize_int8": w})
+    else:
+        out.update({"quantize_int8_block_rtn": w, "quantize_int8_block": w,
+                    "dequantize_int8_block": 3 * w})
+    return out
+
+
+def phase_train_dp(torch, one_card_losses: list) -> dict:
+    """``run_train`` at dp=2 per wire (the main path of the sync); each
+    run's ranks are fresh processes whose counters start at 0. The f32
+    wire's losses are held against phase 6's first steps (the same
+    weights and global batches on one card), the quantized wires' against
+    the f32 wire's. Returns the sync kernels' launches summed over the
+    runs."""
+    from akka_allreduce_tpu_torch import cli
+    totals = dict.fromkeys(SYNC_KERNELS, 0)
+    f32_losses = None
+    for wire in DP_WIRES:
+        args = cli.build_parser().parse_args(DP_ARGV + ["--grad-quant", wire])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report = cli.run_train(args)
+        seconds = time.perf_counter() - t0
+        cfg = report["config"]
+        num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
+        per_sync = expected_sync_launches(
+            cfg["grad_transport"], cfg["transport_schedule"],
+            report["dist"]["world"], num_buckets, args.grad_windows)
+        expected = {k: v * args.steps for k, v in per_sync.items()}
+        flash_expected = args.n_layers * args.steps
+        sums = [r["param_checksum"] for r in report["ranks"]]
+        sync_ms = report["ranks"][0]["sync_ms"]
+        losses = report["losses"]
+        out = {
+            "wire": wire, "backend": report["dist"]["backend"],
+            "world": report["dist"]["world"],
+            "transport": "gloo: host memory (device -> host -> device), "
+                         "not NVLink",
+            "losses": losses, "step_ms": report["step_ms"],
+            "wall_ms_per_step": report["wall_ms_per_step"],
+            "sync_ms": sync_ms,
+            "sync_ms_per_step": (statistics.mean(sync_ms[1:] or sync_ms)
+                                 if sync_ms else None),
+            "tokens_per_s": report["tokens_per_s"], "mfu": report["mfu"],
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                        for r in report["ranks"]],
+            "param_checksums": sums, "num_buckets": num_buckets,
+            "sync_launches": report["sync_launches"],
+            "expected_sync_launches": expected,
+            "flash_launches": report["launches"],
+            "run_seconds": seconds}
+        if wire == "none":
+            ref = one_card_losses[:len(losses)]
+            out.update(one_card_losses=ref, loss_rtol=DP_LOSS_RTOL,
+                       loss_rel_diff=[abs(a - b) / abs(b)
+                                      for a, b in zip(losses, ref)])
+            f32_losses = losses
+        else:
+            out.update(loss_atol=QUANT_LOSS_ATOL, loss_diff_vs_f32=[
+                abs(a - b) for a, b in zip(losses, f32_losses)])
+        emit("train_dp", **out)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{wire}: non-finite losses {out}")
+        if len(set(sums)) != 1:
+            raise AssertionError(f"{wire}: ranks' parameters differ {sums}")
+        if report["sync_launches"] != expected:
+            raise AssertionError(f"{wire}: sync launches "
+                                 f"{report['sync_launches']}, expected "
+                                 f"{expected}")
+        if any(n != flash_expected for n in report["launches"].values()):
+            raise AssertionError(f"{wire}: flash launches "
+                                 f"{report['launches']}, expected "
+                                 f"{flash_expected} each")
+        if wire == "none" and not (
+                len(out["loss_rel_diff"]) == args.steps
+                and max(out["loss_rel_diff"]) <= DP_LOSS_RTOL):
+            raise AssertionError(f"dp=2 f32 losses {losses} vs one card "
+                                 f"{out['one_card_losses']}")
+        if wire != "none" and not max(out["loss_diff_vs_f32"]
+                                      ) < QUANT_LOSS_ATOL:
+            raise AssertionError(f"{wire} losses {losses} vs the f32 wire "
+                                 f"{f32_losses}")
+        for k, v in report["sync_launches"].items():
+            totals[k] += v
+    missing = [k for k in MAIN_PATH_SYNC if totals[k] == 0]
+    if missing:
+        raise AssertionError(f"sync kernels never launched on the main "
+                             f"path: {missing}")
+    return totals
+
+
+def sync4_envelope(torch, transport: str, schedule: str, contribs: list,
+                   world: int):
+    """Elementwise bound on |output - exact sum| for a wire: f32 sums in
+    rank order (a few roundings of the absolute sum); bf16 (unit
+    roundoff 2^-8) rounds each contribution, then the f32 sum once, or on
+    swing each of its log2(N) bf16 hops, so (1 + hops) * 2^-8 of the
+    absolute sum; int8/ef8 the JAX tests' 3 * 2/127 * N * max|x|."""
+    abs_sum = sum(c.abs() for c in contribs)
+    if transport == "f32":
+        return 4 * 2.0 ** -23 * abs_sum
+    if transport == "bf16":
+        hops = world.bit_length() - 1 if schedule == "swing" else 1
+        return (1 + hops) * 2.0 ** -8 * abs_sum
+    return torch.full_like(abs_sum, 3 * 2 / 127 * world * max(
+        float(c.abs().max()) for c in contribs))
+
+
+def sync4_rank(group, cases: list, shape: tuple) -> list:
+    """One rank of phase 10: every case on this rank's seeded bucket
+    matrix. Every rank draws every rank's inputs (and masks), so each
+    computes the exact sum itself; returns per case a digest of the
+    output, its largest excess over the envelope and whether the counts
+    are exact."""
+    import torch
+
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    rows, cols = shape
+    out = []
+    for n, case in enumerate(cases):
+        xs = [torch.randn(shape, device=group.device,
+                          generator=torch.Generator(group.device)
+                          .manual_seed(1000 * n + r))
+              for r in range(group.world)]
+        masks = [((torch.arange(rows, device=group.device) + r) % 5 != 0)
+                 .to(torch.int32) if case["masked"] else
+                 torch.ones(rows, dtype=torch.int32, device=group.device)
+                 for r in range(group.world)]
+        contribs = [x.double() * m.double()[:, None]
+                    for x, m in zip(xs, masks)]
+        exact = sum(contribs)
+        cfg = GradSyncConfig(bucket_elems=cols, average=False,
+                             return_elem_counts=False,
+                             transport=case["transport"],
+                             transport_schedule=case["schedule"],
+                             num_windows=4)
+        res = allreduce_gradients(
+            {"g": xs[group.rank]}, cfg, group,
+            valid=masks[group.rank] if case["masked"] else None,
+            quant_key=(17, n, 0))
+        got = res.grads["g"].double()
+        excess = float((
+            (got - exact).abs()
+            - sync4_envelope(torch, case["transport"], case["schedule"],
+                             contribs, group.world)).max())
+        counts_ok = bool((res.bucket_counts.long()
+                          == sum(m.long() for m in masks)).all())
+        out.append({**case, "digest": hashlib.sha256(
+            res.grads["g"].cpu().numpy().tobytes()).hexdigest()[:16],
+            "max_err": float((got - exact).abs().max()),
+            "excess_over_envelope": excess, "counts_exact": counts_ok})
+    return out
+
+
+def phase_sync4(torch) -> dict:
+    """``allreduce_gradients`` at four gloo ranks on the card."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(sync4_rank, 4, "gloo", DEVICE, SYNC4_CASES,
+                        SYNC4_SHAPE)
+    failures = []
+    for n, case in enumerate(SYNC4_CASES):
+        rows = [r[n] for r in ranks]
+        identical = len({r["digest"] for r in rows}) == 1
+        ok = identical and all(r["excess_over_envelope"] <= 0
+                               and r["counts_exact"] for r in rows)
+        emit("sync4", **case, identical_on_all_ranks=identical,
+             max_err=max(r["max_err"] for r in rows),
+             excess_over_envelope=max(r["excess_over_envelope"]
+                                      for r in rows),
+             counts_exact=all(r["counts_exact"] for r in rows), ok=ok)
+        if not ok:
+            failures.append(case)
+    if failures:
+        raise AssertionError(f"four-rank sync failed: {failures}")
+    return {"cases": len(SYNC4_CASES)}
 
 
 def reference_logits(torch, params, cfg, prompt, tokens):
@@ -674,6 +1207,16 @@ def main() -> int:
     trained = phase_train(torch)
     phase_train_parity(torch)
 
+    # 8. the sync kernels, 9. the flagship at dp=2, 10. four ranks
+    t8 = time.perf_counter()
+    sync = phase_sync_kernels(torch, trained["params"])
+    t9 = time.perf_counter()
+    sync_launches = phase_train_dp(torch, trained["losses"])
+    t10 = time.perf_counter()
+    phase_sync4(torch)
+    emit("sync_phases_seconds", sync_kernels=t9 - t8, train_dp=t10 - t9,
+         sync4=time.perf_counter() - t10)
+
     row = timed["torch.float32"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -690,12 +1233,21 @@ def main() -> int:
                                    ("flash_dkv", ("dk", "dv"), "backward")):
         kernels.append({
             "name": kernel, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[kernel], "launches": trained[kernel],
+            "replaces": FLASH_REPLACES[kernel],
+            "launches": trained["launches"][kernel],
             "max_abs_err": max(frow["max_abs_err"][k] for k in err_keys),
             "ms": frow["ms"][kernel], "plain_ms": frow["plain_ms"][part],
             "bound_ms": frow["bound_ms"][kernel],
             "bound_by": frow["bound_by"][kernel],
             "library_ms": frow["library_ms"][part]})
+    for kernel, (source, replaces) in SYNC_KERNELS.items():
+        srow = sync[kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sync_launches[kernel],
+            "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
+            "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
+            "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

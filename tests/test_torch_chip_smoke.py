@@ -78,3 +78,117 @@ def test_refuses_without_cuda():
                          timeout=120)
     assert out.returncode != 0 and out.stdout == ""
     assert "torch.cuda.is_available() is False" in out.stderr
+
+
+class _LoopbackGroup:
+    """A stand-in for a RankGroup of ``world`` ranks inside one process:
+    every peer sends what this rank sends. The sums it gives are wrong,
+    but the control flow (which kernels each schedule calls, how often)
+    is the real one."""
+
+    def __init__(self, world):
+        self.rank, self.world, self.backend = 0, world, "loopback"
+        self.device = torch.device("cpu")
+
+    def all_to_all(self, x):
+        return x.clone()
+
+    def all_gather(self, x):
+        return torch.cat([x] * self.world)
+
+    def exchange(self, x, peer):
+        return x.clone()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("schedule", ["fused", "windowed", "swing"])
+@pytest.mark.parametrize("transport", ["f32", "bf16", "int8", "ef8"])
+@pytest.mark.parametrize("num_buckets", [9, 1])
+def test_sync_launch_arithmetic(monkeypatch, world, schedule, transport,
+                                num_buckets):
+    """Phase 9's expected launches per sync equal the kernel wrappers
+    that ``allreduce_gradients`` calls, counted on the CPU."""
+    from akka_allreduce_tpu_torch.ops import collectives
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    calls = dict.fromkeys(chip_smoke.SYNC_KERNELS, 0)
+
+    def counting(name):
+        fn = getattr(collectives, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    # the sync reaches no bits-tensor per-row quantizer (row 2)
+    assert not hasattr(collectives, "quantize_int8")
+    for name in chip_smoke.MAIN_PATH_SYNC:
+        monkeypatch.setattr(collectives, name, counting(name))
+    cfg = GradSyncConfig(bucket_elems=256, transport=transport,
+                         transport_schedule=schedule, num_windows=4)
+    grads = {"w": torch.randn(num_buckets * 256 - 7)}
+    allreduce_gradients(grads, cfg, _LoopbackGroup(world), quant_key=(1,))
+    assert calls == chip_smoke.expected_sync_launches(
+        transport, schedule, world, num_buckets, 4)
+
+
+def test_phase9_flagship_launches_per_run():
+    """The flagship's bucket matrix at dp=2, fused: 3 steps of one sync
+    each (8,257 buckets of 65,536: ceil(541,100,032 / 65,536))."""
+    buckets = -(-541_100_032 // chip_smoke.BUCKET_ELEMS)
+    assert buckets == 8257
+    per = {w: chip_smoke.expected_sync_launches(t, "fused", 2, buckets, 4)
+           for w, t in (("none", "f32"), ("int8", "int8"), ("ef8", "ef8"))}
+    nonzero = {w: {k: 3 * v for k, v in p.items() if v}
+               for w, p in per.items()}
+    assert nonzero == {
+        "none": {"masked_reduce": 3},
+        "int8": {"quantize_int8_prng": 6, "dequantize_int8": 3},
+        "ef8": {"quantize_int8_block_rtn": 3, "quantize_int8_block": 3,
+                "dequantize_int8_block": 9}}
+    # the wires launch every sync kernel but row 2, the bits-tensor
+    # per-row quantizer (held against its plain version in phase 8)
+    assert set().union(*nonzero.values()) == set(chip_smoke.MAIN_PATH_SYNC)
+    assert set(chip_smoke.SYNC_KERNELS) - set(chip_smoke.MAIN_PATH_SYNC) \
+        == {"quantize_int8"}
+    assert chip_smoke.DP_WIRES == ("none", "int8", "ef8")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_masked_reduce_main_path_shape(monkeypatch, world):
+    """Phase 8 times the masked reduce at the staging matrix the f32
+    sync gives it: ``main_path_staging`` equals the shape the kernel
+    wrapper receives from ``allreduce_gradients``; at the flagship dp=2,
+    2 x 270,565,376."""
+    from akka_allreduce_tpu_torch.ops import collectives
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    shapes = []
+    real = collectives.masked_reduce
+
+    def recording(staged, *a, **k):
+        shapes.append(tuple(staged.shape))
+        return real(staged, *a, **k)
+    monkeypatch.setattr(collectives, "masked_reduce", recording)
+    n = 9 * 256 - 7
+    allreduce_gradients({"w": torch.randn(n)},
+                        GradSyncConfig(bucket_elems=256),
+                        _LoopbackGroup(world))
+    assert shapes == [chip_smoke.main_path_staging(n, world, 256)]
+    assert chip_smoke.main_path_staging(541_100_032) == (2, 270_565_376)
+
+
+@pytest.mark.parametrize("kernel,per_elem", [
+    ("quantize_int8", 9), ("quantize_int8_prng", 5),
+    ("quantize_int8_block", 9), ("quantize_int8_block_rtn", 5),
+    ("dequantize_int8", 5), ("dequantize_int8_block", 5)])
+def test_sync_kernel_bounds_count_bytes(kernel, per_elem):
+    rows, cols, nb = 8257, 65536, 128
+    t, by = chip_smoke.quant_bound(kernel, rows, cols, nb)
+    want = (per_elem * rows * cols + 4 * rows * nb) \
+        / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    assert by == "bytes" and t == pytest.approx(want)
+    t, by = chip_smoke.reduce_bound(8, 3_276_800)
+    assert by == "bytes" and t == pytest.approx(
+        4 * (9 * 3_276_800 + 9) / chip_smoke.PEAK_BYTES_PER_S * 1e3)

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: it never loads JAX or the JAX package.
 
-Two pins: a fresh interpreter imports every module of
-``akka_allreduce_tpu_torch`` (the CLI included) and finds neither ``jax``
-nor ``akka_allreduce_tpu`` in ``sys.modules``; and an AST scan of the
-package's sources finds no import statement naming either.
+Three pins: a fresh interpreter imports every module of
+``akka_allreduce_tpu_torch`` (the CLI and the gradient sync's modules
+included) and finds neither ``jax`` nor ``akka_allreduce_tpu`` in
+``sys.modules``; a rank process that ``spawn_ranks`` starts from this
+(JAX-importing) test process holds neither either; and an AST scan of
+the package's sources finds no import statement naming either.
 """
 
 import ast
@@ -34,7 +36,14 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.models.flops",
             "akka_allreduce_tpu_torch.models.train",
             "akka_allreduce_tpu_torch.ops.kernels.flash_attention",
-            "akka_allreduce_tpu_torch.runtime.checkpoint"} <= set(mods)
+            "akka_allreduce_tpu_torch.runtime.checkpoint",
+            "akka_allreduce_tpu_torch.parallel.group",
+            "akka_allreduce_tpu_torch.parallel.dp",
+            "akka_allreduce_tpu_torch.ops.bucketing",
+            "akka_allreduce_tpu_torch.ops.masked",
+            "akka_allreduce_tpu_torch.ops.collectives",
+            "akka_allreduce_tpu_torch.ops.kernels.masked_reduce",
+            "akka_allreduce_tpu_torch.ops.kernels.quantized"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,6 +57,22 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _is_jax(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "akka_allreduce_tpu")
+
+
+def test_spawned_rank_loads_no_jax():
+    import jax  # noqa: F401 - the parent holds JAX; the ranks must not
+
+    from akka_allreduce_tpu_torch.parallel.group import (run_calls,
+                                                         spawn_ranks)
+    target = "akka_allreduce_tpu_torch.parallel.group:loaded_modules"
+    ranks = spawn_ranks(run_calls, 2, "gloo", "cpu", [(target, [], {})])
+    for (mods,) in ranks:
+        assert "akka_allreduce_tpu_torch.parallel.group" in mods
+        assert [m for m in mods if _is_jax(m)] == []
 
 
 def _imported_names(tree: ast.AST) -> list:
@@ -68,9 +93,14 @@ def _imported_names(tree: ast.AST) -> list:
 def test_ast_scan_finds_no_jax_import():
     offenders = []
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = set()
     for path in files:
+        scanned.add(path.relative_to(REPO).as_posix())
         for name in _imported_names(ast.parse(path.read_text())):
-            root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "akka_allreduce_tpu"):
+            if _is_jax(name):
                 offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert offenders == []
+    assert {f"akka_allreduce_tpu_torch/{m}.py" for m in (
+        "parallel/group", "parallel/dp", "ops/bucketing", "ops/masked",
+        "ops/collectives", "ops/kernels/masked_reduce",
+        "ops/kernels/quantized")} <= scanned

@@ -9,7 +9,9 @@ runs on the GPU machine, from the repository root::
 
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
-2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2;
+2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2; the gradient sync's
+masked reduce and int8 quantizers: bitwise (both sum the peers in order,
+and the quantizers' arithmetic is IEEE's, Philox drawn alike);
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from akka_allreduce_tpu_torch.ops.kernels import attention
+from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
+from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -158,3 +162,67 @@ def test_flash_rejects_unsupported_head_dim(cuda_device):
     q, k, v, _ = flash_inputs(2, 32, 64, 64, 0, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_forward(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peers,elems,valid,target", [
+    (8, 65536, (1, 1, 1, 0, 1, 1, 1, 1), 8.0), (3, 1001, (1, 0, 1), 2.0),
+    (2, 128, (0, 0), 1.0)])
+def test_masked_reduce_matches_plain(cuda_device, peers, elems, valid,
+                                     target):
+    gen = torch.Generator().manual_seed(elems)
+    staged = torch.randn((peers, elems), generator=gen).to(cuda_device)
+    v = torch.tensor(valid, device=cuda_device)
+    before = mr.MASKED_REDUCE_LAUNCHES
+    out, count = mr.masked_reduce(staged, v, target)
+    ref, ref_count = mr.masked_reduce_reference(staged, v, target)
+    torch.cuda.synchronize()
+    assert mr.MASKED_REDUCE_LAUNCHES == before + 1
+    assert int(count) == int(ref_count) == sum(valid)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,block,offset", [
+    (16, 4096, 512, 0), (5, 1000, 128, 0), (3, 1001, 128, 0),
+    (4, 1024, 256, 1)])  # offset 1: a base that is not 16-byte aligned
+def test_quantize_kernels_bitwise_plain(cuda_device, rows, cols, block,
+                                        offset):
+    gen = torch.Generator().manual_seed(rows * cols + offset)
+    base = torch.randn(rows * cols + offset, generator=gen)
+    x = base[offset:].view(rows, cols).to(cuda_device) if not offset else \
+        base.to(cuda_device)[offset:].view(rows, cols)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (rows, cols), dtype=torch.int32,
+                         generator=gen).to(cuda_device)
+    rs, bs = qz.row_scales(x), qz.block_scales(x, block)
+    runs = [
+        (qz.quantize_int8(x, bits), qz.quantize_reference(x, rs, cols,
+                                                          "bits", bits), rs),
+        (qz.quantize_int8_prng(x, 99), qz.quantize_reference(
+            x, rs, cols, "philox", seed=99), rs),
+        (qz.quantize_int8_block(x, bits, block), qz.quantize_reference(
+            x, bs, block, "bits", bits), bs),
+        (qz.quantize_int8_block_rtn(x, block), qz.quantize_reference(
+            x, bs, block, "rtn"), bs)]
+    for (v, s), ref, want_s in runs:
+        assert torch.equal(v, ref) and torch.equal(s, want_s)
+    v, s = runs[0][0]
+    assert torch.equal(qz.dequantize_int8(v, s),
+                       qz.dequantize_reference(v, s, cols))
+    v, s = runs[2][0]
+    assert torch.equal(qz.dequantize_int8_block(v, s, block),
+                       qz.dequantize_reference(v, s, block))
+
+
+@pytest.mark.cuda
+def test_quantize_counters_count_launches_only(cuda_device):
+    before = qz.launch_counts()
+    x = torch.randn(4, 256, device=cuda_device)
+    v, s = qz.quantize_int8_block_rtn(x, 128)
+    qz.dequantize_int8_block(v.view(2, 2, 256), s.view(2, 2, 2), 128)
+    qz.quantize_int8_block_rtn(x.cpu(), 128)  # the plain version
+    after = qz.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "quantize_int8": 0, "dequantize_int8": 0, "quantize_int8_prng": 0,
+        "quantize_int8_block": 0, "quantize_int8_block_rtn": 1,
+        "dequantize_int8_block": 1}
