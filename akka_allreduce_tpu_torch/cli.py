@@ -20,12 +20,15 @@ runs the CUDA flash kernels (``ops/kernels/csrc/flash_attention.cu``).
 With ``--dp N`` it runs N rank processes, each on its rows of the global
 batch, whose gradients meet in the bucketed allreduce (``--grad-quant``,
 ``--grad-schedule``; the sync's CUDA kernels in
-``ops/kernels/csrc/masked_reduce.cu`` and ``quantize.cu``)::
+``ops/kernels/csrc/masked_reduce.cu`` and ``quantize.cu``). With ``--sp
+S`` each row's sequence is split over S ranks more (dp x S processes in
+all) whose attention runs around a ring of K/V blocks on the ring-flash
+kernels (``ops/kernels/csrc/ring_flash.cu``)::
 
     python -m akka_allreduce_tpu_torch.cli train --d-model 2048 \\
         --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
         --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1 \\
-        [--dp 2 --dist-backend gloo --grad-quant ef8]
+        [--dp 2 --dist-backend gloo --grad-quant ef8] [--sp 2]
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--batch", type=int, default=0,
                    help="batch (0 = 2 x --grad-accum)")
     p.add_argument("--seq", type=int, default=0,
-                   help="sequence length (0 = 32)")
+                   help="global sequence length (0 = 32 x --sp)")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--lr-schedule", choices=("constant", "cosine"),
                    default="constant",
@@ -142,8 +145,14 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                    help="data-parallel ranks, one process each; rank r "
                         "trains on rows [r*B/N, (r+1)*B/N) of each global "
                         "batch (1 = this process alone)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks per data-parallel rank, "
+                        "one process each: rank (i, j) trains on columns "
+                        "[j*T/S, (j+1)*T/S) of its rows, attention runs "
+                        "around the ring of the S ranks, and the gradient "
+                        "sync spans all dp x S ranks")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
-                   help="process-group backend with --dp > 1 (default: "
+                   help="process-group backend with dp x sp > 1 (default: "
                         "nccl on cuda, gloo on cpu). nccl needs one GPU "
                         "per rank; gloo runs several ranks on one card "
                         "and moves the wire through host memory")
@@ -394,37 +403,82 @@ def train_config(args: argparse.Namespace, seq: int,
         transport_schedule=args.grad_schedule, num_windows=args.grad_windows)
 
 
+def _two_phase_geometry_error(feature: str, data_axes: dict, remedy: str,
+                             wire: str = "", power_of_two: bool = False
+                             ) -> "str | None":
+    """The JAX command's check of the collective geometry a train flag
+    demands: exactly one >1 data axis (the quantized wires and the
+    windowed and swing schedules), and for swing a power-of-two axis
+    size. Returns the error message, or None when the geometry holds."""
+    wide = [f"{k}={v}" for k, v in data_axes.items() if v > 1]
+    if len(wide) > 1:
+        return (f"{feature} needs a single >1 data axis, got "
+                f"{' '.join(wide)}; {remedy}")
+    axis_size = max(data_axes.values())
+    if power_of_two and axis_size & (axis_size - 1):
+        return (f"{feature}{f' with a {wire} wire' if wire else ''} "
+                f"needs a power-of-two data-axis size (the ±2^t "
+                f"exchange pairing), got {axis_size}; {remedy}")
+    return None
+
+
 def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     """Flag checks with the arithmetic spelled out; returns (global batch,
-    sequence, backend). ValueError / NotImplementedError on a bad or an
-    unported combination."""
+    global sequence, backend). ValueError / NotImplementedError on a bad
+    or an unported combination."""
     from akka_allreduce_tpu_torch.models.train import check_supported
     from akka_allreduce_tpu_torch.parallel.group import check_backend
+    from akka_allreduce_tpu_torch.parallel.ring_attention import \
+        _check_window_fits
     if args.steps < 0 or args.grad_accum < 1:
         raise ValueError("--steps must be >= 0 and --grad-accum >= 1")
-    if args.dp < 1:
-        raise ValueError(f"--dp must be >= 1, got {args.dp}")
+    if args.dp < 1 or args.sp < 1:
+        raise ValueError(f"--dp and --sp must be >= 1, got {args.dp} and "
+                         f"{args.sp}")
     if args.grad_windows < 1:
         raise ValueError(f"--grad-windows must be >= 1, got "
                          f"{args.grad_windows}")
-    dp = args.dp
+    dp, sp = args.dp, args.sp
     b = args.batch or 2 * dp * args.grad_accum
+    t = args.seq or 32 * sp
     if b % dp:
         raise ValueError(f"--batch {b} must divide over --dp {dp} ranks")
     if (b // dp) % args.grad_accum:
         raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
                          f"per-rank batch {b // dp} (= batch {b} / {dp} "
                          f"ranks)")
-    if args.grad_schedule == "swing" and dp & (dp - 1):
-        raise ValueError(f"--grad-schedule swing needs a power-of-two "
-                         f"--dp (the ±2^t exchange pairing), got {dp}; use "
-                         f"--grad-schedule fused or windowed")
-    check_supported(train_config(args, args.seq or 32))
+    if t % sp:
+        raise ValueError(f"--seq {t} must divide over --sp {sp} ranks "
+                         f"(each holds T / sp positions)")
+    if sp > 1 and args.attn_window:
+        _check_window_fits(args.attn_window, t // sp)
+    # the quantized wires and the windowed and swing schedules need
+    # exactly one >1 data axis (and swing a power-of-two one)
+    data_axes = {"dp": dp, "sp": sp}
+    wire = grad_wire(args)
+    if wire in ("int8", "ef8") and args.grad_schedule not in (
+            "hierarchical", "auto"):
+        err = _two_phase_geometry_error(
+            f"--grad-quant {wire}", data_axes,
+            remedy="use f32/bf16 transport, fold the parallelism into dp, "
+                   "or (ef8, two axes) --grad-schedule hierarchical "
+                   "(measured by --grad-schedule auto)")
+        if err:
+            raise ValueError(err)
+    if args.grad_schedule in ("windowed", "swing"):
+        err = _two_phase_geometry_error(
+            f"--grad-schedule {args.grad_schedule}", data_axes,
+            remedy="fold the parallelism into dp or use --grad-schedule "
+                   "fused", wire=wire,
+            power_of_two=args.grad_schedule == "swing")
+        if err:
+            raise ValueError(err)
+    check_supported(train_config(args, t))
     device = "cuda" if args.device.startswith("cuda") else args.device
     backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
-    if dp > 1:
-        check_backend(backend, device, dp)
-    return b, args.seq or 32, backend
+    if dp * sp > 1:
+        check_backend(backend, device, dp * sp)
+    return b, t, backend
 
 
 def run_train(args: argparse.Namespace, params: "dict | None" = None,
@@ -432,40 +486,43 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     """Train for ``args.steps`` steps and return the report: per-step
     losses and wall ms, tokens/s and MFU over the steps after the first,
     and the kernels' launch counts during the run (``launches``: flash;
-    ``sync_launches``: the gradient sync's). ``params`` (optional) are
-    the starting weights (on one rank updated in place; with ``--dp`` > 1
-    each rank trains a copy); otherwise they are random from seed 0.
-    ``attn_impl`` overrides the config's "auto" (the flash path).
+    ``ring_launches``: ring flash; ``sync_launches``: the gradient
+    sync's). ``params`` (optional) are the starting weights (on one rank
+    updated in place; with more ranks each trains a copy); otherwise they
+    are random from seed 0. ``attn_impl`` overrides the config's "auto"
+    (the flash or ring-flash path).
 
-    With ``--dp N`` > 1 the CUDA kernels are built here first (the ranks
-    never race ``nvcc``), then N rank processes train (``parallel/
-    group.py spawn_ranks``); only rank 0 prints, and the report is rank
-    0's, with ``dist`` (backend, world) and ``ranks`` (each rank's peak
-    memory, sync ms per step and parameter checksum) added. Raises
-    ValueError on bad flags, NotImplementedError on what the port has not
-    ported, RuntimeError when CUDA is asked for and absent."""
+    With ``--dp N`` x ``--sp S`` > 1 the CUDA kernels are built here
+    first (the ranks never race ``nvcc``), then N x S rank processes
+    train (``parallel/group.py spawn_ranks``); only rank 0 prints, and
+    the report is rank 0's, with ``dist`` (backend, world) and ``ranks``
+    (each rank's peak memory, sync and attention-exchange ms per step and
+    parameter checksum) added. Raises ValueError on bad flags,
+    NotImplementedError on what the port has not ported, RuntimeError
+    when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
     from akka_allreduce_tpu_torch.models.train import tree_map
     from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 
     device = resolve_device(args.device)
     _b, _t, backend = _check_train_flags(args)
-    if args.dp == 1:
+    world = args.dp * args.sp
+    if world == 1:
         return _train(args, params, attn_impl, None, device)
     if device.type == "cuda":
         from akka_allreduce_tpu_torch.ops.kernels import build
         build.build_all()
     host = None if params is None else tree_map(
         lambda p: p.detach().cpu(), params)
-    reports = spawn_ranks(_train_rank, args.dp, backend, device.type, args,
-                          host, attn_impl)
+    reports = spawn_ranks(_train_rank, world, backend, device.type, args,
+                          host, attn_impl, sp=args.sp)
     report = reports[0]
     report["ranks"] = [r.pop("rank_info") for r in reports]
     return report
 
 
 def _train_rank(group, args: argparse.Namespace, params, attn_impl):
-    """One rank of a ``--dp`` run (a spawned process)."""
+    """One rank of a ``--dp`` / ``--sp`` run (a spawned process)."""
     return _train(args, params, attn_impl, group, group.device)
 
 
@@ -487,12 +544,16 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
     from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
     from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    from akka_allreduce_tpu_torch.parallel import ring_attention as ra
 
     world = 1 if group is None else group.world
     rank = 0 if group is None else group.rank
+    dp_i = 0 if group is None else group.axis_index("dp")
+    sp_j = 0 if group is None else group.axis_index("sp")
     log = print if rank == 0 else (lambda *a, **k: None)
     b, t, backend = _check_train_flags(args)
-    local_b = b // world
+    local_b, local_t = b // args.dp, t // args.sp
     log_every = max(1, args.log_every)
     corpus = None
     if args.data_file:
@@ -543,7 +604,9 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                 else:
                     state.residual.copy_(saved)
 
-    dist_note = (f" dp={world} ({backend}) wire={cfg.grad_transport} "
+    sp_note = f" sp={args.sp}" if args.sp > 1 else ""
+    dist_note = (f" dp={args.dp}{sp_note} ({backend}) "
+                 f"wire={cfg.grad_transport} "
                  f"schedule={cfg.transport_schedule}" if world > 1 else "")
     log(f"device {device.type}; batch={b} seq={t} "
         f"grad_accum={args.grad_accum} attn={cfg.attn_impl}{dist_note}")
@@ -551,29 +614,34 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
     def build_batch(i):
         # deterministic per-step data stream, drawn as the JAX command
         # draws it: a resumed run sees the tokens the dead run would have;
-        # rank r takes rows [r * B/N, (r + 1) * B/N) of the global batch
+        # rank (i, j) takes rows [i * B/dp, (i + 1) * B/dp) and columns
+        # [j * T/sp, (j + 1) * T/sp) of the global batch
         if corpus is not None:
             batch = corpus.batch(i, b, t)
         else:
             batch = np.random.default_rng(i).integers(
                 0, args.vocab, size=(b, t), dtype=np.int32)
-        return batch[rank * local_b:(rank + 1) * local_b]
+        return batch[dp_i * local_b:(dp_i + 1) * local_b,
+                     sp_j * local_t:(sp_j + 1) * local_t]
 
     counters = (lambda: (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
                          fa.FLASH_DKV_LAUNCHES),
                 lambda: {"masked_reduce": mr.MASKED_REDUCE_LAUNCHES,
-                         **qz.launch_counts()})
+                         **qz.launch_counts()},
+                rf.counts)
     before = [c() for c in counters]
-    losses, step_ms, sync_ms = [], [], []
+    losses, step_ms, sync_ms, exchange_ms = [], [], [], []
     tic = time.perf_counter()
     steps_in_window = 0
     for i in range(start, args.steps):
         t0 = time.perf_counter()
+        ex0 = ra.EXCHANGE_SECONDS
         tokens = torch.from_numpy(np.ascontiguousarray(build_batch(i))).to(
             device)
         metrics = step(state, tokens)
         loss = float(metrics["loss"])  # waits for the step's device work
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        exchange_ms.append((ra.EXCHANGE_SECONDS - ex0) * 1e3)
         if sync_times:
             sync_ms.append(elapsed_ms(*sync_times.pop()))
         losses.append(loss)
@@ -609,7 +677,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                    "attn_impl": cfg.attn_impl, "n_layers": args.n_layers,
                    "params": sum(p.numel()
                                  for p in tree_leaves(state.params)),
-                   "dp": world, "grad_transport": cfg.grad_transport,
+                   "dp": args.dp, "sp": args.sp,
+                   "grad_transport": cfg.grad_transport,
                    "transport_schedule": cfg.transport_schedule,
                    "bucket_elems": cfg.bucket_elems},
         "device": {"type": device.type,
@@ -625,12 +694,17 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         "mfu": step_flops / step_s / peak if step_s and peak else None,
         "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
                              (a - c for a, c in zip(after[0], before[0])))),
+        "ring_launches": {k: after[2][k] - before[2][k] for k in after[2]},
         "sync_launches": {k: after[1][k] - before[1][k] for k in after[1]},
+        # host ms per step in the attention's exchanges (sp > 1)
+        "attn_exchange_ms": exchange_ms,
     }
     if group is not None:
         report["dist"] = {"backend": backend, "world": world}
         report["rank_info"] = {
-            "rank": rank, "sync_ms": sync_ms,
+            "rank": rank, "sync_ms": sync_ms, "attn_exchange_ms": exchange_ms,
+            **{k: report[k] for k in ("launches", "ring_launches",
+                                      "sync_launches")},
             "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                                if device.type == "cuda" else None),
             "param_checksum": _param_checksum(state.params)}

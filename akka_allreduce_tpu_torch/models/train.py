@@ -1,17 +1,22 @@
 """The training step of the dense flagship transformer, on one rank or many.
 
 Counterpart of ``akka_allreduce_tpu/models/train.py``: loss, backprop,
-the bucketed gradient sync across the data-parallel ranks, and the
-optimizer update. With a group of more than one rank
-(``parallel/group.py``) the step works as the JAX ``grad_local`` /
-``sync_and_metrics`` pair does:
+the bucketed gradient sync across the data- and sequence-parallel ranks,
+and the optimizer update. With a group of more than one rank
+(``parallel/group.py``, a ``(dp, sp)`` mesh) the step works as the JAX
+``grad_local`` / ``sync_and_metrics`` pair does:
 
-* each rank's loss divides by the GLOBAL token count (every rank holds
-  the same batch shape, so world x local is the JAX psum without a
-  collective), so the sum of the ranks' gradients is the gradient of the
-  global mean;
-* the gradients go through ``parallel/dp.py allreduce_gradients``
-  (``rescale_target`` = world, ``average=True``, no per-element counts)
+* under sequence parallelism (``sp`` > 1) rank ``(i, j)`` holds columns
+  ``[j T, (j + 1) T)`` of its rows: positions (learned embeddings, rope)
+  are global, the last target comes from the right ``sp`` neighbour's
+  first token, only the last ``sp`` rank's final column has weight 0,
+  and attention goes around the ring (:func:`select_ring_attention`);
+* each rank's loss divides by the GLOBAL token count, the weights summed
+  over every rank (the JAX psum over the data axes), so the sum of the
+  ranks' gradients is the gradient of the global mean;
+* the gradients go through ``parallel/dp.py allreduce_gradients`` over
+  the whole ``(dp, sp)`` world (the JAX ``grad_axes=("dp", "sp")``;
+  ``rescale_target`` = world, ``average=True``, no per-element counts)
   on the configured wire and schedule; int8/ef8 rounding keys derive
   from ``(17, step count, 0)`` as the JAX ``derive_quant_key`` and the
   dense sync's tag do;
@@ -61,12 +66,15 @@ from akka_allreduce_tpu_torch.ops.bucketing import (
     tree_bucket_spec, tree_leaves, tree_map, tree_unflatten)
 from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
     flash_causal_attention
+from akka_allreduce_tpu_torch.ops.kernels.ring_flash import \
+    ring_flash_attention
 from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
                                                   allreduce_gradients,
                                                   check_sync_config)
 from akka_allreduce_tpu_torch.parallel.group import RankGroup
 from akka_allreduce_tpu_torch.parallel.ring_attention import (
-    blockwise_causal_attention, local_causal_attention)
+    blockwise_causal_attention, flash_windowed_sp_attention,
+    local_causal_attention, ring_attention, windowed_sp_attention)
 
 LEFT_OUT = "left out of the port's one-card training slice (ROADMAP.md A2)"
 # the JAX derive_quant_key's root key, key(17)
@@ -236,6 +244,34 @@ def select_local_attention(cfg: TrainConfig):
     return partial(local_causal_attention, window=window)
 
 
+def select_ring_attention(cfg: TrainConfig, group: RankGroup):
+    """Sequence-parallel attention per ``cfg.attn_impl`` over ``group``'s
+    ``sp`` axis. "auto" and "flash" are the ring of flash kernels
+    (:func:`ring_flash_attention`: the CUDA kernels on CUDA tensors,
+    their plain versions on CPU tensors; the kernels mask a ragged tile,
+    so "auto" needs no fallback); "blockwise" and "local" the plain ring
+    (:func:`ring_attention`). A sliding window swaps the ring for one
+    neighbour exchange: the flash kernels for "auto"/"flash", the plain
+    windowed path for "local"; "blockwise" refuses it."""
+    impl = cfg.attn_impl
+    if impl not in ("auto", "flash", "blockwise", "local"):
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    window = cfg.model.attn_window
+    if window is not None:
+        if impl == "blockwise":
+            raise ValueError(
+                "attn_impl='blockwise' does not support attn_window "
+                "(same contract as sp=1); use 'auto', 'flash', or "
+                "'local'")
+        if impl in ("auto", "flash"):
+            return partial(flash_windowed_sp_attention, window=window,
+                           group=group)
+        return partial(windowed_sp_attention, window=window, group=group)
+    if impl in ("auto", "flash"):
+        return partial(ring_flash_attention, group=group, causal=True)
+    return partial(ring_attention, group=group, causal=True)
+
+
 def make_train_state(cfg: TrainConfig,
                      generator: Optional[torch.Generator] = None,
                      params: Optional[dict] = None,
@@ -295,12 +331,15 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     ``quant_seed`` (the step count) keys the int8/ef8 rounding;
     ``residual`` is the ef8 state. ``sync_times``, when given, receives
     a ``(start, end)`` pair of time marks around each sync
-    (:func:`elapsed_ms`)."""
+    (:func:`elapsed_ms`). With ``sp`` > 1 in ``group`` the tokens are
+    this rank's sequence columns (see the module docstring)."""
     check_supported(cfg)
     mcfg = cfg.model
-    attn = select_local_attention(cfg)
-    accum = cfg.grad_accum
     world = 1 if group is None else group.world
+    has_sp = group is not None and group.axis_size("sp") > 1
+    attn = (select_ring_attention(cfg, group) if has_sp
+            else select_local_attention(cfg))
+    accum = cfg.grad_accum
     gcfg = sync_config(cfg, world)
     quantized = cfg.grad_transport in ("int8", "ef8")
     use_ef = cfg.grad_transport == "ef8"
@@ -311,14 +350,31 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         return tree_map(lambda p: p.to(torch.bfloat16)
                         if p.dtype == torch.float32 else p, params)
 
-    def local_grads(params, tokens):
+    def targets_and_weights(tokens):
+        """Next-token targets, loss weights and positions of this rank's
+        (B, T) tokens; under sp the boundary target comes from the right
+        neighbour and only the global final position has weight 0."""
         b, t = tokens.shape
-        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         weights = torch.ones((b, t), device=tokens.device)
-        weights[:, -1] = 0.0
-        positions = torch.arange(t, device=tokens.device)
-        # the global count: every rank holds this batch shape
-        total_count = weights.sum() * world
+        if not has_sp:
+            targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+            weights[:, -1] = 0.0
+            return targets, weights, torch.arange(t, device=tokens.device)
+        n_sp, sp_idx = group.axis_size("sp"), group.axis_index("sp")
+        positions = sp_idx * t + torch.arange(t, device=tokens.device)
+        next_first = group.ppermute(tokens[:, :1].contiguous(), "sp", -1)
+        targets = torch.cat([tokens[:, 1:], next_first], dim=1)
+        if sp_idx == n_sp - 1:
+            weights[:, -1] = 0.0
+        return targets, weights, positions
+
+    def local_grads(params, tokens):
+        b, _ = tokens.shape
+        targets, weights, positions = targets_and_weights(tokens)
+        # the global count: the weights summed over every rank
+        total_count = weights.sum()
+        if world > 1:
+            total_count = group.all_gather(total_count[None]).sum()
         leaves = tree_leaves(params)
         if b % accum:
             raise ValueError(f"local batch {b} must divide into "

@@ -3,10 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` into ``_build/lib<name>-<hash>.so`` and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
-The hash covers the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Builds run at first use, never at import:
-the package imports on machines without ``nvcc`` or a GPU, where only the
-kernels' plain versions run.
+The hash covers the source, the ``csrc/`` headers it includes with
+``#include "..."``, and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. Builds run at first use, never at
+import: the package imports on machines without ``nvcc`` or a GPU, where
+only the kernels' plain versions run.
 
 A failed compile or a library that does not load raises; nothing falls
 back to the plain version on a CUDA tensor.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("paged_attention", "flash_attention", "masked_reduce", "quantize")
+KERNELS = ("paged_attention", "flash_attention", "masked_reduce", "quantize",
+           "ring_flash")
 
 _LIBS: dict = {}
 # per kernel: {"seconds": build wall time (0.0 when reused), "ptxas": the
@@ -50,9 +53,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = re.findall(rb'#include "([^"]+)"', src)
+    digest = hashlib.sha256(
+        src + b"".join((CSRC_DIR / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,0 +1,305 @@
+// Ring flash attention, one ring hop per launch, for Hopper (sm_90a).
+//
+// Replaces: akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py
+//   _ring_fwd_kernel  (fold the resident K/V block into the carries)
+//   _ring_dq_kernel   (the f32 partial dq from the resident block)
+//   _ring_dkv_kernel  (the f32 partial dk, dv of the visiting block)
+//
+// Under sequence parallelism rank r owns positions [r T, (r + 1) T); K/V
+// blocks travel around the sp ring and each hop scores this rank's
+// queries (q_off = r T) against the block of rank src (k_off = src T).
+// The offsets are runtime ints: the host knows the rank and the hop.
+//
+//   ring_fwd  reads the running (m, l) (B, H, T) f32 and acc (B, T, H, D)
+//             f32 of this rank's queries, folds in every live key tile of
+//             the hop's block (fwd_fold: the where-guard keeps a fully
+//             masked row exactly 0) and writes them back UNNORMALISED; the
+//             caller divides acc by l and takes lse = m + log l once,
+//             after the last hop.
+//   ring_dq   adds this hop's partial dq, kept in f32 registers over the
+//             key tiles, into the travelling f32 dq (B, T, H, D): one
+//             read-modify-write per element, so dq = dq + partial as in
+//             the JAX step.
+//   ring_dkv  adds the visiting block's partial (dk, dv) at H_kv heads,
+//             summed in f32 over the GQA group's query heads, into the
+//             travelling f32 dk, dv (B, T, H_kv, D). One block per (key
+//             tile, KV head, batch) walks the whole group: no atomics.
+//
+// Each block owns its rows of the carry or of the accumulators, so they
+// are updated in place (no second copy of the f32 state on the card).
+// The tile arithmetic, cast points and masks are flash_tiles.cuh's, shared
+// with the flash kernels; ragged T is masked at the edge.
+//
+// Bound: a hop is the flash kernel's work on a (T, T) block pair, ~4 (fwd),
+// ~6 (dq), ~8 (dk/dv) flops per D-element of every live (q, k) pair, so at
+// T = 1024, D = 128 the arithmetic rate bounds it (989 TFLOP/s bf16 on the
+// tensor cores, 67 TFLOP/s f32); the f32 carries add 2 x 4 B per D-element
+// of q read and written, well under the byte time. CUDA-core FMAs only, as
+// the flash kernels; tensor cores and TMA are later work.
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------- forward
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, float* __restrict__ m_io,
+                float* __restrict__ l_io, float* __restrict__ acc_io, Geom g,
+                float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLd = ld<T, D>();
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + kTile * kLd;
+  T* sV = sK + kTile * kLd;
+  float* sP = reinterpret_cast<float*>(sV + kTile * kLd);
+
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (g.H / g.Hkv);
+  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
+                  g.Tq - q0);
+
+  // the carry of this thread's rows; rows past Tq start empty and are
+  // never stored
+  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq + q0;
+  const long long a_st = static_cast<long long>(g.H) * D;
+  float* acc_base = acc_io + (static_cast<long long>(b) * g.Tq + q0) * a_st +
+                    static_cast<long long>(h) * D + 4 * tx;
+  float m[kRows], l[kRows], acc[kRows][D / 8];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty + kRowStep * i;
+    const bool in = q0 + r < g.Tq;
+    m[i] = in ? m_io[row0 + r] : kNegInf;
+    l[i] = in ? l_io[row0 + r] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < D / 32; ++jj) {
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (in) load4(acc_base + r * a_st + 32 * jj, x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][4 * jj + e] = x[e];
+    }
+  }
+  fwd_fold<T, D>(sQ, sK, sV, sP, k, v, g, b, hk, q0, scale, m, l, acc);
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty + kRowStep * i;
+    if (q0 + r >= g.Tq) continue;
+#pragma unroll
+    for (int jj = 0; jj < D / 32; ++jj)
+      *reinterpret_cast<float4*>(acc_base + r * a_st + 32 * jj) =
+          make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2],
+                      acc[i][4 * jj + 3]);
+    if (tx == 0) {
+      m_io[row0 + r] = m[i];
+      l_io[row0 + r] = l[i];
+    }
+  }
+}
+
+// --------------------------------------------------------------------- dq
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+ring_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq_io, Geom g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLd = ld<T, D>();
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + kTile * kLd;
+  T* sK = sDO + kTile * kLd;
+  T* sV = sK + kTile * kLd;
+  float* sDS = reinterpret_cast<float*>(sV + kTile * kLd);
+
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (g.H / g.Hkv);
+  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
+                  g.Tq - q0);
+  load_tile<T, D>(sDO, dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh,
+                  g.do_st, g.Tq - q0);
+  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq + q0;
+  float lse_r[kRows], del_r[kRows], acc[kRows][D / 8];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty + kRowStep * i;
+    lse_r[i] = q0 + r < g.Tq ? lse[row0 + r] : 0.f;
+    del_r[i] = q0 + r < g.Tq ? delta[row0 + r] : 0.f;
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) acc[i][e] = 0.f;
+  }
+  dq_fold<T, D>(sQ, sDO, sK, sV, sDS, k, v, g, b, hk, q0, scale, lse_r,
+                del_r, acc);
+
+  const long long a_st = static_cast<long long>(g.H) * D;
+  float* base = dq_io + (static_cast<long long>(b) * g.Tq + q0) * a_st +
+                static_cast<long long>(h) * D + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty + kRowStep * i;
+    if (q0 + r >= g.Tq) continue;
+#pragma unroll
+    for (int jj = 0; jj < D / 32; ++jj) {
+      float4* p = reinterpret_cast<float4*>(base + r * a_st + 32 * jj);
+      float4 x = *p;
+      x.x += acc[i][4 * jj];
+      x.y += acc[i][4 * jj + 1];
+      x.z += acc[i][4 * jj + 2];
+      x.w += acc[i][4 * jj + 3];
+      *p = x;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dk/dv
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk_io, float* __restrict__ dv_io, Geom g,
+                float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLd = ld<T, D>();
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kTile * kLd;
+  T* sQ = sV + kTile * kLd;
+  T* sDO = sQ + kTile * kLd;
+  float* sP = reinterpret_cast<float*>(sDO + kTile * kLd);
+  float* sDS = sP + kTile * kLdp;
+  float* sL = sDS + kTile * kLdp;
+  float* sDel = sL + kTile;
+
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  load_tile<T, D>(sK, k + b * g.k_sb + k0 * g.k_st + hk * g.k_sh, g.k_st,
+                  g.Tk - k0);
+  load_tile<T, D>(sV, v + b * g.v_sb + k0 * g.v_st + hk * g.v_sh, g.v_st,
+                  g.Tk - k0);
+  float dk_acc[kRows][D / 8], dv_acc[kRows][D / 8];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  dkv_fold<T, D>(sK, sV, sQ, sDO, sP, sDS, sL, sDel, q, dout, lse, delta, g,
+                 b, hk, k0, scale, dk_acc, dv_acc);
+
+  const long long a_st = static_cast<long long>(g.Hkv) * D;
+  const long long off = (static_cast<long long>(b) * g.Tk + k0) * a_st +
+                        static_cast<long long>(hk) * D + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty + kRowStep * i;
+    if (k0 + r >= g.Tk) continue;
+#pragma unroll
+    for (int jj = 0; jj < D / 32; ++jj) {
+      float4* pk = reinterpret_cast<float4*>(dk_io + off + r * a_st + 32 * jj);
+      float4* pv = reinterpret_cast<float4*>(dv_io + off + r * a_st + 32 * jj);
+      float4 xk = *pk, xv = *pv;
+      xk.x += dk_acc[i][4 * jj];
+      xk.y += dk_acc[i][4 * jj + 1];
+      xk.z += dk_acc[i][4 * jj + 2];
+      xk.w += dk_acc[i][4 * jj + 3];
+      xv.x += dv_acc[i][4 * jj];
+      xv.y += dv_acc[i][4 * jj + 1];
+      xv.z += dv_acc[i][4 * jj + 2];
+      xv.w += dv_acc[i][4 * jj + 3];
+      *pk = xk;
+      *pv = xv;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launch
+template <typename T, int D>
+int fwd(const void* q, const void* k, const void* v, void* m, void* l,
+        void* acc, const Geom& g, float scale, cudaStream_t s) {
+  const size_t smem = fwd_smem<T, D>();
+  cudaError_t err = allow_smem(ring_fwd_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_fwd_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<float*>(acc), g, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dq_io, const Geom& g,
+       float scale, cudaStream_t s) {
+  const size_t smem = dq_smem<T, D>();
+  cudaError_t err = allow_smem(ring_dq_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_dq_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_io), g, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dk_io, void* dv_io,
+        const Geom& g, float scale, cudaStream_t s) {
+  const size_t smem = dkv_smem<T, D>();
+  cudaError_t err = allow_smem(ring_dkv_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_dkv_kernel<T, D><<<dim3(tiles(g.Tk), g.Hkv, g.B), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk_io), static_cast<float*>(dv_io), g, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry point returns the launch status (cudaSuccess == 0). Shapes,
+// types, strides, contiguity and alignment are checked by the Python
+// wrappers (akka_allreduce_tpu_torch/ops/kernels/ring_flash.py); `geom` is
+// the flash kernels' int64 block: B, H, H_kv, Tq, Tk, causal, window
+// (always 0 here), q_off, k_off, then (batch, time, head) strides of q,
+// k, v, dO. The f32 carries and accumulators are contiguous.
+extern "C" int ring_fwd_launch(int dtype, int head_dim, const void* q,
+                               const void* k, const void* v, void* m, void* l,
+                               void* acc, const int64_t* geom, float scale,
+                               void* stream) {
+  const Geom g = read_geom(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D) fwd<T, D>(q, k, v, m, l, acc, g, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+extern "C" int ring_dq_launch(int dtype, int head_dim, const void* q,
+                              const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, void* dq_io,
+                              const int64_t* geom, float scale, void* stream) {
+  const Geom g = read_geom(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D) dq<T, D>(q, k, v, dout, lse, delta, dq_io, g, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+extern "C" int ring_dkv_launch(int dtype, int head_dim, const void* q,
+                               const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dk_io,
+                               void* dv_io, const int64_t* geom, float scale,
+                               void* stream) {
+  const Geom g = read_geom(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D) dkv<T, D>(q, k, v, dout, lse, delta, dk_io, dv_io, g, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+extern "C" const char* ring_flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -91,7 +91,7 @@ def score_mask(tq: int, tk: int, causal: bool, window: Optional[int],
     return mask
 
 
-def _scores(q, k, causal, window, q_off, k_off) -> torch.Tensor:
+def scores(q, k, causal, window, q_off, k_off) -> torch.Tensor:
     """(B, H, Tq, Tk) f32 scaled scores, masked lanes at ``NEG_INF``."""
     k, _ = expand_kv_heads(q, k, k)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
@@ -113,7 +113,7 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
     ``p = exp(s - m)`` (exactly 0 on masked lanes) cast to v's dtype,
     the PV product in f32, then the division by the row sum."""
     _check_options(causal, window)
-    s = _scores(q, k, causal, window, q_off, k_off)
+    s = scores(q, k, causal, window, q_off, k_off)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if causal:
@@ -135,9 +135,12 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
                         o.float()).contiguous()
 
 
-def _backward_reference(q, k, v, do, lse, delta, causal, window, q_off,
-                        k_off):
-    s = _scores(q, k, causal, window, q_off, k_off)
+def backward_f32(q, k, v, do, lse, delta, causal, window, q_off, k_off
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward's (dq, dk, dv) in f32, before the final cast:
+    ``_bwd_tile``'s arithmetic with its cast points, dk/dv summed over
+    each KV head's query group in f32 (the ring kernels' partials)."""
+    s = scores(q, k, causal, window, q_off, k_off)
     p = torch.exp(s - lse[..., None])  # masked lanes exactly 0
     k_e, v_e = expand_kv_heads(q, k, v)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v_e.float())
@@ -151,6 +154,13 @@ def _backward_reference(q, k, v, do, lse, delta, causal, window, q_off,
     # the group's query heads sum into their KV head in f32, cast once
     dk = dk.reshape(b, tk, h_kv, g, d).sum(dim=3)
     dv = dv.reshape(b, tk, h_kv, g, d).sum(dim=3)
+    return dq, dk, dv
+
+
+def _backward_reference(q, k, v, do, lse, delta, causal, window, q_off,
+                        k_off):
+    dq, dk, dv = backward_f32(q, k, v, do, lse, delta, causal, window, q_off,
+                              k_off)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -172,7 +182,7 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
 
 # -- the CUDA wrappers ---------------------------------------------------
 
-def _check(q, k, v) -> None:
+def check_qkv(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"q must be (B, Tq, H, D) and k, v one (B, Tk, H_kv, D) shape; "
@@ -195,7 +205,7 @@ def _check(q, k, v) -> None:
                          f"{q.device}")
 
 
-def _kernel_view(x: torch.Tensor) -> torch.Tensor:
+def kernel_view(x: torch.Tensor) -> torch.Tensor:
     """``x`` as the kernel reads it: unit stride along D, every other
     stride and the base 16-byte aligned (the tile loads are 16-byte
     vectors); anything else is copied to a contiguous tensor."""
@@ -206,7 +216,7 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _geometry(q, k, v, do, causal, window, q_off, k_off):
+def geometry(q, k, v, do, causal, window, q_off, k_off):
     """The int64 geometry block the C entry points read."""
     b, tq, h, _ = q.shape
     _, tk, h_kv, _ = k.shape
@@ -216,12 +226,14 @@ def _geometry(q, k, v, do, causal, window, q_off, k_off):
     return (ctypes.c_int64 * len(dims))(*dims)
 
 
-def _launch(name: str, q, tensors: list, geom) -> None:
+def launch(fns: dict, name: str, q, tensors: list, geom) -> None:
+    """Launch entry point ``name`` of a bound library (``fns``, with its
+    ``"error"`` string function) on q's device and current stream;
+    raises if the launch fails."""
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
                          f"got {d}")
-    fns = _launchers()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fns[name](_DTYPE_CODES[q.dtype], d,
@@ -241,21 +253,21 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     current stream; raises if the launch fails."""
     global FLASH_FWD_LAUNCHES
     _check_options(causal, window)
-    _check(q, k, v)
+    check_qkv(q, k, v)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, causal, window, q_off,
                                        k_off)
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
     b, tq, h, _ = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_launch", q, [q, k, v, o, lse],
-            _geometry(q, k, v, None, causal, window, q_off, k_off))
+    launch(_launchers(), "flash_fwd_launch", q, [q, k, v, o, lse],
+           geometry(q, k, v, None, causal, window, q_off, k_off))
     FLASH_FWD_LAUNCHES += 1
     return o, lse
 
 
-def _check_bwd(q, do, lse, delta) -> None:
+def check_bwd(q, do, lse, delta) -> None:
     b, tq, h, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype} "
@@ -274,15 +286,16 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = True,
     tensors: one launch of the dq kernel."""
     global FLASH_DQ_LAUNCHES
     _check_options(causal, window)
-    _check(q, k, v)
-    _check_bwd(q, do, lse, delta)
+    check_qkv(q, k, v)
+    check_bwd(q, do, lse, delta)
     if q.device.type == "cpu":
         return _backward_reference(q, k, v, do, lse, delta, causal, window,
                                    q_off, k_off)[0]
-    q, k, v, do = (_kernel_view(t) for t in (q, k, v, do))
+    q, k, v, do = (kernel_view(t) for t in (q, k, v, do))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch("flash_dq_launch", q, [q, k, v, do, lse, delta, dq],
-            _geometry(q, k, v, do, causal, window, q_off, k_off))
+    launch(_launchers(), "flash_dq_launch", q,
+           [q, k, v, do, lse, delta, dq],
+           geometry(q, k, v, do, causal, window, q_off, k_off))
     FLASH_DQ_LAUNCHES += 1
     return dq
 
@@ -296,16 +309,17 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True,
     needs atomics)."""
     global FLASH_DKV_LAUNCHES
     _check_options(causal, window)
-    _check(q, k, v)
-    _check_bwd(q, do, lse, delta)
+    check_qkv(q, k, v)
+    check_bwd(q, do, lse, delta)
     if q.device.type == "cpu":
         return _backward_reference(q, k, v, do, lse, delta, causal, window,
                                    q_off, k_off)[1:]
-    q, k, v, do = (_kernel_view(t) for t in (q, k, v, do))
+    q, k, v, do = (kernel_view(t) for t in (q, k, v, do))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch("flash_dkv_launch", q, [q, k, v, do, lse, delta, dk, dv],
-            _geometry(q, k, v, do, causal, window, q_off, k_off))
+    launch(_launchers(), "flash_dkv_launch", q,
+           [q, k, v, do, lse, delta, dk, dv],
+           geometry(q, k, v, do, causal, window, q_off, k_off))
     FLASH_DKV_LAUNCHES += 1
     return dk, dv
 

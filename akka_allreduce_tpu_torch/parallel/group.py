@@ -1,16 +1,25 @@
-"""Process groups of the port's data-parallel ranks.
+"""Process groups of the port's data- and sequence-parallel ranks.
 
-Counterpart of ``akka_allreduce_tpu/parallel/mesh.py`` (the ``dp`` axis)
-and ``utils/vma.py`` ``psum_all`` for ranks that are processes. The JAX
-package's rank-local collectives name a mesh axis; the port's name a
-:class:`RankGroup`: this rank, the world size and the backend.
+Counterpart of ``akka_allreduce_tpu/parallel/mesh.py`` (the ``dp`` and
+``sp`` axes) and ``utils/vma.py`` ``psum_all`` for ranks that are
+processes. The JAX package's rank-local collectives name a mesh axis; the
+port's name a :class:`RankGroup`: this rank, the world size, the backend
+and the mesh's ``sp`` size.
 
-The group moves bytes and never reduces. Its collectives are the three
-that the JAX sync issues besides ``psum``: ``all_to_all`` (split and
-concatenate along axis 0), ``all_gather`` (tiled along axis 0) and the
-pairwise ``exchange`` of ``ppermute``. Every sum over ranks is taken on
-the rank's own device by the caller (``ops/collectives.py``, through the
-masked-reduce kernel), so the transport never adds floats.
+The mesh is the JAX package's ``(dp, sp)`` slice of its axis order
+``("pp", "dp", "ep", "sp", "tp")``: global rank ``r = dp_i * sp + sp_j``,
+so the ``sp`` ranks of one ``dp`` row are neighbours. The gradient sync
+runs over the whole world (the JAX ``grad_axes=("dp", "sp")``);
+:meth:`RankGroup.ppermute` moves blocks along one named axis (the ring
+attention's K/V rotation along ``sp``).
+
+The group moves bytes and never reduces. Its collectives are the ones
+that the JAX sync and ring issue besides ``psum``: ``all_to_all`` (split
+and concatenate along axis 0), ``all_gather`` (tiled along axis 0), the
+pairwise ``exchange`` of an involutive ``ppermute`` and the shifted
+``ppermute`` of a ring. Every sum over ranks is taken on the rank's own
+device by the caller (``ops/collectives.py``, through the masked-reduce
+kernel), so the transport never adds floats.
 
 Backends:
 
@@ -50,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
+AXES = ("dp", "sp")  # the ported mesh axes, in the JAX mesh order
 
 # all_gather_into_tensor was renamed all_gather_single (same arguments)
 _all_gather_flat = getattr(dist, "all_gather_single", None) \
@@ -58,7 +68,8 @@ _all_gather_flat = getattr(dist, "all_gather_single", None) \
 
 @dataclasses.dataclass(frozen=True)
 class RankGroup:
-    """This process's place in the data-parallel group. ``backend`` is
+    """This process's place in the ``(dp, sp)`` mesh of ``world`` ranks
+    (``sp`` divides ``world``; ``dp = world / sp``). ``backend`` is
     ``"nccl"``, ``"gloo"`` or ``"none"`` (a group of one, no process
     group behind it); ``device`` is where this rank's tensors live."""
 
@@ -66,10 +77,40 @@ class RankGroup:
     world: int
     backend: str
     device: torch.device
+    sp: int = 1
+
+    def __post_init__(self):
+        if self.sp < 1 or self.world % self.sp:
+            raise ValueError(f"sp={self.sp} must divide the world of "
+                             f"{self.world} ranks")
 
     @staticmethod
     def single(device: "torch.device | str" = "cpu") -> "RankGroup":
         return RankGroup(0, 1, "none", torch.device(device))
+
+    # -- mesh coordinates ----------------------------------------------------
+
+    def axis_size(self, axis: str) -> int:
+        """``lax.axis_size``: the ranks along ``axis`` ("dp" or "sp")."""
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
+        return self.sp if axis == "sp" else self.world // self.sp
+
+    def axis_index(self, axis: str) -> int:
+        """``lax.axis_index``: this rank's coordinate along ``axis``."""
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
+        return self.rank % self.sp if axis == "sp" else self.rank // self.sp
+
+    def _shifted(self, axis: str, shift: int) -> int:
+        """The global rank ``shift`` steps along ``axis`` (wrapping), the
+        other coordinate kept."""
+        dp_i, sp_j = self.axis_index("dp"), self.axis_index("sp")
+        if axis == "sp":
+            sp_j = (sp_j + shift) % self.sp
+        else:
+            dp_i = (dp_i + shift) % self.axis_size("dp")
+        return dp_i * self.sp + sp_j
 
     # -- staging -----------------------------------------------------------
 
@@ -124,6 +165,26 @@ class RankGroup:
             w.wait()
         return self._unstage(out, x)
 
+    def ppermute(self, x: torch.Tensor, axis: str, shift: int
+                 ) -> torch.Tensor:
+        """Send ``x`` ``shift`` steps along ``axis`` and return what the
+        rank ``-shift`` steps away sent here: ``lax.ppermute`` with the
+        permutation ``i -> (i + shift) mod n`` of that axis. One
+        ``batch_isend_irecv`` between global ranks, staged like
+        :meth:`exchange`; the payload travels as bytes."""
+        if shift % self.axis_size(axis) == 0:
+            return x
+        src = self._stage(x)
+        out = torch.empty_like(src)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src.reshape(-1).view(torch.uint8),
+                       self._shifted(axis, shift)),
+            dist.P2POp(dist.irecv, out.reshape(-1).view(torch.uint8),
+                       self._shifted(axis, -shift))])
+        for w in works:
+            w.wait()
+        return self._unstage(out, x)
+
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
@@ -153,8 +214,8 @@ def check_backend(backend: str, device: str, world: int) -> None:
                 f"gloo (the wire then goes through host memory)")
 
 
-def _worker(rank: int, world: int, backend: str, device: str, store: str,
-            fn: Callable, args: tuple, results) -> None:
+def _worker(rank: int, world: int, sp: int, backend: str, device: str,
+            store: str, fn: Callable, args: tuple, results) -> None:
     try:
         dev = rank_device(device, rank, backend)
         if dev.type == "cuda":
@@ -164,7 +225,7 @@ def _worker(rank: int, world: int, backend: str, device: str, store: str,
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         try:
-            out = fn(RankGroup(rank, world, backend, dev), *args)
+            out = fn(RankGroup(rank, world, backend, dev, sp), *args)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         finally:
@@ -188,19 +249,21 @@ def _to_cpu(obj: Any) -> Any:
 
 
 def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
-                *args, timeout: float = 900.0) -> list:
-    """Run ``fn(group, *args)`` in ``world`` new processes and return
-    their results in rank order (tensors come back on the CPU). A rank
-    that raises, dies or outlasts ``timeout`` seconds ends every rank and
-    raises here with that rank's traceback."""
+                *args, sp: int = 1, timeout: float = 900.0) -> list:
+    """Run ``fn(group, *args)`` in ``world`` new processes, a ``(world /
+    sp, sp)`` mesh, and return their results in rank order (tensors come
+    back on the CPU). A rank that raises, dies or outlasts ``timeout``
+    seconds ends every rank and raises here with that rank's
+    traceback."""
     check_backend(backend, device, world)
-    if world < 1:
-        raise ValueError(f"world must be >= 1, got {world}")
+    if world < 1 or sp < 1 or world % sp:
+        raise ValueError(f"world must be >= 1 and a multiple of sp; got "
+                         f"world={world}, sp={sp}")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks-")
     results = ctx.Queue()
     procs = [ctx.Process(target=_worker, daemon=True,
-                         args=(r, world, backend, device,
+                         args=(r, world, sp, backend, device,
                                os.path.join(tmp, "store"), fn, args,
                                results))
              for r in range(world)]

@@ -86,6 +86,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    Asserts every rank's output identical, each inside its wire's
    envelope of the exact sum, and the counts exact.
 
+11. ring kernels — hold the ring-flash forward, dq and dk/dv kernels
+   (one hop each) against their plain PyTorch versions on the same CUDA
+   tensors, f32 at 2e-5 (the carry: m, l and acc / l, the output the
+   unnormalised acc stands for) and 5e-5 (the gradient accumulators),
+   bf16 at 3e-2: at the sequence-parallel slice's shape
+   (B 8, T_local 1024, 16 heads of 128, 4 KV heads) as rank 1's diagonal
+   hop and as its past hop, then MQA, non-causal, a ragged T_local of
+   1000 and head_dim 64, each on a carry that already holds a hop and
+   on nonzero f32 accumulators. At the slice's shape each kernel, its
+   plain version and the library call (``scaled_dot_product_attention``
+   forward and backward on the same q and K/V block: causal on the
+   diagonal hop, unmasked on the past hop; it merges no carry and returns
+   its gradients in the inputs' dtype) timed as above, each kernel's
+   bound computed from the hop's live (q, k) pairs.
+12. ring at four ranks — four gloo ranks on the card (B 2, T 4 x 512,
+   16 heads of 128, 4 KV heads; f32 and bf16): ``ring_flash_attention``
+   forward and backward held against the one-rank ``flash_attention`` on
+   the gathered sequence and against the plain ``ring_attention``, and
+   the windowed-SP flash path (window 256) against the one-rank windowed
+   flash; rank r launches each ring kernel r + 1 times per call.
+13. train, sp=2 — the gqa4 model of phase 7 (d_model 2048, 16 heads, 4
+   KV heads, rope, 8 layers, d_ff 8192, vocab 32768) in bf16, batch 8,
+   seq 2048, 3 steps on one card through the flash kernels, then the
+   same through ``train --sp 2 --dist-backend gloo`` (f32 wire; two rank
+   processes share the card, each on 1024 positions of every row).
+   Asserts finite losses within 1e-3 relative of the one-card run's (f32
+   reordering and bf16 rounding at other running maxima; a lost hop or a
+   wrong offset moves the loss far more), parameters bitwise equal on
+   both ranks, and on rank r the ring kernels launched 8 (r + 1) times
+   per step each, the flash kernels never, ``masked_reduce`` once per
+   step. Reports wall, sync and attention-exchange ms per step,
+   tokens/s and each rank's peak memory.
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -194,6 +227,31 @@ SYNC4_CASES = [
     {"transport": tr, "schedule": sc, "masked": True}
     for tr, sc in (("f32", "fused"), ("bf16", "windowed"), ("int8", "fused"),
                    ("ef8", "fused"), ("ef8", "swing"))]
+# phase 11: (name, B, T_local, H, h_kv, D, causal, q_off, k_off), the
+# sequence-parallel slice's shape first, as rank 1's two hops at sp=2
+RING_SHAPES = [
+    ("slice-diagonal", 8, 1024, 16, 4, 128, True, 1024, 1024),
+    ("slice-past", 8, 1024, 16, 4, 128, True, 1024, 0),
+    ("mqa", 2, 1024, 16, 1, 128, True, 1024, 0),
+    ("noncausal", 2, 1024, 16, 4, 128, False, 0, 1024),
+    ("ragged1000", 2, 1000, 16, 4, 128, True, 1000, 1000),
+    ("d64", 2, 1024, 16, 4, 64, True, 2048, 1024)]
+RING_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/ring_flash.cu"
+RING_REPLACES = {
+    "ring_fwd": "akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py:61",
+    "ring_dq": "akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py:94",
+    "ring_dkv": "akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py:121"}
+# phase 12: four ranks, (B, T_local, H, h_kv, D), and the window
+RING4_SHAPE = (2, 512, 16, 4, 128)
+RING4_WINDOW = 256
+# phase 13: the gqa4 model at sp=2 against one card
+SP_WORLD = 2
+SP_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--kv-heads", "4",
+    "--rope", "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768",
+    "--seq", "2048", "--batch", "8", "--bf16", "--lr", "1e-4", "--steps",
+    "3", "--log-every", "1", "--device", "cuda"]
+SP_LOSS_RTOL = 1e-3
 FLASH_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
@@ -371,13 +429,13 @@ def flash_case(torch, shape, dtype, seed):
     return [torch.randn(s, generator=gen).to(DEVICE, dtype) for s in sizes]
 
 
-def library_backward(torch, q, k, v, do):
+def library_backward(torch, q, k, v, do, causal=True):
     """``scaled_dot_product_attention`` forward once, and a function that
     runs its backward (dq, dk, dv) for ``do``: the yardstick of the
     backward pair. Timed only; the port never calls it."""
     import torch.nn.functional as F
     leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
     do_t = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, do_t, retain_graph=True)
@@ -1024,6 +1082,276 @@ def phase_sync4(torch) -> dict:
     return {"cases": len(SYNC4_CASES)}
 
 
+def ring_bounds(torch, q, k, causal, q_off, k_off) -> dict:
+    """Each ring kernel's least time for one hop: the flash kernels'
+    operations over the hop's live (q, k) pairs, and its bytes: q, k, v
+    (dO, lse and delta backward) read once, and its f32 state read and
+    written once: the carries (m, l) and acc forward, dq or (dk, dv)
+    backward."""
+    from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
+        score_mask
+    b, t, h, d = q.shape
+    tk = k.shape[1]
+    mask = score_mask(t, tk, causal, None, q_off, k_off, q.device)
+    pairs = b * h * (t * tk if mask is None else int(mask.sum()))
+    es = q.element_size()
+    qb, kb, rows = q.numel() * es, k.numel() * es, 4 * b * h * t
+    q32, k32 = 4 * q.numel(), 4 * k.numel()
+    dtype = str(q.dtype).split(".")[-1]
+    return {"ring_fwd": bound(4 * d * pairs,
+                              qb + 2 * kb + 4 * rows + 2 * q32, dtype),
+            "ring_dq": bound(6 * d * pairs,
+                             2 * qb + 2 * kb + 2 * rows + 2 * q32, dtype),
+            "ring_dkv": bound(8 * d * pairs,
+                              2 * qb + 2 * kb + 2 * rows + 4 * k32, dtype)}
+
+
+def phase_ring_kernels(torch) -> dict:
+    """Every listed hop in f32 and bf16 through the three ring kernels
+    and their plain versions; the slice's two hops also timed. Returns
+    the timed rows by (hop, dtype)."""
+    import torch.nn.functional as F
+
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    timed = {}
+    for n, shape in enumerate(RING_SHAPES):
+        name, b, t, h, h_kv, d, causal, q_off, k_off = shape
+        hop = (q_off, k_off, causal)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_case(torch, (name, b, t, t, h, h_kv, d),
+                                     dtype, seed=500 + n)
+            # a carry that already holds a hop (the block against itself)
+            # and nonzero f32 gradient accumulators
+            m0 = torch.full((b, h, t), -1e30, device=DEVICE)
+            carry = [x.contiguous() for x in rf.ring_fwd_reference(
+                q, k, v, m0, torch.zeros_like(m0),
+                torch.zeros((b, t, h, d), device=DEVICE), 0, 0)]
+            gen = torch.Generator(DEVICE).manual_seed(600 + n)
+            acc0 = [torch.randn(s_, generator=gen, device=DEVICE)
+                    for s_ in (q.shape, k.shape, k.shape)]
+            o, lse = fa.flash_forward_reference(q, k, v, causal, None, q_off,
+                                                k_off)
+            delta = fa.attention_delta(o, do)
+            got = dict(zip(("m", "l", "acc"), rf.ring_fwd(
+                q, k, v, *[x.clone() for x in carry], *hop)))
+            got["dq"] = rf.ring_dq(q, k, v, do, lse, delta, acc0[0].clone(),
+                                   *hop)
+            got["dk"], got["dv"] = rf.ring_dkv(q, k, v, do, lse, delta,
+                                               acc0[1].clone(),
+                                               acc0[2].clone(), *hop)
+            want = dict(zip(("m", "l", "acc"),
+                            rf.ring_fwd_reference(q, k, v, *carry, *hop)))
+            parts = rf.ring_bwd_reference(q, k, v, do, lse, delta, *hop)
+            for key, a0, part in zip(("dq", "dk", "dv"), acc0, parts):
+                want[key] = a0 + part
+            # the unnormalised acc (~l |v|) is held as the output it
+            # stands for, acc / l, as phase 5 holds o
+            for x in (got, want):
+                x["acc"] = x["acc"] / x["l"].transpose(1, 2)[..., None]
+            torch.cuda.synchronize()
+            tol_fwd, tol_bwd = FLASH_TOL[str(dtype)]
+            errs, ok = {}, True
+            for key, g in got.items():
+                tol = tol_fwd if key in ("m", "l", "acc") else tol_bwd
+                errs[key] = float((g - want[key]).abs().max())
+                ok = ok and bool(torch.isfinite(g).all()) and \
+                    torch.allclose(g, want[key], atol=tol, rtol=tol)
+            row = {"shape": name, "dtype": str(dtype), "q_off": q_off,
+                   "k_off": k_off, "max_abs_err": errs, "ok": ok}
+            del got, want, parts
+            if name.startswith("slice"):
+                st = [x.clone() for x in carry]
+                acc = [x.clone() for x in acc0]
+                bounds = ring_bounds(torch, q, k, causal, q_off, k_off)
+                diagonal = q_off == k_off
+                lib_bwd = library_backward(torch, q, k, v, do, diagonal)
+                row["ms"] = {
+                    "ring_fwd": time_ms(torch, lambda: rf.ring_fwd(
+                        q, k, v, *st, *hop), flush),
+                    "ring_dq": time_ms(torch, lambda: rf.ring_dq(
+                        q, k, v, do, lse, delta, acc[0], *hop), flush),
+                    "ring_dkv": time_ms(torch, lambda: rf.ring_dkv(
+                        q, k, v, do, lse, delta, acc[1], acc[2], *hop),
+                        flush)}
+                row["plain_ms"] = {
+                    "forward": time_ms(torch, lambda: rf.ring_fwd_reference(
+                        q, k, v, *carry, *hop), flush),
+                    "backward": time_ms(torch, lambda: rf.ring_bwd_reference(
+                        q, k, v, do, lse, delta, *hop), flush)}
+                row["library_ms"] = {
+                    "forward": time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), is_causal=diagonal,
+                            enable_gqa=True), flush),
+                    "backward": time_ms(torch, lib_bwd, flush)}
+                row["library_call"] = (
+                    "scaled_dot_product_attention(is_causal="
+                    f"{diagonal}, enable_gqa=True): no carry merged, "
+                    "gradients in the inputs' dtype")
+                row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
+                row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+                del lib_bwd, st, acc
+                timed[name, str(dtype)] = row
+            emit("ring_kernels", **row)
+            del q, k, v, do, o, lse, delta, carry, acc0
+            torch.cuda.empty_cache()
+            if not ok:
+                raise AssertionError(f"a ring kernel disagrees with its "
+                                     f"plain version: {row}")
+    return timed
+
+
+def ring4_rank(group, shape: tuple, window: int) -> list:
+    """One rank of phase 12: per dtype, this rank's errors of the ring
+    flash path (against the one-rank flash on the gathered sequence and
+    the plain ring), of the windowed-SP flash path (against the one-rank
+    windowed flash) and the ring kernels' launches in the ring call."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    from akka_allreduce_tpu_torch.parallel import ring_attention as ra
+    b, t, h, h_kv, d = shape
+    n, j = group.axis_size("sp"), group.axis_index("sp")
+    mine = slice(j * t, (j + 1) * t)
+
+    def vjp(fn, xs, do):
+        leaves = [x.detach().clone().requires_grad_() for x in xs]
+        o = fn(*leaves)
+        return [o.detach()] + list(torch.autograd.grad(o, leaves, do))
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(group.device).manual_seed(700)
+        full = [torch.randn(s_, generator=gen, device=group.device).to(dtype)
+                for s_ in ((b, n * t, h, d), (b, n * t, h_kv, d),
+                           (b, n * t, h_kv, d), (b, n * t, h, d))]
+        local = [x[:, mine].contiguous() for x in full]
+        rf.reset_counts()
+        ring = vjp(lambda q, k, v: rf.ring_flash_attention(q, k, v, group),
+                   local[:3], local[3])
+        counts = rf.counts()
+        refs = {
+            "flash_one_rank": [x[:, mine] for x in vjp(
+                fa.flash_causal_attention, full[:3], full[3])],
+            "plain_ring": vjp(lambda q, k, v: ra.ring_attention(
+                q, k, v, group), local[:3], local[3])}
+        win = vjp(lambda q, k, v: ra.flash_windowed_sp_attention(
+            q, k, v, window, group), local[:3], local[3])
+        win_ref = [x[:, mine] for x in vjp(
+            lambda q, k, v: fa.flash_causal_attention(q, k, v, window),
+            full[:3], full[3])]
+        tol_fwd, tol_bwd = FLASH_TOL[str(dtype)]
+
+        def compare(got, want):
+            errs, ok = [], True
+            for i, (g, w) in enumerate(zip(got, want)):
+                tol = tol_fwd if i == 0 else tol_bwd
+                errs.append(float((g.float() - w.float()).abs().max()))
+                ok = ok and g.dtype == dtype and bool(
+                    torch.isfinite(g).all()) and torch.allclose(
+                    g.float(), w.float(), atol=tol, rtol=tol)
+            return {"max_abs_err_o_dq_dk_dv": errs, "ok": ok}
+        out.append({"dtype": str(dtype), "rank": group.rank,
+                    "launches": counts,
+                    **{f"ring_vs_{k_}": compare(ring, r)
+                       for k_, r in refs.items()},
+                    "windowed_vs_flash_one_rank": compare(win, win_ref)})
+    return out
+
+
+def phase_ring4(torch) -> dict:
+    """The ring at four gloo ranks on the card."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(ring4_rank, 4, "gloo", DEVICE, RING4_SHAPE,
+                        RING4_WINDOW, sp=4)
+    failures = []
+    for rank, rows in enumerate(ranks):
+        for row in rows:
+            want = dict.fromkeys(("ring_fwd", "ring_dq", "ring_dkv"),
+                                 rank + 1)
+            ok = row["launches"] == want and all(
+                v["ok"] for v in row.values()
+                if isinstance(v, dict) and "ok" in v)
+            emit("ring4", shape=list(RING4_SHAPE), window=RING4_WINDOW,
+                 expected_launches=want, **row, ok=ok)
+            if not ok:
+                failures.append((rank, row["dtype"]))
+    if failures:
+        raise AssertionError(f"four-rank ring failed: {failures}")
+    return {"ranks": 4}
+
+
+def phase_train_sp(torch) -> dict:
+    """``run_train`` on one card and then at ``--sp 2`` (the main path of
+    the ring kernels); the ranks are fresh processes whose counters start
+    at 0. Returns the ring kernels' launches summed over the ranks."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    one_args = parse(SP_ARGV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one = cli.run_train(one_args)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    args = parse(SP_ARGV + ["--sp", str(SP_WORLD), "--dist-backend",
+                            "gloo"])
+    t0 = time.perf_counter()
+    report = cli.run_train(args)
+    seconds = time.perf_counter() - t0
+    losses, ref = report["losses"], one["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    ranks = report["ranks"]
+
+    def steady(xs):
+        return statistics.mean(xs[1:] or xs) if xs else None
+    layers, steps = args.n_layers, args.steps
+    expected = [{"ring": dict.fromkeys(("ring_fwd", "ring_dq", "ring_dkv"),
+                                       layers * (r + 1) * steps),
+                 "flash": dict.fromkeys(("flash_fwd", "flash_dq",
+                                         "flash_dkv"), 0),
+                 "masked_reduce": steps} for r in range(SP_WORLD)]
+    got = [{"ring": r["ring_launches"], "flash": r["launches"],
+            "masked_reduce": r["sync_launches"]["masked_reduce"]}
+           for r in ranks]
+    others = [k_ for r in ranks for k_, v in r["sync_launches"].items()
+              if k_ != "masked_reduce" and v]
+    sums = [r["param_checksum"] for r in ranks]
+    out = {
+        "sp": SP_WORLD, "backend": report["dist"]["backend"],
+        "world": report["dist"]["world"], "transport":
+            "gloo: host memory (device -> host -> device), not NVLink",
+        "losses": losses, "one_card_losses": ref, "loss_rtol": SP_LOSS_RTOL,
+        "loss_rel_diff": rel, "step_ms": report["step_ms"],
+        "wall_ms_per_step": report["wall_ms_per_step"],
+        "one_card_wall_ms_per_step": one["wall_ms_per_step"],
+        "sync_ms_per_step": [steady(r["sync_ms"]) for r in ranks],
+        "attn_exchange_ms_per_step": [steady(r["attn_exchange_ms"])
+                                      for r in ranks],
+        "attn_exchange_ms": [r["attn_exchange_ms"] for r in ranks],
+        "tokens_per_s": report["tokens_per_s"], "mfu": report["mfu"],
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+        "one_card_peak_memory_gb": one_peak,
+        "param_checksums": sums, "launches_per_rank": got,
+        "expected_launches_per_rank": expected, "run_seconds": seconds}
+    emit("train_sp", **out)
+    if not all(math.isfinite(x) for x in losses + ref):
+        raise AssertionError(f"non-finite losses {losses} / {ref}")
+    if len(rel) != steps or max(rel) > SP_LOSS_RTOL:
+        raise AssertionError(f"sp=2 losses {losses} vs one card {ref}")
+    if len(set(sums)) != 1:
+        raise AssertionError(f"sp ranks' parameters differ {sums}")
+    if got != expected or others:
+        raise AssertionError(f"launches {got} (other sync kernels "
+                             f"{others}), expected {expected}")
+    return {k_: sum(r["ring_launches"][k_] for r in ranks)
+            for k_ in RING_REPLACES}
+
+
 def reference_logits(torch, params, cfg, prompt, tokens):
     """The logits that picked each of ``tokens`` after ``prompt``, from
     one full forward (the cached decode's parity oracle)."""
@@ -1214,8 +1542,18 @@ def main() -> int:
     sync_launches = phase_train_dp(torch, trained["losses"])
     t10 = time.perf_counter()
     phase_sync4(torch)
+    t11 = time.perf_counter()
     emit("sync_phases_seconds", sync_kernels=t9 - t8, train_dp=t10 - t9,
-         sync4=time.perf_counter() - t10)
+         sync4=t11 - t10)
+
+    # 11. the ring kernels, 12. the ring at four ranks, 13. train at sp=2
+    ring = phase_ring_kernels(torch)
+    t12 = time.perf_counter()
+    phase_ring4(torch)
+    t13 = time.perf_counter()
+    ring_launches = phase_train_sp(torch)
+    emit("ring_phases_seconds", ring_kernels=t12 - t11, ring4=t13 - t12,
+         train_sp=time.perf_counter() - t13)
 
     row = timed["torch.float32"]
     kernels = [{
@@ -1248,6 +1586,19 @@ def main() -> int:
             "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
+    rrow = ring["slice-past", "torch.bfloat16"]  # sp=2 runs bf16
+    for kernel, err_keys, part in (("ring_fwd", ("m", "l", "acc"), "forward"),
+                                   ("ring_dq", ("dq",), "backward"),
+                                   ("ring_dkv", ("dk", "dv"), "backward")):
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": RING_SOURCE,
+            "replaces": RING_REPLACES[kernel],
+            "launches": ring_launches[kernel],
+            "max_abs_err": max(rrow["max_abs_err"][k] for k in err_keys),
+            "ms": rrow["ms"][kernel], "plain_ms": rrow["plain_ms"][part],
+            "bound_ms": rrow["bound_ms"][kernel],
+            "bound_by": rrow["bound_by"][kernel],
+            "library_ms": rrow["library_ms"][part]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,34 @@ def test_flash_bounds_count_live_pairs(dtype):
     assert window["flash_dkv"][0] <= bounds["flash_dkv"][0]
 
 
+@pytest.mark.parametrize("q_off,k_off,live", [(64, 64, 64 * 65 // 2),
+                                              (64, 0, 64 * 64)])
+def test_ring_bounds_count_the_hop(q_off, k_off, live):
+    """A hop's live pairs (the diagonal hop's triangle, a past hop's
+    square) at the flash kernels' 4, 6, 8 flops per head_dim element; its
+    bytes add the f32 state read and written once: (m, l) and acc
+    forward, dq or (dk, dv) backward."""
+    b, t, h, h_kv, d = 2, 64, 4, 2, 32
+    q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
+    k = torch.zeros((b, t, h_kv, d), dtype=torch.bfloat16)
+    pairs = b * h * live
+    qb, kb, rows = q.numel() * 2, k.numel() * 2, 4 * b * h * t
+    q32, k32 = 4 * q.numel(), 4 * k.numel()
+    bounds = chip_smoke.ring_bounds(torch, q, k, True, q_off, k_off)
+    for name, per_pair, nbytes in (
+            ("ring_fwd", 4, qb + 2 * kb + 4 * rows + 2 * q32),
+            ("ring_dq", 6, 2 * qb + 2 * kb + 2 * rows + 2 * q32),
+            ("ring_dkv", 8, 2 * qb + 2 * kb + 2 * rows + 4 * k32)):
+        t_ops = per_pair * d * pairs / chip_smoke.PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
+        assert bounds[name][0] == pytest.approx(max(t_ops, t_bytes))
+    # the kernels line reports the ring kernels of phase 11's past hop
+    assert [s[0] for s in chip_smoke.RING_SHAPES[:2]] == [
+        "slice-diagonal", "slice-past"]
+    assert set(chip_smoke.RING_REPLACES) == {"ring_fwd", "ring_dq",
+                                             "ring_dkv"}
+
+
 def test_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal needs one without")

@@ -156,6 +156,92 @@ def test_flash_autograd_function_launches_each_kernel_once(cuda_device):
         torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
 
 
+# -- ring flash attention (one hop: forward, dq, dk/dv) --------------------
+
+# (h_kv, head_dim, causal, t, q_off, k_off) over H = 8 heads: the diagonal
+# hop, a past hop, MQA, non-causal, and a ragged block (not a multiple of
+# the 64-row tile) at D 128
+RING_CASES = [(2, 64, True, 128, 128, 128),
+              (2, 64, True, 128, 256, 0),
+              (1, 128, True, 192, 192, 192),
+              (8, 64, False, 128, 128, 256),
+              (2, 128, True, 100, 200, 100)]
+
+
+def ring_state(q, k, seed):
+    """A carry that already holds one hop (the block scored against
+    itself) and nonzero f32 gradient accumulators."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    b, t, h, d = q.shape
+    m = torch.full((b, h, t), -1e30, device=q.device)
+    carry = rf.ring_fwd_reference(q, k, k, m, torch.zeros_like(m),
+                                  torch.zeros((b, t, h, d),
+                                              device=q.device), 0, 0)
+    gen = torch.Generator().manual_seed(seed)
+    grads = [torch.randn(s, generator=gen).to(q.device)
+             for s in (q.shape, k.shape, k.shape)]
+    return [x.contiguous() for x in carry], grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_kernels_match_plain(cuda_device, case, dtype):
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    h_kv, d, causal, t, q_off, k_off = case
+    q, k, v, do = flash_inputs(h_kv, d, t, t, seed=t + h_kv + d,
+                               device=cuda_device, dtype=dtype)
+    carry, (dq0, dk0, dv0) = ring_state(q, k, seed=t)
+    counts = rf.counts()
+    got = rf.ring_fwd(q, k, v, *[x.clone() for x in carry], q_off, k_off,
+                      causal)
+    want = rf.ring_fwd_reference(q, k, v, *carry, q_off, k_off, causal)
+    o, lse = fa.flash_forward_reference(q, k, v, causal, None, q_off, k_off)
+    delta = fa.attention_delta(o, do)
+    dq = rf.ring_dq(q, k, v, do, lse, delta, dq0.clone(), q_off, k_off,
+                    causal)
+    dk, dv = rf.ring_dkv(q, k, v, do, lse, delta, dk0.clone(), dv0.clone(),
+                         q_off, k_off, causal)
+    torch.cuda.synchronize()
+    assert rf.counts() == {n: c + 1 for n, c in counts.items()}
+    parts = rf.ring_bwd_reference(q, k, v, do, lse, delta, q_off, k_off,
+                                  causal)
+    tol_fwd, tol_bwd = FLASH_TOL[dtype]
+    # m, l, and the unnormalised acc as the output it stands for, acc / l
+    for g, w in ((got[0], want[0]), (got[1], want[1]),
+                 (got[2] / got[1].transpose(1, 2)[..., None],
+                  want[2] / want[1].transpose(1, 2)[..., None])):
+        torch.testing.assert_close(g, w, atol=tol_fwd, rtol=tol_fwd)
+    for g, acc0, part in zip((dq, dk, dv), (dq0, dk0, dv0), parts):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, acc0 + part, atol=tol_bwd,
+                                   rtol=tol_bwd)
+
+
+@pytest.mark.cuda
+def test_ring_autograd_function_launches_each_kernel_once(cuda_device):
+    """A ring of one rank: one hop, so each kernel launches once, and the
+    result is the flash attention's."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    from akka_allreduce_tpu_torch.parallel.group import RankGroup
+    q, k, v, do = flash_inputs(2, 64, 128, 128, 0, cuda_device,
+                               torch.float32)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    counts = rf.counts()
+    out = rf.ring_flash_attention(*leaves, RankGroup.single(cuda_device))
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert rf.counts() == {n: c + 1 for n, c in counts.items()}
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want_o = fa.flash_forward_reference(*ref)[0]
+    torch.testing.assert_close(out, want_o, atol=2e-5, rtol=2e-5)
+    want = torch.autograd.grad(want_o, ref, do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
+
+
 @pytest.mark.cuda
 def test_flash_rejects_unsupported_head_dim(cuda_device):
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
