@@ -407,18 +407,24 @@ def _check_power_of_two(n: int) -> None:
             f"the fused or windowed schedule for this group")
 
 
-def swing_allreduce(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+def swing_allreduce(x: torch.Tensor, group: RankGroup,
+                    axis: Optional[str] = None) -> torch.Tensor:
     """log2(n) exchange-and-add steps, step t with the rank at XOR
-    distance 2^t, each moving the full running sum. Every rank folds the
-    same balanced pairwise tree (f32 addition commutes), so the result is
-    bitwise identical across ranks and runs."""
-    n = group.world
+    distance 2^t, each moving the full running sum (``out = out +
+    partner's out``). Every rank folds the same balanced pairwise tree
+    (f32 addition commutes), so the result is bitwise identical across
+    ranks and runs. Over the whole world, or along one mesh ``axis``."""
+    n = group.world if axis is None else group.axis_size(axis)
     if n == 1:
         return x
     _check_power_of_two(n)
+    my = group.rank if axis is None else group.axis_index(axis)
     out = x
     for t in range(n.bit_length() - 1):
-        out = out + group.exchange(out, group.rank ^ (1 << t))
+        peer = my ^ (1 << t)
+        if axis is not None:
+            peer = group.axis_rank(axis, peer)
+        out = out + group.exchange(out, peer)
     return out
 
 

@@ -32,6 +32,17 @@ Backends:
 * a group of one (:meth:`RankGroup.single`) needs no process group: every
   collective is the identity.
 
+Peer memory. :meth:`RankGroup.peer_buffers` gives kernels that move data
+themselves (``ops/kernels/ring.py``, the ring and swing allreduce) a
+symmetric buffer on every rank: each rank allocates its own with
+``cudaMalloc``, the 64-byte CUDA IPC handles go round through
+:meth:`RankGroup.all_gather`, and each rank maps the buffers of the peers
+its schedule writes into. The buffers are cached per (rank, world, sp,
+axis, peers, bytes) outside the frozen :class:`RankGroup`, and
+:func:`free_peer_buffers` unmaps and frees them (``spawn_ranks`` does so
+before it destroys the process group). IPC works between processes on
+one card and between cards of one host.
+
 :func:`spawn_ranks` starts ``world`` processes with the ``spawn`` start
 method (a fork after CUDA is initialised breaks), joins them through a
 ``file://`` store in a fresh temporary directory (concurrent runs never
@@ -42,6 +53,7 @@ the child, from a module that does not import JAX.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib
 import os
@@ -111,6 +123,11 @@ class RankGroup:
         else:
             dp_i = (dp_i + shift) % self.axis_size("dp")
         return dp_i * self.sp + sp_j
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The global rank at coordinate ``index`` along ``axis``, the
+        other coordinate kept."""
+        return self._shifted(axis, index - self.axis_index(axis))
 
     # -- staging -----------------------------------------------------------
 
@@ -189,6 +206,136 @@ class RankGroup:
         if self.world > 1:
             dist.barrier()
 
+    # -- peer memory -------------------------------------------------------
+
+    def peer_buffers(self, axis: str, peers: tuple, nbytes: int
+                     ) -> "PeerBuffers":
+        """This rank's symmetric peer buffers of ``nbytes``, with the
+        buffers of the global ranks ``peers`` (the ranks a kernel's
+        schedule along ``axis`` writes into) mapped into this process. A
+        collective: every rank of the world makes the same calls in the
+        same order. The first call for a key allocates and exchanges the
+        handles; later calls return the cached buffers."""
+        key = (self.rank, self.world, self.sp, axis, tuple(peers), nbytes)
+        bufs = _PEER_BUFFERS.get(key)
+        if bufs is None:
+            bufs = _open_peer_buffers(self, tuple(peers), nbytes)
+            _PEER_BUFFERS[key] = bufs
+        return bufs
+
+
+# -- symmetric peer memory (CUDA IPC) ---------------------------------------
+
+@dataclasses.dataclass
+class PeerBuffers:
+    """One rank's share of a symmetric peer-memory allocation: ``local``
+    is this rank's own buffer of ``nbytes`` (a device pointer from
+    ``cudaMalloc``; an IPC handle names an allocation's base, so PyTorch's
+    caching allocator, which hands out pieces of shared segments, cannot
+    be used), ``peers`` maps each peer's global rank to this process's
+    mapping of that peer's buffer. ``steps_done`` counts the exchange
+    steps run on the buffers so far: the kernels number their flags from
+    it, and every rank advances it alike."""
+
+    local: int
+    peers: dict
+    nbytes: int
+    steps_done: int = 0
+
+    def view(self, rank: Optional[int] = None) -> torch.Tensor:
+        """The buffer of ``rank`` (this rank's own when None) as a uint8
+        CUDA tensor that aliases it."""
+        ptr = self.local if rank is None else self.peers[rank]
+        return torch.as_tensor(_DeviceMemory(ptr, self.nbytes))
+
+
+class _DeviceMemory:
+    """Device memory that PyTorch can alias (``__cuda_array_interface__``)."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+# (rank, world, sp, axis, peers, nbytes) -> PeerBuffers, for this process
+_PEER_BUFFERS: dict = {}
+_IPC: dict = {}
+
+
+def _ipc():
+    """The peer-memory functions of ``csrc/ring_allreduce.cu``."""
+    if not _IPC:
+        from akka_allreduce_tpu_torch.ops.kernels import build
+        lib = build.load("ring_allreduce")
+        ptr, pptr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+        for name, args in (("peer_alloc", [ctypes.c_int64, pptr]),
+                           ("peer_get_handle", [ptr, ptr]),
+                           ("peer_open_handle", [ptr, pptr]),
+                           ("peer_close", [ptr]), ("peer_free", [ptr]),
+                           ("peer_ipc_handle_bytes", [])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+            _IPC[name] = fn
+        err = lib.ring_allreduce_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _IPC["error"] = err
+    return _IPC
+
+
+def _ipc_call(name: str, *args) -> None:
+    fns = _ipc()
+    rc = fns[name](*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: {fns['error'](rc).decode()} "
+                           f"({rc})")
+
+
+def _open_peer_buffers(group: RankGroup, peers: tuple, nbytes: int
+                       ) -> PeerBuffers:
+    if group.device.type != "cuda":
+        raise ValueError(f"peer buffers live on a CUDA device, not "
+                         f"{group.device}")
+    if group.rank in peers:
+        raise ValueError(f"rank {group.rank} cannot map its own buffer")
+    with torch.cuda.device(group.device):
+        local = ctypes.c_void_p()
+        _ipc_call("peer_alloc", nbytes, ctypes.byref(local))
+        size = _ipc()["peer_ipc_handle_bytes"]()
+        handle = ctypes.create_string_buffer(size)
+        _ipc_call("peer_get_handle", local, handle)
+        mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
+        handles = group.all_gather(mine.to(group.device)[None]).cpu()
+        mapped = {}
+        for peer in peers:
+            ptr = ctypes.c_void_p()
+            raw = ctypes.create_string_buffer(bytes(handles[peer].tolist()),
+                                              size)
+            _ipc_call("peer_open_handle", raw, ctypes.byref(ptr))
+            mapped[peer] = ptr.value
+    return PeerBuffers(local.value, mapped, nbytes)
+
+
+def free_peer_buffers(group: RankGroup) -> None:
+    """Unmap and free this process's peer buffers of ``group``. A
+    collective, made after the last kernel on them: the first barrier
+    keeps a peer from writing into a freed buffer, the second keeps a
+    buffer alive until no peer maps it."""
+    keys = [k for k in _PEER_BUFFERS
+            if k[:3] == (group.rank, group.world, group.sp)]
+    if not keys:
+        return
+    torch.cuda.synchronize(group.device)
+    group.barrier()
+    for key in keys:
+        for ptr in _PEER_BUFFERS[key].peers.values():
+            _ipc_call("peer_close", ctypes.c_void_p(ptr))
+    group.barrier()
+    for key in keys:
+        _ipc_call("peer_free", ctypes.c_void_p(_PEER_BUFFERS.pop(key).local))
+
 
 def rank_device(device: str, rank: int, backend: str) -> torch.device:
     """The device of ``rank``: the CPU, or GPU ``rank`` modulo the count
@@ -224,10 +371,12 @@ def _worker(rank: int, world: int, sp: int, backend: str, device: str,
                               else max(1, (os.cpu_count() or 1) // world))
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 rank=rank, world_size=world)
+        group = RankGroup(rank, world, backend, dev, sp)
         try:
-            out = fn(RankGroup(rank, world, backend, dev, sp), *args)
+            out = fn(group, *args)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            free_peer_buffers(group)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, pickle.dumps(_to_cpu(out))))

@@ -119,6 +119,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    step. Reports wall, sync and attention-exchange ms per step,
    tokens/s and each rank's peak memory.
 
+14. allreduce — the peer-memory ring and swing allreduce (kernel B8)
+   across rank processes on the one card: gloo carries only the IPC
+   handle exchange, the barriers and the plain versions' wire; the
+   kernels' payloads go through peer memory on the device. A probe first
+   (each rank writes its buffer, reads its peer's through the IPC
+   mapping). At two ranks on the flagship's gradient as the sync sees it
+   (8,257 x 65,536 f32 bucket matrix, flattened: 541,130,752 elements,
+   2.16 GB per rank) and at four ranks on 64M elements, each rank's input
+   from a generator seeded by its rank: a loop of 4 calls of each
+   schedule, each call's input ``carry + sum / n``; every call's sum
+   bitwise its plain version's, bitwise equal on every rank (a checksum
+   through the group), finite, and a sample of 65,536 columns within
+   rtol = atol = 1e-5 of the f64 sum of every rank's input; each rank
+   launched each kernel 4 times. Then, median of 5 calls on rank 0 with
+   CUDA events between group barriers: the kernel (time-slicing between
+   the ranks' contexts included), the plain version (host wire), and
+   ``torch.distributed.all_reduce`` on the gloo group (NCCL refuses two
+   ranks on one device); the byte bounds computed; and the kernels on a
+   256 KB vector, whose time is the handshakes' (the card time-slices
+   between the ranks' contexts, so a rank spinning on a flag waits for
+   its peer's slice).
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -252,6 +274,21 @@ SP_ARGV = [
     "--seq", "2048", "--batch", "8", "--bf16", "--lr", "1e-4", "--steps",
     "3", "--log-every", "1", "--device", "cuda"]
 SP_LOSS_RTOL = 1e-3
+# phase 14: the flagship's bucket matrix (ceil(541.1M params / 65,536)
+# rows of 65,536 f32) flattened, at two ranks; a 64M slice at four
+ALLREDUCE_RUNS = ((2, 8257 * BUCKET_ELEMS), (4, 64 * 2 ** 20))
+ALLREDUCE_LOOP = 4
+ALLREDUCE_REPS = 5
+ALLREDUCE_SAMPLE = 65536  # columns held against the f64 sum
+# a vector whose traffic is negligible (256 KB): its time is the
+# handshakes', i.e. the time-slicing between the ranks' contexts
+ALLREDUCE_SMALL = 65536
+ALLREDUCE_TOL = 1e-5
+ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
+                    "ring_allreduce.cu")
+ALLREDUCE_REPLACES = {
+    "ring_allreduce": "akka_allreduce_tpu/ops/pallas_kernels/ring.py:51",
+    "swing_allreduce": "akka_allreduce_tpu/ops/pallas_kernels/ring.py:159"}
 FLASH_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
@@ -1352,6 +1389,191 @@ def phase_train_sp(torch) -> dict:
             for k_ in RING_REPLACES}
 
 
+def allreduce_bounds(n: int, elems: int) -> dict:
+    """Per kernel, ms at the card's memory rate with all n ranks on one
+    card: ``function`` — every rank reads its input once and writes its
+    output once (the bytes the allreduce itself must move when the ranks
+    can reach each other's memory); ``schedule`` — that plus each payload
+    byte of the kernel's schedule stored into a peer's slot once and read
+    back once (ring 2(n-1)/n of the vector per rank, swing log2(n))."""
+    p = 4 * elems
+    moved = {"ring_allreduce": 2 * (n - 1) / n * p,
+             "swing_allreduce": (n.bit_length() - 1) * p}
+    return {k: {"function": n * 2 * p / PEAK_BYTES_PER_S * 1e3,
+                "schedule": n * (2 * p + 2 * m) / PEAK_BYTES_PER_S * 1e3}
+            for k, m in moved.items()}
+
+
+def int_checksum(torch, x) -> list:
+    """Two int64 sums over x's bits (plain and position-weighted, int64
+    wrapping alike on every rank), 64M elements at a time."""
+    bits, total, weighted = x.view(torch.int32), 0, 0
+    for i, part in enumerate(bits.split(1 << 26)):
+        v = part.long()
+        pos = torch.arange(v.numel(), device=v.device) + (i << 26) + 1
+        total += int(v.sum())
+        weighted += int((v * pos).sum())
+    return [total, weighted]
+
+
+def ipc_probe(group) -> dict:
+    """Each rank fills its peer buffer with 1000 + rank and reads its
+    peer's through the IPC mapping."""
+    import torch
+    peer = group.axis_rank("dp", (group.axis_index("dp") + 1)
+                           % group.axis_size("dp"))
+    bufs = group.peer_buffers("dp", (peer,), 4096)
+    bufs.view().view(torch.int32).fill_(1000 + group.rank)
+    torch.cuda.synchronize()
+    group.barrier()
+    seen = bufs.view(peer).view(torch.int32).unique().tolist()
+    group.barrier()
+    return {"route": "cudaIpcGetMemHandle / cudaIpcOpenMemHandle",
+            "peer": peer, "seen": seen, "ok": seen == [1000 + peer]}
+
+
+def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
+    """One rank of phase 14: the IPC probe; per schedule the loop of
+    ``loop`` kernel calls (launches counted from 0), each call checked
+    against its plain version, the other ranks and the f64 sum of a
+    sample of columns; then the timings (every rank calls, rank 0's
+    events are reported), and gloo ``all_reduce`` timed once."""
+    import torch
+    import torch.distributed as dist
+
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    n, dev = group.world, group.device
+    out = {"rank": group.rank, "ipc_probe": ipc_probe(group)}
+    if not out["ipc_probe"]["ok"]:
+        return out
+    gen = torch.Generator(dev).manual_seed(group.rank)
+    x = torch.randn(elems, generator=gen, device=dev)
+    cols = torch.arange(ALLREDUCE_SAMPLE, device=dev) * (elems - 1) // (
+        ALLREDUCE_SAMPLE - 1)
+
+    def timed(call, before=None) -> list:
+        times = []
+        for _ in range(reps):
+            if before is not None:
+                before()
+            group.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    for name, kernel, plain in (
+            ("ring_allreduce", ring.peer_ring_allreduce,
+             ring.ring_allreduce_reference),
+            ("swing_allreduce", ring.peer_swing_allreduce,
+             ring.swing_allreduce_reference)):
+        steps, carry = [], x
+        ring.reset_counts()
+        for _ in range(loop):
+            group.barrier()
+            got = kernel(carry, group)
+            torch.cuda.synchronize()
+            want = plain(carry, group)
+            sample = group.all_gather(carry[cols][None]).double().sum(0)
+            sums = group.all_gather(torch.tensor(
+                [int_checksum(torch, got)], device=dev)).tolist()
+            steps.append({
+                "bitwise_plain": bool(torch.equal(got, want)),
+                "max_abs_err": float((got - want).abs().max()),
+                "finite": bool(torch.isfinite(got).all()),
+                "ranks_equal": all(c == sums[0] for c in sums),
+                "sample_max_abs_err": float(
+                    (got[cols].double() - sample).abs().max()),
+                "sample_ok": bool(torch.allclose(
+                    got[cols].double(), sample, rtol=ALLREDUCE_TOL,
+                    atol=ALLREDUCE_TOL))})
+            carry = carry + got / n
+            del got, want
+        launches = ring.counts()[name]
+        del carry
+        small = x[:ALLREDUCE_SMALL].clone()
+        kernel(small, group)  # maps its own peer buffers
+        out[name] = {
+            "steps": steps, "launches": launches,
+            "ms": timed(lambda: kernel(x, group)),
+            "plain_ms": timed(lambda: plain(x, group)),
+            "small_ms": timed(lambda: kernel(small, group))}
+        torch.cuda.empty_cache()
+    y = x.clone()
+    dist.all_reduce(y)  # the gloo algorithm's warm-up
+    out["library_ms"] = timed(lambda: dist.all_reduce(y),
+                              before=lambda: y.copy_(x))
+    return out
+
+
+def phase_allreduce(torch) -> dict:
+    """Phase 14 at each (ranks, elements) of ALLREDUCE_RUNS; returns the
+    kernels' rows for the kernels line (times at two ranks, launches
+    summed over both runs and their ranks)."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    rows, failures = {}, []
+    for n, elems in ALLREDUCE_RUNS:
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks(allreduce_rank, n, "gloo", DEVICE, elems,
+                            ALLREDUCE_LOOP, ALLREDUCE_REPS)
+        probes = [r["ipc_probe"] for r in ranks]
+        emit("allreduce_ipc_probe", ranks=n, probes=probes)
+        if not all(p["ok"] for p in probes):
+            raise AssertionError(f"CUDA IPC between the ranks failed: "
+                                 f"{probes}")
+        bounds = allreduce_bounds(n, elems)
+        library = statistics.median(ranks[0]["library_ms"])
+        for name in ALLREDUCE_REPLACES:
+            per_rank = [r[name] for r in ranks]
+            steps_ok = all(
+                s["bitwise_plain"] and s["finite"] and s["ranks_equal"]
+                and s["sample_ok"] for r in per_rank for s in r["steps"])
+            launches = [r["launches"] for r in per_rank]
+            ok = steps_ok and launches == [ALLREDUCE_LOOP] * n
+            row = {
+                "ranks": n, "elems": elems, "ok": ok,
+                "launches_per_rank": launches,
+                "expected_launches_per_rank": ALLREDUCE_LOOP,
+                "steps_rank0": per_rank[0]["steps"],
+                "max_abs_err": max(s["max_abs_err"] for r in per_rank
+                                   for s in r["steps"]),
+                "sample_max_abs_err": max(
+                    s["sample_max_abs_err"] for r in per_rank
+                    for s in r["steps"]),
+                "ms": statistics.median(per_rank[0]["ms"]),
+                "ms_all": per_rank[0]["ms"],
+                "ms_median_per_rank": [statistics.median(r["ms"])
+                                       for r in per_rank],
+                "small_elems": ALLREDUCE_SMALL,
+                "small_ms": statistics.median(per_rank[0]["small_ms"]),
+                "small_ms_all": per_rank[0]["small_ms"],
+                "plain_ms": statistics.median(per_rank[0]["plain_ms"]),
+                "plain_ms_all": per_rank[0]["plain_ms"],
+                "library_ms": library,
+                "library_call": "torch.distributed.all_reduce on the gloo "
+                                "group (NCCL refuses two ranks on one "
+                                "device)",
+                "bound_ms": bounds[name]["function"], "bound_by": "bytes",
+                "schedule_bound_ms": bounds[name]["schedule"]}
+            emit("allreduce", kernel=name, **row)
+            if not ok:
+                failures.append((name, n))
+            if n == ALLREDUCE_RUNS[0][0]:
+                rows[name] = row
+            rows[name]["launches"] = rows[name].get("launches", 0) + sum(
+                launches)
+        emit("allreduce_library", ranks=n, elems=elems,
+             library_ms_all=ranks[0]["library_ms"])
+    if failures:
+        raise AssertionError(f"the peer-memory allreduce failed: "
+                             f"{failures}")
+    return rows
+
+
 def reference_logits(torch, params, cfg, prompt, tokens):
     """The logits that picked each of ``tokens`` after ``prompt``, from
     one full forward (the cached decode's parity oracle)."""
@@ -1552,8 +1774,13 @@ def main() -> int:
     phase_ring4(torch)
     t13 = time.perf_counter()
     ring_launches = phase_train_sp(torch)
+    t14 = time.perf_counter()
     emit("ring_phases_seconds", ring_kernels=t12 - t11, ring4=t13 - t12,
-         train_sp=time.perf_counter() - t13)
+         train_sp=t14 - t13)
+
+    # 14. the peer-memory ring and swing allreduce across rank processes
+    allreduce = phase_allreduce(torch)
+    emit("allreduce_phase_seconds", allreduce=time.perf_counter() - t14)
 
     row = timed["torch.float32"]
     kernels = [{
@@ -1599,6 +1826,14 @@ def main() -> int:
             "bound_ms": rrow["bound_ms"][kernel],
             "bound_by": rrow["bound_by"][kernel],
             "library_ms": rrow["library_ms"][part]})
+    for kernel, replaces in ALLREDUCE_REPLACES.items():
+        arow = allreduce[kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": ALLREDUCE_SOURCE,
+            "replaces": replaces, "launches": arow["launches"],
+            "max_abs_err": arow["max_abs_err"], "ms": arow["ms"],
+            "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
+            "bound_by": arow["bound_by"], "library_ms": arow["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

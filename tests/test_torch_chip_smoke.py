@@ -220,3 +220,46 @@ def test_sync_kernel_bounds_count_bytes(kernel, per_elem):
     t, by = chip_smoke.reduce_bound(8, 3_276_800)
     assert by == "bytes" and t == pytest.approx(
         4 * (9 * 3_276_800 + 9) / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_allreduce_bounds_count_bytes(n):
+    """Phase 14's bounds with all n ranks on one card: the function's
+    own bytes (each rank's input read and output written once) and the
+    schedule's (plus each payload byte stored into a peer slot and read
+    back: the ring 2(n-1)/n of the vector per rank, the swing log2 n)."""
+    elems = 1 << 20
+    p, rate = 4 * elems, chip_smoke.PEAK_BYTES_PER_S / 1e3
+    bounds = chip_smoke.allreduce_bounds(n, elems)
+    assert set(bounds) == set(chip_smoke.ALLREDUCE_REPLACES)
+    for name, moved in (("ring_allreduce", 2 * (n - 1) / n * p),
+                        ("swing_allreduce", (n.bit_length() - 1) * p)):
+        assert bounds[name]["function"] == pytest.approx(2 * n * p / rate)
+        assert bounds[name]["schedule"] == pytest.approx(
+            n * (2 * p + 2 * moved) / rate)
+    if n == 2:  # the two schedules move the same bytes
+        assert bounds["ring_allreduce"] == bounds["swing_allreduce"]
+
+
+def test_allreduce_runs_divide_into_lanes():
+    """The flagship's bucket matrix flattened at two ranks, 64M at four:
+    both split into n ring blocks of whole 128-lanes (and n is a power of
+    two for the swing)."""
+    (n2, full), (n4, part) = chip_smoke.ALLREDUCE_RUNS
+    assert (n2, full, n4, part) == (2, 541_130_752, 4, 67_108_864)
+    for n, elems in chip_smoke.ALLREDUCE_RUNS:
+        assert elems % (n * 128) == 0 and n & (n - 1) == 0
+
+
+def test_int_checksum_sees_every_bit():
+    x = torch.randn(3 * 1000 + 1)
+    y = x.clone()
+    assert chip_smoke.int_checksum(torch, x) == chip_smoke.int_checksum(
+        torch, y)
+    y.view(torch.int32)[1234] ^= 1  # one low mantissa bit
+    assert chip_smoke.int_checksum(torch, x) != chip_smoke.int_checksum(
+        torch, y)
+    z = x.clone()
+    z[[5, 6]] = z[[6, 5]]  # the same bits, two places swapped
+    assert chip_smoke.int_checksum(torch, x) != chip_smoke.int_checksum(
+        torch, z)

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it never loads JAX or the JAX package.
 
 Three pins: a fresh interpreter imports every module of
-``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's and the ring
-attention's modules included) and finds neither ``jax`` nor ``akka_allreduce_tpu`` in
+``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
+attention's and the peer-memory allreduce's modules included) and finds neither ``jax`` nor ``akka_allreduce_tpu`` in
 ``sys.modules``; a rank process that ``spawn_ranks`` starts from this
 (JAX-importing) test process holds neither either; and an AST scan of
 the package's sources finds no import statement naming either.
@@ -45,6 +45,7 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.ops.kernels.masked_reduce",
             "akka_allreduce_tpu_torch.ops.kernels.quantized",
             "akka_allreduce_tpu_torch.ops.kernels.ring_flash",
+            "akka_allreduce_tpu_torch.ops.kernels.ring",
             "akka_allreduce_tpu_torch.parallel.ring_attention"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
@@ -106,4 +107,4 @@ def test_ast_scan_finds_no_jax_import():
         "parallel/group", "parallel/dp", "ops/bucketing", "ops/masked",
         "ops/collectives", "ops/kernels/masked_reduce",
         "ops/kernels/quantized", "ops/kernels/ring_flash",
-        "parallel/ring_attention")} <= scanned
+        "ops/kernels/ring", "parallel/ring_attention")} <= scanned

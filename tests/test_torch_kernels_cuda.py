@@ -11,7 +11,9 @@ paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
 2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2; the gradient sync's
 masked reduce and int8 quantizers: bitwise (both sum the peers in order,
-and the quantizers' arithmetic is IEEE's, Philox drawn alike);
+and the quantizers' arithmetic is IEEE's, Philox drawn alike); the
+peer-memory ring and swing allreduce: bitwise, on two rank processes that
+share the card through CUDA IPC (the same adds in the same order);
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
@@ -312,3 +314,35 @@ def test_quantize_counters_count_launches_only(cuda_device):
         "quantize_int8": 0, "dequantize_int8": 0, "quantize_int8_prng": 0,
         "quantize_int8_block": 0, "quantize_int8_block_rtn": 1,
         "dequantize_int8_block": 1}
+
+
+# -- the peer-memory ring and swing allreduce (two gloo ranks on the card) --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elems", [768, 2 ** 20 + 256])
+@pytest.mark.parametrize("schedule", ["ring", "swing"])
+def test_peer_allreduce_matches_plain_bitwise(cuda_device, schedule, elems):
+    """Two rank processes, a loop of 8 calls whose next input is
+    ``carry + sum / 2``: every call's sum bitwise its plain version's
+    (the same lone f32 adds), the same bits on both ranks, and one launch
+    per call."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_ring_ranks import kernel_vs_plain
+    ranks = spawn_ranks(kernel_vs_plain, 2, "gloo", "cuda", schedule, elems,
+                        8)
+    for r in ranks:
+        assert r["bitwise"] == [True] * 8
+        assert r["launches"][f"{schedule}_allreduce"] == 8
+    assert ranks[0]["checksum"] == ranks[1]["checksum"]
+
+
+@pytest.mark.cuda
+def test_peer_allreduce_refuses_other_dtypes(cuda_device):
+    """Checked before any exchange, so no process group is needed."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    from akka_allreduce_tpu_torch.parallel.group import RankGroup
+    group = RankGroup(0, 2, "gloo", cuda_device)
+    x = torch.zeros(512, dtype=torch.bfloat16, device=cuda_device)
+    for fn in (ring.peer_ring_allreduce, ring.peer_swing_allreduce):
+        with pytest.raises(ValueError, match="float32"):
+            fn(x, group)
