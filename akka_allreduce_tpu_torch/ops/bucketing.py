@@ -40,15 +40,19 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves):
     """The inverse of :func:`tree_leaves` against a template tree."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-    return build(like)
+
+def _build(node, it):
+    # a module-level function, not a closure: a nested function that
+    # calls itself is a reference cycle, and its cell would hold ``it``
+    # and through it every leaf (a step's whole gradient) until the
+    # cyclic garbage collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return [_build(v, it) for v in node]
+    return next(it)
 
 
 def tree_map(fn, tree):

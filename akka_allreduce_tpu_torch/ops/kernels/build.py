@@ -3,11 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` into ``_build/lib<name>-<hash>.so`` and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
-The hash covers the source, the ``csrc/`` headers it includes with
-``#include "..."``, and the flags, so an edited source or header rebuilds
-and an unchanged one is reused. Builds run at first use, never at
-import: the package imports on machines without ``nvcc`` or a GPU, where
-only the kernels' plain versions run.
+The hash covers the source, every ``csrc/`` header it reaches through
+``#include "..."`` (nested includes too), and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. Builds run at
+first use, never at import: the package imports on machines without
+``nvcc`` or a GPU, where only the kernels' plain versions run.
 
 A failed compile or a library that does not load raises; nothing falls
 back to the plain version on a CUDA tensor.
@@ -52,11 +52,26 @@ def nvcc_path() -> str:
         "and PATH): the CUDA kernels cannot be built on this machine")
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it reaches through
+    ``#include "..."``, nested includes too: each file once, depth first
+    in include order."""
+    seen: list = []
+    todo = [f"{name}.cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        text = (CSRC_DIR / rel).read_bytes()
+        incs = re.findall(rb'#include "([^"]+)"', text)
+        todo += [inc.decode() for inc in reversed(incs)]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    headers = re.findall(rb'#include "([^"]+)"', src)
     digest = hashlib.sha256(
-        src + b"".join((CSRC_DIR / h.decode()).read_bytes() for h in headers)
+        b"".join((CSRC_DIR / rel).read_bytes() for rel in sources(name))
         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,554 @@
+// Tensor-core tiles of the bf16 flash attention backward (flash_attention.cu).
+//
+// Replaces, for bf16 inputs: akka_allreduce_tpu/ops/pallas_kernels/
+// attention.py _dq_kernel (:153) and _dkv_kernel (:184), whose tile
+// arithmetic is _bwd_tile (:99). The f32 kernels stay on the CUDA-core
+// folds of flash_tiles.cuh (TF32 would break parity with the f32
+// reference), and so do the ring kernels (ring_flash.cu) for now.
+//
+// Bound: ~6 (dq) and ~8 (dk/dv) flops per head-dim element of every live
+// (q, k) pair, hundreds of flops per byte moved, so the tensor cores'
+// 989 TFLOP/s (bf16, dense) bound both kernels. The CUDA-core folds reach
+// ~2% of it; these tiles put every product on the tensor cores:
+//   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 in inline PTX:
+//     bf16 operands, f32 accumulators, exactly the Pallas kernels' cast
+//     points (p and ds rounded to bf16 before the second products,
+//     preferred_element_type=f32 everywhere); only the order of the f32
+//     sums differs.
+//   * Operands reach the tensor cores through ldmatrix (x4: four 8x8
+//     matrices a warp), .trans where the product's reduction axis is the
+//     row axis of the shared-memory tile (K in dq += ds K; Q and dO in
+//     dk += ds^T Q and dv += p^T dO). Shared-memory rows are padded by 16
+//     bytes, so the 8 row addresses of each 8x8 matrix fall in 8
+//     different 16-byte bank groups: no bank conflicts.
+//   * The score tiles never touch shared memory: an m16n8 accumulator
+//     pair is the m16k16 A fragment of the next product once rounded to
+//     bf16 and packed two to a register (FlashAttention-2's layout).
+//   * The streamed operand (K/V tiles in dq; Q/dO tiles with their lse
+//     and delta in dk/dv) is double-buffered with cp.async (16 bytes a
+//     thread; lse/delta 4 bytes, the rows need not be 16-byte aligned):
+//     the next tile's load runs under the current tile's products. Rows
+//     past T are zero-filled by the copy itself (src-size 0).
+//
+// Work layout: 64-row tiles, 4 warps (128 threads); warp w owns rows
+// 16w..16w+15 of the block's own tile (query rows in dq, key rows in
+// dk/dv). Blocks as in the CUDA-core kernels: dq one per (query tile,
+// query head, batch), walking the live key tiles; dk/dv one per (key
+// tile, KV head, batch), walking the GQA group x live query tiles, so dk
+// and dv sum over the group in f32 registers and are written once (no
+// atomics: the result is deterministic). The causal / window mask leaves
+// a contiguous band of live tiles (tile_live), and only that band is
+// loaded; masked lanes get p = 0 exactly (the where-guard: exp(NEG_INF -
+// lse) is 0), lanes past Tk are masked, rows past Tq contribute nothing
+// and are not stored.
+//
+// Registers per thread (ptxas -v, sm_90a; no spills accepted):
+//   dq,    D = 128: 226 (the dq accumulator 16 x 128 f32 a warp = 64, S
+//          and dP 16 x 64 f32 = 32 + 32, one step's K and V fragments
+//          32, loaded together ahead of their products); D = 64: 128.
+//   dk/dv, D = 128: 244 (the dk and dv accumulators 2 x 64; S^T and dP^T
+//          over half the query tile at a time, kSubQ = 32 columns, 16 +
+//          16, the halves kept apart by "#pragma unroll 1": unrolled,
+//          ptxas spilled at 255); D = 64: 188.
+// Shared memory: dq Q, dO + 2 x (K, V); dk/dv K, V + 2 x (Q, dO, lse,
+// delta): 104,448 / 105,472 bytes at D = 128 (two blocks an SM),
+// 55,296 / 56,320 at D = 64.
+
+#pragma once
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 rows = one 64-row tile
+constexpr float kLog2e = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+// padded shared-memory row of a D-wide bf16 tile (16 bytes of padding)
+template <int D>
+__host__ __device__ constexpr int mma_ld() { return D + 8; }
+template <int D>
+__host__ __device__ constexpr int mma_tile() { return kTile * mma_ld<D>(); }
+
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return 6 * static_cast<size_t>(mma_tile<D>()) * sizeof(bf16);
+}
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  return 6 * static_cast<size_t>(mma_tile<D>()) * sizeof(bf16)
+         + 4 * kTile * sizeof(float);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start copying rows [0, valid) of a 64-row tile (row stride `st`
+// elements in device memory, D contiguous) into a padded shared tile;
+// rows past `valid` become zeros. `src` row 0 is always a valid address.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
+                                        long long st, int valid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  static_assert(kTile * kChunks % kMmaThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    const int r = c / kChunks;
+    const int e = (c - r * kChunks) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * mma_ld<D>() + e, ok ? src + r * st + e : src, ok);
+  }
+}
+
+// Start copying a query tile's 64 f32 lse and delta values (rows past Tq
+// zero-filled): threads 0-63 lse, 64-127 delta.
+__device__ __forceinline__ void cp_rows(float* sL, float* sDel,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        long long row0, int valid) {
+  const int i = threadIdx.x % kTile;
+  const float* src = threadIdx.x < kTile ? lse : delta;
+  float* dst = threadIdx.x < kTile ? sL : sDel;
+  const bool ok = i < valid;
+  cp_async4(dst + i, src + row0 + (ok ? i : 0), ok);
+}
+
+// Four 8x8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8m..8m+7 address matrix m); register m is this lane's pair of
+// matrix m: row lane/4, columns 2(lane%4), +1 (.trans: the transpose's).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment addresses within a padded tile, for this lane (row0/col0: the
+// 16 x 16 block's corner):
+//   A of a row-major 16 x 16 block (rows = M, columns = K);
+__device__ __forceinline__ int frag_a(int row0, int col0, int lane, int ld) {
+  return (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
+}
+//   B of two n8 tiles from a tile whose rows are N and columns K
+//   (registers: b0, b1 of the first n8 tile, then of the second);
+__device__ __forceinline__ int frag_b_nk(int n0, int k0, int lane, int ld) {
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0
+         + ((lane >> 3) & 1) * 8;
+}
+//   B of two n8 tiles from a tile whose rows are K and columns N (.trans).
+__device__ __forceinline__ int frag_b_kn(int k0, int n0, int lane, int ld) {
+  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0
+         + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Two m16n8 f32 accumulators (columns 16kb..16kb+15) rounded to bf16 as
+// the m16k16 A fragment of the next product.
+__device__ __forceinline__ void to_a_frag(unsigned (&a)[4],
+                                          const float (&lo)[4],
+                                          const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// The live tiles [lo, hi] of the other side, a contiguous band (lo > hi:
+// none): key tiles of query tile own0 (dq, own_query) or query tiles of
+// key tile own0 (dk/dv).
+__device__ __forceinline__ void live_tiles(int own0, bool own_query,
+                                           const Geom& g, int& lo, int& hi) {
+  lo = 0;
+  hi = -1;
+  const int n = ((own_query ? g.Tk : g.Tq) + kTile - 1) / kTile;
+  for (int t = 0; t < n; ++t)
+    if (own_query ? tile_live(own0, t * kTile, g)
+                  : tile_live(t * kTile, own0, g)) {
+      if (hi < lo) lo = t;
+      hi = t;
+    }
+}
+
+// Every (q, k) pair of the tile pair is unmasked and inside the arrays, so
+// the elementwise step needs no pair_live (most tiles of a long causal
+// sequence).
+__device__ __forceinline__ bool tile_full(int q0, int k0, const Geom& g) {
+  if (q0 + kTile > g.Tq || k0 + kTile > g.Tk) return false;
+  if (!g.causal) return true;
+  const int nearest = (q0 + g.q_off) - (k0 + g.k_off + kTile - 1);
+  const int farthest = (q0 + g.q_off + kTile - 1) - (k0 + g.k_off);
+  return nearest >= 0 && (g.window <= 0 || farthest < g.window);
+}
+
+// dq's elementwise step on this lane's 16 x 64 score tile: s becomes
+// ds = p (dp - delta) scale, p = exp(s scale - lse), 0 on masked lanes.
+template <bool kFull>
+__device__ __forceinline__ void dq_scores(float (&s)[8][4],
+                                          const float (&dp)[8][4],
+                                          int r0, int k0, int tq,
+                                          const float (&lse2)[2],
+                                          const float (&del)[2], float scale2,
+                                          float scale, const Geom& g) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const bool live =
+          kFull || pair_live(r0 + 8 * i, k0 + 8 * j + 2 * tq + (e & 1), g);
+      const float p = live ? exp2f(fmaf(s[j][e], scale2, -lse2[i])) : 0.f;
+      s[j][e] = p * (dp[j][e] - del[i]) * scale;
+    }
+}
+
+// dk/dv's on a 16-key x N-query transposed tile (query columns c0 + ...):
+// s becomes p^T, dp becomes ds^T, from the columns' lse and delta.
+template <bool kFull, int N>
+__device__ __forceinline__ void dkv_scores(float (&s)[N][4], float (&dp)[N][4],
+                                           int kr0, int q0, int c0, int tq,
+                                           const float* cL, const float* cDel,
+                                           float scale2, float scale,
+                                           const Geom& g) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 8 * j + 2 * tq + (e & 1);
+      const bool live = kFull || pair_live(q0 + c, kr0 + 8 * (e >> 1), g);
+      const float p =
+          live ? exp2f(fmaf(s[j][e], scale2, -cL[c] * kLog2e)) : 0.f;
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - cDel[c]) * scale;
+    }
+}
+
+// --------------------------------------------------------------------- dq
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kLd = mma_ld<D>();
+  constexpr int kT = mma_tile<D>();
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + kT;
+  bf16* sK = sDO + kT;      // 2 stages
+  bf16* sV = sK + 2 * kT;   // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tq = lane & 3;
+  // the causal band grows with the query tile: the longest blocks first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (g.H / g.Hkv);
+  int lo, hi;
+  live_tiles(q0, true, g, lo, hi);
+
+  const bf16* kb = k + b * g.k_sb + hk * g.k_sh;
+  const bf16* vb = v + b * g.v_sb + hk * g.v_sh;
+  if (lo <= hi) {
+    cp_tile<D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
+               g.Tq - q0);
+    cp_tile<D>(sDO, dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh, g.do_st,
+               g.Tq - q0);
+    cp_tile<D>(sK, kb + lo * kTile * g.k_st, g.k_st, g.Tk - lo * kTile);
+    cp_tile<D>(sV, vb + lo * kTile * g.v_st, g.v_st, g.Tk - lo * kTile);
+  }
+  cp_async_commit();
+
+  // this lane's two query rows, r0 and r0 + 8
+  const int r0 = q0 + 16 * warp + gr;
+  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    lse2[i] = qi < g.Tq ? lse[row0 + qi] * kLog2e : 0.f;
+    del[i] = qi < g.Tq ? delta[row0 + qi] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int stage = (kt - lo) & 1;
+    if (kt < hi) {
+      const int n0 = (kt + 1) * kTile;
+      cp_tile<D>(sK + (stage ^ 1) * kT, kb + n0 * g.k_st, g.k_st, g.Tk - n0);
+      cp_tile<D>(sV + (stage ^ 1) * kT, vb + n0 * g.v_st, g.v_st, g.Tk - n0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* cK = sK + stage * kT;
+    const bf16* cV = sV + stage * kT;
+    const int k0 = kt * kTile;
+
+    // S = Q K^T and dP = dO V^T: 16 query rows x 64 keys per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // every fragment of the step first, then its 16 products: the
+      // loads' latency overlaps instead of stalling each product
+      unsigned aq[4], ado[4], bk[4][4], bv[4][4];
+      ldsm_x4(aq, sQ + frag_a(16 * warp, 16 * kk, lane, kLd));
+      ldsm_x4(ado, sDO + frag_a(16 * warp, 16 * kk, lane, kLd));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        ldsm_x4(bk[np], cK + frag_b_nk(16 * np, 16 * kk, lane, kLd));
+        ldsm_x4(bv[np], cV + frag_b_nk(16 * np, 16 * kk, lane, kLd));
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        mma16816(s[2 * np], aq, bk[np][0], bk[np][1]);
+        mma16816(s[2 * np + 1], aq, bk[np][2], bk[np][3]);
+        mma16816(dp[2 * np], ado, bv[np][0], bv[np][1]);
+        mma16816(dp[2 * np + 1], ado, bv[np][2], bv[np][3]);
+      }
+    }
+
+    if (tile_full(q0, k0, g))
+      dq_scores<true>(s, dp, r0, k0, tq, lse2, del, scale2, scale, g);
+    else
+      dq_scores<false>(s, dp, r0, k0, tq, lse2, del, scale2, scale, g);
+
+    // dQ += bf16(dS) K, K read transposed
+#pragma unroll
+    for (int kb2 = 0; kb2 < 4; ++kb2) {
+      unsigned a[4];
+      to_a_frag(a, s[2 * kb2], s[2 * kb2 + 1]);
+#pragma unroll
+      for (int n0 = 0; n0 < D / 16; n0 += 4) {
+        unsigned bk[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ldsm_x4_t(bk[i], cK + frag_b_kn(16 * kb2, 16 * (n0 + i), lane, kLd));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma16816(acc[2 * (n0 + i)], a, bk[i][0], bk[i][1]);
+          mma16816(acc[2 * (n0 + i) + 1], a, bk[i][2], bk[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is overwritten two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    bf16* row = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
+// ------------------------------------------------------------------ dk/dv
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kLd = mma_ld<D>();
+  constexpr int kT = mma_tile<D>();
+  // query columns per pass over the score tile: at D = 128 the two
+  // accumulators take 128 registers, so S^T and dP^T go in halves
+  constexpr int kSubQ = D == 128 ? 32 : 64;
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kT;
+  bf16* sQ = sV + kT;        // 2 stages
+  bf16* sDO = sQ + 2 * kT;   // 2 stages
+  float* sL = reinterpret_cast<float*>(sDO + 2 * kT);  // 2 stages of 64
+  float* sDel = sL + 2 * kTile;                         // 2 stages of 64
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  const int group = g.H / g.Hkv;
+  int lo, hi;
+  live_tiles(k0, false, g, lo, hi);
+  const int n_live = hi - lo + 1;
+  const int n_it = n_live > 0 ? group * n_live : 0;
+
+  // iteration it: query head hk * group + it / n_live, tile lo + it % n_live
+  auto load_stage = [&](int it, int stage) {
+    const int h = hk * group + it / n_live;
+    const int q0 = (lo + it % n_live) * kTile;
+    cp_tile<D>(sQ + stage * kT, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh,
+               g.q_st, g.Tq - q0);
+    cp_tile<D>(sDO + stage * kT,
+               dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh, g.do_st,
+               g.Tq - q0);
+    cp_rows(sL + stage * kTile, sDel + stage * kTile, lse, delta,
+            (static_cast<long long>(b) * g.H + h) * g.Tq + q0, g.Tq - q0);
+  };
+  if (n_it > 0) {
+    cp_tile<D>(sK, k + b * g.k_sb + k0 * g.k_st + hk * g.k_sh, g.k_st,
+               g.Tk - k0);
+    cp_tile<D>(sV, v + b * g.v_sb + k0 * g.v_st + hk * g.v_sh, g.v_st,
+               g.Tk - k0);
+    load_stage(0, 0);
+  }
+  cp_async_commit();
+
+  const int kr0 = k0 + 16 * warp + gr;  // this lane's key rows kr0, kr0 + 8
+  const float scale2 = scale * kLog2e;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) load_stage(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* cQ = sQ + stage * kT;
+    const bf16* cDO = sDO + stage * kT;
+    const float* cL = sL + stage * kTile;
+    const float* cDel = sDel + stage * kTile;
+    const int q0 = (lo + it % n_live) * kTile;
+    const bool full = tile_full(q0, k0, g);
+
+#pragma unroll 1  // one half at a time: unrolled, D = 128 spills
+    for (int qs = 0; qs < kTile; qs += kSubQ) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 key rows x kSubQ queries a warp
+      float s[kSubQ / 8][4], dp[kSubQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < kSubQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned ak[4], av[4];
+        ldsm_x4(ak, sK + frag_a(16 * warp, 16 * kk, lane, kLd));
+        ldsm_x4(av, sV + frag_a(16 * warp, 16 * kk, lane, kLd));
+        unsigned bq[kSubQ / 16][4], bo[kSubQ / 16][4];
+#pragma unroll
+        for (int np = 0; np < kSubQ / 16; ++np) {
+          ldsm_x4(bq[np], cQ + frag_b_nk(qs + 16 * np, 16 * kk, lane, kLd));
+          ldsm_x4(bo[np], cDO + frag_b_nk(qs + 16 * np, 16 * kk, lane, kLd));
+        }
+#pragma unroll
+        for (int np = 0; np < kSubQ / 16; ++np) {
+          mma16816(s[2 * np], ak, bq[np][0], bq[np][1]);
+          mma16816(s[2 * np + 1], ak, bq[np][2], bq[np][3]);
+          mma16816(dp[2 * np], av, bo[np][0], bo[np][1]);
+          mma16816(dp[2 * np + 1], av, bo[np][2], bo[np][3]);
+        }
+      }
+
+      if (full)
+        dkv_scores<true>(s, dp, kr0, q0, qs, tq, cL, cDel, scale2, scale, g);
+      else
+        dkv_scores<false>(s, dp, kr0, q0, qs, tq, cL, cDel, scale2, scale, g);
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, dO and Q transposed
+#pragma unroll
+      for (int kb2 = 0; kb2 < kSubQ / 16; ++kb2) {
+        unsigned ap[4], ads[4];
+        to_a_frag(ap, s[2 * kb2], s[2 * kb2 + 1]);
+        to_a_frag(ads, dp[2 * kb2], dp[2 * kb2 + 1]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 16; n0 += 2) {
+          unsigned bo[2][4], bq[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int off = frag_b_kn(qs + 16 * kb2, 16 * (n0 + i), lane, kLd);
+            ldsm_x4_t(bo[i], cDO + off);
+            ldsm_x4_t(bq[i], cQ + off);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int n = 2 * (n0 + i);
+            mma16816(dv_acc[n], ap, bo[i][0], bo[i][1]);
+            mma16816(dv_acc[n + 1], ap, bo[i][2], bo[i][3]);
+            mma16816(dk_acc[n], ads, bq[i][0], bq[i][1]);
+            mma16816(dk_acc[n + 1], ads, bq[i][2], bq[i][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is overwritten two iterations on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr0 + 8 * i;
+    if (kj >= g.Tk) continue;
+    const long long off =
+        ((static_cast<long long>(b) * g.Tk + kj) * g.Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace

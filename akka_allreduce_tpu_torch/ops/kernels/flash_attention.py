@@ -16,7 +16,9 @@ query head h reads KV head h // (H / H_kv)).
   f32 scores. The CPU path and the kernels' oracle.
 * :func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv` — the
   wrappers: a CPU tensor goes to the plain version; a CUDA tensor launches
-  ``csrc/flash_attention.cu`` or raises. :data:`FLASH_FWD_LAUNCHES`,
+  ``csrc/flash_attention.cu`` or raises: bf16 dq and dk/dv on tensor
+  cores (``csrc/flash_mma.cuh``), f32 and the forward on CUDA cores
+  (``csrc/flash_tiles.cuh``). :data:`FLASH_FWD_LAUNCHES`,
   :data:`FLASH_DQ_LAUNCHES` and :data:`FLASH_DKV_LAUNCHES` count launches.
 * :class:`FlashAttention` (``torch.autograd.Function``),
   :func:`flash_attention` and :func:`flash_causal_attention` — the model's

@@ -113,11 +113,10 @@ def swing_allreduce_reference(x: torch.Tensor, group, axis: str = "dp"
 
 # -- the wrappers ----------------------------------------------------------------
 
-def _check(x: torch.Tensor, group, axis: str) -> int:
+def _check(x: torch.Tensor) -> None:
     if x.dim() != 1 or x.dtype != torch.float32:
         raise ValueError(f"the allreduce takes a flat float32 vector, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    return group.axis_size(axis)
 
 
 def _check_lanes(x: torch.Tensor, multiple: int, what: str) -> None:
@@ -149,9 +148,10 @@ def peer_ring_allreduce(x: torch.Tensor, group, axis: str = "dp"
     one-rank axis is the identity. A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel on the current stream or raises."""
     global RING_ALLREDUCE_LAUNCHES
-    n = _check(x, group, axis)
-    if n == 1:
+    n = group.axis_size(axis)
+    if n == 1:  # lax.psum over one rank: any dtype and shape, no launch
         return x
+    _check(x)
     _check_lanes(x, n * LANE, f"divide into {n} ring blocks")
     if x.device.type == "cpu":
         return ring_allreduce_reference(x, group, axis)
@@ -181,9 +181,10 @@ def peer_swing_allreduce(x: torch.Tensor, group, axis: str = "dp"
     tensor takes the plain version; a CUDA tensor launches the kernel on
     the current stream or raises."""
     global SWING_ALLREDUCE_LAUNCHES
-    n = _check(x, group, axis)
-    if n == 1:
+    n = group.axis_size(axis)
+    if n == 1:  # lax.psum over one rank: any dtype and shape, no launch
         return x
+    _check(x)
     _check_power_of_two(n)
     _check_lanes(x, LANE, "consist")
     if x.device.type == "cpu":

@@ -80,3 +80,29 @@ def test_count_expansion_and_rescale_match_jax(params):
     np.testing.assert_array_equal(
         tm.rescale_by_count(torch.from_numpy(summed), got, 3.0).numpy(),
         np.asarray(jm.rescale_by_count(jnp.asarray(summed), want, 3.0)))
+
+
+@pytest.mark.parametrize("rebuild", ["tree_unflatten", "vector_to_tree"])
+def test_rebuilt_tree_frees_its_leaves_without_the_gc(rebuild):
+    """The synced gradient tree's leaves are views of one bucket matrix;
+    once the tree is dropped the matrix must go at once (reference
+    counting), not wait for a cyclic collection while the next step's
+    activations grow on top of it."""
+    import gc
+    import weakref
+    tree = {"b": [torch.zeros(3), torch.zeros(2, 2)], "a": torch.zeros(5)}
+    vec = torch.arange(12, dtype=torch.float32)
+    spec = tb.tree_bucket_spec(tree, 4)
+    gc.disable()
+    try:
+        if rebuild == "tree_unflatten":
+            out = tb.tree_unflatten(tree, [vec[:5], vec[5:9].view(2, 2),
+                                           vec[9:12]])
+        else:
+            out = tb.vector_to_tree(vec, spec)
+        assert torch.equal(out["a"], vec[:5])
+        alive = weakref.ref(out["a"])
+        del out
+        assert alive() is None
+    finally:
+        gc.enable()

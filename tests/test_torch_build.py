@@ -1,0 +1,49 @@
+"""The kernel build's content hash, on the CPU (no nvcc is needed: only
+the library's path is computed, nothing is compiled).
+
+``build.library_path`` names a library by a hash of its source, every
+``csrc/`` header the source reaches through ``#include "..."`` (nested
+includes too) and the nvcc flags, so an edited header anywhere under a
+source rebuilds that source's library, and nothing else does.
+"""
+
+import pytest
+
+from akka_allreduce_tpu_torch.ops.kernels import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A csrc tree: a.cu includes b.cuh, which includes c.cuh; d.cu
+    stands alone."""
+    files = {
+        "a.cu": '#include "b.cuh"\n#include <cuda_runtime.h>\nint a;\n',
+        "b.cuh": '#pragma once\n#include "c.cuh"\nint b;\n',
+        "c.cuh": "#pragma once\nint c;\n",
+        "d.cu": "int d;\n"}
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    return tmp_path
+
+
+def test_sources_follow_nested_includes(csrc):
+    assert build.sources("a") == ["a.cu", "b.cuh", "c.cuh"]
+    assert build.sources("d") == ["d.cu"]
+
+
+def test_a_header_included_twice_is_read_once(csrc):
+    (csrc / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n')
+    assert build.sources("a") == ["a.cu", "b.cuh", "c.cuh"]
+
+
+@pytest.mark.parametrize("edited,changes", [("c.cuh", True),
+                                            ("b.cuh", True),
+                                            ("d.cu", False)])
+def test_editing_a_reached_header_changes_the_library(csrc, edited,
+                                                      changes):
+    before = build.library_path("a")
+    assert build.library_path("a") == before  # the hash is stable
+    with open(csrc / edited, "a") as f:
+        f.write("int edited;\n")
+    assert (build.library_path("a") != before) is changes

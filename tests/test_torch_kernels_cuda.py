@@ -9,7 +9,9 @@ runs on the GPU machine, from the repository root::
 
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
-2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2; the gradient sync's
+2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 dq and dk/dv
+on tensor cores, f32 on CUDA cores), the bf16 backward also bitwise
+repeatable; the gradient sync's
 masked reduce and int8 quantizers: bitwise (both sum the peers in order,
 and the quantizers' arithmetic is IEEE's, Philox drawn alike); the
 peer-memory ring and swing allreduce: bitwise, on two rank processes that
@@ -137,6 +139,76 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
         assert got.dtype == dtype and torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), w.float(), atol=tol_bwd,
                                    rtol=tol_bwd)
+
+
+# the bf16 dq and dk/dv kernels (tensor-core tiles, flash_mma.cuh):
+# (h_kv, head_dim, causal, window, tq, tk, q_off, k_off, q_layout) over
+# H = 16 heads: GQA (4 KV heads) at D 128 and 64, MQA, a window, a ragged
+# T of 1000, Tq != Tk with offsets, non-causal, and a q read through the
+# strides of a (B, H, T, D) tensor's transpose (not contiguous)
+BF16_BWD_CASES = [(4, 128, True, None, 256, 256, 0, 0, "contiguous"),
+                  (4, 64, True, None, 256, 256, 0, 0, "contiguous"),
+                  (1, 128, True, None, 192, 192, 0, 0, "contiguous"),
+                  (4, 64, True, 100, 512, 512, 0, 0, "contiguous"),
+                  (4, 128, True, None, 1000, 1000, 0, 0, "contiguous"),
+                  (4, 64, True, 384, 512, 1024, 512, 0, "contiguous"),
+                  (4, 128, False, None, 192, 160, 0, 0, "contiguous"),
+                  (4, 128, True, None, 256, 256, 0, 0, "bhtd"),
+                  (1, 64, True, 100, 1000, 1000, 0, 0, "bhtd")]
+
+
+def bf16_bwd_inputs(case, device):
+    """q, k, v, do in bf16 on ``device`` and the plain forward's lse and
+    delta (the saved state the backward kernels read)."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    h_kv, d, causal, window, tq, tk, q_off, k_off, layout = case
+    rng = np.random.default_rng(tq * 7 + tk + d + h_kv)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(device, torch.bfloat16)
+                   for s in ((2, tq, 16, d), (2, tk, h_kv, d),
+                             (2, tk, h_kv, d), (2, tq, 16, d)))
+    if layout == "bhtd":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not q.is_contiguous()
+    opts = (causal, window, q_off, k_off)
+    o, lse = fa.flash_forward_reference(q, k, v, *opts)
+    return (q, k, v, do, lse, fa.attention_delta(o, do)), o, opts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_BWD_CASES)
+def test_bf16_backward_kernels_match_plain(cuda_device, case):
+    """At the bf16 tolerance (3e-2): the tiles keep the JAX kernels' cast
+    points, so only the order of the f32 sums differs."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    args, o, opts = bf16_bwd_inputs(case, cuda_device)
+    counts = (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES)
+    dq = fa.flash_dq(*args, *opts)
+    dk, dv = fa.flash_dkv(*args, *opts)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1)
+    q, k, v, do, lse, _ = args
+    want = fa.flash_backward_reference(q, k, v, o, lse, do, *opts)
+    tol = FLASH_TOL[torch.bfloat16][1]
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), w.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernels_are_deterministic(cuda_device):
+    """No atomics: dk and dv sum the GQA group in one block's registers,
+    so two launches give the same bits."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    args, _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device)
+    first = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
+    second = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -131,10 +131,17 @@ def test_cpu_tensors_launch_no_kernel(runs):
                            for c in runs[1])
 
 
+ONE_RANK_INPUTS = {
+    "f32": lambda x: x,
+    "bf16": lambda x: x.to(torch.bfloat16),  # JAX: lax.psum, any dtype
+    "2d": lambda x: x.reshape(2, -1)}        # and any shape
+
+
+@pytest.mark.parametrize("kind", list(ONE_RANK_INPUTS))
 @pytest.mark.parametrize("fn", [ring.peer_ring_allreduce,
                                 ring.peer_swing_allreduce])
-def test_one_rank_is_the_identity(fn):
-    x = torch.from_numpy(inputs(1, "ring", 1)[0])
+def test_one_rank_is_the_identity(fn, kind):
+    x = ONE_RANK_INPUTS[kind](torch.from_numpy(inputs(1, "ring", 1)[0]))
     assert fn(x, RankGroup.single()) is x
     assert ring.counts() == {"ring_allreduce": 0, "swing_allreduce": 0}
 
