@@ -177,89 +177,62 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
+// One launch: lift the kernel's dynamic shared-memory limit, launch it on
+// stream s, return the status.
+template <typename... P, typename... A>
+int launch_kernel(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
+                  cudaStream_t s, A... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         const Geom& g, float scale, cudaStream_t s) {
-  const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch_kernel(
+      flash_fwd_kernel<T, D>, dim3(tiles(g.Tq), g.H, g.B), kThreads,
+      fwd_smem<T, D>(), s, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       g, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the tensor-core kernels of flash_mma.cuh
-template <int D>
-int dq_mma(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* out, const Geom& g,
-           float scale, cudaStream_t s) {
-  const size_t smem = dq_mma_smem<D>();
-  cudaError_t err = allow_smem(flash_dq_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dq_mma_kernel<D><<<dim3(tiles(g.Tq), g.H, g.B), kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(out), g, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv,
-            const Geom& g, float scale, cudaStream_t s) {
-  const size_t smem = dkv_mma_smem<D>();
-  cudaError_t err = allow_smem(flash_dkv_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkv_mma_kernel<D><<<dim3(tiles(g.Tk), g.Hkv, g.B), kMmaThreads, smem,
-                            s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), g, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// f32 on the CUDA-core folds, bf16 on the tensor-core tiles
+// f32 on the CUDA-core folds, bf16 on the tensor-core tiles (flash_mma.cuh)
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* out, const Geom& g,
        float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return dq_mma<D>(q, k, v, dout, lse, delta, out, g, scale, s);
-  } else {
-    const size_t smem = dq_smem<T, D>();
-    cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dq_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tq), g.H, g.B), threads, smem, s,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(out), g, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(flash_dq_mma_kernel<D>, dq_mma_smem<D>(), kMmaThreads);
+  else
+    return run(flash_dq_kernel<T, D>, dq_smem<T, D>(), kThreads);
 }
 
 template <typename T, int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, const Geom& g,
         float scale, cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, g, scale, s);
-  } else {
-    const size_t smem = dkv_smem<T, D>();
-    cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dkv_kernel<T, D><<<dim3(tiles(g.Tk), g.Hkv, g.B), kThreads, smem,
-                             s>>>(
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tk), g.Hkv, g.B), threads, smem, s,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dk), static_cast<T*>(dv), g, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(flash_dkv_mma_kernel<D>, dkv_mma_smem<D>(), kMmaThreads);
+  else
+    return run(flash_dkv_kernel<T, D>, dkv_smem<T, D>(), kThreads);
 }
 
 }  // namespace

@@ -35,9 +35,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    1000, Tq != Tk with offsets, and head_dim 64. At the slice's shape, in
    bf16 and f32: each kernel, the plain version and the library call
    (``scaled_dot_product_attention``, forward, and its backward) timed as
-   above, and each kernel's bound computed from the live (q, k) pairs;
-   the bf16 row also prints the replaced CUDA-core dq and dk/dv kernels'
-   times (``cuda_core_ms``) beside the tensor-core kernels'.
+   above, and each kernel's bound computed from the live (q, k) pairs.
 6. train   — the port's ``train`` at the flagship training configuration
    (d_model 2048, 16 heads, 8 layers, d_ff 8192 gelu, vocab 32768, bf16
    compute, f32 masters, adamw lr 1e-4, batch 8, seq 2048, 6 steps,
@@ -50,11 +48,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    batch 2, seq 2048, from one set of weights, in f32 and in bf16 (the
    bf16 dq and dk/dv run on tensor cores, the f32 ones on CUDA cores):
    step-0 loss and grads through the kernels against
-   ``attn_impl="local"``, then two steps of each, at ``PARITY_TOL`` (f32:
-   loss within 1e-5 relative, every gradient leaf within 1e-3 of that
-   leaf's largest value, step-1 loss within 1e-4; bf16: 2e-3, 3e-2 and
-   5e-3, the reasons beside the table); the losses finite and each flash
-   kernel launched once per layer per step.
+   ``attn_impl="local"`` from the weights and batch of each of
+   ``PARITY_SEEDS``, then two steps of each from seed 0, at ``PARITY_TOL``
+   (f32: loss within 1e-5 relative, every gradient leaf within 1e-3 of
+   that leaf's largest value, step-1 loss within 1e-4; bf16: 2e-3, 3e-2
+   and 5e-3, the reasons beside the table); the losses finite and each
+   flash kernel launched once per layer per step. A control must fail the
+   gradient limit: the same step-0 check with dk/dv missing one query
+   head's share of its GQA group (``drop_query_head``).
 
 8. sync kernels — hold the gradient sync's kernels against their plain
    PyTorch versions on the same CUDA tensors: the masked reduce (allclose
@@ -199,10 +200,6 @@ FLASH_SHAPES = [
     ("offsets", 2, 512, 1024, 16, 4, 128, True, 384, 512, 0),
     ("d64", 2, 1024, 1024, 16, 4, 64, True, None, 0, 0)]
 FLASH_TOL = {"torch.float32": (2e-5, 5e-5), "torch.bfloat16": (3e-2, 3e-2)}
-# the slice's bf16 times of the CUDA-core dq and dk/dv kernels that the
-# tensor-core ones replaced (this script, NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside the tensor-core kernels' in phase 5
-FLASH_BWD_CUDA_CORE_MS = {"flash_dq": 8.690, "flash_dkv": 12.784}
 # phase 7: flash vs local attention in training, per compute dtype
 PARITY_TOL = {
     # f32 sums in other orders over 2048 keys and 8 layers stay near
@@ -212,11 +209,14 @@ PARITY_TOL = {
     # p and ds round to bf16 (2^-8) against the unnormalised running max
     # where local attention rounds the normalised softmax, so a gradient
     # leaf moves by ~2e-2 of its largest value (2.4e-2 on an H100) and
-    # the loss by ~1e-5; a lost GQA share or a wrong tile would still be
-    # O(1). Step 1 also
+    # the loss by ~1e-5. The control (one query head's share dropped from
+    # dk/dv) must read above the gradient limit; a wrong tile is held at
+    # its own kernel's output in phase 5. Step 1 also
     # carries one AdamW step from those gradients (its first update is
     # +-lr wherever a near-zero gradient's sign differs)
     "bfloat16": {"loss0": 2e-3, "grads": 3e-2, "loss1": 5e-3}}
+# phase 7's step-0 check: one set of weights and one batch from each seed
+PARITY_SEEDS = (0, 1, 2)
 
 # the gradient sync's kernels: name -> (source, TPU kernel body replaced)
 SYNC_KERNELS = {
@@ -562,8 +562,6 @@ def phase_flash_kernels(torch) -> dict:
                     "backward": time_ms(torch, lib_bwd, flush)}
                 row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
                 row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
-                if dtype == torch.bfloat16:
-                    row["cuda_core_ms"] = FLASH_BWD_CUDA_CORE_MS
                 del lib_bwd
                 timed[str(dtype)] = row
             emit("kernels", kernel="flash_attention", **row)
@@ -659,32 +657,67 @@ def phase_train_parity(torch) -> dict:
     return {dtype: train_parity(torch, dtype) for dtype in PARITY_TOL}
 
 
-def train_parity(torch, dtype: str) -> dict:
+def drop_query_head(dkv, head: int = 0):
+    """Phase 7's planted fault: ``dkv`` (the dk/dv wrapper) without query
+    head ``head``'s share of its KV head's dk and dv (that head's dO and
+    delta zeroed), what a kernel that lost one member of a GQA group
+    would return."""
+    def faulty(q, k, v, do, lse, delta, *opts):
+        do, delta = do.clone(), delta.clone()
+        do[:, :, head] = 0
+        delta[:, head] = 0
+        return dkv(q, k, v, do, lse, delta, *opts)
+    return faulty
+
+
+def step0_parity(torch, args, cfg: dict, seed: int, dkv=None) -> dict:
+    """Step 0 from the weights and batch of ``seed``: the loss through the
+    flash path and through local attention, and the largest gradient
+    difference relative to its leaf's largest value. ``dkv``, where given,
+    stands in for the flash path's dk/dv wrapper."""
     import numpy as np
 
-    from akka_allreduce_tpu_torch import cli
     from akka_allreduce_tpu_torch.models.train import (make_grad_step,
                                                        make_train_state,
-                                                       tree_leaves, tree_map)
+                                                       tree_leaves)
     from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    params = init_transformer(torch.Generator(DEVICE).manual_seed(seed),
+                              cfg["flash"].model, DEVICE)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, args.vocab, size=(args.batch, args.seq),
+        dtype=np.int32)).to(DEVICE)
+    state = make_train_state(cfg["flash"], params=params)
+    grads, loss = {}, {}
+    sound = fa.flash_dkv
+    fa.flash_dkv = dkv or sound
+    try:
+        for impl in ("flash", "local"):
+            g, metrics = make_grad_step(cfg[impl])(state.params, tokens)
+            grads[impl], loss[impl] = tree_leaves(g), float(metrics["loss"])
+    finally:
+        fa.flash_dkv = sound
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(grads["flash"], grads["local"]))
+    return {"loss0": loss, "grad_err": err}
+
+
+def train_parity(torch, dtype: str) -> dict:
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import tree_map
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
     args = cli.build_parser().parse_args(
         PARITY_ARGV + (["--bf16"] if dtype == "bfloat16" else []))
     tol = PARITY_TOL[dtype]
     cfg = {impl: cli.train_config(args, args.seq, impl)
            for impl in ("flash", "local")}
+    step0 = {seed: step0_parity(torch, args, cfg, seed)
+             for seed in PARITY_SEEDS}
+    control = step0_parity(torch, args, cfg, PARITY_SEEDS[0],
+                           drop_query_head(fa.flash_dkv))
     params0 = init_transformer(torch.Generator(DEVICE).manual_seed(0),
                                cfg["flash"].model, DEVICE)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, args.vocab, size=(args.batch, args.seq),
-        dtype=np.int32)).to(DEVICE)
-    state = make_train_state(cfg["flash"], params=params0)
-    grads, loss0 = {}, {}
-    for impl in ("flash", "local"):
-        g, metrics = make_grad_step(cfg[impl])(state.params, tokens)
-        grads[impl], loss0[impl] = tree_leaves(g), float(metrics["loss"])
-    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
-        1e-30)) for a, b in zip(grads["flash"], grads["local"]))
-    del grads, state
     runs = {}
     for impl in ("flash", "local"):
         runs[impl] = cli.run_train(
@@ -693,17 +726,19 @@ def train_parity(torch, dtype: str) -> dict:
         torch.cuda.empty_cache()
     rel = [abs(f - l) / abs(l) for f, l in zip(runs["flash"]["losses"],
                                                runs["local"]["losses"])]
-    out = {"compute_dtype": dtype, "loss0_grad_step": loss0,
-           "max_grad_err_rel_to_leaf_max": grad_err,
+    out = {"compute_dtype": dtype, "step0_by_seed": step0,
+           "control_drop_query_head": control,
            "losses": {k: r["losses"] for k, r in runs.items()},
            "step_ms": {k: r["step_ms"] for k, r in runs.items()},
            "flash_launches": runs["flash"]["launches"],
            "loss_rel_err": rel, "tolerances": tol}
     emit("train_parity", **out)
     losses = runs["flash"]["losses"] + runs["local"]["losses"]
-    ok = (abs(loss0["flash"] - loss0["local"])
-          <= tol["loss0"] * abs(loss0["local"])
-          and grad_err <= tol["grads"] and len(rel) == args.steps
+    ok = (all(abs(r["loss0"]["flash"] - r["loss0"]["local"])
+              <= tol["loss0"] * abs(r["loss0"]["local"])
+              and r["grad_err"] <= tol["grads"] for r in step0.values())
+          and control["grad_err"] > tol["grads"]
+          and len(rel) == args.steps
           and rel[0] <= tol["loss0"] and rel[1] <= tol["loss1"]
           and all(math.isfinite(x) for x in losses)
           and all(n == args.n_layers * args.steps

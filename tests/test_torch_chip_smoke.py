@@ -263,3 +263,60 @@ def test_int_checksum_sees_every_bit():
     z[[5, 6]] = z[[6, 5]]  # the same bits, two places swapped
     assert chip_smoke.int_checksum(torch, x) != chip_smoke.int_checksum(
         torch, z)
+
+
+@pytest.mark.parametrize("h, h_kv, head", [(4, 2, 0), (4, 2, 3), (4, 4, 1)])
+def test_drop_query_head_loses_exactly_that_heads_share(h, h_kv, head):
+    # phase 7's planted fault: dk/dv of the dropped head's KV head lose
+    # that head's share, every other KV head is untouched
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 24, h, 16, generator=g)
+    k, v = (torch.randn(2, 24, h_kv, 16, generator=g) for _ in range(2))
+    do = torch.randn(2, 24, h, 16, generator=g)
+    o, lse = fa.flash_forward(q, k, v)
+    delta = fa.attention_delta(o, do)
+    sound = fa.flash_dkv(q, k, v, do, lse, delta)
+    faulty = chip_smoke.drop_query_head(fa.flash_dkv, head)(
+        q, k, v, do, lse, delta)
+    # the head's share alone: every other head's dO and delta zeroed
+    keep = torch.zeros(h, dtype=torch.bool)
+    keep[head] = True
+    share = fa.flash_dkv(q, k, v, do * keep[:, None], lse,
+                         delta * keep[:, None], True)
+    hk = head // (h // h_kv)
+    for s, f, d in zip(sound, faulty, share):
+        torch.testing.assert_close(f + d, s, rtol=1e-5, atol=1e-5)
+        assert d[:, :, hk].abs().max() > 0.1
+        others = [i for i in range(h_kv) if i != hk]
+        assert torch.equal(f[:, :, others], s[:, :, others])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step0_parity_control_fails_where_the_sound_path_passes(
+        monkeypatch, dtype):
+    # phase 7 on a tiny gqa model on the CPU (the wrappers' plain
+    # versions): the sound flash path passes the gradient limit at every
+    # seed, one lost query head's share fails it, and the wrapper is put
+    # back afterwards
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    args = cli.build_parser().parse_args(
+        ["train", "--d-model", "64", "--n-heads", "4", "--kv-heads", "2",
+         "--rope", "--n-layers", "2", "--d-ff", "128", "--vocab", "128",
+         "--seq", "32", "--batch", "2", "--device", "cpu"]
+        + (["--bf16"] if dtype == "bfloat16" else []))
+    cfg = {impl: cli.train_config(args, args.seq, impl)
+           for impl in ("flash", "local")}
+    tol = chip_smoke.PARITY_TOL[dtype]
+    sound = fa.flash_dkv
+    for seed in chip_smoke.PARITY_SEEDS:
+        r = chip_smoke.step0_parity(torch, args, cfg, seed)
+        assert r["grad_err"] <= tol["grads"]
+        assert abs(r["loss0"]["flash"] - r["loss0"]["local"]) \
+            <= tol["loss0"] * abs(r["loss0"]["local"])
+    control = chip_smoke.step0_parity(torch, args, cfg, 0,
+                                      chip_smoke.drop_query_head(sound))
+    assert control["grad_err"] > tol["grads"]
+    assert fa.flash_dkv is sound
