@@ -9,25 +9,24 @@
 // g = H / H_kv): o = softmax(s) v with lse = m + log(l) (online softmax),
 // dq and (dk, dv) recomputed from lse and delta = rowsum(dO . O). The tile
 // arithmetic, its cast points, the work layout and the masks are those of
-// flash_tiles.cuh, which ring_flash.cu shares; each CUDA-core kernel here
-// is a prologue (load its own tile, zero its state), one fold over the
-// other side's tiles, and an epilogue that stores the result in the input
-// dtype. The bf16 backward's kernels (flash_mma.cuh) keep that layout and
-// arithmetic on tensor cores.
+// flash_tiles.cuh, which ring_flash.cu shares; each kernel here is a
+// prologue (load its own tile, zero its state), one fold over the other
+// side's tiles, and an epilogue that stores the result in the input
+// dtype. The bf16 kernels (flash_mma.cuh) keep that arithmetic on tensor
+// cores.
 //
 // Bound: at the training shape (T = 2048, D = 128) the work is ~4 (fwd),
 // ~6 (dq) and ~8 (dk/dv) flops per D-element of every live (q, k) pair,
 // hundreds of flops per byte moved, so the arithmetic rate bounds it: the
 // tensor cores' 989 TFLOP/s for bf16, 67 TFLOP/s for f32 on CUDA cores
-// (B 8, T 2048, H 16, D 128, causal, bf16: dq 0.209 ms, dk/dv 0.278 ms).
-// What the design does about it, per dtype:
-//   * bf16 dq and dk/dv (_dq_kernel, _dkv_kernel): tensor-core tiles,
+// (B 8, T 2048, H 16, D 128, causal, bf16: fwd 0.139 ms, dq 0.209 ms,
+// dk/dv 0.278 ms). What the design does about it, per dtype:
+//   * bf16 (_fwd_kernel, _dq_kernel, _dkv_kernel): tensor-core tiles,
 //     flash_mma.cuh (mma.sync m16n8k16 from ldmatrix, the score tiles
-//     kept in registers, the streamed tiles double-buffered by cp.async);
-//   * f32 dq and dk/dv, and the forward in both dtypes: CUDA-core FMAs
-//     from shared memory (the folds of flash_tiles.cuh); TF32 would
-//     break parity with the f32 reference, and the bf16 forward takes
-//     the tensor-core tiles next.
+//     kept in registers, the streamed tiles double-buffered by cp.async):
+//     flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel;
+//   * f32: CUDA-core FMAs from shared memory (the folds of
+//     flash_tiles.cuh); TF32 would break parity with the f32 reference.
 
 #include <type_traits>
 
@@ -77,6 +76,41 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e)
         store(row + 4 * tx + 32 * jj + e, acc[i][4 * jj + e] / l[i]);
     if (tx == 0)
+      lse[(static_cast<long long>(b) * g.H + h) * g.Tq + qi] = m[i] + logf(l[i]);
+  }
+}
+
+// The bf16 forward on tensor cores (replaces _fwd_kernel for bf16; bound
+// by the tensor cores, 0.139 ms at the training shape): fwd_mma_fold
+// (flash_mma.cuh) from an empty state, then o = acc / l rounded to bf16
+// and lse = m + log l in natural-log units. 4 warps of 16 query rows, no
+// atomics.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, fwd_mma_min_blocks<D>())
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (g.H / g.Hkv);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+  zero_frags(acc);
+  fwd_mma_fold<D>(reinterpret_cast<bf16*>(smem),
+                  q + b * g.q_sb + h * g.q_sh, k + b * g.k_sb + hk * g.k_sh,
+                  v + b * g.v_sb + hk * g.v_sh, g, q0, scale, m, l, acc);
+
+  const int lane = threadIdx.x % 32, tq = lane & 3;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    bf16* row = o + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * i] / l[i], acc[j][2 * i + 1] / l[i]);
+    if (tq == 0)
       lse[(static_cast<long long>(b) * g.H + h) * g.Tq + qi] = m[i] + logf(l[i]);
   }
 }
@@ -177,28 +211,23 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
-// One launch: lift the kernel's dynamic shared-memory limit, launch it on
-// stream s, return the status.
-template <typename... P, typename... A>
-int launch_kernel(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
-                  cudaStream_t s, A... args) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, s>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// f32 on the CUDA-core folds, bf16 on the tensor-core tiles (flash_mma.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         const Geom& g, float scale, cudaStream_t s) {
-  return launch_kernel(
-      flash_fwd_kernel<T, D>, dim3(tiles(g.Tq), g.H, g.B), kThreads,
-      fwd_smem<T, D>(), s, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      g, scale);
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tq), g.H, g.B), threads, smem, s,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), g, scale);
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(flash_fwd_mma_kernel<D>, fwd_mma_smem<D>(), kMmaThreads);
+  else
+    return run(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), kThreads);
 }
 
-// f32 on the CUDA-core folds, bf16 on the tensor-core tiles (flash_mma.cuh)
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* out, const Geom& g,

@@ -1,48 +1,70 @@
-// Tensor-core tiles of the bf16 flash attention backward (flash_attention.cu).
+// Tensor-core tiles of the bf16 flash attention (flash_attention.cu) and
+// of the bf16 ring-flash forward (ring_flash.cu).
 //
 // Replaces, for bf16 inputs: akka_allreduce_tpu/ops/pallas_kernels/
-// attention.py _dq_kernel (:153) and _dkv_kernel (:184), whose tile
-// arithmetic is _bwd_tile (:99). The f32 kernels stay on the CUDA-core
-// folds of flash_tiles.cuh (TF32 would break parity with the f32
-// reference), and so do the ring kernels (ring_flash.cu) for now.
+// attention.py _fwd_kernel (:113), _dq_kernel (:153) and _dkv_kernel
+// (:184), whose tile arithmetic is _softmax_tile (:79) and _bwd_tile
+// (:99), and ring_flash.py _ring_fwd_kernel (:61), the same _softmax_tile
+// on a carry. One forward fold (fwd_mma_fold) serves both forwards. The
+// f32 kernels stay on the CUDA-core folds of flash_tiles.cuh (TF32 would
+// break parity with the f32 reference), and so do the ring dq and dk/dv
+// (ring_flash.cu) for now.
 //
-// Bound: ~6 (dq) and ~8 (dk/dv) flops per head-dim element of every live
-// (q, k) pair, hundreds of flops per byte moved, so the tensor cores'
-// 989 TFLOP/s (bf16, dense) bound both kernels. The CUDA-core folds reach
-// ~2% of it; these tiles put every product on the tensor cores:
+// Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
+// of every live (q, k) pair, hundreds of flops per byte moved, so the
+// tensor cores' 989 TFLOP/s (bf16, dense) bound every kernel here (the
+// ring forward's f32 carry adds 8 bytes a head-dim element of q, read
+// and written once: well under the operations' time). The CUDA-core
+// folds reach ~2% of it; these tiles put every product on the tensor
+// cores:
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 in inline PTX:
 //     bf16 operands, f32 accumulators, exactly the Pallas kernels' cast
-//     points (p and ds rounded to bf16 before the second products,
+//     points (s in f32, l summed from the unrounded f32 p, p and ds
+//     rounded to bf16 only as operands of the second products,
 //     preferred_element_type=f32 everywhere); only the order of the f32
 //     sums differs.
 //   * Operands reach the tensor cores through ldmatrix (x4: four 8x8
 //     matrices a warp), .trans where the product's reduction axis is the
-//     row axis of the shared-memory tile (K in dq += ds K; Q and dO in
-//     dk += ds^T Q and dv += p^T dO). Shared-memory rows are padded by 16
-//     bytes, so the 8 row addresses of each 8x8 matrix fall in 8
-//     different 16-byte bank groups: no bank conflicts.
+//     row axis of the shared-memory tile (V in o += p V; K in dq += ds K;
+//     Q and dO in dk += ds^T Q and dv += p^T dO). Shared-memory rows are
+//     padded by 16 bytes, so the 8 row addresses of each 8x8 matrix fall
+//     in 8 different 16-byte bank groups: no bank conflicts.
 //   * The score tiles never touch shared memory: an m16n8 accumulator
 //     pair is the m16k16 A fragment of the next product once rounded to
 //     bf16 and packed two to a register (FlashAttention-2's layout).
-//   * The streamed operand (K/V tiles in dq; Q/dO tiles with their lse
-//     and delta in dk/dv) is double-buffered with cp.async (16 bytes a
-//     thread; lse/delta 4 bytes, the rows need not be 16-byte aligned):
-//     the next tile's load runs under the current tile's products. Rows
-//     past T are zero-filled by the copy itself (src-size 0).
+//   * The streamed operand is copied by cp.async (16 bytes a thread;
+//     lse/delta 4 bytes, the rows need not be 16-byte aligned) under the
+//     products: in dq (K/V tiles) and dk/dv (Q/dO tiles with their lse
+//     and delta) double-buffered, the next tile's copy under the current
+//     tile's products; in the forward one buffer each of K and V, a
+//     tile's V copied under its S = Q K^T and the next tile's K under
+//     O += P V, so three blocks fit an SM. Rows past T are zero-filled by
+//     the copy itself (src-size 0).
 //
 // Work layout: 64-row tiles, 4 warps (128 threads); warp w owns rows
-// 16w..16w+15 of the block's own tile (query rows in dq, key rows in
-// dk/dv). Blocks as in the CUDA-core kernels: dq one per (query tile,
-// query head, batch), walking the live key tiles; dk/dv one per (key
-// tile, KV head, batch), walking the GQA group x live query tiles, so dk
-// and dv sum over the group in f32 registers and are written once (no
-// atomics: the result is deterministic). The causal / window mask leaves
-// a contiguous band of live tiles (tile_live), and only that band is
-// loaded; masked lanes get p = 0 exactly (the where-guard: exp(NEG_INF -
-// lse) is 0), lanes past Tk are masked, rows past Tq contribute nothing
-// and are not stored.
+// 16w..16w+15 of the block's own tile (query rows in the forward and dq,
+// key rows in dk/dv). Blocks as in the CUDA-core kernels: forward and dq
+// one per (query tile, query head, batch), walking the live key tiles
+// (dq the longest causal bands first); dk/dv one per (key tile, KV head,
+// batch), walking the GQA group x live query tiles, so dk and dv sum over
+// the group in f32 registers and are written once (no atomics: the result
+// is deterministic). The causal / window mask leaves a contiguous band
+// of live tiles (tile_live), and only that band is loaded; masked lanes
+// get p = 0 exactly (the where-guard: in the forward a row whose live
+// keys all lie in later tiles keeps p = 0 and its state unchanged; in
+// the backward exp(NEG_INF - lse) is 0), lanes past Tk are masked, rows
+// past Tq contribute nothing and are neither read from a carry nor
+// stored. A tile whose pairs are all live (tile_full) skips the
+// per-element mask.
 //
 // Registers per thread (ptxas -v, sm_90a; no spills accepted):
+//   forward, D = 128: 168 under __launch_bounds__(128, 3), three blocks
+//          an SM (the O accumulator 16 x 128 f32 a warp = 64, S 16 x 64
+//          = 32, one step's Q and K fragments 4 + 16; Q is re-read from
+//          shared memory at each k-step, and the fragment addresses are
+//          immediates off one opaque base a tile: with Q's fragments
+//          kept in registers the forward took 223); D = 64: 174 (flash)
+//          and 176 (ring), two blocks an SM.
 //   dq,    D = 128: 226 (the dq accumulator 16 x 128 f32 a warp = 64, S
 //          and dP 16 x 64 f32 = 32 + 32, one step's K and V fragments
 //          32, loaded together ahead of their products); D = 64: 128.
@@ -50,9 +72,10 @@
 //          over half the query tile at a time, kSubQ = 32 columns, 16 +
 //          16, the halves kept apart by "#pragma unroll 1": unrolled,
 //          ptxas spilled at 255); D = 64: 188.
-// Shared memory: dq Q, dO + 2 x (K, V); dk/dv K, V + 2 x (Q, dO, lse,
-// delta): 104,448 / 105,472 bytes at D = 128 (two blocks an SM),
-// 55,296 / 56,320 at D = 64.
+// Shared memory: forward Q, K, V; dq Q, dO + 2 x (K, V); dk/dv K, V + 2 x
+// (Q, dO, lse, delta): 52,224 / 104,448 / 105,472 bytes at D = 128 (three
+// forward blocks an SM, two of the others), 27,648 / 55,296 / 56,320 at
+// D = 64.
 
 #pragma once
 
@@ -70,6 +93,15 @@ __host__ __device__ constexpr int mma_ld() { return D + 8; }
 template <int D>
 __host__ __device__ constexpr int mma_tile() { return kTile * mma_ld<D>(); }
 
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 3 * static_cast<size_t>(mma_tile<D>()) * sizeof(bf16);
+}
+// The forwards' blocks an SM that the launch bounds ask for: at D = 128
+// three (168 registers a thread, and 3 x 52,224 bytes of shared memory),
+// at D = 64 what the registers give unasked.
+template <int D>
+constexpr int fwd_mma_min_blocks() { return D == 128 ? 3 : 1; }
 template <int D>
 constexpr size_t dq_mma_smem() {
   return 6 * static_cast<size_t>(mma_tile<D>()) * sizeof(bf16);
@@ -140,16 +172,41 @@ __device__ __forceinline__ void cp_rows(float* sL, float* sDel,
 // Four 8x8 bf16 matrices from shared memory, one row address per lane
 // (lanes 8m..8m+7 address matrix m); register m is this lane's pair of
 // matrix m: row lane/4, columns 2(lane%4), +1 (.trans: the transpose's).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+// The address is a shared-window address (smem_addr) or a generic
+// pointer into shared memory.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(a));
 }
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  ldsm_x4(r, smem_addr(p));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  ldsm_x4_t(r, smem_addr(p));
+}
+
+// x, which the compiler may no longer treat as known: a per-lane base
+// address taken through it inside a loop stays one register, and each
+// fragment's offset from it an immediate of the ldmatrix, instead of
+// every fragment address being hoisted out of the loop into a register
+// of its own.
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
@@ -265,6 +322,177 @@ __device__ __forceinline__ void dkv_scores(float (&s)[N][4], float (&dp)[N][4],
     }
 }
 
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+}
+
+// A score row of an m16n8 fragment lives in the 4 lanes of a quad
+// (lane / 4 = the row, lane % 4 = the column pair): its max and sum take
+// two shuffles.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The forward's elementwise step on this lane's 16 x 64 score tile (raw
+// q . k, rows r0 and r0 + 8): _softmax_tile's online softmax. m and l are
+// in natural-log units, as the carry is stored; only the exponentials
+// run in the exp2 domain, so nothing is converted on load or store.
+// s becomes p = exp(s scale - m'), exactly 0 on masked lanes (the
+// where-guard: a row whose live keys all lie in later tiles keeps p = 0
+// and corr = exp(min(m, m') - m') = 1, so an empty carry stays empty);
+// l sums the unrounded f32 p; corr[i] is returned for the accumulator.
+template <bool kFull>
+__device__ __forceinline__ void fwd_scores(float (&s)[8][4], int r0, int k0,
+                                           int tq, float scale, float scale2,
+                                           float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], const Geom& g) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!kFull && !pair_live(r0 + 8 * (e >> 1), k0 + 8 * j + 2 * tq + (e & 1), g))
+        s[j][e] = kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // max(s) scale == max(s scale): the scale is positive
+    const float row = quad_max(mx[i]);
+    const float m_new = fmaxf(m[i], row > kNegInf / 2 ? row * scale : kNegInf);
+    corr[i] = ex2((fminf(m[i], m_new) - m_new) * kLog2e);
+    m[i] = m_new;
+    mb[i] = m_new * kLog2e;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const float p = kFull || s[j][e] > kNegInf / 2
+                          ? ex2(fmaf(s[j][e], scale2, -mb[i])) : 0.f;
+      s[j][e] = p;
+      sum[i] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+}
+
+// ---------------------------------------------------------------- forward
+// Fold every live key tile of KV head hk into the online-softmax state of
+// query tile q0 (this lane's rows 16 warp + lane / 4, + 8): the key loop
+// of both forward kernels (flash_fwd_mma_kernel, ring_fwd_mma_kernel).
+// q, k and v point at (b, row 0, head) of their arrays. One shared tile
+// each of Q, K and V (52,224 bytes at D = 128, so three blocks an SM):
+// the copy of a tile's V runs under its S = Q K^T and the elementwise
+// step, the copy of the next tile's K under O += P V. S = Q K^T on
+// mma.sync (Q's A fragments read from shared memory at each k-step, K's
+// rows the n axis: no transpose), the elementwise step on the accumulator
+// fragments, P repacked in registers as the A fragment of O += P V (V
+// read transposed). m, l and acc hold the state on entry (empty, or the
+// ring's carry) and on exit.
+template <int D>
+__device__ __forceinline__ void fwd_mma_fold(bf16* smem, const bf16* __restrict__ q,
+                                             const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v,
+                                             const Geom& g, int q0, float scale,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[D / 8][4]) {
+  constexpr int kLd = mma_ld<D>();
+  constexpr int kT = mma_tile<D>();
+  bf16* sQ = smem;
+  bf16* sK = sQ + kT;
+  bf16* sV = sK + kT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tq = lane & 3;
+  const int r0 = q0 + 16 * warp + (lane >> 2);
+  int lo, hi;
+  live_tiles(q0, true, g, lo, hi);
+  if (lo > hi) return;  // block-uniform: no copy was started
+
+  cp_tile<D>(sQ, q + q0 * g.q_st, g.q_st, g.Tq - q0);
+  cp_tile<D>(sK, k + lo * kTile * g.k_st, g.k_st, g.Tk - lo * kTile);
+  cp_async_commit();
+  const float scale2 = scale * kLog2e;
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // K has landed; every warp is done with the last V
+    cp_tile<D>(sV, v + k0 * g.v_st, g.v_st, g.Tk - k0);
+    cp_async_commit();
+
+    // S = Q K^T: 16 query rows x 64 keys a warp
+    const unsigned qa = opaque(smem_addr(sQ + frag_a(16 * warp, 0, lane, kLd)));
+    const unsigned ka = opaque(smem_addr(sK + frag_b_nk(0, 0, lane, kLd)));
+    float s[8][4];
+    zero_frags(s);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned aq[4], bk[4][4];
+      ldsm_x4(aq, qa + 2 * 16 * kk);
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+        ldsm_x4(bk[np], ka + 2 * (16 * np * kLd + 16 * kk));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        mma16816(s[2 * np], aq, bk[np][0], bk[np][1]);
+        mma16816(s[2 * np + 1], aq, bk[np][2], bk[np][3]);
+      }
+    }
+
+    float corr[2];
+    if (tile_full(q0, k0, g))
+      fwd_scores<true>(s, r0, k0, tq, scale, scale2, m, l, corr, g);
+    else
+      fwd_scores<false>(s, r0, k0, tq, scale, scale2, m, l, corr, g);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+
+    cp_async_wait<0>();
+    __syncthreads();  // V has landed; every warp is done with this K
+    if (kt < hi) {
+      const int n0 = (kt + 1) * kTile;
+      cp_tile<D>(sK, k + n0 * g.k_st, g.k_st, g.Tk - n0);
+    }
+    cp_async_commit();
+
+    // O += bf16(P) V, V read transposed
+    const unsigned va = opaque(smem_addr(sV + frag_b_kn(0, 0, lane, kLd)));
+#pragma unroll
+    for (int kb2 = 0; kb2 < 4; ++kb2) {
+      unsigned a[4];
+      to_a_frag(a, s[2 * kb2], s[2 * kb2 + 1]);
+#pragma unroll
+      for (int n0 = 0; n0 < D / 16; n0 += 4) {
+        unsigned bv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ldsm_x4_t(bv[i], va + 2 * (16 * kb2 * kLd + 16 * (n0 + i)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma16816(acc[2 * (n0 + i)], a, bv[i][0], bv[i][1]);
+          mma16816(acc[2 * (n0 + i) + 1], a, bv[i][2], bv[i][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // --------------------------------------------------------------------- dq
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -315,10 +543,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float scale2 = scale * kLog2e;
 
   float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  zero_frags(acc);
 
   for (int kt = lo; kt <= hi; ++kt) {
     const int stage = (kt - lo) & 1;
@@ -454,10 +679,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kr0 = k0 + 16 * warp + gr;  // this lane's key rows kr0, kr0 + 8
   const float scale2 = scale * kLog2e;
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  zero_frags(dk_acc);
+  zero_frags(dv_acc);
 
   for (int it = 0; it < n_it; ++it) {
     const int stage = it & 1;

@@ -46,11 +46,13 @@
 //
 // These folds reach ~2% of the bf16 bound (the tensor cores' 989
 // TFLOP/s): every product an f32 FMA from shared memory, the score tiles
-// round-tripped through f32 shared memory, synchronous tile loads. So the
-// bf16 flash backward (attention.py _dq_kernel :153 and _dkv_kernel :184)
-// runs on tensor-core tiles instead: flash_mma.cuh, the same layout and
-// cast points on mma.sync, ldmatrix and cp.async. The f32 kernels, the
-// forward and the ring kernels (ring_flash.cu) still run the folds below.
+// round-tripped through f32 shared memory, synchronous tile loads. So in
+// bf16 the flash forward and backward (attention.py _fwd_kernel :113,
+// _dq_kernel :153, _dkv_kernel :184) and the ring forward (ring_flash.py
+// _ring_fwd_kernel :61) run on tensor-core tiles instead: flash_mma.cuh,
+// the same cast points on mma.sync, ldmatrix and cp.async. The f32
+// kernels and the bf16 ring dq and dk/dv (ring_flash.cu) still run the
+// folds below.
 
 #pragma once
 
@@ -398,6 +400,17 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// One launch: lift the kernel's dynamic shared-memory limit, launch it on
+// stream s, return the status.
+template <typename... P, typename... A>
+int launch_kernel(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
+                  cudaStream_t s, A... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int tiles(int n) { return (n + kTile - 1) / kTile; }

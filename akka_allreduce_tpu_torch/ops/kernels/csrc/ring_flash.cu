@@ -12,10 +12,11 @@
 //
 //   ring_fwd  reads the running (m, l) (B, H, T) f32 and acc (B, T, H, D)
 //             f32 of this rank's queries, folds in every live key tile of
-//             the hop's block (fwd_fold: the where-guard keeps a fully
-//             masked row exactly 0) and writes them back UNNORMALISED; the
-//             caller divides acc by l and takes lse = m + log l once,
-//             after the last hop.
+//             the hop's block (fwd_fold, or fwd_mma_fold in bf16: the
+//             where-guard keeps a fully masked row exactly 0) and writes
+//             them back UNNORMALISED, m in natural-log units; the caller
+//             divides acc by l and takes lse = m + log l once, after the
+//             last hop.
 //   ring_dq   adds this hop's partial dq, kept in f32 registers over the
 //             key tiles, into the travelling f32 dq (B, T, H, D): one
 //             read-modify-write per element, so dq = dq + partial as in
@@ -33,11 +34,18 @@
 // Bound: a hop is the flash kernel's work on a (T, T) block pair, ~4 (fwd),
 // ~6 (dq), ~8 (dk/dv) flops per D-element of every live (q, k) pair, so at
 // T = 1024, D = 128 the arithmetic rate bounds it (989 TFLOP/s bf16 on the
-// tensor cores, 67 TFLOP/s f32); the f32 carries add 2 x 4 B per D-element
-// of q read and written, well under the byte time. CUDA-core FMAs only, as
-// the flash kernels; tensor cores and TMA are later work.
+// tensor cores, 67 TFLOP/s f32; a past hop's forward 0.0695 ms in bf16);
+// the f32 carries add 2 x 4 B per D-element of q read and written, well
+// under the operations' time. What the design does about it: the bf16
+// forward (ring_fwd_mma_kernel) runs the flash forward's tensor-core fold
+// (flash_mma.cuh: mma.sync from ldmatrix, P kept in registers, K/V
+// double-buffered by cp.async); the f32 forward and the ring dq and dk/dv
+// in both dtypes are CUDA-core FMAs (flash_tiles.cuh) until the backward
+// tiles of flash_mma.cuh take them on.
 
-#include "flash_tiles.cuh"
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -96,6 +104,73 @@ ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tx == 0) {
       m_io[row0 + r] = m[i];
       l_io[row0 + r] = l[i];
+    }
+  }
+}
+
+// The bf16 hop on tensor cores (replaces _ring_fwd_kernel for bf16): each
+// block loads its rows' carry into the accumulator fragments' layout (m
+// and l for rows lane / 4 and + 8, acc as float2 at columns 2 (lane % 4)
+// + {0, 1} of each 8-wide n-tile), runs fwd_mma_fold (flash_mma.cuh) and
+// writes the carry back in place, unnormalised and in natural-log units,
+// as it came.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, fwd_mma_min_blocks<D>())
+ring_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, float* __restrict__ m_io,
+                    float* __restrict__ l_io, float* __restrict__ acc_io,
+                    Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (g.H / g.Hkv);
+  const int lane = threadIdx.x % 32, tq = lane & 3;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+  // row qi's m and l of (batch bb, head hh), and its acc at this lane's
+  // first column
+  auto ml_at = [&](int bb, int hh, int qi) {
+    return (static_cast<long long>(bb) * g.H + hh) * g.Tq + qi;
+  };
+  auto acc_at = [&](int bb, int hh, int qi) {
+    return ((static_cast<long long>(bb) * g.Tq + qi) * g.H + hh) * D + 2 * tq;
+  };
+
+  // rows past Tq start empty and are never stored
+  float m[2], l[2], acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    const bool in = qi < g.Tq;
+    m[i] = in ? m_io[ml_at(b, h, qi)] : kNegInf;
+    l[i] = in ? l_io[ml_at(b, h, qi)] : 0.f;
+    const float* row = acc_io + acc_at(b, h, qi);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = in ? *reinterpret_cast<const float2*>(row + 8 * j)
+                          : make_float2(0.f, 0.f);
+      acc[j][2 * i] = x.x;
+      acc[j][2 * i + 1] = x.y;
+    }
+  }
+  fwd_mma_fold<D>(reinterpret_cast<bf16*>(smem),
+                  q + b * g.q_sb + h * g.q_sh, k + b * g.k_sb + hk * g.k_sh,
+                  v + b * g.v_sb + hk * g.v_sh, g, q0, scale, m, l, acc);
+
+  // the store addresses are derived afresh (opaque), so that the load's
+  // do not stay live across the fold: under the launch bounds' 168
+  // registers they spilled
+  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    float* row = acc_io + acc_at(be, he, qi);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    if (tq == 0) {
+      m_io[ml_at(be, he, qi)] = m[i];
+      l_io[ml_at(be, he, qi)] = l[i];
     }
   }
 }
@@ -215,47 +290,46 @@ ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
+// f32 on the CUDA-core fold, bf16 on the tensor-core tiles (flash_mma.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* m, void* l,
         void* acc, const Geom& g, float scale, cudaStream_t s) {
-  const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(ring_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ring_fwd_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), g, scale);
-  return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tq), g.H, g.B), threads, smem, s,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<float*>(m),
+        static_cast<float*>(l), static_cast<float*>(acc), g, scale);
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(ring_fwd_mma_kernel<D>, fwd_mma_smem<D>(), kMmaThreads);
+  else
+    return run(ring_fwd_kernel<T, D>, fwd_smem<T, D>(), kThreads);
 }
 
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_io, const Geom& g,
        float scale, cudaStream_t s) {
-  const size_t smem = dq_smem<T, D>();
-  cudaError_t err = allow_smem(ring_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ring_dq_kernel<T, D><<<dim3(tiles(g.Tq), g.H, g.B), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch_kernel(
+      ring_dq_kernel<T, D>, dim3(tiles(g.Tq), g.H, g.B), kThreads,
+      dq_smem<T, D>(), s, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq_io), g, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk_io, void* dv_io,
         const Geom& g, float scale, cudaStream_t s) {
-  const size_t smem = dkv_smem<T, D>();
-  cudaError_t err = allow_smem(ring_dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ring_dkv_kernel<T, D><<<dim3(tiles(g.Tk), g.Hkv, g.B), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk_io), static_cast<float*>(dv_io), g, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(
+      ring_dkv_kernel<T, D>, dim3(tiles(g.Tk), g.Hkv, g.B), kThreads,
+      dkv_smem<T, D>(), s, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk_io),
+      static_cast<float*>(dv_io), g, scale);
 }
 
 }  // namespace

@@ -16,8 +16,8 @@ query head h reads KV head h // (H / H_kv)).
   f32 scores. The CPU path and the kernels' oracle.
 * :func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv` — the
   wrappers: a CPU tensor goes to the plain version; a CUDA tensor launches
-  ``csrc/flash_attention.cu`` or raises: bf16 dq and dk/dv on tensor
-  cores (``csrc/flash_mma.cuh``), f32 and the forward on CUDA cores
+  ``csrc/flash_attention.cu`` or raises: bf16 forward, dq and dk/dv on
+  tensor cores (``csrc/flash_mma.cuh``), f32 on CUDA cores
   (``csrc/flash_tiles.cuh``). :data:`FLASH_FWD_LAUNCHES`,
   :data:`FLASH_DQ_LAUNCHES` and :data:`FLASH_DKV_LAUNCHES` count launches.
 * :class:`FlashAttention` (``torch.autograd.Function``),
@@ -251,8 +251,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_off: int = 0, k_off: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` as :func:`flash_forward_reference`. On CUDA tensors:
-    one launch of the forward kernel into ``torch.empty`` outputs on the
-    current stream; raises if the launch fails."""
+    one launch of the forward kernel (bf16 on tensor cores, f32 on CUDA
+    cores) into ``torch.empty`` outputs on the current stream; raises if
+    the launch fails."""
     global FLASH_FWD_LAUNCHES
     _check_options(causal, window)
     check_qkv(q, k, v)

@@ -18,7 +18,9 @@ The wrappers update their f32 state in place and return it. A CPU tensor
 goes to the plain versions (:func:`ring_fwd_reference`,
 :func:`ring_bwd_reference`: ``_softmax_tile`` / ``_bwd_tile`` over the
 whole block, the JAX cast points); a CUDA tensor launches
-``csrc/ring_flash.cu`` or raises. :data:`RING_FWD_LAUNCHES`,
+``csrc/ring_flash.cu`` or raises: the bf16 forward on tensor cores (the
+flash forward's fold, ``csrc/flash_mma.cuh``), the f32 forward and the
+dq and dk/dv in both dtypes on CUDA cores (``csrc/flash_tiles.cuh``). :data:`RING_FWD_LAUNCHES`,
 :data:`RING_DQ_LAUNCHES` and :data:`RING_DKV_LAUNCHES` count launches.
 
 :class:`RingFlashAttention` is the ring (``_ring_fwd`` /
@@ -125,7 +127,8 @@ def ring_fwd(q, k, v, m, l_sum, acc, q_off: int, k_off: int,
              causal: bool = True):
     """Fold the block (k, v) at key offset ``k_off`` into this rank's
     carry (queries at ``q_off``) in place; returns ``(m, l, acc)``. On
-    CUDA tensors: one launch of the ring forward kernel."""
+    CUDA tensors: one launch of the ring forward kernel (bf16 on tensor
+    cores, f32 on CUDA cores)."""
     global RING_FWD_LAUNCHES
     check_qkv(q, k, v)
     b, tq, h, d = q.shape

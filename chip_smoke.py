@@ -8,7 +8,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. device  — the card's name and power limit; TF32 off for matmuls and
    convolutions, so every f32 product runs in full f32.
 2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
-   per source, all started together), timed, with ptxas's report.
+   per source, all started together), timed, with ptxas's report and,
+   per tensor-core kernel (``*_mma_kernel``), its registers and spill
+   bytes: any spill fails the phase.
 3. kernels — hold each kernel against its plain PyTorch version on the
    same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
    the serving slice's shape, MHA, MQA, a larger page, and the position
@@ -28,11 +30,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    the gather run's wherever its top-2 logit gap exceeds 1e-3.
 
 5. kernels (flash) — hold the flash forward, dq and dk/dv kernels
-   against their plain PyTorch versions on the same CUDA tensors: f32 at
-   2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the JAX package's
-   tolerances), over the training slice's shape (B 8, T 2048, 16 heads of
-   128), GQA (4 KV heads), MQA, a 256 window, non-causal, a ragged T of
-   1000, Tq != Tk with offsets, and head_dim 64. At the slice's shape, in
+   (bf16 on tensor cores, f32 on CUDA cores) against their plain PyTorch
+   versions on the same CUDA tensors: f32 at 2e-5 (forward) and 5e-5
+   (gradients), bf16 at 3e-2 (the JAX package's tolerances), over the
+   training slice's shape (B 8, T 2048, 16 heads of 128), GQA (4 KV
+   heads), MQA, a 256 window, non-causal, a ragged T of 1000, Tq != Tk
+   with offsets, and head_dim 64. At the slice's shape, in
    bf16 and f32: each kernel, the plain version and the library call
    (``scaled_dot_product_attention``, forward, and its backward) timed as
    above, and each kernel's bound computed from the live (q, k) pairs.
@@ -46,8 +49,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    kernel, the flash kernels' share, the device's idle share.
 7. train parity — full width, the gqa4 variant (4 KV heads, rope),
    batch 2, seq 2048, from one set of weights, in f32 and in bf16 (the
-   bf16 dq and dk/dv run on tensor cores, the f32 ones on CUDA cores):
-   step-0 loss and grads through the kernels against
+   bf16 forward, dq and dk/dv run on tensor cores, the f32 ones on CUDA
+   cores): step-0 loss and grads through the kernels against
    ``attn_impl="local"`` from the weights and batch of each of
    ``PARITY_SEEDS``, then two steps of each from seed 0, at ``PARITY_TOL``
    (f32: loss within 1e-5 relative, every gradient leaf within 1e-3 of
@@ -92,14 +95,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    envelope of the exact sum, and the counts exact.
 
 11. ring kernels — hold the ring-flash forward, dq and dk/dv kernels
-   (one hop each) against their plain PyTorch versions on the same CUDA
-   tensors, f32 at 2e-5 (the carry: m, l and acc / l, the output the
-   unnormalised acc stands for) and 5e-5 (the gradient accumulators),
-   bf16 at 3e-2: at the sequence-parallel slice's shape
-   (B 8, T_local 1024, 16 heads of 128, 4 KV heads) as rank 1's diagonal
-   hop and as its past hop, then MQA, non-causal, a ragged T_local of
-   1000 and head_dim 64, each on a carry that already holds a hop and
-   on nonzero f32 accumulators. At the slice's shape each kernel, its
+   (one hop each; the bf16 forward on tensor cores, the rest on CUDA
+   cores) against their plain PyTorch versions on the same CUDA tensors,
+   f32 at 2e-5 (the carry: m, l and acc / l, the output the unnormalised
+   acc stands for) and 5e-5 (the gradient accumulators), bf16 at 3e-2:
+   at the sequence-parallel slice's shape (B 8, T_local 1024, 16 heads
+   of 128, 4 KV heads) as rank 1's diagonal hop and as its past hop,
+   then MQA, non-causal, a ragged T_local of 1000 and head_dim 64, each
+   on a carry that already holds a hop and on nonzero f32 accumulators. At the slice's shape each kernel, its
    plain version and the library call (``scaled_dot_product_attention``
    forward and backward on the same q and K/V block: causal on the
    diagonal hop, unmasked on the past hop; it merges no carry and returns
@@ -155,6 +158,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -205,15 +209,15 @@ PARITY_TOL = {
     # f32 sums in other orders over 2048 keys and 8 layers stay near
     # 1e-5, while a GQA head's lost share would be O(1)
     "float32": {"loss0": 1e-5, "grads": 1e-3, "loss1": 1e-4},
-    # bf16 reaches the tensor-core dq and dk/dv: the same cast points, but
-    # p and ds round to bf16 (2^-8) against the unnormalised running max
-    # where local attention rounds the normalised softmax, so a gradient
-    # leaf moves by ~2e-2 of its largest value (2.4e-2 on an H100) and
-    # the loss by ~1e-5. The control (one query head's share dropped from
-    # dk/dv) must read above the gradient limit; a wrong tile is held at
-    # its own kernel's output in phase 5. Step 1 also
-    # carries one AdamW step from those gradients (its first update is
-    # +-lr wherever a near-zero gradient's sign differs)
+    # bf16 reaches the tensor-core forward, dq and dk/dv: the same cast
+    # points, but p and ds round to bf16 (2^-8) against the unnormalised
+    # running max where local attention rounds the normalised softmax, so
+    # a gradient leaf moves by ~2e-2 of its largest value (2.4e-2 on an
+    # H100) and the loss by ~1e-5. The control (one query head's share
+    # dropped from dk/dv) must read above the gradient limit; a wrong tile
+    # is held at its own kernel's output in phase 5. Step 1 also carries
+    # one AdamW step from those gradients (its first update is +-lr
+    # wherever a near-zero gradient's sign differs)
     "bfloat16": {"loss0": 2e-3, "grads": 3e-2, "loss1": 5e-3}}
 # phase 7's step-0 check: one set of weights and one batch from each seed
 PARITY_SEEDS = (0, 1, 2)
@@ -320,6 +324,49 @@ FLASH_REPLACES = {
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def ptxas_kernels(report: str) -> list:
+    """Per entry function of a ``ptxas -v`` report: its mangled name,
+    registers, stack frame and spill bytes."""
+    rows, cur, props = {}, None, None
+    for line in report.splitlines():
+        name = re.search(r"Compiling entry function '([^']+)'", line)
+        prop = re.search(r"Function properties for (\S+)", line)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name:
+            cur = rows.setdefault(name.group(1), {"kernel": name.group(1)})
+        elif prop:
+            props = prop.group(1)
+        elif frame and props in rows:
+            rows[props].update(stack=int(frame.group(1)),
+                               spill_stores=int(frame.group(2)),
+                               spill_loads=int(frame.group(3)))
+        elif regs and cur is not None:
+            cur["registers"] = int(regs.group(1))
+    return list(rows.values())
+
+
+def check_mma_spills(info: dict) -> list:
+    """The tensor-core kernels (``*_mma_kernel``) of every library built
+    in this run, from its ptxas report; raises if one spills or a built
+    flash library reports none."""
+    rows = []
+    for lib, entry in info.items():
+        found = [dict(r, library=lib) for r in ptxas_kernels(entry["ptxas"])
+                 if "mma_kernel" in r["kernel"]]
+        if not found and entry["ptxas"] and lib in ("flash_attention",
+                                                    "ring_flash"):
+            raise AssertionError(f"{lib}: no tensor-core kernel in the "
+                                 f"ptxas report")
+        rows += found
+    spills = [r for r in rows if r.get("spill_stores", 1)
+              or r.get("spill_loads", 1)]
+    if spills:
+        raise AssertionError(f"tensor-core kernels spill: {spills}")
+    return rows
 
 
 def nvidia_smi_line() -> str:
@@ -1814,7 +1861,8 @@ def main() -> int:
     info = build.build_all()
     for kernel in build.KERNELS:
         build.load(kernel)
-    emit("build", seconds=time.perf_counter() - t0, kernels=info)
+    emit("build", seconds=time.perf_counter() - t0, kernels=info,
+         mma_kernels=check_mma_spills(info))
 
     # 3. kernels vs plain versions
     timed = phase_kernels(torch)

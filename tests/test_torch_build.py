@@ -7,6 +7,8 @@ includes too) and the nvcc flags, so an edited header anywhere under a
 source rebuilds that source's library, and nothing else does.
 """
 
+import shutil
+
 import pytest
 
 from akka_allreduce_tpu_torch.ops.kernels import build
@@ -47,3 +49,26 @@ def test_editing_a_reached_header_changes_the_library(csrc, edited,
     with open(csrc / edited, "a") as f:
         f.write("int edited;\n")
     assert (build.library_path("a") != before) is changes
+
+
+def test_ring_flash_reaches_both_tile_headers():
+    """On the real csrc tree: both flash libraries build the tensor-core
+    tiles (flash_mma.cuh) and, through them, the CUDA-core folds
+    (flash_tiles.cuh)."""
+    for name in ("flash_attention", "ring_flash"):
+        assert build.sources(name) == [f"{name}.cu", "flash_mma.cuh",
+                                       "flash_tiles.cuh"]
+
+
+@pytest.mark.parametrize("edited", ["flash_mma.cuh", "flash_tiles.cuh"])
+def test_editing_a_tile_header_rebuilds_both_flash_libraries(
+        tmp_path, monkeypatch, edited):
+    """A copy of the real csrc tree: an edit to a shared tile header moves
+    both flash libraries' paths and no other library's."""
+    shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
+    before = {n: build.library_path(n) for n in build.KERNELS}
+    with open(tmp_path / "csrc" / edited, "a") as f:
+        f.write("// edited\n")
+    moved = {n for n in build.KERNELS if build.library_path(n) != before[n]}
+    assert moved == {"flash_attention", "ring_flash"}

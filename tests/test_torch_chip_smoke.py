@@ -320,3 +320,47 @@ def test_step0_parity_control_fails_where_the_sound_path_passes(
                                       chip_smoke.drop_query_head(sound))
     assert control["grad_err"] > tol["grads"]
     assert fa.flash_dkv is sound
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16
+    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvPKT_
+    40 bytes stack frame, 36 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills_per_kernel():
+    rows = chip_smoke.ptxas_kernels(PTXAS.format(spill=0))
+    assert [(r["registers"], r["stack"], r["spill_stores"],
+             r["spill_loads"]) for r in rows] == [(168, 0, 0, 0),
+                                                 (255, 40, 36, 36)]
+    assert "flash_fwd_mma_kernel" in rows[0]["kernel"]
+
+
+@pytest.mark.parametrize("spill,ok", [(0, True), (8, False)])
+def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
+    """Only the ``*_mma_kernel`` entries are held to no spills (the f32
+    CUDA-core kernel above spills and passes)."""
+    info = {"flash_attention": {"seconds": 9.0,
+                                "ptxas": PTXAS.format(spill=spill)}}
+    if ok:
+        rows = chip_smoke.check_mma_spills(info)
+        assert len(rows) == 1 and rows[0]["library"] == "flash_attention"
+    else:
+        with pytest.raises(AssertionError, match="spill"):
+            chip_smoke.check_mma_spills(info)
+
+
+def test_a_flash_library_without_tensor_core_kernels_fails():
+    cuda_cores = PTXAS.format(spill=0).replace("flash_fwd_mma_kernel",
+                                               "flash_fwd_kernel")
+    info = {"ring_flash": {"seconds": 9.0, "ptxas": cuda_cores},
+        "paged_attention": {"seconds": 0.0, "ptxas": ""}}
+    with pytest.raises(AssertionError, match="no tensor-core kernel"):
+        chip_smoke.check_mma_spills(info)

@@ -9,9 +9,10 @@ runs on the GPU machine, from the repository root::
 
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
-2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 dq and dk/dv
-on tensor cores, f32 on CUDA cores), the bf16 backward also bitwise
-repeatable; the gradient sync's
+2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 forward,
+dq and dk/dv and the bf16 ring forward on tensor cores, f32 on CUDA
+cores), the tensor-core kernels also bitwise repeatable; the gradient
+sync's
 masked reduce and int8 quantizers: bitwise (both sum the peers in order,
 and the quantizers' arithmetic is IEEE's, Philox drawn alike); the
 peer-memory ring and swing allreduce: bitwise, on two rank processes that
@@ -198,6 +199,32 @@ def test_bf16_backward_kernels_match_plain(cuda_device, case):
                                    rtol=tol)
 
 
+# the bf16 forward (flash_fwd_mma_kernel): the backward's cases and a
+# 256 window over 1024 positions
+BF16_FWD_CASES = BF16_BWD_CASES + [
+    (4, 128, True, 256, 1024, 1024, 0, 0, "contiguous")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_FWD_CASES)
+def test_bf16_forward_kernel_matches_plain(cuda_device, case):
+    """o and lse at the bf16 tolerance (3e-2): p rounds to bf16 against
+    the running max where the plain version rounds it against the row's
+    final max, and the f32 sums run in another order."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, *_), want_o, opts = bf16_bwd_inputs(case, cuda_device)
+    count = fa.FLASH_FWD_LAUNCHES
+    o, lse = fa.flash_forward(q, k, v, *opts)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD_LAUNCHES == count + 1
+    _, want_lse = fa.flash_forward_reference(q, k, v, *opts)
+    tol = FLASH_TOL[torch.bfloat16][0]
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_bf16_backward_kernels_are_deterministic(cuda_device):
     """No atomics: dk and dv sum the GQA group in one block's registers,
@@ -291,6 +318,97 @@ def test_ring_kernels_match_plain(cuda_device, case, dtype):
         assert g.dtype == torch.float32 and torch.isfinite(g).all()
         torch.testing.assert_close(g, acc0 + part, atol=tol_bwd,
                                    rtol=tol_bwd)
+
+
+# the bf16 ring forward (ring_fwd_mma_kernel) over H = 16 heads, on a
+# carry that already holds a hop: (h_kv, head_dim, causal, t, q_off, k_off,
+# q_layout): the sequence-parallel slice's diagonal and past hops at a
+# smaller T, D 64, a ragged diagonal block (MQA), non-causal and a
+# strided q
+BF16_RING_CASES = [(4, 128, True, 256, 256, 256, "contiguous"),
+                   (4, 128, True, 256, 256, 0, "contiguous"),
+                   (4, 64, True, 192, 384, 192, "contiguous"),
+                   (1, 128, True, 100, 100, 100, "contiguous"),
+                   (4, 128, False, 128, 0, 128, "contiguous"),
+                   (4, 128, True, 256, 512, 256, "bhtd")]
+
+
+def bf16_ring_inputs(case, device):
+    h_kv, d, causal, t, q_off, k_off, layout = case
+    rng = np.random.default_rng(t * 3 + q_off + k_off + d + h_kv)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(device, torch.bfloat16)
+               for s in ((2, t, 16, d), (2, t, h_kv, d), (2, t, h_kv, d)))
+    if layout == "bhtd":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not q.is_contiguous()
+    return q, k, v, (q_off, k_off, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_RING_CASES)
+def test_bf16_ring_forward_matches_plain(cuda_device, case):
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    q, k, v, hop = bf16_ring_inputs(case, cuda_device)
+    carry, _ = ring_state(q, k, seed=case[3])
+    count = rf.RING_FWD_LAUNCHES
+    got = rf.ring_fwd(q, k, v, *[x.clone() for x in carry], *hop)
+    torch.cuda.synchronize()
+    assert rf.RING_FWD_LAUNCHES == count + 1
+    want = rf.ring_fwd_reference(q, k, v, *carry, *hop)
+    tol = FLASH_TOL[torch.bfloat16][0]
+    for g, w in ((got[0], want[0]), (got[1], want[1]),
+                 (got[2] / got[1].transpose(1, 2)[..., None],
+                  want[2] / want[1].transpose(1, 2)[..., None])):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_forward_keeps_rows_without_live_keys_empty(cuda_device, dtype):
+    """A block that starts 32 positions after the queries (k_off = 32):
+    rows 0-31 have no live key in it, all their keys lie elsewhere, so
+    from the empty carry (m = NEG_INF, l = 0, acc = 0) they come back
+    exactly empty: the where-guard keeps p = 0 and corr = 1. The other
+    rows match the plain version."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    q, k, v, _ = flash_inputs(2, 128, 128, 128, 7, cuda_device, dtype)
+    b, t, h, d = q.shape
+    empty = (torch.full((b, h, t), -1e30, device=cuda_device),
+             torch.zeros((b, h, t), device=cuda_device),
+             torch.zeros((b, t, h, d), device=cuda_device))
+    got = rf.ring_fwd(q, k, v, *[x.clone() for x in empty], 0, 32)
+    want = rf.ring_fwd_reference(q, k, v, *empty, 0, 32)
+    torch.cuda.synchronize()
+    assert bool((got[0][:, :, :32] == -1e30).all())
+    assert not got[1][:, :, :32].any() and not got[2][:, :32].any()
+    tol = FLASH_TOL[dtype][0]
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g[:, :, 32:], w[:, :, 32:], atol=tol,
+                                   rtol=tol)
+    torch.testing.assert_close(
+        got[2][:, 32:] / got[1][:, :, 32:].transpose(1, 2)[..., None],
+        want[2][:, 32:] / want[1][:, :, 32:].transpose(1, 2)[..., None],
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_kernels_are_deterministic(cuda_device):
+    """No atomics: two launches of each tensor-core forward give the same
+    bits."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    (q, k, v, *_), _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device)
+    first, second = fa.flash_forward(q, k, v, *opts), \
+        fa.flash_forward(q, k, v, *opts)
+    q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[0], cuda_device)
+    carry, _ = ring_state(q, k, seed=0)
+    ring = [rf.ring_fwd(q, k, v, *[x.clone() for x in carry], *hop)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first + ring[0], second + ring[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
