@@ -12,8 +12,9 @@
 // flash_tiles.cuh, which ring_flash.cu shares; each kernel here is a
 // prologue (load its own tile, zero its state), one fold over the other
 // side's tiles, and an epilogue that stores the result in the input
-// dtype. The bf16 kernels (flash_mma.cuh) keep that arithmetic on tensor
-// cores.
+// dtype. The bf16 kernels keep that arithmetic on tensor cores: their
+// folds (flash_mma.cuh fwd_mma_fold, dq_mma_fold, dkv_mma_fold) are the
+// ones ring_flash.cu's bf16 kernels run.
 //
 // Bound: at the training shape (T = 2048, D = 128) the work is ~4 (fwd),
 // ~6 (dq) and ~8 (dk/dv) flops per D-element of every live (q, k) pair,
@@ -162,6 +163,37 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 dq (replaces _dq_kernel for bf16): dq_mma_fold, then dq
+// rounded to bf16. The causal band grows with the query tile, so the
+// longest blocks go first.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float acc[D / 8][4];
+  dq_mma_fold<D>(reinterpret_cast<bf16*>(smem), q, k, v, dout, lse, delta, g,
+                 b, h, q0, scale, acc);
+
+  const int lane = threadIdx.x % 32, tq = lane & 3;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    bf16* row = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
 // ------------------------------------------------------------------ dk/dv
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -207,6 +239,39 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         store(dk + off + 4 * tx + 32 * jj + e, dk_acc[i][4 * jj + e]);
         store(dv + off + 4 * tx + 32 * jj + e, dv_acc[i][4 * jj + e]);
       }
+  }
+}
+
+// The bf16 dk/dv (replaces _dkv_kernel for bf16): dkv_mma_fold, then dk
+// and dv rounded to bf16, written once (no atomics).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  dkv_mma_fold<D>(reinterpret_cast<bf16*>(smem), q, k, v, dout, lse, delta,
+                  g, b, hk, k0, scale, dk_acc, dv_acc);
+
+  const int lane = threadIdx.x % 32, tq = lane & 3;
+  const int kr0 = k0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr0 + 8 * i;
+    if (kj >= g.Tk) continue;
+    const long long off =
+        ((static_cast<long long>(b) * g.Tk + kj) * g.Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
   }
 }
 

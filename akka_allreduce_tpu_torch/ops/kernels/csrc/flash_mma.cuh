@@ -1,22 +1,25 @@
 // Tensor-core tiles of the bf16 flash attention (flash_attention.cu) and
-// of the bf16 ring-flash forward (ring_flash.cu).
+// of the bf16 ring flash attention (ring_flash.cu).
 //
 // Replaces, for bf16 inputs: akka_allreduce_tpu/ops/pallas_kernels/
 // attention.py _fwd_kernel (:113), _dq_kernel (:153) and _dkv_kernel
 // (:184), whose tile arithmetic is _softmax_tile (:79) and _bwd_tile
-// (:99), and ring_flash.py _ring_fwd_kernel (:61), the same _softmax_tile
-// on a carry. One forward fold (fwd_mma_fold) serves both forwards. The
-// f32 kernels stay on the CUDA-core folds of flash_tiles.cuh (TF32 would
-// break parity with the f32 reference), and so do the ring dq and dk/dv
-// (ring_flash.cu) for now.
+// (:99), and ring_flash.py _ring_fwd_kernel (:61), _ring_dq_kernel (:94)
+// and _ring_dkv_kernel (:121), the same tiles on one hop's block with f32
+// carries and accumulators. One fold per product serves the flash and the
+// ring kernel: fwd_mma_fold, dq_mma_fold, dkv_mma_fold; each kernel adds
+// only its epilogue (the flash kernels store bf16, the ring's read and
+// write their f32 state in the fragments' layout). The f32 kernels stay
+// on the CUDA-core folds of flash_tiles.cuh (TF32 would break parity with
+// the f32 reference).
 //
 // Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
 // of every live (q, k) pair, hundreds of flops per byte moved, so the
 // tensor cores' 989 TFLOP/s (bf16, dense) bound every kernel here (the
-// ring forward's f32 carry adds 8 bytes a head-dim element of q, read
-// and written once: well under the operations' time). The CUDA-core
-// folds reach ~2% of it; these tiles put every product on the tensor
-// cores:
+// ring's f32 carry and accumulators add 8 bytes a head-dim element of q,
+// or of k and v, read and written once: well under the operations' time).
+// The CUDA-core folds reach ~2% of it; these tiles put every product on
+// the tensor cores:
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 in inline PTX:
 //     bf16 operands, f32 accumulators, exactly the Pallas kernels' cast
 //     points (s in f32, l summed from the unrounded f32 p, p and ds
@@ -57,7 +60,9 @@
 // stored. A tile whose pairs are all live (tile_full) skips the
 // per-element mask.
 //
-// Registers per thread (ptxas -v, sm_90a; no spills accepted):
+// Registers per thread (ptxas -v, sm_90a; no spills accepted; the flash
+// and the ring kernel of each fold take the same count, except where
+// said):
 //   forward, D = 128: 168 under __launch_bounds__(128, 3), three blocks
 //          an SM (the O accumulator 16 x 128 f32 a warp = 64, S 16 x 64
 //          = 32, one step's Q and K fragments 4 + 16; Q is re-read from
@@ -72,6 +77,10 @@
 //          over half the query tile at a time, kSubQ = 32 columns, 16 +
 //          16, the halves kept apart by "#pragma unroll 1": unrolled,
 //          ptxas spilled at 255); D = 64: 188.
+//   The ring's epilogues read and write their f32 state only after the
+//   fold, from addresses derived afresh (opaque), so they add nothing to
+//   the main loop's live registers (an address kept across the fold cost
+//   the ring forward a 16-byte spill).
 // Shared memory: forward Q, K, V; dq Q, dO + 2 x (K, V); dk/dv K, V + 2 x
 // (Q, dO, lse, delta): 52,224 / 104,448 / 105,472 bytes at D = 128 (three
 // forward blocks an SM, two of the others), 27,648 / 55,296 / 56,320 at
@@ -494,26 +503,30 @@ __device__ __forceinline__ void fwd_mma_fold(bf16* smem, const bf16* __restrict_
 }
 
 // --------------------------------------------------------------------- dq
+// dq of query tile q0 of head h, batch b, against every live key tile of
+// KV head h / group, into this lane's f32 fragments acc (rows 16 warp +
+// lane / 4 and + 8; zeroed here): the key loop of both dq kernels
+// (flash_dq_mma_kernel, ring_dq_mma_kernel). Q and dO stay resident, K and
+// V are double-buffered by cp.async (the next tile's copy under this
+// tile's products). S = Q K^T and dP = dO V^T on mma.sync, dq_scores on
+// the accumulator fragments, dS repacked in registers as the A fragment
+// of dQ += dS K (K read transposed).
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    Geom g, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void dq_mma_fold(
+    bf16* smem, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const Geom& g, int b, int h, int q0, float scale,
+    float (&acc)[D / 8][4]) {
   constexpr int kLd = mma_ld<D>();
   constexpr int kT = mma_tile<D>();
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sQ = smem;
   bf16* sDO = sQ + kT;
   bf16* sK = sDO + kT;      // 2 stages
   bf16* sV = sK + 2 * kT;   // 2 stages
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane >> 2, tq = lane & 3;
-  // the causal band grows with the query tile: the longest blocks first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (g.H / g.Hkv);
   int lo, hi;
   live_tiles(q0, true, g, lo, hi);
@@ -542,7 +555,6 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float scale2 = scale * kLog2e;
 
-  float acc[D / 8][4];
   zero_frags(acc);
 
   for (int kt = lo; kt <= hi; ++kt) {
@@ -612,34 +624,31 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is overwritten two tiles on
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = r0 + 8 * i;
-    if (qi >= g.Tq) continue;
-    bf16* row = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
-  }
 }
 
 // ------------------------------------------------------------------ dk/dv
+// dk and dv of key tile k0 of KV head hk, batch b, summed over the GQA
+// group's query heads and their live query tiles, into this lane's f32
+// fragments dk_acc and dv_acc (key rows 16 warp + lane / 4 and + 8; zeroed
+// here): the query loop of both dk/dv kernels (flash_dkv_mma_kernel,
+// ring_dkv_mma_kernel). K and V stay resident, Q, dO and their lse and
+// delta rows are double-buffered by cp.async. S^T = K Q^T and dP^T = V
+// dO^T on mma.sync, dkv_scores on the accumulator fragments, P^T and dS^T
+// repacked in registers as the A fragments of dV += P^T dO and dK += dS^T
+// Q (dO and Q read transposed).
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, Geom g, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void dkv_mma_fold(
+    bf16* smem, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const Geom& g, int b, int hk, int k0, float scale,
+    float (&dk_acc)[D / 8][4], float (&dv_acc)[D / 8][4]) {
   constexpr int kLd = mma_ld<D>();
   constexpr int kT = mma_tile<D>();
   // query columns per pass over the score tile: at D = 128 the two
   // accumulators take 128 registers, so S^T and dP^T go in halves
   constexpr int kSubQ = D == 128 ? 32 : 64;
-  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sK = smem;
   bf16* sV = sK + kT;
   bf16* sQ = sV + kT;        // 2 stages
   bf16* sDO = sQ + 2 * kT;   // 2 stages
@@ -648,7 +657,6 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane >> 2, tq = lane & 3;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int group = g.H / g.Hkv;
   int lo, hi;
   live_tiles(k0, false, g, lo, hi);
@@ -678,7 +686,6 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kr0 = k0 + 16 * warp + gr;  // this lane's key rows kr0, kr0 + 8
   const float scale2 = scale * kLog2e;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero_frags(dk_acc);
   zero_frags(dv_acc);
 
@@ -757,21 +764,6 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is overwritten two iterations on
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = kr0 + 8 * i;
-    if (kj >= g.Tk) continue;
-    const long long off =
-        ((static_cast<long long>(b) * g.Tk + kj) * g.Hkv + hk) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
-    }
-  }
 }
 
 }  // namespace

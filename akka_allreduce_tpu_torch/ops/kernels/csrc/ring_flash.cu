@@ -28,20 +28,25 @@
 //
 // Each block owns its rows of the carry or of the accumulators, so they
 // are updated in place (no second copy of the f32 state on the card).
-// The tile arithmetic, cast points and masks are flash_tiles.cuh's, shared
-// with the flash kernels; ragged T is masked at the edge.
+// The tile arithmetic, cast points and masks are the flash kernels':
+// flash_tiles.cuh's folds in f32, flash_mma.cuh's in bf16, the same
+// functions that flash_attention.cu runs; ragged T is masked at the edge.
 //
 // Bound: a hop is the flash kernel's work on a (T, T) block pair, ~4 (fwd),
 // ~6 (dq), ~8 (dk/dv) flops per D-element of every live (q, k) pair, so at
 // T = 1024, D = 128 the arithmetic rate bounds it (989 TFLOP/s bf16 on the
-// tensor cores, 67 TFLOP/s f32; a past hop's forward 0.0695 ms in bf16);
-// the f32 carries add 2 x 4 B per D-element of q read and written, well
-// under the operations' time. What the design does about it: the bf16
-// forward (ring_fwd_mma_kernel) runs the flash forward's tensor-core fold
-// (flash_mma.cuh: mma.sync from ldmatrix, P kept in registers, K/V
-// double-buffered by cp.async); the f32 forward and the ring dq and dk/dv
-// in both dtypes are CUDA-core FMAs (flash_tiles.cuh) until the backward
-// tiles of flash_mma.cuh take them on.
+// tensor cores, 67 TFLOP/s f32; a past hop at B 8, H 16, H_kv 4 in bf16:
+// forward 0.0695 ms, dq 0.1042, dk/dv 0.1390); the f32 carries and
+// accumulators add 2 x 4 B per D-element read and written, well under the
+// operations' time. What the design does about it: in bf16 every hop
+// kernel runs the flash kernels' tensor-core fold (flash_mma.cuh: mma.sync
+// from ldmatrix, the score tiles kept in registers, the streamed tiles
+// copied by cp.async under the products) and only its epilogue is the
+// ring's: ring_fwd_mma_kernel (fwd_mma_fold) loads and stores the carry,
+// ring_dq_mma_kernel (dq_mma_fold) and ring_dkv_mma_kernel (dkv_mma_fold)
+// add their f32 fragments into the accumulators, one float2 at a time.
+// f32 stays on the CUDA-core FMAs (flash_tiles.cuh): TF32 would break
+// parity with the f32 reference.
 
 #include <type_traits>
 
@@ -289,6 +294,87 @@ ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- dq and dk/dv, bf16
+// row[8 j + 2 (lane % 4) + {0, 1}] += this lane's accumulator pair of
+// fragment row i (0: lane / 4, 1: + 8), one float2 read-modify-write at a
+// time: the ring forward's carry layout.
+template <int D>
+__device__ __forceinline__ void add_frag_row(float* row,
+                                             const float (&acc)[D / 8][4],
+                                             int i) {
+  row += 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    float2* p = reinterpret_cast<float2*>(row + 8 * j);
+    float2 x = *p;
+    x.x += acc[j][2 * i];
+    x.y += acc[j][2 * i + 1];
+    *p = x;
+  }
+}
+
+// The bf16 hops on tensor cores (replace _ring_dq_kernel and
+// _ring_dkv_kernel for bf16): the flash backward's folds (flash_mma.cuh
+// dq_mma_fold, dkv_mma_fold) on the hop's offsets, then the f32 partials
+// added in place into the travelling accumulators. The grids are the
+// flash kernels'. The accumulator addresses are derived afresh after the
+// fold (opaque), so that no address stays live across its main loop.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+ring_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq_io,
+                   Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float acc[D / 8][4];
+  dq_mma_fold<D>(reinterpret_cast<bf16*>(smem), q, k, v, dout, lse, delta, g,
+                 b, h, q0, scale, acc);
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    add_frag_row<D>(
+        dq_io + ((static_cast<long long>(be) * g.Tq + qi) * g.H + he) * D,
+        acc, i);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+ring_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dk_io, float* __restrict__ dv_io,
+                    Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  dkv_mma_fold<D>(reinterpret_cast<bf16*>(smem), q, k, v, dout, lse, delta,
+                  g, b, hk, k0, scale, dk_acc, dv_acc);
+
+  const int lane = threadIdx.x % 32;
+  const int kr0 = k0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b));
+  const int hke = static_cast<int>(opaque(hk));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr0 + 8 * i;
+    if (kj >= g.Tk) continue;
+    const long long off =
+        ((static_cast<long long>(be) * g.Tk + kj) * g.Hkv + hke) * D;
+    add_frag_row<D>(dk_io + off, dk_acc, i);
+    add_frag_row<D>(dv_io + off, dv_acc, i);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 // f32 on the CUDA-core fold, bf16 on the tensor-core tiles (flash_mma.cuh)
 template <typename T, int D>
@@ -311,25 +397,36 @@ template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_io, const Geom& g,
        float scale, cudaStream_t s) {
-  return launch_kernel(
-      ring_dq_kernel<T, D>, dim3(tiles(g.Tq), g.H, g.B), kThreads,
-      dq_smem<T, D>(), s, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_io), g, scale);
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tq), g.H, g.B), threads, smem, s,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq_io), g, scale);
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(ring_dq_mma_kernel<D>, dq_mma_smem<D>(), kMmaThreads);
+  else
+    return run(ring_dq_kernel<T, D>, dq_smem<T, D>(), kThreads);
 }
 
 template <typename T, int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk_io, void* dv_io,
         const Geom& g, float scale, cudaStream_t s) {
-  return launch_kernel(
-      ring_dkv_kernel<T, D>, dim3(tiles(g.Tk), g.Hkv, g.B), kThreads,
-      dkv_smem<T, D>(), s, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk_io),
-      static_cast<float*>(dv_io), g, scale);
+  auto run = [&](auto kernel, size_t smem, int threads) {
+    return launch_kernel(
+        kernel, dim3(tiles(g.Tk), g.Hkv, g.B), threads, smem, s,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk_io), static_cast<float*>(dv_io), g, scale);
+  };
+  if constexpr (std::is_same<T, bf16>::value)
+    return run(ring_dkv_mma_kernel<D>, dkv_mma_smem<D>(), kMmaThreads);
+  else
+    return run(ring_dkv_kernel<T, D>, dkv_smem<T, D>(), kThreads);
 }
 
 }  // namespace

@@ -320,6 +320,13 @@ FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
     "flash_dq": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:153",
     "flash_dkv": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:184"}
+# the bf16 kernels each flash library must build on the tensor cores, at
+# every head dim the wrappers take (HEAD_DIMS)
+MMA_KERNELS = {
+    "flash_attention": ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                        "flash_dkv_mma_kernel"),
+    "ring_flash": ("ring_fwd_mma_kernel", "ring_dq_mma_kernel",
+                   "ring_dkv_mma_kernel")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -352,15 +359,22 @@ def ptxas_kernels(report: str) -> list:
 def check_mma_spills(info: dict) -> list:
     """The tensor-core kernels (``*_mma_kernel``) of every library built
     in this run, from its ptxas report; raises if one spills or a built
-    flash library reports none."""
+    flash library lacks one of its ``MMA_KERNELS`` at a head dim."""
+    from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
+        HEAD_DIMS
     rows = []
     for lib, entry in info.items():
         found = [dict(r, library=lib) for r in ptxas_kernels(entry["ptxas"])
                  if "mma_kernel" in r["kernel"]]
-        if not found and entry["ptxas"] and lib in ("flash_attention",
-                                                    "ring_flash"):
-            raise AssertionError(f"{lib}: no tensor-core kernel in the "
-                                 f"ptxas report")
+        # a reused library has no report; a mangled name reads
+        # <length><name>ILi<head dim>E
+        expected = MMA_KERNELS.get(lib, ()) if entry["ptxas"] else ()
+        missing = [f"{n}<{d}>" for n in expected for d in HEAD_DIMS
+                   if not any(f"{len(n)}{n}ILi{d}E" in r["kernel"]
+                              for r in found)]
+        if missing:
+            raise AssertionError(f"{lib}: no tensor-core kernel "
+                                 f"{', '.join(missing)} in the ptxas report")
         rows += found
     spills = [r for r in rows if r.get("spill_stores", 1)
               or r.get("spill_loads", 1)]

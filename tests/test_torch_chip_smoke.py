@@ -343,18 +343,59 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
     assert "flash_fwd_mma_kernel" in rows[0]["kernel"]
 
 
+def mma_report(lib: str, spill: int = 0, drop: str = "") -> str:
+    """A ptxas report of every tensor-core kernel that ``lib`` must build
+    (``chip_smoke.MMA_KERNELS`` at D 64 and 128), the first spilling
+    ``spill`` bytes, ``drop`` (``name<d>``) left out."""
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name in chip_smoke.MMA_KERNELS[lib]:
+        for d in (64, 128):
+            if drop == f"{name}<{d}>":
+                continue
+            mangled = (f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvPK13"
+                       f"__nv_bfloat16")
+            lines += [
+                f"ptxas info    : Compiling entry function '{mangled}' for "
+                f"'sm_90a'",
+                f"ptxas info    : Function properties for {mangled}",
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads",
+                "ptxas info    : Used 226 registers, used 1 barriers"]
+            spill = 0
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("spill,ok", [(0, True), (8, False)])
 def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
     """Only the ``*_mma_kernel`` entries are held to no spills (the f32
-    CUDA-core kernel above spills and passes)."""
-    info = {"flash_attention": {"seconds": 9.0,
-                                "ptxas": PTXAS.format(spill=spill)}}
+    CUDA-core kernel of PTXAS spills and passes)."""
+    cuda_cores = PTXAS.format(spill=0).splitlines()[5:]  # flash_fwd_kernel
+    report = "\n".join([mma_report("flash_attention", spill), *cuda_cores])
+    info = {"flash_attention": {"seconds": 9.0, "ptxas": report}}
     if ok:
         rows = chip_smoke.check_mma_spills(info)
-        assert len(rows) == 1 and rows[0]["library"] == "flash_attention"
+        assert len(rows) == 6
+        assert {r["library"] for r in rows} == {"flash_attention"}
     else:
         with pytest.raises(AssertionError, match="spill"):
             chip_smoke.check_mma_spills(info)
+
+
+@pytest.mark.parametrize("drop", [
+    "", "ring_dq_mma_kernel<64>", "ring_dq_mma_kernel<128>",
+    "ring_dkv_mma_kernel<64>", "ring_dkv_mma_kernel<128>"])
+def test_a_ring_library_without_a_backward_tensor_core_kernel_fails(drop):
+    """The ring's bf16 dq and dk/dv must be built on the tensor cores at
+    both head dims; a report with all six ring kernels passes."""
+    info = {"ring_flash": {"seconds": 9.0,
+                           "ptxas": mma_report("ring_flash", drop=drop)},
+            "paged_attention": {"seconds": 0.0, "ptxas": ""}}
+    if not drop:
+        assert len(chip_smoke.check_mma_spills(info)) == 6
+        return
+    with pytest.raises(AssertionError, match="no tensor-core kernel") as e:
+        chip_smoke.check_mma_spills(info)
+    assert drop in str(e.value)
 
 
 def test_a_flash_library_without_tensor_core_kernels_fails():

@@ -10,8 +10,8 @@ runs on the GPU machine, from the repository root::
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
 2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 forward,
-dq and dk/dv and the bf16 ring forward on tensor cores, f32 on CUDA
-cores), the tensor-core kernels also bitwise repeatable; the gradient
+dq and dk/dv and the bf16 ring forward, dq and dk/dv on tensor cores,
+f32 on CUDA cores), the tensor-core kernels also bitwise repeatable; the gradient
 sync's
 masked reduce and int8 quantizers: bitwise (both sum the peers in order,
 and the quantizers' arithmetic is IEEE's, Philox drawn alike); the
@@ -228,13 +228,21 @@ def test_bf16_forward_kernel_matches_plain(cuda_device, case):
 @pytest.mark.cuda
 def test_bf16_backward_kernels_are_deterministic(cuda_device):
     """No atomics: dk and dv sum the GQA group in one block's registers,
-    so two launches give the same bits."""
+    so two launches give the same bits; the ring's dq and dk/dv too, on
+    a past hop into the same accumulators."""
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
     args, _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device)
     first = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
     second = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
+    q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[1], cuda_device)
+    saved = ring_saved_state(q, k, v, hop, seed=1)
+    _, (dq0, dk0, dv0) = ring_state(q, k, seed=1)
+    ring = [(rf.ring_dq(q, k, v, *saved, dq0.clone(), *hop),
+             *rf.ring_dkv(q, k, v, *saved, dk0.clone(), dv0.clone(), *hop))
+            for _ in range(2)]
     torch.cuda.synchronize()
-    for a, b in zip(first, second):
+    for a, b in zip(first + ring[0], second + ring[1]):
         assert torch.equal(a, b)
 
 
@@ -320,11 +328,11 @@ def test_ring_kernels_match_plain(cuda_device, case, dtype):
                                    rtol=tol_bwd)
 
 
-# the bf16 ring forward (ring_fwd_mma_kernel) over H = 16 heads, on a
-# carry that already holds a hop: (h_kv, head_dim, causal, t, q_off, k_off,
-# q_layout): the sequence-parallel slice's diagonal and past hops at a
-# smaller T, D 64, a ragged diagonal block (MQA), non-causal and a
-# strided q
+# the bf16 ring kernels (ring_{fwd,dq,dkv}_mma_kernel) over H = 16
+# heads, on a carry and accumulators that already hold a hop: (h_kv,
+# head_dim, causal, t, q_off, k_off, q_layout): the sequence-parallel
+# slice's diagonal and past hops at a smaller T, D 64, a ragged diagonal
+# block (MQA), non-causal and a strided q
 BF16_RING_CASES = [(4, 128, True, 256, 256, 256, "contiguous"),
                    (4, 128, True, 256, 256, 0, "contiguous"),
                    (4, 64, True, 192, 384, 192, "contiguous"),
@@ -391,6 +399,76 @@ def test_ring_forward_keeps_rows_without_live_keys_empty(cuda_device, dtype):
         got[2][:, 32:] / got[1][:, :, 32:].transpose(1, 2)[..., None],
         want[2][:, 32:] / want[1][:, :, 32:].transpose(1, 2)[..., None],
         atol=tol, rtol=tol)
+
+
+def ring_saved_state(q, k, v, hop, seed):
+    """dO, and the lse and delta of the hop's block alone (each row of
+    the bf16 ring cases has a live key in it, so both are finite)."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    q_off, k_off, causal = hop
+    rng = np.random.default_rng(seed)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        q.device, q.dtype)
+    o, lse = fa.flash_forward_reference(q, k, v, causal, None, q_off, k_off)
+    return do, lse, fa.attention_delta(o, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_RING_CASES)
+def test_bf16_ring_backward_matches_plain(cuda_device, case):
+    """The tensor-core dq and dk/dv (ring_dq_mma_kernel,
+    ring_dkv_mma_kernel) add the hop's f32 partials into nonzero f32
+    accumulators: held against acc0 + the plain partials at the bf16
+    tolerance (3e-2), with one launch each."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    q, k, v, hop = bf16_ring_inputs(case, cuda_device)
+    saved = ring_saved_state(q, k, v, hop, seed=case[3])
+    _, acc0 = ring_state(q, k, seed=case[3])
+    counts = (rf.RING_DQ_LAUNCHES, rf.RING_DKV_LAUNCHES)
+    dq = rf.ring_dq(q, k, v, *saved, acc0[0].clone(), *hop)
+    dk, dv = rf.ring_dkv(q, k, v, *saved, acc0[1].clone(), acc0[2].clone(),
+                         *hop)
+    torch.cuda.synchronize()
+    assert (rf.RING_DQ_LAUNCHES, rf.RING_DKV_LAUNCHES) == (counts[0] + 1,
+                                                           counts[1] + 1)
+    parts = rf.ring_bwd_reference(q, k, v, *saved, *hop)
+    tol = FLASH_TOL[torch.bfloat16][1]
+    for got, a0, part in zip((dq, dk, dv), acc0, parts):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, a0 + part, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_backward_leaves_rows_without_live_keys_unchanged(cuda_device,
+                                                               dtype):
+    """The backward twin of the forward test above: with k_off = 32, query
+    rows 0-31 have no live key in the block and keys 96-127 (positions
+    128-159) no live query, so their dq and dk/dv rows come back bitwise
+    equal to the accumulators they came in (p = 0 exactly on a masked
+    lane). lse and delta are finite, as in the ring, where every row has
+    a live key on its own diagonal hop: they come from that hop here. The
+    other rows match acc0 + the plain partials."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    q, k, v, do = flash_inputs(2, 128, 128, 128, 7, cuda_device, dtype)
+    o, lse = fa.flash_forward_reference(q, k, v)
+    saved = (do, lse, fa.attention_delta(o, do))
+    _, acc0 = ring_state(q, k, seed=7)
+    dq = rf.ring_dq(q, k, v, *saved, acc0[0].clone(), 0, 32)
+    dk, dv = rf.ring_dkv(q, k, v, *saved, acc0[1].clone(), acc0[2].clone(),
+                         0, 32)
+    torch.cuda.synchronize()
+    parts = rf.ring_bwd_reference(q, k, v, *saved, 0, 32)
+    tol = FLASH_TOL[dtype][1]
+    queries = (slice(0, 32), slice(32, None))  # (dead, live) rows
+    keys = (slice(96, None), slice(0, 96))
+    for got, a0, part, (dead, live) in ((dq, acc0[0], parts[0], queries),
+                                        (dk, acc0[1], parts[1], keys),
+                                        (dv, acc0[2], parts[2], keys)):
+        assert torch.equal(got[:, dead], a0[:, dead])
+        torch.testing.assert_close(got[:, live], (a0 + part)[:, live],
+                                   atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
