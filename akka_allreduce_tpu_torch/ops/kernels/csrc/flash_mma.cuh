@@ -9,9 +9,9 @@
 // carries and accumulators. One fold per product serves the flash and the
 // ring kernel: fwd_mma_fold, dq_mma_fold, dkv_mma_fold; each kernel adds
 // only its epilogue (the flash kernels store bf16, the ring's read and
-// write their f32 state in the fragments' layout). The f32 kernels stay
-// on the CUDA-core folds of flash_tiles.cuh (TF32 would break parity with
-// the f32 reference).
+// write their f32 state in the fragments' layout). In f32 the ring dq and
+// dk/dv run flash_tf32.cuh's split-TF32 folds; the other f32 kernels stay
+// on the CUDA-core folds of flash_tiles.cuh.
 //
 // Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
 // of every live (q, k) pair, hundreds of flops per byte moved, so the
@@ -289,17 +289,18 @@ __device__ __forceinline__ bool tile_full(int q0, int k0, const Geom& g) {
   return nearest >= 0 && (g.window <= 0 || farthest < g.window);
 }
 
-// dq's elementwise step on this lane's 16 x 64 score tile: s becomes
-// ds = p (dp - delta) scale, p = exp(s scale - lse), 0 on masked lanes.
-template <bool kFull>
-__device__ __forceinline__ void dq_scores(float (&s)[8][4],
-                                          const float (&dp)[8][4],
+// dq's elementwise step on this lane's 16 x 8N score tile (keys k0 +
+// ...): s becomes ds = p (dp - delta) scale, p = exp(s scale - lse), 0 on
+// masked lanes.
+template <bool kFull, int N>
+__device__ __forceinline__ void dq_scores(float (&s)[N][4],
+                                          const float (&dp)[N][4],
                                           int r0, int k0, int tq,
                                           const float (&lse2)[2],
                                           const float (&del)[2], float scale2,
                                           float scale, const Geom& g) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;

@@ -41,18 +41,20 @@
 //     t/8 + 32 of a tile and columns t%8 + 8j of a score tile, or 4-wide
 //     column groups (t%8)*4 + 32j of a D-wide accumulator, so a score
 //     row's 8 owners are 8 neighbouring lanes and its max and sum are 3
-//     shuffles. f32 inputs stay f32 (TF32 would break parity with the
-//     f32 reference); bf16 inputs widen to f32 on read.
+//     shuffles. f32 inputs stay f32 (one TF32 product would break parity
+//     with the f32 reference); bf16 inputs widen to f32 on read.
 //
 // These folds reach ~2% of the bf16 bound (the tensor cores' 989
 // TFLOP/s): every product an f32 FMA from shared memory, the score tiles
-// round-tripped through f32 shared memory, synchronous tile loads. So in
-// bf16 the flash forward and backward (attention.py _fwd_kernel :113,
-// _dq_kernel :153, _dkv_kernel :184) and the ring forward (ring_flash.py
-// _ring_fwd_kernel :61) run on tensor-core tiles instead: flash_mma.cuh,
-// the same cast points on mma.sync, ldmatrix and cp.async. The f32
-// kernels and the bf16 ring dq and dk/dv (ring_flash.cu) still run the
-// folds below.
+// round-tripped through f32 shared memory, synchronous tile loads. So
+// every bf16 flash and ring-flash kernel (attention.py _fwd_kernel :113,
+// _dq_kernel :153, _dkv_kernel :184; ring_flash.py _ring_fwd_kernel :61,
+// _ring_dq_kernel :94, _ring_dkv_kernel :121) runs on tensor-core tiles
+// instead (flash_mma.cuh: the same cast points on mma.sync, ldmatrix and
+// cp.async), and so do the f32 ring dq and dk/dv, in split TF32
+// (flash_tf32.cuh). The f32 flash forward, dq and dk/dv
+// (flash_attention.cu) and the f32 ring forward (ring_flash.cu) still run
+// the folds below.
 
 #pragma once
 

@@ -29,28 +29,35 @@
 // Each block owns its rows of the carry or of the accumulators, so they
 // are updated in place (no second copy of the f32 state on the card).
 // The tile arithmetic, cast points and masks are the flash kernels':
-// flash_tiles.cuh's folds in f32, flash_mma.cuh's in bf16, the same
-// functions that flash_attention.cu runs; ragged T is masked at the edge.
+// flash_mma.cuh's tensor-core folds in bf16, the same functions that
+// flash_attention.cu runs; in f32 the forward runs flash_tiles.cuh's
+// CUDA-core fold and dq and dk/dv the split-TF32 folds of flash_tf32.cuh.
+// Ragged T is masked at the edge.
 //
 // Bound: a hop is the flash kernel's work on a (T, T) block pair, ~4 (fwd),
 // ~6 (dq), ~8 (dk/dv) flops per D-element of every live (q, k) pair, so at
 // T = 1024, D = 128 the arithmetic rate bounds it (989 TFLOP/s bf16 on the
-// tensor cores, 67 TFLOP/s f32; a past hop at B 8, H 16, H_kv 4 in bf16:
-// forward 0.0695 ms, dq 0.1042, dk/dv 0.1390); the f32 carries and
-// accumulators add 2 x 4 B per D-element read and written, well under the
-// operations' time. What the design does about it: in bf16 every hop
-// kernel runs the flash kernels' tensor-core fold (flash_mma.cuh: mma.sync
-// from ldmatrix, the score tiles kept in registers, the streamed tiles
-// copied by cp.async under the products) and only its epilogue is the
-// ring's: ring_fwd_mma_kernel (fwd_mma_fold) loads and stores the carry,
-// ring_dq_mma_kernel (dq_mma_fold) and ring_dkv_mma_kernel (dkv_mma_fold)
-// add their f32 fragments into the accumulators, one float2 at a time.
-// f32 stays on the CUDA-core FMAs (flash_tiles.cuh): TF32 would break
-// parity with the f32 reference.
+// tensor cores; in f32 67 TFLOP/s on the CUDA cores, or ~165 TFLOP/s of
+// f32 work as three TF32 products at 495; a past hop at B 8, H 16, H_kv 4
+// in bf16: forward 0.0695 ms, dq 0.1042, dk/dv 0.1390; in split TF32: dq
+// 0.62, dk/dv 0.83); the f32 carries and accumulators add 2 x 4 B per
+// D-element read and written, well under the operations' time. What the
+// design does about it: in bf16 every hop kernel runs the flash kernels'
+// tensor-core fold (flash_mma.cuh: mma.sync from ldmatrix, the score
+// tiles kept in registers, the streamed tiles copied by cp.async under
+// the products) and only its epilogue is the ring's: ring_fwd_mma_kernel
+// (fwd_mma_fold) loads and stores the carry, ring_dq_mma_kernel
+// (dq_mma_fold) and ring_dkv_mma_kernel (dkv_mma_fold) add their f32
+// fragments into the accumulators, one float2 at a time. In f32,
+// ring_dq_tf32_mma_kernel (dq_tf32_fold) and ring_dkv_tf32_mma_kernel
+// (dkv_tf32_fold) put every product on the tensor cores as three TF32
+// products (one would break parity with the f32 reference) and add their
+// paired-column fragments one float4 at a time; the f32 forward stays on
+// the CUDA-core FMAs.
 
 #include <type_traits>
 
-#include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -180,120 +187,6 @@ ring_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------------- dq
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq_io, Geom g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + kTile * kLd;
-  T* sK = sDO + kTile * kLd;
-  T* sV = sK + kTile * kLd;
-  float* sDS = reinterpret_cast<float*>(sV + kTile * kLd);
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (g.H / g.Hkv);
-  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
-                  g.Tq - q0);
-  load_tile<T, D>(sDO, dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh,
-                  g.do_st, g.Tq - q0);
-  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq + q0;
-  float lse_r[kRows], del_r[kRows], acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    lse_r[i] = q0 + r < g.Tq ? lse[row0 + r] : 0.f;
-    del_r[i] = q0 + r < g.Tq ? delta[row0 + r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) acc[i][e] = 0.f;
-  }
-  dq_fold<T, D>(sQ, sDO, sK, sV, sDS, k, v, g, b, hk, q0, scale, lse_r,
-                del_r, acc);
-
-  const long long a_st = static_cast<long long>(g.H) * D;
-  float* base = dq_io + (static_cast<long long>(b) * g.Tq + q0) * a_st +
-                static_cast<long long>(h) * D + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    if (q0 + r >= g.Tq) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj) {
-      float4* p = reinterpret_cast<float4*>(base + r * a_st + 32 * jj);
-      float4 x = *p;
-      x.x += acc[i][4 * jj];
-      x.y += acc[i][4 * jj + 1];
-      x.z += acc[i][4 * jj + 2];
-      x.w += acc[i][4 * jj + 3];
-      *p = x;
-    }
-  }
-}
-
-// ------------------------------------------------------------------ dk/dv
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dk_io, float* __restrict__ dv_io, Geom g,
-                float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTile * kLd;
-  T* sQ = sV + kTile * kLd;
-  T* sDO = sQ + kTile * kLd;
-  float* sP = reinterpret_cast<float*>(sDO + kTile * kLd);
-  float* sDS = sP + kTile * kLdp;
-  float* sL = sDS + kTile * kLdp;
-  float* sDel = sL + kTile;
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  load_tile<T, D>(sK, k + b * g.k_sb + k0 * g.k_st + hk * g.k_sh, g.k_st,
-                  g.Tk - k0);
-  load_tile<T, D>(sV, v + b * g.v_sb + k0 * g.v_st + hk * g.v_sh, g.v_st,
-                  g.Tk - k0);
-  float dk_acc[kRows][D / 8], dv_acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-  dkv_fold<T, D>(sK, sV, sQ, sDO, sP, sDS, sL, sDel, q, dout, lse, delta, g,
-                 b, hk, k0, scale, dk_acc, dv_acc);
-
-  const long long a_st = static_cast<long long>(g.Hkv) * D;
-  const long long off = (static_cast<long long>(b) * g.Tk + k0) * a_st +
-                        static_cast<long long>(hk) * D + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    if (k0 + r >= g.Tk) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj) {
-      float4* pk = reinterpret_cast<float4*>(dk_io + off + r * a_st + 32 * jj);
-      float4* pv = reinterpret_cast<float4*>(dv_io + off + r * a_st + 32 * jj);
-      float4 xk = *pk, xv = *pv;
-      xk.x += dk_acc[i][4 * jj];
-      xk.y += dk_acc[i][4 * jj + 1];
-      xk.z += dk_acc[i][4 * jj + 2];
-      xk.w += dk_acc[i][4 * jj + 3];
-      xv.x += dv_acc[i][4 * jj];
-      xv.y += dv_acc[i][4 * jj + 1];
-      xv.z += dv_acc[i][4 * jj + 2];
-      xv.w += dv_acc[i][4 * jj + 3];
-      *pk = xk;
-      *pv = xv;
-    }
-  }
-}
-
 // ------------------------------------------------- dq and dk/dv, bf16
 // row[8 j + 2 (lane % 4) + {0, 1}] += this lane's accumulator pair of
 // fragment row i (0: lane / 4, 1: + 8), one float2 read-modify-write at a
@@ -375,8 +268,114 @@ ring_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- dq and dk/dv, f32
+// row[16 p + 4 (lane % 4) + {0..3}] += this lane's paired-column
+// accumulators of row i (0: lane / 4, 1: + 8), for column pairs p in
+// [P0, P1), one float4 read-modify-write per 16 columns (flash_tf32.cuh
+// paired_cols).
+template <int D, int P0 = 0, int P1 = D / 16>
+__device__ __forceinline__ void add_paired_row(float* row,
+                                               const float (&acc)[D / 8][4],
+                                               int i) {
+  row += 4 * (threadIdx.x % 4);
+#pragma unroll
+  for (int p = P0; p < P1; ++p) {
+    float4* ptr = reinterpret_cast<float4*>(row + 16 * p);
+    const float4 a = paired_cols<D>(acc, p, i);
+    float4 x = *ptr;
+    x.x += a.x;
+    x.y += a.y;
+    x.z += a.z;
+    x.w += a.w;
+    *ptr = x;
+  }
+}
+
+// The f32 hops on tensor cores in split TF32 (replace _ring_dq_kernel and
+// _ring_dkv_kernel for f32): flash_tf32.cuh's dq_tf32_fold and
+// dkv_tf32_fold on the hop's offsets, then the f32 partials added in
+// place into the travelling accumulators, each warp its half (dq: half
+// the columns of its rows; dk/dv: warps 0-3 dk, 4-7 dv). Bound: three
+// TF32 products a product at 495 TFLOP/s, ~165 TFLOP/s of f32 work (a
+// past hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62 ms, dk/dv 0.83);
+// the design's answer is in flash_tf32.cuh. The grids are the bf16
+// kernels' (dq the longest causal bands first), 8 warps a block
+// (kTf32Threads), one block an SM at D = 128 (~200 KB of shared memory),
+// two at D = 64; the launch bounds say one block an SM, so that ptxas
+// does not spill to fit more. The accumulator addresses are derived
+// afresh after the fold (opaque), so that no address stays live across
+// its main loop.
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+ring_dq_tf32_mma_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq_io, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float acc[D / 8][4];
+  dq_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse, delta,
+                  g, b, h, q0, scale, acc);
+
+  // warps 0-3 hold their rows' columns 0 .. D/2, warps 4-7 the rest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + 16 * (warp % 4) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    float* row =
+        dq_io + ((static_cast<long long>(be) * g.Tq + qi) * g.H + he) * D;
+    if (warp < 4)
+      add_paired_row<D, 0, D / 32>(row, acc, i);
+    else
+      add_paired_row<D, D / 32, D / 16>(row, acc, i);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+ring_dkv_tf32_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk_io, float* __restrict__ dv_io,
+                         Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  dkv_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse,
+                   delta, g, b, hk, k0, scale, dk_acc, dv_acc);
+
+  // warps 0-3 hold their rows' dk, warps 4-7 their dv
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kr0 = k0 + 16 * (warp % 4) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b));
+  const int hke = static_cast<int>(opaque(hk));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr0 + 8 * i;
+    if (kj >= g.Tk) continue;
+    const long long off =
+        ((static_cast<long long>(be) * g.Tk + kj) * g.Hkv + hke) * D;
+    if (warp < 4)
+      add_paired_row<D>(dk_io + off, dk_acc, i);
+    else
+      add_paired_row<D>(dv_io + off, dv_acc, i);
+  }
+}
+
 // ----------------------------------------------------------------- launch
-// f32 on the CUDA-core fold, bf16 on the tensor-core tiles (flash_mma.cuh)
+// bf16 on the tensor-core tiles (flash_mma.cuh); f32 forward on the
+// CUDA-core fold (flash_tiles.cuh), f32 dq and dk/dv on split TF32
+// (flash_tf32.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* m, void* l,
         void* acc, const Geom& g, float scale, cudaStream_t s) {
@@ -408,7 +407,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (std::is_same<T, bf16>::value)
     return run(ring_dq_mma_kernel<D>, dq_mma_smem<D>(), kMmaThreads);
   else
-    return run(ring_dq_kernel<T, D>, dq_smem<T, D>(), kThreads);
+    return run(ring_dq_tf32_mma_kernel<D>, dq_tf32_smem<D>(), kTf32Threads);
 }
 
 template <typename T, int D>
@@ -426,7 +425,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (std::is_same<T, bf16>::value)
     return run(ring_dkv_mma_kernel<D>, dkv_mma_smem<D>(), kMmaThreads);
   else
-    return run(ring_dkv_kernel<T, D>, dkv_smem<T, D>(), kThreads);
+    return run(ring_dkv_tf32_mma_kernel<D>, dkv_tf32_smem<D>(),
+               kTf32Threads);
 }
 
 }  // namespace

@@ -19,8 +19,10 @@ goes to the plain versions (:func:`ring_fwd_reference`,
 :func:`ring_bwd_reference`: ``_softmax_tile`` / ``_bwd_tile`` over the
 whole block, the JAX cast points); a CUDA tensor launches
 ``csrc/ring_flash.cu`` or raises: in bf16 the forward, dq and dk/dv on
-tensor cores (the flash kernels' folds, ``csrc/flash_mma.cuh``), in f32
-on CUDA cores (``csrc/flash_tiles.cuh``). :data:`RING_FWD_LAUNCHES`,
+tensor cores (the flash kernels' folds, ``csrc/flash_mma.cuh``); in f32
+dq and dk/dv on tensor cores (split TF32: three TF32 products a product,
+``csrc/flash_tf32.cuh``) and the forward on CUDA cores
+(``csrc/flash_tiles.cuh``). :data:`RING_FWD_LAUNCHES`,
 :data:`RING_DQ_LAUNCHES` and :data:`RING_DKV_LAUNCHES` count launches.
 
 :class:`RingFlashAttention` is the ring (``_ring_fwd`` /
@@ -152,7 +154,7 @@ def ring_dq(q, k, v, do, lse, delta, dq, q_off: int, k_off: int,
             causal: bool = True):
     """``dq += `` the hop's f32 partial dq, in place; returns dq. On CUDA
     tensors: one launch of the ring dq kernel (bf16 on tensor cores, f32
-    on CUDA cores)."""
+    on tensor cores in split TF32)."""
     global RING_DQ_LAUNCHES
     check_qkv(q, k, v)
     check_bwd(q, do, lse, delta)
@@ -173,8 +175,8 @@ def ring_dkv(q, k, v, do, lse, delta, dk, dv, q_off: int, k_off: int,
     """``dk, dv += `` the visiting block's f32 partials (H_kv heads, the
     group's query heads summed), in place; returns (dk, dv). On CUDA
     tensors: one launch of the ring dk/dv kernel (bf16 on tensor cores,
-    f32 on CUDA cores; one block per key tile and KV head walks the whole
-    group: no atomics)."""
+    f32 on tensor cores in split TF32; one block per key tile and KV head
+    walks the whole group: no atomics)."""
     global RING_DKV_LAUNCHES
     check_qkv(q, k, v)
     check_bwd(q, do, lse, delta)

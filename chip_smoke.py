@@ -9,8 +9,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    convolutions, so every f32 product runs in full f32.
 2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
    per source, all started together), timed, with ptxas's report and,
-   per tensor-core kernel (``*_mma_kernel``), its registers and spill
-   bytes: any spill fails the phase.
+   per tensor-core kernel (``*_mma_kernel``: the bf16 flash and ring
+   forward, dq and dk/dv, and the ring's f32 dq and dk/dv in split TF32),
+   its registers and spill bytes: any spill fails the phase, and so does
+   a fresh build that lacks one of ``MMA_KERNELS`` at D 64 or 128.
 3. kernels — hold each kernel against its plain PyTorch version on the
    same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
    the serving slice's shape, MHA, MQA, a larger page, and the position
@@ -95,8 +97,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    envelope of the exact sum, and the counts exact.
 
 11. ring kernels — hold the ring-flash forward, dq and dk/dv kernels
-   (one hop each; the bf16 forward on tensor cores, the rest on CUDA
-   cores) against their plain PyTorch versions on the same CUDA tensors,
+   (one hop each; bf16 all three on tensor cores, f32 dq and dk/dv on
+   tensor cores in split TF32, the f32 forward on CUDA cores) against
+   their plain PyTorch versions on the same CUDA tensors,
    f32 at 2e-5 (the carry: m, l and acc / l, the output the unnormalised
    acc stands for) and 5e-5 (the gradient accumulators), bf16 at 3e-2:
    at the sequence-parallel slice's shape (B 8, T_local 1024, 16 heads
@@ -107,7 +110,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    forward and backward on the same q and K/V block: causal on the
    diagonal hop, unmasked on the past hop; it merges no carry and returns
    its gradients in the inputs' dtype) timed as above, each kernel's
-   bound computed from the hop's live (q, k) pairs.
+   bound computed from the hop's live (q, k) pairs (f32 dq and dk/dv
+   also at the split-TF32 rate, 495 / 3 TFLOP/s, beside the CUDA cores'
+   67).
 12. ring at four ranks — four gloo ranks on the card (B 2, T 4 x 512,
    16 heads of 128, 4 KV heads; f32 and bf16): ``ring_flash_attention``
    forward and backward held against the one-rank ``flash_attention`` on
@@ -118,14 +123,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    KV heads, rope, 8 layers, d_ff 8192, vocab 32768) in bf16, batch 8,
    seq 2048, 3 steps on one card through the flash kernels, then the
    same through ``train --sp 2 --dist-backend gloo`` (f32 wire; two rank
-   processes share the card, each on 1024 positions of every row).
-   Asserts finite losses within 1e-3 relative of the one-card run's (f32
-   reordering and bf16 rounding at other running maxima; a lost hop or a
-   wrong offset moves the loss far more), parameters bitwise equal on
-   both ranks, and on rank r the ring kernels launched 8 (r + 1) times
-   per step each, the flash kernels never, ``masked_reduce`` once per
-   step. Reports wall, sync and attention-exchange ms per step,
-   tokens/s and each rank's peak memory.
+   processes share the card, each on 1024 positions of every row); then
+   the same in f32, the CLI's default dtype (no ``--bf16``: the f32 ring
+   dq and dk/dv in split TF32), at batch 4 for 2 steps.
+   Each run asserts finite losses within 1e-3 relative of its one-card
+   run's (f32 reordering and bf16 rounding at other running maxima; a
+   lost hop or a wrong offset moves the loss far more), parameters
+   bitwise equal on both ranks, and on rank r the ring kernels launched
+   8 (r + 1) times per step each, the flash kernels never,
+   ``masked_reduce`` once per step. Reports wall, sync and
+   attention-exchange ms per step, tokens/s and each rank's peak memory.
 
 14. allreduce — the peer-memory ring and swing allreduce (kernel B8)
    across rank processes on the one card: gloo carries only the IPC
@@ -165,7 +172,9 @@ import sys
 import time
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, 700 W
+# dense, 700 W; "tf32x3": f32 work as three TF32 tensor-core products
+# (split TF32) at the card's 495 TFLOP/s of TF32
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 DEVICE = "cuda"  # the training phases' device (a CPU rehearsal sets "cpu")
 
 SERVE_ARGV = [
@@ -299,6 +308,13 @@ SP_ARGV = [
     "--rope", "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768",
     "--seq", "2048", "--batch", "8", "--bf16", "--lr", "1e-4", "--steps",
     "3", "--log-every", "1", "--device", "cuda"]
+# and the CLI's default dtype, f32 (no --bf16): batch 4, 2 steps
+SP_F32_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--kv-heads", "4",
+    "--rope", "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768",
+    "--seq", "2048", "--batch", "4", "--lr", "1e-4", "--steps", "2",
+    "--log-every", "1", "--device", "cuda"]
+SP_RUNS = {"bfloat16": SP_ARGV, "float32": SP_F32_ARGV}
 SP_LOSS_RTOL = 1e-3
 # phase 14: the flagship's bucket matrix (ceil(541.1M params / 65,536)
 # rows of 65,536 f32) flattened, at two ranks; a 64M slice at four
@@ -320,13 +336,15 @@ FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
     "flash_dq": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:153",
     "flash_dkv": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:184"}
-# the bf16 kernels each flash library must build on the tensor cores, at
-# every head dim the wrappers take (HEAD_DIMS)
+# the tensor-core kernels each flash library must build (bf16, and the
+# ring's f32 dq and dk/dv in split TF32), at every head dim the wrappers
+# take (HEAD_DIMS)
 MMA_KERNELS = {
     "flash_attention": ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                         "flash_dkv_mma_kernel"),
     "ring_flash": ("ring_fwd_mma_kernel", "ring_dq_mma_kernel",
-                   "ring_dkv_mma_kernel")}
+                   "ring_dkv_mma_kernel", "ring_dq_tf32_mma_kernel",
+                   "ring_dkv_tf32_mma_kernel")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1252,12 +1270,13 @@ def phase_sync4(torch) -> dict:
     return {"cases": len(SYNC4_CASES)}
 
 
-def ring_bounds(torch, q, k, causal, q_off, k_off) -> dict:
+def ring_bounds(torch, q, k, causal, q_off, k_off, peak=None) -> dict:
     """Each ring kernel's least time for one hop: the flash kernels'
     operations over the hop's live (q, k) pairs, and its bytes: q, k, v
     (dO, lse and delta backward) read once, and its f32 state read and
     written once: the carries (m, l) and acc forward, dq or (dk, dv)
-    backward."""
+    backward. The operations at ``PEAK_FLOPS[peak]`` (default: the
+    inputs' dtype)."""
     from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
         score_mask
     b, t, h, d = q.shape
@@ -1267,7 +1286,7 @@ def ring_bounds(torch, q, k, causal, q_off, k_off) -> dict:
     es = q.element_size()
     qb, kb, rows = q.numel() * es, k.numel() * es, 4 * b * h * t
     q32, k32 = 4 * q.numel(), 4 * k.numel()
-    dtype = str(q.dtype).split(".")[-1]
+    dtype = peak or str(q.dtype).split(".")[-1]
     return {"ring_fwd": bound(4 * d * pairs,
                               qb + 2 * kb + 4 * rows + 2 * q32, dtype),
             "ring_dq": bound(6 * d * pairs,
@@ -1363,6 +1382,13 @@ def phase_ring_kernels(torch) -> dict:
                     "gradients in the inputs' dtype")
                 row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
                 row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+                if dtype == torch.float32:
+                    # dq and dk/dv run three TF32 products a product; the
+                    # forward stays on the CUDA cores (bound_ms above)
+                    split = ring_bounds(torch, q, k, causal, q_off, k_off,
+                                        "tf32x3")
+                    row["bound_tf32x3_ms"] = {
+                        k_: split[k_][0] for k_ in ("ring_dq", "ring_dkv")}
                 del lib_bwd, st, acc
                 timed[name, str(dtype)] = row
             emit("ring_kernels", **row)
@@ -1458,18 +1484,25 @@ def phase_ring4(torch) -> dict:
 
 def phase_train_sp(torch) -> dict:
     """``run_train`` on one card and then at ``--sp 2`` (the main path of
-    the ring kernels); the ranks are fresh processes whose counters start
-    at 0. Returns the ring kernels' launches summed over the ranks."""
+    the ring kernels), in bf16 and in the CLI's default f32 (``SP_RUNS``).
+    Returns, per dtype, the ring kernels' launches summed over the
+    ranks."""
+    return {dtype: train_sp(torch, argv, dtype)
+            for dtype, argv in SP_RUNS.items()}
+
+
+def train_sp(torch, argv: list, dtype: str) -> dict:
+    """One ``SP_RUNS`` entry: the one-card run, then ``--sp 2``; the ranks
+    are fresh processes whose counters start at 0."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
-    one_args = parse(SP_ARGV)
+    one_args = parse(argv)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     one = cli.run_train(one_args)
     one_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    args = parse(SP_ARGV + ["--sp", str(SP_WORLD), "--dist-backend",
-                            "gloo"])
+    args = parse(argv + ["--sp", str(SP_WORLD), "--dist-backend", "gloo"])
     t0 = time.perf_counter()
     report = cli.run_train(args)
     seconds = time.perf_counter() - t0
@@ -1492,6 +1525,7 @@ def phase_train_sp(torch) -> dict:
               if k_ != "masked_reduce" and v]
     sums = [r["param_checksum"] for r in ranks]
     out = {
+        "dtype": dtype, "batch": args.batch, "steps": steps,
         "sp": SP_WORLD, "backend": report["dist"]["backend"],
         "world": report["dist"]["world"], "transport":
             "gloo: host memory (device -> host -> device), not NVLink",
@@ -1947,19 +1981,27 @@ def main() -> int:
             "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
-    rrow = ring["slice-past", "torch.bfloat16"]  # sp=2 runs bf16
-    for kernel, err_keys, part in (("ring_fwd", ("m", "l", "acc"), "forward"),
-                                   ("ring_dq", ("dq",), "backward"),
-                                   ("ring_dkv", ("dk", "dv"), "backward")):
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": RING_SOURCE,
-            "replaces": RING_REPLACES[kernel],
-            "launches": ring_launches[kernel],
-            "max_abs_err": max(rrow["max_abs_err"][k] for k in err_keys),
-            "ms": rrow["ms"][kernel], "plain_ms": rrow["plain_ms"][part],
-            "bound_ms": rrow["bound_ms"][kernel],
-            "bound_by": rrow["bound_by"][kernel],
-            "library_ms": rrow["library_ms"][part]})
+    # the ring kernels of phase 13's two runs: bf16, and f32 (named with
+    # _f32: the split-TF32 dq and dk/dv, the CUDA-core forward), each
+    # timed at phase 11's past hop; the f32 dq and dk/dv bound is that of
+    # their three TF32 products
+    for dtype, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        rrow = ring["slice-past", f"torch.{dtype}"]
+        for kernel, err_keys, part in (
+                ("ring_fwd", ("m", "l", "acc"), "forward"),
+                ("ring_dq", ("dq",), "backward"),
+                ("ring_dkv", ("dk", "dv"), "backward")):
+            split = rrow.get("bound_tf32x3_ms", {})
+            kernels.append({
+                "name": kernel + suffix, "route": "cuda",
+                "source": RING_SOURCE, "replaces": RING_REPLACES[kernel],
+                "launches": ring_launches[dtype][kernel],
+                "max_abs_err": max(rrow["max_abs_err"][k]
+                                   for k in err_keys),
+                "ms": rrow["ms"][kernel], "plain_ms": rrow["plain_ms"][part],
+                "bound_ms": split.get(kernel, rrow["bound_ms"][kernel]),
+                "bound_by": rrow["bound_by"][kernel],
+                "library_ms": rrow["library_ms"][part]})
     for kernel, replaces in ALLREDUCE_REPLACES.items():
         arow = allreduce[kernel]
         kernels.append({

@@ -97,6 +97,22 @@ def test_ring_bounds_count_the_hop(q_off, k_off, live):
                                              "ring_dkv"}
 
 
+def test_ring_bounds_at_the_split_tf32_rate():
+    """f32 dq and dk/dv run three TF32 products a product: their bound at
+    495 / 3 TFLOP/s, beside the CUDA cores' 67, on the same live pairs
+    and bytes (a past hop at phase 11's head dim, operations-bound)."""
+    b, t, h, h_kv, d = 2, 256, 4, 2, 128
+    q = torch.zeros((b, t, h, d))
+    k = torch.zeros((b, t, h_kv, d))
+    cuda_cores = chip_smoke.ring_bounds(torch, q, k, True, t, 0)
+    split = chip_smoke.ring_bounds(torch, q, k, True, t, 0, "tf32x3")
+    assert chip_smoke.PEAK_FLOPS["tf32x3"] == pytest.approx(495e12 / 3)
+    for name, per_pair in (("ring_dq", 6), ("ring_dkv", 8)):
+        assert split[name] == (pytest.approx(
+            per_pair * d * b * h * t * t / (495e12 / 3) * 1e3), "operations")
+        assert cuda_cores[name][0] == pytest.approx(
+            split[name][0] * (495e12 / 3) / 67e12)
+
 def test_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal needs one without")
@@ -383,15 +399,18 @@ def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
 
 @pytest.mark.parametrize("drop", [
     "", "ring_dq_mma_kernel<64>", "ring_dq_mma_kernel<128>",
-    "ring_dkv_mma_kernel<64>", "ring_dkv_mma_kernel<128>"])
+    "ring_dkv_mma_kernel<64>", "ring_dkv_mma_kernel<128>",
+    "ring_dq_tf32_mma_kernel<64>", "ring_dq_tf32_mma_kernel<128>",
+    "ring_dkv_tf32_mma_kernel<64>", "ring_dkv_tf32_mma_kernel<128>"])
 def test_a_ring_library_without_a_backward_tensor_core_kernel_fails(drop):
-    """The ring's bf16 dq and dk/dv must be built on the tensor cores at
-    both head dims; a report with all six ring kernels passes."""
+    """The ring's dq and dk/dv must be built on the tensor cores at both
+    head dims, in bf16 and in f32 (split TF32); a report with all ten
+    ring kernels passes."""
     info = {"ring_flash": {"seconds": 9.0,
                            "ptxas": mma_report("ring_flash", drop=drop)},
             "paged_attention": {"seconds": 0.0, "ptxas": ""}}
     if not drop:
-        assert len(chip_smoke.check_mma_spills(info)) == 6
+        assert len(chip_smoke.check_mma_spills(info)) == 10
         return
     with pytest.raises(AssertionError, match="no tensor-core kernel") as e:
         chip_smoke.check_mma_spills(info)

@@ -11,10 +11,11 @@ paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
 2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 forward,
 dq and dk/dv and the bf16 ring forward, dq and dk/dv on tensor cores,
-f32 on CUDA cores), the tensor-core kernels also bitwise repeatable; the gradient
-sync's
-masked reduce and int8 quantizers: bitwise (both sum the peers in order,
-and the quantizers' arithmetic is IEEE's, Philox drawn alike); the
+the f32 ring dq and dk/dv on tensor cores in split TF32, the other f32
+kernels on CUDA cores), the tensor-core kernels also bitwise repeatable;
+the gradient sync's masked reduce and int8 quantizers: bitwise (both sum
+the peers in order, and the quantizers' arithmetic is IEEE's, Philox
+drawn alike); the
 peer-memory ring and swing allreduce: bitwise, on two rank processes that
 share the card through CUDA IPC (the same adds in the same order);
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
@@ -341,11 +342,11 @@ BF16_RING_CASES = [(4, 128, True, 256, 256, 256, "contiguous"),
                    (4, 128, True, 256, 512, 256, "bhtd")]
 
 
-def bf16_ring_inputs(case, device):
+def bf16_ring_inputs(case, device, dtype=torch.bfloat16):
     h_kv, d, causal, t, q_off, k_off, layout = case
     rng = np.random.default_rng(t * 3 + q_off + k_off + d + h_kv)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
-               .to(device, torch.bfloat16)
+               .to(device, dtype)
                for s in ((2, t, 16, d), (2, t, h_kv, d), (2, t, h_kv, d)))
     if layout == "bhtd":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
@@ -414,14 +415,17 @@ def ring_saved_state(q, k, v, hop, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BF16_RING_CASES)
-def test_bf16_ring_backward_matches_plain(cuda_device, case):
-    """The tensor-core dq and dk/dv (ring_dq_mma_kernel,
-    ring_dkv_mma_kernel) add the hop's f32 partials into nonzero f32
-    accumulators: held against acc0 + the plain partials at the bf16
-    tolerance (3e-2), with one launch each."""
+def test_bf16_ring_backward_matches_plain(cuda_device, case, dtype):
+    """The tensor-core dq and dk/dv (bf16: ring_dq_mma_kernel,
+    ring_dkv_mma_kernel; f32: ring_dq_tf32_mma_kernel,
+    ring_dkv_tf32_mma_kernel, in split TF32) add the hop's f32 partials
+    into nonzero f32 accumulators: held against acc0 + the plain partials
+    at the dtype's gradient tolerance (bf16 3e-2, f32 5e-5), with one
+    launch each."""
     from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
-    q, k, v, hop = bf16_ring_inputs(case, cuda_device)
+    q, k, v, hop = bf16_ring_inputs(case, cuda_device, dtype)
     saved = ring_saved_state(q, k, v, hop, seed=case[3])
     _, acc0 = ring_state(q, k, seed=case[3])
     counts = (rf.RING_DQ_LAUNCHES, rf.RING_DKV_LAUNCHES)
@@ -432,7 +436,7 @@ def test_bf16_ring_backward_matches_plain(cuda_device, case):
     assert (rf.RING_DQ_LAUNCHES, rf.RING_DKV_LAUNCHES) == (counts[0] + 1,
                                                            counts[1] + 1)
     parts = rf.ring_bwd_reference(q, k, v, *saved, *hop)
-    tol = FLASH_TOL[torch.bfloat16][1]
+    tol = FLASH_TOL[dtype][1]
     for got, a0, part in zip((dq, dk, dv), acc0, parts):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         torch.testing.assert_close(got, a0 + part, atol=tol, rtol=tol)

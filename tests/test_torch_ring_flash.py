@@ -9,7 +9,11 @@ flash parity tests' tolerance): the output and dq, dk, dv for MHA, GQA,
 MQA and non-causal; a ragged T_local (40, no 16-wide block) against
 JAX's pure ``ring_attention``; the port's plain ring and its windowed-SP
 paths against JAX's; and each hop's plain kernel functions against the
-JAX kernels through the carry at fixed offset pairs. The group's
+JAX kernels through the carry at fixed offset pairs. The f32 ring dq and
+dk/dv run their products on the tensor cores in split TF32 (three TF32
+products a product); an emulation of that arithmetic in plain torch is
+held against the JAX kernels at the f32 gradient tolerance (5e-5), and a
+single TF32 product must miss it. The group's
 ``ppermute`` runs on a (dp 2, sp 3) mesh, where a shift and a pairwise
 exchange differ.
 """
@@ -27,6 +31,9 @@ from akka_allreduce_tpu.ops.pallas_kernels import ring_flash as jrf
 from akka_allreduce_tpu.parallel import ring_attention as jra
 from akka_allreduce_tpu.parallel.mesh import MeshSpec, make_device_mesh
 from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+from akka_allreduce_tpu_torch.ops.kernels.flash_attention import score_mask
+from akka_allreduce_tpu_torch.parallel.ring_attention import (
+    NEG_INF, expand_kv_heads)
 from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 from torch_sp_ranks import attention_vjp, ppermute_probe
 
@@ -172,6 +179,111 @@ def test_one_hop_matches_jax_kernels(offs, causal, h_kv):
     for g, w in zip(acc, want_parts):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
     assert rf.counts() == {"ring_fwd": 0, "ring_dq": 0, "ring_dkv": 0}
+
+
+# -- split TF32: the f32 ring backward's products, emulated ----------------
+
+GRAD_TOL = dict(atol=5e-5, rtol=5e-5)  # chip_smoke phase 11's f32 bound
+
+
+def _tf32_bits(x: torch.Tensor, add: int) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + add) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low
+    mantissa bits dropped, to nearest, ties away from zero (half an ulp
+    added to the magnitude's bit pattern, then truncated)."""
+    return _tf32_bits(x, 0x1000)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor core reads a tf32 operand: the 13 low mantissa
+    bits ignored (truncated toward zero)."""
+    return _tf32_bits(x, 0)
+
+
+def split_tf32_backward(q, k, v, do, lse, delta, q_off, k_off, causal,
+                        products: int):
+    """The hop's f32 partials (dq, dk, dv) with every product as the
+    tensor-core kernels compute it (``flash_tf32.cuh split_tf32``): each
+    operand split into hi = tf32(x) and lo = x - hi as the tensor core
+    reads it (truncated), and ``products`` = 3 (hi.lo + lo.hi + hi.hi,
+    lo.lo dropped) or 1 (hi.hi alone, one TF32 product). The rest is
+    ``_bwd_tile``'s arithmetic in f32, dk/dv summed over the group."""
+    def mm(spec, a, b):
+        ah, bh = tf32(a), tf32(b)
+        out = torch.einsum(spec, ah, bh)
+        if products == 3:
+            out = (torch.einsum(spec, tf32_trunc(a - ah), bh)
+                   + torch.einsum(spec, ah, tf32_trunc(b - bh)) + out)
+        return out
+
+    scale = q.shape[-1] ** -0.5
+    k_e, v_e = expand_kv_heads(q, k, v)
+    s = mm("bqhd,bkhd->bhqk", q, k_e) * scale
+    mask = score_mask(q.shape[1], k.shape[1], causal, None, q_off, k_off,
+                      q.device)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])  # masked lanes exactly 0
+    dp = mm("bqhd,bkhd->bhqk", do, v_e)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = mm("bhqk,bkhd->bqhd", ds, k_e)
+    dv = mm("bhqk,bqhd->bkhd", p, do)
+    dk = mm("bhqk,bqhd->bkhd", ds, q)
+    b, tk, h_kv, d = k.shape
+    g = q.shape[2] // h_kv
+    return (dq, dk.reshape(b, tk, h_kv, g, d).sum(dim=3),
+            dv.reshape(b, tk, h_kv, g, d).sum(dim=3))
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # a TF32 value: 10 mantissa bits
+    x = torch.tensor([1.0, one, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -12, 0.0])
+    want = torch.tensor([1.0, one, one, -one, 1.0, one, 0.0])
+    assert torch.equal(tf32(x), want)
+    assert torch.equal(tf32_trunc(x), torch.tensor(
+        [1.0, one, 1.0, -1.0, 1.0, 1.0, 0.0]))
+    y = torch.from_numpy(np.random.default_rng(0).normal(
+        size=1000).astype(np.float32))
+    hi = tf32(y)
+    assert float(((y - hi) / y).abs().max()) <= 2.0 ** -11
+    # the split's remainder, as the tensor core reads lo
+    assert float(((y - hi - tf32_trunc(y - hi)) / y).abs().max()) \
+        <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("offs,causal,h_kv", [
+    ((32, 32), True, 4),    # the diagonal hop, MHA
+    ((64, 0), True, 4),     # a past hop: every pair live
+    ((32, 32), True, 1),    # the diagonal hop, MQA
+    ((64, 0), True, 1),     # a past hop, MQA
+    ((32, 96), False, 4)])  # non-causal
+def test_split_tf32_backward_matches_jax_kernels(offs, causal, h_kv, seed):
+    """The split-TF32 arithmetic of ``ring_dq_tf32_mma_kernel`` and
+    ``ring_dkv_tf32_mma_kernel`` (emulated) against JAX's
+    ``_ring_dq_kernel`` / ``_ring_dkv_kernel`` in interpret mode, within
+    the f32 tolerance; one TF32 product a product misses it in each of
+    dq, dk and dv, which is why the kernels take three."""
+    q, k, v, do = inputs(h_kv, 32, seed=100 + seed)
+    t = torch.from_numpy
+    m0 = torch.full((B, H, 32), -1e30)
+    carry = [x.contiguous() for x in rf.ring_fwd_reference(
+        t(q), t(k), t(v), m0, torch.zeros_like(m0), torch.zeros(B, 32, H, D),
+        0, 0)]
+    _, lse, delta, want = _jax_hop(q, k, v, do, [x.numpy() for x in carry],
+                                   offs, causal)
+    args = (t(q), t(k), t(v), t(do), t(lse), t(delta), *offs, causal)
+    for got, w in zip(split_tf32_backward(*args, products=3), want):
+        np.testing.assert_allclose(got.numpy(), w, **GRAD_TOL)
+    for got, w in zip(split_tf32_backward(*args, products=1), want):
+        assert not np.allclose(got.numpy(), w, **GRAD_TOL)
 
 
 def test_wrappers_refuse_a_bad_carry():
