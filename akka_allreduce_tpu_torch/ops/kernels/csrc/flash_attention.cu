@@ -9,29 +9,35 @@
 // g = H / H_kv): o = softmax(s) v with lse = m + log(l) (online softmax),
 // dq and (dk, dv) recomputed from lse and delta = rowsum(dO . O). The tile
 // arithmetic, its cast points, the work layout and the masks are those of
-// flash_tiles.cuh, which ring_flash.cu shares; each kernel here is a
-// prologue (load its own tile, zero its state), one fold over the other
-// side's tiles, and an epilogue that stores the result in the input
-// dtype. The bf16 kernels keep that arithmetic on tensor cores: their
-// folds (flash_mma.cuh fwd_mma_fold, dq_mma_fold, dkv_mma_fold) are the
-// ones ring_flash.cu's bf16 kernels run.
+// flash_tiles.cuh, which ring_flash.cu shares; each kernel here is one
+// fold over the other side's tiles (which loads its own tile and zeroes
+// its state) and an epilogue that stores the result. Every fold but the
+// f32 forward's is one that ring_flash.cu's kernel of the same product
+// runs too.
 //
 // Bound: at the training shape (T = 2048, D = 128) the work is ~4 (fwd),
 // ~6 (dq) and ~8 (dk/dv) flops per D-element of every live (q, k) pair,
 // hundreds of flops per byte moved, so the arithmetic rate bounds it: the
-// tensor cores' 989 TFLOP/s for bf16, 67 TFLOP/s for f32 on CUDA cores
-// (B 8, T 2048, H 16, D 128, causal, bf16: fwd 0.139 ms, dq 0.209 ms,
-// dk/dv 0.278 ms). What the design does about it, per dtype:
+// tensor cores' 989 TFLOP/s for bf16 (B 8, T 2048, H 16, D 128, causal:
+// fwd 0.139 ms, dq 0.209 ms, dk/dv 0.278 ms); for f32 the CUDA cores' 67
+// TFLOP/s (fwd 2.05 ms), or ~165 TFLOP/s of f32 work as three TF32
+// tensor-core products (dq 1.25 ms, dk/dv 1.67 ms). What the design does
+// about it, per dtype:
 //   * bf16 (_fwd_kernel, _dq_kernel, _dkv_kernel): tensor-core tiles,
 //     flash_mma.cuh (mma.sync m16n8k16 from ldmatrix, the score tiles
 //     kept in registers, the streamed tiles double-buffered by cp.async):
 //     flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel;
-//   * f32: CUDA-core FMAs from shared memory (the folds of
-//     flash_tiles.cuh); TF32 would break parity with the f32 reference.
+//   * f32 dq and dk/dv (_dq_kernel, _dkv_kernel): tensor-core tiles in
+//     split TF32, flash_tf32.cuh (each product as three TF32 products,
+//     hi.lo + lo.hi + hi.hi, which keeps parity with the f32 reference
+//     where one TF32 product would break it): flash_dq_tf32_mma_kernel,
+//     flash_dkv_tf32_mma_kernel;
+//   * f32 forward (_fwd_kernel): CUDA-core FMAs from shared memory
+//     (flash_tiles.cuh fwd_fold): flash_fwd_kernel.
 
 #include <type_traits>
 
-#include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -117,52 +123,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // --------------------------------------------------------------------- dq
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, Geom g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + kTile * kLd;
-  T* sK = sDO + kTile * kLd;
-  T* sV = sK + kTile * kLd;
-  float* sDS = reinterpret_cast<float*>(sV + kTile * kLd);
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (g.H / g.Hkv);
-  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
-                  g.Tq - q0);
-  load_tile<T, D>(sDO, dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh,
-                  g.do_st, g.Tq - q0);
-  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq + q0;
-  float lse_r[kRows], del_r[kRows], acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    lse_r[i] = q0 + r < g.Tq ? lse[row0 + r] : 0.f;
-    del_r[i] = q0 + r < g.Tq ? delta[row0 + r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) acc[i][e] = 0.f;
-  }
-  dq_fold<T, D>(sQ, sDO, sK, sV, sDS, k, v, g, b, hk, q0, scale, lse_r,
-                del_r, acc);
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + kRowStep * i;
-    if (qi >= g.Tq) continue;
-    T* row = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) store(row + 4 * tx + 32 * jj + e, acc[i][4 * jj + e]);
-  }
-}
-
 // The bf16 dq (replaces _dq_kernel for bf16): dq_mma_fold, then dq
 // rounded to bf16. The causal band grows with the query tile, so the
 // longest blocks go first.
@@ -194,54 +154,30 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ dk/dv
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, Geom g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTile * kLd;
-  T* sQ = sV + kTile * kLd;
-  T* sDO = sQ + kTile * kLd;
-  float* sP = reinterpret_cast<float*>(sDO + kTile * kLd);
-  float* sDS = sP + kTile * kLdp;
-  float* sL = sDS + kTile * kLdp;
-  float* sDel = sL + kTile;
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  load_tile<T, D>(sK, k + b * g.k_sb + k0 * g.k_st + hk * g.k_sh, g.k_st,
-                  g.Tk - k0);
-  load_tile<T, D>(sV, v + b * g.v_sb + k0 * g.v_st + hk * g.v_sh, g.v_st,
-                  g.Tk - k0);
-  float dk_acc[kRows][D / 8], dv_acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-  dkv_fold<T, D>(sK, sV, sQ, sDO, sP, sDS, sL, sDel, q, dout, lse, delta, g,
-                 b, hk, k0, scale, dk_acc, dv_acc);
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kj = k0 + ty + kRowStep * i;
-    if (kj >= g.Tk) continue;
-    const long long off = ((static_cast<long long>(b) * g.Tk + kj) * g.Hkv + hk) * D;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        store(dk + off + 4 * tx + 32 * jj + e, dk_acc[i][4 * jj + e]);
-        store(dv + off + 4 * tx + 32 * jj + e, dv_acc[i][4 * jj + e]);
-      }
-  }
+// The f32 dq on tensor cores in split TF32 (replaces _dq_kernel for f32;
+// bound by three TF32 products a product, 1.25 ms at the training
+// shape): flash_tf32.cuh's dq_tf32_fold on the flash grid, the longest
+// causal bands first, then each warp stores its half of its rows, one
+// float4 per 16 columns (dq_tf32_epilogue).
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_dq_tf32_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float acc[D / 8][4];
+  dq_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse, delta,
+                  g, b, h, q0, scale, acc);
+  dq_tf32_epilogue<false, D>(dq, acc, g, b, h, q0);
 }
 
+// ------------------------------------------------------------------ dk/dv
 // The bf16 dk/dv (replaces _dkv_kernel for bf16): dkv_mma_fold, then dk
 // and dv rounded to bf16, written once (no atomics).
 template <int D>
@@ -275,8 +211,33 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The f32 dk/dv on tensor cores in split TF32 (replaces _dkv_kernel for
+// f32; 1.67 ms at the training shape): dkv_tf32_fold on the flash grid in
+// blockIdx order (key tile 0 has the longest causal band), then warps
+// 0-3 store their rows' dk and warps 4-7 their dv, written once (no
+// atomics: dkv_tf32_epilogue).
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_dkv_tf32_mma_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  dkv_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse,
+                   delta, g, b, hk, k0, scale, dk_acc, dv_acc);
+  dkv_tf32_epilogue<false, D>(dk, dv, dk_acc, dv_acc, g, b, hk, k0);
+}
+
 // ----------------------------------------------------------------- launch
-// f32 on the CUDA-core folds, bf16 on the tensor-core tiles (flash_mma.cuh)
+// bf16 on the tensor-core tiles (flash_mma.cuh); the f32 forward on the
+// CUDA-core fold (flash_tiles.cuh), the f32 dq and dk/dv on split TF32
+// (flash_tf32.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         const Geom& g, float scale, cudaStream_t s) {
@@ -308,7 +269,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (std::is_same<T, bf16>::value)
     return run(flash_dq_mma_kernel<D>, dq_mma_smem<D>(), kMmaThreads);
   else
-    return run(flash_dq_kernel<T, D>, dq_smem<T, D>(), kThreads);
+    return run(flash_dq_tf32_mma_kernel<D>, dq_tf32_smem<D>(), kTf32Threads);
 }
 
 template <typename T, int D>
@@ -326,7 +287,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (std::is_same<T, bf16>::value)
     return run(flash_dkv_mma_kernel<D>, dkv_mma_smem<D>(), kMmaThreads);
   else
-    return run(flash_dkv_kernel<T, D>, dkv_smem<T, D>(), kThreads);
+    return run(flash_dkv_tf32_mma_kernel<D>, dkv_tf32_smem<D>(),
+               kTf32Threads);
 }
 
 }  // namespace

@@ -9,9 +9,9 @@
 // carries and accumulators. One fold per product serves the flash and the
 // ring kernel: fwd_mma_fold, dq_mma_fold, dkv_mma_fold; each kernel adds
 // only its epilogue (the flash kernels store bf16, the ring's read and
-// write their f32 state in the fragments' layout). In f32 the ring dq and
-// dk/dv run flash_tf32.cuh's split-TF32 folds; the other f32 kernels stay
-// on the CUDA-core folds of flash_tiles.cuh.
+// write their f32 state in the fragments' layout). In f32 the flash and
+// ring dq and dk/dv run flash_tf32.cuh's split-TF32 folds; the f32
+// forwards stay on the CUDA-core fold of flash_tiles.cuh.
 //
 // Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
 // of every live (q, k) pair, hundreds of flops per byte moved, so the
@@ -46,8 +46,8 @@
 //
 // Work layout: 64-row tiles, 4 warps (128 threads); warp w owns rows
 // 16w..16w+15 of the block's own tile (query rows in the forward and dq,
-// key rows in dk/dv). Blocks as in the CUDA-core kernels: forward and dq
-// one per (query tile, query head, batch), walking the live key tiles
+// key rows in dk/dv). Blocks as flash_tiles.cuh lays them out: forward
+// and dq one per (query tile, query head, batch), walking the live key tiles
 // (dq the longest causal bands first); dk/dv one per (key tile, KV head,
 // batch), walking the GQA group x live query tiles, so dk and dv sum over
 // the group in f32 registers and are written once (no atomics: the result

@@ -1,15 +1,16 @@
 // Tensor-core tiles of the f32 attention backward, in split TF32: the
-// folds of the f32 ring dq and dk/dv (ring_flash.cu), built so that the
-// f32 flash dq and dk/dv (flash_attention.cu) can run them with only an
-// epilogue of their own.
+// folds of the f32 flash dq and dk/dv (flash_attention.cu) and of the f32
+// ring dq and dk/dv (ring_flash.cu), and their epilogues: the flash
+// kernels store their rows, the ring kernels add them into the travelling
+// accumulators (dq_tf32_epilogue, dkv_tf32_epilogue).
 //
 // Replaces, for f32 inputs: akka_allreduce_tpu/ops/pallas_kernels/
-// ring_flash.py _ring_dq_kernel (:94) and _ring_dkv_kernel (:121), whose
-// tile arithmetic is attention.py _bwd_tile (:99): p = exp(s - lse),
-// exactly 0 on a masked lane; dp = dO v^T; ds = p (dp - delta) scale;
-// dq += ds k; dv += p^T dO and dk += ds^T q, summed over the GQA group;
-// all in f32. The same arithmetic as flash_tiles.cuh dq_fold / dkv_fold
-// for T = float, on the tensor cores.
+// attention.py _dq_kernel (:153) and _dkv_kernel (:184), and ring_flash.py
+// _ring_dq_kernel (:94) and _ring_dkv_kernel (:121), the same tiles on one
+// hop's block; their tile arithmetic is attention.py _bwd_tile (:99): p =
+// exp(s - lse), exactly 0 on a masked lane; dp = dO v^T; ds = p (dp -
+// delta) scale; dq += ds k; dv += p^T dO and dk += ds^T q, summed over the
+// GQA group; all in f32.
 //
 // Split TF32 (CUTLASS's OpMultiplyAddFastF32, "3xTF32"): every operand x
 // is split into hi = x rounded to TF32 (to nearest, ties away from zero,
@@ -18,20 +19,21 @@
 // hi.hi on mma.sync.m16n8k8 tf32 with f32 accumulators (lo.lo, ~2^-22 of
 // the product, dropped; the small terms first). One TF32 product keeps
 // ~11 bits and misses the f32 reference's 5e-5; the split keeps ~20, ~1e-6
-// relative (tests/test_torch_ring_flash.py emulates both). The tensor
+// relative (tests/torch_split_tf32.py emulates both). The tensor
 // core's f32 sums round toward zero, so no accumulator takes more than
 // one pass's products (tf32_pk): the running sums are f32 adds, rounded
 // to nearest.
 //
 // Bound: ~6 (dq) and ~8 (dk/dv) flops per head-dim element of every live
 // (q, k) pair, three tensor-core products each: 495 TFLOP/s of TF32
-// (dense) is ~165 TFLOP/s of f32 work, against the CUDA cores' 67 (a past
-// ring hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62 ms, dk/dv 0.83;
-// chip_smoke.py computes both bounds from the live pairs). The f32
-// accumulators add 8 bytes a head-dim element, far under that. On
-// mma.sync the split's integer and f32 instructions, not the tensor
-// core, set the pace (~3 a split element), so the design spends as few
-// as it can:
+// (dense) is ~165 TFLOP/s of f32 work, against the CUDA cores' 67 (the
+// flash backward at B 8, T 2048, H 16, D 128, causal: dq 1.25 ms, dk/dv
+// 1.67; a past ring hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62,
+// dk/dv 0.83; chip_smoke.py computes both bounds from the live pairs).
+// The inputs and the f32 outputs or accumulators add ~8 bytes a
+// head-dim element, far under that. On mma.sync the split's integer and
+// f32 instructions, not the tensor core, set the pace (~3 a split
+// element), so the design spends as few as it can:
 //   * Every product on mma.sync (split TF32), the score tiles kept in
 //     registers: an m16n8 accumulator holds columns {2t, 2t + 1} of row
 //     lane / 4 (t = lane % 4) and a tf32 A fragment wants {t, t + 4}, so
@@ -78,15 +80,19 @@
 //     to the other), in f32, and each warp stores its half.
 //
 // Work layout: 64-row tiles. dq: one block per (query tile, query head,
-// batch), walking the live key band; dk/dv: one block per (key tile, KV
-// head, batch), walking the GQA group x live query tiles, so the group
-// sums in f32 registers and is written once (no atomics: two launches
-// give the same bits). The causal mask leaves a contiguous band of live
-// tiles (live_tiles) and only that band is loaded; a masked lane gets p =
-// 0 exactly (exp of NEG_INF - lse underflows, and dq_scores / dkv_scores
-// write 0), so a row with no live key adds exactly 0; lanes past Tk and
-// rows past Tq contribute nothing and are not stored; a fully live tile
-// skips the per-element mask (tile_full).
+// batch), walking the live key band (the longest causal bands launched
+// first); dk/dv: one block per (key tile, KV head, batch), walking the
+// GQA group x live query tiles (in blockIdx order: key tile 0 has the
+// longest causal band), so the group sums in f32 registers and is
+// written once (no atomics: two launches give the same bits). The
+// causal mask leaves a contiguous band of live tiles (live_tiles; a
+// window or offsets can leave it empty) and only that band is loaded; a
+// masked lane gets p = 0 exactly (dq_scores / dkv_scores write 0), so a
+// row with no live key or query sums exactly 0, and a block whose band is
+// empty still zeroes its sums and runs its epilogue (the flash kernels'
+// outputs start uninitialised); lanes past Tk and rows past Tq contribute
+// nothing and are not stored; a tile whose pairs are all live, by
+// causality and the window, skips the per-element mask (tile_full).
 //
 // Shared memory: the resident tile pair with their lo copies and the
 // streamed pair (dk/dv also a query tile's lse and delta): 202,752 /
@@ -94,9 +100,10 @@
 // at D = 64, two. Registers (ptxas -v, sm_90a; no spill accepted): at D
 // = 128 a dq warp holds its dq share (16 x 128 f32 = 64) and S, dP (8 +
 // 8): 213; a dk/dv warp its dk and dv shares (2 x 64) and S^T, dP^T:
-// 255. The launch bounds say one block an SM: without, ptxas aims at
-// more blocks (it cannot see the dynamic shared memory) and spills under
-// their register budget.
+// 255 (the flash and the ring kernel of each fold alike: the epilogue
+// derives its addresses after the fold). The launch bounds say one block
+// an SM: without, ptxas aims at more blocks (it cannot see the dynamic
+// shared memory) and spills under their register budget.
 
 #pragma once
 
@@ -317,6 +324,26 @@ __device__ __forceinline__ float4 paired_cols(const float (&acc)[D / 8][4],
                      acc[2 * p][2 * i + 1], acc[2 * p + 1][2 * i + 1]);
 }
 
+// row[16 p + 4 (lane % 4) + {0..3}] = (kAdd: row[...] +) this lane's
+// paired-column accumulators of row i (0: lane / 4, 1: + 8), for column
+// pairs p in [P0, P1), one float4 per 16 columns.
+template <bool kAdd, int D, int P0, int P1>
+__device__ __forceinline__ void put_paired_row(float* row,
+                                               const float (&acc)[D / 8][4],
+                                               int i) {
+  row += 4 * (threadIdx.x % 4);
+#pragma unroll
+  for (int p = P0; p < P1; ++p) {
+    float4* ptr = reinterpret_cast<float4*>(row + 16 * p);
+    float4 a = paired_cols<D>(acc, p, i);
+    if (kAdd) {
+      const float4 x = *ptr;
+      a = make_float4(x.x + a.x, x.y + a.y, x.z + a.z, x.w + a.w);
+    }
+    *ptr = a;
+  }
+}
+
 // Start copying rows [first, first + kRowsN) of a 64-row f32 tile (row
 // stride `st` floats in device memory, D contiguous; `src` is the tile's
 // row 0, always a valid address) into a padded shared tile, kThreadsN
@@ -392,7 +419,8 @@ __device__ __forceinline__ void load_q_half(
 // --------------------------------------------------------------------- dq
 // dq of query tile q0 of head h, batch b, against every live key tile of
 // KV head h / group: the key loop of an f32 dq kernel
-// (ring_dq_tf32_mma_kernel), on kTf32Threads threads. q, k, v, dout are
+// (flash_dq_tf32_mma_kernel, ring_dq_tf32_mma_kernel), on kTf32Threads
+// threads. q, k, v, dout are
 // the arrays' bases. Warp w takes query rows 16 (w % 4) + lane / 4 and +
 // 8; Q and dO stay resident, split once (split_tile); each key tile runs
 // in two halves of kHalf keys, warps 0-3 taking the first 16 of a half
@@ -512,10 +540,38 @@ __device__ __forceinline__ void dq_tf32_fold(
     }
 }
 
+// The epilogue of an f32 dq kernel: the block's rows of dq, as
+// dq_tf32_fold leaves them (warps 0-3 hold columns 0 .. D/2 of their
+// rows, warps 4-7 the rest), stored (kAdd false: the flash kernel's
+// output) or added (true: the ring's travelling accumulator) into out
+// (B, Tq, H, D) f32. The addresses are derived afresh (opaque), so that
+// none stays live across the fold's main loop.
+template <bool kAdd, int D>
+__device__ __forceinline__ void dq_tf32_epilogue(float* out,
+                                                 const float (&acc)[D / 8][4],
+                                                 const Geom& g, int b, int h,
+                                                 int q0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + 16 * (warp % 4) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= g.Tq) continue;
+    float* row =
+        out + ((static_cast<long long>(be) * g.Tq + qi) * g.H + he) * D;
+    if (warp < 4)
+      put_paired_row<kAdd, D, 0, D / 32>(row, acc, i);
+    else
+      put_paired_row<kAdd, D, D / 32, D / 16>(row, acc, i);
+  }
+}
+
 // ------------------------------------------------------------------ dk/dv
 // dk and dv of key tile k0 of KV head hk, batch b, summed over the GQA
 // group's query heads and their live query tiles: the query loop of an
-// f32 dk/dv kernel (ring_dkv_tf32_mma_kernel), on kTf32Threads threads.
+// f32 dk/dv kernel (flash_dkv_tf32_mma_kernel, ring_dkv_tf32_mma_kernel),
+// on kTf32Threads threads.
 // Warp w takes key rows 16 (w % 4) + lane / 4 and + 8; K and V stay
 // resident, split once (split_tile); each query tile runs in two halves
 // of kHalf queries, warps 0-3 taking the first 16 of a half and warps 4-7
@@ -636,6 +692,32 @@ __device__ __forceinline__ void dkv_tf32_fold(
       else
         dv_acc[j][e] += y;
     }
+}
+
+
+// The epilogue of an f32 dk/dv kernel: the block's key rows, as
+// dkv_tf32_fold leaves them (warps 0-3 hold dk, warps 4-7 dv), stored
+// (kAdd false) or added (true) into dk and dv (B, Tk, H_kv, D) f32, from
+// addresses derived afresh (opaque).
+template <bool kAdd, int D>
+__device__ __forceinline__ void dkv_tf32_epilogue(
+    float* dk, float* dv, const float (&dk_acc)[D / 8][4],
+    const float (&dv_acc)[D / 8][4], const Geom& g, int b, int hk, int k0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kr0 = k0 + 16 * (warp % 4) + (lane >> 2);
+  const int be = static_cast<int>(opaque(b));
+  const int hke = static_cast<int>(opaque(hk));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr0 + 8 * i;
+    if (kj >= g.Tk) continue;
+    const long long off =
+        ((static_cast<long long>(be) * g.Tk + kj) * g.Hkv + hke) * D;
+    if (warp < 4)
+      put_paired_row<kAdd, D, 0, D / 16>(dk + off, dk_acc, i);
+    else
+      put_paired_row<kAdd, D, 0, D / 16>(dv + off, dv_acc, i);
+  }
 }
 
 }  // namespace

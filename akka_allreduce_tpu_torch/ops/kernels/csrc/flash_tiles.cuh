@@ -1,5 +1,7 @@
 // Shared tile machinery of the flash attention kernels (flash_attention.cu)
-// and the ring flash attention kernels (ring_flash.cu).
+// and the ring flash attention kernels (ring_flash.cu): the geometry and
+// its masks, the launch and dtype dispatch, and the CUDA-core forward fold
+// of the f32 flash and ring forwards.
 //
 // What one tile pair computes, with s = (q . k) * D^-1/2 in f32 and masked
 // lanes at NEG_INF (causal: key position k_off + j above query position
@@ -17,11 +19,12 @@
 // the PV product, ds to K's type for dq and to Q's for dk, p to dO's for
 // dv; every product accumulates in f32.
 //
-// Layout of the work (simple and right first):
-//   * 64 x 64 tiles, 256 threads. The TPU runs its key axis (forward, dq)
-//     or its group x query axis (dk/dv) as a sequential grid dimension and
-//     carries the state in scratch; here that axis is a loop inside one
-//     block (the *_fold functions below) and the state lives in registers:
+// Layout of the work, which every fold keeps (here and in flash_mma.cuh,
+// flash_tf32.cuh):
+//   * 64-row tiles. The TPU runs its key axis (forward, dq) or its group
+//     x query axis (dk/dv) as a sequential grid dimension and carries the
+//     state in scratch; here that axis is a loop inside one block (a
+//     fold) and the state lives in registers:
 //       forward, dq: one block per (query tile, query head, batch);
 //       dk/dv:       one block per (key tile, KV head, batch), looping over
 //                    the g query heads of the group x their query tiles, so
@@ -35,26 +38,23 @@
 //   * q, k, v and dO are read in the model's (B, T, H, D) layout through
 //     their strides (no relayout); K/V tiles of KV head hk are staged in
 //     shared memory, so GQA needs no repeated heads.
-//   * The products are CUDA-core FMAs in f32 from shared-memory tiles
-//     (rows padded by 16 bytes, so the vector reads of 8 rows at one
-//     column hit 8 different bank groups). Thread t owns rows t/8 and
-//     t/8 + 32 of a tile and columns t%8 + 8j of a score tile, or 4-wide
-//     column groups (t%8)*4 + 32j of a D-wide accumulator, so a score
-//     row's 8 owners are 8 neighbouring lanes and its max and sum are 3
-//     shuffles. f32 inputs stay f32 (one TF32 product would break parity
-//     with the f32 reference); bf16 inputs widen to f32 on read.
 //
-// These folds reach ~2% of the bf16 bound (the tensor cores' 989
-// TFLOP/s): every product an f32 FMA from shared memory, the score tiles
-// round-tripped through f32 shared memory, synchronous tile loads. So
-// every bf16 flash and ring-flash kernel (attention.py _fwd_kernel :113,
-// _dq_kernel :153, _dkv_kernel :184; ring_flash.py _ring_fwd_kernel :61,
-// _ring_dq_kernel :94, _ring_dkv_kernel :121) runs on tensor-core tiles
-// instead (flash_mma.cuh: the same cast points on mma.sync, ldmatrix and
-// cp.async), and so do the f32 ring dq and dk/dv, in split TF32
-// (flash_tf32.cuh). The f32 flash forward, dq and dk/dv
-// (flash_attention.cu) and the f32 ring forward (ring_flash.cu) still run
-// the folds below.
+// The fold here (fwd_fold, 256 threads) runs the products as CUDA-core
+// FMAs in f32 from shared-memory tiles (rows padded by 16 bytes, so the
+// vector reads of 8 rows at one column hit 8 different bank groups).
+// Thread t owns rows t/8 and t/8 + 32 of a tile and columns t%8 + 8j of a
+// score tile, or 4-wide column groups (t%8)*4 + 32j of a D-wide
+// accumulator, so a score row's 8 owners are 8 neighbouring lanes and its
+// max and sum are 3 shuffles. f32 inputs stay f32 (one TF32 product would
+// break parity with the f32 reference). It reaches ~2% of the bf16 bound
+// (every product an f32 FMA from shared memory, the score tile
+// round-tripped through shared memory, synchronous tile loads), so every
+// other flash and ring-flash kernel runs on tensor cores: the bf16
+// forward, dq and dk/dv on flash_mma.cuh's folds, the f32 dq and dk/dv on
+// flash_tf32.cuh's split-TF32 folds. Only the f32 flash forward
+// (attention.py _fwd_kernel :113, flash_attention.cu) and the f32 ring
+// forward (ring_flash.py _ring_fwd_kernel :61, ring_flash.cu) still run
+// fwd_fold.
 
 #pragma once
 
@@ -208,19 +208,11 @@ constexpr size_t tile_bytes() {
 }
 constexpr size_t kScoreBytes = static_cast<size_t>(kTile) * kLdp * sizeof(float);
 
-// Shared memory of each kernel family: forward sQ sK sV + a score tile;
-// dq sQ sDO sK sV + a score tile; dk/dv sK sV sQ sDO + two score tiles and
-// a tile's lse and delta.
+// Shared memory of the forward: sQ sK sV + a score tile.
 template <typename T, int D>
 constexpr size_t fwd_smem() { return 3 * tile_bytes<T, D>() + kScoreBytes; }
-template <typename T, int D>
-constexpr size_t dq_smem() { return 4 * tile_bytes<T, D>() + kScoreBytes; }
-template <typename T, int D>
-constexpr size_t dkv_smem() {
-  return 4 * tile_bytes<T, D>() + 2 * kScoreBytes + 2 * kTile * sizeof(float);
-}
 
-// ------------------------------------------------------------- the folds
+// --------------------------------------------------------------- the fold
 // Fold every live key tile of KV head hk into the online-softmax state of
 // query tile q0 (this thread's rows ty, ty + 32): the key loop of a forward
 // kernel. sQ holds the query tile; sK, sV and sP are scratch.
@@ -272,109 +264,6 @@ __device__ __forceinline__ void fwd_fold(const T* sQ, T* sK, T* sV, float* sP,
     }
     __syncthreads();
     accum<T, D>(sP, sV, ty, tx, acc);
-  }
-}
-
-// dq of query tile q0 from every live key tile of KV head hk, into acc
-// (this thread's rows): the key loop of a dq kernel. sQ and sDO hold the
-// query and dO tiles; sK, sV and sDS are scratch; lse_r and del_r are this
-// thread's rows of lse and delta.
-template <typename T, int D>
-__device__ __forceinline__ void dq_fold(const T* sQ, const T* sDO, T* sK, T* sV,
-                                        float* sDS, const T* __restrict__ k,
-                                        const T* __restrict__ v, const Geom& g,
-                                        int b, int hk, int q0, float scale,
-                                        const float (&lse_r)[kRows],
-                                        const float (&del_r)[kRows],
-                                        float (&acc)[kRows][D / 8]) {
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  const int n_k = (g.Tk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(q0, k0, g)) continue;
-    __syncthreads();
-    load_tile<T, D>(sK, k + b * g.k_sb + k0 * g.k_st + hk * g.k_sh, g.k_st,
-                    g.Tk - k0);
-    load_tile<T, D>(sV, v + b * g.v_sb + k0 * g.v_st + hk * g.v_sh, g.v_st,
-                    g.Tk - k0);
-    __syncthreads();
-    float p[kRows][8], dp[kRows][8];
-    rowdot<T, D>(sQ, sK, ty, tx, p);
-    rowdot<T, D>(sDO, sV, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kRowStep * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tx + 8 * j;
-        // masked lanes: exp(NEG_INF - lse) is exactly 0
-        const float pij = pair_live(q0 + r, k0 + c, g)
-                              ? expf(p[i][j] * scale - lse_r[i]) : 0.f;
-        const float ds = pij * (dp[i][j] - del_r[i]) * scale;
-        sDS[r * kLdp + c] = round_to(ds, T());
-      }
-    }
-    __syncthreads();
-    accum<T, D>(sDS, sK, ty, tx, acc);
-  }
-}
-
-// dk and dv of key tile k0 of KV head hk from every live query tile of the
-// group's g query heads, into dk_acc and dv_acc (this thread's key rows):
-// the group x query loop of a dk/dv kernel. sK and sV hold the key and
-// value tiles; sQ, sDO, sP, sDS, sL and sDel are scratch.
-template <typename T, int D>
-__device__ __forceinline__ void dkv_fold(const T* sK, const T* sV, T* sQ, T* sDO,
-                                         float* sP, float* sDS, float* sL,
-                                         float* sDel, const T* __restrict__ q,
-                                         const T* __restrict__ dout,
-                                         const float* __restrict__ lse,
-                                         const float* __restrict__ delta,
-                                         const Geom& g, int b, int hk, int k0,
-                                         float scale,
-                                         float (&dk_acc)[kRows][D / 8],
-                                         float (&dv_acc)[kRows][D / 8]) {
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  const int group = g.H / g.Hkv;
-  const int n_q = (g.Tq + kTile - 1) / kTile;
-  for (int hg = 0; hg < group; ++hg) {
-    const int h = hk * group + hg;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * kTile;
-      if (!tile_live(q0, k0, g)) continue;
-      __syncthreads();
-      load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
-                      g.Tq - q0);
-      load_tile<T, D>(sDO, dout + b * g.do_sb + q0 * g.do_st + h * g.do_sh,
-                      g.do_st, g.Tq - q0);
-      if (threadIdx.x < kTile) {
-        const int qi = q0 + threadIdx.x;
-        const long long idx = (static_cast<long long>(b) * g.H + h) * g.Tq + qi;
-        sL[threadIdx.x] = qi < g.Tq ? lse[idx] : 0.f;
-        sDel[threadIdx.x] = qi < g.Tq ? delta[idx] : 0.f;
-      }
-      __syncthreads();
-      // transposed tiles: rows are this block's keys, columns the queries
-      float p[kRows][8], dp[kRows][8];
-      rowdot<T, D>(sK, sQ, ty, tx, p);
-      rowdot<T, D>(sV, sDO, ty, tx, dp);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = ty + kRowStep * i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = tx + 8 * j;
-          const float pij = pair_live(q0 + c, k0 + r, g)
-                                ? expf(p[i][j] * scale - sL[c]) : 0.f;
-          const float ds = pij * (dp[i][j] - sDel[c]) * scale;
-          sP[r * kLdp + c] = round_to(pij, T());
-          sDS[r * kLdp + c] = round_to(ds, T());
-        }
-      }
-      __syncthreads();
-      accum<T, D>(sP, sDO, ty, tx, dv_acc);
-      accum<T, D>(sDS, sQ, ty, tx, dk_acc);
-    }
   }
 }
 

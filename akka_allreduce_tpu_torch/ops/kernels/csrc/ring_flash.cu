@@ -269,28 +269,6 @@ ring_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------- dq and dk/dv, f32
-// row[16 p + 4 (lane % 4) + {0..3}] += this lane's paired-column
-// accumulators of row i (0: lane / 4, 1: + 8), for column pairs p in
-// [P0, P1), one float4 read-modify-write per 16 columns (flash_tf32.cuh
-// paired_cols).
-template <int D, int P0 = 0, int P1 = D / 16>
-__device__ __forceinline__ void add_paired_row(float* row,
-                                               const float (&acc)[D / 8][4],
-                                               int i) {
-  row += 4 * (threadIdx.x % 4);
-#pragma unroll
-  for (int p = P0; p < P1; ++p) {
-    float4* ptr = reinterpret_cast<float4*>(row + 16 * p);
-    const float4 a = paired_cols<D>(acc, p, i);
-    float4 x = *ptr;
-    x.x += a.x;
-    x.y += a.y;
-    x.z += a.z;
-    x.w += a.w;
-    *ptr = x;
-  }
-}
-
 // The f32 hops on tensor cores in split TF32 (replace _ring_dq_kernel and
 // _ring_dkv_kernel for f32): flash_tf32.cuh's dq_tf32_fold and
 // dkv_tf32_fold on the hop's offsets, then the f32 partials added in
@@ -298,13 +276,14 @@ __device__ __forceinline__ void add_paired_row(float* row,
 // the columns of its rows; dk/dv: warps 0-3 dk, 4-7 dv). Bound: three
 // TF32 products a product at 495 TFLOP/s, ~165 TFLOP/s of f32 work (a
 // past hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62 ms, dk/dv 0.83);
-// the design's answer is in flash_tf32.cuh. The grids are the bf16
-// kernels' (dq the longest causal bands first), 8 warps a block
-// (kTf32Threads), one block an SM at D = 128 (~200 KB of shared memory),
-// two at D = 64; the launch bounds say one block an SM, so that ptxas
-// does not spill to fit more. The accumulator addresses are derived
-// afresh after the fold (opaque), so that no address stays live across
-// its main loop.
+// the design's answer is in flash_tf32.cuh, and so are the epilogues
+// (dq_tf32_epilogue, dkv_tf32_epilogue, which the flash kernels share:
+// here they add one float4 per 16 columns, deriving the accumulator
+// addresses afresh after the fold). The grids are the bf16 kernels' (dq
+// the longest causal bands first), 8 warps a block (kTf32Threads), one
+// block an SM at D = 128 (~200 KB of shared memory), two at D = 64; the
+// launch bounds say one block an SM, so that ptxas does not spill to fit
+// more.
 template <int D>
 __global__ void __launch_bounds__(kTf32Threads, 1)
 ring_dq_tf32_mma_kernel(const float* __restrict__ q,
@@ -320,22 +299,7 @@ ring_dq_tf32_mma_kernel(const float* __restrict__ q,
   float acc[D / 8][4];
   dq_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse, delta,
                   g, b, h, q0, scale, acc);
-
-  // warps 0-3 hold their rows' columns 0 .. D/2, warps 4-7 the rest
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = q0 + 16 * (warp % 4) + (lane >> 2);
-  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = r0 + 8 * i;
-    if (qi >= g.Tq) continue;
-    float* row =
-        dq_io + ((static_cast<long long>(be) * g.Tq + qi) * g.H + he) * D;
-    if (warp < 4)
-      add_paired_row<D, 0, D / 32>(row, acc, i);
-    else
-      add_paired_row<D, D / 32, D / 16>(row, acc, i);
-  }
+  dq_tf32_epilogue<true, D>(dq_io, acc, g, b, h, q0);
 }
 
 template <int D>
@@ -353,23 +317,7 @@ ring_dkv_tf32_mma_kernel(const float* __restrict__ q,
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   dkv_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse,
                    delta, g, b, hk, k0, scale, dk_acc, dv_acc);
-
-  // warps 0-3 hold their rows' dk, warps 4-7 their dv
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kr0 = k0 + 16 * (warp % 4) + (lane >> 2);
-  const int be = static_cast<int>(opaque(b));
-  const int hke = static_cast<int>(opaque(hk));
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = kr0 + 8 * i;
-    if (kj >= g.Tk) continue;
-    const long long off =
-        ((static_cast<long long>(be) * g.Tk + kj) * g.Hkv + hke) * D;
-    if (warp < 4)
-      add_paired_row<D>(dk_io + off, dk_acc, i);
-    else
-      add_paired_row<D>(dv_io + off, dv_acc, i);
-  }
+  dkv_tf32_epilogue<true, D>(dk_io, dv_io, dk_acc, dv_acc, g, b, hk, k0);
 }
 
 // ----------------------------------------------------------------- launch

@@ -17,9 +17,11 @@ query head h reads KV head h // (H / H_kv)).
 * :func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv` — the
   wrappers: a CPU tensor goes to the plain version; a CUDA tensor launches
   ``csrc/flash_attention.cu`` or raises: bf16 forward, dq and dk/dv on
-  tensor cores (``csrc/flash_mma.cuh``), f32 on CUDA cores
-  (``csrc/flash_tiles.cuh``). :data:`FLASH_FWD_LAUNCHES`,
-  :data:`FLASH_DQ_LAUNCHES` and :data:`FLASH_DKV_LAUNCHES` count launches.
+  tensor cores (``csrc/flash_mma.cuh``), f32 dq and dk/dv on tensor cores
+  in split TF32, three TF32 products a product (``csrc/flash_tf32.cuh``),
+  the f32 forward on CUDA cores (``csrc/flash_tiles.cuh``).
+  :data:`FLASH_FWD_LAUNCHES`, :data:`FLASH_DQ_LAUNCHES` and
+  :data:`FLASH_DKV_LAUNCHES` count launches.
 * :class:`FlashAttention` (``torch.autograd.Function``),
   :func:`flash_attention` and :func:`flash_causal_attention` — the model's
   entry points. They take no block sizes: the kernels' tile is their own
@@ -251,9 +253,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_off: int = 0, k_off: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` as :func:`flash_forward_reference`. On CUDA tensors:
-    one launch of the forward kernel (bf16 on tensor cores, f32 on CUDA
-    cores) into ``torch.empty`` outputs on the current stream; raises if
-    the launch fails."""
+    one launch of the forward kernel (bf16 on tensor cores, f32 still on
+    CUDA cores) into ``torch.empty`` outputs on the current stream; raises
+    if the launch fails."""
     global FLASH_FWD_LAUNCHES
     _check_options(causal, window)
     check_qkv(q, k, v)
@@ -286,7 +288,8 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = True,
              window: Optional[int] = None, q_off: int = 0,
              k_off: int = 0) -> torch.Tensor:
     """dq from the saved ``lse`` and ``delta = rowsum(dO . O)``. On CUDA
-    tensors: one launch of the dq kernel."""
+    tensors: one launch of the dq kernel (tensor cores: bf16, or f32 in
+    split TF32) into a ``torch.empty`` output; raises if it fails."""
     global FLASH_DQ_LAUNCHES
     _check_options(causal, window)
     check_qkv(q, k, v)
@@ -307,9 +310,10 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True,
               window: Optional[int] = None, q_off: int = 0,
               k_off: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each KV head's gradient summed over its query group. On
-    CUDA tensors: one launch of the dk/dv kernel (one block per KV head
-    and key tile walks the whole group, so nothing is lost and nothing
-    needs atomics)."""
+    CUDA tensors: one launch of the dk/dv kernel (tensor cores: bf16, or
+    f32 in split TF32; one block per KV head and key tile walks the whole
+    group, so nothing is lost and nothing needs atomics) into
+    ``torch.empty`` outputs; raises if it fails."""
     global FLASH_DKV_LAUNCHES
     _check_options(causal, window)
     check_qkv(q, k, v)

@@ -10,9 +10,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
    per source, all started together), timed, with ptxas's report and,
    per tensor-core kernel (``*_mma_kernel``: the bf16 flash and ring
-   forward, dq and dk/dv, and the ring's f32 dq and dk/dv in split TF32),
-   its registers and spill bytes: any spill fails the phase, and so does
-   a fresh build that lacks one of ``MMA_KERNELS`` at D 64 or 128.
+   forward, dq and dk/dv, and the flash and ring f32 dq and dk/dv in
+   split TF32), its registers and spill bytes: any spill fails the
+   phase, and so does a fresh build that lacks one of ``MMA_KERNELS`` at
+   D 64 or 128.
 3. kernels — hold each kernel against its plain PyTorch version on the
    same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
    the serving slice's shape, MHA, MQA, a larger page, and the position
@@ -32,7 +33,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    the gather run's wherever its top-2 logit gap exceeds 1e-3.
 
 5. kernels (flash) — hold the flash forward, dq and dk/dv kernels
-   (bf16 on tensor cores, f32 on CUDA cores) against their plain PyTorch
+   (bf16 all three on tensor cores, f32 dq and dk/dv on tensor cores in
+   split TF32, the f32 forward on CUDA cores) against their plain PyTorch
    versions on the same CUDA tensors: f32 at 2e-5 (forward) and 5e-5
    (gradients), bf16 at 3e-2 (the JAX package's tolerances), over the
    training slice's shape (B 8, T 2048, 16 heads of 128), GQA (4 KV
@@ -40,7 +42,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    with offsets, and head_dim 64. At the slice's shape, in
    bf16 and f32: each kernel, the plain version and the library call
    (``scaled_dot_product_attention``, forward, and its backward) timed as
-   above, and each kernel's bound computed from the live (q, k) pairs.
+   above, and each kernel's bound computed from the live (q, k) pairs
+   (f32 dq and dk/dv also at the split-TF32 rate, 495 / 3 TFLOP/s, beside
+   the CUDA cores' 67).
 6. train   — the port's ``train`` at the flagship training configuration
    (d_model 2048, 16 heads, 8 layers, d_ff 8192 gelu, vocab 32768, bf16
    compute, f32 masters, adamw lr 1e-4, batch 8, seq 2048, 6 steps,
@@ -51,8 +55,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    kernel, the flash kernels' share, the device's idle share.
 7. train parity — full width, the gqa4 variant (4 KV heads, rope),
    batch 2, seq 2048, from one set of weights, in f32 and in bf16 (the
-   bf16 forward, dq and dk/dv run on tensor cores, the f32 ones on CUDA
-   cores): step-0 loss and grads through the kernels against
+   bf16 forward, dq and dk/dv run on tensor cores, the f32 dq and dk/dv
+   on tensor cores in split TF32, the f32 forward on CUDA cores): step-0
+   loss and grads through the kernels against
    ``attn_impl="local"`` from the weights and batch of each of
    ``PARITY_SEEDS``, then two steps of each from seed 0, at ``PARITY_TOL``
    (f32: loss within 1e-5 relative, every gradient leaf within 1e-3 of
@@ -124,11 +129,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    seq 2048, 3 steps on one card through the flash kernels, then the
    same through ``train --sp 2 --dist-backend gloo`` (f32 wire; two rank
    processes share the card, each on 1024 positions of every row); then
-   the same in f32, the CLI's default dtype (no ``--bf16``: the f32 ring
-   dq and dk/dv in split TF32), at batch 4 for 2 steps.
+   the same in f32, the CLI's default dtype (no ``--bf16``: the f32 flash
+   and ring dq and dk/dv in split TF32), at batch 4 for 2 steps.
    Each run asserts finite losses within 1e-3 relative of its one-card
    run's (f32 reordering and bf16 rounding at other running maxima; a
-   lost hop or a wrong offset moves the loss far more), parameters
+   lost hop or a wrong offset moves the loss far more), the one-card
+   run's flash kernels launched once per layer per step, parameters
    bitwise equal on both ranks, and on rank r the ring kernels launched
    8 (r + 1) times per step each, the flash kernels never,
    ``masked_reduce`` once per step. Reports wall, sync and
@@ -337,11 +343,12 @@ FLASH_REPLACES = {
     "flash_dq": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:153",
     "flash_dkv": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:184"}
 # the tensor-core kernels each flash library must build (bf16, and the
-# ring's f32 dq and dk/dv in split TF32), at every head dim the wrappers
-# take (HEAD_DIMS)
+# f32 dq and dk/dv in split TF32), at every head dim the wrappers take
+# (HEAD_DIMS)
 MMA_KERNELS = {
     "flash_attention": ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                        "flash_dkv_mma_kernel"),
+                        "flash_dkv_mma_kernel", "flash_dq_tf32_mma_kernel",
+                        "flash_dkv_tf32_mma_kernel"),
     "ring_flash": ("ring_fwd_mma_kernel", "ring_dq_mma_kernel",
                    "ring_dkv_mma_kernel", "ring_dq_tf32_mma_kernel",
                    "ring_dkv_tf32_mma_kernel")}
@@ -539,11 +546,13 @@ def phase_kernels(torch) -> dict:
     return timed
 
 
-def flash_bounds(torch, q, k, causal, window, q_off, k_off) -> dict:
+def flash_bounds(torch, q, k, causal, window, q_off, k_off,
+                 peak=None) -> dict:
     """Each flash kernel's least time for this call: its own matmul
     flops over the live (q, k) pairs (2 D each: fwd QK and PV; dq also
     dO.V and dS.K; dk/dv QK, dO.V, P.dO and dS.Q), and its tensors read
-    or written once (lse and delta in f32)."""
+    or written once (lse and delta in f32). The operations at
+    ``PEAK_FLOPS[peak]`` (default: the inputs' dtype)."""
     from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
         score_mask
     b, tq, h, d = q.shape
@@ -552,7 +561,7 @@ def flash_bounds(torch, q, k, causal, window, q_off, k_off) -> dict:
     pairs = b * h * (tq * tk if mask is None else int(mask.sum()))
     es = q.element_size()
     qb, kb, rows = q.numel() * es, k.numel() * es, 4 * b * h * tq
-    dtype = str(q.dtype).split(".")[-1]
+    dtype = peak or str(q.dtype).split(".")[-1]
     return {"flash_fwd": bound(4 * d * pairs, 2 * qb + 2 * kb + rows, dtype),
             "flash_dq": bound(6 * d * pairs, 3 * qb + 2 * kb + 2 * rows,
                               dtype),
@@ -641,6 +650,12 @@ def phase_flash_kernels(torch) -> dict:
                     "backward": time_ms(torch, lib_bwd, flush)}
                 row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
                 row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+                if dtype == torch.float32:
+                    # dq and dk/dv run three TF32 products a product; the
+                    # forward stays on the CUDA cores (bound_ms above)
+                    split = flash_bounds(torch, q, k, *opts, "tf32x3")
+                    row["bound_tf32x3_ms"] = {
+                        k_: split[k_][0] for k_ in ("flash_dq", "flash_dkv")}
                 del lib_bwd
                 timed[str(dtype)] = row
             emit("kernels", kernel="flash_attention", **row)
@@ -650,6 +665,27 @@ def phase_flash_kernels(torch) -> dict:
                 raise AssertionError(f"a flash kernel disagrees with its "
                                      f"plain version: {row}")
     return timed
+
+
+def flash_kernel_rows(frow: dict, launches: dict, suffix: str = "") -> list:
+    """The kernels line's rows of the three flash kernels from phase 5's
+    timed row of one dtype (``frow``) and their ``launches`` on the main
+    path; in f32 (``suffix`` "_f32") the bound of dq and dk/dv is that of
+    their three TF32 products (``bound_tf32x3_ms``), the forward's the
+    CUDA cores'."""
+    split = frow.get("bound_tf32x3_ms", {})
+    return [{
+        "name": kernel + suffix, "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES[kernel], "launches": launches[kernel],
+        "max_abs_err": max(frow["max_abs_err"][k] for k in err_keys),
+        "ms": frow["ms"][kernel], "plain_ms": frow["plain_ms"][part],
+        "bound_ms": split.get(kernel, frow["bound_ms"][kernel]),
+        "bound_by": frow["bound_by"][kernel],
+        "library_ms": frow["library_ms"][part]}
+        for kernel, err_keys, part in (
+            ("flash_fwd", ("o", "lse"), "forward"),
+            ("flash_dq", ("dq",), "backward"),
+            ("flash_dkv", ("dk", "dv"), "backward"))]
 
 
 def profile_train_steps(torch, args, params, n_steps=2) -> dict:
@@ -1485,8 +1521,8 @@ def phase_ring4(torch) -> dict:
 def phase_train_sp(torch) -> dict:
     """``run_train`` on one card and then at ``--sp 2`` (the main path of
     the ring kernels), in bf16 and in the CLI's default f32 (``SP_RUNS``).
-    Returns, per dtype, the ring kernels' launches summed over the
-    ranks."""
+    Returns, per dtype, the ring kernels' launches summed over the ranks
+    (``"ring"``) and the one-card run's flash launches (``"flash"``)."""
     return {dtype: train_sp(torch, argv, dtype)
             for dtype, argv in SP_RUNS.items()}
 
@@ -1541,7 +1577,8 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
         "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
         "one_card_peak_memory_gb": one_peak,
         "param_checksums": sums, "launches_per_rank": got,
-        "expected_launches_per_rank": expected, "run_seconds": seconds}
+        "expected_launches_per_rank": expected,
+        "one_card_flash_launches": one["launches"], "run_seconds": seconds}
     emit("train_sp", **out)
     if not all(math.isfinite(x) for x in losses + ref):
         raise AssertionError(f"non-finite losses {losses} / {ref}")
@@ -1552,8 +1589,12 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
     if got != expected or others:
         raise AssertionError(f"launches {got} (other sync kernels "
                              f"{others}), expected {expected}")
-    return {k_: sum(r["ring_launches"][k_] for r in ranks)
-            for k_ in RING_REPLACES}
+    if any(n != layers * one_args.steps for n in one["launches"].values()):
+        raise AssertionError(f"one-card flash launches {one['launches']}, "
+                             f"expected n_layers x steps each")
+    return {"ring": {k_: sum(r["ring_launches"][k_] for r in ranks)
+                     for k_ in RING_REPLACES},
+            "flash": one["launches"]}
 
 
 def allreduce_bounds(n: int, elems: int) -> dict:
@@ -1923,7 +1964,7 @@ def main() -> int:
 
     # 6. the training path, 7. its parity with the plain attention
     trained = phase_train(torch)
-    phase_train_parity(torch)
+    parity = phase_train_parity(torch)
 
     # 8. the sync kernels, 9. the flagship at dp=2, 10. four ranks
     t8 = time.perf_counter()
@@ -1941,7 +1982,7 @@ def main() -> int:
     t12 = time.perf_counter()
     phase_ring4(torch)
     t13 = time.perf_counter()
-    ring_launches = phase_train_sp(torch)
+    sp_launches = phase_train_sp(torch)
     t14 = time.perf_counter()
     emit("ring_phases_seconds", ring_kernels=t12 - t11, ring4=t13 - t12,
          train_sp=t14 - t13)
@@ -1960,19 +2001,13 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]}]
-    frow = flash["torch.bfloat16"]  # the training path runs bf16
-    for kernel, err_keys, part in (("flash_fwd", ("o", "lse"), "forward"),
-                                   ("flash_dq", ("dq",), "backward"),
-                                   ("flash_dkv", ("dk", "dv"), "backward")):
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[kernel],
-            "launches": trained["launches"][kernel],
-            "max_abs_err": max(frow["max_abs_err"][k] for k in err_keys),
-            "ms": frow["ms"][kernel], "plain_ms": frow["plain_ms"][part],
-            "bound_ms": frow["bound_ms"][kernel],
-            "bound_by": frow["bound_by"][kernel],
-            "library_ms": frow["library_ms"][part]})
+    # the flagship trains bf16; the f32 flash kernels run in phase 7's f32
+    # run and phase 13's one-card f32 run
+    kernels += flash_kernel_rows(flash["torch.bfloat16"], trained["launches"])
+    f32_launches = {k: parity["float32"]["flash_launches"][k]
+                    + sp_launches["float32"]["flash"][k]
+                    for k in FLASH_REPLACES}
+    kernels += flash_kernel_rows(flash["torch.float32"], f32_launches, "_f32")
     for kernel, (source, replaces) in SYNC_KERNELS.items():
         srow = sync[kernel]
         kernels.append({
@@ -1995,7 +2030,7 @@ def main() -> int:
             kernels.append({
                 "name": kernel + suffix, "route": "cuda",
                 "source": RING_SOURCE, "replaces": RING_REPLACES[kernel],
-                "launches": ring_launches[dtype][kernel],
+                "launches": sp_launches[dtype]["ring"][kernel],
                 "max_abs_err": max(rrow["max_abs_err"][k]
                                    for k in err_keys),
                 "ms": rrow["ms"][kernel], "plain_ms": rrow["plain_ms"][part],

@@ -52,17 +52,18 @@ def test_editing_a_reached_header_changes_the_library(csrc, edited,
 
 
 def test_ring_flash_reaches_both_tile_headers():
-    """On the real csrc tree: both flash libraries build the tensor-core
-    tiles (flash_mma.cuh) and, through them, the CUDA-core folds
-    (flash_tiles.cuh); the ring library reaches them through its
-    split-TF32 folds (flash_tf32.cuh)."""
-    assert build.sources("flash_attention") == [
-        "flash_attention.cu", "flash_mma.cuh", "flash_tiles.cuh"]
-    assert build.sources("ring_flash") == [
-        "ring_flash.cu", "flash_tf32.cuh", "flash_mma.cuh", "flash_tiles.cuh"]
+    """On the real csrc tree: both flash libraries reach the split-TF32
+    folds (flash_tf32.cuh, the f32 dq and dk/dv), through them the
+    tensor-core tiles (flash_mma.cuh) and through those the CUDA-core
+    forward fold (flash_tiles.cuh)."""
+    headers = ["flash_tf32.cuh", "flash_mma.cuh", "flash_tiles.cuh"]
+    assert build.sources("flash_attention") == ["flash_attention.cu",
+                                                *headers]
+    assert build.sources("ring_flash") == ["ring_flash.cu", *headers]
 
 
-@pytest.mark.parametrize("edited", ["flash_mma.cuh", "flash_tiles.cuh"])
+@pytest.mark.parametrize("edited", ["flash_mma.cuh", "flash_tiles.cuh",
+                                    "flash_tf32.cuh"])
 def test_editing_a_tile_header_rebuilds_both_flash_libraries(
         tmp_path, monkeypatch, edited):
     """A copy of the real csrc tree: an edit to a shared tile header moves
@@ -74,16 +75,3 @@ def test_editing_a_tile_header_rebuilds_both_flash_libraries(
         f.write("// edited\n")
     moved = {n for n in build.KERNELS if build.library_path(n) != before[n]}
     assert moved == {"flash_attention", "ring_flash"}
-
-
-def test_editing_the_tf32_header_rebuilds_only_ring_flash(tmp_path,
-                                                          monkeypatch):
-    """flash_tf32.cuh (the f32 ring dq and dk/dv folds) is the ring
-    library's alone: an edit moves its path and no other library's."""
-    shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
-    monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
-    before = {n: build.library_path(n) for n in build.KERNELS}
-    with open(tmp_path / "csrc" / "flash_tf32.cuh", "a") as f:
-        f.write("// edited\n")
-    moved = {n for n in build.KERNELS if build.library_path(n) != before[n]}
-    assert moved == {"ring_flash"}

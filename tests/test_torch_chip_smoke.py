@@ -3,7 +3,9 @@
 The script needs a card to run; these pin what it computes around the
 card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
-flash kernels' bounds, and its refusal to run without CUDA.
+flash and ring kernels' bounds, the kernels line's flash rows, the build
+phase's check of the tensor-core kernels, and its refusal to run
+without CUDA.
 """
 
 import os
@@ -112,6 +114,56 @@ def test_ring_bounds_at_the_split_tf32_rate():
             per_pair * d * b * h * t * t / (495e12 / 3) * 1e3), "operations")
         assert cuda_cores[name][0] == pytest.approx(
             split[name][0] * (495e12 / 3) / 67e12)
+
+def test_flash_bounds_at_the_split_tf32_rate():
+    """The f32 flash dq and dk/dv run three TF32 products a product: their
+    bound at 495 / 3 TFLOP/s on the same live pairs, beside the CUDA
+    cores' 67 (phase 5's causal shape at its head dim, operations-bound)."""
+    b, t, h, d = 2, 1024, 4, 128
+    q = torch.zeros((b, t, h, d))
+    cuda_cores = chip_smoke.flash_bounds(torch, q, q, True, None, 0, 0)
+    split = chip_smoke.flash_bounds(torch, q, q, True, None, 0, 0, "tf32x3")
+    for name, per_pair in (("flash_dq", 6), ("flash_dkv", 8)):
+        assert split[name] == (pytest.approx(
+            per_pair * d * b * h * t * (t + 1) // 2 / (495e12 / 3) * 1e3),
+            "operations")
+        assert cuda_cores[name][0] == pytest.approx(
+            split[name][0] * (495e12 / 3) / 67e12)
+
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+@pytest.mark.parametrize("suffix", ["", "_f32"])
+def test_flash_kernel_rows_carry_every_key(suffix):
+    """The kernels line's flash rows: every key of the line, the launches
+    given, the worst error of each kernel's outputs; in f32 the dq and
+    dk/dv bound is the split-TF32 one that phase 5 computed, the
+    forward's the CUDA cores'."""
+    frow = {"max_abs_err": {"o": 1e-6, "lse": 2e-6, "dq": 3e-6, "dk": 5e-6,
+                            "dv": 4e-6},
+            "ms": {"flash_fwd": 7.0, "flash_dq": 4.0, "flash_dkv": 5.0},
+            "plain_ms": {"forward": 17.0, "backward": 28.0},
+            "library_ms": {"forward": 3.2, "backward": 10.4},
+            "bound_ms": {"flash_fwd": 2.05, "flash_dq": 3.08,
+                         "flash_dkv": 4.1},
+            "bound_by": dict.fromkeys(("flash_fwd", "flash_dq",
+                                       "flash_dkv"), "operations")}
+    if suffix:
+        frow["bound_tf32x3_ms"] = {"flash_dq": 1.25, "flash_dkv": 1.67}
+    launches = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32}
+    rows = chip_smoke.flash_kernel_rows(frow, launches, suffix)
+    assert [r["name"] for r in rows] == [
+        f"flash_fwd{suffix}", f"flash_dq{suffix}", f"flash_dkv{suffix}"]
+    assert all(set(r) == KERNEL_KEYS and r["launches"] == 32 for r in rows)
+    assert [r["max_abs_err"] for r in rows] == [2e-6, 3e-6, 5e-6]
+    assert [r["bound_ms"] for r in rows] == (
+        [2.05, 1.25, 1.67] if suffix else [2.05, 3.08, 4.1])
+    assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == [
+        "113", "153", "184"]
+
 
 def test_refuses_without_cuda():
     if torch.cuda.is_available():
@@ -390,7 +442,7 @@ def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
     info = {"flash_attention": {"seconds": 9.0, "ptxas": report}}
     if ok:
         rows = chip_smoke.check_mma_spills(info)
-        assert len(rows) == 6
+        assert len(rows) == 10
         assert {r["library"] for r in rows} == {"flash_attention"}
     else:
         with pytest.raises(AssertionError, match="spill"):
@@ -409,6 +461,24 @@ def test_a_ring_library_without_a_backward_tensor_core_kernel_fails(drop):
     info = {"ring_flash": {"seconds": 9.0,
                            "ptxas": mma_report("ring_flash", drop=drop)},
             "paged_attention": {"seconds": 0.0, "ptxas": ""}}
+    if not drop:
+        assert len(chip_smoke.check_mma_spills(info)) == 10
+        return
+    with pytest.raises(AssertionError, match="no tensor-core kernel") as e:
+        chip_smoke.check_mma_spills(info)
+    assert drop in str(e.value)
+
+
+@pytest.mark.parametrize("drop", [
+    "", "flash_dq_mma_kernel<64>", "flash_dkv_mma_kernel<128>",
+    "flash_dq_tf32_mma_kernel<64>", "flash_dq_tf32_mma_kernel<128>",
+    "flash_dkv_tf32_mma_kernel<64>", "flash_dkv_tf32_mma_kernel<128>"])
+def test_a_flash_library_without_a_backward_tensor_core_kernel_fails(drop):
+    """The flash dq and dk/dv must be built on the tensor cores at both
+    head dims, in bf16 and in f32 (split TF32); a report with all ten
+    flash kernels passes."""
+    info = {"flash_attention": {
+        "seconds": 9.0, "ptxas": mma_report("flash_attention", drop=drop)}}
     if not drop:
         assert len(chip_smoke.check_mma_spills(info)) == 10
         return

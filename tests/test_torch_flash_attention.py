@@ -9,10 +9,18 @@ the JAX package's own (tests/test_flash_attention.py): f32 at 2e-5 for the
 forward and 5e-5 for the gradients (another summation order), bf16 at
 3e-2 (one bf16 rounding of the output and of p / ds).
 
+The f32 dq and dk/dv kernels run their products on the tensor cores in
+split TF32 (three TF32 products a product); an emulation of that
+arithmetic in plain torch (``tests/torch_split_tf32.py``) is held against
+the JAX package's VJP at the f32 gradient tolerance (5e-5) in every f32
+case, and a single TF32 product must miss it.
+
 The CUDA kernels run only on the card: tests/test_torch_kernels_cuda.py
 holds them against these plain versions there. TF32 is off for CUDA
 matmuls (``allow_tf32 = False``).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +31,7 @@ import torch
 
 from akka_allreduce_tpu.ops.pallas_kernels import attention as jax_attn
 from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+from torch_split_tf32 import split_tf32_backward
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -38,6 +47,7 @@ CASES = [
     ("gqa_offsets", 2, True, 48, 64, 128, 64, 0, "float32"),
     ("gqa_causal_bf16", 2, True, None, 128, 128, 0, 0, "bfloat16"),
 ]
+F32_CASES = [c for c in CASES if c[-1] == "float32"]
 TOL = {"float32": (2e-5, 5e-5), "bfloat16": (3e-2, 3e-2)}
 
 
@@ -77,12 +87,19 @@ def jax_reference(q, k, v, do, causal, window, q_off, k_off):
             (o, lse[..., 0], dq, dk, dv)]
 
 
+@functools.lru_cache(maxsize=None)
+def case_data(case):
+    """A case's numpy inputs and the JAX kernels' outputs on them, computed
+    once for the tests that share them."""
+    _, h_kv, causal, window, tq, tk, q_off, k_off, dtype = case
+    arrays = make_inputs(h_kv, tq, tk, dtype, seed=tq + h_kv)
+    return arrays, jax_reference(*arrays, causal, window, q_off, k_off)
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_plain_forward_and_backward_match_jax(case):
     _, h_kv, causal, window, tq, tk, q_off, k_off, dtype = case
-    arrays = make_inputs(h_kv, tq, tk, dtype, seed=tq + h_kv)
-    want_o, want_lse, want_dq, want_dk, want_dv = jax_reference(
-        *arrays, causal, window, q_off, k_off)
+    arrays, (want_o, want_lse, want_dq, want_dk, want_dv) = case_data(case)
     q, k, v, do = (to_torch(a) for a in arrays)
     o, lse = fa.flash_forward_reference(q, k, v, causal, window, q_off,
                                         k_off)
@@ -100,6 +117,26 @@ def test_plain_forward_and_backward_match_jax(case):
         assert got.dtype == q.dtype
         np.testing.assert_allclose(to_numpy(got), want, atol=tol_bwd,
                                    rtol=tol_bwd, err_msg=name)
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[c[0] for c in F32_CASES])
+def test_split_tf32_backward_matches_jax_vjp(case):
+    """The split-TF32 arithmetic of ``flash_dq_tf32_mma_kernel`` and
+    ``flash_dkv_tf32_mma_kernel`` (emulated) from JAX's own o and lse,
+    against JAX's ``flash_attention`` VJP, within the f32 gradient
+    tolerance; one TF32 product a product misses it in each of dq, dk
+    and dv, which is why the kernels take three."""
+    _, h_kv, causal, window, tq, tk, q_off, k_off, dtype = case
+    arrays, (want_o, want_lse, *want) = case_data(case)
+    q, k, v, do = (to_torch(a) for a in arrays)
+    delta = fa.attention_delta(torch.tensor(want_o), do)
+    args = (q, k, v, do, torch.tensor(want_lse), delta, q_off, k_off,
+            causal)
+    tol = TOL[dtype][1]
+    for got, w in zip(split_tf32_backward(*args, 3, window), want):
+        np.testing.assert_allclose(got.numpy(), w, atol=tol, rtol=tol)
+    for got, w in zip(split_tf32_backward(*args, 1, window), want):
+        assert not np.allclose(got.numpy(), w, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("h_kv,window", [(1, None), (2, 24), (4, None)])

@@ -11,8 +11,9 @@ paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
 2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 forward,
 dq and dk/dv and the bf16 ring forward, dq and dk/dv on tensor cores,
-the f32 ring dq and dk/dv on tensor cores in split TF32, the other f32
-kernels on CUDA cores), the tensor-core kernels also bitwise repeatable;
+the f32 flash and ring dq and dk/dv on tensor cores in split TF32, the
+f32 forwards on CUDA cores), the tensor-core kernels also bitwise
+repeatable, and rows that no live pair reaches exactly zero;
 the gradient sync's masked reduce and int8 quantizers: bitwise (both sum
 the peers in order, and the quantizers' arithmetic is IEEE's, Philox
 drawn alike); the
@@ -159,14 +160,14 @@ BF16_BWD_CASES = [(4, 128, True, None, 256, 256, 0, 0, "contiguous"),
                   (1, 64, True, 100, 1000, 1000, 0, 0, "bhtd")]
 
 
-def bf16_bwd_inputs(case, device):
-    """q, k, v, do in bf16 on ``device`` and the plain forward's lse and
-    delta (the saved state the backward kernels read)."""
+def bf16_bwd_inputs(case, device, dtype=torch.bfloat16):
+    """q, k, v, do in ``dtype`` on ``device`` and the plain forward's lse
+    and delta (the saved state the backward kernels read)."""
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
     h_kv, d, causal, window, tq, tk, q_off, k_off, layout = case
     rng = np.random.default_rng(tq * 7 + tk + d + h_kv)
     q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
-                   .to(device, torch.bfloat16)
+                   .to(device, dtype)
                    for s in ((2, tq, 16, d), (2, tk, h_kv, d),
                              (2, tk, h_kv, d), (2, tq, 16, d)))
     if layout == "bhtd":
@@ -198,6 +199,74 @@ def test_bf16_backward_kernels_match_plain(cuda_device, case):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), w.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_BWD_CASES)
+def test_f32_backward_kernels_match_plain(cuda_device, case):
+    """The f32 dq and dk/dv on tensor cores in split TF32
+    (flash_dq_tf32_mma_kernel, flash_dkv_tf32_mma_kernel) over the bf16
+    kernels' cases, at the f32 gradient tolerance (5e-5): three TF32
+    products keep ~20 bits of each product, one would miss it."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    args, o, opts = bf16_bwd_inputs(case, cuda_device, torch.float32)
+    counts = (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES)
+    dq = fa.flash_dq(*args, *opts)
+    dk, dv = fa.flash_dkv(*args, *opts)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_DQ_LAUNCHES, fa.FLASH_DKV_LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1)
+    q, k, v, do, lse, _ = args
+    want = fa.flash_backward_reference(q, k, v, o, lse, do, *opts)
+    tol = FLASH_TOL[torch.float32][1]
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, w, atol=tol, rtol=tol)
+
+
+# (h_kv, head_dim, tq, tk, window, q_off, k_off): rows that no live pair
+# reaches, inside live tiles (k_off 32: queries 0-31, keys 96-127) and as
+# whole tiles whose live band is empty (k_off 64: query tile 0, key tile
+# 1; a window: key tile 0 of the offsets case)
+DEAD_ROW_CASES = [(4, 128, 128, 128, None, 0, 32),
+                  (4, 64, 128, 128, None, 0, 64),
+                  (4, 128, 128, 256, 48, 128, 0),
+                  (1, 64, 192, 192, 40, 0, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEAD_ROW_CASES)
+def test_flash_backward_rows_without_live_pairs_are_zero(cuda_device, case,
+                                                         dtype):
+    """dq rows with no live key and dk, dv rows with no live query come
+    back exactly 0 (p = 0 exactly on a masked lane; a block whose live
+    band is empty still stores its zeros into the ``torch.empty``
+    outputs); the other rows match the plain version. lse and delta are
+    finite everywhere: they come from the unmasked forward."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    h_kv, d, tq, tk, window, q_off, k_off = case
+    gen = torch.Generator().manual_seed(tq + tk + k_off)
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda_device, dtype)
+                   for s in ((2, tq, 16, d), (2, tk, h_kv, d),
+                             (2, tk, h_kv, d), (2, tq, 16, d)))
+    o, lse = fa.flash_forward_reference(q, k, v, causal=False)
+    saved = (do, lse, fa.attention_delta(o, do))
+    opts = (True, window, q_off, k_off)
+    dq = fa.flash_dq(q, k, v, *saved, *opts)
+    dk, dv = fa.flash_dkv(q, k, v, *saved, *opts)
+    torch.cuda.synchronize()
+    want = fa._backward_reference(q, k, v, *saved, *opts)
+    mask = fa.score_mask(tq, tk, True, window, q_off, k_off, cuda_device)
+    live_q, live_k = mask.any(dim=1), mask.any(dim=0)
+    assert not live_q.all() or not live_k.all()
+    tol = FLASH_TOL[dtype][1]
+    for got, w, live in ((dq, want[0], live_q), (dk, want[1], live_k),
+                         (dv, want[2], live_k)):
+        assert torch.equal(got[:, ~live], torch.zeros_like(got[:, ~live]))
+        torch.testing.assert_close(got[:, live].float(),
+                                   w[:, live].float(), atol=tol, rtol=tol)
 
 
 # the bf16 forward (flash_fwd_mma_kernel): the backward's cases and a
@@ -237,6 +306,29 @@ def test_bf16_backward_kernels_are_deterministic(cuda_device):
     first = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
     second = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
     q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[1], cuda_device)
+    saved = ring_saved_state(q, k, v, hop, seed=1)
+    _, (dq0, dk0, dv0) = ring_state(q, k, seed=1)
+    ring = [(rf.ring_dq(q, k, v, *saved, dq0.clone(), *hop),
+             *rf.ring_dkv(q, k, v, *saved, dk0.clone(), dv0.clone(), *hop))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first + ring[0], second + ring[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_f32_backward_kernels_are_deterministic(cuda_device):
+    """The split-TF32 dq and dk/dv, flash and ring: the GQA group and the
+    warp pairs' halves are summed in a fixed order (no atomics), so two
+    launches give the same bits."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    args, _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device,
+                                    torch.float32)
+    first = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
+    second = (fa.flash_dq(*args, *opts), *fa.flash_dkv(*args, *opts))
+    q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[1], cuda_device,
+                                    torch.float32)
     saved = ring_saved_state(q, k, v, hop, seed=1)
     _, (dq0, dk0, dv0) = ring_state(q, k, seed=1)
     ring = [(rf.ring_dq(q, k, v, *saved, dq0.clone(), *hop),

@@ -11,11 +11,11 @@ JAX's pure ``ring_attention``; the port's plain ring and its windowed-SP
 paths against JAX's; and each hop's plain kernel functions against the
 JAX kernels through the carry at fixed offset pairs. The f32 ring dq and
 dk/dv run their products on the tensor cores in split TF32 (three TF32
-products a product); an emulation of that arithmetic in plain torch is
-held against the JAX kernels at the f32 gradient tolerance (5e-5), and a
-single TF32 product must miss it. The group's
-``ppermute`` runs on a (dp 2, sp 3) mesh, where a shift and a pairwise
-exchange differ.
+products a product); an emulation of that arithmetic in plain torch
+(``tests/torch_split_tf32.py``) is held against the JAX kernels at the
+f32 gradient tolerance (5e-5), and a single TF32 product must miss it.
+The group's ``ppermute`` runs on a (dp 2, sp 3) mesh, where a shift and
+a pairwise exchange differ.
 """
 
 from functools import partial
@@ -31,11 +31,9 @@ from akka_allreduce_tpu.ops.pallas_kernels import ring_flash as jrf
 from akka_allreduce_tpu.parallel import ring_attention as jra
 from akka_allreduce_tpu.parallel.mesh import MeshSpec, make_device_mesh
 from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
-from akka_allreduce_tpu_torch.ops.kernels.flash_attention import score_mask
-from akka_allreduce_tpu_torch.parallel.ring_attention import (
-    NEG_INF, expand_kv_heads)
 from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 from torch_sp_ranks import attention_vjp, ppermute_probe
+from torch_split_tf32 import split_tf32_backward, tf32, tf32_trunc
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, H, D = 2, 4, 16
@@ -184,61 +182,6 @@ def test_one_hop_matches_jax_kernels(offs, causal, h_kv):
 # -- split TF32: the f32 ring backward's products, emulated ----------------
 
 GRAD_TOL = dict(atol=5e-5, rtol=5e-5)  # chip_smoke phase 11's f32 bound
-
-
-def _tf32_bits(x: torch.Tensor, add: int) -> torch.Tensor:
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + add) & 0xFFFFE000
-    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
-    return bits.to(torch.int32).view(torch.float32)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low
-    mantissa bits dropped, to nearest, ties away from zero (half an ulp
-    added to the magnitude's bit pattern, then truncated)."""
-    return _tf32_bits(x, 0x1000)
-
-
-def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
-    """x as the tensor core reads a tf32 operand: the 13 low mantissa
-    bits ignored (truncated toward zero)."""
-    return _tf32_bits(x, 0)
-
-
-def split_tf32_backward(q, k, v, do, lse, delta, q_off, k_off, causal,
-                        products: int):
-    """The hop's f32 partials (dq, dk, dv) with every product as the
-    tensor-core kernels compute it (``flash_tf32.cuh split_tf32``): each
-    operand split into hi = tf32(x) and lo = x - hi as the tensor core
-    reads it (truncated), and ``products`` = 3 (hi.lo + lo.hi + hi.hi,
-    lo.lo dropped) or 1 (hi.hi alone, one TF32 product). The rest is
-    ``_bwd_tile``'s arithmetic in f32, dk/dv summed over the group."""
-    def mm(spec, a, b):
-        ah, bh = tf32(a), tf32(b)
-        out = torch.einsum(spec, ah, bh)
-        if products == 3:
-            out = (torch.einsum(spec, tf32_trunc(a - ah), bh)
-                   + torch.einsum(spec, ah, tf32_trunc(b - bh)) + out)
-        return out
-
-    scale = q.shape[-1] ** -0.5
-    k_e, v_e = expand_kv_heads(q, k, v)
-    s = mm("bqhd,bkhd->bhqk", q, k_e) * scale
-    mask = score_mask(q.shape[1], k.shape[1], causal, None, q_off, k_off,
-                      q.device)
-    if mask is not None:
-        s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - lse[..., None])  # masked lanes exactly 0
-    dp = mm("bqhd,bkhd->bhqk", do, v_e)
-    ds = p * (dp - delta[..., None]) * scale
-    dq = mm("bhqk,bkhd->bqhd", ds, k_e)
-    dv = mm("bhqk,bqhd->bkhd", p, do)
-    dk = mm("bhqk,bqhd->bkhd", ds, q)
-    b, tk, h_kv, d = k.shape
-    g = q.shape[2] // h_kv
-    return (dq, dk.reshape(b, tk, h_kv, g, d).sum(dim=3),
-            dv.reshape(b, tk, h_kv, g, d).sum(dim=3))
 
 
 def test_tf32_rounds_to_nearest_ties_away():
