@@ -10,30 +10,29 @@
 // dq and (dk, dv) recomputed from lse and delta = rowsum(dO . O). The tile
 // arithmetic, its cast points, the work layout and the masks are those of
 // flash_tiles.cuh, which ring_flash.cu shares; each kernel here is one
-// fold over the other side's tiles (which loads its own tile and zeroes
-// its state) and an epilogue that stores the result. Every fold but the
-// f32 forward's is one that ring_flash.cu's kernel of the same product
-// runs too.
+// fold over the other side's tiles (which loads its own tile) and an
+// epilogue that stores the result. Every fold is one that ring_flash.cu's
+// kernel of the same product runs too.
 //
 // Bound: at the training shape (T = 2048, D = 128) the work is ~4 (fwd),
 // ~6 (dq) and ~8 (dk/dv) flops per D-element of every live (q, k) pair,
 // hundreds of flops per byte moved, so the arithmetic rate bounds it: the
 // tensor cores' 989 TFLOP/s for bf16 (B 8, T 2048, H 16, D 128, causal:
-// fwd 0.139 ms, dq 0.209 ms, dk/dv 0.278 ms); for f32 the CUDA cores' 67
-// TFLOP/s (fwd 2.05 ms), or ~165 TFLOP/s of f32 work as three TF32
-// tensor-core products (dq 1.25 ms, dk/dv 1.67 ms). What the design does
-// about it, per dtype:
+// fwd 0.139 ms, dq 0.209 ms, dk/dv 0.278 ms); for f32 ~165 TFLOP/s of f32
+// work as three TF32 tensor-core products (fwd 0.83 ms, dq 1.25 ms, dk/dv
+// 1.67 ms). What the design does about it, per dtype:
 //   * bf16 (_fwd_kernel, _dq_kernel, _dkv_kernel): tensor-core tiles,
 //     flash_mma.cuh (mma.sync m16n8k16 from ldmatrix, the score tiles
 //     kept in registers, the streamed tiles double-buffered by cp.async):
 //     flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel;
-//   * f32 dq and dk/dv (_dq_kernel, _dkv_kernel): tensor-core tiles in
+//   * f32 (_fwd_kernel, _dq_kernel, _dkv_kernel): tensor-core tiles in
 //     split TF32, flash_tf32.cuh (each product as three TF32 products,
 //     hi.lo + lo.hi + hi.hi, which keeps parity with the f32 reference
-//     where one TF32 product would break it): flash_dq_tf32_mma_kernel,
-//     flash_dkv_tf32_mma_kernel;
-//   * f32 forward (_fwd_kernel): CUDA-core FMAs from shared memory
-//     (flash_tiles.cuh fwd_fold): flash_fwd_kernel.
+//     where one TF32 product would break it): flash_fwd_tf32_mma_kernel,
+//     flash_dq_tf32_mma_kernel, flash_dkv_tf32_mma_kernel.
+// A query row with no live key (an empty band, a window, offsets) has l
+// = 0 and acc = 0; the forwards store o = 0 for it (acc / 1, not 0 / 0)
+// and lse = m + log l = -inf.
 
 #include <type_traits>
 
@@ -42,51 +41,6 @@
 namespace {
 
 // ---------------------------------------------------------------- forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Geom g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTile * kLd;
-  T* sV = sK + kTile * kLd;
-  float* sP = reinterpret_cast<float*>(sV + kTile * kLd);
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (g.H / g.Hkv);
-  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
-                  g.Tq - q0);
-
-  float m[kRows], l[kRows], acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 8; ++e) acc[i][e] = 0.f;
-  }
-  fwd_fold<T, D>(sQ, sK, sV, sP, k, v, g, b, hk, q0, scale, m, l, acc);
-
-  const long long o_st = static_cast<long long>(g.H) * D;
-  const long long o_sb = static_cast<long long>(g.Tq) * o_st;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + kRowStep * i;
-    if (qi >= g.Tq) continue;
-    T* row = o + b * o_sb + qi * o_st + static_cast<long long>(h) * D;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store(row + 4 * tx + 32 * jj + e, acc[i][4 * jj + e] / l[i]);
-    if (tx == 0)
-      lse[(static_cast<long long>(b) * g.H + h) * g.Tq + qi] = m[i] + logf(l[i]);
-  }
-}
-
 // The bf16 forward on tensor cores (replaces _fwd_kernel for bf16; bound
 // by the tensor cores, 0.139 ms at the training shape): fwd_mma_fold
 // (flash_mma.cuh) from an empty state, then o = acc / l rounded to bf16
@@ -113,12 +67,54 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = r0 + 8 * i;
     if (qi >= g.Tq) continue;
     bf16* row = o + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+    const float den = l[i] > 0.f ? l[i] : 1.f;  // no live key: o = 0
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * i] / l[i], acc[j][2 * i + 1] / l[i]);
+          __floats2bfloat162_rn(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
     if (tq == 0)
       lse[(static_cast<long long>(b) * g.H + h) * g.Tq + qi] = m[i] + logf(l[i]);
+  }
+}
+
+// The f32 forward on tensor cores in split TF32 (replaces _fwd_kernel for
+// f32; bound by three TF32 products a product, 0.83 ms at the training
+// shape): flash_tf32.cuh's fwd_tf32_fold from an empty state on the flash
+// grid, the longest causal bands first, then o = acc / l stored by each
+// warp for its half of its rows' columns, one float4 per 16 columns
+// (query_tile_epilogue), and lse = m + log l in natural-log units.
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, fwd_tf32_min_blocks<D>())
+flash_fwd_tf32_mma_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[D / 8][4];
+  zero_frags(acc);
+  fwd_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, g, b, h, q0,
+                   scale, m, l, acc);
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) den[i] = l[i] > 0.f ? l[i] : 1.f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] /= den[e >> 1];
+  query_tile_epilogue<false, D>(o, acc, g, b, h, q0);
+
+  // m and l are the pair's merged ones in both warps: warps 0-3 store
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= 4 * 32 || (lane & 3) != 0) return;
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi < g.Tq)
+      lse[(static_cast<long long>(b) * g.H + h) * g.Tq + qi] =
+          m[i] + logf(l[i]);
   }
 }
 
@@ -158,7 +154,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bound by three TF32 products a product, 1.25 ms at the training
 // shape): flash_tf32.cuh's dq_tf32_fold on the flash grid, the longest
 // causal bands first, then each warp stores its half of its rows, one
-// float4 per 16 columns (dq_tf32_epilogue).
+// float4 per 16 columns (query_tile_epilogue).
 template <int D>
 __global__ void __launch_bounds__(kTf32Threads, 1)
 flash_dq_tf32_mma_kernel(const float* __restrict__ q,
@@ -174,7 +170,7 @@ flash_dq_tf32_mma_kernel(const float* __restrict__ q,
   float acc[D / 8][4];
   dq_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse, delta,
                   g, b, h, q0, scale, acc);
-  dq_tf32_epilogue<false, D>(dq, acc, g, b, h, q0);
+  query_tile_epilogue<false, D>(dq, acc, g, b, h, q0);
 }
 
 // ------------------------------------------------------------------ dk/dv
@@ -235,8 +231,7 @@ flash_dkv_tf32_mma_kernel(const float* __restrict__ q,
 }
 
 // ----------------------------------------------------------------- launch
-// bf16 on the tensor-core tiles (flash_mma.cuh); the f32 forward on the
-// CUDA-core fold (flash_tiles.cuh), the f32 dq and dk/dv on split TF32
+// bf16 on the tensor-core tiles (flash_mma.cuh), f32 on split TF32
 // (flash_tf32.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -251,7 +246,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   if constexpr (std::is_same<T, bf16>::value)
     return run(flash_fwd_mma_kernel<D>, fwd_mma_smem<D>(), kMmaThreads);
   else
-    return run(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), kThreads);
+    return run(flash_fwd_tf32_mma_kernel<D>, fwd_tf32_smem<D>(),
+               kTf32Threads);
 }
 
 template <typename T, int D>

@@ -9,17 +9,16 @@
 // carries and accumulators. One fold per product serves the flash and the
 // ring kernel: fwd_mma_fold, dq_mma_fold, dkv_mma_fold; each kernel adds
 // only its epilogue (the flash kernels store bf16, the ring's read and
-// write their f32 state in the fragments' layout). In f32 the flash and
-// ring dq and dk/dv run flash_tf32.cuh's split-TF32 folds; the f32
-// forwards stay on the CUDA-core fold of flash_tiles.cuh.
+// write their f32 state in the fragments' layout). In f32 every flash and
+// ring kernel runs flash_tf32.cuh's split-TF32 folds (the forward's
+// online softmax is fwd_scores, shared with the bf16 forward here).
 //
 // Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
 // of every live (q, k) pair, hundreds of flops per byte moved, so the
 // tensor cores' 989 TFLOP/s (bf16, dense) bound every kernel here (the
 // ring's f32 carry and accumulators add 8 bytes a head-dim element of q,
 // or of k and v, read and written once: well under the operations' time).
-// The CUDA-core folds reach ~2% of it; these tiles put every product on
-// the tensor cores:
+// These tiles put every product on the tensor cores:
 //   * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 in inline PTX:
 //     bf16 operands, f32 accumulators, exactly the Pallas kernels' cast
 //     points (s in f32, l summed from the unrounded f32 p, p and ds
@@ -69,7 +68,8 @@
 //          shared memory at each k-step, and the fragment addresses are
 //          immediates off one opaque base a tile: with Q's fragments
 //          kept in registers the forward took 223); D = 64: 174 (flash)
-//          and 176 (ring), two blocks an SM.
+//          and 176 (ring), two blocks an SM; D = 32: what the registers
+//          give.
 //   dq,    D = 128: 226 (the dq accumulator 16 x 128 f32 a warp = 64, S
 //          and dP 16 x 64 f32 = 32 + 32, one step's K and V fragments
 //          32, loaded together ahead of their products); D = 64: 128.
@@ -84,7 +84,11 @@
 // Shared memory: forward Q, K, V; dq Q, dO + 2 x (K, V); dk/dv K, V + 2 x
 // (Q, dO, lse, delta): 52,224 / 104,448 / 105,472 bytes at D = 128 (three
 // forward blocks an SM, two of the others), 27,648 / 55,296 / 56,320 at
-// D = 64.
+// D = 64, 15,360 / 30,720 / 31,744 at D = 32.
+//
+// Head dims 32, 64 and 128 (the CLI's default model has D = 32): the
+// products that walk D in 16-column steps take min(4, D / 16) steps a
+// group (kNGroup).
 
 #pragma once
 
@@ -108,7 +112,7 @@ constexpr size_t fwd_mma_smem() {
 }
 // The forwards' blocks an SM that the launch bounds ask for: at D = 128
 // three (168 registers a thread, and 3 x 52,224 bytes of shared memory),
-// at D = 64 what the registers give unasked.
+// at D = 64 and 32 what the registers give unasked.
 template <int D>
 constexpr int fwd_mma_min_blocks() { return D == 128 ? 3 : 1; }
 template <int D>
@@ -217,6 +221,17 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+// 2^x for the forward's softmax: ex2 in bf16, whose p rounds to bf16
+// anyway; exp2f (2 ulp, denormals kept) in f32, as the f32 backward's
+// score tiles take it
+template <bool kF32>
+__device__ __forceinline__ float softmax_exp2(float x) {
+  return kF32 ? exp2f(x) : ex2(x);
+}
+
+// n16 column groups of D that one pass of a product over D takes
+template <int D>
+constexpr int kNGroup = D / 16 < 4 ? D / 16 : 4;
 
 // c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
 __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
@@ -352,22 +367,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The forward's elementwise step on this lane's 16 x 64 score tile (raw
-// q . k, rows r0 and r0 + 8): _softmax_tile's online softmax. m and l are
-// in natural-log units, as the carry is stored; only the exponentials
-// run in the exp2 domain, so nothing is converted on load or store.
-// s becomes p = exp(s scale - m'), exactly 0 on masked lanes (the
-// where-guard: a row whose live keys all lie in later tiles keeps p = 0
-// and corr = exp(min(m, m') - m') = 1, so an empty carry stays empty);
-// l sums the unrounded f32 p; corr[i] is returned for the accumulator.
-template <bool kFull>
-__device__ __forceinline__ void fwd_scores(float (&s)[8][4], int r0, int k0,
+// The forward's elementwise step on this lane's 16 x 8N score tile (raw
+// q . k, rows r0 and r0 + 8, keys k0 + ...): _softmax_tile's online
+// softmax. m and l are in natural-log units, as the carry is stored; only
+// the exponentials run in the exp2 domain (softmax_exp2), so nothing is
+// converted on load or store. s becomes p = exp(s scale - m'), exactly 0
+// on masked lanes (the where-guard: a row whose live keys all lie in
+// later tiles keeps p = 0 and corr = exp(min(m, m') - m') = 1, so an
+// empty carry stays empty); l sums the unrounded f32 p; corr[i] is
+// returned for the accumulator.
+template <bool kFull, bool kF32 = false, int N>
+__device__ __forceinline__ void fwd_scores(float (&s)[N][4], int r0, int k0,
                                            int tq, float scale, float scale2,
                                            float (&m)[2], float (&l)[2],
                                            float (&corr)[2], const Geom& g) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (!kFull && !pair_live(r0 + 8 * (e >> 1), k0 + 8 * j + 2 * tq + (e & 1), g))
@@ -380,18 +396,19 @@ __device__ __forceinline__ void fwd_scores(float (&s)[8][4], int r0, int k0,
     // max(s) scale == max(s scale): the scale is positive
     const float row = quad_max(mx[i]);
     const float m_new = fmaxf(m[i], row > kNegInf / 2 ? row * scale : kNegInf);
-    corr[i] = ex2((fminf(m[i], m_new) - m_new) * kLog2e);
+    corr[i] = softmax_exp2<kF32>((fminf(m[i], m_new) - m_new) * kLog2e);
     m[i] = m_new;
     mb[i] = m_new * kLog2e;
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
       const float p = kFull || s[j][e] > kNegInf / 2
-                          ? ex2(fmaf(s[j][e], scale2, -mb[i])) : 0.f;
+                          ? softmax_exp2<kF32>(fmaf(s[j][e], scale2, -mb[i]))
+                          : 0.f;
       s[j][e] = p;
       sum[i] += p;
     }
@@ -487,13 +504,13 @@ __device__ __forceinline__ void fwd_mma_fold(bf16* smem, const bf16* __restrict_
       unsigned a[4];
       to_a_frag(a, s[2 * kb2], s[2 * kb2 + 1]);
 #pragma unroll
-      for (int n0 = 0; n0 < D / 16; n0 += 4) {
-        unsigned bv[4][4];
+      for (int n0 = 0; n0 < D / 16; n0 += kNGroup<D>) {
+        unsigned bv[kNGroup<D>][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kNGroup<D>; ++i)
           ldsm_x4_t(bv[i], va + 2 * (16 * kb2 * kLd + 16 * (n0 + i)));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kNGroup<D>; ++i) {
           mma16816(acc[2 * (n0 + i)], a, bv[i][0], bv[i][1]);
           mma16816(acc[2 * (n0 + i) + 1], a, bv[i][2], bv[i][3]);
         }
@@ -610,13 +627,13 @@ __device__ __forceinline__ void dq_mma_fold(
       unsigned a[4];
       to_a_frag(a, s[2 * kb2], s[2 * kb2 + 1]);
 #pragma unroll
-      for (int n0 = 0; n0 < D / 16; n0 += 4) {
-        unsigned bk[4][4];
+      for (int n0 = 0; n0 < D / 16; n0 += kNGroup<D>) {
+        unsigned bk[kNGroup<D>][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kNGroup<D>; ++i)
           ldsm_x4_t(bk[i], cK + frag_b_kn(16 * kb2, 16 * (n0 + i), lane, kLd));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kNGroup<D>; ++i) {
           mma16816(acc[2 * (n0 + i)], a, bk[i][0], bk[i][1]);
           mma16816(acc[2 * (n0 + i) + 1], a, bk[i][2], bk[i][3]);
         }

@@ -1,16 +1,20 @@
-// Tensor-core tiles of the f32 attention backward, in split TF32: the
-// folds of the f32 flash dq and dk/dv (flash_attention.cu) and of the f32
-// ring dq and dk/dv (ring_flash.cu), and their epilogues: the flash
-// kernels store their rows, the ring kernels add them into the travelling
-// accumulators (dq_tf32_epilogue, dkv_tf32_epilogue).
+// Tensor-core tiles of the f32 attention, in split TF32: the folds of the
+// f32 flash forward, dq and dk/dv (flash_attention.cu) and of the f32
+// ring forward, dq and dk/dv (ring_flash.cu), and their epilogues: the
+// flash kernels store their rows, the ring kernels add them into the
+// travelling accumulators (query_tile_epilogue, dkv_tf32_epilogue) or
+// write their carry back in place.
 //
 // Replaces, for f32 inputs: akka_allreduce_tpu/ops/pallas_kernels/
-// attention.py _dq_kernel (:153) and _dkv_kernel (:184), and ring_flash.py
-// _ring_dq_kernel (:94) and _ring_dkv_kernel (:121), the same tiles on one
-// hop's block; their tile arithmetic is attention.py _bwd_tile (:99): p =
-// exp(s - lse), exactly 0 on a masked lane; dp = dO v^T; ds = p (dp -
-// delta) scale; dq += ds k; dv += p^T dO and dk += ds^T q, summed over the
-// GQA group; all in f32.
+// attention.py _fwd_kernel (:113), _dq_kernel (:153) and _dkv_kernel
+// (:184), and ring_flash.py _ring_fwd_kernel (:61), _ring_dq_kernel (:94)
+// and _ring_dkv_kernel (:121), the same tiles on one hop's block. Their
+// tile arithmetic: attention.py _softmax_tile (:79), the online softmax
+// (m' = max(m, rowmax s), corr = exp(min(m, m') - m'), p = exp(s - m'),
+// exactly 0 on a masked lane, l' = l corr + rowsum p, acc' = acc corr + p
+// v), and _bwd_tile (:99): p = exp(s - lse), exactly 0 on a masked lane;
+// dp = dO v^T; ds = p (dp - delta) scale; dq += ds k; dv += p^T dO and dk
+// += ds^T q, summed over the GQA group; all in f32.
 //
 // Split TF32 (CUTLASS's OpMultiplyAddFastF32, "3xTF32"): every operand x
 // is split into hi = x rounded to TF32 (to nearest, ties away from zero,
@@ -18,22 +22,23 @@
 // truncates to TF32 (split_tf32), and each product is hi.lo + lo.hi +
 // hi.hi on mma.sync.m16n8k8 tf32 with f32 accumulators (lo.lo, ~2^-22 of
 // the product, dropped; the small terms first). One TF32 product keeps
-// ~11 bits and misses the f32 reference's 5e-5; the split keeps ~20, ~1e-6
-// relative (tests/torch_split_tf32.py emulates both). The tensor
-// core's f32 sums round toward zero, so no accumulator takes more than
-// one pass's products (tf32_pk): the running sums are f32 adds, rounded
-// to nearest.
+// ~11 bits and misses the f32 reference's 2e-5 (forward) and 5e-5
+// (gradients); the split keeps ~20, ~1e-6 relative
+// (tests/torch_split_tf32.py emulates both). The tensor core's f32 sums
+// round toward zero, so no accumulator takes more than one pass's
+// products (tf32_pk): the running sums are f32 adds, rounded to nearest.
 //
-// Bound: ~6 (dq) and ~8 (dk/dv) flops per head-dim element of every live
-// (q, k) pair, three tensor-core products each: 495 TFLOP/s of TF32
-// (dense) is ~165 TFLOP/s of f32 work, against the CUDA cores' 67 (the
-// flash backward at B 8, T 2048, H 16, D 128, causal: dq 1.25 ms, dk/dv
-// 1.67; a past ring hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62,
-// dk/dv 0.83; chip_smoke.py computes both bounds from the live pairs).
-// The inputs and the f32 outputs or accumulators add ~8 bytes a
-// head-dim element, far under that. On mma.sync the split's integer and
-// f32 instructions, not the tensor core, set the pace (~3 a split
-// element), so the design spends as few as it can:
+// Bound: ~4 (forward), ~6 (dq) and ~8 (dk/dv) flops per head-dim element
+// of every live (q, k) pair, three tensor-core products each: 495 TFLOP/s
+// of TF32 (dense) is ~165 TFLOP/s of f32 work, against the CUDA cores' 67
+// (the flash kernels at B 8, T 2048, H 16, D 128, causal: forward 0.83
+// ms, dq 1.25, dk/dv 1.67; a past ring hop at B 8, T 1024, H 16, H_kv 4,
+// D 128: forward 0.42, dq 0.62, dk/dv 0.83; chip_smoke.py computes the
+// bounds from the live pairs). The inputs, the outputs and the f32 carry
+// or accumulators add ~8 bytes a head-dim element, far under that. On
+// mma.sync the split's integer and f32 instructions, not the tensor core,
+// set the pace (~3 a split element), so the design spends as few as it
+// can:
 //   * Every product on mma.sync (split TF32), the score tiles kept in
 //     registers: an m16n8 accumulator holds columns {2t, 2t + 1} of row
 //     lane / 4 (t = lane % 4) and a tf32 A fragment wants {t, t + 4}, so
@@ -41,13 +46,20 @@
 //     physical 2t, t + 4 <-> 2t + 1; the sum over k is the same) and P /
 //     dS feed it straight from registers: a = {c0, c2, c1, c3}, split once
 //     a pass.
-//   * The block's resident tile (Q and dO in dq, K and V in dk/dv) is
-//     split once when it lands, into a hi and a lo copy in shared memory
-//     (split_tile), so S = Q K^T and dP = dO V^T (S^T, dP^T in dk/dv) read
-//     their A operand ready-split: split in every warp at every product
-//     it cost ~2 of the ~9 instructions an mma took. The streamed tile is
-//     split in registers as it is read (a second pair of copies would not
-//     fit).
+//   * The block's resident tile (Q in the forward, Q and dO in dq, K and
+//     V in dk/dv) is split once when it lands, into a hi and a lo copy in
+//     shared memory (split_tile), so S = Q K^T and dP = dO V^T (S^T, dP^T
+//     in dk/dv) read their A operand ready-split: split in every warp at
+//     every product it cost ~2 of the ~9 instructions an mma took. The
+//     backward's streamed tiles are split in registers as they are read
+//     (a second pair of copies would not fit). The forward keeps one
+//     resident tile where dq keeps two, so its streamed K and V would fit
+//     as hi and lo copies too, but splitting them once a block so was
+//     ~27% slower than splitting them in every warp's registers (NVIDIA
+//     H100 80GB HBM3, 700 W: the flash forward at B 8, T 2048, H 16, D
+//     128, causal 3.88 ms against 3.05): two more block-wide barriers and
+//     a pass of the whole block a half, and twice the shared loads of K
+//     and V a warp.
 //   * Operands reduced over D come through ldmatrix, an 8 x 4 f32 tile
 //     read as 8 x 8 b16: each lane gets the word at row lane / 4, column
 //     lane % 4, which is the tf32 fragment's element. ldmatrix.trans moves
@@ -79,9 +91,14 @@
 //     shared memory (dq: half the columns each; dk/dv: dk to one warp, dv
 //     to the other), in f32, and each warp stores its half.
 //
-// Work layout: 64-row tiles. dq: one block per (query tile, query head,
-// batch), walking the live key band (the longest causal bands launched
-// first); dk/dv: one block per (key tile, KV head, batch), walking the
+//   * The forward's online softmax is not linear in the keys, so each warp
+//     of a pair carries its own (m, l, acc) over its 16 keys of each pass,
+//     and the pair merges them once at the end, through the freed shared
+//     memory: m = max(m0, m1), l and acc rescaled by exp(m_i - m).
+//
+// Work layout: 64-row tiles. Forward and dq: one block per (query tile,
+// query head, batch), walking the live key band (the longest causal bands
+// launched first); dk/dv: one block per (key tile, KV head, batch), walking the
 // GQA group x live query tiles (in blockIdx order: key tile 0 has the
 // longest causal band), so the group sums in f32 registers and is
 // written once (no atomics: two launches give the same bits). The
@@ -94,16 +111,20 @@
 // nothing and are not stored; a tile whose pairs are all live, by
 // causality and the window, skips the per-element mask (tile_full).
 //
-// Shared memory: the resident tile pair with their lo copies and the
-// streamed pair (dk/dv also a query tile's lse and delta): 202,752 /
-// 203,264 bytes at D = 128, one block of 8 warps an SM; 104,448 / 104,960
-// at D = 64, two. Registers (ptxas -v, sm_90a; no spill accepted): at D
-// = 128 a dq warp holds its dq share (16 x 128 f32 = 64) and S, dP (8 +
-// 8): 213; a dk/dv warp its dk and dv shares (2 x 64) and S^T, dP^T:
-// 255 (the flash and the ring kernel of each fold alike: the epilogue
-// derives its addresses after the fold). The launch bounds say one block
-// an SM: without, ptxas aims at more blocks (it cannot see the dynamic
-// shared memory) and spills under their register budget.
+// Shared memory: the backward's resident tile pair with their lo copies
+// and the streamed pair (dk/dv also a query tile's lse and delta): 202,752
+// / 203,264 bytes at D = 128, one block of 8 warps an SM; 104,448 /
+// 104,960 at D = 64, two; 55,296 / 55,808 at D = 32. The forward: Q hi
+// and lo and the streamed K and V, 135,168 bytes at D = 128. Registers
+// (ptxas -v, sm_90a; no spill accepted): at D = 128 a dq warp holds its dq share (16 x 128 f32 = 64)
+// and S, dP (8 + 8): 213; a dk/dv warp its dk and dv shares (2 x 64) and
+// S^T, dP^T: 255; a forward warp its acc share (64) and S (8): 216 (the
+// flash and the ring kernel of each fold alike, to a few registers: the
+// epilogue derives its addresses after the fold). The launch bounds say
+// one block an SM (the forward: two at D = 32, fwd_tf32_min_blocks):
+// without, ptxas aims at more blocks (it cannot see the dynamic shared
+// memory) and spills under their register budget; the forward spilled
+// under two blocks at D = 64 (128 registers) and three at D = 32 (80).
 
 #pragma once
 
@@ -128,6 +149,16 @@ constexpr size_t dkv_tf32_smem() {
   return 6 * static_cast<size_t>(tf32_tile<D>()) * sizeof(float)
          + 2 * kTile * sizeof(float);
 }
+
+// the forward's tiles: Q hi and lo, K and V
+template <int D>
+constexpr size_t fwd_tf32_smem() {
+  return 4 * static_cast<size_t>(tf32_tile<D>()) * sizeof(float);
+}
+// the forward's blocks an SM that the launch bounds ask for: one at D =
+// 128 and 64, two at 32
+template <int D>
+constexpr int fwd_tf32_min_blocks() { return D == 32 ? 2 : 1; }
 
 // rows of one pass over the streamed tile, and of one streamed copy
 constexpr int kHalf = kTile / 2;
@@ -344,6 +375,24 @@ __device__ __forceinline__ void put_paired_row(float* row,
   }
 }
 
+// This lane's paired-column accumulators of row i (0: lane / 4, 1: + 8)
+// from row[16 p + 4 (lane % 4) + {0..3}], for every column pair: the
+// inverse of put_paired_row.
+template <int D>
+__device__ __forceinline__ void get_paired_row(const float* row,
+                                               float (&acc)[D / 8][4],
+                                               int i) {
+  row += 4 * (threadIdx.x % 4);
+#pragma unroll
+  for (int p = 0; p < D / 16; ++p) {
+    const float4 a = *reinterpret_cast<const float4*>(row + 16 * p);
+    acc[2 * p][2 * i] = a.x;
+    acc[2 * p + 1][2 * i] = a.y;
+    acc[2 * p][2 * i + 1] = a.z;
+    acc[2 * p + 1][2 * i + 1] = a.w;
+  }
+}
+
 // Start copying rows [first, first + kRowsN) of a 64-row f32 tile (row
 // stride `st` floats in device memory, D contiguous; `src` is the tile's
 // row 0, always a valid address) into a padded shared tile, kThreadsN
@@ -414,6 +463,134 @@ __device__ __forceinline__ void load_q_half(
   cp_stats(sL, sDel, lse, delta,
            (static_cast<long long>(b) * g.H + h) * g.Tq + q0, hf * kHalf,
            g.Tq - q0);
+}
+
+// ---------------------------------------------------------------- forward
+// Fold every live key tile of KV head h / group into the online-softmax
+// state of query tile q0 of head h, batch b: the key loop of an f32
+// forward kernel (flash_fwd_tf32_mma_kernel, ring_fwd_tf32_mma_kernel), on
+// kTf32Threads threads. q, k, v are the arrays' bases. Warp w takes query
+// rows 16 (w % 4) + lane / 4 and + 8; Q stays resident, split once
+// (split_tile); each key tile runs in two halves of kHalf keys, warps 0-3
+// taking the first 16 of a half and warps 4-7 the other 16 (S = Q K^T,
+// fwd_scores, acc += P V, paired columns), and when a half is done its
+// rows of K and V are refilled with the next tile's, under the other
+// half.
+// m, l and acc hold each warp's own state on entry (the flash kernels
+// start empty; the ring kernel gives its carry to warps 0-3 and starts
+// warps 4-7 empty) and, on return, the pair's merged state: m and l of
+// its rows in both warps, acc of columns 0 .. D/2 (acc[0 .. D/16)) in
+// warps 0-3 and of D/2 .. D (acc[D/16 .. D/8)) in warps 4-7, the other
+// half of acc left partial.
+template <int D>
+__device__ __forceinline__ void fwd_tf32_fold(
+    float* smem, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const Geom& g, int b, int h, int q0,
+    float scale, float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
+  constexpr int kLd = tf32_ld<D>();
+  constexpr int kT = tf32_tile<D>();
+  constexpr int kHalfJ = D / 16;
+  constexpr int kSlot = D / 4 + 4;  // floats a thread sends: half of acc, m, l
+  static_assert(kTf32Threads * kSlot <= 2 * kT, "the merge fits Q");
+  float* sQ = smem;                          // hi, then lo
+  float* sK = sQ + 2 * kT;
+  float* sV = sK + kT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % 4, wk = warp / 4;
+  const int tq = lane & 3;
+  const int hk = h / (g.H / g.Hkv);
+  int lo, hi;
+  live_tiles(q0, true, g, lo, hi);
+
+  const float* kb = k + b * g.k_sb + hk * g.k_sh;
+  const float* vb = v + b * g.v_sb + hk * g.v_sh;
+  // groups: {Q, half 0 of K and V}, then {half 1}
+  if (lo <= hi) {
+    cp_rows32<D, kTile, kTf32Threads>(
+        sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st, 0, g.Tq - q0);
+    load_kv_half<D>(sK, sV, kb, vb, g, lo, 0);
+  }
+  cp_async_commit();
+  if (lo <= hi) load_kv_half<D>(sK, sV, kb, vb, g, lo, 1);
+  cp_async_commit();
+  if (lo <= hi) {  // block-uniform
+    cp_async_wait<1>();
+    __syncthreads();  // Q has landed
+    split_tile<D, kTf32Threads>(sQ);
+  }
+
+  const int r0 = q0 + 16 * wr + (lane >> 2);  // this lane's rows r0, r0 + 8
+  const float scale2 = scale * kLog2e;
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * kTile;
+    const bool full = tile_full(q0, k0, g);
+#pragma unroll 1  // one half at a time
+    for (int hf = 0; hf < 2; ++hf) {
+      const int ks = hf * kHalf + 16 * wk;  // this warp's 16 keys
+      cp_async_wait<1>();
+      __syncthreads();  // this half's rows have landed
+      float s[2][4], corr[2];
+      zero_frags(s);
+      tf32_nt<D, 16>(s, sQ + 16 * wr * kLd, sK + ks * kLd, lane);
+      if (full)
+        fwd_scores<true, true>(s, r0, k0 + ks, tq, scale, scale2, m, l, corr,
+                               g);
+      else
+        fwd_scores<false, true>(s, r0, k0 + ks, tq, scale, scale2, m, l,
+                                corr, g);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      tf32_pk<D, 16>(acc, s, sV + ks * kLd, lane);
+
+      __syncthreads();  // every warp is done with this half's rows
+      if (kt < hi) load_kv_half<D>(sK, sV, kb, vb, g, kt + 1, hf);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy has landed and every warp is done
+
+  // the merge: warp (wr, wk) sends its m, l and the half of acc its
+  // partner keeps, element e of lane l at [slot][e][l] (constant indices
+  // in each branch: a register array indexed at run time would live in
+  // local memory); both warps then hold the same m and l (the merge is
+  // symmetric)
+  float* mine = sQ + (wk * 4 + wr) * kSlot * 32 + lane;
+  const float* theirs = sQ + ((1 - wk) * 4 + wr) * kSlot * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < kHalfJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mine[(4 * j + e) * 32] = wk == 0 ? acc[kHalfJ + j][e] : acc[j][e];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mine[(D / 4 + i) * 32] = m[i];
+    mine[(D / 4 + 2 + i) * 32] = l[i];
+  }
+  __syncthreads();
+  float c_mine[2], c_theirs[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_t = theirs[(D / 4 + i) * 32];
+    const float m_new = fmaxf(m[i], m_t);
+    c_mine[i] = exp2f((m[i] - m_new) * kLog2e);
+    c_theirs[i] = exp2f((m_t - m_new) * kLog2e);
+    l[i] = l[i] * c_mine[i] + theirs[(D / 4 + 2 + i) * 32] * c_theirs[i];
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kHalfJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float y = theirs[(4 * j + e) * 32] * c_theirs[e >> 1];
+      if (wk == 0)
+        acc[j][e] = acc[j][e] * c_mine[e >> 1] + y;
+      else
+        acc[kHalfJ + j][e] = acc[kHalfJ + j][e] * c_mine[e >> 1] + y;
+    }
 }
 
 // --------------------------------------------------------------------- dq
@@ -540,14 +717,14 @@ __device__ __forceinline__ void dq_tf32_fold(
     }
 }
 
-// The epilogue of an f32 dq kernel: the block's rows of dq, as
-// dq_tf32_fold leaves them (warps 0-3 hold columns 0 .. D/2 of their
-// rows, warps 4-7 the rest), stored (kAdd false: the flash kernel's
-// output) or added (true: the ring's travelling accumulator) into out
-// (B, Tq, H, D) f32. The addresses are derived afresh (opaque), so that
-// none stays live across the fold's main loop.
+// The epilogue of an f32 dq or forward kernel: the block's query rows, as
+// dq_tf32_fold and fwd_tf32_fold leave them (warps 0-3 hold columns 0 ..
+// D/2 of their rows, warps 4-7 the rest), stored (kAdd false: the flash
+// kernels' dq or o, the ring forward's carry) or added (true: the ring's
+// travelling dq) into out (B, Tq, H, D) f32. The addresses are derived
+// afresh (opaque), so that none stays live across the fold's main loop.
 template <bool kAdd, int D>
-__device__ __forceinline__ void dq_tf32_epilogue(float* out,
+__device__ __forceinline__ void query_tile_epilogue(float* out,
                                                  const float (&acc)[D / 8][4],
                                                  const Geom& g, int b, int h,
                                                  int q0) {

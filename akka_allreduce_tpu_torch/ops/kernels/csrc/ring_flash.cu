@@ -12,8 +12,8 @@
 //
 //   ring_fwd  reads the running (m, l) (B, H, T) f32 and acc (B, T, H, D)
 //             f32 of this rank's queries, folds in every live key tile of
-//             the hop's block (fwd_fold, or fwd_mma_fold in bf16: the
-//             where-guard keeps a fully masked row exactly 0) and writes
+//             the hop's block (fwd_mma_fold in bf16, fwd_tf32_fold in f32:
+//             the where-guard keeps a fully masked row exactly 0) and writes
 //             them back UNNORMALISED, m in natural-log units; the caller
 //             divides acc by l and takes lse = m + log l once, after the
 //             last hop.
@@ -29,31 +29,31 @@
 // Each block owns its rows of the carry or of the accumulators, so they
 // are updated in place (no second copy of the f32 state on the card).
 // The tile arithmetic, cast points and masks are the flash kernels':
-// flash_mma.cuh's tensor-core folds in bf16, the same functions that
-// flash_attention.cu runs; in f32 the forward runs flash_tiles.cuh's
-// CUDA-core fold and dq and dk/dv the split-TF32 folds of flash_tf32.cuh.
+// every hop kernel runs the fold of the flash kernel of the same product,
+// the same function that flash_attention.cu runs, flash_mma.cuh's
+// tensor-core folds in bf16 and flash_tf32.cuh's split-TF32 folds in f32.
 // Ragged T is masked at the edge.
 //
 // Bound: a hop is the flash kernel's work on a (T, T) block pair, ~4 (fwd),
 // ~6 (dq), ~8 (dk/dv) flops per D-element of every live (q, k) pair, so at
 // T = 1024, D = 128 the arithmetic rate bounds it (989 TFLOP/s bf16 on the
-// tensor cores; in f32 67 TFLOP/s on the CUDA cores, or ~165 TFLOP/s of
-// f32 work as three TF32 products at 495; a past hop at B 8, H 16, H_kv 4
-// in bf16: forward 0.0695 ms, dq 0.1042, dk/dv 0.1390; in split TF32: dq
-// 0.62, dk/dv 0.83); the f32 carries and accumulators add 2 x 4 B per
-// D-element read and written, well under the operations' time. What the
-// design does about it: in bf16 every hop kernel runs the flash kernels'
-// tensor-core fold (flash_mma.cuh: mma.sync from ldmatrix, the score
-// tiles kept in registers, the streamed tiles copied by cp.async under
-// the products) and only its epilogue is the ring's: ring_fwd_mma_kernel
-// (fwd_mma_fold) loads and stores the carry, ring_dq_mma_kernel
-// (dq_mma_fold) and ring_dkv_mma_kernel (dkv_mma_fold) add their f32
-// fragments into the accumulators, one float2 at a time. In f32,
-// ring_dq_tf32_mma_kernel (dq_tf32_fold) and ring_dkv_tf32_mma_kernel
-// (dkv_tf32_fold) put every product on the tensor cores as three TF32
-// products (one would break parity with the f32 reference) and add their
-// paired-column fragments one float4 at a time; the f32 forward stays on
-// the CUDA-core FMAs.
+// tensor cores; in f32 ~165 TFLOP/s of f32 work as three TF32 products at
+// 495; a past hop at B 8, H 16, H_kv 4 in bf16: forward 0.0695 ms, dq
+// 0.1042, dk/dv 0.1390; in split TF32: forward 0.42, dq 0.62, dk/dv 0.83);
+// the f32 carries and accumulators add 2 x 4 B per D-element read and
+// written, well under the operations' time. What the design does about
+// it: every hop kernel runs the flash kernels' tensor-core fold and only
+// its epilogue is the ring's. In bf16 (flash_mma.cuh: mma.sync from
+// ldmatrix, the score tiles kept in registers, the streamed tiles copied
+// by cp.async under the products) ring_fwd_mma_kernel (fwd_mma_fold)
+// loads and stores the carry, ring_dq_mma_kernel (dq_mma_fold) and
+// ring_dkv_mma_kernel (dkv_mma_fold) add their f32 fragments into the
+// accumulators, one float2 at a time. In f32 every product runs on the
+// tensor cores as three TF32 products (one would break parity with the
+// f32 reference): ring_fwd_tf32_mma_kernel (fwd_tf32_fold) loads and
+// stores the carry, ring_dq_tf32_mma_kernel (dq_tf32_fold) and
+// ring_dkv_tf32_mma_kernel (dkv_tf32_fold) add their paired-column
+// fragments one float4 at a time.
 
 #include <type_traits>
 
@@ -62,64 +62,6 @@
 namespace {
 
 // ---------------------------------------------------------------- forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, float* __restrict__ m_io,
-                float* __restrict__ l_io, float* __restrict__ acc_io, Geom g,
-                float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kLd = ld<T, D>();
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTile * kLd;
-  T* sV = sK + kTile * kLd;
-  float* sP = reinterpret_cast<float*>(sV + kTile * kLd);
-
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (g.H / g.Hkv);
-  load_tile<T, D>(sQ, q + b * g.q_sb + q0 * g.q_st + h * g.q_sh, g.q_st,
-                  g.Tq - q0);
-
-  // the carry of this thread's rows; rows past Tq start empty and are
-  // never stored
-  const long long row0 = (static_cast<long long>(b) * g.H + h) * g.Tq + q0;
-  const long long a_st = static_cast<long long>(g.H) * D;
-  float* acc_base = acc_io + (static_cast<long long>(b) * g.Tq + q0) * a_st +
-                    static_cast<long long>(h) * D + 4 * tx;
-  float m[kRows], l[kRows], acc[kRows][D / 8];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    const bool in = q0 + r < g.Tq;
-    m[i] = in ? m_io[row0 + r] : kNegInf;
-    l[i] = in ? l_io[row0 + r] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj) {
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (in) load4(acc_base + r * a_st + 32 * jj, x);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][4 * jj + e] = x[e];
-    }
-  }
-  fwd_fold<T, D>(sQ, sK, sV, sP, k, v, g, b, hk, q0, scale, m, l, acc);
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kRowStep * i;
-    if (q0 + r >= g.Tq) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 32; ++jj)
-      *reinterpret_cast<float4*>(acc_base + r * a_st + 32 * jj) =
-          make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2],
-                      acc[i][4 * jj + 3]);
-    if (tx == 0) {
-      m_io[row0 + r] = m[i];
-      l_io[row0 + r] = l[i];
-    }
-  }
-}
-
 // The bf16 hop on tensor cores (replaces _ring_fwd_kernel for bf16): each
 // block loads its rows' carry into the accumulator fragments' layout (m
 // and l for rows lane / 4 and + 8, acc as float2 at columns 2 (lane % 4)
@@ -183,6 +125,64 @@ ring_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (tq == 0) {
       m_io[ml_at(be, he, qi)] = m[i];
       l_io[ml_at(be, he, qi)] = l[i];
+    }
+  }
+}
+
+// The f32 hop on tensor cores in split TF32 (replaces _ring_fwd_kernel
+// for f32; a past hop at the sequence-parallel slice's shape is bound at
+// 0.42 ms): warps 0-3 load their rows' carry into the fold's layout (m
+// and l for rows lane / 4 and + 8, acc in paired columns, one float4 per
+// 16 columns) and warps 4-7 start empty; fwd_tf32_fold (flash_tf32.cuh)
+// merges the pair, and each warp writes its half of the carry's columns
+// back in place (query_tile_epilogue), unnormalised and in natural-log
+// units, as it came; warps 0-3 write m and l. The grid is the flash
+// kernel's, the longest causal bands first. A row with no live key in
+// the hop comes back bitwise as it came (corr = 1, p = 0; the empty
+// partner's share is scaled by exp(NEG_INF - m) = 0).
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, fwd_tf32_min_blocks<D>())
+ring_fwd_tf32_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         float* __restrict__ m_io, float* __restrict__ l_io,
+                         float* __restrict__ acc_io, Geom g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + 16 * (warp % 4) + (lane >> 2);
+  const long long ml0 = (static_cast<long long>(b) * g.H + h) * g.Tq;
+
+  // rows past Tq start empty and are never stored
+  float m[2], l[2], acc[D / 8][4];
+  zero_frags(acc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    const bool in = warp < 4 && qi < g.Tq;
+    m[i] = in ? m_io[ml0 + qi] : kNegInf;
+    l[i] = in ? l_io[ml0 + qi] : 0.f;
+    if (in)
+      get_paired_row<D>(
+          acc_io + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D,
+          acc, i);
+  }
+  fwd_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, g, b, h, q0,
+                   scale, m, l, acc);
+  query_tile_epilogue<false, D>(acc_io, acc, g, b, h, q0);
+
+  // m and l are the pair's merged ones in both warps: warps 0-3 store
+  if (threadIdx.x >= 4 * 32 || (lane & 3) != 0) return;
+  const int be = static_cast<int>(opaque(b)), he = static_cast<int>(opaque(h));
+  const long long ml = (static_cast<long long>(be) * g.H + he) * g.Tq;
+  const int rs = q0 + 16 * (threadIdx.x / 32) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = rs + 8 * i;
+    if (qi < g.Tq) {
+      m_io[ml + qi] = m[i];
+      l_io[ml + qi] = l[i];
     }
   }
 }
@@ -277,7 +277,7 @@ ring_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // TF32 products a product at 495 TFLOP/s, ~165 TFLOP/s of f32 work (a
 // past hop at B 8, T 1024, H 16, H_kv 4, D 128: dq 0.62 ms, dk/dv 0.83);
 // the design's answer is in flash_tf32.cuh, and so are the epilogues
-// (dq_tf32_epilogue, dkv_tf32_epilogue, which the flash kernels share:
+// (query_tile_epilogue, dkv_tf32_epilogue, which the flash kernels share:
 // here they add one float4 per 16 columns, deriving the accumulator
 // addresses afresh after the fold). The grids are the bf16 kernels' (dq
 // the longest causal bands first), 8 warps a block (kTf32Threads), one
@@ -299,7 +299,7 @@ ring_dq_tf32_mma_kernel(const float* __restrict__ q,
   float acc[D / 8][4];
   dq_tf32_fold<D>(reinterpret_cast<float*>(smem), q, k, v, dout, lse, delta,
                   g, b, h, q0, scale, acc);
-  dq_tf32_epilogue<true, D>(dq_io, acc, g, b, h, q0);
+  query_tile_epilogue<true, D>(dq_io, acc, g, b, h, q0);
 }
 
 template <int D>
@@ -321,8 +321,7 @@ ring_dkv_tf32_mma_kernel(const float* __restrict__ q,
 }
 
 // ----------------------------------------------------------------- launch
-// bf16 on the tensor-core tiles (flash_mma.cuh); f32 forward on the
-// CUDA-core fold (flash_tiles.cuh), f32 dq and dk/dv on split TF32
+// bf16 on the tensor-core tiles (flash_mma.cuh), f32 on split TF32
 // (flash_tf32.cuh)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* m, void* l,
@@ -337,7 +336,8 @@ int fwd(const void* q, const void* k, const void* v, void* m, void* l,
   if constexpr (std::is_same<T, bf16>::value)
     return run(ring_fwd_mma_kernel<D>, fwd_mma_smem<D>(), kMmaThreads);
   else
-    return run(ring_fwd_kernel<T, D>, fwd_smem<T, D>(), kThreads);
+    return run(ring_fwd_tf32_mma_kernel<D>, fwd_tf32_smem<D>(),
+               kTf32Threads);
 }
 
 template <typename T, int D>

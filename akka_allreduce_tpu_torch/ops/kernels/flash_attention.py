@@ -17,9 +17,9 @@ query head h reads KV head h // (H / H_kv)).
 * :func:`flash_forward`, :func:`flash_dq`, :func:`flash_dkv` — the
   wrappers: a CPU tensor goes to the plain version; a CUDA tensor launches
   ``csrc/flash_attention.cu`` or raises: bf16 forward, dq and dk/dv on
-  tensor cores (``csrc/flash_mma.cuh``), f32 dq and dk/dv on tensor cores
-  in split TF32, three TF32 products a product (``csrc/flash_tf32.cuh``),
-  the f32 forward on CUDA cores (``csrc/flash_tiles.cuh``).
+  tensor cores (``csrc/flash_mma.cuh``), f32 forward, dq and dk/dv on
+  tensor cores in split TF32, three TF32 products a product
+  (``csrc/flash_tf32.cuh``), at head dims :data:`HEAD_DIMS`.
   :data:`FLASH_FWD_LAUNCHES`, :data:`FLASH_DQ_LAUNCHES` and
   :data:`FLASH_DKV_LAUNCHES` count launches.
 * :class:`FlashAttention` (``torch.autograd.Function``),
@@ -31,7 +31,9 @@ query head h reads KV head h // (H / H_kv)).
 ``causal`` masks key position ``k_off + j`` above query position
 ``q_off + i``; ``window`` (causal only, >= 1) also masks keys ``window`` or
 more positions back. ``q_off``/``k_off`` only move the mask, so Tq != Tk
-with offsets scores a query block against a longer key block.
+with offsets scores a query block against a longer key block. A query
+row that no key reaches gets ``o = 0`` (the JAX kernel's ``acc / l`` is
+0 / 0 there) and ``lse = -inf``.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_DQ_LAUNCHES = 0
 FLASH_DKV_LAUNCHES = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCH: dict = {}  # the bound C entry points, set at first launch
 
@@ -115,7 +117,8 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
     """Plain forward: ``(o (B, Tq, H, D) in q's dtype, lse (B, H, Tq)
     f32)``. The flash kernel's arithmetic in one pass: unnormalised
     ``p = exp(s - m)`` (exactly 0 on masked lanes) cast to v's dtype,
-    the PV product in f32, then the division by the row sum."""
+    the PV product in f32, then the division by the row sum (by 1 where
+    the row has no live key, so its o is 0)."""
     _check_options(causal, window)
     s = scores(q, k, causal, window, q_off, k_off)
     m = s.amax(dim=-1, keepdim=True)
@@ -126,7 +129,8 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
     _, v_e = expand_kv_heads(q, v, v)
     acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
                        v_e.float())
-    o = (acc / l_sum).transpose(1, 2).to(q.dtype)
+    o = (acc / torch.where(l_sum > 0, l_sum, 1.0)).transpose(1, 2).to(
+        q.dtype)
     lse = (m + torch.log(l_sum))[..., 0]
     return o, lse
 
@@ -253,9 +257,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_off: int = 0, k_off: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` as :func:`flash_forward_reference`. On CUDA tensors:
-    one launch of the forward kernel (bf16 on tensor cores, f32 still on
-    CUDA cores) into ``torch.empty`` outputs on the current stream; raises
-    if the launch fails."""
+    one launch of the forward kernel (tensor cores: bf16, or f32 in split
+    TF32) into ``torch.empty`` outputs on the current stream; raises if
+    the launch fails."""
     global FLASH_FWD_LAUNCHES
     _check_options(causal, window)
     check_qkv(q, k, v)

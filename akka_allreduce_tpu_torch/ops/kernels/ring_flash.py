@@ -18,11 +18,10 @@ The wrappers update their f32 state in place and return it. A CPU tensor
 goes to the plain versions (:func:`ring_fwd_reference`,
 :func:`ring_bwd_reference`: ``_softmax_tile`` / ``_bwd_tile`` over the
 whole block, the JAX cast points); a CUDA tensor launches
-``csrc/ring_flash.cu`` or raises: in bf16 the forward, dq and dk/dv on
-tensor cores (the flash kernels' folds, ``csrc/flash_mma.cuh``); in f32
-dq and dk/dv on tensor cores (split TF32: three TF32 products a product,
-``csrc/flash_tf32.cuh``) and the forward on CUDA cores
-(``csrc/flash_tiles.cuh``). :data:`RING_FWD_LAUNCHES`,
+``csrc/ring_flash.cu`` or raises: the forward, dq and dk/dv on tensor
+cores, on the flash kernels' folds (bf16: ``csrc/flash_mma.cuh``; f32 in
+split TF32, three TF32 products a product: ``csrc/flash_tf32.cuh``).
+:data:`RING_FWD_LAUNCHES`,
 :data:`RING_DQ_LAUNCHES` and :data:`RING_DKV_LAUNCHES` count launches.
 
 :class:`RingFlashAttention` is the ring (``_ring_fwd`` /
@@ -129,8 +128,8 @@ def ring_fwd(q, k, v, m, l_sum, acc, q_off: int, k_off: int,
              causal: bool = True):
     """Fold the block (k, v) at key offset ``k_off`` into this rank's
     carry (queries at ``q_off``) in place; returns ``(m, l, acc)``. On
-    CUDA tensors: one launch of the ring forward kernel (bf16 on tensor
-    cores, f32 on CUDA cores)."""
+    CUDA tensors: one launch of the ring forward kernel (tensor cores:
+    bf16, or f32 in split TF32)."""
     global RING_FWD_LAUNCHES
     check_qkv(q, k, v)
     b, tq, h, d = q.shape

@@ -9,11 +9,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    convolutions, so every f32 product runs in full f32.
 2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
    per source, all started together), timed, with ptxas's report and,
-   per tensor-core kernel (``*_mma_kernel``: the bf16 flash and ring
-   forward, dq and dk/dv, and the flash and ring f32 dq and dk/dv in
-   split TF32), its registers and spill bytes: any spill fails the
-   phase, and so does a fresh build that lacks one of ``MMA_KERNELS`` at
-   D 64 or 128.
+   per tensor-core kernel (``*_mma_kernel``: the flash and ring forward,
+   dq and dk/dv, bf16 and f32 in split TF32), its registers and spill
+   bytes: any spill fails the phase, and so does a fresh build that
+   lacks one of ``MMA_KERNELS`` at a head dim of ``HEAD_DIMS`` (32, 64,
+   128).
 3. kernels — hold each kernel against its plain PyTorch version on the
    same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
    the serving slice's shape, MHA, MQA, a larger page, and the position
@@ -32,19 +32,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    with a torch.profiler breakdown of that step; the greedy tokens match
    the gather run's wherever its top-2 logit gap exceeds 1e-3.
 
-5. kernels (flash) — hold the flash forward, dq and dk/dv kernels
-   (bf16 all three on tensor cores, f32 dq and dk/dv on tensor cores in
-   split TF32, the f32 forward on CUDA cores) against their plain PyTorch
-   versions on the same CUDA tensors: f32 at 2e-5 (forward) and 5e-5
-   (gradients), bf16 at 3e-2 (the JAX package's tolerances), over the
-   training slice's shape (B 8, T 2048, 16 heads of 128), GQA (4 KV
+5. kernels (flash) — hold the flash forward, dq and dk/dv kernels (all
+   on tensor cores: bf16, and f32 in split TF32) against their plain
+   PyTorch versions on the same CUDA tensors: f32 at 2e-5 (forward) and
+   5e-5 (gradients), bf16 at 3e-2 (the JAX package's tolerances), over
+   the training slice's shape (B 8, T 2048, 16 heads of 128), GQA (4 KV
    heads), MQA, a 256 window, non-causal, a ragged T of 1000, Tq != Tk
-   with offsets, and head_dim 64. At the slice's shape, in
-   bf16 and f32: each kernel, the plain version and the library call
+   with offsets, head_dim 64 and 32, and the CLI defaults' shape (B 2,
+   T 32, 4 heads of 32: less than one 64-row tile, phase 15's
+   attention). At the slice's shape, in bf16
+   and f32: each kernel, the plain version and the library call
    (``scaled_dot_product_attention``, forward, and its backward) timed as
    above, and each kernel's bound computed from the live (q, k) pairs
-   (f32 dq and dk/dv also at the split-TF32 rate, 495 / 3 TFLOP/s, beside
-   the CUDA cores' 67).
+   (f32 also at the split-TF32 rate, 495 / 3 TFLOP/s, beside the CUDA
+   cores' 67).
 6. train   — the port's ``train`` at the flagship training configuration
    (d_model 2048, 16 heads, 8 layers, d_ff 8192 gelu, vocab 32768, bf16
    compute, f32 masters, adamw lr 1e-4, batch 8, seq 2048, 6 steps,
@@ -55,8 +56,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    kernel, the flash kernels' share, the device's idle share.
 7. train parity — full width, the gqa4 variant (4 KV heads, rope),
    batch 2, seq 2048, from one set of weights, in f32 and in bf16 (the
-   bf16 forward, dq and dk/dv run on tensor cores, the f32 dq and dk/dv
-   on tensor cores in split TF32, the f32 forward on CUDA cores): step-0
+   forward, dq and dk/dv on tensor cores, f32 in split TF32): step-0
    loss and grads through the kernels against
    ``attn_impl="local"`` from the weights and batch of each of
    ``PARITY_SEEDS``, then two steps of each from seed 0, at ``PARITY_TOL``
@@ -102,22 +102,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    envelope of the exact sum, and the counts exact.
 
 11. ring kernels — hold the ring-flash forward, dq and dk/dv kernels
-   (one hop each; bf16 all three on tensor cores, f32 dq and dk/dv on
-   tensor cores in split TF32, the f32 forward on CUDA cores) against
-   their plain PyTorch versions on the same CUDA tensors,
+   (one hop each, all on tensor cores: bf16, and f32 in split TF32)
+   against their plain PyTorch versions on the same CUDA tensors,
    f32 at 2e-5 (the carry: m, l and acc / l, the output the unnormalised
    acc stands for) and 5e-5 (the gradient accumulators), bf16 at 3e-2:
    at the sequence-parallel slice's shape (B 8, T_local 1024, 16 heads
    of 128, 4 KV heads) as rank 1's diagonal hop and as its past hop,
-   then MQA, non-causal, a ragged T_local of 1000 and head_dim 64, each
-   on a carry that already holds a hop and on nonzero f32 accumulators. At the slice's shape each kernel, its
+   then MQA, non-causal, a ragged T_local of 1000, head_dim 64 and 32,
+   and rank 1's two hops of ``train --sp 2`` at the CLI's defaults (B 2,
+   T_local 32, 4 heads of 32: less than one tile), each on a carry that already holds a hop and on nonzero f32
+   accumulators. At the slice's shape each kernel, its
    plain version and the library call (``scaled_dot_product_attention``
    forward and backward on the same q and K/V block: causal on the
    diagonal hop, unmasked on the past hop; it merges no carry and returns
    its gradients in the inputs' dtype) timed as above, each kernel's
-   bound computed from the hop's live (q, k) pairs (f32 dq and dk/dv
-   also at the split-TF32 rate, 495 / 3 TFLOP/s, beside the CUDA cores'
-   67).
+   bound computed from the hop's live (q, k) pairs (f32 also at the
+   split-TF32 rate, 495 / 3 TFLOP/s, beside the CUDA cores' 67).
 12. ring at four ranks — four gloo ranks on the card (B 2, T 4 x 512,
    16 heads of 128, 4 KV heads; f32 and bf16): ``ring_flash_attention``
    forward and backward held against the one-rank ``flash_attention`` on
@@ -130,7 +130,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    same through ``train --sp 2 --dist-backend gloo`` (f32 wire; two rank
    processes share the card, each on 1024 positions of every row); then
    the same in f32, the CLI's default dtype (no ``--bf16``: the f32 flash
-   and ring dq and dk/dv in split TF32), at batch 4 for 2 steps.
+   and ring kernels in split TF32), at batch 4 for 2 steps.
    Each run asserts finite losses within 1e-3 relative of its one-card
    run's (f32 reordering and bf16 rounding at other running maxima; a
    lost hop or a wrong offset moves the loss far more), the one-card
@@ -161,6 +161,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    256 KB vector, whose time is the handshakes' (the card time-slices
    between the ranks' contexts, so a rank spinning on a flag waits for
    its peer's slice).
+
+15. train at the CLI's defaults — what ``python -m
+   akka_allreduce_tpu_torch.cli train`` runs (``run_train`` on the
+   parsed ``["train"]``: d_model 128, 4 heads, so head dim 32; 2 layers,
+   f32, batch 2, seq 32, 20 steps, on the card), then ``train --sp 2
+   --dist-backend gloo`` at the same defaults (two rank processes on
+   the card). Asserts finite losses, the flash kernels launched 2 x 20
+   times each on one card and, on rank r of sp=2, each ring kernel 2 (r +
+   1) x 20 times and the flash kernels never; and the first two steps'
+   losses within 1e-4 relative of the same command with ``--device cpu``
+   (the plain versions) from the card run's weights (seed 0 on the
+   card's generator, which draws other numbers than the CPU's).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -208,7 +220,8 @@ PARITY_ARGV = [
     "--log-every", "1", "--device", "cuda"]
 
 # (name, B, Tq, Tk, H, h_kv, D, causal, window, q_off, k_off): the
-# training slice's shape first
+# training slice's shape first, the CLI defaults' (phase 15) last: one
+# block shorter than a 64-row tile
 FLASH_SHAPES = [
     ("slice", 8, 2048, 2048, 16, 16, 128, True, None, 0, 0),
     ("gqa4", 2, 1024, 1024, 16, 4, 128, True, None, 0, 0),
@@ -217,7 +230,9 @@ FLASH_SHAPES = [
     ("noncausal", 2, 512, 512, 16, 4, 128, False, None, 0, 0),
     ("ragged1000", 2, 1000, 1000, 16, 4, 128, True, None, 0, 0),
     ("offsets", 2, 512, 1024, 16, 4, 128, True, 384, 512, 0),
-    ("d64", 2, 1024, 1024, 16, 4, 64, True, None, 0, 0)]
+    ("d64", 2, 1024, 1024, 16, 4, 64, True, None, 0, 0),
+    ("d32", 2, 1024, 1024, 16, 4, 32, True, None, 0, 0),
+    ("cli-defaults", 2, 32, 32, 4, 4, 32, True, None, 0, 0)]
 FLASH_TOL = {"torch.float32": (2e-5, 5e-5), "torch.bfloat16": (3e-2, 3e-2)}
 # phase 7: flash vs local attention in training, per compute dtype
 PARITY_TOL = {
@@ -291,14 +306,18 @@ SYNC4_CASES = [
     for tr, sc in (("f32", "fused"), ("bf16", "windowed"), ("int8", "fused"),
                    ("ef8", "fused"), ("ef8", "swing"))]
 # phase 11: (name, B, T_local, H, h_kv, D, causal, q_off, k_off), the
-# sequence-parallel slice's shape first, as rank 1's two hops at sp=2
+# sequence-parallel slice's shape first, as rank 1's two hops at sp=2;
+# last, rank 1's two hops of `train --sp 2` at the CLI's defaults
 RING_SHAPES = [
     ("slice-diagonal", 8, 1024, 16, 4, 128, True, 1024, 1024),
     ("slice-past", 8, 1024, 16, 4, 128, True, 1024, 0),
     ("mqa", 2, 1024, 16, 1, 128, True, 1024, 0),
     ("noncausal", 2, 1024, 16, 4, 128, False, 0, 1024),
     ("ragged1000", 2, 1000, 16, 4, 128, True, 1000, 1000),
-    ("d64", 2, 1024, 16, 4, 64, True, 2048, 1024)]
+    ("d64", 2, 1024, 16, 4, 64, True, 2048, 1024),
+    ("d32", 2, 1024, 16, 4, 32, True, 2048, 1024),
+    ("cli-defaults-diagonal", 2, 32, 4, 4, 32, True, 32, 32),
+    ("cli-defaults-past", 2, 32, 4, 4, 32, True, 32, 0)]
 RING_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/ring_flash.cu"
 RING_REPLACES = {
     "ring_fwd": "akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py:61",
@@ -332,6 +351,12 @@ ALLREDUCE_SAMPLE = 65536  # columns held against the f64 sum
 # handshakes', i.e. the time-slicing between the ranks' contexts
 ALLREDUCE_SMALL = 65536
 ALLREDUCE_TOL = 1e-5
+# phase 15: the train command at the CLI's defaults (head dim 32, f32),
+# on one card and at sp=2; losses against the same command on the CPU
+DEFAULTS_RUNS = {"one_card": ["train"],
+                 "sp2": ["train", "--sp", "2", "--dist-backend", "gloo"]}
+DEFAULTS_LOSS_RTOL = 1e-4
+DEFAULTS_COMPARED_STEPS = 2
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -342,16 +367,17 @@ FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
     "flash_dq": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:153",
     "flash_dkv": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:184"}
-# the tensor-core kernels each flash library must build (bf16, and the
-# f32 dq and dk/dv in split TF32), at every head dim the wrappers take
-# (HEAD_DIMS)
+# the tensor-core kernels each flash library must build (bf16, and f32 in
+# split TF32), at every head dim the wrappers take (HEAD_DIMS); the
+# kernels line names each row's kernel from here
 MMA_KERNELS = {
     "flash_attention": ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                        "flash_dkv_mma_kernel", "flash_dq_tf32_mma_kernel",
+                        "flash_dkv_mma_kernel", "flash_fwd_tf32_mma_kernel",
+                        "flash_dq_tf32_mma_kernel",
                         "flash_dkv_tf32_mma_kernel"),
     "ring_flash": ("ring_fwd_mma_kernel", "ring_dq_mma_kernel",
-                   "ring_dkv_mma_kernel", "ring_dq_tf32_mma_kernel",
-                   "ring_dkv_tf32_mma_kernel")}
+                   "ring_dkv_mma_kernel", "ring_fwd_tf32_mma_kernel",
+                   "ring_dq_tf32_mma_kernel", "ring_dkv_tf32_mma_kernel")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -651,11 +677,11 @@ def phase_flash_kernels(torch) -> dict:
                 row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
                 row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
                 if dtype == torch.float32:
-                    # dq and dk/dv run three TF32 products a product; the
-                    # forward stays on the CUDA cores (bound_ms above)
+                    # every f32 kernel runs three TF32 products a product
+                    # (bound_ms above: the CUDA cores' 67 TFLOP/s)
                     split = flash_bounds(torch, q, k, *opts, "tf32x3")
                     row["bound_tf32x3_ms"] = {
-                        k_: split[k_][0] for k_ in ("flash_dq", "flash_dkv")}
+                        k_: b_[0] for k_, b_ in split.items()}
                 del lib_bwd
                 timed[str(dtype)] = row
             emit("kernels", kernel="flash_attention", **row)
@@ -670,12 +696,13 @@ def phase_flash_kernels(torch) -> dict:
 def flash_kernel_rows(frow: dict, launches: dict, suffix: str = "") -> list:
     """The kernels line's rows of the three flash kernels from phase 5's
     timed row of one dtype (``frow``) and their ``launches`` on the main
-    path; in f32 (``suffix`` "_f32") the bound of dq and dk/dv is that of
-    their three TF32 products (``bound_tf32x3_ms``), the forward's the
-    CUDA cores'."""
+    path, each naming its CUDA kernel (``kernel``); in f32 (``suffix``
+    "_f32") the bound is that of three TF32 products a product
+    (``bound_tf32x3_ms``)."""
     split = frow.get("bound_tf32x3_ms", {})
     return [{
-        "name": kernel + suffix, "route": "cuda", "source": FLASH_SOURCE,
+        "name": kernel + suffix, "kernel": cuda_kernel(kernel, suffix),
+        "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES[kernel], "launches": launches[kernel],
         "max_abs_err": max(frow["max_abs_err"][k] for k in err_keys),
         "ms": frow["ms"][kernel], "plain_ms": frow["plain_ms"][part],
@@ -686,6 +713,16 @@ def flash_kernel_rows(frow: dict, launches: dict, suffix: str = "") -> list:
             ("flash_fwd", ("o", "lse"), "forward"),
             ("flash_dq", ("dq",), "backward"),
             ("flash_dkv", ("dk", "dv"), "backward"))]
+
+
+def cuda_kernel(kernel: str, suffix: str) -> str:
+    """The CUDA kernel behind a flash or ring row of the kernels line:
+    ``flash_fwd`` -> ``flash_fwd_mma_kernel`` (bf16) or
+    ``flash_fwd_tf32_mma_kernel`` (``suffix`` "_f32")."""
+    name = f"{kernel}_tf32_mma_kernel" if suffix else f"{kernel}_mma_kernel"
+    lib = "flash_attention" if kernel.startswith("flash") else "ring_flash"
+    assert name in MMA_KERNELS[lib], name
+    return name
 
 
 def profile_train_steps(torch, args, params, n_steps=2) -> dict:
@@ -1419,12 +1456,12 @@ def phase_ring_kernels(torch) -> dict:
                 row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
                 row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
                 if dtype == torch.float32:
-                    # dq and dk/dv run three TF32 products a product; the
-                    # forward stays on the CUDA cores (bound_ms above)
+                    # every f32 kernel runs three TF32 products a product
+                    # (bound_ms above: the CUDA cores' 67 TFLOP/s)
                     split = ring_bounds(torch, q, k, causal, q_off, k_off,
                                         "tf32x3")
                     row["bound_tf32x3_ms"] = {
-                        k_: split[k_][0] for k_ in ("ring_dq", "ring_dkv")}
+                        k_: b_[0] for k_, b_ in split.items()}
                 del lib_bwd, st, acc
                 timed[name, str(dtype)] = row
             emit("ring_kernels", **row)
@@ -1595,6 +1632,64 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
     return {"ring": {k_: sum(r["ring_launches"][k_] for r in ranks)
                      for k_ in RING_REPLACES},
             "flash": one["launches"]}
+
+
+def phase_train_defaults(torch) -> dict:
+    """Phase 15: each ``DEFAULTS_RUNS`` command on the card, then on the
+    CPU from the card run's weights. Returns, per run, its flash and ring
+    kernels' launches summed over its ranks."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import tree_map
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    parse = cli.build_parser().parse_args
+    out = {}
+    for name, argv in DEFAULTS_RUNS.items():
+        args = parse(argv)
+        torch.cuda.empty_cache()
+        card = cli.run_train(args)
+        torch.cuda.synchronize()
+        if card["device"]["type"] != DEVICE:
+            raise AssertionError(f"{name} ran on {card['device']}")
+        # the weights the card run drew: seed 0 on the card's generator
+        model = cli.train_config(args, cli._check_train_flags(args)[1]).model
+        params = init_transformer(torch.Generator(DEVICE).manual_seed(0),
+                                  model, DEVICE)
+        cpu = cli.run_train(parse(argv + ["--device", "cpu"]), params=tree_map(
+            lambda p: p.detach().cpu(), params))
+        n = DEFAULTS_COMPARED_STEPS
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(card["losses"][:n], cpu["losses"][:n])]
+        layers, steps = args.n_layers, args.steps
+        ranks = card.get("ranks") or [card]
+        got = [{"flash": r["launches"], "ring": r["ring_launches"]}
+               for r in ranks]
+        expected = [{"flash": dict.fromkeys(
+            FLASH_REPLACES, layers * steps if args.sp == 1 else 0),
+            "ring": dict.fromkeys(
+                RING_REPLACES, layers * (r + 1) * steps if args.sp > 1
+                else 0)} for r in range(len(ranks))]
+        row = {"run": name, "argv": argv, "config": card["config"],
+               "head_dim": model.head_dim,
+               "device": card["device"], "losses": card["losses"],
+               "cpu_losses": cpu["losses"], "loss_rel_diff": rel,
+               "loss_rtol": DEFAULTS_LOSS_RTOL,
+               "wall_ms_per_step": card["wall_ms_per_step"],
+               "launches_per_rank": got,
+               "expected_launches_per_rank": expected}
+        emit("train_defaults", **row)
+        if not all(math.isfinite(x) for x in card["losses"] + cpu["losses"]):
+            raise AssertionError(f"{name}: non-finite losses {row}")
+        if len(rel) != n or max(rel) > DEFAULTS_LOSS_RTOL:
+            raise AssertionError(f"{name}: card losses {card['losses'][:n]} "
+                                 f"vs CPU {cpu['losses'][:n]}")
+        if got != expected:
+            raise AssertionError(f"{name}: launches {got}, expected "
+                                 f"{expected}")
+        out[name] = {"flash": {k: sum(g["flash"][k] for g in got)
+                               for k in FLASH_REPLACES},
+                     "ring": {k: sum(g["ring"][k] for g in got)
+                              for k in RING_REPLACES}}
+    return out
 
 
 def allreduce_bounds(n: int, elems: int) -> dict:
@@ -1989,7 +2084,13 @@ def main() -> int:
 
     # 14. the peer-memory ring and swing allreduce across rank processes
     allreduce = phase_allreduce(torch)
-    emit("allreduce_phase_seconds", allreduce=time.perf_counter() - t14)
+    t15 = time.perf_counter()
+    emit("allreduce_phase_seconds", allreduce=t15 - t14)
+
+    # 15. the train command at the CLI's defaults (head dim 32, f32)
+    defaults = phase_train_defaults(torch)
+    emit("train_defaults_phase_seconds",
+         train_defaults=time.perf_counter() - t15)
 
     row = timed["torch.float32"]
     kernels = [{
@@ -2002,10 +2103,11 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"]}]
     # the flagship trains bf16; the f32 flash kernels run in phase 7's f32
-    # run and phase 13's one-card f32 run
+    # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], trained["launches"])
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
+                    + defaults["one_card"]["flash"][k]
                     for k in FLASH_REPLACES}
     kernels += flash_kernel_rows(flash["torch.float32"], f32_launches, "_f32")
     for kernel, (source, replaces) in SYNC_KERNELS.items():
@@ -2017,9 +2119,8 @@ def main() -> int:
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
     # the ring kernels of phase 13's two runs: bf16, and f32 (named with
-    # _f32: the split-TF32 dq and dk/dv, the CUDA-core forward), each
-    # timed at phase 11's past hop; the f32 dq and dk/dv bound is that of
-    # their three TF32 products
+    # _f32, split TF32; phase 15's sp=2 run added), each timed at phase
+    # 11's past hop; the f32 bound is that of three TF32 products
     for dtype, suffix in (("bfloat16", ""), ("float32", "_f32")):
         rrow = ring["slice-past", f"torch.{dtype}"]
         for kernel, err_keys, part in (
@@ -2027,10 +2128,12 @@ def main() -> int:
                 ("ring_dq", ("dq",), "backward"),
                 ("ring_dkv", ("dk", "dv"), "backward")):
             split = rrow.get("bound_tf32x3_ms", {})
+            launches = sp_launches[dtype]["ring"][kernel] + (
+                defaults["sp2"]["ring"][kernel] if suffix else 0)
             kernels.append({
-                "name": kernel + suffix, "route": "cuda",
-                "source": RING_SOURCE, "replaces": RING_REPLACES[kernel],
-                "launches": sp_launches[dtype]["ring"][kernel],
+                "name": kernel + suffix, "kernel": cuda_kernel(kernel, suffix),
+                "route": "cuda", "source": RING_SOURCE,
+                "replaces": RING_REPLACES[kernel], "launches": launches,
                 "max_abs_err": max(rrow["max_abs_err"][k]
                                    for k in err_keys),
                 "ms": rrow["ms"][kernel], "plain_ms": rrow["plain_ms"][part],

@@ -53,9 +53,9 @@ def test_editing_a_reached_header_changes_the_library(csrc, edited,
 
 def test_ring_flash_reaches_both_tile_headers():
     """On the real csrc tree: both flash libraries reach the split-TF32
-    folds (flash_tf32.cuh, the f32 dq and dk/dv), through them the
-    tensor-core tiles (flash_mma.cuh) and through those the CUDA-core
-    forward fold (flash_tiles.cuh)."""
+    folds (flash_tf32.cuh, the f32 kernels), through them the bf16
+    tensor-core tiles (flash_mma.cuh) and through those the geometry,
+    masks and launch code (flash_tiles.cuh)."""
     headers = ["flash_tf32.cuh", "flash_mma.cuh", "flash_tiles.cuh"]
     assert build.sources("flash_attention") == ["flash_attention.cu",
                                                 *headers]

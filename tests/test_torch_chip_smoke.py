@@ -20,6 +20,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
+from akka_allreduce_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS)
 
 
 def _row(key, device_type, ms, annotation=False):
@@ -100,30 +102,34 @@ def test_ring_bounds_count_the_hop(q_off, k_off, live):
 
 
 def test_ring_bounds_at_the_split_tf32_rate():
-    """f32 dq and dk/dv run three TF32 products a product: their bound at
-    495 / 3 TFLOP/s, beside the CUDA cores' 67, on the same live pairs
-    and bytes (a past hop at phase 11's head dim, operations-bound)."""
+    """The f32 forward, dq and dk/dv run three TF32 products a product:
+    their bound at 495 / 3 TFLOP/s, beside the CUDA cores' 67, on the same
+    live pairs and bytes (a past hop at phase 11's head dim,
+    operations-bound)."""
     b, t, h, h_kv, d = 2, 256, 4, 2, 128
     q = torch.zeros((b, t, h, d))
     k = torch.zeros((b, t, h_kv, d))
     cuda_cores = chip_smoke.ring_bounds(torch, q, k, True, t, 0)
     split = chip_smoke.ring_bounds(torch, q, k, True, t, 0, "tf32x3")
     assert chip_smoke.PEAK_FLOPS["tf32x3"] == pytest.approx(495e12 / 3)
-    for name, per_pair in (("ring_dq", 6), ("ring_dkv", 8)):
+    for name, per_pair in (("ring_fwd", 4), ("ring_dq", 6),
+                           ("ring_dkv", 8)):
         assert split[name] == (pytest.approx(
             per_pair * d * b * h * t * t / (495e12 / 3) * 1e3), "operations")
         assert cuda_cores[name][0] == pytest.approx(
             split[name][0] * (495e12 / 3) / 67e12)
 
 def test_flash_bounds_at_the_split_tf32_rate():
-    """The f32 flash dq and dk/dv run three TF32 products a product: their
-    bound at 495 / 3 TFLOP/s on the same live pairs, beside the CUDA
-    cores' 67 (phase 5's causal shape at its head dim, operations-bound)."""
+    """The f32 flash forward, dq and dk/dv run three TF32 products a
+    product: their bound at 495 / 3 TFLOP/s on the same live pairs, beside
+    the CUDA cores' 67 (phase 5's causal shape at its head dim,
+    operations-bound)."""
     b, t, h, d = 2, 1024, 4, 128
     q = torch.zeros((b, t, h, d))
     cuda_cores = chip_smoke.flash_bounds(torch, q, q, True, None, 0, 0)
     split = chip_smoke.flash_bounds(torch, q, q, True, None, 0, 0, "tf32x3")
-    for name, per_pair in (("flash_dq", 6), ("flash_dkv", 8)):
+    for name, per_pair in (("flash_fwd", 4), ("flash_dq", 6),
+                           ("flash_dkv", 8)):
         assert split[name] == (pytest.approx(
             per_pair * d * b * h * t * (t + 1) // 2 / (495e12 / 3) * 1e3),
             "operations")
@@ -134,14 +140,16 @@ def test_flash_bounds_at_the_split_tf32_rate():
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms"}
+# the flash and ring rows also name their CUDA kernel
+FLASH_ROW_KEYS = KERNEL_KEYS | {"kernel"}
 
 
 @pytest.mark.parametrize("suffix", ["", "_f32"])
 def test_flash_kernel_rows_carry_every_key(suffix):
-    """The kernels line's flash rows: every key of the line, the launches
-    given, the worst error of each kernel's outputs; in f32 the dq and
-    dk/dv bound is the split-TF32 one that phase 5 computed, the
-    forward's the CUDA cores'."""
+    """The kernels line's flash rows: every key of the line and the CUDA
+    kernel's name, the launches given, the worst error of each kernel's
+    outputs; in f32 every bound is the split-TF32 one that phase 5
+    computed."""
     frow = {"max_abs_err": {"o": 1e-6, "lse": 2e-6, "dq": 3e-6, "dk": 5e-6,
                             "dv": 4e-6},
             "ms": {"flash_fwd": 7.0, "flash_dq": 4.0, "flash_dkv": 5.0},
@@ -152,15 +160,21 @@ def test_flash_kernel_rows_carry_every_key(suffix):
             "bound_by": dict.fromkeys(("flash_fwd", "flash_dq",
                                        "flash_dkv"), "operations")}
     if suffix:
-        frow["bound_tf32x3_ms"] = {"flash_dq": 1.25, "flash_dkv": 1.67}
+        frow["bound_tf32x3_ms"] = {"flash_fwd": 0.83, "flash_dq": 1.25,
+                                   "flash_dkv": 1.67}
     launches = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32}
     rows = chip_smoke.flash_kernel_rows(frow, launches, suffix)
     assert [r["name"] for r in rows] == [
         f"flash_fwd{suffix}", f"flash_dq{suffix}", f"flash_dkv{suffix}"]
-    assert all(set(r) == KERNEL_KEYS and r["launches"] == 32 for r in rows)
+    assert all(set(r) == FLASH_ROW_KEYS and r["launches"] == 32
+               for r in rows)
+    assert [r["kernel"] for r in rows] == [
+        f"flash_fwd{'_tf32' if suffix else ''}_mma_kernel",
+        f"flash_dq{'_tf32' if suffix else ''}_mma_kernel",
+        f"flash_dkv{'_tf32' if suffix else ''}_mma_kernel"]
     assert [r["max_abs_err"] for r in rows] == [2e-6, 3e-6, 5e-6]
     assert [r["bound_ms"] for r in rows] == (
-        [2.05, 1.25, 1.67] if suffix else [2.05, 3.08, 4.1])
+        [0.83, 1.25, 1.67] if suffix else [2.05, 3.08, 4.1])
     assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == [
         "113", "153", "184"]
 
@@ -396,8 +410,8 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_mma_kerne
 ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16
     0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvPKT_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvPKT_
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118masked_reduce_vec4EPKfPfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118masked_reduce_vec4EPKfPfi
     40 bytes stack frame, 36 bytes spill stores, 36 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
 """
@@ -413,11 +427,11 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
 
 def mma_report(lib: str, spill: int = 0, drop: str = "") -> str:
     """A ptxas report of every tensor-core kernel that ``lib`` must build
-    (``chip_smoke.MMA_KERNELS`` at D 64 and 128), the first spilling
-    ``spill`` bytes, ``drop`` (``name<d>``) left out."""
+    (``chip_smoke.MMA_KERNELS`` at every head dim of ``HEAD_DIMS``), the
+    first spilling ``spill`` bytes, ``drop`` (``name<d>``) left out."""
     lines = ["ptxas info    : 0 bytes gmem"]
     for name in chip_smoke.MMA_KERNELS[lib]:
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             if drop == f"{name}<{d}>":
                 continue
             mangled = (f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{d}EEEvPK13"
@@ -435,14 +449,14 @@ def mma_report(lib: str, spill: int = 0, drop: str = "") -> str:
 
 @pytest.mark.parametrize("spill,ok", [(0, True), (8, False)])
 def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
-    """Only the ``*_mma_kernel`` entries are held to no spills (the f32
-    CUDA-core kernel of PTXAS spills and passes)."""
-    cuda_cores = PTXAS.format(spill=0).splitlines()[5:]  # flash_fwd_kernel
-    report = "\n".join([mma_report("flash_attention", spill), *cuda_cores])
+    """Only the ``*_mma_kernel`` entries are held to no spills (the
+    other kernel of PTXAS, off the tensor cores, spills and passes)."""
+    other = PTXAS.format(spill=0).splitlines()[5:]  # masked_reduce_vec4
+    report = "\n".join([mma_report("flash_attention", spill), *other])
     info = {"flash_attention": {"seconds": 9.0, "ptxas": report}}
     if ok:
         rows = chip_smoke.check_mma_spills(info)
-        assert len(rows) == 10
+        assert len(rows) == 6 * len(HEAD_DIMS)
         assert {r["library"] for r in rows} == {"flash_attention"}
     else:
         with pytest.raises(AssertionError, match="spill"):
@@ -453,16 +467,19 @@ def test_a_spilling_tensor_core_kernel_fails_the_build_phase(spill, ok):
     "", "ring_dq_mma_kernel<64>", "ring_dq_mma_kernel<128>",
     "ring_dkv_mma_kernel<64>", "ring_dkv_mma_kernel<128>",
     "ring_dq_tf32_mma_kernel<64>", "ring_dq_tf32_mma_kernel<128>",
-    "ring_dkv_tf32_mma_kernel<64>", "ring_dkv_tf32_mma_kernel<128>"])
+    "ring_dkv_tf32_mma_kernel<64>", "ring_dkv_tf32_mma_kernel<128>",
+    "ring_fwd_mma_kernel<32>", "ring_dq_mma_kernel<32>",
+    "ring_dkv_tf32_mma_kernel<32>", "ring_fwd_tf32_mma_kernel<32>",
+    "ring_fwd_tf32_mma_kernel<64>", "ring_fwd_tf32_mma_kernel<128>"])
 def test_a_ring_library_without_a_backward_tensor_core_kernel_fails(drop):
-    """The ring's dq and dk/dv must be built on the tensor cores at both
-    head dims, in bf16 and in f32 (split TF32); a report with all ten
-    ring kernels passes."""
+    """The ring's forward, dq and dk/dv must be built on the tensor cores
+    at every head dim (32, 64, 128), in bf16 and in f32 (split TF32); a
+    report with all eighteen ring kernels passes."""
     info = {"ring_flash": {"seconds": 9.0,
                            "ptxas": mma_report("ring_flash", drop=drop)},
             "paged_attention": {"seconds": 0.0, "ptxas": ""}}
     if not drop:
-        assert len(chip_smoke.check_mma_spills(info)) == 10
+        assert len(chip_smoke.check_mma_spills(info)) == 6 * len(HEAD_DIMS)
         return
     with pytest.raises(AssertionError, match="no tensor-core kernel") as e:
         chip_smoke.check_mma_spills(info)
@@ -472,15 +489,18 @@ def test_a_ring_library_without_a_backward_tensor_core_kernel_fails(drop):
 @pytest.mark.parametrize("drop", [
     "", "flash_dq_mma_kernel<64>", "flash_dkv_mma_kernel<128>",
     "flash_dq_tf32_mma_kernel<64>", "flash_dq_tf32_mma_kernel<128>",
-    "flash_dkv_tf32_mma_kernel<64>", "flash_dkv_tf32_mma_kernel<128>"])
+    "flash_dkv_tf32_mma_kernel<64>", "flash_dkv_tf32_mma_kernel<128>",
+    "flash_fwd_mma_kernel<32>", "flash_dkv_mma_kernel<32>",
+    "flash_dq_tf32_mma_kernel<32>", "flash_fwd_tf32_mma_kernel<32>",
+    "flash_fwd_tf32_mma_kernel<64>", "flash_fwd_tf32_mma_kernel<128>"])
 def test_a_flash_library_without_a_backward_tensor_core_kernel_fails(drop):
-    """The flash dq and dk/dv must be built on the tensor cores at both
-    head dims, in bf16 and in f32 (split TF32); a report with all ten
-    flash kernels passes."""
+    """The flash forward, dq and dk/dv must be built on the tensor cores
+    at every head dim (32, 64, 128), in bf16 and in f32 (split TF32); a
+    report with all eighteen flash kernels passes."""
     info = {"flash_attention": {
         "seconds": 9.0, "ptxas": mma_report("flash_attention", drop=drop)}}
     if not drop:
-        assert len(chip_smoke.check_mma_spills(info)) == 10
+        assert len(chip_smoke.check_mma_spills(info)) == 6 * len(HEAD_DIMS)
         return
     with pytest.raises(AssertionError, match="no tensor-core kernel") as e:
         chip_smoke.check_mma_spills(info)

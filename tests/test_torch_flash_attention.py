@@ -9,11 +9,11 @@ the JAX package's own (tests/test_flash_attention.py): f32 at 2e-5 for the
 forward and 5e-5 for the gradients (another summation order), bf16 at
 3e-2 (one bf16 rounding of the output and of p / ds).
 
-The f32 dq and dk/dv kernels run their products on the tensor cores in
-split TF32 (three TF32 products a product); an emulation of that
+The f32 forward, dq and dk/dv kernels run their products on the tensor
+cores in split TF32 (three TF32 products a product); an emulation of that
 arithmetic in plain torch (``tests/torch_split_tf32.py``) is held against
-the JAX package's VJP at the f32 gradient tolerance (5e-5) in every f32
-case, and a single TF32 product must miss it.
+the JAX package's forward (o and lse, at 2e-5) and VJP (at 5e-5) in every
+f32 case, and a single TF32 product must miss each limit.
 
 The CUDA kernels run only on the card: tests/test_torch_kernels_cuda.py
 holds them against these plain versions there. TF32 is off for CUDA
@@ -31,7 +31,7 @@ import torch
 
 from akka_allreduce_tpu.ops.pallas_kernels import attention as jax_attn
 from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
-from torch_split_tf32 import split_tf32_backward
+from torch_split_tf32 import split_tf32_backward, split_tf32_flash_forward
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -137,6 +137,27 @@ def test_split_tf32_backward_matches_jax_vjp(case):
         np.testing.assert_allclose(got.numpy(), w, atol=tol, rtol=tol)
     for got, w in zip(split_tf32_backward(*args, 1, window), want):
         assert not np.allclose(got.numpy(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[c[0] for c in F32_CASES])
+def test_split_tf32_forward_matches_jax(case):
+    """The split-TF32 arithmetic of ``flash_fwd_tf32_mma_kernel``
+    (emulated, with the kernel's exp2 of the scale-folded score) against
+    JAX's ``flash_attention`` o and its ``_fwd`` lse, within the f32
+    forward tolerance (2e-5); one TF32 product a product misses it in
+    both o and lse, which is why the kernel takes three."""
+    _, h_kv, causal, window, tq, tk, q_off, k_off, dtype = case
+    arrays, (want_o, want_lse, *_) = case_data(case)
+    q, k, v, _ = (to_torch(a) for a in arrays)
+    tol = TOL[dtype][0]
+    o, lse = split_tf32_flash_forward(q, k, v, q_off, k_off, causal, 3,
+                                      window)
+    np.testing.assert_allclose(o.numpy(), want_o, atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=tol, rtol=tol)
+    o, lse = split_tf32_flash_forward(q, k, v, q_off, k_off, causal, 1,
+                                      window)
+    assert not np.allclose(o.numpy(), want_o, atol=tol, rtol=tol)
+    assert not np.allclose(lse.numpy(), want_lse, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("h_kv,window", [(1, None), (2, 24), (4, None)])

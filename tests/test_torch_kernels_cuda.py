@@ -9,11 +9,11 @@ runs on the GPU machine, from the repository root::
 
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
 bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
-2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (the bf16 forward,
-dq and dk/dv and the bf16 ring forward, dq and dk/dv on tensor cores,
-the f32 flash and ring dq and dk/dv on tensor cores in split TF32, the
-f32 forwards on CUDA cores), the tensor-core kernels also bitwise
-repeatable, and rows that no live pair reaches exactly zero;
+2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (every flash and ring
+kernel on tensor cores: bf16 directly, f32 in split TF32), at head dims
+32, 64 and 128, the kernels also bitwise repeatable, rows that no live
+pair reaches exactly zero (o, dq, dk/dv) and a ring carry that no live
+key reaches bitwise unchanged;
 the gradient sync's masked reduce and int8 quantizers: bitwise (both sum
 the peers in order, and the quantizers' arithmetic is IEEE's, Philox
 drawn alike); the
@@ -93,15 +93,19 @@ def test_paged_attention_rejects_non_contiguous(cuda_device):
 # -- flash attention (forward, dq, dk/dv) ---------------------------------
 
 # (h_kv, head_dim, causal, window, tq, tk, q_off, k_off) over H = 8 heads:
-# MHA, GQA and MQA, D 64 and 128, non-causal, a window, a ragged length
-# (not a multiple of the 64-row tile) and Tq != Tk with offsets
+# MHA, GQA and MQA, D 32, 64 and 128, non-causal, a window, a ragged
+# length (not a multiple of the 64-row tile) and Tq != Tk with offsets
 FLASH_CASES = [(8, 64, True, None, 256, 256, 0, 0),
                (2, 128, True, None, 256, 256, 0, 0),
                (1, 64, True, None, 192, 192, 0, 0),
                (2, 64, False, None, 128, 128, 0, 0),
                (2, 64, True, 48, 256, 256, 0, 0),
                (2, 128, True, None, 100, 100, 0, 0),
-               (2, 64, True, 80, 128, 256, 128, 0)]
+               (2, 64, True, 80, 128, 256, 128, 0),
+               (4, 32, True, None, 256, 256, 0, 0),
+               (1, 32, True, 48, 200, 200, 0, 0),
+               (2, 32, True, 80, 128, 256, 128, 0),
+               (4, 32, True, None, 32, 32, 0, 0)]
 FLASH_TOL = {torch.float32: (2e-5, 5e-5), torch.bfloat16: (3e-2, 3e-2)}
 
 
@@ -144,11 +148,12 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
                                    rtol=tol_bwd)
 
 
-# the bf16 dq and dk/dv kernels (tensor-core tiles, flash_mma.cuh):
-# (h_kv, head_dim, causal, window, tq, tk, q_off, k_off, q_layout) over
-# H = 16 heads: GQA (4 KV heads) at D 128 and 64, MQA, a window, a ragged
-# T of 1000, Tq != Tk with offsets, non-causal, and a q read through the
-# strides of a (B, H, T, D) tensor's transpose (not contiguous)
+# the dq and dk/dv kernels (tensor-core tiles, flash_mma.cuh and
+# flash_tf32.cuh): (h_kv, head_dim, causal, window, tq, tk, q_off, k_off,
+# q_layout) over H = 16 heads: GQA (4 KV heads) at D 128, 64 and 32, MQA,
+# a window, a ragged T of 1000, Tq != Tk with offsets, non-causal, and a q
+# read through the strides of a (B, H, T, D) tensor's transpose (not
+# contiguous)
 BF16_BWD_CASES = [(4, 128, True, None, 256, 256, 0, 0, "contiguous"),
                   (4, 64, True, None, 256, 256, 0, 0, "contiguous"),
                   (1, 128, True, None, 192, 192, 0, 0, "contiguous"),
@@ -157,7 +162,9 @@ BF16_BWD_CASES = [(4, 128, True, None, 256, 256, 0, 0, "contiguous"),
                   (4, 64, True, 384, 512, 1024, 512, 0, "contiguous"),
                   (4, 128, False, None, 192, 160, 0, 0, "contiguous"),
                   (4, 128, True, None, 256, 256, 0, 0, "bhtd"),
-                  (1, 64, True, 100, 1000, 1000, 0, 0, "bhtd")]
+                  (1, 64, True, 100, 1000, 1000, 0, 0, "bhtd"),
+                  (4, 32, True, None, 256, 256, 0, 0, "contiguous"),
+                  (4, 32, True, 100, 1000, 1000, 0, 0, "bhtd")]
 
 
 def bf16_bwd_inputs(case, device, dtype=torch.bfloat16):
@@ -269,30 +276,63 @@ def test_flash_backward_rows_without_live_pairs_are_zero(cuda_device, case,
                                    w[:, live].float(), atol=tol, rtol=tol)
 
 
-# the bf16 forward (flash_fwd_mma_kernel): the backward's cases and a
-# 256 window over 1024 positions
+# the forwards (flash_fwd_mma_kernel, flash_fwd_tf32_mma_kernel): the
+# backward's cases and a 256 window over 1024 positions
 BF16_FWD_CASES = BF16_BWD_CASES + [
     (4, 128, True, 256, 1024, 1024, 0, 0, "contiguous")]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BF16_FWD_CASES)
-def test_bf16_forward_kernel_matches_plain(cuda_device, case):
-    """o and lse at the bf16 tolerance (3e-2): p rounds to bf16 against
-    the running max where the plain version rounds it against the row's
-    final max, and the f32 sums run in another order."""
+def test_bf16_forward_kernel_matches_plain(cuda_device, case, dtype):
+    """o and lse at the forward tolerance, bf16 3e-2 (p rounds to bf16
+    against the running max where the plain version rounds it against the
+    row's final max, and the f32 sums run in another order) and f32 2e-5
+    (split TF32: three TF32 products keep ~20 bits of each product, one
+    would miss it)."""
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
-    (q, k, v, *_), want_o, opts = bf16_bwd_inputs(case, cuda_device)
+    (q, k, v, *_), want_o, opts = bf16_bwd_inputs(case, cuda_device, dtype)
     count = fa.FLASH_FWD_LAUNCHES
     o, lse = fa.flash_forward(q, k, v, *opts)
     torch.cuda.synchronize()
     assert fa.FLASH_FWD_LAUNCHES == count + 1
     _, want_lse = fa.flash_forward_reference(q, k, v, *opts)
-    tol = FLASH_TOL[torch.bfloat16][0]
-    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    tol = FLASH_TOL[dtype][0]
+    assert o.dtype == dtype and o.shape == q.shape
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEAD_ROW_CASES)
+def test_flash_forward_rows_without_live_keys_are_zero(cuda_device, case,
+                                                       dtype):
+    """Query rows with no live key (inside live tiles, and whole tiles
+    whose live band is empty) come back with o exactly 0 (l = 0, so o =
+    acc / 1) and lse -inf, as the plain version gives them; the other
+    rows match it."""
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    h_kv, d, tq, tk, window, q_off, k_off = case
+    gen = torch.Generator().manual_seed(tq + tk + k_off + 1)
+    q, k, v = (torch.randn(s, generator=gen).to(cuda_device, dtype)
+               for s in ((2, tq, 16, d), (2, tk, h_kv, d), (2, tk, h_kv, d)))
+    opts = (True, window, q_off, k_off)
+    o, lse = fa.flash_forward(q, k, v, *opts)
+    want_o, want_lse = fa.flash_forward_reference(q, k, v, *opts)
+    torch.cuda.synchronize()
+    live = fa.score_mask(tq, tk, True, window, q_off, k_off,
+                         cuda_device).any(dim=1)
+    assert torch.equal(o[:, ~live], torch.zeros_like(o[:, ~live]))
+    assert torch.equal(want_o[:, ~live], o[:, ~live])
+    assert bool((lse[:, :, ~live] == float("-inf")).all())
+    tol = FLASH_TOL[dtype][0]
+    torch.testing.assert_close(o[:, live].float(), want_o[:, live].float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse[:, :, live], want_lse[:, :, live],
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -362,12 +402,16 @@ def test_flash_autograd_function_launches_each_kernel_once(cuda_device):
 
 # (h_kv, head_dim, causal, t, q_off, k_off) over H = 8 heads: the diagonal
 # hop, a past hop, MQA, non-causal, and a ragged block (not a multiple of
-# the 64-row tile) at D 128
+# the 64-row tile) at D 128; a past and a ragged diagonal hop at D 32
 RING_CASES = [(2, 64, True, 128, 128, 128),
               (2, 64, True, 128, 256, 0),
               (1, 128, True, 192, 192, 192),
               (8, 64, False, 128, 128, 256),
-              (2, 128, True, 100, 200, 100)]
+              (2, 128, True, 100, 200, 100),
+              (2, 32, True, 128, 256, 0),
+              (4, 32, True, 100, 100, 100),
+              (4, 32, True, 32, 32, 32),
+              (4, 32, True, 32, 32, 0)]
 
 
 def ring_state(q, k, seed):
@@ -421,17 +465,19 @@ def test_ring_kernels_match_plain(cuda_device, case, dtype):
                                    rtol=tol_bwd)
 
 
-# the bf16 ring kernels (ring_{fwd,dq,dkv}_mma_kernel) over H = 16
-# heads, on a carry and accumulators that already hold a hop: (h_kv,
-# head_dim, causal, t, q_off, k_off, q_layout): the sequence-parallel
-# slice's diagonal and past hops at a smaller T, D 64, a ragged diagonal
-# block (MQA), non-causal and a strided q
+# the ring kernels (ring_{fwd,dq,dkv}_mma_kernel in bf16,
+# ring_{fwd,dq,dkv}_tf32_mma_kernel in f32) over H = 16 heads, on a carry
+# and accumulators that already hold a hop: (h_kv, head_dim, causal, t,
+# q_off, k_off, q_layout): the sequence-parallel slice's diagonal and past
+# hops at a smaller T, D 64 and 32, a ragged diagonal block (MQA),
+# non-causal and a strided q
 BF16_RING_CASES = [(4, 128, True, 256, 256, 256, "contiguous"),
                    (4, 128, True, 256, 256, 0, "contiguous"),
                    (4, 64, True, 192, 384, 192, "contiguous"),
                    (1, 128, True, 100, 100, 100, "contiguous"),
                    (4, 128, False, 128, 0, 128, "contiguous"),
-                   (4, 128, True, 256, 512, 256, "bhtd")]
+                   (4, 128, True, 256, 512, 256, "bhtd"),
+                   (4, 32, True, 192, 384, 192, "contiguous")]
 
 
 def bf16_ring_inputs(case, device, dtype=torch.bfloat16):
@@ -447,17 +493,20 @@ def bf16_ring_inputs(case, device, dtype=torch.bfloat16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BF16_RING_CASES)
-def test_bf16_ring_forward_matches_plain(cuda_device, case):
+def test_bf16_ring_forward_matches_plain(cuda_device, case, dtype):
+    """The carry (m, l, and acc as the output it stands for, acc / l) at
+    the forward tolerance of the dtype (bf16 3e-2, f32 2e-5)."""
     from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
-    q, k, v, hop = bf16_ring_inputs(case, cuda_device)
+    q, k, v, hop = bf16_ring_inputs(case, cuda_device, dtype)
     carry, _ = ring_state(q, k, seed=case[3])
     count = rf.RING_FWD_LAUNCHES
     got = rf.ring_fwd(q, k, v, *[x.clone() for x in carry], *hop)
     torch.cuda.synchronize()
     assert rf.RING_FWD_LAUNCHES == count + 1
     want = rf.ring_fwd_reference(q, k, v, *carry, *hop)
-    tol = FLASH_TOL[torch.bfloat16][0]
+    tol = FLASH_TOL[dtype][0]
     for g, w in ((got[0], want[0]), (got[1], want[1]),
                  (got[2] / got[1].transpose(1, 2)[..., None],
                   want[2] / want[1].transpose(1, 2)[..., None])):
@@ -484,6 +533,34 @@ def test_ring_forward_keeps_rows_without_live_keys_empty(cuda_device, dtype):
     torch.cuda.synchronize()
     assert bool((got[0][:, :, :32] == -1e30).all())
     assert not got[1][:, :, :32].any() and not got[2][:, :32].any()
+    tol = FLASH_TOL[dtype][0]
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g[:, :, 32:], w[:, :, 32:], atol=tol,
+                                   rtol=tol)
+    torch.testing.assert_close(
+        got[2][:, 32:] / got[1][:, :, 32:].transpose(1, 2)[..., None],
+        want[2][:, 32:] / want[1][:, :, 32:].transpose(1, 2)[..., None],
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128])
+def test_ring_forward_leaves_rows_without_live_keys_unchanged(cuda_device,
+                                                              d, dtype):
+    """On a carry that already holds a hop, a block that starts 32
+    positions after the queries (k_off = 32): rows 0-31 have no live key
+    in it, so their m, l and acc come back bitwise as they came (corr =
+    1, p = 0). The other rows match the plain version."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    q, k, v, _ = flash_inputs(2, d, 128, 128, 8, cuda_device, dtype)
+    carry, _ = ring_state(q, k, seed=8)
+    got = rf.ring_fwd(q, k, v, *[x.clone() for x in carry], 0, 32)
+    want = rf.ring_fwd_reference(q, k, v, *carry, 0, 32)
+    torch.cuda.synchronize()
+    for g, c in zip(got[:2], carry[:2]):
+        assert torch.equal(g[:, :, :32], c[:, :, :32])
+    assert torch.equal(got[2][:, :32], carry[2][:, :32])
     tol = FLASH_TOL[dtype][0]
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g[:, :, 32:], w[:, :, 32:], atol=tol,
@@ -568,15 +645,17 @@ def test_ring_backward_leaves_rows_without_live_keys_unchanged(cuda_device,
 
 
 @pytest.mark.cuda
-def test_bf16_forward_kernels_are_deterministic(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_forward_kernels_are_deterministic(cuda_device, dtype):
     """No atomics: two launches of each tensor-core forward give the same
-    bits."""
+    bits (f32: the warp pairs' states are merged in a fixed order)."""
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
     from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
-    (q, k, v, *_), _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device)
+    (q, k, v, *_), _, opts = bf16_bwd_inputs(BF16_BWD_CASES[0], cuda_device,
+                                             dtype)
     first, second = fa.flash_forward(q, k, v, *opts), \
         fa.flash_forward(q, k, v, *opts)
-    q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[0], cuda_device)
+    q, k, v, hop = bf16_ring_inputs(BF16_RING_CASES[0], cuda_device, dtype)
     carry, _ = ring_state(q, k, seed=0)
     ring = [rf.ring_fwd(q, k, v, *[x.clone() for x in carry], *hop)
             for _ in range(2)]
@@ -610,8 +689,10 @@ def test_ring_autograd_function_launches_each_kernel_once(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_rejects_unsupported_head_dim(cuda_device):
+    """A head dim outside HEAD_DIMS (32, 64, 128) raises on a CUDA tensor:
+    no plain fallback."""
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
-    q, k, v, _ = flash_inputs(2, 32, 64, 64, 0, cuda_device, torch.float32)
+    q, k, v, _ = flash_inputs(2, 48, 64, 64, 0, cuda_device, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_forward(q, k, v)
 

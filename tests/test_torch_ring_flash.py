@@ -9,11 +9,12 @@ flash parity tests' tolerance): the output and dq, dk, dv for MHA, GQA,
 MQA and non-causal; a ragged T_local (40, no 16-wide block) against
 JAX's pure ``ring_attention``; the port's plain ring and its windowed-SP
 paths against JAX's; and each hop's plain kernel functions against the
-JAX kernels through the carry at fixed offset pairs. The f32 ring dq and
-dk/dv run their products on the tensor cores in split TF32 (three TF32
-products a product); an emulation of that arithmetic in plain torch
-(``tests/torch_split_tf32.py``) is held against the JAX kernels at the
-f32 gradient tolerance (5e-5), and a single TF32 product must miss it.
+JAX kernels through the carry at fixed offset pairs (head dims 16 and
+32). The f32 ring forward, dq and dk/dv run their products on the tensor
+cores in split TF32 (three TF32 products a product); an emulation of
+that arithmetic in plain torch (``tests/torch_split_tf32.py``) is held
+against the JAX kernels at the f32 tolerances (2e-5 on the carry, 5e-5
+on the gradients), and a single TF32 product must miss them.
 The group's ``ppermute`` runs on a (dp 2, sp 3) mesh, where a shift and
 a pairwise exchange differ.
 """
@@ -33,7 +34,8 @@ from akka_allreduce_tpu.parallel.mesh import MeshSpec, make_device_mesh
 from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
 from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 from torch_sp_ranks import attention_vjp, ppermute_probe
-from torch_split_tf32 import split_tf32_backward, tf32, tf32_trunc
+from torch_split_tf32 import (split_tf32_backward, split_tf32_forward, tf32,
+                              tf32_trunc)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, H, D = 2, 4, 16
@@ -55,9 +57,9 @@ SIZES = {2: list(RING_CASES) + list(OTHER_CASES), 4: ["gqa", "ragged",
 PAIRS = [(n, name) for n, names in SIZES.items() for name in names]
 
 
-def inputs(h_kv: int, t: int, seed: int):
+def inputs(h_kv: int, t: int, seed: int, d: int = D):
     rng = np.random.default_rng(seed)
-    shapes = ((B, t, H, D), (B, t, h_kv, D), (B, t, h_kv, D), (B, t, H, D))
+    shapes = ((B, t, H, d), (B, t, h_kv, d), (B, t, h_kv, d), (B, t, H, d))
     return [rng.normal(size=s).astype(np.float32) for s in shapes]
 
 
@@ -150,26 +152,33 @@ def _jax_hop(q, k, v, do, carry, offs, causal):
             [np.asarray(jnp.swapaxes(p, 1, 2)) for p in parts])
 
 
+def held_carry(q, k, v):
+    """A carry that already holds a hop: the block scored against itself
+    by the plain forward (torch tensors)."""
+    t = torch.from_numpy
+    m0 = torch.full((B, H, q.shape[1]), -1e30)
+    return [x.contiguous() for x in rf.ring_fwd_reference(
+        t(q), t(k), t(v), m0, torch.zeros_like(m0),
+        torch.zeros(q.shape), 0, 0)]
+
+
+@pytest.mark.parametrize("d", [D, 32])
 @pytest.mark.parametrize("offs,causal,h_kv", [
     ((32, 32), True, 2),    # the diagonal hop: a masked triangle
     ((64, 0), True, 2),     # a past hop: every pair live
     ((32, 32), True, 1),    # MQA
     ((32, 96), False, 4)])  # non-causal ignores the offsets
-def test_one_hop_matches_jax_kernels(offs, causal, h_kv):
-    q, k, v, do = inputs(h_kv, 32, seed=7 + h_kv)
-    # a carry that already holds a hop: the block scored against itself
+def test_one_hop_matches_jax_kernels(offs, causal, h_kv, d):
+    q, k, v, do = inputs(h_kv, 32, seed=7 + h_kv, d=d)
     t = torch.from_numpy
-    m0 = torch.full((B, H, 32), -1e30)
-    carry = [x.contiguous() for x in rf.ring_fwd_reference(
-        t(q), t(k), t(v), m0, torch.zeros_like(m0), torch.zeros(B, 32, H, D),
-        0, 0)]
+    carry = held_carry(q, k, v)
     want_carry, lse, delta, want_parts = _jax_hop(
         q, k, v, do, [x.numpy() for x in carry], offs, causal)
     got = rf.ring_fwd(t(q), t(k), t(v), *[x.clone() for x in carry], *offs,
                       causal)
     for g, w in zip(got, want_carry):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
-    acc = [torch.zeros(s) for s in ((B, 32, H, D), k.shape, k.shape)]
+    acc = [torch.zeros(s) for s in (q.shape, k.shape, k.shape)]
     rf.ring_dq(t(q), t(k), t(v), t(do), t(lse), t(delta), acc[0], *offs,
                causal)
     rf.ring_dkv(t(q), t(k), t(v), t(do), t(lse), t(delta), acc[1], acc[2],
@@ -182,6 +191,13 @@ def test_one_hop_matches_jax_kernels(offs, causal, h_kv):
 # -- split TF32: the f32 ring backward's products, emulated ----------------
 
 GRAD_TOL = dict(atol=5e-5, rtol=5e-5)  # chip_smoke phase 11's f32 bound
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)   # and its f32 forward bound
+SPLIT_HOPS = [
+    ((32, 32), True, 4),    # the diagonal hop, MHA
+    ((64, 0), True, 4),     # a past hop: every pair live
+    ((32, 32), True, 1),    # the diagonal hop, MQA
+    ((64, 0), True, 1),     # a past hop, MQA
+    ((32, 96), False, 4)]   # non-causal
 
 
 def test_tf32_rounds_to_nearest_ties_away():
@@ -202,12 +218,34 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("offs,causal,h_kv", [
-    ((32, 32), True, 4),    # the diagonal hop, MHA
-    ((64, 0), True, 4),     # a past hop: every pair live
-    ((32, 32), True, 1),    # the diagonal hop, MQA
-    ((64, 0), True, 1),     # a past hop, MQA
-    ((32, 96), False, 4)])  # non-causal
+@pytest.mark.parametrize("offs,causal,h_kv", SPLIT_HOPS)
+def test_split_tf32_forward_matches_jax_kernels(offs, causal, h_kv, seed):
+    """The split-TF32 arithmetic of ``ring_fwd_tf32_mma_kernel``
+    (emulated, with the kernel's exp2), one hop at D 32 folded into a
+    carry that already holds a hop, against JAX's ``_ring_fwd_kernel`` in
+    interpret mode: m, l and acc as the output it stands for (acc / l)
+    within the f32 forward tolerance (2e-5); one TF32 product a product
+    misses it in acc / l, which is why the kernel takes three."""
+    q, k, v, do = inputs(h_kv, 32, seed=200 + seed, d=32)
+    carry = held_carry(q, k, v)
+    (want_m, want_l, want_acc), *_ = _jax_hop(
+        q, k, v, do, [x.numpy() for x in carry], offs, causal)
+    want_o = want_acc / np.swapaxes(want_l, 1, 2)[..., None]
+    t = torch.from_numpy
+    for products in (3, 1):
+        m, l_sum, acc = split_tf32_forward(t(q), t(k), t(v), *carry, *offs,
+                                           causal, products)
+        o = (acc / l_sum.transpose(1, 2)[..., None]).numpy()
+        if products == 3:
+            np.testing.assert_allclose(m.numpy(), want_m, **FWD_TOL)
+            np.testing.assert_allclose(l_sum.numpy(), want_l, **FWD_TOL)
+            np.testing.assert_allclose(o, want_o, **FWD_TOL)
+        else:
+            assert not np.allclose(o, want_o, **FWD_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("offs,causal,h_kv", SPLIT_HOPS)
 def test_split_tf32_backward_matches_jax_kernels(offs, causal, h_kv, seed):
     """The split-TF32 arithmetic of ``ring_dq_tf32_mma_kernel`` and
     ``ring_dkv_tf32_mma_kernel`` (emulated) against JAX's
@@ -216,10 +254,7 @@ def test_split_tf32_backward_matches_jax_kernels(offs, causal, h_kv, seed):
     dq, dk and dv, which is why the kernels take three."""
     q, k, v, do = inputs(h_kv, 32, seed=100 + seed)
     t = torch.from_numpy
-    m0 = torch.full((B, H, 32), -1e30)
-    carry = [x.contiguous() for x in rf.ring_fwd_reference(
-        t(q), t(k), t(v), m0, torch.zeros_like(m0), torch.zeros(B, 32, H, D),
-        0, 0)]
+    carry = held_carry(q, k, v)
     _, lse, delta, want = _jax_hop(q, k, v, do, [x.numpy() for x in carry],
                                    offs, causal)
     args = (t(q), t(k), t(v), t(do), t(lse), t(delta), *offs, causal)
