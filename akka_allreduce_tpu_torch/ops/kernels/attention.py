@@ -11,7 +11,9 @@ reads it as it is (no relayout per step).
   mask, GQA grouping ``q.reshape(b, 1, h_kv, g, d)``). The CPU path and
   the kernel's oracle.
 * :func:`paged_attention` — the wrapper: a CPU tensor goes to the plain
-  version; a CUDA tensor launches ``csrc/paged_attention.cu`` or raises.
+  version; a CUDA tensor launches ``csrc/paged_attention.cu`` (a split-KV
+  kernel: :func:`paged_splits` blocks a (KV head, lane) pair, one thread
+  block cluster, merging their partial softmaxes) or raises.
   :data:`PAGED_ATTENTION_LAUNCHES` counts kernel launches.
 """
 
@@ -28,8 +30,17 @@ from akka_allreduce_tpu_torch.parallel.ring_attention import NEG_INF
 # plain version never counts
 PAGED_ATTENTION_LAUNCHES = 0
 
+# blocks a (KV head, lane) pair's pages are split over: at most a
+# portable cluster
+MAX_SPLITS = 8
+# a shared-memory stage, the kernel's online-softmax step: whole pages, at
+# most this many keys and bytes of K and V
+STAGE_KEYS = 64
+STAGE_BYTES = 32 * 1024
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCH: dict = {}  # the bound C entry points, set at first launch
+_SM_COUNT: dict = {}  # device index -> streaming multiprocessors
 
 
 def _launcher():
@@ -39,7 +50,7 @@ def _launcher():
         lib = build.load("paged_attention")
         fn = lib.paged_attention_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 6
+                       + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.paged_attention_error_string
@@ -47,6 +58,34 @@ def _launcher():
         err.restype = ctypes.c_char_p
         _LAUNCH.update(launch=fn, error=err)
     return _LAUNCH["launch"], _LAUNCH["error"]
+
+
+def paged_splits(batch: int, h_kv: int, n_pt: int, sm_count: int) -> int:
+    """Blocks the kernel splits each (KV head, lane) pair's live pages
+    over: enough that ``h_kv * batch * S`` blocks fill the card's SMs
+    twice, at most :data:`MAX_SPLITS` (one portable cluster) and at most
+    the table's ``n_pt`` pages. Chosen from shapes alone: the kernel
+    reads ``pos`` on the device and shares each lane's live pages out
+    among the S blocks itself."""
+    want = -(-2 * sm_count // (batch * h_kv))
+    return max(1, min(MAX_SPLITS, n_pt, want))
+
+
+def paged_stage_pages(page_size: int, head_dim: int, itemsize: int) -> int:
+    """Whole pages the kernel holds in one shared-memory stage and takes
+    in one online-softmax step: at most :data:`STAGE_KEYS` keys and
+    :data:`STAGE_BYTES` of K and V, at least one page."""
+    by_bytes = STAGE_BYTES // (2 * page_size * head_dim * itemsize)
+    return max(1, min(by_bytes, STAGE_KEYS // page_size))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
 
 
 def paged_gather_kv(pages: torch.Tensor,
@@ -141,8 +180,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (its first ``ceil((pos+1)/P)``) must be a page id in
     ``[0, num_pages)``. On CPU tensors this is the plain version; on CUDA
     tensors it launches the kernel into a ``torch.empty`` output on the
-    current stream and raises if the launch fails."""
-    global PAGED_ATTENTION_LAUNCHES
+    current stream and raises if the launch fails: one launch, clusters
+    of :func:`paged_splits` blocks, with no read of ``pos`` on the host."""
     _check(q, k_pages, v_pages, page_table, pos)
     if q.device.type == "cpu":
         return paged_gather_attention(q, k_pages, v_pages, page_table, pos)
@@ -158,8 +197,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"kernel needs head_dim a multiple of 32 and "
                          f"<= 256, got {d}")
     if h // h_kv > 32:
-        raise ValueError(f"kernel runs one warp per query head of a "
-                         f"group: H / h_kv <= 32, got {h // h_kv}")
+        raise ValueError(f"kernel holds a group's query heads in at most "
+                         f"8 tiles of 4: H / h_kv <= 32, got {h // h_kv}")
+    return _launch_kernel(q, k_pages, v_pages, page_table, pos,
+                          paged_splits(b, h_kv, page_table.shape[1],
+                                       _sm_count(q.device)))
+
+
+def _launch_kernel(q, k_pages, v_pages, page_table, pos,
+                   splits: int) -> torch.Tensor:
+    """One launch of the kernel on inputs :func:`paged_attention` has
+    checked, each (KV head, lane) pair's pages split over ``splits``
+    blocks (1 to :data:`MAX_SPLITS`)."""
+    global PAGED_ATTENTION_LAUNCHES
+    b, _, h, d = q.shape
+    _num_pages, page_size, h_kv, _ = k_pages.shape
     fn, err = _launcher()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -167,7 +219,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
                 out.data_ptr(), b, h, h_kv, d, page_size,
-                page_table.shape[1], d ** -0.5, stream)
+                page_table.shape[1], splits,
+                paged_stage_pages(page_size, d, q.element_size()),
+                d ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"{err(rc).decode()} ({rc})")

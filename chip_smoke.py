@@ -15,12 +15,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    lacks one of ``MMA_KERNELS`` at a head dim of ``HEAD_DIMS`` (32, 64,
    128).
 3. kernels — hold each kernel against its plain PyTorch version on the
-   same CUDA tensors: f32 at atol = rtol = 1e-5, bf16 at atol 2e-2, over
-   the serving slice's shape, MHA, MQA, a larger page, and the position
-   edge cases (0, P-1, P, the last position, a lane parked on the
-   scratch page). At the slice's shape: kernel, plain version and
-   library call timed with CUDA events (median of 20 after warm-up,
-   L2 flushed before each), and the kernel's bound computed.
+   same CUDA tensors (``paged_agrees``: f32 at atol = rtol = 1e-5,
+   bf16 each head's row within min(2e-2, 1/32 of its largest value)),
+   over the serving slice's shape, MHA, MQA, a larger page and a long
+   cache (n_pt 512, lanes at 4,096-8,191), and the position edge cases
+   (0, P-1, P, the last position, a split boundary of the kernel's
+   split-KV grid and one page past it, a lane parked on the scratch
+   page). At the slice's shape (serve positions) and the long shape,
+   f32 and bf16: kernel, plain version and library call timed with CUDA
+   events (median of 20 after warm-up, L2 flushed before each), and the
+   kernel's bound computed. Then the kernel at every split count S of
+   ``SPLIT_COUNTS`` against the S the wrapper picks, at
+   ``SPLIT_SHAPES``.
 4. serve   — the port's ``serve`` at the full width of the repo's gqa4
    decode model (d_model 2048, 16 heads, 4 KV heads, 8 layers, d_ff
    8192, vocab 32768, rope, f32, random weights from --seed 0) over 16
@@ -204,9 +210,18 @@ SERVE_ARGV = [
     "--device", "cuda"]
 
 # (B, H, h_kv, D, P, n_pt): the slice's decode shape first — 8 lanes of
-# the gqa4 model, 16-position pages, max_seq 512 — then MHA, MQA, P=32
+# the gqa4 model, 16-position pages, max_seq 512 — then MHA, MQA, P=32,
+# and the long cache: 8 lanes at positions 4,096-8,191 of 8,192 (n_pt 512)
 KERNEL_SHAPES = [(8, 16, 4, 128, 16, 32), (8, 16, 16, 128, 16, 32),
-                 (8, 16, 1, 128, 16, 32), (8, 16, 4, 128, 32, 16)]
+                 (8, 16, 1, 128, 16, 32), (8, 16, 4, 128, 32, 16),
+                 (8, 16, 4, 128, 16, 512)]
+LONG_SHAPE = KERNEL_SHAPES[-1]
+# where phase 3 times the kernel at each S of SPLIT_COUNTS: the serve
+# shape, MHA, 64 and 128 lanes of the gqa4 model (serve positions), and
+# the long cache
+SPLIT_SHAPES = [KERNEL_SHAPES[0], KERNEL_SHAPES[1], (64, 16, 4, 128, 16, 32),
+                (128, 16, 4, 128, 16, 32), LONG_SHAPE]
+SPLIT_COUNTS = (1, 2, 3, 4, 8)
 
 TRAIN_ARGV = [
     "train", "--d-model", "2048", "--n-heads", "16", "--n-layers", "8",
@@ -443,11 +458,15 @@ def nvidia_smi_line() -> str:
 
 
 def make_case(torch, shape, dtype, seed, positions="edges", device="cuda"):
-    """Random q and pools on the card, each lane with its own pages.
-    ``positions="edges"``: lanes at 0, P-1, P, the last position and one
-    parked on the scratch page (table row 0, pos 0), the rest random;
-    ``"serve"``: every lane at a random position in [64, 320), the range
-    the serve phase's requests decode over."""
+    """Random q and pools, each lane with its own pages.
+    ``positions="edges"``: lanes at 0, P-1, P, the last position, at a
+    split boundary (the lane's live pages an exact multiple of the
+    kernel's S splits) and one page past it (every split's share grows
+    by a page, and the last split may be left empty), one parked on the
+    scratch page (table row 0, pos 0), the rest random; ``"serve"``:
+    every lane at a random position in [64, 320), the range the serve
+    phase's requests decode over; ``"long"``: every lane in the table's
+    second half, [n_pt * P / 2, n_pt * P)."""
     b, h, h_kv, d, p, n_pt = shape
     gen = torch.Generator().manual_seed(seed)
     num_pages = b * n_pt + 1
@@ -460,14 +479,31 @@ def make_case(torch, shape, dtype, seed, positions="edges", device="cuda"):
     if positions == "serve":
         pos = torch.randint(min(64, last), min(320, last + 1), (b,),
                             generator=gen)
+    elif positions == "long":
+        pos = torch.randint(n_pt * p // 2, last + 1, (b,), generator=gen)
     else:
         pos = torch.randint(0, last + 1, (b,), generator=gen)
-        pos[:4] = torch.tensor([0, p - 1, p, last])
+        splits = case_splits(torch, shape, device)
+        # live pages: a multiple of splits (or the table less one page)
+        boundary = min(max(1, n_pt // (2 * splits)) * splits, n_pt - 1)
+        pos[:6] = torch.tensor([0, p - 1, p, last, boundary * p - 1,
+                                boundary * p])
         table[-1] = 0
         pos[-1] = 0
     dev = torch.device(device)
     return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
             table.to(dev), pos.to(dev, torch.int32))
+
+
+def case_splits(torch, shape, device="cuda") -> int:
+    """The S the kernel's wrapper picks for ``shape`` on ``device``'s
+    card (132 SMs, an H100's, for a CPU rehearsal)."""
+    from akka_allreduce_tpu_torch.ops.kernels.attention import paged_splits
+    b, _, h_kv, _, _, n_pt = shape
+    sms = (torch.cuda.get_device_properties(torch.device(device))
+           .multi_processor_count if torch.device(device).type == "cuda"
+           else 132)
+    return paged_splits(b, h_kv, n_pt, sms)
 
 
 def time_ms(torch, fn, flush, reps=20, warmup=3) -> float:
@@ -531,15 +567,33 @@ def library_attention(torch, q, k_pages, v_pages, table, pos):
     return out.transpose(1, 2)
 
 
+def paged_agrees(torch, got, want) -> "tuple[bool, float]":
+    """The paged kernel's output against the plain version's, both of the
+    pool's dtype: all finite, f32 within atol = rtol = 1e-5, bf16 each
+    (lane, query head) row within min(2e-2, 1/32 of the row's largest
+    |want|), four to eight bf16 steps at that value. A row over thousands
+    of keys averages to values of ~0.02, where 2e-2 alone would pass a
+    fault the size of a typical output. Returns (agrees, the worst
+    |got - want| over its limit)."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        limit = 1e-5 + 1e-5 * want.abs()
+    else:
+        row_max = want.float().abs().amax(dim=-1, keepdim=True)
+        limit = (row_max / 32).clamp(max=2e-2)
+    share = float((err / limit).max())
+    return bool(torch.isfinite(got).all()) and share <= 1.0, share
+
+
 def phase_kernels(torch) -> dict:
     from akka_allreduce_tpu_torch.ops.kernels import attention
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     timed = {}
     seed = 0
     for shape in KERNEL_SHAPES:
-        for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)),
-                           (torch.bfloat16, dict(atol=2e-2, rtol=0.0))):
-            for positions in ("edges", "serve"):
+        for dtype in (torch.float32, torch.bfloat16):
+            timed_at = "long" if shape == LONG_SHAPE else "serve"
+            for positions in ("edges", timed_at):
                 seed += 1
                 args = make_case(torch, shape, dtype, seed, positions)
                 out = attention.paged_attention(*args)
@@ -547,12 +601,14 @@ def phase_kernels(torch) -> dict:
                 torch.cuda.synchronize()
                 err = float((out.float() - ref.float()).abs().max())
                 finite = bool(torch.isfinite(out).all())
-                ok = finite and torch.allclose(out.float(), ref.float(),
-                                               **tol)
+                ok, share = paged_agrees(torch, out, ref)
                 row = {"shape": list(shape), "dtype": str(dtype),
-                       "positions": positions, "max_abs_err": err,
+                       "positions": positions,
+                       "splits": case_splits(torch, shape),
+                       "max_abs_err": err, "limit_share": share,
                        "finite": finite, "ok": ok}
-                if shape == KERNEL_SHAPES[0] and positions == "serve":
+                if positions == timed_at and shape in (KERNEL_SHAPES[0],
+                                                       LONG_SHAPE):
                     bound, by = paged_bound(torch, args[0], args[1],
                                             args[3], args[4])
                     row.update(
@@ -564,12 +620,46 @@ def phase_kernels(torch) -> dict:
                         library_ms=time_ms(torch, lambda: library_attention(
                             torch, *args), flush),
                         bound_ms=bound, bound_by=by)
-                    timed[str(dtype)] = row
+                    row["bound_share"] = bound / row["ms"]
+                    timed[positions, str(dtype)] = row
                 emit("kernels", kernel="paged_attention", **row)
                 if not ok:
                     raise AssertionError(f"paged_attention disagrees with "
                                          f"its plain version: {row}")
+    split_times(torch, flush)
     return timed
+
+
+def split_times(torch, flush) -> None:
+    """The paged kernel at each S of ``SPLIT_COUNTS`` (up to n_pt) and at
+    the S its wrapper picks, at ``SPLIT_SHAPES``, f32 and bf16, serve
+    positions (long ones at the long cache): each S's output held to
+    ``paged_agrees``, then timed as ``time_ms`` times it. Launched
+    through the wrapper's own launch with S given."""
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    for i, shape in enumerate(SPLIT_SHAPES):
+        positions = "long" if shape == LONG_SHAPE else "serve"
+        picked = case_splits(torch, shape)
+        counts = sorted({s for s in SPLIT_COUNTS if s <= shape[5]}
+                        | {picked})
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make_case(torch, shape, dtype, 200 + i, positions)
+            ref = attention.paged_gather_attention(*args)
+            ms = {}
+            for s in counts:
+                ok, share = paged_agrees(
+                    torch, attention._launch_kernel(*args, s), ref)
+                if not ok:
+                    raise AssertionError(
+                        f"paged_attention at S {s} disagrees with its plain "
+                        f"version at {shape} {dtype}: {share}")
+                ms[s] = time_ms(torch, lambda: attention._launch_kernel(
+                    *args, s), flush)
+            emit("kernels", kernel="paged_attention_splits",
+                 shape=list(shape), dtype=str(dtype), positions=positions,
+                 picked=picked, ms=ms,
+                 best=min(ms, key=ms.get))
+            del args, ref
 
 
 def flash_bounds(torch, q, k, causal, window, q_off, k_off,
@@ -2046,7 +2136,8 @@ def main() -> int:
     for kernel in build.KERNELS:
         build.load(kernel)
     emit("build", seconds=time.perf_counter() - t0, kernels=info,
-         mma_kernels=check_mma_spills(info))
+         mma_kernels=check_mma_spills(info),
+         paged_kernels=ptxas_kernels(info["paged_attention"]["ptxas"]))
 
     # 3. kernels vs plain versions
     timed = phase_kernels(torch)
@@ -2092,7 +2183,8 @@ def main() -> int:
     emit("train_defaults_phase_seconds",
          train_defaults=time.perf_counter() - t15)
 
-    row = timed["torch.float32"]
+    row = timed["serve", "torch.float32"]
+    long_row = timed["long", "torch.float32"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "akka_allreduce_tpu_torch/ops/kernels/csrc/"
@@ -2101,7 +2193,8 @@ def main() -> int:
         "launches": served["launches"], "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"]}]
+        "library_ms": row["library_ms"], "long_ms": long_row["ms"],
+        "long_bound_ms": long_row["bound_ms"]}]
     # the flagship trains bf16; the f32 flash kernels run in phase 7's f32
     # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], trained["launches"])

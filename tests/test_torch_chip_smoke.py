@@ -179,6 +179,113 @@ def test_flash_kernel_rows_carry_every_key(suffix):
         "113", "153", "184"]
 
 
+def test_long_positions_fill_the_tables_second_half():
+    """The ``"long"`` mode puts every lane in [n_pt * P / 2, n_pt * P):
+    4,096-8,191 at the long shape (n_pt 512, P 16)."""
+    shape = (8, 4, 2, 16, 4, 32)
+    _, _, _, _, pos = chip_smoke.make_case(torch, shape, torch.float32, 0,
+                                           "long", device="cpu")
+    assert pos.dtype == torch.int32 and pos.shape == (8,)
+    assert int(pos.min()) >= 64 and int(pos.max()) <= 127
+    _, _, _, _, p, n_pt = chip_smoke.LONG_SHAPE
+    assert chip_smoke.LONG_SHAPE in chip_smoke.KERNEL_SHAPES
+    assert (n_pt * p // 2, n_pt * p) == (4096, 8192)
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 2, 16, 4, 32),
+                                   (8, 4, 1, 16, 8, 4),
+                                   (8, 16, 16, 16, 4, 32)])
+def test_edge_positions_cross_a_split_boundary(shape):
+    """Lanes 4 and 5 of ``"edges"``: the live pages an exact multiple of
+    the kernel's S (or the table less one page), then one page more,
+    which gives every split one page more to take (and leaves the last
+    empty where S exceeds the old share by 2); the last lane is parked on
+    page 0 at pos 0."""
+    _, _, _, _, p, n_pt = shape
+    _, _, _, table, pos = chip_smoke.make_case(torch, shape, torch.float32,
+                                               1, "edges", device="cpu")
+    splits = chip_smoke.case_splits(torch, shape, device="cpu")
+    n_live = (pos.long() // p + 1).tolist()
+    assert pos[:4].tolist() == [0, p - 1, p, n_pt * p - 1]
+    assert n_live[4] % splits == 0 or n_live[4] == n_pt - 1
+    assert n_live[5] == n_live[4] + 1 <= n_pt
+    share = -(-n_live[4] // splits)
+    if n_live[4] % splits == 0:
+        assert -(-n_live[5] // splits) == share + 1
+        if splits >= share + 2:  # the last split is empty
+            assert n_live[5] <= (splits - 1) * (share + 1)
+    assert pos[-1] == 0 and int(table[-1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_bound_at_the_long_shape(dtype):
+    """Bytes: each live K/V row read once (2 x live x h_kv x D), q read
+    and out written, a table entry a live page and pos: ~200 MB of f32 K/V
+    at 3.35 TB/s, about 0.06 ms; bf16 half that."""
+    b, h, h_kv, d, p, n_pt = chip_smoke.LONG_SHAPE
+    q = torch.zeros((b, 1, h, d), dtype=dtype)
+    k_pages = torch.zeros(1, dtype=dtype).expand(b * n_pt + 1, p, h_kv, d)
+    pos = torch.arange(4096, 8192, 512, dtype=torch.int32)
+    bound, by = chip_smoke.paged_bound(torch, q, k_pages, None, pos)
+    es = q.element_size()
+    live = int((pos.long() + 1).sum())
+    pages = int((pos.long() // p + 1).sum())
+    nbytes = 2 * live * h_kv * d * es + 2 * q.numel() * es + 4 * (pages + b)
+    assert by == "bytes"
+    assert bound == pytest.approx(nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    assert 0.055 * es / 4 < bound < 0.065 * es / 4
+
+
+def test_split_shapes_cover_the_rule_below_its_cap():
+    """Phase 3's S timings reach shapes where the wrapper's S is not the
+    cap of 8 (MHA: 3; 64 lanes: 2; 128 lanes: 1) beside the serve shape
+    and the long cache (8), and each time the cap itself."""
+    picks = [chip_smoke.case_splits(torch, shape, device="cpu")
+             for shape in chip_smoke.SPLIT_SHAPES]
+    assert picks == [8, 3, 2, 1, 8]
+    assert max(chip_smoke.SPLIT_COUNTS) == 8
+    assert chip_smoke.KERNEL_SHAPES[0] in chip_smoke.SPLIT_SHAPES
+    assert chip_smoke.LONG_SHAPE in chip_smoke.SPLIT_SHAPES
+
+
+def _long_rows(dtype):
+    """Rows shaped as a long cache's outputs: 2 lanes x 4 heads x 128,
+    values ~0.02 (the softmax average of thousands of randn rows)."""
+    gen = torch.Generator().manual_seed(0)
+    return (0.02 * torch.randn((2, 1, 4, 128), generator=gen)).to(dtype)
+
+
+def test_paged_agrees_holds_bf16_to_each_rows_scale():
+    """bf16: one bf16 step on every element passes; a shift of 5e-3 in
+    one head's row (a quarter of a typical value there, well under the
+    fixed 2e-2) fails; rows of ~1 keep 2e-2 as their limit."""
+    want = _long_rows(torch.bfloat16)
+    step = torch.nextafter(want.float(), torch.tensor(1.0)).to(
+        torch.bfloat16)
+    ok, share = chip_smoke.paged_agrees(torch, step, want)
+    assert ok and share <= 0.5
+    shifted = want.float()
+    shifted[1, 0, 2] += 5e-3
+    ok, share = chip_smoke.paged_agrees(torch, shifted.to(torch.bfloat16),
+                                        want)
+    assert not ok and share > 1.0
+    big = torch.full((1, 1, 1, 128), 3.0, dtype=torch.bfloat16)
+    ok, share = chip_smoke.paged_agrees(torch, big + 0.015625, big)
+    assert ok and share == pytest.approx(0.015625 / 2e-2)
+
+
+def test_paged_agrees_f32_and_non_finite():
+    """f32: atol = rtol = 1e-5; a NaN or inf output never agrees."""
+    want = _long_rows(torch.float32)
+    assert chip_smoke.paged_agrees(torch, want + 9e-6, want)[0]
+    assert not chip_smoke.paged_agrees(torch, want + 2e-5, want)[0]
+    bad = want.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    assert not chip_smoke.paged_agrees(torch, bad, want)[0]
+    bad[0, 0, 0, 0] = float("inf")
+    assert not chip_smoke.paged_agrees(torch, bad, want)[0]
+
+
 def test_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal needs one without")

@@ -8,8 +8,9 @@ runs on the GPU machine, from the repository root::
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 paged attention: f32 at atol = rtol = 1e-5 (another summation order),
-bf16 at atol 2e-2; flash attention: the JAX package's tolerances, f32 at
-2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (every flash and ring
+bf16 each head's row within min(2e-2, 1/32 of its largest value)
+(``chip_smoke.paged_agrees``); flash attention: the JAX package's
+tolerances, f32 at 2e-5 (forward) and 5e-5 (gradients), bf16 at 3e-2 (every flash and ring
 kernel on tensor cores: bf16 directly, f32 in split TF32), at head dims
 32, 64 and 128, the kernels also bitwise repeatable, rows that no live
 pair reaches exactly zero (o, dq, dk/dv) and a ring carry that no live
@@ -22,6 +23,9 @@ share the card through CUDA IPC (the same adds in the same order);
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -42,19 +46,23 @@ def cuda_device():
 
 
 def paged_inputs(h_kv: int, page_size: int, seed: int, heads: int = 8,
-                 head_dim: int = 64):
-    """Six lanes with their own pages: positions 0, P-1, P, the last, a
-    random one, and a lane parked on scratch page 0 at pos 0."""
+                 head_dim: int = 64, splits: int = 1):
+    """Eight lanes with their own pages: positions 0, P-1, P, the last,
+    a split boundary of the kernel's ``splits`` and one page past it,
+    a random one, and a lane parked on scratch page 0 at pos 0."""
     rng = np.random.default_rng(seed)
-    b, n_pt = 6, 128 // page_size
+    b, n_pt = 8, 128 // page_size
     num_pages = b * n_pt + 1
     last = n_pt * page_size - 1
+    # live pages: a multiple of splits (or the table less one page)
+    boundary = min(max(1, n_pt // (2 * splits)) * splits, n_pt - 1)
     q = rng.normal(size=(b, 1, heads, head_dim)).astype(np.float32)
     k = rng.normal(size=(num_pages, page_size, h_kv, head_dim))
     v = rng.normal(size=(num_pages, page_size, h_kv, head_dim))
     table = (rng.permutation(num_pages - 1) + 1).reshape(b, n_pt)
     table[-1] = 0
     pos = np.array([0, page_size - 1, page_size, last,
+                    boundary * page_size - 1, boundary * page_size,
                     int(rng.integers(0, last + 1)), 0])
     return (torch.from_numpy(q), torch.from_numpy(k.astype(np.float32)),
             torch.from_numpy(v.astype(np.float32)),
@@ -62,24 +70,101 @@ def paged_inputs(h_kv: int, page_size: int, seed: int, heads: int = 8,
             torch.from_numpy(pos.astype(np.int32)))
 
 
+# (h_kv, page_size) at H 8, D 64 and 128 positions, then chip_smoke.py's
+# serving slice shape (B 8, H 16, h_kv 4, D 128, P 16, n_pt 32) and its
+# long cache (n_pt 512, lanes at 4,096-8,191), each with the edge and
+# split-boundary positions and with its timed positions
+PAGED_CASES = ([(h_kv, p, None) for h_kv in (1, 2, 8) for p in (8, 32)]
+               + [(4, 16, "edges"), (4, 16, "serve"), (4, 16, "long-edges"),
+                  (4, 16, "long")])
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def assert_paged_agrees(got, want):
+    """``chip_smoke.paged_agrees``: f32 at atol = rtol = 1e-5, bf16 each
+    head's row within min(2e-2, 1/32 of its largest value)."""
+    assert got.dtype == want.dtype
+    ok, share = _chip_smoke().paged_agrees(torch, got, want)
+    diff = float((got.float() - want.float()).abs().max())
+    assert ok, f"worst error {share:.3g} x its limit (max |diff| {diff:.3g})"
+
+
+def paged_case(case, seed, device, dtype):
+    from akka_allreduce_tpu_torch.ops.kernels.attention import paged_splits
+    h_kv, page_size, positions = case
+    if positions is None:
+        n_pt = 128 // page_size
+        splits = paged_splits(8, h_kv, n_pt, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        tensors = [t.to(device) for t in paged_inputs(
+            h_kv, page_size, seed, splits=splits)]
+        return [t.to(dtype) if t.is_floating_point() else t
+                for t in tensors]
+    chip_smoke = _chip_smoke()
+    shape = (chip_smoke.LONG_SHAPE if positions.startswith("long")
+             else chip_smoke.KERNEL_SHAPES[0])
+    return list(chip_smoke.make_case(torch, shape, dtype, seed,
+                                     positions.replace("long-", ""),
+                                     device=str(device)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
-                                             (torch.bfloat16, 2e-2, 0.0)])
-@pytest.mark.parametrize("page_size", [8, 32])
-@pytest.mark.parametrize("h_kv", [1, 2, 8])
-def test_paged_attention_matches_plain(cuda_device, h_kv, page_size, dtype,
-                                       atol, rtol):
-    q, k, v, table, pos = [t.to(cuda_device) for t in paged_inputs(
-        h_kv, page_size, seed=h_kv * 100 + page_size)]
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_attention_matches_plain(cuda_device, case, dtype):
+    q, k, v, table, pos = paged_case(case, case[0] * 100 + case[1],
+                                     cuda_device, dtype)
     before = attention.PAGED_ATTENTION_LAUNCHES
     got = attention.paged_attention(q, k, v, table, pos)
     torch.cuda.synchronize()
     assert attention.PAGED_ATTENTION_LAUNCHES == before + 1
     want = attention.paged_gather_attention(q, k, v, table, pos)
     assert got.dtype == dtype and torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    assert_paged_agrees(got, want)
+
+
+# (H, h_kv, D): every head dim the kernel is built for (32 to 256) and
+# groups of 1 to 32 query heads, odd tile counts (3, 5, 7 tiles of 4) too
+PAGED_WIDTHS = [(8, 2, 32), (12, 1, 96), (20, 1, 160), (24, 2, 192),
+                (28, 1, 224), (32, 1, 256), (16, 16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,h_kv,head_dim", PAGED_WIDTHS)
+def test_paged_attention_head_dims_and_groups(cuda_device, heads, h_kv,
+                                              head_dim, dtype):
+    from akka_allreduce_tpu_torch.ops.kernels.attention import paged_splits
+    splits = paged_splits(8, h_kv, 128 // 16, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    q, k, v, table, pos = [t.to(cuda_device) for t in paged_inputs(
+        h_kv, 16, seed=heads + head_dim, heads=heads, head_dim=head_dim,
+        splits=splits)]
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    got = attention.paged_attention(q, k, v, table, pos)
+    want = attention.paged_gather_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert_paged_agrees(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,head_dim", [(8, 48), (8, 288), (33, 64)])
+def test_paged_attention_rejects_widths_it_is_not_built_for(
+        cuda_device, heads, head_dim):
+    """Head dims that are not a multiple of 32 or exceed 256, and groups
+    of more than 32 query heads (8 tiles of 4), raise before a launch."""
+    q, k, v, table, pos = [t.to(cuda_device) for t in paged_inputs(
+        1, 16, seed=0, heads=heads, head_dim=head_dim)]
+    before = attention.PAGED_ATTENTION_LAUNCHES
+    with pytest.raises(ValueError, match="kernel"):
+        attention.paged_attention(q, k, v, table, pos)
+    assert attention.PAGED_ATTENTION_LAUNCHES == before
 
 
 @pytest.mark.cuda
