@@ -6,281 +6,325 @@
 //           _swing_kernel (called through pallas_swing_allreduce).
 //
 // What it computes: the sum over the n ranks of a flat f32 vector, every
-// rank ending with the whole sum, on the TPU kernels' schedules and in
-// their add order, each element a lone f32 add per step (no fast math), so
-// the result is bitwise the plain version's
-// (akka_allreduce_tpu_torch/ops/kernels/ring.py):
-//   ring  — the vector as n ring blocks. Reduce-scatter steps t = 0..n-2:
-//           the carry starts as block `my`; at step t the rank receives
-//           the left neighbour's carry and adds block (my-1-t) mod n
-//           (carry = received + local). After them the carry is the whole
-//           sum of block (my+1) mod n. All-gather steps t = n-1..2n-3
-//           forward the newest complete block; at phase step s the rank
-//           receives block (my-s) mod n.
-//   swing — log2(n) steps; at step t the rank exchanges its running sum
-//           with the rank at XOR distance 2^t: out = out + partner's out.
+// rank ending with the whole sum, each element in the TPU kernels' add
+// order, as lone f32 adds (__fadd_rn, no fast math), so the result is
+// bitwise the plain version's (akka_allreduce_tpu_torch/ops/kernels/ring.py):
+//   ring  — block b of the n ring blocks sums to
+//           ((x_b[b] + x_{b+1}[b]) + x_{b+2}[b]) + ... + x_{b-1}[b]
+//           (rank indices mod n): the reduce-scatter's carry chain;
+//   swing — every element is the balanced tree
+//           ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)), which every
+//           rank of the XOR exchanges ends with.
+// f32 addition commutes bitwise, so whichever rank owns a block can compute
+// either order from all the ranks' contributions. The TPU schedules fix the
+// add order, not how the bytes travel; on this card one data movement
+// serves both.
 //
-// The TPU kernels' remote DMA becomes a store into the receiver's memory.
-// Every rank owns one symmetric buffer (allocated with cudaMalloc and
-// shared through CUDA IPC by parallel/group.py): two payload slots and a
-// flag record per grid block. A sender stores its payload straight into
-// the receiver's slot through the IPC mapping and then sets the
-// receiver's `ready` flag of that slot; the receiver polls its own flags
-// and reads its own slots. The same code runs between processes on one
-// card and between cards over NVLink.
+// Schedule. The vector is cut into n blocks of whole 128-lanes (the last
+// may be ragged or empty; ring.py's block_range). Rank r owns block
+// (r + 1) mod n, as the TPU ring's reduce-scatter leaves it. Every rank
+// owns one symmetric buffer (cudaMalloc, shared through CUDA IPC by
+// parallel/group.py) holding n - 1 inbound slots, n - 1 gather slots and
+// the counters; ring.py's layout functions place them, and the wrapper
+// passes this file resolved addresses only. A call is three kernels on the
+// caller's stream:
+//   push   — for each peer p, store the block p owns from x into slot
+//            `inbound[my]` of p's buffer; then add 1 to each peer's `push`;
+//   (the stream waits until this rank's `push` >= (n - 1) * call)
+//   reduce — sum the n contributions of the owned block (x's own block and
+//            the n - 1 inbound slots) in the schedule's order; store the sum
+//            into out and into slot `gather[my]` of every peer's buffer;
+//            then add 1 to each peer's `reduce`;
+//   (the stream waits until this rank's `reduce` >= (n - 1) * call)
+//   gather — copy each gather slot into out at the sending owner's block.
+// Two cross-rank waits a call at every n; x is read once and out written
+// once.
 //
-// Flow control. Steps are numbered across calls: T = steps run on the
-// buffer before this call (the wrapper's counter, equal on every rank
-// since all ranks make the same calls) + the step within the call. The
-// payload of step T goes into slot T mod 2 and its flag value is T + 1:
-//   ready[s]  = T + 1 of the last payload stored into slot s;
-//   consumed  = T + 1 of the last payload this rank has read.
-// Before it stores step T's payload, the sender waits until the receiver
-// has consumed step T - 2, the last payload of that slot (the TPU
-// kernels' slot-free grant). Flags only grow, so they never need a reset,
-// and a value left by call k cannot let call k + 1 race ahead: this takes
-// the place of the TPU kernels' "the final step grants nothing"
-// (ring.py:102-109, :214-222). Flag loads are system-scope acquires and
-// flag stores system-scope releases after the block's payload stores and
-// a __syncthreads(), so no stale L1 line is read; payload slots are read
-// with L2-only loads (__ldcg).
+// Flow control comes from stream order: no slot parity, no `consumed`
+// flags. Counters only grow: the wrapper numbers the calls on a buffer
+// (1, 2, ...), every rank makes the same calls, so after call k each
+// counter holds (n - 1) * k and nothing is ever reset.
+//   - Rank r's push of call k + 1 writes p's inbound slot. It follows r's
+//     gather wait of call k, which saw p's reduce signal of call k, which p
+//     sends after its reduce has read every inbound slot.
+//   - Rank r's reduce of call k + 1 writes p's gather slot. It follows r's
+//     push wait of call k + 1, which saw p's push signal of call k + 1; p
+//     pushes only after its own gather of call k, the last read of that
+//     slot.
+// The wrapper also makes each call's stream wait on the previous call's
+// end event, so a caller who changes streams between calls keeps the order.
 //
-// Grid. A persistent grid of at most one block per SM: every block is
-// resident, so a spinning block never waits on one that is not scheduled.
-// Block g owns a fixed range of columns (a multiple of 128) of every ring
-// block (of the whole vector for the swing) and runs its own copy of the
-// schedule with its own flags: no block waits on another block of its own
-// grid, only on block g of its neighbours.
+// Waits off the SMs. Each wait is a stream memory operation
+// (cuStreamWaitValue64, CU_STREAM_WAIT_VALUE_GEQ) on a counter in the
+// rank's own buffer, fetched through cudaGetDriverEntryPoint (no -lcuda),
+// after checking CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS once.
+// No kernel waits, so a rank whose peers have not signalled holds no SM,
+// and the kernels need not be persistent: each is a streaming grid sized
+// for bandwidth. A stream wait cannot time out: ring.py's `wait` polls the
+// last call's end event on the host and, past its deadline, abandons the
+// buffer's calls (peer_allreduce_abandon: a flag that turns the queued
+// stretches into no-ops, then counters raised to free the waits), so the
+// stream drains whether or not the peer ever makes the call, and raises,
+// naming the counters.
 //
-// Waiting. Thread 0 of a block spins on a flag with __nanosleep under a
-// deadline read from %globaltimer. Past the deadline it prints the rank,
-// block, step and flag values and traps: a broken protocol becomes a CUDA
-// error at the next synchronise, never a hang. Between processes on one
-// card without MPS the card time-slices between the ranks' contexts, so a
-// handshake can cost a time slice; the protocol stays correct.
+// Signals. A stretch signals its peers after all of its stores: each block
+// fences (__threadfence_system) and takes a ticket; the last block resets
+// the ticket and does one system-scope release add on each peer's counter.
+// That costs one add per peer a stretch, from the card, where a stream
+// write of the value (cuStreamWriteValue64) would be n - 1 more host calls
+// a stretch and a counter per sender, so n - 1 waits in place of one.
+// Slots written by peers are read with L2-only loads (__ldcg).
 //
-// Bound: bytes. Per rank the ring reads its input once, writes its output
-// once, and stores 2(n-1)/n of the vector into peer slots and reads the
-// same back; the swing stores and reads the whole vector once per step.
-// Each element costs one add, far below the card's f32 ridge. On one card
-// all ranks share its memory rate. The kernels fuse the add with the
-// forward store (the reduce-scatter carry and the swing's next payload are
-// never stored locally first) and move float4s.
+// Bound: bytes. Per rank of N bytes: push reads and stores (n - 1) / n N,
+// reduce reads N and stores N, gather reads and stores (n - 1) / n N:
+// 2N + 4 (n - 1) / n N (4N at two ranks, 5N at four). Each element costs
+// n - 1 adds, far below the card's f32 ridge. On one card the ranks share
+// its memory rate. The function itself needs only 2N (read x, write out):
+// a design that routes through peer slots cannot reach that bound.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
 #include <string.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxBlocks = 256;   // flag records per buffer
-constexpr int kMaxSwingSteps = 16;
-constexpr int64_t kLane = 128;    // a block's columns are whole lanes
+constexpr int kMaxRanks = 32;
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;       // float4s in flight a thread
+constexpr int kBlocksPerSm = 8;  // 2048 threads: a full SM
+constexpr int kCounterBytes = 128;
 
 typedef unsigned long long u64;
 
-struct Flags {  // one per grid block, in the receiving rank's buffer
-  u64 ready[2];
-  u64 consumed;
-  u64 pad;
+struct Counters {  // at the end of every rank's buffer
+  u64 push;        // + 1 from each peer after its push
+  u64 reduce;      // + 1 from each peer after its reduce
+  u64 abandoned;   // this rank's own: non-zero once wait() gave up
+  u64 ran;         // this rank's own: its stretches that ran, one each
+  u64 pad[4];
+  unsigned ticket;  // this rank's own: blocks of the running stretch done
+};
+static_assert(sizeof(Counters) <= kCounterBytes, "counters overflow");
+
+struct Copy {  // one stretch's copy for one peer
+  const float4* src;
+  float4* dst;
+  long long n4;  // float4s
 };
 
-struct SwingPeers {  // step t's partner's buffer, mapped into this process
-  char* buf[kMaxSwingSteps];
+struct CopyTable {
+  Copy c[kMaxRanks - 1];
 };
 
-__device__ __forceinline__ u64 load_acquire(const u64* p) {
-  u64 v;
-  asm volatile("ld.acquire.sys.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
+struct Peers {  // the peers' counters, mapped into this process
+  Counters* p[kMaxRanks - 1];
+};
 
-__device__ __forceinline__ void store_release(u64* p, u64 v) {
-  asm volatile("st.release.sys.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
+struct Sources {  // the reduce's inputs, in the schedule's add order
+  const float4* p[kMaxRanks];
+};
 
-__device__ __forceinline__ u64 global_ns() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The block waits until *flag >= want. Past the deadline thread 0 prints
-// what it waited for and traps.
-__device__ void block_wait(const u64* flag, u64 want, const char* what,
-                           int rank, u64 step, u64 deadline) {
-  if (threadIdx.x == 0) {
-    unsigned ns = 32;
-    u64 got;
-    while ((got = load_acquire(flag)) < want) {
-      if (global_ns() > deadline) {
-        printf("ring_allreduce.cu: rank %d block %d step %llu: deadline "
-               "passed waiting for %s >= %llu (holds %llu)\n",
-               rank, static_cast<int>(blockIdx.x), step, what, want, got);
-        __trap();
-      }
-      __nanosleep(ns);
-      if (ns < 2048) ns <<= 1;
-    }
-  }
-  __syncthreads();
-}
-
-// Publishes the block's stores (and the end of its reads) before `value`.
-__device__ void block_signal(u64* flag, u64 value) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    store_release(flag, value);
-  }
-}
+struct Dests {  // out's owned block, then every peer's gather slot
+  float4* p[kMaxRanks];
+};
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
-__device__ __forceinline__ float4* slot(char* buf, int64_t slot_elems,
-                                        u64 step) {
-  return reinterpret_cast<float4*>(buf) + (step & 1) * (slot_elems / 4);
+__device__ __forceinline__ void release_add(u64* p, u64 v) {
+  asm volatile("red.release.sys.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ Flags* flags(char* buf, int64_t slot_elems) {
-  return reinterpret_cast<Flags*>(buf + 2 * slot_elems * 4) + blockIdx.x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    ring_kernel(const float* __restrict__ x, float* __restrict__ out,
-                char* mine, char* right, int n, int my, int64_t block_elems,
-                int64_t cols, u64 base, int rank, u64 timeout_ns) {
-  const u64 deadline = global_ns() + timeout_ns;
-  const int64_t bq = block_elems / 4;  // float4s per ring block
-  const int64_t lo = blockIdx.x * cols / 4;
-  const int64_t hi = min(lo + cols / 4, bq);
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* out4 = reinterpret_cast<float4*>(out);
-  Flags* mf = flags(mine, block_elems);
-  Flags* rf = flags(right, block_elems);
-  const int steps = 2 * (n - 1);
-
-  // step 0's payload: my own block, into the right neighbour's slot
-  block_wait(&rf->consumed, base > 0 ? base - 1 : 0, "right consumed", rank,
-             base, deadline);
-  {
-    float4* dst = slot(right, block_elems, base);
-    const float4* src = x4 + my * bq;
-    for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      dst[i] = src[i];
-    }
-  }
-  block_signal(&rf->ready[base & 1], base + 1);
-
-  for (int t = 0; t < steps; ++t) {
-    const u64 T = base + t;
-    const bool send = t + 1 < steps;
-    block_wait(&mf->ready[T & 1], T + 1, "own ready", rank, T, deadline);
-    if (send) {
-      block_wait(&rf->consumed, T, "right consumed", rank, T + 1, deadline);
-    }
-    const float4* recv = slot(mine, block_elems, T);
-    float4* dst = slot(right, block_elems, T + 1);
-    if (t < n - 1) {
-      // reduce-scatter: carry = received + local block (ring.py:133)
-      const float4* local = x4 + (((my - 1 - t) % n + n) % n) * bq;
-      float4* owned = t == n - 2 ? out4 + ((my + 1) % n) * bq : nullptr;
-      for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        const float4 c = add4(__ldcg(recv + i), local[i]);
-        if (owned) owned[i] = c;
-        dst[i] = c;  // every reduce-scatter step sends on
-      }
-    } else {
-      // all-gather: block (my - s) mod n arrives complete
-      float4* got = out4 + (((my - (t - (n - 1))) % n + n) % n) * bq;
-      for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        const float4 c = __ldcg(recv + i);
-        got[i] = c;
-        if (send) dst[i] = c;
+// After the block's stores: the last block of the grid adds 1 to `which`
+// (0 push, 1 reduce) of every peer's counters.
+__device__ void stretch_done(Counters* mine, const Peers& peers, int npeers,
+                             int which) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    const unsigned blocks = gridDim.x * gridDim.y;
+    if (atomicAdd(&mine->ticket, 1u) == blocks - 1) {
+      mine->ticket = 0;  // the next stretch launches after this one ends
+      __threadfence_system();
+      for (int p = 0; p < npeers; ++p) {
+        release_add(which ? &peers.p[p]->reduce : &peers.p[p]->push, 1);
       }
     }
-    block_signal(&mf->consumed, T + 1);
-    if (send) block_signal(&rf->ready[(T + 1) & 1], T + 2);
   }
 }
 
+// False in every thread of the block once the buffer's calls were
+// abandoned (peer_allreduce_abandon): the stretch then reads and stores
+// nothing and signals no peer. Else the grid's first block counts the
+// stretch in `ran` (phase 14 of chip_smoke.py reads the kernels a call
+// from it) and the stretch runs.
+__device__ __forceinline__ bool begin_stretch(Counters* mine) {
+  const bool first = threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  if (__syncthreads_or(
+          threadIdx.x == 0 &&
+          *reinterpret_cast<volatile u64*>(&mine->abandoned) != 0)) {
+    return false;
+  }
+  if (first) atomicAdd(&mine->ran, 1ull);
+  return true;
+}
+
+// push (signal 0) and gather (signal -1): row blockIdx.y of the table.
 __global__ void __launch_bounds__(kThreads)
-    swing_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 char* mine, SwingPeers peers, int steps, int64_t elems,
-                 int64_t cols, u64 base, int rank, u64 timeout_ns) {
-  const u64 deadline = global_ns() + timeout_ns;
-  const int64_t lo = blockIdx.x * cols / 4;
-  const int64_t hi = min(lo + cols / 4, elems / 4);
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* out4 = reinterpret_cast<float4*>(out);
-  Flags* mf = flags(mine, elems);
-
-  // step 0's payload: my input, into the first partner's slot
-  Flags* pf = flags(peers.buf[0], elems);
-  block_wait(&pf->consumed, base > 0 ? base - 1 : 0, "partner consumed",
-             rank, base, deadline);
-  {
-    float4* dst = slot(peers.buf[0], elems, base);
-    for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      dst[i] = x4[i];
-    }
+    peer_copy_kernel(const __grid_constant__ CopyTable table, Counters* mine,
+                     const __grid_constant__ Peers peers, int npeers,
+                     int signal) {
+  if (!begin_stretch(mine)) return;
+  const Copy c = table.c[blockIdx.y];
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < c.n4; i += kUnroll * stride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcg(c.src + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) c.dst[i + u * stride] = v[u];
   }
-  block_signal(&pf->ready[base & 1], base + 1);
+  for (; i < c.n4; i += stride) c.dst[i] = __ldcg(c.src + i);
+  if (signal >= 0) stretch_done(mine, peers, npeers, signal);
+}
 
-  for (int t = 0; t < steps; ++t) {
-    const u64 T = base + t;
-    const bool send = t + 1 < steps;
-    block_wait(&mf->ready[T & 1], T + 1, "own ready", rank, T, deadline);
-    char* next = send ? peers.buf[t + 1] : nullptr;
-    if (send) {
-      pf = flags(next, elems);
-      block_wait(&pf->consumed, T, "partner consumed", rank, T + 1,
-                 deadline);
+// The swing's balanced tree over sources [kLo, kLo + kCount).
+template <int kLo, int kCount>
+struct Tree {
+  static __device__ __forceinline__ float4 sum(const Sources& s,
+                                               long long i) {
+    return add4(Tree<kLo, kCount / 2>::sum(s, i),
+                Tree<kLo + kCount / 2, kCount / 2>::sum(s, i));
+  }
+};
+
+template <int kLo>
+struct Tree<kLo, 1> {
+  static __device__ __forceinline__ float4 sum(const Sources& s,
+                                               long long i) {
+    return __ldcg(s.p[kLo] + i);
+  }
+};
+
+// The owner's sums of kU elements (i, i + stride, ...): kLog 0 the ring's
+// chain over the n sources in order, every element's loads issued before
+// its add; kLog > 0 the swing's tree over n = 2^kLog sources in rank order.
+template <int kLog, int kU>
+__device__ __forceinline__ void owner_sums(const Sources& s, int n,
+                                           long long i, long long stride,
+                                           float4 (&acc)[kU]) {
+  if constexpr (kLog > 0) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      acc[u] = Tree<0, (1 << kLog)>::sum(s, i + u * stride);
     }
-    const float4* recv = slot(mine, elems, T);
-    const float4* cur = t == 0 ? x4 : out4;
-    float4* dst = send ? slot(next, elems, T + 1) : nullptr;
-    // out = out + partner's out (ring.py:223)
-    for (int64_t i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      const float4 c = add4(cur[i], __ldcg(recv + i));
-      out4[i] = c;
-      if (send) dst[i] = c;
+  } else {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) acc[u] = __ldcg(s.p[0] + i + u * stride);
+    for (int q = 1; q < n; ++q) {
+      float4 v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) v[u] = __ldcg(s.p[q] + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) acc[u] = add4(acc[u], v[u]);
     }
-    block_signal(&mf->consumed, T + 1);
-    if (send) block_signal(&pf->ready[(T + 1) & 1], T + 2);
   }
 }
 
-// Blocks and columns per block for `cols` columns (a multiple of 128):
-// at most one block per SM and kMaxBlocks, no empty block.
-int grid_for(int64_t cols, int64_t* per_block) {
+template <int kLog, int kU>
+__device__ __forceinline__ void reduce_store(const Sources& s,
+                                             const Dests& d, int n,
+                                             long long i, long long stride) {
+  float4 acc[kU];
+  owner_sums<kLog, kU>(s, n, i, stride, acc);
+  for (int q = 0; q < n; ++q) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) d.p[q][i + u * stride] = acc[u];
+  }
+}
+
+template <int kLog>
+__global__ void __launch_bounds__(kThreads)
+    peer_reduce_kernel(const __grid_constant__ Sources s,
+                       const __grid_constant__ Dests d, int n, long long n4,
+                       Counters* mine, const __grid_constant__ Peers peers) {
+  if (!begin_stretch(mine)) return;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < n4; i += kUnroll * stride) {
+    reduce_store<kLog, kUnroll>(s, d, n, i, stride);
+  }
+  for (; i < n4; i += stride) reduce_store<kLog, 1>(s, d, n, i, stride);
+  stretch_done(mine, peers, n - 1, 1);
+}
+
+int grid_x(long long n4, int rows) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int64_t lanes = cols / kLane;
-  int64_t blocks = sms < kMaxBlocks ? sms : kMaxBlocks;
-  if (blocks > lanes) blocks = lanes;
-  const int64_t per = (lanes + blocks - 1) / blocks;
-  *per_block = per * kLane;
-  return static_cast<int>((lanes + per - 1) / per);
+  const long long want = (n4 + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+  long long cap = static_cast<long long>(sms) * kBlocksPerSm / rows;
+  if (cap < 1) cap = 1;
+  const long long g = want < cap ? want : cap;
+  return static_cast<int>(g < 1 ? 1 : g);
+}
+
+typedef CUresult (*WaitValue64)(CUstream, CUdeviceptr, cuuint64_t,
+                                unsigned int);
+typedef CUresult (*DeviceGet)(CUdevice*, int);
+typedef CUresult (*DeviceGetAttribute)(int*, CUdevice_attribute, CUdevice);
+typedef CUresult (*GetErrorString)(CUresult, const char**);
+
+WaitValue64 g_wait = nullptr;
+GetErrorString g_error = nullptr;
+// For reading the counters while the call's stream is blocked: a stream
+// that never waits on the legacy stream, and pinned memory (a pageable
+// copy may serialise behind the blocked stream). Made at init.
+cudaStream_t g_side = nullptr;
+u64* g_host = nullptr;  // [0, 4) counters read, [4, 6) released values
+// Stream waits enqueued since load: phase 14 of chip_smoke.py reads the
+// waits a call from it.
+unsigned long long g_waits = 0;
+
+// Driver errors travel as negative codes; the runtime's are positive.
+constexpr int kNoDriverEntryPoint = -100000;
+constexpr int kNoStreamMemOps = -100001;
+
+void* entry_point(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+      name, &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t rc =
+      cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? fn
+                                                                   : nullptr;
+}
+
+int wait_counter(cudaStream_t stream, const u64* counter, u64 want) {
+  const CUresult rc =
+      g_wait(reinterpret_cast<CUstream>(stream),
+             reinterpret_cast<CUdeviceptr>(counter), want,
+             CU_STREAM_WAIT_VALUE_GEQ);
+  if (rc != CUDA_SUCCESS) return -static_cast<int>(rc);
+  ++g_waits;
+  return 0;
 }
 
 }  // namespace
 
 // ---- peer buffers (parallel/group.py) -----------------------------------
 
-// The flag records' bytes after a buffer's two slots.
-extern "C" int64_t ring_allreduce_flag_bytes() {
-  return static_cast<int64_t>(kMaxBlocks) * sizeof(Flags);
-}
-
 // cudaMalloc, never PyTorch's caching allocator: an IPC handle names the
-// base of an allocation. Zeroed (the flags start at 0) and synchronised
+// base of an allocation. Zeroed (the counters start at 0) and synchronised
 // before the handle leaves the process.
 extern "C" int peer_alloc(int64_t bytes, void** ptr) {
   cudaError_t rc = cudaMalloc(ptr, static_cast<size_t>(bytes));
@@ -317,46 +361,170 @@ extern "C" int peer_free(void* ptr) {
 
 // ---- the kernels (ops/kernels/ring.py) ----------------------------------
 
-// Returns the launch status (cudaSuccess == 0). The Python wrapper checks
-// dtype, shape, contiguity and divisibility (elems % (n * 128) == 0).
-// `mine` is this rank's buffer, `right` the right neighbour's, mapped;
-// each holds two slots of block_elems floats and the flag records.
-extern "C" int ring_allreduce_launch(const void* x, void* out, void* mine,
-                                     void* right, int n, int my,
-                                     int64_t block_elems, uint64_t base,
-                                     int rank, uint64_t timeout_ns,
-                                     void* stream) {
-  int64_t cols = 0;
-  const int blocks = grid_for(block_elems, &cols);
-  ring_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<char*>(mine), static_cast<char*>(right), n, my,
-      block_elems, cols, base, rank, timeout_ns);
-  return static_cast<int>(cudaGetLastError());
+// The counters' bytes at the end of a buffer.
+extern "C" int64_t peer_allreduce_counter_bytes() { return kCounterBytes; }
+
+extern "C" int peer_allreduce_max_ranks() { return kMaxRanks; }
+
+// Fetches the driver's stream-wait entry point and checks that the current
+// device takes 64-bit stream memory operations. 0, or a negative code.
+extern "C" int peer_allreduce_init() {
+  if (g_wait != nullptr) return 0;
+  auto error = reinterpret_cast<GetErrorString>(entry_point("cuGetErrorString"));
+  auto wait = reinterpret_cast<WaitValue64>(entry_point("cuStreamWaitValue64"));
+  auto get = reinterpret_cast<DeviceGet>(entry_point("cuDeviceGet"));
+  auto attr =
+      reinterpret_cast<DeviceGetAttribute>(entry_point("cuDeviceGetAttribute"));
+  if (!error || !wait || !get || !attr) return kNoDriverEntryPoint;
+  g_error = error;
+  int ordinal = 0;
+  cudaError_t rt = cudaGetDevice(&ordinal);
+  if (rt != cudaSuccess) return static_cast<int>(rt);
+  CUdevice dev;
+  CUresult rc = get(&dev, ordinal);
+  int can = 0;
+  if (rc == CUDA_SUCCESS) {
+    rc = attr(&can, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev);
+  }
+  if (rc != CUDA_SUCCESS) return -static_cast<int>(rc);
+  if (!can) return kNoStreamMemOps;
+  rt = cudaStreamCreateWithFlags(&g_side, cudaStreamNonBlocking);
+  if (rt == cudaSuccess) {
+    rt = cudaHostAlloc(reinterpret_cast<void**>(&g_host), 6 * sizeof(u64),
+                       cudaHostAllocDefault);
+  }
+  if (rt != cudaSuccess) return static_cast<int>(rt);
+  g_wait = wait;
+  return 0;
 }
 
-// `peers` holds `steps` = log2(n) mapped buffers, step t's partner first;
-// each buffer holds two slots of elems floats and the flag records.
-extern "C" int swing_allreduce_launch(const void* x, void* out, void* mine,
-                                      void* const* peers, int steps,
-                                      int64_t elems, uint64_t base, int rank,
-                                      uint64_t timeout_ns, void* stream) {
-  if (steps < 1 || steps > kMaxSwingSteps) {
+// `push`, `reduce`, `abandoned` and `ran` of the counters at `counters`
+// (this rank's), read on the side stream: the host's view of a stalled
+// call (ring.py wait) and of the stretches that ran.
+extern "C" int peer_allreduce_read_counters(const void* counters,
+                                            uint64_t* values) {
+  if (g_wait == nullptr) return kNoDriverEntryPoint;
+  cudaError_t rc = cudaMemcpyAsync(g_host, counters, 4 * sizeof(u64),
+                                   cudaMemcpyDeviceToHost, g_side);
+  if (rc == cudaSuccess) rc = cudaStreamSynchronize(g_side);
+  if (rc == cudaSuccess) memcpy(values, g_host, 4 * sizeof(u64));
+  return static_cast<int>(rc);
+}
+
+// Gives up the calls on the buffer whose counters are at `counters`
+// (this rank's), so that a stream blocked in one of its waits drains: on
+// the side stream, set `abandoned` (the stretches still queued then read,
+// store and signal nothing), then raise `push` and `reduce` to `want`,
+// which frees both waits. Called by ring.py's wait past its deadline; the
+// buffer takes no call after it.
+extern "C" int peer_allreduce_abandon(void* counters, uint64_t want) {
+  if (g_wait == nullptr) return kNoDriverEntryPoint;
+  Counters* c = static_cast<Counters*>(counters);
+  g_host[4] = g_host[5] = want;
+  cudaError_t rc = cudaMemsetAsync(&c->abandoned, 0xff, sizeof(u64), g_side);
+  if (rc == cudaSuccess) {
+    rc = cudaMemcpyAsync(&c->push, g_host + 4, 2 * sizeof(u64),
+                         cudaMemcpyHostToDevice, g_side);
+  }
+  if (rc == cudaSuccess) rc = cudaStreamSynchronize(g_side);
+  return static_cast<int>(rc);
+}
+
+extern "C" uint64_t peer_allreduce_stream_waits() { return g_waits; }
+
+// One call: push, wait, reduce, wait, gather on `stream`. Tables hold
+// device addresses that ring.py resolved from the layout:
+//   push, gather — npeers rows of (src, dst, float4s);
+//   sources      — the n reduce inputs in the schedule's add order;
+//   dests        — out's owned block, then the npeers peers' gather slots;
+//   counters     — this rank's, then the npeers peers' (the same offset);
+// n4 is the owned block's float4s; swing_log 0 selects the ring's chain,
+// k > 0 the swing's tree over 2^k = n sources. Returns 0 or an error code
+// (peer_allreduce_error_string). peer_allreduce_init must have returned 0.
+extern "C" int peer_allreduce_launch(const uint64_t* push,
+                                     const uint64_t* gather,
+                                     const uint64_t* sources,
+                                     const uint64_t* dests, int n,
+                                     int64_t n4, int swing_log,
+                                     const uint64_t* counters, uint64_t call,
+                                     void* stream) {
+  if (g_wait == nullptr) return kNoDriverEntryPoint;
+  if (n < 2 || n > kMaxRanks || (swing_log > 0 && n != (1 << swing_log))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SwingPeers p;
-  for (int t = 0; t < kMaxSwingSteps; ++t) {
-    p.buf[t] = t < steps ? static_cast<char*>(peers[t]) : nullptr;
+  const int npeers = n - 1;
+  CopyTable pt{}, gt{};
+  Peers peers{};
+  Sources src{};
+  Dests dst{};
+  long long push_max = 0, gather_max = 0;
+  for (int p = 0; p < npeers; ++p) {
+    pt.c[p] = {reinterpret_cast<const float4*>(push[3 * p]),
+               reinterpret_cast<float4*>(push[3 * p + 1]),
+               static_cast<long long>(push[3 * p + 2])};
+    gt.c[p] = {reinterpret_cast<const float4*>(gather[3 * p]),
+               reinterpret_cast<float4*>(gather[3 * p + 1]),
+               static_cast<long long>(gather[3 * p + 2])};
+    if (pt.c[p].n4 > push_max) push_max = pt.c[p].n4;
+    if (gt.c[p].n4 > gather_max) gather_max = gt.c[p].n4;
+    peers.p[p] = reinterpret_cast<Counters*>(counters[1 + p]);
   }
-  int64_t cols = 0;
-  const int blocks = grid_for(elems, &cols);
-  swing_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<char*>(mine), p, steps, elems, cols, base, rank,
-      timeout_ns);
+  for (int q = 0; q < n; ++q) {
+    src.p[q] = reinterpret_cast<const float4*>(sources[q]);
+    dst.p[q] = reinterpret_cast<float4*>(dests[q]);
+  }
+  Counters* mine = reinterpret_cast<Counters*>(counters[0]);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const u64 want = static_cast<u64>(npeers) * call;
+
+  peer_copy_kernel<<<dim3(grid_x(push_max, npeers), npeers), kThreads, 0,
+                     st>>>(pt, mine, peers, npeers, 0);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0) rc = wait_counter(st, &mine->push, want);
+  if (rc != 0) return rc;
+
+  const int gx = grid_x(n4, 1);
+  switch (swing_log) {
+#define RING_REDUCE_CASE(k)                                                 \
+  case k:                                                                  \
+    peer_reduce_kernel<k><<<gx, kThreads, 0, st>>>(src, dst, n, n4, mine,  \
+                                                   peers);                 \
+    break;
+    RING_REDUCE_CASE(0)
+    RING_REDUCE_CASE(1)
+    RING_REDUCE_CASE(2)
+    RING_REDUCE_CASE(3)
+    RING_REDUCE_CASE(4)
+    RING_REDUCE_CASE(5)
+#undef RING_REDUCE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0) rc = wait_counter(st, &mine->reduce, want);
+  if (rc != 0) return rc;
+
+  peer_copy_kernel<<<dim3(grid_x(gather_max, npeers), npeers), kThreads, 0,
+                     st>>>(gt, mine, peers, npeers, -1);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* ring_allreduce_error_string(int code) {
+extern "C" const char* peer_allreduce_error_string(int code) {
+  if (code == kNoDriverEntryPoint) {
+    return "the CUDA driver's stream memory operations "
+           "(cuStreamWaitValue64) could not be fetched";
+  }
+  if (code == kNoStreamMemOps) {
+    return "the device does not take 64-bit stream memory operations "
+           "(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS is 0)";
+  }
+  if (code < 0) {
+    const char* s = nullptr;
+    if (g_error != nullptr &&
+        g_error(static_cast<CUresult>(-code), &s) == CUDA_SUCCESS && s) {
+      return s;
+    }
+    return "CUDA driver error";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

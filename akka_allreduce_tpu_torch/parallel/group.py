@@ -36,9 +36,9 @@ Peer memory. :meth:`RankGroup.peer_buffers` gives kernels that move data
 themselves (``ops/kernels/ring.py``, the ring and swing allreduce) a
 symmetric buffer on every rank: each rank allocates its own with
 ``cudaMalloc``, the 64-byte CUDA IPC handles go round through
-:meth:`RankGroup.all_gather`, and each rank maps the buffers of the peers
-its schedule writes into. The buffers are cached per (rank, world, sp,
-axis, peers, bytes) outside the frozen :class:`RankGroup`, and
+:meth:`RankGroup.all_gather`, and each rank maps the buffers of its peers
+along the axis. The buffers are cached per (rank, world, sp, axis, bytes)
+outside the frozen :class:`RankGroup`, and
 :func:`free_peer_buffers` unmaps and frees them (``spawn_ranks`` does so
 before it destroys the process group). IPC works between processes on
 one card and between cards of one host.
@@ -208,18 +208,19 @@ class RankGroup:
 
     # -- peer memory -------------------------------------------------------
 
-    def peer_buffers(self, axis: str, peers: tuple, nbytes: int
-                     ) -> "PeerBuffers":
-        """This rank's symmetric peer buffers of ``nbytes``, with the
-        buffers of the global ranks ``peers`` (the ranks a kernel's
-        schedule along ``axis`` writes into) mapped into this process. A
-        collective: every rank of the world makes the same calls in the
-        same order. The first call for a key allocates and exchanges the
-        handles; later calls return the cached buffers."""
-        key = (self.rank, self.world, self.sp, axis, tuple(peers), nbytes)
+    def peer_buffers(self, axis: str, nbytes: int) -> "PeerBuffers":
+        """This rank's symmetric peer buffer of ``nbytes``, with the
+        buffers of its n - 1 peers along ``axis`` mapped into this
+        process. A collective: every rank of the world makes the same
+        calls in the same order. The first call for a key allocates and
+        exchanges the handles; later calls return the cached buffers."""
+        peers = tuple(self.axis_rank(axis, q)
+                      for q in range(self.axis_size(axis))
+                      if q != self.axis_index(axis))
+        key = (self.rank, self.world, self.sp, axis, nbytes)
         bufs = _PEER_BUFFERS.get(key)
         if bufs is None:
-            bufs = _open_peer_buffers(self, tuple(peers), nbytes)
+            bufs = _open_peer_buffers(self, peers, nbytes)
             _PEER_BUFFERS[key] = bufs
         return bufs
 
@@ -233,14 +234,18 @@ class PeerBuffers:
     ``cudaMalloc``; an IPC handle names an allocation's base, so PyTorch's
     caching allocator, which hands out pieces of shared segments, cannot
     be used), ``peers`` maps each peer's global rank to this process's
-    mapping of that peer's buffer. ``steps_done`` counts the exchange
-    steps run on the buffers so far: the kernels number their flags from
-    it, and every rank advances it alike."""
+    mapping of that peer's buffer. ``calls`` counts the kernel calls made
+    on the buffers so far (every rank advances it alike: the kernels'
+    counters reach ``len(peers) * calls``), and ``done`` is the CUDA
+    event recorded after the last one, which the next call waits on.
+    ``abandoned`` is set once ``ring.wait`` gave up a call on them."""
 
     local: int
     peers: dict
     nbytes: int
-    steps_done: int = 0
+    calls: int = 0
+    done: Optional[torch.cuda.Event] = None
+    abandoned: bool = False
 
     def view(self, rank: Optional[int] = None) -> torch.Tensor:
         """The buffer of ``rank`` (this rank's own when None) as a uint8
@@ -258,7 +263,7 @@ class _DeviceMemory:
             "version": 2}
 
 
-# (rank, world, sp, axis, peers, nbytes) -> PeerBuffers, for this process
+# (rank, world, sp, axis, nbytes) -> PeerBuffers, for this process
 _PEER_BUFFERS: dict = {}
 _IPC: dict = {}
 
@@ -278,7 +283,7 @@ def _ipc():
             fn.argtypes = args
             fn.restype = ctypes.c_int
             _IPC[name] = fn
-        err = lib.ring_allreduce_error_string
+        err = lib.peer_allreduce_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _IPC["error"] = err
@@ -316,6 +321,12 @@ def _open_peer_buffers(group: RankGroup, peers: tuple, nbytes: int
             _ipc_call("peer_open_handle", raw, ctypes.byref(ptr))
             mapped[peer] = ptr.value
     return PeerBuffers(local.value, mapped, nbytes)
+
+
+def peer_buffer_list(group: RankGroup) -> list:
+    """This process's peer buffers of ``group``, in the order made."""
+    return [b for k, b in _PEER_BUFFERS.items()
+            if k[:3] == (group.rank, group.world, group.sp)]
 
 
 def free_peer_buffers(group: RankGroup) -> None:

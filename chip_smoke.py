@@ -149,24 +149,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 14. allreduce — the peer-memory ring and swing allreduce (kernel B8)
    across rank processes on the one card: gloo carries only the IPC
    handle exchange, the barriers and the plain versions' wire; the
-   kernels' payloads go through peer memory on the device. A probe first
-   (each rank writes its buffer, reads its peer's through the IPC
-   mapping). At two ranks on the flagship's gradient as the sync sees it
-   (8,257 x 65,536 f32 bucket matrix, flattened: 541,130,752 elements,
-   2.16 GB per rank) and at four ranks on 64M elements, each rank's input
-   from a generator seeded by its rank: a loop of 4 calls of each
-   schedule, each call's input ``carry + sum / n``; every call's sum
-   bitwise its plain version's, bitwise equal on every rank (a checksum
-   through the group), finite, and a sample of 65,536 columns within
-   rtol = atol = 1e-5 of the f64 sum of every rank's input; each rank
-   launched each kernel 4 times. Then, median of 5 calls on rank 0 with
-   CUDA events between group barriers: the kernel (time-slicing between
-   the ranks' contexts included), the plain version (host wire), and
+   kernels' payloads go through peer memory on the device (three
+   kernels a call, push / reduce / gather, with two stream waits on
+   counters between them). A probe first (each rank writes its buffer,
+   reads every peer's through the IPC mapping). At two ranks on the
+   flagship's gradient as the sync sees it (8,257 x 65,536 f32 bucket
+   matrix, flattened: 541,130,752 elements, 2.16 GB per rank) and at
+   four ranks on 64M elements, each rank's input from a generator
+   seeded by its rank: a loop of 4 calls of each schedule, each call's
+   input ``carry + sum / n``, each ended through ``ring.wait`` (a stall
+   raises, never hangs); every call's sum bitwise its plain version's,
+   bitwise equal on every rank (a checksum through the group), finite,
+   and a sample of 65,536 columns within rtol = atol = 1e-5 of the f64
+   sum of every rank's input; each rank launched each kernel 4 times.
+   Then, median of 5 calls on every rank with CUDA events between group
+   barriers (the slowest rank's median is the collective's time): the
+   kernels, the plain version (host wire), and
    ``torch.distributed.all_reduce`` on the gloo group (NCCL refuses two
-   ranks on one device); the byte bounds computed; and the kernels on a
-   256 KB vector, whose time is the handshakes' (the card time-slices
-   between the ranks' contexts, so a rank spinning on a flag waits for
-   its peer's slice).
+   ranks on one device); the same kernels on a 256 KB vector, whose
+   time is the waits'; the byte bounds computed (the function's, the
+   schedule's, and the parent's per-step schedules'); and a
+   torch.profiler window over 3 calls on each rank splitting a call's
+   span into its kernels' device time and the rest (context switches
+   and waits no kernel overlapped), with the kernels that ran on the
+   card a call (counted on the device: 3) and the stream waits enqueued
+   a call (2).
 
 15. train at the CLI's defaults — what ``python -m
    akka_allreduce_tpu_torch.cli train`` runs (``run_train`` on the
@@ -377,6 +384,8 @@ ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
 ALLREDUCE_REPLACES = {
     "ring_allreduce": "akka_allreduce_tpu/ops/pallas_kernels/ring.py:51",
     "swing_allreduce": "akka_allreduce_tpu/ops/pallas_kernels/ring.py:159"}
+# the device kernels of one call (push and gather share the copy kernel)
+ALLREDUCE_KERNELS = ("peer_copy_kernel", "peer_reduce_kernel")
 FLASH_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:113",
@@ -1786,15 +1795,21 @@ def allreduce_bounds(n: int, elems: int) -> dict:
     """Per kernel, ms at the card's memory rate with all n ranks on one
     card: ``function`` — every rank reads its input once and writes its
     output once (the bytes the allreduce itself must move when the ranks
-    can reach each other's memory); ``schedule`` — that plus each payload
-    byte of the kernel's schedule stored into a peer's slot once and read
-    back once (ring 2(n-1)/n of the vector per rank, swing log2(n))."""
-    p = 4 * elems
-    moved = {"ring_allreduce": 2 * (n - 1) / n * p,
-             "swing_allreduce": (n.bit_length() - 1) * p}
-    return {k: {"function": n * 2 * p / PEAK_BYTES_PER_S * 1e3,
-                "schedule": n * (2 * p + 2 * m) / PEAK_BYTES_PER_S * 1e3}
-            for k, m in moved.items()}
+    can reach each other's memory); ``schedule`` — the bytes of the
+    kernels' push / reduce / gather (``ring.rank_bytes`` summed over the
+    ranks: 2N + 4(n-1)/n N a rank, both add orders); ``parent`` — the
+    bytes the per-step TPU schedules moved when the card ran them (the
+    parent's kernels in the turns): the ring's the same, the swing's (1
+    + 4 log2 n) N a rank (x read twice, each step's sum stored locally
+    and into the partner's slot and read back)."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    p, rate = 4 * elems, PEAK_BYTES_PER_S / 1e3
+    schedule = sum(ring.rank_bytes(n, elems, r) for r in range(n)) / rate
+    parent = {"ring_allreduce": schedule,
+              "swing_allreduce": n * (1 + 4 * (n.bit_length() - 1)) * p
+              / rate}
+    return {k: {"function": n * 2 * p / rate, "schedule": schedule,
+                "parent": parent[k]} for k in ALLREDUCE_REPLACES}
 
 
 def int_checksum(torch, x) -> list:
@@ -1810,27 +1825,73 @@ def int_checksum(torch, x) -> list:
 
 
 def ipc_probe(group) -> dict:
-    """Each rank fills its peer buffer with 1000 + rank and reads its
+    """Each rank fills its peer buffer with 1000 + rank and reads every
     peer's through the IPC mapping."""
     import torch
-    peer = group.axis_rank("dp", (group.axis_index("dp") + 1)
-                           % group.axis_size("dp"))
-    bufs = group.peer_buffers("dp", (peer,), 4096)
+    bufs = group.peer_buffers("dp", 4096)
     bufs.view().view(torch.int32).fill_(1000 + group.rank)
     torch.cuda.synchronize()
     group.barrier()
-    seen = bufs.view(peer).view(torch.int32).unique().tolist()
+    seen = {peer: bufs.view(peer).view(torch.int32).unique().tolist()
+            for peer in bufs.peers}
     group.barrier()
     return {"route": "cudaIpcGetMemHandle / cudaIpcOpenMemHandle",
-            "peer": peer, "seen": seen, "ok": seen == [1000 + peer]}
+            "peers": sorted(bufs.peers), "seen": list(seen.values()),
+            "ok": all(v == [1000 + p] for p, v in seen.items())}
+
+
+def allreduce_split(torch, group, call, calls: int = 3) -> dict:
+    """A torch.profiler window over ``calls`` back-to-back calls on this
+    rank (every rank runs one, after a discarded window of one call: a
+    process's first window ran ~3x slower): per call, the span between
+    CUDA events, the device time of its kernels (``device_kernel_rows``)
+    and the span less that time; the kernels that ran on the card a
+    call (``ring.kernels_run``, counted on the device), the stream waits
+    the calls enqueued (``ring.stream_waits``) and the schedule's
+    kernels the profiler recorded a call (below 3 when its window lost
+    records, and then ``kernel_ms`` is short too). The ranks'
+    contexts time-slice the card, so a kernel's device time also holds
+    the slices its peers took while it was resident: the span less the
+    kernels is what the card spent in none of this rank's kernels
+    (switches, and waits that no kernel overlapped), not the waits."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's first start-up
+        call()
+        ring.wait(group)
+    group.barrier()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    waits, ran = ring.stream_waits(), ring.kernels_run(group)
+    with profile(activities=activities) as prof:
+        start.record()
+        for _ in range(calls):
+            call()
+        end.record()
+        ring.wait(group)
+        end.synchronize()
+    waits, ran = ring.stream_waits() - waits, ring.kernels_run(group) - ran
+    averages = prof.key_averages()
+    rows = device_kernel_rows(torch, averages, calls)
+    profiled = sum(e.count for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and any(k in e.key for k in ALLREDUCE_KERNELS))
+    span = start.elapsed_time(end) / calls
+    kernel = sum(ms for _, ms in rows)
+    return {"span_ms": span, "kernel_ms": kernel,
+            "span_minus_kernels_ms": span - kernel, "kernels": rows,
+            "kernels_per_call": ran / calls, "waits_per_call": waits / calls,
+            "profiled_kernels_per_call": profiled / calls}
 
 
 def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
     """One rank of phase 14: the IPC probe; per schedule the loop of
-    ``loop`` kernel calls (launches counted from 0), each call checked
-    against its plain version, the other ranks and the f64 sum of a
-    sample of columns; then the timings (every rank calls, rank 0's
-    events are reported), and gloo ``all_reduce`` timed once."""
+    ``loop`` kernel calls (launches counted from 0), each call ended
+    through ``ring.wait`` and checked against its plain version, the
+    other ranks and the f64 sum of a sample of columns; then the timings
+    (every rank calls and reports its own events), the profiler split
+    of a call, and gloo ``all_reduce`` timed once."""
     import torch
     import torch.distributed as dist
 
@@ -1844,7 +1905,7 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
     cols = torch.arange(ALLREDUCE_SAMPLE, device=dev) * (elems - 1) // (
         ALLREDUCE_SAMPLE - 1)
 
-    def timed(call, before=None) -> list:
+    def timed(call, before=None, sync=None) -> list:
         times = []
         for _ in range(reps):
             if before is not None:
@@ -1855,9 +1916,14 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
             start.record()
             call()
             end.record()
+            if sync is not None:
+                sync()
             end.synchronize()
             times.append(start.elapsed_time(end))
         return times
+
+    def wait():
+        ring.wait(group)
 
     for name, kernel, plain in (
             ("ring_allreduce", ring.peer_ring_allreduce,
@@ -1869,7 +1935,7 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
         for _ in range(loop):
             group.barrier()
             got = kernel(carry, group)
-            torch.cuda.synchronize()
+            ring.wait(group)
             want = plain(carry, group)
             sample = group.all_gather(carry[cols][None]).double().sum(0)
             sums = group.all_gather(torch.tensor(
@@ -1890,11 +1956,15 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
         del carry
         small = x[:ALLREDUCE_SMALL].clone()
         kernel(small, group)  # maps its own peer buffers
+        ring.wait(group)
         out[name] = {
             "steps": steps, "launches": launches,
-            "ms": timed(lambda: kernel(x, group)),
+            "ms": timed(lambda: kernel(x, group), sync=wait),
             "plain_ms": timed(lambda: plain(x, group)),
-            "small_ms": timed(lambda: kernel(small, group))}
+            "small_ms": timed(lambda: kernel(small, group), sync=wait),
+            "split": allreduce_split(torch, group, lambda: kernel(x, group)),
+            "small_split": allreduce_split(torch, group,
+                                           lambda: kernel(small, group))}
         torch.cuda.empty_cache()
     y = x.clone()
     dist.all_reduce(y)  # the gloo algorithm's warm-up
@@ -1905,8 +1975,9 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
 
 def phase_allreduce(torch) -> dict:
     """Phase 14 at each (ranks, elements) of ALLREDUCE_RUNS; returns the
-    kernels' rows for the kernels line (times at two ranks, launches
-    summed over both runs and their ranks)."""
+    kernels' rows for the kernels line (times at two ranks, the slowest
+    rank's median; launches summed over both runs and their ranks)."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
     from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     rows, failures = {}, []
     for n, elems in ALLREDUCE_RUNS:
@@ -1927,23 +1998,35 @@ def phase_allreduce(torch) -> dict:
                 and s["sample_ok"] for r in per_rank for s in r["steps"])
             launches = [r["launches"] for r in per_rank]
             ok = steps_ok and launches == [ALLREDUCE_LOOP] * n
+            medians = [statistics.median(r["ms"]) for r in per_rank]
+            per_call = {k: sorted({r[s][k] for r in per_rank
+                                   for s in ("split", "small_split")})
+                        for k in ("kernels_per_call", "waits_per_call")}
+            ok = ok and per_call == {
+                "kernels_per_call": [ring.KERNELS_PER_CALL],
+                "waits_per_call": [ring.WAITS_PER_CALL]}
+            small = [statistics.median(r["small_ms"]) for r in per_rank]
             row = {
                 "ranks": n, "elems": elems, "ok": ok,
                 "launches_per_rank": launches,
                 "expected_launches_per_rank": ALLREDUCE_LOOP,
+                "kernels_per_call": per_call["kernels_per_call"][0],
+                "waits_per_call": per_call["waits_per_call"][0],
+                "per_call_all_ranks": per_call,
                 "steps_rank0": per_rank[0]["steps"],
                 "max_abs_err": max(s["max_abs_err"] for r in per_rank
                                    for s in r["steps"]),
                 "sample_max_abs_err": max(
                     s["sample_max_abs_err"] for r in per_rank
                     for s in r["steps"]),
-                "ms": statistics.median(per_rank[0]["ms"]),
-                "ms_all": per_rank[0]["ms"],
-                "ms_median_per_rank": [statistics.median(r["ms"])
-                                       for r in per_rank],
+                "ms": max(medians), "ms_rank0": medians[0],
+                "ms_median_per_rank": medians,
+                "ms_all_rank0": per_rank[0]["ms"],
                 "small_elems": ALLREDUCE_SMALL,
-                "small_ms": statistics.median(per_rank[0]["small_ms"]),
-                "small_ms_all": per_rank[0]["small_ms"],
+                "small_ms": max(small), "small_ms_median_per_rank": small,
+                "small_ms_all_rank0": per_rank[0]["small_ms"],
+                "split_rank0": per_rank[0]["split"],
+                "small_split_rank0": per_rank[0]["small_split"],
                 "plain_ms": statistics.median(per_rank[0]["plain_ms"]),
                 "plain_ms_all": per_rank[0]["plain_ms"],
                 "library_ms": library,
@@ -1951,7 +2034,8 @@ def phase_allreduce(torch) -> dict:
                                 "group (NCCL refuses two ranks on one "
                                 "device)",
                 "bound_ms": bounds[name]["function"], "bound_by": "bytes",
-                "schedule_bound_ms": bounds[name]["schedule"]}
+                "schedule_bound_ms": bounds[name]["schedule"],
+                "parent_schedule_bound_ms": bounds[name]["parent"]}
             emit("allreduce", kernel=name, **row)
             if not ok:
                 failures.append((name, n))
@@ -2238,6 +2322,7 @@ def main() -> int:
         kernels.append({
             "name": kernel, "route": "cuda", "source": ALLREDUCE_SOURCE,
             "replaces": replaces, "launches": arow["launches"],
+            "kernels_per_call": arow["kernels_per_call"],
             "max_abs_err": arow["max_abs_err"], "ms": arow["ms"],
             "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
             "bound_by": arow["bound_by"], "library_ms": arow["library_ms"]})

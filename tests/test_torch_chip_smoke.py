@@ -414,20 +414,25 @@ def test_sync_kernel_bounds_count_bytes(kernel, per_elem):
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_allreduce_bounds_count_bytes(n):
     """Phase 14's bounds with all n ranks on one card: the function's
-    own bytes (each rank's input read and output written once) and the
-    schedule's (plus each payload byte stored into a peer slot and read
-    back: the ring 2(n-1)/n of the vector per rank, the swing log2 n)."""
+    own bytes (each rank's input read and output written once), the
+    kernels' push / reduce / gather schedule (2N + 4(n-1)/n N a rank,
+    both add orders: 4N at two ranks, 5N at four) and the parent's
+    per-step schedules (the ring the same, the swing (1 + 4 log2 n) N a
+    rank: 5N at two ranks, 9N at four)."""
     elems = 1 << 20
     p, rate = 4 * elems, chip_smoke.PEAK_BYTES_PER_S / 1e3
     bounds = chip_smoke.allreduce_bounds(n, elems)
     assert set(bounds) == set(chip_smoke.ALLREDUCE_REPLACES)
-    for name, moved in (("ring_allreduce", 2 * (n - 1) / n * p),
-                        ("swing_allreduce", (n.bit_length() - 1) * p)):
+    schedule = n * (2 * p + 4 * (n - 1) / n * p) / rate
+    swing_parent = n * (1 + 4 * (n.bit_length() - 1)) * p / rate
+    for name, parent in (("ring_allreduce", schedule),
+                         ("swing_allreduce", swing_parent)):
         assert bounds[name]["function"] == pytest.approx(2 * n * p / rate)
-        assert bounds[name]["schedule"] == pytest.approx(
-            n * (2 * p + 2 * moved) / rate)
-    if n == 2:  # the two schedules move the same bytes
-        assert bounds["ring_allreduce"] == bounds["swing_allreduce"]
+        assert bounds[name]["schedule"] == pytest.approx(schedule)
+        assert bounds[name]["parent"] == pytest.approx(parent)
+    if n == 2:  # 5N against the kernels' 4N
+        assert bounds["swing_allreduce"]["parent"] == pytest.approx(
+            1.25 * schedule)
 
 
 def test_allreduce_runs_divide_into_lanes():

@@ -18,8 +18,10 @@ key reaches bitwise unchanged;
 the gradient sync's masked reduce and int8 quantizers: bitwise (both sum
 the peers in order, and the quantizers' arithmetic is IEEE's, Philox
 drawn alike); the
-peer-memory ring and swing allreduce: bitwise, on two rank processes that
-share the card through CUDA IPC (the same adds in the same order);
+peer-memory ring and swing allreduce: bitwise, on two, three and four
+rank processes that share the card through CUDA IPC (the same adds in the
+same order), ragged swing blocks too, and a stalled call raises in
+``ring.wait`` within its timeout and drains its stream;
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
@@ -864,6 +866,65 @@ def test_peer_allreduce_matches_plain_bitwise(cuda_device, schedule, elems):
         assert r["bitwise"] == [True] * 8
         assert r["launches"][f"{schedule}_allreduce"] == 8
     assert ranks[0]["checksum"] == ranks[1]["checksum"]
+
+
+# (schedule, ranks, elems): three and four ranks, then swing vectors
+# whose last blocks are ragged or empty (3 lanes at two ranks; 5 and 2
+# lanes at four)
+MORE_RANKS = [("ring", 3, 3 * 384), ("ring", 3, 3 * 128 * 2731),
+              ("ring", 4, 4 * 256), ("ring", 4, 2 ** 20),
+              ("swing", 4, 768), ("swing", 4, 2 ** 20 + 256),
+              ("swing", 2, 3 * 128), ("swing", 4, 5 * 128),
+              ("swing", 4, 2 * 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,ranks,elems", MORE_RANKS,
+                         ids=[f"{s}-n{n}-{e}" for s, n, e in MORE_RANKS])
+def test_peer_allreduce_matches_plain_bitwise_at_more_ranks(
+        cuda_device, schedule, ranks, elems):
+    """As above at three and four rank processes and on ragged swing
+    blocks: a loop of 4 calls, each bitwise its plain version's and the
+    same on every rank, one launch a call."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_ring_ranks import kernel_vs_plain
+    got = spawn_ranks(kernel_vs_plain, ranks, "gloo", "cuda", schedule,
+                      elems, 4, timeout=300)
+    for r in got:
+        assert r["bitwise"] == [True] * 4
+        assert r["launches"][f"{schedule}_allreduce"] == 4
+    assert len({r["checksum"] for r in got}) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peer", ["stops", "late"])
+def test_peer_allreduce_stall_raises_within_timeout(cuda_device, peer):
+    """Rank 1 skips call 2: rank 0's ``ring.wait(timeout=2)`` raises
+    ``RuntimeError`` naming the push counter it waits on, within about
+    its timeout, and abandons the call, so its stream drains (a device
+    synchronise returns at once) and a further call on the buffer
+    raises. Then rank 1 either stops (returns and its process ends
+    without the call) or makes the call late, and its own wait raises on
+    the reduce counter rank 0 never raised. No rank hangs: spawn_ranks
+    returns both results within its timeout."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_ring_ranks import stalled_call
+    got = spawn_ranks(stalled_call, 2, "gloo", "cuda", 2 ** 16, 2.0, peer,
+                      timeout=120)
+    err = got[0]["error"]
+    assert err is not None and "rank 0's call 2" in err
+    assert "push 1" in err and ">= 2" in err and "abandoned" in err
+    raised = [got[0]] + ([got[1]] if peer == "late" else [])
+    for r in raised:
+        assert 2.0 <= r["seconds"] < 10.0
+        assert r["sync_seconds"] < 5.0
+        assert "abandoned" in r["next_call_error"]
+    if peer == "late":
+        err = got[1]["error"]
+        assert err is not None and "rank 1's call 2" in err
+        assert "push 2" in err and "reduce 1" in err
+    else:
+        assert got[1]["error"] is None
 
 
 @pytest.mark.cuda

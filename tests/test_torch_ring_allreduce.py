@@ -13,6 +13,15 @@ loop); the plain ring against the numpy simulation of the ring schedule
 schedules along each axis of a (dp 2, sp 2) mesh, the identity on one
 rank, the JAX functions' ``ValueError``s, the mesh coordinates the
 schedules address, and that CPU tensors launch nothing.
+
+The kernels' own schedule (push / reduce / gather through per-rank
+buffers, every block summed by its owner in the schedule's add order) is
+pinned through its plain-torch emulation, ``ring.schedule_emulation``:
+bitwise the JAX kernels in interpret mode for the ring at n = 2, 3, 4 and
+the swing at n = 2, 4, 8 (ragged and empty blocks too), on one call and on
+the 4-call loop, with inputs whose exponents spread so far that a wrong
+add order changes the bits (asserted); and, as pure Python, the buffer
+layout, the bytes a rank moves and the waits a call.
 """
 
 from functools import partial
@@ -203,4 +212,141 @@ def test_schedules_along_one_axis_of_a_mesh(mesh_runs, schedule, axis):
 def test_peer_buffers_need_a_cuda_group():
     group = RankGroup(0, 2, "gloo", torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        group.peer_buffers("dp", (1,), 4096)
+        group.peer_buffers("dp", 4096)
+
+
+def test_a_group_without_kernel_calls_counts_and_waits_nothing():
+    """With no kernel call made (the CPU path), the device count of
+    kernels that ran and the count of stream waits are 0, and ``wait``
+    returns at once: there is no buffer to wait on."""
+    group = RankGroup(0, 2, "gloo", torch.device("cpu"))
+    assert ring.kernels_run(group) == 0
+    assert ring.stream_waits() == 0
+    ring.wait(group, timeout=0.0)
+
+
+# -- the kernels' schedule, emulated in plain torch ---------------------------
+
+# (schedule, n, elems): even blocks, then ragged and empty swing blocks
+# (640 = 5 lanes: at n = 4 blocks of 2, 2, 1, 0 lanes; at n = 8 five of one)
+EMULATED = [("ring", 2, 2 * 384), ("ring", 3, 3 * 384), ("ring", 4, 4 * 384),
+            ("swing", 2, 2 * 384), ("swing", 4, 4 * 384),
+            ("swing", 8, 8 * 384), ("swing", 4, 640), ("swing", 8, 640)]
+EMULATED_IDS = [f"{s}-n{n}-{e}" for s, n, e in EMULATED]
+
+
+def wide_inputs(n: int, elems: int, seed: int) -> np.ndarray:
+    """(n, elems) f32 whose exponents spread over 2^-20 .. 2^20, so the
+    add order decides most elements' low bits."""
+    rng = np.random.default_rng(seed)
+    scale = np.exp2(rng.integers(-20, 21, size=(n, elems)))
+    return (rng.normal(size=(n, elems)) * scale).astype(np.float32)
+
+
+def emulate(schedule: str, x: np.ndarray) -> np.ndarray:
+    outs = ring.schedule_emulation([torch.from_numpy(r.copy()) for r in x],
+                                   schedule)
+    return np.stack([o.numpy() for o in outs])
+
+
+@pytest.mark.parametrize("schedule,n,elems", EMULATED, ids=EMULATED_IDS)
+def test_schedule_emulation_matches_jax_interpret_bitwise(schedule, n,
+                                                          elems):
+    x = wide_inputs(n, elems, 10 * n + len(schedule))
+    want = jax_loop(schedule, x, 1)[:, 0]
+    np.testing.assert_array_equal(emulate(schedule, x), want)
+
+
+@pytest.mark.parametrize("schedule", ["ring", "swing"])
+def test_schedule_emulation_loop_matches_jax_bitwise(schedule):
+    """The file's 4-call loop at n = 4: next input ``carry + sum / n``."""
+    n = 4
+    x = wide_inputs(n, n * 384, 7)
+    want = jax_loop(schedule, x, LOOP)
+    carry = x
+    for step in range(LOOP):
+        total = emulate(schedule, carry)
+        np.testing.assert_array_equal(total, want[:, step],
+                                      err_msg=f"step {step}")
+        carry = carry + total / np.float32(n)
+
+
+def reversed_chain(parts: list) -> torch.Tensor:
+    acc = parts[-1]
+    for p in parts[-2::-1]:
+        acc = acc + p
+    return acc
+
+
+def left_tree(parts: list) -> torch.Tensor:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+@pytest.mark.parametrize("schedule,n,elems",
+                         [c for c in EMULATED if c[1] > 2],
+                         ids=[i for c, i in zip(EMULATED, EMULATED_IDS)
+                              if c[1] > 2])
+def test_inputs_tell_the_add_orders_apart(schedule, n, elems):
+    """On these inputs another add order gives other bits: the ring's
+    chain reversed, the swing's tree leaning left ((x0 + x1) + x2) + x3.
+    So the bitwise tests above would catch a wrong order."""
+    x = torch.from_numpy(wide_inputs(n, elems, 10 * n + len(schedule)))
+    for b in range(n):
+        lo, hi = ring.block_range(b, elems, n)
+        if lo == hi:
+            continue
+        parts = [x[q, lo:hi] for q in ring.add_order(b, n, schedule)]
+        right = ring.owner_sum(parts, schedule)
+        wrong = (reversed_chain if schedule == "ring" else left_tree)(parts)
+        assert not torch.equal(right, wrong), f"block {b}"
+
+
+@pytest.mark.parametrize("n,elems,want", [
+    (2, 768, [(0, 384), (384, 768)]),
+    (4, 2048, [(0, 512), (512, 1024), (1024, 1536), (1536, 2048)]),
+    (4, 640, [(0, 256), (256, 512), (512, 640), (640, 640)]),
+    (8, 256, [(0, 128), (128, 256)] + [(256, 256)] * 6)])
+def test_buffer_layout(n, elems, want):
+    """Blocks of whole lanes (the ring's numel / n; the last ragged or
+    empty), rank r owning block r + 1, and each buffer's 2(n - 1) slots:
+    inbound first, gather after, each sender's slot its distance less
+    one, then the 128 bytes of counters."""
+    s = ring.block_elems(elems, n)
+    assert [ring.block_range(b, elems, n) for b in range(n)] == want
+    assert [ring.owned_block(r, n) for r in range(n)] == [
+        (r + 1) % n for r in range(n)]
+    assert ring.buffer_bytes(n, elems) == 8 * (n - 1) * s + 128
+    for dst in range(n):
+        srcs = [q for q in range(n) if q != dst]
+        assert sorted(ring.inbound_offset(q, dst, n, elems)
+                      for q in srcs) == [i * s for i in range(n - 1)]
+        assert sorted(ring.gather_offset(q, dst, n, elems)
+                      for q in srcs) == [(n - 1 + i) * s
+                                         for i in range(n - 1)]
+        assert ring.inbound_offset((dst + 1) % n, dst, n, elems) == 0
+    with pytest.raises(ValueError, match="own buffer"):
+        ring.slot(1, 1, n)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_rank_bytes_count_the_schedule(n):
+    """2N + 4(n - 1)/n N a rank on even blocks (4N at two ranks, 5N at
+    four): push and gather read and store (n - 1)/n N each, reduce reads
+    N and stores N. Two waits and three kernels a call."""
+    elems = n * 128 * 6
+    p = 4 * elems
+    for r in range(n):
+        assert ring.rank_bytes(n, elems, r) == 2 * p + 4 * (n - 1) * p // n
+    assert (ring.WAITS_PER_CALL, ring.KERNELS_PER_CALL) == (2, 3)
+
+
+def test_rank_bytes_on_ragged_blocks():
+    """640 elements at n = 4: blocks of 256, 256, 128, 0, owned by ranks
+    3, 0, 1, 2; a rank moves its peers' blocks twice and its own 2n
+    times."""
+    got = [ring.rank_bytes(4, 640, r) for r in range(4)]
+    own = [256, 128, 0, 256]
+    assert got == [4 * (4 * (640 - o) + 8 * o) for o in own]
