@@ -23,17 +23,23 @@ batch, whose gradients meet in the bucketed allreduce (``--grad-quant``,
 ``ops/kernels/csrc/masked_reduce.cu`` and ``quantize.cu``). With ``--sp
 S`` each row's sequence is split over S ranks more (dp x S processes in
 all) whose attention runs around a ring of K/V blocks on the ring-flash
-kernels (``ops/kernels/csrc/ring_flash.cu``)::
+kernels (``ops/kernels/csrc/ring_flash.cu``). With ``--deadline-ms`` a
+data rank that misses a round's deadline is masked out of that round's
+sync (``runtime/straggler.py``); ``--straggle-prob`` simulates late
+ranks from each step's seeded generator, and ``--max-lag`` bounds the
+rounds in flight::
 
     python -m akka_allreduce_tpu_torch.cli train --d-model 2048 \\
         --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
         --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1 \\
-        [--dp 2 --dist-backend gloo --grad-quant ef8] [--sp 2]
+        [--dp 2 --dist-backend gloo --grad-quant ef8] [--sp 2] \\
+        [--deadline-ms 50 --straggle-prob 0.35 --max-lag 1]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
 import time
@@ -180,7 +186,7 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "reduce-scatter); swing (log2(N) exchanges of the "
                         "running sum with the rank at XOR distance 2^t; "
                         "power-of-two --dp). hierarchical and auto are "
-                        "not ported yet (ROADMAP.md A3b)")
+                        "not ported yet (ROADMAP.md A2)")
     p.add_argument("--grad-windows", type=int, default=4, metavar="W",
                    help="window count for --grad-schedule windowed")
     p.add_argument("--bf16", action="store_true",
@@ -200,6 +206,19 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "checkpoint if one exists")
     p.add_argument("--ckpt-every", type=int, default=10,
                    help="save interval in steps")
+    # -- straggler deadlines
+    p.add_argument("--deadline-ms", type=float, default=0,
+                   help="per-round straggler deadline: data ranks whose "
+                        "contribution misses it are masked that round and "
+                        "the mean is count-rescaled (dynamic lossy sync)")
+    p.add_argument("--straggle-prob", type=float, default=0.0,
+                   help="simulated probability per data rank per round of "
+                        "missing the deadline (demo/testing; real "
+                        "deployments report arrivals over DCN)")
+    p.add_argument("--max-lag", type=int, default=1,
+                   help="extra rounds allowed in flight beyond the one "
+                        "being applied (0 = lockstep; the reference's "
+                        "maxLag)")
     p.add_argument("--data-file", default=None,
                    help="train on a corpus: raw bytes (vocab 256) or "
                         "*.bin little-endian uint16 tokens (vocab 65536); "
@@ -438,6 +457,15 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     if args.grad_windows < 1:
         raise ValueError(f"--grad-windows must be >= 1, got "
                          f"{args.grad_windows}")
+    if args.deadline_ms < 0:
+        raise ValueError("--deadline-ms must be >= 0 (0 disables "
+                         "deadlines)")
+    if args.straggle_prob and not args.deadline_ms:
+        raise ValueError("--straggle-prob needs --deadline-ms")
+    if args.max_lag < 0:
+        # the JAX command leaves this to RoundPacer; checked here before
+        # any rank is spawned
+        raise ValueError("max_lag must be >= 0")
     dp, sp = args.dp, args.sp
     b = args.batch or 2 * dp * args.grad_accum
     t = args.seq or 32 * sp
@@ -497,7 +525,11 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     train (``parallel/group.py spawn_ranks``); only rank 0 prints, and
     the report is rank 0's, with ``dist`` (backend, world) and ``ranks``
     (each rank's peak memory, sync and attention-exchange ms per step and
-    parameter checksum) added. Raises ValueError on bad flags,
+    parameter checksum) added. With ``--deadline-ms`` the rounds run
+    through a ``DeadlineTrainer``: each round's loss is read when the
+    pacer harvests it, and ``deadline`` reports per round the ranks the
+    clock saw late (``n_masked``), whether it fell back to an exact round
+    and its ``min_bucket_count``. Raises ValueError on bad flags,
     NotImplementedError on what the port has not ported, RuntimeError
     when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
@@ -537,7 +569,9 @@ def _param_checksum(params) -> int:
 def _train(args: argparse.Namespace, params, attn_impl, group, device
            ) -> dict:
     from akka_allreduce_tpu_torch.models import flops
-    from akka_allreduce_tpu_torch.models.train import (elapsed_ms,
+    from akka_allreduce_tpu_torch.models.train import (data_rank_count,
+                                                       dense_bucket_count,
+                                                       elapsed_ms,
                                                        make_train_state,
                                                        make_train_step,
                                                        tree_leaves, tree_map)
@@ -576,7 +610,26 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
     state = make_train_state(cfg, generator=generator, params=params,
                              device=device)
     sync_times: list = []
-    step = make_train_step(cfg, group, sync_times)
+    deadline = args.deadline_ms > 0
+    step = make_train_step(cfg, group, sync_times, dynamic_valid=deadline)
+    trainer = None
+    if deadline:
+        from akka_allreduce_tpu_torch.runtime.pacer import RoundClock
+        from akka_allreduce_tpu_torch.runtime.straggler import \
+            DeadlineTrainer
+
+        def paced_step(state_, tokens_, valid_):
+            # the metrics reach the host behind the step's work (pinned,
+            # non-blocking): once the pacer harvests the round they read
+            # without waiting for the rounds queued after it
+            return {k: v.to("cpu", non_blocking=True)
+                    for k, v in step(state_, tokens_, valid_).items()}
+        clock = RoundClock(data_rank_count(cfg, group),
+                           deadline_s=args.deadline_ms / 1e3)
+        trainer = DeadlineTrainer(paced_step, clock,
+                                  dense_bucket_count(cfg, state.params),
+                                  max_lag=args.max_lag)
+        trainer.pacer.on_harvest = lambda _r: read_round()
 
     start, mgr = 0, None
     if args.ckpt_dir:
@@ -615,14 +668,16 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         # deterministic per-step data stream, drawn as the JAX command
         # draws it: a resumed run sees the tokens the dead run would have;
         # rank (i, j) takes rows [i * B/dp, (i + 1) * B/dp) and columns
-        # [j * T/sp, (j + 1) * T/sp) of the global batch
+        # [j * T/sp, (j + 1) * T/sp) of the global batch. The generator
+        # comes back too: the straggle draws follow the global batch
+        step_rng = np.random.default_rng(i)
         if corpus is not None:
             batch = corpus.batch(i, b, t)
         else:
-            batch = np.random.default_rng(i).integers(
-                0, args.vocab, size=(b, t), dtype=np.int32)
-        return batch[dp_i * local_b:(dp_i + 1) * local_b,
-                     sp_j * local_t:(sp_j + 1) * local_t]
+            batch = step_rng.integers(0, args.vocab, size=(b, t),
+                                      dtype=np.int32)
+        return step_rng, batch[dp_i * local_b:(dp_i + 1) * local_b,
+                               sp_j * local_t:(sp_j + 1) * local_t]
 
     counters = (lambda: (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
                          fa.FLASH_DKV_LAUNCHES),
@@ -630,41 +685,92 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                          **qz.launch_counts()},
                 rf.counts)
     before = [c() for c in counters]
-    losses, step_ms, sync_ms, exchange_ms = [], [], [], []
-    tic = time.perf_counter()
-    steps_in_window = 0
+    losses, step_ms, sync_ms, exchange_ms, min_counts = [], [], [], [], []
+    dispatched: list = []  # host time each step's dispatch began
+    # rounds dispatched and not yet read: (step, dispatch time, metrics,
+    # the step's sync marks)
+    unread: collections.deque = collections.deque()
+    clocks = {"tic": time.perf_counter(), "read": 0.0, "window": 0}
+
+    def read_round():
+        """Read the oldest unread round's metrics (harvested by the
+        pacer, or the read waits for the step's device work) and log its
+        step line."""
+        i, t0, metrics, marks = unread.popleft()
+        loss = float(metrics["loss"])
+        now = time.perf_counter()
+        # a step's wall time: from its dispatch, or from the previous
+        # read when rounds overlap, to its read (its harvest)
+        step_ms.append((now - max(t0, clocks["read"])) * 1e3)
+        clocks["read"] = now
+        if marks:
+            sync_ms.append(elapsed_ms(*marks[-1]))
+        losses.append(loss)
+        min_counts.append(int(metrics["min_bucket_count"]))
+        clocks["window"] += 1
+        if i == start or (i + 1) % log_every == 0:
+            toks = float(metrics["tokens"])
+            dt = now - clocks["tic"]
+            lossy = ""
+            if trainer is not None:
+                rep = trainer.reports[i - start]
+                fb = " FELL BACK TO EXACT" if rep.fell_back else ""
+                lossy = (f" [masked {rep.n_masked}/"
+                         f"{trainer.clock.num_peers} ranks{fb}, "
+                         f"min_count {min_counts[-1]}]")
+            log(f"step {i + 1:4d}: loss {loss:.4f} "
+                f"({toks * clocks['window'] / dt:.0f} tok/s){lossy}",
+                flush=True)
+            clocks["tic"] = time.perf_counter()
+            clocks["window"] = 0
+
     for i in range(start, args.steps):
         t0 = time.perf_counter()
+        dispatched.append(t0)
         ex0 = ra.EXCHANGE_SECONDS
-        tokens = torch.from_numpy(np.ascontiguousarray(build_batch(i))).to(
-            device)
-        metrics = step(state, tokens)
-        loss = float(metrics["loss"])  # waits for the step's device work
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_rng, batch = build_batch(i)
+        tokens = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+        if trainer is None:
+            metrics = step(state, tokens)
+        else:
+            r = trainer.open_round()
+            # arrival simulation, the same on every rank: each data rank
+            # lands on time or misses the deadline with --straggle-prob
+            for peer in range(trainer.clock.num_peers):
+                late = step_rng.random() < args.straggle_prob
+                trainer.clock.report_offset(
+                    r, peer, (2.0 if late else 0.0)
+                    * trainer.clock.deadline_s)
+            metrics = trainer.run_round(state, tokens)
         exchange_ms.append((ra.EXCHANGE_SECONDS - ex0) * 1e3)
-        if sync_times:
-            sync_ms.append(elapsed_ms(*sync_times.pop()))
-        losses.append(loss)
+        unread.append((i, t0, metrics, list(sync_times)))
+        sync_times.clear()
         if mgr is not None:
             mgr.maybe_save(i, state.params, _opt_state(state),
                            {"data_step": i}, sync=state.residual,
                            group=group)
-        steps_in_window += 1
-        if i == start or (i + 1) % log_every == 0:
-            toks = float(metrics["tokens"])
-            dt = time.perf_counter() - tic
-            log(f"step {i + 1:4d}: loss {loss:.4f} "
-                f"({toks * steps_in_window / dt:.0f} tok/s)", flush=True)
-            tic = time.perf_counter()
-            steps_in_window = 0
+        if trainer is None:
+            read_round()  # waits for the step's device work
+    if trainer is not None:
+        trainer.drain()
+        fell = sum(1 for rep in trainer.reports if rep.fell_back)
+        log(f"lossy rounds: {trainer.masked_round_count}/"
+            f"{len(trainer.reports)} had masked contributions "
+            f"({fell} all-masked, ran exact for liveness)", flush=True)
     if mgr is not None and args.steps > start \
             and mgr.latest_step() != args.steps - 1:
         mgr.save(args.steps - 1, state.params, _opt_state(state),
                  {"data_step": args.steps - 1}, force=True,
                  sync=state.residual, group=group)
 
-    steady = step_ms[1:] or step_ms
-    step_s = sum(steady) / len(steady) / 1e3 if steady else None
+    # wall time a step after the first: from the second step's dispatch
+    # to the last read, over the steps in it (rounds that overlap under
+    # the pacer have no boundaries of their own)
+    step_s = None
+    if len(dispatched) > 1:
+        step_s = (clocks["read"] - dispatched[1]) / (len(dispatched) - 1)
+    elif dispatched:
+        step_s = step_ms[0] / 1e3
     cards = min(world, torch.cuda.device_count()) \
         if device.type == "cuda" else 1
     peak = flops.chip_peak_flops(device)
@@ -699,6 +805,16 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         # host ms per step in the attention's exchanges (sp > 1)
         "attn_exchange_ms": exchange_ms,
     }
+    if trainer is not None:
+        report["deadline"] = {
+            "deadline_ms": args.deadline_ms, "max_lag": args.max_lag,
+            "straggle_prob": args.straggle_prob,
+            "rounds": [{"step": start + rep.round,
+                        "valid_peers": list(rep.valid_peers),
+                        "n_masked": rep.n_masked, "fell_back": rep.fell_back,
+                        "min_bucket_count": count}
+                       for rep, count in zip(trainer.reports, min_counts)],
+            "masked_round_count": trainer.masked_round_count}
     if group is not None:
         report["dist"] = {"backend": backend, "world": world}
         report["rank_info"] = {

@@ -25,7 +25,13 @@ and the optimizer update. With a group of more than one rank
 * the loss metric is the ranks' losses summed, ``min_bucket_count`` the
   smallest per-bucket count;
 * the ef8 residual is ``TrainState.residual`` (buckets-shaped f32),
-  threaded through every step.
+  threaded through every step;
+* with ``dynamic_valid=True`` the step takes the round's contribution
+  mask, the JAX ``(n_data_ranks, num_buckets)`` f32 array with rows in
+  the data-axis order (dp-major, then sp: a rank's row is its global
+  rank), and each rank hands its own row to the sync; masked buckets
+  contribute exact zeros and the counts report the gap
+  (``runtime/straggler.py`` builds the masks from deadlines).
 
 On one rank the sync is the identity and is skipped, as the JAX step's
 reduces over size-1 mesh axes; ``min_bucket_count`` is then 1.
@@ -46,8 +52,8 @@ PyTorch idiom in place of the JAX package's pure functions:
   stay f32.
 
 Left out and refused with ``NotImplementedError``: optimizers other than
-adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A2);
-the ``hierarchical`` and ``auto`` sync schedules (A3b).
+adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A5);
+the ``hierarchical`` and ``auto`` sync schedules (A2).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ from akka_allreduce_tpu_torch.parallel.ring_attention import (
     blockwise_causal_attention, flash_windowed_sp_attention,
     local_causal_attention, ring_attention, windowed_sp_attention)
 
-LEFT_OUT = "left out of the port's one-card training slice (ROADMAP.md A2)"
+LEFT_OUT = "left out of the port's one-card training slice (ROADMAP.md A5)"
 # the JAX derive_quant_key's root key, key(17)
 QUANT_ROOT = 17
 
@@ -317,10 +323,37 @@ def elapsed_ms(start, end) -> float:
     return start.elapsed_time(end)
 
 
+def data_rank_count(cfg: TrainConfig, group: Optional[RankGroup] = None
+                    ) -> int:
+    """How many data ranks contribute to the gradient sync: the row count
+    of a dynamic ``valid`` mask (dp x sp, rows dp-major)."""
+    return 1 if group is None else group.world
+
+
+def dense_bucket_count(cfg: TrainConfig, params: dict) -> int:
+    """Bucket count of the rank-local gradient tree (every rank holds
+    whole parameters): the column count of a dynamic ``valid`` mask and
+    the ef8 residual's row count."""
+    return tree_bucket_spec(params, cfg.bucket_elems).num_buckets
+
+
+def _mask_row(valid, rank: int, world: int, device: torch.device
+              ) -> torch.Tensor:
+    """This rank's row of the round's ``(world, num_buckets)`` mask, as
+    f32 on ``device`` (one copy a round)."""
+    valid = torch.as_tensor(valid, dtype=torch.float32)
+    if valid.dim() != 2 or valid.shape[0] != world:
+        raise ValueError(f"valid must be (n_data_ranks={world}, "
+                         f"num_buckets), got {tuple(valid.shape)}")
+    return valid[rank].to(device)
+
+
 def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
-                   sync_times: Optional[list] = None):
-    """``grad_step(params, tokens, quant_seed=None, residual=None) ->
-    (grads, metrics)`` (``(grads, metrics, residual)`` on the ef8 wire):
+                   sync_times: Optional[list] = None,
+                   dynamic_valid: bool = False):
+    """``grad_step(params, tokens, quant_seed=None, residual=None,
+    valid=None) -> (grads, metrics)`` (``(grads, metrics, residual)`` on
+    the ef8 wire):
     the next-token loss over this rank's tokens (B, T) (the last column
     has weight 0, as in the JAX step without sequence parallelism), its
     gradients synced across ``group`` as a params-shaped dict of f32
@@ -332,7 +365,13 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     ``residual`` is the ef8 state. ``sync_times``, when given, receives
     a ``(start, end)`` pair of time marks around each sync
     (:func:`elapsed_ms`). With ``sp`` > 1 in ``group`` the tokens are
-    this rank's sequence columns (see the module docstring)."""
+    this rank's sequence columns (see the module docstring).
+
+    ``dynamic_valid=True`` makes ``valid`` required: the round's
+    ``(data_rank_count, num_buckets)`` f32 mask, of which this rank
+    sends its own row (the global rank's) to the sync; a new mask every
+    round changes nothing else. ``min_bucket_count`` is then the
+    smallest count over the buckets, exact on every rank."""
     check_supported(cfg)
     mcfg = cfg.model
     world = 1 if group is None else group.world
@@ -394,7 +433,16 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
                 g + m for g, m in zip(grads, mb_grads)]
         return loss, total_count, aux, tree_unflatten(params, grads)
 
-    def grad_step(params, tokens, quant_seed=None, residual=None):
+    rank = 0 if group is None else group.rank
+
+    def grad_step(params, tokens, quant_seed=None, residual=None,
+                  valid=None):
+        if dynamic_valid and valid is None:
+            raise ValueError("dynamic_valid step needs a per-round "
+                             "valid mask (n_data_ranks, num_buckets)")
+        if valid is not None and not dynamic_valid:
+            raise ValueError("valid needs make_grad_step(..., "
+                             "dynamic_valid=True)")
         if world > 1 and quantized and quant_seed is None:
             raise ValueError(f"{cfg.grad_transport} grad transport needs a "
                              f"per-round quant_seed")
@@ -407,16 +455,21 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         aux_loss = aux["aux_loss"] / accum
         dispatch = aux["dispatch_fraction"] / accum
         min_count = torch.ones((), dtype=torch.int32, device=tokens.device)
-        if world > 1:
+        if world > 1 or valid is not None:
+            # one rank with a mask still masks (the JAX sync over size-1
+            # axes); without one its sync is the identity and is skipped
+            row = None if valid is None else _mask_row(
+                valid, rank, world, tokens.device)
             start = _timer_mark(tokens.device)
             res = allreduce_gradients(
-                grads, gcfg, group,
+                grads, gcfg, group, valid=row,
                 quant_key=quant_key(quant_seed) if quantized else None,
                 residual=residual)
             if sync_times is not None:
                 sync_times.append((start, _timer_mark(tokens.device)))
             grads, residual = res.grads, res.residual
             min_count = res.bucket_counts.min()
+        if world > 1:
             # the metrics' psum: the ranks' (loss, aux, dispatch) summed
             mine = torch.stack([torch.as_tensor(loss), aux_loss, dispatch])
             loss, aux_loss, dispatch = group.all_gather(
@@ -434,17 +487,23 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
 
 
 def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
-                    sync_times: Optional[list] = None):
+                    sync_times: Optional[list] = None,
+                    dynamic_valid: bool = False):
     """``step(state, tokens) -> metrics``: synced gradients (keyed by
     ``state.step``), then the optax chain's order — global-norm clip
     (``clip_norm > 0``), then AdamW at the schedule's rate for
-    ``state.step`` — applied to ``state`` in place."""
-    grad_step = make_grad_step(cfg, group, sync_times)
+    ``state.step`` — applied to ``state`` in place. With
+    ``dynamic_valid=True`` it is ``step(state, tokens, valid) ->
+    metrics``, ``valid`` the round's ``(data_rank_count, num_buckets)``
+    mask (:func:`make_grad_step`); a masked round still advances
+    ``state.step``, which keys the next round's rounding as the JAX
+    optimizer's count does."""
+    grad_step = make_grad_step(cfg, group, sync_times, dynamic_valid)
     use_ef = cfg.grad_transport == "ef8"
 
-    def step(state: TrainState, tokens: torch.Tensor) -> dict:
+    def step(state: TrainState, tokens: torch.Tensor, valid=None) -> dict:
         out = grad_step(state.params, tokens, quant_seed=state.step,
-                        residual=state.residual)
+                        residual=state.residual, valid=valid)
         grads, metrics = out[0], out[1]
         if use_ef:
             state.residual = out[2]

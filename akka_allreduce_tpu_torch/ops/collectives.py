@@ -54,7 +54,7 @@ from akka_allreduce_tpu_torch.parallel.group import RankGroup, spawn_ranks
 DEFAULT_EF_BLOCK = 512
 
 HIERARCHICAL = ("the hierarchical (ICI x DCN) schedule needs two data "
-                "axes of process subgroups: not ported yet (ROADMAP.md A3b)")
+                "axes of process subgroups: not ported yet (ROADMAP.md A2)")
 
 
 # -- keys ------------------------------------------------------------------

@@ -15,7 +15,7 @@ Wires (``transport``): ``f32``; ``bf16`` (the payload cast, sums in f32
 on the device, the result rounded to bf16 once); ``int8`` (per-row
 scales, stochastic rounding); ``ef8`` (block scales and a carried
 error-feedback residual). Schedules: ``fused``, ``windowed``, ``swing``.
-``hierarchical`` and ``auto`` are not ported yet (ROADMAP.md A3b).
+``hierarchical`` and ``auto`` are not ported yet (ROADMAP.md A2).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ TRANSPORTS = ("f32", "bf16", "int8", "ef8")
 SCHEDULES = ("fused", "windowed", "swing")
 NOT_PORTED = ("transport_schedule={!r} is not ported yet: it needs process "
               "subgroups (hierarchical) or the measured collective plan "
-              "(auto), ROADMAP.md A3b; use fused, windowed or swing")
+              "(auto), ROADMAP.md A2; use fused, windowed or swing")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Training-state persistence of the port."""
+"""Training-state persistence, round pacing and straggler deadlines of
+the port."""

@@ -19,7 +19,7 @@ back bitwise.
 
 The JAX package's orbax checkpoints are not read here (nor these by it):
 the formats differ, and carrying a run across is a later item (ROADMAP.md
-A2). The JSON sidecars (``save_state_json`` / ``load_state_json``) are
+A5). The JSON sidecars (``save_state_json`` / ``load_state_json``) are
 the JAX package's: one atomic file per name.
 """
 

@@ -187,6 +187,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    (the plain versions) from the card run's weights (seed 0 on the
    card's generator, which draws other numbers than the CPU's).
 
+16. train under deadlines — phase 9's flagship dp=2 run with
+   ``--deadline-ms 50``: the f32 (``none``) wire at ``--max-lag`` 1, ef8
+   at 1, then f32 at 0 (the pacer's window against lockstep), each for
+   the fewest steps (at most 6) whose straggle draws, rebuilt here with
+   numpy, give a clean step 1, a step that masks one rank and a step
+   that masks both and falls back to an exact round
+   (``choose_straggle``: 4 steps, ``--straggle-prob`` 0.3428). Asserts
+   each round's ``n_masked``, ``fell_back`` and ``min_bucket_count``
+   equal the draws' (``predicted_rounds``), finite losses, parameters
+   bitwise equal on both ranks, rank 0's sync launches those of one
+   exact sync a step and each flash kernel once per layer a step, and
+   the f32 runs' first two losses bitwise phase 9's (step 1 is clean: a
+   mask of ones multiplies by 1.0 and rescales by 2 / 2). Reports wall
+   and sync ms per step and peak memory per rank beside phase 9's. Then
+   one direct ``allreduce_gradients`` at the flagship's bucket matrix
+   (8,257 x 65,536 f32 a rank) on two gloo ranks with rank 1's row
+   masked: the f32 wire must give both ranks exactly 2 x rank 0's
+   gradient with counts of 1, ef8 must leave rank 1's residual bitwise
+   unchanged.
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -379,6 +399,14 @@ DEFAULTS_RUNS = {"one_card": ["train"],
                  "sp2": ["train", "--sp", "2", "--dist-backend", "gloo"]}
 DEFAULTS_LOSS_RTOL = 1e-4
 DEFAULTS_COMPARED_STEPS = 2
+# phase 16: the flagship at dp=2 under straggler deadlines (phase 9's
+# argv with --deadline-ms); the f32 wire at --max-lag 1, ef8 at 1, then
+# f32 at --max-lag 0 (what the pacer's window buys on the gloo wire)
+DEADLINE_MS = 50.0
+DEADLINE_RUNS = (("none", 1), ("ef8", 1), ("none", 0))
+DEADLINE_MAX_STEPS = 6
+# its direct masked sync: the flagship's bucket matrix, f32, a rank
+DEADLINE_SYNC_SHAPE = (8257, BUCKET_ELEMS)
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1276,9 +1304,11 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
     wire's losses are held against phase 6's first steps (the same
     weights and global batches on one card), the quantized wires' against
     the f32 wire's. Returns the sync kernels' launches summed over the
-    runs."""
+    runs (``launches``) and each wire's emitted line (``runs``), which
+    phase 16 compares with."""
     from akka_allreduce_tpu_torch import cli
     totals = dict.fromkeys(SYNC_KERNELS, 0)
+    runs = {}
     f32_losses = None
     for wire in DP_WIRES:
         args = cli.build_parser().parse_args(DP_ARGV + ["--grad-quant", wire])
@@ -1347,11 +1377,12 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
                                  f"{f32_losses}")
         for k, v in report["sync_launches"].items():
             totals[k] += v
+        runs[wire] = out
     missing = [k for k in MAIN_PATH_SYNC if totals[k] == 0]
     if missing:
         raise AssertionError(f"sync kernels never launched on the main "
                              f"path: {missing}")
-    return totals
+    return {"launches": totals, "runs": runs}
 
 
 def sync4_envelope(torch, transport: str, schedule: str, contribs: list,
@@ -1789,6 +1820,224 @@ def phase_train_defaults(torch) -> dict:
                      "ring": {k: sum(g["ring"][k] for g in got)
                               for k in RING_REPLACES}}
     return out
+
+
+def straggle_draws(steps: int, ranks: int, batch: int, seq: int,
+                   vocab: int):
+    """The straggle draws of ``train --deadline-ms`` on synthetic data:
+    step i's ``default_rng(i)`` draws the (batch, seq) global batch, then
+    one ``random()`` per data rank in rank order. Returns (steps, ranks)
+    float64; a rank is late when its draw is below --straggle-prob."""
+    import numpy as np
+    out = np.empty((steps, ranks))
+    for i in range(steps):
+        rng = np.random.default_rng(i)
+        rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+        out[i] = [rng.random() for _ in range(ranks)]
+    return out
+
+
+def predicted_rounds(draws, prob: float) -> list:
+    """Per step, what the deadline trainer must report for these draws:
+    the ranks the clock saw late, whether the round fell back to an exact
+    one (every rank late) and its ``min_bucket_count`` (the ranks that
+    contributed; all of them after a fallback)."""
+    out = []
+    for row in draws:
+        late = int(sum(d < prob for d in row))
+        fell = late == len(row)
+        out.append({"n_masked": late, "fell_back": fell,
+                    "min_bucket_count": len(row) if fell
+                    else len(row) - late})
+    return out
+
+
+def choose_straggle(draws) -> "tuple[float, int]":
+    """The fewest steps, and a --straggle-prob for them, whose rounds
+    have a clean step 1, a step that masks exactly one rank and a step
+    that masks every rank (the fallback): the first gap between the
+    sorted draws of those steps that gives all three, at its midpoint."""
+    for steps in range(3, len(draws) + 1):
+        edges = sorted(set(float(d) for d in draws[:steps].ravel()))
+        for lo, hi in zip(edges, edges[1:]):
+            prob = (lo + hi) / 2
+            rounds = predicted_rounds(draws[:steps], prob)
+            if rounds[0]["n_masked"] == 0 \
+                    and any(r["n_masked"] == 1 for r in rounds) \
+                    and any(r["fell_back"] for r in rounds):
+                return prob, steps
+    raise ValueError("no --straggle-prob gives a clean step 1, a one-rank "
+                     "step and a fallback step within these draws")
+
+
+def expected_deadline_launches(transport: str, world: int, num_buckets: int,
+                               steps: int, n_layers: int
+                               ) -> "tuple[dict, int]":
+    """Rank 0's launches in a deadline run: a masked round's sync
+    launches what an exact one does (``expected_sync_launches``), once a
+    step, and each flash kernel runs once per layer a step."""
+    per_sync = expected_sync_launches(transport, "fused", world, num_buckets)
+    return {k: v * steps for k, v in per_sync.items()}, n_layers * steps
+
+
+def masked_sync_rank(group, rows: int, cols: int) -> dict:
+    """One rank of phase 16's direct masked sync: ``allreduce_gradients``
+    on a (rows, cols) f32 gradient (rank r's from a generator seeded 1000
+    + r), rank 1's whole row masked. f32: every rank must get exactly 2 x
+    rank 0's gradient (rank 1 adds exact zeros, the count 1 rescales by
+    2 / 1), counts all 1. ef8 (from a random residual): rank 1's residual
+    must come back bitwise unchanged, rank 0's must not."""
+    import torch
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    dev = group.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def normal(seed, scale=1.0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((rows, cols), generator=gen, device=dev) * scale
+
+    valid = torch.full((rows,), 1.0 if group.rank == 0 else 0.0,
+                       device=dev)
+    grads = {"g": normal(1000 + group.rank)}
+    out = {"rank": group.rank}
+    t0 = time.perf_counter()
+    res = allreduce_gradients(grads, GradSyncConfig(
+        bucket_elems=cols, rescale_target=2.0, return_elem_counts=False),
+        group, valid=valid)
+    sync()
+    out["f32_seconds"] = time.perf_counter() - t0  # host wire included
+    out["f32_exact"] = bool(torch.equal(res.grads["g"], 2 * normal(1000)))
+    out["f32_counts"] = sorted(set(res.bucket_counts.tolist()))
+    del res
+    residual = normal(2000 + group.rank, 1e-3)
+    before = residual.clone()
+    t0 = time.perf_counter()
+    res = allreduce_gradients(grads, GradSyncConfig(
+        bucket_elems=cols, rescale_target=2.0, return_elem_counts=False,
+        transport="ef8"), group, valid=valid, quant_key=(17, 0, 0),
+        residual=residual)
+    sync()
+    out["ef8_seconds"] = time.perf_counter() - t0
+    out["ef8_residual_unchanged"] = bool(torch.equal(res.residual, before))
+    out["ef8_counts"] = sorted(set(res.bucket_counts.tolist()))
+    out["ef8_finite"] = bool(torch.isfinite(res.grads["g"]).all())
+    return out
+
+
+def phase_train_deadline(torch, dp_runs: dict) -> dict:
+    """Phase 16: ``run_train`` at phase 9's flagship dp=2 configuration
+    under ``--deadline-ms`` for each of ``DEADLINE_RUNS`` (fresh rank
+    processes each, so their counters start at 0), then one direct
+    masked sync at the flagship's gradient size. Returns rank 0's sync
+    and flash launches summed over the runs."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    base = cli.build_parser().parse_args(DP_ARGV)
+    draws = straggle_draws(DEADLINE_MAX_STEPS, DP_WORLD, base.batch,
+                           base.seq, base.vocab)
+    # at the flagship's batches (8 x 2048 of vocab 32768) the draws of
+    # steps 1-6 are (0.361, 0.720), (0.064, 0.951), (0.915, 0.384),
+    # (0.218, 0.325), (0.575, 0.483), (0.426, 0.267): this picks 4 steps
+    # and --straggle-prob 0.3428 (between 0.3247 and 0.3608), so step 1
+    # is clean, step 2 masks rank 0, step 3 is clean and step 4 masks
+    # both ranks and falls back to an exact round
+    prob, steps = choose_straggle(draws)
+    want = predicted_rounds(draws[:steps], prob)
+    totals = {"sync": dict.fromkeys(SYNC_KERNELS, 0),
+              "flash": dict.fromkeys(FLASH_REPLACES, 0)}
+    runs = {}
+    for wire, lag in DEADLINE_RUNS:
+        args = cli.build_parser().parse_args(DP_ARGV + [
+            "--grad-quant", wire, "--steps", str(steps), "--deadline-ms",
+            str(DEADLINE_MS), "--straggle-prob", repr(prob), "--max-lag",
+            str(lag)])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report = cli.run_train(args)
+        seconds = time.perf_counter() - t0
+        cfg = report["config"]
+        num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
+        sync_expected, flash_expected = expected_deadline_launches(
+            cfg["grad_transport"], report["dist"]["world"], num_buckets,
+            steps, args.n_layers)
+        rounds = [{k: r[k] for k in ("n_masked", "fell_back",
+                                     "min_bucket_count")}
+                  for r in report["deadline"]["rounds"]]
+        sums = [r["param_checksum"] for r in report["ranks"]]
+        sync_ms = report["ranks"][0]["sync_ms"]
+        ref = dp_runs[wire]
+        out = {
+            "wire": wire, "max_lag": lag, "steps": steps,
+            "straggle_prob": prob, "deadline_ms": DEADLINE_MS,
+            "rounds": rounds, "predicted_rounds": want,
+            "masked_round_count": report["deadline"]["masked_round_count"],
+            "losses": report["losses"], "step_ms": report["step_ms"],
+            "wall_ms_per_step": report["wall_ms_per_step"],
+            "sync_ms": sync_ms,
+            "sync_ms_per_step": statistics.mean(sync_ms[1:] or sync_ms),
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                        for r in report["ranks"]],
+            "phase9": {k: ref[k] for k in (
+                "wall_ms_per_step", "sync_ms_per_step",
+                "peak_memory_gb_per_rank")},
+            "param_checksums": sums, "sync_launches": report["sync_launches"],
+            "expected_sync_launches": sync_expected,
+            "flash_launches": report["launches"],
+            "expected_flash_launches": flash_expected,
+            "run_seconds": seconds}
+        if wire == "none":
+            # after the clean step 1 both runs hold the same weights: a
+            # mask of ones multiplies by 1.0 and rescales by 2 / 2, so the
+            # masked route sums what the exact one does, in its order
+            out["phase9_losses"] = ref["losses"]
+        emit("train_deadline", **out)
+        if rounds != want:
+            raise AssertionError(f"{wire} lag {lag}: rounds {rounds}, the "
+                                 f"draws predict {want}")
+        if not all(math.isfinite(x) for x in report["losses"]):
+            raise AssertionError(f"{wire}: non-finite losses {out}")
+        if len(set(sums)) != 1:
+            raise AssertionError(f"{wire}: ranks' parameters differ {sums}")
+        if report["sync_launches"] != sync_expected:
+            raise AssertionError(f"{wire}: sync launches "
+                                 f"{report['sync_launches']}, expected "
+                                 f"{sync_expected}")
+        if any(n != flash_expected for n in report["launches"].values()):
+            raise AssertionError(f"{wire}: flash launches "
+                                 f"{report['launches']}, expected "
+                                 f"{flash_expected} each")
+        if wire == "none" and report["losses"][:2] != ref["losses"][:2]:
+            raise AssertionError(f"f32 lag {lag}: losses {report['losses']} "
+                                 f"vs phase 9's {ref['losses']} (steps 1-2 "
+                                 f"must be bitwise equal)")
+        for k, v in report["sync_launches"].items():
+            totals["sync"][k] += v
+        for k, v in report["launches"].items():
+            totals["flash"][k] += v
+        runs[wire, lag] = out
+    lag1, lag0 = runs["none", 1], runs["none", 0]
+    emit("train_deadline_max_lag", wire="none",
+         wall_ms_per_step={"max_lag_1": lag1["wall_ms_per_step"],
+                           "max_lag_0": lag0["wall_ms_per_step"]},
+         step_ms={"max_lag_1": lag1["step_ms"],
+                  "max_lag_0": lag0["step_ms"]},
+         note="gloo blocks the host inside each sync, so the window can "
+              "overlap only the optimizer step and the next forward")
+    rows, cols = DEADLINE_SYNC_SHAPE
+    sync = spawn_ranks(masked_sync_rank, DP_WORLD, "gloo", DEVICE, rows,
+                       cols)
+    emit("masked_sync", rows=rows, cols=cols, ranks=sync)
+    bad = [r for r in sync if not (
+        r["f32_exact"] and r["f32_counts"] == [1] and r["ef8_counts"] == [1]
+        and r["ef8_finite"]
+        and r["ef8_residual_unchanged"] == (r["rank"] == 1))]
+    if bad:
+        raise AssertionError(f"masked sync: {bad}")
+    return totals
 
 
 def allreduce_bounds(n: int, elems: int) -> dict:
@@ -2240,7 +2489,7 @@ def main() -> int:
     t8 = time.perf_counter()
     sync = phase_sync_kernels(torch, trained["params"])
     t9 = time.perf_counter()
-    sync_launches = phase_train_dp(torch, trained["losses"])
+    dp = phase_train_dp(torch, trained["losses"])
     t10 = time.perf_counter()
     phase_sync4(torch)
     t11 = time.perf_counter()
@@ -2264,8 +2513,15 @@ def main() -> int:
 
     # 15. the train command at the CLI's defaults (head dim 32, f32)
     defaults = phase_train_defaults(torch)
-    emit("train_defaults_phase_seconds",
-         train_defaults=time.perf_counter() - t15)
+    t16 = time.perf_counter()
+    emit("train_defaults_phase_seconds", train_defaults=t16 - t15)
+
+    # 16. the flagship at dp=2 under straggler deadlines
+    deadline = phase_train_deadline(torch, dp["runs"])
+    emit("train_deadline_phase_seconds",
+         train_deadline=time.perf_counter() - t16)
+    sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
+                     for k in SYNC_KERNELS}
 
     row = timed["serve", "torch.float32"]
     long_row = timed["long", "torch.float32"]
@@ -2281,7 +2537,9 @@ def main() -> int:
         "long_bound_ms": long_row["bound_ms"]}]
     # the flagship trains bf16; the f32 flash kernels run in phase 7's f32
     # run, phase 13's one-card f32 run and phase 15's one-card run
-    kernels += flash_kernel_rows(flash["torch.bfloat16"], trained["launches"])
+    kernels += flash_kernel_rows(flash["torch.bfloat16"], {
+        k: trained["launches"][k] + deadline["flash"][k]
+        for k in FLASH_REPLACES})
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]

@@ -4,8 +4,8 @@ The script needs a card to run; these pin what it computes around the
 card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
 flash and ring kernels' bounds, the kernels line's flash rows, the build
-phase's check of the tensor-core kernels, and its refusal to run
-without CUDA.
+phase's check of the tensor-core kernels, phase 16's straggle schedule
+and expected launches, and its refusal to run without CUDA.
 """
 
 import os
@@ -370,6 +370,88 @@ def test_phase9_flagship_launches_per_run():
     assert set(chip_smoke.SYNC_KERNELS) - set(chip_smoke.MAIN_PATH_SYNC) \
         == {"quantize_int8"}
     assert chip_smoke.DP_WIRES == ("none", "int8", "ef8")
+
+
+def test_straggle_draws_are_the_train_commands():
+    """Phase 16's reconstruction of ``train --deadline-ms``'s draws: the
+    command's rounds at one rank (every late round falls back) equal
+    ``predicted_rounds`` of ``straggle_draws`` at its batch shape."""
+    from akka_allreduce_tpu_torch import cli
+    prob = 0.5
+    report = cli.run_train(cli.build_parser().parse_args(
+        ["train", "--device", "cpu", "--steps", "4", "--batch", "2",
+         "--seq", "16", "--vocab", "97", "--deadline-ms", "5",
+         "--straggle-prob", str(prob)]))
+    draws = chip_smoke.straggle_draws(4, 1, 2, 16, 97)
+    got = [{k: r[k] for k in ("n_masked", "fell_back", "min_bucket_count")}
+           for r in report["deadline"]["rounds"]]
+    assert got == chip_smoke.predicted_rounds(draws, prob)
+    assert {r["fell_back"] for r in got} == {True, False}
+
+
+def test_deadline_schedule_at_the_flagship():
+    """The flagship's batches (8 x 2048 of vocab 32768) at dp=2 give 4
+    steps: clean, rank 0 masked, clean, both masked (the fallback)."""
+    args = chip_smoke.DP_ARGV
+    shape = [int(args[args.index(f) + 1])
+             for f in ("--batch", "--seq", "--vocab")]
+    draws = chip_smoke.straggle_draws(chip_smoke.DEADLINE_MAX_STEPS,
+                                      chip_smoke.DP_WORLD, *shape)
+    prob, steps = chip_smoke.choose_straggle(draws)
+    assert steps == 4 and 0.3247 < prob <= 0.3608
+    assert chip_smoke.predicted_rounds(draws[:steps], prob) == [
+        {"n_masked": 0, "fell_back": False, "min_bucket_count": 2},
+        {"n_masked": 1, "fell_back": False, "min_bucket_count": 1},
+        {"n_masked": 0, "fell_back": False, "min_bucket_count": 2},
+        {"n_masked": 2, "fell_back": True, "min_bucket_count": 2}]
+    assert draws[1, 0] < prob <= draws[1, 1]  # step 2's late rank is 0
+
+
+def test_choose_straggle_needs_a_clean_first_step():
+    import numpy as np
+    # step 1 has a draw below every both-late step's larger draw
+    draws = np.array([[0.1, 0.9], [0.5, 0.9], [0.6, 0.7]])
+    with pytest.raises(ValueError, match="clean step 1"):
+        chip_smoke.choose_straggle(draws)
+    prob, steps = chip_smoke.choose_straggle(
+        np.array([[0.8, 0.9], [0.2, 0.9], [0.3, 0.4]]))
+    assert steps == 3 and 0.4 < prob <= 0.8
+
+
+@pytest.mark.parametrize("transport", ["f32", "bf16", "int8", "ef8"])
+def test_a_masked_round_launches_what_an_exact_one_does(monkeypatch,
+                                                         transport):
+    """Phase 16 expects one exact sync's launches a step: the wrappers
+    ``allreduce_gradients`` calls with a mask (the fallback's mask of
+    ones, and one masking half the buckets) equal those without."""
+    from akka_allreduce_tpu_torch.ops import collectives
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    calls = dict.fromkeys(chip_smoke.SYNC_KERNELS, 0)
+
+    def counting(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for name in chip_smoke.MAIN_PATH_SYNC:
+        monkeypatch.setattr(collectives, name, counting(collectives, name))
+    cfg = GradSyncConfig(bucket_elems=256, transport=transport)
+    grads = {"w": torch.randn(9 * 256 - 7)}
+    counts = []
+    for valid in (None, torch.ones(9), torch.arange(9) % 2):
+        calls.update(dict.fromkeys(calls, 0))
+        allreduce_gradients(grads, cfg, _LoopbackGroup(2), valid=valid,
+                            quant_key=(1,))
+        counts.append(dict(calls))
+    assert counts[0] == counts[1] == counts[2]
+    sync, flash = chip_smoke.expected_deadline_launches(transport, 2, 9, 4,
+                                                        8)
+    assert sync == {k: 4 * v for k, v in counts[0].items()}
+    assert flash == 32
 
 
 @pytest.mark.parametrize("world", [2, 4])

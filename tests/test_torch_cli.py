@@ -141,7 +141,7 @@ def test_train_draws_the_jax_commands_batches():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--optimizer", "sgd"], "A2"),
+    (["--optimizer", "sgd"], "A5"),
     (["--batch", "4", "--grad-accum", "3"], "divide")])
 def test_train_refusals_exit_2(capsys, flags, match):
     assert cli.main(TRAIN_TINY + flags) == 2

@@ -224,8 +224,8 @@ def test_group_of_one_bypasses_the_wire_but_masks():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(transport_schedule="hierarchical"), NotImplementedError, "A3b"),
-    (dict(transport_schedule="auto"), NotImplementedError, "A3b"),
+    (dict(transport_schedule="hierarchical"), NotImplementedError, "A2"),
+    (dict(transport_schedule="auto"), NotImplementedError, "A2"),
     (dict(transport_schedule="ring"), ValueError, "transport_schedule"),
     (dict(transport="fp8"), ValueError, "transport"),
     (dict(transport="int8"), ValueError, "quant_key"),

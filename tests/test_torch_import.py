@@ -2,10 +2,12 @@
 
 Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
-attention's and the peer-memory allreduce's modules included) and finds neither ``jax`` nor ``akka_allreduce_tpu`` in
-``sys.modules``; a rank process that ``spawn_ranks`` starts from this
-(JAX-importing) test process holds neither either; and an AST scan of
-the package's sources finds no import statement naming either.
+attention's, the peer-memory allreduce's, the round pacer's and the
+deadline trainer's modules included) and finds neither ``jax`` nor
+``akka_allreduce_tpu`` in ``sys.modules``; a rank process that
+``spawn_ranks`` starts from this (JAX-importing) test process holds
+neither either; and an AST scan of the package's sources finds no
+import statement naming either.
 """
 
 import ast
@@ -37,6 +39,8 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.models.train",
             "akka_allreduce_tpu_torch.ops.kernels.flash_attention",
             "akka_allreduce_tpu_torch.runtime.checkpoint",
+            "akka_allreduce_tpu_torch.runtime.pacer",
+            "akka_allreduce_tpu_torch.runtime.straggler",
             "akka_allreduce_tpu_torch.parallel.group",
             "akka_allreduce_tpu_torch.parallel.dp",
             "akka_allreduce_tpu_torch.ops.bucketing",

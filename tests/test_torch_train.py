@@ -273,8 +273,8 @@ def test_weight_decay_mask_excludes_rank_below_two():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(optimizer="lion"), "A2"), (dict(ema_decay=0.9), "A2"),
-    (dict(accum_schedule="overlap"), "A2"), (dict(optimizer="nope"),
+    (dict(optimizer="lion"), "A5"), (dict(ema_decay=0.9), "A5"),
+    (dict(accum_schedule="overlap"), "A5"), (dict(optimizer="nope"),
                                              "unknown optimizer")])
 def test_left_out_options_raise(kw, match):
     _, tcfg = configs()

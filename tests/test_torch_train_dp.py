@@ -118,8 +118,8 @@ def test_cli_dp2_ef8_prints_the_step_lines(capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp", "2", "--grad-schedule", "hierarchical"], "A3b"),
-    (["--dp", "2", "--grad-schedule", "auto"], "A3b"),
+    (["--dp", "2", "--grad-schedule", "hierarchical"], "A2"),
+    (["--dp", "2", "--grad-schedule", "auto"], "A2"),
     (["--dp", "3", "--grad-schedule", "swing", "--batch", "6"],
      "power-of-two"),
     (["--dp", "3"], "divide over --dp"),
