@@ -23,7 +23,12 @@ batch, whose gradients meet in the bucketed allreduce (``--grad-quant``,
 ``ops/kernels/csrc/masked_reduce.cu`` and ``quantize.cu``). With ``--sp
 S`` each row's sequence is split over S ranks more (dp x S processes in
 all) whose attention runs around a ring of K/V blocks on the ring-flash
-kernels (``ops/kernels/csrc/ring_flash.cu``). With ``--deadline-ms`` a
+kernels (``ops/kernels/csrc/ring_flash.cu``). With ``--dp`` and ``--sp``
+both > 1, ``--grad-quant ef8 --grad-schedule hierarchical`` syncs
+exactly over each sp line and on the ef8 wire over each dp line;
+``--grad-schedule auto`` measures the feasible schedules on the ranks at
+startup and keeps the plan in ``--plan-dir`` (``ops/autotune.py``). With
+``--deadline-ms`` a
 data rank that misses a round's deadline is masked out of that round's
 sync (``runtime/straggler.py``); ``--straggle-prob`` simulates late
 ranks from each step's seeded generator, and ``--max-lag`` bounds the
@@ -33,6 +38,7 @@ rounds in flight::
         --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
         --batch 8 --bf16 --lr 1e-4 --steps 6 --log-every 1 \\
         [--dp 2 --dist-backend gloo --grad-quant ef8] [--sp 2] \\
+        [--grad-schedule hierarchical | auto --plan-dir DIR] \\
         [--deadline-ms 50 --straggle-prob 0.35 --max-lag 1]
 """
 
@@ -185,10 +191,19 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "window's all-gather issued after the next one's "
                         "reduce-scatter); swing (log2(N) exchanges of the "
                         "running sum with the rank at XOR distance 2^t; "
-                        "power-of-two --dp). hierarchical and auto are "
-                        "not ported yet (ROADMAP.md A2)")
+                        "power-of-two --dp); hierarchical (--grad-quant "
+                        "ef8 with --dp and --sp both > 1: the exact "
+                        "reduce-scatter over each sp line, the ef8 wire "
+                        "over each dp line, the exact all-gather back); "
+                        "auto (measures every feasible schedule on the "
+                        "ranks at startup, keeps the plan as a JSON "
+                        "sidecar in --plan-dir/--ckpt-dir and reloads it "
+                        "on restart)")
     p.add_argument("--grad-windows", type=int, default=4, metavar="W",
                    help="window count for --grad-schedule windowed")
+    p.add_argument("--plan-dir", default=None,
+                   help="directory for --grad-schedule auto's measured "
+                        "collective plan (default: --ckpt-dir)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute with f32 master weights")
     p.add_argument("--remat", action="store_true",
@@ -481,18 +496,36 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     if sp > 1 and args.attn_window:
         _check_window_fits(args.attn_window, t // sp)
     # the quantized wires and the windowed and swing schedules need
-    # exactly one >1 data axis (and swing a power-of-two one)
+    # exactly one >1 data axis (and swing a power-of-two one); the
+    # hierarchical schedule is the ef8 wire over exactly two
     data_axes = {"dp": dp, "sp": sp}
     wire = grad_wire(args)
-    if wire in ("int8", "ef8") and args.grad_schedule not in (
-            "hierarchical", "auto"):
-        err = _two_phase_geometry_error(
-            f"--grad-quant {wire}", data_axes,
-            remedy="use f32/bf16 transport, fold the parallelism into dp, "
-                   "or (ef8, two axes) --grad-schedule hierarchical "
-                   "(measured by --grad-schedule auto)")
-        if err:
-            raise ValueError(err)
+    if args.grad_schedule == "hierarchical":
+        if wire != "ef8":
+            raise ValueError("--grad-schedule hierarchical IS the ef8 "
+                             "ICI x DCN hybrid (the compressed slow-plane "
+                             "leg is its point) — pair it with "
+                             "--grad-quant ef8")
+        wide = [f"{k}={v}" for k, v in data_axes.items() if v > 1]
+        if len(wide) != 2:
+            raise ValueError(
+                f"--grad-schedule hierarchical needs exactly two >1 data "
+                f"axes (outer = DCN group, inner = ICI axis), got "
+                f"{' '.join(wide) or 'none'} — reshape the mesh (e.g. "
+                f"--dp 2 --sp 2) or use a single-axis schedule")
+    elif wire in ("int8", "ef8"):
+        # auto on the hierarchical geometry (ef8, two >1 data axes) is
+        # legal: the autotuner measures the hierarchical arm there
+        two_wide = len([v for v in data_axes.values() if v > 1]) == 2
+        if not (args.grad_schedule == "auto" and wire == "ef8"
+                and two_wide):
+            err = _two_phase_geometry_error(
+                f"--grad-quant {wire}", data_axes,
+                remedy="use f32/bf16 transport, fold the parallelism into "
+                       "dp, or (ef8, two axes) --grad-schedule hierarchical "
+                       "(measured by --grad-schedule auto)")
+            if err:
+                raise ValueError(err)
     if args.grad_schedule in ("windowed", "swing"):
         err = _two_phase_geometry_error(
             f"--grad-schedule {args.grad_schedule}", data_axes,
@@ -574,6 +607,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                                                        elapsed_ms,
                                                        make_train_state,
                                                        make_train_step,
+                                                       mask_line,
                                                        tree_leaves, tree_map)
     from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
     from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
@@ -609,6 +643,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         params = tree_map(lambda p: p.detach().clone().to(device), params)
     state = make_train_state(cfg, generator=generator, params=params,
                              device=device)
+    plan_report = None
+    if cfg.transport_schedule == "auto":
+        cfg, plan_report = _collective_plan(args, cfg, state.params, group,
+                                            device, log)
     sync_times: list = []
     deadline = args.deadline_ms > 0
     step = make_train_step(cfg, group, sync_times, dynamic_valid=deadline)
@@ -628,7 +666,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                            deadline_s=args.deadline_ms / 1e3)
         trainer = DeadlineTrainer(paced_step, clock,
                                   dense_bucket_count(cfg, state.params),
-                                  max_lag=args.max_lag)
+                                  max_lag=args.max_lag,
+                                  line=mask_line(cfg, group))
         trainer.pacer.on_harvest = lambda _r: read_round()
 
     start, mgr = 0, None
@@ -715,6 +754,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
             if trainer is not None:
                 rep = trainer.reports[i - start]
                 fb = " FELL BACK TO EXACT" if rep.fell_back else ""
+                if rep.n_dropped > rep.n_masked:
+                    fb += f", {rep.n_dropped} dropped with their sp lines"
                 lossy = (f" [masked {rep.n_masked}/"
                          f"{trainer.clock.num_peers} ranks{fb}, "
                          f"min_count {min_counts[-1]}]")
@@ -805,6 +846,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         # host ms per step in the attention's exchanges (sp > 1)
         "attn_exchange_ms": exchange_ms,
     }
+    if plan_report is not None:
+        report["collective_plan"] = plan_report
     if trainer is not None:
         report["deadline"] = {
             "deadline_ms": args.deadline_ms, "max_lag": args.max_lag,
@@ -812,6 +855,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
             "rounds": [{"step": start + rep.round,
                         "valid_peers": list(rep.valid_peers),
                         "n_masked": rep.n_masked, "fell_back": rep.fell_back,
+                        "n_dropped": rep.n_dropped,
                         "min_bucket_count": count}
                        for rep, count in zip(trainer.reports, min_counts)],
             "masked_round_count": trainer.masked_round_count}
@@ -824,7 +868,51 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
             "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                                if device.type == "cuda" else None),
             "param_checksum": _param_checksum(state.params)}
+        if state.residual is not None:
+            # the ef8 state's shape, and its largest entry in each sp
+            # column shard (the hierarchical sync updates only the shard
+            # this rank owns)
+            res = state.residual
+            cols = -(-res.shape[1] // args.sp)
+            report["rank_info"].update(
+                residual_shape=list(res.shape),
+                residual_abs_max_by_sp_shard=[
+                    float(res[:, j * cols:(j + 1) * cols].abs().max())
+                    for j in range(args.sp)])
     return report
+
+
+def _collective_plan(args: argparse.Namespace, cfg, params, group, device,
+                     log) -> tuple:
+    """``--grad-schedule auto``: measure (or reload) the collective plan
+    on the run's own rank group at its own bucket matrix, every rank
+    together, and freeze it into the config. Returns the config and the
+    report's ``collective_plan`` entry."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch.models.train import dense_bucket_count
+    from akka_allreduce_tpu_torch.ops.autotune import load_or_measure
+    from akka_allreduce_tpu_torch.parallel.group import RankGroup
+    shapes = [(dense_bucket_count(cfg, params), cfg.bucket_elems)]
+    plan_dir = args.plan_dir or args.ckpt_dir
+    if plan_dir is None:
+        log("note: --grad-schedule auto without --plan-dir/--ckpt-dir: "
+            "the plan is measured fresh every start (give it a directory "
+            "to reload on restart)")
+    t_plan = time.perf_counter()
+    plan, reused = load_or_measure(
+        plan_dir, group or RankGroup.single(device), shapes,
+        wire=cfg.grad_transport, log=log)
+    seconds = time.perf_counter() - t_plan
+    winners = {k: (e.schedule if e.schedule != "windowed"
+                   else f"windowed:{e.num_windows}")
+               for k, e in sorted(plan.entries.items())}
+    log(f"collective plan {plan.plan_hash} "
+        f"{'reloaded' if reused else 'measured'} in {seconds:.1f}s: "
+        f"{winners}")
+    return (dataclasses.replace(cfg, collective_plan=plan),
+            {"hash": plan.plan_hash, "reused": reused, "seconds": seconds,
+             "plan_dir": plan_dir, "plan": plan.to_json()})
 
 
 def _opt_state(state) -> dict:

@@ -31,7 +31,9 @@ and the optimizer update. With a group of more than one rank
   the data-axis order (dp-major, then sp: a rank's row is its global
   rank), and each rank hands its own row to the sync; masked buckets
   contribute exact zeros and the counts report the gap
-  (``runtime/straggler.py`` builds the masks from deadlines).
+  (``runtime/straggler.py`` builds the masks from deadlines; on the
+  hierarchical schedule the rows of one ``sp`` line must agree, which
+  its ``DeadlineTrainer`` holds when given :func:`mask_line`).
 
 On one rank the sync is the identity and is skipped, as the JAX step's
 reduces over size-1 mesh axes; ``min_bucket_count`` is then 1.
@@ -52,8 +54,7 @@ PyTorch idiom in place of the JAX package's pure functions:
   stay f32.
 
 Left out and refused with ``NotImplementedError``: optimizers other than
-adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A5);
-the ``hierarchical`` and ``auto`` sync schedules (A2).
+adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ import dataclasses
 import math
 import time
 from functools import partial
-from typing import Callable, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -92,8 +93,10 @@ class TrainConfig:
     """The JAX ``TrainConfig`` fields the port uses, with their names and
     defaults. ``bucket_elems`` sizes the gradient buckets of the
     multi-rank sync; ``grad_transport`` (f32 | bf16 | int8 | ef8),
-    ``transport_schedule`` (fused | windowed | swing) and ``num_windows``
-    select its wire and schedule.
+    ``transport_schedule`` (fused | windowed | swing | hierarchical |
+    auto) and ``num_windows`` select its wire and schedule;
+    ``collective_plan`` is the measured ``CollectivePlan`` that "auto"
+    dispatches against (``ops/autotune.py``).
     ``attn_block_size`` serves ``attn_impl="blockwise"`` (the flash
     kernels' tile is their own constant)."""
 
@@ -116,6 +119,7 @@ class TrainConfig:
     grad_transport: str = "f32"
     transport_schedule: str = "fused"
     num_windows: int = 4
+    collective_plan: Any = None
 
 
 @dataclasses.dataclass
@@ -139,7 +143,8 @@ def sync_config(cfg: TrainConfig, world: int) -> GradSyncConfig:
                           return_elem_counts=False,
                           transport=cfg.grad_transport,
                           transport_schedule=cfg.transport_schedule,
-                          num_windows=cfg.num_windows)
+                          num_windows=cfg.num_windows,
+                          plan=cfg.collective_plan)
 
 
 def quant_key(step: int) -> tuple:
@@ -346,6 +351,19 @@ def _mask_row(valid, rank: int, world: int, device: torch.device
         raise ValueError(f"valid must be (n_data_ranks={world}, "
                          f"num_buckets), got {tuple(valid.shape)}")
     return valid[rank].to(device)
+
+
+def mask_line(cfg: TrainConfig, group: Optional[RankGroup]) -> int:
+    """How many consecutive data ranks must share a round's mask row:
+    the ``sp`` line on the hierarchical schedule (ef8 over two live axes,
+    flagged, or "auto", whose only arm and fallback there is
+    hierarchical), whose ICI leg needs the line's masks to agree; else
+    1."""
+    if (group is None or cfg.grad_transport != "ef8"
+            or cfg.transport_schedule not in ("hierarchical", "auto")
+            or group.axis_size("dp") == 1):
+        return 1
+    return group.axis_size("sp")
 
 
 def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,

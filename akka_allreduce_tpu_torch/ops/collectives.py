@@ -19,6 +19,9 @@ axis) and returns this rank's result:
 * :func:`ef8_two_phase_allreduce` — block scales and error feedback.
 * :func:`swing_allreduce` / :func:`quantized_swing_allreduce` — the ±2^t
   exchange schedule on a power-of-two group.
+* :func:`hierarchical_allreduce` — the ICI x DCN hybrid on the ``(dp,
+  sp)`` mesh: the exact two-phase over each ``sp`` line, the ef8 wire
+  over each ``dp`` line (:meth:`RankGroup.along`).
 * :func:`exact_allreduce` — the standalone driver over a stacked array.
 
 Quantization keys. The JAX package derives threefry keys with
@@ -52,9 +55,6 @@ from akka_allreduce_tpu_torch.parallel.group import RankGroup, spawn_ranks
 # ef8 scale-block width: one f32 scale per this many int8 columns (the JAX
 # package's default; a multiple of 128, as the block kernels require)
 DEFAULT_EF_BLOCK = 512
-
-HIERARCHICAL = ("the hierarchical (ICI x DCN) schedule needs two data "
-                "axes of process subgroups: not ported yet (ROADMAP.md A2)")
 
 
 # -- keys ------------------------------------------------------------------
@@ -497,8 +497,62 @@ def quantized_swing_allreduce(buckets: torch.Tensor, key: tuple,
     return acc, new_residual
 
 
-def hierarchical_allreduce(*args, **kwargs):
-    raise NotImplementedError(HIERARCHICAL)
+def hierarchical_allreduce(buckets: torch.Tensor, key: tuple,
+                           group: RankGroup,
+                           residual: Optional[torch.Tensor] = None,
+                           valid: Optional[torch.Tensor] = None,
+                           block_elems: int = DEFAULT_EF_BLOCK,
+                           dcn_axis: str = "dp", ici_axis: str = "sp"):
+    """The ICI x DCN hybrid schedule: the exact reduce-scatter of the
+    columns over ``ici_axis`` (the fast links), the ef8 two-phase with
+    error feedback on this rank's column shard over ``dcn_axis`` (the
+    slow group: ``payload / (4 |ici|)`` bytes a rank instead of
+    ``payload``), then the exact all-gather over ``ici_axis``. Outer =
+    DCN = ``dp``, inner = ICI = ``sp``: the JAX mesh order.
+
+    ``residual`` keeps the full bucket shape on every schedule; a rank
+    updates only the columns of the shard it owns after the
+    reduce-scatter. ``valid`` masks rows for the round: a masked row
+    contributes exact zeros to both legs and keeps its residual. The
+    masks of one ``ici_axis`` line must agree (a deadline masks whole
+    lines, never half of one). ``|ici| = 1`` is the ef8 two-phase over
+    DCN; ``|dcn| = 1`` leaves the exact two-phase over ICI with the
+    residual unchanged. Returns ``(summed, new_residual)``."""
+    if buckets.dim() != 2:
+        raise ValueError(
+            f"expected (num_buckets, bucket_elems), got "
+            f"{tuple(buckets.shape)}")
+    if residual is None:
+        residual = torch.zeros_like(buckets)
+    if residual.shape != buckets.shape:
+        raise ValueError(
+            f"residual shape {tuple(residual.shape)} != buckets shape "
+            f"{tuple(buckets.shape)} — the error-feedback state keeps the "
+            f"full bucket shape on every schedule (hierarchical updates "
+            f"only the owned-shard columns)")
+    ici, dcn = group.along(ici_axis), group.along(dcn_axis)
+    if ici.world == 1:
+        return ef8_two_phase_allreduce(buckets, key, dcn, residual=residual,
+                                       valid=valid, block_elems=block_elems)
+    e = buckets.shape[1]
+    xp, _ = _pad_scatter_geometry(_mask_rows(buckets, valid), ici.world)
+    cols = xp.shape[-1] // ici.world
+    lo, hi = ici.rank * cols, (ici.rank + 1) * cols
+    # the exact reduce phase: this rank owns the line's sum of its
+    # column shard (the masked-reduce kernel adds the line's blocks)
+    shard = _reduce_scatter(xp, ici)
+    # the owned shard's residual columns (padded columns carry zero
+    # gradient, quantize to exact zeros and keep a zero residual)
+    resid_p, _ = _pad_scatter_geometry(residual, ici.world)
+    # decorrelate the phase-2 draws of the line's ranks
+    key = fold_in(key, ici.rank)
+    out_shard, new_shard = ef8_two_phase_allreduce(
+        shard, key, dcn, residual=resid_p[:, lo:hi].contiguous(),
+        valid=valid, block_elems=block_elems)
+    out = _all_gather_last(out_shard, ici)[..., :e]
+    new_residual = resid_p.clone()
+    new_residual[:, lo:hi] = new_shard
+    return out, new_residual[:, :e].contiguous()
 
 
 # -- the standalone driver -------------------------------------------------

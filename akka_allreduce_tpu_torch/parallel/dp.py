@@ -14,8 +14,13 @@ Per round:
 Wires (``transport``): ``f32``; ``bf16`` (the payload cast, sums in f32
 on the device, the result rounded to bf16 once); ``int8`` (per-row
 scales, stochastic rounding); ``ef8`` (block scales and a carried
-error-feedback residual). Schedules: ``fused``, ``windowed``, ``swing``.
-``hierarchical`` and ``auto`` are not ported yet (ROADMAP.md A2).
+error-feedback residual). Schedules: ``fused``, ``windowed``, ``swing``;
+``hierarchical`` (the ef8 ICI x DCN hybrid over the ``(dp, sp)`` mesh's
+two axes, ``ops/collectives.py hierarchical_allreduce``); ``auto``
+(each bucket matrix's ``(rows, cols)`` class resolved against
+``GradSyncConfig.plan``, a ``CollectivePlan`` of ``ops/autotune.py``,
+before dispatch: a frozen plan gives every class one fixed schedule on
+every call).
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ from typing import Any, Optional
 
 import torch
 
+from akka_allreduce_tpu_torch.ops.autotune import live_axes, resolve_schedule
 from akka_allreduce_tpu_torch.ops.bucketing import BucketSpec, bucketize, \
     vector_to_tree
 from akka_allreduce_tpu_torch.ops.collectives import (
-    DEFAULT_EF_BLOCK, ef8_two_phase_allreduce,
+    DEFAULT_EF_BLOCK, ef8_two_phase_allreduce, hierarchical_allreduce,
     pipelined_two_phase_allreduce, psum_allreduce, quantized_swing_allreduce,
     quantized_two_phase_allreduce, swing_allreduce)
 from akka_allreduce_tpu_torch.ops.masked import (bucket_counts,
@@ -37,10 +43,7 @@ from akka_allreduce_tpu_torch.ops.masked import (bucket_counts,
 from akka_allreduce_tpu_torch.parallel.group import RankGroup
 
 TRANSPORTS = ("f32", "bf16", "int8", "ef8")
-SCHEDULES = ("fused", "windowed", "swing")
-NOT_PORTED = ("transport_schedule={!r} is not ported yet: it needs process "
-              "subgroups (hierarchical) or the measured collective plan "
-              "(auto), ROADMAP.md A2; use fused, windowed or swing")
+SCHEDULES = ("fused", "windowed", "swing", "hierarchical", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +53,9 @@ class GradSyncConfig:
     contribution count and scales to ``rescale_target`` (the rank count
     makes an exact round equal the sum); ``False`` returns the raw sum.
     ``return_elem_counts`` materialises per-element counts (an extra
-    full-size int32 tensor)."""
+    full-size int32 tensor). ``plan`` is the measured ``CollectivePlan``
+    that ``transport_schedule="auto"`` dispatches against (None: auto
+    takes the hand-flag default); every other schedule ignores it."""
 
     bucket_elems: int = 1 << 18
     average: bool = True
@@ -59,6 +64,7 @@ class GradSyncConfig:
     transport: str = "f32"
     transport_schedule: str = "fused"
     num_windows: int = 4
+    plan: Any = None
 
 
 @dataclasses.dataclass
@@ -66,7 +72,9 @@ class GradSyncResult:
     """Reduced gradients, per-element counts (a tree like the gradients,
     or None), the per-bucket counts, and for ef8 the updated residual
     (buckets-shaped f32; thread it into the next round) and, when opted
-    in, the phase-2 residual."""
+    in, the phase-2 residual. ``schedule`` is the schedule that ran: what
+    "auto" resolved to, "fused" for a hierarchical sync on fewer than two
+    live axes, else the configured one."""
 
     grads: Any
     counts: Any
@@ -79,18 +87,26 @@ class GradSyncResult:
 
 
 def check_sync_config(config: GradSyncConfig) -> None:
-    """Refuse an unknown or unported wire or schedule."""
-    if config.transport_schedule in ("hierarchical", "auto"):
-        raise NotImplementedError(NOT_PORTED.format(
-            config.transport_schedule))
+    """Refuse an unknown wire or schedule, and a hierarchical schedule
+    on another wire than ef8."""
     if config.transport_schedule not in SCHEDULES:
         raise ValueError(
             f"unknown transport_schedule {config.transport_schedule!r}: "
-            f"'fused' (one collective pair), 'windowed' (the software-"
-            f"pipelined schedule) or 'swing' (the ±2^t exchange schedule)")
+            f"'fused' (one monolithic collective), 'windowed' (the "
+            f"software-pipelined schedule), 'swing' (the ±2^t "
+            f"short-cut exchange schedule), 'hierarchical' (the ef8 "
+            f"ICI x DCN hybrid), or 'auto' (the measured per-bucket-"
+            f"class plan, ops/autotune.py)")
     if config.transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {config.transport!r}: "
                          f"{TRANSPORTS}")
+    if config.transport_schedule == "hierarchical" \
+            and config.transport != "ef8":
+        raise ValueError(
+            f"transport_schedule='hierarchical' IS the ef8 ICI x "
+            f"DCN hybrid (the compressed DCN leg is its point) — "
+            f"got transport={config.transport!r}; use "
+            f"transport='ef8', or a different schedule")
 
 
 def window_count(rows: int, num_windows: int) -> int:
@@ -126,12 +142,32 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
         group = RankGroup.single(buckets.device)
     n = group.world
     live = n > 1
-    schedule = config.transport_schedule
+    # the mesh axes that move bytes, outer (DCN) first
+    live_sizes = [size for _, size in live_axes(group)]
+    schedule, n_windows = config.transport_schedule, config.num_windows
+    if schedule == "auto":
+        # one resolution per bucket class against the frozen plan: the
+        # same class dispatches the same schedule on every call and rank
+        schedule, n_windows = resolve_schedule(
+            config.plan, buckets.shape[0], buckets.shape[1], live_sizes,
+            config.transport, default_windows=config.num_windows)
     windowed = schedule == "windowed" and live
     swing = schedule == "swing" and live
-    if windowed and config.num_windows < 1:
-        raise ValueError(f"num_windows must be >= 1, got "
-                         f"{config.num_windows}")
+    hier = schedule == "hierarchical"
+    if hier:
+        # the wire was checked above; auto resolves to hierarchical on
+        # ef8 alone
+        if len(live_sizes) > 2:
+            raise ValueError(
+                f"hierarchical schedule needs exactly two (>1) data "
+                f"axes (outer = DCN group, inner = ICI axis); got "
+                f"{live_axes(group)} — fold the extra parallelism away")
+        if len(live_sizes) < 2:
+            # the mesh shrank under the flag: the fused ef8 two-phase
+            # over whatever is left
+            hier = False
+    if windowed and n_windows < 1:
+        raise ValueError(f"num_windows must be >= 1, got {n_windows}")
     quantized = config.transport in ("int8", "ef8")
     if quantized:
         if quant_key is None:
@@ -142,7 +178,7 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
         if config.transport == "ef8" and residual is None:
             residual = torch.zeros_like(buckets)
     if residual2 is not None and (config.transport != "ef8" or windowed
-                                  or swing):
+                                  or swing or hier):
         raise ValueError(
             "residual2 (phase-2 error feedback) needs the ef8 transport on "
             "the fused two-phase schedule — the broadcast-leg residual is "
@@ -152,7 +188,7 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
 
     def windowed_sum(mat: torch.Tensor) -> torch.Tensor:
         rows = mat.shape[0]
-        w = window_count(rows, config.num_windows)
+        w = window_count(rows, n_windows)
         pad = (-rows) % w
         if pad:
             mat = torch.cat([mat, mat.new_zeros((pad, mat.shape[1]))])
@@ -173,7 +209,11 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
             return mat if vmask is None else \
                 mat * vmask.to(mat.dtype)[:, None]
         if config.transport == "ef8":
-            if swing:
+            if hier:
+                out, new_residual = hierarchical_allreduce(
+                    mat, quant_key, group, residual=residual, valid=vmask,
+                    block_elems=DEFAULT_EF_BLOCK)
+            elif swing:
                 out, new_residual = quantized_swing_allreduce(
                     mat, quant_key, group, residual=residual, valid=vmask,
                     block_elems=DEFAULT_EF_BLOCK)
@@ -184,7 +224,7 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
             else:
                 out, new_residual = ef8_two_phase_allreduce(
                     mat, quant_key, group, residual=residual, valid=vmask,
-                    num_windows=config.num_windows if windowed else 1,
+                    num_windows=n_windows if windowed else 1,
                     block_elems=DEFAULT_EF_BLOCK)
             return out
         if swing:
@@ -195,7 +235,7 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
             mat * vmask.to(mat.dtype)[:, None]
         return quantized_two_phase_allreduce(
             contrib, quant_key, group,
-            num_windows=config.num_windows if windowed else 1)
+            num_windows=n_windows if windowed else 1)
 
     if valid is not None:
         valid = valid.to(buckets.device)
@@ -248,4 +288,6 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
     return GradSyncResult(grads=out_tree, counts=counts_tree,
                           bucket_counts=counts, spec=spec,
                           transport=config.transport, residual=new_residual,
-                          residual2=new_residual2, schedule=schedule)
+                          residual2=new_residual2,
+                          schedule="fused" if schedule == "hierarchical"
+                          and not hier else schedule)

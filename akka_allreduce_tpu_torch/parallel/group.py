@@ -13,6 +13,19 @@ runs over the whole world (the JAX ``grad_axes=("dp", "sp")``);
 :meth:`RankGroup.ppermute` moves blocks along one named axis (the ring
 attention's K/V rotation along ``sp``).
 
+Axis lines. :meth:`RankGroup.along` is the group of the ranks on this
+rank's line along one axis (the JAX collective over one mesh axis, such
+as ``lax.psum_scatter(..., "sp")``): a ``RankGroup`` whose ``rank`` and
+``world`` are the coordinate and size along that axis, so every
+rank-local collective of ``ops/collectives.py`` runs unchanged on a line
+of the mesh. Its ``all_to_all``, ``all_gather`` and ``barrier`` go
+through a ``torch.distributed`` subgroup of the line's ranks; a line of
+one rank is a group of one, a line that spans the world is the world.
+``dist.new_group`` is collective over the whole world, so
+:func:`make_axis_subgroups` makes every line's subgroup on every rank,
+in one order, before the rank's function runs (``spawn_ranks`` does),
+and :func:`free_axis_subgroups` destroys them before the process group.
+
 The group moves bytes and never reduces. Its collectives are the ones
 that the JAX sync and ring issue besides ``psum``: ``all_to_all`` (split
 and concatenate along axis 0), ``all_gather`` (tiled along axis 0), the
@@ -90,6 +103,9 @@ class RankGroup:
     backend: str
     device: torch.device
     sp: int = 1
+    # the global ranks of an axis line (:meth:`along`), in line order;
+    # None for the whole world
+    line: Optional[tuple] = None
 
     def __post_init__(self):
         if self.sp < 1 or self.world % self.sp:
@@ -99,6 +115,36 @@ class RankGroup:
     @staticmethod
     def single(device: "torch.device | str" = "cpu") -> "RankGroup":
         return RankGroup(0, 1, "none", torch.device(device))
+
+    def along(self, axis: str) -> "RankGroup":
+        """The ranks on this rank's line along ``axis``, as a group of
+        ``axis_size(axis)`` ranks with ``rank`` = ``axis_index(axis)``
+        and ``sp`` 1 (a JAX collective over that one mesh axis)."""
+        line = tuple(self._global(self.axis_rank(axis, q))
+                     for q in range(self.axis_size(axis)))
+        if len(line) == 1:
+            return RankGroup.single(self.device)
+        if len(line) == self.world:
+            return self if self.sp == 1 else dataclasses.replace(
+                self, rank=self.axis_index(axis), sp=1)
+        return RankGroup(self.axis_index(axis), len(line), self.backend,
+                         self.device, 1, line)
+
+    def _global(self, index: int) -> int:
+        """The global rank of this group's rank ``index``."""
+        return index if self.line is None else self.line[index]
+
+    def _pg(self):
+        """The process group of this group's collectives: the default
+        (world) group, or the line's subgroup."""
+        if self.line is None:
+            return None
+        pg = _SUBGROUPS.get(self.line)
+        if pg is None:
+            raise RuntimeError(
+                f"no process subgroup for ranks {self.line}: "
+                f"make_axis_subgroups must run on every rank first")
+        return pg
 
     # -- mesh coordinates ----------------------------------------------------
 
@@ -155,7 +201,7 @@ class RankGroup:
             return x
         src = self._stage(x)
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src)
+        dist.all_to_all_single(out, src, group=self._pg())
         return self._unstage(out, x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +212,7 @@ class RankGroup:
         src = self._stage(x)
         out = torch.empty((self.world * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        _all_gather_flat(out, src)
+        _all_gather_flat(out, src, group=self._pg())
         return self._unstage(out, x)
 
     def exchange(self, x: torch.Tensor, peer: int) -> torch.Tensor:
@@ -176,6 +222,7 @@ class RankGroup:
             return x
         src = self._stage(x)
         out = torch.empty_like(src)
+        peer = self._global(peer)
         works = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, peer),
                                         dist.P2POp(dist.irecv, out, peer)])
         for w in works:
@@ -195,16 +242,16 @@ class RankGroup:
         out = torch.empty_like(src)
         works = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, src.reshape(-1).view(torch.uint8),
-                       self._shifted(axis, shift)),
+                       self._global(self._shifted(axis, shift))),
             dist.P2POp(dist.irecv, out.reshape(-1).view(torch.uint8),
-                       self._shifted(axis, -shift))])
+                       self._global(self._shifted(axis, -shift)))])
         for w in works:
             w.wait()
         return self._unstage(out, x)
 
     def barrier(self) -> None:
         if self.world > 1:
-            dist.barrier()
+            dist.barrier(group=self._pg())
 
     # -- peer memory -------------------------------------------------------
 
@@ -214,6 +261,9 @@ class RankGroup:
         process. A collective: every rank of the world makes the same
         calls in the same order. The first call for a key allocates and
         exchanges the handles; later calls return the cached buffers."""
+        if self.line is not None:
+            raise ValueError("peer buffers are made on the whole group, "
+                             "not on an axis line")
         peers = tuple(self.axis_rank(axis, q)
                       for q in range(self.axis_size(axis))
                       if q != self.axis_index(axis))
@@ -265,6 +315,37 @@ class _DeviceMemory:
 
 # (rank, world, sp, axis, nbytes) -> PeerBuffers, for this process
 _PEER_BUFFERS: dict = {}
+# the global ranks of an axis line -> its process subgroup, for the lines
+# this process is on
+_SUBGROUPS: dict = {}
+
+
+def axis_lines(world: int, sp: int) -> list:
+    """Every axis line of the ``(world / sp, sp)`` mesh that needs a
+    subgroup (more than one rank, fewer than the world), as tuples of
+    global ranks: the ``sp`` lines (one per ``dp`` row), then the ``dp``
+    lines (one per ``sp`` column)."""
+    dp = world // sp
+    if sp == 1 or dp == 1:
+        return []
+    return ([tuple(i * sp + j for j in range(sp)) for i in range(dp)]
+            + [tuple(i * sp + j for i in range(dp)) for j in range(sp)])
+
+
+def make_axis_subgroups(group: RankGroup) -> None:
+    """Make the subgroup of every axis line on this rank. A collective:
+    ``dist.new_group`` must be called by every rank of the world for
+    every line, in the same order, members or not."""
+    for line in axis_lines(group.world, group.sp):
+        pg = dist.new_group(list(line))
+        if group.rank in line:
+            _SUBGROUPS[line] = pg
+
+
+def free_axis_subgroups() -> None:
+    """Destroy this process's line subgroups (before the world's)."""
+    while _SUBGROUPS:
+        dist.destroy_process_group(_SUBGROUPS.popitem()[1])
 _IPC: dict = {}
 
 
@@ -384,11 +465,13 @@ def _worker(rank: int, world: int, sp: int, backend: str, device: str,
                                 rank=rank, world_size=world)
         group = RankGroup(rank, world, backend, dev, sp)
         try:
+            make_axis_subgroups(group)
             out = fn(group, *args)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             free_peer_buffers(group)
         finally:
+            free_axis_subgroups()
             dist.destroy_process_group()
         results.put((rank, True, pickle.dumps(_to_cpu(out))))
     except Exception:  # noqa: BLE001 - the rank's boundary: reported

@@ -44,12 +44,15 @@ class RoundReport:
     ``valid_peers``/``n_masked`` describe what the clock SAW (before the
     fallback), so a fully-straggled round reports ``n_masked ==
     num_peers`` even though the step ran exact for liveness;
-    ``fell_back`` marks those rounds."""
+    ``fell_back`` marks those rounds. ``n_dropped`` counts the peers
+    whose contribution the round left out: with ``line`` > 1 a late peer
+    drops its whole line, and a fallback round drops none."""
 
     round: int
     valid_peers: tuple[bool, ...]
     n_masked: int
     fell_back: bool = False
+    n_dropped: int = 0
 
 
 class DeadlineTrainer:
@@ -64,13 +67,22 @@ class DeadlineTrainer:
     misses its deadline is masked for every bucket that round (the
     reference's analogue: a worker whose scatter never arrived
     contributes to no chunk). Per-bucket granularity stays available one
-    level down (``allreduce_gradients(valid=...)``)."""
+    level down (``allreduce_gradients(valid=...)``).
+
+    ``line`` > 1 masks peers in consecutive groups of that many (the
+    ``sp`` lines of the hierarchical schedule, whose exact ICI leg needs
+    the masks of a line to agree): a late peer masks its whole line, and
+    a round whose every line has a late peer falls back to exact."""
 
     def __init__(self, step: Callable, clock: RoundClock, num_buckets: int,
-                 max_lag: int = 1):
+                 max_lag: int = 1, line: int = 1):
+        if line < 1 or clock.num_peers % line:
+            raise ValueError(f"line={line} must divide the "
+                             f"{clock.num_peers} peers")
         self.step = step
         self.clock = clock
         self.num_buckets = num_buckets
+        self.line = line
         self.pacer = RoundPacer(max_lag)
         self.reports: list[RoundReport] = []
 
@@ -96,8 +108,10 @@ class DeadlineTrainer:
         if not self.clock.is_open(r):
             self.clock.open_round(r)
         observed = self.clock.valid_peers(r)
-        valid = observed
-        fell_back = not any(observed)
+        valid = [all(observed[p - p % self.line:p - p % self.line
+                              + self.line])
+                 for p in range(self.clock.num_peers)]
+        fell_back = not any(valid)
         if fell_back:
             # an all-masked round would sum to count 0 everywhere and
             # zero the gradient; keep liveness by running it exact, as
@@ -111,7 +125,7 @@ class DeadlineTrainer:
         self.reports.append(RoundReport(
             round=r, valid_peers=tuple(bool(v) for v in observed),
             n_masked=sum(1 for v in observed if not v),
-            fell_back=fell_back))
+            fell_back=fell_back, n_dropped=sum(1 for v in valid if not v)))
         self.clock.expire(r - self.pacer.max_lag)
         return metrics
 

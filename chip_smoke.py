@@ -102,10 +102,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    JAX tests' bound). Reports wall and sync ms per step and each rank's
    peak memory.
 10. sync at four ranks — ``allreduce_gradients`` on 64 x 65,536 random
-   bucket matrices, four gloo ranks on the card: every wire x schedule
-   (f32, bf16, int8, ef8 x fused, windowed, swing) and masked rounds.
-   Asserts every rank's output identical, each inside its wire's
-   envelope of the exact sum, and the counts exact.
+   bucket matrices, four gloo ranks on the card as a (dp 2, sp 2) mesh:
+   every wire x schedule (f32, bf16, int8, ef8 x fused, windowed, swing;
+   the world-spanning schedules ignore the mesh's shape), masked rounds,
+   and the ef8 hierarchical schedule (the exact reduce-scatter over each
+   sp line, ef8 over each dp line), unmasked and masked with masks that
+   agree within each sp line and one row masked everywhere, from a
+   seeded nonzero residual. Asserts every rank's output identical, each
+   inside its wire's envelope of the exact sum, and the counts exact;
+   for hierarchical also that it ran, that each rank's residual changed
+   only in its own sp column shard and there only in valid rows, and
+   that the row masked everywhere sums to exact zeros.
 
 11. ring kernels — hold the ring-flash forward, dq and dk/dv kernels
    (one hop each, all on tensor cores: bf16, and f32 in split TF32)
@@ -115,9 +122,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    at the sequence-parallel slice's shape (B 8, T_local 1024, 16 heads
    of 128, 4 KV heads) as rank 1's diagonal hop and as its past hop,
    then MQA, non-causal, a ragged T_local of 1000, head_dim 64 and 32,
-   and rank 1's two hops of ``train --sp 2`` at the CLI's defaults (B 2,
-   T_local 32, 4 heads of 32: less than one tile), each on a carry that already holds a hop and on nonzero f32
-   accumulators. At the slice's shape each kernel, its
+   rank 1's two hops of ``train --sp 2`` at the CLI's defaults (B 2,
+   T_local 32, 4 heads of 32: less than one tile), and rank (i, 1)'s two
+   hops of phase 17's hierarchical run (B 4, T_local 1024, 16 heads of
+   128, MHA), each on a carry that already holds a hop and on nonzero
+   f32 accumulators. At the slice's shape each kernel, its
    plain version and the library call (``scaled_dot_product_attention``
    forward and backward on the same q and K/V block: causal on the
    diagonal hop, unmasked on the past hop; it merges no carry and returns
@@ -207,6 +216,38 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    gradient with counts of 1, ef8 must leave rank 1's residual bitwise
    unchanged.
 
+17. hierarchical and auto — the flagship's full width (d_model 2048, 16
+   heads of 128, d_ff 8192 gelu, vocab 32768, bf16 compute, f32 masters,
+   adamw lr 1e-4, batch 8, seq 2048, 3 steps) cut to 4 layers
+   (339,757,056 params: four ranks' ef8 training state share the 80 GB),
+   first on one card, then at ``--dp 2 --sp 2 --grad-quant ef8
+   --grad-schedule hierarchical`` on four gloo ranks on the card (4
+   sequences a dp line, 1,024 positions an sp rank). Asserts the bucket
+   matrix ceil(params / 65,536) x 65,536 on every rank, step 1's loss
+   within 1e-3 relative of the one-card run's and steps 2–3 within
+   ``HIER_LOSS_ATOL`` (1.7e-3) of it, parameters bitwise equal on every
+   rank, each rank's residual nonzero only in its own sp column shard,
+   rank 0's sync launches one masked reduce, one RTN and one stochastic
+   quantize and three dequantizes a step, rank (i, j) the ring kernels
+   4 (j + 1) times a step each and the flash kernels never, and the
+   one-card run the flash kernels 4 times a step. Two fault controls
+   must land outside that bound at step 2: no update at step 1 (one
+   card, ``--lr 0``) and one dp line's gradient dropped at step 1 (the
+   four ranks under ``--deadline-ms`` with a straggle draw that masks
+   that line, ``choose_line_drop``). Reports wall, sync and exchange ms
+   per step and peak memory per rank. Then the autotuner at the CLI's
+   defaults:
+   ``train --dp 2 --grad-schedule auto --plan-dir D`` twice (measured on
+   the ranks: fused, windowed:4, swing; then reloaded, the sidecar's
+   bytes unchanged), ``train --dp 2 --sp 2 --grad-quant ef8
+   --grad-schedule auto`` (hierarchical its only arm and winner); every
+   entry's note empty; each plan's table printed. Then the bench rows at
+   four ranks (``bench.py``: ``measure_device_goodput`` at 25M floats and
+   ``measure_quantized_collectives`` over its four payloads; each set of
+   rounds sized to 0.3 s on the slowest rank, at least 4 / 1 rounds, 3
+   reps), one JSON line each with its rounds and its spread;
+   a row with an error fails.
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -216,10 +257,12 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -227,6 +270,7 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 # (split TF32) at the card's 495 TFLOP/s of TF32
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 DEVICE = "cuda"  # the training phases' device (a CPU rehearsal sets "cpu")
+T_START = time.perf_counter()
 
 SERVE_ARGV = [
     "serve", "--vocab", "32768", "--d-model", "2048", "--n-heads", "16",
@@ -338,18 +382,25 @@ QUANT_LOSS_ATOL = 0.05  # int8/ef8 vs the f32 wire (TestEf8Training)
 # bits-tensor per-row quantizer (the JAX package's non-default int8
 # path; the int8 wire draws its bits in the kernel, row 4)
 MAIN_PATH_SYNC = tuple(k for k in SYNC_KERNELS if k != "quantize_int8")
-# phase 10: four ranks, every wire x schedule, and masked rounds
+# phase 10: four ranks, every wire x schedule, and masked rounds; the
+# ranks are a (dp 2, sp 2) mesh, which the world-spanning schedules
+# ignore and the hierarchical one runs on
 SYNC4_SHAPE = (64, 65536)
+SYNC4_SP = 2
 SYNC4_CASES = [
     {"transport": tr, "schedule": sc, "masked": False}
     for tr in ("f32", "bf16", "int8", "ef8")
     for sc in ("fused", "windowed", "swing")] + [
     {"transport": tr, "schedule": sc, "masked": True}
     for tr, sc in (("f32", "fused"), ("bf16", "windowed"), ("int8", "fused"),
-                   ("ef8", "fused"), ("ef8", "swing"))]
+                   ("ef8", "fused"), ("ef8", "swing"))] + [
+    {"transport": "ef8", "schedule": "hierarchical", "masked": m}
+    for m in (False, True)]
 # phase 11: (name, B, T_local, H, h_kv, D, causal, q_off, k_off), the
 # sequence-parallel slice's shape first, as rank 1's two hops at sp=2;
-# last, rank 1's two hops of `train --sp 2` at the CLI's defaults
+# then rank 1's two hops of `train --sp 2` at the CLI's defaults, and
+# rank (i, 1)'s two hops of phase 17's hierarchical run (MHA, 4
+# sequences a dp line, 1,024 positions an sp rank)
 RING_SHAPES = [
     ("slice-diagonal", 8, 1024, 16, 4, 128, True, 1024, 1024),
     ("slice-past", 8, 1024, 16, 4, 128, True, 1024, 0),
@@ -359,7 +410,9 @@ RING_SHAPES = [
     ("d64", 2, 1024, 16, 4, 64, True, 2048, 1024),
     ("d32", 2, 1024, 16, 4, 32, True, 2048, 1024),
     ("cli-defaults-diagonal", 2, 32, 4, 4, 32, True, 32, 32),
-    ("cli-defaults-past", 2, 32, 4, 4, 32, True, 32, 0)]
+    ("cli-defaults-past", 2, 32, 4, 4, 32, True, 32, 0),
+    ("hier-mha-diagonal", 4, 1024, 16, 16, 128, True, 1024, 1024),
+    ("hier-mha-past", 4, 1024, 16, 16, 128, True, 1024, 0)]
 RING_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/ring_flash.cu"
 RING_REPLACES = {
     "ring_fwd": "akka_allreduce_tpu/ops/pallas_kernels/ring_flash.py:61",
@@ -407,6 +460,36 @@ DEADLINE_RUNS = (("none", 1), ("ef8", 1), ("none", 0))
 DEADLINE_MAX_STEPS = 6
 # its direct masked sync: the flagship's bucket matrix, f32, a rank
 DEADLINE_SYNC_SHAPE = (8257, BUCKET_ELEMS)
+# phase 17: the flagship's full width at dp 2 x sp 2 on the ef8
+# hierarchical schedule, its depth cut to 4 layers (four ranks' ef8
+# training state share the card's 80 GB)
+HIER_ARGV = [
+    "train", "--d-model", "2048", "--n-heads", "16", "--n-layers", "4",
+    "--d-ff", "8192", "--vocab", "32768", "--seq", "2048", "--batch", "8",
+    "--bf16", "--lr", "1e-4", "--steps", "3", "--log-every", "1",
+    "--device", "cuda"]
+HIER_DIST = ["--dp", "2", "--sp", "2", "--dist-backend", "gloo",
+             "--grad-quant", "ef8", "--grad-schedule", "hierarchical"]
+HIER_PEAK_GB = 72.0  # the four ranks' summed peak the card must hold
+# steps 2-3's loss gap to the one-card run, from readings on the H100
+# (PERF.md §6): the sound run's 2.04e-4, the fault controls' step-2
+# gaps 1.44e-2 (one dp line dropped) and 1.94e-2 (no update); the
+# geometric mean of the sound gap and the smaller control
+HIER_LOSS_ATOL = 1.7e-3
+# the autotuner at the CLI's defaults: f32 at dp 2 (twice, one plan
+# directory: measured, then reloaded), then ef8 at dp 2 x sp 2
+AUTO_ARGV = ["train", "--steps", "3", "--log-every", "1", "--device",
+             "cuda", "--dist-backend", "gloo", "--grad-schedule", "auto"]
+AUTO_F32 = ["--dp", "2"]
+AUTO_EF8 = ["--dp", "2", "--sp", "2", "--grad-quant", "ef8"]
+# the bench rows at four ranks: the JAX payloads (None: the bench
+# module's, 25M floats in buckets of 3,125,000 for the goodput row), at
+# least 4 / 1 rounds, sized up to 0.3 s a set, 3 reps
+BENCH_RANKS = 4
+BENCH_R_HI, BENCH_R_LO, BENCH_REPS = 4, 1, 3
+BENCH_SET_S = 0.3
+BENCH_GOODPUT = None
+BENCH_PAYLOADS = None
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1270,10 +1353,17 @@ def expected_sync_launches(transport: str, schedule: str, world: int,
     (its own send, what it received, the broadcast). The windowed
     schedule repeats that per window; swing runs log2(world) hops of one
     quantize and two dequantizes (ef8: the first hop to nearest) and
-    sums f32/bf16 with plain adds."""
+    sums f32/bf16 with plain adds. The hierarchical schedule (ef8 on a
+    mesh whose dp and sp are both > 1) sums its sp line's blocks with one
+    masked reduce, then runs the fused ef8 over its dp line on the
+    shard."""
     out = dict.fromkeys(SYNC_KERNELS, 0)
     quant = "quantize_int8_prng"
     if world == 1:
+        return out
+    if schedule == "hierarchical":
+        out.update({"masked_reduce": 1, "quantize_int8_block_rtn": 1,
+                    "quantize_int8_block": 1, "dequantize_int8_block": 3})
         return out
     if schedule == "swing":
         hops = world.bit_length() - 1
@@ -1414,15 +1504,25 @@ def sync4_rank(group, cases: list, shape: tuple) -> list:
                                                       allreduce_gradients)
     rows, cols = shape
     out = []
+    arange = torch.arange(rows, device=group.device)
     for n, case in enumerate(cases):
+        hier = case["schedule"] == "hierarchical"
         xs = [torch.randn(shape, device=group.device,
                           generator=torch.Generator(group.device)
                           .manual_seed(1000 * n + r))
               for r in range(group.world)]
-        masks = [((torch.arange(rows, device=group.device) + r) % 5 != 0)
-                 .to(torch.int32) if case["masked"] else
-                 torch.ones(rows, dtype=torch.int32, device=group.device)
-                 for r in range(group.world)]
+        if not case["masked"]:
+            masks = [torch.ones(rows, dtype=torch.int32, device=group.device)
+                     for r in range(group.world)]
+        elif hier:
+            # the masks of an sp line agree (the schedule's rule); the
+            # last row is masked on every rank
+            masks = [(((arange + r // group.sp) % 5 != 0)
+                      & (arange != rows - 1)).to(torch.int32)
+                     for r in range(group.world)]
+        else:
+            masks = [((arange + r) % 5 != 0).to(torch.int32)
+                     for r in range(group.world)]
         contribs = [x.double() * m.double()[:, None]
                     for x, m in zip(xs, masks)]
         exact = sum(contribs)
@@ -1431,10 +1531,15 @@ def sync4_rank(group, cases: list, shape: tuple) -> list:
                              transport=case["transport"],
                              transport_schedule=case["schedule"],
                              num_windows=4)
+        resid = None
+        if hier:
+            resid = 1e-3 * torch.randn(
+                shape, device=group.device, generator=torch.Generator(
+                    group.device).manual_seed(5000 + 1000 * n + group.rank))
         res = allreduce_gradients(
             {"g": xs[group.rank]}, cfg, group,
             valid=masks[group.rank] if case["masked"] else None,
-            quant_key=(17, n, 0))
+            quant_key=(17, n, 0), residual=resid)
         got = res.grads["g"].double()
         excess = float((
             (got - exact).abs()
@@ -1442,11 +1547,40 @@ def sync4_rank(group, cases: list, shape: tuple) -> list:
                              contribs, group.world)).max())
         counts_ok = bool((res.bucket_counts.long()
                           == sum(m.long() for m in masks)).all())
-        out.append({**case, "digest": hashlib.sha256(
+        row = {**case, "digest": hashlib.sha256(
             res.grads["g"].cpu().numpy().tobytes()).hexdigest()[:16],
             "max_err": float((got - exact).abs().max()),
-            "excess_over_envelope": excess, "counts_exact": counts_ok})
+            "excess_over_envelope": excess, "counts_exact": counts_ok}
+        if hier:
+            row.update(hierarchical_checks(torch, group, res, resid,
+                                           masks[group.rank],
+                                           sum(masks) == 0))
+        out.append(row)
     return out
+
+
+def hierarchical_checks(torch, group, res, resid, mask, everywhere
+                        ) -> dict:
+    """Phase 10's hierarchical contracts on one rank: the schedule ran,
+    the residual changed only in this rank's owned columns (its sp
+    shard) and there only in valid rows, a row masked on every rank sums
+    to exact zeros."""
+    new = res.residual
+    cols = -(-new.shape[1] // group.sp)
+    lo = group.axis_index("sp") * cols
+    owned = torch.zeros(new.shape[1], dtype=torch.bool, device=new.device)
+    owned[lo:lo + cols] = True
+    keep = mask == 0
+    return {
+        "ran": res.schedule,
+        "residual_outside_owned_unchanged": bool(torch.equal(
+            new[:, ~owned], resid[:, ~owned])),
+        "masked_rows_keep_residual": bool(torch.equal(new[keep],
+                                                      resid[keep])),
+        "owned_valid_residual_moved": bool(
+            (new[~keep][:, owned] != resid[~keep][:, owned]).any()),
+        "rows_masked_everywhere_zero": bool(
+            (res.grads["g"][everywhere] == 0).all())}
 
 
 def phase_sync4(torch) -> dict:
@@ -1454,18 +1588,27 @@ def phase_sync4(torch) -> dict:
     from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     torch.cuda.empty_cache()
     ranks = spawn_ranks(sync4_rank, 4, "gloo", DEVICE, SYNC4_CASES,
-                        SYNC4_SHAPE)
+                        SYNC4_SHAPE, sp=SYNC4_SP)
     failures = []
     for n, case in enumerate(SYNC4_CASES):
         rows = [r[n] for r in ranks]
         identical = len({r["digest"] for r in rows}) == 1
         ok = identical and all(r["excess_over_envelope"] <= 0
                                and r["counts_exact"] for r in rows)
+        hier = {}
+        if case["schedule"] == "hierarchical":
+            hier = {k: [r[k] for r in rows] for k in (
+                "ran", "residual_outside_owned_unchanged",
+                "masked_rows_keep_residual", "owned_valid_residual_moved",
+                "rows_masked_everywhere_zero")}
+            ok = ok and set(hier.pop("ran")) == {"hierarchical"} and all(
+                all(v) for v in hier.values())
         emit("sync4", **case, identical_on_all_ranks=identical,
              max_err=max(r["max_err"] for r in rows),
              excess_over_envelope=max(r["excess_over_envelope"]
                                       for r in rows),
-             counts_exact=all(r["counts_exact"] for r in rows), ok=ok)
+             counts_exact=all(r["counts_exact"] for r in rows), **hier,
+             ok=ok)
         if not ok:
             failures.append(case)
     if failures:
@@ -2040,6 +2183,243 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
     return totals
 
 
+def expected_attention_launches(n_layers: int, sp: int, rank: int,
+                                steps: int) -> dict:
+    """A rank's flash and ring kernel launches in a training run: on one
+    card each flash kernel once a layer a step; at sp > 1 rank (i, j)
+    each ring kernel j + 1 times a layer a step, the flash kernels
+    never."""
+    ring = 0 if sp == 1 else n_layers * (rank % sp + 1) * steps
+    return {"ring": dict.fromkeys(RING_REPLACES, ring),
+            "flash": dict.fromkeys(FLASH_REPLACES,
+                                   n_layers * steps if sp == 1 else 0)}
+
+
+def choose_line_drop(draws, line: int) -> "tuple[float, int]":
+    """A --straggle-prob whose first round drops exactly one line of
+    ``line`` consecutive data ranks: the midpoint between the two
+    smallest of the lines' least step-1 draws. Returns it and the line
+    it drops."""
+    row = [float(d) for d in draws[0]]
+    mins = [min(row[i:i + line]) for i in range(0, len(row), line)]
+    order = sorted(range(len(mins)), key=mins.__getitem__)
+    lo, hi = mins[order[0]], mins[order[1]]
+    if not lo < hi:
+        raise ValueError(f"step 1's lines draw the same least value {lo}")
+    return (lo + hi) / 2, order[0]
+
+
+def hierarchical_controls(torch, one_losses: list) -> dict:
+    """The two faults that ``HIER_LOSS_ATOL`` must tell from a sound
+    sync, each read as its step-2 loss gap to the one-card run: no
+    update at step 1 (one card at ``--lr 0``), and one dp line's
+    gradient dropped at step 1 (``HIER_DIST`` under ``--deadline-ms``
+    with a straggle draw that makes that line late, so its sp line is
+    masked out of the round: the other line's 4 sequences alone)."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    two = ["--steps", "2"]
+    torch.cuda.empty_cache()
+    frozen = cli.run_train(parse(HIER_ARGV + two + ["--lr", "0"]))
+    torch.cuda.empty_cache()
+    args = parse(HIER_ARGV + HIER_DIST + two)
+    world = args.dp * args.sp
+    draws = straggle_draws(1, world, args.batch, args.seq, args.vocab)
+    prob, line = choose_line_drop(draws, args.sp)
+    dropped = cli.run_train(parse(
+        HIER_ARGV + HIER_DIST + two + ["--deadline-ms", str(DEADLINE_MS),
+                                       "--straggle-prob", repr(prob)]))
+    round1 = dropped["deadline"]["rounds"][0]
+    out = {
+        "frozen_step1": {"argv_extra": two + ["--lr", "0"],
+                         "losses": frozen["losses"],
+                         "step2_gap": abs(frozen["losses"][1]
+                                          - one_losses[1])},
+        "dropped_line": {"straggle_prob": prob, "line": line,
+                         "round1": round1, "losses": dropped["losses"],
+                         "step2_gap": abs(dropped["losses"][1]
+                                          - one_losses[1])}}
+    if round1["n_dropped"] != args.sp or round1["fell_back"] \
+            or round1["min_bucket_count"] != world - args.sp:
+        raise AssertionError(f"the control's step 1 dropped {round1}, "
+                             f"not dp line {line}'s {args.sp} ranks")
+    return out
+
+
+def phase_hierarchical(torch) -> dict:
+    """Phase 17, the full-width run: ``HIER_ARGV`` on one card, then at
+    ``HIER_DIST`` (four gloo ranks on the card, fresh processes whose
+    counters start at 0), then the two fault controls of the loss bound.
+    Returns the emitted row, rank 0's sync launches and the ring
+    kernels' launches summed over the ranks."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    torch.cuda.empty_cache()
+    one = cli.run_train(parse(HIER_ARGV))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = parse(HIER_ARGV + HIER_DIST)
+    report = cli.run_train(args)
+    seconds = time.perf_counter() - t0
+    cfg, ranks = report["config"], report["ranks"]
+    num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
+    per_sync = expected_sync_launches("ef8", "hierarchical",
+                                      report["dist"]["world"], num_buckets)
+    layers, steps = args.n_layers, args.steps
+    expected = {k: v * steps for k, v in per_sync.items()}
+    expected_attn = [expected_attention_launches(layers, args.sp, r["rank"],
+                                                 steps) for r in ranks]
+    got_attn = [{"ring": r["ring_launches"], "flash": r["launches"]}
+                for r in ranks + [one]]
+    expected_attn.append(expected_attention_launches(layers, 1, 0, steps))
+    losses, ref = report["losses"], one["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    later_gap = max(abs(a - b) for a, b in zip(losses[1:], ref[1:]))
+    sums = [r["param_checksum"] for r in ranks]
+    # rank (i, j) updates only its sp shard j of the residual
+    owned = [[(m > 0) == (j == r["rank"] % args.sp)
+              for j, m in enumerate(r["residual_abs_max_by_sp_shard"])]
+             for r in ranks]
+    sync_ms = ranks[0]["sync_ms"]
+    peaks = [r["peak_memory_gb"] for r in ranks]
+    t1 = time.perf_counter()
+    controls = hierarchical_controls(torch, ref)
+    row = {
+        "argv": HIER_ARGV + HIER_DIST, "params": cfg["params"],
+        "n_layers": cfg["n_layers"], "num_buckets": num_buckets,
+        "residual_shapes": [r["residual_shape"] for r in ranks],
+        "losses": losses, "one_card_losses": ref, "loss_rel_diff": rel,
+        "step1_rtol": SP_LOSS_RTOL, "later_gap": later_gap,
+        "later_atol": HIER_LOSS_ATOL, "controls": controls,
+        "param_checksums": sums,
+        "residual_abs_max_by_sp_shard": [
+            r["residual_abs_max_by_sp_shard"] for r in ranks],
+        "sync_launches": ranks[0]["sync_launches"],
+        "expected_sync_launches": expected,
+        "attn_launches_per_rank_then_one_card": got_attn,
+        "expected_attn_launches": expected_attn,
+        "step_ms": report["step_ms"],
+        "wall_ms_per_step": report["wall_ms_per_step"],
+        "one_card_wall_ms_per_step": one["wall_ms_per_step"],
+        "sync_ms": sync_ms,
+        "sync_ms_per_step": statistics.mean(sync_ms[1:] or sync_ms),
+        "attn_exchange_ms_per_step": statistics.mean(
+            ranks[0]["attn_exchange_ms"][1:]
+            or ranks[0]["attn_exchange_ms"]),
+        "peak_memory_gb_per_rank": peaks,
+        "peak_memory_gb_sum": sum(peaks) if all(peaks) else None,
+        "run_seconds": seconds,
+        "controls_seconds": time.perf_counter() - t1}
+    emit("hierarchical_train", **row)
+    if not all(math.isfinite(x) for x in losses + ref):
+        raise AssertionError(f"non-finite losses {losses} / {ref}")
+    if [r["residual_shape"] for r in ranks] != [
+            [num_buckets, cfg["bucket_elems"]]] * len(ranks):
+        raise AssertionError(f"bucket matrix {row['residual_shapes']}, "
+                             f"expected {num_buckets} x "
+                             f"{cfg['bucket_elems']}")
+    if len(rel) != steps or rel[0] > SP_LOSS_RTOL \
+            or later_gap >= HIER_LOSS_ATOL:
+        raise AssertionError(f"losses {losses} vs one card {ref}")
+    faint = {k: c["step2_gap"] for k, c in controls.items()
+             if not c["step2_gap"] > HIER_LOSS_ATOL}
+    if faint:
+        raise AssertionError(f"fault controls within {HIER_LOSS_ATOL} of "
+                             f"one card: {faint}")
+    if len(set(sums)) != 1:
+        raise AssertionError(f"ranks' parameters differ {sums}")
+    if not all(all(o) for o in owned):
+        raise AssertionError(f"residuals outside the owned shard: "
+                             f"{row['residual_abs_max_by_sp_shard']}")
+    if ranks[0]["sync_launches"] != expected:
+        raise AssertionError(f"sync launches {ranks[0]['sync_launches']}, "
+                             f"expected {expected}")
+    if got_attn != expected_attn:
+        raise AssertionError(f"attention launches (the ranks, then one "
+                             f"card) {got_attn}, expected {expected_attn}")
+    return {"row": row, "launches": ranks[0]["sync_launches"],
+            "ring": {k: sum(r["ring_launches"][k] for r in ranks)
+                     for k in RING_REPLACES}}
+
+
+def phase_auto(torch, plan_dir: str) -> dict:
+    """Phase 17, the autotuner at the CLI's defaults: the f32 dp=2 plan
+    measured into ``plan_dir`` and reloaded with its sidecar's bytes
+    unchanged, then the ef8 dp 2 x sp 2 plan, whose only arm and winner
+    is hierarchical; every entry's note empty."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.autotune import (PLAN_SIDECAR,
+                                                       CollectivePlan,
+                                                       plan_markdown_table)
+    parse = cli.build_parser().parse_args
+    sidecar = os.path.join(plan_dir, PLAN_SIDECAR + ".json")
+    runs, sidecars = [], []
+    for extra in (AUTO_F32 + ["--plan-dir", plan_dir],
+                  AUTO_F32 + ["--plan-dir", plan_dir], AUTO_EF8):
+        torch.cuda.empty_cache()
+        report = cli.run_train(parse(AUTO_ARGV + extra))
+        runs.append(report)
+        if "--plan-dir" in extra:
+            with open(sidecar, "rb") as f:
+                sidecars.append(f.read())
+    failures = []
+    for n, report in enumerate(runs):
+        info = report["collective_plan"]
+        plan = CollectivePlan.from_json(info["plan"])
+        notes = [e.note for e in plan.entries.values()]
+        winners = {k: e.schedule for k, e in plan.entries.items()}
+        arms = sorted({a for e in plan.entries.values()
+                       for a in e.timings_us})
+        emit("auto_plan", run=n,
+             argv=AUTO_ARGV + (AUTO_F32 if n < 2 else AUTO_EF8),
+             hash=info["hash"], reused=info["reused"],
+             seconds=info["seconds"], winners=winners, arms=arms,
+             notes=notes, losses=report["losses"],
+             wall_ms_per_step=report["wall_ms_per_step"])
+        print(plan_markdown_table(plan), flush=True)
+        if any(notes):
+            failures.append(f"run {n}: notes {notes}")
+        if not all(math.isfinite(x) for x in report["losses"]):
+            failures.append(f"run {n}: losses {report['losses']}")
+        if n == 0 and (info["reused"] or arms != ["fused", "swing",
+                                                  "windowed:4"]):
+            failures.append(f"run 0: reused {info['reused']}, arms {arms}")
+        if n == 1 and not (info["reused"] and info["hash"]
+                           == runs[0]["collective_plan"]["hash"]
+                           and sidecars[0] == sidecars[1]):
+            failures.append("run 1 did not reload the plan byte for byte")
+        if n == 2 and not (arms == ["hierarchical"]
+                           and set(winners.values()) == {"hierarchical"}):
+            failures.append(f"run 2: arms {arms}, winners {winners}")
+    if failures:
+        raise AssertionError(f"auto plans: {failures}")
+    return {"hashes": [r["collective_plan"]["hash"] for r in runs]}
+
+
+def phase_bench_rows(torch) -> dict:
+    """Phase 17, the bench rows at ``BENCH_RANKS`` ranks on the card: one
+    JSON line per row of ``measure_device_goodput`` and
+    ``measure_quantized_collectives`` (the JAX payloads, at least
+    ``BENCH_R_HI`` / ``BENCH_R_LO`` rounds, sized up to ``BENCH_SET_S``
+    seconds a set, ``BENCH_REPS`` reps)."""
+    from akka_allreduce_tpu_torch import bench
+    torch.cuda.empty_cache()
+    sizing = {"r_hi": BENCH_R_HI, "r_lo": BENCH_R_LO, "reps": BENCH_REPS,
+              "ranks": BENCH_RANKS, "device": DEVICE,
+              "set_seconds": BENCH_SET_S}
+    goodput = {} if BENCH_GOODPUT is None else dict(
+        zip(("elems", "bucket_elems"), BENCH_GOODPUT))
+    payloads = {} if BENCH_PAYLOADS is None else {"payloads": BENCH_PAYLOADS}
+    rows = list(bench.measure_device_goodput(**goodput, **sizing))
+    rows += bench.measure_quantized_collectives(**payloads, **sizing)
+    for row in rows:
+        print(json.dumps({"phase": "bench_row", **row}), flush=True)
+    errors = [r for r in rows if "error" in r]
+    if errors:
+        raise AssertionError(f"bench rows failed: {errors}")
+    return {"rows": len(rows)}
+
+
 def allreduce_bounds(n: int, elems: int) -> dict:
     """Per kernel, ms at the card's memory rate with all n ranks on one
     card: ``function`` — every rank reads its input once and writes its
@@ -2518,10 +2898,23 @@ def main() -> int:
 
     # 16. the flagship at dp=2 under straggler deadlines
     deadline = phase_train_deadline(torch, dp["runs"])
-    emit("train_deadline_phase_seconds",
-         train_deadline=time.perf_counter() - t16)
+    t17 = time.perf_counter()
+    emit("train_deadline_phase_seconds", train_deadline=t17 - t16)
+
+    # 17. the hierarchical schedule at full width, the autotuner at the
+    # CLI's defaults, the bench rows
+    hier = phase_hierarchical(torch)
+    t17b = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="plan-") as plan_dir:
+        phase_auto(torch, plan_dir)
+    t17c = time.perf_counter()
+    phase_bench_rows(torch)
+    emit("hierarchical_auto_phase_seconds",
+         seconds=time.perf_counter() - t17, hierarchical_train=t17b - t17,
+         auto=t17c - t17b, bench_rows=time.perf_counter() - t17c,
+         script_seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
-                     for k in SYNC_KERNELS}
+                     + hier["launches"][k] for k in SYNC_KERNELS}
 
     row = timed["serve", "torch.float32"]
     long_row = timed["long", "torch.float32"]
@@ -2553,9 +2946,10 @@ def main() -> int:
             "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
-    # the ring kernels of phase 13's two runs: bf16, and f32 (named with
-    # _f32, split TF32; phase 15's sp=2 run added), each timed at phase
-    # 11's past hop; the f32 bound is that of three TF32 products
+    # the ring kernels of phase 13's two runs: bf16 (phase 17's
+    # hierarchical run added), and f32 (named with _f32, split TF32;
+    # phase 15's sp=2 run added), each timed at phase 11's past hop; the
+    # f32 bound is that of three TF32 products
     for dtype, suffix in (("bfloat16", ""), ("float32", "_f32")):
         rrow = ring["slice-past", f"torch.{dtype}"]
         for kernel, err_keys, part in (
@@ -2564,7 +2958,8 @@ def main() -> int:
                 ("ring_dkv", ("dk", "dv"), "backward")):
             split = rrow.get("bound_tf32x3_ms", {})
             launches = sp_launches[dtype]["ring"][kernel] + (
-                defaults["sp2"]["ring"][kernel] if suffix else 0)
+                defaults["sp2"]["ring"][kernel] if suffix
+                else hier["ring"][kernel])
             kernels.append({
                 "name": kernel + suffix, "kernel": cuda_kernel(kernel, suffix),
                 "route": "cuda", "source": RING_SOURCE,

@@ -5,9 +5,12 @@ card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
 flash and ring kernels' bounds, the kernels line's flash rows, the build
 phase's check of the tensor-core kernels, phase 16's straggle schedule
-and expected launches, and its refusal to run without CUDA.
+and expected launches, phase 10's and 17's rehearsals at a tiny size
+with the hierarchical launch arithmetic, and its refusal to run without
+CUDA.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -298,14 +301,24 @@ def test_refuses_without_cuda():
 
 
 class _LoopbackGroup:
-    """A stand-in for a RankGroup of ``world`` ranks inside one process:
-    every peer sends what this rank sends. The sums it gives are wrong,
-    but the control flow (which kernels each schedule calls, how often)
-    is the real one."""
+    """A stand-in for a RankGroup of ``world`` ranks, a ``(world / sp,
+    sp)`` mesh, inside one process: every peer sends what this rank
+    sends. The sums it gives are wrong, but the control flow (which
+    kernels each schedule calls, how often) is the real one."""
 
-    def __init__(self, world):
-        self.rank, self.world, self.backend = 0, world, "loopback"
+    def __init__(self, world, sp=1):
+        self.rank, self.world, self.sp = 0, world, sp
+        self.backend = "loopback"
         self.device = torch.device("cpu")
+
+    def axis_size(self, axis):
+        return self.sp if axis == "sp" else self.world // self.sp
+
+    def axis_index(self, axis):
+        return 0
+
+    def along(self, axis):
+        return _LoopbackGroup(self.axis_size(axis))
 
     def all_to_all(self, x):
         return x.clone()
@@ -348,6 +361,158 @@ def test_sync_launch_arithmetic(monkeypatch, world, schedule, transport,
     allreduce_gradients(grads, cfg, _LoopbackGroup(world), quant_key=(1,))
     assert calls == chip_smoke.expected_sync_launches(
         transport, schedule, world, num_buckets, 4)
+
+
+@pytest.mark.parametrize("num_buckets", [9, 1])
+@pytest.mark.parametrize("masked", [False, True])
+def test_hierarchical_launch_arithmetic(monkeypatch, num_buckets, masked):
+    """Phase 17's expected launches of one hierarchical sync on a (dp 2,
+    sp 2) mesh: the wrappers ``allreduce_gradients`` calls, counted on
+    the CPU, masked or not."""
+    from akka_allreduce_tpu_torch.ops import collectives
+    from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
+                                                      allreduce_gradients)
+    calls = dict.fromkeys(chip_smoke.SYNC_KERNELS, 0)
+
+    def counting(name):
+        fn = getattr(collectives, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for name in chip_smoke.MAIN_PATH_SYNC:
+        monkeypatch.setattr(collectives, name, counting(name))
+    cfg = GradSyncConfig(bucket_elems=256, transport="ef8",
+                         transport_schedule="hierarchical")
+    res = allreduce_gradients(
+        {"w": torch.randn(num_buckets * 256 - 7)}, cfg,
+        _LoopbackGroup(4, sp=2), quant_key=(1,),
+        valid=torch.arange(num_buckets) % 2 if masked else None)
+    assert res.schedule == "hierarchical"
+    assert calls == chip_smoke.expected_sync_launches(
+        "ef8", "hierarchical", 4, num_buckets) == {
+        **dict.fromkeys(chip_smoke.SYNC_KERNELS, 0), "masked_reduce": 1,
+        "quantize_int8_block_rtn": 1, "quantize_int8_block": 1,
+        "dequantize_int8_block": 3}
+
+
+def test_phase10_rehearsal_with_the_hierarchical_cases(monkeypatch):
+    """Phase 10 at a tiny bucket matrix on four CPU ranks, (dp 2, sp 2):
+    every case passes, the two hierarchical ones (masked and not) among
+    them."""
+    assert [c for c in chip_smoke.SYNC4_CASES
+            if c["schedule"] == "hierarchical"] == [
+        {"transport": "ef8", "schedule": "hierarchical", "masked": m}
+        for m in (False, True)] and chip_smoke.SYNC4_SP == 2
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "SYNC4_SHAPE", (10, 1024))
+    assert chip_smoke.phase_sync4(torch) == {
+        "cases": len(chip_smoke.SYNC4_CASES)}
+
+
+TINY_TRAIN = ["train", "--d-model", "64", "--n-heads", "2", "--n-layers",
+              "1", "--d-ff", "128", "--vocab", "97", "--seq", "32",
+              "--batch", "4", "--steps", "3", "--log-every", "1",
+              "--bucket-elems", "1024", "--device", "cpu"]
+
+
+@pytest.fixture
+def phase17_on_cpu(monkeypatch):
+    """Phase 17 at a tiny size on the CPU: the plain versions launch no
+    kernel, so the expected launches are zeroed; the loss bound is this
+    size's own (the sound run's gap read 4.3e-4, the dropped-line
+    control's 2.0e-3, the no-update control's 1.6e-2)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "HIER_ARGV", TINY_TRAIN)
+    monkeypatch.setattr(chip_smoke, "AUTO_ARGV", [
+        "cpu" if a == "cuda" else a for a in chip_smoke.AUTO_ARGV])
+    monkeypatch.setattr(chip_smoke, "BENCH_GOODPUT", (20_000, 4096))
+    monkeypatch.setattr(chip_smoke, "BENCH_PAYLOADS", ((20_000, 4096),))
+    monkeypatch.setattr(chip_smoke, "BENCH_SET_S", 0.05)
+    monkeypatch.setattr(chip_smoke, "HIER_LOSS_ATOL", 1e-3)
+    monkeypatch.setattr(chip_smoke, "expected_sync_launches",
+                        lambda *a, **k: dict.fromkeys(
+                            chip_smoke.SYNC_KERNELS, 0))
+    monkeypatch.setattr(chip_smoke, "expected_attention_launches",
+                        lambda *a, **k: {
+                            "ring": dict.fromkeys(chip_smoke.RING_REPLACES, 0),
+                            "flash": dict.fromkeys(chip_smoke.FLASH_REPLACES,
+                                                   0)})
+
+
+def test_phase17_full_width_run_rehearsal(phase17_on_cpu):
+    out = chip_smoke.phase_hierarchical(torch)
+    row = out["row"]
+    assert row["num_buckets"] == -(-row["params"] // 1024)
+    assert len(set(row["param_checksums"])) == 1
+    assert row["loss_rel_diff"][0] <= chip_smoke.SP_LOSS_RTOL
+    assert chip_smoke.HIER_DIST[-1] == "hierarchical"
+
+
+def test_phase17_auto_plans_rehearsal(phase17_on_cpu, tmp_path):
+    hashes = chip_smoke.phase_auto(torch, str(tmp_path))["hashes"]
+    assert hashes[0] == hashes[1] != hashes[2]
+
+
+def test_phase17_bench_rows_rehearsal(phase17_on_cpu, capfd):
+    assert chip_smoke.phase_bench_rows(torch) == {"rows": 1 + 5 + 4}
+    rows = [ln for ln in capfd.readouterr().out.splitlines()
+            if ln.startswith('{"phase": "bench_row"')]
+    assert len(rows) == 10
+    assert '"metric": "allreduce_goodput_0.02M_f32_4cpu"' in rows[0]
+    for row in map(json.loads, rows):
+        # every row says what resolved it: the rounds of its sets (sized
+        # up from 4 / 1 to BENCH_SET_S) and the spread its reps allow
+        assert row["spread"] >= 0
+        if row["unit"] == "GB/s":
+            lo, hi = row["rounds"]
+            assert hi >= chip_smoke.BENCH_R_HI and lo == max(1, hi // 4)
+
+
+def test_phase17_hops_are_held_in_phase11():
+    """Phase 17's layout (MHA, batch 8 over dp 2, seq 2048 over sp 2)
+    gives rank (i, 1) a diagonal hop and a past hop: both are phase 11
+    shapes, so its ring kernels run at a shape held against the plain
+    versions."""
+    from akka_allreduce_tpu_torch import cli
+    a = cli.build_parser().parse_args(chip_smoke.HIER_ARGV
+                                      + chip_smoke.HIER_DIST)
+    b, t = a.batch // a.dp, a.seq // a.sp
+    h_kv = a.kv_heads or a.n_heads
+    d = a.d_model // a.n_heads
+    shapes = {s[1:] for s in chip_smoke.RING_SHAPES}
+    assert (b, t, a.n_heads, h_kv, d, True, t, t) in shapes
+    assert (b, t, a.n_heads, h_kv, d, True, t, 0) in shapes
+
+
+@pytest.mark.parametrize("sp, rank, ring, flash", [
+    (1, 0, 0, 12), (2, 0, 12, 0), (2, 1, 24, 0), (2, 2, 12, 0),
+    (2, 3, 24, 0)])
+def test_expected_attention_launches(sp, rank, ring, flash):
+    """4 layers, 3 steps: one card runs each flash kernel 12 times; rank
+    (i, j) of sp 2 each ring kernel 4 (j + 1) x 3 times."""
+    got = chip_smoke.expected_attention_launches(4, sp, rank, 3)
+    assert got == {"ring": dict.fromkeys(chip_smoke.RING_REPLACES, ring),
+                   "flash": dict.fromkeys(chip_smoke.FLASH_REPLACES, flash)}
+
+
+def test_line_drop_at_phase17_batches():
+    """Phase 17's step-1 draws (8 x 2048 of vocab 32768, four data
+    ranks) are 0.3608, 0.7203 | 0.4197, 0.3791: the midpoint of the lines'
+    least draws, 0.3699, makes rank 0 late alone, so its sp line (dp
+    line 0) is masked and line 1 is not."""
+    from akka_allreduce_tpu_torch import cli
+    a = cli.build_parser().parse_args(chip_smoke.HIER_ARGV
+                                      + chip_smoke.HIER_DIST)
+    draws = chip_smoke.straggle_draws(1, 4, a.batch, a.seq, a.vocab)
+    prob, line = chip_smoke.choose_line_drop(draws, a.sp)
+    assert line == 0 and round(prob, 4) == 0.3699
+    late = [d < prob for d in draws[0]]
+    assert late == [True, False, False, False]
+    with pytest.raises(ValueError, match="same least"):
+        chip_smoke.choose_line_drop([[0.1, 0.5, 0.1, 0.7]], 2)
 
 
 def test_phase9_flagship_launches_per_run():

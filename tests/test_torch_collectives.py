@@ -321,6 +321,19 @@ def test_keys_fold_split_and_seed():
         (3, 4), key, "cpu"))
 
 
-def test_hierarchical_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A2"):
-        tc.hierarchical_allreduce()
+def test_hierarchical_refuses_what_jax_refuses():
+    """A non-2-D input and a residual of another shape are refused, as
+    the JAX function refuses them (the working path: the hierarchical
+    tests, ``tests/test_torch_hierarchical.py``)."""
+    group = RankGroup.single()
+    with pytest.raises(ValueError, match="num_buckets, bucket_elems"):
+        tc.hierarchical_allreduce(torch.zeros(3, 2, 8), (0,), group)
+    with pytest.raises(ValueError, match="full bucket shape"):
+        tc.hierarchical_allreduce(torch.zeros(2, 8), (0,), group,
+                                  residual=torch.zeros(2, 9))
+    # a group of one: the ef8 two-phase over a DCN of one, the mask kept
+    out, res = tc.hierarchical_allreduce(
+        torch.ones(2, 8), (0,), group, residual=torch.full((2, 8), 0.5),
+        valid=torch.tensor([1, 0]))
+    assert out[0].eq(1).all() and not out[1].any()
+    assert res.eq(0.5).all()

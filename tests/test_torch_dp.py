@@ -8,7 +8,7 @@ to JAX at rtol 1e-6 on every schedule, windowed bitwise fused; bf16
 inside its envelope; int8 and ef8 identical on every rank and inside the
 JAX tests' envelope; masked rounds with per-bucket counts bitwise JAX's
 and values allclose; the averaging and the per-element counts; the
-refusals of what is not ported.
+refusals JAX keeps (the hierarchical schedule on another wire than ef8).
 """
 
 from functools import partial
@@ -224,8 +224,9 @@ def test_group_of_one_bypasses_the_wire_but_masks():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(transport_schedule="hierarchical"), NotImplementedError, "A2"),
-    (dict(transport_schedule="auto"), NotImplementedError, "A2"),
+    (dict(transport_schedule="hierarchical"), ValueError, "IS the ef8"),
+    (dict(transport_schedule="hierarchical", transport="int8"), ValueError,
+     "transport='ef8'"),
     (dict(transport_schedule="ring"), ValueError, "transport_schedule"),
     (dict(transport="fp8"), ValueError, "transport"),
     (dict(transport="int8"), ValueError, "quant_key"),
@@ -234,6 +235,23 @@ def test_refusals(kw, err, match):
     cfg = tdp.GradSyncConfig(bucket_elems=BUCKET, **kw)
     with pytest.raises(err, match=match):
         tdp.allreduce_gradients({"a": torch.ones(4)}, cfg)
+
+
+def test_auto_and_hierarchical_on_a_group_of_one():
+    """``auto`` with no plan takes the hand-flag default and reports it;
+    ``hierarchical`` on fewer than two live axes runs the fused ef8 (as
+    the JAX sync degrades a shrunk mesh) and reports ``fused``."""
+    tree = {"a": torch.arange(200, dtype=torch.float32)}
+    auto = tdp.allreduce_gradients(
+        tree, tdp.GradSyncConfig(bucket_elems=BUCKET,
+                                 transport_schedule="auto"))
+    assert auto.schedule == "fused" and torch.equal(auto.grads["a"],
+                                                    tree["a"])
+    hier = tdp.allreduce_gradients(
+        tree, tdp.GradSyncConfig(bucket_elems=BUCKET, transport="ef8",
+                                 transport_schedule="hierarchical"),
+        quant_key=(1,))
+    assert hier.schedule == "fused" and not hier.residual.any()
 
 
 @pytest.mark.parametrize("rows,windows,want", [

@@ -2,8 +2,9 @@
 
 Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
-attention's, the peer-memory allreduce's, the round pacer's and the
-deadline trainer's modules included) and finds neither ``jax`` nor
+attention's, the peer-memory allreduce's, the round pacer's, the
+deadline trainer's, the collective autotuner's and the bench rows'
+modules included) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``; a rank process that
 ``spawn_ranks`` starts from this (JAX-importing) test process holds
 neither either; and an AST scan of the package's sources finds no
@@ -50,7 +51,9 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.ops.kernels.quantized",
             "akka_allreduce_tpu_torch.ops.kernels.ring_flash",
             "akka_allreduce_tpu_torch.ops.kernels.ring",
-            "akka_allreduce_tpu_torch.parallel.ring_attention"} <= set(mods)
+            "akka_allreduce_tpu_torch.parallel.ring_attention",
+            "akka_allreduce_tpu_torch.ops.autotune",
+            "akka_allreduce_tpu_torch.bench"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -111,4 +114,5 @@ def test_ast_scan_finds_no_jax_import():
         "parallel/group", "parallel/dp", "ops/bucketing", "ops/masked",
         "ops/collectives", "ops/kernels/masked_reduce",
         "ops/kernels/quantized", "ops/kernels/ring_flash",
-        "ops/kernels/ring", "parallel/ring_attention")} <= scanned
+        "ops/kernels/ring", "parallel/ring_attention", "ops/autotune",
+        "bench")} <= scanned

@@ -118,8 +118,12 @@ def test_cli_dp2_ef8_prints_the_step_lines(capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp", "2", "--grad-schedule", "hierarchical"], "A2"),
-    (["--dp", "2", "--grad-schedule", "auto"], "A2"),
+    (["--dp", "2", "--grad-schedule", "hierarchical"],
+     "pair it with --grad-quant ef8"),
+    (["--dp", "2", "--grad-quant", "ef8", "--grad-schedule",
+      "hierarchical"], "needs exactly two >1 data axes"),
+    (["--dp", "2", "--sp", "2", "--grad-quant", "int8", "--grad-schedule",
+      "auto"], "needs a single >1 data axis"),
     (["--dp", "3", "--grad-schedule", "swing", "--batch", "6"],
      "power-of-two"),
     (["--dp", "3"], "divide over --dp"),
