@@ -12,8 +12,11 @@ Counterpart of two functions of ``akka_allreduce_tpu/bench.py``:
 Each is a generator of JSON-able rows (``metric``, ``value``, ``unit``,
 ``note``; ``error`` instead of a value when an arm could not run). The
 ranks are ``spawn_ranks`` processes that share one card (or run on the
-CPU) over gloo, so the wire is host memory, not NVLink: the rows price
-the sync as the port runs it on one card, not a cluster's fabric.
+CPU) under ``backend``: on ``ipc`` the payloads move device to device
+through CUDA IPC peer memory on the card, on ``gloo`` through host
+memory; neither is NVLink between cards, so the rows price the sync as
+the port runs it on one card, not a cluster's fabric. The backend
+defaults to ``ipc`` on the card and ``gloo`` on the CPU.
 
 Methodology, as the JAX package's, through the autotuner's harness
 (``ops/autotune.py`` :func:`time_rounds`): every round's input is a
@@ -79,6 +82,16 @@ ARM_NOTES = {
 }
 
 
+def _backend(backend: Optional[str], device: str) -> str:
+    return backend or ("ipc" if device == "cuda" else "gloo")
+
+
+def _wire_note(backend: str, n: int, name: str) -> str:
+    return (f"{n} {backend} ranks on {name}, "
+            + ("device-to-device wire (CUDA IPC peer memory)"
+               if backend == "ipc" else "host-memory wire"))
+
+
 def _label(device: str) -> str:
     return "gpu" if device == "cuda" else device
 
@@ -138,10 +151,12 @@ def measure_device_goodput(elems: int = ELEMS,
                            transport_schedule: str = "fused",
                            num_windows: int = 1, ranks: int = 4,
                            device: str = "cuda",
-                           set_seconds: Optional[float] = None
+                           set_seconds: Optional[float] = None,
+                           backend: Optional[str] = None
                            ) -> Iterator[dict]:
-    """Goodput (payload GB/s) of the full sync path on ``ranks`` gloo
-    rank processes on ``device`` (the card, unless ``"cpu"``): yields the
+    """Goodput (payload GB/s) of the full sync path on ``ranks`` rank
+    processes on ``device`` (the card, unless ``"cpu"``) under
+    ``backend`` (default ``ipc`` on the card, ``gloo`` on the CPU): yields the
     JAX package's ``allreduce_goodput_{M}M_{wire}_{n}{label}`` row, its
     value from the slowest rank's two-point round time (``set_seconds``:
     see the module docstring). ``valid_fraction < 1`` runs the lossy
@@ -155,7 +170,8 @@ def measure_device_goodput(elems: int = ELEMS,
     if not 0 < r_lo < r_hi:
         raise ValueError(f"need 0 < r_lo < r_hi, got {r_lo}/{r_hi}")
     dev = resolve_device(device)
-    stats = spawn_ranks(_goodput_rank, ranks, "gloo", dev.type, elems,
+    backend = _backend(backend, dev.type)
+    stats = spawn_ranks(_goodput_rank, ranks, backend, dev.type, elems,
                         bucket_elems, r_hi, r_lo, valid_fraction, reps,
                         transport, transport_schedule, num_windows,
                         set_seconds)[0]
@@ -182,7 +198,7 @@ def measure_device_goodput(elems: int = ELEMS,
         "note": (f"two-point delta of the medians of {reps} sets of "
                  f"{timing.rounds_lo} / {timing.rounds_hi} rounds, "
                  f"{timing.seconds * 1e3:.3f} ms a round; "
-                 f"{ranks} gloo ranks on {name}, host-memory wire; full "
+                 f"{_wire_note(backend, ranks, name)}; full "
                  f"sync path (bucketize->{transport_schedule} "
                  f"{transport}->rescale->debucketize); {frame}")}
 
@@ -212,7 +228,7 @@ def _quantized_rank(group, payloads, r_hi: int, r_lo: int, reps: int,
     hier_ok = n >= 4 and n % 2 == 0 and group.sp == n // 2
     device_name = (torch.cuda.get_device_name(group.device)
                    if group.device.type == "cuda" else "cpu")
-    ident = (f"; {n} gloo ranks on {device_name}, host-memory wire"
+    ident = (f"; {_wire_note(group.backend, n, device_name)}"
              + ("; 1 rank: schedule identity — every arm IS the fused "
                 "path, deltas are jitter" if n == 1 else ""))
     rows = []
@@ -245,7 +261,8 @@ def _quantized_rank(group, payloads, r_hi: int, r_lo: int, reps: int,
                     continue
                 win = min(f32_times, key=f32_times.get)
                 plan = CollectivePlan(
-                    wire="f32", axes=(("dp", n),) if n > 1 else (),
+                    wire="f32", backend=group.backend,
+                    axes=(("dp", n),) if n > 1 else (),
                     entries={plan_key(nb, bucket): PlanEntry(
                         schedule=win, num_windows=1,
                         timings_us={a: round(t, 3)
@@ -288,14 +305,16 @@ def measure_quantized_collectives(payloads=QUANTIZED_AB_PAYLOADS,
                                   reps: Optional[int] = None,
                                   ranks: int = 4,
                                   device: str = "cuda",
-                                  set_seconds: Optional[float] = None
+                                  set_seconds: Optional[float] = None,
+                                  backend: Optional[str] = None
                                   ) -> Iterator[dict]:
     """The gradient-sync transport A/B over ``payloads`` (``(elems,
-    bucket_elems)`` classes) on ``ranks`` gloo rank processes on
-    ``device``: per payload the fused f32 sum (the baseline), swing, the
-    ef8 wire, ``auto`` (a plan from this run's fused and swing times:
-    its goodput must track the winning fixed arm) and ``hierarchical``
-    (a 2 x (n/2) ``(dp, sp)`` group), one row each, then a
+    bucket_elems)`` classes) on ``ranks`` rank processes on ``device``
+    under ``backend`` (as :func:`measure_device_goodput`): per payload
+    the fused f32 sum (the baseline), swing, the ef8 wire, ``auto`` (a
+    plan from this run's fused and swing times: its goodput must track
+    the winning fixed arm) and ``hierarchical`` (a 2 x (n/2) ``(dp,
+    sp)`` group), one row each, then a
     ``quantized_collectives_{arm}_speedup_{M}M`` claim row per arm. One
     spawn runs them all; the rows are yielded when it returns.
     ``set_seconds``: see the module docstring. Defaults: ``r_hi`` 6,
@@ -311,7 +330,8 @@ def measure_quantized_collectives(payloads=QUANTIZED_AB_PAYLOADS,
         reps = 2
     dev = resolve_device(device)
     sp = ranks // 2 if ranks >= 4 and ranks % 2 == 0 else 1
-    rows = spawn_ranks(_quantized_rank, ranks, "gloo", dev.type,
+    rows = spawn_ranks(_quantized_rank, ranks, _backend(backend, dev.type),
+                       dev.type,
                        tuple(payloads), r_hi, r_lo, reps, _label(dev.type),
                        set_seconds, sp=sp)[0]
     yield from rows

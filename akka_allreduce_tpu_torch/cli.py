@@ -163,11 +163,19 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "[j*T/S, (j+1)*T/S) of its rows, attention runs "
                         "around the ring of the S ranks, and the gradient "
                         "sync spans all dp x S ranks")
-    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+    p.add_argument("--dist-backend", choices=("nccl", "gloo", "ipc"),
+                   default=None,
                    help="process-group backend with dp x sp > 1 (default: "
                         "nccl on cuda, gloo on cpu). nccl needs one GPU "
                         "per rank; gloo runs several ranks on one card "
-                        "and moves the wire through host memory")
+                        "and moves the wire through host memory; ipc "
+                        "(cuda only) runs several ranks on the cards of "
+                        "one host and moves every payload device to "
+                        "device through CUDA IPC peer buffers, gloo "
+                        "carrying only the control plane; at most 32 "
+                        "ranks, whose fixed buffers take at most 1 GiB "
+                        "of the card a rank (their chunk shrinks as the "
+                        "mesh grows)")
     p.add_argument("--int8-grads", action="store_true",
                    help="int8-quantized gradient allreduce transport "
                         "(alias of --grad-quant int8)")
@@ -613,6 +621,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
     from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
     from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
     from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
+    from akka_allreduce_tpu_torch.ops.kernels import transport as tp
     from akka_allreduce_tpu_torch.parallel import ring_attention as ra
 
     world = 1 if group is None else group.world
@@ -722,7 +731,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                          fa.FLASH_DKV_LAUNCHES),
                 lambda: {"masked_reduce": mr.MASKED_REDUCE_LAUNCHES,
                          **qz.launch_counts()},
-                rf.counts)
+                rf.counts, tp.counts)
     before = [c() for c in counters]
     losses, step_ms, sync_ms, exchange_ms, min_counts = [], [], [], [], []
     dispatched: list = []  # host time each step's dispatch began
@@ -843,6 +852,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                              (a - c for a, c in zip(after[0], before[0])))),
         "ring_launches": {k: after[2][k] - before[2][k] for k in after[2]},
         "sync_launches": {k: after[1][k] - before[1][k] for k in after[1]},
+        # the ipc rank transport's calls, stretches, copies and bytes
+        "transport": {k: after[3][k] - before[3][k] for k in after[3]},
         # host ms per step in the attention's exchanges (sp > 1)
         "attn_exchange_ms": exchange_ms,
     }
@@ -860,13 +871,20 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                        for rep, count in zip(trainer.reports, min_counts)],
             "masked_round_count": trainer.masked_round_count}
     if group is not None:
+        from akka_allreduce_tpu_torch.parallel.group import \
+            peer_buffer_list
         report["dist"] = {"backend": backend, "world": world}
         report["rank_info"] = {
             "rank": rank, "sync_ms": sync_ms, "attn_exchange_ms": exchange_ms,
             **{k: report[k] for k in ("launches", "ring_launches",
-                                      "sync_launches")},
+                                      "sync_launches", "transport")},
             "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                                if device.type == "cuda" else None),
+            # the ipc transport's fixed peer buffers (cudaMalloc, outside
+            # the allocator's peak)
+            "transport_buffer_gb": sum(
+                b.nbytes for b in peer_buffer_list("transport")
+            ) / 1e9,
             "param_checksum": _param_checksum(state.params)}
         if state.residual is not None:
             # the ef8 state's shape, and its largest entry in each sp
@@ -876,6 +894,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
             cols = -(-res.shape[1] // args.sp)
             report["rank_info"].update(
                 residual_shape=list(res.shape),
+                # its 32-bit patterns summed, a block of rows at a time
+                residual_checksum=sum(
+                    int(blk.contiguous().view(torch.int32).sum(
+                        dtype=torch.int64)) for blk in res.split(256)),
                 residual_abs_max_by_sp_shard=[
                     float(res[:, j * cols:(j + 1) * cols].abs().max())
                     for j in range(args.sp)])

@@ -19,7 +19,8 @@ module measures that instead of leaving it to hand-set flags:
 * :func:`save_plan` / :func:`load_plan` keep it as a JSON sidecar through
   ``runtime/checkpoint.py``'s atomic write-then-rename, and
   :func:`load_or_measure` reloads it instead of measuring again when its
-  fingerprint (version, wire, sync-group axes, every requested class)
+  fingerprint (version, wire, sync-group axes and rank transport, every
+  requested class)
   still matches;
 * :func:`resolve_schedule` is the dispatch half:
   ``GradSyncConfig.transport_schedule="auto"`` resolves each bucket
@@ -102,12 +103,17 @@ class CollectivePlan:
     """The serialised verdict. ``axes`` is the ordered (axis, size) tuple
     of the sync group's live axes the plan was measured on (part of the
     fingerprint: a plan never silently crosses meshes); ``wire`` the
-    transport it was measured with."""
+    transport it was measured with; ``backend`` the rank transport under
+    it (``gloo``, ``ipc``, ...; None for a group that names none, whose
+    JSON is then the JAX package's byte for byte), also part of the
+    fingerprint: a plan timed on the host wire is no plan for the device
+    wire."""
 
     wire: str
     axes: tuple
     entries: dict
     version: int = PLAN_VERSION
+    backend: Optional[str] = None
 
     def lookup(self, rows: int, cols: int) -> Optional[PlanEntry]:
         return self.entries.get(plan_key(rows, cols))
@@ -115,13 +121,16 @@ class CollectivePlan:
     # -- canonical serialisation (same measurements => same bytes) -------
 
     def to_json(self) -> dict:
-        return {
+        doc = {
             "version": self.version,
             "wire": self.wire,
             "axes": [[str(a), int(n)] for a, n in self.axes],
             "entries": {k: self.entries[k].as_dict()
                         for k in sorted(self.entries)},
         }
+        if self.backend is not None:
+            doc["backend"] = self.backend
+        return doc
 
     def canonical_bytes(self) -> bytes:
         return json.dumps(self.to_json(), sort_keys=True,
@@ -139,6 +148,7 @@ class CollectivePlan:
             entries={k: PlanEntry.from_dict(v)
                      for k, v in doc.get("entries", {}).items()},
             version=int(doc.get("version", PLAN_VERSION)),
+            backend=doc.get("backend"),
         )
 
 
@@ -382,7 +392,8 @@ def measure_plan(group, shapes: Sequence, wire: str = "f32",
         entries[plan_key(rows, cols)] = PlanEntry(
             schedule=schedule, num_windows=windows, timings_us=timings,
             note=note)
-    return CollectivePlan(wire=wire, axes=live, entries=entries)
+    return CollectivePlan(wire=wire, axes=live, entries=entries,
+                          backend=getattr(group, "backend", None))
 
 
 # -- sidecar persistence (runtime/checkpoint.py atomics) -------------------
@@ -411,9 +422,10 @@ def load_or_measure(directory: Optional[str], group, shapes: Sequence,
                     wire: str = "f32", log: Optional[Callable] = None,
                     **measure_kw) -> tuple:
     """The restart contract: reload the sidecar instead of measuring
-    when its fingerprint (version, wire, the group's live axes, every
-    requested class) matches on every rank and every rank read the same
-    plan; otherwise measure and save again (rank 0 writes). Returns
+    when its fingerprint (version, wire, the group's live axes and rank
+    transport, every requested class) matches on every rank and every
+    rank read the same plan; otherwise measure and save again (rank 0
+    writes). Returns
     ``(plan, reused)``. ``directory=None`` measures without saving."""
     live = live_axes(group)
     want = {plan_key(r, c) for r, c in shapes}
@@ -421,6 +433,7 @@ def load_or_measure(directory: Optional[str], group, shapes: Sequence,
         plan = load_plan(directory)
         ok = (plan is not None and plan.version == PLAN_VERSION
               and plan.wire == wire and tuple(plan.axes) == live
+              and plan.backend == getattr(group, "backend", None)
               and want <= set(plan.entries))
         hashes = _gather_json(group, plan.plan_hash if ok else None)
         if hashes[0] is not None and len(set(hashes)) == 1:

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("paged_attention", "flash_attention", "masked_reduce", "quantize",
-           "ring_flash", "ring_allreduce")
+           "ring_flash", "ring_allreduce", "transport")
 
 _LIBS: dict = {}
 # per kernel: {"seconds": build wall time (0.0 when reused), "ptxas": the

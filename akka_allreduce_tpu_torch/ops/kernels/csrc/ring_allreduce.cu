@@ -65,7 +65,9 @@
 // buffer's calls (peer_allreduce_abandon: a flag that turns the queued
 // stretches into no-ops, then counters raised to free the waits), so the
 // stream drains whether or not the peer ever makes the call, and raises,
-// naming the counters.
+// naming the counters. The buffers, the wait, the abandon path and the
+// signal's ticket are peer_mem.cuh's, shared with the rank transport
+// (transport.cu).
 //
 // Signals. A stretch signals its peers after all of its stores: each block
 // fences (__threadfence_system) and takes a ticket; the last block resets
@@ -82,20 +84,16 @@
 // its memory rate. The function itself needs only 2N (read x, write out):
 // a design that routes through peer slots cannot reach that bound.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "peer_mem.cuh"
 
 namespace {
 
-constexpr int kMaxRanks = 32;
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;       // float4s in flight a thread
-constexpr int kBlocksPerSm = 8;  // 2048 threads: a full SM
-constexpr int kCounterBytes = 128;
+using peer_mem::kMaxRanks;
+using peer_mem::kThreads;
+using peer_mem::u64;
 
-typedef unsigned long long u64;
+constexpr int kUnroll = 4;       // float4s in flight a thread
+constexpr int kCounterBytes = 128;
 
 struct Counters {  // at the end of every rank's buffer
   u64 push;        // + 1 from each peer after its push
@@ -134,43 +132,24 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
-__device__ __forceinline__ void release_add(u64* p, u64 v) {
-  asm volatile("red.release.sys.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
 // After the block's stores: the last block of the grid adds 1 to `which`
 // (0 push, 1 reduce) of every peer's counters.
 __device__ void stretch_done(Counters* mine, const Peers& peers, int npeers,
                              int which) {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    const unsigned blocks = gridDim.x * gridDim.y;
-    if (atomicAdd(&mine->ticket, 1u) == blocks - 1) {
-      mine->ticket = 0;  // the next stretch launches after this one ends
-      __threadfence_system();
-      for (int p = 0; p < npeers; ++p) {
-        release_add(which ? &peers.p[p]->reduce : &peers.p[p]->push, 1);
-      }
+  if (threadIdx.x == 0 && peer_mem::last_block(&mine->ticket)) {
+    for (int p = 0; p < npeers; ++p) {
+      peer_mem::release_add(
+          which ? &peers.p[p]->reduce : &peers.p[p]->push, 1);
     }
   }
 }
 
-// False in every thread of the block once the buffer's calls were
-// abandoned (peer_allreduce_abandon): the stretch then reads and stores
-// nothing and signals no peer. Else the grid's first block counts the
-// stretch in `ran` (phase 14 of chip_smoke.py reads the kernels a call
-// from it) and the stretch runs.
+// False once the buffer's calls were abandoned (peer_allreduce_abandon);
+// else the stretch is counted in `ran` (phase 14 of chip_smoke.py reads
+// the kernels a call from it) and runs.
 __device__ __forceinline__ bool begin_stretch(Counters* mine) {
-  const bool first = threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0;
-  if (__syncthreads_or(
-          threadIdx.x == 0 &&
-          *reinterpret_cast<volatile u64*>(&mine->abandoned) != 0)) {
-    return false;
-  }
-  if (first) atomicAdd(&mine->ran, 1ull);
-  return true;
+  return peer_mem::begin_stretch(&mine->abandoned, &mine->ran);
 }
 
 // push (signal 0) and gather (signal -1): row blockIdx.y of the table.
@@ -264,100 +243,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 int grid_x(long long n4, int rows) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (n4 + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-  long long cap = static_cast<long long>(sms) * kBlocksPerSm / rows;
-  if (cap < 1) cap = 1;
-  const long long g = want < cap ? want : cap;
-  return static_cast<int>(g < 1 ? 1 : g);
-}
-
-typedef CUresult (*WaitValue64)(CUstream, CUdeviceptr, cuuint64_t,
-                                unsigned int);
-typedef CUresult (*DeviceGet)(CUdevice*, int);
-typedef CUresult (*DeviceGetAttribute)(int*, CUdevice_attribute, CUdevice);
-typedef CUresult (*GetErrorString)(CUresult, const char**);
-
-WaitValue64 g_wait = nullptr;
-GetErrorString g_error = nullptr;
-// For reading the counters while the call's stream is blocked: a stream
-// that never waits on the legacy stream, and pinned memory (a pageable
-// copy may serialise behind the blocked stream). Made at init.
-cudaStream_t g_side = nullptr;
-u64* g_host = nullptr;  // [0, 4) counters read, [4, 6) released values
-// Stream waits enqueued since load: phase 14 of chip_smoke.py reads the
-// waits a call from it.
-unsigned long long g_waits = 0;
-
-// Driver errors travel as negative codes; the runtime's are positive.
-constexpr int kNoDriverEntryPoint = -100000;
-constexpr int kNoStreamMemOps = -100001;
-
-void* entry_point(const char* name) {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-      name, &fn, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t rc =
-      cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
-#endif
-  return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? fn
-                                                                   : nullptr;
-}
-
-int wait_counter(cudaStream_t stream, const u64* counter, u64 want) {
-  const CUresult rc =
-      g_wait(reinterpret_cast<CUstream>(stream),
-             reinterpret_cast<CUdeviceptr>(counter), want,
-             CU_STREAM_WAIT_VALUE_GEQ);
-  if (rc != CUDA_SUCCESS) return -static_cast<int>(rc);
-  ++g_waits;
-  return 0;
+  return peer_mem::grid_x(n4, kThreads * kUnroll, rows);
 }
 
 }  // namespace
-
-// ---- peer buffers (parallel/group.py) -----------------------------------
-
-// cudaMalloc, never PyTorch's caching allocator: an IPC handle names the
-// base of an allocation. Zeroed (the counters start at 0) and synchronised
-// before the handle leaves the process.
-extern "C" int peer_alloc(int64_t bytes, void** ptr) {
-  cudaError_t rc = cudaMalloc(ptr, static_cast<size_t>(bytes));
-  if (rc == cudaSuccess) rc = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
-  if (rc == cudaSuccess) rc = cudaDeviceSynchronize();
-  return static_cast<int>(rc);
-}
-
-extern "C" int peer_ipc_handle_bytes() {
-  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
-}
-
-extern "C" int peer_get_handle(void* ptr, void* handle) {
-  cudaIpcMemHandle_t h;
-  const cudaError_t rc = cudaIpcGetMemHandle(&h, ptr);
-  if (rc == cudaSuccess) memcpy(handle, &h, sizeof(h));
-  return static_cast<int>(rc);
-}
-
-extern "C" int peer_open_handle(const void* handle, void** ptr) {
-  cudaIpcMemHandle_t h;
-  memcpy(&h, handle, sizeof(h));
-  return static_cast<int>(
-      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
-}
-
-extern "C" int peer_close(void* ptr) {
-  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
-}
-
-extern "C" int peer_free(void* ptr) {
-  return static_cast<int>(cudaFree(ptr));
-}
 
 // ---- the kernels (ops/kernels/ring.py) ----------------------------------
 
@@ -368,47 +257,14 @@ extern "C" int peer_allreduce_max_ranks() { return kMaxRanks; }
 
 // Fetches the driver's stream-wait entry point and checks that the current
 // device takes 64-bit stream memory operations. 0, or a negative code.
-extern "C" int peer_allreduce_init() {
-  if (g_wait != nullptr) return 0;
-  auto error = reinterpret_cast<GetErrorString>(entry_point("cuGetErrorString"));
-  auto wait = reinterpret_cast<WaitValue64>(entry_point("cuStreamWaitValue64"));
-  auto get = reinterpret_cast<DeviceGet>(entry_point("cuDeviceGet"));
-  auto attr =
-      reinterpret_cast<DeviceGetAttribute>(entry_point("cuDeviceGetAttribute"));
-  if (!error || !wait || !get || !attr) return kNoDriverEntryPoint;
-  g_error = error;
-  int ordinal = 0;
-  cudaError_t rt = cudaGetDevice(&ordinal);
-  if (rt != cudaSuccess) return static_cast<int>(rt);
-  CUdevice dev;
-  CUresult rc = get(&dev, ordinal);
-  int can = 0;
-  if (rc == CUDA_SUCCESS) {
-    rc = attr(&can, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, dev);
-  }
-  if (rc != CUDA_SUCCESS) return -static_cast<int>(rc);
-  if (!can) return kNoStreamMemOps;
-  rt = cudaStreamCreateWithFlags(&g_side, cudaStreamNonBlocking);
-  if (rt == cudaSuccess) {
-    rt = cudaHostAlloc(reinterpret_cast<void**>(&g_host), 6 * sizeof(u64),
-                       cudaHostAllocDefault);
-  }
-  if (rt != cudaSuccess) return static_cast<int>(rt);
-  g_wait = wait;
-  return 0;
-}
+extern "C" int peer_allreduce_init() { return peer_mem::init(); }
 
 // `push`, `reduce`, `abandoned` and `ran` of the counters at `counters`
 // (this rank's), read on the side stream: the host's view of a stalled
 // call (ring.py wait) and of the stretches that ran.
 extern "C" int peer_allreduce_read_counters(const void* counters,
                                             uint64_t* values) {
-  if (g_wait == nullptr) return kNoDriverEntryPoint;
-  cudaError_t rc = cudaMemcpyAsync(g_host, counters, 4 * sizeof(u64),
-                                   cudaMemcpyDeviceToHost, g_side);
-  if (rc == cudaSuccess) rc = cudaStreamSynchronize(g_side);
-  if (rc == cudaSuccess) memcpy(values, g_host, 4 * sizeof(u64));
-  return static_cast<int>(rc);
+  return peer_mem::read_words(counters, 4, values);
 }
 
 // Gives up the calls on the buffer whose counters are at `counters`
@@ -418,19 +274,13 @@ extern "C" int peer_allreduce_read_counters(const void* counters,
 // which frees both waits. Called by ring.py's wait past its deadline; the
 // buffer takes no call after it.
 extern "C" int peer_allreduce_abandon(void* counters, uint64_t want) {
-  if (g_wait == nullptr) return kNoDriverEntryPoint;
   Counters* c = static_cast<Counters*>(counters);
-  g_host[4] = g_host[5] = want;
-  cudaError_t rc = cudaMemsetAsync(&c->abandoned, 0xff, sizeof(u64), g_side);
-  if (rc == cudaSuccess) {
-    rc = cudaMemcpyAsync(&c->push, g_host + 4, 2 * sizeof(u64),
-                         cudaMemcpyHostToDevice, g_side);
-  }
-  if (rc == cudaSuccess) rc = cudaStreamSynchronize(g_side);
-  return static_cast<int>(rc);
+  return peer_mem::abandon(&c->abandoned, &c->push, 2, want);
 }
 
-extern "C" uint64_t peer_allreduce_stream_waits() { return g_waits; }
+// Stream waits enqueued since load: phase 14 of chip_smoke.py reads the
+// waits a call from it.
+extern "C" uint64_t peer_allreduce_stream_waits() { return peer_mem::g_waits; }
 
 // One call: push, wait, reduce, wait, gather on `stream`. Tables hold
 // device addresses that ring.py resolved from the layout:
@@ -448,7 +298,7 @@ extern "C" int peer_allreduce_launch(const uint64_t* push,
                                      int64_t n4, int swing_log,
                                      const uint64_t* counters, uint64_t call,
                                      void* stream) {
-  if (g_wait == nullptr) return kNoDriverEntryPoint;
+  if (peer_mem::g_wait == nullptr) return peer_mem::kNoDriverEntryPoint;
   if (n < 2 || n > kMaxRanks || (swing_log > 0 && n != (1 << swing_log))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -480,7 +330,7 @@ extern "C" int peer_allreduce_launch(const uint64_t* push,
   peer_copy_kernel<<<dim3(grid_x(push_max, npeers), npeers), kThreads, 0,
                      st>>>(pt, mine, peers, npeers, 0);
   int rc = static_cast<int>(cudaGetLastError());
-  if (rc == 0) rc = wait_counter(st, &mine->push, want);
+  if (rc == 0) rc = peer_mem::wait_counter(st, &mine->push, want);
   if (rc != 0) return rc;
 
   const int gx = grid_x(n4, 1);
@@ -501,7 +351,7 @@ extern "C" int peer_allreduce_launch(const uint64_t* push,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   rc = static_cast<int>(cudaGetLastError());
-  if (rc == 0) rc = wait_counter(st, &mine->reduce, want);
+  if (rc == 0) rc = peer_mem::wait_counter(st, &mine->reduce, want);
   if (rc != 0) return rc;
 
   peer_copy_kernel<<<dim3(grid_x(gather_max, npeers), npeers), kThreads, 0,
@@ -510,21 +360,5 @@ extern "C" int peer_allreduce_launch(const uint64_t* push,
 }
 
 extern "C" const char* peer_allreduce_error_string(int code) {
-  if (code == kNoDriverEntryPoint) {
-    return "the CUDA driver's stream memory operations "
-           "(cuStreamWaitValue64) could not be fetched";
-  }
-  if (code == kNoStreamMemOps) {
-    return "the device does not take 64-bit stream memory operations "
-           "(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS is 0)";
-  }
-  if (code < 0) {
-    const char* s = nullptr;
-    if (g_error != nullptr &&
-        g_error(static_cast<CUresult>(-code), &s) == CUDA_SUCCESS && s) {
-      return s;
-    }
-    return "CUDA driver error";
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return peer_mem::error_string(code);
 }

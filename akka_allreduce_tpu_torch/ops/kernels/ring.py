@@ -422,7 +422,7 @@ def kernels_run(group) -> int:
     counts it in the buffer's ``ran`` word); 0 before the first launch.
     Read after :func:`wait`."""
     from akka_allreduce_tpu_torch.parallel.group import peer_buffer_list
-    return sum(_counter_values(b)[3] for b in peer_buffer_list(group))
+    return sum(_counter_values(b)[3] for b in peer_buffer_list())
 
 
 def _abandon(bufs, want: int) -> None:
@@ -448,7 +448,7 @@ def wait(group, timeout: float = TIMEOUT_S) -> None:
     wait on this one then stall and raise in their own ``wait``."""
     from akka_allreduce_tpu_torch.parallel.group import peer_buffer_list
     deadline = time.monotonic() + timeout
-    for bufs in peer_buffer_list(group):
+    for bufs in peer_buffer_list():
         while bufs.done is not None and not bufs.done.query():
             if time.monotonic() > deadline:
                 want = len(bufs.peers) * bufs.calls

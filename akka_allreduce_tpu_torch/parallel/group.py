@@ -40,21 +40,29 @@ Backends:
   Needs as many GPUs as ranks.
 * ``gloo`` — the wire is host memory: a CUDA tensor is copied to the host,
   the collective runs there, and the result is copied back to the
-  tensor's device. This is how several ranks share one card (NCCL refuses
-  two ranks on one device), and how the tests run ranks on the CPU.
+  tensor's device. This is how the tests run ranks on the CPU.
+* ``ipc`` — ranks on CUDA devices of one host (several may share one
+  card, which NCCL refuses): every payload of ``all_to_all``,
+  ``all_gather``, ``exchange`` and ``ppermute`` moves device to device
+  through CUDA IPC peer buffers (``ops/kernels/transport.py``), on the
+  caller's stream, never through the host. The process group is gloo and
+  carries the control plane only: init, the axis subgroups, ``barrier``
+  and the one-time handle exchange. A CPU tensor raises. At most 32
+  ranks; a rank's transport buffers take at most 1 GiB.
 * a group of one (:meth:`RankGroup.single`) needs no process group: every
   collective is the identity.
 
 Peer memory. :meth:`RankGroup.peer_buffers` gives kernels that move data
 themselves (``ops/kernels/ring.py``, the ring and swing allreduce) a
-symmetric buffer on every rank: each rank allocates its own with
-``cudaMalloc``, the 64-byte CUDA IPC handles go round through
-:meth:`RankGroup.all_gather`, and each rank maps the buffers of its peers
-along the axis. The buffers are cached per (rank, world, sp, axis, bytes)
-outside the frozen :class:`RankGroup`, and
-:func:`free_peer_buffers` unmaps and frees them (``spawn_ranks`` does so
-before it destroys the process group). IPC works between processes on
-one card and between cards of one host.
+symmetric buffer on every rank of a line along an axis, and
+:meth:`RankGroup.transport_buffers` gives the ``ipc`` transport one per
+group or line: each rank allocates its own with ``cudaMalloc``, the
+64-byte CUDA IPC handles go round the line's process group on the host,
+and each rank maps the buffers of the line's peers. The buffers are
+cached per (kind, the line's global ranks, bytes) outside the frozen
+:class:`RankGroup`, and :func:`free_peer_buffers` unmaps and frees them
+(``spawn_ranks`` does so before it destroys the process group). IPC
+works between processes on one card and between cards of one host.
 
 :func:`spawn_ranks` starts ``world`` processes with the ``spawn`` start
 method (a fork after CUDA is initialised breaks), joins them through a
@@ -83,7 +91,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "ipc")
 AXES = ("dp", "sp")  # the ported mesh axes, in the JAX mesh order
 
 # all_gather_into_tensor was renamed all_gather_single (same arguments)
@@ -95,8 +103,9 @@ _all_gather_flat = getattr(dist, "all_gather_single", None) \
 class RankGroup:
     """This process's place in the ``(dp, sp)`` mesh of ``world`` ranks
     (``sp`` divides ``world``; ``dp = world / sp``). ``backend`` is
-    ``"nccl"``, ``"gloo"`` or ``"none"`` (a group of one, no process
-    group behind it); ``device`` is where this rank's tensors live."""
+    ``"nccl"``, ``"gloo"``, ``"ipc"`` or ``"none"`` (a group of one, no
+    process group behind it); ``device`` is where this rank's tensors
+    live."""
 
     rank: int
     world: int
@@ -175,6 +184,14 @@ class RankGroup:
         other coordinate kept."""
         return self._shifted(axis, index - self.axis_index(axis))
 
+    def _ranks(self, axis: Optional[str] = None) -> tuple:
+        """The global ranks of this group (``axis`` None) or of this
+        rank's line along ``axis``, in line order."""
+        if axis is None:
+            return self.line or tuple(range(self.world))
+        return tuple(self._global(self.axis_rank(axis, q))
+                     for q in range(self.axis_size(axis)))
+
     # -- staging -----------------------------------------------------------
 
     def _stage(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,6 +216,8 @@ class RankGroup:
                              f"{self.world} blocks, got {tuple(x.shape)}")
         if self.world == 1:
             return x
+        if self.backend == "ipc":
+            return _transport().all_to_all(self, x)
         src = self._stage(x)
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self._pg())
@@ -209,6 +228,8 @@ class RankGroup:
         (``lax.all_gather`` tiled on axis 0)."""
         if self.world == 1:
             return x
+        if self.backend == "ipc":
+            return _transport().all_gather(self, x)
         src = self._stage(x)
         out = torch.empty((self.world * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
@@ -220,6 +241,8 @@ class RankGroup:
         pair of a ``lax.ppermute`` whose permutation is an involution."""
         if peer == self.rank:
             return x
+        if self.backend == "ipc":
+            return _transport().exchange(self, x, peer)
         src = self._stage(x)
         out = torch.empty_like(src)
         peer = self._global(peer)
@@ -235,9 +258,12 @@ class RankGroup:
         rank ``-shift`` steps away sent here: ``lax.ppermute`` with the
         permutation ``i -> (i + shift) mod n`` of that axis. One
         ``batch_isend_irecv`` between global ranks, staged like
-        :meth:`exchange`; the payload travels as bytes."""
+        :meth:`exchange` (on ``ipc``: through the line's peer buffers);
+        the payload travels as bytes."""
         if shift % self.axis_size(axis) == 0:
             return x
+        if self.backend == "ipc":
+            return _transport().ppermute(self, x, axis, shift)
         src = self._stage(x)
         out = torch.empty_like(src)
         works = dist.batch_isend_irecv([
@@ -257,42 +283,55 @@ class RankGroup:
 
     def peer_buffers(self, axis: str, nbytes: int) -> "PeerBuffers":
         """This rank's symmetric peer buffer of ``nbytes``, with the
-        buffers of its n - 1 peers along ``axis`` mapped into this
-        process. A collective: every rank of the world makes the same
+        buffers of its n - 1 peers on its line along ``axis`` mapped into
+        this process. A collective over the line: its ranks make the same
         calls in the same order. The first call for a key allocates and
         exchanges the handles; later calls return the cached buffers."""
-        if self.line is not None:
-            raise ValueError("peer buffers are made on the whole group, "
-                             "not on an axis line")
-        peers = tuple(self.axis_rank(axis, q)
-                      for q in range(self.axis_size(axis))
-                      if q != self.axis_index(axis))
-        key = (self.rank, self.world, self.sp, axis, nbytes)
-        bufs = _PEER_BUFFERS.get(key)
-        if bufs is None:
-            bufs = _open_peer_buffers(self, peers, nbytes)
-            _PEER_BUFFERS[key] = bufs
-        return bufs
+        return _peer_buffers(self, self._ranks(axis), nbytes, "ring")
+
+    def transport_buffers(self, axis: Optional[str], chunk: int
+                          ) -> "PeerBuffers":
+        """The ``ipc`` transport's fixed buffer of this group (``axis``
+        None) or of this rank's line along ``axis``, of
+        ``transport.buffer_bytes`` with halves of ``chunk`` bytes, made on
+        first use like :meth:`peer_buffers`. Raises when it would take
+        this rank's transport buffers past ``transport.BUFFER_CAP_BYTES``
+        (:func:`transport_sizes` gives the chunk that keeps them under
+        it)."""
+        transport = _transport()
+        line = self._ranks(axis)
+        nbytes = transport.buffer_bytes(len(line), chunk)
+        if ("transport", line, nbytes) not in _PEER_BUFFERS:
+            held = sum(b.nbytes for b in peer_buffer_list("transport"))
+            if held + nbytes > transport.BUFFER_CAP_BYTES:
+                raise RuntimeError(
+                    f"ipc transport buffers of {held + nbytes} bytes on "
+                    f"rank {self._global(self.rank)} would pass the cap of "
+                    f"{transport.BUFFER_CAP_BYTES} bytes a rank")
+        return _peer_buffers(self, line, nbytes, "transport")
 
 
 # -- symmetric peer memory (CUDA IPC) ---------------------------------------
 
 @dataclasses.dataclass
 class PeerBuffers:
-    """One rank's share of a symmetric peer-memory allocation: ``local``
-    is this rank's own buffer of ``nbytes`` (a device pointer from
-    ``cudaMalloc``; an IPC handle names an allocation's base, so PyTorch's
-    caching allocator, which hands out pieces of shared segments, cannot
-    be used), ``peers`` maps each peer's global rank to this process's
-    mapping of that peer's buffer. ``calls`` counts the kernel calls made
-    on the buffers so far (every rank advances it alike: the kernels'
-    counters reach ``len(peers) * calls``), and ``done`` is the CUDA
-    event recorded after the last one, which the next call waits on.
-    ``abandoned`` is set once ``ring.wait`` gave up a call on them."""
+    """One rank's share of a symmetric peer-memory allocation over the
+    ranks ``line`` (global ranks, in line order; ``rank`` is this one):
+    ``local`` is this rank's own buffer of ``nbytes`` (a device pointer
+    from ``cudaMalloc``; an IPC handle names an allocation's base, so
+    PyTorch's caching allocator, which hands out pieces of shared
+    segments, cannot be used), ``peers`` maps each peer's global rank to
+    this process's mapping of that peer's buffer. ``calls`` counts the
+    calls made on the buffers so far (every rank advances it alike), and
+    ``done`` is the CUDA event recorded after the last one, which the
+    next call waits on. ``abandoned`` is set once a wait gave up a call
+    on them."""
 
     local: int
     peers: dict
     nbytes: int
+    line: tuple = ()
+    rank: int = 0
     calls: int = 0
     done: Optional[torch.cuda.Event] = None
     abandoned: bool = False
@@ -313,11 +352,17 @@ class _DeviceMemory:
             "version": 2}
 
 
-# (rank, world, sp, axis, nbytes) -> PeerBuffers, for this process
+# (kind, the line's global ranks, nbytes) -> PeerBuffers, for this
+# process; kind "ring" (ops/kernels/ring.py) or "transport"
 _PEER_BUFFERS: dict = {}
 # the global ranks of an axis line -> its process subgroup, for the lines
 # this process is on
 _SUBGROUPS: dict = {}
+
+
+def _transport():
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    return transport
 
 
 def axis_lines(world: int, sp: int) -> list:
@@ -346,14 +391,23 @@ def free_axis_subgroups() -> None:
     """Destroy this process's line subgroups (before the world's)."""
     while _SUBGROUPS:
         dist.destroy_process_group(_SUBGROUPS.popitem()[1])
+
+
+def transport_sizes() -> list:
+    """The sizes of the groups this rank may hold an ``ipc`` transport
+    buffer for: the world, and each axis line it is on. Every rank of a
+    mesh gets the same list, so ``transport.chunk_bytes`` of it gives all
+    ranks one chunk."""
+    return [dist.get_world_size()] + [len(line) for line in _SUBGROUPS]
+
 _IPC: dict = {}
 
 
 def _ipc():
-    """The peer-memory functions of ``csrc/ring_allreduce.cu``."""
+    """The peer-memory functions of ``csrc/transport.cu``."""
     if not _IPC:
         from akka_allreduce_tpu_torch.ops.kernels import build
-        lib = build.load("ring_allreduce")
+        lib = build.load("transport")
         ptr, pptr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
         for name, args in (("peer_alloc", [ctypes.c_int64, pptr]),
                            ("peer_get_handle", [ptr, ptr]),
@@ -364,7 +418,7 @@ def _ipc():
             fn.argtypes = args
             fn.restype = ctypes.c_int
             _IPC[name] = fn
-        err = lib.peer_allreduce_error_string
+        err = lib.transport_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _IPC["error"] = err
@@ -379,13 +433,40 @@ def _ipc_call(name: str, *args) -> None:
                            f"({rc})")
 
 
-def _open_peer_buffers(group: RankGroup, peers: tuple, nbytes: int
-                       ) -> PeerBuffers:
+def _line_pg(line: tuple):
+    """The process group of the ranks ``line``: the default (world)
+    group when it spans the world, else the line's subgroup."""
+    if len(line) == dist.get_world_size():
+        return None
+    pg = _SUBGROUPS.get(line)
+    if pg is None:
+        raise RuntimeError(
+            f"no process subgroup for ranks {line}: make_axis_subgroups "
+            f"must run on every rank first")
+    return pg
+
+
+def _peer_buffers(group: RankGroup, line: tuple, nbytes: int, kind: str
+                  ) -> PeerBuffers:
     if group.device.type != "cuda":
         raise ValueError(f"peer buffers live on a CUDA device, not "
                          f"{group.device}")
-    if group.rank in peers:
-        raise ValueError(f"rank {group.rank} cannot map its own buffer")
+    key = (kind, line, nbytes)
+    bufs = _PEER_BUFFERS.get(key)
+    if bufs is None:
+        bufs = _open_peer_buffers(group, line, nbytes)
+        _PEER_BUFFERS[key] = bufs
+    return bufs
+
+
+def _open_peer_buffers(group: RankGroup, line: tuple, nbytes: int
+                       ) -> PeerBuffers:
+    """Allocate this rank's buffer, gather the line's IPC handles over its
+    process group (on the host, except on nccl) and map every peer's."""
+    me = group._global(group.rank)
+    if me not in line:
+        raise ValueError(f"rank {me} is not on the line {line}")
+    pg = _line_pg(line)
     with torch.cuda.device(group.device):
         local = ctypes.c_void_p()
         _ipc_call("peer_alloc", nbytes, ctypes.byref(local))
@@ -393,33 +474,45 @@ def _open_peer_buffers(group: RankGroup, peers: tuple, nbytes: int
         handle = ctypes.create_string_buffer(size)
         _ipc_call("peer_get_handle", local, handle)
         mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
-        handles = group.all_gather(mine.to(group.device)[None]).cpu()
+        if group.backend == "nccl":
+            mine = mine.to(group.device)
+        handles = torch.empty((len(line), size), dtype=torch.uint8,
+                              device=mine.device)
+        _all_gather_flat(handles, mine[None], group=pg)
+        handles = handles.cpu()
         mapped = {}
-        for peer in peers:
+        for q, peer in enumerate(line):
+            if peer == me:
+                continue
             ptr = ctypes.c_void_p()
-            raw = ctypes.create_string_buffer(bytes(handles[peer].tolist()),
+            raw = ctypes.create_string_buffer(bytes(handles[q].tolist()),
                                               size)
             _ipc_call("peer_open_handle", raw, ctypes.byref(ptr))
             mapped[peer] = ptr.value
-    return PeerBuffers(local.value, mapped, nbytes)
+    return PeerBuffers(local.value, mapped, nbytes, line, me)
 
 
-def peer_buffer_list(group: RankGroup) -> list:
-    """This process's peer buffers of ``group``, in the order made."""
-    return [b for k, b in _PEER_BUFFERS.items()
-            if k[:3] == (group.rank, group.world, group.sp)]
+def peer_buffer_list(kind: str = "ring") -> list:
+    """This process's (this rank's) peer buffers of ``kind``, in the
+    order made."""
+    return [b for k, b in _PEER_BUFFERS.items() if k[0] == kind]
 
 
 def free_peer_buffers(group: RankGroup) -> None:
-    """Unmap and free this process's peer buffers of ``group``. A
-    collective, made after the last kernel on them: the first barrier
-    keeps a peer from writing into a freed buffer, the second keeps a
-    buffer alive until no peer maps it."""
-    keys = [k for k in _PEER_BUFFERS
-            if k[:3] == (group.rank, group.world, group.sp)]
-    if not keys:
+    """Unmap and free this process's peer buffers. A collective over the
+    world, made after the last call on them: the first barrier keeps a
+    peer from writing into a freed buffer, the second keeps a buffer
+    alive until no peer maps it. Under ``ipc`` every rank takes part,
+    buffers or not, and first waits for its transport calls
+    (``transport.close``): one that was given up and not raised yet
+    raises here, before the barriers."""
+    if group.backend == "ipc":
+        _transport().close()
+    keys = list(_PEER_BUFFERS)
+    if not keys and group.backend != "ipc":
         return
-    torch.cuda.synchronize(group.device)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
     group.barrier()
     for key in keys:
         for ptr in _PEER_BUFFERS[key].peers.values():
@@ -441,6 +534,18 @@ def check_backend(backend: str, device: str, world: int) -> None:
     """Refuse what the backend cannot run; never switch backend."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: {BACKENDS}")
+    if backend == "ipc":
+        if device != "cuda":
+            raise ValueError(
+                "the ipc backend moves CUDA tensors device to device and "
+                "needs --device cuda; on the CPU use --dist-backend gloo")
+        if world > _transport().MAX_RANKS:
+            raise ValueError(
+                f"the ipc backend runs at most {_transport().MAX_RANKS} "
+                f"ranks (its copy kernel's tables); got {world}")
+        if not torch.cuda.is_available():
+            raise ValueError("the ipc backend needs a CUDA device; none is "
+                             "available")
     if backend == "nccl":
         if device != "cuda":
             raise ValueError("the nccl backend needs --device cuda; on the "
@@ -450,7 +555,8 @@ def check_backend(backend: str, device: str, world: int) -> None:
             raise ValueError(
                 f"nccl needs one GPU per rank: {world} ranks, {have} "
                 f"GPU(s). Run them on shared cards with --dist-backend "
-                f"gloo (the wire then goes through host memory)")
+                f"ipc (device to device through CUDA IPC) or gloo (the "
+                f"wire then goes through host memory)")
 
 
 def _worker(rank: int, world: int, sp: int, backend: str, device: str,
@@ -461,7 +567,10 @@ def _worker(rank: int, world: int, sp: int, backend: str, device: str,
             torch.cuda.set_device(dev)
         torch.set_num_threads(1 if dev.type == "cpu"
                               else max(1, (os.cpu_count() or 1) // world))
-        dist.init_process_group(backend, init_method=f"file://{store}",
+        # ipc: gloo carries the control plane, the payloads go through
+        # peer memory
+        dist.init_process_group("gloo" if backend == "ipc" else backend,
+                                init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         group = RankGroup(rank, world, backend, dev, sp)
         try:

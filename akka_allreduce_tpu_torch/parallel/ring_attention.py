@@ -35,7 +35,8 @@ NEG_INF = -1e30
 
 # host seconds spent in the attention's exchanges since import (or since a
 # caller reset it to 0); on the card each span starts and ends with the
-# stream drained, so it is the exchange's own time
+# stream drained, so it is the exchange's own time (on the ipc transport
+# that includes the stream's wait for the peer's push)
 EXCHANGE_SECONDS = 0.0
 
 

@@ -89,18 +89,44 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    alone on precomputed scales; the scale pass (abs-max, outside the
    kernel as in the JAX package) and the whole wrapper are timed beside
    it.
-9. train, dp=2 — ``train --dp 2 --dist-backend gloo`` at the flagship
+18. transport (runs after phase 8) — the ``ipc`` rank transport that
+   phases 9, 13, 16 and 17 ride (every payload device to device through
+   CUDA IPC peer buffers, gloo only for the control plane), on spawned
+   ranks at n = 2, 3 and 4 (a (2, 2) mesh): ``all_to_all``,
+   ``all_gather``, ``exchange`` and ``ppermute`` in f32, bf16 and int8
+   on the world and on both lines of the mesh, each pair one 64 MiB
+   chunk and 12 bytes, every output bitwise its gloo twin's (the same
+   process group's host wire, the same inputs); at two ranks also the
+   f32 sync's all_to_all of 2.16 GB a rank (17 chunks a pair) against
+   its twin; each collective timed (host clock from a drained stream to
+   ``transport.wait``, median of 5 between barriers, the slowest rank's)
+   with its GB/s, two byte bounds at the one card's 3.35 TB/s shared by
+   every rank (the function's: each rank's input read and output written
+   once, the kernels line's ``bound_ms``; the copies': push and pull each
+   read and write a received byte, local blocks read and written once)
+   and the copies, stretches and waits it enqueued; and the fault
+   control: rank 1 skips an all_gather, and rank 0's ``transport.wait``
+   must raise within ``ring.TIMEOUT_S`` (30 s) plus the watchdog's poll,
+   naming the counter it waits on. The cases and the rank side are
+   ``tests/torch_transport_ranks.py``'s, shared with the card tests.
+9. train, dp=2 — ``train --dp 2 --dist-backend ipc`` at the flagship
    configuration of phase 6, 3 steps each on the f32 (``none``), int8 and
-   ef8 wires: two rank processes share the card and their wire goes
-   through host memory, not NVLink. Asserts finite losses, parameters
+   ef8 wires: two rank processes share the card, their wire device to
+   device (phase 18). Each run has a gloo twin (host-memory wire; f32
+   and int8 2 steps, ef8 all 3) whose losses, and for ef8 parameters and
+   residual checksums, must be bitwise the ipc run's, and whose peak per
+   rank must not be below the ipc run's. Asserts finite losses, parameters
    bitwise equal on both ranks (a checksum each), rank 0's flash and
    sync launch counts equal to what the schedule implies per step x
    steps (computed here); the f32 run's losses within 5e-5 relative of
    phase 6's first 3 steps (same seed-0 weights, same global batches:
    a sum that drops or repeats a rank's gradient moves step 1 and 2 far
    more), and the int8 and ef8 runs' within 0.05 of the f32 run's (the
-   JAX tests' bound). Reports wall and sync ms per step and each rank's
-   peak memory.
+   JAX tests' bound). Reports wall and sync ms per step, each rank's
+   peak memory and transport buffers, and the twin's. Each ipc run's
+   ranks trace their step-1 gradient sync with ``torch.profiler`` (the
+   step the per-step means leave out): the window must hold the
+   transport's kernels and no ``Memcpy`` DtoH / HtoD above 1 MB.
 10. sync at four ranks — ``allreduce_gradients`` on 64 x 65,536 random
    bucket matrices, four gloo ranks on the card as a (dp 2, sp 2) mesh:
    every wire x schedule (f32, bf16, int8, ef8 x fused, windowed, swing;
@@ -142,11 +168,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 13. train, sp=2 — the gqa4 model of phase 7 (d_model 2048, 16 heads, 4
    KV heads, rope, 8 layers, d_ff 8192, vocab 32768) in bf16, batch 8,
    seq 2048, 3 steps on one card through the flash kernels, then the
-   same through ``train --sp 2 --dist-backend gloo`` (f32 wire; two rank
-   processes share the card, each on 1024 positions of every row); then
+   same through ``train --sp 2 --dist-backend ipc`` (f32 wire; two rank
+   processes share the card, each on 1024 positions of every row) and
+   its gloo twin (2 steps, losses bitwise); then
    the same in f32, the CLI's default dtype (no ``--bf16``: the f32 flash
-   and ring kernels in split TF32), at batch 4 for 2 steps.
-   Each run asserts finite losses within 1e-3 relative of its one-card
+   and ring kernels in split TF32), at batch 4 for 2 steps, without a
+   twin. Each run asserts finite losses within 1e-3 relative of its one-card
    run's (f32 reordering and bf16 rounding at other running maxima; a
    lost hop or a wrong offset moves the loss far more), the one-card
    run's flash kernels launched once per layer per step, parameters
@@ -196,9 +223,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    (the plain versions) from the card run's weights (seed 0 on the
    card's generator, which draws other numbers than the CPU's).
 
-16. train under deadlines — phase 9's flagship dp=2 run with
+16. train under deadlines — phase 9's flagship dp=2 run (on ipc) with
    ``--deadline-ms 50``: the f32 (``none``) wire at ``--max-lag`` 1, ef8
-   at 1, then f32 at 0 (the pacer's window against lockstep), each for
+   at 1, then f32 at 0 (the pacer's window against lockstep; ef8 with a
+   gloo twin of every step: losses, parameters and residuals bitwise),
+   each for
    the fewest steps (at most 6) whose straggle draws, rebuilt here with
    numpy, give a clean step 1, a step that masks one rank and a step
    that masks both and falls back to an exact round
@@ -211,7 +240,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    mask of ones multiplies by 1.0 and rescales by 2 / 2). Reports wall
    and sync ms per step and peak memory per rank beside phase 9's. Then
    one direct ``allreduce_gradients`` at the flagship's bucket matrix
-   (8,257 x 65,536 f32 a rank) on two gloo ranks with rank 1's row
+   (8,257 x 65,536 f32 a rank) on two ipc ranks with rank 1's row
    masked: the f32 wire must give both ranks exactly 2 x rank 0's
    gradient with counts of 1, ef8 must leave rank 1's residual bitwise
    unchanged.
@@ -221,8 +250,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    adamw lr 1e-4, batch 8, seq 2048, 3 steps) cut to 4 layers
    (339,757,056 params: four ranks' ef8 training state share the 80 GB),
    first on one card, then at ``--dp 2 --sp 2 --grad-quant ef8
-   --grad-schedule hierarchical`` on four gloo ranks on the card (4
-   sequences a dp line, 1,024 positions an sp rank). Asserts the bucket
+   --grad-schedule hierarchical`` on four ipc ranks on the card (4
+   sequences a dp line, 1,024 positions an sp rank) and its gloo twin
+   (every step: losses, parameters and residuals bitwise; no ipc peak
+   above the twin's). Asserts the bucket
    matrix ceil(params / 65,536) x 65,536 on every rank, step 1's loss
    within 1e-3 relative of the one-card run's and steps 2–3 within
    ``HIER_LOSS_ATOL`` (1.7e-3) of it, parameters bitwise equal on every
@@ -236,20 +267,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    four ranks under ``--deadline-ms`` with a straggle draw that masks
    that line, ``choose_line_drop``). Reports wall, sync and exchange ms
    per step and peak memory per rank. Then the autotuner at the CLI's
-   defaults:
+   defaults, on ipc:
    ``train --dp 2 --grad-schedule auto --plan-dir D`` twice (measured on
    the ranks: fused, windowed:4, swing; then reloaded, the sidecar's
    bytes unchanged), ``train --dp 2 --sp 2 --grad-quant ef8
    --grad-schedule auto`` (hierarchical its only arm and winner); every
    entry's note empty; each plan's table printed. Then the bench rows at
-   four ranks (``bench.py``: ``measure_device_goodput`` at 25M floats and
+   four ipc ranks (``bench.py``: ``measure_device_goodput`` at 25M floats and
    ``measure_quantized_collectives`` over its four payloads; each set of
    rounds sized to 0.3 s on the slowest rank, at least 4 / 1 rounds, 3
    reps), one JSON line each with its rounds and its spread;
    a row with an error fails.
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
-kernels JSON line, and last ``{"ok": true, "device": {...}}``.
+kernels JSON line (the transport's copy kernel among them, its launches
+rank 0's in phases 9, 13, 16 and 17), and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -368,13 +401,34 @@ EF_BLOCK = 512        # the ef8 wire's scale block
 REDUCE_CASES = [(8, 3_276_800, (1, 1, 1, 0, 1, 1, 1, 1), 8.0),
                 (3, 1000, (0, 0, 0), 1.0), (3, 1001, (1, 0, 1), 2.0),
                 (5, 4096, (1, 1, 0, 1, 1), 1.0)]
+# the multi-rank training phases (9, 13, 16, 17) run on the ipc rank
+# transport; each keeps a twin on the gloo host wire whose losses (and,
+# when it runs every step, parameters and ef8 residual) must be bitwise
+# the ipc run's; a twin runs TWIN_STEPS steps unless it holds a residual
+DIST = "ipc"
+TWIN = "gloo"
+TWIN_STEPS = 2
+# phase 18 (after phase 8): the transport against gloo at each (world,
+# sp) spawn; the first also moves the 2.16 GB payload, times the
+# collectives (median of TRANSPORT_REPS between barriers) and runs the
+# fault control (rank 1 skips a call: rank 0 raises within ring.TIMEOUT_S
+# plus the watchdog's poll and the abandon, TRANSPORT_FAULT_SLACK_S);
+# phase 9's traced syncs hold no host copy above TRANSPORT_HOST_COPY_MAX
+TRANSPORT_SPAWNS = ((2, 1), (3, 1), (4, 2))
+TRANSPORT_REPS = 5
+TRANSPORT_HOST_COPY_MAX = 1 << 20
+TRANSPORT_FAULT_SLACK_S = 2.0
+TRANSPORT_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/transport.cu"
+# no pl.pallas_call: the wire under the JAX sync's lax.psum_scatter /
+# all_gather (and all_to_all, ppermute), which rides ICI on the TPU
+TRANSPORT_REPLACES = "akka_allreduce_tpu/ops/collectives.py:118"
 # phase 9: the flagship at dp=2 on one card, 3 steps per wire
 DP_WORLD = 2
 DP_ARGV = [
     "train", "--d-model", "2048", "--n-heads", "16", "--n-layers", "8",
     "--d-ff", "8192", "--vocab", "32768", "--seq", "2048", "--batch", "8",
     "--bf16", "--lr", "1e-4", "--steps", "3", "--log-every", "1",
-    "--device", "cuda", "--dp", str(DP_WORLD), "--dist-backend", "gloo"]
+    "--device", "cuda", "--dp", str(DP_WORLD), "--dist-backend", DIST]
 DP_WIRES = ("none", "int8", "ef8")
 DP_LOSS_RTOL = 5e-5   # f32 wire vs one card, per step (measured ~1.4e-5)
 QUANT_LOSS_ATOL = 0.05  # int8/ef8 vs the f32 wire (TestEf8Training)
@@ -435,6 +489,9 @@ SP_F32_ARGV = [
     "--seq", "2048", "--batch", "4", "--lr", "1e-4", "--steps", "2",
     "--log-every", "1", "--device", "cuda"]
 SP_RUNS = {"bfloat16": SP_ARGV, "float32": SP_F32_ARGV}
+# the dtypes whose sp=2 run has a gloo twin (the transport moves bytes:
+# the f32 run's K/V take the same route at twice the width)
+SP_TWINS = ("bfloat16",)
 SP_LOSS_RTOL = 1e-3
 # phase 14: the flagship's bucket matrix (ceil(541.1M params / 65,536)
 # rows of 65,536 f32) flattened, at two ranks; a 64M slice at four
@@ -457,6 +514,10 @@ DEFAULTS_COMPARED_STEPS = 2
 # f32 at --max-lag 0 (what the pacer's window buys on the gloo wire)
 DEADLINE_MS = 50.0
 DEADLINE_RUNS = (("none", 1), ("ef8", 1), ("none", 0))
+# the runs with a gloo twin, and its steps (None: every step, so the
+# masked rounds, the fallback and the ef8 residual are compared); the f32
+# runs' first two losses are held bitwise to phase 9's, whose twin is gloo
+DEADLINE_TWINS = {("ef8", 1): None}
 DEADLINE_MAX_STEPS = 6
 # its direct masked sync: the flagship's bucket matrix, f32, a rank
 DEADLINE_SYNC_SHAPE = (8257, BUCKET_ELEMS)
@@ -468,7 +529,7 @@ HIER_ARGV = [
     "--d-ff", "8192", "--vocab", "32768", "--seq", "2048", "--batch", "8",
     "--bf16", "--lr", "1e-4", "--steps", "3", "--log-every", "1",
     "--device", "cuda"]
-HIER_DIST = ["--dp", "2", "--sp", "2", "--dist-backend", "gloo",
+HIER_DIST = ["--dp", "2", "--sp", "2", "--dist-backend", DIST,
              "--grad-quant", "ef8", "--grad-schedule", "hierarchical"]
 HIER_PEAK_GB = 72.0  # the four ranks' summed peak the card must hold
 # steps 2-3's loss gap to the one-card run, from readings on the H100
@@ -479,7 +540,7 @@ HIER_LOSS_ATOL = 1.7e-3
 # the autotuner at the CLI's defaults: f32 at dp 2 (twice, one plan
 # directory: measured, then reloaded), then ef8 at dp 2 x sp 2
 AUTO_ARGV = ["train", "--steps", "3", "--log-every", "1", "--device",
-             "cuda", "--dist-backend", "gloo", "--grad-schedule", "auto"]
+             "cuda", "--dist-backend", DIST, "--grad-schedule", "auto"]
 AUTO_F32 = ["--dp", "2"]
 AUTO_EF8 = ["--dp", "2", "--sp", "2", "--grad-quant", "ef8"]
 # the bench rows at four ranks: the JAX payloads (None: the bench
@@ -490,6 +551,7 @@ BENCH_R_HI, BENCH_R_LO, BENCH_REPS = 4, 1, 3
 BENCH_SET_S = 0.3
 BENCH_GOODPUT = None
 BENCH_PAYLOADS = None
+BENCH_BACKEND = DIST
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1388,24 +1450,169 @@ def expected_sync_launches(transport: str, schedule: str, world: int,
     return out
 
 
+def steady(xs):
+    """The mean after the first entry (the first step warms up)."""
+    return statistics.mean(xs[1:] or xs) if xs else None
+
+
+def run_twin(torch, argv: list, steps: int) -> "tuple[dict, float]":
+    """The gloo twin of an ipc run: ``argv`` on the host wire for
+    ``steps`` steps. Returns its report and seconds."""
+    from akka_allreduce_tpu_torch import cli
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report = cli.run_train(cli.build_parser().parse_args(
+        argv + ["--dist-backend", TWIN, "--steps", str(steps)]))
+    return report, time.perf_counter() - t0
+
+
+def twin_fields(report: dict, twin: dict, seconds: float) -> dict:
+    """An ipc run against its gloo twin: the twin's losses, times and
+    peaks, and whether its losses (and, when it ran every step, its
+    parameter and ef8 residual checksums) are bitwise the ipc run's.
+    Also the ipc run's transport use (rank 0) and buffers."""
+    ranks, tranks = report["ranks"], twin["ranks"]
+    n = len(twin["losses"])
+    out = {"twin_backend": twin["dist"]["backend"], "twin_steps": n,
+           "twin_losses": twin["losses"],
+           "losses_bitwise_twin": report["losses"][:n] == twin["losses"],
+           "twin_wall_ms_per_step": twin["wall_ms_per_step"],
+           "twin_sync_ms_per_step": [steady(r["sync_ms"]) for r in tranks],
+           "twin_attn_exchange_ms_per_step": [
+               steady(r["attn_exchange_ms"]) for r in tranks],
+           "twin_peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                            for r in tranks],
+           "transport_buffer_gb_per_rank": [r["transport_buffer_gb"]
+                                            for r in ranks],
+           "transport": ranks[0]["transport"], "twin_run_seconds": seconds}
+    if n == len(report["losses"]):
+        out["param_checksums_bitwise_twin"] = (
+            [r["param_checksum"] for r in ranks]
+            == [r["param_checksum"] for r in tranks])
+        if "residual_checksum" in ranks[0]:
+            out["residual_checksums"] = [r["residual_checksum"]
+                                         for r in ranks]
+            out["residual_checksums_bitwise_twin"] = (
+                out["residual_checksums"]
+                == [r["residual_checksum"] for r in tranks])
+    return out
+
+
+def check_twin(name: str, report: dict, fields: dict,
+               peak: bool = False) -> None:
+    """Raise unless the ipc run rode the transport and matches its twin
+    bitwise; with ``peak``, unless each rank's peak (the allocator's
+    plus the fixed buffers) is at most the twin's plus the buffers."""
+    bad = [k for k in ("losses_bitwise_twin", "param_checksums_bitwise_twin",
+                       "residual_checksums_bitwise_twin")
+           if fields.get(k) is False]
+    if report["dist"]["backend"] != DIST or (
+            DIST == "ipc" and not fields["transport"]["transport_launches"]):
+        bad.append(f"backend {report['dist']['backend']}, transport "
+                   f"{fields['transport']}")
+    if peak:
+        over = [(p["peak_memory_gb"], t) for p, t in zip(
+            report["ranks"], fields["twin_peak_memory_gb_per_rank"])
+            if p["peak_memory_gb"] is not None and p["peak_memory_gb"] > t]
+        if over:
+            bad.append(f"ipc peaks above the gloo twin's: {over}")
+    if bad:
+        raise AssertionError(f"{name}: the ipc run against its gloo twin: "
+                             f"{bad} ({fields})")
+
+def traced_sync(torch, group, sync):
+    """``sync()`` (one gradient sync of a training step) under
+    ``torch.profiler``, drained at its end: its result, and the
+    host-device copies the trace holds (``Memcpy DtoH`` / ``HtoD``, with
+    their bytes) and the transport's kernels in it."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = sync()
+        transport.wait(group)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="trace-") as tmp:
+        path = os.path.join(tmp, "sync.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [{"name": e.get("name"), "bytes": e.get("args", {}).get(
+        "bytes")} for e in events
+        if "Memcpy" in str(e.get("name")) and (
+            "DtoH" in str(e.get("name")) or "HtoD" in str(e.get("name")))]
+    kernels = sum(1 for e in events
+                  if e.get("cat") == "kernel"
+                  and "transport_copy_kernel" in str(e.get("name")))
+    return res, {"host_copies": copies, "transport_kernels": kernels,
+                 "largest_host_copy_bytes": max(
+                     [c["bytes"] or 0 for c in copies], default=0)}
+
+
+def traced_train_rank(group, args, params, attn_impl):
+    """``cli``'s train rank with step 1's gradient sync traced
+    (``traced_sync``; the step that ``wall_ms_per_step`` and the steady
+    sync ms leave out), the trace in the rank's ``rank_info``."""
+    import torch
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models import train
+    real, trace = train.allreduce_gradients, {}
+
+    def sync(*a, **k):
+        if trace:
+            return real(*a, **k)
+        res, found = traced_sync(torch, group, lambda: real(*a, **k))
+        trace.update(found)
+        return res
+    train.allreduce_gradients = sync
+    report = cli._train_rank(group, args, params, attn_impl)
+    report["rank_info"]["sync_trace"] = trace
+    return report
+
+
+def check_sync_traces(name: str, ranks: list) -> None:
+    """Raise unless every rank's traced sync ran the transport's kernels
+    and holds no host-device copy above ``TRANSPORT_HOST_COPY_MAX``."""
+    traces = [r.get("sync_trace") or {} for r in ranks]
+    big = [t.get("largest_host_copy_bytes") for t in traces]
+    kernels = [t.get("transport_kernels") for t in traces]
+    if not all(kernels) or any(b is None or b > TRANSPORT_HOST_COPY_MAX
+                               for b in big):
+        raise AssertionError(f"{name}: the traced ipc sync holds host "
+                             f"copies of {big} bytes at most and "
+                             f"{kernels} transport kernels")
+
+
 def phase_train_dp(torch, one_card_losses: list) -> dict:
-    """``run_train`` at dp=2 per wire (the main path of the sync); each
-    run's ranks are fresh processes whose counters start at 0. The f32
-    wire's losses are held against phase 6's first steps (the same
-    weights and global batches on one card), the quantized wires' against
-    the f32 wire's. Returns the sync kernels' launches summed over the
-    runs (``launches``) and each wire's emitted line (``runs``), which
-    phase 16 compares with."""
+    """``run_train`` at dp=2 per wire on the ipc transport (the main path
+    of the sync), each with its gloo twin; each run's ranks are fresh
+    processes whose counters start at 0. The f32 wire's losses are held
+    against phase 6's first steps (the same weights and global batches
+    on one card), the quantized wires' against the f32 wire's. Returns
+    the sync kernels' and the transport's launches summed over the runs
+    (rank 0's; ``launches``, ``transport``) and each wire's emitted line
+    (``runs``), which phase 16 compares with."""
     from akka_allreduce_tpu_torch import cli
     totals = dict.fromkeys(SYNC_KERNELS, 0)
+    transport_launches = 0
     runs = {}
     f32_losses = None
     for wire in DP_WIRES:
         args = cli.build_parser().parse_args(DP_ARGV + ["--grad-quant", wire])
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        report = cli.run_train(args)
+        rank_fn = cli._train_rank
+        if DIST == "ipc":  # a window of step 1's sync, on every rank
+            cli._train_rank = traced_train_rank
+        try:
+            report = cli.run_train(args)
+        finally:
+            cli._train_rank = rank_fn
         seconds = time.perf_counter() - t0
+        # the ef8 twin runs every step, so its residual is compared too
+        twin, twin_s = run_twin(torch, DP_ARGV + ["--grad-quant", wire],
+                                args.steps if wire == "ef8" else TWIN_STEPS)
         cfg = report["config"]
         num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
         per_sync = expected_sync_launches(
@@ -1419,8 +1626,9 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
         out = {
             "wire": wire, "backend": report["dist"]["backend"],
             "world": report["dist"]["world"],
-            "transport": "gloo: host memory (device -> host -> device), "
-                         "not NVLink",
+            "wire_route": "ipc: device to device through CUDA IPC peer "
+                          "buffers on the one card; the twin's gloo: "
+                          "host memory",
             "losses": losses, "step_ms": report["step_ms"],
             "wall_ms_per_step": report["wall_ms_per_step"],
             "sync_ms": sync_ms,
@@ -1433,7 +1641,8 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
             "sync_launches": report["sync_launches"],
             "expected_sync_launches": expected,
             "flash_launches": report["launches"],
-            "run_seconds": seconds}
+            "sync_trace": [r.get("sync_trace") for r in report["ranks"]],
+            "run_seconds": seconds, **twin_fields(report, twin, twin_s)}
         if wire == "none":
             ref = one_card_losses[:len(losses)]
             out.update(one_card_losses=ref, loss_rtol=DP_LOSS_RTOL,
@@ -1444,6 +1653,9 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
             out.update(loss_atol=QUANT_LOSS_ATOL, loss_diff_vs_f32=[
                 abs(a - b) for a, b in zip(losses, f32_losses)])
         emit("train_dp", **out)
+        check_twin(f"phase 9 {wire}", report, out, peak=True)
+        if DIST == "ipc":
+            check_sync_traces(f"phase 9 {wire}", report["ranks"])
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{wire}: non-finite losses {out}")
         if len(set(sums)) != 1:
@@ -1467,12 +1679,14 @@ def phase_train_dp(torch, one_card_losses: list) -> dict:
                                  f"{f32_losses}")
         for k, v in report["sync_launches"].items():
             totals[k] += v
+        transport_launches += out["transport"]["transport_launches"]
         runs[wire] = out
     missing = [k for k in MAIN_PATH_SYNC if totals[k] == 0]
     if missing:
         raise AssertionError(f"sync kernels never launched on the main "
                              f"path: {missing}")
-    return {"launches": totals, "runs": runs}
+    return {"launches": totals, "runs": runs,
+            "transport": transport_launches}
 
 
 def sync4_envelope(torch, transport: str, schedule: str, contribs: list,
@@ -1838,8 +2052,9 @@ def phase_train_sp(torch) -> dict:
 
 
 def train_sp(torch, argv: list, dtype: str) -> dict:
-    """One ``SP_RUNS`` entry: the one-card run, then ``--sp 2``; the ranks
-    are fresh processes whose counters start at 0."""
+    """One ``SP_RUNS`` entry: the one-card run, then ``--sp 2`` on the ipc
+    transport and its gloo twin; the ranks are fresh processes whose
+    counters start at 0."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
     one_args = parse(argv)
@@ -1848,16 +2063,16 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
     one = cli.run_train(one_args)
     one_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    args = parse(argv + ["--sp", str(SP_WORLD), "--dist-backend", "gloo"])
+    dist_argv = argv + ["--sp", str(SP_WORLD), "--dist-backend", DIST]
+    args = parse(dist_argv)
     t0 = time.perf_counter()
     report = cli.run_train(args)
     seconds = time.perf_counter() - t0
+    twin = (run_twin(torch, dist_argv, min(TWIN_STEPS, args.steps))
+            if dtype in SP_TWINS else None)
     losses, ref = report["losses"], one["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
     ranks = report["ranks"]
-
-    def steady(xs):
-        return statistics.mean(xs[1:] or xs) if xs else None
     layers, steps = args.n_layers, args.steps
     expected = [{"ring": dict.fromkeys(("ring_fwd", "ring_dq", "ring_dkv"),
                                        layers * (r + 1) * steps),
@@ -1873,8 +2088,7 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
     out = {
         "dtype": dtype, "batch": args.batch, "steps": steps,
         "sp": SP_WORLD, "backend": report["dist"]["backend"],
-        "world": report["dist"]["world"], "transport":
-            "gloo: host memory (device -> host -> device), not NVLink",
+        "world": report["dist"]["world"],
         "losses": losses, "one_card_losses": ref, "loss_rtol": SP_LOSS_RTOL,
         "loss_rel_diff": rel, "step_ms": report["step_ms"],
         "wall_ms_per_step": report["wall_ms_per_step"],
@@ -1888,8 +2102,18 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
         "one_card_peak_memory_gb": one_peak,
         "param_checksums": sums, "launches_per_rank": got,
         "expected_launches_per_rank": expected,
-        "one_card_flash_launches": one["launches"], "run_seconds": seconds}
+        "one_card_flash_launches": one["launches"], "run_seconds": seconds,
+        "transport": ranks[0]["transport"],
+        "transport_buffer_gb_per_rank": [r["transport_buffer_gb"]
+                                         for r in ranks]}
+    if twin is not None:
+        out.update(twin_fields(report, *twin))
     emit("train_sp", **out)
+    if twin is not None:
+        check_twin(f"phase 13 {dtype}", report, out)
+    elif report["dist"]["backend"] != DIST:
+        raise AssertionError(f"phase 13 {dtype} ran on "
+                             f"{report['dist']['backend']}")
     if not all(math.isfinite(x) for x in losses + ref):
         raise AssertionError(f"non-finite losses {losses} / {ref}")
     if len(rel) != steps or max(rel) > SP_LOSS_RTOL:
@@ -1904,7 +2128,8 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
                              f"expected n_layers x steps each")
     return {"ring": {k_: sum(r["ring_launches"][k_] for r in ranks)
                      for k_ in RING_REPLACES},
-            "flash": one["launches"]}
+            "flash": one["launches"],
+            "transport": out["transport"]["transport_launches"]}
 
 
 def phase_train_defaults(torch) -> dict:
@@ -2073,10 +2298,11 @@ def masked_sync_rank(group, rows: int, cols: int) -> dict:
 
 def phase_train_deadline(torch, dp_runs: dict) -> dict:
     """Phase 16: ``run_train`` at phase 9's flagship dp=2 configuration
-    under ``--deadline-ms`` for each of ``DEADLINE_RUNS`` (fresh rank
-    processes each, so their counters start at 0), then one direct
-    masked sync at the flagship's gradient size. Returns rank 0's sync
-    and flash launches summed over the runs."""
+    on the ipc transport under ``--deadline-ms`` for each of
+    ``DEADLINE_RUNS`` (fresh rank processes each, so their counters start
+    at 0), the runs of ``DEADLINE_TWINS`` with their gloo twins, then one
+    direct masked sync at the flagship's gradient size. Returns rank 0's
+    sync, flash and transport launches summed over the runs."""
     from akka_allreduce_tpu_torch import cli
     from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     base = cli.build_parser().parse_args(DP_ARGV)
@@ -2091,17 +2317,22 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
     prob, steps = choose_straggle(draws)
     want = predicted_rounds(draws[:steps], prob)
     totals = {"sync": dict.fromkeys(SYNC_KERNELS, 0),
-              "flash": dict.fromkeys(FLASH_REPLACES, 0)}
+              "flash": dict.fromkeys(FLASH_REPLACES, 0), "transport": 0}
     runs = {}
     for wire, lag in DEADLINE_RUNS:
-        args = cli.build_parser().parse_args(DP_ARGV + [
+        argv = DP_ARGV + [
             "--grad-quant", wire, "--steps", str(steps), "--deadline-ms",
             str(DEADLINE_MS), "--straggle-prob", repr(prob), "--max-lag",
-            str(lag)])
+            str(lag)]
+        args = cli.build_parser().parse_args(argv)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         report = cli.run_train(args)
         seconds = time.perf_counter() - t0
+        twin = None
+        if (wire, lag) in DEADLINE_TWINS:
+            twin = run_twin(torch, argv,
+                            DEADLINE_TWINS[wire, lag] or steps)
         cfg = report["config"]
         num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
         sync_expected, flash_expected = expected_deadline_launches(
@@ -2131,13 +2362,18 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
             "expected_sync_launches": sync_expected,
             "flash_launches": report["launches"],
             "expected_flash_launches": flash_expected,
-            "run_seconds": seconds}
+            "run_seconds": seconds,
+            "transport": report["ranks"][0]["transport"]}
+        if twin is not None:
+            out.update(twin_fields(report, *twin))
         if wire == "none":
             # after the clean step 1 both runs hold the same weights: a
             # mask of ones multiplies by 1.0 and rescales by 2 / 2, so the
             # masked route sums what the exact one does, in its order
             out["phase9_losses"] = ref["losses"]
         emit("train_deadline", **out)
+        if twin is not None:
+            check_twin(f"phase 16 {wire} lag {lag}", report, out)
         if rounds != want:
             raise AssertionError(f"{wire} lag {lag}: rounds {rounds}, the "
                                  f"draws predict {want}")
@@ -2161,6 +2397,7 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
             totals["sync"][k] += v
         for k, v in report["launches"].items():
             totals["flash"][k] += v
+        totals["transport"] += out["transport"]["transport_launches"]
         runs[wire, lag] = out
     lag1, lag0 = runs["none", 1], runs["none", 0]
     emit("train_deadline_max_lag", wire="none",
@@ -2168,10 +2405,11 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
                            "max_lag_0": lag0["wall_ms_per_step"]},
          step_ms={"max_lag_1": lag1["step_ms"],
                   "max_lag_0": lag0["step_ms"]},
-         note="gloo blocks the host inside each sync, so the window can "
-              "overlap only the optimizer step and the next forward")
+         note="on ipc the host enqueues a round's sync without waiting "
+              "for it, so the window can overlap the host's dispatch of "
+              "the next round with the device's sync")
     rows, cols = DEADLINE_SYNC_SHAPE
-    sync = spawn_ranks(masked_sync_rank, DP_WORLD, "gloo", DEVICE, rows,
+    sync = spawn_ranks(masked_sync_rank, DP_WORLD, DIST, DEVICE, rows,
                        cols)
     emit("masked_sync", rows=rows, cols=cols, ranks=sync)
     bad = [r for r in sync if not (
@@ -2248,10 +2486,11 @@ def hierarchical_controls(torch, one_losses: list) -> dict:
 
 def phase_hierarchical(torch) -> dict:
     """Phase 17, the full-width run: ``HIER_ARGV`` on one card, then at
-    ``HIER_DIST`` (four gloo ranks on the card, fresh processes whose
-    counters start at 0), then the two fault controls of the loss bound.
-    Returns the emitted row, rank 0's sync launches and the ring
-    kernels' launches summed over the ranks."""
+    ``HIER_DIST`` (four ipc ranks on the card, fresh processes whose
+    counters start at 0) and its gloo twin (every step, so the ef8
+    residuals are compared), then the two fault controls of the loss
+    bound. Returns the emitted row, rank 0's sync and transport launches
+    and the ring kernels' launches summed over the ranks."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
     torch.cuda.empty_cache()
@@ -2261,6 +2500,7 @@ def phase_hierarchical(torch) -> dict:
     args = parse(HIER_ARGV + HIER_DIST)
     report = cli.run_train(args)
     seconds = time.perf_counter() - t0
+    twin = run_twin(torch, HIER_ARGV + HIER_DIST, args.steps)
     cfg, ranks = report["config"], report["ranks"]
     num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
     per_sync = expected_sync_launches("ef8", "hierarchical",
@@ -2309,8 +2549,10 @@ def phase_hierarchical(torch) -> dict:
         "peak_memory_gb_per_rank": peaks,
         "peak_memory_gb_sum": sum(peaks) if all(peaks) else None,
         "run_seconds": seconds,
-        "controls_seconds": time.perf_counter() - t1}
+        "controls_seconds": time.perf_counter() - t1,
+        **twin_fields(report, *twin)}
     emit("hierarchical_train", **row)
+    check_twin("phase 17 hierarchical", report, row, peak=True)
     if not all(math.isfinite(x) for x in losses + ref):
         raise AssertionError(f"non-finite losses {losses} / {ref}")
     if [r["residual_shape"] for r in ranks] != [
@@ -2339,7 +2581,8 @@ def phase_hierarchical(torch) -> dict:
                              f"card) {got_attn}, expected {expected_attn}")
     return {"row": row, "launches": ranks[0]["sync_launches"],
             "ring": {k: sum(r["ring_launches"][k] for r in ranks)
-                     for k in RING_REPLACES}}
+                     for k in RING_REPLACES},
+            "transport": row["transport"]["transport_launches"]}
 
 
 def phase_auto(torch, plan_dir: str) -> dict:
@@ -2406,7 +2649,7 @@ def phase_bench_rows(torch) -> dict:
     torch.cuda.empty_cache()
     sizing = {"r_hi": BENCH_R_HI, "r_lo": BENCH_R_LO, "reps": BENCH_REPS,
               "ranks": BENCH_RANKS, "device": DEVICE,
-              "set_seconds": BENCH_SET_S}
+              "set_seconds": BENCH_SET_S, "backend": BENCH_BACKEND}
     goodput = {} if BENCH_GOODPUT is None else dict(
         zip(("elems", "bucket_elems"), BENCH_GOODPUT))
     payloads = {} if BENCH_PAYLOADS is None else {"payloads": BENCH_PAYLOADS}
@@ -2418,6 +2661,201 @@ def phase_bench_rows(torch) -> dict:
     if errors:
         raise AssertionError(f"bench rows failed: {errors}")
     return {"rows": len(rows)}
+
+
+# -- phase 18: the rank transport (ipc) --------------------------------------
+
+def transport_ranks():
+    """``tests/torch_transport_ranks.py``, the rank side that phase 18
+    shares with the transport's CPU and card tests (no JAX)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_transport_ranks
+    return torch_transport_ranks
+
+
+def transport_cases(world: int, sp: int, seed: int) -> list:
+    """The twin cases of one spawn (``torch_transport_ranks.make_cases``):
+    every collective in f32, bf16 and int8 on the world and, on a mesh,
+    on its sp and dp lines; each pair's payload one chunk and 12 bytes
+    (two chunks, the second ragged; an int8 all_to_all's blocks then
+    start unaligned), made on each rank's device from ``seed``."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    from akka_allreduce_tpu_torch.parallel.group import axis_lines
+    tr = transport_ranks()
+    chunk = transport.chunk_bytes(
+        [world] + [len(ln) for ln in axis_lines(world, sp) if 0 in ln])
+    seeds = iter(range(seed * 1000, seed * 1000 + 1000))
+    sizes = {"float32": 4, "bfloat16": 2, "int8": 1}
+    return tr.make_cases(
+        world, sp, {d: ((chunk + 12) // s,) for d, s in sizes.items()},
+        lambda dtype, shape: tr.Seeded(shape, next(seeds)))
+
+
+def transport_timed(world: int) -> list:
+    """``(label, kind, dtype, elems a pair)`` timed on the world: the f32
+    sync's all_to_all and all_gather at the flagship's bucket matrix (2.16
+    GB a rank in and out), one K/V block of phase 13's ring (B 8, 1,024
+    positions, 4 KV heads of 128, bf16) by exchange and ppermute, and
+    the step's metrics all_gather (3 f32)."""
+    total = 8257 * BUCKET_ELEMS
+    return [("sync_all_to_all", "all_to_all", "float32", total // world),
+            ("sync_all_gather", "all_gather", "float32", total // world),
+            ("kv_exchange", "exchange", "bfloat16", 8 * 1024 * 4 * 128),
+            ("kv_ppermute", "ppermute", "bfloat16", 8 * 1024 * 4 * 128),
+            ("metrics_all_gather", "all_gather", "float32", 3)]
+
+
+def transport_bounds(kind: str, n: int, pair_bytes: int) -> dict:
+    """Two byte bounds of one call over every rank on the one card, each
+    also in ms at the card's memory rate: ``function`` — each rank reads
+    its input once and writes its output once (what any wire must move,
+    the kernels line's bound); ``copies`` — this schedule's: each
+    received byte written by the push and read by the pull, read and
+    written once each way (4 B), and each local block read and written
+    (2 B)."""
+    peers = {"all_to_all": n - 1, "all_gather": n - 1, "exchange": 1,
+             "ppermute": 1}[kind]
+    ins = pair_bytes * (n if kind == "all_to_all" else 1)
+    outs = pair_bytes * (n if kind in ("all_to_all", "all_gather") else 1)
+    local = pair_bytes if kind in ("all_to_all", "all_gather") else 0
+    function = n * (ins + outs)
+    copies = n * (4 * peers * pair_bytes + 2 * local)
+    return {"function_bytes": function,
+            "function_ms": function / PEAK_BYTES_PER_S * 1e3,
+            "copies_bytes": copies,
+            "copies_ms": copies / PEAK_BYTES_PER_S * 1e3}
+
+
+def transport_timings(torch, group, reps: int) -> list:
+    """``transport_timed`` on the world, ``reps`` calls each between
+    gloo barriers, host clock from a drained stream to ``transport.wait``:
+    this rank's median; every rank's medians come back with it."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    tr = transport_ranks()
+    twin = dataclasses.replace(group, backend=TWIN)
+    rows = []
+    for label, kind, dtype, elems in transport_timed(group.world):
+        n = group.world
+        kw = {"peers": [p ^ 1 for p in range(n)]} if kind == "exchange" \
+            else {"shift": 1}
+        if kind == "exchange" and n % 2:
+            continue
+        case = ("world", kind, dtype, tr.Seeded(
+            (n, elems) if kind == "all_to_all" else (elems,), 7), kw)
+        x = tr.rank_input(group, case)
+        tr.run_case(group, case, x)  # warm-up
+        transport.wait(group)
+        times = []
+        for _ in range(reps):
+            twin.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_case(group, case, x)
+            transport.wait(group)
+            times.append((time.perf_counter() - t0) * 1e3)
+        mine = torch.tensor([statistics.median(times)], dtype=torch.float64)
+        every = twin.all_gather(mine).tolist()
+        pair = elems * x.element_size()
+        b = transport_bounds(kind, n, pair)
+        received = pair * (n - 1 if kind in ("all_to_all", "all_gather")
+                           else 1)
+        rows.append({"label": label, "kind": kind, "dtype": dtype,
+                     "pair_bytes": pair, "ms_per_rank": every,
+                     "ms": max(every),
+                     "received_gb_per_s": received / max(every) / 1e6,
+                     "bound_bytes": b["function_bytes"],
+                     "bound_ms": b["function_ms"],
+                     "copies_bound_bytes": b["copies_bytes"],
+                     "copies_bound_ms": b["copies_ms"]})
+        del x
+    return rows
+
+
+def transport_rank(group, seed: int, first: bool) -> dict:
+    """One rank of phase 18's spawn: every ``transport_cases`` case
+    against its gloo twin; on the first spawn (two ranks) also the 2.16
+    GB all_to_all, the timings, and the fault control, rank 1 skipping
+    an all_gather."""
+    import torch
+
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    from akka_allreduce_tpu_torch.parallel.group import peer_buffer_list
+    tr = transport_ranks()
+    cases = transport_cases(group.world, group.sp, seed)
+    if first:
+        total = 8257 * BUCKET_ELEMS
+        cases.append(("world", "all_to_all", "float32", tr.Seeded(
+            (group.world, total // group.world), seed * 1000 + 999), {}))
+    out = {"rank": group.rank, "cases": tr.run_twins(group, cases)}
+    if first:
+        out["timings"] = transport_timings(torch, group, TRANSPORT_REPS)
+    out["buffers"] = [{"line": list(b.line), "bytes": b.nbytes}
+                      for b in peer_buffer_list("transport")]
+    if first:
+        out["fault"] = {**tr.skip_one_call(group, ring.TIMEOUT_S),
+                        "timeout_s": ring.TIMEOUT_S}
+    return out
+
+
+def transport_kernel_row(runs: dict, launches: int) -> dict:
+    """The kernels line's entry of the transport's copy kernel: timed on
+    phase 18's two ranks as the f32 sync's all_to_all of 2.16 GB a rank
+    (the slowest rank's median), the gloo twin's call of the same as the
+    plain version, bitwise (error 0); its bound the function's bytes
+    (each rank's input read and output written once)."""
+    ranks = runs[TRANSPORT_SPAWNS[0]]
+    timing = next(t for t in ranks[0]["timings"]
+                  if t["label"] == "sync_all_to_all")
+    big = [c for r in ranks for c in r["cases"]
+           if c["kind"] == "all_to_all" and c["pair_bytes"]
+           == timing["pair_bytes"]]
+    return {"name": "transport_copy", "route": "cuda",
+            "source": TRANSPORT_SOURCE, "replaces": TRANSPORT_REPLACES,
+            "launches": launches, "max_abs_err": 0.0, "ms": timing["ms"],
+            "plain_ms": max(c["gloo_ms"] for c in big),
+            "bound_ms": timing["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+def phase_transport(torch) -> dict:
+    """Phase 18: the ``ipc`` rank transport against gloo, on spawned
+    ranks at each of ``TRANSPORT_SPAWNS``; the first (two ranks) also
+    moves the 2.16 GB payload, times each collective and runs the fault
+    control."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    failures, rows = [], {}
+    for i, (world, sp) in enumerate(TRANSPORT_SPAWNS):
+        first = i == 0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(transport_rank, world, DIST, DEVICE, 100 + i,
+                            first, sp=sp, timeout=600)
+        seconds = time.perf_counter() - t0
+        cases = ranks[0]["cases"]
+        rows[world, sp] = ranks
+        emit("transport", world=world, sp=sp, seconds=seconds,
+             buffers=ranks[0]["buffers"], cases=cases,
+             timings=ranks[0].get("timings"),
+             fault=[r.get("fault") for r in ranks])
+        bad = [(r["rank"], c["scope"], c["kind"], c["dtype"],
+                c["pair_bytes"]) for r in ranks for c in r["cases"]
+               if not c["bitwise"]]
+        if bad:
+            failures.append(f"{world} ranks: not bitwise gloo: {bad}")
+        if first:
+            fault = ranks[0]["fault"]
+            if not (fault.get("raised")
+                    and fault["seconds"] <= ring.TIMEOUT_S
+                    + TRANSPORT_FAULT_SLACK_S
+                    and "ready from rank 1" in fault["message"]):
+                failures.append(f"fault control: {fault}")
+    if failures:
+        raise AssertionError(f"transport: {failures}")
+    return rows
 
 
 def allreduce_bounds(n: int, elems: int) -> dict:
@@ -2868,13 +3306,16 @@ def main() -> int:
     # 8. the sync kernels, 9. the flagship at dp=2, 10. four ranks
     t8 = time.perf_counter()
     sync = phase_sync_kernels(torch, trained["params"])
+    # 18. the ipc rank transport that phases 9, 13, 16 and 17 ride
+    t18 = time.perf_counter()
+    transport = phase_transport(torch)
     t9 = time.perf_counter()
     dp = phase_train_dp(torch, trained["losses"])
     t10 = time.perf_counter()
     phase_sync4(torch)
     t11 = time.perf_counter()
-    emit("sync_phases_seconds", sync_kernels=t9 - t8, train_dp=t10 - t9,
-         sync4=t11 - t10)
+    emit("sync_phases_seconds", sync_kernels=t18 - t8, transport=t9 - t18,
+         train_dp=t10 - t9, sync4=t11 - t10)
 
     # 11. the ring kernels, 12. the ring at four ranks, 13. train at sp=2
     ring = phase_ring_kernels(torch)
@@ -2915,6 +3356,13 @@ def main() -> int:
          script_seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] for k in SYNC_KERNELS}
+    transport_launches = (dp["transport"] + deadline["transport"]
+                          + hier["transport"]
+                          + sum(sp_launches[d]["transport"]
+                                for d in sp_launches))
+    if not transport_launches:
+        raise AssertionError("the transport never launched on the main "
+                             "path")
 
     row = timed["serve", "torch.float32"]
     long_row = timed["long", "torch.float32"]
@@ -2979,6 +3427,7 @@ def main() -> int:
             "max_abs_err": arow["max_abs_err"], "ms": arow["ms"],
             "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
             "bound_by": arow["bound_by"], "library_ms": arow["library_ms"]})
+    kernels.append(transport_kernel_row(transport, transport_launches))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,14 @@ class FakeGroup:
         pass
 
 
+class BackendGroup(FakeGroup):
+    """A :class:`FakeGroup` whose ranks name their rank transport."""
+
+    def __init__(self, backend, world=N, sp=1):
+        super().__init__(world, sp)
+        self.backend = backend
+
+
 def cell(timings):
     """An injected measurement cell: fixed seconds per arm, an exception
     raised where the script says so."""
@@ -200,6 +208,36 @@ class TestSidecar:
                                        [(4, 512), (32, 512)], wire="ef8",
                                        measure_cell=c)
         assert not reused  # another mesh
+
+    def test_a_plan_is_not_reloaded_across_rank_transports(self, tmp_path):
+        """A plan timed on the gloo host wire is measured again for an
+        ``ipc`` group (the backend is in the fingerprint and the hash);
+        a plan saved under the same backend reloads byte for byte."""
+        calls = []
+
+        def counting(arm, rows, cols):
+            calls.append(arm)
+            return TIMINGS[arm]
+        sidecar = tmp_path / "collective_plan.json"
+        gloo, _ = ta.load_or_measure(str(tmp_path), BackendGroup("gloo"),
+                                     [(4, 512)], wire="f32",
+                                     measure_cell=counting)
+        assert gloo.backend == "gloo" and json.loads(
+            sidecar.read_text())["backend"] == "gloo"
+        calls.clear()
+        ipc, reused = ta.load_or_measure(str(tmp_path), BackendGroup("ipc"),
+                                         [(4, 512)], wire="f32",
+                                         measure_cell=counting)
+        assert not reused and calls and ipc.backend == "ipc"
+        assert ipc.plan_hash != gloo.plan_hash
+        saved = sidecar.read_bytes()
+        calls.clear()
+        again, reused = ta.load_or_measure(str(tmp_path),
+                                           BackendGroup("ipc"), [(4, 512)],
+                                           wire="f32", measure_cell=counting)
+        assert reused and not calls
+        assert again.canonical_bytes() == ipc.canonical_bytes()
+        assert sidecar.read_bytes() == saved
 
     def test_corrupt_sidecar_remeasures(self, tmp_path):
         (tmp_path / "collective_plan.json").write_text(

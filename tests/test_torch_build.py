@@ -75,3 +75,24 @@ def test_editing_a_tile_header_rebuilds_both_flash_libraries(
         f.write("// edited\n")
     moved = {n for n in build.KERNELS if build.library_path(n) != before[n]}
     assert moved == {"flash_attention", "ring_flash"}
+
+
+def test_the_transport_and_the_peer_allreduce_share_the_peer_memory_header():
+    """Both peer-memory libraries reach ``csrc/peer_mem.cuh`` (the IPC
+    buffers, the stream wait, the abandon path and the signal's ticket),
+    and nothing else does."""
+    assert build.sources("transport") == ["transport.cu", "peer_mem.cuh"]
+    assert build.sources("ring_allreduce") == ["ring_allreduce.cu",
+                                               "peer_mem.cuh"]
+    assert "transport" in build.KERNELS
+
+
+def test_editing_the_peer_memory_header_rebuilds_both_its_libraries(
+        tmp_path, monkeypatch):
+    shutil.copytree(build.CSRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path / "csrc")
+    before = {n: build.library_path(n) for n in build.KERNELS}
+    with open(tmp_path / "csrc" / "peer_mem.cuh", "a") as f:
+        f.write("// edited\n")
+    moved = {n for n in build.KERNELS if build.library_path(n) != before[n]}
+    assert moved == {"ring_allreduce", "transport"}

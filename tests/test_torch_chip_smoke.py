@@ -426,8 +426,15 @@ def phase17_on_cpu(monkeypatch):
     control's 2.0e-3, the no-update control's 1.6e-2)."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "HIER_ARGV", TINY_TRAIN)
+    # the ipc transport needs the card: the CPU ranks ride gloo, and the
+    # ipc run's twin is then a second gloo run
+    on_cpu = {"cuda": "cpu", "ipc": "gloo"}
+    monkeypatch.setattr(chip_smoke, "DIST", "gloo")
+    monkeypatch.setattr(chip_smoke, "HIER_DIST", [
+        on_cpu.get(a, a) for a in chip_smoke.HIER_DIST])
     monkeypatch.setattr(chip_smoke, "AUTO_ARGV", [
-        "cpu" if a == "cuda" else a for a in chip_smoke.AUTO_ARGV])
+        on_cpu.get(a, a) for a in chip_smoke.AUTO_ARGV])
+    monkeypatch.setattr(chip_smoke, "BENCH_BACKEND", "gloo")
     monkeypatch.setattr(chip_smoke, "BENCH_GOODPUT", (20_000, 4096))
     monkeypatch.setattr(chip_smoke, "BENCH_PAYLOADS", ((20_000, 4096),))
     monkeypatch.setattr(chip_smoke, "BENCH_SET_S", 0.05)
@@ -873,3 +880,182 @@ def test_a_flash_library_without_tensor_core_kernels_fails():
         "paged_attention": {"seconds": 0.0, "ptxas": ""}}
     with pytest.raises(AssertionError, match="no tensor-core kernel"):
         chip_smoke.check_mma_spills(info)
+
+
+# -- phase 18: the ipc rank transport -----------------------------------------
+
+def test_transport_cases_cover_every_collective_dtype_and_line():
+    """Every spawn of phase 18 runs the four collectives in f32, bf16 and
+    int8 on the world and, on the (2, 2) mesh, on both lines; each pair
+    moves one chunk and 12 bytes (two chunks, the last ragged), its
+    inputs made on the ranks from seeds that differ by case."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    tr = chip_smoke.transport_ranks()
+    spawns = chip_smoke.TRANSPORT_SPAWNS
+    assert {w for w, _ in spawns} == {2, 3, 4} and (4, 2) in spawns
+    for world, sp in spawns:
+        cases = chip_smoke.transport_cases(world, sp, 5)
+        scopes = {"world"} | ({"sp", "dp"} if 1 < sp < world else set())
+        assert {c[0] for c in cases} == scopes
+        for scope in scopes:
+            mine = [c for c in cases if c[0] == scope]
+            assert {c[1] for c in mine} == set(transport.COLLECTIVES)
+            assert {c[2] for c in mine} == {"float32", "bfloat16", "int8"}
+        assert len({c[3].seed for c in cases}) == len(cases)
+        for scope, kind, dtype, xs, _ in cases:
+            assert isinstance(xs, tr.Seeded)
+            n = tr.scope_size(world, sp, scope)
+            elems = xs.shape[-1]
+            assert xs.shape == ((n, elems) if kind == "all_to_all"
+                                else (elems,))
+            pair = elems * torch.tensor([], dtype=getattr(
+                torch, dtype)).element_size()
+            assert pair == transport.CHUNK_BYTES + 12
+            assert transport.chunk_count(pair) == 2
+
+
+def test_transport_timings_take_the_sync_at_the_flagship():
+    timed = {t[0]: t for t in chip_smoke.transport_timed(2)}
+    assert timed["sync_all_to_all"][1:] == ("all_to_all", "float32",
+                                            541_130_752 // 2)
+    assert timed["metrics_all_gather"][3] == 3
+
+
+@pytest.mark.parametrize("kind,n,function,copies", [
+    ("all_to_all", 2, 2 * (200 + 200), 2 * (4 * 100 + 2 * 100)),
+    ("all_gather", 4, 4 * (100 + 400), 4 * (4 * 300 + 2 * 100)),
+    ("exchange", 2, 2 * 200, 2 * 4 * 100),
+    ("ppermute", 3, 3 * 200, 3 * 4 * 100)])
+def test_transport_bound_counts_push_pull_and_local_bytes(kind, n, function,
+                                                          copies):
+    """The function's bytes (each rank's input read and output written
+    once) and the schedule's copies' bytes, of a pair of 100 bytes."""
+    b = chip_smoke.transport_bounds(kind, n, 100)
+    assert (b["function_bytes"], b["copies_bytes"]) == (function, copies)
+    rate = chip_smoke.PEAK_BYTES_PER_S
+    assert b["function_ms"] == pytest.approx(function / rate * 1e3)
+    assert b["copies_ms"] == pytest.approx(copies / rate * 1e3)
+
+
+def test_the_sync_all_to_all_bound_is_its_input_and_output():
+    """2.16 GB a rank at two ranks: 2 x (2.16 + 2.16) GB over 3.35 TB/s,
+    2.585 ms; the schedule's copies move 1.5 times that."""
+    b = chip_smoke.transport_bounds("all_to_all", 2, 541_130_752 // 2 * 4)
+    assert b["function_ms"] == pytest.approx(2.585, abs=1e-3)
+    assert b["copies_ms"] == pytest.approx(1.5 * b["function_ms"])
+
+
+def fake_transport_rank(world, sp, rank, fault):
+    """What ``transport_rank`` returns, sound unless ``fault`` says."""
+    from akka_allreduce_tpu_torch.ops.kernels import ring
+    first = (world, sp) == chip_smoke.TRANSPORT_SPAWNS[0]
+    cases = [{"scope": c[0], "kind": c[1], "dtype": c[2],
+              "pair_bytes": 100, "bitwise": True, "ipc_ms": 1.0,
+              "gloo_ms": 50.0, "copies": 3, "launches": 2, "waits": 2}
+             for c in chip_smoke.transport_cases(world, sp, 1)]
+    if fault == "not_bitwise" and rank == 1:
+        cases[-1]["bitwise"] = False
+    out = {"rank": rank, "cases": cases, "buffers": []}
+    if first:
+        big = 541_130_752 // 2 * 4
+        cases.append({**cases[0], "kind": "all_to_all", "pair_bytes": big,
+                      "gloo_ms": 3000.0})
+        out["timings"] = [{"label": "sync_all_to_all", "kind": "all_to_all",
+                           "dtype": "float32", "pair_bytes": big,
+                           "ms_per_rank": [9.0, 10.0], "ms": 10.0,
+                           "received_gb_per_s": 108.0,
+                           "bound_bytes": 1, "bound_ms": 2.6,
+                           "copies_bound_bytes": 1,
+                           "copies_bound_ms": 3.9}]
+        if rank == 1:
+            out["fault"] = {"skipped": True}
+        else:
+            late = ring.TIMEOUT_S + 5 if fault == "late" else 30.1
+            out["fault"] = (
+                {"raised": False} if fault == "not_raised" else
+                {"raised": True, "seconds": late,
+                 "message": "ipc transport: ... ready from rank 1 = 1 "
+                            "(needs >= 2) ... abandoned"})
+    return out
+
+
+@pytest.mark.parametrize("fault", ["none", "not_bitwise", "not_raised",
+                                   "late"])
+def test_phase18_passes_only_without_a_fault(monkeypatch, capfd, fault):
+    """Phase 18's verdict from its ranks' outputs (the spawn replaced):
+    sound ranks pass and give the kernels line its transport entry with
+    every key, its bound the function's; a case that is not bitwise
+    gloo, and a fault control that did not raise, or raised late, each
+    fail it."""
+    from akka_allreduce_tpu_torch.parallel import group as group_mod
+
+    def fake_spawn(fn, world, backend, device, *args, sp=1, timeout=None):
+        assert fn is chip_smoke.transport_rank and backend == "ipc"
+        return [fake_transport_rank(world, sp, r, fault)
+                for r in range(world)]
+    monkeypatch.setattr(group_mod, "spawn_ranks", fake_spawn)
+    if fault != "none":
+        with pytest.raises(AssertionError, match="transport"):
+            chip_smoke.phase_transport(torch)
+        return
+    runs = chip_smoke.phase_transport(torch)
+    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()
+             if ln.startswith('{"phase": "transport"')]
+    assert [(ln["world"], ln["sp"]) for ln in lines] == list(
+        chip_smoke.TRANSPORT_SPAWNS)
+    assert lines[0]["timings"][0]["ms"] == 10.0
+    row = chip_smoke.transport_kernel_row(runs, 123)
+    assert set(row) == KERNEL_KEYS
+    assert (row["launches"], row["ms"], row["plain_ms"], row["bound_ms"],
+            row["bound_by"], row["library_ms"]) == (123, 10.0, 3000.0, 2.6,
+                                                    "bytes", None)
+
+
+@pytest.mark.parametrize("fault", ["none", "host_copy", "untraced",
+                                   "missing"])
+def test_phase9_sync_traces_hold_no_host_copy(fault):
+    """Phase 9's traced step-1 syncs: each rank's window must hold the
+    transport's kernels and no host-device copy above 1 MB."""
+    sound = {"host_copies": [{"name": "Memcpy DtoH (Device -> Pinned)",
+                              "bytes": 8}],
+             "transport_kernels": 40, "largest_host_copy_bytes": 8}
+    bad = {"none": sound,
+           "host_copy": {**sound, "largest_host_copy_bytes": 2 << 20},
+           "untraced": {**sound, "transport_kernels": 0},
+           "missing": None}[fault]
+    ranks = [{"sync_trace": sound}, {"sync_trace": bad}]
+    if fault == "none":
+        chip_smoke.check_sync_traces("t", ranks)
+    else:
+        with pytest.raises(AssertionError, match="traced ipc sync"):
+            chip_smoke.check_sync_traces("t", ranks)
+
+
+def fake_report(backend, losses, launches, checksum=7, peak=10.0):
+    rank = {"sync_ms": [5.0, 4.0], "attn_exchange_ms": [0.0, 0.0],
+            "peak_memory_gb": peak, "transport_buffer_gb": 0.134,
+            "param_checksum": checksum, "residual_checksum": checksum,
+            "transport": {"transport_launches": launches}}
+    return {"losses": losses, "wall_ms_per_step": 100.0,
+            "dist": {"backend": backend, "world": 2},
+            "ranks": [dict(rank), dict(rank)]}
+
+
+@pytest.mark.parametrize("twin_losses,twin_sum,twin_peak,launches,ok", [
+    ([1.5, 1.25], 7, 10.0, 40, True),      # every step, bitwise
+    ([1.5], 99, 10.0, 40, True),           # a shorter twin: losses only
+    ([1.5, 1.2500001], 7, 10.0, 40, False),  # a loss that moved
+    ([1.5, 1.25], 8, 10.0, 40, False),     # parameters that moved
+    ([1.5, 1.25], 7, 9.0, 40, False),      # an ipc peak above the twin's
+    ([1.5, 1.25], 7, 10.0, 0, False)])     # the run never rode ipc
+def test_a_twin_must_match_its_ipc_run_bitwise(twin_losses, twin_sum,
+                                               twin_peak, launches, ok):
+    report = fake_report("ipc", [1.5, 1.25], launches)
+    twin = fake_report("gloo", twin_losses, 0, twin_sum, twin_peak)
+    fields = chip_smoke.twin_fields(report, twin, 12.0)
+    assert fields["twin_steps"] == len(twin_losses)
+    if ok:
+        chip_smoke.check_twin("t", report, fields, peak=True)
+    else:
+        with pytest.raises(AssertionError, match="gloo twin"):
+            chip_smoke.check_twin("t", report, fields, peak=True)

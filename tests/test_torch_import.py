@@ -3,8 +3,8 @@
 Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
 attention's, the peer-memory allreduce's, the round pacer's, the
-deadline trainer's, the collective autotuner's and the bench rows'
-modules included) and finds neither ``jax`` nor
+deadline trainer's, the collective autotuner's, the rank transport's
+and the bench rows' modules included) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``; a rank process that
 ``spawn_ranks`` starts from this (JAX-importing) test process holds
 neither either; and an AST scan of the package's sources finds no
@@ -51,6 +51,7 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.ops.kernels.quantized",
             "akka_allreduce_tpu_torch.ops.kernels.ring_flash",
             "akka_allreduce_tpu_torch.ops.kernels.ring",
+            "akka_allreduce_tpu_torch.ops.kernels.transport",
             "akka_allreduce_tpu_torch.parallel.ring_attention",
             "akka_allreduce_tpu_torch.ops.autotune",
             "akka_allreduce_tpu_torch.bench"} <= set(mods)
@@ -114,5 +115,20 @@ def test_ast_scan_finds_no_jax_import():
         "parallel/group", "parallel/dp", "ops/bucketing", "ops/masked",
         "ops/collectives", "ops/kernels/masked_reduce",
         "ops/kernels/quantized", "ops/kernels/ring_flash",
-        "ops/kernels/ring", "parallel/ring_attention", "ops/autotune",
-        "bench")} <= scanned
+        "ops/kernels/ring", "ops/kernels/transport",
+        "parallel/ring_attention", "ops/autotune", "bench")} <= scanned
+
+
+def test_a_rank_that_loads_the_transport_loads_no_jax():
+    """The ``ipc`` transport's module, imported in a spawned rank through
+    the transport tests' rank helpers (its CUDA library is built only at
+    a call, never at import)."""
+    from akka_allreduce_tpu_torch.parallel.group import (run_calls,
+                                                         spawn_ranks)
+    calls = [("torch_transport_ranks:run_cases", [], {"cases": []}),
+             ("akka_allreduce_tpu_torch.parallel.group:loaded_modules", [],
+              {})]
+    ranks = spawn_ranks(run_calls, 2, "gloo", "cpu", calls)
+    for _, mods in ranks:
+        assert "akka_allreduce_tpu_torch.ops.kernels.transport" in mods
+        assert [m for m in mods if _is_jax(m)] == []

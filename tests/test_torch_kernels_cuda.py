@@ -21,13 +21,19 @@ drawn alike); the
 peer-memory ring and swing allreduce: bitwise, on two, three and four
 rank processes that share the card through CUDA IPC (the same adds in the
 same order), ragged swing blocks too, and a stalled call raises in
-``ring.wait`` within its timeout and drains its stream;
+``ring.wait`` within its timeout and drains its stream; the rank
+transport (``--dist-backend ipc``): every collective on ipc ranks bitwise
+its gloo twin at n = 2, 3, 4 and on the lines of a (2, 2) mesh, a
+payload of several 64 MiB chunks with unaligned blocks, and a rank that
+skips a call makes its peer raise within the timeout;
 TF32 is off for CUDA matmuls (``allow_tf32 = False``), so the plain
 version's f32 products are full f32.
 """
 
+import math
 import pathlib
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -937,3 +943,75 @@ def test_peer_allreduce_refuses_other_dtypes(cuda_device):
     for fn in (ring.peer_ring_allreduce, ring.peer_swing_allreduce):
         with pytest.raises(ValueError, match="float32"):
             fn(x, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["n2", "n3", "n4", "mesh"])
+def test_ipc_transport_is_bitwise_its_gloo_twin(cuda_device, name):
+    """Every case of ``tests/test_torch_transport.py``'s scenario on
+    ``ipc`` ranks, each against the gloo path on the same process group."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_transport_ranks import SCENARIOS, run_twins, scenario_cases
+    world, sp = SCENARIOS[name]
+    got = spawn_ranks(run_twins, world, "ipc", "cuda", scenario_cases(name),
+                      sp=sp, timeout=300)
+    assert all(c["bitwise"] for r in got for c in r), got
+
+
+@pytest.mark.cuda
+def test_ipc_transport_streams_a_payload_of_several_chunks(cuda_device):
+    """An int8 all_to_all whose block is 2 chunks and 3 bytes (the second
+    block starts unaligned) and an f32 all_gather of 2.5 chunks."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_transport_ranks import run_twins
+    rng = np.random.default_rng(5)
+    blk = 2 * transport.CHUNK_BYTES + 3
+    cases = [("world", "all_to_all", "int8",
+              [rng.integers(-128, 128, (2, blk), dtype=np.int8)
+               for _ in range(2)], {}),
+             ("world", "all_gather", "float32",
+              [rng.standard_normal(5 * transport.CHUNK_BYTES // 8
+                                   ).astype(np.float32) for _ in range(2)],
+              {})]
+    got = spawn_ranks(run_twins, 2, "ipc", "cuda", cases, timeout=300)
+    assert [[c["bitwise"] for c in r] for r in got] == [[True, True]] * 2
+
+
+@pytest.mark.cuda
+def test_ipc_transport_raises_when_a_peer_skips_a_call(cuda_device):
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_transport_ranks import skip_one_call
+    got = spawn_ranks(skip_one_call, 2, "ipc", "cuda", 5.0, timeout=120)
+    assert got[1] == {"skipped": True}
+    assert got[0]["raised"] and got[0]["seconds"] < 5.0 + 1.0, got[0]
+    assert "ready from rank 1" in got[0]["message"]
+    assert "abandoned" in got[0]["message"]
+
+
+@pytest.mark.cuda
+def test_ipc_train_fails_when_a_peer_skips_its_last_call(cuda_device):
+    """``cli train --dp 2`` on ipc, once sound (its ranks' transport calls
+    counted), then with rank 1 leaving out its last call (the final
+    step's metrics all_gather): no rank waits on that call explicitly,
+    yet the watchdog gives it up and rank 0 fails at its exit, so the run
+    raises instead of returning rank 0's unfilled losses."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import build
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_transport_ranks import train_skipping_a_call
+    args = cli.build_parser().parse_args(
+        ["train", "--device", "cuda", "--dp", "2", "--dist-backend", "ipc",
+         "--steps", "2", "--log-every", "1"])
+    build.build_all()
+    sound = spawn_ranks(train_skipping_a_call, 2, "ipc", "cuda", args, None,
+                        3.0, timeout=300)
+    calls = [r["rank_info"]["transport"]["transport_calls"] for r in sound]
+    assert calls[0] == calls[1] > 0
+    assert all(math.isfinite(x) for x in sound[0]["losses"])
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 of 2 failed(.|\n)*"
+                       "did not end within 3 s"):
+        spawn_ranks(train_skipping_a_call, 2, "ipc", "cuda", args, calls[1],
+                    3.0, timeout=300)
+    assert time.monotonic() - t0 < 120
