@@ -1,8 +1,9 @@
-"""Command line of the port: ``serve`` and ``train``.
+"""Command line of the port: ``serve``, ``train`` and ``emulate``.
 
-Counterparts of ``akka_allreduce_tpu/cli.py serve`` and ``train`` for the
-flags the port's slices carry. Both run on ``cuda`` unless ``--device
-cpu`` is given, and raise when CUDA is asked for and absent.
+Counterparts of ``akka_allreduce_tpu/cli.py serve``, ``train`` and
+``emulate`` for the flags the port's slices carry. All run on ``cuda``
+unless ``--device cpu`` is given, and raise when CUDA is asked for and
+absent.
 
 ``serve`` (model shape, slot or paged engine, closed or open synthetic
 load) builds a model from ``--seed``, runs the synthetic load through
@@ -40,6 +41,17 @@ rounds in flight::
         [--dp 2 --dist-backend gloo --grad-quant ef8] [--sp 2] \\
         [--grad-schedule hierarchical | auto --plan-dir DIR] \\
         [--deadline-ms 50 --straggle-prob 0.35 --max-lag 1]
+
+``emulate`` runs the source paper's protocol plane in one process: a
+master and N workers on the deterministic router
+(``protocol/cluster.py``), the payloads, staging rows and chunk reduces
+on ``--device`` (each chunk reduce one launch of
+``ops/kernels/csrc/masked_reduce.cu`` on the card), with the JAX
+command's flags, refusals and output lines::
+
+    python -m akka_allreduce_tpu_torch.cli emulate --workers 4 \\
+        --data-size 778 --max-chunk-size 3 --max-lag 3 --th-complete 1.0 \\
+        --assert-multiple 4 [--kill-rank 1] [--fuzz 5] [--device cpu]
 """
 
 from __future__ import annotations
@@ -253,11 +265,224 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                    help="cuda (default) or cpu; cuda without CUDA raises")
 
 
+# -- emulate: the source paper's protocol plane ---------------------------
+
+def _add_emulate(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "emulate", help="run the in-process protocol cluster "
+        "(reference master defaults: AllreduceMaster.scala:98-107)")
+    p.add_argument("--workers", type=int, default=2)
+    p.add_argument("--data-size", type=int, default=None,
+                   help="default: workers * 5 (reference default)")
+    p.add_argument("--max-chunk-size", type=int, default=2)
+    p.add_argument("--max-round", type=int, default=100)
+    p.add_argument("--max-lag", type=int, default=1)
+    p.add_argument("--th-allreduce", type=float, default=1.0)
+    p.add_argument("--th-reduce", type=float, default=1.0)
+    p.add_argument("--th-complete", type=float, default=0.8)
+    p.add_argument("--checkpoint", type=int, default=50,
+                   help="throughput print interval in rounds")
+    p.add_argument("--assert-multiple", type=int, default=0,
+                   help="assert output == N x input (needs thresholds 1.0)")
+    p.add_argument("--kill-rank", type=int, default=None,
+                   help="kill this rank after registration (fault demo)")
+    p.add_argument("--fuzz", type=int, default=0, metavar="N",
+                   help="race-detect THIS config instead of running it "
+                        "once: replay it under N seeded-random message "
+                        "interleavings plus per-actor starvation and "
+                        "rotation schedules (protocol/explorer.py),"
+                        " checking rounds complete and — with "
+                        "--assert-multiple — exact outputs under every "
+                        "ordering; python engine only")
+    p.add_argument("--trace-file", default=None,
+                   help="write the structured protocol trace (JSONL: "
+                        "rounds, members, deaths) here on exit")
+    p.add_argument("--engine", choices=("python", "native"),
+                   default="python",
+                   help="protocol engine: python (the spec; its payloads "
+                        "on --device); native (the C++ engine) is not "
+                        "ported yet (ROADMAP A4, part 3)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: where the payloads, the "
+                        "staging rows and the chunk reduce live; cuda "
+                        "without CUDA raises")
+
+
+def check_emulate_flags(args: argparse.Namespace) -> None:
+    """The JAX command's refusals, in its order (ValueError with the
+    operator's message; the command returns 2 for each)."""
+    import math
+    if args.assert_multiple > 0 and not (
+            args.th_allreduce == args.th_reduce == args.th_complete == 1.0):
+        raise ValueError("--assert-multiple requires all thresholds at 1.0 "
+                         "(lossy rounds legitimately produce partial "
+                         "sums); pass --th-complete 1.0 etc.")
+    emulate_config(args)  # the config's own checks
+    if args.kill_rank is not None \
+            and not 0 <= args.kill_rank < args.workers:
+        raise ValueError(f"--kill-rank {args.kill_rank} is not a worker "
+                         f"seat (0..{args.workers - 1})")
+    if args.fuzz > 0:
+        if args.engine == "native":
+            raise ValueError("--fuzz schedules the python engine's "
+                             "deterministic router; the native engine has "
+                             "its own loop (drop --engine native)")
+        if args.trace_file:
+            raise ValueError("--fuzz runs many clusters and writes no "
+                             "trace; drop --trace-file (re-run the single "
+                             "failing schedule without --fuzz to trace it)")
+        if args.kill_rank is not None:
+            # the validator demands every round complete with N-1 live
+            # workers, so each threshold's required count ceil(th*N) must
+            # be satisfiable by N-1 — otherwise every schedule "fails" and
+            # a config impossibility is presented as a race
+            unreachable = [
+                f"{flag} {th} needs ceil({th}*{args.workers})="
+                f"{math.ceil(th * args.workers)} workers"
+                for flag, th in (("--th-allreduce", args.th_allreduce),
+                                 ("--th-reduce", args.th_reduce),
+                                 ("--th-complete", args.th_complete))
+                if math.ceil(th * args.workers) > args.workers - 1]
+            if unreachable:
+                raise ValueError(
+                    f"--fuzz --kill-rank runs with {args.workers - 1} live "
+                    f"workers, but " + "; ".join(unreachable)
+                    + " — lower the threshold(s) or raise --workers")
+    elif args.engine == "native":
+        raise ValueError("--engine native (the C++ protocol engine) is not "
+                         "ported yet (ROADMAP A4, part 3: protocol/wire.py, "
+                         "tcp.py, remote.py, native_cluster.py and "
+                         "native/); use --engine python")
+
+
+def emulate_config(args: argparse.Namespace):
+    """``(AllreduceConfig, data_size)`` from the emulate flags, with the
+    reference's default data size (workers * 5)."""
+    from akka_allreduce_tpu_torch.config import (AllreduceConfig, DataConfig,
+                                                 ThresholdConfig, WorkerConfig)
+    data_size = args.workers * 5 if args.data_size is None else args.data_size
+    config = AllreduceConfig(
+        thresholds=ThresholdConfig(args.th_allreduce, args.th_reduce,
+                                   args.th_complete),
+        data=DataConfig(data_size=data_size,
+                        max_chunk_size=args.max_chunk_size,
+                        max_round=args.max_round),
+        workers=WorkerConfig(total_size=args.workers, max_lag=args.max_lag),
+    )
+    return config, data_size
+
+
+def run_fuzz(args: argparse.Namespace, device, tracer=None
+             ) -> "tuple[list, int, float]":
+    """``emulate --fuzz``: the config under the standard schedules
+    (protocol/explorer.py), each run checked on ``device``: every paced
+    round completes, every survivor flushes every round, and each flush
+    is honest (``data == arange * count``; ``count == N`` with
+    --assert-multiple). ``tracer`` (optional) traces every schedule's
+    cluster. Returns (failures, schedules, seconds)."""
+    import torch
+
+    from akka_allreduce_tpu_torch.protocol.cluster import (
+        LocalCluster, constant_range_source)
+    from akka_allreduce_tpu_torch.protocol.explorer import (
+        explore, standard_schedules)
+    config, data_size = emulate_config(args)
+    outputs: dict = {}
+    base = torch.arange(data_size, dtype=torch.float64, device=device)
+
+    def make():
+        for r in range(args.workers):
+            outputs[r] = []
+        return LocalCluster(
+            config,
+            source_factory=lambda r: constant_range_source(data_size, device),
+            sink_factory=lambda r: outputs[r].append, tracer=tracer,
+            device=device)
+
+    def validate(cluster):
+        if len(cluster.completed_rounds) != args.max_round:
+            raise AssertionError(
+                f"{len(cluster.completed_rounds)}/{args.max_round} "
+                f"rounds completed")
+        for r in range(args.workers):
+            if r == args.kill_rank:
+                continue
+            if len(outputs[r]) != args.max_round + 1:
+                raise AssertionError(
+                    f"worker {r} flushed {len(outputs[r])} outputs, "
+                    f"wanted {args.max_round + 1}")
+            for out in outputs[r]:
+                if args.assert_multiple:
+                    assert bool((out.count == args.assert_multiple).all())
+                if not torch.allclose(out.data.double(),
+                                      base * out.count.double(),
+                                      rtol=1e-6, atol=0.0):
+                    raise AssertionError(
+                        f"worker {r} round {out.iteration}: data != "
+                        f"arange * count")
+
+    names = ["master"] + [f"worker-{r}" for r in range(args.workers)]
+    prepare = None
+    if args.kill_rank is not None:
+        prepare = lambda c: c.kill_worker(args.kill_rank)  # noqa: E731
+    scheds = list(standard_schedules(names, seeds=args.fuzz))
+    t0 = time.perf_counter()
+    failures = explore(make, scheds, validate, prepare=prepare)
+    return failures, len(scheds), time.perf_counter() - t0
+
+
+def _cmd_emulate(args: argparse.Namespace) -> int:
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.protocol.cluster import (
+        LocalCluster, ThroughputSink, constant_range_source)
+    from akka_allreduce_tpu_torch.runtime.tracing import tracer_to_file
+    try:
+        check_emulate_flags(args)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    config, data_size = emulate_config(args)
+    if args.fuzz > 0:
+        failures, n_scheds, dt = run_fuzz(args, device)
+        if failures:
+            for f in failures[:10]:
+                print(f"FAIL {f}", file=sys.stderr)
+            print(f"{len(failures)}/{n_scheds} schedules violated "
+                  f"invariants", file=sys.stderr)
+            return 1
+        print(f"fuzz: {n_scheds} schedules x {args.max_round} rounds "
+              f"each, 0 violations ({dt:.2f}s)")
+        return 0
+
+    sinks = [ThroughputSink(data_size, checkpoint=args.checkpoint,
+                            assert_multiple=args.assert_multiple,
+                            verbose=(rank == 0), device=device)
+             for rank in range(args.workers)]
+    with tracer_to_file(args.trace_file) as tracer:
+        cluster = LocalCluster(
+            config,
+            source_factory=lambda r: constant_range_source(data_size, device),
+            sink_factory=lambda r: sinks[r], tracer=tracer, device=device)
+        t0 = time.perf_counter()
+        rounds = cluster.run(kill_rank=args.kill_rank)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    if args.trace_file:
+        print(f"trace -> {args.trace_file}")
+    print(f"completed {rounds}/{args.max_round} rounds in {dt:.2f}s "
+          f"({args.workers} workers, dataSize={data_size}, "
+          f"chunk={args.max_chunk_size}, maxLag={args.max_lag})")
+    return 0 if rounds == args.max_round or args.kill_rank is not None else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="akka_allreduce_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_serve(sub)
     _add_train(sub)
+    _add_emulate(sub)
     return parser
 
 
@@ -954,7 +1179,8 @@ def _cmd_train(args: argparse.Namespace) -> int:
 
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"serve": _cmd_serve, "train": _cmd_train}[args.cmd](args)
+    return {"serve": _cmd_serve, "train": _cmd_train,
+            "emulate": _cmd_emulate}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,16 @@
-"""Carry model weights between the JAX package and the port.
+"""Carry model weights and protocol buffers between the JAX package and
+the port.
 
 Both packages keep one parameter layout (``wq`` is ``(d_model,
 d_model)`` and used as ``h @ wq``; see models/transformer.py), so
 conversion is a leaf-for-leaf copy that keeps names, nesting, shapes and
 dtypes. The JAX side is handed over as numpy arrays (``np.asarray`` of
 each leaf), so this module needs neither JAX nor the JAX package.
+
+:func:`buffer_state_from_numpy` carries a protocol staging buffer's
+state (the numpy ring of the JAX host plane, its counts and its offset)
+into the port's buffer on a device, so both engines can go on from one
+mid-round state.
 """
 
 from __future__ import annotations
@@ -48,3 +54,44 @@ def params_to_jax(params):
     if isinstance(params, (list, tuple)):
         return [params_to_jax(v) for v in params]
     return _leaf_to_numpy(params)
+
+
+def buffer_state_from_numpy(buffer, device="cpu", into=None):
+    """A JAX ``ScatteredDataBuffer`` or ``ReducedDataBuffer`` (numpy ring,
+    read by duck typing) -> the port's buffer of the same kind and
+    geometry on ``device``, holding the same state: the staged rows
+    (``temporal_buffer``), ``count_filled``, ``total_filled``,
+    ``temporal_offset`` and, for a reduced buffer,
+    ``count_reduce_filled``. ``into`` (optional) is a port buffer of the
+    same geometry to fill instead of a new one."""
+    from akka_allreduce_tpu_torch.buffers import (ReducedDataBuffer,
+                                                  ScatteredDataBuffer)
+    reduced = hasattr(buffer, "count_reduce_filled")
+    if into is None:
+        if reduced:
+            into = ReducedDataBuffer(
+                buffer.max_block_size, 0, buffer.total_data_size,
+                buffer.peer_size, buffer.max_lag,
+                buffer.completion_threshold, buffer.max_chunk_size,
+                device=device)
+        else:
+            into = ScatteredDataBuffer(
+                buffer.data_size, buffer.peer_size, buffer.max_lag,
+                buffer.reducing_threshold, buffer.max_chunk_size,
+                device=device)
+    ring = np.asarray(buffer.temporal_buffer, dtype=np.float32)
+    if tuple(into.temporal_buffer.shape) != ring.shape \
+            or into.max_chunk_size != buffer.max_chunk_size \
+            or hasattr(into, "count_reduce_filled") != reduced:
+        raise ValueError(f"buffer geometry differs: {ring.shape} chunk "
+                         f"{buffer.max_chunk_size} into "
+                         f"{tuple(into.temporal_buffer.shape)} chunk "
+                         f"{into.max_chunk_size}")
+    into.temporal_buffer.copy_(torch.from_numpy(ring))
+    into.temporal_offset = int(buffer.temporal_offset)
+    into.count_filled = np.array(buffer.count_filled, dtype=np.int64)
+    into.total_filled = np.array(buffer.total_filled, dtype=np.int64)
+    if reduced:
+        into.count_reduce_filled = np.array(buffer.count_reduce_filled,
+                                            dtype=np.int64)
+    return into

@@ -3,8 +3,10 @@
 // Replaces: akka_allreduce_tpu/ops/pallas_kernels/reduce.py _kernel
 //           (called through fused_masked_reduce / masked_reduce_staged).
 //
-// What it computes, for a (peers, elems) f32 staging matrix and a (peers,)
-// f32 mask:
+// What it computes, for a (peers, elems) f32 staging matrix whose rows lie
+// ld floats apart (ld = elems for a contiguous matrix; the protocol
+// plane's chunk reduce passes a slab of a wider staging row) and a
+// (peers,) f32 mask:
 //   count  = sum_p valid[p]
 //   out[e] = (sum_p valid[p] * staged[p, e]) * (count > 0 ? target / max(count, 1) : 0)
 // and writes count once, truncated to int32. The peers are summed in order
@@ -14,9 +16,10 @@
 //
 // Design (simple and right first): one pass over the columns. A thread
 // owns 4 consecutive columns and reads each peer's 4 values with one
-// 16-byte load (the scalar path takes rows whose length is not a multiple
-// of 4 or a base that is not 16-byte aligned); a grid-stride loop covers
-// any width. No shared memory, no tensor cores.
+// 16-byte load (the scalar path takes rows whose length or leading
+// dimension is not a multiple of 4, or a base that is not 16-byte
+// aligned); a grid-stride loop covers any width. No shared memory, no
+// tensor cores.
 //
 // Bound: bytes. Each staged value is read once and each output written
 // once (4 * (peers + 1) bytes per column) for 2 * peers flops: far below
@@ -42,7 +45,8 @@ __global__ void masked_reduce_vec4(const float* __restrict__ staged,
                                    const float* __restrict__ valid,
                                    float* __restrict__ out,
                                    int32_t* __restrict__ count_out,
-                                   int peers, int64_t elems, float target) {
+                                   int peers, int64_t elems, int64_t ld,
+                                   float target) {
   float count;
   const float scale = mask_scale(valid, peers, target, &count);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -57,7 +61,7 @@ __global__ void masked_reduce_vec4(const float* __restrict__ staged,
     for (int p = 0; p < peers; ++p) {
       const float v = valid[p];
       const float4 x =
-          reinterpret_cast<const float4*>(staged + p * elems)[i];
+          reinterpret_cast<const float4*>(staged + p * ld)[i];
       acc.x = __fadd_rn(acc.x, __fmul_rn(v, x.x));
       acc.y = __fadd_rn(acc.y, __fmul_rn(v, x.y));
       acc.z = __fadd_rn(acc.z, __fmul_rn(v, x.z));
@@ -75,7 +79,8 @@ __global__ void masked_reduce_scalar(const float* __restrict__ staged,
                                      const float* __restrict__ valid,
                                      float* __restrict__ out,
                                      int32_t* __restrict__ count_out,
-                                     int peers, int64_t elems, float target) {
+                                     int peers, int64_t elems, int64_t ld,
+                                     float target) {
   float count;
   const float scale = mask_scale(valid, peers, target, &count);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -87,7 +92,7 @@ __global__ void masked_reduce_scalar(const float* __restrict__ staged,
        e < elems; e += stride) {
     float acc = 0.f;
     for (int p = 0; p < peers; ++p) {
-      acc = __fadd_rn(acc, __fmul_rn(valid[p], staged[p * elems + e]));
+      acc = __fadd_rn(acc, __fmul_rn(valid[p], staged[p * ld + e]));
     }
     out[e] = __fmul_rn(acc, scale);
   }
@@ -103,26 +108,27 @@ int grid_for(int64_t work) {
 }  // namespace
 
 // Returns the launch status (cudaSuccess == 0). Shapes, types and
-// contiguity are checked by the Python wrapper
-// (akka_allreduce_tpu_torch/ops/kernels/masked_reduce.py).
+// strides are checked by the Python wrapper
+// (akka_allreduce_tpu_torch/ops/kernels/masked_reduce.py): each row's
+// elements are contiguous, rows ld floats apart.
 extern "C" int masked_reduce_launch(const void* staged, const void* valid,
                                     void* out, void* count, int peers,
-                                    int64_t elems, float target,
+                                    int64_t elems, int64_t ld, float target,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = elems % 4 == 0 &&
+  const bool vec = elems % 4 == 0 && ld % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(staged) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec) {
     masked_reduce_vec4<<<grid_for(elems / 4), kThreads, 0, s>>>(
         static_cast<const float*>(staged), static_cast<const float*>(valid),
         static_cast<float*>(out), static_cast<int32_t*>(count), peers, elems,
-        target);
+        ld, target);
   } else {
     masked_reduce_scalar<<<grid_for(elems), kThreads, 0, s>>>(
         static_cast<const float*>(staged), static_cast<const float*>(valid),
         static_cast<float*>(out), static_cast<int32_t*>(count), peers, elems,
-        target);
+        ld, target);
   }
   return static_cast<int>(cudaGetLastError());
 }

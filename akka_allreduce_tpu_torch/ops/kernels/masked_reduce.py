@@ -18,7 +18,11 @@ and a ``(peers,)`` mask,
 The port's sum over ranks runs through this wrapper
 (``ops/collectives.py``): the ranks' blocks arrive as the staging matrix
 and are reduced on the device in rank order, which is what keeps the
-windowed schedule bitwise equal to the fused one.
+windowed schedule bitwise equal to the fused one. The protocol plane's
+chunk reduce (``buffers/scattered.py``) runs through it too, on a
+``(peers, chunk)`` slab of a wider staging row: the kernel takes the
+rows' distance as its leading dimension, so the slab is never copied
+out.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ def _launcher():
         lib = build.load("masked_reduce")
         fn = lib.masked_reduce_launch
         fn.argtypes = ([ctypes.c_void_p] * 4
-                       + [ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-                          ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.masked_reduce_error_string
         err.argtypes = [ctypes.c_int]
@@ -89,7 +93,9 @@ def masked_reduce(staged: torch.Tensor, valid: torch.Tensor,
     peers. ``valid`` is any numeric or bool ``(peers,)`` mask, read as
     f32. Returns ``(reduced (elems,) f32, count int32 scalar)``. On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    kernel on the current stream and raises if the launch fails."""
+    kernel on the current stream and raises if the launch fails. The
+    matrix may be a view whose rows lie apart (``stride(1) == 1``): the
+    kernel reads it in place with ``ld = stride(0)``."""
     global MASKED_REDUCE_LAUNCHES
     _check(staged, valid)
     if staged.device.type == "cpu":
@@ -97,9 +103,10 @@ def masked_reduce(staged: torch.Tensor, valid: torch.Tensor,
     if staged.device.type != "cuda":
         raise ValueError(f"masked_reduce runs on cpu or cuda, got "
                          f"{staged.device}")
-    if not staged.is_contiguous():
-        raise ValueError("masked_reduce needs a contiguous staging matrix")
     peers, elems = staged.shape
+    if elems > 1 and staged.stride(1) != 1:
+        raise ValueError(f"masked_reduce needs each staged row contiguous, "
+                         f"got strides {staged.stride()}")
     v = valid.to(device=staged.device, dtype=torch.float32).contiguous()
     out = torch.empty((elems,), dtype=torch.float32, device=staged.device)
     count = torch.empty((), dtype=torch.int32, device=staged.device)
@@ -107,7 +114,8 @@ def masked_reduce(staged: torch.Tensor, valid: torch.Tensor,
     with torch.cuda.device(staged.device):
         stream = torch.cuda.current_stream(staged.device).cuda_stream
         rc = fn(staged.data_ptr(), v.data_ptr(), out.data_ptr(),
-                count.data_ptr(), peers, elems, float(target), stream)
+                count.data_ptr(), peers, elems, staged.stride(0),
+                float(target), stream)
     if rc != 0:
         raise RuntimeError(f"masked_reduce kernel launch failed: "
                            f"{err(rc).decode()} ({rc})")

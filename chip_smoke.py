@@ -88,7 +88,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    kernel's byte bound computed. A quantize kernel is timed as its launch
    alone on precomputed scales; the scale pass (abs-max, outside the
    kernel as in the JAX package) and the whole wrapper are timed beside
-   it.
+   it. The masked reduce also on strided slabs, bitwise, as phase 19's
+   chunk reduce reads them (``strided_reduce_cases``: rows of 195 and
+   193 floats in chunks of 3, at offsets that are not 16-byte aligned;
+   a row of 196 in chunks of 4, the float4 path; phase 19 (c)'s block
+   in chunks of 65,536, timed).
 18. transport (runs after phase 8) — the ``ipc`` rank transport that
    phases 9, 13, 16 and 17 ride (every payload device to device through
    CUDA IPC peer buffers, gloo only for the control plane), on spawned
@@ -279,10 +283,33 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    reps), one JSON line each with its rounds and its spread;
    a row with an error fails.
 
+19. protocol — the source paper's protocol plane, ``emulate``'s code
+   path (the command's flag checks and config, ``LocalCluster`` with its
+   ``ThroughputSink``s, traced) on the card: the payloads, staging rows
+   and outputs on the card, every chunk reduce one masked-reduce launch
+   on a strided slab of the staging row. (a) the reference's own cluster
+   (4 workers, 778 floats in chunks of 3, max lag 3, thresholds 1.0,
+   100 rounds, ``--assert-multiple 4``): every flush exactly 4 x input
+   with counts 4; (b) the same geometry at thresholds 0.75 with rank 1
+   killed after registration: every round completes, every survivor's
+   flush has ``data == arange * count``; each of (a) and (b) also runs
+   on the CPU (the plain reduce) and every flush of every worker must be
+   bitwise its CPU twin's; (c) two workers on phase 9's f32 gradient
+   (541,130,752 floats, 2.16 GB) in chunks of 65,536 (the bucket
+   width), max lag 1, 3 rounds: every flush exactly 2 x the tensor the
+   source handed out, counts 2, with a torch.profiler window (CUDA) over
+   round 1 (device ms against wall ms: the idle share); (d) ``--fuzz
+   5`` at 3 workers, 15 floats, 5 rounds, ``--assert-multiple 3``: 0
+   violations. Each part's line: rounds/s, the sink's MB/s, messages,
+   row-1 launches (which must equal the tracer's ``reduce_fired`` plus,
+   per ``catchup_force_complete``, the chunks of that worker's block),
+   store copies and peak memory. The phase must end within
+   ``PROTOCOL_SECONDS`` (120 s).
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
-rank 0's in phases 9, 13, 16 and 17), and last ``{"ok": true, "device":
-{...}}``.
+rank 0's in phases 9, 13, 16 and 17; the masked reduce's with phase
+19's), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -552,6 +579,25 @@ BENCH_SET_S = 0.3
 BENCH_GOODPUT = None
 BENCH_PAYLOADS = None
 BENCH_BACKEND = DIST
+# phase 19: the protocol plane (``cli emulate``'s code path), each part
+# one argv without --device; "c" (None) is built from phase 9's
+# gradient by protocol_parts. (a) and (b) also run on the CPU twin
+PROTOCOL_SCRIPT = ["--workers", "4", "--data-size", "778",
+                   "--max-chunk-size", "3", "--max-lag", "3"]
+PROTOCOL_PARTS = {
+    "a": ["emulate", *PROTOCOL_SCRIPT, "--th-complete", "1.0",
+          "--assert-multiple", "4"],
+    "b": ["emulate", *PROTOCOL_SCRIPT, "--th-allreduce", "0.75",
+          "--th-reduce", "0.75", "--th-complete", "0.75", "--kill-rank", "1"],
+    "c": None,
+    "d": ["emulate", "--fuzz", "5", "--workers", "3", "--data-size", "15",
+          "--max-round", "5", "--assert-multiple", "3", "--th-complete",
+          "1.0"]}
+PROTOCOL_TWIN = "cpu"
+PROTOCOL_SECONDS = 120
+# (c)'s profiled round ends within this many messages of its last one
+# (of ~33k a round)
+PROTOCOL_PUMP_BITE = 64
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1230,6 +1276,22 @@ def main_path_staging(n_params: int, world: int = DP_WORLD,
     return world, -(-rows * bucket_elems // world)
 
 
+def strided_reduce_cases(n_params: int) -> list:
+    """(peers, row width, offset, chunk) of phase 8's strided masked
+    reduces: phase 19's script geometry (blocks of 195 and 193 floats in
+    chunks of 3: rows whose width is not a multiple of 4, chunks at
+    offsets that are not 16-byte aligned, a last chunk of one float), a
+    row of 196 in chunks of 4 (the float4 path), and phase 19 (c)'s
+    two-worker block of phase 9's gradient in chunks of 65,536 (a full
+    chunk, and the last, half-full one)."""
+    block = -(-n_params // BUCKET_ELEMS) * BUCKET_ELEMS // 2
+    last = (block - 1) // BUCKET_ELEMS * BUCKET_ELEMS
+    return [(4, 195, 0, 3), (4, 195, 3, 3), (4, 195, 192, 3),
+            (4, 193, 192, 1), (4, 196, 4, 4), (4, 196, 5, 3),
+            (2, block, 7 * BUCKET_ELEMS, BUCKET_ELEMS),
+            (2, block, last, block - last)]
+
+
 def phase_sync_kernels(torch, n_params: int) -> dict:
     """Rows 1-7 against their plain versions (see the module docstring);
     returns the timed row of each kernel at its main shape."""
@@ -1271,6 +1333,37 @@ def phase_sync_kernels(torch, n_params: int) -> dict:
             raise AssertionError(f"masked_reduce disagrees with its plain "
                                  f"version: {row}")
         del staged, out, ref
+
+    # the protocol plane's chunk reduce (phase 19): (peers, chunk) slabs
+    # of a wider staging row, read in place with ld = the row's width
+    for n, (peers, width, start, chunk) in enumerate(
+            strided_reduce_cases(n_params)):
+        gen = torch.Generator(DEVICE).manual_seed(400 + n)
+        staging = torch.randn((peers, width), generator=gen, device=DEVICE)
+        slab = staging[:, start:start + chunk]
+        ones = torch.ones(peers, device=DEVICE)
+        out, count = mr.masked_reduce(slab, ones, float(peers))
+        ref, ref_count = mr.masked_reduce_reference(slab, ones, float(peers))
+        torch.cuda.synchronize()
+        bitwise, err = _same(out, ref)
+        row = {"shape": [peers, chunk], "ld": width, "offset": start,
+               "vec4": width % 4 == 0 and chunk % 4 == 0 and start % 4 == 0,
+               "count": int(count), "max_abs_err": err, "bitwise": bitwise,
+               "ok": bitwise and int(count) == int(ref_count) == peers}
+        if chunk == BUCKET_ELEMS and "masked_reduce_strided" not in timed:
+            b_ms, by = reduce_bound(peers, chunk)
+            row.update(
+                ms=time_ms(torch, lambda: mr.masked_reduce(
+                    slab, ones, float(peers)), flush),
+                plain_ms=time_ms(torch, lambda: mr.masked_reduce_reference(
+                    slab, ones, float(peers)), flush),
+                bound_ms=b_ms, bound_by=by)
+            timed["masked_reduce_strided"] = row
+        emit("sync_kernels", kernel="masked_reduce_strided", **row)
+        if not row["ok"]:
+            raise AssertionError(f"masked_reduce on a strided slab disagrees "
+                                 f"with its plain version: {row}")
+        del staging, slab, out, ref
 
     rows = -(-n_params // BUCKET_ELEMS)
     shapes = [("flagship", rows, BUCKET_ELEMS, EF_BLOCK),
@@ -3263,6 +3356,303 @@ def phase_serve(torch) -> dict:
     return {"launches": launches}
 
 
+# -- phase 19: the protocol plane -------------------------------------------
+
+def protocol_parts(n_params: int) -> dict:
+    """Phase 19's four ``emulate`` argvs (without ``--device``): (a) the
+    reference's own cluster, (b) the same geometry lossy with rank 1
+    dead, (c) two workers on phase 9's f32 gradient (the bucket matrix
+    flattened: ceil(params / 65,536) x 65,536 floats) in chunks of the
+    bucket width, (d) the fuzz."""
+    parts = dict(PROTOCOL_PARTS)
+    if parts["c"] is None:
+        rows = -(-n_params // BUCKET_ELEMS)
+        parts["c"] = ["emulate", "--workers", "2", "--data-size",
+                      str(rows * BUCKET_ELEMS), "--max-chunk-size",
+                      str(BUCKET_ELEMS), "--max-lag", "1", "--th-complete",
+                      "1.0", "--max-round", "3", "--checkpoint", "1"]
+    return parts
+
+
+def pump_until(cluster, rounds: int) -> int:
+    """Pump in bites of ``PROTOCOL_PUMP_BITE`` messages until the master
+    has completed ``rounds`` rounds (or traffic drains); returns the
+    messages delivered."""
+    delivered = 0
+    while len(cluster.completed_rounds) < rounds:
+        n = cluster.router.pump(max_messages=PROTOCOL_PUMP_BITE,
+                                strict=False)
+        if n == 0:
+            break
+        delivered += n
+    return delivered
+
+
+def expected_reduce_launches(tracer, cluster) -> int:
+    """Row-1 launches the protocol must have made: one per reduce the
+    ``th_reduce`` gate fired, plus one per chunk of the worker's block
+    for each round it force-completed (the catch-up path)."""
+    catchups = sum(cluster.workers[e.fields["worker"]]
+                   .scatter_block_buf.num_chunks
+                   for e in tracer.events
+                   if e.kind == "catchup_force_complete")
+    return tracer.counters["reduce_fired"] + catchups
+
+
+def protocol_run(torch, argv: list, device: str, check=None, keep=True,
+                 profile_round=None) -> dict:
+    """One ``emulate`` run through its own code path (the command's flag
+    checks and config, ``LocalCluster`` on ``device`` with the
+    command's ``ThroughputSink``s, traced), every flush handed to
+    ``check(rank, out, source_floats)`` and, with ``keep``, kept.
+    ``profile_round``: a torch.profiler window (CUDA activity) over that
+    round. The run's clock (``run_s``, ``round_s``, ``rounds_per_s``,
+    ``mb_per_s``) starts at registration, stops at the last flush with
+    the device synchronized, and leaves out the profiler's own start and
+    stop; ``setup_s`` is the cluster's construction; ``sink_mb_per_s``
+    are rank 0's ``ThroughputSink`` readings as the command prints them
+    (its first interval starts when the sink is made)."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.buffers import base
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
+    from akka_allreduce_tpu_torch.protocol.cluster import (
+        LocalCluster, ThroughputSink, constant_range_source)
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    args = cli.build_parser().parse_args(argv + ["--device", device])
+    cli.check_emulate_flags(args)
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    config, n = cli.emulate_config(args)
+    src = constant_range_source(n, dev)
+    sinks = [ThroughputSink(n, checkpoint=args.checkpoint,
+                            assert_multiple=args.assert_multiple, device=dev)
+             for _ in range(args.workers)]
+    flushes: dict = {r: [] for r in range(args.workers)}
+
+    def sink_for(rank):
+        def sink(out):
+            sinks[rank](out)
+            if check is not None:
+                check(rank, out, src.floats)
+            if keep:
+                flushes[rank].append((out.iteration, out.data, out.count))
+        return sink
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tracer = Tracer()
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base.STORE_COPIES = 0
+    mr.MASKED_REDUCE_LAUNCHES = 0
+    t_setup = time.perf_counter()
+    cluster = LocalCluster(config, source_factory=lambda r: src,
+                           sink_factory=sink_for, tracer=tracer, device=dev)
+    sync()
+    paused = [0.0]  # the profiler's own start and stop, off the run clock
+
+    def clock():
+        return time.perf_counter() - paused[0]
+
+    stamps = []
+    counted = cluster.master.on_round_complete
+
+    def on_round(r):
+        counted(r)
+        stamps.append(clock())
+    cluster.master.on_round_complete = on_round
+    t0 = clock()
+    setup_s = time.perf_counter() - t_setup
+    cluster.start()
+    if args.kill_rank is not None:
+        cluster.kill_worker(args.kill_rank)
+    messages, window, prof = 0, None, None
+    if profile_round is not None:
+        messages += pump_until(cluster, profile_round)
+        sync()
+        if cuda:
+            tp = time.perf_counter()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            paused[0] += time.perf_counter() - tp
+        tw = clock()
+        m = pump_until(cluster, profile_round + 1)
+        sync()
+        wall_ms = (clock() - tw) * 1e3
+        if prof is not None:
+            tp = time.perf_counter()
+            prof.__exit__(None, None, None)
+            paused[0] += time.perf_counter() - tp
+        window = {"round": profile_round, "messages": m, "wall_ms": wall_ms}
+        messages += m
+    messages += cluster.router.pump(max_messages=cluster._message_budget())
+    sync()
+    run_s = clock() - t0
+    if window is not None:
+        rows = device_kernel_rows(torch, prof.key_averages(), 1) \
+            if prof is not None else []
+        device_ms = sum(ms for _, ms in rows)
+        window.update(
+            device_ms=device_ms if rows else "not measured",
+            device_idle_share=(1 - device_ms / window["wall_ms"]) if rows
+            else "not measured",
+            top_kernels=sorted(rows, key=lambda r: -r[1])[:6])
+    launches = mr.MASKED_REDUCE_LAUNCHES
+    expected = expected_reduce_launches(tracer, cluster)
+    rounds = len(cluster.completed_rounds)
+    round_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    out = {
+        "argv": argv, "device": str(dev), "rounds": rounds,
+        "setup_s": setup_s, "run_s": run_s, "rounds_per_s": rounds / run_s,
+        "round_s": round_s if len(round_s) <= 8 else None,
+        "mb_per_s": n * 4 * rounds / run_s / 1e6,
+        "sink_mb_per_s": sinks[0].rates_mbps,
+        "messages": messages, "messages_per_round": messages / max(1, rounds),
+        "launches": launches, "expected_launches": expected,
+        "reduce_fired": tracer.counters["reduce_fired"],
+        "catchups": tracer.counters["catchup_force_complete"],
+        "store_copies": base.STORE_COPIES,
+        "flushes": [len(flushes[r]) if keep else sinks[r].outputs_seen
+                    for r in range(args.workers)],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        "profile": window}
+    if rounds != args.max_round:
+        raise AssertionError(f"emulate {argv}: {rounds}/{args.max_round} "
+                             f"rounds completed")
+    if cuda and launches != expected:
+        raise AssertionError(
+            f"emulate {argv}: {launches} masked-reduce launches, the "
+            f"tracer implies {expected} (reduce_fired {out['reduce_fired']}"
+            f" + the chunks of {out['catchups']} catch-ups)")
+    if cuda and not launches:
+        raise AssertionError(f"emulate {argv}: the masked reduce never "
+                             f"launched")
+    del cluster, sinks, src
+    return out, flushes
+
+
+def same_flushes(got: dict, want: dict) -> bool:
+    """Every worker's flushes, in order, bitwise: rounds, data, counts."""
+    if sorted(got) != sorted(want):
+        return False
+    for r in got:
+        if len(got[r]) != len(want[r]):
+            return False
+        for (gi, gd, gc), (wi, wd, wc) in zip(got[r], want[r]):
+            if gi != wi or not torch_equal(gd.cpu(), wd.cpu()) \
+                    or not torch_equal(gc.cpu(), wc.cpu()):
+                return False
+    return True
+
+
+def phase_protocol(torch, n_params: int) -> dict:
+    """Phase 19 (see the module docstring); returns the parts' lines and
+    the masked-reduce launches of the four parts."""
+    import gc
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.ops.kernels import masked_reduce as mr
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    t_phase = time.perf_counter()
+    parts = protocol_parts(n_params)
+    lines = {}
+
+    def multiple_of(k):
+        def check(rank, out, floats):
+            if not (torch_equal(out.data, floats * k)
+                    and bool((out.count == k).all())):
+                raise AssertionError(f"worker {rank} round {out.iteration}:"
+                                     f" output != {k} x input")
+        return check
+
+    def honest(rank, out, floats):
+        if not torch_equal(out.data, floats * out.count.float()):
+            raise AssertionError(f"worker {rank} round {out.iteration}: "
+                                 f"data != arange * count")
+
+    # (a) the reference's cluster, (b) lossy with rank 1 dead: each on the
+    # card and on its CPU twin, every flush bitwise
+    for part, check in (("a", multiple_of(4)), ("b", honest)):
+        got, flushes = protocol_run(torch, parts[part], DEVICE, check)
+        twin, twin_flushes = protocol_run(torch, parts[part], PROTOCOL_TWIN,
+                                          check)
+        got["bitwise_twin"] = same_flushes(flushes, twin_flushes)
+        got["twin"] = {k: twin[k] for k in ("device", "setup_s", "run_s",
+                                            "rounds_per_s", "mb_per_s",
+                                            "sink_mb_per_s")}
+        emit("protocol", part=part, **got)
+        if not got["bitwise_twin"]:
+            raise AssertionError(f"phase 19 ({part}): a flush differs from "
+                                 f"its CPU twin's")
+        lines[part] = got
+        del flushes, twin_flushes
+
+    # (c) the flagship's gradient at two workers: output == 2 x the
+    # tensor the source handed out, counts 2, every flush
+    want = {}
+
+    def doubled(rank, out, floats):
+        if "data" not in want:
+            want["data"] = floats + floats
+        if not (torch_equal(out.data, want["data"])
+                and bool((out.count == 2).all())):
+            raise AssertionError(f"worker {rank} round {out.iteration}: "
+                                 f"output != 2 x source")
+    got, _ = protocol_run(torch, parts["c"], DEVICE, doubled, keep=False,
+                          profile_round=1)
+    want.clear()
+    emit("protocol", part="c", **got)
+    lines["c"] = got
+    gc.collect()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the fuzz: every schedule's cluster traced, 0 violations
+    args = cli.build_parser().parse_args(parts["d"] + ["--device", DEVICE])
+    cli.check_emulate_flags(args)
+    tracer = Tracer()
+    mr.MASKED_REDUCE_LAUNCHES = 0
+    failures, n_scheds, seconds = cli.run_fuzz(args, resolve_device(DEVICE),
+                                               tracer=tracer)
+    from akka_allreduce_tpu_torch.config import block_ranges, num_chunks
+    _, n = cli.emulate_config(args)
+    chunks = [num_chunks(hi - lo, args.max_chunk_size)
+              for lo, hi in block_ranges(n, args.workers)]
+    expected = tracer.counters["reduce_fired"] + sum(
+        chunks[e.fields["worker"]] for e in tracer.events
+        if e.kind == "catchup_force_complete")
+    got = {"argv": parts["d"], "schedules": n_scheds,
+           "violations": len(failures), "seconds": seconds,
+           "failures": [str(f) for f in failures[:5]],
+           "launches": mr.MASKED_REDUCE_LAUNCHES,
+           "expected_launches": expected,
+           "reduce_fired": tracer.counters["reduce_fired"],
+           "catchups": tracer.counters["catchup_force_complete"]}
+    emit("protocol", part="d", **got)
+    if failures:
+        raise AssertionError(f"phase 19 (d): {len(failures)}/{n_scheds} "
+                             f"schedules violated invariants")
+    cuda = torch.device(DEVICE).type == "cuda"
+    if cuda and got["launches"] != expected:
+        raise AssertionError(f"phase 19 (d): {got['launches']} launches, "
+                             f"the tracer implies {expected}")
+    lines["d"] = got
+    seconds = time.perf_counter() - t_phase
+    emit("protocol_phase_seconds", seconds=seconds,
+         limit_s=PROTOCOL_SECONDS)
+    if seconds > PROTOCOL_SECONDS:
+        raise AssertionError(f"phase 19 took {seconds:.1f} s, over its "
+                             f"{PROTOCOL_SECONDS} s")
+    return {"lines": lines,
+            "launches": sum(lines[p]["launches"] for p in "abcd")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3354,8 +3744,13 @@ def main() -> int:
          seconds=time.perf_counter() - t17, hierarchical_train=t17b - t17,
          auto=t17c - t17b, bench_rows=time.perf_counter() - t17c,
          script_seconds=time.perf_counter() - T_START)
+
+    # 19. the protocol plane: emulate's code path on the card
+    protocol = phase_protocol(torch, trained["params"])
+    emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] for k in SYNC_KERNELS}
+    sync_launches["masked_reduce"] += protocol["launches"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"]
                           + sum(sp_launches[d]["transport"]
@@ -3394,6 +3789,13 @@ def main() -> int:
             "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
+        if kernel == "masked_reduce":
+            # phase 19's chunk reduce: a 65,536-wide slab read in place
+            strided = sync["masked_reduce_strided"]
+            kernels[-1].update(protocol_launches=protocol["launches"],
+                               strided_ms=strided["ms"],
+                               strided_plain_ms=strided["plain_ms"],
+                               strided_bound_ms=strided["bound_ms"])
     # the ring kernels of phase 13's two runs: bf16 (phase 17's
     # hierarchical run added), and f32 (named with _f32, split TF32;
     # phase 15's sp=2 run added), each timed at phase 11's past hop; the

@@ -1059,3 +1059,87 @@ def test_a_twin_must_match_its_ipc_run_bitwise(twin_losses, twin_sum,
     else:
         with pytest.raises(AssertionError, match="gloo twin"):
             chip_smoke.check_twin("t", report, fields, peak=True)
+
+
+# -- phase 19: the protocol plane --------------------------------------------
+
+TINY_PROTOCOL = {
+    "a": ["emulate", "--workers", "4", "--data-size", "26",
+          "--max-chunk-size", "3", "--max-lag", "3", "--max-round", "12",
+          "--checkpoint", "5", "--th-complete", "1.0",
+          "--assert-multiple", "4"],
+    "b": ["emulate", "--workers", "4", "--data-size", "26",
+          "--max-chunk-size", "3", "--max-lag", "3", "--max-round", "12",
+          "--th-allreduce", "0.75", "--th-reduce", "0.75",
+          "--th-complete", "0.75", "--kill-rank", "1"],
+    "c": ["emulate", "--workers", "2", "--data-size", "96",
+          "--max-chunk-size", "16", "--max-lag", "1", "--th-complete",
+          "1.0", "--max-round", "3", "--checkpoint", "1"],
+    "d": ["emulate", "--fuzz", "2", "--workers", "3", "--data-size", "15",
+          "--max-round", "3", "--assert-multiple", "3", "--th-complete",
+          "1.0"]}
+
+
+def test_phase19_rehearsal(monkeypatch, capfd):
+    """Phase 19 at a tiny size on the CPU (the card's run on the CPU
+    twin's device, so no launch is counted): every part passes its
+    checks, (a) and (b) bitwise their twins, one line a part."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "PROTOCOL_PARTS", TINY_PROTOCOL)
+    monkeypatch.setattr(chip_smoke, "PROTOCOL_PUMP_BITE", 1)
+    out = chip_smoke.phase_protocol(torch, n_params=1000)
+    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()]
+    parts = [ln["part"] for ln in lines if ln["phase"] == "protocol"]
+    assert parts == ["a", "b", "c", "d"]
+    a, b, c, d = (out["lines"][p] for p in "abcd")
+    assert a["bitwise_twin"] and b["bitwise_twin"]
+    assert a["rounds"] == b["rounds"] == 12 and c["rounds"] == 3
+    assert a["flushes"] == [13] * 4 and b["flushes"][1] == 0
+    assert len(a["sink_mb_per_s"]) == 2 and len(c["sink_mb_per_s"]) == 3
+    assert len(c["round_s"]) == 3 and c["run_s"] >= sum(c["round_s"])
+    assert c["rounds_per_s"] == pytest.approx(3 / c["run_s"])
+    assert c["profile"]["round"] == 1 and c["profile"]["messages"] > 0
+    assert d["violations"] == 0 and d["schedules"] == 4 + 5 + 2
+    # the CPU runs the plain reduce: nothing launched, nothing expected
+    # of the counter; the tracer still sees every fired reduce
+    assert out["launches"] == 0 and a["reduce_fired"] > 0
+    # 26 floats in blocks of 7, 7, 7, 5: 3 + 3 + 3 + 2 chunk reduces a
+    # round, 13 flushed rounds
+    assert a["expected_launches"] == a["reduce_fired"] == 11 * 13
+
+
+def test_phase19_parts_build_c_from_phase9s_gradient():
+    parts = chip_smoke.protocol_parts(541_130_700)
+    c = parts["c"]
+    assert c[c.index("--data-size") + 1] == str(8257 * 65536)
+    assert c[c.index("--max-chunk-size") + 1] == "65536"
+    assert parts["a"] == chip_smoke.PROTOCOL_PARTS["a"]
+
+
+def test_phase19_twin_check_sees_one_bit():
+    base = {0: [(0, torch.arange(4.0), torch.full((4,), 2,
+                                                  dtype=torch.int32))]}
+    flipped = torch.arange(4.0)
+    flipped.view(torch.int32)[1] ^= 1
+    assert chip_smoke.same_flushes(base, {0: [(0, torch.arange(4.0),
+                                               base[0][0][2])]})
+    assert not chip_smoke.same_flushes(base, {0: [(0, flipped,
+                                                   base[0][0][2])]})
+    assert not chip_smoke.same_flushes(base, {0: []})
+
+
+def test_phase19_expected_launches_count_catchup_chunks():
+    """One launch per fired reduce, plus one per chunk of the worker's
+    block for each force-completed round (the catch-up reduces every
+    chunk, fired or not)."""
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    tracer = Tracer()
+    for _ in range(5):
+        tracer.record("reduce_fired", worker=0, round=0, chunk=0,
+                      contributors=2)
+    tracer.record("catchup_force_complete", worker=1, round=0, behind=4)
+    tracer.record("catchup_force_complete", worker=0, round=1, behind=4)
+    cluster = types.SimpleNamespace(workers=[
+        types.SimpleNamespace(scatter_block_buf=types.SimpleNamespace(
+            num_chunks=k)) for k in (3, 7)])
+    assert chip_smoke.expected_reduce_launches(tracer, cluster) == 5 + 7 + 3

@@ -1,4 +1,4 @@
-"""The port's ``serve`` and ``train`` commands on the CPU.
+"""The port's ``serve``, ``train`` and ``emulate`` commands on the CPU.
 
 ``serve --device cpu`` on the tiny model prints one JSON line carrying
 the JAX serve command's summary keys; ``--device cuda`` on a machine
@@ -7,7 +7,11 @@ is refused; and one seed draws the same synthetic load as the JAX
 command. ``train --device cpu`` prints the JAX command's step lines and
 its report carries losses, times and launch counts (0: the CPU runs the
 kernels' plain versions); without ``--device cpu`` and without CUDA it
-raises. TF32 is off for CUDA matmuls (``allow_tf32 = False``).
+raises. ``emulate --device cpu`` prints the JAX command's lines
+(``completed N/N rounds ...``, ``fuzz: ... 0 violations``), refuses what
+it refuses with exit code 2 (and ``--engine native``, ROADMAP A4 part
+3), and without ``--device cpu`` and without CUDA raises. TF32 is off
+for CUDA matmuls (``allow_tf32 = False``).
 """
 
 import argparse
@@ -146,3 +150,70 @@ def test_train_draws_the_jax_commands_batches():
 def test_train_refusals_exit_2(capsys, flags, match):
     assert cli.main(TRAIN_TINY + flags) == 2
     assert match in capsys.readouterr().err
+
+
+# -- emulate ------------------------------------------------------------------
+
+EMULATE_SCRIPT = ["emulate", "--device", "cpu", "--workers", "4",
+                  "--data-size", "778", "--max-chunk-size", "3",
+                  "--max-lag", "3", "--th-complete", "1.0",
+                  "--assert-multiple", "4"]
+
+
+def test_emulate_cpu_prints_the_jax_commands_lines(capsys):
+    """The reference's script config (scripts/testAllreduceMaster.sc)
+    completes 100/100 rounds with ``output == 4 x input`` checked at each
+    checkpoint, printing the JAX command's lines: rank 0's ``MB in s at
+    MB/s`` per checkpoint, then ``completed N/N rounds ...``."""
+    assert cli.main(EMULATE_SCRIPT) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3
+    assert all(" MB in " in ln and ln.endswith(" MB/s") for ln in lines[:2])
+    assert lines[2].startswith("completed 100/100 rounds in ")
+    assert lines[2].endswith("(4 workers, dataSize=778, chunk=3, maxLag=3)")
+
+
+def test_emulate_trace_file_and_kill_rank(capsys, tmp_path):
+    path = tmp_path / "trace.jsonl"
+    rc = cli.main(["emulate", "--device", "cpu", "--workers", "4",
+                   "--data-size", "64", "--max-chunk-size", "16",
+                   "--max-round", "3", "--th-allreduce", "0.75",
+                   "--th-reduce", "0.75", "--th-complete", "0.75",
+                   "--kill-rank", "2", "--trace-file", str(path)])
+    out = capsys.readouterr().out.splitlines()
+    assert rc == 0 and out[0] == f"trace -> {path}"
+    assert out[1].startswith("completed 3/3 rounds in ")
+    rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+    assert [r["rank"] for r in rows if r["kind"] == "worker_dead"] == [2]
+
+
+def test_emulate_fuzz_prints_zero_violations(capsys):
+    assert cli.main(["emulate", "--device", "cpu", "--fuzz", "3"]) == 0
+    out = capsys.readouterr().out.strip()
+    assert out.startswith("fuzz: 11 schedules x 100 rounds each, "
+                          "0 violations (")
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--assert-multiple", "2"], "requires all thresholds at 1.0"),
+    (["--kill-rank", "2"], "is not a worker seat (0..1)"),
+    (["--kill-rank", "-1"], "is not a worker seat"),
+    (["--fuzz", "5", "--workers", "4", "--kill-rank", "3",
+      "--th-allreduce", "0.9", "--th-reduce", "0.6", "--th-complete", "0.6"],
+     "needs ceil(0.9*4)=4 workers"),
+    (["--fuzz", "2", "--trace-file", "t.jsonl"], "writes no trace"),
+    (["--engine", "native"], "A4, part 3")])
+def test_emulate_refusals_exit_2(capsys, flags, match):
+    assert cli.main(["emulate", "--device", "cpu", *flags]) == 2
+    assert match in capsys.readouterr().err
+
+
+def test_emulate_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal needs one without")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run(
+        [sys.executable, "-m", "akka_allreduce_tpu_torch.cli", "emulate"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
+    assert "torch.cuda.is_available() is False" in out.stderr

@@ -3,8 +3,8 @@
 Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
 attention's, the peer-memory allreduce's, the round pacer's, the
-deadline trainer's, the collective autotuner's, the rank transport's
-and the bench rows' modules included) and finds neither ``jax`` nor
+deadline trainer's, the collective autotuner's, the rank transport's,
+the bench rows' and the protocol plane's modules included) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``; a rank process that
 ``spawn_ranks`` starts from this (JAX-importing) test process holds
 neither either; and an AST scan of the package's sources finds no
@@ -54,7 +54,20 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.ops.kernels.transport",
             "akka_allreduce_tpu_torch.parallel.ring_attention",
             "akka_allreduce_tpu_torch.ops.autotune",
-            "akka_allreduce_tpu_torch.bench"} <= set(mods)
+            "akka_allreduce_tpu_torch.bench",
+            "akka_allreduce_tpu_torch.config",
+            "akka_allreduce_tpu_torch.messages",
+            "akka_allreduce_tpu_torch.buffers",
+            "akka_allreduce_tpu_torch.buffers.base",
+            "akka_allreduce_tpu_torch.buffers.scattered",
+            "akka_allreduce_tpu_torch.buffers.reduced",
+            "akka_allreduce_tpu_torch.runtime.tracing",
+            "akka_allreduce_tpu_torch.protocol",
+            "akka_allreduce_tpu_torch.protocol.transport",
+            "akka_allreduce_tpu_torch.protocol.worker",
+            "akka_allreduce_tpu_torch.protocol.master",
+            "akka_allreduce_tpu_torch.protocol.cluster",
+            "akka_allreduce_tpu_torch.protocol.explorer"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -116,7 +129,10 @@ def test_ast_scan_finds_no_jax_import():
         "ops/collectives", "ops/kernels/masked_reduce",
         "ops/kernels/quantized", "ops/kernels/ring_flash",
         "ops/kernels/ring", "ops/kernels/transport",
-        "parallel/ring_attention", "ops/autotune", "bench")} <= scanned
+        "parallel/ring_attention", "ops/autotune", "bench", "config",
+        "messages", "buffers/base", "buffers/scattered", "buffers/reduced",
+        "runtime/tracing", "protocol/transport", "protocol/worker",
+        "protocol/master", "protocol/cluster", "protocol/explorer")} <= scanned
 
 
 def test_a_rank_that_loads_the_transport_loads_no_jax():

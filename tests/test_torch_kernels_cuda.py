@@ -809,6 +809,35 @@ def test_masked_reduce_matches_plain(cuda_device, peers, elems, valid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("peers,width,start,chunk", [
+    (4, 195, 0, 3), (4, 195, 3, 3), (4, 196, 4, 4), (4, 196, 5, 3),
+    (2, 270565376, 270565376 - 65536, 65536), (3, 1000, 996, 4)])
+def test_masked_reduce_strided_slabs(cuda_device, peers, width, start,
+                                     chunk):
+    """The protocol plane's chunk reduce: a ``(peers, chunk)`` slab of a
+    staging row ``width`` wide, read in place with ``ld = width``: the
+    float4 path where ld, the chunk and both pointers allow it, the
+    scalar path otherwise (a row of 195, a chunk at offset 3 or 5);
+    bitwise its plain version, one launch each."""
+    gen = torch.Generator(cuda_device).manual_seed(width + start)
+    row = torch.randn((peers, width), generator=gen, device=cuda_device)
+    slab = row[:, start:start + chunk]
+    ones = torch.ones(peers, device=cuda_device)
+    before = mr.MASKED_REDUCE_LAUNCHES
+    out, count = mr.masked_reduce(slab, ones, float(peers))
+    ref, _ = mr.masked_reduce_reference(slab, ones, float(peers))
+    torch.cuda.synchronize()
+    assert mr.MASKED_REDUCE_LAUNCHES == before + 1
+    assert int(count) == peers
+    assert torch.equal(out, ref)
+    assert torch.equal(out, mr.masked_reduce(slab.contiguous(), ones,
+                                             float(peers))[0])
+    with pytest.raises(ValueError, match="row contiguous"):
+        mr.masked_reduce(row.t()[:chunk].t().contiguous().t(),
+                         torch.ones(chunk, device=cuda_device))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,cols,block,offset", [
     (16, 4096, 512, 0), (5, 1000, 128, 0), (3, 1001, 128, 0),
     (4, 1024, 256, 1)])  # offset 1: a base that is not 16-byte aligned

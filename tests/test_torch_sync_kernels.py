@@ -70,6 +70,28 @@ def test_masked_reduce_sums_peers_in_order():
     assert torch.equal(whole, ordered)
 
 
+
+def test_masked_reduce_takes_a_strided_slab():
+    """The protocol plane's chunk reduce: a ``(peers, chunk)`` slab of a
+    wider staging row (``stride(0)`` the row's width, not the chunk's)
+    reduces as its contiguous copy does and as numpy's in-order
+    ``sum(axis=0, dtype=float32)``, scale exactly 1 (target = peers,
+    every peer valid). The CPU runs the plain version; the kernel's
+    strided path is held on the card
+    (``test_torch_kernels_cuda.py::test_masked_reduce_strided_slabs``)."""
+    rng = np.random.default_rng(11)
+    row = rng.normal(size=(4, 195)).astype(np.float32) * 100
+    staged = torch.from_numpy(row)
+    ones = torch.ones(4)
+    for start in (0, 3, 192):
+        slab = staged[:, start:start + 3]
+        assert slab.stride() == (195, 1) and not slab.is_contiguous()
+        got, n = tmr.masked_reduce(slab, ones, 4.0)
+        want, _ = tmr.masked_reduce(slab.contiguous(), ones, 4.0)
+        assert int(n) == 4 and torch.equal(got, want)
+        assert got.numpy().tobytes() == row[:, start:start + 3].sum(
+            axis=0, dtype=np.float32).tobytes()
+
 def test_masked_reduce_checks_shapes():
     with pytest.raises(ValueError, match="valid must be"):
         tmr.masked_reduce(torch.zeros(3, 4), torch.ones(2))
