@@ -1,9 +1,12 @@
-"""Command line of the port: ``serve``, ``train`` and ``emulate``.
+"""Command line of the port: ``serve``, ``train``, ``emulate``, ``master``
+and ``worker``.
 
-Counterparts of ``akka_allreduce_tpu/cli.py serve``, ``train`` and
-``emulate`` for the flags the port's slices carry. All run on ``cuda``
-unless ``--device cpu`` is given, and raise when CUDA is asked for and
-absent.
+Counterparts of ``akka_allreduce_tpu/cli.py serve``, ``train``,
+``emulate``, ``master`` and ``worker`` for the flags the port's slices
+carry. All that hold tensors run on ``cuda`` unless ``--device cpu`` is
+given, and raise when CUDA is asked for and absent; the C++ host engines
+(``master --native``, ``worker --native``, ``emulate --engine native``)
+hold none and refuse ``--device``.
 
 ``serve`` (model shape, slot or paged engine, closed or open synthetic
 load) builds a model from ``--seed``, runs the synthetic load through
@@ -52,6 +55,18 @@ command's flags, refusals and output lines::
     python -m akka_allreduce_tpu_torch.cli emulate --workers 4 \\
         --data-size 778 --max-chunk-size 3 --max-lag 3 --th-complete 1.0 \\
         --assert-multiple 4 [--kill-rank 1] [--fuzz 5] [--device cpu]
+
+``emulate --engine native`` runs the same cluster on the C++ engine in
+one process, on the host. ``master`` and ``worker`` run it across OS
+processes over the TCP wire (``protocol/remote.py``): a worker's
+payloads on ``--device`` (each chunk reduce one masked-reduce launch on
+the card), the master's pacing on the host; ``--native`` runs either as
+its C++ engine on the same wire::
+
+    python -m akka_allreduce_tpu_torch.cli master --port 2551 \\
+        --workers 2 --data-size 778 --max-chunk-size 3 --th-complete 1.0
+    python -m akka_allreduce_tpu_torch.cli worker --master-port 2551 \\
+        --data-size 778 --assert-multiple 2 [--device cpu | --native]
 """
 
 from __future__ import annotations
@@ -271,15 +286,7 @@ def _add_emulate(sub: argparse._SubParsersAction) -> None:
     p = sub.add_parser(
         "emulate", help="run the in-process protocol cluster "
         "(reference master defaults: AllreduceMaster.scala:98-107)")
-    p.add_argument("--workers", type=int, default=2)
-    p.add_argument("--data-size", type=int, default=None,
-                   help="default: workers * 5 (reference default)")
-    p.add_argument("--max-chunk-size", type=int, default=2)
-    p.add_argument("--max-round", type=int, default=100)
-    p.add_argument("--max-lag", type=int, default=1)
-    p.add_argument("--th-allreduce", type=float, default=1.0)
-    p.add_argument("--th-reduce", type=float, default=1.0)
-    p.add_argument("--th-complete", type=float, default=0.8)
+    _add_cluster_flags(p)
     p.add_argument("--checkpoint", type=int, default=50,
                    help="throughput print interval in rounds")
     p.add_argument("--assert-multiple", type=int, default=0,
@@ -299,13 +306,29 @@ def _add_emulate(sub: argparse._SubParsersAction) -> None:
                         "rounds, members, deaths) here on exit")
     p.add_argument("--engine", choices=("python", "native"),
                    default="python",
-                   help="protocol engine: python (the spec; its payloads "
-                        "on --device); native (the C++ engine) is not "
-                        "ported yet (ROADMAP A4, part 3)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu: where the payloads, the "
-                        "staging rows and the chunk reduce live; cuda "
-                        "without CUDA raises")
+                   help="protocol engine: python (the spec; supports "
+                        "tracing and per-round sinks; its payloads on "
+                        "--device) or native (the C++ engine on the host, "
+                        "~100x rounds/s; throughput only)")
+    p.add_argument("--device", default=None,
+                   help="python engine: cuda (default) or cpu, where the "
+                        "payloads, the staging rows and the chunk reduce "
+                        "live; cuda without CUDA raises. Refused with "
+                        "--engine native (a host engine)")
+
+
+def _add_cluster_flags(p: argparse.ArgumentParser) -> None:
+    """The cluster's shape, as ``emulate`` and ``master`` take it (the
+    reference master's defaults)."""
+    p.add_argument("--workers", type=int, default=2)
+    p.add_argument("--data-size", type=int, default=None,
+                   help="default: workers * 5 (reference default)")
+    p.add_argument("--max-chunk-size", type=int, default=2)
+    p.add_argument("--max-round", type=int, default=100)
+    p.add_argument("--max-lag", type=int, default=1)
+    p.add_argument("--th-allreduce", type=float, default=1.0)
+    p.add_argument("--th-reduce", type=float, default=1.0)
+    p.add_argument("--th-complete", type=float, default=0.8)
 
 
 def check_emulate_flags(args: argparse.Namespace) -> None:
@@ -349,10 +372,20 @@ def check_emulate_flags(args: argparse.Namespace) -> None:
                     f"workers, but " + "; ".join(unreachable)
                     + " — lower the threshold(s) or raise --workers")
     elif args.engine == "native":
-        raise ValueError("--engine native (the C++ protocol engine) is not "
-                         "ported yet (ROADMAP A4, part 3: protocol/wire.py, "
-                         "tcp.py, remote.py, native_cluster.py and "
-                         "native/); use --engine python")
+        if args.trace_file:
+            raise ValueError("--engine native does not produce traces "
+                             "(use the python engine)")
+        check_host_engine(args.device, "--engine native")
+
+
+def check_host_engine(device, flag: str) -> None:
+    """A C++ engine holds no tensor: an explicit ``--device`` with it is
+    refused (ValueError; the command returns 2), never ignored."""
+    if device is not None:
+        raise ValueError(f"--device {device} cannot be used with {flag}: "
+                         f"the C++ engine is a host engine with no tensor "
+                         f"on any device (drop --device, or run the "
+                         f"python engine)")
 
 
 def emulate_config(args: argparse.Namespace):
@@ -441,8 +474,21 @@ def _cmd_emulate(args: argparse.Namespace) -> int:
     except ValueError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    device = resolve_device(args.device)
     config, data_size = emulate_config(args)
+    if args.engine == "native":
+        from akka_allreduce_tpu_torch.protocol.native_cluster import (
+            run_native_cluster)
+        t0 = time.perf_counter()
+        rounds, flushed = run_native_cluster(
+            config, kill_rank=args.kill_rank,
+            assert_multiple=args.assert_multiple)
+        dt = time.perf_counter() - t0
+        print(f"completed {rounds}/{args.max_round} rounds in {dt:.3f}s "
+              f"({rounds / dt if dt > 0 else float('inf'):,.0f} rounds/s, "
+              f"{flushed} flushes, native engine, host)")
+        return 0 if rounds == args.max_round \
+            or args.kill_rank is not None else 1
+    device = resolve_device(args.device or "cuda")
     if args.fuzz > 0:
         failures, n_scheds, dt = run_fuzz(args, device)
         if failures:
@@ -477,12 +523,196 @@ def _cmd_emulate(args: argparse.Namespace) -> int:
     return 0 if rounds == args.max_round or args.kill_rank is not None else 1
 
 
+# -- master / worker: the protocol plane across processes -----------------
+
+def _add_master(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "master", help="run a master process over the native TCP transport "
+        "(reference: AllreduceMaster.scala:95-112)")
+    p.add_argument("--port", type=int, default=2551)
+    p.add_argument("--bind-host", default="127.0.0.1")
+    _add_cluster_flags(p)
+    p.add_argument("--timeout", type=float, default=120.0)
+    p.add_argument("--native", action="store_true",
+                   help="run the C++ master engine (native/src/"
+                        "remote_master.cpp): same wire, so Python and "
+                        "native workers join it interchangeably. "
+                        "--trace-file is a Python-engine feature")
+    _add_liveness_flags(p)
+
+
+def _add_liveness_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace-file", default=None,
+                   help="write the structured protocol+liveness trace "
+                        "(JSONL) here on exit")
+    p.add_argument("--heartbeat-interval", type=float, default=2.0,
+                   help="seconds between transport Pings")
+    p.add_argument("--unreachable-after", type=float, default=10.0,
+                   help="down a silent peer after this many seconds "
+                   "(reference: application.conf:20 auto-down-unreachable-"
+                   "after = 10s); 0 disables liveness detection")
+
+
+def _cmd_master(args: argparse.Namespace) -> int:
+    from akka_allreduce_tpu_torch.protocol.remote import (run_master,
+                                                          run_master_native)
+
+    config, _ = emulate_config(args)
+    if args.native:
+        if args.trace_file:
+            print("warning: --trace-file is a Python-engine feature; "
+                  "the native master writes no trace", file=sys.stderr)
+        rounds = run_master_native(
+            config, bind_host=args.bind_host, port=args.port,
+            timeout_s=args.timeout,
+            heartbeat_interval_s=args.heartbeat_interval,
+            unreachable_after_s=args.unreachable_after or None)
+        sys.stdout.flush()
+        print(f"master: {rounds}/{args.max_round} rounds (native engine, "
+              f"host)")
+    else:
+        rounds = run_master(
+            config, bind_host=args.bind_host, port=args.port,
+            timeout_s=args.timeout,
+            heartbeat_interval_s=args.heartbeat_interval,
+            unreachable_after_s=args.unreachable_after or None,
+            trace_file=args.trace_file)
+    return 0 if rounds == args.max_round else 1
+
+
+def _add_worker(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "worker", help="run a worker process over the native TCP transport "
+        "(reference: AllreduceWorker.scala:309-315)")
+    p.add_argument("--master-host", default="127.0.0.1",
+                   help="master address, or a comma list of seed "
+                        "addresses host[:port] tried in order — ANY "
+                        "seed admits the worker, mirroring the "
+                        "reference's seed-node list "
+                        "(application.conf:14-16); entries without a "
+                        "port use --master-port")
+    p.add_argument("--master-port", type=int, default=2551)
+    p.add_argument("--rejoin-timeout", type=float, default=0.0,
+                   help="> 0: treat a master disconnect as a possible "
+                        "restart instead of shutdown — cold-reset and "
+                        "redial through the seed list for up to this "
+                        "many seconds (both engines)")
+    p.add_argument("--data-size", type=int, default=None,
+                   help="synthetic source length, default 10 (must match "
+                        "the master's; ignored with --native, which "
+                        "takes geometry from InitWorkers)")
+    p.add_argument("--checkpoint", type=int, default=10,
+                   help="throughput print interval in rounds")
+    p.add_argument("--assert-multiple", type=int, default=0,
+                   help="assert output == N x input (needs thresholds 1.0)")
+    p.add_argument("--timeout", type=float, default=120.0)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--native", action="store_true",
+                   help="run the C++ worker engine (native/src/"
+                        "remote_worker.cpp) instead of the Python engine "
+                        "— same protocol, same wire, bit-identical "
+                        "outputs, on the host. The silent-peer "
+                        "failure detector (--unreachable-after) and "
+                        "--trace-file are Python-engine features")
+    p.add_argument("--device", default=None,
+                   help="python engine: cuda (default) or cpu, where the "
+                        "payloads, the staging rows and the chunk reduce "
+                        "live; cuda without CUDA raises. Refused with "
+                        "--native (a host engine)")
+    p.add_argument("--assert-honest", action="store_true",
+                   help="python engine: check EVERY flush, at any "
+                        "threshold: output == input x count (and, with "
+                        "--assert-multiple, count == N); refused with "
+                        "--native")
+    _add_liveness_flags(p)
+
+
+def _parse_seeds(master_host: str, master_port: int) -> list:
+    """``host[:port],host2[:port2],...`` -> [(host, port), ...]."""
+    seeds = []
+    for entry in master_host.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if ":" in entry:
+            host, _, port_s = entry.rpartition(":")
+            seeds.append((host, int(port_s)))
+        else:
+            seeds.append((entry, master_port))
+    if not seeds:
+        raise SystemExit("--master-host: no seed addresses given")
+    return seeds
+
+
+def _cmd_worker(args: argparse.Namespace) -> int:
+    from akka_allreduce_tpu_torch.protocol.remote import (run_worker,
+                                                          run_worker_native)
+
+    seeds = _parse_seeds(args.master_host, args.master_port)
+    if args.native:
+        try:
+            check_host_engine(args.device, "--native")
+            if args.assert_honest:
+                raise ValueError("--assert-honest is a Python-engine "
+                                 "check; the C++ worker has its own "
+                                 "--assert-multiple")
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        if args.trace_file:
+            print("warning: --trace-file is a Python-engine feature; "
+                  "the native worker writes no trace", file=sys.stderr)
+        if args.unreachable_after != 10.0:
+            print("warning: --unreachable-after is ignored with "
+                  "--native (the C++ engine downs peers on TCP "
+                  "disconnect only; hung-but-connected peers are the "
+                  "Python router's detector)", file=sys.stderr)
+        if args.data_size is not None:
+            print("note: --native derives the data geometry from the "
+                  "master's InitWorkers; --data-size is ignored",
+                  file=sys.stderr)
+        # the C++ engine carries the seed list AND the rejoin window
+        # natively (aat_remote_worker_run_seeds): engine parity with the
+        # Python worker's master-restart failover
+        try:
+            outputs = run_worker_native(
+                checkpoint=args.checkpoint,
+                assert_multiple=args.assert_multiple,
+                timeout_s=args.timeout, verbose=args.verbose,
+                heartbeat_interval_s=args.heartbeat_interval,
+                seeds=seeds, rejoin_timeout_s=args.rejoin_timeout)
+        except (ConnectionError, ValueError) as exc:
+            # ValueError = malformed seed list (e.g. an empty host the
+            # flag parser let through) — same clean-exit convention
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        sys.stdout.flush()
+        print(f"native worker: {outputs} outputs (native engine, host)")
+    else:
+        outputs = run_worker(source_data_size=(10 if args.data_size is None
+                                               else args.data_size),
+                             checkpoint=args.checkpoint,
+                             assert_multiple=args.assert_multiple,
+                             timeout_s=args.timeout, verbose=args.verbose,
+                             heartbeat_interval_s=args.heartbeat_interval,
+                             unreachable_after_s=args.unreachable_after
+                             or None,
+                             trace_file=args.trace_file,
+                             seeds=seeds,
+                             rejoin_timeout_s=args.rejoin_timeout,
+                             device=args.device or "cuda",
+                             assert_honest=args.assert_honest)
+    return 0 if outputs > 0 else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="akka_allreduce_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_serve(sub)
     _add_train(sub)
     _add_emulate(sub)
+    _add_master(sub)
+    _add_worker(sub)
     return parser
 
 
@@ -1180,7 +1410,8 @@ def _cmd_train(args: argparse.Namespace) -> int:
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     return {"serve": _cmd_serve, "train": _cmd_train,
-            "emulate": _cmd_emulate}[args.cmd](args)
+            "emulate": _cmd_emulate, "master": _cmd_master,
+            "worker": _cmd_worker}[args.cmd](args)
 
 
 if __name__ == "__main__":

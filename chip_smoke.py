@@ -8,7 +8,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. device  — the card's name and power limit; TF32 off for matmuls and
    convolutions, so every f32 product runs in full f32.
 2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc
-   per source, all started together), timed, with ptxas's report and,
+   per source, all started together; the C++ host library of phase 20,
+   ``native/``, with g++ beside them), timed, with ptxas's report and,
    per tensor-core kernel (``*_mma_kernel``: the flash and ring forward,
    dq and dk/dv, bf16 and f32 in split TF32), its registers and spill
    bytes: any spill fails the phase, and so does a fresh build that
@@ -204,9 +205,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    sum of every rank's input; each rank launched each kernel 4 times.
    Then, median of 5 calls on every rank with CUDA events between group
    barriers (the slowest rank's median is the collective's time): the
-   kernels, the plain version (host wire), and
+   kernels, and of 2 calls the plain version (host wire) and
    ``torch.distributed.all_reduce`` on the gloo group (NCCL refuses two
-   ranks on one device); the same kernels on a 256 KB vector, whose
+   ranks on one device), seconds a call each; the same kernels on a 256 KB vector, whose
    time is the waits'; the byte bounds computed (the function's, the
    schedule's, and the parent's per-step schedules'); and a
    torch.profiler window over 3 calls on each rank splitting a call's
@@ -305,15 +306,43 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    per ``catchup_force_complete``, the chunks of that worker's block),
    store copies and peak memory. The phase must end within
    ``PROTOCOL_SECONDS`` (120 s).
+20. cluster — the protocol plane across processes: ``python -m
+   akka_allreduce_tpu_torch.cli master`` and ``worker`` as OS processes
+   on the one card, over the TCP wire (``protocol/tcp.py`` on the C++
+   transport). A card worker keeps its payloads on the card (every
+   received frame one copy into a staging row, every chunk reduce one
+   masked-reduce launch), checks every flush (``--assert-honest``:
+   ``data == arange * count``, and ``count == N`` at thresholds 1.0),
+   traces, and reports its launches and peak GB at exit; its launches
+   must equal its trace's ``reduce_fired`` plus the chunks of its
+   force-completed rounds. First the per-message copies (encode a chunk
+   view: the device-to-host copy; decode and store it: the host-to-
+   device copy), host-timed at 3 and 65,536 floats, card against CPU.
+   (a) the reference's cluster (phase 19 (a)'s shape, 100 rounds) with
+   4 card workers; (b) 2 card workers and 2 C++ workers (``worker
+   --native``), every sink exact; (c) the C++ master (``master
+   --native``) with 2 card workers; (b), (c) and (e) at (a)'s shape for
+   25 rounds (``CLUSTER_ROUNDS``); (d) 2 card workers on phase 19 (c)'s
+   shape (541,130,752 floats, chunk 65,536, max lag 1, 3 rounds,
+   ``--unreachable-after 120``), the frames and bytes a worker sends a
+   round from the shapes; (e) (a)'s cluster at thresholds 0.75 with the
+   worker that joins as rank 1 SIGKILLed after its round-10 checkpoint:
+   every round completes, the master downs it once, every survivor's
+   flush is honest; (f) ``emulate --engine native`` at (a)'s config, on
+   the host. Each part's line: rounds/s (the Python master's trace
+   clock, else the card workers'), MB/s, every process's exit code and
+   lines, each card worker's report. The phase must end within
+   ``CLUSTER_SECONDS`` (180 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
-rank 0's in phases 9, 13, 16 and 17; the masked reduce's with phase
-19's), and last ``{"ok": true, "device": {...}}``.
+rank 0's in phases 9, 13, 16 and 17; the masked reduce's with phases
+19's and 20's), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import math
@@ -525,6 +554,9 @@ SP_LOSS_RTOL = 1e-3
 ALLREDUCE_RUNS = ((2, 8257 * BUCKET_ELEMS), (4, 64 * 2 ** 20))
 ALLREDUCE_LOOP = 4
 ALLREDUCE_REPS = 5
+# the plain versions and gloo all_reduce, seconds a call on 2.16 GB:
+# timed fewer times than the kernels
+ALLREDUCE_REF_REPS = 2
 ALLREDUCE_SAMPLE = 65536  # columns held against the f64 sum
 # a vector whose traffic is negligible (256 KB): its time is the
 # handshakes', i.e. the time-slicing between the ranks' contexts
@@ -598,6 +630,34 @@ PROTOCOL_SECONDS = 120
 # (c)'s profiled round ends within this many messages of its last one
 # (of ~33k a round)
 PROTOCOL_PUMP_BITE = 64
+# phase 20: the protocol plane across processes (``cli master`` and ``cli
+# worker`` as OS processes); each part (master engine, worker engines):
+# "card" a Python worker on the card, "native" the C++ worker; (a), (b),
+# (c) and (e) at phase 19 (a)'s shape, (d) at phase 19 (c)'s
+CLUSTER_SCRIPT = ["--data-size", "778", "--max-chunk-size", "3",
+                  "--max-lag", "3"]
+CLUSTER_PARTS = {"a": ("python", ["card"] * 4),
+                 "b": ("python", ["card", "native", "card", "native"]),
+                 "c": ("native", ["card"] * 2),
+                 "d": ("python", ["card"] * 2),
+                 "e": ("python", ["card"] * 4)}
+# (a) the reference's 100 rounds; (b), (c) and (e) 25, so that the phase
+# keeps well inside its limit: each card worker process takes ~10 s to
+# start (torch and a CUDA context), makes two synchronizing copies a
+# message, and shares the card with the others
+CLUSTER_ROUNDS = {"a": 100, "b": 25, "c": 25, "e": 25}
+CLUSTER_CHECKPOINT = 10
+CLUSTER_TIMEOUT_S = 60
+CLUSTER_SCALE_ROUNDS = 3
+CLUSTER_SCALE_TIMEOUT_S = 150
+# a card worker can spend seconds inside one poll while it drains the
+# scale part's 256 KB frames: (d)'s liveness window is wide
+CLUSTER_SCALE_UNREACHABLE_S = 120
+CLUSTER_KILL_RANK = 1
+CLUSTER_KILL_AFTER = 10  # (e)'s checkpoint: the victim's first sink line
+CLUSTER_COPY_REPS = 200
+CLUSTER_DEVICE = None  # card workers' --device (a CPU rehearsal: "cpu")
+CLUSTER_SECONDS = 180
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -3065,7 +3125,7 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
     cols = torch.arange(ALLREDUCE_SAMPLE, device=dev) * (elems - 1) // (
         ALLREDUCE_SAMPLE - 1)
 
-    def timed(call, before=None, sync=None) -> list:
+    def timed(call, before=None, sync=None, reps=reps) -> list:
         times = []
         for _ in range(reps):
             if before is not None:
@@ -3120,7 +3180,8 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
         out[name] = {
             "steps": steps, "launches": launches,
             "ms": timed(lambda: kernel(x, group), sync=wait),
-            "plain_ms": timed(lambda: plain(x, group)),
+            "plain_ms": timed(lambda: plain(x, group),
+                              reps=ALLREDUCE_REF_REPS),
             "small_ms": timed(lambda: kernel(small, group), sync=wait),
             "split": allreduce_split(torch, group, lambda: kernel(x, group)),
             "small_split": allreduce_split(torch, group,
@@ -3129,7 +3190,8 @@ def allreduce_rank(group, elems: int, loop: int, reps: int) -> dict:
     y = x.clone()
     dist.all_reduce(y)  # the gloo algorithm's warm-up
     out["library_ms"] = timed(lambda: dist.all_reduce(y),
-                              before=lambda: y.copy_(x))
+                              before=lambda: y.copy_(x),
+                              reps=ALLREDUCE_REF_REPS)
     return out
 
 
@@ -3653,6 +3715,342 @@ def phase_protocol(torch, n_params: int) -> dict:
             "launches": sum(lines[p]["launches"] for p in "abcd")}
 
 
+# -- phase 20: the protocol plane across processes --------------------------
+
+def cluster_argvs(part: str, n_params: int, port: int, trace_dir: str
+                  ) -> "tuple[list, list]":
+    """Phase 20's ``(master argv, [(engine, worker argv), ...])`` for
+    ``part``, each argv for ``python -m akka_allreduce_tpu_torch.cli``.
+    A card worker traces to ``trace_dir/<part>-w<i>.jsonl``; the Python
+    master to ``trace_dir/<part>-master.jsonl``."""
+    master_engine, engines = CLUSTER_PARTS[part]
+    lossy = part == "e"
+    script = list(CLUSTER_SCRIPT)
+    rounds, checkpoint, timeout = CLUSTER_ROUNDS.get(part), \
+        CLUSTER_CHECKPOINT, CLUSTER_TIMEOUT_S
+    liveness = []
+    if part == "d":
+        rows = -(-n_params // BUCKET_ELEMS)
+        script = ["--data-size", str(rows * BUCKET_ELEMS),
+                  "--max-chunk-size", str(BUCKET_ELEMS), "--max-lag", "1"]
+        rounds, checkpoint, timeout = CLUSTER_SCALE_ROUNDS, 1, \
+            CLUSTER_SCALE_TIMEOUT_S
+        liveness = ["--unreachable-after", str(CLUSTER_SCALE_UNREACHABLE_S)]
+    if lossy:
+        checkpoint = CLUSTER_KILL_AFTER  # the victim's first sink line
+    th = "0.75" if lossy else "1.0"
+    n = len(engines)
+    master = ["master", "--port", str(port), "--workers", str(n), *script,
+              "--th-allreduce", th, "--th-reduce", th, "--th-complete", th,
+              "--max-round", str(rounds), "--timeout", str(timeout),
+              *liveness]
+    if master_engine == "native":
+        master.append("--native")
+    else:
+        master += ["--trace-file", os.path.join(trace_dir,
+                                                f"{part}-master.jsonl")]
+    workers = []
+    for i, engine in enumerate(engines):
+        argv = ["worker", "--master-port", str(port), "--checkpoint",
+                str(checkpoint), "--timeout", str(timeout + 30),
+                "--verbose", *liveness]
+        if not lossy:
+            argv += ["--assert-multiple", str(n)]
+        if engine == "native":
+            argv.append("--native")
+        else:
+            argv += ["--data-size", script[1], "--assert-honest",
+                     "--trace-file", os.path.join(trace_dir,
+                                                  f"{part}-w{i}.jsonl")]
+            if CLUSTER_DEVICE is not None:
+                argv += ["--device", CLUSTER_DEVICE]
+        workers.append((engine, argv))
+    return master, workers
+
+
+class ClusterProc:
+    """One ``cli`` process with its output lines read on a thread (a pipe
+    left undrained blocks its writer), ``on_line(proc, line)`` called on
+    each."""
+
+    def __init__(self, argv: list, on_line=None):
+        import threading
+        self.argv = argv
+        self.lines: list = []
+        self.p = subprocess.Popen(
+            [sys.executable, "-u", "-m", "akka_allreduce_tpu_torch.cli",
+             *argv], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.on_line = on_line
+        self.t_first = None  # when the first line arrived
+        self.t = threading.Thread(target=self._read, daemon=True)
+        self.t.start()
+
+    def _read(self) -> None:
+        for line in self.p.stdout:
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
+            self.lines.append(line.rstrip("\n"))
+            if self.on_line is not None:
+                self.on_line(self, self.lines[-1])
+
+    def wait(self, timeout: float) -> int:
+        rc = self.p.wait(timeout=timeout)
+        self.t.join(timeout=10)
+        return rc
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait(timeout=30)
+
+
+def read_trace(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def worker_result(proc, engine: str, trace: list, chunks: list) -> dict:
+    """A worker process's line: exit code, the report it printed (card
+    workers), its launches against its trace's implied count
+    (``reduce_fired`` plus, per ``catchup_force_complete``, the chunks
+    of its block), its sink's MB/s and its round times."""
+    out = {"engine": engine, "rc": proc.p.returncode,
+           "sink_mb_per_s": [float(m.group(1)) for m in (
+               re.search(r"at ([0-9.]+) MB/s", ln) for ln in proc.lines)
+               if m]}
+    for ln in proc.lines:
+        m = re.match(r"worker -?\d+: report (\{.*\})$", ln)
+        if m:
+            out.update(json.loads(m.group(1)))
+    if engine == "native":
+        out["native_lines"] = [ln for ln in proc.lines if "native" in ln]
+        return out
+    kinds = collections.Counter(e["kind"] for e in trace)
+    rank = out.get("rank", -1)
+    out["reduce_fired"] = kinds["reduce_fired"]
+    out["catchups"] = kinds["catchup_force_complete"]
+    out["expected_launches"] = kinds["reduce_fired"] + (
+        kinds["catchup_force_complete"] * chunks[rank] if rank >= 0 else 0)
+    done = [e["ts"] for e in trace if e["kind"] == "round_complete"]
+    out["rounds_flushed"] = len(done)
+    out["worker_rounds_per_s"] = ((len(done) - 1) / (done[-1] - done[0])
+                                  if len(done) > 1 and done[-1] > done[0]
+                                  else None)
+    return out
+
+
+def cluster_run(torch, part: str, n_params: int, trace_dir: str) -> dict:
+    """Phase 20's part ``part``: the master, then at once its workers
+    (they retry the dial until the master listens), as ``python -m
+    akka_allreduce_tpu_torch.cli`` processes; in (e) the
+    worker that joins as rank 1 is SIGKILLed once its sink printed round
+    ``CLUSTER_KILL_AFTER``'s checkpoint. Every process is stopped before
+    this returns. Checks: the master's rounds, every worker's exit code,
+    every card worker's launches against its trace."""
+    import signal
+
+    from akka_allreduce_tpu_torch.config import block_ranges, num_chunks
+    from akka_allreduce_tpu_torch.protocol.remote import free_port
+    port = free_port()
+    margv, wargvs = cluster_argvs(part, n_params, port, trace_dir)
+    n = len(wargvs)
+    size = int(margv[margv.index("--data-size") + 1])
+    chunk = int(margv[margv.index("--max-chunk-size") + 1])
+    rounds = int(margv[margv.index("--max-round") + 1])
+    chunks = [num_chunks(hi - lo, chunk) for lo, hi in block_ranges(size, n)]
+    killed = {}
+
+    def on_worker_line(proc, line):
+        if part != "e" or killed:
+            return
+        if line == f"worker: joined as rank {CLUSTER_KILL_RANK}":
+            proc.victim = True
+        if getattr(proc, "victim", False) and " MB in " in line:
+            os.kill(proc.p.pid, signal.SIGKILL)
+            killed["argv_index"] = procs.index(proc)
+
+    t0 = time.perf_counter()
+    master = ClusterProc(margv)
+    procs: list = []
+    try:
+        for _, argv in wargvs:
+            procs.append(ClusterProc(argv, on_worker_line))
+        timeout = int(margv[margv.index("--timeout") + 1]) + 60
+        master_rc = master.wait(timeout)
+        t_master = time.perf_counter()
+        rcs = [p.wait(timeout) for p in procs]
+    finally:
+        for p in procs + [master]:
+            p.kill()
+    m_rounds = [int(m.group(1)) for m in (
+        re.match(r"master: (\d+)/\d+ rounds", ln) for ln in master.lines)
+        if m]
+    downs = [int(m.group(1)) for m in (
+        re.search(r"worker down at round (\d+)", ln) for ln in master.lines)
+        if m]
+    mtrace = read_trace(os.path.join(trace_dir, f"{part}-master.jsonl"))
+    starts = [e["ts"] for e in mtrace if e["kind"] == "round_start"]
+    workers = [worker_result(p, engine, read_trace(os.path.join(
+        trace_dir, f"{part}-w{i}.jsonl")), chunks)
+        for i, (p, (engine, _)) in enumerate(zip(procs, wargvs))]
+    # rounds/s on the master's clock: round 0's start to round R's (the
+    # R rounds before it completed); the C++ master keeps no trace, so
+    # there the card workers' flush clock (rank 0's first to last)
+    round_s = None
+    if len(starts) > rounds:
+        run_s = starts[rounds] - starts[0]
+        clock = "master"
+        round_s = [b - a for a, b in zip(starts, starts[1:rounds + 1])]
+    else:
+        card = [w for w in workers if w.get("worker_rounds_per_s")]
+        run_s = (rounds / card[0]["worker_rounds_per_s"]) if card else None
+        clock = "worker"
+    card = [w for w in workers if w["engine"] == "card"]
+    got = {
+        "part": part, "argv_master": margv, "engines": [e for e, _ in wargvs],
+        "master_rc": master_rc, "rounds": m_rounds[-1] if m_rounds else None,
+        "max_round": rounds, "downs_at_round": downs, "clock": clock,
+        "run_s": run_s, "round_s": round_s if rounds <= 8 else None,
+        "rounds_per_s": rounds / run_s if run_s else None,
+        "mb_per_s": size * 4 * rounds / run_s / 1e6 if run_s else None,
+        "wall_s": time.perf_counter() - t0,
+        "master_listening_s": (master.t_first - t0 if master.t_first
+                               else None),
+        "master_exit_s": t_master - t0,
+        "worker_rcs": rcs, "workers": workers,
+        "killed_worker": killed.get("argv_index"),
+        "launches": sum(w.get("masked_reduce_launches", 0) for w in card)}
+    if part == "d":
+        # per worker and round, from the shapes: the frames it sends to
+        # its one peer (its chunks of the peer's block, and its block's
+        # reduced chunks), 256 KB each
+        got["frames_per_worker_round"] = {
+            f"w{r}": {"scatter": chunks[1 - r], "reduce": chunks[r],
+                      "bytes": 4 * (block_ranges(size, n)[1 - r][1]
+                                    - block_ranges(size, n)[1 - r][0]
+                                    + block_ranges(size, n)[r][1]
+                                    - block_ranges(size, n)[r][0])}
+            for r in range(n)}
+    emit("cluster", **got)
+    fail = []
+    if master_rc != 0 or got["rounds"] != rounds:
+        fail.append(f"master rc {master_rc}, {got['rounds']}/{rounds} "
+                    f"rounds: {master.lines[-5:]}")
+    for i, w in enumerate(workers):
+        if part == "e" and i == killed.get("argv_index"):
+            if w["rc"] != -signal.SIGKILL:
+                fail.append(f"worker {i} was killed, rc {w['rc']}")
+            continue
+        if w["rc"] != 0:
+            fail.append(f"worker {i} ({w['engine']}) rc {w['rc']}: "
+                        f"{procs[i].lines[-8:]}")
+        elif w["engine"] == "card":
+            if "masked_reduce_launches" not in w:
+                fail.append(f"worker {i} printed no report")
+            elif CLUSTER_DEVICE is None and (
+                    w["masked_reduce_launches"] != w["expected_launches"]
+                    or not w["masked_reduce_launches"]):
+                fail.append(f"worker {i}: {w['masked_reduce_launches']} "
+                            f"masked-reduce launches, its trace implies "
+                            f"{w['expected_launches']}")
+    if part == "e" and (not killed or len(downs) != 1):
+        fail.append(f"rank {CLUSTER_KILL_RANK} killed: {bool(killed)}, "
+                    f"downs {downs}")
+    if fail:
+        raise AssertionError(f"phase 20 ({part}): " + "; ".join(fail))
+    return got
+
+
+def message_copies(torch, device: str) -> dict:
+    """The per-message device copies a card worker makes, host-timed as
+    the worker makes them (median of ``CLUSTER_COPY_REPS``): encoding a
+    chunk view of a round's input (``wire.encode``: the device-to-host
+    copy, which waits for the device) and receiving one (``wire.decode``
+    then the store's ``copy_`` into a staging row, pageable host to
+    device), at (a)'s 3 floats and (d)'s 65,536, beside the same on CPU
+    tensors."""
+    from akka_allreduce_tpu_torch.messages import ScatterBlock
+    from akka_allreduce_tpu_torch.protocol import wire
+    rows = {}
+    for dev in (device, "cpu"):
+        for elems in (3, BUCKET_ELEMS):
+            data = torch.arange(4 * elems, dtype=torch.float32, device=dev)
+            row = torch.zeros(elems, dtype=torch.float32, device=dev)
+            msg = ScatterBlock(data[elems:2 * elems], 0, 1, 1, 0)
+            addr = ("127.0.0.1", 1)
+            enc, dec = [], []
+            for _ in range(CLUSTER_COPY_REPS):
+                t = time.perf_counter()
+                buf = wire.encode(msg, lambda ref: addr)
+                enc.append(time.perf_counter() - t)
+                t = time.perf_counter()
+                row.copy_(wire.decode(buf, lambda a: None).value)
+                dec.append(time.perf_counter() - t)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            if not torch_equal(row.cpu(), data[elems:2 * elems].cpu()):
+                raise AssertionError(f"phase 20: a {elems}-float chunk "
+                                     f"did not survive the codec on {dev}")
+            rows[f"{dev}:{elems}"] = {
+                "encode_us": statistics.median(enc) * 1e6,
+                "decode_store_us": statistics.median(dec) * 1e6}
+    return rows
+
+
+def phase_cluster(torch, n_params: int) -> dict:
+    """Phase 20 (see the module docstring); returns the parts' lines and
+    the card workers' masked-reduce launches."""
+    import contextlib
+    import gc
+    import io
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.native import build_library
+    t_phase = time.perf_counter()
+    gc.collect()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    build_library()  # once, before the processes that load it (main()
+    # has built it in phase 2; a script that calls this phase alone has not)
+    emit("cluster_build", seconds=time.perf_counter() - t)
+    lines = {"copies": message_copies(torch, CLUSTER_DEVICE or DEVICE)}
+    emit("cluster", part="copies", **lines["copies"])
+    with tempfile.TemporaryDirectory(prefix="cluster-") as trace_dir:
+        for part in CLUSTER_PARTS:
+            lines[part] = cluster_run(torch, part, n_params, trace_dir)
+    # (f) the C++ engine in one process, on the host, at (a)'s config
+    argv = ["emulate", "--engine", "native", "--workers", "4",
+            *CLUSTER_SCRIPT, "--th-complete", "1.0", "--assert-multiple",
+            "4", "--max-round", str(CLUSTER_ROUNDS["a"])]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    m = re.search(r"completed (\d+)/(\d+) rounds in ([0-9.]+)s \(([0-9,]+) "
+                  r"rounds/s, (\d+) flushes, native engine, host\)",
+                  out.getvalue())
+    got = {"part": "f", "argv": argv, "rc": rc, "line": out.getvalue().strip()}
+    if m:
+        got.update(rounds=int(m.group(1)), seconds=float(m.group(3)),
+                   rounds_per_s=int(m.group(1)) / float(m.group(3))
+                   if float(m.group(3)) > 0 else None,
+                   flushes=int(m.group(5)))
+    emit("cluster", **got)
+    if rc != 0 or not m or got["rounds"] != CLUSTER_ROUNDS["a"]:
+        raise AssertionError(f"phase 20 (f): {got}")
+    lines["f"] = got
+    seconds = time.perf_counter() - t_phase
+    emit("cluster_phase_seconds", seconds=seconds, limit_s=CLUSTER_SECONDS)
+    if seconds > CLUSTER_SECONDS:
+        raise AssertionError(f"phase 20 took {seconds:.1f} s, over its "
+                             f"{CLUSTER_SECONDS} s")
+    return {"lines": lines,
+            "launches": sum(lines[p]["launches"] for p in CLUSTER_PARTS)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3671,12 +4069,20 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    # 2. build
+    # 2. build (the C++ host library of phase 20 beside the nvcc builds)
+    import concurrent.futures
+
+    from akka_allreduce_tpu_torch import native
     t0 = time.perf_counter()
-    info = build.build_all()
-    for kernel in build.KERNELS:
-        build.load(kernel)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (native.build_library(),
+                                    time.perf_counter() - t0)[1])
+        info = build.build_all()
+        for kernel in build.KERNELS:
+            build.load(kernel)
+        host_seconds = host.result()
     emit("build", seconds=time.perf_counter() - t0, kernels=info,
+         native_seconds=host_seconds,
          mma_kernels=check_mma_spills(info),
          paged_kernels=ptxas_kernels(info["paged_attention"]["ptxas"]))
 
@@ -3747,10 +4153,13 @@ def main() -> int:
 
     # 19. the protocol plane: emulate's code path on the card
     protocol = phase_protocol(torch, trained["params"])
+    # 20. the protocol plane across processes: cli master / worker
+    cluster = phase_cluster(torch, trained["params"])
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] for k in SYNC_KERNELS}
-    sync_launches["masked_reduce"] += protocol["launches"]
+    sync_launches["masked_reduce"] += protocol["launches"] \
+        + cluster["launches"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"]
                           + sum(sp_launches[d]["transport"]
@@ -3793,6 +4202,7 @@ def main() -> int:
             # phase 19's chunk reduce: a 65,536-wide slab read in place
             strided = sync["masked_reduce_strided"]
             kernels[-1].update(protocol_launches=protocol["launches"],
+                               cluster_launches=cluster["launches"],
                                strided_ms=strided["ms"],
                                strided_plain_ms=strided["plain_ms"],
                                strided_bound_ms=strided["bound_ms"])

@@ -1143,3 +1143,82 @@ def test_phase19_expected_launches_count_catchup_chunks():
         types.SimpleNamespace(scatter_block_buf=types.SimpleNamespace(
             num_chunks=k)) for k in (3, 7)])
     assert chip_smoke.expected_reduce_launches(tracer, cluster) == 5 + 7 + 3
+
+
+def test_phase20_argvs():
+    """Each part's processes: (a) 4 card workers under the Python master
+    (traced), (b) two of them C++ workers, (c) the C++ master, (d) phase
+    19 (c)'s shape with a 120 s liveness window on every process, (e)
+    lossy with the checkpoint at the kill round; every card worker checks
+    every flush, traces, and prints its report."""
+    parts = {p: chip_smoke.cluster_argvs(p, 541_130_752, 9, "/t")
+             for p in chip_smoke.CLUSTER_PARTS}
+    for part, (master, workers) in parts.items():
+        engines = chip_smoke.CLUSTER_PARTS[part][1]
+        assert [e for e, _ in workers] == engines
+        assert master[master.index("--workers") + 1] == str(len(engines))
+        assert ("--native" in master) == (part == "c")
+        assert ("--trace-file" in master) == (part != "c")
+        for engine, argv in workers:
+            assert argv[:3] == ["worker", "--master-port", "9"]
+            assert "--verbose" in argv and "--device" not in argv
+            if engine == "native":
+                assert "--native" in argv and "--trace-file" not in argv
+            else:
+                assert "--assert-honest" in argv and "--trace-file" in argv
+            assert ("--assert-multiple" in argv) == (part != "e")
+    d_master, d_workers = parts["d"]
+    assert d_master[d_master.index("--data-size") + 1] == str(8257 * 65536)
+    assert d_master[d_master.index("--max-chunk-size") + 1] == "65536"
+    for argv in [d_master] + [a for _, a in d_workers]:
+        assert argv[argv.index("--unreachable-after") + 1] == "120"
+    e_master, e_workers = parts["e"]
+    assert e_master[e_master.index("--th-reduce") + 1] == "0.75"
+    assert all(a[a.index("--checkpoint") + 1] == "10" for _, a in e_workers)
+    assert [parts[p][0][parts[p][0].index("--max-round") + 1]
+            for p in "abcde"] == ["100", "25", "25", "3", "25"]
+
+
+def test_phase20_worker_launches_from_its_trace():
+    """A card worker's expected launches: its trace's reduces, plus its
+    block's chunks for each force-completed round."""
+    proc = types.SimpleNamespace(
+        p=types.SimpleNamespace(returncode=0),
+        lines=["worker: joined as rank 1", "0.0 MB in 0.1s at 0.050 MB/s",
+               "worker 1: 3 outputs",
+               'worker 1: report {"rank": 1, "outputs": 3, '
+               '"masked_reduce_launches": 12}'])
+    trace = [{"kind": "reduce_fired", "ts": 0.0}] * 5 + [
+        {"kind": "catchup_force_complete", "ts": 0.0},
+        {"kind": "round_complete", "ts": 1.0},
+        {"kind": "round_complete", "ts": 2.0}]
+    got = chip_smoke.worker_result(proc, "card", trace, [4, 7])
+    assert got["expected_launches"] == 5 + 7
+    assert got["masked_reduce_launches"] == 12
+    assert got["sink_mb_per_s"] == [0.05]
+    assert got["worker_rounds_per_s"] == 1.0
+
+
+def test_phase20_rehearsal(monkeypatch, capfd):
+    """Phase 20 at a tiny size on the CPU (card workers on ``--device
+    cpu``, so no launch is counted): the mixed engines and the kill part
+    pass their checks, (f) runs the C++ engine."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "CLUSTER_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "CLUSTER_COPY_REPS", 3)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_PARTS", {
+        "b": chip_smoke.CLUSTER_PARTS["b"],
+        "e": chip_smoke.CLUSTER_PARTS["e"]})
+    monkeypatch.setattr(chip_smoke, "CLUSTER_ROUNDS",
+                        {"a": 20, "b": 12, "e": 16})
+    out = chip_smoke.phase_cluster(torch, n_params=1000)
+    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()]
+    parts = [ln["part"] for ln in lines if ln["phase"] == "cluster"]
+    assert parts == ["copies", "b", "e", "f"]
+    assert out["lines"]["b"]["rounds"] == 12
+    assert out["lines"]["b"]["worker_rcs"] == [0, 0, 0, 0]
+    e = out["lines"]["e"]
+    assert e["rounds"] == 16 and len(e["downs_at_round"]) == 1
+    assert sorted(e["worker_rcs"]) == [-9, 0, 0, 0]
+    assert out["lines"]["f"]["rounds"] == 20
+    assert out["launches"] == 0

@@ -9,9 +9,13 @@ its report carries losses, times and launch counts (0: the CPU runs the
 kernels' plain versions); without ``--device cpu`` and without CUDA it
 raises. ``emulate --device cpu`` prints the JAX command's lines
 (``completed N/N rounds ...``, ``fuzz: ... 0 violations``), refuses what
-it refuses with exit code 2 (and ``--engine native``, ROADMAP A4 part
-3), and without ``--device cpu`` and without CUDA raises. TF32 is off
-for CUDA matmuls (``allow_tf32 = False``).
+it refuses with exit code 2, and without ``--device cpu`` and without
+CUDA raises; ``emulate --engine native`` runs the C++ engine on the host
+and prints its line. ``master`` and ``worker`` take the JAX commands'
+flags with their defaults and choices (the worker adds ``--device`` and
+``--assert-honest``); a C++ engine given ``--device`` exits 2, and a
+Python worker without ``--device cpu`` and without CUDA raises. TF32 is
+off for CUDA matmuls (``allow_tf32 = False``).
 """
 
 import argparse
@@ -202,10 +206,76 @@ def test_emulate_fuzz_prints_zero_violations(capsys):
       "--th-allreduce", "0.9", "--th-reduce", "0.6", "--th-complete", "0.6"],
      "needs ceil(0.9*4)=4 workers"),
     (["--fuzz", "2", "--trace-file", "t.jsonl"], "writes no trace"),
-    (["--engine", "native"], "A4, part 3")])
+    (["--engine", "native", "--trace-file", "t.jsonl"],
+     "--engine native does not produce traces"),
+    (["--engine", "native"], "--device cpu cannot be used with --engine "
+                             "native")])
 def test_emulate_refusals_exit_2(capsys, flags, match):
     assert cli.main(["emulate", "--device", "cpu", *flags]) == 2
     assert match in capsys.readouterr().err
+
+
+def test_emulate_native_engine_runs_on_the_host(capsys):
+    """``emulate --engine native`` (refused before the C++ engines were
+    ported) runs the reference's script config on the C++ engine, with
+    ``output == 4 x input`` checked on every flush inside the engine, and
+    says in its line that it ran on the host."""
+    argv = [a for a in EMULATE_SCRIPT if a not in ("--device", "cpu")]
+    assert cli.main(argv + ["--engine", "native"]) == 0
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("completed 100/100 rounds in ")
+    assert line.endswith(" rounds/s, 404 flushes, native engine, host)")
+
+
+def _subparser(parser, name):
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            return action.choices[name]
+    raise KeyError(name)
+
+
+def _flags(parser) -> dict:
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.type,
+                     a.nargs, a.const)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("command", ["master", "worker"])
+def test_master_and_worker_flags_match_the_jax_commands(command):
+    from akka_allreduce_tpu import cli as jax_cli
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers(dest="cmd")
+    getattr(jax_cli, f"_add_{command}")(sub)
+    want = _flags(_subparser(jax_parser, command))
+    got = _flags(_subparser(cli.build_parser(), command))
+    assert {k: got[k] for k in want} == want
+    extra = {"master": set(), "worker": {"device", "assert_honest"}}
+    assert set(got) - set(want) == extra[command]
+    if command == "worker":
+        assert got["device"][1] is None  # the engine picks: cuda or none
+
+
+@pytest.mark.parametrize("argv", [
+    ["worker", "--native", "--device", "cpu"],
+    ["worker", "--native", "--device", "cuda"],
+    ["worker", "--native", "--assert-honest"],
+    ["emulate", "--engine", "native", "--device", "cuda"]])
+def test_native_engines_refuse_device_flags(capsys, argv):
+    assert cli.main(argv) == 2
+    assert "error: " in capsys.readouterr().err
+
+
+def test_master_takes_no_device(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["master", "--device", "cpu"])
+    assert exc.value.code == 2
+
+
+def test_worker_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal needs one without")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main(["worker", "--master-port", "9", "--timeout", "1"])
 
 
 def test_emulate_without_cuda_raises():

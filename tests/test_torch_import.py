@@ -4,8 +4,11 @@ Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
 attention's, the peer-memory allreduce's, the round pacer's, the
 deadline trainer's, the collective autotuner's, the rank transport's,
-the bench rows' and the protocol plane's modules included) and finds neither ``jax`` nor
-``akka_allreduce_tpu`` in ``sys.modules``; a rank process that
+the bench rows' and the protocol plane's modules included, the wire
+codec, the TCP router, the remote runners, the C++ cluster and the
+``native`` loader among them) and finds neither ``jax`` nor
+``akka_allreduce_tpu`` in ``sys.modules``, nor, once it has loaded the
+port's C++ library, the JAX package's library among its mappings; a rank process that
 ``spawn_ranks`` starts from this (JAX-importing) test process holds
 neither either; and an AST scan of the package's sources finds no
 import statement naming either.
@@ -67,7 +70,12 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.protocol.worker",
             "akka_allreduce_tpu_torch.protocol.master",
             "akka_allreduce_tpu_torch.protocol.cluster",
-            "akka_allreduce_tpu_torch.protocol.explorer"} <= set(mods)
+            "akka_allreduce_tpu_torch.protocol.explorer",
+            "akka_allreduce_tpu_torch.protocol.wire",
+            "akka_allreduce_tpu_torch.protocol.tcp",
+            "akka_allreduce_tpu_torch.protocol.remote",
+            "akka_allreduce_tpu_torch.protocol.native_cluster",
+            "akka_allreduce_tpu_torch.native"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -75,6 +83,11 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'akka_allreduce_tpu' "
         "or m.startswith('akka_allreduce_tpu.'))\n"
+        "from akka_allreduce_tpu_torch.native import load_library\n"
+        "load_library()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad += sorted({ln.split()[-1] for ln in maps.splitlines()\n"
+        "               if '/akka_allreduce_tpu/native/' in ln})\n"
         "print(json.dumps(bad))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -132,7 +145,9 @@ def test_ast_scan_finds_no_jax_import():
         "parallel/ring_attention", "ops/autotune", "bench", "config",
         "messages", "buffers/base", "buffers/scattered", "buffers/reduced",
         "runtime/tracing", "protocol/transport", "protocol/worker",
-        "protocol/master", "protocol/cluster", "protocol/explorer")} <= scanned
+        "protocol/master", "protocol/cluster", "protocol/explorer",
+        "protocol/wire", "protocol/tcp", "protocol/remote",
+        "protocol/native_cluster", "native/__init__")} <= scanned
 
 
 def test_a_rank_that_loads_the_transport_loads_no_jax():
