@@ -1,10 +1,11 @@
-"""Command line of the port: ``serve``, ``train``, ``emulate``, ``master``
-and ``worker``.
+"""Command line of the port: ``serve``, ``train``, ``generate``, ``eval``,
+``emulate``, ``master`` and ``worker``.
 
 Counterparts of ``akka_allreduce_tpu/cli.py serve``, ``train``,
-``emulate``, ``master`` and ``worker`` for the flags the port's slices
-carry. All that hold tensors run on ``cuda`` unless ``--device cpu`` is
-given, and raise when CUDA is asked for and absent; the C++ host engines
+``generate``, ``eval``, ``emulate``, ``master`` and ``worker`` for the
+flags the port's slices carry. All that hold tensors run on ``cuda``
+unless ``--device cpu`` is given, and raise when CUDA is asked for and
+absent; the C++ host engines
 (``master --native``, ``worker --native``, ``emulate --engine native``)
 hold none and refuse ``--device``.
 
@@ -45,6 +46,21 @@ rounds in flight::
         [--grad-schedule hierarchical | auto --plan-dir DIR] \\
         [--deadline-ms 50 --straggle-prob 0.35 --max-lag 1]
 
+``train`` takes any of the JAX chain's optimizer families (``--optimizer
+adamw | lion | adafactor | sgd``), keeps EMA weights (``--ema-decay``,
+saved as the checkpoint's ``ema`` item), accumulates on the overlapped
+schedule (``--grad-accum K --accum-schedule overlap``), runs ``N`` steps
+a dispatch as one CUDA graph replay (``--steps-per-dispatch N``, one
+rank), writes a Prometheus metrics snapshot (``--metrics-file``) and a
+``torch.profiler`` device trace (``--xprof-dir``). ``generate`` decodes
+greedily from a checkpoint and ``eval`` scores one over a corpus, either
+from its EMA weights with ``--use-ema``::
+
+    python -m akka_allreduce_tpu_torch.cli generate --ckpt-dir DIR \\
+        --max-seq 2048 --prompt-tokens 1,2,3 --tokens 16 [--use-ema]
+    python -m akka_allreduce_tpu_torch.cli eval --ckpt-dir DIR \\
+        --data-file corpus.bin --max-seq 2048 [--use-ema]
+
 ``emulate`` runs the source paper's protocol plane in one process: a
 master and N workers on the deterministic router
 (``protocol/cluster.py``), the payloads, staging rows and chunk reduces
@@ -73,7 +89,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
+import math
+import os
 import sys
 import time
 
@@ -247,9 +266,56 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--grad-accum", type=int, default=1, metavar="K",
                    help="split the batch into K microbatches, summing "
                         "their gradients before one update")
+    p.add_argument("--accum-schedule", choices=("deferred", "overlap"),
+                   default="deferred",
+                   help="with --grad-accum K > 1 across ranks: deferred = "
+                        "one sync after the microbatches; overlap = sync "
+                        "each microbatch's grads as produced, each folded "
+                        "in one microbatch later (losses match deferred "
+                        "to f32 summation order; the syncs run on the "
+                        "step's stream)")
     p.add_argument("--optimizer", default="adamw",
                    choices=("adamw", "adafactor", "sgd", "lion"),
-                   help="optimizer family; only adamw is ported yet")
+                   help="optimizer family (models/train.py "
+                        "make_optimizer): adafactor = factored second "
+                        "moments; lion = half the state of adam; sgd = "
+                        "momentum via --sgd-momentum")
+    p.add_argument("--sgd-momentum", type=float, default=0.9,
+                   help="sgd only: momentum coefficient (0 disables; "
+                        "> 0 uses nesterov)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="keep an EMA of the post-update params "
+                        "(ema = d*ema + (1-d)*params per step), saved "
+                        "as the checkpoint's own 'ema' item — decode "
+                        "or eval them with --use-ema. 0 disables")
+    p.add_argument("--metrics-file", default=None, metavar="PATH",
+                   help="write the telemetry-registry snapshot "
+                        "(Prometheus text: train_steps_total / "
+                        "train_tokens_total / train_loss plus the "
+                        "train_step host/device/dispatch-gap "
+                        "histograms) every --metrics-interval and once "
+                        "at exit. Each step then blocks on its loss "
+                        "readback so the wall delta after the dispatch "
+                        "is the device time: a small pipelining cost "
+                        "(rank 0 only)")
+    p.add_argument("--metrics-interval", type=float, default=5.0,
+                   help="seconds between --metrics-file snapshots")
+    p.add_argument("--xprof-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (Chrome trace "
+                        "JSON: host ops and, on the card, CUDA kernels) "
+                        "covering K steps starting at step 2 — step 1 is "
+                        "excluded so warm-up does not drown the "
+                        "timeline (rank 0 only)")
+    p.add_argument("--xprof-steps", type=int, default=3, metavar="K",
+                   help="how many steps the --xprof-dir trace covers")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="run N train steps per host dispatch: on the card "
+                        "one CUDA graph holding N steps, replayed once a "
+                        "chunk (models/train.py make_multi_step); on the "
+                        "cpu the same steps in a loop. One rank, exact "
+                        "path only (no --deadline-ms); a tail shorter "
+                        "than N runs step by step; checkpoints land at "
+                        "chunk boundaries")
     # -- checkpoints, data, logging, device
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory; resumes from the latest "
@@ -278,6 +344,315 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                    help="print a progress line every N steps")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without CUDA raises")
+
+
+# -- generate / eval: consumers of a checkpoint ---------------------------
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    """Model-shape flags shared by every checkpoint-consuming command
+    (generate/eval must describe the trained model exactly)."""
+    p.add_argument("--use-ema", action="store_true",
+                   help="restore the checkpoint's EMA (Polyak-averaged) "
+                        "weights instead of the raw ones (needs a run "
+                        "trained with --ema-decay)")
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--n-layers", type=int, default=2)
+    p.add_argument("--n-heads", type=int, default=4)
+    p.add_argument("--d-ff", type=int, default=512)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--kv-heads", type=int, default=0,
+                   help="KV heads for grouped-query attention "
+                        "(0 = multi-head: one per query head)")
+    p.add_argument("--rope", action="store_true",
+                   help="rotary position embeddings instead of a learned "
+                        "positional table")
+    p.add_argument("--ffn", choices=("gelu", "swiglu"), default="gelu",
+                   help="dense FF flavor (swiglu = Llama-style gated FF)")
+    p.add_argument("--attn-window", type=int, default=0,
+                   help="sliding-window causal attention: each position "
+                        "sees itself + N-1 predecessors (0 = full causal)")
+    p.add_argument("--tie-embeddings", action="store_true",
+                   help="output head reuses the input embedding "
+                        "(GPT-2-style weight tying)")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="mixture-of-experts layers: not ported (ROADMAP "
+                        "A7); > 0 exits 2")
+    p.add_argument("--moe-every", type=int, default=1)
+    p.add_argument("--capacity-factor", type=float, default=1.25)
+    p.add_argument("--router-k", type=int, default=2)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda without CUDA raises")
+
+
+def _build_model_config(args: argparse.Namespace, max_seq: int):
+    """args (as declared by _add_model_args) -> TransformerConfig (dense:
+    ``--moe-experts`` is refused before this)."""
+    from akka_allreduce_tpu_torch.models.transformer import \
+        TransformerConfig
+    return TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, max_seq=max_seq,
+        n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
+        attn_window=args.attn_window or None,
+        tie_embeddings=args.tie_embeddings)
+
+
+def _refuse_moe(args: argparse.Namespace) -> bool:
+    if args.moe_experts > 0:
+        print("error: --moe-experts > 0: mixture-of-experts models are "
+              "not ported (ROADMAP A7)", file=sys.stderr)
+        return True
+    return False
+
+
+def _restore_params(args: argparse.Namespace, mcfg, device
+                    ) -> "tuple | int":
+    """Build a params template and restore ``args.ckpt_dir``'s weights
+    into it — params ONLY (``CheckpointManager.restore_params``), so
+    decode/eval work on checkpoints from any ``--optimizer`` family or
+    ``--ema-decay`` setting. With ``--use-ema`` the checkpoint's ``ema``
+    item is restored instead; a checkpoint without one exits 2 (no fall
+    back to the raw weights). Returns (step0, params) or an exit code
+    int (message printed)."""
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.runtime.checkpoint import (
+        CheckpointConfig, CheckpointManager)
+
+    params = init_transformer(torch.Generator(device).manual_seed(0), mcfg,
+                              device)
+    item = "ema" if getattr(args, "use_ema", False) else "params"
+    try:
+        mgr = CheckpointManager(CheckpointConfig(args.ckpt_dir))
+        step0, params, _extra = mgr.restore_params(params, item=item)
+        step0 += 1  # restore_or_init convention: resume step index
+    except FileNotFoundError:
+        print(f"error: no checkpoint found in {args.ckpt_dir}",
+              file=sys.stderr)
+        return 2
+    except Exception as e:
+        hint = ("trained without --ema-decay?" if item == "ema" else
+                "wrong --d-model/--vocab/--max-seq/...?")
+        print(f"error: cannot restore item {item!r} from "
+              f"{args.ckpt_dir} ({hint}): {e}", file=sys.stderr)
+        return 2
+    print(f"restored step {step0 - 1} ({item}) from {args.ckpt_dir}",
+          file=sys.stderr)
+    return step0, params
+
+
+def _add_generate(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "generate", help="decode from a trained checkpoint (KV-cache "
+        "incremental greedy decoding, models/generate.py)")
+    p.add_argument("--ckpt-dir", required=True)
+    _add_model_args(p)
+    p.add_argument("--max-seq", type=int, required=True,
+                   help="the trained model's max_seq (= train's --seq): "
+                        "the positional table's shape, which the "
+                        "checkpoint restore must match; prompt + --tokens "
+                        "must fit inside it")
+    p.add_argument("--prompt", default=None,
+                   help="text prompt, consumed byte-level (vocab 256 "
+                        "models)")
+    p.add_argument("--prompt-tokens", default=None,
+                   help="comma-separated token ids (any vocab)")
+    p.add_argument("--tokens", type=int, default=64,
+                   help="tokens to generate")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy (sampling, > 0, is not ported: "
+                        "ROADMAP A6)")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="sample only from the k highest-probability "
+                        "tokens (needs --temperature > 0; ROADMAP A6)")
+    p.add_argument("--top-p", type=float, default=None,
+                   help="nucleus sampling (needs --temperature > 0; "
+                        "ROADMAP A6)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--raw", action="store_true",
+                   help="print token ids instead of decoding bytes")
+    p.add_argument("--draft-ckpt-dir", default=None,
+                   help="speculative decoding with a draft model: not "
+                        "ported (ROADMAP A6)")
+    p.add_argument("--draft-d-model", type=int, default=0)
+    p.add_argument("--draft-n-layers", type=int, default=0)
+    p.add_argument("--draft-n-heads", type=int, default=0)
+    p.add_argument("--draft-d-ff", type=int, default=0)
+    p.add_argument("--draft-kv-heads", type=int, default=0)
+    p.add_argument("--speculate-k", type=int, default=4,
+                   help="draft proposals verified per target pass")
+
+
+def _generate_prompt(args: argparse.Namespace) -> "list | int":
+    """The prompt's ids after the JAX command's checks, or an exit
+    code (message printed)."""
+    if (args.prompt is None) == (args.prompt_tokens is None):
+        print("error: exactly one of --prompt / --prompt-tokens",
+              file=sys.stderr)
+        return 2
+    if args.prompt is not None:
+        ids = list(args.prompt.encode())
+        if args.vocab < 256:
+            print(f"error: --prompt is byte-level but vocab={args.vocab}",
+                  file=sys.stderr)
+            return 2
+    else:
+        try:
+            ids = [int(x) for x in args.prompt_tokens.split(",") if x]
+        except ValueError:
+            print(f"error: bad --prompt-tokens {args.prompt_tokens!r}",
+                  file=sys.stderr)
+            return 2
+        if any(i < 0 or i >= args.vocab for i in ids):
+            print("error: prompt token out of vocab range", file=sys.stderr)
+            return 2
+    if not ids:
+        print("error: empty prompt", file=sys.stderr)
+        return 2
+    return ids
+
+
+def _generate_refusal(args: argparse.Namespace, n_prompt: int
+                      ) -> "str | None":
+    """The JAX command's checks of the decode flags, then the port's
+    refusals (sampling and speculation: ROADMAP A6); the message, or
+    None."""
+    max_seq = args.max_seq
+    if n_prompt + args.tokens > max_seq:
+        return (f"prompt ({n_prompt}) + --tokens ({args.tokens}) exceeds "
+                f"--max-seq {max_seq}")
+    if args.temperature < 0.0:
+        return f"--temperature must be >= 0, got {args.temperature}"
+    if (args.top_k is not None or args.top_p is not None) \
+            and args.temperature == 0.0:
+        return "--top-k/--top-p need --temperature > 0 (greedy ignores them)"
+    if args.top_k is not None and args.top_k < 1:
+        return f"--top-k must be >= 1, got {args.top_k}"
+    if args.top_p is not None and not 0.0 < args.top_p <= 1.0:
+        return f"--top-p must be in (0, 1], got {args.top_p}"
+    if args.draft_ckpt_dir and args.speculate_k < 1:
+        return f"--speculate-k must be >= 1, got {args.speculate_k}"
+    if args.draft_ckpt_dir \
+            and n_prompt + args.tokens + args.speculate_k > max_seq:
+        return (f"speculation needs --speculate-k headroom: prompt "
+                f"({n_prompt}) + --tokens ({args.tokens}) + k "
+                f"({args.speculate_k}) exceeds --max-seq {max_seq}")
+    if args.temperature > 0.0:
+        return ("--temperature > 0 (sampling, with --top-k / --top-p) is "
+                "not ported (ROADMAP A6); the port decodes greedily")
+    if args.draft_ckpt_dir:
+        return ("--draft-ckpt-dir (speculative decoding) is not ported "
+                "(ROADMAP A6)")
+    return None
+
+
+def _cmd_generate(args: argparse.Namespace) -> int:
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.models.generate import generate
+
+    ids = _generate_prompt(args)
+    if isinstance(ids, int):
+        return ids
+    refusal = _generate_refusal(args, len(ids))
+    if refusal is not None:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 2
+    if _refuse_moe(args):
+        return 2
+    device = resolve_device(args.device)
+    mcfg = _build_model_config(args, args.max_seq)
+    restored = _restore_params(args, mcfg, device)
+    if isinstance(restored, int):
+        return restored
+    _step0, params = restored
+    prompt = torch.tensor(ids, dtype=torch.int32, device=device)[None]
+    toks = generate(params, prompt, mcfg, steps=args.tokens)[0].tolist()
+    if args.raw or args.prompt_tokens is not None:
+        print(",".join(map(str, toks)))
+    else:
+        print(bytes(t for t in toks if t < 256
+                    ).decode("utf-8", errors="replace"))
+    return 0
+
+
+def _add_eval(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "eval", help="held-out perplexity of a trained checkpoint over a "
+        "corpus (sequential non-overlapping windows, each token once)")
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--data-file", required=True,
+                   help="byte-level file or .bin uint16 token corpus")
+    _add_model_args(p)
+    p.add_argument("--max-seq", type=int, required=True,
+                   help="the trained model's max_seq (eval windows use it "
+                        "as the window length)")
+    p.add_argument("--batch", type=int, default=8,
+                   help="windows per device batch")
+    p.add_argument("--max-windows", type=int, default=0,
+                   help="stop after this many windows (0 = whole corpus)")
+
+
+def _cmd_eval(args: argparse.Namespace) -> int:
+    from akka_allreduce_tpu_torch.data import eval_batches, load_corpus
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.models.train import (TrainConfig,
+                                                       select_local_attention)
+    from akka_allreduce_tpu_torch.models.transformer import \
+        next_token_loss_and_aux
+
+    try:
+        corpus = load_corpus(args.data_file)
+    except FileNotFoundError:
+        print(f"error: no such corpus {args.data_file}", file=sys.stderr)
+        return 2
+    if _refuse_moe(args):
+        return 2
+    mcfg = _build_model_config(args, args.max_seq)
+    if corpus.max_token() >= mcfg.vocab_size:
+        # out-of-range ids would index garbage embeddings and report NaN
+        # perplexity with no explanation
+        print(f"error: corpus holds token id {corpus.max_token()} but "
+              f"the model's vocab is {mcfg.vocab_size} — wrong "
+              f"--vocab for this checkpoint, or wrong corpus",
+              file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    restored = _restore_params(args, mcfg, device)
+    if isinstance(restored, int):
+        return restored
+    _step0, params = restored
+    attn = select_local_attention(TrainConfig(model=mcfg))
+
+    @torch.no_grad()
+    def batch_loss(tokens):
+        # pure cross-entropy: the loss sum folds the aux term in, which
+        # eval must not count
+        loss_sum, w_sum, aux = next_token_loss_and_aux(
+            params, tokens, mcfg, attn_fn=attn)
+        return loss_sum - aux["aux_loss"] * w_sum, w_sum
+
+    ce_total, tok_total, windows = 0.0, 0.0, 0
+    for arr in eval_batches(corpus, args.batch, args.max_seq):
+        if args.max_windows and windows >= args.max_windows:
+            break
+        if args.max_windows:
+            arr = arr[:args.max_windows - windows]
+        loss_sum, w_sum = batch_loss(torch.from_numpy(arr).to(device))
+        ce_total += float(loss_sum)
+        tok_total += float(w_sum)
+        windows += arr.shape[0]
+        print(f"eval: {windows} windows, {int(tok_total)} tokens",
+              file=sys.stderr)
+    if tok_total == 0:
+        print("error: corpus smaller than one window", file=sys.stderr)
+        return 2
+    nats = ce_total / tok_total
+    out = {"windows": windows, "tokens": int(tok_total),
+           "ce_nats_per_token": round(nats, 6),
+           "perplexity": round(math.exp(nats), 4)}
+    if corpus.vocab_size == 256:
+        out["bits_per_byte"] = round(nats / math.log(2), 6)
+    print(json.dumps(out))
+    return 0
 
 
 # -- emulate: the source paper's protocol plane ---------------------------
@@ -710,6 +1085,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_serve(sub)
     _add_train(sub)
+    _add_generate(sub)
+    _add_eval(sub)
     _add_emulate(sub)
     _add_master(sub)
     _add_worker(sub)
@@ -895,7 +1272,9 @@ def train_config(args: argparse.Namespace, seq: int,
         compute_dtype="bf16" if args.bf16 else "f32", remat=args.remat,
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
         total_steps=args.steps, clip_norm=args.clip_norm,
-        optimizer=args.optimizer, grad_accum=args.grad_accum,
+        optimizer=args.optimizer, sgd_momentum=args.sgd_momentum,
+        grad_accum=args.grad_accum, accum_schedule=args.accum_schedule,
+        ema_decay=args.ema_decay,
         attn_impl=attn_impl or "auto", grad_transport=grad_wire(args),
         transport_schedule=args.grad_schedule, num_windows=args.grad_windows)
 
@@ -940,6 +1319,20 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
                          "deadlines)")
     if args.straggle_prob and not args.deadline_ms:
         raise ValueError("--straggle-prob needs --deadline-ms")
+    if args.steps_per_dispatch < 1:
+        raise ValueError("--steps-per-dispatch must be >= 1")
+    if args.steps_per_dispatch > 1 and args.deadline_ms > 0:
+        # deadline masking interacts with the host every round; a
+        # captured chunk has no host-visible round boundary inside it
+        raise ValueError("--steps-per-dispatch > 1 needs the "
+                         "single-process exact path (no --deadline-ms / "
+                         "--coordinator)")
+    if args.steps_per_dispatch > 1 and args.dp * args.sp > 1:
+        raise NotImplementedError(
+            "--steps-per-dispatch > 1 with --dp x --sp > 1 is left out "
+            "(ROADMAP A5, part 2): the rank transports' host-side "
+            "signalling is not captured into a CUDA graph; use one rank "
+            "or --steps-per-dispatch 1")
     if args.max_lag < 0:
         # the JAX command leaves this to RoundPacer; checked here before
         # any rank is spawned
@@ -1006,7 +1399,7 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
 
 
 def run_train(args: argparse.Namespace, params: "dict | None" = None,
-              attn_impl: "str | None" = None) -> dict:
+              attn_impl: "str | None" = None, on_step=None) -> dict:
     """Train for ``args.steps`` steps and return the report: per-step
     losses and wall ms, tokens/s and MFU over the steps after the first,
     and the kernels' launch counts during the run (``launches``: flash;
@@ -1025,7 +1418,10 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     through a ``DeadlineTrainer``: each round's loss is read when the
     pacer harvests it, and ``deadline`` reports per round the ranks the
     clock saw late (``n_masked``), whether it fell back to an exact round
-    and its ``min_bucket_count``. Raises ValueError on bad flags,
+    and its ``min_bucket_count``. ``on_step(i, state)`` (one rank only),
+    when given, is called after step ``i``'s update with the live
+    ``TrainState`` (after each chunk's last step under
+    ``--steps-per-dispatch``). Raises ValueError on bad flags,
     NotImplementedError on what the port has not ported, RuntimeError
     when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
@@ -1036,7 +1432,9 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     _b, _t, backend = _check_train_flags(args)
     world = args.dp * args.sp
     if world == 1:
-        return _train(args, params, attn_impl, None, device)
+        return _train(args, params, attn_impl, None, device, on_step)
+    if on_step is not None:
+        raise ValueError("on_step observes one rank's state: dp x sp = 1")
     if device.type == "cuda":
         from akka_allreduce_tpu_torch.ops.kernels import build
         build.build_all()
@@ -1062,12 +1460,14 @@ def _param_checksum(params) -> int:
         dtype=torch.int64)) for p in tree_leaves(params))
 
 
-def _train(args: argparse.Namespace, params, attn_impl, group, device
-           ) -> dict:
+def _train(args: argparse.Namespace, params, attn_impl, group, device,
+           on_step=None) -> dict:
     from akka_allreduce_tpu_torch.models import flops
     from akka_allreduce_tpu_torch.models.train import (data_rank_count,
                                                        dense_bucket_count,
                                                        elapsed_ms,
+                                                       load_optimizer_state,
+                                                       make_multi_step,
                                                        make_train_state,
                                                        make_train_step,
                                                        mask_line,
@@ -1105,8 +1505,11 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         # each rank trains its own copy (a CPU rank would otherwise share
         # the spawned tensors' memory with its peers)
         params = tree_map(lambda p: p.detach().clone().to(device), params)
+    spd = args.steps_per_dispatch
+    # chunks keep the step count, and read the learning rate, beside the
+    # parameters (a captured chunk runs no host code)
     state = make_train_state(cfg, generator=generator, params=params,
-                             device=device)
+                             device=device, device_step=spd > 1)
     plan_report = None
     if cfg.transport_schedule == "auto":
         cfg, plan_report = _collective_plan(args, cfg, state.params, group,
@@ -1141,14 +1544,14 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         start, loaded, opt_state, extra, mgr = restore_or_init(
             CheckpointConfig(args.ckpt_dir,
                              save_interval_steps=args.ckpt_every),
-            state.params, _opt_state(state))
+            state.params, _opt_state(state), ema=state.ema)
         if start:
             with torch.no_grad():
                 for live, saved in zip(tree_leaves(state.params),
                                        tree_leaves(loaded)):
                     live.copy_(saved)
-            state.optimizer.load_state_dict(opt_state["optimizer"])
             state.step = int(opt_state["count"])
+            load_optimizer_state(state, opt_state["optimizer"])
             log(f"resumed from step {start - 1} "
                 f"(data position {extra.get('data_step', '?')})")
             if state.residual is not None:
@@ -1206,8 +1609,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         # read when rounds overlap, to its read (its harvest)
         step_ms.append((now - max(t0, clocks["read"])) * 1e3)
         clocks["read"] = now
-        if marks:
-            sync_ms.append(elapsed_ms(*marks[-1]))
+        if marks:  # one sync a step, or one a microbatch on overlap
+            sync_ms.append(sum(elapsed_ms(*m) for m in marks))
         losses.append(loss)
         min_counts.append(int(metrics["min_bucket_count"]))
         clocks["window"] += 1
@@ -1229,50 +1632,90 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
             clocks["tic"] = time.perf_counter()
             clocks["window"] = 0
 
-    for i in range(start, args.steps):
-        t0 = time.perf_counter()
-        dispatched.append(t0)
-        ex0 = ra.EXCHANGE_SECONDS
-        step_rng, batch = build_batch(i)
-        tokens = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-        if trainer is None:
-            metrics = step(state, tokens)
-        else:
-            r = trainer.open_round()
-            # arrival simulation, the same on every rank: each data rank
-            # lands on time or misses the deadline with --straggle-prob
-            for peer in range(trainer.clock.num_peers):
-                late = step_rng.random() < args.straggle_prob
-                trainer.clock.report_offset(
-                    r, peer, (2.0 if late else 0.0)
-                    * trainer.clock.deadline_s)
-            metrics = trainer.run_round(state, tokens)
-        exchange_ms.append((ra.EXCHANGE_SECONDS - ex0) * 1e3)
-        unread.append((i, t0, metrics, list(sync_times)))
-        sync_times.clear()
-        if mgr is not None:
-            mgr.maybe_save(i, state.params, _opt_state(state),
-                           {"data_step": i}, sync=state.residual,
-                           group=group)
-        if trainer is None:
-            read_round()  # waits for the step's device work
-    if trainer is not None:
-        trainer.drain()
-        fell = sum(1 for rep in trainer.reports if rep.fell_back)
-        log(f"lossy rounds: {trainer.masked_round_count}/"
-            f"{len(trainer.reports)} had masked contributions "
-            f"({fell} all-masked, ran exact for liveness)", flush=True)
-    if mgr is not None and args.steps > start \
-            and mgr.latest_step() != args.steps - 1:
-        mgr.save(args.steps - 1, state.params, _opt_state(state),
-                 {"data_step": args.steps - 1}, force=True,
-                 sync=state.residual, group=group)
+    lead = rank == 0
+    xprof = _XprofWindow(args.xprof_dir if lead else None,
+                         start_step=start + 1, n_steps=args.xprof_steps,
+                         device=device)
+    telem = _TrainTelemetry(args if lead else None)
+    multi, first = None, start
+    try:
+        if spd > 1:  # every step in chunks; the per-step loop runs none
+            multi = make_multi_step(cfg, spd)
+            _train_chunks(args, state, multi, build_batch, device, start,
+                          mgr, xprof, telem, log, on_step,
+                          (losses, step_ms, min_counts, dispatched, clocks))
+            first = args.steps
+        for i in range(first, args.steps):
+            xprof.tick(i)
+            t0 = time.perf_counter()
+            dispatched.append(t0)
+            ex0 = ra.EXCHANGE_SECONDS
+            step_rng, batch = build_batch(i)
+            tokens = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+            with telem.step_span(step=i) as ds:
+                if trainer is None:
+                    metrics = step(state, tokens)
+                else:
+                    r = trainer.open_round()
+                    # arrival simulation, the same on every rank: each
+                    # data rank lands on time or misses the deadline with
+                    # --straggle-prob
+                    for peer in range(trainer.clock.num_peers):
+                        late = step_rng.random() < args.straggle_prob
+                        trainer.clock.report_offset(
+                            r, peer, (2.0 if late else 0.0)
+                            * trainer.clock.deadline_s)
+                    metrics = trainer.run_round(state, tokens)
+                loss_now = None
+                if ds is not None:
+                    ds.mark_dispatched()
+                    # the blocked readback inside the span: its tail is
+                    # the step's device time (the price --metrics-file
+                    # documents)
+                    _wait(device)
+                    loss_now = float(metrics["loss"])
+            telem.on_step(b * t, loss=loss_now)
+            exchange_ms.append((ra.EXCHANGE_SECONDS - ex0) * 1e3)
+            unread.append((i, t0, metrics, list(sync_times)))
+            sync_times.clear()
+            if on_step is not None:
+                on_step(i, state)
+            if mgr is not None:
+                mgr.maybe_save(i, state.params, _opt_state(state),
+                               {"data_step": i}, sync=state.residual,
+                               group=group, ema=state.ema)
+            if trainer is None:
+                read_round()  # waits for the step's device work
+        if trainer is not None:
+            trainer.drain()
+            fell = sum(1 for rep in trainer.reports if rep.fell_back)
+            log(f"lossy rounds: {trainer.masked_round_count}/"
+                f"{len(trainer.reports)} had masked contributions "
+                f"({fell} all-masked, ran exact for liveness)", flush=True)
+        if mgr is not None and args.steps > start \
+                and mgr.latest_step() != args.steps - 1:
+            mgr.save(args.steps - 1, state.params, _opt_state(state),
+                     {"data_step": args.steps - 1}, force=True,
+                     sync=state.residual, group=group, ema=state.ema)
+    finally:
+        try:
+            telem.close()  # the final metrics snapshot
+        except Exception as exc:
+            print(f"WARNING: metrics snapshot flush failed: {exc}",
+                  file=sys.stderr)
+        try:
+            xprof.close()
+        except Exception as exc:
+            print(f"WARNING: device trace flush failed: {exc}",
+                  file=sys.stderr)
 
     # wall time a step after the first: from the second step's dispatch
     # to the last read, over the steps in it (rounds that overlap under
     # the pacer have no boundaries of their own)
-    step_s = None
-    if len(dispatched) > 1:
+    step_s = clocks.get("wall_s")
+    if step_s is not None:
+        pass  # the chunked loop's own span (_train_chunks)
+    elif len(dispatched) > 1:
         step_s = (clocks["read"] - dispatched[1]) / (len(dispatched) - 1)
     elif dispatched:
         step_s = step_ms[0] / 1e3
@@ -1311,7 +1754,24 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
         "transport": {k: after[3][k] - before[3][k] for k in after[3]},
         # host ms per step in the attention's exchanges (sp > 1)
         "attn_exchange_ms": exchange_ms,
+        "optimizer": cfg.optimizer,
+        # the optimizer's state tensors (state_dict), EMA excluded
+        "optimizer_state_gb": _state_bytes(state.optimizer) / 1e9,
+        "ema_decay": cfg.ema_decay,
+        "accum_schedule": cfg.accum_schedule,
+        "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None),
+        "metrics_file": args.metrics_file if rank == 0 else None,
+        "xprof_trace": xprof.path,
     }
+    if multi is not None:
+        report["multi_step"] = {
+            "steps_per_dispatch": spd, "graph_replays": multi.replays,
+            # the flash launches one replay makes
+            "captured_launches": dict(zip(
+                ("flash_fwd", "flash_dq", "flash_dkv"),
+                multi.captured_launches or (0, 0, 0))),
+            "capture_seconds": multi.capture_seconds}
     if plan_report is not None:
         report["collective_plan"] = plan_report
     if trainer is not None:
@@ -1357,6 +1817,184 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device
                     float(res[:, j * cols:(j + 1) * cols].abs().max())
                     for j in range(args.sp)])
     return report
+
+
+def _wait(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _state_bytes(optimizer) -> int:
+    """Bytes of the tensors in an optimizer's state dict."""
+    return sum(v.numel() * v.element_size()
+               for per_param in optimizer.state_dict()["state"].values()
+               for v in per_param.values() if isinstance(v, torch.Tensor))
+
+
+def _train_chunks(args, state, multi, build_batch, device, start, mgr,
+                  xprof, telem, log, on_step, sinks) -> None:
+    """``--steps-per-dispatch``'s loop (the JAX command's chunked path):
+    a full chunk of N steps is one dispatch (``multi``: one CUDA graph
+    replay on the card), a tail shorter than N runs step by step; the
+    trace window ticks at chunk starts; a checkpoint is forced at a
+    chunk's end whenever the chunk crossed a ``--ckpt-every`` line.
+    Fills ``sinks`` (losses, step ms, min counts, dispatch times, clocks)
+    as the per-step loop does; ``clocks["wall_s"]`` is the wall time a
+    step from the second dispatch to the last read."""
+    losses, step_ms, min_counts, dispatched, clocks = sinks
+    spd, log_every = multi.n, max(1, args.log_every)
+    marks = []  # (dispatch start, steps in it)
+    window, tic = 0, time.perf_counter()
+    i = start
+    while i < args.steps:
+        xprof.tick(i)  # chunk granularity: whole chunks traced
+        n = min(spd, args.steps - i)
+        chunk = torch.from_numpy(np.stack(
+            [build_batch(j)[1] for j in range(i, i + n)])).to(device)
+        for piece in ([chunk] if n == spd
+                      else [chunk[j:j + 1] for j in range(n)]):
+            k = piece.shape[0]
+            t0 = time.perf_counter()
+            marks.append((t0, k))
+            dispatched.append(t0)
+            with telem.step_span(chunk_steps=k) as ds:
+                ms = multi(state, piece)
+                loss_now = None
+                if ds is not None:
+                    ds.mark_dispatched()
+                    _wait(device)
+                    loss_now = float(ms["loss"][-1])
+            telem.on_step(piece.numel(), loss=loss_now, steps=k)
+            losses.extend(ms["loss"].tolist())  # waits for the dispatch
+            now = time.perf_counter()
+            step_ms.extend([(now - t0) * 1e3 / k] * k)
+            min_counts.extend(int(c) for c in ms["min_bucket_count"])
+            clocks["read"] = now
+        last = i + n - 1
+        if on_step is not None:
+            on_step(last, state)
+        # --ckpt-every 0 is save-every-chunk (an interval of 1)
+        every = max(1, args.ckpt_every)
+        if mgr is not None and i // every != (last + 1) // every:
+            mgr.save(last, state.params, _opt_state(state),
+                     {"data_step": last}, force=True, sync=state.residual,
+                     ema=state.ema)
+        window += n
+        if i == start or i // log_every != (last + 1) // log_every:
+            toks = float(ms["tokens"][-1])
+            log(f"step {last + 1:4d}: loss {losses[-1]:.4f} "
+                f"({toks * window / (time.perf_counter() - tic):.0f} "
+                f"tok/s)", flush=True)
+            tic, window = time.perf_counter(), 0
+        i += n
+    if marks:
+        first = 1 if len(marks) > 1 else 0
+        clocks["wall_s"] = (clocks["read"] - marks[first][0]) / sum(
+            k for _, k in marks[first:])
+
+
+class _XprofWindow:
+    """Device-trace window of ``train --xprof-dir``: a
+    ``torch.profiler.profile`` (CPU activity and, on the card, CUDA)
+    opens at ``start_step`` (skipping the first step's warm-up) and
+    closes ``n_steps`` later or at run end, whichever first, then writes
+    a Chrome trace into the directory (``path``). ``tick(i)`` is called
+    with the step index about to run."""
+
+    def __init__(self, log_dir, start_step: int = 1, n_steps: int = 3,
+                 device=None):
+        self.dir, self.start, self.n = log_dir, start_step, n_steps
+        self.device = device
+        self.path = None
+        self._prof = None
+        self._state = 0 if log_dir else 2  # 0 idle, 1 tracing, 2 done
+
+    def tick(self, i: int) -> None:
+        if self._state == 0 and i >= self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device is not None and self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+            self._state = 1
+        elif self._state == 1 and i >= self.start + self.n:
+            self._stop()
+
+    def _stop(self) -> None:
+        self._state = 2
+        if self.device is not None:
+            _wait(self.device)  # the traced steps' kernels have run
+        self._prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, f"train-trace-{os.getpid()}.json")
+        self._prof.export_chrome_trace(self.path)
+
+    def close(self) -> None:
+        if self._state == 1:
+            self._stop()
+        elif self._state == 0:
+            # the user asked for a trace and no step reached the window
+            # (e.g. --steps-per-dispatch covering the whole run in one
+            # chunk: ticks happen at chunk starts)
+            print(f"WARNING: --xprof-dir {self.dir}: no steps reached "
+                  f"the trace window (opens at step {self.start + 1}); "
+                  f"lower --steps-per-dispatch or raise --steps",
+                  file=sys.stderr)
+            self._state = 2
+
+
+class _TrainTelemetry:
+    """``train --metrics-file`` wiring: a MetricsRegistry with
+    train_steps_total / train_tokens_total / train_loss series and a
+    DeviceTimer bracketing every dispatch (host against device time
+    through the blocked loss readback, ``train_step_dispatch_gap_ms``
+    the host bubble), snapshotted every ``--metrics-interval`` and at
+    close. Every method is a no-op without the flag (``args`` None or no
+    file), so the default loop pays nothing."""
+
+    def __init__(self, args):
+        self.enabled = bool(args is not None and args.metrics_file)
+        self._stack = contextlib.ExitStack()
+        self.registry = None
+        self.timer = None
+        if not self.enabled:
+            return
+        from akka_allreduce_tpu_torch.telemetry.device import DeviceTimer
+        from akka_allreduce_tpu_torch.telemetry.registry import \
+            MetricsRegistry
+        self.registry = MetricsRegistry()
+        self.timer = DeviceTimer("train_step", registry=self.registry)
+        self._steps = self.registry.counter(
+            "train_steps_total", help="optimizer steps applied")
+        self._tokens = self.registry.counter(
+            "train_tokens_total", help="tokens consumed")
+        self._loss = self.registry.gauge(
+            "train_loss", help="latest step loss")
+        self._stack.enter_context(self.registry.start_snapshotter(
+            args.metrics_file, args.metrics_interval))
+
+    @contextlib.contextmanager
+    def step_span(self, **fields):
+        """Bracket one dispatch; yields the DeviceSpan (None when
+        disabled): the caller marks the dispatch and blocks inside."""
+        if self.timer is None:
+            yield None
+            return
+        with self.timer.span(**fields) as ds:
+            yield ds
+
+    def on_step(self, n_tokens: float, loss=None, steps: int = 1) -> None:
+        if not self.enabled:
+            return
+        self._steps.inc(steps)
+        self._tokens.inc(n_tokens)
+        if loss is not None:
+            self._loss.set(float(loss))
+
+    def close(self) -> None:
+        self._stack.close()  # the final snapshot write
 
 
 def _collective_plan(args: argparse.Namespace, cfg, params, group, device,
@@ -1410,6 +2048,7 @@ def _cmd_train(args: argparse.Namespace) -> int:
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     return {"serve": _cmd_serve, "train": _cmd_train,
+            "generate": _cmd_generate, "eval": _cmd_eval,
             "emulate": _cmd_emulate, "master": _cmd_master,
             "worker": _cmd_worker}[args.cmd](args)
 

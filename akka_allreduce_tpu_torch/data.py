@@ -1,11 +1,11 @@
 """Deterministic, resumable input pipeline (numpy only).
 
 A copy of ``akka_allreduce_tpu/data.py``'s ``TokenCorpus``,
-``load_corpus`` and ``synthetic_corpus``: ``batch(i)`` is a pure function
-of (corpus, batch, seq, seed, i), so a resumed run sees exactly the tokens
-the interrupted run would have; corpora are memory-mapped; byte-level
-files (vocab 256) or ``*.bin`` little-endian uint16 token files (vocab
-65536).
+``load_corpus``, ``eval_batches`` and ``synthetic_corpus``: ``batch(i)``
+is a pure function of (corpus, batch, seq, seed, i), so a resumed run
+sees exactly the tokens the interrupted run would have; corpora are
+memory-mapped; byte-level files (vocab 256) or ``*.bin`` little-endian
+uint16 token files (vocab 65536).
 """
 
 from __future__ import annotations
@@ -57,6 +57,19 @@ class TokenCorpus:
                               size=batch, dtype=np.int64)
         idx = starts[:, None] + np.arange(seq, dtype=np.int64)[None, :]
         return np.asarray(self.tokens[idx], dtype=np.int32)
+
+
+def eval_batches(corpus: TokenCorpus, batch: int, seq: int):
+    """Yield (batch, seq) int32 arrays tiling the corpus ONCE, in order
+    (the held-out evaluation regime: each token seen once). Windows are
+    non-overlapping and contiguous, each group a plain slice of the
+    memory map; the final partial group is yielded at its smaller batch
+    size."""
+    n_windows = len(corpus.tokens) // seq
+    for lo in range(0, n_windows, batch):
+        hi = min(lo + batch, n_windows)
+        yield np.asarray(corpus.tokens[lo * seq:hi * seq],
+                         dtype=np.int32).reshape(hi - lo, seq)
 
 
 def load_corpus(path: str) -> TokenCorpus:

@@ -43,18 +43,32 @@ PyTorch idiom in place of the JAX package's pure functions:
 * parameters are a nested dict of f32 master tensors with the JAX
   pytree's names and layout (``convert.params_from_jax`` carries them
   across); their leaves require grad;
-* the optimizer is ``torch.optim.AdamW`` over two parameter groups, the
-  rank >= 2 leaves with ``weight_decay`` and the rest (norm gains) with
-  none: optax's decay mask. Its update equals ``optax.adamw``'s;
-* the step updates the parameters, the optimizer state and the residual
-  IN PLACE (``TrainState`` holds them) and returns the metrics; the JAX
-  step returns new arrays instead;
+* the optimizer (:func:`make_optimizer`) is one of the JAX chain's four
+  families over two parameter groups, the rank >= 2 leaves with
+  ``weight_decay`` and the rest (norm gains) with none: optax's decay
+  mask. adamw is ``torch.optim.AdamW``, whose update equals
+  ``optax.adamw``'s; lion, adafactor and sgd are ``models/optim.py``'s,
+  written from optax's definitions. The step count is
+  ``TrainState.step`` for every family (the JAX ``StepCounterState``):
+  it keys the LR schedule and the int8/ef8 rounding;
+* ``ema_decay`` > 0 keeps ``TrainState.ema``, f32 copies of the masters
+  updated after each optimizer step as ``d * ema + (1 - d) * p`` from
+  the post-update masters (the JAX ``param_ema``, the chain's last
+  slot), the checkpoint's ``ema`` item;
+* the step updates the parameters, the optimizer state, the EMA and the
+  residual IN PLACE (``TrainState`` holds them) and returns the metrics;
+  the JAX step returns new arrays instead;
 * ``compute_dtype="bf16"`` runs the model on bf16 copies of the masters;
   autograd casts the gradients back to f32, so the sync and the update
-  stay f32.
-
-Left out and refused with ``NotImplementedError``: optimizers other than
-adamw, ``ema_decay`` and ``accum_schedule="overlap"`` (ROADMAP.md A5).
+  stay f32;
+* ``accum_schedule="overlap"`` syncs each microbatch's gradients as they
+  are produced and folds tick k's synced result into the accumulator at
+  tick k + 1 (the JAX scan's in-flight carry); the syncs run on the
+  current stream, so on the card nothing hides behind the next
+  microbatch yet;
+* :func:`make_multi_step` runs ``N`` steps a dispatch (the JAX
+  ``lax.scan`` chunk): on the card one CUDA graph replay a chunk, on the
+  CPU the same steps in a loop.
 """
 
 from __future__ import annotations
@@ -67,6 +81,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from akka_allreduce_tpu_torch.models.optim import SGD, Adafactor, Lion
 from akka_allreduce_tpu_torch.models.transformer import (
     TransformerConfig, init_transformer, next_token_loss_and_aux)
 from akka_allreduce_tpu_torch.ops.bucketing import (
@@ -83,7 +98,8 @@ from akka_allreduce_tpu_torch.parallel.ring_attention import (
     blockwise_causal_attention, flash_windowed_sp_attention,
     local_causal_attention, ring_attention, windowed_sp_attention)
 
-LEFT_OUT = "left out of the port's one-card training slice (ROADMAP.md A5)"
+OPTIMIZERS = ("adamw", "adafactor", "sgd", "lion")
+ACCUM_SCHEDULES = ("deferred", "overlap")
 # the JAX derive_quant_key's root key, key(17)
 QUANT_ROOT = 17
 
@@ -112,6 +128,7 @@ class TrainConfig:
     clip_norm: float = 0.0
     optimizer: str = "adamw"
     weight_decay: float = 1e-4
+    sgd_momentum: float = 0.9
     grad_accum: int = 1
     accum_schedule: str = "deferred"
     ema_decay: float = 0.0
@@ -124,15 +141,37 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters, their optimizer, its step count (optax's ``count``:
-    the steps taken, which the LR schedule and the rounding keys read
-    before it increments) and the ef8 error-feedback residual (None on
-    the other wires). The train step mutates all four."""
+    """Parameters, their optimizer, the ef8 error-feedback residual (None
+    on the other wires), the EMA weights (None without ``ema_decay``) and
+    the step count (optax's ``count``: the steps taken, which the LR
+    schedule and the rounding keys read before it increments). The train
+    step mutates them all.
+
+    The step count is kept once: a host int, or with ``count`` (the state
+    of a step that a CUDA graph captures, :func:`make_multi_step`) a 0-dim
+    int64 tensor on the parameters' device, which the step advances there
+    and which indexes ``lr_table`` (the schedule's rates) for the rate.
+    ``step`` reads and writes whichever the state keeps; on a device
+    count, reading it waits for the device."""
 
     params: dict
     optimizer: torch.optim.Optimizer
-    step: int = 0
     residual: Optional[torch.Tensor] = None
+    ema: Optional[dict] = None
+    count: Optional[torch.Tensor] = None
+    lr_table: Optional[torch.Tensor] = None
+    host_count: int = 0
+
+    @property
+    def step(self) -> int:
+        return self.host_count if self.count is None else int(self.count)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        if self.count is None:
+            self.host_count = int(value)
+        else:
+            self.count.fill_(int(value))
 
 
 def sync_config(cfg: TrainConfig, world: int) -> GradSyncConfig:
@@ -147,26 +186,28 @@ def sync_config(cfg: TrainConfig, world: int) -> GradSyncConfig:
                           plan=cfg.collective_plan)
 
 
-def quant_key(step: int) -> tuple:
+def quant_key(step: int, microbatch: Optional[int] = None) -> tuple:
     """The dense sync's rounding key of step ``step``: the JAX
-    ``fold_in(fold_in(key(17), step), 0)`` as a key tuple."""
-    return (QUANT_ROOT, int(step), 0)
+    ``fold_in(fold_in(key(17), step), 0)`` as a key tuple. On the
+    overlapped schedule microbatch ``i``'s sync folds ``i`` in before the
+    dense tag, as the JAX scan does: ``fold_in(fold_in(fold_in(key(17),
+    step), i), 0)``."""
+    if microbatch is None:
+        return (QUANT_ROOT, int(step), 0)
+    return (QUANT_ROOT, int(step), int(microbatch), 0)
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    if cfg.optimizer != "adamw":
-        if cfg.optimizer not in ("adafactor", "sgd", "lion"):
-            raise ValueError(f"unknown optimizer {cfg.optimizer!r}: adamw "
-                             f"| adafactor | sgd | lion")
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is "
-                                  f"{LEFT_OUT}; use adamw")
-    if cfg.ema_decay != 0.0:
-        raise NotImplementedError(f"ema_decay is {LEFT_OUT}")
-    if cfg.accum_schedule not in ("deferred", "overlap"):
-        raise ValueError(f"unknown accum_schedule {cfg.accum_schedule!r}")
-    if cfg.accum_schedule == "overlap":
-        raise NotImplementedError(f"accum_schedule='overlap' is {LEFT_OUT}"
-                                  f"; use 'deferred'")
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}: adamw "
+                         f"| adafactor | sgd | lion")
+    if not 0.0 <= cfg.ema_decay < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {cfg.ema_decay}")
+    if cfg.accum_schedule not in ACCUM_SCHEDULES:
+        raise ValueError(
+            f"unknown accum_schedule {cfg.accum_schedule!r}: 'deferred' "
+            f"(one sync after the microbatches) or 'overlap' "
+            f"(per-microbatch syncs, each folded in one tick later)")
     if cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
     if cfg.compute_dtype not in ("f32", "bf16"):
@@ -205,19 +246,69 @@ def lr_at(cfg: TrainConfig, count: int) -> float:
     return sched(count) if callable(sched) else sched
 
 
-def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.AdamW:
-    """AdamW over ``params`` (b1 0.9, b2 0.999, eps 1e-8, as optax's
-    adamw) with optax's decay mask: rank >= 2 leaves decay, the rest
-    (norm gains, vectors) do not. The learning rate is set per step by
-    the train step from :func:`make_lr_schedule`."""
+def lr_table(cfg: TrainConfig, device) -> torch.Tensor:
+    """:func:`lr_at` at the counts ``0 .. total_steps`` (one entry for the
+    constant schedule) as an f32 tensor on ``device``: the rates of a
+    device step count, which reads entry ``min(count, len - 1)`` (every
+    count past ``total_steps`` has the last rate)."""
+    n = cfg.total_steps + 1 if cfg.lr_schedule != "constant" else 1
+    return torch.tensor([lr_at(cfg, c) for c in range(n)],
+                        dtype=torch.float32, device=device)
+
+
+def make_optimizer(cfg: TrainConfig, params: dict,
+                   lr: "float | torch.Tensor | None" = None
+                   ) -> torch.optim.Optimizer:
+    """The family of ``cfg.optimizer`` over ``params`` with optax's decay
+    mask (rank >= 2 leaves decay, the rest — norm gains, vectors — do
+    not; sgd has no decay, as ``optax.sgd``): adamw (b1 0.9, b2 0.999,
+    eps 1e-8, ``torch.optim.AdamW``), lion (b1 0.9, b2 0.99), adafactor
+    (optax's defaults; ``weight_decay`` 0 is none) or sgd
+    (``sgd_momentum``, nesterov when > 0). The learning rate is set per
+    step by the train step from :func:`make_lr_schedule`; ``lr`` as a
+    0-dim tensor makes it that tensor in every group (shared, and
+    written in place): the optimizer of a device step count, on the card
+    a step that a CUDA graph captures (adamw is then capturable, which
+    PyTorch allows on the card only)."""
     check_supported(cfg)
+    if lr is None:
+        lr = lr_at(cfg, 0)
     leaves = tree_leaves(params)
-    decay = [p for p in leaves if p.dim() >= 2]
-    no_decay = [p for p in leaves if p.dim() < 2]
-    return torch.optim.AdamW(
-        [{"params": decay, "weight_decay": cfg.weight_decay},
-         {"params": no_decay, "weight_decay": 0.0}],
-        lr=lr_at(cfg, 0), betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optimizer == "sgd":
+        return SGD(leaves, lr=lr, momentum=cfg.sgd_momentum)
+    groups = [{"params": [p for p in leaves if p.dim() >= 2],
+               "weight_decay": cfg.weight_decay},
+              {"params": [p for p in leaves if p.dim() < 2],
+               "weight_decay": 0.0}]
+    if cfg.optimizer == "lion":
+        return Lion(groups, lr=lr, betas=(0.9, 0.99))
+    if cfg.optimizer == "adafactor":
+        return Adafactor(groups, lr=lr)
+    extra = {"capturable": True} if (isinstance(lr, torch.Tensor)
+                                     and lr.device.type == "cuda") else {}
+    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             **extra)
+
+
+def load_optimizer_state(state: TrainState, saved: dict) -> None:
+    """``state.optimizer.load_state_dict(saved)``; on a device step count
+    (``state.count``) the groups keep their shared learning-rate tensor
+    and adamw its ``capturable`` setting, with its step counts on the
+    parameters' device, whatever the saved groups held."""
+    opt = state.optimizer
+    lr = opt.param_groups[0]["lr"]
+    capturable = opt.param_groups[0].get("capturable")
+    opt.load_state_dict(saved)
+    if state.count is None:
+        return
+    for group in opt.param_groups:
+        group["lr"] = lr
+        if capturable is not None:
+            group["capturable"] = capturable
+    for per_param in opt.state.values():
+        if isinstance(per_param.get("step"), torch.Tensor):
+            per_param["step"] = per_param["step"].to(
+                state.count.device, torch.float32)
 
 
 def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
@@ -286,11 +377,16 @@ def select_ring_attention(cfg: TrainConfig, group: RankGroup):
 def make_train_state(cfg: TrainConfig,
                      generator: Optional[torch.Generator] = None,
                      params: Optional[dict] = None,
-                     device: "torch.device | str | None" = None
-                     ) -> TrainState:
+                     device: "torch.device | str | None" = None,
+                     device_step: bool = False) -> TrainState:
     """Parameters (``params``, or random from ``generator``) as leaves
-    that require grad, their optimizer and, on the ef8 wire, a zero
-    residual of the bucket matrix's shape (the JAX ``init_ef_state``)."""
+    that require grad, their optimizer, on the ef8 wire a zero residual
+    of the bucket matrix's shape (the JAX ``init_ef_state``), and with
+    ``ema_decay`` the EMA as a copy of the initial masters (the JAX
+    ``param_ema`` init). ``device_step`` keeps the step count on the
+    parameters' device (``TrainState.count``) with the schedule's rates
+    beside it, and the optimizer's learning rate as a tensor there: the
+    state of :func:`make_multi_step`'s chunks."""
     if params is None:
         if generator is None:
             raise ValueError("make_train_state needs params or a generator")
@@ -299,14 +395,33 @@ def make_train_state(cfg: TrainConfig,
         params = tree_map(lambda p: p.to(device), params)
     for p in tree_leaves(params):
         p.requires_grad_(True)
+    where = tree_leaves(params)[0].device
     residual = None
     if cfg.grad_transport == "ef8":
         spec = tree_bucket_spec(params, cfg.bucket_elems)
         residual = torch.zeros((spec.num_buckets, spec.bucket_elems),
-                               dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-    return TrainState(params=params, optimizer=make_optimizer(cfg, params),
-                      residual=residual)
+                               dtype=torch.float32, device=where)
+    ema = None
+    if cfg.ema_decay > 0:
+        ema = tree_map(lambda p: p.detach().clone().float(), params)
+    count, table, lr = None, None, None
+    if device_step:
+        count = torch.zeros((), dtype=torch.int64, device=where)
+        table = lr_table(cfg, where)
+        lr = table[0].clone()
+    return TrainState(params=params,
+                      optimizer=make_optimizer(cfg, params, lr),
+                      residual=residual, ema=ema, count=count,
+                      lr_table=table)
+
+
+@torch.no_grad()
+def update_ema(ema: dict, params: dict, decay: float) -> None:
+    """``ema = decay * ema + (1 - decay) * p`` leaf by leaf, in place,
+    rounded as the JAX ``param_ema`` rounds it (each product, then the
+    sum; ``lerp_`` would round ``ema + (1 - d) (p - ema)`` instead)."""
+    for e, p in zip(tree_leaves(ema), tree_leaves(params)):
+        e.mul_(decay).add_(p * (1.0 - decay))
 
 
 def _timer_mark(device: torch.device):
@@ -366,6 +481,12 @@ def mask_line(cfg: TrainConfig, group: Optional[RankGroup]) -> int:
     return group.axis_size("sp")
 
 
+def fold_in_flight(acc: Optional[list], fly: list) -> list:
+    """The overlapped schedule's last fold: the accumulated synced
+    gradients plus the last tick's in-flight result."""
+    return fly if acc is None else [a + f for a, f in zip(acc, fly)]
+
+
 def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
                    sync_times: Optional[list] = None,
                    dynamic_valid: bool = False):
@@ -377,8 +498,12 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     gradients synced across ``group`` as a params-shaped dict of f32
     tensors, and the JAX step's metrics. With ``grad_accum`` K > 1 the
     batch splits into K microbatches whose gradients and losses sum (each
-    scaled by the whole batch's token count), aux terms averaged: the JAX
-    "deferred" schedule, one sync after the last microbatch.
+    scaled by the whole batch's token count), aux terms averaged: on the
+    JAX "deferred" schedule one sync after the last microbatch, on
+    "overlap" one sync a microbatch (keys :func:`quant_key` with the
+    microbatch, the ef8 residual threaded from tick to tick, the mask row
+    the same on every tick, ``min_bucket_count`` the smallest over the
+    ticks), each result folded in one tick after its sync.
     ``quant_seed`` (the step count) keys the int8/ef8 rounding;
     ``residual`` is the ef8 state. ``sync_times``, when given, receives
     a ``(start, end)`` pair of time marks around each sync
@@ -425,33 +550,42 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
             weights[:, -1] = 0.0
         return targets, weights, positions
 
-    def local_grads(params, tokens):
+    def microbatch_grads(params, tokens):
+        """Yield each microbatch's (loss, aux, grads list) in order; the
+        first item is the global token count."""
         b, _ = tokens.shape
         targets, weights, positions = targets_and_weights(tokens)
         # the global count: the weights summed over every rank
         total_count = weights.sum()
         if world > 1:
             total_count = group.all_gather(total_count[None]).sum()
+        yield total_count
         leaves = tree_leaves(params)
         if b % accum:
             raise ValueError(f"local batch {b} must divide into "
                              f"grad_accum={accum} microbatches")
-        loss, aux, grads = 0.0, None, None
         for tok, tgt, w in zip(tokens.chunk(accum), targets.chunk(accum),
                                weights.chunk(accum)):
             loss_sum, _, mb_aux = next_token_loss_and_aux(
                 cast_compute(params), tok, mcfg, positions, attn,
                 targets=tgt, weights=w, remat=cfg.remat)
             mb_loss = loss_sum / total_count
-            mb_grads = torch.autograd.grad(mb_loss, leaves)
-            loss = loss + mb_loss.detach()
-            aux = mb_aux if aux is None else {
-                k: aux[k] + mb_aux[k] for k in aux}
-            grads = mb_grads if grads is None else [
-                g + m for g, m in zip(grads, mb_grads)]
-        return loss, total_count, aux, tree_unflatten(params, grads)
+            yield (mb_loss.detach(), mb_aux,
+                   list(torch.autograd.grad(mb_loss, leaves)))
 
     rank = 0 if group is None else group.rank
+
+    def sync(params, grads, key, residual, row):
+        """One gradient sync of a grads list: (synced list, the smallest
+        bucket count, the residual)."""
+        device = grads[0].device
+        start = _timer_mark(device)
+        res = allreduce_gradients(tree_unflatten(params, grads), gcfg, group,
+                                  valid=row, quant_key=key,
+                                  residual=residual)
+        if sync_times is not None:
+            sync_times.append((start, _timer_mark(device)))
+        return tree_leaves(res.grads), res.bucket_counts.min(), res.residual
 
     def grad_step(params, tokens, quant_seed=None, residual=None,
                   valid=None):
@@ -469,24 +603,49 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
                 "ef8 grad transport needs the error-feedback state "
                 "(TrainState.residual, from make_train_state): dropping it "
                 "silently degrades ef8 to plain block-int8")
-        loss, total_count, aux, grads = local_grads(params, tokens)
+        # one rank with a mask still masks (the JAX sync over size-1
+        # axes); without one its sync is the identity and is skipped
+        synced = world > 1 or valid is not None
+        # the round's mask row: the same on every tick of the overlap
+        row = None if valid is None else _mask_row(valid, rank, world,
+                                                   tokens.device)
+        overlap = synced and cfg.accum_schedule == "overlap"
+        parts = microbatch_grads(params, tokens)
+        total_count = next(parts)
+        loss, aux, grads, fly, min_count = 0.0, None, None, None, None
+        for i, (mb_loss, mb_aux, mb_grads) in enumerate(parts):
+            loss = loss + mb_loss
+            aux = mb_aux if aux is None else {
+                k: aux[k] + mb_aux[k] for k in aux}
+            if not overlap:
+                grads = mb_grads if grads is None else [
+                    g + m for g, m in zip(grads, mb_grads)]
+                continue
+            # each microbatch synced as produced, with its own rounding
+            # key and the residual threaded through; the previous tick's
+            # in-flight result is folded in only now
+            out, count, residual = sync(
+                params, mb_grads,
+                quant_key(quant_seed, i) if quantized else None,
+                residual, row)
+            if fly is not None:
+                grads = fly if grads is None else [
+                    g + f for g, f in zip(grads, fly)]
+            fly = out
+            min_count = count if min_count is None else torch.minimum(
+                min_count, count)
+        if overlap:
+            grads = fold_in_flight(grads, fly)
+        elif synced:
+            grads, min_count, residual = sync(
+                params, grads, quant_key(quant_seed) if quantized else None,
+                residual, row)
+        else:
+            min_count = torch.ones((), dtype=torch.int32,
+                                   device=tokens.device)
+        # aux terms are per-microbatch diagnostics: the mean
         aux_loss = aux["aux_loss"] / accum
         dispatch = aux["dispatch_fraction"] / accum
-        min_count = torch.ones((), dtype=torch.int32, device=tokens.device)
-        if world > 1 or valid is not None:
-            # one rank with a mask still masks (the JAX sync over size-1
-            # axes); without one its sync is the identity and is skipped
-            row = None if valid is None else _mask_row(
-                valid, rank, world, tokens.device)
-            start = _timer_mark(tokens.device)
-            res = allreduce_gradients(
-                grads, gcfg, group, valid=row,
-                quant_key=quant_key(quant_seed) if quantized else None,
-                residual=residual)
-            if sync_times is not None:
-                sync_times.append((start, _timer_mark(tokens.device)))
-            grads, residual = res.grads, res.residual
-            min_count = res.bucket_counts.min()
         if world > 1:
             # the metrics' psum: the ranks' (loss, aux, dispatch) summed
             mine = torch.stack([torch.as_tensor(loss), aux_loss, dispatch])
@@ -497,6 +656,7 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         metrics = {"loss": loss, "tokens": total_count,
                    "min_bucket_count": min_count, "aux_loss": aux_loss,
                    "dispatch_fraction": dispatch}
+        grads = tree_unflatten(params, grads)
         if use_ef:
             return grads, metrics, residual
         return grads, metrics
@@ -504,38 +664,203 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     return grad_step
 
 
+def apply_update(cfg: TrainConfig, state: TrainState, grads: list) -> None:
+    """The optax chain after the sync, in place: global-norm clip
+    (``clip_norm > 0``), the family's update at the schedule's rate for
+    the step count, then the EMA of the post-update masters; then the
+    count advances. On a device count (``state.count``) the rate is the
+    count's entry of ``state.lr_table``, copied into the groups' shared
+    rate tensor, and the count advances on the device: no host code reads
+    or writes a value, so a CUDA graph can capture the update."""
+    if cfg.clip_norm > 0:
+        clip_by_global_norm_(grads, cfg.clip_norm)
+    opt = state.optimizer
+    if state.count is None:
+        lr = lr_at(cfg, state.host_count)
+        for pgroup in opt.param_groups:
+            pgroup["lr"] = lr
+    else:
+        # take, not table[count]: a tensor index would be read back to
+        # the host
+        table = state.lr_table
+        opt.param_groups[0]["lr"].copy_(torch.take(
+            table, state.count.clamp(max=table.numel() - 1)))
+    for p, g in zip(tree_leaves(state.params), grads):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    if state.ema is not None:
+        update_ema(state.ema, state.params, cfg.ema_decay)
+    if state.count is None:
+        state.host_count += 1
+    else:
+        state.count.add_(1)
+
+
 def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
                     sync_times: Optional[list] = None,
                     dynamic_valid: bool = False):
     """``step(state, tokens) -> metrics``: synced gradients (keyed by
-    ``state.step``), then the optax chain's order — global-norm clip
-    (``clip_norm > 0``), then AdamW at the schedule's rate for
-    ``state.step`` — applied to ``state`` in place. With
-    ``dynamic_valid=True`` it is ``step(state, tokens, valid) ->
-    metrics``, ``valid`` the round's ``(data_rank_count, num_buckets)``
-    mask (:func:`make_grad_step`); a masked round still advances
-    ``state.step``, which keys the next round's rounding as the JAX
-    optimizer's count does."""
+    ``state.step``), then :func:`apply_update` (clip, the optimizer at
+    the schedule's rate for ``state.step``, the EMA) applied to ``state``
+    in place. With ``dynamic_valid=True`` it is ``step(state, tokens,
+    valid) -> metrics``, ``valid`` the round's ``(data_rank_count,
+    num_buckets)`` mask (:func:`make_grad_step`); a masked round still
+    advances ``state.step``, which keys the next round's rounding as the
+    JAX optimizer's count does. The step count is read on the host only
+    where a sync rounds by it (an int8 or ef8 wire that syncs), so a step
+    of one rank reads nothing back."""
     grad_step = make_grad_step(cfg, group, sync_times, dynamic_valid)
     use_ef = cfg.grad_transport == "ef8"
+    keyed = cfg.grad_transport in ("int8", "ef8") and (
+        (group is not None and group.world > 1) or dynamic_valid)
 
     def step(state: TrainState, tokens: torch.Tensor, valid=None) -> dict:
-        out = grad_step(state.params, tokens, quant_seed=state.step,
+        out = grad_step(state.params, tokens,
+                        quant_seed=state.step if keyed else None,
                         residual=state.residual, valid=valid)
         grads, metrics = out[0], out[1]
         if use_ef:
             state.residual = out[2]
-        grads = tree_leaves(grads)
-        if cfg.clip_norm > 0:
-            clip_by_global_norm_(grads, cfg.clip_norm)
-        lr = lr_at(cfg, state.step)
-        for pgroup in state.optimizer.param_groups:
-            pgroup["lr"] = lr
-        for p, g in zip(tree_leaves(state.params), grads):
-            p.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
+        apply_update(cfg, state, tree_leaves(grads))
         return metrics
 
     return step
+
+
+_FLASH_COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
+                   "FLASH_DKV_LAUNCHES")
+
+
+def _flash_counts() -> tuple:
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    return tuple(getattr(fa, name) for name in _FLASH_COUNTERS)
+
+
+def _add_flash_counts(counts) -> None:
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    for name, n in zip(_FLASH_COUNTERS, counts):
+        setattr(fa, name, getattr(fa, name) + n)
+
+
+def _state_tensors(state: TrainState) -> list:
+    """The tensors a train step writes outside the optimizer: masters,
+    EMA, residual and device count."""
+    out = list(tree_leaves(state.params))
+    if state.ema is not None:
+        out += tree_leaves(state.ema)
+    return out + [t for t in (state.residual, state.count) if t is not None]
+
+
+def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> list:
+    return [v for per_param in optimizer.state.values()
+            for v in per_param.values() if isinstance(v, torch.Tensor)]
+
+
+class _MultiStep:
+    """:func:`make_multi_step`'s chunk runner."""
+
+    def __init__(self, cfg: TrainConfig, n: int):
+        if n < 1:
+            raise ValueError(f"steps per dispatch must be >= 1, got {n}")
+        self.cfg, self.n = cfg, n
+        self._step = make_train_step(cfg)
+        self._captured = None  # (graph, token buffer, stacked metrics)
+        self._state: Optional[TrainState] = None  # the one it captured
+        # the flash launches one replay makes, and the replays so far
+        self.captured_launches: Optional[tuple] = None
+        self.replays = 0
+        self.capture_seconds: Optional[float] = None
+
+    def __call__(self, state: TrainState, tokens: torch.Tensor) -> dict:
+        if state.count is None:
+            raise ValueError("a chunk runs on a device step count: "
+                             "make_train_state(..., device_step=True)")
+        n = tokens.shape[0]
+        if n == self.n and tokens.device.type == "cuda":
+            return self._replay(state, tokens)
+        ms = [self._step(state, tokens[i]) for i in range(n)]
+        return {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
+                for k in ms[0]}
+
+    def _capture(self, state: TrainState, tokens: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        device = tokens.device
+        # one eager warm-up step on a side stream (the libraries load and
+        # the optimizer's state exists before capture), then undone: the
+        # state tensors take back their values in place, and an optimizer
+        # state the step created its initial zeros
+        kept = [t.detach().clone() for t in _state_tensors(state)]
+        kept_opt = [t.clone() for t in _optimizer_tensors(state.optimizer)]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._step(state, tokens[0])
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t, k in zip(_state_tensors(state), kept):
+                t.copy_(k)
+            opt = _optimizer_tensors(state.optimizer)
+            if kept_opt:
+                for t, k in zip(opt, kept_opt):
+                    t.copy_(k)
+            else:
+                for t in opt:
+                    t.zero_()
+        buf = torch.empty_like(tokens)
+        graph = torch.cuda.CUDAGraph()
+        before = _flash_counts()
+        try:
+            with torch.cuda.graph(graph):
+                ms = [self._step(state, buf[i]) for i in range(self.n)]
+                out = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        except Exception as exc:
+            raise RuntimeError(f"CUDA graph capture of a {self.n}-step "
+                               f"chunk failed: {exc}") from exc
+        # capture enqueues nothing: the wrappers counted launches that
+        # each replay makes
+        self.captured_launches = tuple(
+            a - b for a, b in zip(_flash_counts(), before))
+        _add_flash_counts(-c for c in self.captured_launches)
+        torch.cuda.synchronize(device)
+        self.capture_seconds = time.perf_counter() - t0
+        self._captured = (graph, buf, out)
+
+    def _replay(self, state: TrainState, tokens: torch.Tensor) -> dict:
+        if self._captured is None:
+            self._capture(state, tokens)
+            self._state = state
+        elif state is not self._state:
+            raise ValueError("a captured chunk replays on the tensors of "
+                             "the state it was captured with; make a "
+                             "chunk runner for each state")
+        graph, buf, out = self._captured
+        buf.copy_(tokens)
+        graph.replay()
+        _add_flash_counts(self.captured_launches)
+        self.replays += 1
+        return {k: v.clone() for k, v in out.items()}
+
+
+def make_multi_step(cfg: TrainConfig, n: int) -> _MultiStep:
+    """``n`` production train steps a dispatch: the JAX ``make_multi_step``
+    (one ``lax.scan`` a chunk). Called as ``multi(state, tokens)`` with
+    ``tokens`` stacked ``(k, B, T)`` on the state's device, it runs ``k``
+    steps on ``state`` in place and returns each metric stacked along
+    axis 0. The state comes from ``make_train_state(...,
+    device_step=True)`` on every device: the step count, and the learning
+    rate read from it, live beside the parameters, and each step advances
+    the count there.
+
+    On the card a chunk of exactly ``n`` is one replay of a CUDA graph
+    that holds the ``n`` steps, captured at the first such chunk after
+    one eager warm-up step that is then undone; it replays only on the
+    state it captured. A graph that cannot be captured raises; nothing
+    falls back to the per-step loop. A shorter chunk (the tail), and on
+    the CPU (an explicit request) every chunk, runs the same step code
+    step by step. The runner's ``captured_launches`` are the flash
+    launches of one replay, ``replays`` the replays so far and
+    ``capture_seconds`` the capture's. Runs on one rank only: the rank
+    transports' host-side signalling is not captured (ROADMAP A5, part
+    2)."""
+    return _MultiStep(cfg, n)

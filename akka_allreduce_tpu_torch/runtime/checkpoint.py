@@ -3,11 +3,13 @@
 Counterpart of ``akka_allreduce_tpu/runtime/checkpoint.py``. A checkpoint
 is one directory per step, ``<directory>/<step>/``, holding
 ``params.pt`` (the nested params dict), ``opt_state.pt`` (the
-optimizer's ``state_dict()``) and ``extra.json`` (free-form JSON: data
-position, counters). It is written into a temporary directory beside it
-and renamed into place, so a crash mid-save never leaves a torn
-checkpoint; the newest ``keep`` are retained. Saves are synchronous, so
-``wait_until_finished`` has nothing to wait for.
+optimizer's ``state_dict()``), with ``ema_decay`` ``ema.pt`` (the EMA
+weights, params-shaped: the JAX package's ``ema`` item, which ``generate
+--use-ema`` and ``eval --use-ema`` read) and ``extra.json`` (free-form
+JSON: data position, counters). It is written into a temporary directory
+beside it and renamed into place, so a crash mid-save never leaves a
+torn checkpoint; the newest ``keep`` are retained. Saves are
+synchronous, so ``wait_until_finished`` has nothing to wait for.
 
 A data-parallel run passes its group (``parallel/group.py``): rank 0
 writes params, optimizer state and extra, every rank writes its own ef8
@@ -18,9 +20,8 @@ renamed. :meth:`CheckpointManager.restore_sync` gives a rank its residual
 back bitwise.
 
 The JAX package's orbax checkpoints are not read here (nor these by it):
-the formats differ, and carrying a run across is a later item (ROADMAP.md
-A5). The JSON sidecars (``save_state_json`` / ``load_state_json``) are
-the JAX package's: one atomic file per name.
+the formats differ. The JSON sidecars (``save_state_json`` /
+``load_state_json``) are the JAX package's: one atomic file per name.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from typing import Any, Optional
 
 import torch
 
-_ITEMS = ("params", "opt_state")
+from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+
+_ITEMS = ("params", "opt_state", "ema")
 
 
 def _atomic_write_text(path: str, text: str) -> str:
@@ -112,14 +115,16 @@ class CheckpointManager:
 
     def save(self, step: int, params: Any, opt_state: Any,
              extra: Optional[dict] = None, force: bool = False,
-             sync: Optional[torch.Tensor] = None, group=None) -> bool:
+             sync: Optional[torch.Tensor] = None, group=None,
+             ema: Any = None) -> bool:
         """Save unconditionally (``force``) or per the interval policy
         (``step % save_interval_steps == 0``). Returns whether a save
         happened (as orbax's policy, never at or before the latest saved
         step unless forced). ``sync`` is this rank's ef8 residual;
         ``group`` makes the save collective: every rank of it calls
         ``save`` with the same step and takes the same decision (it
-        reads the directory before any rank renames into it)."""
+        reads the directory before any rank renames into it). ``ema``,
+        when given, is saved as the ``ema`` item."""
         if not force:
             latest = self.latest_step()
             if step % max(1, self.config.save_interval_steps) or (
@@ -135,8 +140,10 @@ class CheckpointManager:
         if group is not None:
             group.barrier()  # the directory exists for every rank
         if rank == 0:
-            for name, tree in (("params", params), ("opt_state", opt_state)):
-                torch.save(tree, os.path.join(tmp, f"{name}.pt"))
+            for name, tree in (("params", params), ("opt_state", opt_state),
+                               ("ema", ema)):
+                if tree is not None:
+                    torch.save(tree, os.path.join(tmp, f"{name}.pt"))
             _atomic_write_text(os.path.join(tmp, "extra.json"),
                                json.dumps(extra or {}))
         if sync is not None:
@@ -155,10 +162,11 @@ class CheckpointManager:
 
     def maybe_save(self, step: int, params: Any, opt_state: Any,
                    extra: Optional[dict] = None,
-                   sync: Optional[torch.Tensor] = None, group=None) -> bool:
+                   sync: Optional[torch.Tensor] = None, group=None,
+                   ema: Any = None) -> bool:
         """Interval-gated save — safe to call every step."""
         return self.save(step, params, opt_state, extra, force=False,
-                         sync=sync, group=group)
+                         sync=sync, group=group, ema=ema)
 
     # -- restore -----------------------------------------------------------
 
@@ -183,13 +191,38 @@ class CheckpointManager:
         with open(os.path.join(self._path(step), "extra.json")) as f:
             return json.load(f)
 
+    def items(self, step: Optional[int] = None) -> list:
+        """The items the checkpoint at ``step`` (latest by default)
+        holds."""
+        step = self._resolve_step(step)
+        return [name for name in _ITEMS if os.path.exists(
+            os.path.join(self._path(step), f"{name}.pt"))]
+
+    def _check_item(self, step: int, item: str) -> None:
+        names = self.items(step)
+        if item not in names:
+            raise KeyError(f"item {item!r} not in checkpoint step {step}; "
+                           f"available items: {sorted(names)}")
+
     def restore(self, params_like: Any, opt_state_like: Any,
-                step: Optional[int] = None) -> tuple[int, Any, Any, dict]:
+                step: Optional[int] = None, ema: Any = None
+                ) -> tuple[int, Any, Any, dict]:
         """``(step, params, opt_state, extra)``: params take the nesting,
         devices and dtypes of ``params_like`` (shapes must match);
         ``opt_state`` is the saved ``state_dict()``, its tensors on the
-        params' device, for ``optimizer.load_state_dict``."""
+        params' device, for ``optimizer.load_state_dict``. ``ema``, when
+        given, is the live EMA tree: the checkpoint's ``ema`` item is
+        copied into it in place, bitwise (a checkpoint without one raises
+        the ``KeyError`` that lists its items, as the JAX package's
+        restore fails on a chain with an EMA slot that the checkpoint
+        lacks)."""
         step = self._resolve_step(step)
+        if ema is not None:
+            self._check_item(step, "ema")
+            saved = _like(ema, self._load(step, "ema", _first_device(ema)))
+            with torch.no_grad():
+                for live, value in zip(tree_leaves(ema), tree_leaves(saved)):
+                    live.copy_(value)
         device = _first_device(params_like)
         params = _like(params_like, self._load(step, "params", device))
         opt_state = self._load(step, "opt_state", device)
@@ -203,11 +236,11 @@ class CheckpointManager:
     def restore_params(self, params_like: Any, step: Optional[int] = None,
                        item: str = "params") -> tuple[int, Any, dict]:
         """Restore one item without the optimizer state (the weights-only
-        consumer path)."""
-        if item not in _ITEMS:
-            raise KeyError(f"item {item!r} not in checkpoint; available "
-                           f"items: {list(_ITEMS)}")
+        consumer path; ``item="ema"`` the EMA weights of an ``ema_decay``
+        run). An item the checkpoint lacks raises ``KeyError`` listing
+        the items it holds."""
         step = self._resolve_step(step)
+        self._check_item(step, item)
         loaded = self._load(step, item, _first_device(params_like))
         return step, _like(params_like, loaded), self._extra(step)
 
@@ -240,14 +273,17 @@ def _first_device(tree: Any) -> torch.device:
     return tree.device
 
 
-def restore_or_init(config: CheckpointConfig, params: Any, opt_state: Any
+def restore_or_init(config: CheckpointConfig, params: Any, opt_state: Any,
+                    ema: Any = None
                     ) -> tuple[int, Any, Any, dict, CheckpointManager]:
     """Open the manager and either restore the latest checkpoint or keep
     the given state. Returns (next_step, params, opt_state, extra,
-    manager)."""
+    manager); a given live ``ema`` tree takes the checkpoint's EMA in
+    place (:meth:`CheckpointManager.restore`)."""
     mgr = CheckpointManager(config)
     step = mgr.latest_step()
     if step is None:
         return 0, params, opt_state, {}, mgr
-    step, params, opt_state, extra = mgr.restore(params, opt_state, step)
+    step, params, opt_state, extra = mgr.restore(params, opt_state, step,
+                                                 ema=ema)
     return step + 1, params, opt_state, extra, mgr

@@ -1,1 +1,1 @@
-"""Metrics registry of the port."""
+"""Metrics registry and device-time attribution of the port."""

@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Phases, one JSON line each (any failure raises and exits non-zero):
+Phases, one JSON line each (any failure raises and exits non-zero). The
+multi-rank runs of one mesh within a phase share one spawn of the rank
+processes (``spawn_batch``: phases 9, 13, 16, 17 and 21), each run's
+launches and peak its own:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    convolutions, so every f32 product runs in full f32.
@@ -205,7 +208,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    sum of every rank's input; each rank launched each kernel 4 times.
    Then, median of 5 calls on every rank with CUDA events between group
    barriers (the slowest rank's median is the collective's time): the
-   kernels, and of 2 calls the plain version (host wire) and
+   kernels, and of 1 call the plain version (host wire) and
    ``torch.distributed.all_reduce`` on the gloo group (NCCL refuses two
    ranks on one device), seconds a call each; the same kernels on a 256 KB vector, whose
    time is the waits'; the byte bounds computed (the function's, the
@@ -280,7 +283,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    entry's note empty; each plan's table printed. Then the bench rows at
    four ipc ranks (``bench.py``: ``measure_device_goodput`` at 25M floats and
    ``measure_quantized_collectives`` over its four payloads; each set of
-   rounds sized to 0.3 s on the slowest rank, at least 4 / 1 rounds, 3
+   rounds sized to 0.15 s on the slowest rank, at least 4 / 1 rounds, 3
    reps), one JSON line each with its rounds and its spread;
    a row with an error fails.
 
@@ -318,7 +321,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    force-completed rounds. First the per-message copies (encode a chunk
    view: the device-to-host copy; decode and store it: the host-to-
    device copy), host-timed at 3 and 65,536 floats, card against CPU.
-   (a) the reference's cluster (phase 19 (a)'s shape, 100 rounds) with
+   (a) the reference's cluster (phase 19 (a)'s shape, 50 rounds) with
    4 card workers; (b) 2 card workers and 2 C++ workers (``worker
    --native``), every sink exact; (c) the C++ master (``master
    --native``) with 2 card workers; (b), (c) and (e) at (a)'s shape for
@@ -333,11 +336,57 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    clock, else the card workers'), MB/s, every process's exit code and
    lines, each card worker's report. The phase must end within
    ``CLUSTER_SECONDS`` (180 s).
+21. A5 — the training paths of ROADMAP A5 part 1 at phase 6's flagship
+   configuration (``TRAIN_ARGV``; each flash counter set to 0 just
+   before each run and read just after). (a) ``train --optimizer`` lion,
+   adafactor and sgd, 3 steps each: finite losses, each flash counter at
+   n_layers x steps, wall ms a step, the optimizer state's GB (its
+   ``state_dict()`` tensors) beside phase 6's adamw, the peak GB; then
+   ``A5_UPDATE_STEPS`` updates of each family on the card against the
+   same updates on the CPU (the flagship's width at ``A5_UPDATE_LAYERS``
+   layers, the same weights, gradients and fresh state), each leaf within
+   ``A5_UPDATE_TOL`` of its largest value. (b) ``train --ema-decay 0.99``
+   for 3 steps with ``--ckpt-every 3`` (saves at step 0, the interval
+   policy's, and at the last step, forced; each ~8.7 GB), keeping
+   each step's post-update masters: the checkpoint's ``ema`` item
+   bitwise the in-memory EMA, the EMA within ``A5_EMA_TOL`` of each
+   leaf's largest value of its recurrence over the kept masters; then,
+   as processes on the card, ``generate --use-ema`` (16 prompt ids from
+   seed 0, 16 tokens) whose tokens must equal an in-process greedy
+   decode from the EMA, ``eval --use-ema`` over a uint16 corpus of 16 x
+   2,048 tokens from seed 0 whose ``ce_nats_per_token`` must be within
+   ``A5_EVAL_RTOL`` (1e-4) of the cross-entropy computed in-process over
+   the same windows, and the control: ``generate --use-ema`` on a
+   checkpoint saved without EMA must exit 2. (c) phase 9's configuration
+   at ``--grad-accum 2`` on the ipc ranks: the f32 wire deferred and
+   overlapped and ef8 overlapped, 3 steps each: overlap's step-0 loss
+   bitwise deferred's, steps 1-2 within ``A5_OVERLAP_LOSS_RTOL``; the
+   sync kernels' launches at phase 9's per-sync counts x 2 syncs a step
+   under overlap (x 1 deferred); sync ms a step for each; the fault
+   control (``fold_dropped_train_rank``: the last in-flight result never
+   folded) must land outside the loss bound; the four runs share one
+   spawn of the two ranks (``spawn_batch``). (d) ``train
+   --steps-per-dispatch 3`` for 6 steps: two replays of one CUDA graph
+   of 3 steps, the losses bitwise the same step code run eagerly, step
+   by step, on the same kind of state from the same weights and batches,
+   within ``A5_GRAPH_LOSS_RTOL`` of phase
+   6's; the flash launches the captured 8 x 3 a replay x 2 replays plus
+   the warm-up step's 8; wall ms a step beside phase 6's, the capture's
+   seconds, and a torch.profiler window of one replay (device ms, idle
+   share). (e) the lion run's ``--metrics-file`` snapshot, parsed with
+   the port's ``parse_prometheus_text``: ``train_steps_total`` 3,
+   ``train_tokens_total`` 3 x 8 x 2,048, the host and device histograms
+   3 samples each and the gap's 2 (the first dispatch has no previous
+   one); its ``--xprof-dir --xprof-steps 2`` trace holds 16 launches
+   of each flash kernel (8 layers x 2 steps). The phase must end within
+   ``A5_SECONDS`` (150 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
-rank 0's in phases 9, 13, 16 and 17; the masked reduce's with phases
-19's and 20's), and last ``{"ok": true, "device": {...}}``.
+rank 0's in phases 9, 13, 16, 17 and 21; the masked reduce's with phases
+19's and 20's; the bf16 flash kernels' and the sync kernels' with phase
+21's, ``a5_launches`` apart on the sync rows), and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -555,8 +604,8 @@ ALLREDUCE_RUNS = ((2, 8257 * BUCKET_ELEMS), (4, 64 * 2 ** 20))
 ALLREDUCE_LOOP = 4
 ALLREDUCE_REPS = 5
 # the plain versions and gloo all_reduce, seconds a call on 2.16 GB:
-# timed fewer times than the kernels
-ALLREDUCE_REF_REPS = 2
+# timed over one call (two until phase 21 came)
+ALLREDUCE_REF_REPS = 1
 ALLREDUCE_SAMPLE = 65536  # columns held against the f64 sum
 # a vector whose traffic is negligible (256 KB): its time is the
 # handshakes', i.e. the time-slicing between the ranks' contexts
@@ -604,10 +653,11 @@ AUTO_F32 = ["--dp", "2"]
 AUTO_EF8 = ["--dp", "2", "--sp", "2", "--grad-quant", "ef8"]
 # the bench rows at four ranks: the JAX payloads (None: the bench
 # module's, 25M floats in buckets of 3,125,000 for the goodput row), at
-# least 4 / 1 rounds, sized up to 0.3 s a set, 3 reps
+# least 4 / 1 rounds, sized up to 0.15 s a set (0.3 until phase 21
+# came), 3 reps
 BENCH_RANKS = 4
 BENCH_R_HI, BENCH_R_LO, BENCH_REPS = 4, 1, 3
-BENCH_SET_S = 0.3
+BENCH_SET_S = 0.15
 BENCH_GOODPUT = None
 BENCH_PAYLOADS = None
 BENCH_BACKEND = DIST
@@ -641,11 +691,12 @@ CLUSTER_PARTS = {"a": ("python", ["card"] * 4),
                  "c": ("native", ["card"] * 2),
                  "d": ("python", ["card"] * 2),
                  "e": ("python", ["card"] * 4)}
-# (a) the reference's 100 rounds; (b), (c) and (e) 25, so that the phase
-# keeps well inside its limit: each card worker process takes ~10 s to
-# start (torch and a CUDA context), makes two synchronizing copies a
-# message, and shares the card with the others
-CLUSTER_ROUNDS = {"a": 100, "b": 25, "c": 25, "e": 25}
+# (a) 50 of the reference's 100 rounds (cut from 100 for the script's
+# time when phase 21 came); (b), (c) and (e) 25, so that the phase keeps
+# well inside its limit: each card worker process takes ~10 s to start
+# (torch and a CUDA context), makes two synchronizing copies a message,
+# and shares the card with the others
+CLUSTER_ROUNDS = {"a": 50, "b": 25, "c": 25, "e": 25}
 CLUSTER_CHECKPOINT = 10
 CLUSTER_TIMEOUT_S = 60
 CLUSTER_SCALE_ROUNDS = 3
@@ -658,6 +709,36 @@ CLUSTER_KILL_AFTER = 10  # (e)'s checkpoint: the victim's first sink line
 CLUSTER_COPY_REPS = 200
 CLUSTER_DEVICE = None  # card workers' --device (a CPU rehearsal: "cpu")
 CLUSTER_SECONDS = 180
+# phase 21: the A5 training paths at phase 6's configuration (TRAIN_ARGV)
+A5_SECONDS = 150
+A5_STEPS = 3
+A5_FAMILIES = ("lion", "adafactor", "sgd")
+# (a)'s updates on the card against the CPU: the flagship's width at
+# this many layers, A5_UPDATE_STEPS updates of fresh gradients (from the
+# second on, lion's momentum, adafactor's factored moments and sgd's
+# trace take part), each leaf within A5_UPDATE_TOL of its largest value
+A5_UPDATE_LAYERS = 2
+A5_UPDATE_STEPS = 3
+A5_UPDATE_TOL = 1e-6
+A5_UPDATE_GRAD_SCALE = 1e-3
+A5_EMA_DECAY = 0.99
+A5_EMA_TOL = 1e-6  # the EMA against its recurrence, of each leaf's max
+A5_GENERATE_TOKENS = 16
+A5_PROMPT_TOKENS = 16
+A5_EVAL_WINDOWS = 16
+A5_EVAL_BATCH = 8
+A5_EVAL_RTOL = 1e-4
+A5_SUBPROCESS_TIMEOUT_S = 120
+# (c): phase 9's configuration with two microbatches a rank
+A5_ACCUM = 2
+A5_OVERLAP_RUNS = (("none", "deferred", 3), ("none", "overlap", 3),
+                   ("ef8", "overlap", 3))
+A5_OVERLAP_CONTROL_STEPS = 2
+A5_OVERLAP_LOSS_RTOL = 5e-5  # overlap vs deferred, steps 1-2
+# (d): chunks of A5_SPD steps, two replays
+A5_SPD = 3
+A5_SPD_STEPS = 6
+A5_GRAPH_LOSS_RTOL = 5e-5  # the graph path vs phase 6's eager losses
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1175,9 +1256,13 @@ def phase_train(torch) -> dict:
                              f"{expected} each (n_layers x steps)")
     if not all(math.isfinite(x) for x in report["losses"]):
         raise AssertionError(f"non-finite losses {report['losses']}")
-    emit("train_step_profile", **profile_train_steps(torch, args, params))
+    profile = profile_train_steps(torch, args, params)
+    emit("train_step_profile", **profile)
     return {"launches": launches, "losses": report["losses"],
-            "params": report["config"]["params"]}
+            "params": report["config"]["params"],
+            "wall_ms_per_step": report["wall_ms_per_step"],
+            "optimizer_state_gb": report["optimizer_state_gb"],
+            "idle_share": profile["device_idle_share"]}
 
 
 def phase_train_parity(torch) -> dict:
@@ -1719,9 +1804,95 @@ def traced_train_rank(group, args, params, attn_impl):
         trace.update(found)
         return res
     train.allreduce_gradients = sync
-    report = cli._train_rank(group, args, params, attn_impl)
+    try:
+        report = cli._train_rank(group, args, params, attn_impl)
+    finally:
+        train.allreduce_gradients = real
     report["rank_info"]["sync_trace"] = trace
     return report
+
+
+def fold_dropped_train_rank(group, args, params, attn_impl):
+    """``cli``'s train rank with the overlapped schedule's last fold
+    dropped (the last microbatch's synced gradients never reach the
+    update): phase 21 (c)'s fault control."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models import train
+    fold = train.fold_in_flight
+    train.fold_in_flight = lambda acc, fly: acc
+    try:
+        return cli._train_rank(group, args, params, attn_impl)
+    finally:
+        train.fold_in_flight = fold
+
+
+RANK_MODES = {"traced": traced_train_rank,
+              "fold_dropped": fold_dropped_train_rank}
+
+
+def batch_rank(group, jobs: list) -> list:
+    """A rank of :func:`spawn_batch`: each job in turn in this one rank
+    process. A job is ``("train", args, mode)``, ``cli``'s train rank
+    (``RANK_MODES``: plain, "traced" or "fold_dropped"), or ``("call",
+    fn, args)``, ``fn(group, *args)``. Returns each job's result and
+    seconds; the peak memory is reset before each job."""
+    import gc
+
+    import torch
+
+    from akka_allreduce_tpu_torch import cli
+    out = []
+    for kind, target, extra in jobs:
+        gc.collect()  # the last job's tensors gone before its peak resets
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(group.device)
+        t0 = time.perf_counter()
+        if kind == "call":
+            res = target(group, *extra)
+        else:
+            fn = cli._train_rank if extra is None else RANK_MODES[extra]
+            res = fn(group, target, None, None)
+        out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def spawn_batch(torch, jobs: list, world: "int | None" = None,
+                backend: "str | None" = None, sp: int = 1) -> list:
+    """Every job of ``jobs`` (:func:`batch_rank`) in one spawn of the
+    ranks, so the ranks' start (processes, CUDA contexts, the process
+    group and the ipc buffers: ~20 s a spawn on the card) is paid once.
+    Train jobs must share their world, mesh and backend, which they
+    give (their counters are per run: each report's launches are the
+    run's own). Returns per job a train job's report as ``run_train``
+    returns it (rank 0's, with ``ranks``) or a call job's per-rank
+    results, each with the job's seconds on rank 0."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    meshes = set()
+    for kind, args, _ in jobs:
+        if kind == "train":
+            meshes.add((args.dp * args.sp, args.sp,
+                        cli._check_train_flags(args)[2]))
+    if len(meshes) > 1:
+        raise ValueError(f"one spawn runs one mesh, got {meshes}")
+    if meshes:
+        world, sp, backend = meshes.pop()
+    if DEVICE == "cuda":
+        from akka_allreduce_tpu_torch.ops.kernels import build
+        build.build_all()
+        torch.cuda.empty_cache()
+    per_rank = spawn_ranks(batch_rank, world, backend or DIST, DEVICE, jobs,
+                           sp=sp)
+    out = []
+    for k, (kind, _, _) in enumerate(jobs):
+        results = [r[k][0] for r in per_rank]
+        if kind == "train":
+            report = results[0]
+            report["ranks"] = [r.pop("rank_info") for r in results]
+            results = report
+        out.append((results, per_rank[0][k][1]))
+    return out
 
 
 def check_sync_traces(name: str, ranks: list) -> None:
@@ -1739,40 +1910,41 @@ def check_sync_traces(name: str, ranks: list) -> None:
 
 def phase_train_dp(torch, one_card_losses: list) -> dict:
     """``run_train`` at dp=2 per wire on the ipc transport (the main path
-    of the sync), each with its gloo twin; each run's ranks are fresh
-    processes whose counters start at 0. The f32 wire's losses are held
+    of the sync), each with its gloo twin; the wires share one spawn of
+    the ranks and the twins another (``spawn_batch``: each run's counts
+    are its own). The f32 wire's losses are held
     against phase 6's first steps (the same weights and global batches
     on one card), the quantized wires' against the f32 wire's. Returns
     the sync kernels' and the transport's launches summed over the runs
     (rank 0's; ``launches``, ``transport``) and each wire's emitted line
     (``runs``), which phase 16 compares with."""
     from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
     totals = dict.fromkeys(SYNC_KERNELS, 0)
     transport_launches = 0
     runs = {}
     f32_losses = None
-    for wire in DP_WIRES:
-        args = cli.build_parser().parse_args(DP_ARGV + ["--grad-quant", wire])
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        rank_fn = cli._train_rank
-        if DIST == "ipc":  # a window of step 1's sync, on every rank
-            cli._train_rank = traced_train_rank
-        try:
-            report = cli.run_train(args)
-        finally:
-            cli._train_rank = rank_fn
-        seconds = time.perf_counter() - t0
-        # the ef8 twin runs every step, so its residual is compared too
-        twin, twin_s = run_twin(torch, DP_ARGV + ["--grad-quant", wire],
-                                args.steps if wire == "ef8" else TWIN_STEPS)
+    wires = {w: parse(DP_ARGV + ["--grad-quant", w]) for w in DP_WIRES}
+    # the three wires in one spawn, then their twins in one (a window of
+    # step 1's sync traced on every ipc rank); the ef8 twin runs every
+    # step, so its residual is compared too
+    ipc = spawn_batch(torch, [("train", wires[w], "traced" if DIST == "ipc"
+                               else None) for w in DP_WIRES])
+    twins = spawn_batch(torch, [("train", parse(
+        DP_ARGV + ["--grad-quant", w, "--dist-backend", TWIN, "--steps",
+                   str(wires[w].steps if w == "ef8" else TWIN_STEPS)]),
+        None) for w in DP_WIRES])
+    for wire, (report, seconds), (twin, twin_s) in zip(DP_WIRES, ipc,
+                                                       twins):
+        args = wires[wire]
         cfg = report["config"]
         num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
         per_sync = expected_sync_launches(
             cfg["grad_transport"], cfg["transport_schedule"],
             report["dist"]["world"], num_buckets, args.grad_windows)
         expected = {k: v * args.steps for k, v in per_sync.items()}
-        flash_expected = args.n_layers * args.steps
+        flash_expected = (args.n_layers * args.steps if DEVICE == "cuda"
+                          else 0)
         sums = [r["param_checksum"] for r in report["ranks"]]
         sync_ms = report["ranks"][0]["sync_ms"]
         losses = report["losses"]
@@ -2200,14 +2372,22 @@ def phase_train_sp(torch) -> dict:
     the ring kernels), in bf16 and in the CLI's default f32 (``SP_RUNS``).
     Returns, per dtype, the ring kernels' launches summed over the ranks
     (``"ring"``) and the one-card run's flash launches (``"flash"``)."""
-    return {dtype: train_sp(torch, argv, dtype)
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    dist = {dtype: argv + ["--sp", str(SP_WORLD), "--dist-backend", DIST]
             for dtype, argv in SP_RUNS.items()}
+    # the sp=2 runs of every dtype in one spawn of the ranks
+    runs = spawn_batch(torch, [("train", parse(dist[d]), None)
+                               for d in SP_RUNS], sp=SP_WORLD)
+    return {dtype: train_sp(torch, argv, dtype, dist[dtype], *run)
+            for (dtype, argv), run in zip(SP_RUNS.items(), runs)}
 
 
-def train_sp(torch, argv: list, dtype: str) -> dict:
-    """One ``SP_RUNS`` entry: the one-card run, then ``--sp 2`` on the ipc
-    transport and its gloo twin; the ranks are fresh processes whose
-    counters start at 0."""
+def train_sp(torch, argv: list, dtype: str, dist_argv: list, report: dict,
+             seconds: float) -> dict:
+    """One ``SP_RUNS`` entry: the one-card run, checks against the ``--sp
+    2`` run on the ipc transport (``report``, from :func:`spawn_batch`;
+    its counters are the run's own) and its gloo twin."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
     one_args = parse(argv)
@@ -2216,11 +2396,7 @@ def train_sp(torch, argv: list, dtype: str) -> dict:
     one = cli.run_train(one_args)
     one_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    dist_argv = argv + ["--sp", str(SP_WORLD), "--dist-backend", DIST]
     args = parse(dist_argv)
-    t0 = time.perf_counter()
-    report = cli.run_train(args)
-    seconds = time.perf_counter() - t0
     twin = (run_twin(torch, dist_argv, min(TWIN_STEPS, args.steps))
             if dtype in SP_TWINS else None)
     losses, ref = report["losses"], one["losses"]
@@ -2452,12 +2628,12 @@ def masked_sync_rank(group, rows: int, cols: int) -> dict:
 def phase_train_deadline(torch, dp_runs: dict) -> dict:
     """Phase 16: ``run_train`` at phase 9's flagship dp=2 configuration
     on the ipc transport under ``--deadline-ms`` for each of
-    ``DEADLINE_RUNS`` (fresh rank processes each, so their counters start
-    at 0), the runs of ``DEADLINE_TWINS`` with their gloo twins, then one
-    direct masked sync at the flagship's gradient size. Returns rank 0's
+    ``DEADLINE_RUNS``, then one direct masked sync at the flagship's
+    gradient size, all in one spawn of the ranks (each run's counts its
+    own), and the runs of ``DEADLINE_TWINS`` with their gloo twins.
+    Returns rank 0's
     sync, flash and transport launches summed over the runs."""
     from akka_allreduce_tpu_torch import cli
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     base = cli.build_parser().parse_args(DP_ARGV)
     draws = straggle_draws(DEADLINE_MAX_STEPS, DP_WORLD, base.batch,
                            base.seq, base.vocab)
@@ -2472,16 +2648,18 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
     totals = {"sync": dict.fromkeys(SYNC_KERNELS, 0),
               "flash": dict.fromkeys(FLASH_REPLACES, 0), "transport": 0}
     runs = {}
-    for wire, lag in DEADLINE_RUNS:
-        argv = DP_ARGV + [
-            "--grad-quant", wire, "--steps", str(steps), "--deadline-ms",
-            str(DEADLINE_MS), "--straggle-prob", repr(prob), "--max-lag",
-            str(lag)]
+    argvs = [DP_ARGV + [
+        "--grad-quant", wire, "--steps", str(steps), "--deadline-ms",
+        str(DEADLINE_MS), "--straggle-prob", repr(prob), "--max-lag",
+        str(lag)] for wire, lag in DEADLINE_RUNS]
+    rows, cols = DEADLINE_SYNC_SHAPE
+    # every run and the direct masked sync in one spawn of the ranks
+    batch = spawn_batch(torch, [("train", cli.build_parser().parse_args(a),
+                                 None) for a in argvs]
+                        + [("call", masked_sync_rank, (rows, cols))])
+    for (wire, lag), argv, (report, seconds) in zip(DEADLINE_RUNS, argvs,
+                                                     batch):
         args = cli.build_parser().parse_args(argv)
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        report = cli.run_train(args)
-        seconds = time.perf_counter() - t0
         twin = None
         if (wire, lag) in DEADLINE_TWINS:
             twin = run_twin(torch, argv,
@@ -2561,9 +2739,7 @@ def phase_train_deadline(torch, dp_runs: dict) -> dict:
          note="on ipc the host enqueues a round's sync without waiting "
               "for it, so the window can overlap the host's dispatch of "
               "the next round with the device's sync")
-    rows, cols = DEADLINE_SYNC_SHAPE
-    sync = spawn_ranks(masked_sync_rank, DP_WORLD, DIST, DEVICE, rows,
-                       cols)
+    sync = batch[-1][0]
     emit("masked_sync", rows=rows, cols=cols, ranks=sync)
     bad = [r for r in sync if not (
         r["f32_exact"] and r["f32_counts"] == [1] and r["ef8_counts"] == [1]
@@ -2600,26 +2776,37 @@ def choose_line_drop(draws, line: int) -> "tuple[float, int]":
     return (lo + hi) / 2, order[0]
 
 
-def hierarchical_controls(torch, one_losses: list) -> dict:
+def dropped_line_args():
+    """The second fault control of ``HIER_LOSS_ATOL``: ``HIER_DIST`` for 2
+    steps under ``--deadline-ms`` with a straggle draw that makes one dp
+    line late at step 1, so its sp line is masked out of the round (the
+    other line's 4 sequences alone). Returns its args, the draw's
+    probability and the dropped line."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    args = parse(HIER_ARGV + HIER_DIST + ["--steps", "2"])
+    draws = straggle_draws(1, args.dp * args.sp, args.batch, args.seq,
+                           args.vocab)
+    prob, line = choose_line_drop(draws, args.sp)
+    return parse(HIER_ARGV + HIER_DIST + [
+        "--steps", "2", "--deadline-ms", str(DEADLINE_MS),
+        "--straggle-prob", repr(prob)]), prob, line
+
+
+def hierarchical_controls(torch, one_losses: list, dropped: dict,
+                          prob: float, line: int) -> dict:
     """The two faults that ``HIER_LOSS_ATOL`` must tell from a sound
     sync, each read as its step-2 loss gap to the one-card run: no
     update at step 1 (one card at ``--lr 0``), and one dp line's
-    gradient dropped at step 1 (``HIER_DIST`` under ``--deadline-ms``
-    with a straggle draw that makes that line late, so its sp line is
-    masked out of the round: the other line's 4 sequences alone)."""
+    gradient dropped at step 1 (``dropped``, the report of
+    :func:`dropped_line_args`' run)."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
     two = ["--steps", "2"]
     torch.cuda.empty_cache()
     frozen = cli.run_train(parse(HIER_ARGV + two + ["--lr", "0"]))
-    torch.cuda.empty_cache()
     args = parse(HIER_ARGV + HIER_DIST + two)
     world = args.dp * args.sp
-    draws = straggle_draws(1, world, args.batch, args.seq, args.vocab)
-    prob, line = choose_line_drop(draws, args.sp)
-    dropped = cli.run_train(parse(
-        HIER_ARGV + HIER_DIST + two + ["--deadline-ms", str(DEADLINE_MS),
-                                       "--straggle-prob", repr(prob)]))
     round1 = dropped["deadline"]["rounds"][0]
     out = {
         "frozen_step1": {"argv_extra": two + ["--lr", "0"],
@@ -2639,8 +2826,9 @@ def hierarchical_controls(torch, one_losses: list) -> dict:
 
 def phase_hierarchical(torch) -> dict:
     """Phase 17, the full-width run: ``HIER_ARGV`` on one card, then at
-    ``HIER_DIST`` (four ipc ranks on the card, fresh processes whose
-    counters start at 0) and its gloo twin (every step, so the ef8
+    ``HIER_DIST`` (four ipc ranks on the card, in one spawn with the
+    dropped-line control; each run's counts its own) and its gloo twin
+    (every step, so the ef8
     residuals are compared), then the two fault controls of the loss
     bound. Returns the emitted row, rank 0's sync and transport launches
     and the ring kernels' launches summed over the ranks."""
@@ -2649,10 +2837,12 @@ def phase_hierarchical(torch) -> dict:
     torch.cuda.empty_cache()
     one = cli.run_train(parse(HIER_ARGV))
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     args = parse(HIER_ARGV + HIER_DIST)
-    report = cli.run_train(args)
-    seconds = time.perf_counter() - t0
+    # the run and the dropped-line control in one spawn of the ranks
+    control_args, prob, line = dropped_line_args()
+    (report, seconds), (dropped, dropped_s) = spawn_batch(
+        torch, [("train", args, None), ("train", control_args, None)],
+        sp=args.sp)
     twin = run_twin(torch, HIER_ARGV + HIER_DIST, args.steps)
     cfg, ranks = report["config"], report["ranks"]
     num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
@@ -2676,7 +2866,7 @@ def phase_hierarchical(torch) -> dict:
     sync_ms = ranks[0]["sync_ms"]
     peaks = [r["peak_memory_gb"] for r in ranks]
     t1 = time.perf_counter()
-    controls = hierarchical_controls(torch, ref)
+    controls = hierarchical_controls(torch, ref, dropped, prob, line)
     row = {
         "argv": HIER_ARGV + HIER_DIST, "params": cfg["params"],
         "n_layers": cfg["n_layers"], "num_buckets": num_buckets,
@@ -2702,7 +2892,7 @@ def phase_hierarchical(torch) -> dict:
         "peak_memory_gb_per_rank": peaks,
         "peak_memory_gb_sum": sum(peaks) if all(peaks) else None,
         "run_seconds": seconds,
-        "controls_seconds": time.perf_counter() - t1,
+        "controls_seconds": time.perf_counter() - t1 + dropped_s,
         **twin_fields(report, *twin)}
     emit("hierarchical_train", **row)
     check_twin("phase 17 hierarchical", report, row, peak=True)
@@ -2738,6 +2928,12 @@ def phase_hierarchical(torch) -> dict:
             "transport": row["transport"]["transport_launches"]}
 
 
+def file_bytes(group, path: str) -> bytes:
+    """A file's bytes, read on a rank (a :func:`spawn_batch` call job)."""
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def phase_auto(torch, plan_dir: str) -> dict:
     """Phase 17, the autotuner at the CLI's defaults: the f32 dp=2 plan
     measured into ``plan_dir`` and reloaded with its sidecar's bytes
@@ -2749,15 +2945,17 @@ def phase_auto(torch, plan_dir: str) -> dict:
                                                        plan_markdown_table)
     parse = cli.build_parser().parse_args
     sidecar = os.path.join(plan_dir, PLAN_SIDECAR + ".json")
-    runs, sidecars = [], []
-    for extra in (AUTO_F32 + ["--plan-dir", plan_dir],
-                  AUTO_F32 + ["--plan-dir", plan_dir], AUTO_EF8):
-        torch.cuda.empty_cache()
-        report = cli.run_train(parse(AUTO_ARGV + extra))
-        runs.append(report)
-        if "--plan-dir" in extra:
-            with open(sidecar, "rb") as f:
-                sidecars.append(f.read())
+    f32 = parse(AUTO_ARGV + AUTO_F32 + ["--plan-dir", plan_dir])
+    # the measuring run and the reloading one in one spawn of the ranks,
+    # the sidecar's bytes read after each
+    batch = spawn_batch(torch, [("train", f32, None),
+                                ("call", file_bytes, (sidecar,)),
+                                ("train", f32, None),
+                                ("call", file_bytes, (sidecar,))])
+    runs = [batch[0][0], batch[2][0]]
+    sidecars = [batch[1][0][0], batch[3][0][0]]
+    torch.cuda.empty_cache()
+    runs.append(cli.run_train(parse(AUTO_ARGV + AUTO_EF8)))
     failures = []
     for n, report in enumerate(runs):
         info = report["collective_plan"]
@@ -4051,6 +4249,553 @@ def phase_cluster(torch, n_params: int) -> dict:
             "launches": sum(lines[p]["launches"] for p in CLUSTER_PARTS)}
 
 
+def with_steps(argv: list, steps: int) -> list:
+    """``argv`` with its ``--steps`` value replaced."""
+    out = list(argv)
+    out[out.index("--steps") + 1] = str(steps)
+    return out
+
+
+def model_flags(argv: list) -> list:
+    """The model-shape flags of a train argv, for generate and eval."""
+    out = []
+    for i, a in enumerate(argv):
+        if a in ("--d-model", "--n-heads", "--n-layers", "--d-ff", "--vocab",
+                 "--kv-heads", "--ffn", "--attn-window"):
+            out += [a, argv[i + 1]]
+        elif a in ("--rope", "--tie-embeddings"):
+            out.append(a)
+    return out
+
+
+def flash_counts() -> dict:
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    return {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_dq": fa.FLASH_DQ_LAUNCHES,
+            "flash_dkv": fa.FLASH_DKV_LAUNCHES}
+
+
+def zero_flash_counts(torch) -> None:
+    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_DQ_LAUNCHES = fa.FLASH_DKV_LAUNCHES = 0
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def expected_flash(n: int) -> dict:
+    """``n`` launches of each flash kernel on the card (the CPU wrappers
+    run the plain versions and count nothing)."""
+    return dict.fromkeys(FLASH_REPLACES, n if DEVICE == "cuda" else 0)
+
+
+def leaf_rel_errs(torch, got: list, want: list) -> list:
+    """Per leaf: the largest difference over the leaf's largest value."""
+    return [float((a.detach().float().cpu() - b.detach().float().cpu()
+                   ).abs().max() / b.detach().float().abs().max().cpu()
+                  .clamp(min=1e-30)) for a, b in zip(got, want)]
+
+
+def a5_families(torch, work: str) -> dict:
+    """(a): ``train --optimizer`` lion, adafactor and sgd at the flagship
+    configuration (the lion run with ``--metrics-file`` and
+    ``--xprof-dir``, part (e)). Returns the runs and their flash
+    launches."""
+    from akka_allreduce_tpu_torch import cli
+    out = {"flash": dict.fromkeys(FLASH_REPLACES, 0), "runs": {}}
+    for fam in A5_FAMILIES:
+        extra = ["--optimizer", fam]
+        if fam == "lion":
+            extra += ["--metrics-file", os.path.join(work, "metrics.prom"),
+                      "--xprof-dir", os.path.join(work, "trace"),
+                      "--xprof-steps", "2"]
+        args = cli.build_parser().parse_args(
+            with_steps(TRAIN_ARGV, A5_STEPS) + extra)
+        zero_flash_counts(torch)
+        report = cli.run_train(args)
+        launches = flash_counts()
+        expected = expected_flash(args.n_layers * args.steps)
+        row = {"optimizer": fam, "losses": report["losses"],
+               "wall_ms_per_step": report["wall_ms_per_step"],
+               "tokens_per_s": report["tokens_per_s"], "mfu": report["mfu"],
+               "optimizer_state_gb": report["optimizer_state_gb"],
+               "peak_memory_gb": report["peak_memory_gb"],
+               "launches": launches, "expected_launches": expected}
+        emit("a5_family", **row)
+        if not all(math.isfinite(x) for x in report["losses"]):
+            raise AssertionError(f"{fam}: non-finite losses {row}")
+        if launches != expected:
+            raise AssertionError(f"{fam}: flash launches {launches}, "
+                                 f"expected {expected}")
+        for k in FLASH_REPLACES:
+            out["flash"][k] += launches[k]
+        out["runs"][fam] = report
+    return out
+
+
+def a5_update_check(torch) -> list:
+    """(a): ``A5_UPDATE_STEPS`` updates of each family on the card against
+    the same updates on the CPU, from the same weights (the flagship's
+    width at ``A5_UPDATE_LAYERS`` layers), gradients and fresh state."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import (apply_update,
+                                                       make_train_state,
+                                                       tree_leaves, tree_map)
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    args = cli.build_parser().parse_args(
+        TRAIN_ARGV + ["--n-layers", str(A5_UPDATE_LAYERS)])
+    base = cli.train_config(args, args.seq)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    params = init_transformer(gen, base.model, DEVICE)
+    grads = [[torch.randn(p.shape, generator=gen, device=DEVICE)
+              * A5_UPDATE_GRAD_SCALE for p in tree_leaves(params)]
+             for _ in range(A5_UPDATE_STEPS)]
+    rows = []
+    for fam in A5_FAMILIES:
+        cfg = dataclasses.replace(base, optimizer=fam)
+        after, seconds = [], []
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            state = make_train_state(cfg, params=tree_map(
+                lambda p: p.detach().to(dev, copy=True), params))
+            for update in grads:
+                apply_update(cfg, state,
+                             [g.to(dev, copy=True) for g in update])
+            after.append(tree_leaves(state.params))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        errs = leaf_rel_errs(torch, *after)
+        row = {"optimizer": fam, "layers": A5_UPDATE_LAYERS,
+               "updates": A5_UPDATE_STEPS, "leaves": len(errs),
+               "max_rel_err": max(errs), "tol": A5_UPDATE_TOL,
+               "card_s": seconds[0], "cpu_s": seconds[1]}
+        emit("a5_update", **row)
+        if max(errs) > A5_UPDATE_TOL:
+            raise AssertionError(f"{fam}: the card's updates against the "
+                                 f"CPU's: {row}")
+        rows.append(row)
+        del after
+    return rows
+
+
+def a5_ema(torch, work: str) -> dict:
+    """(b): ``train --ema-decay`` with a checkpoint, the EMA against its
+    recurrence and the checkpoint's item, then ``generate --use-ema``
+    and ``eval --use-ema`` as processes on the card against the same
+    computations in this process, and the control (``--use-ema`` on a
+    checkpoint without EMA exits 2)."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.data import eval_batches, load_corpus
+    from akka_allreduce_tpu_torch.models.generate import generate
+    from akka_allreduce_tpu_torch.models.train import (
+        TrainConfig, select_local_attention, tree_leaves)
+    from akka_allreduce_tpu_torch.models.transformer import (
+        init_transformer, next_token_loss_and_aux)
+    from akka_allreduce_tpu_torch.runtime import checkpoint as ck
+    ckpt, plain = os.path.join(work, "ema-ckpt"), os.path.join(work, "plain")
+    args = cli.build_parser().parse_args(with_steps(TRAIN_ARGV, A5_STEPS) + [
+        "--ema-decay", str(A5_EMA_DECAY), "--ckpt-every", str(A5_STEPS),
+        "--ckpt-dir", ckpt])
+    mcfg = cli.train_config(args, args.seq).model
+    params = init_transformer(torch.Generator(DEVICE).manual_seed(0), mcfg,
+                              DEVICE)
+    first = [p.detach().clone() for p in tree_leaves(params)]
+    kept, live = [], {}
+
+    def keep(_i, state):  # the post-update masters of every step
+        kept.append([p.detach().clone() for p in tree_leaves(state.params)])
+        live["ema"] = state.ema
+    saves, real_save = [], ck.CheckpointManager.save
+
+    def timed_save(self, *a, **k):
+        t0 = time.perf_counter()
+        done = real_save(self, *a, **k)
+        if done:  # an interval-gated call that saved
+            saves.append(time.perf_counter() - t0)
+        return done
+    zero_flash_counts(torch)
+    ck.CheckpointManager.save = timed_save
+    try:
+        report = cli.run_train(args, params=params, on_step=keep)
+    finally:
+        ck.CheckpointManager.save = real_save
+    launches = flash_counts()
+    ema = live["ema"]
+    mgr = ck.CheckpointManager(ck.CheckpointConfig(ckpt))
+    step, saved, _ = mgr.restore_params(ema, item="ema")
+    item_bitwise = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(saved), tree_leaves(ema)))
+    ref = first
+    for masters in kept:
+        ref = [A5_EMA_DECAY * e + (1 - A5_EMA_DECAY) * p
+               for e, p in zip(ref, masters)]
+    errs = leaf_rel_errs(torch, tree_leaves(ema), ref)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, str(step), f))
+                     for f in os.listdir(os.path.join(ckpt, str(step))))
+    del saved, ref, kept, first
+    # the control's checkpoint: one saved without an EMA (the CLI
+    # defaults' small model: the item check comes before any weight is
+    # read, so its size does not matter)
+    small = init_transformer(torch.Generator(DEVICE).manual_seed(0),
+                             cli.train_config(cli.build_parser().parse_args(
+                                 ["train"]), 32).model, DEVICE)
+    ck.CheckpointManager(ck.CheckpointConfig(plain)).save(
+        0, small, {"count": 1}, force=True)
+    prompt = np.random.default_rng(0).integers(
+        0, args.vocab, size=A5_PROMPT_TOKENS).tolist()
+    corpus = os.path.join(work, "corpus.bin")
+    np.random.default_rng(0).integers(
+        0, args.vocab, size=A5_EVAL_WINDOWS * args.seq).astype(
+        "<u2").tofile(corpus)
+    shape = model_flags(TRAIN_ARGV) + ["--max-seq", str(args.seq),
+                                       "--device", DEVICE]
+    decode = ["--prompt-tokens", ",".join(map(str, prompt)), "--tokens",
+              str(A5_GENERATE_TOKENS), "--raw"]
+    cmds = {"generate": ["generate", "--use-ema", "--ckpt-dir", ckpt,
+                         *shape, *decode],
+            "eval": ["eval", "--use-ema", "--ckpt-dir", ckpt, "--data-file",
+                     corpus, "--batch", str(A5_EVAL_BATCH), *shape],
+            "control": ["generate", "--use-ema", "--ckpt-dir", plain,
+                        *shape, *decode]}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "akka_allreduce_tpu_torch.cli", *argv],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, argv in cmds.items()}
+    try:
+        # the same decode and cross-entropy in this process, meanwhile
+        want_tokens = generate(ema, torch.tensor(
+            [prompt], dtype=torch.int32, device=DEVICE), mcfg,
+            steps=A5_GENERATE_TOKENS)[0].tolist()
+        attn = select_local_attention(TrainConfig(model=mcfg))
+        ce, n = 0.0, 0.0
+        with torch.no_grad():
+            for arr in eval_batches(load_corpus(corpus), A5_EVAL_BATCH,
+                                    args.seq):
+                loss, w, aux = next_token_loss_and_aux(
+                    ema, torch.from_numpy(arr).to(DEVICE), mcfg,
+                    attn_fn=attn)
+                ce += float(loss - aux["aux_loss"] * w)
+                n += float(w)
+        outs = {k: p.communicate(timeout=A5_SUBPROCESS_TIMEOUT_S)
+                for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    rcs = {k: p.returncode for k, p in procs.items()}
+    got_tokens = ([int(t) for t in outs["generate"][0].strip()
+                   .splitlines()[-1].split(",")]
+                  if rcs["generate"] == 0 else None)
+    got_eval = (json.loads(outs["eval"][0].strip().splitlines()[-1])
+                if rcs["eval"] == 0 else {})
+    want_ce = ce / n
+    eval_rel = (abs(got_eval["ce_nats_per_token"] - want_ce) / want_ce
+                if got_eval else None)
+    row = {"losses": report["losses"], "ema_decay": A5_EMA_DECAY,
+           "wall_ms_per_step": report["wall_ms_per_step"],
+           "launches": launches, "checkpoint_step": step,
+           "checkpoint_gb": ckpt_bytes / 1e9, "save_seconds": saves,
+           "ema_item_bitwise": item_bitwise,
+           "ema_recurrence_max_rel_err": max(errs), "ema_tol": A5_EMA_TOL,
+           "subprocess_rcs": rcs, "subprocess_seconds": seconds,
+           "generate_tokens": got_tokens, "in_process_tokens": want_tokens,
+           "eval": got_eval, "in_process_ce": want_ce,
+           "eval_rel_diff": eval_rel, "eval_rtol": A5_EVAL_RTOL,
+           "control_stderr": outs["control"][1].strip().splitlines()[-1:]}
+    emit("a5_ema", **row)
+    if launches != expected_flash(args.n_layers * args.steps):
+        raise AssertionError(f"(b) flash launches {launches}")
+    if not item_bitwise or max(errs) > A5_EMA_TOL:
+        raise AssertionError(f"(b) the EMA against its checkpoint item and "
+                             f"its recurrence: {row}")
+    if rcs != {"generate": 0, "eval": 0, "control": 2}:
+        raise AssertionError(f"(b) exit codes {rcs}: "
+                             f"{ {k: o[1][-2000:] for k, o in outs.items()} }")
+    if got_tokens != want_tokens:
+        raise AssertionError(f"(b) generate --use-ema {got_tokens} against "
+                             f"the in-process decode {want_tokens}")
+    if eval_rel is None or eval_rel > A5_EVAL_RTOL:
+        raise AssertionError(f"(b) eval --use-ema {got_eval} against "
+                             f"{want_ce}")
+    return {"flash": launches, "row": row}
+
+
+def a5_overlap(torch) -> dict:
+    """(c): phase 9's configuration with two microbatches a rank on the
+    ipc ranks, deferred and overlapped (f32), overlapped on ef8, and the
+    fault control, every run in one spawn of the ranks. Returns rank 0's
+    sync, flash and transport launches summed over the checked runs."""
+    from akka_allreduce_tpu_torch import cli
+    totals = {"sync": dict.fromkeys(SYNC_KERNELS, 0),
+              "flash": dict.fromkeys(FLASH_REPLACES, 0), "transport": 0}
+    plan = [(wire, sched, steps, False)
+            for wire, sched, steps in A5_OVERLAP_RUNS]
+    plan.append(("none", "overlap", A5_OVERLAP_CONTROL_STEPS, True))
+    runs = [("train", cli.build_parser().parse_args(
+        with_steps(DP_ARGV, steps) + [
+            "--grad-quant", wire, "--grad-accum", str(A5_ACCUM),
+            "--accum-schedule", sched]), "fold_dropped" if control else None)
+        for wire, sched, steps, control in plan]
+    t0 = time.perf_counter()
+    batch = spawn_batch(torch, runs)
+    spawn_s = time.perf_counter() - t0
+    rows = {}
+    for (wire, sched, steps, control), (_, args, _), (report, _) in zip(
+            plan, runs, batch):
+        ranks = report["ranks"]
+        cfg = report["config"]
+        num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
+        per_sync = expected_sync_launches(
+            cfg["grad_transport"], cfg["transport_schedule"], DP_WORLD,
+            num_buckets, args.grad_windows)
+        syncs = A5_ACCUM if sched == "overlap" else 1
+        expected = {k2: v * syncs * steps for k2, v in per_sync.items()}
+        sync_ms = ranks[0]["sync_ms"]
+        row = {"wire": wire, "schedule": sched, "grad_accum": A5_ACCUM,
+               "control": control, "backend": report["dist"]["backend"],
+               "losses": report["losses"],
+               "wall_ms_per_step": report["wall_ms_per_step"],
+               "sync_ms": sync_ms, "sync_ms_per_step": steady(sync_ms),
+               "sync_launches": report["sync_launches"],
+               "expected_sync_launches": expected,
+               "flash_launches": report["launches"],
+               "transport": report["transport"],
+               "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                           for r in ranks],
+               "param_checksums": [r["param_checksum"] for r in ranks]}
+        rows[wire, sched, control] = row
+        emit("a5_overlap", **row)
+        if not all(math.isfinite(x) for x in report["losses"]):
+            raise AssertionError(f"(c) {wire} {sched}: non-finite losses")
+        if len(set(row["param_checksums"])) != 1:
+            raise AssertionError(f"(c) {wire} {sched}: the ranks' "
+                                 f"parameters differ")
+        if report["sync_launches"] != expected:
+            raise AssertionError(f"(c) {wire} {sched}: sync launches "
+                                 f"{report['sync_launches']}, expected "
+                                 f"{expected}")
+        want_flash = expected_flash(args.n_layers * A5_ACCUM * steps)
+        if report["launches"] != want_flash:
+            raise AssertionError(f"(c) {wire} {sched}: flash launches "
+                                 f"{report['launches']}, expected "
+                                 f"{want_flash}")
+        if control:  # a fault control's launches are no main path's
+            continue
+        for k2 in SYNC_KERNELS:
+            totals["sync"][k2] += report["sync_launches"][k2]
+        for k2 in FLASH_REPLACES:
+            totals["flash"][k2] += report["launches"][k2]
+        totals["transport"] += report["transport"]["transport_launches"]
+    deferred = rows["none", "deferred", False]["losses"]
+    overlap = rows["none", "overlap", False]["losses"]
+    control = rows["none", "overlap", True]["losses"]
+    ef8 = rows["ef8", "overlap", False]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(overlap, deferred)]
+    c_rel = [abs(a - b) / abs(b) for a, b in zip(control, deferred)]
+    row = {"step0_bitwise": overlap[0] == deferred[0],
+           "loss_rel_diff": rel, "loss_rtol": A5_OVERLAP_LOSS_RTOL,
+           "control_losses": control, "control_rel_diff": c_rel,
+           "ef8_loss_diff_vs_f32": [abs(a - b) for a, b in
+                                    zip(ef8, deferred)],
+           "ef8_loss_atol": QUANT_LOSS_ATOL,
+           "sync_ms_per_step": {f"{w} {s}{' control' if c else ''}":
+                                r["sync_ms_per_step"]
+                                for (w, s, c), r in rows.items()},
+           "spawn_seconds": spawn_s}
+    emit("a5_overlap_checks", **row)
+    if not row["step0_bitwise"] or max(rel[1:]) > A5_OVERLAP_LOSS_RTOL:
+        raise AssertionError(f"(c) overlap against deferred: {row}")
+    if not max(c_rel[1:]) > A5_OVERLAP_LOSS_RTOL:
+        raise AssertionError(f"(c) the fault control (the last fold "
+                             f"dropped) landed inside the bound: {row}")
+    if not max(row["ef8_loss_diff_vs_f32"]) < QUANT_LOSS_ATOL:
+        raise AssertionError(f"(c) ef8 overlap against the f32 wire: {row}")
+    return totals
+
+
+def a5_replay_profile(torch, cfg, state, tokens) -> dict:
+    """(d): a torch.profiler window of one replay of a captured chunk
+    (captured, and replayed once, first): wall ms (host clock to a
+    synchronize), device ms (the kernels' rows), the CUDA events' span
+    around the replay, and the idle share."""
+    from akka_allreduce_tpu_torch.models.train import make_multi_step
+    multi = make_multi_step(cfg, A5_SPD)
+    multi(state, tokens[:A5_SPD])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        multi(state, tokens[A5_SPD:2 * A5_SPD])
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_kernel_rows(torch, prof.key_averages(), 1)
+    device_ms = sum(ms for _, ms in rows)
+    return {"wall_ms": wall_ms, "event_span_ms": start.elapsed_time(end),
+            "device_ms": device_ms if rows else "not measured",
+            "device_idle_share": (1 - device_ms / wall_ms) if rows
+            else "not measured", "kernel_rows": len(rows),
+            "capture_seconds": multi.capture_seconds,
+            "top_kernels": sorted(rows, key=lambda r: -r[1])[:6]}
+
+
+def a5_graph(torch, trained: dict) -> dict:
+    """(d): ``train --steps-per-dispatch A5_SPD`` for ``A5_SPD_STEPS``
+    steps (two graph replays on the card), held bitwise against the same
+    step code run eagerly from the same weights and batches, and within
+    ``A5_GRAPH_LOSS_RTOL`` of phase 6's losses."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.models.train import (make_train_state,
+                                                       make_train_step,
+                                                       tree_map)
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    args = cli.build_parser().parse_args(
+        with_steps(TRAIN_ARGV, A5_SPD_STEPS)
+        + ["--steps-per-dispatch", str(A5_SPD)])
+    cfg = cli.train_config(args, args.seq)
+    params = init_transformer(torch.Generator(DEVICE).manual_seed(0),
+                              cfg.model, DEVICE)
+    init = tree_map(lambda p: p.detach().clone(), params)
+    zero_flash_counts(torch)
+    report = cli.run_train(args, params=params)
+    launches = flash_counts()
+    multi = report["multi_step"]
+    del params
+    # the same step code, eagerly, step by step, on the same kind of
+    # state (the step count on the device), from the same weights and
+    # batches
+    state = make_train_state(cfg, params=init, device_step=True)
+    tokens = torch.from_numpy(np.stack([np.random.default_rng(i).integers(
+        0, args.vocab, size=(args.batch, args.seq), dtype=np.int32)
+        for i in range(A5_SPD_STEPS)])).to(DEVICE)
+    step = make_train_step(cfg)
+    eager_losses = torch.stack([step(state, tokens[i])["loss"]
+                                for i in range(A5_SPD_STEPS)]).tolist()
+    one_card = trained["losses"][:A5_SPD_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(report["losses"], one_card)]
+    replays = A5_SPD_STEPS // A5_SPD if DEVICE == "cuda" else 0
+    per_replay = expected_flash(args.n_layers * A5_SPD)
+    warmup = expected_flash(args.n_layers)
+    want = {k: per_replay[k] * replays + warmup[k] for k in FLASH_REPLACES}
+    profile = (a5_replay_profile(torch, cfg, state, tokens)
+               if DEVICE == "cuda" else "not measured")
+    row = {"steps_per_dispatch": A5_SPD, "losses": report["losses"],
+           "eager_losses": eager_losses,
+           "bitwise_eager": report["losses"] == eager_losses,
+           "phase6_losses": one_card, "loss_rel_diff_vs_phase6": rel,
+           "loss_rtol": A5_GRAPH_LOSS_RTOL,
+           "wall_ms_per_step": report["wall_ms_per_step"],
+           "phase6_wall_ms_per_step": trained["wall_ms_per_step"],
+           "phase6_idle_share": trained["idle_share"],
+           "step_ms": report["step_ms"], "multi_step": multi,
+           "launches": launches, "expected_launches": want,
+           "replay_launches": {k: per_replay[k] * replays
+                               for k in FLASH_REPLACES},
+           "warmup_launches": warmup, "replay_profile": profile,
+           "peak_memory_gb": report["peak_memory_gb"]}
+    emit("a5_graph", **row)
+    if not row["bitwise_eager"]:
+        raise AssertionError(f"(d) the graph path against the eager step "
+                             f"code: {row}")
+    if max(rel) > A5_GRAPH_LOSS_RTOL:
+        raise AssertionError(f"(d) against phase 6's losses: {row}")
+    if launches != want or multi["graph_replays"] != replays:
+        raise AssertionError(f"(d) flash launches {launches} over "
+                             f"{multi['graph_replays']} replays, expected "
+                             f"{want} over {replays}")
+    return {"flash": launches}
+
+
+def a5_telemetry(torch, report: dict, n_layers: int, steps: int) -> dict:
+    """(e): the lion run's snapshot (parsed with the port's parser) and
+    its trace (the flash kernels of the window's 2 steps)."""
+    from akka_allreduce_tpu_torch.telemetry.registry import \
+        parse_prometheus_text
+    with open(report["metrics_file"]) as f:
+        parsed = parse_prometheus_text(f.read())
+    counts = {s: parsed[(f"train_step_dispatch_{s}_ms_count", ())]
+              for s in ("host", "device", "gap")}
+    with open(report["xprof_trace"]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [str(e.get("name")) for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(1 for n in kernels if f"{k}_mma_kernel" in n)
+              for k in FLASH_REPLACES}
+    steps_traced = sorted(str(e.get("name")) for e in events
+                          if str(e.get("name")).startswith("train_step#"))
+    b, t = report["config"]["batch"], report["config"]["seq"]
+    row = {"train_steps_total": parsed[("train_steps_total", ())],
+           "train_tokens_total": parsed[("train_tokens_total", ())],
+           "train_loss": parsed[("train_loss", ())],
+           "dispatch_counts": counts, "trace": report["xprof_trace"],
+           "trace_events": len(events), "trace_kernel_events": len(kernels),
+           "traced_flash_kernels": traced,
+           "traced_step_ranges": sorted(set(steps_traced))}
+    emit("a5_telemetry", **row)
+    # the gap series has one sample fewer: the first span has no
+    # previous end
+    want_counts = {"host": steps, "device": steps, "gap": steps - 1}
+    want_traced = expected_flash(2 * n_layers)
+    if (row["train_steps_total"] != steps
+            or row["train_tokens_total"] != steps * b * t
+            or counts != want_counts
+            or row["train_loss"] != report["losses"][-1]):
+        raise AssertionError(f"(e) the metrics snapshot: {row}")
+    if traced != want_traced:
+        raise AssertionError(f"(e) the trace holds {traced} flash kernels, "
+                             f"expected {want_traced} (2 steps)")
+    return row
+
+
+def phase_a5(torch, trained: dict) -> dict:
+    """Phase 21: the A5 training paths on the card (see the module
+    docstring). Returns the main path's launches: flash (rows 10-12),
+    the sync kernels' (rows 1, 5-7) and the transport's."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="a5-") as work:
+        fams = a5_families(torch, work)
+        updates = a5_update_check(torch)
+        tel = a5_telemetry(torch, fams["runs"]["lion"],
+                           fams["runs"]["lion"]["config"]["n_layers"],
+                           A5_STEPS)
+        ema = a5_ema(torch, work)
+    overlap = a5_overlap(torch)
+    graph = a5_graph(torch, trained)
+    seconds = time.perf_counter() - t0
+    adamw_gb = trained["optimizer_state_gb"]
+    emit("a5_summary", seconds=seconds, limit_s=A5_SECONDS,
+         optimizer_state_gb={"adamw (phase 6)": adamw_gb, **{
+             f: fams["runs"][f]["optimizer_state_gb"] for f in A5_FAMILIES}},
+         wall_ms_per_step={"adamw (phase 6)": trained["wall_ms_per_step"],
+                           **{f: fams["runs"][f]["wall_ms_per_step"]
+                              for f in A5_FAMILIES}},
+         update_max_rel_err={u["optimizer"]: u["max_rel_err"]
+                             for u in updates},
+         trace_flash_kernels=tel["traced_flash_kernels"],
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A5_SECONDS:
+        raise AssertionError(f"phase 21 took {seconds:.1f} s, over its "
+                             f"{A5_SECONDS} s")
+    flash = {k: fams["flash"][k] + ema["flash"][k] + overlap["flash"][k]
+             + graph["flash"][k] for k in FLASH_REPLACES}
+    return {"flash": flash, "sync": overlap["sync"],
+            "transport": overlap["transport"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4155,13 +4900,17 @@ def main() -> int:
     protocol = phase_protocol(torch, trained["params"])
     # 20. the protocol plane across processes: cli master / worker
     cluster = phase_cluster(torch, trained["params"])
+    # 21. the A5 training paths: optimizer families, EMA, generate and
+    # eval, overlapped accumulation, CUDA-graph chunks, telemetry
+    a5 = phase_a5(torch, trained)
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
-                     + hier["launches"][k] for k in SYNC_KERNELS}
+                     + hier["launches"][k] + a5["sync"][k]
+                     for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
         + cluster["launches"]
     transport_launches = (dp["transport"] + deadline["transport"]
-                          + hier["transport"]
+                          + hier["transport"] + a5["transport"]
                           + sum(sp_launches[d]["transport"]
                                 for d in sp_launches))
     if not transport_launches:
@@ -4183,7 +4932,7 @@ def main() -> int:
     # the flagship trains bf16; the f32 flash kernels run in phase 7's f32
     # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
-        k: trained["launches"][k] + deadline["flash"][k]
+        k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
         for k in FLASH_REPLACES})
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
@@ -4198,6 +4947,7 @@ def main() -> int:
             "max_abs_err": srow["max_abs_err"], "ms": srow["ms"],
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
+        kernels[-1]["a5_launches"] = a5["sync"][kernel]
         if kernel == "masked_reduce":
             # phase 19's chunk reduce: a 65,536-wide slab read in place
             strided = sync["masked_reduce_strided"]

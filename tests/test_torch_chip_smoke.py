@@ -5,9 +5,9 @@ card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
 flash and ring kernels' bounds, the kernels line's flash rows, the build
 phase's check of the tensor-core kernels, phase 16's straggle schedule
-and expected launches, phase 10's and 17's rehearsals at a tiny size
-with the hierarchical launch arithmetic, and its refusal to run without
-CUDA.
+and expected launches, phase 10's, 17's and 21's rehearsals at a tiny
+size with the hierarchical launch arithmetic, and its refusal to run
+without CUDA.
 """
 
 import json
@@ -1176,7 +1176,7 @@ def test_phase20_argvs():
     assert e_master[e_master.index("--th-reduce") + 1] == "0.75"
     assert all(a[a.index("--checkpoint") + 1] == "10" for _, a in e_workers)
     assert [parts[p][0][parts[p][0].index("--max-round") + 1]
-            for p in "abcde"] == ["100", "25", "25", "3", "25"]
+            for p in "abcde"] == ["50", "25", "25", "3", "25"]
 
 
 def test_phase20_worker_launches_from_its_trace():
@@ -1222,3 +1222,82 @@ def test_phase20_rehearsal(monkeypatch, capfd):
     assert sorted(e["worker_rcs"]) == [-9, 0, 0, 0]
     assert out["lines"]["f"]["rounds"] == 20
     assert out["launches"] == 0
+
+
+def test_phase21_argv_helpers():
+    argv = chip_smoke.with_steps(chip_smoke.TRAIN_ARGV, 3)
+    assert argv[argv.index("--steps") + 1] == "3"
+    assert chip_smoke.TRAIN_ARGV[chip_smoke.TRAIN_ARGV.index("--steps")
+                                 + 1] == "6"
+    assert chip_smoke.model_flags(chip_smoke.TRAIN_ARGV) == [
+        "--d-model", "2048", "--n-heads", "16", "--n-layers", "8",
+        "--d-ff", "8192", "--vocab", "32768"]
+    assert chip_smoke.model_flags(chip_smoke.PARITY_ARGV) == [
+        "--d-model", "2048", "--n-heads", "16", "--kv-heads", "4", "--rope",
+        "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768"]
+
+
+A5_TINY = ["train", "--d-model", "32", "--n-heads", "4", "--n-layers", "2",
+           "--d-ff", "64", "--vocab", "97", "--seq", "16", "--batch", "4",
+           "--lr", "1e-3", "--steps", "6", "--log-every", "1", "--device",
+           "cpu"]
+
+
+def test_phase21_rehearsal(monkeypatch, capfd):
+    """Phase 21 at a tiny size on the CPU (gloo ranks, the generate /
+    eval processes on --device cpu; the CPU wrappers count no launch):
+    every part's checks pass, the fault control lands outside the bound,
+    and the lines carry what PERF.md reads."""
+    from akka_allreduce_tpu_torch import cli
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "DIST", "gloo")
+    monkeypatch.setattr(chip_smoke, "TRAIN_ARGV", A5_TINY)
+    monkeypatch.setattr(chip_smoke, "DP_ARGV", chip_smoke.with_steps(
+        A5_TINY, 3) + ["--dp", "2", "--dist-backend", "gloo",
+                       "--bucket-elems", "256"])
+    monkeypatch.setattr(chip_smoke, "A5_EVAL_WINDOWS", 4)
+    monkeypatch.setattr(chip_smoke, "A5_EVAL_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "A5_PROMPT_TOKENS", 4)
+    monkeypatch.setattr(chip_smoke, "A5_GENERATE_TOKENS", 4)
+    monkeypatch.setattr(chip_smoke, "A5_SECONDS", 600)
+    monkeypatch.setattr(chip_smoke, "expected_sync_launches",
+                        lambda *a, **k: dict.fromkeys(
+                            chip_smoke.SYNC_KERNELS, 0))
+    report = cli.run_train(cli.build_parser().parse_args(A5_TINY))
+    trained = {"losses": report["losses"],
+               "wall_ms_per_step": report["wall_ms_per_step"],
+               "optimizer_state_gb": report["optimizer_state_gb"],
+               "idle_share": "not measured"}
+    out = chip_smoke.phase_a5(torch, trained)
+    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()
+             if ln.startswith('{"phase"')]
+    by = {}
+    for ln in lines:
+        by.setdefault(ln["phase"], []).append(ln)
+    assert [r["optimizer"] for r in by["a5_family"]] == ["lion", "adafactor",
+                                                        "sgd"]
+    assert [r["optimizer"] for r in by["a5_update"]] == ["lion", "adafactor",
+                                                        "sgd"]
+    ema = by["a5_ema"][0]
+    assert ema["subprocess_rcs"] == {"generate": 0, "eval": 0, "control": 2}
+    assert ema["ema_item_bitwise"] and len(ema["save_seconds"]) == 2
+    checks = by["a5_overlap_checks"][0]
+    assert checks["step0_bitwise"]
+    assert max(checks["control_rel_diff"][1:]) > checks["loss_rtol"]
+    assert len(by["a5_overlap"]) == 4
+    assert by["a5_graph"][0]["bitwise_eager"]
+    assert by["a5_telemetry"][0]["train_steps_total"] == 3
+    assert out["flash"] == dict.fromkeys(chip_smoke.FLASH_REPLACES, 0)
+
+
+def test_spawn_batch_runs_one_mesh(monkeypatch):
+    """``spawn_batch`` puts runs of one mesh in one spawn and refuses
+    runs of two."""
+    from akka_allreduce_tpu_torch import cli
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    parse = cli.build_parser().parse_args
+    base = TINY_TRAIN + ["--dist-backend", "gloo"]
+    with pytest.raises(ValueError, match="one spawn runs one mesh"):
+        chip_smoke.spawn_batch(torch, [
+            ("train", parse(base + ["--dp", "2"]), None),
+            ("train", parse(base + ["--sp", "2"]), None)])

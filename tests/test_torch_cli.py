@@ -149,11 +149,22 @@ def test_train_draws_the_jax_commands_batches():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--optimizer", "sgd"], "A5"),
-    (["--batch", "4", "--grad-accum", "3"], "divide")])
+    (["--steps-per-dispatch", "2", "--dp", "2"], "A5, part 2"),
+    (["--batch", "4", "--grad-accum", "3"], "divide"),
+    (["--steps-per-dispatch", "0"], "steps-per-dispatch"),
+    (["--steps-per-dispatch", "2", "--deadline-ms", "50"],
+     "single-process exact path"),
+    (["--ema-decay", "1.0"], "ema_decay")])
 def test_train_refusals_exit_2(capsys, flags, match):
     assert cli.main(TRAIN_TINY + flags) == 2
     assert match in capsys.readouterr().err
+
+
+def test_train_sgd_runs(capsys):
+    """``--optimizer sgd`` (refused by the one-card slice) trains."""
+    assert cli.main(TRAIN_TINY + ["--optimizer", "sgd",
+                                  "--sgd-momentum", "0.5"]) == 0
+    assert "step    2: loss" in capsys.readouterr().out
 
 
 # -- emulate ------------------------------------------------------------------
@@ -287,3 +298,39 @@ def test_emulate_without_cuda_raises():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
     assert "torch.cuda.is_available() is False" in out.stderr
+
+
+# the JAX command's backend flags, for which the port's commands take
+# --device
+JAX_BACKEND_FLAGS = {"platform", "compile_cache", "xla_overlap",
+                     "xla_overlap_mem_pct"}
+
+
+@pytest.mark.parametrize("command", ["generate", "eval"])
+def test_generate_and_eval_flags_match_the_jax_commands(command):
+    from akka_allreduce_tpu import cli as jax_cli
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers(dest="cmd")
+    getattr(jax_cli, f"_add_{command}")(sub)
+    want = _flags(_subparser(jax_parser, command))
+    got = _flags(_subparser(cli.build_parser(), command))
+    assert {k: got[k] for k in set(want) - JAX_BACKEND_FLAGS} == {
+        k: v for k, v in want.items() if k not in JAX_BACKEND_FLAGS}
+    assert set(got) - set(want) == {"device"}
+    assert got["device"][1] == "cuda"
+
+
+@pytest.mark.parametrize("flag", [
+    "accum_schedule", "optimizer", "sgd_momentum", "ema_decay",
+    "metrics_file", "metrics_interval", "xprof_dir", "xprof_steps",
+    "steps_per_dispatch"])
+def test_train_a5_flags_match_the_jax_command(flag):
+    from akka_allreduce_tpu import cli as jax_cli
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers(dest="cmd")
+    jax_cli._add_train(sub)
+    want = _flags(_subparser(jax_parser, "train"))[flag]
+    got = _flags(_subparser(cli.build_parser(), "train"))[flag]
+    # choices as a tuple or a list: the same values in the same order
+    assert got[:2] + got[3:] == want[:2] + want[3:]
+    assert list(got[2] or []) == list(want[2] or [])

@@ -4,7 +4,8 @@ Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
 attention's, the peer-memory allreduce's, the round pacer's, the
 deadline trainer's, the collective autotuner's, the rank transport's,
-the bench rows' and the protocol plane's modules included, the wire
+the bench rows' and the protocol plane's modules included, the
+optimizer families, the MLP and the telemetry's, the wire
 codec, the TCP router, the remote runners, the C++ cluster and the
 ``native`` loader among them) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``, nor, once it has loaded the
@@ -75,7 +76,11 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.protocol.tcp",
             "akka_allreduce_tpu_torch.protocol.remote",
             "akka_allreduce_tpu_torch.protocol.native_cluster",
-            "akka_allreduce_tpu_torch.native"} <= set(mods)
+            "akka_allreduce_tpu_torch.native",
+            "akka_allreduce_tpu_torch.models.optim",
+            "akka_allreduce_tpu_torch.models.mlp",
+            "akka_allreduce_tpu_torch.telemetry.device",
+            "akka_allreduce_tpu_torch.telemetry.registry"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
