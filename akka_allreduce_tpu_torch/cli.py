@@ -10,13 +10,23 @@ absent; the C++ host engines
 hold none and refuse ``--device``.
 
 ``serve`` (model shape, slot or paged engine, closed or open synthetic
-load) builds a model from ``--seed``, runs the synthetic load through
-``serve_loop`` and prints ONE JSON summary line shaped like the JAX
-command's::
+load) builds a model from ``--seed`` or reads one from ``--ckpt-dir``,
+runs the synthetic load through ``serve_loop`` and prints ONE JSON
+summary line shaped like the JAX command's. It samples with
+``--temperature/--top-k/--top-p`` (each request's key from its rid, JAX's
+threefry), keeps int8 KV (``--kv-cache int8``), pads slot prefill to
+``--prefill-buckets``, decodes speculatively (``--speculative
+--draft-steps --draft-layers``: the target's first layers draft) and
+evicts requests past ``--deadline-slack-s`` (``--policy deadline``). The
+watchdog, fault injection and drain/restore (``--watchdog-timeout``,
+``--chaos``, ``--drain-dir``, ``--preempt-poll``) are ROADMAP A6, part 2,
+and exit 2::
 
     python -m akka_allreduce_tpu_torch.cli serve --paged \\
         --paged-attention kernel --d-model 2048 --n-heads 16 \\
-        --kv-heads 4 --n-layers 8 --d-ff 8192 --vocab 32768 --rope
+        --kv-heads 4 --n-layers 8 --d-ff 8192 --vocab 32768 --rope \\
+        [--temperature 0.8 --top-k 50 --top-p 0.95] \\
+        [--speculative --draft-steps 4 --draft-layers 4] [--kv-cache int8]
 
 ``train`` trains the flagship transformer from random weights on
 synthetic tokens or ``--data-file``, drawing the JAX command's per-step
@@ -53,11 +63,14 @@ schedule (``--grad-accum K --accum-schedule overlap``), runs ``N`` steps
 a dispatch as one CUDA graph replay (``--steps-per-dispatch N``, one
 rank), writes a Prometheus metrics snapshot (``--metrics-file``) and a
 ``torch.profiler`` device trace (``--xprof-dir``). ``generate`` decodes
-greedily from a checkpoint and ``eval`` scores one over a corpus, either
+from a checkpoint — greedily, sampled (``--temperature --top-k --top-p
+--seed``) or speculatively with a draft checkpoint
+(``--draft-ckpt-dir``) — and ``eval`` scores one over a corpus, either
 from its EMA weights with ``--use-ema``::
 
     python -m akka_allreduce_tpu_torch.cli generate --ckpt-dir DIR \\
-        --max-seq 2048 --prompt-tokens 1,2,3 --tokens 16 [--use-ema]
+        --max-seq 2048 --prompt-tokens 1,2,3 --tokens 16 [--use-ema] \\
+        [--temperature 0.8 --top-k 50 --seed 1] [--draft-ckpt-dir D2]
     python -m akka_allreduce_tpu_torch.cli eval --ckpt-dir DIR \\
         --data-file corpus.bin --max-seq 2048 [--use-ema]
 
@@ -102,8 +115,19 @@ import torch
 
 def _add_serve(sub: argparse._SubParsersAction) -> None:
     p = sub.add_parser(
-        "serve", help="continuous-batching greedy inference over a "
-        "random model from --seed; one JSON metrics line on stdout")
+        "serve", help="continuous-batching inference over a checkpoint "
+        "(--ckpt-dir) or a random model from --seed; one JSON metrics "
+        "line on stdout")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="serve a trained checkpoint (model shape from "
+                        "the --d-model/... flags); omitted = random "
+                        "weights from --seed")
+    p.add_argument("--use-ema", action="store_true",
+                   help="with --ckpt-dir: serve the checkpoint's EMA "
+                        "weights (needs a run trained with --ema-decay)")
+    p.add_argument("--tie-embeddings", action="store_true",
+                   help="output head reuses the input embedding (must "
+                        "match the checkpoint)")
     # -- model
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--d-model", type=int, default=128)
@@ -143,6 +167,58 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--decode-steps", type=int, default=1, metavar="S",
                    help="decode steps per dispatch (one host readback "
                         "per S tokens)")
+    p.add_argument("--kv-cache", choices=("model", "int8"),
+                   default="model",
+                   help="KV cache format: the model dtype, or int8 with "
+                        "one f32 scale per (position, head) (a quarter "
+                        "of the f32 bytes at a bounded logit error; read "
+                        "through the gather path)")
+    p.add_argument("--prefill-buckets", default="",
+                   help="comma list of prompt-length buckets (slot "
+                        "engine): prompts pad up to the next one; empty "
+                        "= exact-length prefill")
+    # -- sampling and speculative decode
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy; > 0 samples every pick with the "
+                        "request's key (seed = its rid), so its tokens "
+                        "are generate()'s with that key whatever lane, "
+                        "neighbours or --decode-steps it meets")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="with --temperature > 0: keep the k most likely "
+                        "tokens")
+    p.add_argument("--top-p", type=float, default=None,
+                   help="with --temperature > 0: nucleus filter")
+    p.add_argument("--speculative", action="store_true",
+                   help="draft-verify decode: a draft model (the "
+                        "target's first --draft-layers layers) proposes "
+                        "--draft-steps tokens a lane and one target "
+                        "extend verifies them; greedy tokens stay the "
+                        "plain engine's. Composes with --paged (gather "
+                        "path); not with --decode-steps > 1 or "
+                        "--prefill-buckets")
+    p.add_argument("--draft-steps", type=int, default=4, metavar="K",
+                   help="with --speculative: proposals a lane a block")
+    p.add_argument("--draft-layers", type=int, default=0, metavar="N",
+                   help="with --speculative: the draft = the target's "
+                        "first N layers, embed and unembed shared; 0 = "
+                        "half the target's layers, at least 1")
+    # -- scheduler
+    p.add_argument("--policy", choices=("fifo", "deadline"),
+                   default="fifo",
+                   help="admission order: arrival, or earliest deadline")
+    p.add_argument("--deadline-slack-s", type=float, default=0.0,
+                   help="synthetic per-request deadline = arrival + "
+                        "slack; a request still running past it is "
+                        "evicted between dispatches (0 = none)")
+    # -- not ported (ROADMAP A6, part 2): refused by name
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   help="not ported (ROADMAP A6, part 2)")
+    p.add_argument("--chaos", type=int, default=None,
+                   help="not ported (ROADMAP A6, part 2)")
+    p.add_argument("--drain-dir", default=None,
+                   help="not ported (ROADMAP A6, part 2)")
+    p.add_argument("--preempt-poll", default=None,
+                   help="not ported (ROADMAP A6, part 2)")
     # -- synthetic load
     p.add_argument("--requests", type=int, default=32)
     p.add_argument("--load", choices=("closed", "open"), default="closed",
@@ -443,7 +519,7 @@ def _restore_params(args: argparse.Namespace, mcfg, device
 def _add_generate(sub: argparse._SubParsersAction) -> None:
     p = sub.add_parser(
         "generate", help="decode from a trained checkpoint (KV-cache "
-        "incremental greedy decoding, models/generate.py)")
+        "incremental decoding, models/generate.py)")
     p.add_argument("--ckpt-dir", required=True)
     _add_model_args(p)
     p.add_argument("--max-seq", type=int, required=True,
@@ -459,20 +535,27 @@ def _add_generate(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--tokens", type=int, default=64,
                    help="tokens to generate")
     p.add_argument("--temperature", type=float, default=0.0,
-                   help="0 = greedy (sampling, > 0, is not ported: "
-                        "ROADMAP A6)")
+                   help="0 = greedy; > 0 samples with the key of --seed "
+                        "(models/prng.py, JAX's threefry)")
     p.add_argument("--top-k", type=int, default=None,
                    help="sample only from the k highest-probability "
-                        "tokens (needs --temperature > 0; ROADMAP A6)")
+                        "tokens (needs --temperature > 0)")
     p.add_argument("--top-p", type=float, default=None,
-                   help="nucleus sampling (needs --temperature > 0; "
-                        "ROADMAP A6)")
+                   help="nucleus sampling: smallest token set with "
+                        "cumulative probability >= p (needs "
+                        "--temperature > 0; composes with --top-k)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--raw", action="store_true",
                    help="print token ids instead of decoding bytes")
     p.add_argument("--draft-ckpt-dir", default=None,
-                   help="speculative decoding with a draft model: not "
-                        "ported (ROADMAP A6)")
+                   help="speculative decoding: a draft model (geometry "
+                        "from the --draft-* flags, unset ones the "
+                        "target's; the target's vocab) proposes "
+                        "--speculate-k tokens a round and the target "
+                        "verifies them in one pass (models/speculate.py)."
+                        " Greedy output is the target's; with "
+                        "--temperature > 0 modified rejection keeps the "
+                        "target's sampling distribution")
     p.add_argument("--draft-d-model", type=int, default=0)
     p.add_argument("--draft-n-layers", type=int, default=0)
     p.add_argument("--draft-n-heads", type=int, default=0)
@@ -513,8 +596,7 @@ def _generate_prompt(args: argparse.Namespace) -> "list | int":
 
 def _generate_refusal(args: argparse.Namespace, n_prompt: int
                       ) -> "str | None":
-    """The JAX command's checks of the decode flags, then the port's
-    refusals (sampling and speculation: ROADMAP A6); the message, or
+    """The JAX command's checks of the decode flags; the message, or
     None."""
     max_seq = args.max_seq
     if n_prompt + args.tokens > max_seq:
@@ -536,13 +618,49 @@ def _generate_refusal(args: argparse.Namespace, n_prompt: int
         return (f"speculation needs --speculate-k headroom: prompt "
                 f"({n_prompt}) + --tokens ({args.tokens}) + k "
                 f"({args.speculate_k}) exceeds --max-seq {max_seq}")
-    if args.temperature > 0.0:
-        return ("--temperature > 0 (sampling, with --top-k / --top-p) is "
-                "not ported (ROADMAP A6); the port decodes greedily")
-    if args.draft_ckpt_dir:
-        return ("--draft-ckpt-dir (speculative decoding) is not ported "
-                "(ROADMAP A6)")
     return None
+
+
+def _speculate(args: argparse.Namespace, mcfg, params, prompt, device
+               ) -> "torch.Tensor | int":
+    """``generate --draft-ckpt-dir``: restore the draft and run the
+    greedy or sampled speculative decode; the tokens (1, steps), or an
+    exit code (message printed)."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch.models import prng
+    from akka_allreduce_tpu_torch.models.speculate import (
+        speculative_generate, speculative_sample)
+
+    dcfg = dataclasses.replace(
+        mcfg,
+        d_model=args.draft_d_model or mcfg.d_model,
+        n_layers=args.draft_n_layers or mcfg.n_layers,
+        n_heads=args.draft_n_heads or mcfg.n_heads,
+        d_ff=args.draft_d_ff or mcfg.d_ff,
+        n_kv_heads=args.draft_kv_heads or mcfg.n_kv_heads)
+    d_restored = _restore_params(
+        argparse.Namespace(ckpt_dir=args.draft_ckpt_dir, use_ema=False),
+        dcfg, device)
+    if isinstance(d_restored, int):
+        return d_restored
+    _d_step, draft_params = d_restored
+    if args.temperature == 0.0:
+        out, stats = speculative_generate(
+            params, draft_params, prompt, mcfg, dcfg, steps=args.tokens,
+            k=args.speculate_k)
+    else:
+        out, stats = speculative_sample(
+            params, draft_params, prompt, mcfg, dcfg, steps=args.tokens,
+            key=prng.key(args.seed, device), k=args.speculate_k,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p)
+    print(f"speculative: {int(stats['rounds'])} target passes for "
+          f"{args.tokens} tokens (plain decode would take "
+          f"{args.tokens}); acceptance "
+          f"{int(stats['accepted'])}/{int(stats['drafted'])} "
+          f"drafted", file=sys.stderr)
+    return out
 
 
 def _cmd_generate(args: argparse.Namespace) -> int:
@@ -565,7 +683,17 @@ def _cmd_generate(args: argparse.Namespace) -> int:
         return restored
     _step0, params = restored
     prompt = torch.tensor(ids, dtype=torch.int32, device=device)[None]
-    toks = generate(params, prompt, mcfg, steps=args.tokens)[0].tolist()
+    if args.draft_ckpt_dir:
+        out = _speculate(args, mcfg, params, prompt, device)
+        if isinstance(out, int):
+            return out
+    else:
+        from akka_allreduce_tpu_torch.models import prng
+        out = generate(params, prompt, mcfg, steps=args.tokens,
+                       key=prng.key(args.seed, device),
+                       temperature=args.temperature, top_k=args.top_k,
+                       top_p=args.top_p)
+    toks = out[0].tolist()
     if args.raw or args.prompt_tokens is not None:
         print(",".join(map(str, toks)))
     else:
@@ -1123,7 +1251,79 @@ def _validate(args: argparse.Namespace) -> "tuple[int, int]":
             and not 0 <= args.eos_token < args.vocab:
         raise ValueError(f"--eos-token {args.eos_token} out of vocab "
                          f"[0, {args.vocab})")
+    for flag, unported in (("--watchdog-timeout", args.watchdog_timeout),
+                           ("--chaos", args.chaos is not None),
+                           ("--drain-dir", args.drain_dir),
+                           ("--preempt-poll", args.preempt_poll)):
+        if unported:
+            raise ValueError(f"{flag} is not ported (ROADMAP A6, part 2: "
+                             f"the watchdog, fault injection and "
+                             f"drain/restore)")
+    _check_sampling(args)
+    if args.speculative:
+        _check_speculative(args)
+    buckets = prefill_buckets(args)
+    if buckets and args.paged:
+        raise ValueError("--prefill-buckets is a slot-engine knob; paged "
+                         "prefill is page-granular already — drop one")
+    if buckets and max(buckets) < p_hi:
+        raise ValueError(f"largest prefill bucket {max(buckets)} smaller "
+                         f"than --prompt-len max {p_hi}")
     return p_lo, p_hi
+
+
+def _check_sampling(args: argparse.Namespace) -> None:
+    if args.temperature < 0.0:
+        raise ValueError(f"--temperature must be >= 0 (0 = greedy), got "
+                         f"{args.temperature}")
+    if args.top_k is not None and args.top_k < 1:
+        raise ValueError(f"--top-k must be >= 1, got {args.top_k}")
+    if args.top_p is not None and not 0.0 < args.top_p <= 1.0:
+        raise ValueError(f"--top-p must be in (0, 1], got {args.top_p}")
+    if (args.top_k is not None or args.top_p is not None) \
+            and args.temperature == 0.0:
+        raise ValueError("--top-k/--top-p require --temperature > 0 "
+                         "(temperature 0 is greedy; the filters would be "
+                         "silently ignored)")
+
+
+def _check_speculative(args: argparse.Namespace) -> None:
+    if args.draft_steps < 1:
+        raise ValueError(f"--draft-steps must be >= 1, got "
+                         f"{args.draft_steps}")
+    if args.decode_steps > 1:
+        raise ValueError("--speculative and --decode-steps are both block "
+                         "modes (a speculative block already verifies "
+                         "draft-steps+1 tokens per dispatch); pick one")
+    if args.prefill_buckets.strip():
+        raise ValueError("--speculative prefill is exact-length (the "
+                         "parity mode); drop --prefill-buckets")
+    if args.paged and args.paged_attention == "kernel":
+        raise ValueError("the speculative verify is a block extend; run "
+                         "--speculative --paged on the gather path")
+    if not 0 <= args.draft_layers <= args.n_layers:
+        raise ValueError(f"--draft-layers must be in [0, --n-layers="
+                         f"{args.n_layers}], got {args.draft_layers}")
+
+
+def prefill_buckets(args: argparse.Namespace) -> tuple:
+    try:
+        return tuple(int(b) for b in args.prefill_buckets.split(",")
+                     if b.strip())
+    except ValueError:
+        raise ValueError(f"bad --prefill-buckets "
+                         f"{args.prefill_buckets!r}") from None
+
+
+def make_draft_model(params: dict, mcfg, draft_layers: int):
+    """The serve command's draft model: the target's first N layers with
+    the embedding, positional, output-norm and unembedding weights
+    shared (no extra parameters, the target's vocabulary). 0 = half the
+    target's layers, at least 1."""
+    import dataclasses
+    n = draft_layers or max(1, mcfg.n_layers // 2)
+    return ({**params, "layers": params["layers"][:n]},
+            dataclasses.replace(mcfg, n_layers=n))
 
 
 def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
@@ -1135,6 +1335,7 @@ def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
     if args.load == "open":
         arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                              size=args.requests))
+    slack = getattr(args, "deadline_slack_s", 0.0)
     t0 = time.monotonic()
     reqs = []
     for rid in range(args.requests):
@@ -1146,45 +1347,79 @@ def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
                                                        size=plen)),
             max_new_tokens=args.max_new_tokens,
             eos_token=args.eos_token, arrival=arrival,
+            deadline=arrival + slack if slack > 0 else None,
             submitted_at=arrival))
     return reqs
+
+
+def build_engine(args: argparse.Namespace, params: dict, mcfg):
+    """The engine ``serve`` runs: slot or paged, plain or speculative,
+    with the flags' KV format, buckets and sampling."""
+    from akka_allreduce_tpu_torch.serving import (
+        EngineConfig, PagedEngineConfig, PagedServingEngine,
+        PagedSpeculativeEngine, ServingEngine, SpeculativeEngine)
+    common = dict(
+        num_slots=args.slots, decode_steps=args.decode_steps,
+        kv_dtype="int8" if args.kv_cache == "int8" else None,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        draft_steps=args.draft_steps if args.speculative else 0)
+    draft = (make_draft_model(params, mcfg, args.draft_layers)
+             if args.speculative else None)
+    if args.paged:
+        ecfg = PagedEngineConfig(
+            **common, page_size=args.page_size, num_pages=args.num_pages,
+            attention_impl=args.paged_attention)
+        if draft is not None:
+            return PagedSpeculativeEngine(params, mcfg, *draft, ecfg)
+        return PagedServingEngine(params, mcfg, ecfg)
+    ecfg = EngineConfig(**common, prefill_buckets=prefill_buckets(args))
+    if draft is not None:
+        return SpeculativeEngine(params, mcfg, *draft, ecfg)
+    return ServingEngine(params, mcfg, ecfg)
+
+
+def serve_model(args: argparse.Namespace, device, dtype=None):
+    """``serve``'s model: (config, parameters), read from ``--ckpt-dir``
+    or drawn from ``--seed``; ``dtype`` (a torch dtype) overrides f32.
+    Raises ValueError when the checkpoint cannot be restored."""
+    from akka_allreduce_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer)
+    mcfg = TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, max_seq=args.max_seq,
+        n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
+        attn_window=args.attn_window or None,
+        tie_embeddings=args.tie_embeddings,
+        **({"dtype": dtype} if dtype is not None else {}))
+    if args.ckpt_dir:
+        restored = _restore_params(args, mcfg, device)
+        if isinstance(restored, int):
+            raise ValueError(f"cannot serve --ckpt-dir {args.ckpt_dir}")
+        return mcfg, restored[1]
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    return mcfg, init_transformer(generator, mcfg)
 
 
 def run_serve(args: argparse.Namespace):
     """Build the model and engine, serve the synthetic load, and return
     ``(report, results, engine)``: the summary dict the command prints,
     ``{rid: (tokens, reason)}``, and the engine (its parameters and
-    counters). Raises ValueError on a bad flag combination and
-    RuntimeError when CUDA is asked for and absent."""
+    counters). Raises ValueError on a bad flag combination or checkpoint
+    and RuntimeError when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
-    from akka_allreduce_tpu_torch.models.transformer import (
-        TransformerConfig, init_transformer)
     from akka_allreduce_tpu_torch.serving import (
-        EngineConfig, PagedEngineConfig, PagedServingEngine, QueueFull,
-        RequestScheduler, SchedulerConfig, ServingEngine, ServingMetrics,
+        QueueFull, RequestScheduler, SchedulerConfig, ServingMetrics,
         serve_loop)
 
     device = resolve_device(args.device)
     p_lo, p_hi = _validate(args)
-    mcfg = TransformerConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
-        n_layers=args.n_layers, d_ff=args.d_ff, max_seq=args.max_seq,
-        n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
-        attn_window=args.attn_window or None)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_transformer(generator, mcfg)
-    if args.paged:
-        engine = PagedServingEngine(params, mcfg, PagedEngineConfig(
-            num_slots=args.slots, decode_steps=args.decode_steps,
-            page_size=args.page_size, num_pages=args.num_pages,
-            attention_impl=args.paged_attention))
-    else:
-        engine = ServingEngine(params, mcfg, EngineConfig(
-            num_slots=args.slots, decode_steps=args.decode_steps))
+    mcfg, params = serve_model(args, device)
+    engine = build_engine(args, params, mcfg)
     metrics = ServingMetrics()
     if args.paged:
         metrics.attach_paging(engine.paging_summary)
-    sched = RequestScheduler(SchedulerConfig(max_queue_depth=256),
+    sched = RequestScheduler(SchedulerConfig(max_queue_depth=256,
+                                             policy=args.policy),
                              num_slots=args.slots,
                              on_reject=metrics.on_reject)
     for req in make_requests(args, p_lo, p_hi):
@@ -1196,11 +1431,18 @@ def run_serve(args: argparse.Namespace):
     results = serve_loop(engine, sched, metrics=metrics)
     report = {
         "config": {"slots": args.slots, "requests": args.requests,
-                   "load": args.load, "policy": "fifo", "th_step": 0.0,
-                   "kv_cache": "model", "prefill_buckets": [],
+                   "load": args.load, "policy": args.policy,
+                   "th_step": 0.0, "kv_cache": args.kv_cache,
+                   "prefill_buckets": list(prefill_buckets(args)),
                    "decode_steps": args.decode_steps,
                    "max_new_tokens": args.max_new_tokens,
-                   "paged": args.paged, "temperature": 0.0,
+                   "paged": args.paged, "temperature": args.temperature,
+                   **({"top_k": args.top_k, "top_p": args.top_p}
+                      if args.temperature > 0 else {}),
+                   **({"speculative": True,
+                       "draft_steps": args.draft_steps,
+                       "draft_layers": engine.draft_cfg.n_layers}
+                      if args.speculative else {}),
                    **({"page_size": args.page_size,
                        "num_pages": engine.pool.capacity,
                        "paged_attention": args.paged_attention}
@@ -1218,6 +1460,9 @@ def run_serve(args: argparse.Namespace):
             {"rid": req.rid, "attempts": req.attempts, "reason": rsn}
             for req, rsn in sched.dead_letter],
         "dead_letter_dropped": sched.dead_letter_dropped,
+        **({"speculative": engine.speculative_summary()}
+           if args.speculative else {}),
+        "evictions": engine.evictions,
         "decode_dispatches": engine.decode_dispatches,
         "prefill_dispatches": engine.prefill_dispatches,
         "prefill_programs": len(engine.prefill_shapes),

@@ -1,4 +1,5 @@
-"""Serving plane of the port: continuous-batching greedy decode.
+"""Serving plane of the port: continuous-batching decode, greedy or
+sampled, on float or int8 KV, plain or speculative.
 
 Counterpart of ``akka_allreduce_tpu/serving``: ``engine.py`` (slot and
 paged engines, ``serve_loop``), ``paging.py`` (the page allocator),
@@ -14,7 +15,9 @@ from akka_allreduce_tpu_torch.serving.engine import (
     EngineConfig,
     PagedEngineConfig,
     PagedServingEngine,
+    PagedSpeculativeEngine,
     ServingEngine,
+    SpeculativeEngine,
     serve_loop,
 )
 from akka_allreduce_tpu_torch.serving.metrics import (
@@ -37,6 +40,7 @@ __all__ = [
     "PagePool",
     "PagedEngineConfig",
     "PagedServingEngine",
+    "PagedSpeculativeEngine",
     "QueueFull",
     "Request",
     "RequestScheduler",
@@ -44,6 +48,7 @@ __all__ = [
     "SchedulerConfig",
     "ServingEngine",
     "ServingMetrics",
+    "SpeculativeEngine",
     "pages_for",
     "serve_loop",
 ]

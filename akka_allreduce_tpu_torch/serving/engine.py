@@ -1,12 +1,16 @@
-"""Continuous-batching decode engine of the port: slots and pages.
+"""Continuous-batching decode engine of the port: slots, pages, drafts.
 
-Counterpart of ``akka_allreduce_tpu/serving/engine.py`` for greedy decode
-on float KV. The host loop is the JAX engine's: a fixed array of decode
-lanes, one batched step advancing every occupied lane at its own
-position, a lane freed the moment its request finishes (EOS, stop token,
-budget) and refilled by prefilling the next queued prompt.
+Counterpart of ``akka_allreduce_tpu/serving/engine.py``. The host loop
+is the JAX engine's: a fixed array of decode lanes, one batched step
+advancing every occupied lane at its own position, a lane freed the
+moment its request finishes (EOS, stop token, budget, or a deadline
+that passed mid-flight) and refilled by prefilling the next queued
+prompt.
 
-* :class:`ServingEngine` keeps per-slot ``max_seq`` cache rows.
+* :class:`ServingEngine` keeps per-slot ``max_seq`` cache rows, in the
+  model dtype or int8 with per-(position, head) scales
+  (``kv_dtype="int8"``), and prefills exact-length or padded up to a
+  bucket (``prefill_buckets``).
 * :class:`PagedServingEngine` keeps K/V in one flat page pool
   ``(layers, num_pages, page_size, kv_heads, head_dim)`` addressed
   through per-lane int32 page tables (serving/paging.py owns the
@@ -15,7 +19,22 @@ budget) and refilled by prefilling the next queued prompt.
   write. ``attention_impl="gather"`` reads the pool through
   ``paged_gather_kv`` and the slot engine's masked-softmax formula;
   ``"kernel"`` runs ``ops/kernels/attention.py paged_attention`` — the
-  CUDA kernel on a CUDA pool, its plain version on a CPU pool.
+  CUDA kernel on a CUDA pool, its plain version on a CPU pool (float
+  pools only, one query a lane, as JAX's ``"pallas"``).
+* :class:`SpeculativeEngine` and :class:`PagedSpeculativeEngine`
+  replace every decode dispatch by a draft-verify block: a draft model
+  proposes ``draft_steps`` tokens a lane, one target extend scores the
+  anchor and every proposal, and each lane emits its accepted prefix.
+  Rejected positions are left in the cache behind the lane's position,
+  masked, and overwritten by the next block: the rewind is the position
+  vector. Greedy output is the plain greedy engine's. (Reference fault
+  C5, MoE targets under speculation, waits for MoE layers: ROADMAP A7.)
+
+With ``temperature > 0`` every pick samples: lane s's token j draws with
+``fold_in(key(seed), j)``, the seed being the request's ``seed`` (its
+``rid`` when unset), never the slot, through ``models/prng.py``'s copy
+of JAX's threefry — so a request's stream is ``generate``'s with that
+key whatever lane, neighbours or block size it meets.
 
 What differs from the JAX engine:
 
@@ -24,13 +43,12 @@ What differs from the JAX engine:
   device (``multi_step_decode``) and reads one ``(S+2, lanes)`` block.
 * The KV arrays are updated in place (where JAX donates its state); the
   pool keeps the JAX layout, which the kernel reads as it is.
-* The per-lane finish vectors are uploaded before every block instead of
+* The per-lane vectors are uploaded before every block instead of
   carried as device outputs between blocks.
-* Left for later slices: int8 KV, sampling, speculative engines,
-  bucketed prefill, the watchdog and fault injection, mid-flight
-  deadline eviction, drain/restore, tracer spans and device timers. The
-  finite-logits guard (a NaN-poisoned lane fails its request, not the
-  engine) is kept.
+* Left for ROADMAP A6, part 2: the watchdog and fault injection,
+  drain/restore, tracer spans and device timers. The finite-logits
+  guard (a NaN-poisoned lane fails its request, not the engine) is
+  kept.
 """
 
 from __future__ import annotations
@@ -43,11 +61,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from akka_allreduce_tpu_torch.models import prng
 from akka_allreduce_tpu_torch.models.generate import (
+    apply_sample_filters,
+    dequantize_kv,
     init_kv_cache,
     init_kv_pool,
     multi_step_decode,
     prefill_kv,
+    quantize_kv,
+    read_kv,
+    sample_step_key,
+    sample_token_rows,
 )
 from akka_allreduce_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -59,23 +84,58 @@ from akka_allreduce_tpu_torch.models.transformer import (
     rotate_half_split,
 )
 from akka_allreduce_tpu_torch.ops.kernels import attention as kernels
+from akka_allreduce_tpu_torch.parallel.ring_attention import NEG_INF
 from akka_allreduce_tpu_torch.serving.paging import PagePool, pages_for
 from akka_allreduce_tpu_torch.serving.scheduler import (
     Request,
     RequestScheduler,
 )
 
+# static width of the per-lane stop-id matrix the block programs carry
+# (the JAX EngineConfig.max_stop_tokens default)
+MAX_STOP_TOKENS = 4
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine shape knobs (the JAX config's greedy, float-KV subset).
+    """Engine shape knobs (the JAX config's, less the watchdog).
+
+    ``prefill_buckets``: strictly increasing prompt-length buckets; a
+    prompt pads up to the smallest covering one and its logits are read
+    at its true last position (ulp-level drift against exact-length
+    prefill). Empty: exact-length prefill.
+
+    ``kv_dtype="int8"``: the quantized cache (models/generate.py
+    ``init_kv_cache``), a quarter of the f32 cache bytes at a bounded
+    logit error.
 
     ``decode_steps=S``: S decode steps per dispatch with the finish latch
-    on the device and one readback per block. Prefill is exact-length
-    (the JAX engine's bucketed prefill is not ported)."""
+    on the device and one readback per block. ``max_stop_tokens`` is the
+    block's static stop-id width.
+
+    ``temperature`` / ``top_k`` / ``top_p``: temperature > 0 samples
+    every pick with the request's key (``sample``); 0 is greedy.
+
+    ``draft_steps`` > 0 arms speculation (the speculative engines); it
+    excludes ``decode_steps > 1`` and ``prefill_buckets``."""
 
     num_slots: int = 4
+    prefill_buckets: tuple = ()
+    kv_dtype: Optional[str] = None
     decode_steps: int = 1
+    max_stop_tokens: int = MAX_STOP_TOKENS
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    draft_steps: int = 0
+
+    @property
+    def sample(self) -> Optional[tuple]:
+        """The ``(temperature, top_k, top_p)`` triple the sampled picks
+        take; None (greedy) at temperature 0."""
+        if self.temperature == 0.0:
+            return None
+        return (self.temperature, self.top_k, self.top_p)
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -84,6 +144,35 @@ class EngineConfig:
         if self.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, "
                              f"got {self.decode_steps}")
+        if self.max_stop_tokens < 1:
+            raise ValueError(f"max_stop_tokens must be >= 1, "
+                             f"got {self.max_stop_tokens}")
+        if list(self.prefill_buckets) != sorted(set(
+                self.prefill_buckets)) or any(
+                b < 1 for b in self.prefill_buckets):
+            raise ValueError(
+                f"prefill_buckets must be strictly increasing positive "
+                f"lengths, got {self.prefill_buckets}")
+        if self.temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0 (0 = greedy), "
+                             f"got {self.temperature}")
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {self.top_k}")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], "
+                             f"got {self.top_p}")
+        if self.draft_steps < 0:
+            raise ValueError(f"draft_steps must be >= 0 (0 = not "
+                             f"speculative), got {self.draft_steps}")
+        if self.draft_steps > 0 and self.decode_steps > 1:
+            raise ValueError(
+                "draft_steps and decode_steps > 1 are both block "
+                "modes — a speculative block already verifies "
+                "draft_steps + 1 tokens per dispatch; pick one")
+        if self.draft_steps > 0 and self.prefill_buckets:
+            raise ValueError(
+                "prefill_buckets is a plain-engine knob; speculative "
+                "prefill is exact-length (the parity mode)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +182,9 @@ class PagedEngineConfig(EngineConfig):
     capacity (0 = ``num_slots * ceil(max_seq / page_size)``, the slot
     engine's equal budget; one scratch page is added for parked lanes);
     ``attention_impl`` the pool read path, ``"gather"`` or ``"kernel"``
-    (the counterpart of the JAX engine's ``"pallas"``)."""
+    (the counterpart of the JAX engine's ``"pallas"``, refused with an
+    int8 pool or speculation as JAX refuses ``"pallas"``). Paged prefill
+    is exact-length: ``prefill_buckets`` is refused."""
 
     page_size: int = 16
     num_pages: int = 0
@@ -112,11 +203,24 @@ class PagedEngineConfig(EngineConfig):
             raise ValueError(
                 f"attention_impl must be 'gather' or 'kernel', got "
                 f"{self.attention_impl!r}")
+        if self.prefill_buckets:
+            raise ValueError(
+                "prefill_buckets is a slot-engine knob; paged prefill "
+                "is exact-length")
+        if self.kv_dtype is not None and self.attention_impl == "kernel":
+            raise ValueError(
+                "attention_impl='kernel' reads float pools only; the "
+                "int8 pool decodes through the gather path "
+                "(dequantize-on-read)")
+        if self.draft_steps > 0 and self.attention_impl == "kernel":
+            raise ValueError(
+                "attention_impl='kernel' is a single-query decode "
+                "kernel; the speculative verify is a block extend — "
+                "run speculation on the gather path")
 
 
-# static width of the per-lane stop-id matrix the S>1 block carries (the
-# JAX EngineConfig.max_stop_tokens default)
-MAX_STOP_TOKENS = 4
+_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+_DRAFT_PREFIX = "draft_"
 
 # the slot engine's read path: the masked-softmax decode formula over a
 # (slots, max_seq, h_kv, D) cache, row b masked by its own pos[b] — the
@@ -124,20 +228,51 @@ MAX_STOP_TOKENS = 4
 _slot_cached_attention = kernels.decode_attention
 
 
-def _lane_decode(params: dict, token: torch.Tensor, pos: torch.Tensor,
-                 cfg: TransformerConfig, attend) -> torch.Tensor:
-    """The decode block math shared by the slot and paged steps: token
-    (lanes,) at per-lane positions ``pos`` (lanes,) -> logits (lanes,
-    vocab). ``attend(layer, q, k, v)`` writes the lane's K/V and returns
-    its attention output. Rope phases are computed once per step (the
-    JAX engine's ``_rope_slots``: per-row positions, f32 phases)."""
-    s = token.shape[0]
-    x = params["embed"][token][:, None, :]
+def _slot_block_attention(q: torch.Tensor, k_all: torch.Tensor,
+                          v_all: torch.Tensor, pos: torch.Tensor,
+                          window: "int | None" = None) -> torch.Tensor:
+    """``_slot_cached_attention`` for a block of queries: q (lanes, t, h,
+    d) at positions ``pos[s] + j`` against k_all/v_all (lanes, L, h_kv,
+    d) with the block's K/V written; query j of lane s sees positions
+    ``<= pos[s] + j``. Same einsums, f32 scores and softmax, and cast
+    points as the one-query form."""
+    b, t, h, d = q.shape
+    h_kv = k_all.shape[2]
+    g = h // h_kv
+    qg = q.reshape(b, t, h_kv, g, d)
+    scale = d ** -0.5
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k_all.float()) * scale
+    k_idx = torch.arange(k_all.shape[1], device=q.device)
+    q_pos = pos[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = k_idx[None, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        valid &= k_idx[None, None, :] > q_pos[:, :, None] - window
+    scores = torch.where(valid[:, None, None, :, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_all.dtype).float(),
+                       v_all.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def _lane_forward(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                  cfg: TransformerConfig, attend) -> torch.Tensor:
+    """The block math shared by the decode steps (t = 1) and the verify
+    extends: tokens (lanes, t) at positions ``pos[s] + j`` -> logits
+    (lanes, t, vocab). ``attend(layer, q, k, v)`` writes the lanes' K/V
+    and returns their attention output. Rope phases are computed once
+    per call, per row position, in f32 (the JAX engine's
+    ``_rope_slots``)."""
+    s, t = tokens.shape
+    positions = pos.long()[:, None] + torch.arange(t, device=pos.device)
+    x = params["embed"][tokens]
     if not cfg.rope:
-        x = x + params["pos"][pos][:, None, :]
+        x = x + params["pos"][positions]
     else:
-        cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
-        cos, sin = cos[:, None, None, :], sin[:, None, None, :]
+        cos, sin = rope_angles(positions.reshape(-1), cfg.head_dim,
+                               cfg.rope_theta)
+        cos = cos.reshape(s, t, 1, -1)
+        sin = sin.reshape(s, t, 1, -1)
     for i, layer in enumerate(params["layers"]):
         q, k, v = attention_projections(layer, rmsnorm(x, layer["ln1"]),
                                         cfg)
@@ -145,9 +280,28 @@ def _lane_decode(params: dict, token: torch.Tensor, pos: torch.Tensor,
             q = rotate_half_split(q, cos, sin)
             k = rotate_half_split(k, cos, sin)
         attn = attend(i, q, k, v)
-        x = x + attn.reshape(s, 1, -1) @ layer["wo"]
+        x = x + attn.reshape(s, t, -1) @ layer["wo"]
         x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
-    return lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)[:, 0, :]
+    return lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
+
+
+def _write_lane_kv(kv: dict, k: torch.Tensor, v: torch.Tensor,
+                   write) -> None:
+    """Hand ``write(tensor, vals)`` each lane's new K and V (lanes, h_kv,
+    D): cast to a float cache's dtype, or quantized with its scales for
+    an int8 cache (the pytree's keys are the format switch)."""
+    if "k_scale" in kv:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv(x)
+            write(kv[name], xq)
+            write(kv[name + "_scale"], xs)
+    else:
+        write(kv["k"], k.to(kv["k"].dtype))
+        write(kv["v"], v.to(kv["v"].dtype))
+
+
+def _lane_mask(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (vals.dim() - 1))
 
 
 def _write_slot_rows(cache: torch.Tensor, layer: int, vals: torch.Tensor,
@@ -158,68 +312,137 @@ def _write_slot_rows(cache: torch.Tensor, layer: int, vals: torch.Tensor,
     rows = torch.arange(vals.shape[0], device=vals.device)
     p = pos.long()
     if mask is not None:
-        vals = torch.where(mask[:, None, None], vals, cache[layer, rows, p])
+        vals = torch.where(_lane_mask(mask, vals), vals,
+                           cache[layer, rows, p])
     cache[layer, rows, p] = vals
+
+
+def _slot_attend(kv: dict, pos: torch.Tensor, cfg: TransformerConfig,
+                 write_mask: "torch.Tensor | None"):
+    """The slot engines' ``attend``: write block position j of lane s at
+    ``pos[s] + j`` of its cache row, then read the (dequantized) rows."""
+
+    def attend(i, q, k, v):
+        for j in range(q.shape[1]):
+            _write_lane_kv(kv, k[:, j], v[:, j], lambda t, x: (
+                _write_slot_rows(t, i, x, pos + j, write_mask)))
+        k_all, v_all = read_kv(kv, i, cfg.dtype)
+        if q.shape[1] == 1:
+            return _slot_cached_attention(q, k_all, v_all, pos,
+                                          window=cfg.attn_window)
+        return _slot_block_attention(q, k_all, v_all, pos,
+                                     window=cfg.attn_window)
+    return attend
 
 
 def _slot_decode_step(params: dict, kv: dict, token: torch.Tensor,
                       pos: torch.Tensor, cfg: TransformerConfig,
                       write_mask: "torch.Tensor | None" = None):
     """``decode_step`` with a per-slot position vector over the slot
-    cache (layers, slots, max_seq, kv_heads, head_dim). Returns (kv,
-    logits (slots, vocab))."""
-
-    def attend(i, q, k, v):
-        _write_slot_rows(kv["k"], i, k[:, 0].to(kv["k"].dtype), pos,
-                         write_mask)
-        _write_slot_rows(kv["v"], i, v[:, 0].to(kv["v"].dtype), pos,
-                         write_mask)
-        return _slot_cached_attention(q, kv["k"][i], kv["v"][i], pos,
-                                      window=cfg.attn_window)
-
-    return kv, _lane_decode(params, token, pos, cfg, attend)
+    cache (layers, slots, max_seq, kv_heads, head_dim) [+ scales].
+    Returns (kv, logits (slots, vocab))."""
+    logits = _lane_forward(params, token[:, None], pos, cfg,
+                           _slot_attend(kv, pos, cfg, write_mask))
+    return kv, logits[:, 0]
 
 
-def _engine_step(params: dict, state: dict, pos: torch.Tensor,
-                 decode_fn):
-    """One greedy step for every lane: pick each lane's token from the
-    carried logits, advance every lane at its own position through
+def _slot_extend(params: dict, kv: dict, tokens: torch.Tensor,
+                 pos: torch.Tensor, cfg: TransformerConfig,
+                 write_mask: "torch.Tensor | None" = None):
+    """models/speculate.py ``extend`` with a per-slot position vector:
+    consume ``tokens`` (slots, t) from each slot's ``pos``; return (kv,
+    logits (slots, t, vocab)), ``logits[s, j]`` the next-token scores
+    after ``tokens[s, :j+1]``. ``write_mask`` freezes a lane's writes."""
+    return kv, _lane_forward(params, tokens, pos, cfg,
+                             _slot_attend(kv, pos, cfg, write_mask))
+
+
+def _sampled_pick(logits: torch.Tensor, sample: Optional[tuple],
+                  key_data, step_idx) -> torch.Tensor:
+    if sample is None:
+        return logits.argmax(dim=-1).to(torch.int32)
+    return sample_token_rows(key_data, logits, step_idx, sample)
+
+
+def _kv_view(state: dict) -> dict:
+    return {n: state[n] for n in _KV_KEYS if n in state}
+
+
+def _engine_step(params: dict, state: dict, pos: torch.Tensor, decode_fn,
+                 sample: Optional[tuple] = None,
+                 key_data: Optional[torch.Tensor] = None,
+                 step_idx: Optional[torch.Tensor] = None):
+    """One step for every lane: pick each lane's token from the carried
+    logits (argmax, or with ``sample`` the lane's keyed draw at its
+    emitted-token index), advance every lane at its own position through
     ``decode_fn(params, kv, tok, pos, write_mask)`` (the slot or paged
     lane step). Returns (state, packed (2, lanes) int32): the tokens, and
     the finite-output guard (1 iff the logits the token came from were
     all finite)."""
     logits_in = state["logits"]
-    tok = logits_in.argmax(dim=-1).to(torch.int32)
+    tok = _sampled_pick(logits_in, sample, key_data, step_idx)
     finite = torch.isfinite(logits_in).all(dim=-1)
-    _, state["logits"] = decode_fn(params, state, tok, pos, None)
+    _, logits = decode_fn(params, _kv_view(state), tok, pos, None)
+    state["logits"] = logits.to(logits_in.dtype)
     return state, torch.stack([tok, finite.to(torch.int32)])
 
 
 def _engine_multi_step(params: dict, state: dict, pos: torch.Tensor,
                        done: torch.Tensor, remaining: torch.Tensor,
                        eos_ids: torch.Tensor, stop_ids: torch.Tensor,
-                       steps: int, decode_fn):
-    """``steps`` greedy steps for every lane (``multi_step_decode`` over
+                       steps: int, decode_fn,
+                       sample: Optional[tuple] = None,
+                       key_data: Optional[torch.Tensor] = None,
+                       step_idx: Optional[torch.Tensor] = None):
+    """``steps`` steps for every lane (``multi_step_decode`` over
     ``decode_fn``), free lanes marked ``done`` up front. Returns (state,
     packed (steps+2, lanes) int32): the token block, the post-block
     positions, and the per-lane ``bad`` (non-finite logits) flag."""
-    (_, logits, pos, _, _, bad), toks = multi_step_decode(
-        params, state, state["logits"], pos, done, remaining, eos_ids,
-        stop_ids, steps, decode_fn)
-    state["logits"] = logits
+    carry, toks = multi_step_decode(
+        params, _kv_view(state), state["logits"], pos, done, remaining,
+        eos_ids, stop_ids, steps, decode_fn, sample=sample,
+        key_data=key_data, step_idx=step_idx)
+    logits, pos, bad = carry[1], carry[2], carry[5]
+    state["logits"] = logits.to(state["logits"].dtype)
     return state, torch.cat([toks, pos[None], bad.to(torch.int32)[None]])
 
 
+def _store_prompt_kv(dst: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's K and V (layers, n, h_kv, D) at positions [0, n)
+    of ``dst``'s (layers, T, ...) rows, quantized for an int8 cache."""
+    n = k.shape[1]
+    if "k_scale" in dst:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv(x)
+            dst[name][:, :n] = xq
+            dst[name + "_scale"][:, :n] = xs
+    else:
+        dst["k"][:, :n] = k.to(dst["k"].dtype)
+        dst["v"][:, :n] = v.to(dst["v"].dtype)
+
+
+def _prefill_slot_row(state: dict, slot: int, k: torch.Tensor,
+                      v: torch.Tensor, prefix: str = "") -> None:
+    """Clear ``slot``'s cache row (not merely mask it) and write the
+    prompt's K/V (layers, 1, n, h_kv, D) into it."""
+    row = {n: state[prefix + n][:, slot] for n in _KV_KEYS
+           if prefix + n in state}
+    for t in row.values():
+        t.zero_()
+    _store_prompt_kv(row, k[:, 0], v[:, 0])
+
+
 def _engine_prefill(params: dict, state: dict, prompt: torch.Tensor,
-                    slot: int, cfg: TransformerConfig) -> dict:
-    """Prefill ``prompt`` (1, L) into ``slot``'s cache row. The row beyond
-    L is cleared, not merely masked."""
-    k, v, logits = prefill_kv(params, prompt, cfg)
-    n = prompt.shape[1]
-    for name, new in (("k", k), ("v", v)):
-        row = state[name][:, slot]
-        row.zero_()
-        row[:, :n] = new[:, 0].to(row.dtype)
+                    slot: int, cfg: TransformerConfig,
+                    true_len: "int | None" = None) -> dict:
+    """Prefill ``prompt`` (1, L) into ``slot``'s cache row. With
+    ``true_len`` (a prompt padded to a bucket) the next-token logits are
+    read at ``true_len - 1``; the padding's K/V lies past the lane's
+    position, masked, and is overwritten as decode advances."""
+    k, v, logits = prefill_kv(
+        params, prompt, cfg,
+        logit_pos=None if true_len is None else true_len - 1)
+    _prefill_slot_row(state, slot, k, v)
     state["logits"][slot] = logits[0].to(state["logits"].dtype)
     return state
 
@@ -240,62 +463,352 @@ def _write_pool_rows(pool: torch.Tensor, layer: int, vals: torch.Tensor,
     page = page_table[rows, p // page_size].long()
     off = p % page_size
     if mask is not None:
-        vals = torch.where(mask[:, None, None], vals, pool[layer, page, off])
+        vals = torch.where(_lane_mask(mask, vals), vals,
+                           pool[layer, page, off])
     pool[layer, page, off] = vals
+
+
+def _gather_lane_kv(kv: dict, layer: int, page_table: torch.Tensor,
+                    dtype: torch.dtype) -> tuple:
+    """Each lane's pages in logical order, (lanes, n_pt * P, h_kv, D),
+    dequantized after the gather for an int8 pool (elementwise, so the
+    values are the slot engine's at every valid position)."""
+    def one(name):
+        x = kernels.paged_gather_kv(kv[name][layer], page_table)
+        if "k_scale" not in kv:
+            return x
+        return dequantize_kv(
+            x, kernels.paged_gather_kv(kv[name + "_scale"][layer],
+                                       page_table), dtype)
+    return one("k"), one("v")
+
+
+def _paged_attend(kv: dict, pos: torch.Tensor, page_table: torch.Tensor,
+                  cfg: TransformerConfig, impl: str,
+                  write_mask: "torch.Tensor | None"):
+    """The paged engines' ``attend``: table-routed writes, then the read
+    through ``impl`` — ``"gather"`` (gathered pages and the slot
+    formula) or ``"kernel"`` (``paged_attention``, one query a lane)."""
+    page_size = kv["k"].shape[2]
+
+    def attend(i, q, k, v):
+        for j in range(q.shape[1]):
+            _write_lane_kv(kv, k[:, j], v[:, j], lambda t, x: (
+                _write_pool_rows(t, i, x, pos + j, page_table, page_size,
+                                 write_mask)))
+        if impl == "kernel":
+            return kernels.paged_attention(q, kv["k"][i], kv["v"][i],
+                                           page_table, pos)
+        k_all, v_all = _gather_lane_kv(kv, i, page_table, cfg.dtype)
+        if q.shape[1] == 1:
+            return _slot_cached_attention(q, k_all, v_all, pos,
+                                          window=cfg.attn_window)
+        return _slot_block_attention(q, k_all, v_all, pos,
+                                     window=cfg.attn_window)
+    return attend
 
 
 def _paged_decode_step(params: dict, kv: dict, token: torch.Tensor,
                        pos: torch.Tensor, page_table: torch.Tensor,
                        cfg: TransformerConfig, impl: str,
                        write_mask: "torch.Tensor | None" = None):
-    """The slot step with K/V in the page pool: table-routed writes, and
-    the read through ``impl`` — ``"gather"`` (gathered pages + the slot
-    formula) or ``"kernel"`` (``paged_attention``). ``page_table``
-    (lanes, n_pt) and ``pos`` (lanes,) are int32 on the pool's device.
-    Returns (kv, logits (lanes, vocab))."""
-    page_size = kv["k"].shape[2]
+    """The slot step with K/V in the page pool. ``page_table`` (lanes,
+    n_pt) and ``pos`` (lanes,) are int32 on the pool's device. Returns
+    (kv, logits (lanes, vocab))."""
+    logits = _lane_forward(
+        params, token[:, None], pos, cfg,
+        _paged_attend(kv, pos, page_table, cfg, impl, write_mask))
+    return kv, logits[:, 0]
 
-    def attend(i, q, k, v):
-        _write_pool_rows(kv["k"], i, k[:, 0].to(kv["k"].dtype), pos,
-                         page_table, page_size, write_mask)
-        _write_pool_rows(kv["v"], i, v[:, 0].to(kv["v"].dtype), pos,
-                         page_table, page_size, write_mask)
-        if impl == "kernel":
-            return kernels.paged_attention(q, kv["k"][i], kv["v"][i],
-                                           page_table, pos)
-        return _slot_cached_attention(
-            q, kernels.paged_gather_kv(kv["k"][i], page_table),
-            kernels.paged_gather_kv(kv["v"][i], page_table), pos,
-            window=cfg.attn_window)
 
-    return kv, _lane_decode(params, token, pos, cfg, attend)
+def _paged_extend(params: dict, kv: dict, tokens: torch.Tensor,
+                  pos: torch.Tensor, page_table: torch.Tensor,
+                  cfg: TransformerConfig,
+                  write_mask: "torch.Tensor | None" = None):
+    """``_slot_extend`` over the page pool, read through the gather path
+    (the host's pre-write pass resolved every page the block writes)."""
+    return kv, _lane_forward(
+        params, tokens, pos, cfg,
+        _paged_attend(kv, pos, page_table, cfg, "gather", write_mask))
+
+
+def _store_prompt_pages(state: dict, k: torch.Tensor, v: torch.Tensor,
+                        page_ids: torch.Tensor, prefix: str = "") -> None:
+    """Write a prompt's K/V (layers, 1, n, h_kv, D) into the pool pages
+    ``page_ids`` (ceil(n/P) ids), positions past n in the last page
+    zeroed. A shared page is rewritten with identical bytes."""
+    n_pages = page_ids.shape[0]
+    pools = {n: state[prefix + n] for n in _KV_KEYS if prefix + n in state}
+    page_size = pools["k"].shape[2]
+    bufs = {n: t.new_zeros((t.shape[0], n_pages * page_size) + t.shape[3:])
+            for n, t in pools.items()}
+    _store_prompt_kv(bufs, k[:, 0], v[:, 0])
+    for n, pool in pools.items():
+        pool[:, page_ids] = bufs[n].view(
+            (pool.shape[0], n_pages, page_size) + pool.shape[3:])
 
 
 def _engine_paged_prefill(params: dict, state: dict, prompt: torch.Tensor,
                           page_ids: torch.Tensor, slot: int,
                           cfg: TransformerConfig) -> dict:
     """Prefill ``prompt`` (1, L) and write its K/V into the pool pages
-    ``page_ids`` (ceil(L/P) ids), positions past L in the last page
-    zeroed. A shared page is rewritten with identical bytes."""
+    ``page_ids``."""
     k, v, logits = prefill_kv(params, prompt, cfg)
-    n, n_pages = prompt.shape[1], page_ids.shape[0]
-    page_size = state["k"].shape[2]
-    for name, new in (("k", k), ("v", v)):
-        pool = state[name]
-        buf = pool.new_zeros((pool.shape[0], n_pages * page_size)
-                             + pool.shape[3:])
-        buf[:, :n] = new[:, 0].to(pool.dtype)
-        pool[:, page_ids] = buf.view((pool.shape[0], n_pages, page_size)
-                                     + pool.shape[3:])
+    _store_prompt_pages(state, k, v, page_ids)
     state["logits"][slot] = logits[0].to(state["logits"].dtype)
     return state
 
 
 def _copy_page(state: dict, src: int, dst: int) -> dict:
-    """The COW split's device half: copy page ``src`` to ``dst`` across
-    every layer, in place."""
-    for name in ("k", "v"):
-        state[name][:, dst] = state[name][:, src]
+    """The COW split's device half: copy page ``src`` to ``dst`` of the
+    target pool (values and scales) across every layer, in place."""
+    for name in _KV_KEYS:
+        if name in state:
+            state[name][:, dst] = state[name][:, src]
+    return state
+
+
+# -- the speculative device plane ---------------------------------------
+#
+# A draft model proposes k tokens a lane (k + 1 draft decode steps), the
+# target scores the anchor and the k proposals in ONE block extend, and
+# each lane accepts its longest agreeing prefix. Rejected positions lie
+# past the lane's position: masked, and overwritten by the next block.
+
+
+def _split_spec_state(state: dict) -> "tuple[dict, dict]":
+    """One state dict -> (target kv, draft kv) views; the draft's cache
+    rides the same dict under ``draft_*`` keys."""
+    d_kv = {n[len(_DRAFT_PREFIX):]: state[n] for n in state
+            if n.startswith(_DRAFT_PREFIX)}
+    return _kv_view(state), d_kv
+
+
+def _spec_probs_rows(logits: torch.Tensor, sample: tuple) -> torch.Tensor:
+    """Rows (..., vocab) of logits -> the filtered sampling distribution
+    (the pipeline plain sampling picks from)."""
+    temperature, top_k, top_p = sample
+    return torch.softmax(
+        apply_sample_filters(logits, temperature, top_k, top_p), dim=-1)
+
+
+def _spec_keys(key_data: torch.Tensor, idx: torch.Tensor,
+               tag: int) -> torch.Tensor:
+    """Lane s's key for one draw of a speculative block:
+    ``fold_in(fold_in(base_s, idx[s]), tag)`` — the block's key (request
+    seed + emitted index) fanned out by a static tag so the anchor, each
+    proposal and the accept draws use disjoint streams."""
+    return prng.fold_in(
+        sample_step_key(prng.wrap_key_data(key_data), idx), tag)
+
+
+def _spec_categorical_rows(key_data: torch.Tensor, probs: torch.Tensor,
+                           idx: torch.Tensor, tag: int) -> torch.Tensor:
+    """Per-lane categorical over probability rows (lanes, vocab), each a
+    ``(1, vocab)`` draw of ``log(max(p, 1e-30))`` on the speculative key
+    schedule."""
+    logp = torch.log(torch.clamp(probs, min=1e-30))
+    return prng.categorical(_spec_keys(key_data, idx, tag),
+                            logp[:, None, :])[:, 0].to(torch.int32)
+
+
+def _spec_uniform_rows(key_data: torch.Tensor, idx: torch.Tensor,
+                       tag: int, n: int) -> torch.Tensor:
+    """(lanes, n) uniform draws on the speculative key schedule — the
+    per-proposal accept tests."""
+    return prng.uniform(_spec_keys(key_data, idx, tag), (n,))
+
+
+def _spec_core(params: dict, draft_params: dict, state: dict,
+               pos: torch.Tensor, done: torch.Tensor,
+               remaining: torch.Tensor, eos_ids: torch.Tensor,
+               stop_ids: torch.Tensor, step_idx: torch.Tensor,
+               key_data: Optional[torch.Tensor], k: int,
+               sample: Optional[tuple], t_extend, d_step):
+    """One speculative block for every lane (the JAX ``_spec_core``):
+
+    1. the anchor token from the carried logits (argmax; sampled, from
+       ``norm(max(p - q_res, 0))`` after a rejection — the modified-
+       rejection resample — else from p);
+    2. k + 1 draft steps: k proposals and one cache fill of the last, so
+       the draft holds no hole after a full acceptance;
+    3. one (k + 1)-position target extend over [anchor, d_1..d_k]; the
+       longest accepted prefix ``n_acc`` (greedy: d_j == argmax V_{j-1};
+       sampled: u * q_j(d_j) < p_j(d_j));
+    4. the emit latch over [anchor, d_1..d_n_acc] on the device (EOS,
+       stop, budget as ``multi_step_decode``), the carried logits
+       ``V[n_acc]``.
+
+    Returns (state, packed (k+4, lanes) int32: the candidates (row 0 the
+    anchor), the accepted counts, the post-block positions and the bad
+    flag)."""
+    logits_in = state["logits"]
+    poisoned = ~done & ~torch.isfinite(logits_in).all(dim=-1)
+    bad = poisoned
+    done = done | poisoned
+    active = ~done
+
+    if sample is None:
+        tok0 = logits_in.argmax(dim=-1).to(torch.int32)
+    else:
+        p0 = _spec_probs_rows(logits_in, sample)
+        res = torch.clamp(p0 - state["q_res"], min=0.0)
+        tot = res.sum(dim=-1, keepdim=True)
+        anchor = torch.where(tot > 0.0, res / torch.clamp(tot, min=1e-30),
+                             p0)
+        tok0 = _spec_categorical_rows(key_data, anchor, step_idx, tag=0)
+
+    t_kv, d_kv = _split_spec_state(state)
+    props, qs = [], []
+    cur, dpos = tok0, pos
+    for j in range(k + 1):
+        d_kv, dl = d_step(draft_params, d_kv, cur, dpos, active)
+        if j < k:
+            if sample is None:
+                nxt = dl.argmax(dim=-1).to(torch.int32)
+            else:
+                qj = _spec_probs_rows(dl, sample)
+                qs.append(qj)
+                nxt = _spec_categorical_rows(key_data, qj, step_idx,
+                                             tag=1 + j)
+            props.append(nxt)
+            cur = nxt
+        dpos = torch.where(active, dpos + 1, dpos)
+    props_m = torch.stack(props, dim=1)                   # (s, k)
+
+    block = torch.cat([tok0[:, None], props_m], dim=1)    # (s, k+1)
+    _, v_logits = t_extend(params, t_kv, block, pos, active)
+    bad_v = active & ~torch.isfinite(v_logits).all(dim=-1).all(dim=-1)
+    bad = bad | bad_v
+    done = done | bad_v
+
+    if sample is None:
+        t_arg = v_logits.argmax(dim=-1).to(torch.int32)
+        ok = props_m == t_arg[:, :k]
+    else:
+        ps = _spec_probs_rows(v_logits, sample)           # (s, k+1, v)
+        qs_m = torch.stack(qs, dim=1)                     # (s, k, v)
+        at = props_m.long()[:, :, None]
+        p_at = torch.gather(ps[:, :k], 2, at)[..., 0]
+        q_at = torch.gather(qs_m, 2, at)[..., 0]
+        u = _spec_uniform_rows(key_data, step_idx, tag=k + 1, n=k)
+        ok = u * q_at < p_at
+    zero = torch.zeros((ok.shape[0], 1), dtype=torch.bool, device=ok.device)
+    # the first False: the accepted-prefix length, k if all accepted
+    n_acc = torch.cat([ok, zero], dim=1).to(torch.int32).argmin(dim=1)
+    lanes = torch.arange(v_logits.shape[0], device=v_logits.device)
+    logits_next = v_logits[lanes, n_acc.long()]
+    if sample is not None:
+        # a rejection at proposal n_acc leaves the next anchor to draw
+        # from norm(max(p - q_{n_acc}, 0)); full acceptance carries zeros
+        q_rej = qs_m[lanes, torch.clamp(n_acc, max=k - 1).long()]
+        state["q_res"] = torch.where((n_acc < k)[:, None], q_rej,
+                                     torch.zeros_like(q_rej))
+
+    for j in range(k + 1):
+        tok = block[:, j]
+        a = ~done & (j <= n_acc)
+        finished = a & ((tok == eos_ids)
+                        | (stop_ids == tok[:, None]).any(dim=1)
+                        | (remaining <= 1))
+        remaining = torch.where(a, remaining - 1, remaining)
+        step_idx = torch.where(a, step_idx + 1, step_idx)
+        live = a & ~finished
+        done = done | finished
+        pos = torch.where(live, pos + 1, pos)
+
+    state["logits"] = logits_next.to(logits_in.dtype)
+    packed = torch.cat([block.T.to(torch.int32), n_acc[None].to(torch.int32),
+                        pos[None].to(torch.int32),
+                        bad.to(torch.int32)[None]])
+    return state, packed
+
+
+def _engine_speculative_step(params: dict, draft_params: dict,
+                             state: dict, pos: torch.Tensor,
+                             done: torch.Tensor, remaining: torch.Tensor,
+                             eos_ids: torch.Tensor, stop_ids: torch.Tensor,
+                             step_idx: torch.Tensor,
+                             key_data: Optional[torch.Tensor],
+                             cfg: TransformerConfig,
+                             draft_cfg: TransformerConfig, k: int,
+                             sample: Optional[tuple]):
+    """The slot engine's speculative block: ``_spec_core`` with the draft
+    stepping its slot rows and the target extending its own."""
+
+    def d_step(dp, dkv, tok, dpos, mask):
+        return _slot_decode_step(dp, dkv, tok, dpos, draft_cfg, mask)
+
+    def t_extend(p, tkv, block, bpos, mask):
+        return _slot_extend(p, tkv, block, bpos, cfg, mask)
+
+    return _spec_core(params, draft_params, state, pos, done, remaining,
+                      eos_ids, stop_ids, step_idx, key_data, k, sample,
+                      t_extend, d_step)
+
+
+def _engine_paged_speculative_step(params: dict, draft_params: dict,
+                                   state: dict, pos: torch.Tensor,
+                                   done: torch.Tensor,
+                                   remaining: torch.Tensor,
+                                   eos_ids: torch.Tensor,
+                                   stop_ids: torch.Tensor,
+                                   step_idx: torch.Tensor,
+                                   key_data: Optional[torch.Tensor],
+                                   page_table: torch.Tensor,
+                                   draft_page_table: torch.Tensor,
+                                   cfg: TransformerConfig,
+                                   draft_cfg: TransformerConfig, k: int,
+                                   sample: Optional[tuple]):
+    """The paged speculative block: the target's KV in the main pool and
+    the draft's in its own, each through its own page table (the draft
+    steps and the verify read through the gather path)."""
+
+    def d_step(dp, dkv, tok, dpos, mask):
+        return _paged_decode_step(dp, dkv, tok, dpos, draft_page_table,
+                                  draft_cfg, "gather", mask)
+
+    def t_extend(p, tkv, block, bpos, mask):
+        return _paged_extend(p, tkv, block, bpos, page_table, cfg, mask)
+
+    return _spec_core(params, draft_params, state, pos, done, remaining,
+                      eos_ids, stop_ids, step_idx, key_data, k, sample,
+                      t_extend, d_step)
+
+
+def _engine_spec_prefill(params: dict, draft_params: dict, state: dict,
+                         prompt: torch.Tensor, slot: int,
+                         cfg: TransformerConfig,
+                         draft_cfg: TransformerConfig) -> dict:
+    """Prefill ``prompt`` (1, L) into ``slot``'s target and draft rows.
+    The carried logits are the target's; a sampled engine's residual row
+    resets to zero (no pending rejection)."""
+    k, v, logits = prefill_kv(params, prompt, cfg)
+    dk, dv, _ = prefill_kv(draft_params, prompt, draft_cfg)
+    _prefill_slot_row(state, slot, k, v)
+    _prefill_slot_row(state, slot, dk, dv, prefix=_DRAFT_PREFIX)
+    state["logits"][slot] = logits[0].to(state["logits"].dtype)
+    if "q_res" in state:
+        state["q_res"][slot] = 0.0
+    return state
+
+
+def _engine_paged_spec_prefill(params: dict, draft_params: dict,
+                               state: dict, prompt: torch.Tensor,
+                               page_ids: torch.Tensor,
+                               draft_page_ids: torch.Tensor, slot: int,
+                               cfg: TransformerConfig,
+                               draft_cfg: TransformerConfig) -> dict:
+    """The paged ``_engine_spec_prefill``: each model's cache page-wise
+    into its own pool."""
+    k, v, logits = prefill_kv(params, prompt, cfg)
+    dk, dv, _ = prefill_kv(draft_params, prompt, draft_cfg)
+    _store_prompt_pages(state, k, v, page_ids)
+    _store_prompt_pages(state, dk, dv, draft_page_ids,
+                        prefix=_DRAFT_PREFIX)
+    state["logits"][slot] = logits[0].to(state["logits"].dtype)
+    if "q_res" in state:
+        state["q_res"][slot] = 0.0
     return state
 
 
@@ -315,6 +828,10 @@ class ServingEngine:
     def __init__(self, params: dict, cfg: TransformerConfig,
                  ecfg: EngineConfig = EngineConfig(), metrics=None,
                  clock=time.monotonic):
+        if ecfg.prefill_buckets and ecfg.prefill_buckets[-1] > cfg.max_seq:
+            raise ValueError(
+                f"largest prefill bucket {ecfg.prefill_buckets[-1]} "
+                f"exceeds max_seq {cfg.max_seq}")
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
@@ -325,28 +842,41 @@ class ServingEngine:
         n = ecfg.num_slots
         self._pos = np.zeros((n,), np.int32)
         self._slots: list[Optional[_SlotState]] = [None] * n
-        # per-lane finish vectors of the S>1 block (-1 = none)
+        # per-lane finish vectors of the block dispatches (-1 = none)
         self._eos = np.full((n,), -1, np.int32)
-        self._stops = np.full((n, MAX_STOP_TOKENS), -1, np.int32)
+        self._stops = np.full((n, ecfg.max_stop_tokens), -1, np.int32)
         self._remaining = np.zeros((n,), np.int32)
+        # the sampled stream's coordinates: each lane's emitted-token
+        # index and its request's key words (from the request's seed,
+        # never the slot)
+        self._step_idx = np.zeros((n,), np.int32)
+        self._key_data = np.zeros((n, 2), np.int64)
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.peak_occupied = 0
         # block steps computed for a lane after its done-mask latched
         self.wasted_tokens = 0
-        # distinct prompt lengths prefilled (the JAX engine's compiled
-        # prefill programs; reported for the same summary shape)
+        # distinct prefill lengths (prompt or bucket: the JAX engine's
+        # compiled prefill programs; reported for the same summary shape)
         self.prefill_shapes: set = set()
-        # tokens decoded for requests later failed
+        # tokens decoded for requests later failed or evicted
         self.discarded_tokens = 0
+        self.evictions = 0
+
+    def _needs_keys(self) -> bool:
+        """Does any dispatch of this engine draw from PRNG keys?"""
+        return self.ecfg.sample is not None
 
     def _fresh_state(self) -> dict:
         base = init_kv_cache(self.cfg, self.ecfg.num_slots,
-                             device=self.device)
-        return {"k": base["k"], "v": base["v"],
-                "logits": torch.zeros(
-                    (self.ecfg.num_slots, self.cfg.vocab_size),
-                    dtype=self.cfg.dtype, device=self.device)}
+                             device=self.device,
+                             kv_dtype=self.ecfg.kv_dtype)
+        del base["pos"]  # per-slot positions live host-side
+        return {**base, "logits": self._zero_logits()}
+
+    def _zero_logits(self) -> torch.Tensor:
+        return torch.zeros((self.ecfg.num_slots, self.cfg.vocab_size),
+                           dtype=self.cfg.dtype, device=self.device)
 
     # -- slot introspection -------------------------------------------
 
@@ -364,9 +894,20 @@ class ServingEngine:
 
     def kv_cache_bytes(self) -> int:
         return sum(self._state[n].numel() * self._state[n].element_size()
-                   for n in ("k", "v"))
+                   for n in _KV_KEYS if n in self._state)
 
     # -- admission (prefill) ------------------------------------------
+
+    def _bucket_len(self, n: int) -> int:
+        buckets = self.ecfg.prefill_buckets
+        if not buckets:
+            return n
+        i = bisect.bisect_left(buckets, n)
+        if i == len(buckets):
+            raise ValueError(
+                f"prompt length {n} exceeds largest prefill bucket "
+                f"{buckets[-1]}")
+        return buckets[i]
 
     def _validate_admit(self, req: Request) -> tuple:
         """The admission contract checks; returns the stop-token tuple."""
@@ -386,10 +927,12 @@ class ServingEngine:
                 raise ValueError(f"request {req.rid}: stop/eos token {t} "
                                  f"out of vocab [0, {self.cfg.vocab_size})")
         stops = tuple(req.stop_tokens or ())
-        if self.ecfg.decode_steps > 1 and len(stops) > MAX_STOP_TOKENS:
+        if self.ecfg.decode_steps > 1 \
+                and len(stops) > self.ecfg.max_stop_tokens:
             raise ValueError(
                 f"request {req.rid}: {len(stops)} stop tokens exceed the "
-                f"block's static width MAX_STOP_TOKENS={MAX_STOP_TOKENS}")
+                f"block's static width max_stop_tokens="
+                f"{self.ecfg.max_stop_tokens}")
         return stops
 
     def can_admit(self, req: Request) -> bool:
@@ -399,12 +942,18 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill_into(self, slot: int, req: Request) -> None:
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
-                                 device=self.device)[None]
-        self._state = _engine_prefill(self.params, self._state, prompt,
-                                      slot, self.cfg)
+        """The slot engine's lane write, exact-length or padded up to
+        its bucket."""
+        n = len(req.prompt)
+        length = self._bucket_len(n)
+        padded = torch.zeros((1, length), dtype=torch.long,
+                             device=self.device)
+        padded[0, :n] = torch.as_tensor(req.prompt, dtype=torch.long)
+        self._state = _engine_prefill(
+            self.params, self._state, padded, slot, self.cfg,
+            true_len=n if length != n else None)
         self.prefill_dispatches += 1
-        self.prefill_shapes.add(len(req.prompt))
+        self.prefill_shapes.add(length)
 
     def admit(self, req: Request) -> int:
         """Prefill ``req`` into a free slot; returns the slot index."""
@@ -418,9 +967,13 @@ class ServingEngine:
         self._pos[slot] = len(req.prompt)
         self._eos[slot] = -1 if req.eos_token is None else req.eos_token
         self._stops[slot, :] = -1
-        for j, t in enumerate(stops[:MAX_STOP_TOKENS]):
+        for j, t in enumerate(stops[:self.ecfg.max_stop_tokens]):
             self._stops[slot, j] = t
         self._remaining[slot] = req.max_new_tokens
+        self._step_idx[slot] = 0
+        if self._needs_keys():
+            seed = req.seed if req.seed is not None else req.rid
+            self._key_data[slot] = prng.key(seed).numpy()
         self._slots[slot] = _SlotState(req=req, emitted=[])
         self.peak_occupied = max(self.peak_occupied, self.occupied)
         if self.metrics is not None:
@@ -447,6 +1000,8 @@ class ServingEngine:
         self._eos[i] = -1
         self._stops[i, :] = -1
         self._remaining[i] = 0
+        self._step_idx[i] = 0
+        self._key_data[i, :] = 0
 
     def _fail_lane(self, i: int, reason: str) -> tuple:
         """Fail slot ``i``'s request (its partial decode discarded) and
@@ -462,6 +1017,27 @@ class ServingEngine:
         self._free_slot(i)
         return (i, slot.req, [], reason)
 
+    def _evict_expired(self, finished: list) -> None:
+        """Mid-flight deadline enforcement: between dispatches, a running
+        request whose absolute ``deadline`` has passed is evicted — its
+        partial decode charged to wasted work, its slot freed for the
+        same loop iteration's refill — instead of burning the rest of its
+        budget on an answer nobody waits for."""
+        now = self.clock()
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            req = slot.req
+            if req.deadline is not None and now > req.deadline:
+                self.evictions += 1
+                n = len(slot.emitted)
+                self.discarded_tokens += n
+                if self.metrics is not None:
+                    self.metrics.on_discard(req.rid, n)
+                    self.metrics.on_evict(req.rid, n)
+                finished.append((i, req, [], "evicted"))
+                self._free_slot(i)
+
     def _lane_step(self):
         """The lane decode the dispatches run: (params, kv, tok, pos,
         write_mask) -> (kv, logits)."""
@@ -472,17 +1048,44 @@ class ServingEngine:
     def _vector(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
 
+    def _sample_operands(self) -> dict:
+        """The sampled dispatch's extra operands; empty when greedy."""
+        if self.ecfg.sample is None:
+            return {}
+        return {"sample": self.ecfg.sample,
+                "key_data": self._vector(self._key_data),
+                "step_idx": self._vector(self._step_idx)}
+
+    def _consume(self, i: int, t: int) -> Optional[str]:
+        """Append token ``t`` to lane ``i``'s stream; its finish reason."""
+        slot = self._slots[i]
+        slot.emitted.append(t)
+        self._pos[i] += 1
+        self._remaining[i] -= 1
+        self._step_idx[i] += 1
+        return self._finish_reason(slot.req, t, len(slot.emitted))
+
+    def _complete(self, i: int, reason: str, finished: list) -> None:
+        slot = self._slots[i]
+        if self.metrics is not None:
+            self.metrics.on_complete(slot.req.rid, len(slot.emitted),
+                                     reason)
+        finished.append((i, slot.req, slot.emitted, reason))
+        self._free_slot(i)
+
     @torch.no_grad()
     def step(self) -> list[tuple[int, Request, list, str]]:
         """Advance every occupied slot by ``decode_steps`` tokens.
         Returns completions ``(slot, request, tokens, reason)`` — reason
         ``eos`` / ``stop`` / ``max_tokens`` for successes, ``nan`` for a
-        poisoned lane. Finished slots are freed before returning."""
+        poisoned lane, ``evicted`` (terminal, no tokens) for a request
+        whose deadline passed. Finished slots are freed before
+        returning."""
         if self.ecfg.decode_steps > 1:
             return self._step_block()
         self._state, packed = _engine_step(
             self.params, self._state, self._vector(self._pos),
-            self._lane_step())
+            self._lane_step(), **self._sample_operands())
         packed = packed.cpu().numpy()  # the one host readback
         self.decode_dispatches += 1
         toks, finite = packed[0], packed[1]
@@ -493,21 +1096,22 @@ class ServingEngine:
             if not finite[i]:
                 finished.append(self._fail_lane(i, "nan"))
                 continue
-            t = int(toks[i])
-            slot.emitted.append(t)
-            self._pos[i] += 1
-            self._remaining[i] -= 1
-            req = slot.req
+            reason = self._consume(i, int(toks[i]))
             if self.metrics is not None:
-                self.metrics.on_token(req.rid, req.submitted_at)
-            reason = self._finish_reason(req, t, len(slot.emitted))
+                self.metrics.on_token(slot.req.rid, slot.req.submitted_at)
             if reason is not None:
-                finished.append((i, req, slot.emitted, reason))
-                self._free_slot(i)
-                if self.metrics is not None:
-                    self.metrics.on_complete(req.rid, len(slot.emitted),
-                                             reason)
+                self._complete(i, reason, finished)
+        self._evict_expired(finished)
         return finished
+
+    def _block_vectors(self) -> dict:
+        """The per-lane vectors of a block dispatch, uploaded from host
+        truth."""
+        return {"done": self._vector(np.array([s is None
+                                               for s in self._slots])),
+                "remaining": self._vector(self._remaining),
+                "eos_ids": self._vector(self._eos),
+                "stop_ids": self._vector(self._stops)}
 
     def _step_block(self) -> list[tuple[int, Request, list, str]]:
         """The S>1 dispatch: one device block, one ``(S+2, lanes)``
@@ -515,12 +1119,10 @@ class ServingEngine:
         its tokens (mirroring the device latch) and counts the block steps
         after it as wasted."""
         s_steps = self.ecfg.decode_steps
-        done = np.array([s is None for s in self._slots])
         self._state, packed = _engine_multi_step(
             self.params, self._state, self._vector(self._pos),
-            self._vector(done), self._vector(self._remaining),
-            self._vector(self._eos), self._vector(self._stops), s_steps,
-            self._lane_step())
+            steps=s_steps, decode_fn=self._lane_step(),
+            **self._block_vectors(), **self._sample_operands())
         block = packed.cpu().numpy()  # ONE readback per S steps
         self.decode_dispatches += 1
         toks, dev_pos, bad = \
@@ -536,12 +1138,8 @@ class ServingEngine:
             reason = None
             consumed = 0
             for s in range(s_steps):
-                t = int(toks[s, i])
-                slot.emitted.append(t)
                 consumed += 1
-                self._pos[i] += 1
-                self._remaining[i] -= 1
-                reason = self._finish_reason(req, t, len(slot.emitted))
+                reason = self._consume(i, int(toks[s, i]))
                 if reason is not None:
                     break
             if self.metrics is not None:
@@ -552,16 +1150,14 @@ class ServingEngine:
                 self.wasted_tokens += wasted
                 if self.metrics is not None:
                     self.metrics.on_wasted(req.rid, wasted)
-                    self.metrics.on_complete(req.rid, len(slot.emitted),
-                                             reason)
-                finished.append((i, req, slot.emitted, reason))
-                self._free_slot(i)
+                self._complete(i, reason, finished)
             elif int(dev_pos[i]) != int(self._pos[i]):
                 raise RuntimeError(
                     f"slot {i} (rid {req.rid}): device pos "
                     f"{int(dev_pos[i])} != host replay {self._pos[i]} "
                     f"after a {s_steps}-step block — on-device finish "
                     f"latch and host completion logic diverged")
+        self._evict_expired(finished)
         return finished
 
 
@@ -614,22 +1210,21 @@ class PagedServingEngine(ServingEngine):
 
     def _fresh_state(self) -> dict:
         return {**init_kv_pool(self.cfg, self.pool.num_pages,
-                               self.ecfg.page_size, device=self.device),
-                "logits": torch.zeros(
-                    (self.ecfg.num_slots, self.cfg.vocab_size),
-                    dtype=self.cfg.dtype, device=self.device)}
+                               self.ecfg.page_size, device=self.device,
+                               kv_dtype=self.ecfg.kv_dtype),
+                "logits": self._zero_logits()}
 
     # -- admission ------------------------------------------------------
 
     def can_admit(self, req: Request) -> bool:
         return self.pool.can_admit(tuple(req.prompt), req.max_new_tokens)
 
-    @torch.no_grad()
-    def _prefill_into(self, slot: int, req: Request) -> None:
+    def _allocate(self, slot: int, req: Request, budget: int) -> list:
+        """Allocate (or share) ``slot``'s target pages for prompt +
+        ``budget`` positions and write its table row."""
         full = tuple(req.prompt)
         n = len(full)
-        budget = req.max_new_tokens
-        pages, writes = self.pool.admit(full, budget)
+        pages, _writes = self.pool.admit(full, budget)
         self._lane_pages[slot] = pages
         self._lane_end[slot] = n + budget
         self._pt[slot, :] = 0
@@ -641,14 +1236,21 @@ class PagedServingEngine(ServingEngine):
                                      self.pool.pages_in_use)
         self.peak_pages_unshared = max(self.peak_pages_unshared,
                                        self._unshared_pages_now)
-        n_cov = pages_for(n, self.ecfg.page_size)
-        prompt = torch.as_tensor(full, dtype=torch.long,
+        return pages
+
+    def _prompt_pages(self, pages: list, n: int) -> torch.Tensor:
+        return torch.as_tensor(pages[:pages_for(n, self.ecfg.page_size)],
+                               dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        n = len(req.prompt)
+        pages = self._allocate(slot, req, req.max_new_tokens)
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
                                  device=self.device)[None]
-        page_ids = torch.as_tensor(pages[:n_cov], dtype=torch.long,
-                                   device=self.device)
-        self._state = _engine_paged_prefill(self.params, self._state,
-                                            prompt, page_ids, slot,
-                                            self.cfg)
+        self._state = _engine_paged_prefill(
+            self.params, self._state, prompt,
+            self._prompt_pages(pages, n), slot, self.cfg)
         self.prefill_dispatches += 1
         self.prefill_shapes.add(n)
 
@@ -752,6 +1354,294 @@ class PagedServingEngine(ServingEngine):
         }
 
 
+class _SpeculativeMixin:
+    """The host half of speculative serving, shared by the slot and paged
+    speculative engines: the block unpack with the acceptance replay,
+    the draft-token ledger (``draft_proposed == draft_accepted +
+    draft_rejected``, rejected charged to wasted tokens) and the
+    admission headroom (a verify writes ``draft_steps`` positions past
+    the emitted frontier)."""
+
+    def _init_spec(self, draft_params: dict,
+                   draft_cfg: TransformerConfig, cfg: TransformerConfig,
+                   ecfg: EngineConfig) -> None:
+        if ecfg.draft_steps < 1:
+            raise ValueError(
+                "a speculative engine needs draft_steps >= 1 "
+                "(EngineConfig.draft_steps; plain engines use 0)")
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft and target must share a vocabulary: "
+                f"{draft_cfg.vocab_size} != {cfg.vocab_size}")
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.draft_proposed = 0
+        self.draft_accepted = 0
+        self.draft_rejected = 0
+        self._lane_draft: dict = {}  # slot -> [proposed, accepted]
+
+    def _spec_extra_state(self) -> dict:
+        """The draft cache ``draft`` rides the state under ``draft_*``;
+        a sampled engine carries the pending-rejection residual row
+        ``q_res`` (zero: plain sampling)."""
+        if self.ecfg.sample is None:
+            return {}
+        return {"q_res": torch.zeros(
+            (self.ecfg.num_slots, self.cfg.vocab_size),
+            dtype=torch.float32, device=self.device)}
+
+    @property
+    def acceptance_rate(self) -> float:
+        return (self.draft_accepted / self.draft_proposed
+                if self.draft_proposed else 0.0)
+
+    def speculative_summary(self) -> dict:
+        return {"draft_steps": self.ecfg.draft_steps,
+                "draft_proposed": self.draft_proposed,
+                "draft_accepted": self.draft_accepted,
+                "draft_rejected": self.draft_rejected,
+                "acceptance_rate": round(self.acceptance_rate, 4)}
+
+    def kv_cache_bytes(self) -> int:
+        # target + draft caches; the carried logits/q_res are not cache
+        return sum(t.numel() * t.element_size()
+                   for n, t in self._state.items()
+                   if n not in ("logits", "q_res"))
+
+    def _validate_admit(self, req: Request) -> tuple:
+        stops = super()._validate_admit(req)
+        k = self.ecfg.draft_steps
+        n = len(req.prompt)
+        if n + req.max_new_tokens + k > self.cfg.max_seq:
+            raise ValueError(
+                f"request {req.rid}: prompt {n} + max_new_tokens "
+                f"{req.max_new_tokens} + draft_steps {k} exceeds "
+                f"max_seq {self.cfg.max_seq} (speculative blocks write "
+                f"up to draft_steps positions past the emitted "
+                f"frontier)")
+        if n + req.max_new_tokens + k > self.draft_cfg.max_seq:
+            raise ValueError(
+                f"request {req.rid}: draft max_seq "
+                f"{self.draft_cfg.max_seq} must cover prompt + "
+                f"max_new_tokens + draft_steps = "
+                f"{n + req.max_new_tokens + k}")
+        if len(stops) > self.ecfg.max_stop_tokens:
+            raise ValueError(
+                f"request {req.rid}: {len(stops)} stop tokens "
+                f"exceed the block's static width "
+                f"max_stop_tokens={self.ecfg.max_stop_tokens}")
+        return stops
+
+    def _free_slot(self, i: int) -> None:
+        self._lane_draft.pop(i, None)
+        super()._free_slot(i)
+
+    def step(self) -> list:
+        return self._step_spec()
+
+    @torch.no_grad()
+    def _step_spec(self) -> list:
+        """One speculative block dispatch + unpack: the token rows are
+        [anchor, proposals], each lane consumes up to its accepted count
+        (the host replays the device latch token for token), then the
+        draft ledger settles from what entered the stream."""
+        k = self.ecfg.draft_steps
+        self._state, packed = self._dispatch_spec(
+            self._vector(self._pos), **self._block_vectors(),
+            step_idx=self._vector(self._step_idx),
+            key_data=self._vector(self._key_data))
+        block = packed.cpu().numpy()
+        self.decode_dispatches += 1
+        toks, n_accs, dev_pos, bad = \
+            block[:k + 1], block[k + 1], block[k + 2], block[k + 3]
+        finished = []
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            if bad[i]:
+                finished.append(self._fail_lane(i, "nan"))
+                continue
+            req = slot.req
+            reason = None
+            consumed = 0
+            for j in range(int(n_accs[i]) + 1):
+                consumed += 1
+                reason = self._consume(i, int(toks[j, i]))
+                if reason is not None:
+                    break
+            # the proposals that entered the stream are accepted, the
+            # rest rejected: verify work computed and thrown away
+            accepted = consumed - 1
+            rejected = k - accepted
+            self.draft_proposed += k
+            self.draft_accepted += accepted
+            self.draft_rejected += rejected
+            self.wasted_tokens += rejected
+            ld = self._lane_draft.setdefault(i, [0, 0])
+            ld[0] += k
+            ld[1] += accepted
+            if self.metrics is not None:
+                self.metrics.on_block_tokens(req.rid, req.submitted_at,
+                                             consumed)
+                self.metrics.on_draft_block(req.rid, k, accepted)
+            if reason is not None:
+                if self.metrics is not None:
+                    prop, acc = self._lane_draft.get(i, (0, 0))
+                    self.metrics.on_draft_complete(
+                        req.rid, acc / prop if prop else 0.0)
+                self._complete(i, reason, finished)
+            elif int(dev_pos[i]) != int(self._pos[i]):
+                raise RuntimeError(
+                    f"slot {i} (rid {req.rid}): device pos "
+                    f"{int(dev_pos[i])} != host replay {self._pos[i]} "
+                    f"after a draft_steps={k} speculative block — "
+                    f"on-device accept latch and host replay diverged")
+        self._evict_expired(finished)
+        return finished
+
+
+class SpeculativeEngine(_SpeculativeMixin, ServingEngine):
+    """The speculative slot engine: the continuous-batching host loop
+    with every decode dispatch a draft-verify block — the draft model
+    proposes ``draft_steps`` tokens a slot, ONE target extend scores the
+    anchor and every proposal, and each slot emits 1 to draft_steps + 1
+    tokens a dispatch. Greedy output is the plain greedy engine's;
+    sampled mode is per-slot modified-rejection sampling (the carried
+    ``q_res`` residual row), which keeps the target's sampling
+    distribution. The draft's cache (float, the draft's dtype) rides
+    the state under ``draft_*`` keys."""
+
+    def __init__(self, params: dict, cfg: TransformerConfig,
+                 draft_params: dict, draft_cfg: TransformerConfig,
+                 ecfg: EngineConfig = EngineConfig(draft_steps=4),
+                 metrics=None, clock=time.monotonic):
+        self._init_spec(draft_params, draft_cfg, cfg, ecfg)
+        super().__init__(params, cfg, ecfg, metrics=metrics, clock=clock)
+
+    def _fresh_state(self) -> dict:
+        state = super()._fresh_state()
+        draft = init_kv_cache(self.draft_cfg, self.ecfg.num_slots,
+                              device=self.device)
+        del draft["pos"]
+        state.update({_DRAFT_PREFIX + n: t for n, t in draft.items()})
+        state.update(self._spec_extra_state())
+        return state
+
+    @torch.no_grad()
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=self.device)[None]
+        self._state = _engine_spec_prefill(
+            self.params, self.draft_params, self._state, prompt, slot,
+            self.cfg, self.draft_cfg)
+        self.prefill_dispatches += 1
+        self.prefill_shapes.add(len(req.prompt))
+
+    def _dispatch_spec(self, pos, **vectors):
+        return _engine_speculative_step(
+            self.params, self.draft_params, self._state, pos, **vectors,
+            cfg=self.cfg, draft_cfg=self.draft_cfg,
+            k=self.ecfg.draft_steps, sample=self.ecfg.sample)
+
+
+class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
+    """Speculative decode over the paged engine: the target KV in the
+    main page pool behind its table, the draft's in its own small pool
+    (same page geometry, the draft's bytes) behind a second table. The
+    draft pool never shares pages (``PagePool.admit(share=False)``): the
+    COW copy covers the target pool only. The pre-write pass widens to
+    the ``draft_steps + 1`` positions a verify writes. Reads go through
+    the gather path."""
+
+    def __init__(self, params: dict, cfg: TransformerConfig,
+                 draft_params: dict, draft_cfg: TransformerConfig,
+                 ecfg: "PagedEngineConfig | None" = None,
+                 metrics=None, clock=time.monotonic):
+        if ecfg is None:
+            ecfg = PagedEngineConfig(draft_steps=4)
+        self._init_spec(draft_params, draft_cfg, cfg, ecfg)
+        if not isinstance(ecfg, PagedEngineConfig):
+            raise TypeError(
+                f"PagedSpeculativeEngine needs a PagedEngineConfig, "
+                f"got {type(ecfg).__name__}")
+        self._draft_pages_per_seq = pages_for(cfg.max_seq, ecfg.page_size)
+        self.draft_pool = PagePool(
+            ecfg.num_slots * self._draft_pages_per_seq + 1,
+            ecfg.page_size, scratch_pages=1)
+        self._draft_lane_pages: "list[Optional[list]]" = \
+            [None] * ecfg.num_slots
+        self._draft_pt = np.zeros(
+            (ecfg.num_slots, self._draft_pages_per_seq), np.int32)
+        super().__init__(params, cfg, ecfg, metrics=metrics, clock=clock)
+
+    def _fresh_state(self) -> dict:
+        state = super()._fresh_state()
+        draft = init_kv_pool(self.draft_cfg, self.draft_pool.num_pages,
+                             self.ecfg.page_size, device=self.device)
+        state.update({_DRAFT_PREFIX + n: t for n, t in draft.items()})
+        state.update(self._spec_extra_state())
+        return state
+
+    def _spec_budget(self, req: Request) -> int:
+        """Pages a lane reserves: its decode budget plus the
+        draft_steps positions a final verify writes past the frontier."""
+        return req.max_new_tokens + self.ecfg.draft_steps
+
+    def can_admit(self, req: Request) -> bool:
+        full = tuple(req.prompt)
+        budget = self._spec_budget(req)
+        return (self.pool.can_admit(full, budget)
+                and self.draft_pool.can_admit(full, budget, share=False))
+
+    @torch.no_grad()
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        n = len(req.prompt)
+        budget = self._spec_budget(req)
+        pages = self._allocate(slot, req, budget)
+        d_pages, _ = self.draft_pool.admit(tuple(req.prompt), budget,
+                                           share=False)
+        self._draft_lane_pages[slot] = d_pages
+        self._draft_pt[slot, :] = 0
+        self._draft_pt[slot, :len(d_pages)] = d_pages
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=self.device)[None]
+        self._state = _engine_paged_spec_prefill(
+            self.params, self.draft_params, self._state, prompt,
+            self._prompt_pages(pages, n), self._prompt_pages(d_pages, n),
+            slot, self.cfg, self.draft_cfg)
+        self.prefill_dispatches += 1
+        self.prefill_shapes.add(n)
+
+    def _free_slot(self, i: int) -> None:
+        if self._draft_lane_pages[i] is not None:
+            self.draft_pool.release_all(self._draft_lane_pages[i])
+            self._draft_lane_pages[i] = None
+        self._draft_pt[i, :] = 0
+        super()._free_slot(i)
+
+    def step(self) -> list:
+        # the verify writes draft_steps + 1 target positions per active
+        # lane whatever its remaining budget; the draft pool never shares
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                self._resolve_lane_writes(i, self.ecfg.draft_steps + 1)
+        return self._step_spec()
+
+    def _dispatch_spec(self, pos, **vectors):
+        return _engine_paged_speculative_step(
+            self.params, self.draft_params, self._state, pos, **vectors,
+            page_table=self._page_table_device(),
+            draft_page_table=self._vector(self._draft_pt), cfg=self.cfg,
+            draft_cfg=self.draft_cfg, k=self.ecfg.draft_steps,
+            sample=self.ecfg.sample)
+
+    def paging_summary(self) -> dict:
+        out = super().paging_summary()
+        out["draft_pages_total"] = self.draft_pool.capacity
+        out["draft_pages_free"] = self.draft_pool.free_pages
+        return out
+
+
 # failure reasons the serve loop hands back to the scheduler's retry
 # budget (everything else in a completion tuple is terminal); the port's
 # engines fail a request only on a non-finite decode
@@ -761,7 +1651,8 @@ RETRYABLE_REASONS = frozenset({"nan"})
 def serve_loop(engine: ServingEngine, scheduler: RequestScheduler,
                metrics=None, max_dispatches: Optional[int] = None) -> dict:
     """Drive engine + scheduler until both drain. Returns ``{rid:
-    (tokens, reason)}``; a terminal failure carries ``[]`` and its status.
+    (tokens, reason)}``; a terminal failure carries ``[]`` and its status
+    (``evicted``, ``dead_letter``, ``rejected_infeasible``).
 
     Per iteration: admit every arrived request into free slots (the paged
     engine's free-page gate rides ``pop_ready``), then step — unless

@@ -3,10 +3,11 @@
 Counterpart of ``akka_allreduce_tpu/serving/metrics.py``
 :class:`ServingMetrics`: TTFT (submit -> first token delivery), TPOT
 (decode cadence after the first delivery), queue depth, slot occupancy
-and wasted tokens, re-registered on a :class:`MetricsRegistry` as pull
-collectors, and ``summary()`` with the JAX key names so the two serve
-commands print the same report shape. Tracer events, speculative and
-admission blocks, host sampling and ``FleetMetrics`` are later slices.
+and wasted tokens, the speculative engines' draft-token ledger and
+mid-flight evictions, re-registered on a :class:`MetricsRegistry` as
+pull collectors, and ``summary()`` with the JAX key names so the two
+serve commands print the same report shape. Tracer events, admission
+blocks, host sampling and ``FleetMetrics`` are later slices.
 """
 
 from __future__ import annotations
@@ -41,6 +42,14 @@ class ServingMetrics:
         self.requests_submitted = 0
         self.requests_completed = 0
         self.requests_rejected = 0
+        # the speculative engines' draft-token ledger: proposed ==
+        # accepted + rejected per block; rejected tokens are verify work
+        # computed and thrown away, so they feed wasted_tokens. The
+        # per-completion acceptance histogram is the choosing-k signal.
+        self.draft_proposed = 0
+        self.draft_accepted = 0
+        self.draft_rejected = 0
+        self.draft_acceptance = Histogram()
         self.retries_total = 0
         self.evictions_total = 0
         self.deadline_misses_total = 0
@@ -71,6 +80,9 @@ class ServingMetrics:
             ("serve_prefill_tokens_total", lambda: self.prefill_tokens),
             ("serve_decode_tokens_total", lambda: self.decode_tokens),
             ("serve_wasted_tokens_total", lambda: self.wasted_tokens),
+            ("serve_draft_proposed_total", lambda: self.draft_proposed),
+            ("serve_draft_accepted_total", lambda: self.draft_accepted),
+            ("serve_draft_rejected_total", lambda: self.draft_rejected),
         )
         for name, pull in counters:
             r.register_callback(name, pull, kind="counter")
@@ -81,6 +93,7 @@ class ServingMetrics:
             ("serve_slot_occupancy", lambda: self.slot_occupancy),
             ("serve_wasted_per_completion",
              lambda: self.wasted_per_completion),
+            ("serve_draft_acceptance", lambda: self.draft_acceptance),
         )
         for name, pull in histograms:
             r.register_histogram(name, pull)
@@ -159,6 +172,32 @@ class ServingMetrics:
     def on_fault_survived(self, kind: str) -> None:
         self.fault_survived += 1
 
+    def on_evict(self, rid: int, n_tokens: int) -> None:
+        """Mid-flight deadline eviction: terminal, and a deadline miss.
+        Clears the first-token bookkeeping an evicted request never
+        reaches ``on_complete`` to clear."""
+        self.evictions_total += 1
+        self.deadline_misses_total += 1
+        self._first.pop(rid, None)
+        self._first_count.pop(rid, None)
+
+    def on_draft_block(self, rid: int, proposed: int,
+                       accepted: int) -> None:
+        """One speculative block settled for ``rid``: ``proposed`` draft
+        tokens scored by the verify, ``accepted`` of them in the emitted
+        stream (a proposal cut by EOS or the budget counts rejected).
+        Rejected tokens move into the wasted account."""
+        self.draft_proposed += proposed
+        self.draft_accepted += accepted
+        rejected = proposed - accepted
+        self.draft_rejected += rejected
+        self.wasted_tokens += rejected
+
+    def on_draft_complete(self, rid: int, rate: float) -> None:
+        """A speculative request finished: bank its lifetime acceptance
+        rate (accepted / proposed)."""
+        self.draft_acceptance.record(rate)
+
     def on_wasted(self, rid: int, n: int) -> None:
         self.wasted_tokens += n
         self.wasted_per_completion.record(n)
@@ -218,6 +257,16 @@ class ServingMetrics:
             "queue_depth": self.queue_depth.summary(digits=2),
             "slot_occupancy": self.slot_occupancy.summary(digits=3),
         }
+        if self.draft_proposed:
+            out["speculative"] = {
+                "draft_proposed": self.draft_proposed,
+                "draft_accepted": self.draft_accepted,
+                "draft_rejected": self.draft_rejected,
+                "acceptance_rate": round(
+                    self.draft_accepted / self.draft_proposed, 4),
+                "acceptance_per_completion":
+                    self.draft_acceptance.summary(digits=3),
+            }
         if self._paging is not None:
             out["paging"] = self._paging()
         if self.wall_s is not None:

@@ -200,12 +200,13 @@ launches and peak its own:
    flagship's gradient as the sync sees it (8,257 x 65,536 f32 bucket
    matrix, flattened: 541,130,752 elements, 2.16 GB per rank) and at
    four ranks on 64M elements, each rank's input from a generator
-   seeded by its rank: a loop of 4 calls of each schedule, each call's
-   input ``carry + sum / n``, each ended through ``ring.wait`` (a stall
-   raises, never hangs); every call's sum bitwise its plain version's,
-   bitwise equal on every rank (a checksum through the group), finite,
-   and a sample of 65,536 columns within rtol = atol = 1e-5 of the f64
-   sum of every rank's input; each rank launched each kernel 4 times.
+   seeded by its rank: a loop of ``ALLREDUCE_LOOP`` (2) calls of each
+   schedule, each call's input ``carry + sum / n``, each ended through
+   ``ring.wait`` (a stall raises, never hangs); every call's sum bitwise
+   its plain version's, bitwise equal on every rank (a checksum through
+   the group), finite, and a sample of 65,536 columns within rtol = atol
+   = 1e-5 of the f64 sum of every rank's input; each rank launched each
+   kernel ``ALLREDUCE_LOOP`` times.
    Then, median of 5 calls on every rank with CUDA events between group
    barriers (the slowest rank's median is the collective's time): the
    kernels, and of 1 call the plain version (host wire) and
@@ -380,13 +381,43 @@ launches and peak its own:
    one); its ``--xprof-dir --xprof-steps 2`` trace holds 16 launches
    of each flash kernel (8 layers x 2 steps). The phase must end within
    ``A5_SECONDS`` (150 s).
+22. A6 — the serving of ROADMAP A6 part 1 at phase 4's gqa4 shape
+   (``SERVE_ARGV``), each kernel-path run's paged-attention count set to
+   0 just before it and read just after (n_layers x decode steps). (a)
+   sampled serving (``A6_SAMPLE``: temperature 0.8, top-k 50, top-p
+   0.95, f32) on the kernel path at decode steps 4 (the main path) and
+   1, bitwise; on the gather path, held to the kernel's under the
+   perturbed-score rule (``greedy_agree`` with the full forward's
+   filtered logits plus the Gumbel noise of ``fold_in(key(rid), j)``;
+   the gather stream must be those scores' argmax) and the fault
+   control: the key index off by one must land outside the rule;
+   threefry's bits on the card bitwise the CPU's; the pick's wall and
+   device ms against argmax's. (b) bf16 serving: the gqa4 model in
+   bf16, the kernel path (launches counted) against the gather path
+   under ``greedy_agree`` at two bf16 ulps of the largest logit, and a
+   decode step's profile. (c) int8 KV on the slot and paged gather
+   engines: cache bytes against float (more than 3x less); one token
+   stream's step logits on both caches within ``A6_INT8_BOUND`` (0.1,
+   the JAX test's) and within that share of the logit scale; a serve
+   run of each. (d) speculation, the target's first 4 of 8 layers
+   drafting 4 tokens a block, slot and paged: greedy tokens against
+   phase 4's greedy gather tokens under ``greedy_agree``; acceptance
+   rate, target dispatches a token; every page of both pools returned;
+   two sampled paged runs bitwise (``A6_SAMPLED_SPEC_REQUESTS``). (e)
+   on the kernel path (launches counted), requests 0-3 with a deadline
+   already past under the deadline policy: exactly those evicted, the
+   rest run to their greedy tokens through the refilled lanes; slot
+   prefill padded to ``A6_BUCKETS`` against phase 4's tokens. Every run
+   reports ``decode_tokens_per_s`` and ``tpot_ms`` p50/p99 beside phase
+   4's greedy f32 kernel run.
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
 rank 0's in phases 9, 13, 16, 17 and 21; the masked reduce's with phases
 19's and 20's; the bf16 flash kernels' and the sync kernels' with phase
-21's, ``a5_launches`` apart on the sync rows), and last ``{"ok": true,
-"device": {...}}``.
+21's, ``a5_launches`` apart on the sync rows; the paged kernel's with
+phase 22's, ``a6_launches`` apart), and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -601,7 +632,9 @@ SP_LOSS_RTOL = 1e-3
 # phase 14: the flagship's bucket matrix (ceil(541.1M params / 65,536)
 # rows of 65,536 f32) flattened, at two ranks; a 64M slice at four
 ALLREDUCE_RUNS = ((2, 8257 * BUCKET_ELEMS), (4, 64 * 2 ** 20))
-ALLREDUCE_LOOP = 4
+# checked calls a schedule and run (4 until phase 22 came: each call at
+# 2.16 GB waits ~4 s for its plain version)
+ALLREDUCE_LOOP = 2
 ALLREDUCE_REPS = 5
 # the plain versions and gloo all_reduce, seconds a call on 2.16 GB:
 # timed over one call (two until phase 21 came)
@@ -739,6 +772,20 @@ A5_OVERLAP_LOSS_RTOL = 5e-5  # overlap vs deferred, steps 1-2
 A5_SPD = 3
 A5_SPD_STEPS = 6
 A5_GRAPH_LOSS_RTOL = 5e-5  # the graph path vs phase 6's eager losses
+# phase 22: the serving of ROADMAP A6 part 1 at phase 4's gqa4 shape
+# (SERVE_ARGV: 8 lanes, 16 requests, prompts 64-256, 64 new tokens)
+A6_SECONDS = 150
+A6_SAMPLE = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.95"]
+A6_DRAFT = ["--speculative", "--draft-steps", "4", "--draft-layers", "4"]
+A6_BUCKETS = "64,128,192,256"
+A6_EVICTED = 4      # (e): requests 0-3 carry a deadline already past
+A6_STEP_REPS = 20   # (a): timed picks a kind
+A6_PRNG_INDICES = 8  # (a): token indices a request whose bits are held
+A6_INT8_STEPS = 6   # (c): decode steps of one token stream on both caches
+A6_INT8_BOUND = 0.1  # tests/test_generate.py::TestQuantizedKV's bound
+# (d): the two sampled speculative runs at one wave of the 8 lanes (16
+# requests took 14-15 s a run on an H100 80GB HBM3 at 700 W)
+A6_SAMPLED_SPEC_REQUESTS = 8
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -3613,7 +3660,7 @@ def phase_serve(torch) -> dict:
          failures=[v for v in verdicts if not v[1]])
     if not all(ok for _, ok, _ in verdicts):
         raise AssertionError(f"greedy tokens disagree: {verdicts}")
-    return {"launches": launches}
+    return {"launches": launches, "report": report, "gather": g_results}
 
 
 # -- phase 19: the protocol plane -------------------------------------------
@@ -4796,6 +4843,496 @@ def phase_a5(torch, trained: dict) -> dict:
             "transport": overlap["transport"]}
 
 
+
+# -- phase 22: the serving of ROADMAP A6, part 1 ---------------------------
+
+def sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def set_flag(argv: list, flag: str, value) -> list:
+    """``argv`` with ``flag``'s value set to ``value`` (appended if
+    absent)."""
+    out = list(argv)
+    if flag in out:
+        out[out.index(flag) + 1] = str(value)
+        return out
+    return out + [flag, str(value)]
+
+
+def slot_argv(argv: list) -> list:
+    """``argv`` on the slot engine: the paged engine's flags dropped."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in ("--page-size", "--num-pages", "--paged-attention"):
+            skip = True
+        elif a != "--paged":
+            out.append(a)
+    return out
+
+
+def serve_fields(report: dict) -> dict:
+    """A serve report's end-to-end numbers."""
+    return {"completed": report["requests"]["completed"],
+            "completed_reasons": report["completed_reasons"],
+            "decode_tokens_per_s": report.get("decode_tokens_per_s"),
+            "tpot_ms_p50": report["tpot_ms"].get("p50"),
+            "tpot_ms_p99": report["tpot_ms"].get("p99"),
+            "ttft_ms_p50": report["ttft_ms"].get("p50"),
+            "decode_tokens": report["tokens"]["decode"],
+            "decode_dispatches": report["decode_dispatches"],
+            "kv_cache_mb": report["kv_cache_mb"],
+            "evictions": report["evictions"],
+            **({"speculative": report["speculative"]}
+               if "speculative" in report else {})}
+
+
+def a6_serve(torch, argv: list, name: str):
+    """One ``serve`` run of ``argv`` through the CLI's entry point:
+    (args, report, results, engine), its numbers emitted."""
+    from akka_allreduce_tpu_torch import cli
+    args = cli.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    report, results, engine = cli.run_serve(args)
+    sync(torch)
+    emit("a6_serve_run", run=name, seconds=time.perf_counter() - t0,
+         **serve_fields(report))
+    return args, report, results, engine
+
+
+def a6_engine_run(torch, name: str, engine, reqs: list,
+                  policy: str = "fifo") -> "tuple[dict, dict]":
+    """Serve ``reqs`` through ``engine`` with ``serve_loop``; (report,
+    results), the report's numbers those of the serve command's."""
+    from akka_allreduce_tpu_torch.serving import (RequestScheduler,
+                                                  SchedulerConfig,
+                                                  ServingMetrics,
+                                                  serve_loop)
+    metrics = ServingMetrics()
+    sched = RequestScheduler(SchedulerConfig(policy=policy),
+                             num_slots=engine.num_slots)
+    for r in reqs:
+        metrics.on_submit(r.rid)
+        sched.submit(r)
+    t0 = time.perf_counter()
+    results = serve_loop(engine, sched, metrics=metrics)
+    sync(torch)
+    report = {**metrics.summary(), "decode_dispatches":
+              engine.decode_dispatches, "evictions": engine.evictions,
+              "kv_cache_mb": round(engine.kv_cache_bytes() / 1e6, 2),
+              "completed_reasons": dict(collections.Counter(
+                  r for _, r in results.values()))}
+    emit("a6_serve_run", run=name, seconds=time.perf_counter() - t0,
+         **serve_fields(report))
+    return report, results
+
+
+def a6_main_path(attention, engine, name: str) -> int:
+    """The paged kernel's launches since its count was set to 0 must be
+    n_layers x the decode steps the engine ran."""
+    launches = attention.PAGED_ATTENTION_LAUNCHES
+    expected = engine.cfg.n_layers * engine.decode_dispatches \
+        * engine.ecfg.decode_steps
+    emit("a6_main_path", run=name, launches=launches,
+         expected_launches=expected)
+    if launches != expected or launches == 0:
+        raise AssertionError(f"{name}: paged_attention launched {launches} "
+                             f"times, expected {expected}")
+    return launches
+
+
+def a6_scores(torch, params, cfg, prompt, toks, seed: int, sample: tuple,
+              shift: int = 0):
+    """The reference's sampled scores along the stream ``toks``: the full
+    forward's logits through the filters, plus the Gumbel noise of token
+    j's key ``fold_in(key(seed), j + shift)`` at the (1, vocab) shape (the
+    argmax the sampled pick takes). ``shift`` 1 is the fault control."""
+    from akka_allreduce_tpu_torch.models import prng
+    from akka_allreduce_tpu_torch.models.generate import \
+        apply_sample_filters
+    from akka_allreduce_tpu_torch.models.transformer import \
+        transformer_apply
+    dev = params["embed"].device
+    seq = torch.tensor(list(prompt) + list(toks[:-1]), device=dev)
+    with torch.no_grad():
+        logits = transformer_apply(params, seq[None], cfg)[0]
+        filt = apply_sample_filters(logits[len(prompt) - 1:], *sample)
+        keys = prng.fold_in(prng.key(seed, dev),
+                            torch.arange(len(toks), device=dev) + shift)
+        noise = prng.gumbel(keys, (1, cfg.vocab_size), filt.dtype)[:, 0]
+    return (filt + noise).float().cpu().numpy()
+
+
+def a6_prng_bits(torch, n_req: int, vocab: int) -> dict:
+    """Threefry on the card against the CPU, the keys of the first
+    ``A6_PRNG_INDICES`` tokens of each request at the (1, vocab) shape:
+    the bits bitwise, the Gumbel noise's largest difference."""
+    from akka_allreduce_tpu_torch.models import prng
+    base = prng.wrap_key_data(torch.stack([prng.key(r)
+                                           for r in range(n_req)]))
+    keys = prng.fold_in(base[:, None, :],
+                        torch.arange(A6_PRNG_INDICES)[None, :])
+    cpu = prng.bits(keys, (1, vocab))
+    dev = prng.bits(keys.to(DEVICE), (1, vocab)).cpu()
+    g_cpu = prng.gumbel(keys, (1, vocab))
+    g_dev = prng.gumbel(keys.to(DEVICE), (1, vocab)).cpu()
+    return {"draws": int(cpu.numel()), "bits_equal": torch.equal(cpu, dev),
+            "gumbel_max_abs_diff": float((g_cpu - g_dev).abs().max())}
+
+
+def a6_pick_cost(torch, lanes: int, vocab: int, sample: tuple) -> dict:
+    """One decode step's pick over ``lanes`` rows of logits, argmax
+    against the sampled draw (filters, threefry, Gumbel, argmax): wall ms
+    a pick (host clock over A6_STEP_REPS picks, the stream drained at
+    both ends, no profiler) and device ms a pick (the kernels' time in a
+    torch.profiler window over as many picks; the profiler's own host
+    cost makes that window's wall no measure)."""
+    from akka_allreduce_tpu_torch.models.generate import sample_token_rows
+    from akka_allreduce_tpu_torch.models import prng
+    if not torch.cuda.is_available():
+        return {"wall_ms": "not measured", "device_ms": "not measured"}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    logits = 3 * torch.randn(lanes, vocab, generator=gen, device=DEVICE)
+    keys = torch.stack([prng.key(r, DEVICE) for r in range(lanes)])
+    idx = torch.arange(lanes, device=DEVICE, dtype=torch.int32)
+    picks = {"greedy": lambda: logits.argmax(dim=-1),
+             "sampled": lambda: sample_token_rows(keys, logits, idx,
+                                                  sample)}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, pick in picks.items():
+        for _ in range(3):
+            pick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(A6_STEP_REPS):
+            pick()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / A6_STEP_REPS
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(A6_STEP_REPS):
+                pick()
+            torch.cuda.synchronize()
+        rows = device_kernel_rows(torch, prof.key_averages(), A6_STEP_REPS)
+        out[name] = {"wall_ms": wall,
+                     "device_ms": sum(ms for _, ms in rows) if rows
+                     else "not measured",
+                     "kernels": len(rows)}
+    g, s = out["greedy"], out["sampled"]
+    out["extra_wall_ms"] = s["wall_ms"] - g["wall_ms"]
+    if isinstance(s["device_ms"], float) and isinstance(g["device_ms"],
+                                                          float):
+        out["extra_device_ms"] = s["device_ms"] - g["device_ms"]
+    return out
+
+
+def a6_sampled(torch) -> dict:
+    """(a): sampled serving at ``A6_SAMPLE`` on the kernel path (the main
+    path, its launches counted) at decode steps 4 and 1, and on the
+    gather path; the PRNG on the card; the pick's cost."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    argv = SERVE_ARGV + A6_SAMPLE
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    args, report, res_k4, engine = a6_serve(
+        torch, argv + ["--paged-attention", "kernel"], "sampled_kernel_s4")
+    launches = a6_main_path(attention, engine, "sampled_kernel_s4")
+    _, _, res_k1, _ = a6_serve(
+        torch, set_flag(argv, "--decode-steps", 1)
+        + ["--paged-attention", "kernel"], "sampled_kernel_s1")
+    differ = [rid for rid in res_k4 if res_k4[rid] != res_k1[rid]]
+    emit("a6_sampled_blocks", requests=len(res_k4), differ=differ)
+    if differ:
+        raise AssertionError(f"sampled tokens at decode steps 4 differ "
+                             f"from 1 for requests {differ}")
+    _, _, res_g, _ = a6_serve(torch, argv + ["--paged-attention", "gather"],
+                              "sampled_gather_s4")
+    sample = (args.temperature, args.top_k, args.top_p)
+    verdicts, controls, identical = [], [], 0
+    for req in cli.make_requests(args, *cli._validate(args)):
+        ref, got = res_g[req.rid][0], res_k4[req.rid][0]
+        scores = a6_scores(torch, engine.params, engine.cfg, req.prompt,
+                           ref, req.rid, sample)
+        # the gather stream is the argmax of the reference scores, and
+        # the kernel stream agrees with it under the rule
+        ok_ref, why_ref = greedy_agree(scores.argmax(-1), ref, scores)
+        ok, why = greedy_agree(ref, got, scores)
+        verdicts.append((req.rid, ok_ref and ok, why_ref, why))
+        identical += ref == got
+        wrong = a6_scores(torch, engine.params, engine.cfg, req.prompt,
+                          ref, req.rid, sample, shift=1)
+        controls.append(greedy_agree(wrong.argmax(-1), ref, wrong)[0])
+    emit("a6_sampled_parity", requests=len(verdicts), identical=identical,
+         failures=[v for v in verdicts if not v[1]],
+         fault_control_passed=sum(controls))
+    if not all(v[1] for v in verdicts):
+        raise AssertionError(f"sampled tokens outside the perturbed-score "
+                             f"rule: {verdicts}")
+    if all(controls):
+        raise AssertionError("the fault control (key index + 1) passed the "
+                             "perturbed-score rule")
+    bits = a6_prng_bits(torch, args.requests, args.vocab)
+    emit("a6_prng", **bits)
+    if not bits["bits_equal"]:
+        raise AssertionError("threefry bits on the card differ from the "
+                             "CPU's")
+    cost = a6_pick_cost(torch, args.slots, args.vocab, sample)
+    emit("a6_pick_cost", lanes=args.slots, **cost)
+    return {"launches": launches, "report": report, "pick": cost}
+
+
+def bf16_min_gap(logits) -> float:
+    """Two bf16 ulps of the largest logit: where two implementations'
+    rounding may swap a bf16 model's top two."""
+    top = float(abs(logits).max())
+    return 2.0 ** (math.floor(math.log2(top)) - 6) if top > 0 else 0.0
+
+
+def a6_bf16(torch, reqs_of) -> dict:
+    """(b): bf16 serving (the gqa4 model in bf16, weights from seed 0)
+    on the kernel path (launches counted) against the gather path."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    from akka_allreduce_tpu_torch.serving import (PagedEngineConfig,
+                                                  PagedServingEngine)
+    args = cli.build_parser().parse_args(SERVE_ARGV)
+    cfg, params = cli.serve_model(args, torch.device(DEVICE),
+                                  dtype=torch.bfloat16)
+    runs, engines = {}, {}
+    for impl in ("kernel", "gather"):
+        engine = PagedServingEngine(params, cfg, PagedEngineConfig(
+            num_slots=args.slots, decode_steps=args.decode_steps,
+            page_size=args.page_size, attention_impl=impl))
+        attention.PAGED_ATTENTION_LAUNCHES = 0
+        runs[impl] = a6_engine_run(torch, f"bf16_{impl}", engine,
+                                   reqs_of(args))[1]
+        engines[impl] = engine
+        if impl == "kernel":
+            launches = a6_main_path(attention, engine, "bf16_kernel")
+    verdicts, identical = [], 0
+    for req in reqs_of(args):
+        ref, got = runs["gather"][req.rid][0], runs["kernel"][req.rid][0]
+        logits = reference_logits(torch, params, cfg, req.prompt, ref)
+        ok, why = greedy_agree(ref, got, logits,
+                               min_gap=bf16_min_gap(logits))
+        verdicts.append((req.rid, ok, why))
+        identical += ref == got
+    emit("a6_bf16_parity", requests=len(verdicts), identical=identical,
+         failures=[v for v in verdicts if not v[1]])
+    if not all(v[1] for v in verdicts):
+        raise AssertionError(f"bf16 kernel tokens disagree: {verdicts}")
+    if torch.cuda.is_available():
+        emit("a6_bf16_decode_step",
+             **decode_step_breakdown(torch, engines["kernel"],
+                                     reqs_of(args)))
+    return {"launches": launches}
+
+
+def a6_int8(torch, reqs_of) -> dict:
+    """(c): int8 KV on the slot and the paged gather engines: cache
+    bytes against the float cache's; the step logits of one token
+    stream on both caches within ``A6_INT8_BOUND`` and within that share
+    of the logit scale; a serve run of each."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.serving.engine import (
+        _paged_decode_step, _slot_decode_step)
+    args = cli.build_parser().parse_args(SERVE_ARGV)
+    cfg, params = cli.serve_model(args, torch.device(DEVICE))
+    out = {}
+    for kind in ("slot", "paged"):
+        kargs = cli.build_parser().parse_args(
+            SERVE_ARGV if kind == "paged" else slot_argv(SERVE_ARGV))
+        engines = {}
+        for fmt in ("model", "int8"):
+            kargs.kv_cache = fmt
+            engines[fmt] = cli.build_engine(kargs, params, cfg)
+            for req in reqs_of(args)[:args.slots]:
+                engines[fmt].admit(req)
+        f32, q8 = engines["model"], engines["int8"]
+        pos = torch.as_tensor(f32._pos, device=DEVICE)
+        tok = f32._state["logits"].argmax(-1).to(torch.int32)
+        worst = scale = 0.0
+        with torch.no_grad():
+            for _ in range(A6_INT8_STEPS):
+                logits = []
+                for e in (f32, q8):
+                    kv = {n: t for n, t in e._state.items() if n != "logits"}
+                    if kind == "paged":
+                        logits.append(_paged_decode_step(
+                            params, kv, tok, pos, e._page_table_device(),
+                            cfg, "gather")[1])
+                    else:
+                        logits.append(_slot_decode_step(params, kv, tok,
+                                                        pos, cfg)[1])
+                worst = max(worst, float((logits[0] - logits[1]).abs().max()))
+                scale = max(scale, float(logits[0].abs().max()))
+                tok = logits[0].argmax(-1).to(torch.int32)
+                pos = pos + 1
+        row = {"cache_bytes": q8.kv_cache_bytes(),
+               "float_cache_bytes": f32.kv_cache_bytes(),
+               "ratio": f32.kv_cache_bytes() / q8.kv_cache_bytes(),
+               "worst_logit_diff": worst, "logit_scale": scale,
+               "bound": A6_INT8_BOUND}
+        emit("a6_int8_step", engine=kind, **row)
+        if not (worst < A6_INT8_BOUND and worst < A6_INT8_BOUND * scale):
+            raise AssertionError(f"int8 KV ({kind}): logit error {worst} "
+                                 f"outside the bound {A6_INT8_BOUND} "
+                                 f"(scale {scale})")
+        if not row["ratio"] > 3:
+            raise AssertionError(f"int8 KV ({kind}) holds {row['ratio']}x "
+                                 f"less than the float cache, not > 3x")
+        del engines, f32, q8
+        argv = (set_flag(SERVE_ARGV, "--paged-attention", "gather")
+                if kind == "paged" else slot_argv(SERVE_ARGV))
+        a6_serve(torch, argv + ["--kv-cache", "int8"], f"int8_{kind}")
+        out[kind] = row
+    return out
+
+
+def a6_speculative(torch, greedy: dict, reqs_of) -> dict:
+    """(d): speculation with the target's first 4 of 8 layers as the
+    draft, 4 proposals a block, greedy on the slot and the paged engine
+    against phase 4's greedy gather tokens; sampled twice, bitwise."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    spec = set_flag(SERVE_ARGV, "--decode-steps", 1) + A6_DRAFT
+    out = {}
+    for kind, argv in (("slot", slot_argv(spec)),
+                       ("paged", spec + ["--paged-attention", "gather"])):
+        args, report, results, engine = a6_serve(torch, argv, f"spec_{kind}")
+        verdicts, identical = [], 0
+        for req in reqs_of(args):
+            ref, got = greedy[req.rid][0], results[req.rid][0]
+            ok, why = greedy_agree(ref, got, reference_logits(
+                torch, engine.params, engine.cfg, req.prompt, ref))
+            verdicts.append((req.rid, ok, why))
+            identical += ref == got
+        row = {**engine.speculative_summary(),
+               "target_dispatches_per_token": engine.decode_dispatches
+               / report["tokens"]["decode"],
+               "identical": identical}
+        if kind == "paged":
+            pages = engine.paging_summary()
+            row.update({n: pages[n] for n in (
+                "pages_free", "pages_total", "draft_pages_free",
+                "draft_pages_total")})
+        emit("a6_speculative", engine=kind, requests=len(verdicts),
+             failures=[v for v in verdicts if not v[1]], **row)
+        if not all(v[1] for v in verdicts):
+            raise AssertionError(f"speculative ({kind}) greedy tokens "
+                                 f"disagree with the plain engine's: "
+                                 f"{verdicts}")
+        if kind == "paged" and (
+                row["pages_free"] != row["pages_total"]
+                or row["draft_pages_free"] != row["draft_pages_total"]):
+            raise AssertionError(f"pages not returned: {row}")
+        out[kind] = {**row, **serve_fields(report)}
+    # the two sampled runs at one wave of requests (A6_SAMPLED_SPEC_REQUESTS)
+    sampled = [a6_serve(torch, set_flag(
+        spec + ["--paged-attention", "gather"] + A6_SAMPLE, "--requests",
+        A6_SAMPLED_SPEC_REQUESTS), f"spec_paged_sampled_{i}")[2]
+        for i in range(2)]
+    emit("a6_speculative_sampled", identical_runs=sampled[0] == sampled[1])
+    if sampled[0] != sampled[1]:
+        raise AssertionError("two sampled speculative runs differ")
+    return out
+
+
+def a6_evict_buckets(torch, greedy: dict, reqs_of) -> dict:
+    """(e): deadline eviction on the kernel path (requests 0 to
+    A6_EVICTED - 1 carry a deadline already past, under the deadline
+    policy: evicted after their first dispatch, their lanes refilled)
+    and bucketed slot prefill against phase 4's greedy tokens."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    args = cli.build_parser().parse_args(SERVE_ARGV
+                                         + ["--paged-attention", "kernel"])
+    cfg, params = cli.serve_model(args, torch.device(DEVICE))
+    engine = cli.build_engine(args, params, cfg)
+    reqs = reqs_of(args)
+    past = time.monotonic() - 1.0
+    for r in reqs[:A6_EVICTED]:
+        r.deadline = past
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    report, results = a6_engine_run(torch, "evict_kernel", engine, reqs,
+                                    policy="deadline")
+    launches = a6_main_path(attention, engine, "evict_kernel")
+    evicted = sorted(rid for rid, (_, r) in results.items()
+                     if r == "evicted")
+    row = {"evicted": evicted, "evictions": engine.evictions,
+           "evictions_total": report["faults"]["evictions_total"],
+           "prefill_dispatches": engine.prefill_dispatches,
+           "peak_occupied": engine.peak_occupied,
+           "pages_in_use": engine.pool.pages_in_use}
+    emit("a6_eviction", **row)
+    ran = [rid for rid, (t, r) in results.items() if rid >= A6_EVICTED
+           and (r != "max_tokens" or not greedy_agree(
+               greedy[rid][0], t, reference_logits(
+                   torch, params, cfg, reqs[rid].prompt,
+                   greedy[rid][0]))[0])]
+    if (evicted != list(range(A6_EVICTED))
+            or engine.evictions != A6_EVICTED
+            or row["evictions_total"] != A6_EVICTED
+            or engine.prefill_dispatches != len(reqs)
+            or engine.peak_occupied != args.slots
+            or row["pages_in_use"] or ran):
+        raise AssertionError(f"eviction: {row}; requests not run to their "
+                             f"greedy tokens: {ran}")
+    bargs, breport, bresults, bengine = a6_serve(
+        torch, slot_argv(SERVE_ARGV) + ["--prefill-buckets", A6_BUCKETS],
+        "buckets_slot")
+    verdicts = []
+    for req in reqs_of(bargs):
+        ref = greedy[req.rid][0]
+        ok, why = greedy_agree(ref, bresults[req.rid][0], reference_logits(
+            torch, params, cfg, req.prompt, ref))
+        verdicts.append((req.rid, ok, why))
+    emit("a6_buckets", prefill_programs=sorted(bengine.prefill_shapes),
+         failures=[v for v in verdicts if not v[1]])
+    if not all(v[1] for v in verdicts) \
+            or len(bengine.prefill_shapes) > len(A6_BUCKETS.split(",")):
+        raise AssertionError(f"bucketed prefill: {verdicts}")
+    return {"launches": launches, "eviction": row,
+            "buckets": serve_fields(breport)}
+
+
+def phase_a6(torch, served: dict) -> dict:
+    """Phase 22: (a) sampled, (b) bf16, (c) int8 KV, (d) speculative,
+    (e) eviction and buckets; each paged-kernel run's launches counted
+    from 0."""
+    from akka_allreduce_tpu_torch import cli
+
+    def reqs_of(args):
+        return cli.make_requests(args, *cli._validate(args))
+
+    t0 = time.perf_counter()
+    sampled = a6_sampled(torch)
+    ta = time.perf_counter()
+    bf16 = a6_bf16(torch, reqs_of)
+    tb = time.perf_counter()
+    int8 = a6_int8(torch, reqs_of)
+    tc = time.perf_counter()
+    spec = a6_speculative(torch, served["gather"], reqs_of)
+    td = time.perf_counter()
+    evict = a6_evict_buckets(torch, served["gather"], reqs_of)
+    te = time.perf_counter()
+    emit("a6_phase_seconds", seconds=te - t0, sampled=ta - t0,
+         bf16=tb - ta, int8=tc - tb, speculative=td - tc,
+         evict_buckets=te - td, greedy_f32_kernel=serve_fields(
+             served["report"]))
+    return {"launches": {"sampled": sampled["launches"],
+                         "bf16": bf16["launches"],
+                         "evict": evict["launches"]},
+            "pick": sampled["pick"], "int8": int8, "speculative": spec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4903,6 +5440,9 @@ def main() -> int:
     # 21. the A5 training paths: optimizer families, EMA, generate and
     # eval, overlapped accumulation, CUDA-graph chunks, telemetry
     a5 = phase_a5(torch, trained)
+    # 22. the A6 serving paths: sampling, bf16, int8 KV, speculation,
+    # deadline eviction and bucketed prefill
+    a6 = phase_a6(torch, served)
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] + a5["sync"][k]
@@ -4924,7 +5464,9 @@ def main() -> int:
         "source": "akka_allreduce_tpu_torch/ops/kernels/csrc/"
                   "paged_attention.cu",
         "replaces": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:516",
-        "launches": served["launches"], "max_abs_err": row["max_abs_err"],
+        "launches": served["launches"] + sum(a6["launches"].values()),
+        "serve_launches": served["launches"], "a6_launches": a6["launches"],
+        "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "long_ms": long_row["ms"],

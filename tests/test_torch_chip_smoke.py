@@ -5,9 +5,9 @@ card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
 flash and ring kernels' bounds, the kernels line's flash rows, the build
 phase's check of the tensor-core kernels, phase 16's straggle schedule
-and expected launches, phase 10's, 17's and 21's rehearsals at a tiny
-size with the hierarchical launch arithmetic, and its refusal to run
-without CUDA.
+and expected launches, phase 10's, 17's, 21's and 22's rehearsals at a
+tiny size with the hierarchical launch arithmetic, and its refusal to
+run without CUDA.
 """
 
 import json
@@ -1301,3 +1301,68 @@ def test_spawn_batch_runs_one_mesh(monkeypatch):
         chip_smoke.spawn_batch(torch, [
             ("train", parse(base + ["--dp", "2"]), None),
             ("train", parse(base + ["--sp", "2"]), None)])
+
+
+# -- phase 22: the serving of ROADMAP A6, part 1 -------------------------------
+
+TINY_SERVE = ["serve", "--vocab", "97", "--d-model", "64", "--n-heads", "4",
+              "--kv-heads", "2", "--n-layers", "8", "--d-ff", "128", "--rope",
+              "--max-seq", "64", "--paged", "--page-size", "4", "--slots",
+              "4", "--requests", "8", "--prompt-len", "4:16",
+              "--max-new-tokens", "8", "--decode-steps", "4", "--load",
+              "closed", "--seed", "0", "--device", "cpu"]
+
+
+def test_phase22_rehearsal(monkeypatch, capfd):
+    """Phase 22 at a tiny size on the CPU (8 layers: the draft takes 4):
+    every check of (a)-(e) passes on the plain versions, the fault
+    control (the key index off by one) lands outside the rule for every
+    request, and the main-path runs ran n_layers x steps decode steps
+    (the CPU launches no kernel: the count stays 0)."""
+    from akka_allreduce_tpu_torch import cli
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "SERVE_ARGV", TINY_SERVE)
+    monkeypatch.setattr(chip_smoke, "A6_BUCKETS", "8,16")
+    monkeypatch.setattr(chip_smoke, "A6_SAMPLED_SPEC_REQUESTS", 4)
+    steps = {}
+
+    def main_path(attention, engine, name):
+        assert attention.PAGED_ATTENTION_LAUNCHES == 0
+        steps[name] = engine.cfg.n_layers * engine.decode_dispatches \
+            * engine.ecfg.decode_steps
+        return steps[name]
+
+    monkeypatch.setattr(chip_smoke, "a6_main_path", main_path)
+    parse = cli.build_parser().parse_args
+    kernel, _, _ = cli.run_serve(parse(TINY_SERVE + ["--paged-attention",
+                                                     "kernel"]))
+    _, gather, _ = cli.run_serve(parse(TINY_SERVE + ["--paged-attention",
+                                                     "gather"]))
+    out = chip_smoke.phase_a6(torch, {"report": kernel, "gather": gather})
+    assert out["launches"] == {"sampled": steps["sampled_kernel_s4"],
+                               "bf16": steps["bf16_kernel"],
+                               "evict": steps["evict_kernel"]}
+    assert steps["sampled_kernel_s4"] == 8 * 4 * 4  # 2 waves of 2 blocks
+    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()
+             if ln.startswith('{"phase": "a6_')]
+    by = {ln["phase"]: ln for ln in lines}
+    assert by["a6_sampled_parity"]["fault_control_passed"] == 0
+    assert by["a6_prng"]["bits_equal"]
+    assert by["a6_eviction"]["evicted"] == [0, 1, 2, 3]
+    assert out["int8"]["slot"]["ratio"] > 3
+    paged = out["speculative"]["paged"]
+    assert paged["draft_pages_free"] == paged["draft_pages_total"]
+    assert paged["draft_proposed"] == (paged["draft_accepted"]
+                                       + paged["draft_rejected"])
+
+
+def test_phase22_argv_helpers_and_bf16_gap():
+    argv = ["serve", "--paged", "--page-size", "16", "--slots", "8",
+            "--paged-attention", "kernel"]
+    assert chip_smoke.slot_argv(argv) == ["serve", "--slots", "8"]
+    assert chip_smoke.set_flag(argv, "--slots", 4)[5] == "4"
+    assert chip_smoke.set_flag(argv, "--requests", 8)[-2:] == [
+        "--requests", "8"]
+    # two bf16 ulps (2^-7 relative) of the largest logit
+    assert chip_smoke.bf16_min_gap(torch.tensor([[-5.0, 3.0]])) == 2 ** -4
+    assert chip_smoke.bf16_min_gap(torch.tensor([[0.75]])) == 2 ** -7

@@ -334,3 +334,128 @@ def test_train_a5_flags_match_the_jax_command(flag):
     # choices as a tuple or a list: the same values in the same order
     assert got[:2] + got[3:] == want[:2] + want[3:]
     assert list(got[2] or []) == list(want[2] or [])
+
+
+@pytest.mark.parametrize("flag", [
+    "kv_cache", "prefill_buckets", "temperature", "top_k", "top_p",
+    "speculative", "draft_steps", "draft_layers", "policy",
+    "deadline_slack_s", "ckpt_dir", "use_ema", "tie_embeddings",
+    "watchdog_timeout", "chaos", "drain_dir", "preempt_poll"])
+def test_serve_a6_flags_match_the_jax_command(flag):
+    from akka_allreduce_tpu import cli as jax_cli
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers(dest="cmd")
+    jax_cli._add_serve(sub)
+    want = _flags(_subparser(jax_parser, "serve"))[flag]
+    got = _flags(_subparser(cli.build_parser(), "serve"))[flag]
+    assert got[:2] + got[3:] == want[:2] + want[3:]
+    assert list(got[2] or []) == list(want[2] or [])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kv-cache", "int8"],
+    ["--kv-cache", "int8", "--paged", "--page-size", "4",
+     "--decode-steps", "4"],
+    ["--prefill-buckets", "4,8"],
+    ["--temperature", "0.8", "--top-k", "20", "--top-p", "0.95"],
+    ["--temperature", "0.8", "--paged", "--page-size", "4",
+     "--paged-attention", "kernel", "--decode-steps", "4"],
+    ["--speculative", "--draft-steps", "3", "--draft-layers", "1"],
+    ["--speculative", "--paged", "--page-size", "4", "--temperature",
+     "0.9"],
+    ["--policy", "deadline", "--deadline-slack-s", "100"]],
+    ids=["int8", "int8-paged-s4", "buckets", "sampled", "sampled-kernel",
+         "speculative", "speculative-paged-sampled", "deadline"])
+def test_serve_a6_runs_on_the_cpu(capsys, flags):
+    assert cli.main(["serve", "--device", "cpu", *TINY, *flags]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["requests"]["completed"] == 5
+    assert report["tokens"]["decode"] == 5 * 6
+    cfg = report["config"]
+    assert cfg["kv_cache"] == ("int8" if "int8" in flags else "model")
+    assert cfg["temperature"] == float(flags[flags.index("--temperature")
+                                             + 1]
+                                       if "--temperature" in flags else 0)
+    if "--prefill-buckets" in flags:
+        assert cfg["prefill_buckets"] == [4, 8]
+        assert report["prefill_programs"] <= 2
+    if "--speculative" in flags:
+        spec = report["speculative"]
+        assert spec["draft_proposed"] == (spec["draft_accepted"]
+                                          + spec["draft_rejected"])
+        assert cfg["draft_layers"] == 1
+    if "--paged" in flags:
+        assert report["paging"]["pages_in_use"] == 0
+    assert report["evictions"] == 0
+
+
+def test_serve_evicts_requests_past_their_deadline(capsys):
+    """A slack of a microsecond: every request is past its deadline after
+    its first dispatch and is evicted between dispatches, its slot
+    refilled the same iteration."""
+    assert cli.main(["serve", "--device", "cpu", *TINY, "--policy",
+                     "deadline", "--deadline-slack-s", "1e-6"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["completed_reasons"] == {"evicted": 5}
+    assert report["evictions"] == 5
+    assert report["faults"]["evictions_total"] == 5
+    assert report["faults"]["deadline_misses_total"] == 5
+    assert report["tokens"]["decode"] == 0 < report["tokens"]["wasted"]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--kv-cache", "int8", "--paged", "--paged-attention", "kernel"],
+     "float pools only"),
+    (["--speculative", "--decode-steps", "4"], "pick one"),
+    (["--speculative", "--prefill-buckets", "8"], "exact-length"),
+    (["--speculative", "--paged", "--paged-attention", "kernel"],
+     "gather path"),
+    (["--speculative", "--draft-layers", "3"], "--draft-layers must be"),
+    (["--speculative", "--draft-steps", "0"], "--draft-steps must be"),
+    (["--paged", "--prefill-buckets", "8"], "slot-engine knob"),
+    (["--prefill-buckets", "4"], "smaller than --prompt-len max"),
+    (["--prefill-buckets", "4,x"], "bad --prefill-buckets"),
+    (["--top-k", "5"], "require --temperature > 0"),
+    (["--temperature", "-1"], "--temperature must be >= 0"),
+    (["--temperature", "1", "--top-p", "2"], "--top-p must be in (0, 1]"),
+    (["--watchdog-timeout", "1"], "ROADMAP A6, part 2"),
+    (["--chaos", "3"], "ROADMAP A6, part 2"),
+    (["--drain-dir", "d"], "ROADMAP A6, part 2"),
+    (["--preempt-poll", "gce"], "ROADMAP A6, part 2")])
+def test_serve_a6_refusals_exit_2(capsys, flags, match):
+    assert cli.main(["serve", "--device", "cpu", *TINY, *flags]) == 2
+    assert match in capsys.readouterr().err
+
+
+def test_serve_from_a_checkpoint(capsys, tmp_path):
+    """``serve --ckpt-dir`` reads the weights ``train --ckpt-dir`` saved
+    (raw, or the EMA item with --use-ema) and serves them: its tokens are
+    the port's generate on those weights."""
+    from akka_allreduce_tpu_torch.models.generate import generate
+    from akka_allreduce_tpu_torch.runtime.checkpoint import (
+        CheckpointConfig, CheckpointManager)
+    ckpt = str(tmp_path / "ck")
+    assert cli.main(TRAIN_TINY + ["--ckpt-dir", ckpt, "--ckpt-every", "3",
+                                  "--ema-decay", "0.9"]) == 0
+    capsys.readouterr()
+    model = ["--vocab", "61", "--d-model", "64", "--n-heads", "4",
+             "--kv-heads", "2", "--rope", "--d-ff", "128", "--max-seq",
+             "24", "--requests", "3", "--prompt-len", "3:5",
+             "--max-new-tokens", "5", "--slots", "2"]
+    for extra in ([], ["--use-ema"]):
+        args = cli.build_parser().parse_args(
+            ["serve", "--device", "cpu", "--ckpt-dir", ckpt, *model,
+             *extra])
+        _report, results, engine = cli.run_serve(args)
+        like = {k: v for k, v in engine.params.items()}
+        _, want_params, _ = CheckpointManager(CheckpointConfig(ckpt)
+                                              ).restore_params(
+            like, item="ema" if extra else "params")
+        for rid, (toks, _) in results.items():
+            req = cli.make_requests(args, 3, 5)[rid]
+            ref = generate(want_params, torch.tensor([req.prompt]),
+                           engine.cfg, steps=5)[0].tolist()
+            assert toks == ref
+    assert cli.main(["serve", "--device", "cpu", "--ckpt-dir",
+                     str(tmp_path / "none"), *model]) == 2
+    assert "no checkpoint found" in capsys.readouterr().err

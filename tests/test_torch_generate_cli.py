@@ -6,7 +6,12 @@ A tiny model trained by the port's ``train --ckpt-dir --ema-decay 0.9
 ``models/generate.py generate`` on ``convert.params_to_jax`` of the same
 weights wherever ``parity.py``'s top-2 gap rule applies (the reference's
 logits, from one JAX forward over its own stream, decide where the two
-may part). ``eval``'s ``ce_nats_per_token`` is held within 1e-5
+may part). Sampled ``generate --temperature --top-k --top-p --seed`` is
+held to JAX's ``generate(key=jax.random.key(seed))`` under the same rule
+on the perturbed scores (the reference's filtered logits plus its Gumbel
+noise). ``generate --draft-ckpt-dir`` (the second checkpoint as the
+draft) emits the plain greedy tokens, and sampled speculation JAX's
+``speculative_sample`` tokens for the same key. ``eval``'s ``ce_nats_per_token`` is held within 1e-5
 relative of JAX's pure cross-entropy (``next_token_loss_and_aux`` less the
 aux term) over the same windows (``data.eval_batches``). Every exit-2
 path of both commands is driven.
@@ -92,6 +97,60 @@ def test_generate_matches_jax_greedy(ckpt, capsys, use_ema):
     assert len(got) == steps
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_generate_sampled_matches_jax(ckpt, capsys, seed):
+    import jax
+    from akka_allreduce_tpu.models.generate import apply_sample_filters
+    steps, temperature, top_k, top_p = 10, 0.8, 20, 0.9
+    assert cli.main(gen_argv(
+        ckpt / "ema", "--prompt-tokens", ",".join(map(str, PROMPT)),
+        "--tokens", str(steps), "--temperature", str(temperature),
+        "--top-k", str(top_k), "--top-p", str(top_p), "--seed",
+        str(seed))) == 0
+    got = [int(t) for t in capsys.readouterr().out.strip().split(",")]
+    w = weights(ckpt / "ema", "params")["jax"]
+    prompt = jnp.asarray(np.asarray(PROMPT, np.int32))[None]
+    key = jax.random.key(seed)
+    ref = np.asarray(jax_generate(w, prompt, JCFG, steps=steps, key=key,
+                                  temperature=temperature, top_k=top_k,
+                                  top_p=top_p))[0]
+    logits = jtf.transformer_apply(w, jnp.concatenate(
+        [prompt, jnp.asarray(ref[None, :-1])], axis=1), JCFG)[0]
+    scores = apply_sample_filters(logits[len(PROMPT) - 1:], temperature,
+                                  top_k, top_p) + jnp.stack([
+        jax.random.gumbel(jax.random.fold_in(key, j), (1, 61))[0]
+        for j in range(steps)])
+    ok, why = parity.greedy_agree(ref, got, np.asarray(scores))
+    assert ok, why
+
+
+def test_generate_speculative_greedy_and_sampled(ckpt, capsys):
+    """The second checkpoint drafts for the first: greedy speculation
+    prints the plain greedy tokens; sampled speculation prints JAX's
+    ``speculative_sample`` tokens for the same key."""
+    import jax
+    from akka_allreduce_tpu.models.speculate import speculative_sample
+    ids = ",".join(map(str, PROMPT))
+    base = gen_argv(ckpt / "ema", "--prompt-tokens", ids, "--tokens", "10")
+    assert cli.main(base) == 0
+    plain = capsys.readouterr().out.strip()
+    spec = base + ["--draft-ckpt-dir", str(ckpt / "plain"),
+                   "--speculate-k", "3"]
+    assert cli.main(spec) == 0
+    out = capsys.readouterr()
+    assert out.out.strip() == plain
+    assert "speculative:" in out.err and "target passes" in out.err
+    assert cli.main(spec + ["--temperature", "0.9", "--top-k", "12",
+                            "--seed", "5"]) == 0
+    got = [int(t) for t in capsys.readouterr().out.strip().split(",")]
+    want, _ = speculative_sample(
+        weights(ckpt / "ema", "params")["jax"],
+        weights(ckpt / "plain", "params")["jax"],
+        jnp.asarray(np.asarray(PROMPT, np.int32))[None], JCFG, JCFG, 10,
+        key=jax.random.key(5), k=3, temperature=0.9, top_k=12)
+    assert got == np.asarray(want)[0].tolist()
+
+
 def test_ema_and_raw_weights_differ(ckpt):
     raw = weights(ckpt / "ema", "params")["port"]
     ema = weights(ckpt / "ema", "ema")["port"]
@@ -133,12 +192,14 @@ def test_eval_matches_jax_cross_entropy(ckpt, capsys, use_ema):
      "--top-k must be >= 1"),
     (["--prompt-tokens", "1", "--temperature", "1", "--top-p", "1.5"],
      "--top-p must be in (0, 1]"),
-    (["--prompt-tokens", "1", "--temperature", "0.7"], "ROADMAP A6"),
+    (["--prompt-tokens", "1", "--temperature", "0.7", "--top-p", "0"],
+     "--top-p must be in (0, 1]"),
     (["--prompt-tokens", "1", "--draft-ckpt-dir", "d",
       "--speculate-k", "0"], "--speculate-k must be >= 1"),
     (["--prompt-tokens", "1", "--tokens", "20", "--draft-ckpt-dir", "d"],
      "headroom"),
-    (["--prompt-tokens", "1", "--draft-ckpt-dir", "d"], "ROADMAP A6"),
+    (["--prompt-tokens", "1", "--draft-ckpt-dir", "d", "--temperature",
+      "0.5", "--top-p", "0"], "--top-p must be in (0, 1]"),
     (["--prompt-tokens", "1", "--moe-experts", "4"], "ROADMAP A7")])
 def test_generate_refusals_exit_2(ckpt, capsys, flags, match):
     assert cli.main(gen_argv(ckpt / "ema", *flags)) == 2
@@ -153,9 +214,14 @@ def test_generate_checkpoint_faults_exit_2(ckpt, tmp_path, capsys):
     assert "cannot restore item 'ema'" in err
     assert "trained without --ema-decay?" in err
     assert "available items: ['opt_state', 'params']" in err
-    # no checkpoint at all
+    # no checkpoint at all, for the target or for the draft
     assert cli.main(gen_argv(tmp_path / "none", "--prompt-tokens", "1")) == 2
     assert "no checkpoint found" in capsys.readouterr().err
+    assert cli.main(gen_argv(ckpt / "ema", "--prompt-tokens", "1",
+                             "--draft-ckpt-dir",
+                             str(tmp_path / "nodraft"))) == 2
+    assert f"no checkpoint found in {tmp_path / 'nodraft'}" in \
+        capsys.readouterr().err
     # the wrong model shape
     argv = gen_argv(ckpt / "ema", "--prompt-tokens", "1")
     argv[argv.index("--d-ff") + 1] = "64"
