@@ -60,9 +60,10 @@ rounds in flight::
 adamw | lion | adafactor | sgd``), keeps EMA weights (``--ema-decay``,
 saved as the checkpoint's ``ema`` item), accumulates on the overlapped
 schedule (``--grad-accum K --accum-schedule overlap``), runs ``N`` steps
-a dispatch as one CUDA graph replay (``--steps-per-dispatch N``, one
-rank), writes a Prometheus metrics snapshot (``--metrics-file``) and a
-``torch.profiler`` device trace (``--xprof-dir``). ``generate`` decodes
+a dispatch as one CUDA graph replay (``--steps-per-dispatch N``; across
+ranks with ``--dist-backend ipc``), writes a Prometheus metrics snapshot
+(``--metrics-file``) and a ``torch.profiler`` device trace
+(``--xprof-dir``). ``generate`` decodes
 from a checkpoint — greedily, sampled (``--temperature --top-k --top-p
 --seed``) or speculatively with a draft checkpoint
 (``--draft-ckpt-dir``) — and ``eval`` scores one over a corpus, either
@@ -387,11 +388,13 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="run N train steps per host dispatch: on the card "
                         "one CUDA graph holding N steps, replayed once a "
-                        "chunk (models/train.py make_multi_step); on the "
-                        "cpu the same steps in a loop. One rank, exact "
-                        "path only (no --deadline-ms); a tail shorter "
-                        "than N runs step by step; checkpoints land at "
-                        "chunk boundaries")
+                        "chunk (models/train.py make_multi_step; across "
+                        "ranks the gradient sync and the ring exchanges "
+                        "inside it, on --dist-backend ipc only); on the "
+                        "cpu the same steps in a loop. Exact path only "
+                        "(no --deadline-ms); a tail shorter than N runs "
+                        "step by step; checkpoints land at chunk "
+                        "boundaries")
     # -- checkpoints, data, logging, device
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory; resumes from the latest "
@@ -1572,12 +1575,6 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
         raise ValueError("--steps-per-dispatch > 1 needs the "
                          "single-process exact path (no --deadline-ms / "
                          "--coordinator)")
-    if args.steps_per_dispatch > 1 and args.dp * args.sp > 1:
-        raise NotImplementedError(
-            "--steps-per-dispatch > 1 with --dp x --sp > 1 is left out "
-            "(ROADMAP A5, part 2): the rank transports' host-side "
-            "signalling is not captured into a CUDA graph; use one rank "
-            "or --steps-per-dispatch 1")
     if args.max_lag < 0:
         # the JAX command leaves this to RoundPacer; checked here before
         # any rank is spawned
@@ -1640,6 +1637,15 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
     if dp * sp > 1:
         check_backend(backend, device, dp * sp)
+        if args.steps_per_dispatch > 1 and device == "cuda" \
+                and backend != "ipc":
+            # a chunk is one CUDA graph; the host-staged wire is not
+            # captured, and a chunk never runs step by step instead
+            raise ValueError(
+                f"--steps-per-dispatch > 1 across ranks on the card "
+                f"captures the gradient sync into a CUDA graph, which "
+                f"needs --dist-backend ipc (the {backend} wire stages "
+                f"payloads through the host)")
     return b, t, backend
 
 
@@ -1885,10 +1891,11 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     multi, first = None, start
     try:
         if spd > 1:  # every step in chunks; the per-step loop runs none
-            multi = make_multi_step(cfg, spd)
+            multi = make_multi_step(cfg, spd, group)
             _train_chunks(args, state, multi, build_batch, device, start,
                           mgr, xprof, telem, log, on_step,
-                          (losses, step_ms, min_counts, dispatched, clocks))
+                          (losses, step_ms, min_counts, dispatched, clocks),
+                          group)
             first = args.steps
         for i in range(first, args.steps):
             xprof.tick(i)
@@ -2010,13 +2017,23 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         "xprof_trace": xprof.path,
     }
     if multi is not None:
+        tcap = multi.transport
         report["multi_step"] = {
             "steps_per_dispatch": spd, "graph_replays": multi.replays,
-            # the flash launches one replay makes
-            "captured_launches": dict(zip(
-                ("flash_fwd", "flash_dq", "flash_dkv"),
-                multi.captured_launches or (0, 0, 0))),
-            "capture_seconds": multi.capture_seconds}
+            # the kernel launches one replay makes, by kernel
+            "captured_launches": multi.captured_launches or {},
+            "capture_seconds": multi.capture_seconds,
+            # across ranks: each replay's boundary (drain, barrier,
+            # counters rewound, barrier) and what a replay enqueues on the
+            # ipc transport
+            "boundary_ms": list(multi.boundary_ms),
+            "stream_waits_per_replay": (None if tcap is None
+                                        else tcap.stream_waits),
+            "transport_per_replay": (None if tcap is None
+                                     else dict(tcap.per_replay)),
+            # the attention's exchanges are timed on eager steps only: a
+            # replay's run inside its graph, untimed
+            "attn_exchange_ms": "eager steps only"}
     if plan_report is not None:
         report["collective_plan"] = plan_report
     if trainer is not None:
@@ -2045,7 +2062,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             "transport_buffer_gb": sum(
                 b.nbytes for b in peer_buffer_list("transport")
             ) / 1e9,
-            "param_checksum": _param_checksum(state.params)}
+            "param_checksum": _param_checksum(state.params),
+            "multi_step": report.get("multi_step")}
         if state.residual is not None:
             # the ef8 state's shape, and its largest entry in each sp
             # column shard (the hierarchical sync updates only the shard
@@ -2079,7 +2097,7 @@ def _state_bytes(optimizer) -> int:
 
 
 def _train_chunks(args, state, multi, build_batch, device, start, mgr,
-                  xprof, telem, log, on_step, sinks) -> None:
+                  xprof, telem, log, on_step, sinks, group=None) -> None:
     """``--steps-per-dispatch``'s loop (the JAX command's chunked path):
     a full chunk of N steps is one dispatch (``multi``: one CUDA graph
     replay on the card), a tail shorter than N runs step by step; the
@@ -2125,7 +2143,7 @@ def _train_chunks(args, state, multi, build_batch, device, start, mgr,
         if mgr is not None and i // every != (last + 1) // every:
             mgr.save(last, state.params, _opt_state(state),
                      {"data_step": last}, force=True, sync=state.residual,
-                     ema=state.ema)
+                     group=group, ema=state.ema)
         window += n
         if i == start or i // log_every != (last + 1) // log_every:
             toks = float(ms["tokens"][-1])

@@ -1,11 +1,18 @@
-"""Carry model weights and protocol buffers between the JAX package and
-the port.
+"""Carry model weights, training state and protocol buffers between the
+JAX package and the port.
 
 Both packages keep one parameter layout (``wq`` is ``(d_model,
 d_model)`` and used as ``h @ wq``; see models/transformer.py), so
 conversion is a leaf-for-leaf copy that keeps names, nesting, shapes and
 dtypes. The JAX side is handed over as numpy arrays (``np.asarray`` of
 each leaf), so this module needs neither JAX nor the JAX package.
+
+:func:`train_state_from_jax` maps a JAX training checkpoint's items, read
+template-free from orbax (``scripts/orbax_to_torch.py`` reads them where
+JAX is installed; here they are numpy trees), to what the port's
+``runtime/checkpoint.py`` restores: the params, the optimizer chain's
+state as the port optimizer's ``state_dict()`` and the step count, the
+EMA weights, each rank's ef8 residual and the ``extra`` dict.
 
 :func:`buffer_state_from_numpy` carries a protocol staging buffer's
 state (the numpy ring of the JAX host plane, its counts and its offset)
@@ -14,6 +21,8 @@ mid-round state.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +63,144 @@ def params_to_jax(params):
     if isinstance(params, (list, tuple)):
         return [params_to_jax(v) for v in params]
     return _leaf_to_numpy(params)
+
+
+# -- training checkpoints ---------------------------------------------------
+#
+# The JAX chain (akka_allreduce_tpu/models/train.py make_optimizer) is
+# optax.chain(step_counter(), [clip_by_global_norm], <family>,
+# [param_ema]). orbax restores it template-free with each namedtuple as a
+# dict of its fields, each tuple as a list and each EmptyState as None:
+# slot 0 {"count"}, the clip slot None, the family's chain a list whose
+# first slot holds its moments, the EMA slot {"ema"}. The slots are
+# matched in that order, never by searching the tree for a field set
+# (ROADMAP C6: the JAX package's legacy graft takes the first match).
+
+# the fields of each family's first slot, and the port state keys they
+# become (adafactor's are placed by the leaf's factored dims)
+_FAMILY_SLOT = {"adamw": ("count", "mu", "nu"), "lion": ("count", "mu"),
+                "adafactor": ("count", "v", "v_col", "v_row"),
+                "sgd": ("trace",)}
+
+
+def _chain_slots(cfg) -> list:
+    """The JAX chain's slot names for ``cfg`` (a port ``TrainConfig``),
+    in chain order."""
+    return (["count"] + (["clip"] if cfg.clip_norm > 0 else [])
+            + [cfg.optimizer] + (["ema"] if cfg.ema_decay > 0 else []))
+
+
+def _family_state(cfg, core) -> Optional[dict]:
+    """The family slot's moments (a dict of params-shaped trees and the
+    count), or None where optax keeps none (sgd without momentum)."""
+    fields = _FAMILY_SLOT[cfg.optimizer]
+    first = core[0] if isinstance(core, list) and core else None
+    if cfg.optimizer == "sgd" and not cfg.sgd_momentum:
+        if first is not None:
+            raise ValueError("the checkpoint's sgd chain keeps a trace; "
+                             "this run's sgd has no momentum")
+        return None
+    if not isinstance(first, dict) or tuple(sorted(first)) != fields:
+        got = sorted(first) if isinstance(first, dict) else first
+        raise ValueError(f"the checkpoint's optimizer slot holds {got}; "
+                         f"--optimizer {cfg.optimizer} keeps {list(fields)}"
+                         f": convert with the family that trained it")
+    return first
+
+
+def optimizer_state_from_jax(cfg, params: dict, opt_state) -> dict:
+    """The JAX chain's state (template-free orbax: see above) -> the
+    port's ``{"optimizer": state_dict, "count": steps}``, the state dict
+    that ``models/train.py make_optimizer(cfg, params)`` loads: adamw's
+    ``exp_avg`` / ``exp_avg_sq`` / ``step`` (optax's mu, nu, count),
+    lion's ``mu``, adafactor's ``v_row`` / ``v_col`` on a factored leaf
+    and ``v`` elsewhere with its ``step``, sgd's ``trace``. ``params``
+    are the port's (torch) params the optimizer is built over."""
+    from akka_allreduce_tpu_torch.models.optim import factored_dims
+    from akka_allreduce_tpu_torch.models.train import make_optimizer
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    slots = _chain_slots(cfg)
+    if not isinstance(opt_state, (list, tuple)) or len(opt_state) != len(
+            slots):
+        n = len(opt_state) if isinstance(opt_state, (list, tuple)) else 0
+        raise ValueError(
+            f"the checkpoint's optimizer chain has {n} slots; this run's "
+            f"({' + '.join(slots)}) has {len(slots)}: convert with the "
+            f"--optimizer, --clip-norm and --ema-decay that trained it")
+    chain = dict(zip(slots, opt_state))
+    counter = chain["count"]
+    if not isinstance(counter, dict) or set(counter) != {"count"}:
+        raise ValueError(f"slot 0 of the checkpoint's chain is not the step "
+                         f"counter: {counter!r:.80}")
+    if cfg.ema_decay > 0 and not (isinstance(chain["ema"], dict)
+                                  and set(chain["ema"]) == {"ema"}):
+        raise ValueError("the checkpoint's last chain slot is not the EMA")
+    count = int(np.asarray(counter["count"]))
+    leaves = tree_leaves(params)
+    opt = make_optimizer(cfg, params)
+    moments = _family_state(cfg, chain[cfg.optimizer])
+    if moments is not None:
+        trees = {k: tree_leaves(params_from_jax(moments[k]))
+                 for k in moments if k != "count"}
+        step = (torch.tensor(float(np.asarray(moments["count"])),
+                             dtype=torch.float32)
+                if "count" in moments else None)
+        for i, p in enumerate(leaves):
+            leaf = {k: t[i].to(p.device, p.dtype) for k, t in trees.items()}
+            if cfg.optimizer == "adamw":
+                state = {"step": step.clone(), "exp_avg": leaf["mu"],
+                         "exp_avg_sq": leaf["nu"]}
+            elif cfg.optimizer == "adafactor":
+                state = {"step": step.clone().to(p.device)}
+                if factored_dims(tuple(p.shape)) is None:
+                    state["v"] = leaf["v"]
+                else:
+                    state.update(v_row=leaf["v_row"], v_col=leaf["v_col"])
+            else:
+                state = {k: leaf[k] for k in ("mu", "trace") if k in leaf}
+            opt.state[p] = state
+    return {"optimizer": opt.state_dict(), "count": count}
+
+
+def train_state_from_jax(items: dict, cfg, device="cpu") -> dict:
+    """A JAX training checkpoint step -> the port's checkpoint items.
+    ``items`` are the orbax items as numpy trees (template-free:
+    ``params``, ``opt_state``, optionally ``ema``, ``sync``, ``extra``);
+    ``cfg`` the port ``TrainConfig`` of the run that resumes (its
+    optimizer family, clip, EMA, sgd momentum and bucket size). Returns
+    ``params`` (torch, on ``device``), ``opt_state`` (as the port's
+    checkpoint keeps it: ``{"optimizer": state_dict, "count": steps}``),
+    ``ema`` (the ``ema`` item, or the chain's EMA slot; None without
+    ``ema_decay``), ``sync`` (each rank's ef8 residual, the JAX item's
+    planes; None without one) and ``extra``. Raises ``ValueError``
+    naming what is missing or does not match."""
+    held = sorted(k for k, v in items.items() if v is not None)
+    missing = [k for k in ("params", "opt_state") if k not in held]
+    if missing:
+        raise ValueError(f"the checkpoint lacks {' and '.join(missing)} "
+                         f"(it holds {held}): a training checkpoint has "
+                         f"params and opt_state")
+    params = params_from_jax(items["params"], device)
+    opt_state = optimizer_state_from_jax(cfg, params, items["opt_state"])
+    ema = None
+    if cfg.ema_decay > 0:
+        tree = items.get("ema")
+        if tree is None:
+            tree = items["opt_state"][-1]["ema"]
+        ema = params_from_jax(tree, device)
+    sync = None
+    if items.get("sync") is not None:
+        from akka_allreduce_tpu_torch.models.train import dense_bucket_count
+        planes = np.asarray(items["sync"]["residual"], dtype=np.float32)
+        want = (dense_bucket_count(cfg, params), cfg.bucket_elems)
+        if planes.ndim != 3 or planes.shape[1:] != want:
+            raise ValueError(f"the ef8 residual is {planes.shape}; this "
+                             f"run's is (ranks,) + {want} (--bucket-elems "
+                             f"{cfg.bucket_elems})")
+        sync = [torch.from_numpy(plane.copy()).to(device)
+                for plane in planes]
+    return {"params": params, "opt_state": opt_state, "ema": ema,
+            "sync": sync, "extra": dict(items.get("extra") or {})}
 
 
 def buffer_state_from_numpy(buffer, device="cpu", into=None):

@@ -67,12 +67,14 @@ PyTorch idiom in place of the JAX package's pure functions:
   current stream, so on the card nothing hides behind the next
   microbatch yet;
 * :func:`make_multi_step` runs ``N`` steps a dispatch (the JAX
-  ``lax.scan`` chunk): on the card one CUDA graph replay a chunk, on the
-  CPU the same steps in a loop.
+  ``lax.scan`` chunk) on one rank or many: on the card one CUDA graph
+  replay a chunk (across ranks on the ``ipc`` transport), on the CPU the
+  same steps in a loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -579,11 +581,14 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         """One gradient sync of a grads list: (synced list, the smallest
         bucket count, the residual)."""
         device = grads[0].device
-        start = _timer_mark(device)
+        # a sync that a CUDA graph captures is not timed
+        timed = sync_times is not None and not (
+            device.type == "cuda" and torch.cuda.is_current_stream_capturing())
+        start = _timer_mark(device) if timed else None
         res = allreduce_gradients(tree_unflatten(params, grads), gcfg, group,
                                   valid=row, quant_key=key,
                                   residual=residual)
-        if sync_times is not None:
+        if timed:
             sync_times.append((start, _timer_mark(device)))
         return tree_leaves(res.grads), res.bucket_counts.min(), res.residual
 
@@ -709,38 +714,70 @@ def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     advances ``state.step``, which keys the next round's rounding as the
     JAX optimizer's count does. The step count is read on the host only
     where a sync rounds by it (an int8 or ef8 wire that syncs), so a step
-    of one rank reads nothing back."""
+    of one rank reads nothing back; ``host_step`` gives that count
+    instead (a step that a CUDA graph captures reads nothing back)."""
     grad_step = make_grad_step(cfg, group, sync_times, dynamic_valid)
     use_ef = cfg.grad_transport == "ef8"
     keyed = cfg.grad_transport in ("int8", "ef8") and (
         (group is not None and group.world > 1) or dynamic_valid)
 
-    def step(state: TrainState, tokens: torch.Tensor, valid=None) -> dict:
+    def step(state: TrainState, tokens: torch.Tensor, valid=None,
+             host_step: Optional[int] = None) -> dict:
+        if keyed:
+            seed = state.step if host_step is None else host_step
         out = grad_step(state.params, tokens,
-                        quant_seed=state.step if keyed else None,
+                        quant_seed=seed if keyed else None,
                         residual=state.residual, valid=valid)
         grads, metrics = out[0], out[1]
         if use_ef:
-            state.residual = out[2]
+            # in place: a CUDA graph that captured the step reads and
+            # writes the state's own residual on every replay
+            with torch.no_grad():
+                state.residual.copy_(out[2])
         apply_update(cfg, state, tree_leaves(grads))
         return metrics
 
     return step
 
 
-_FLASH_COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
-                   "FLASH_DKV_LAUNCHES")
+# the kernel wrappers' launch counters that a captured chunk's replays
+# add to: module (under ops/kernels) -> its counters
+_COUNTERS = {
+    "flash_attention": ("FLASH_FWD_LAUNCHES", "FLASH_DQ_LAUNCHES",
+                        "FLASH_DKV_LAUNCHES"),
+    "ring_flash": ("RING_FWD_LAUNCHES", "RING_DQ_LAUNCHES",
+                   "RING_DKV_LAUNCHES"),
+    "masked_reduce": ("MASKED_REDUCE_LAUNCHES",),
+    "quantized": ("QUANTIZE_INT8_LAUNCHES", "DEQUANTIZE_INT8_LAUNCHES",
+                  "QUANTIZE_INT8_PRNG_LAUNCHES",
+                  "QUANTIZE_INT8_BLOCK_LAUNCHES",
+                  "QUANTIZE_INT8_BLOCK_RTN_LAUNCHES",
+                  "DEQUANTIZE_INT8_BLOCK_LAUNCHES")}
 
 
-def _flash_counts() -> tuple:
-    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
-    return tuple(getattr(fa, name) for name in _FLASH_COUNTERS)
+def _launch_counters() -> dict:
+    """Each kernel wrapper's launch counter by the name the reports give
+    it (``flash_fwd`` is ``flash_attention.FLASH_FWD_LAUNCHES``):
+    ``(module, attribute)``."""
+    from akka_allreduce_tpu_torch.ops.kernels import (flash_attention,
+                                                      masked_reduce,
+                                                      quantized, ring_flash)
+    modules = {"flash_attention": flash_attention, "ring_flash": ring_flash,
+               "masked_reduce": masked_reduce, "quantized": quantized}
+    return {attr.removesuffix("_LAUNCHES").lower(): (modules[m], attr)
+            for m, attrs in _COUNTERS.items() for attr in attrs}
 
 
-def _add_flash_counts(counts) -> None:
-    from akka_allreduce_tpu_torch.ops.kernels import flash_attention as fa
-    for name, n in zip(_FLASH_COUNTERS, counts):
-        setattr(fa, name, getattr(fa, name) + n)
+def _launch_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _launch_counters().items()}
+
+
+def _add_launch_counts(counts: dict, sign: int = 1) -> None:
+    counters = _launch_counters()
+    for name, n in counts.items():
+        mod, attr = counters[name]
+        setattr(mod, attr, getattr(mod, attr) + sign * n)
 
 
 def _state_tensors(state: TrainState) -> list:
@@ -760,17 +797,29 @@ def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> list:
 class _MultiStep:
     """:func:`make_multi_step`'s chunk runner."""
 
-    def __init__(self, cfg: TrainConfig, n: int):
+    def __init__(self, cfg: TrainConfig, n: int,
+                 group: Optional[RankGroup] = None):
         if n < 1:
             raise ValueError(f"steps per dispatch must be >= 1, got {n}")
-        self.cfg, self.n = cfg, n
-        self._step = make_train_step(cfg)
-        self._captured = None  # (graph, token buffer, stacked metrics)
+        self.cfg, self.n, self.group = cfg, n, group
+        self.ranks = group is not None and group.world > 1
+        self._step = make_train_step(cfg, group)
+        # (graph, token buffer, stacked metrics, the transport's capture
+        # record, the chunk's rounding keys)
+        self._captured = None
         self._state: Optional[TrainState] = None  # the one it captured
-        # the flash launches one replay makes, and the replays so far
-        self.captured_launches: Optional[tuple] = None
+        # the kernel launches one replay makes (by kernel), the replays
+        # so far, the capture's seconds and each replay's boundary ms
+        self.captured_launches: Optional[dict] = None
         self.replays = 0
         self.capture_seconds: Optional[float] = None
+        self.boundary_ms: list = []
+
+    @property
+    def transport(self):
+        """The transport's capture record (``transport.Captured``: calls,
+        stream waits and copies a replay), or None."""
+        return None if self._captured is None else self._captured[3]
 
     def __call__(self, state: TrainState, tokens: torch.Tensor) -> dict:
         if state.count is None:
@@ -784,17 +833,27 @@ class _MultiStep:
                 for k in ms[0]}
 
     def _capture(self, state: TrainState, tokens: torch.Tensor) -> None:
+        from akka_allreduce_tpu_torch.ops import collectives
+        from akka_allreduce_tpu_torch.ops.kernels import transport
+        if self.ranks and self.group.backend != "ipc":
+            raise ValueError(
+                f"a chunk of steps across ranks is one CUDA graph, which "
+                f"captures the ipc transport only (the {self.group.backend} "
+                f"wire stages payloads through the host): use "
+                f"--dist-backend ipc")
         t0 = time.perf_counter()
         device = tokens.device
-        # one eager warm-up step on a side stream (the libraries load and
-        # the optimizer's state exists before capture), then undone: the
-        # state tensors take back their values in place, and an optimizer
-        # state the step created its initial zeros
+        base = state.step  # the host reads the count once, before capture
+        # one eager warm-up step on a side stream (the libraries load, the
+        # optimizer's state and the transport's buffers exist before
+        # capture, and the rounding keys a step derives are listed), then
+        # undone: the state tensors take back their values in place, and
+        # an optimizer state the step created its initial zeros
         kept = [t.detach().clone() for t in _state_tensors(state)]
         kept_opt = [t.clone() for t in _optimizer_tensors(state.optimizer)]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), collectives.record_keys() as keys:
             self._step(state, tokens[0])
         torch.cuda.current_stream(device).wait_stream(side)
         with torch.no_grad():
@@ -807,26 +866,44 @@ class _MultiStep:
             else:
                 for t in opt:
                     t.zero_()
+        # the copies' memory goes back before the graph's pool fills
+        del kept, kept_opt
         buf = torch.empty_like(tokens)
         graph = torch.cuda.CUDAGraph()
-        before = _flash_counts()
+        seeds = sum(1 for kind, _ in keys if kind == "seed")
+        chunk = None
+        if keys:
+            chunk = collectives.ChunkKeys(self.n, base, device, seeds,
+                                          len(keys) - seeds)
+            chunk.register(graph)
+        before = _launch_counts()
         try:
-            with torch.cuda.graph(graph):
-                ms = [self._step(state, buf[i]) for i in range(self.n)]
-                out = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            with contextlib.ExitStack() as stack:
+                tcap = (stack.enter_context(transport.capture())
+                        if self.ranks else None)
+                if chunk is not None:
+                    stack.enter_context(collectives.chunk_keys(chunk))
+                with torch.cuda.graph(graph):
+                    ms = [self._step(state, buf[i], host_step=base + i)
+                          for i in range(self.n)]
+                    out = {k: torch.stack([m[k] for m in ms])
+                           for k in ms[0]}
+            if chunk is not None:
+                chunk.check_complete()
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of a {self.n}-step "
                                f"chunk failed: {exc}") from exc
         # capture enqueues nothing: the wrappers counted launches that
         # each replay makes
-        self.captured_launches = tuple(
-            a - b for a, b in zip(_flash_counts(), before))
-        _add_flash_counts(-c for c in self.captured_launches)
+        after = _launch_counts()
+        self.captured_launches = {k: after[k] - before[k] for k in after}
+        _add_launch_counts(self.captured_launches, -1)
         torch.cuda.synchronize(device)
         self.capture_seconds = time.perf_counter() - t0
-        self._captured = (graph, buf, out)
+        self._captured = (graph, buf, out, tcap, chunk)
 
     def _replay(self, state: TrainState, tokens: torch.Tensor) -> dict:
+        from akka_allreduce_tpu_torch.ops.kernels import transport
         if self._captured is None:
             self._capture(state, tokens)
             self._state = state
@@ -834,15 +911,25 @@ class _MultiStep:
             raise ValueError("a captured chunk replays on the tensors of "
                              "the state it was captured with; make a "
                              "chunk runner for each state")
-        graph, buf, out = self._captured
+        graph, buf, out, tcap, chunk = self._captured
+        if tcap is not None:
+            # every rank drained and met, its counters back at the
+            # capture's values
+            self.boundary_ms.append(self.group.replay_boundary(tcap))
+        if chunk is not None:
+            chunk.fill(state.step)
         buf.copy_(tokens)
-        graph.replay()
-        _add_flash_counts(self.captured_launches)
+        if tcap is not None:
+            transport.replay(tcap, graph.replay)
+        else:
+            graph.replay()
+        _add_launch_counts(self.captured_launches)
         self.replays += 1
         return {k: v.clone() for k, v in out.items()}
 
 
-def make_multi_step(cfg: TrainConfig, n: int) -> _MultiStep:
+def make_multi_step(cfg: TrainConfig, n: int,
+                    group: Optional[RankGroup] = None) -> _MultiStep:
     """``n`` production train steps a dispatch: the JAX ``make_multi_step``
     (one ``lax.scan`` a chunk). Called as ``multi(state, tokens)`` with
     ``tokens`` stacked ``(k, B, T)`` on the state's device, it runs ``k``
@@ -850,17 +937,25 @@ def make_multi_step(cfg: TrainConfig, n: int) -> _MultiStep:
     axis 0. The state comes from ``make_train_state(...,
     device_step=True)`` on every device: the step count, and the learning
     rate read from it, live beside the parameters, and each step advances
-    the count there.
+    the count there. ``group`` is the rank's mesh: every rank runs the
+    same chunks, and the sync and the ring exchanges run inside them.
 
     On the card a chunk of exactly ``n`` is one replay of a CUDA graph
     that holds the ``n`` steps, captured at the first such chunk after
-    one eager warm-up step that is then undone; it replays only on the
-    state it captured. A graph that cannot be captured raises; nothing
-    falls back to the per-step loop. A shorter chunk (the tail), and on
-    the CPU (an explicit request) every chunk, runs the same step code
-    step by step. The runner's ``captured_launches`` are the flash
-    launches of one replay, ``replays`` the replays so far and
-    ``capture_seconds`` the capture's. Runs on one rank only: the rank
-    transports' host-side signalling is not captured (ROADMAP A5, part
-    2)."""
-    return _MultiStep(cfg, n)
+    one eager warm-up step that is then undone (the residual and the
+    device count too); it replays only on the state it captured. Across
+    ranks the graph holds the ``ipc`` transport's calls (gloo and nccl
+    refuse), and each replay starts with ``RankGroup.replay_boundary``
+    (drain, barrier, the counters rewound, barrier) and the chunk's
+    rounding seeds written for its steps (``ops/collectives.py
+    ChunkKeys``), so every replay is bitwise the eager steps. A graph
+    that cannot be captured raises; nothing falls back to the per-step
+    loop. A shorter chunk (the tail), and on the CPU (an explicit
+    request) every chunk, runs the same step code step by step. The
+    runner's ``captured_launches`` are the kernel launches of one replay
+    by kernel name (``flash_fwd``, ``ring_dq``, ``masked_reduce``, ...),
+    ``replays`` the replays so far, ``capture_seconds`` the capture's,
+    ``boundary_ms`` each replay's boundary and ``transport`` the
+    transport's record of the capture (calls, waits and copies a
+    replay)."""
+    return _MultiStep(cfg, n, group)

@@ -36,10 +36,22 @@ step (per rank, per phase, per window; for swing per hop and subgroup),
 so the same ranks share and the same ranks differ in their rounding
 noise; but the bits differ from JAX's, so int8 parity with the JAX
 package is statistical only.
+
+Keys of a captured chunk. A CUDA graph that captures N train steps
+cannot hash a key on the host at each replay. :class:`ChunkKeys` stands
+in while the chunk is captured (:func:`chunk_keys`): each int8 quantize
+reads its seed from a slot of an int64 device table, each ef8 bits
+tensor is drawn from a generator of its own registered with the graph,
+and :meth:`ChunkKeys.fill` writes, before each replay, the seeds of the
+keys that the replay's steps derive (one host-to-device copy, and a
+``manual_seed`` a generator), so step s of a replay draws bitwise the
+bits of an eager step s. :func:`record_keys` lists the keys an eager
+step derives, in order (how many slots a step takes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from typing import Optional
 
@@ -49,7 +61,7 @@ from akka_allreduce_tpu_torch.ops.kernels.masked_reduce import masked_reduce
 from akka_allreduce_tpu_torch.device import resolve_device
 from akka_allreduce_tpu_torch.ops.kernels.quantized import (
     dequantize_int8, dequantize_int8_block, quantize_int8_block,
-    quantize_int8_block_rtn, quantize_int8_prng)
+    quantize_int8_block_rtn, quantize_int8_prng, seed_tensor)
 from akka_allreduce_tpu_torch.parallel.group import RankGroup, spawn_ranks
 
 # ef8 scale-block width: one f32 scale per this many int8 columns (the JAX
@@ -76,10 +88,144 @@ def key_seed(key: tuple) -> int:
 
 def wire_bits(shape, key: tuple, device) -> torch.Tensor:
     """An int32 tensor of random words for the bits-input block
-    quantizer, from a generator on ``device`` seeded with ``key``."""
-    gen = torch.Generator(device=device).manual_seed(key_seed(key))
+    quantizer, from a generator on ``device`` seeded with ``key`` (while
+    a chunk is captured, the chunk's generator for this draw)."""
+    if _KEYS["record"] is not None:
+        _KEYS["record"].append(("bits", key))
+    if _KEYS["chunk"] is not None:
+        gen = _KEYS["chunk"].generator(key)
+    else:
+        gen = torch.Generator(device=device).manual_seed(key_seed(key))
     return torch.randint(-2 ** 31, 2 ** 31, tuple(shape), dtype=torch.int32,
                          generator=gen, device=device)
+
+
+def _quantize_seed(key: tuple) -> "int | torch.Tensor":
+    """The int8 wire's seed for ``key``: hashed on the host, or while a
+    chunk is captured the device slot that holds it."""
+    if _KEYS["record"] is not None:
+        _KEYS["record"].append(("seed", key))
+    if _KEYS["chunk"] is not None:
+        return _KEYS["chunk"].seed(key)
+    return key_seed(key)
+
+
+# -- the keys of a captured chunk -----------------------------------------
+
+# "record": the list an eager step appends its keys to; "chunk": the
+# ChunkKeys of a chunk being captured
+_KEYS: dict = {"record": None, "chunk": None}
+
+
+@contextlib.contextmanager
+def record_keys():
+    """Yields the list of ``("seed" | "bits", key)`` that the int8 and
+    ef8 wires derive inside the block, in order (an eager step's keys:
+    what a captured chunk's slots stand for)."""
+    keys: list = []
+    _KEYS["record"] = keys
+    try:
+        yield keys
+    finally:
+        _KEYS["record"] = None
+
+
+def shift_step(key: tuple, step: int) -> tuple:
+    """``key`` as step ``step`` derives it: every rounding key of a train
+    step grows from ``quant_key(step)`` = ``(root, step, ...)``, so its
+    second element is the step."""
+    return (key[0], int(step)) + tuple(key[2:])
+
+
+class ChunkKeys:
+    """The rounding keys of a chunk of ``n`` train steps captured from
+    step ``base`` on, one CUDA graph: ``seeds_per_step`` int8 seeds and
+    ``bits_per_step`` ef8 bit draws a step (:func:`record_keys` of one
+    eager step counts them). ``table`` holds the seeds (int64, on
+    ``device``), ``generators`` one generator a draw; register them with
+    the graph before its capture (:meth:`register`). While the chunk is
+    captured (:func:`chunk_keys`) each wire call takes the next slot and
+    its key is kept; :meth:`fill` then writes the seeds of step ``b +
+    i``'s keys for a replay of steps ``b .. b + n - 1``."""
+
+    def __init__(self, n: int, base: int, device, seeds_per_step: int,
+                 bits_per_step: int):
+        self.n, self.base = n, int(base)
+        self.table = torch.zeros((n * seeds_per_step,), dtype=torch.int64,
+                                 device=device)
+        self.generators = [torch.Generator(device=device)
+                           for _ in range(n * bits_per_step)]
+        self.seed_keys: list = []
+        self.bit_keys: list = []
+
+    def register(self, graph) -> None:
+        """Register every generator with ``graph`` (a
+        ``torch.cuda.CUDAGraph``, before its capture begins): a replay
+        then draws from the seed the generator holds when it starts."""
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+
+    def _take(self, keys: list, size: int, key: tuple, what: str) -> int:
+        step = int(key[1])
+        if not self.base <= step < self.base + self.n:
+            raise ValueError(f"a key of step {step} in a chunk of steps "
+                             f"{self.base}..{self.base + self.n - 1}")
+        if len(keys) == size:
+            raise RuntimeError(f"the captured chunk draws more {what} than "
+                               f"its eager step did ({size // self.n} a "
+                               f"step)")
+        keys.append(key)
+        return len(keys) - 1
+
+    def seed(self, key: tuple) -> torch.Tensor:
+        """The table slot of the next int8 seed (a one-element view)."""
+        i = self._take(self.seed_keys, self.table.numel(), key, "seeds")
+        return self.table[i:i + 1]
+
+    def generator(self, key: tuple) -> torch.Generator:
+        """The generator of the next ef8 bit draw."""
+        i = self._take(self.bit_keys, len(self.generators), key, "draws")
+        return self.generators[i]
+
+    def check_complete(self) -> None:
+        """Raise unless the capture took every slot (each step derived
+        what the eager step did)."""
+        if (len(self.seed_keys) != self.table.numel()
+                or len(self.bit_keys) != len(self.generators)):
+            raise RuntimeError(
+                f"the captured chunk derived {len(self.seed_keys)} seeds "
+                f"and {len(self.bit_keys)} draws, its eager steps "
+                f"{self.table.numel()} and {len(self.generators)}")
+
+    def keys_at(self, base: int) -> "tuple[list, list]":
+        """The seed keys and draw keys of a replay of steps ``base ..
+        base + n - 1``, slot by slot."""
+        def move(keys):
+            return [shift_step(k, base + int(k[1]) - self.base)
+                    for k in keys]
+        return move(self.seed_keys), move(self.bit_keys)
+
+    def fill(self, base: int) -> None:
+        """Before a replay of steps ``base .. base + n - 1``: the seeds
+        of their keys into the table (one host-to-device copy) and into
+        the generators."""
+        seeds, bits = self.keys_at(base)
+        if seeds:
+            self.table.copy_(torch.cat([seed_tensor(key_seed(k), "cpu")
+                                        for k in seeds]))
+        for gen, k in zip(self.generators, bits):
+            gen.manual_seed(key_seed(k))
+
+
+@contextlib.contextmanager
+def chunk_keys(keys: ChunkKeys):
+    """While a chunk is captured: the int8 and ef8 wires take their
+    seeds and generators from ``keys``."""
+    _KEYS["chunk"] = keys
+    try:
+        yield keys
+    finally:
+        _KEYS["chunk"] = None
 
 
 # -- exact sums ------------------------------------------------------------
@@ -183,7 +329,7 @@ def _quantize_rows(x2d: torch.Tensor, key: tuple
     """(rows, c) f32 -> (int8 values, (rows, 1) f32 scales), per-row
     scales, stochastic rounding from the Philox stream keyed by ``key``
     (the JAX package's TPU default, the in-kernel-PRNG quantizer)."""
-    return quantize_int8_prng(x2d, key_seed(key))
+    return quantize_int8_prng(x2d, _quantize_seed(key))
 
 
 def _dequantize_rows(values: torch.Tensor,

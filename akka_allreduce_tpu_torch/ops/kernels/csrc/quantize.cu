@@ -24,6 +24,10 @@
 // function of (seed, element index): the same for any grid, and the
 // plain PyTorch version draws the same words (bitwise-equal wire bytes).
 // The JAX package's hardware PRNG cannot be matched; its bits differ.
+// The seed comes by value, or (`seed_ptr` non-null) as a uint64 in device
+// memory that the kernel reads when it runs: a CUDA graph that captured
+// the launch then draws the words of whatever seed was written there
+// before its replay, and the words of one seed are the same either way.
 //
 // Scales are computed outside the kernels, as the JAX package does
 // (per-row or per-block abs-max / 127, floored at 1e-30).
@@ -94,9 +98,12 @@ __global__ void quantize_kernel(const float* __restrict__ x,
                                 const float* __restrict__ scales,
                                 int8_t* __restrict__ out, int64_t total,
                                 int64_t cols, int64_t nb, int64_t block,
-                                uint64_t seed, bool vec) {
+                                uint64_t seed,
+                                const uint64_t* __restrict__ seed_ptr,
+                                bool vec) {
   const int64_t groups = (total + 3) / 4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (Mode == kPhilox && seed_ptr != nullptr) seed = *seed_ptr;
   const uint2 key = make_uint2(static_cast<uint32_t>(seed),
                                static_cast<uint32_t>(seed >> 32));
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -185,14 +192,16 @@ bool aligned(const void* p, uintptr_t n) {
 }  // namespace
 
 // mode: 0 = round half to even, 1 = stochastic from `bits` (int32 words
-// read as uint32), 2 = stochastic from Philox4x32-10 keyed by `seed`.
+// read as uint32), 2 = stochastic from Philox4x32-10 keyed by `seed`, or
+// by the uint64 at `seed_ptr` (device memory) when that is non-null.
 // Returns the launch status (cudaSuccess == 0). Shapes, types and
 // contiguity are checked by the Python wrapper
 // (akka_allreduce_tpu_torch/ops/kernels/quantized.py).
 extern "C" int quantize_launch(int mode, const void* x, const void* bits,
                                const void* scales, void* out, int64_t rows,
                                int64_t cols, int64_t nb, int64_t block,
-                               uint64_t seed, void* stream) {
+                               uint64_t seed, const void* seed_ptr,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t total = rows * cols;
   const bool vec = cols % 4 == 0 && block % 4 == 0 && aligned(x, 16) &&
@@ -202,18 +211,16 @@ extern "C" int quantize_launch(int mode, const void* x, const void* bits,
   const int32_t* bi = static_cast<const int32_t*>(bits);
   const float* sc = static_cast<const float*>(scales);
   int8_t* o = static_cast<int8_t*>(out);
+  const uint64_t* sp = static_cast<const uint64_t*>(seed_ptr);
   if (mode == kRtn) {
-    quantize_kernel<kRtn><<<grid, kThreads, 0, s>>>(xf, bi, sc, o, total,
-                                                    cols, nb, block, seed,
-                                                    vec);
+    quantize_kernel<kRtn><<<grid, kThreads, 0, s>>>(
+        xf, bi, sc, o, total, cols, nb, block, seed, sp, vec);
   } else if (mode == kBits) {
-    quantize_kernel<kBits><<<grid, kThreads, 0, s>>>(xf, bi, sc, o, total,
-                                                     cols, nb, block, seed,
-                                                     vec);
+    quantize_kernel<kBits><<<grid, kThreads, 0, s>>>(
+        xf, bi, sc, o, total, cols, nb, block, seed, sp, vec);
   } else if (mode == kPhilox) {
-    quantize_kernel<kPhilox><<<grid, kThreads, 0, s>>>(xf, bi, sc, o, total,
-                                                       cols, nb, block, seed,
-                                                       vec);
+    quantize_kernel<kPhilox><<<grid, kThreads, 0, s>>>(
+        xf, bi, sc, o, total, cols, nb, block, seed, sp, vec);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -38,6 +38,15 @@
 // wait / watchdog, transport_abandon: queued stretches become no-ops and
 // every wait is freed, so the stream drains and the host can raise).
 //
+// A CUDA graph may capture calls (ops/kernels/transport.py `capture`):
+// the waits become the graph's memory-operation nodes and the stretches
+// its kernel nodes, each with the targets the host gave it at capture.
+// Before each replay every rank has drained the previous one and met the
+// others (a gloo barrier), and transport_rewind writes its own buffer's
+// ready / consumed words back to the values the chunk was captured at;
+// after a second barrier the replay's targets hold again. The only time a
+// counter is lowered: no signal is in flight then.
+//
 // Bound: bytes. Each payload byte is read and written twice (push, pull),
 // 4 N of HBM traffic for N bytes received; ranks sharing the card share
 // its memory rate.
@@ -226,7 +235,40 @@ extern "C" int transport_abandon(void* counters, uint64_t want) {
                            want);
 }
 
+// Writes this rank's ready[0..count) and consumed[0..count) words to
+// `ready` and `consumed` (count values each), on the side stream, and
+// waits for the write. Only between replays of a captured chunk, with no
+// call of any rank in flight on the buffer.
+extern "C" int transport_rewind(void* counters, const uint64_t* ready,
+                                const uint64_t* consumed, int count) {
+  if (peer_mem::g_wait == nullptr) return peer_mem::kNoDriverEntryPoint;
+  if (count < 0 || count > kMaxRanks - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Counters* c = static_cast<Counters*>(counters);
+  for (int i = 0; i < count; ++i) {
+    peer_mem::g_host[i] = ready[i];
+    peer_mem::g_host[kMaxRanks + i] = consumed[i];
+  }
+  cudaError_t rc = cudaMemcpyAsync(c->ready, peer_mem::g_host,
+                                   count * sizeof(u64),
+                                   cudaMemcpyHostToDevice, peer_mem::g_side);
+  if (rc == cudaSuccess) {
+    rc = cudaMemcpyAsync(c->consumed, peer_mem::g_host + kMaxRanks,
+                         count * sizeof(u64), cudaMemcpyHostToDevice,
+                         peer_mem::g_side);
+  }
+  if (rc == cudaSuccess) rc = cudaStreamSynchronize(peer_mem::g_side);
+  return static_cast<int>(rc);
+}
+
 extern "C" uint64_t transport_stream_waits() { return peer_mem::g_waits; }
+
+// Adds `delta` to the stream-wait count: a capture enqueues no wait, a
+// replay enqueues those it captured.
+extern "C" void transport_add_waits(int64_t delta) {
+  peer_mem::g_waits += static_cast<unsigned long long>(delta);
+}
 
 extern "C" const char* transport_error_string(int code) {
   return peer_mem::error_string(code);

@@ -70,6 +70,7 @@ def _launcher():
         q = lib.quantize_launch
         q.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                       + [ctypes.c_int64] * 4 + [ctypes.c_uint64,
+                                                ctypes.c_void_p,
                                                 ctypes.c_void_p])
         q.restype = ctypes.c_int
         d = lib.dequantize_launch
@@ -218,10 +219,15 @@ def _check_quantize(x: torch.Tensor, bits: Optional[torch.Tensor]) -> None:
 
 
 def _quantize(x: torch.Tensor, scales: torch.Tensor, block: int, mode: str,
-              bits: Optional[torch.Tensor], seed: int) -> torch.Tensor:
+              bits: Optional[torch.Tensor], seed: int,
+              seed_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Values for 2-D ``x``: the plain version on the CPU, the kernel on
-    CUDA (the caller counts the launch)."""
+    CUDA (the caller counts the launch). ``seed_ptr``, a one-element
+    int64 tensor on ``x``'s device, takes the place of ``seed``: the
+    kernel reads it when it runs."""
     if x.device.type == "cpu":
+        if seed_ptr is not None:
+            seed = int(seed_ptr.reshape(()).item()) & (2 ** 64 - 1)
         return quantize_reference(x, scales, block, mode, bits, seed)
     if x.device.type != "cuda":
         raise ValueError(f"int8 quantize runs on cpu or cuda, got {x.device}")
@@ -238,7 +244,8 @@ def _quantize(x: torch.Tensor, scales: torch.Tensor, block: int, mode: str,
                              None if bits is None else bits.data_ptr(),
                              scales.data_ptr(), out.data_ptr(), rows, cols,
                              scales.shape[1], block, seed & (2 ** 64 - 1),
-                             stream)
+                             None if seed_ptr is None
+                             else seed_ptr.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"int8 quantize kernel launch failed: "
                            f"{lib['error'](rc).decode()} ({rc})")
@@ -290,16 +297,37 @@ def quantize_int8(x: torch.Tensor, bits: torch.Tensor
     return values.view(x.shape), scales.view(x.shape[:-1] + (1,))
 
 
-def quantize_int8_prng(x: torch.Tensor, seed: int
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """A 64-bit seed as the one-element int64 tensor that
+    :func:`quantize_int8_prng` reads it from (the same 64 bits, two's
+    complement)."""
+    seed = int(seed) & (2 ** 64 - 1)
+    return torch.tensor([seed - 2 ** 64 if seed >= 2 ** 63 else seed],
+                        dtype=torch.int64, device=device)
+
+
+def quantize_int8_prng(x: torch.Tensor, seed: "int | torch.Tensor"
                        ) -> "tuple[torch.Tensor, torch.Tensor]":
     """As :func:`quantize_int8`, the words drawn by Philox4x32-10 keyed
     by the 64-bit ``seed`` (vary it per round) inside the kernel: no bits
-    tensor exists in device memory."""
+    tensor exists in device memory. ``seed`` is a Python int, or a
+    one-element int64 tensor on ``x``'s device holding its 64 bits
+    (:func:`seed_tensor`), which the kernel reads when it runs (a CUDA
+    graph's replay draws the words of the seed written there before it);
+    one seed gives the same words either way."""
     global QUANTIZE_INT8_PRNG_LAUNCHES
     _check_quantize(x, None)
+    seed_ptr = None
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int64 or seed.numel() != 1
+                or seed.device != x.device):
+            raise ValueError(f"a seed tensor is one int64 on {x.device}, "
+                             f"got {tuple(seed.shape)} {seed.dtype} on "
+                             f"{seed.device}")
+        seed_ptr, seed = seed, 0
     x2, scales = _rows(x), row_scales(_rows(x))
     values = _quantize(x2, scales, max(x2.shape[1], 1), "philox", None,
-                       int(seed))
+                       int(seed), seed_ptr)
     if x.device.type == "cuda":
         QUANTIZE_INT8_PRNG_LAUNCHES += 1
     return values.view(x.shape), scales.view(x.shape[:-1] + (1,))

@@ -49,11 +49,22 @@ ranks run before their buffers are freed, so a rank whose last call was
 given up fails too) raises naming the counters.
 :data:`TRANSPORT_LAUNCHES` counts the stretches launched, :func:`counts`
 the calls, copies and bytes, :func:`stream_waits` the waits enqueued.
+
+CUDA graphs. A chunk of train steps may be captured with its calls
+(:func:`capture`): the waits and stretches then carry the targets of the
+capture, counted from the host mirrors there. Before each replay every
+rank drains its stream, meets the others, writes its own buffers'
+``ready`` / ``consumed`` back to those values (:func:`rewind`) and meets
+them again (``RankGroup.replay_boundary``), so every replay's targets
+hold; :func:`replay` watches the replay as one call and counts its
+calls, stretches, copies and waits. :func:`emulate_replays` runs that
+sequence on numpy bytes.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -242,6 +253,117 @@ def rank_plan(sends: list, recvs: list, pair_bytes: int, sent: dict,
     return ops
 
 
+class _Emulation:
+    """The transport's schedule for n simulated ranks on numpy bytes: every
+    rank's slots, the halves' occupants, the counters and the host
+    mirrors (``sent``, ``received``) that :func:`rank_plan` reads."""
+
+    def __init__(self, n: int, chunk: int):
+        peers = max(n - 1, 1)
+        self.n, self.chunk = n, chunk
+        self.slots = [np.zeros((peers, 2, chunk), np.uint8) for _ in range(n)]
+        self.held = [[[None, None] for _ in range(peers)] for _ in range(n)]
+        self.ready = np.zeros((n, peers), np.int64)
+        self.consumed = np.zeros((n, peers), np.int64)
+        self.sent = [dict.fromkeys(range(n), 0) for _ in range(n)]
+        self.received = [dict.fromkeys(range(n), 0) for _ in range(n)]
+
+    def enqueue(self, calls: list) -> "tuple[list, list]":
+        """Every rank's ops of ``calls`` in its stream order (the host
+        mirrors advance as each call is planned), and per call the n
+        output buffers they fill."""
+        n, chunk = self.n, self.chunk
+        streams: list = [[] for _ in range(n)]
+        results = []
+        for kind, xs, kwargs in calls:
+            outs = []
+            for r in range(n):
+                x = np.ascontiguousarray(xs[r])
+                src = x.reshape(-1).view(np.uint8)
+                if (kind == "exchange" and kwargs["peers"][r] == r) or (
+                        kind == "ppermute" and kwargs["shift"] % n == 0):
+                    outs.append((src.copy(), x.dtype, x.shape))  # no call
+                    continue
+                rt = routes(kind, r, n, src.size,
+                            peer=kwargs.get("peers", [0] * n)[r],
+                            shift=kwargs.get("shift", 0))
+                out = np.zeros(rt["out_bytes"], np.uint8)
+                for a, b, nb in rt["local"]:
+                    out[b:b + nb] = src[a:a + nb]
+                ops = rank_plan([p for p, _ in rt["sends"]],
+                                [p for p, _ in rt["recvs"]],
+                                rt["pair_bytes"], self.sent[r],
+                                self.received[r], chunk)
+                streams[r] += [(op, src, out, rt) for op in ops]
+                for p, _ in rt["sends"]:
+                    self.sent[r][p] += chunk_count(rt["pair_bytes"], chunk)
+                for p, _ in rt["recvs"]:
+                    self.received[r][p] += chunk_count(rt["pair_bytes"],
+                                                       chunk)
+                shape = ((n * x.shape[0],) + x.shape[1:]
+                         if kind == "all_gather" else x.shape)
+                outs.append((out, x.dtype, shape))
+            results.append(outs)
+        return streams, results
+
+    def _runnable(self, r: int, op) -> bool:
+        if op[0] != "wait":
+            return True
+        _, which, p, v = op
+        table = self.ready if which == "ready" else self.consumed
+        return table[r, slot(p, r, self.n)] >= v
+
+    def _run(self, r: int, op, src, out, rt) -> None:
+        n, chunk = self.n, self.chunk
+        kind, c = op[0], op[1]
+        lo, hi = chunk_ranges(rt["pair_bytes"], chunk)[c]
+        if kind == "push":
+            offs = dict(rt["sends"])
+            for p, g in op[2]:
+                s, h = slot(r, p, n), g % 2
+                assert self.held[p][s][h] is None, (
+                    f"rank {r}'s chunk {g} overwrites rank {p}'s half {h}, "
+                    f"still holding chunk {self.held[p][s][h]}")
+                self.slots[p][s, h, :hi - lo] = src[offs[p] + lo:
+                                                    offs[p] + hi]
+                self.held[p][s][h] = g
+                self.ready[p, s] = max(self.ready[p, s], ready_target(g))
+        else:
+            offs = dict(rt["recvs"])
+            for p, g in op[2]:
+                s, h = slot(p, r, n), g % 2
+                assert self.held[r][s][h] == g, (
+                    f"rank {r} pulls chunk {g} of rank {p} from half {h}, "
+                    f"which holds {self.held[r][s][h]}")
+                out[offs[p] + lo:offs[p] + hi] = self.slots[r][s, h,
+                                                               :hi - lo]
+                self.held[r][s][h] = None
+                q = slot(r, p, n)
+                self.consumed[p, q] = max(self.consumed[p, q], g + 1)
+
+    def drain(self, streams: list, rng) -> None:
+        """Run every rank's ops: at each step one rank whose next op can
+        run, drawn from ``rng``, runs it (a rank may run calls ahead of
+        its peers). AssertionError on an overwritten half or a
+        deadlock."""
+        n = self.n
+        pc = [0] * n
+        while any(pc[r] < len(streams[r]) for r in range(n)):
+            able = [r for r in range(n) if pc[r] < len(streams[r])
+                    and self._runnable(r, streams[r][pc[r]][0])]
+            assert able, f"deadlock: every rank waits, at ops {pc}"
+            r = able[rng.integers(len(able))]
+            op, src, out, rt = streams[r][pc[r]]
+            if op[0] != "wait":
+                self._run(r, op, src, out, rt)
+            pc[r] += 1
+
+
+def _outputs(results: list) -> list:
+    return [[out.view(dtype).reshape(shape) for out, dtype, shape in outs]
+            for outs in results]
+
+
 def emulate(calls: list, n: int, chunk: int, seed: int = 0) -> list:
     """Every rank's outputs of a sequence of collectives through the
     transport's schedule, on numpy bytes. ``calls``: ``(kind, xs,
@@ -253,87 +375,57 @@ def emulate(calls: list, n: int, chunk: int, seed: int = 0) -> list:
     Raises AssertionError when a push would overwrite a half its receiver
     has not copied out, or when no rank can move (deadlock). Returns per
     call the n outputs (numpy arrays shaped as the group's)."""
-    slots = [np.zeros((max(n - 1, 1), 2, chunk), np.uint8) for _ in range(n)]
-    held = [[[None, None] for _ in range(max(n - 1, 1))] for _ in range(n)]
-    ready = np.zeros((n, max(n - 1, 1)), np.int64)
-    consumed = np.zeros((n, max(n - 1, 1)), np.int64)
-    sent = [dict.fromkeys(range(n), 0) for _ in range(n)]
-    received = [dict.fromkeys(range(n), 0) for _ in range(n)]
-    streams = [[] for _ in range(n)]
-    results = []
-    for kind, xs, kwargs in calls:
-        outs = []
-        for r in range(n):
-            x = np.ascontiguousarray(xs[r])
-            src = x.reshape(-1).view(np.uint8)
-            if (kind == "exchange" and kwargs["peers"][r] == r) or (
-                    kind == "ppermute" and kwargs["shift"] % n == 0):
-                outs.append((src.copy(), x.dtype, x.shape))  # no call
-                continue
-            rt = routes(kind, r, n, src.size,
-                        peer=kwargs.get("peers", [0] * n)[r],
-                        shift=kwargs.get("shift", 0))
-            out = np.zeros(rt["out_bytes"], np.uint8)
-            for a, b, nb in rt["local"]:
-                out[b:b + nb] = src[a:a + nb]
-            ops = rank_plan([p for p, _ in rt["sends"]],
-                            [p for p, _ in rt["recvs"]], rt["pair_bytes"],
-                            sent[r], received[r], chunk)
-            streams[r] += [(op, src, out, rt) for op in ops]
-            for p, _ in rt["sends"]:
-                sent[r][p] += chunk_count(rt["pair_bytes"], chunk)
-            for p, _ in rt["recvs"]:
-                received[r][p] += chunk_count(rt["pair_bytes"], chunk)
-            shape = ((n * x.shape[0],) + x.shape[1:] if kind == "all_gather"
-                     else x.shape)
-            outs.append((out, x.dtype, shape))
-        results.append(outs)
+    wire = _Emulation(n, chunk)
+    streams, results = wire.enqueue(calls)
+    wire.drain(streams, np.random.default_rng(seed))
+    return _outputs(results)
 
-    def runnable(r, op):
-        if op[0] != "wait":
-            return True
-        _, which, p, v = op
-        table = ready if which == "ready" else consumed
-        return table[r, slot(p, r, n)] >= v
 
-    def run(r, op, src, out, rt):
-        kind, c = op[0], op[1]
-        lo, hi = chunk_ranges(rt["pair_bytes"], chunk)[c]
-        if kind == "push":
-            offs = dict(rt["sends"])
-            for p, g in op[2]:
-                s, h = slot(r, p, n), g % 2
-                assert held[p][s][h] is None, (
-                    f"rank {r}'s chunk {g} overwrites rank {p}'s half {h}, "
-                    f"still holding chunk {held[p][s][h]}")
-                slots[p][s, h, :hi - lo] = src[offs[p] + lo:offs[p] + hi]
-                held[p][s][h] = g
-                ready[p, s] = max(ready[p, s], ready_target(g))
-        else:
-            offs = dict(rt["recvs"])
-            for p, g in op[2]:
-                s, h = slot(p, r, n), g % 2
-                assert held[r][s][h] == g, (
-                    f"rank {r} pulls chunk {g} of rank {p} from half {h}, "
-                    f"which holds {held[r][s][h]}")
-                out[offs[p] + lo:offs[p] + hi] = slots[r][s, h, :hi - lo]
-                held[r][s][h] = None
-                q = slot(r, p, n)
-                consumed[p, q] = max(consumed[p, q], g + 1)
-
+def emulate_replays(replays: list, n: int, chunk: int, seed: int = 0,
+                    warmup: tuple = (), rewind: bool = True
+                    ) -> "tuple[list, list]":
+    """A captured chunk of calls replayed ``len(replays)`` times, as
+    :func:`capture` and ``RankGroup.replay_boundary`` run it, on numpy
+    bytes. ``warmup`` (calls as :func:`emulate` takes them) runs first,
+    eagerly; then the chunk's plan is made once from the host mirrors
+    there (the capture: every replay runs those ops with those targets)
+    and ``replays[k]`` gives replay k's inputs, the same calls and sizes
+    each time (a graph's buffers are fixed; only their contents change).
+    Each replay runs until every rank has drained (the stream sync and
+    the barrier), then, with ``rewind``, every rank's ``ready`` and
+    ``consumed`` go back to their values at the capture. Without the
+    rewind the second replay's waits are already met and it fails:
+    AssertionError (a half overwritten or pulled before its push) or a
+    wrong output. Returns ``(warmup outputs, per replay the outputs)``."""
+    wire = _Emulation(n, chunk)
     rng = np.random.default_rng(seed)
-    pc = [0] * n
-    while any(pc[r] < len(streams[r]) for r in range(n)):
-        able = [r for r in range(n) if pc[r] < len(streams[r])
-                and runnable(r, streams[r][pc[r]][0])]
-        assert able, f"deadlock: every rank waits, at ops {pc}"
-        r = able[rng.integers(len(able))]  # any rank may run ahead
-        op, src, out, rt = streams[r][pc[r]]
-        if op[0] != "wait":
-            run(r, op, src, out, rt)
-        pc[r] += 1
-    return [[out.view(dtype).reshape(shape) for out, dtype, shape in outs]
-            for outs in results]
+    streams, results = wire.enqueue(list(warmup))
+    wire.drain(streams, rng)
+    warm = _outputs(results)
+    sent = [dict(d) for d in wire.sent]
+    received = [dict(d) for d in wire.received]
+    ready, consumed = wire.ready.copy(), wire.consumed.copy()
+    shapes = None
+    out = []
+    for k, calls in enumerate(replays):
+        got = [(kind, [np.asarray(x).nbytes for x in xs],
+                sorted(kwargs.items(), key=str))
+               for kind, xs, kwargs in calls]
+        if shapes is None:
+            shapes = got
+        elif got != shapes:
+            raise ValueError(f"replay {k} makes other calls than the "
+                             f"captured chunk: {got} != {shapes}")
+        # every replay runs the captured plan: the mirrors at the capture
+        wire.sent = [dict(d) for d in sent]
+        wire.received = [dict(d) for d in received]
+        streams, results = wire.enqueue(calls)
+        if k and rewind:
+            wire.ready[:] = ready
+            wire.consumed[:] = consumed
+        wire.drain(streams, rng)
+        out.append(_outputs(results))
+    return warm, out
 
 
 # -- the library -------------------------------------------------------------
@@ -359,13 +451,18 @@ def _lib() -> dict:
                                                ctypes.c_int, ptr, ptr]),
                            ("transport_wait", [ptr, ptr, u64]),
                            ("transport_read", [ptr, table]),
-                           ("transport_abandon", [ptr, u64])):
+                           ("transport_abandon", [ptr, u64]),
+                           ("transport_rewind", [ptr, table, table,
+                                                 ctypes.c_int])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
             _LIB[name.removeprefix("transport_")] = fn
         lib.transport_stream_waits.restype = u64
-        _LIB.update(error=err, waits=lib.transport_stream_waits)
+        lib.transport_add_waits.argtypes = [ctypes.c_int64]
+        lib.transport_add_waits.restype = None
+        _LIB.update(error=err, waits=lib.transport_stream_waits,
+                    add_waits=lib.transport_add_waits)
     return _LIB
 
 
@@ -493,13 +590,18 @@ def _raise(rec: _Line) -> None:
     raise RuntimeError(rec.error)
 
 
-_WATCH: dict = {"lock": threading.Lock(), "thread": None, "stop": None}
+# "paused" while a CUDA graph captures calls: the thread touches no CUDA
+# then (another thread's event query would break the capture)
+_WATCH: dict = {"lock": threading.Lock(), "thread": None, "stop": None,
+                "paused": False}
 
 
 def _watch(stop: threading.Event, device: torch.device) -> None:
     torch.cuda.set_device(device)
     while not stop.wait(WATCH_INTERVAL_S):
         with _WATCH["lock"]:
+            if _WATCH["paused"]:
+                continue
             for rec in _LINES.values():
                 _stalled(rec, TIMEOUT_S)
 
@@ -570,6 +672,11 @@ def _line(group, axis: Optional[str]) -> _Line:
     the lock; a gloo collective over the line)."""
     from akka_allreduce_tpu_torch.parallel.group import transport_sizes
     chunk = chunk_bytes(transport_sizes())
+    if _CAPTURE["active"] is not None and group._ranks(axis) not in _LINES:
+        raise RuntimeError(
+            f"a CUDA graph capture reached the ipc transport buffer of "
+            f"ranks {group._ranks(axis)}, which no eager call made: run "
+            f"the captured work once eagerly first")
     bufs = group.transport_buffers(axis, chunk)
     rec = _LINES.get(bufs.line)
     if rec is None:
@@ -613,10 +720,15 @@ def _enqueue(rec: _Line, kind: str, x: torch.Tensor, out_shape: tuple,
                     rt["pair_bytes"], rec.sent, rec.received, chunk)
     send_off, recv_off = dict(rt["sends"]), dict(rt["recvs"])
     chunks = chunk_ranges(rt["pair_bytes"], chunk)
-    if bufs.done is not None:  # the buffer's calls stay in order
-        stream.wait_event(bufs.done)
-    start = torch.cuda.Event()
-    start.record(stream)
+    captured = _CAPTURE["active"]
+    if torch.cuda.is_current_stream_capturing() and captured is None:
+        raise RuntimeError("a CUDA graph captures ipc transport calls only "
+                           "inside transport.capture()")
+    if captured is None:
+        if bufs.done is not None:  # the buffer's calls stay in order
+            stream.wait_event(bufs.done)
+        start = torch.cuda.Event()
+        start.record(stream)
     for a, b, nb in rt["local"]:
         dst[b:b + nb].copy_(src[a:a + nb])
         _COUNTS["copies"] += 1
@@ -655,16 +767,155 @@ def _enqueue(rec: _Line, kind: str, x: torch.Tensor, out_shape: tuple,
         rec.sent[p] += len(chunks)
     for p, _ in rt["recvs"]:
         rec.received[p] += len(chunks)
-    end = torch.cuda.Event()
-    end.record(stream)
-    bufs.done = end
-    bufs.calls += 1
-    rec.pending.append(_Pending(
-        start, end, bufs.calls, kind,
-        [(which, p, v) for (which, p), v in sorted(last_waits.items())]))
+    waits = [(which, p, v) for (which, p), v in sorted(last_waits.items())]
+    if captured is not None:
+        # the graph's calls are watched as one, around each replay
+        captured.calls[bufs.line] = captured.calls.get(bufs.line, 0) + 1
+        if waits:
+            captured.waits[bufs.line] = waits
+    else:
+        end = torch.cuda.Event()
+        end.record(stream)
+        bufs.done = end
+        bufs.calls += 1
+        rec.pending.append(_Pending(start, end, bufs.calls, kind, waits))
     _COUNTS["calls"] += 1
     _COUNTS["bytes"] += rt["pair_bytes"] * len(rt["recvs"])
     return out
+
+
+# -- CUDA graph capture ------------------------------------------------------
+
+@dataclasses.dataclass
+class Captured:
+    """The transport calls that one CUDA graph captured, on this rank:
+    per buffer (keyed by its line's global ranks) the host mirrors at the
+    capture's start (``base``, what a replay's targets count from) and
+    end (``end``), its calls and the last wait of each counter it waits
+    on, and what one replay adds to :func:`counts` and
+    :func:`stream_waits` (``per_replay``)."""
+
+    base: dict
+    end: dict = dataclasses.field(default_factory=dict)
+    calls: dict = dataclasses.field(default_factory=dict)
+    waits: dict = dataclasses.field(default_factory=dict)
+    per_replay: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def stream_waits(self) -> int:
+        return self.per_replay.get("stream_waits", 0)
+
+
+_CAPTURE: dict = {"active": None}
+
+
+def _totals() -> dict:
+    return {**counts(), "stream_waits": stream_waits()}
+
+
+def _add_counts(delta: dict, sign: int) -> None:
+    global TRANSPORT_LAUNCHES
+    TRANSPORT_LAUNCHES += sign * delta["transport_launches"]
+    for k in _COUNTS:
+        _COUNTS[k] += sign * delta[f"transport_{k}"]
+    if delta["stream_waits"]:
+        _lib()["add_waits"](sign * delta["stream_waits"])
+
+
+@contextlib.contextmanager
+def capture():
+    """Around the capture of a CUDA graph whose work makes transport calls
+    (``torch.cuda.graph``): yields the :class:`Captured` record. The
+    buffers must exist already (an eager call made them). Inside, a call
+    records no watch event and waits on no event recorded outside the
+    capture, and the watchdog thread touches no CUDA. A capture enqueues
+    nothing, so at its end the host mirrors go back to their values at
+    its start and the counts lose what the capture added; each
+    :func:`replay` adds them back. Between replays every rank runs
+    ``RankGroup.replay_boundary`` (the stream drained, a barrier,
+    :func:`rewind`, a barrier): the captured targets then hold on every
+    replay."""
+    if _CAPTURE["active"] is not None:
+        raise RuntimeError("one transport capture at a time")
+    with _WATCH["lock"]:
+        _WATCH["paused"] = True
+        for rec in _LINES.values():
+            if rec.error:
+                _raise(rec)
+        rec0 = Captured(base={line: (dict(rec.sent), dict(rec.received))
+                              for line, rec in _LINES.items()})
+    before = _totals()
+    _CAPTURE["active"] = rec0
+    try:
+        yield rec0
+    finally:
+        _CAPTURE["active"] = None
+        after = _totals()
+        rec0.per_replay = {k: after[k] - before[k] for k in after}
+        _add_counts(rec0.per_replay, -1)
+        with _WATCH["lock"]:
+            for line, (sent, received) in rec0.base.items():
+                rec = _LINES[line]
+                rec0.end[line] = (dict(rec.sent), dict(rec.received))
+                rec.sent, rec.received = dict(sent), dict(received)
+            _WATCH["paused"] = False
+
+
+def rewind(captured: Captured) -> None:
+    """Write this rank's ``ready`` and ``consumed`` words of every buffer
+    the chunk used back to their values at its capture (the chunks each
+    peer had pushed here and copied out of here). Only between replays:
+    every rank's previous replay has ended (``RankGroup.replay_boundary``
+    holds the ranks around it)."""
+    fns = _lib()
+    with _WATCH["lock"]:
+        for line in captured.calls:
+            rec = _LINES[line]
+            if rec.error:
+                _raise(rec)
+            sent, received = captured.base[line]
+            n, me = len(line), line.index(rec.bufs.rank)
+            ready, consumed = [0] * (n - 1), [0] * (n - 1)
+            for p in range(n):
+                if p != me:
+                    ready[slot(p, me, n)] = received[p]
+                    consumed[slot(p, me, n)] = sent[p]
+            _check_rc(fns["rewind"](rec.bufs.local + counters_offset(
+                n, rec.chunk), _table(ready), _table(consumed), n - 1),
+                "rewinding the transport's counters")
+
+
+def replay(captured: Captured, launch) -> None:
+    """``launch()`` (a captured graph's replay) on the current stream,
+    watched as one call on each buffer the chunk used: events recorded
+    around it outside the capture; a replay that started and did not end
+    within :data:`TIMEOUT_S` abandons the buffer, and the next call
+    raises. The host mirrors become the capture's end values and the
+    counts gain one replay's worth."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device)
+    _start_watchdog(device)
+    with _WATCH["lock"]:
+        for line in captured.calls:
+            if _LINES[line].error:
+                _raise(_LINES[line])
+    start = torch.cuda.Event()
+    start.record(stream)
+    launch()
+    end = torch.cuda.Event()
+    end.record(stream)
+    with _WATCH["lock"]:
+        for line, k in captured.calls.items():
+            rec = _LINES[line]
+            sent, received = captured.end[line]
+            rec.sent, rec.received = dict(sent), dict(received)
+            rec.bufs.done = end
+            rec.bufs.calls += k
+            rec.pending.append(_Pending(
+                start, end, rec.bufs.calls,
+                f"replay of a captured chunk ({k} calls)",
+                captured.waits.get(line, [])))
+    _add_counts(captured.per_replay, 1)
 
 
 def all_to_all(group, x: torch.Tensor) -> torch.Tensor:

@@ -196,7 +196,14 @@ class RankGroup:
 
     def _stage(self, x: torch.Tensor) -> torch.Tensor:
         """The tensor the transport takes: a contiguous host copy for
-        gloo, the tensor itself (made contiguous) for nccl."""
+        gloo, the tensor itself (made contiguous) for nccl. A CUDA graph
+        capture raises: the host-staged wire cannot be captured."""
+        if (x.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"a CUDA graph cannot capture the {self.backend} wire (it "
+                f"stages payloads through the host): capture multi-rank "
+                f"steps with --dist-backend ipc")
         x = x.contiguous()
         if self.backend == "gloo" and x.device.type != "cpu":
             return x.cpu()
@@ -278,6 +285,22 @@ class RankGroup:
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier(group=self._pg())
+
+    def replay_boundary(self, captured) -> float:
+        """Before a replay of a CUDA graph that captured ``ipc`` transport
+        calls (``transport.capture``'s record): drain this rank's device,
+        meet every rank, write this rank's counters of every buffer the
+        chunk used back to their values at the capture
+        (``transport.rewind``: the world's buffer and each axis line's),
+        and meet again; the replay's captured targets then hold. A
+        collective over the world. Returns its milliseconds."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.barrier()
+        _transport().rewind(captured)
+        self.barrier()
+        return (time.perf_counter() - t0) * 1e3
 
     # -- peer memory -------------------------------------------------------
 

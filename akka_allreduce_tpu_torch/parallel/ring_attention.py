@@ -18,11 +18,12 @@ rank's ``parallel/group.py RankGroup``):
   scores them with the flash kernels.
 
 Every exchange goes through :func:`rotate`, which adds its host time to
-:data:`EXCHANGE_SECONDS`. The exchanges are differentiable the JAX way
-(:class:`PPermute`: the backward sends the gradient back the way the
-block came), and every rank's graph holds the same exchanges in the same
-order: a rank that dropped one would leave its peers waiting on the
-ring.
+:data:`EXCHANGE_SECONDS` (eager exchanges only: one that a CUDA graph
+captures is neither synchronized nor timed). The exchanges are
+differentiable the JAX way (:class:`PPermute`: the backward sends the
+gradient back the way the block came), and every rank's graph holds the
+same exchanges in the same order: a rank that dropped one would leave
+its peers waiting on the ring.
 """
 
 from __future__ import annotations
@@ -33,19 +34,23 @@ import torch
 
 NEG_INF = -1e30
 
-# host seconds spent in the attention's exchanges since import (or since a
-# caller reset it to 0); on the card each span starts and ends with the
-# stream drained, so it is the exchange's own time (on the ipc transport
-# that includes the stream's wait for the peer's push)
+# host seconds spent in the attention's eager exchanges since import (or
+# since a caller reset it to 0); on the card each span starts and ends
+# with the stream drained, so it is the exchange's own time (on the ipc
+# transport that includes the stream's wait for the peer's push); an
+# exchange captured into a CUDA graph adds nothing
 EXCHANGE_SECONDS = 0.0
 
 
 def rotate(x: torch.Tensor, group, shift: int = 1,
            axis: str = "sp") -> torch.Tensor:
     """``group.ppermute(x, axis, shift)``, timed into
-    :data:`EXCHANGE_SECONDS`."""
+    :data:`EXCHANGE_SECONDS`; while a CUDA graph captures it, neither
+    synchronized nor timed."""
     global EXCHANGE_SECONDS
     cuda = x.device.type == "cuda"
+    if cuda and torch.cuda.is_current_stream_capturing():
+        return group.ppermute(x, axis, shift)
     if cuda:
         torch.cuda.current_stream(x.device).synchronize()
     t0 = time.perf_counter()

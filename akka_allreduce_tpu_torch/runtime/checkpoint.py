@@ -20,7 +20,11 @@ renamed. :meth:`CheckpointManager.restore_sync` gives a rank its residual
 back bitwise.
 
 The JAX package's orbax checkpoints are not read here (nor these by it):
-the formats differ. The JSON sidecars (``save_state_json`` /
+the formats differ. ``scripts/orbax_to_torch.py``, run where JAX is
+installed, converts a JAX checkpoint step into this format
+(``convert.py train_state_from_jax``), which :meth:`CheckpointManager.
+restore` and ``models/train.py load_optimizer_state`` then read as they
+read the port's own. The JSON sidecars (``save_state_json`` /
 ``load_state_json``) are the JAX package's: one atomic file per name.
 """
 

@@ -5,8 +5,10 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero). The
 multi-rank runs of one mesh within a phase share one spawn of the rank
-processes (``spawn_batch``: phases 9, 13, 16, 17 and 21), each run's
-launches and peak its own:
+processes (``spawn_batch``: phases 9, 10, 12-14, 16-18, 21 and 23),
+each run's launches and peak its own; run whole, the script keeps one
+pool of rank processes a world size (``RankPool``, started beside the
+build) and runs every such batch there as a fresh spawn would:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    convolutions, so every f32 product runs in full f32.
@@ -85,8 +87,11 @@ launches and peak its own:
    masked, target 8), zero contributors and a ragged width; the six int8
    kernels bitwise (values and scales) on the flagship's bucket matrix
    (ceil(params / 65,536) rows x 65,536 f32, per-row scales and
-   512-column blocks; the in-kernel Philox against the plain Philox) and
-   on (5, 1000), (3, 1001) and blocks 128 and 512. At the main shapes
+   512-column blocks; the in-kernel Philox against the plain Philox, and
+   its seed read from device memory, as a captured chunk's table holds
+   it, against the by-value seed; that launch timed at the main shape,
+   ``pointer_seed_ms``) and on (5, 1000), (3, 1001) and blocks 128 and
+   512. At the main shapes
    each kernel, its plain version and the one PyTorch call that computes
    the same function (where there is one) timed as above, and each
    kernel's byte bound computed. A quantize kernel is timed as its launch
@@ -114,9 +119,10 @@ launches and peak its own:
    read and write a received byte, local blocks read and written once)
    and the copies, stretches and waits it enqueued; and the fault
    control: rank 1 skips an all_gather, and rank 0's ``transport.wait``
-   must raise within ``ring.TIMEOUT_S`` (30 s) plus the watchdog's poll,
-   naming the counter it waits on. The cases and the rank side are
-   ``tests/torch_transport_ranks.py``'s, shared with the card tests.
+   must raise within its timeout, ``TRANSPORT_FAULT_TIMEOUT_S`` (5 s),
+   plus the watchdog's poll, naming the counter it waits on. The cases
+   and the rank side are ``tests/torch_transport_ranks.py``'s, shared
+   with the card tests.
 9. train, dp=2 — ``train --dp 2 --dist-backend ipc`` at the flagship
    configuration of phase 6, 3 steps each on the f32 (``none``), int8 and
    ef8 wires: two rank processes share the card, their wire device to
@@ -327,7 +333,7 @@ launches and peak its own:
    --native``), every sink exact; (c) the C++ master (``master
    --native``) with 2 card workers; (b), (c) and (e) at (a)'s shape for
    25 rounds (``CLUSTER_ROUNDS``); (d) 2 card workers on phase 19 (c)'s
-   shape (541,130,752 floats, chunk 65,536, max lag 1, 3 rounds,
+   shape (541,130,752 floats, chunk 65,536, max lag 1, 2 rounds,
    ``--unreachable-after 120``), the frames and bytes a worker sends a
    round from the shapes; (e) (a)'s cluster at thresholds 0.75 with the
    worker that joins as rank 1 SIGKILLed after its round-10 checkpoint:
@@ -411,18 +417,51 @@ launches and peak its own:
    reports ``decode_tokens_per_s`` and ``tpot_ms`` p50/p99 beside phase
    4's greedy f32 kernel run.
 
+23. A5 across ranks — ``train --steps-per-dispatch`` at dp x sp > 1
+   on the ipc transport (ROADMAP A5 part 2), each chunk one CUDA graph
+   replay on every rank: the graph holds the gradient sync's transport
+   calls (and at sp=2 the ring kernels and ``ppermute``); before each
+   replay every rank drains, meets the others, rewinds its buffers'
+   counters to the capture's values and meets them again
+   (``RankGroup.replay_boundary``), and the chunk's rounding seeds are
+   written for its steps. (a) phase 9's flagship at dp=2, ``--lr-schedule
+   cosine``, 6 steps in chunks of ``A5R_SPD`` (two replays) on the f32,
+   ef8 and int8 wires, each against the same command with its chunks run
+   eagerly on the same kind of state (``eager_chunks``: phase 9's runs
+   are 3 steps at a constant rate on the host count, so none matches):
+   losses, both ranks' parameter checksums and the ef8 residuals
+   bitwise; the sync kernels' launches at the per-sync counts x (steps
+   + the warm-up step); what a replay enqueues on the transport (calls,
+   stretches, copies, bytes, stream waits) equal to
+   ``replay_transport_counts`` of the step's calls; (b) phase 13's gqa4
+   model at ``A5R_SP_LAYERS`` layers, sp=2, bf16, two replays of
+   ``A5R_SP_SPD`` steps, bitwise its eager run, each rank's ring launches
+   a replay n_layers x (sp rank + 1) x steps; (c) the flagship's width at
+   ``A5R_RESUME_LAYERS`` layers on ef8, saved at the chunk boundary
+   after step 2, its later checkpoint dropped and the run resumed from
+   it: the last 3 losses, the parameters and the residuals bitwise the
+   uninterrupted run's; (d) the fault control: rank ``A5R_CONTROL_RANK``'s
+   chunk seeds a step off on the ef8 run must land outside the bitwise
+   check (rank 0's second replay there in a torch.profiler window: wall
+   and device ms, idle share). Wall ms a step graphed and eager, each
+   replay's boundary ms, capture seconds. The phase must end within
+   ``A5R_SECONDS`` (120 s).
+
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
-rank 0's in phases 9, 13, 16, 17 and 21; the masked reduce's with phases
+rank 0's in phases 9, 13, 16, 17, 21 and 23; the masked reduce's with phases
 19's and 20's; the bf16 flash kernels' and the sync kernels' with phase
 21's, ``a5_launches`` apart on the sync rows; the paged kernel's with
-phase 22's, ``a6_launches`` apart), and last ``{"ok": true, "device":
-{...}}``.
+phase 22's, ``a6_launches`` apart; the flash, ring, sync and transport
+rows with phase 23's, ``a5r_launches`` apart on the sync rows, row 4's
+``pointer_seed_ms`` its launch reading the seed from device memory), and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import math
@@ -547,13 +586,16 @@ TWIN_STEPS = 2
 # phase 18 (after phase 8): the transport against gloo at each (world,
 # sp) spawn; the first also moves the 2.16 GB payload, times the
 # collectives (median of TRANSPORT_REPS between barriers) and runs the
-# fault control (rank 1 skips a call: rank 0 raises within ring.TIMEOUT_S
-# plus the watchdog's poll and the abandon, TRANSPORT_FAULT_SLACK_S);
+# fault control (rank 1 skips a call: rank 0 raises within
+# TRANSPORT_FAULT_TIMEOUT_S, its wait's timeout, plus the watchdog's poll
+# and the abandon, TRANSPORT_FAULT_SLACK_S; the timeout was the
+# transport's own 30 s, ring.TIMEOUT_S, until phase 23 came);
 # phase 9's traced syncs hold no host copy above TRANSPORT_HOST_COPY_MAX
 TRANSPORT_SPAWNS = ((2, 1), (3, 1), (4, 2))
 TRANSPORT_REPS = 5
 TRANSPORT_HOST_COPY_MAX = 1 << 20
 TRANSPORT_FAULT_SLACK_S = 2.0
+TRANSPORT_FAULT_TIMEOUT_S = 5.0
 TRANSPORT_SOURCE = "akka_allreduce_tpu_torch/ops/kernels/csrc/transport.cu"
 # no pl.pallas_call: the wire under the JAX sync's lax.psum_scatter /
 # all_gather (and all_to_all, ppermute), which rides ICI on the TPU
@@ -732,7 +774,7 @@ CLUSTER_PARTS = {"a": ("python", ["card"] * 4),
 CLUSTER_ROUNDS = {"a": 50, "b": 25, "c": 25, "e": 25}
 CLUSTER_CHECKPOINT = 10
 CLUSTER_TIMEOUT_S = 60
-CLUSTER_SCALE_ROUNDS = 3
+CLUSTER_SCALE_ROUNDS = 2  # 3 until phase 23 came (13 s a round)
 CLUSTER_SCALE_TIMEOUT_S = 150
 # a card worker can spend seconds inside one poll while it drains the
 # scale part's 256 KB frames: (d)'s liveness window is wide
@@ -786,6 +828,24 @@ A6_INT8_BOUND = 0.1  # tests/test_generate.py::TestQuantizedKV's bound
 # (d): the two sampled speculative runs at one wave of the 8 lanes (16
 # requests took 14-15 s a run on an H100 80GB HBM3 at 700 W)
 A6_SAMPLED_SPEC_REQUESTS = 8
+# phase 23: train --steps-per-dispatch across ranks (ROADMAP A5 part 2):
+# phase 9's flagship at dp=2 on ipc, chunks of A5R_SPD steps under the
+# cosine schedule, per wire (wire, steps): two replays each (int8's
+# quantize reads its seeds from the chunk's table: row 4)
+A5R_SECONDS = 120
+A5R_SPD = 3
+A5R_WIRES = (("none", 6), ("ef8", 6), ("int8", 6))
+A5R_SCHEDULE = ["--lr-schedule", "cosine"]
+# (b): the gqa4 model of phase 13 at sp=2 in bf16, cut to this depth,
+# two replays of A5R_SP_SPD steps (the first holds the capture: the
+# second gives the wall ms a step)
+A5R_SP_LAYERS = 2
+A5R_SP_SPD = 2
+# (c): the flagship's width at this depth, ef8, resumed at the chunk
+# boundary after step A5R_SPD - 1 (its saves are ~2.8 GB, not ~6.5)
+A5R_RESUME_LAYERS = 2
+# (d): the rank whose chunk seeds are those of the next step
+A5R_CONTROL_RANK = 1
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -1613,6 +1673,19 @@ def phase_sync_kernels(torch, n_params: int) -> dict:
                    else c, "max_abs_err": err, "bitwise": bitwise,
                    "scales_bitwise": scales_ok, "launch_alone_bitwise":
                    alone_ok, "ok": bitwise and scales_ok and alone_ok}
+            if kernel == "quantize_int8_prng":
+                # the seed read from device memory (a captured chunk's
+                # table): bitwise the by-value seed's words
+                seed_t = qz.seed_tensor(seed, DEVICE)
+                by_ptr = qz.quantize_int8_prng(x, seed_t)[0]
+                torch.cuda.synchronize()
+                row["pointer_seed_bitwise"] = torch_equal(by_ptr, v)
+                row["ok"] = row["ok"] and row["pointer_seed_bitwise"]
+                if name == "flagship":
+                    row["pointer_seed_ms"] = time_ms(
+                        torch, lambda: qz._quantize(x, rs, c, "philox",
+                                                    None, 0, seed_t), flush)
+                del by_ptr
             del alone
             if name == "flagship" and kernel not in timed:
                 nb = s.shape[1]
@@ -1742,13 +1815,14 @@ def steady(xs):
 
 def run_twin(torch, argv: list, steps: int) -> "tuple[dict, float]":
     """The gloo twin of an ipc run: ``argv`` on the host wire for
-    ``steps`` steps. Returns its report and seconds."""
+    ``steps`` steps (:func:`spawn_batch`). Returns its report and
+    seconds."""
     from akka_allreduce_tpu_torch import cli
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    report = cli.run_train(cli.build_parser().parse_args(
-        argv + ["--dist-backend", TWIN, "--steps", str(steps)]))
-    return report, time.perf_counter() - t0
+    args = cli.build_parser().parse_args(
+        argv + ["--dist-backend", TWIN, "--steps", str(steps)])
+    (report, seconds), = spawn_batch(torch, [("train", args, None)],
+                                     sp=args.sp)
+    return report, seconds
 
 
 def twin_fields(report: dict, twin: dict, seconds: float) -> dict:
@@ -1908,7 +1982,9 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
                 backend: "str | None" = None, sp: int = 1) -> list:
     """Every job of ``jobs`` (:func:`batch_rank`) in one spawn of the
     ranks, so the ranks' start (processes, CUDA contexts, the process
-    group and the ipc buffers: ~20 s a spawn on the card) is paid once.
+    group and the ipc buffers: ~20 s a spawn on the card) is paid once;
+    with ``POOLED`` (set by :func:`main`) in the :class:`RankPool` of
+    ``world`` ranks, whose start is paid once for the whole script.
     Train jobs must share their world, mesh and backend, which they
     give (their counters are per run: each report's launches are the
     run's own). Returns per job a train job's report as ``run_train``
@@ -1926,11 +2002,17 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
     if meshes:
         world, sp, backend = meshes.pop()
     if DEVICE == "cuda":
+        import gc
+
         from akka_allreduce_tpu_torch.ops.kernels import build
         build.build_all()
+        gc.collect()  # this process's dropped tensors, before the ranks'
         torch.cuda.empty_cache()
-    per_rank = spawn_ranks(batch_rank, world, backend or DIST, DEVICE, jobs,
-                           sp=sp)
+    if POOLED:
+        per_rank = rank_pool(world).run(backend or DIST, sp, jobs)
+    else:
+        per_rank = spawn_ranks(batch_rank, world, backend or DIST, DEVICE,
+                               jobs, sp=sp)
     out = []
     for k, (kind, _, _) in enumerate(jobs):
         results = [r[k][0] for r in per_rank]
@@ -1940,6 +2022,190 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
             results = report
         out.append((results, per_rank[0][k][1]))
     return out
+
+
+# spawn_batch runs its batches in one RankPool a world size (main() sets
+# it; each rank process then starts once, not once a phase: on the card
+# a start is ~10 s of importing torch and ~2 s of CUDA context)
+POOLED = False
+_POOLS: dict = {}  # world size -> RankPool
+POOL_TIMEOUT_S = 900.0  # a batch's limit, as spawn_ranks' default
+
+
+def pool_rank(rank: int, world: int, device: str, store: str, inbox,
+              results) -> None:
+    """A rank process of a :class:`RankPool`: a spawned rank's set-up
+    (``parallel/group.py``: its device, intra-op threads and the world's
+    gloo process group) once, then each batch ``(n, backend, sp, jobs)``
+    from ``inbox`` as a fresh spawn runs it: the batch's ``RankGroup``
+    and axis subgroups, :func:`batch_rank`, the stream drained, the peer
+    buffers and subgroups freed, then the allocator's cache emptied.
+    Puts ``(rank, n, ok, payload)`` on ``results``; ends at ``None`` or
+    after a batch that raised."""
+    import gc
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from akka_allreduce_tpu_torch.parallel import group as G
+    try:
+        dev = G.rank_device(device, rank, "gloo")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.set_num_threads(1 if dev.type == "cpu"
+                              else max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+    except Exception:  # noqa: BLE001 - the rank's boundary: reported
+        results.put((rank, 0, False, traceback.format_exc()))
+        return
+    try:
+        while True:
+            msg = inbox.get()
+            if msg is None:
+                return
+            n, backend, sp, jobs = msg
+            try:
+                group = G.RankGroup(rank, world, backend, dev, sp)
+                try:
+                    G.make_axis_subgroups(group)
+                    out = batch_rank(group, jobs)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    G.free_peer_buffers(group)
+                finally:
+                    G.free_axis_subgroups()
+                payload = pickle.dumps(G._to_cpu(out))
+                del out
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                ok = True
+            except Exception:  # noqa: BLE001 - reported, the pool ends
+                payload, ok = traceback.format_exc(), False
+            # the batch's lines reach the parent's output before it goes on
+            sys.stdout.flush()
+            sys.stderr.flush()
+            results.put((rank, n, ok, payload))
+            if not ok:
+                return
+    finally:
+        dist.destroy_process_group()
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+
+class RankPool:
+    """``world`` rank processes (:func:`pool_rank`) on ``DEVICE`` that
+    run :func:`spawn_batch`'s batches one after another, each as a fresh
+    spawn of the ranks would (its own backend, mesh, subgroups and peer
+    buffers; every run's counters and peak its own), so a phase pays no
+    rank start. A batch that raises on a rank, a rank that dies and a
+    batch over ``POOL_TIMEOUT_S`` end the pool and raise here."""
+
+    def __init__(self, world: int):
+        import torch
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.world, self.batches = world, 0
+        self.tmp = tempfile.mkdtemp(prefix="pool-")
+        self.inboxes = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(
+            target=pool_rank, daemon=True,
+            args=(r, world, DEVICE, os.path.join(self.tmp, "store"),
+                  self.inboxes[r], self.results)) for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, backend: str, sp: int, jobs: list) -> list:
+        """One batch on every rank: each rank's :func:`batch_rank`
+        results, in rank order."""
+        import pickle
+        import queue
+
+        from akka_allreduce_tpu_torch.parallel.group import check_backend
+        check_backend(backend, DEVICE, self.world)
+        self.batches += 1
+        for inbox in self.inboxes:
+            inbox.put((self.batches, backend, sp, jobs))
+        got: dict = {}
+        deadline = time.monotonic() + POOL_TIMEOUT_S
+        try:
+            while len(got) < self.world:
+                try:
+                    rank, n, ok, payload = self.results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self.procs)
+                            if r not in got and not p.is_alive()]
+                    if dead or time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"pool of {self.world} ranks: rank(s) "
+                            f"{dead or 'all'} "
+                            + ("died" if dead else f"did not finish batch "
+                               f"{self.batches} within {POOL_TIMEOUT_S:.0f}"
+                               f" s"))
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {self.world} "
+                                       f"failed:\n{payload}")
+                got[rank] = pickle.loads(payload)
+        except BaseException:
+            self.close()
+            raise
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        """End the rank processes (each leaves its loop; one that does
+        not within 30 s is terminated) and drop the pool."""
+        import shutil
+        for inbox in self.inboxes:
+            inbox.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        if _POOLS.get(self.world) is self:
+            del _POOLS[self.world]
+
+
+@contextlib.contextmanager
+def pooled_spawns():
+    """Inside, the port's own ``parallel/group.py spawn_ranks`` (as
+    ``bench.py``'s rows call it) runs its function as a call job on the
+    :class:`RankPool` of its world, when ``POOLED`` and on ``DEVICE``;
+    otherwise it spawns as before."""
+    from akka_allreduce_tpu_torch.parallel import group as G
+    real = G.spawn_ranks
+
+    def spawn(fn, world, backend, device, *args, sp=1, timeout=900.0):
+        if not POOLED or device != DEVICE:
+            return real(fn, world, backend, device, *args, sp=sp,
+                        timeout=timeout)
+        return [r[0][0] for r in rank_pool(world).run(
+            backend, sp, [("call", fn, args)])]
+    G.spawn_ranks = spawn
+    try:
+        yield
+    finally:
+        G.spawn_ranks = real
+
+
+def rank_pool(world: int) -> RankPool:
+    """The pool of ``world`` ranks, started on first use."""
+    if world not in _POOLS:
+        _POOLS[world] = RankPool(world)
+    return _POOLS[world]
+
+
+def close_pools(world: "int | None" = None) -> None:
+    """End the pool of ``world`` ranks, or every pool."""
+    for w in [world] if world is not None else list(_POOLS):
+        if w in _POOLS:
+            _POOLS[w].close()
 
 
 def check_sync_traces(name: str, ranks: list) -> None:
@@ -2171,10 +2437,9 @@ def hierarchical_checks(torch, group, res, resid, mask, everywhere
 
 def phase_sync4(torch) -> dict:
     """``allreduce_gradients`` at four gloo ranks on the card."""
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
-    torch.cuda.empty_cache()
-    ranks = spawn_ranks(sync4_rank, 4, "gloo", DEVICE, SYNC4_CASES,
-                        SYNC4_SHAPE, sp=SYNC4_SP)
+    (ranks, _), = spawn_batch(
+        torch, [("call", sync4_rank, (SYNC4_CASES, SYNC4_SHAPE))], world=4,
+        backend="gloo", sp=SYNC4_SP)
     failures = []
     for n, case in enumerate(SYNC4_CASES):
         rows = [r[n] for r in ranks]
@@ -2393,10 +2658,9 @@ def ring4_rank(group, shape: tuple, window: int) -> list:
 
 def phase_ring4(torch) -> dict:
     """The ring at four gloo ranks on the card."""
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
-    torch.cuda.empty_cache()
-    ranks = spawn_ranks(ring4_rank, 4, "gloo", DEVICE, RING4_SHAPE,
-                        RING4_WINDOW, sp=4)
+    (ranks, _), = spawn_batch(
+        torch, [("call", ring4_rank, (RING4_SHAPE, RING4_WINDOW))], world=4,
+        backend="gloo", sp=4)
     failures = []
     for rank, rows in enumerate(ranks):
         for row in rows:
@@ -3001,8 +3265,8 @@ def phase_auto(torch, plan_dir: str) -> dict:
                                 ("call", file_bytes, (sidecar,))])
     runs = [batch[0][0], batch[2][0]]
     sidecars = [batch[1][0][0], batch[3][0][0]]
-    torch.cuda.empty_cache()
-    runs.append(cli.run_train(parse(AUTO_ARGV + AUTO_EF8)))
+    ef8 = parse(AUTO_ARGV + AUTO_EF8)
+    runs.append(spawn_batch(torch, [("train", ef8, None)], sp=ef8.sp)[0][0])
     failures = []
     for n, report in enumerate(runs):
         info = report["collective_plan"]
@@ -3051,8 +3315,9 @@ def phase_bench_rows(torch) -> dict:
     goodput = {} if BENCH_GOODPUT is None else dict(
         zip(("elems", "bucket_elems"), BENCH_GOODPUT))
     payloads = {} if BENCH_PAYLOADS is None else {"payloads": BENCH_PAYLOADS}
-    rows = list(bench.measure_device_goodput(**goodput, **sizing))
-    rows += bench.measure_quantized_collectives(**payloads, **sizing)
+    with pooled_spawns():
+        rows = list(bench.measure_device_goodput(**goodput, **sizing))
+        rows += bench.measure_quantized_collectives(**payloads, **sizing)
     for row in rows:
         print(json.dumps({"phase": "bench_row", **row}), flush=True)
     errors = [r for r in rows if "error" in r]
@@ -3180,7 +3445,6 @@ def transport_rank(group, seed: int, first: bool) -> dict:
     an all_gather."""
     import torch
 
-    from akka_allreduce_tpu_torch.ops.kernels import ring
     from akka_allreduce_tpu_torch.parallel.group import peer_buffer_list
     tr = transport_ranks()
     cases = transport_cases(group.world, group.sp, seed)
@@ -3194,8 +3458,8 @@ def transport_rank(group, seed: int, first: bool) -> dict:
     out["buffers"] = [{"line": list(b.line), "bytes": b.nbytes}
                       for b in peer_buffer_list("transport")]
     if first:
-        out["fault"] = {**tr.skip_one_call(group, ring.TIMEOUT_S),
-                        "timeout_s": ring.TIMEOUT_S}
+        out["fault"] = {**tr.skip_one_call(group, TRANSPORT_FAULT_TIMEOUT_S),
+                        "timeout_s": TRANSPORT_FAULT_TIMEOUT_S}
     return out
 
 
@@ -3224,14 +3488,13 @@ def phase_transport(torch) -> dict:
     ranks at each of ``TRANSPORT_SPAWNS``; the first (two ranks) also
     moves the 2.16 GB payload, times each collective and runs the fault
     control."""
-    from akka_allreduce_tpu_torch.ops.kernels import ring
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     failures, rows = [], {}
     for i, (world, sp) in enumerate(TRANSPORT_SPAWNS):
         first = i == 0
         t0 = time.perf_counter()
-        ranks = spawn_ranks(transport_rank, world, DIST, DEVICE, 100 + i,
-                            first, sp=sp, timeout=600)
+        (ranks, _), = spawn_batch(
+            torch, [("call", transport_rank, (100 + i, first))],
+            world=world, backend=DIST, sp=sp)
         seconds = time.perf_counter() - t0
         cases = ranks[0]["cases"]
         rows[world, sp] = ranks
@@ -3247,7 +3510,7 @@ def phase_transport(torch) -> dict:
         if first:
             fault = ranks[0]["fault"]
             if not (fault.get("raised")
-                    and fault["seconds"] <= ring.TIMEOUT_S
+                    and fault["seconds"] <= TRANSPORT_FAULT_TIMEOUT_S
                     + TRANSPORT_FAULT_SLACK_S
                     and "ready from rank 1" in fault["message"]):
                 failures.append(f"fault control: {fault}")
@@ -3445,12 +3708,12 @@ def phase_allreduce(torch) -> dict:
     kernels' rows for the kernels line (times at two ranks, the slowest
     rank's median; launches summed over both runs and their ranks)."""
     from akka_allreduce_tpu_torch.ops.kernels import ring
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     rows, failures = {}, []
     for n, elems in ALLREDUCE_RUNS:
-        torch.cuda.empty_cache()
-        ranks = spawn_ranks(allreduce_rank, n, "gloo", DEVICE, elems,
-                            ALLREDUCE_LOOP, ALLREDUCE_REPS)
+        (ranks, _), = spawn_batch(
+            torch, [("call", allreduce_rank, (elems, ALLREDUCE_LOOP,
+                                              ALLREDUCE_REPS))],
+            world=n, backend="gloo")
         probes = [r["ipc_probe"] for r in ranks]
         emit("allreduce_ipc_probe", ranks=n, probes=probes)
         if not all(p["ok"] for p in probes):
@@ -4248,7 +4511,6 @@ def message_copies(torch, device: str) -> dict:
 def phase_cluster(torch, n_params: int) -> dict:
     """Phase 20 (see the module docstring); returns the parts' lines and
     the card workers' masked-reduce launches."""
-    import contextlib
     import gc
     import io
 
@@ -5333,12 +5595,415 @@ def phase_a6(torch, served: dict) -> dict:
             "pick": sampled["pick"], "int8": int8, "speculative": spec}
 
 
+# -- phase 23: train --steps-per-dispatch across ranks (A5 part 2) ----------
+
+class EagerChunks:
+    """``make_multi_step``'s runner with every chunk run step by step on
+    the card: phase 23's eager reference, the same step code on the same
+    kind of state (the count and the rate on the device, capturable
+    adamw) as the graphed run, from the same weights and batches."""
+
+    def __init__(self, cfg, n: int, group=None):
+        from akka_allreduce_tpu_torch.models.train import make_train_step
+        self.n, self._step = n, make_train_step(cfg, group)
+        self.replays, self.captured_launches = 0, None
+        self.capture_seconds, self.boundary_ms, self.transport = None, [], None
+
+    def __call__(self, state, tokens):
+        import torch
+        ms = [self._step(state, tokens[i]) for i in range(tokens.shape[0])]
+        return {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
+                for k in ms[0]}
+
+
+def _patched_train_rank(group, args, params, attn_impl, patches: list):
+    """``cli``'s train rank with ``(owner, name, value)`` patches set for
+    the run and undone after it."""
+    from akka_allreduce_tpu_torch import cli
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    try:
+        return cli._train_rank(group, args, params, attn_impl)
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def eager_chunks_rank(group, args, params, attn_impl):
+    """``cli``'s train rank with every chunk run eagerly
+    (:class:`EagerChunks`): phase 23's reference run."""
+    from akka_allreduce_tpu_torch.models import train
+    return _patched_train_rank(group, args, params, attn_impl,
+                               [(train, "make_multi_step", EagerChunks)])
+
+
+def replay_profile(torch, replay, runner, state, tokens) -> dict:
+    """A torch.profiler window around one replay (``replay(runner, state,
+    tokens)``, boundary included): wall ms to a synchronize, this rank's
+    device ms (its kernels' rows) and their idle share."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = replay(runner, state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_kernel_rows(torch, prof.key_averages(), 1)
+    device_ms = sum(ms for _, ms in rows)
+    return out, {"wall_ms": wall_ms,
+                 "device_ms": device_ms if rows else "not measured",
+                 "device_idle_share": (1 - device_ms / wall_ms) if rows
+                 else "not measured", "kernel_rows": len(rows),
+                 "top_kernels": sorted(rows, key=lambda r: -r[1])[:6]}
+
+
+def keys_off_rank(group, args, params, attn_impl):
+    """(d)'s fault control: ``cli``'s train rank whose chunk seeds, on rank
+    ``A5R_CONTROL_RANK``, are those of the step after each replay's
+    (the seed table and the generators off by one step; on the CPU,
+    where chunks run step by step, the rounding keys); on the card rank
+    0's second replay is profiled (``replay_profile``, in
+    ``rank_info``)."""
+    import torch
+
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.ops import collectives
+    fill, replay, found = collectives.ChunkKeys.fill, \
+        train._MultiStep._replay, {}
+
+    off = int(group.rank == A5R_CONTROL_RANK)
+
+    def fill_off(keys, base):
+        fill(keys, base + off)
+
+    def key_off(step, microbatch=None):
+        return quant_key(step + off, microbatch)
+
+    def replay_traced(runner, state, tokens):
+        if runner.replays != 1 or group.rank != 0:
+            return replay(runner, state, tokens)
+        out, found["profile"] = replay_profile(torch, replay, runner, state,
+                                               tokens)
+        return out
+    quant_key = train.quant_key
+    # on the card the chunks are graphs and read their seeds from the
+    # chunk's table and generators; on the CPU they run step by step and
+    # hash their keys on the host: the fault goes where the seeds come from
+    patches = ([(collectives.ChunkKeys, "fill", fill_off),
+                (train._MultiStep, "_replay", replay_traced)]
+               if group.device.type == "cuda"
+               else [(train, "quant_key", key_off)])
+    report = _patched_train_rank(group, args, params, attn_impl, patches)
+    report["rank_info"]["replay_profile"] = found.get("profile")
+    return report
+
+
+RANK_MODES.update(eager_chunks=eager_chunks_rank, keys_off=keys_off_rank)
+
+
+def drop_checkpoint(group, directory: str, step: int) -> bool:
+    """(c): remove the checkpoint of ``step`` (rank 0; every rank waits):
+    the next run resumes from the one before it."""
+    import shutil
+    if group.rank == 0:
+        shutil.rmtree(os.path.join(directory, str(step)))
+    group.barrier()
+    return True
+
+
+def dp_step_transport_calls(num_buckets: int, bucket_elems: int, world: int,
+                            wire: str) -> list:
+    """The ``(kind, bytes)`` of the transport calls of one train step at
+    dp = ``world`` (sp 1) on the fused schedule, in order: the global
+    token count's all_gather, the sync's (f32: the all_to_all of the
+    flattened buckets padded to a multiple of the ranks and the
+    all_gather of this rank's share; int8 and ef8: the int8 values' and
+    the f32 scales' all_to_all over the bucket rows padded to a multiple
+    of the ranks, then their all_gathers of this rank's rows), and the
+    metrics' all_gather (loss, aux, dispatch)."""
+    calls = [("all_gather", 4)]
+    if wire in ("none", "f32"):
+        total = num_buckets * bucket_elems
+        padded = total + (-total) % world
+        calls += [("all_to_all", 4 * padded),
+                  ("all_gather", 4 * padded // world)]
+    else:
+        rows = num_buckets + (-num_buckets) % world
+        scale_cols = 1 if wire == "int8" else -(-bucket_elems // EF_BLOCK)
+        calls += [("all_to_all", rows * bucket_elems),
+                  ("all_to_all", 4 * rows * scale_cols),
+                  ("all_gather", rows // world * bucket_elems),
+                  ("all_gather", 4 * rows // world * scale_cols)]
+    return calls + [("all_gather", 12)]
+
+
+def replay_transport_counts(calls: list, world: int, steps: int,
+                            chunk: int) -> dict:
+    """What one replay of ``steps`` steps enqueues on rank 0's transport
+    (``transport.counts()`` and the stream waits), each step making
+    ``calls`` (:func:`dp_step_transport_calls`) on a buffer past its
+    first two chunks a pair (every push then waits for its half)."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    out = dict.fromkeys(("transport_calls", "transport_launches",
+                         "transport_copies", "transport_bytes",
+                         "stream_waits"), 0)
+    past = dict.fromkeys(range(world), 2)
+    for kind, nbytes in calls:
+        rt = transport.routes(kind, 0, world, nbytes)
+        ops = transport.rank_plan([p for p, _ in rt["sends"]],
+                                  [p for p, _ in rt["recvs"]],
+                                  rt["pair_bytes"], past, past, chunk)
+        moves = [op for op in ops if op[0] != "wait"]
+        out["transport_calls"] += 1
+        out["transport_launches"] += len(moves)
+        out["transport_copies"] += (len(rt["local"])
+                                    + sum(len(op[2]) for op in moves))
+        out["transport_bytes"] += rt["pair_bytes"] * len(rt["recvs"])
+        out["stream_waits"] += len(ops) - len(moves)
+    return {k: v * steps for k, v in out.items()}
+
+
+def a5r_argv(base: list, steps: int, wire: str, spd: int) -> list:
+    """A phase 23 train argv: ``base`` for ``steps`` steps under the
+    cosine schedule on ``wire``, ``spd`` steps a dispatch."""
+    return (with_steps(base, steps) + A5R_SCHEDULE
+            + ["--grad-quant", wire, "--steps-per-dispatch", str(spd)])
+
+
+def with_layers(argv: list, layers: int) -> list:
+    """``argv`` with its ``--n-layers`` value replaced."""
+    out = list(argv)
+    out[out.index("--n-layers") + 1] = str(layers)
+    return out
+
+
+def a5r_pair(name: str, graph: dict, eager: dict, spd: int) -> dict:
+    """A graphed run against its eager reference: losses, every rank's
+    parameter checksum and ef8 residual checksum bitwise; the replays,
+    the kernel launches a replay (n_layers x spd of each flash kernel on
+    one rank; at sp > 1 rank r's ring launches n_layers x (r + 1) x
+    spd), the boundary and capture times."""
+    steps = graph["config"]["steps"]
+    layers = graph["config"]["n_layers"]
+    sp = graph["config"]["sp"]
+    ranks, eranks = graph["ranks"], eager["ranks"]
+    multi = [r["multi_step"] for r in ranks]
+    row = {
+        "run": name, "steps": steps, "steps_per_dispatch": spd,
+        "losses": graph["losses"], "eager_losses": eager["losses"],
+        "losses_bitwise": graph["losses"] == eager["losses"],
+        "param_checksums": [r["param_checksum"] for r in ranks],
+        "params_bitwise": ([r["param_checksum"] for r in ranks]
+                           == [r["param_checksum"] for r in eranks]),
+        "wall_ms_per_step": graph["wall_ms_per_step"],
+        "eager_wall_ms_per_step": eager["wall_ms_per_step"],
+        "replays": [m["graph_replays"] for m in multi],
+        "capture_seconds": [m["capture_seconds"] for m in multi],
+        "boundary_ms": [m["boundary_ms"] for m in multi],
+        "captured_launches": [m["captured_launches"] for m in multi],
+        "stream_waits_per_replay": [m["stream_waits_per_replay"]
+                                    for m in multi],
+        "transport_per_replay": [m["transport_per_replay"] for m in multi],
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks]}
+    if "residual_checksum" in ranks[0]:
+        row["residual_checksums"] = [r["residual_checksum"] for r in ranks]
+        row["residuals_bitwise"] = row["residual_checksums"] == [
+            r["residual_checksum"] for r in eranks]
+    bad = [k for k in ("losses_bitwise", "params_bitwise",
+                       "residuals_bitwise") if row.get(k) is False]
+    want_replays = steps // spd if DEVICE == "cuda" else 0
+    if any(n != want_replays for n in row["replays"]):
+        bad.append(f"replays {row['replays']}, expected {want_replays}")
+    if DEVICE == "cuda":
+        for r, got in enumerate(row["captured_launches"]):
+            want = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                                 0 if sp > 1 else layers * spd)
+            if sp > 1:
+                want.update(dict.fromkeys(("ring_fwd", "ring_dq",
+                                           "ring_dkv"),
+                                          layers * (r % sp + 1) * spd))
+            if any(got[k] != v for k, v in want.items()):
+                bad.append(f"rank {r} launches a replay {got}, expected "
+                           f"{want}")
+    emit("a5_ranks_graph", **row)
+    if bad:
+        raise AssertionError(f"phase 23 {name}: the graphed run against "
+                             f"the eager one: {bad}")
+    return row
+
+
+def phase_a5_ranks(torch) -> dict:
+    """Phase 23: ``train --steps-per-dispatch`` across ranks on the ipc
+    transport, each chunk one CUDA graph replay on every rank (see the
+    module docstring). Returns rank 0's main-path launches: flash, ring,
+    the sync kernels' and the transport's."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    t0 = time.perf_counter()
+    # what this process still holds on the card beside the two ranks
+    held_gb = (torch.cuda.memory_allocated() / 1e9 if DEVICE == "cuda"
+               else None)
+    work = tempfile.mkdtemp(prefix="a5r-")
+    ckpt = os.path.join(work, "ckpt")
+    resume = a5r_argv(with_layers(DP_ARGV, A5R_RESUME_LAYERS), 2 * A5R_SPD,
+                      "ef8", A5R_SPD) + ["--ckpt-dir", ckpt,
+                                         "--ckpt-every", str(A5R_SPD)]
+    jobs, names = [], []
+    for wire, steps in A5R_WIRES:
+        args = parse(a5r_argv(DP_ARGV, steps, wire, A5R_SPD))
+        jobs += [("train", args, None), ("train", args, "eager_chunks")]
+        names += [wire, f"{wire} eager"]
+    jobs += [("train", parse(a5r_argv(DP_ARGV, 2 * A5R_SPD, "ef8", A5R_SPD)),
+              "keys_off"),
+             ("train", parse(resume), None),
+             ("call", drop_checkpoint, (ckpt, 2 * A5R_SPD - 1)),
+             ("train", parse(resume), None)]
+    names += ["control", "uninterrupted", "drop", "resumed"]
+    try:
+        runs = dict(zip(names, spawn_batch(torch, jobs)))
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    sp_argv = a5r_argv(with_layers(SP_ARGV, A5R_SP_LAYERS), 2 * A5R_SP_SPD,
+                       "none", A5R_SP_SPD) + ["--sp", str(SP_WORLD),
+                                              "--dist-backend", DIST]
+    sp_runs = spawn_batch(torch, [("train", parse(sp_argv), None),
+                                  ("train", parse(sp_argv), "eager_chunks")],
+                          sp=SP_WORLD)
+    rows, totals = {}, {"flash": dict.fromkeys(FLASH_REPLACES, 0),
+                        "ring": dict.fromkeys(RING_REPLACES, 0),
+                        "sync": dict.fromkeys(SYNC_KERNELS, 0),
+                        "transport": 0}
+    for wire, steps in A5R_WIRES:
+        graph, eager = runs[wire][0], runs[f"{wire} eager"][0]
+        row = a5r_pair(wire, graph, eager, A5R_SPD)
+        cfg = graph["config"]
+        num_buckets = -(-cfg["params"] // cfg["bucket_elems"])
+        per_sync = expected_sync_launches(cfg["grad_transport"], "fused",
+                                          DP_WORLD, num_buckets)
+        # a replay's syncs, and the warm-up step's before the capture (the
+        # CPU's wrappers run the plain versions and count nothing)
+        want_sync = {k: v * (steps + 1) if DEVICE == "cuda" else 0
+                     for k, v in per_sync.items()}
+        calls = dp_step_transport_calls(num_buckets, cfg["bucket_elems"],
+                                        DP_WORLD, wire)
+        want_tp = replay_transport_counts(
+            calls, DP_WORLD, A5R_SPD, chunk_of(DP_WORLD))
+        row.update(expected_sync_launches=want_sync,
+                   sync_launches=graph["sync_launches"],
+                   expected_transport_per_replay=want_tp)
+        emit("a5_ranks_counts", run=wire, **{k: row[k] for k in (
+            "sync_launches", "expected_sync_launches",
+            "transport_per_replay", "expected_transport_per_replay")})
+        got_tp = row["transport_per_replay"][0]
+        if graph["sync_launches"] != want_sync or (
+                DIST == "ipc" and got_tp != want_tp):
+            raise AssertionError(
+                f"phase 23 {wire}: sync launches {graph['sync_launches']} "
+                f"(expected {want_sync}), a replay's transport {got_tp} "
+                f"(expected {want_tp})")
+        rows[wire] = row
+        for k in SYNC_KERNELS:
+            totals["sync"][k] += graph["sync_launches"][k]
+        for k in FLASH_REPLACES:
+            totals["flash"][k] += graph["launches"][k]
+        totals["transport"] += graph["transport"]["transport_launches"]
+    # (b) the ring kernels and ppermute inside the graph
+    sp_row = a5r_pair("gqa4 sp=2 bf16", sp_runs[0][0], sp_runs[1][0],
+                      A5R_SP_SPD)
+    for k in RING_REPLACES:
+        totals["ring"][k] += sp_runs[0][0]["ring_launches"][k]
+    totals["transport"] += sp_runs[0][0]["transport"]["transport_launches"]
+    # (c) resumed at the chunk boundary against the uninterrupted run
+    whole, resumed = runs["uninterrupted"][0], runs["resumed"][0]
+    tail = whole["losses"][A5R_SPD:]
+    c_row = {"uninterrupted_losses": whole["losses"],
+             "resumed_losses": resumed["losses"],
+             "resumed_start_step": resumed["config"]["start_step"],
+             "losses_bitwise": resumed["losses"] == tail,
+             "params_bitwise": [r["param_checksum"] for r in resumed["ranks"]]
+             == [r["param_checksum"] for r in whole["ranks"]],
+             "residuals_bitwise": [r["residual_checksum"]
+                                   for r in resumed["ranks"]]
+             == [r["residual_checksum"] for r in whole["ranks"]],
+             "resumed_replays": [r["multi_step"]["graph_replays"]
+                                 for r in resumed["ranks"]]}
+    emit("a5_ranks_resume", **c_row)
+    if (c_row["resumed_start_step"] != A5R_SPD or not all(
+            c_row[k] for k in ("losses_bitwise", "params_bitwise",
+                               "residuals_bitwise"))):
+        raise AssertionError(f"phase 23 (c): the resumed run against the "
+                             f"uninterrupted one: {c_row}")
+    # (d) one rank's seeds a step off: outside the bitwise check
+    control = runs["control"][0]
+    d_row = {"control_losses": control["losses"],
+             "eager_losses": rows["ef8"]["eager_losses"],
+             "control_rank": A5R_CONTROL_RANK,
+             "control_passed": control["losses"]
+             == rows["ef8"]["eager_losses"],
+             "replay_profile": control["ranks"][0].get("replay_profile")}
+    emit("a5_ranks_control", **d_row)
+    if d_row["control_passed"]:
+        raise AssertionError(f"phase 23 (d): seeds a step off landed "
+                             f"inside the bitwise check: {d_row}")
+    seconds = time.perf_counter() - t0
+    emit("a5_ranks_summary", seconds=seconds, limit_s=A5R_SECONDS,
+         wall_ms_per_step={w: (r["wall_ms_per_step"],
+                               r["eager_wall_ms_per_step"])
+                           for w, r in rows.items()},
+         boundary_ms={w: r["boundary_ms"][0] for w, r in rows.items()},
+         capture_seconds={w: r["capture_seconds"][0]
+                          for w, r in rows.items()},
+         stream_waits_per_replay={w: r["stream_waits_per_replay"][0]
+                                  for w, r in rows.items()},
+         sp_wall_ms_per_step=(sp_row["wall_ms_per_step"],
+                              sp_row["eager_wall_ms_per_step"]),
+         spawn_seconds={name: run[1] for name, run in runs.items()},
+         peak_memory_gb_per_rank={w: r["peak_memory_gb_per_rank"]
+                                  for w, r in rows.items()},
+         parent_memory_gb=held_gb,
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A5R_SECONDS:
+        raise AssertionError(f"phase 23 took {seconds:.1f} s, over its "
+                             f"{A5R_SECONDS} s")
+    return totals
+
+
+def chunk_of(world: int) -> int:
+    """The transport's chunk for a world of ``world`` ranks with no axis
+    lines (dp only)."""
+    from akka_allreduce_tpu_torch.ops.kernels import transport
+    return transport.chunk_bytes([world])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    # the rank and cli processes this script starts read their bytecode
+    # from the checkout's .pycache/ (written by the first), rather than
+    # each compiling torch's modules anew: ~3 s a process on the card's
+    # host, whose environment turns the writing of bytecode off
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = cache, False
+    global POOLED
+    POOLED = True
+    try:
+        return run_phases(torch)
+    finally:
+        close_pools()
+
+
+def run_phases(torch) -> int:
+    """Every phase in turn (:func:`main`, with the rank pools on)."""
     from akka_allreduce_tpu_torch.ops.kernels import build
 
     # 1. device
@@ -5350,6 +6015,11 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count(),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    # the rank pools of phases 9-23 start now: their processes import
+    # torch while nvcc builds, before any phase that times the host
+    for world in sorted({w for w, _ in TRANSPORT_SPAWNS}):
+        rank_pool(world)
 
     # 2. build (the C++ host library of phase 20 beside the nvcc builds)
     import concurrent.futures
@@ -5387,6 +6057,7 @@ def main() -> int:
     # 18. the ipc rank transport that phases 9, 13, 16 and 17 ride
     t18 = time.perf_counter()
     transport = phase_transport(torch)
+    close_pools(3)  # no later phase runs three ranks
     t9 = time.perf_counter()
     dp = phase_train_dp(torch, trained["losses"])
     t10 = time.perf_counter()
@@ -5428,6 +6099,7 @@ def main() -> int:
         phase_auto(torch, plan_dir)
     t17c = time.perf_counter()
     phase_bench_rows(torch)
+    close_pools(4)  # no later phase runs four ranks of its own
     emit("hierarchical_auto_phase_seconds",
          seconds=time.perf_counter() - t17, hierarchical_train=t17b - t17,
          auto=t17c - t17b, bench_rows=time.perf_counter() - t17c,
@@ -5443,14 +6115,19 @@ def main() -> int:
     # 22. the A6 serving paths: sampling, bf16, int8 KV, speculation,
     # deadline eviction and bucketed prefill
     a6 = phase_a6(torch, served)
+    # 23. train --steps-per-dispatch across ranks: CUDA-graph chunks on
+    # the ipc transport
+    a5r = phase_a5_ranks(torch)
+    close_pools()  # every rank process ended before the closing lines
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
-                     + hier["launches"][k] + a5["sync"][k]
+                     + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
                      for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
         + cluster["launches"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"] + a5["transport"]
+                          + a5r["transport"]
                           + sum(sp_launches[d]["transport"]
                                 for d in sp_launches))
     if not transport_launches:
@@ -5475,7 +6152,7 @@ def main() -> int:
     # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
         k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
-        for k in FLASH_REPLACES})
+        + a5r["flash"][k] for k in FLASH_REPLACES})
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]
@@ -5490,6 +6167,10 @@ def main() -> int:
             "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
         kernels[-1]["a5_launches"] = a5["sync"][kernel]
+        kernels[-1]["a5r_launches"] = a5r["sync"][kernel]
+        if kernel == "quantize_int8_prng":
+            # the seed read from device memory (phase 23's int8 chunks)
+            kernels[-1]["pointer_seed_ms"] = srow["pointer_seed_ms"]
         if kernel == "masked_reduce":
             # phase 19's chunk reduce: a 65,536-wide slab read in place
             strided = sync["masked_reduce_strided"]
@@ -5511,7 +6192,7 @@ def main() -> int:
             split = rrow.get("bound_tf32x3_ms", {})
             launches = sp_launches[dtype]["ring"][kernel] + (
                 defaults["sp2"]["ring"][kernel] if suffix
-                else hier["ring"][kernel])
+                else hier["ring"][kernel] + a5r["ring"][kernel])
             kernels.append({
                 "name": kernel + suffix, "kernel": cuda_kernel(kernel, suffix),
                 "route": "cuda", "source": RING_SOURCE,

@@ -5,9 +5,10 @@ card: the device-time accounting of a profiler window (only rows that
 ran on the card count: a CPU op's row repeats its kernels' time), the
 flash and ring kernels' bounds, the kernels line's flash rows, the build
 phase's check of the tensor-core kernels, phase 16's straggle schedule
-and expected launches, phase 10's, 17's, 21's and 22's rehearsals at a
-tiny size with the hierarchical launch arithmetic, and its refusal to
-run without CUDA.
+and expected launches, the hierarchical launch arithmetic, the phases'
+argv helpers, and its refusal to run without CUDA. The phases'
+rehearsals at a tiny size are in ``tests/test_torch_chip_smoke_phase*.py``,
+one file a phase.
 """
 
 import json
@@ -398,84 +399,10 @@ def test_hierarchical_launch_arithmetic(monkeypatch, num_buckets, masked):
         "dequantize_int8_block": 3}
 
 
-def test_phase10_rehearsal_with_the_hierarchical_cases(monkeypatch):
-    """Phase 10 at a tiny bucket matrix on four CPU ranks, (dp 2, sp 2):
-    every case passes, the two hierarchical ones (masked and not) among
-    them."""
-    assert [c for c in chip_smoke.SYNC4_CASES
-            if c["schedule"] == "hierarchical"] == [
-        {"transport": "ef8", "schedule": "hierarchical", "masked": m}
-        for m in (False, True)] and chip_smoke.SYNC4_SP == 2
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "SYNC4_SHAPE", (10, 1024))
-    assert chip_smoke.phase_sync4(torch) == {
-        "cases": len(chip_smoke.SYNC4_CASES)}
-
-
 TINY_TRAIN = ["train", "--d-model", "64", "--n-heads", "2", "--n-layers",
               "1", "--d-ff", "128", "--vocab", "97", "--seq", "32",
               "--batch", "4", "--steps", "3", "--log-every", "1",
               "--bucket-elems", "1024", "--device", "cpu"]
-
-
-@pytest.fixture
-def phase17_on_cpu(monkeypatch):
-    """Phase 17 at a tiny size on the CPU: the plain versions launch no
-    kernel, so the expected launches are zeroed; the loss bound is this
-    size's own (the sound run's gap read 4.3e-4, the dropped-line
-    control's 2.0e-3, the no-update control's 1.6e-2)."""
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "HIER_ARGV", TINY_TRAIN)
-    # the ipc transport needs the card: the CPU ranks ride gloo, and the
-    # ipc run's twin is then a second gloo run
-    on_cpu = {"cuda": "cpu", "ipc": "gloo"}
-    monkeypatch.setattr(chip_smoke, "DIST", "gloo")
-    monkeypatch.setattr(chip_smoke, "HIER_DIST", [
-        on_cpu.get(a, a) for a in chip_smoke.HIER_DIST])
-    monkeypatch.setattr(chip_smoke, "AUTO_ARGV", [
-        on_cpu.get(a, a) for a in chip_smoke.AUTO_ARGV])
-    monkeypatch.setattr(chip_smoke, "BENCH_BACKEND", "gloo")
-    monkeypatch.setattr(chip_smoke, "BENCH_GOODPUT", (20_000, 4096))
-    monkeypatch.setattr(chip_smoke, "BENCH_PAYLOADS", ((20_000, 4096),))
-    monkeypatch.setattr(chip_smoke, "BENCH_SET_S", 0.05)
-    monkeypatch.setattr(chip_smoke, "HIER_LOSS_ATOL", 1e-3)
-    monkeypatch.setattr(chip_smoke, "expected_sync_launches",
-                        lambda *a, **k: dict.fromkeys(
-                            chip_smoke.SYNC_KERNELS, 0))
-    monkeypatch.setattr(chip_smoke, "expected_attention_launches",
-                        lambda *a, **k: {
-                            "ring": dict.fromkeys(chip_smoke.RING_REPLACES, 0),
-                            "flash": dict.fromkeys(chip_smoke.FLASH_REPLACES,
-                                                   0)})
-
-
-def test_phase17_full_width_run_rehearsal(phase17_on_cpu):
-    out = chip_smoke.phase_hierarchical(torch)
-    row = out["row"]
-    assert row["num_buckets"] == -(-row["params"] // 1024)
-    assert len(set(row["param_checksums"])) == 1
-    assert row["loss_rel_diff"][0] <= chip_smoke.SP_LOSS_RTOL
-    assert chip_smoke.HIER_DIST[-1] == "hierarchical"
-
-
-def test_phase17_auto_plans_rehearsal(phase17_on_cpu, tmp_path):
-    hashes = chip_smoke.phase_auto(torch, str(tmp_path))["hashes"]
-    assert hashes[0] == hashes[1] != hashes[2]
-
-
-def test_phase17_bench_rows_rehearsal(phase17_on_cpu, capfd):
-    assert chip_smoke.phase_bench_rows(torch) == {"rows": 1 + 5 + 4}
-    rows = [ln for ln in capfd.readouterr().out.splitlines()
-            if ln.startswith('{"phase": "bench_row"')]
-    assert len(rows) == 10
-    assert '"metric": "allreduce_goodput_0.02M_f32_4cpu"' in rows[0]
-    for row in map(json.loads, rows):
-        # every row says what resolved it: the rounds of its sets (sized
-        # up from 4 / 1 to BENCH_SET_S) and the spread its reps allow
-        assert row["spread"] >= 0
-        if row["unit"] == "GB/s":
-            lo, hi = row["rounds"]
-            assert hi >= chip_smoke.BENCH_R_HI and lo == max(1, hi // 4)
 
 
 def test_phase17_hops_are_held_in_phase11():
@@ -947,7 +874,6 @@ def test_the_sync_all_to_all_bound_is_its_input_and_output():
 
 def fake_transport_rank(world, sp, rank, fault):
     """What ``transport_rank`` returns, sound unless ``fault`` says."""
-    from akka_allreduce_tpu_torch.ops.kernels import ring
     first = (world, sp) == chip_smoke.TRANSPORT_SPAWNS[0]
     cases = [{"scope": c[0], "kind": c[1], "dtype": c[2],
               "pair_bytes": 100, "bitwise": True, "ipc_ms": 1.0,
@@ -970,7 +896,8 @@ def fake_transport_rank(world, sp, rank, fault):
         if rank == 1:
             out["fault"] = {"skipped": True}
         else:
-            late = ring.TIMEOUT_S + 5 if fault == "late" else 30.1
+            timeout = chip_smoke.TRANSPORT_FAULT_TIMEOUT_S
+            late = timeout + 5 if fault == "late" else timeout + 0.1
             out["fault"] = (
                 {"raised": False} if fault == "not_raised" else
                 {"raised": True, "seconds": late,
@@ -987,13 +914,13 @@ def test_phase18_passes_only_without_a_fault(monkeypatch, capfd, fault):
     every key, its bound the function's; a case that is not bitwise
     gloo, and a fault control that did not raise, or raised late, each
     fail it."""
-    from akka_allreduce_tpu_torch.parallel import group as group_mod
-
-    def fake_spawn(fn, world, backend, device, *args, sp=1, timeout=None):
-        assert fn is chip_smoke.transport_rank and backend == "ipc"
-        return [fake_transport_rank(world, sp, r, fault)
-                for r in range(world)]
-    monkeypatch.setattr(group_mod, "spawn_ranks", fake_spawn)
+    def fake_batch(torch_, jobs, world=None, backend=None, sp=1):
+        (kind, fn, _), = jobs
+        assert kind == "call" and fn is chip_smoke.transport_rank
+        assert backend == "ipc"
+        return [([fake_transport_rank(world, sp, r, fault)
+                  for r in range(world)], 0.0)]
+    monkeypatch.setattr(chip_smoke, "spawn_batch", fake_batch)
     if fault != "none":
         with pytest.raises(AssertionError, match="transport"):
             chip_smoke.phase_transport(torch)
@@ -1063,51 +990,6 @@ def test_a_twin_must_match_its_ipc_run_bitwise(twin_losses, twin_sum,
 
 # -- phase 19: the protocol plane --------------------------------------------
 
-TINY_PROTOCOL = {
-    "a": ["emulate", "--workers", "4", "--data-size", "26",
-          "--max-chunk-size", "3", "--max-lag", "3", "--max-round", "12",
-          "--checkpoint", "5", "--th-complete", "1.0",
-          "--assert-multiple", "4"],
-    "b": ["emulate", "--workers", "4", "--data-size", "26",
-          "--max-chunk-size", "3", "--max-lag", "3", "--max-round", "12",
-          "--th-allreduce", "0.75", "--th-reduce", "0.75",
-          "--th-complete", "0.75", "--kill-rank", "1"],
-    "c": ["emulate", "--workers", "2", "--data-size", "96",
-          "--max-chunk-size", "16", "--max-lag", "1", "--th-complete",
-          "1.0", "--max-round", "3", "--checkpoint", "1"],
-    "d": ["emulate", "--fuzz", "2", "--workers", "3", "--data-size", "15",
-          "--max-round", "3", "--assert-multiple", "3", "--th-complete",
-          "1.0"]}
-
-
-def test_phase19_rehearsal(monkeypatch, capfd):
-    """Phase 19 at a tiny size on the CPU (the card's run on the CPU
-    twin's device, so no launch is counted): every part passes its
-    checks, (a) and (b) bitwise their twins, one line a part."""
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "PROTOCOL_PARTS", TINY_PROTOCOL)
-    monkeypatch.setattr(chip_smoke, "PROTOCOL_PUMP_BITE", 1)
-    out = chip_smoke.phase_protocol(torch, n_params=1000)
-    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()]
-    parts = [ln["part"] for ln in lines if ln["phase"] == "protocol"]
-    assert parts == ["a", "b", "c", "d"]
-    a, b, c, d = (out["lines"][p] for p in "abcd")
-    assert a["bitwise_twin"] and b["bitwise_twin"]
-    assert a["rounds"] == b["rounds"] == 12 and c["rounds"] == 3
-    assert a["flushes"] == [13] * 4 and b["flushes"][1] == 0
-    assert len(a["sink_mb_per_s"]) == 2 and len(c["sink_mb_per_s"]) == 3
-    assert len(c["round_s"]) == 3 and c["run_s"] >= sum(c["round_s"])
-    assert c["rounds_per_s"] == pytest.approx(3 / c["run_s"])
-    assert c["profile"]["round"] == 1 and c["profile"]["messages"] > 0
-    assert d["violations"] == 0 and d["schedules"] == 4 + 5 + 2
-    # the CPU runs the plain reduce: nothing launched, nothing expected
-    # of the counter; the tracer still sees every fired reduce
-    assert out["launches"] == 0 and a["reduce_fired"] > 0
-    # 26 floats in blocks of 7, 7, 7, 5: 3 + 3 + 3 + 2 chunk reduces a
-    # round, 13 flushed rounds
-    assert a["expected_launches"] == a["reduce_fired"] == 11 * 13
-
-
 def test_phase19_parts_build_c_from_phase9s_gradient():
     parts = chip_smoke.protocol_parts(541_130_700)
     c = parts["c"]
@@ -1176,7 +1058,7 @@ def test_phase20_argvs():
     assert e_master[e_master.index("--th-reduce") + 1] == "0.75"
     assert all(a[a.index("--checkpoint") + 1] == "10" for _, a in e_workers)
     assert [parts[p][0][parts[p][0].index("--max-round") + 1]
-            for p in "abcde"] == ["50", "25", "25", "3", "25"]
+            for p in "abcde"] == ["50", "25", "25", "2", "25"]
 
 
 def test_phase20_worker_launches_from_its_trace():
@@ -1199,31 +1081,6 @@ def test_phase20_worker_launches_from_its_trace():
     assert got["worker_rounds_per_s"] == 1.0
 
 
-def test_phase20_rehearsal(monkeypatch, capfd):
-    """Phase 20 at a tiny size on the CPU (card workers on ``--device
-    cpu``, so no launch is counted): the mixed engines and the kill part
-    pass their checks, (f) runs the C++ engine."""
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "CLUSTER_DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "CLUSTER_COPY_REPS", 3)
-    monkeypatch.setattr(chip_smoke, "CLUSTER_PARTS", {
-        "b": chip_smoke.CLUSTER_PARTS["b"],
-        "e": chip_smoke.CLUSTER_PARTS["e"]})
-    monkeypatch.setattr(chip_smoke, "CLUSTER_ROUNDS",
-                        {"a": 20, "b": 12, "e": 16})
-    out = chip_smoke.phase_cluster(torch, n_params=1000)
-    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()]
-    parts = [ln["part"] for ln in lines if ln["phase"] == "cluster"]
-    assert parts == ["copies", "b", "e", "f"]
-    assert out["lines"]["b"]["rounds"] == 12
-    assert out["lines"]["b"]["worker_rcs"] == [0, 0, 0, 0]
-    e = out["lines"]["e"]
-    assert e["rounds"] == 16 and len(e["downs_at_round"]) == 1
-    assert sorted(e["worker_rcs"]) == [-9, 0, 0, 0]
-    assert out["lines"]["f"]["rounds"] == 20
-    assert out["launches"] == 0
-
-
 def test_phase21_argv_helpers():
     argv = chip_smoke.with_steps(chip_smoke.TRAIN_ARGV, 3)
     assert argv[argv.index("--steps") + 1] == "3"
@@ -1235,59 +1092,6 @@ def test_phase21_argv_helpers():
     assert chip_smoke.model_flags(chip_smoke.PARITY_ARGV) == [
         "--d-model", "2048", "--n-heads", "16", "--kv-heads", "4", "--rope",
         "--n-layers", "8", "--d-ff", "8192", "--vocab", "32768"]
-
-
-A5_TINY = ["train", "--d-model", "32", "--n-heads", "4", "--n-layers", "2",
-           "--d-ff", "64", "--vocab", "97", "--seq", "16", "--batch", "4",
-           "--lr", "1e-3", "--steps", "6", "--log-every", "1", "--device",
-           "cpu"]
-
-
-def test_phase21_rehearsal(monkeypatch, capfd):
-    """Phase 21 at a tiny size on the CPU (gloo ranks, the generate /
-    eval processes on --device cpu; the CPU wrappers count no launch):
-    every part's checks pass, the fault control lands outside the bound,
-    and the lines carry what PERF.md reads."""
-    from akka_allreduce_tpu_torch import cli
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "DIST", "gloo")
-    monkeypatch.setattr(chip_smoke, "TRAIN_ARGV", A5_TINY)
-    monkeypatch.setattr(chip_smoke, "DP_ARGV", chip_smoke.with_steps(
-        A5_TINY, 3) + ["--dp", "2", "--dist-backend", "gloo",
-                       "--bucket-elems", "256"])
-    monkeypatch.setattr(chip_smoke, "A5_EVAL_WINDOWS", 4)
-    monkeypatch.setattr(chip_smoke, "A5_EVAL_BATCH", 2)
-    monkeypatch.setattr(chip_smoke, "A5_PROMPT_TOKENS", 4)
-    monkeypatch.setattr(chip_smoke, "A5_GENERATE_TOKENS", 4)
-    monkeypatch.setattr(chip_smoke, "A5_SECONDS", 600)
-    monkeypatch.setattr(chip_smoke, "expected_sync_launches",
-                        lambda *a, **k: dict.fromkeys(
-                            chip_smoke.SYNC_KERNELS, 0))
-    report = cli.run_train(cli.build_parser().parse_args(A5_TINY))
-    trained = {"losses": report["losses"],
-               "wall_ms_per_step": report["wall_ms_per_step"],
-               "optimizer_state_gb": report["optimizer_state_gb"],
-               "idle_share": "not measured"}
-    out = chip_smoke.phase_a5(torch, trained)
-    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()
-             if ln.startswith('{"phase"')]
-    by = {}
-    for ln in lines:
-        by.setdefault(ln["phase"], []).append(ln)
-    assert [r["optimizer"] for r in by["a5_family"]] == ["lion", "adafactor",
-                                                        "sgd"]
-    assert [r["optimizer"] for r in by["a5_update"]] == ["lion", "adafactor",
-                                                        "sgd"]
-    ema = by["a5_ema"][0]
-    assert ema["subprocess_rcs"] == {"generate": 0, "eval": 0, "control": 2}
-    assert ema["ema_item_bitwise"] and len(ema["save_seconds"]) == 2
-    checks = by["a5_overlap_checks"][0]
-    assert checks["step0_bitwise"]
-    assert max(checks["control_rel_diff"][1:]) > checks["loss_rtol"]
-    assert len(by["a5_overlap"]) == 4
-    assert by["a5_graph"][0]["bitwise_eager"]
-    assert by["a5_telemetry"][0]["train_steps_total"] == 3
-    assert out["flash"] == dict.fromkeys(chip_smoke.FLASH_REPLACES, 0)
 
 
 def test_spawn_batch_runs_one_mesh(monkeypatch):
@@ -1304,57 +1108,6 @@ def test_spawn_batch_runs_one_mesh(monkeypatch):
 
 
 # -- phase 22: the serving of ROADMAP A6, part 1 -------------------------------
-
-TINY_SERVE = ["serve", "--vocab", "97", "--d-model", "64", "--n-heads", "4",
-              "--kv-heads", "2", "--n-layers", "8", "--d-ff", "128", "--rope",
-              "--max-seq", "64", "--paged", "--page-size", "4", "--slots",
-              "4", "--requests", "8", "--prompt-len", "4:16",
-              "--max-new-tokens", "8", "--decode-steps", "4", "--load",
-              "closed", "--seed", "0", "--device", "cpu"]
-
-
-def test_phase22_rehearsal(monkeypatch, capfd):
-    """Phase 22 at a tiny size on the CPU (8 layers: the draft takes 4):
-    every check of (a)-(e) passes on the plain versions, the fault
-    control (the key index off by one) lands outside the rule for every
-    request, and the main-path runs ran n_layers x steps decode steps
-    (the CPU launches no kernel: the count stays 0)."""
-    from akka_allreduce_tpu_torch import cli
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "SERVE_ARGV", TINY_SERVE)
-    monkeypatch.setattr(chip_smoke, "A6_BUCKETS", "8,16")
-    monkeypatch.setattr(chip_smoke, "A6_SAMPLED_SPEC_REQUESTS", 4)
-    steps = {}
-
-    def main_path(attention, engine, name):
-        assert attention.PAGED_ATTENTION_LAUNCHES == 0
-        steps[name] = engine.cfg.n_layers * engine.decode_dispatches \
-            * engine.ecfg.decode_steps
-        return steps[name]
-
-    monkeypatch.setattr(chip_smoke, "a6_main_path", main_path)
-    parse = cli.build_parser().parse_args
-    kernel, _, _ = cli.run_serve(parse(TINY_SERVE + ["--paged-attention",
-                                                     "kernel"]))
-    _, gather, _ = cli.run_serve(parse(TINY_SERVE + ["--paged-attention",
-                                                     "gather"]))
-    out = chip_smoke.phase_a6(torch, {"report": kernel, "gather": gather})
-    assert out["launches"] == {"sampled": steps["sampled_kernel_s4"],
-                               "bf16": steps["bf16_kernel"],
-                               "evict": steps["evict_kernel"]}
-    assert steps["sampled_kernel_s4"] == 8 * 4 * 4  # 2 waves of 2 blocks
-    lines = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()
-             if ln.startswith('{"phase": "a6_')]
-    by = {ln["phase"]: ln for ln in lines}
-    assert by["a6_sampled_parity"]["fault_control_passed"] == 0
-    assert by["a6_prng"]["bits_equal"]
-    assert by["a6_eviction"]["evicted"] == [0, 1, 2, 3]
-    assert out["int8"]["slot"]["ratio"] > 3
-    paged = out["speculative"]["paged"]
-    assert paged["draft_pages_free"] == paged["draft_pages_total"]
-    assert paged["draft_proposed"] == (paged["draft_accepted"]
-                                       + paged["draft_rejected"])
-
 
 def test_phase22_argv_helpers_and_bf16_gap():
     argv = ["serve", "--paged", "--page-size", "16", "--slots", "8",

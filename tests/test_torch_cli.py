@@ -149,7 +149,6 @@ def test_train_draws_the_jax_commands_batches():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--steps-per-dispatch", "2", "--dp", "2"], "A5, part 2"),
     (["--batch", "4", "--grad-accum", "3"], "divide"),
     (["--steps-per-dispatch", "0"], "steps-per-dispatch"),
     (["--steps-per-dispatch", "2", "--deadline-ms", "50"],
@@ -158,6 +157,22 @@ def test_train_draws_the_jax_commands_batches():
 def test_train_refusals_exit_2(capsys, flags, match):
     assert cli.main(TRAIN_TINY + flags) == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
+def test_train_chunks_across_ranks_on_the_card_need_ipc(device, refused):
+    """``--steps-per-dispatch > 1`` across ranks captures the sync into a
+    CUDA graph on the card, which the host-staged gloo wire cannot be:
+    refused there, naming ipc (checked from the flags alone); on the CPU
+    the gloo ranks run their chunks step by step."""
+    args = cli.build_parser().parse_args(TRAIN_TINY + [
+        "--steps-per-dispatch", "2", "--dp", "2", "--dist-backend", "gloo",
+        "--device", device])
+    if refused:
+        with pytest.raises(ValueError, match="needs --dist-backend ipc"):
+            cli._check_train_flags(args)
+    else:
+        assert cli._check_train_flags(args)[2] == "gloo"
 
 
 def test_train_sgd_runs(capsys):

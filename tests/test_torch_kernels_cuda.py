@@ -870,6 +870,29 @@ def test_quantize_kernels_bitwise_plain(cuda_device, rows, cols, block,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [99, 2 ** 63 + 5, 2 ** 64 - 1])
+def test_quantize_prng_reads_its_seed_from_device_memory(cuda_device, seed):
+    """Row 4 given its seed as a one-element int64 tensor on the card (a
+    captured chunk's seed table) draws the by-value seed's words; in a
+    CUDA graph, each replay draws the words of the seed written there
+    before it."""
+    x = torch.randn(5, 1000, device=cuda_device)
+    want = qz.quantize_int8_prng(x, seed)
+    got = qz.quantize_int8_prng(x, qz.seed_tensor(seed, cuda_device))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    table = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = qz.quantize_int8_prng(x, table)[0]
+    for s in (seed, seed ^ 1):
+        table.copy_(qz.seed_tensor(s, "cpu"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qz.quantize_int8_prng(x, s)[0])
+
+
+@pytest.mark.cuda
 def test_quantize_counters_count_launches_only(cuda_device):
     before = qz.launch_counts()
     x = torch.randn(4, 256, device=cuda_device)

@@ -4,7 +4,12 @@ On the CPU a chunk is the same N steps in a loop, so a chunked run's
 losses are bitwise the per-step run's, its tail (shorter than N) runs
 step by step, and checkpoints land at chunk boundaries whenever a chunk
 crosses a ``--ckpt-every`` line (JAX tests/test_multi_step.py's case).
-More than one rank is refused (ROADMAP A5, part 2). Chunks keep the
+Across ranks (gloo CPU ranks here) the chunks are held against JAX
+``make_multi_step`` at ``MeshSpec(dp=2)`` on ``tests/test_multi_step.py``'s
+model and tokens (losses at rtol 1e-4 and parameters at atol 2e-4, rtol
+1e-3: the port's train parity bounds, ``tests/test_torch_train.py``),
+and ``cli train --dp 2`` chunked against its per-step run bitwise; on
+the card they need the ``ipc`` transport. Chunks keep the
 step count on the device on every device, so the CPU runs the card's
 state. On the card (the ``cuda`` marker; skipped here) a chunk is one
 CUDA graph replay, held bitwise against an eager run of the same step
@@ -141,9 +146,92 @@ def test_chunk_boundary_saves_and_resume(tmp_path, capsys):
     assert len(report["losses"]) == 10
 
 
-def test_more_than_one_rank_is_refused(capsys):
-    assert cli.main(BASE + ["--steps-per-dispatch", "2", "--dp", "2"]) == 2
-    assert "ROADMAP A5, part 2" in capsys.readouterr().err
+# tests/test_multi_step.py's model and tokens
+JAX_MODEL = dict(vocab_size=61, d_model=32, n_heads=4, n_layers=1, d_ff=64,
+                 max_seq=16)
+
+
+def test_dp2_chunks_match_jax_make_multi_step():
+    """JAX ``make_multi_step`` at ``MeshSpec(dp=2)`` (4 steps in one scan)
+    against the port's chunks of 2 on two gloo ranks from the same
+    weights and tokens, each rank on its half of every batch; the ranks
+    end with equal parameters, and an eager step derives no rounding key
+    on the f32 wire."""
+    import jax
+    import jax.numpy as jnp
+
+    from akka_allreduce_tpu.models import train as jtrain
+    from akka_allreduce_tpu.models.transformer import \
+        TransformerConfig as JConfig
+    from akka_allreduce_tpu.parallel.mesh import MeshSpec, make_device_mesh
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_multi_step_ranks import chunked_train
+    k, b, t = 4, 4, 16
+    tokens = np.random.default_rng(3).integers(
+        0, JAX_MODEL["vocab_size"], size=(k, b, t), dtype=np.int32)
+    mesh = make_device_mesh(MeshSpec(dp=2), devices=jax.devices()[:2])
+    jcfg = jtrain.TrainConfig(model=JConfig(**JAX_MODEL), bucket_elems=256,
+                              learning_rate=1e-2)
+    params, opt_state, opt = jtrain.make_train_state(jax.random.key(1), jcfg,
+                                                     mesh)
+    init = jax.tree.map(np.asarray, params)
+    p_chk, _, ms = jtrain.make_multi_step(jcfg, mesh, opt)(
+        params, opt_state, jnp.asarray(tokens))
+    ranks = spawn_ranks(chunked_train, 2, "gloo", "cpu", JAX_MODEL,
+                        {"bucket_elems": 256, "learning_rate": 1e-2}, init,
+                        tokens, 2)
+    np.testing.assert_allclose(ranks[0]["losses"], np.asarray(ms["loss"]),
+                               rtol=1e-4)
+    want = [np.asarray(x) for x in jax.tree.leaves(p_chk)]
+    for got, ref in zip(ranks[0]["params"], want):
+        np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+    assert all(np.array_equal(a, c) for a, c in zip(ranks[0]["params"],
+                                                     ranks[1]["params"]))
+    assert ranks[0]["keys"] == []
+
+
+@pytest.mark.parametrize("wire,keys", [("int8", ["seed", "seed"]),
+                                       ("ef8", ["bits"])])
+def test_dp2_quantized_chunks_round_with_their_steps_keys(wire, keys):
+    """On the int8 and ef8 wires the chunks of two gloo ranks (a chunk of
+    3 and a tail of 1) give the per-step run's losses bitwise, and an
+    eager step derives the keys a captured chunk gives slots to: two
+    int8 seeds a sync (phase 1 and 2), one ef8 draw (phase 2)."""
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+    from torch_multi_step_ranks import chunked_train
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch import convert
+    tokens = np.random.default_rng(5).integers(
+        0, JAX_MODEL["vocab_size"], size=(4, 4, 16), dtype=np.int32)
+    port = TransformerConfig(**JAX_MODEL)
+    init = convert.params_to_jax(init_transformer(
+        torch.Generator().manual_seed(2), port))
+    kw = {"bucket_elems": 256, "learning_rate": 1e-2,
+          "grad_transport": wire}
+    chunked, plain = (spawn_ranks(chunked_train, 2, "gloo", "cpu", JAX_MODEL,
+                                  kw, init, tokens, spd)
+                      for spd in (3, 1))
+    assert chunked[0]["losses"] == plain[0]["losses"]
+    assert all(np.array_equal(a, c) for a, c in zip(chunked[1]["params"],
+                                                     plain[1]["params"]))
+    assert chunked[0]["keys"] == keys
+
+
+@pytest.mark.parametrize("wire", ["f32", "ef8"])
+def test_cli_dp2_chunks_equal_the_per_step_run(wire):
+    """``cli train --device cpu --dp 2 --steps-per-dispatch 2`` (gloo
+    ranks; on the CPU a chunk is its steps in a loop) gives the losses
+    of ``--steps-per-dispatch 1`` bitwise over two chunks, and its ranks
+    end equal. (Its state keeps the learning rate as a tensor, so the
+    last update, which no loss reads, may round otherwise than the
+    per-step run's float rate.)"""
+    flags = ["--steps", "4", "--dp", "2", "--grad-quant",
+             "none" if wire == "f32" else wire]
+    chunked = run(*flags, "--steps-per-dispatch", "2")
+    plain = run(*flags)
+    assert chunked["losses"] == plain["losses"] and len(plain["losses"]) == 4
+    assert chunked["multi_step"]["graph_replays"] == 0
+    assert len({r["param_checksum"] for r in chunked["ranks"]}) == 1
 
 
 @pytest.fixture
@@ -191,7 +279,8 @@ def test_graph_chunks_are_the_eager_steps_bitwise(cuda_device, optimizer):
                     ttrain.tree_leaves(e_state.params) +
                     ttrain.tree_leaves(e_state.ema)):
         assert torch.equal(a, b)
-    assert g_multi.replays == 2 and g_multi.captured_launches[0] == 2 * 3
+    assert g_multi.replays == 2
+    assert g_multi.captured_launches["flash_fwd"] == 2 * 3
     assert g_fwd == 2 * 3 * 2 + 2 and e_fwd == 2 * 6
 
 

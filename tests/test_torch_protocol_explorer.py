@@ -24,6 +24,7 @@ from akka_allreduce_tpu.protocol import explorer as jax_explorer
 from akka_allreduce_tpu_torch import config as port_config
 from akka_allreduce_tpu_torch.protocol import cluster as port_cluster
 from akka_allreduce_tpu_torch.protocol import explorer as port_explorer
+from torch_rehearsal import one_intra_op_thread  # noqa: F401
 
 
 def as_numpy(x):

@@ -18,6 +18,7 @@ import numpy as np
 
 from test_torch_protocol_explorer import Side, as_numpy, exact_validator, \
     labels, on_both
+from torch_rehearsal import one_intra_op_thread  # noqa: F401
 
 
 def test_standard_battery_4workers_script_config():
