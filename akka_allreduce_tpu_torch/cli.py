@@ -17,10 +17,14 @@ summary line shaped like the JAX command's. It samples with
 threefry), keeps int8 KV (``--kv-cache int8``), pads slot prefill to
 ``--prefill-buckets``, decodes speculatively (``--speculative
 --draft-steps --draft-layers``: the target's first layers draft) and
-evicts requests past ``--deadline-slack-s`` (``--policy deadline``). The
-watchdog, fault injection and drain/restore (``--watchdog-timeout``,
-``--chaos``, ``--drain-dir``, ``--preempt-poll``) are ROADMAP A6, part 2,
-and exit 2::
+evicts requests past ``--deadline-slack-s`` (``--policy deadline``). It
+bounds each decode dispatch with ``--watchdog-timeout`` (a stalled
+dispatch's requests fail into the ``--max-attempts`` retry budget and the
+engine rebuilds its state), drains its in-flight requests on SIGTERM or a
+``--preempt-poll`` notice into ``--drain-dir`` and restores them from there
+at the next start, and writes ``--trace-file`` / ``--metrics-file``.
+``--selfcheck --chaos SEED`` runs the fault-matrix smoke (a hang, a
+raise, a NaN lane and a preemption into one tiny serve run)::
 
     python -m akka_allreduce_tpu_torch.cli serve --paged \\
         --paged-attention kernel --d-model 2048 --n-heads 16 \\
@@ -211,15 +215,75 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
                    help="synthetic per-request deadline = arrival + "
                         "slack; a request still running past it is "
                         "evicted between dispatches (0 = none)")
-    # -- not ported (ROADMAP A6, part 2): refused by name
+    p.add_argument("--queue-depth", type=int, default=256,
+                   help="admission-queue bound: submits beyond it are "
+                        "rejected (backpressure at the edge)")
+    p.add_argument("--th-step", type=float, default=0.0,
+                   help="occupancy fraction gating a decode step: 0.0 "
+                        "never waits (continuous batching), 1.0 waits "
+                        "for a full batch; the gate only waits for work "
+                        "that is due")
+    # -- fault tolerance
     p.add_argument("--watchdog-timeout", type=float, default=0.0,
-                   help="not ported (ROADMAP A6, part 2)")
-    p.add_argument("--chaos", type=int, default=None,
-                   help="not ported (ROADMAP A6, part 2)")
-    p.add_argument("--drain-dir", default=None,
-                   help="not ported (ROADMAP A6, part 2)")
-    p.add_argument("--preempt-poll", default=None,
-                   help="not ported (ROADMAP A6, part 2)")
+                   metavar="S",
+                   help="bound each decode dispatch and its readback: one "
+                        "not back in S seconds trips the watchdog, the "
+                        "in-flight requests fail into the retry budget "
+                        "and the engine rebuilds its state. A host-side "
+                        "stall is recovered; a kernel that never returns "
+                        "still holds the CUDA stream. 0 (default) = "
+                        "dispatch inline, no watchdog")
+    p.add_argument("--max-attempts", type=int, default=3,
+                   help="total attempt budget per request: an engine-"
+                        "failed request (watchdog/fault/NaN) retries "
+                        "with exponential backoff until this many "
+                        "attempts have failed, then dead-letters")
+    p.add_argument("--retry-base-delay", type=float, default=0.05,
+                   help="backoff base: the k-th failure requeues after "
+                        "base * 2^(k-1) (+ jitter) seconds")
+    p.add_argument("--retry-jitter", type=float, default=0.0,
+                   help="uniform [0, J) seconds added to each backoff "
+                        "(seeded by --seed)")
+    p.add_argument("--tpot-estimate", type=float, default=0.0,
+                   help="with --policy deadline: seconds-per-token "
+                        "estimate that sheds, at admission, a request "
+                        "whose deadline cannot fit one more token "
+                        "(rejected_infeasible). 0 = disabled")
+    p.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                   help="with --selfcheck: the fault-matrix smoke — a "
+                        "seeded FaultPlan injects a hang, a dispatch "
+                        "exception, a NaN-poisoned lane and a preemption "
+                        "into one serve run of a tiny slot engine; "
+                        "asserts survival, token parity with the fault-"
+                        "free run, exact retry accounting, drain/restore "
+                        "and no kernel built or loaded and no new "
+                        "prefill shape after recovery")
+    p.add_argument("--selfcheck", action="store_true",
+                   help="with --chaos: run the fault matrix (the other "
+                        "selfchecks are ROADMAP A10)")
+    p.add_argument("--drain-dir", default=None, metavar="DIR",
+                   help="persist a drain's in-flight request snapshots "
+                        "here (runtime/checkpoint.py JSON sidecar, the "
+                        "JAX command's layout) and restore any found at "
+                        "startup")
+    p.add_argument("--preempt-poll", default=None, metavar="URL",
+                   help="poll this GCE-style metadata URL for a "
+                        "preemption notice (runtime/preempt.py; 'gce' = "
+                        "the real instance/preempted endpoint) and drain "
+                        "on TRUE, as SIGTERM does")
+    p.add_argument("--preempt-interval", type=float, default=1.0,
+                   help="seconds between --preempt-poll reads")
+    # -- telemetry
+    p.add_argument("--trace-file", default=None,
+                   help="write serve_* lifecycle events + prefill/step "
+                        "spans (JSONL, runtime/tracing.py) here on exit")
+    p.add_argument("--metrics-file", default=None, metavar="PATH",
+                   help="write the metrics-registry snapshot (Prometheus "
+                        "text: serve_* counters, latency summaries, the "
+                        "engine's dispatch histograms) every "
+                        "--metrics-interval plus once at exit")
+    p.add_argument("--metrics-interval", type=float, default=5.0,
+                   help="seconds between --metrics-file snapshots")
     # -- synthetic load
     p.add_argument("--requests", type=int, default=32)
     p.add_argument("--load", choices=("closed", "open"), default="closed",
@@ -1254,14 +1318,7 @@ def _validate(args: argparse.Namespace) -> "tuple[int, int]":
             and not 0 <= args.eos_token < args.vocab:
         raise ValueError(f"--eos-token {args.eos_token} out of vocab "
                          f"[0, {args.vocab})")
-    for flag, unported in (("--watchdog-timeout", args.watchdog_timeout),
-                           ("--chaos", args.chaos is not None),
-                           ("--drain-dir", args.drain_dir),
-                           ("--preempt-poll", args.preempt_poll)):
-        if unported:
-            raise ValueError(f"{flag} is not ported (ROADMAP A6, part 2: "
-                             f"the watchdog, fault injection and "
-                             f"drain/restore)")
+    _check_fault_flags(args)
     _check_sampling(args)
     if args.speculative:
         _check_speculative(args)
@@ -1273,6 +1330,29 @@ def _validate(args: argparse.Namespace) -> "tuple[int, int]":
         raise ValueError(f"largest prefill bucket {max(buckets)} smaller "
                          f"than --prompt-len max {p_hi}")
     return p_lo, p_hi
+
+
+def _check_fault_flags(args: argparse.Namespace) -> None:
+    """The JAX command's checks of the fault-tolerance flags, and the
+    selfcheck the port has (``--selfcheck --chaos``)."""
+    if args.watchdog_timeout < 0:
+        raise ValueError(f"--watchdog-timeout must be >= 0 (0 disables), "
+                         f"got {args.watchdog_timeout}")
+    if args.chaos is not None and not args.selfcheck:
+        raise ValueError("--chaos requires --selfcheck (the fault-matrix "
+                         "smoke)")
+    if args.chaos is not None and args.paged:
+        raise ValueError("--chaos runs the slot-engine fault matrix; paged "
+                         "fault recovery is covered by "
+                         "tests/test_torch_serving_faults.py and "
+                         "chip_smoke.py phase 24")
+    if args.selfcheck and args.chaos is None:
+        raise ValueError("--selfcheck without --chaos is not ported "
+                         "(ROADMAP A10: the serve selfcheck); --selfcheck "
+                         "--chaos SEED runs the fault matrix")
+    if args.preempt_poll and args.preempt_interval <= 0:
+        raise ValueError(f"--preempt-interval must be > 0, got "
+                         f"{args.preempt_interval}")
 
 
 def _check_sampling(args: argparse.Namespace) -> None:
@@ -1329,9 +1409,11 @@ def make_draft_model(params: dict, mcfg, draft_layers: int):
             dataclasses.replace(mcfg, n_layers=n))
 
 
-def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
+def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int,
+                  rid_base: int = 0) -> list:
     """The synthetic load, drawn exactly as the JAX command draws it
-    (same generator, same order), so one seed gives one load in both."""
+    (same generator, same order), so one seed gives one load in both.
+    Rids start at ``rid_base`` (past any restored request's)."""
     from akka_allreduce_tpu_torch.serving import Request
     rng = np.random.default_rng(args.seed)
     arrivals = np.zeros(args.requests)
@@ -1341,11 +1423,11 @@ def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
     slack = getattr(args, "deadline_slack_s", 0.0)
     t0 = time.monotonic()
     reqs = []
-    for rid in range(args.requests):
+    for i in range(args.requests):
         plen = int(rng.integers(p_lo, p_hi + 1))
-        arrival = t0 + float(arrivals[rid])
+        arrival = t0 + float(arrivals[i])
         reqs.append(Request(
-            rid=rid,
+            rid=rid_base + i,
             prompt=tuple(int(x) for x in rng.integers(0, args.vocab,
                                                        size=plen)),
             max_new_tokens=args.max_new_tokens,
@@ -1355,15 +1437,17 @@ def make_requests(args: argparse.Namespace, p_lo: int, p_hi: int) -> list:
     return reqs
 
 
-def build_engine(args: argparse.Namespace, params: dict, mcfg):
+def build_engine(args: argparse.Namespace, params: dict, mcfg,
+                 tracer=None):
     """The engine ``serve`` runs: slot or paged, plain or speculative,
-    with the flags' KV format, buckets and sampling."""
+    with the flags' KV format, buckets, sampling and watchdog."""
     from akka_allreduce_tpu_torch.serving import (
         EngineConfig, PagedEngineConfig, PagedServingEngine,
         PagedSpeculativeEngine, ServingEngine, SpeculativeEngine)
     common = dict(
         num_slots=args.slots, decode_steps=args.decode_steps,
         kv_dtype="int8" if args.kv_cache == "int8" else None,
+        watchdog_timeout_s=args.watchdog_timeout or None,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         draft_steps=args.draft_steps if args.speculative else 0)
     draft = (make_draft_model(params, mcfg, args.draft_layers)
@@ -1373,12 +1457,13 @@ def build_engine(args: argparse.Namespace, params: dict, mcfg):
             **common, page_size=args.page_size, num_pages=args.num_pages,
             attention_impl=args.paged_attention)
         if draft is not None:
-            return PagedSpeculativeEngine(params, mcfg, *draft, ecfg)
-        return PagedServingEngine(params, mcfg, ecfg)
+            return PagedSpeculativeEngine(params, mcfg, *draft, ecfg,
+                                          tracer=tracer)
+        return PagedServingEngine(params, mcfg, ecfg, tracer=tracer)
     ecfg = EngineConfig(**common, prefill_buckets=prefill_buckets(args))
     if draft is not None:
-        return SpeculativeEngine(params, mcfg, *draft, ecfg)
-    return ServingEngine(params, mcfg, ecfg)
+        return SpeculativeEngine(params, mcfg, *draft, ecfg, tracer=tracer)
+    return ServingEngine(params, mcfg, ecfg, tracer=tracer)
 
 
 def serve_model(args: argparse.Namespace, device, dtype=None):
@@ -1403,39 +1488,134 @@ def serve_model(args: argparse.Namespace, device, dtype=None):
     return mcfg, init_transformer(generator, mcfg)
 
 
+def _load_resumed(args: argparse.Namespace) -> list:
+    """``--drain-dir``'s drained requests (empty without the flag or a
+    file), each replay checked against the prefill buckets. Raises
+    ValueError with the operator's message."""
+    if not args.drain_dir:
+        return []
+    from akka_allreduce_tpu_torch.serving import load_drained
+    try:
+        resumed = load_drained(args.drain_dir)
+    except (ValueError, KeyError, TypeError, OSError) as exc:
+        raise ValueError(
+            f"--drain-dir {args.drain_dir} holds an unreadable drained-"
+            f"requests state ({exc}); move it aside to start fresh, or "
+            f"restore it from the preempted run's copy") from None
+    buckets = prefill_buckets(args)
+    too_long = [(rr.req.rid, len(rr.req.prompt) + len(rr.generated))
+                for rr in resumed
+                if buckets and len(rr.req.prompt) + len(rr.generated)
+                > max(buckets)]
+    if too_long:
+        rid, n = max(too_long, key=lambda t: t[1])
+        raise ValueError(
+            f"--drain-dir holds {len(too_long)} drained request(s) whose "
+            f"replay (prompt + generated) exceeds the largest prefill "
+            f"bucket {max(buckets)} (worst: rid {rid} needs {n}); add a "
+            f"bucket >= {n} to --prefill-buckets or drop the flag for "
+            f"exact-length prefill")
+    return resumed
+
+
+@contextlib.contextmanager
+def _drain_on_sigterm(request_drain):
+    """SIGTERM drains instead of killing the in-flight requests while the
+    block runs; the previous handler comes back after it. (Only the main
+    thread may set a handler; elsewhere the block runs without one.)"""
+    import signal
+    import threading
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    prev = signal.signal(signal.SIGTERM, lambda *_: request_drain())
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
 def run_serve(args: argparse.Namespace):
-    """Build the model and engine, serve the synthetic load, and return
+    """Build the model and engine, restore ``--drain-dir``'s drained
+    requests, serve the synthetic load, persist a drain, and return
     ``(report, results, engine)``: the summary dict the command prints,
     ``{rid: (tokens, reason)}``, and the engine (its parameters and
-    counters). Raises ValueError on a bad flag combination or checkpoint
-    and RuntimeError when CUDA is asked for and absent."""
+    counters). A SIGTERM or a ``--preempt-poll`` notice drains the
+    engine. Raises ValueError on a bad flag combination, checkpoint or
+    drain file and RuntimeError when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.runtime.tracing import tracer_to_file
     from akka_allreduce_tpu_torch.serving import (
-        QueueFull, RequestScheduler, SchedulerConfig, ServingMetrics,
-        serve_loop)
+        QueueFull, RequestScheduler, RetryPolicy, SchedulerConfig,
+        ServingMetrics, clear_drained, persist_drained, serve_loop)
 
     device = resolve_device(args.device)
     p_lo, p_hi = _validate(args)
+    # drained requests load before the synthetic rids are drawn: a
+    # restored request keeps its rid, so the fresh load starts past it
+    resumed = _load_resumed(args)
+    rid_base = 1 + max((rr.req.rid for rr in resumed), default=-1)
     mcfg, params = serve_model(args, device)
-    engine = build_engine(args, params, mcfg)
-    metrics = ServingMetrics()
-    if args.paged:
-        metrics.attach_paging(engine.paging_summary)
-    sched = RequestScheduler(SchedulerConfig(max_queue_depth=256,
-                                             policy=args.policy),
-                             num_slots=args.slots,
-                             on_reject=metrics.on_reject)
-    for req in make_requests(args, p_lo, p_hi):
-        metrics.on_submit(req.rid)
-        try:
-            sched.submit(req)
-        except QueueFull:
-            pass  # counted through on_reject
-    results = serve_loop(engine, sched, metrics=metrics)
+    with contextlib.ExitStack() as stack:
+        tracer = stack.enter_context(tracer_to_file(args.trace_file))
+        metrics = ServingMetrics(tracer=tracer)
+        if args.metrics_file:
+            stack.enter_context(metrics.registry.start_snapshotter(
+                args.metrics_file, args.metrics_interval))
+        engine = build_engine(args, params, mcfg, tracer=tracer)
+        stack.callback(engine.close)
+        if args.paged:
+            metrics.attach_paging(engine.paging_summary)
+        sched = RequestScheduler(
+            SchedulerConfig(max_queue_depth=args.queue_depth,
+                            policy=args.policy, th_step=args.th_step,
+                            retry=RetryPolicy(
+                                max_attempts=args.max_attempts,
+                                base_delay=args.retry_base_delay,
+                                jitter=args.retry_jitter),
+                            tpot_estimate=args.tpot_estimate,
+                            seed=args.seed),
+            num_slots=args.slots, on_reject=metrics.on_reject)
+        for rr in resumed:
+            metrics.on_submit(rr.req.rid)
+        if resumed:
+            print(f"restoring {len(resumed)} drained request(s) from "
+                  f"{args.drain_dir}", file=sys.stderr)
+        for req in make_requests(args, p_lo, p_hi, rid_base):
+            metrics.on_submit(req.rid)
+            try:
+                sched.submit(req)
+            except QueueFull:
+                pass  # counted through on_reject
+        watcher = None
+        if args.preempt_poll:
+            from akka_allreduce_tpu_torch.runtime.preempt import (
+                GCE_PREEMPTED_URL, PreemptionWatcher)
+            url = (GCE_PREEMPTED_URL if args.preempt_poll == "gce"
+                   else args.preempt_poll)
+            watcher = stack.enter_context(PreemptionWatcher(
+                engine.request_drain, url=url,
+                interval_s=args.preempt_interval))
+        with _drain_on_sigterm(engine.request_drain):
+            results = serve_loop(engine, sched, metrics=metrics,
+                                 resume=resumed)
+        drained = engine.drained
+        drain_path = None
+        if args.drain_dir:
+            if drained:
+                drain_path = persist_drained(args.drain_dir, drained,
+                                             metrics=metrics)
+                print(f"persisted {len(drained)} drained request(s) -> "
+                      f"{drain_path} (restore with --drain-dir on the "
+                      f"next run)", file=sys.stderr)
+            else:
+                # the restored requests finished: a stale drain file
+                # must not be replayed into a third run
+                clear_drained(args.drain_dir)
     report = {
         "config": {"slots": args.slots, "requests": args.requests,
                    "load": args.load, "policy": args.policy,
-                   "th_step": 0.0, "kv_cache": args.kv_cache,
+                   "th_step": args.th_step, "kv_cache": args.kv_cache,
                    "prefill_buckets": list(prefill_buckets(args)),
                    "decode_steps": args.decode_steps,
                    "max_new_tokens": args.max_new_tokens,
@@ -1456,27 +1636,254 @@ def run_serve(args: argparse.Namespace):
                    "matmul_allow_tf32":
                        torch.backends.cuda.matmul.allow_tf32},
         "blocked_on_memory": sched.blocked_on_memory,
+        **({"preempt_notice": watcher.fired,
+            "preempt_polls": watcher.polls} if watcher else {}),
         "completed_reasons": {
             reason: sum(1 for _toks, r in results.values() if r == reason)
             for reason in {r for _, r in results.values()}},
+        "drained": len(drained),
         "dead_letter": [
             {"rid": req.rid, "attempts": req.attempts, "reason": rsn}
             for req, rsn in sched.dead_letter],
         "dead_letter_dropped": sched.dead_letter_dropped,
+        "resumed": len(resumed),
+        "drain_persisted": len(drained) if drain_path else 0,
         **({"speculative": engine.speculative_summary()}
            if args.speculative else {}),
+        "watchdog_trips": engine.watchdog_trips,
         "evictions": engine.evictions,
         "decode_dispatches": engine.decode_dispatches,
         "prefill_dispatches": engine.prefill_dispatches,
         "prefill_programs": len(engine.prefill_shapes),
         "kv_cache_mb": round(engine.kv_cache_bytes() / 1e6, 2),
+        # host vs device wall time of each decode dispatch, and the
+        # host's bubble between dispatches (telemetry/device.py)
+        "device_time": engine.device_time_summary(),
         **metrics.summary(),
     }
+    if args.trace_file:
+        print(f"trace -> {args.trace_file}", file=sys.stderr)
     return report, results, engine
+
+
+# the chaos selfcheck's model and load: the JAX harness's tiny shape
+CHAOS_MODEL = dict(vocab_size=61, d_model=32, n_heads=2, n_layers=2,
+                   d_ff=64, max_seq=48)
+CHAOS_SLOTS = 3
+CHAOS_EOS = 5
+# the armed watchdog of the chaos run (the JAX harness arms 0.15 s): the
+# injected hang holds its dispatch until the run ends, far past it, so a
+# busy host never races the hang, and a healthy dispatch of the tiny
+# model stays two orders of magnitude under it
+CHAOS_WATCHDOG_S = 1.0
+CHAOS_HANG_CAP_S = 120.0
+
+
+def chaos_requests() -> list:
+    """The harness's 10 requests (fresh objects each run: requests are
+    mutated in flight)."""
+    from akka_allreduce_tpu_torch.serving import Request
+    r = np.random.default_rng(11)
+    return [Request(
+        rid=rid,
+        prompt=tuple(int(x) for x in r.integers(
+            0, CHAOS_MODEL["vocab_size"], size=int(r.integers(2, 6)))),
+        max_new_tokens=8,
+        eos_token=CHAOS_EOS if rid % 2 else None,
+        submitted_at=0.0) for rid in range(10)]
+
+
+def held_hang_plan(points, seed: int = 0):
+    """A :class:`~akka_allreduce_tpu_torch.runtime.faults.FaultPlan` of
+    ``points`` whose hangs hold their dispatch until ``plan.release``
+    is set (at most ``CHAOS_HANG_CAP_S``), not for their duration: a
+    hang then outlasts any watchdog however busy the host, and the
+    abandoned dispatch wakes when the caller chooses."""
+    import threading
+
+    from akka_allreduce_tpu_torch.runtime.faults import FaultPlan
+    release = threading.Event()
+    plan = FaultPlan(points, seed=seed,
+                     sleep=lambda _s: release.wait(CHAOS_HANG_CAP_S))
+    plan.release = release
+    return plan
+
+
+def serve_until_done(make_engine, sched, metrics=None, plan=None,
+                     max_dispatches: "int | None" = None):
+    """``serve_loop`` over ``make_engine()`` with ``plan`` armed; each
+    drain's snapshots are restored into a fresh engine (the drained one's
+    device state goes with its "preempted" process) until the scheduler
+    has nothing unfinished. Returns (results, engines in order, restored
+    rids)."""
+    from akka_allreduce_tpu_torch.serving import serve_loop
+    engines = [make_engine()]
+    restored = set()
+    with (plan.armed() if plan is not None else contextlib.nullcontext()):
+        results = serve_loop(engines[-1], sched, metrics=metrics,
+                             max_dispatches=max_dispatches)
+        while engines[-1].drained or sched.unfinished:
+            fresh = make_engine()
+            for rr in engines[-1].drained:
+                restored.add(rr.req.rid)
+                sched.bind(rr.req, fresh.restore(rr))
+            engines.append(fresh)
+            results.update(serve_loop(fresh, sched, metrics=metrics,
+                                      max_dispatches=max_dispatches))
+    return results, engines, restored
+
+
+def run_chaos_selfcheck(args: argparse.Namespace) -> dict:
+    """``serve --selfcheck --chaos SEED``: the JAX command's fault-matrix
+    smoke. One seeded ``FaultPlan.chaos`` script injects a dispatch hang,
+    a dispatch exception, a NaN-poisoned lane and a preemption into one
+    serve run of a tiny slot engine; the drained requests are restored
+    into a fresh engine. Checked: every fault fired; every request ends
+    once with the fault-free run's tokens (bitwise, or for a restored
+    request under ``parity.greedy_agree``: a restore replays prompt +
+    generated through a T-row prefill where the uninterrupted run took
+    1-row decode steps); one watchdog trip; retries + dead letters ==
+    failed attempts; injected == survived; and a fault-free churn run
+    after the chaos run builds or loads no kernel library and meets no
+    prefill shape the warm-up did not (the port's counterpart of the JAX
+    harness's zero recompiles) with the warm-up's tokens bitwise."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch.device import resolve_device
+    from akka_allreduce_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_apply)
+    from akka_allreduce_tpu_torch.ops.kernels import build
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    from akka_allreduce_tpu_torch.runtime.faults import FaultPlan
+    from akka_allreduce_tpu_torch.serving import (
+        EngineConfig, RequestScheduler, RetryPolicy, SchedulerConfig,
+        ServingEngine, ServingMetrics)
+
+    _check_fault_flags(args)
+    if args.decode_steps < 1:
+        raise ValueError(f"--decode-steps must be >= 1, got "
+                         f"{args.decode_steps}")
+    device = resolve_device(args.device)
+    cfg = TransformerConfig(**CHAOS_MODEL)
+    params = init_transformer(
+        torch.Generator(device=device).manual_seed(0), cfg)
+    ecfg_warm = EngineConfig(num_slots=CHAOS_SLOTS,
+                             decode_steps=args.decode_steps)
+    ecfg = dataclasses.replace(ecfg_warm,
+                               watchdog_timeout_s=CHAOS_WATCHDOG_S)
+    scfg = SchedulerConfig(policy=args.policy,
+                           retry=RetryPolicy(max_attempts=4,
+                                             base_delay=0.0))
+
+    def run(metrics=None, plan=None, engine_cfg=ecfg):
+        sched = RequestScheduler(scfg, num_slots=CHAOS_SLOTS)
+        for r in chaos_requests():
+            sched.submit(r)
+        return serve_until_done(
+            lambda: ServingEngine(params, cfg, engine_cfg), sched,
+            metrics=metrics, plan=plan, max_dispatches=1000)
+
+    # the fault-free run: the tokens to hold against, and the warm-up
+    # (no watchdog: warm before you arm)
+    baseline, warm, _ = run(engine_cfg=ecfg_warm)
+    warm_shapes = set().union(*(e.prefill_shapes for e in warm))
+    libs_warm = set(build._LIBS)
+    plan = FaultPlan.chaos(args.chaos, slots=CHAOS_SLOTS)
+    plan = held_hang_plan(plan.points, seed=args.chaos)
+    metrics = ServingMetrics()
+    for r in chaos_requests():
+        metrics.on_submit(r.rid)
+    try:
+        chaos, engines, restored = run(metrics=metrics, plan=plan)
+    finally:
+        plan.release.set()
+    for e in engines:
+        e.close()
+    metrics.on_fault_injected(len(plan.fired))
+
+    def ref_logits(rid: int, toks: list):
+        req = chaos_requests()[rid]
+        seq = torch.tensor(list(req.prompt) + list(toks[:-1]),
+                           device=device)
+        with torch.no_grad():
+            logits = transformer_apply(params, seq[None], cfg)[0]
+        return logits[len(req.prompt) - 1:].float().cpu().numpy()
+
+    failures = []
+    kinds = {k for _site, k, _hit in plan.fired}
+    if not {"hang", "raise", "nan", "preempt"} <= kinds:
+        failures.append(f"not every fault fired: {sorted(plan.fired)}")
+    bitwise = {"restored": 0, "retried_or_untouched": 0}
+    for rid, (toks, reason) in baseline.items():
+        got = chaos.get(rid)
+        if got is None:
+            failures.append(f"rid={rid} missing from chaos run")
+            continue
+        same = list(got[0]) == list(toks) and got[1] == reason
+        kind = "restored" if rid in restored else "retried_or_untouched"
+        bitwise[kind] += same
+        if same:
+            continue
+        ok, why = (greedy_agree(toks, got[0], ref_logits(rid, toks))
+                   if rid in restored else (False, "not bitwise"))
+        if not ok:
+            failures.append(
+                f"rid={rid}: chaos ({got[1]}) {list(got[0])} != "
+                f"fault-free ({reason}) {list(toks)}: {why}")
+    if set(chaos) != set(baseline):
+        failures.append(f"rids {sorted(chaos)} != {sorted(baseline)}")
+    if metrics.watchdog_trips_total != 1:
+        failures.append(f"watchdog_trips_total="
+                        f"{metrics.watchdog_trips_total}, want 1")
+    if metrics.retries_total + metrics.dead_letter_total \
+            != metrics.requests_failed:
+        failures.append(
+            f"retry ledger off: {metrics.retries_total} retries + "
+            f"{metrics.dead_letter_total} dead letters != "
+            f"{metrics.requests_failed} failed attempts")
+    if metrics.fault_survived != metrics.fault_injected:
+        failures.append(
+            f"fault pair off: injected {metrics.fault_injected} != "
+            f"survived {metrics.fault_survived}")
+    # a fault-free churn run after recovery: nothing new to build
+    again, churn, _ = run()
+    for e in churn:
+        e.close()
+    new_shapes = set().union(*(e.prefill_shapes for e in churn)) \
+        - warm_shapes
+    new_libs = set(build._LIBS) - libs_warm
+    if new_shapes or new_libs:
+        failures.append(f"post-chaos churn met new prefill shapes "
+                        f"{sorted(new_shapes)} / kernel libraries "
+                        f"{sorted(new_libs)}")
+    for rid, out in again.items():
+        if list(out[0]) != list(baseline[rid][0]):
+            failures.append(f"rid={rid}: post-chaos churn diverged")
+    return {
+        "selfcheck": "ok" if not failures else "FAIL",
+        "chaos_seed": args.chaos,
+        "decode_steps": args.decode_steps,
+        "policy": args.policy,
+        "device": device.type,
+        "faults_fired": [list(f) for f in plan.fired],
+        "watchdog_trips": metrics.watchdog_trips_total,
+        "retries": metrics.retries_total,
+        "dead_letters": metrics.dead_letter_total,
+        "discarded_to_wasted": metrics.wasted_tokens,
+        "restored": sorted(restored),
+        "bitwise": bitwise,
+        "churn_new_prefill_shapes": len(new_shapes),
+        "churn_kernel_libraries_loaded": len(new_libs),
+        "failures": failures,
+    }
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
     try:
+        if args.selfcheck or args.chaos is not None:
+            out = run_chaos_selfcheck(args)
+            print(json.dumps(out))
+            return 0 if out["selfcheck"] == "ok" else 1
         report, _results, _engine = run_serve(args)
     except ValueError as exc:
         print(f"error: {exc}", file=sys.stderr)

@@ -24,9 +24,8 @@ resolve an address back to a ref object — the TCP router interns refs
 so identity checks in the engines (self-bypass, deathwatch) keep
 working.
 
-``resumable_to_frame`` / ``frame_to_resumable`` (JAX ``:424-454``) wait
-for the port's ``ResumableRequest`` (ROADMAP A6, drain/restore); the
-``ResumeFrame`` itself is here.
+``resumable_to_frame`` / ``frame_to_resumable`` map the serving
+engine's drained ``ResumableRequest`` to and from its ``ResumeFrame``.
 """
 
 from __future__ import annotations
@@ -438,6 +437,30 @@ def frame_to_request(frame: SubmitFrame):
                    stop_tokens=frame.stop_tokens,
                    deadline=frame.deadline, attempts=frame.attempts,
                    seed=frame.seed)
+
+
+def resumable_to_frame(rr, replica: int = -1) -> ResumeFrame:
+    """Map a drained :class:`~akka_allreduce_tpu_torch.serving.engine
+    .ResumableRequest` to its wire frame. Same clock-domain rule as
+    :func:`request_to_frame`: the deadline field crosses the wire as
+    whatever the caller put there."""
+    req = rr.req
+    return ResumeFrame(rid=req.rid, prompt=req.prompt,
+                       max_new_tokens=req.max_new_tokens,
+                       generated=rr.generated,
+                       eos_token=req.eos_token,
+                       stop_tokens=req.stop_tokens or (),
+                       deadline=req.deadline, attempts=req.attempts,
+                       seed=req.seed, replica=replica)
+
+
+def frame_to_resumable(frame: ResumeFrame):
+    """The restore-side half of :func:`resumable_to_frame`. ``slot`` is
+    -1: a snapshot that crossed a process boundary has no slot until
+    the receiving engine's admit assigns one."""
+    from akka_allreduce_tpu_torch.serving.engine import ResumableRequest
+    return ResumableRequest(req=frame_to_request(frame),
+                            generated=frame.generated, slot=-1)
 
 
 def _pack_addr(addr: Addr) -> bytes:

@@ -25,7 +25,9 @@ installed, converts a JAX checkpoint step into this format
 (``convert.py train_state_from_jax``), which :meth:`CheckpointManager.
 restore` and ``models/train.py load_optimizer_state`` then read as they
 read the port's own. The JSON sidecars (``save_state_json`` /
-``load_state_json``) are the JAX package's: one atomic file per name.
+``load_state_json`` / ``delete_state_json``) are the JAX package's: one
+atomic file per name, so a serve drain persisted by either package is
+restored by the other.
 """
 
 from __future__ import annotations
@@ -70,6 +72,16 @@ def load_state_json(directory: str, name: str) -> Optional[dict]:
             return json.load(f)
     except FileNotFoundError:
         return None
+
+
+def delete_state_json(directory: str, name: str) -> bool:
+    """Remove a :func:`save_state_json` file (a consumed drain must not be
+    restored twice); returns whether a file existed."""
+    try:
+        os.remove(os.path.join(directory, f"{name}.json"))
+        return True
+    except FileNotFoundError:
+        return False
 
 
 @dataclasses.dataclass(frozen=True)

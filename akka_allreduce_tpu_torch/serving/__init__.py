@@ -1,8 +1,9 @@
 """Serving plane of the port: continuous-batching decode, greedy or
-sampled, on float or int8 KV, plain or speculative.
+sampled, on float or int8 KV, plain or speculative, under the watchdog,
+fault injection and drain/restore.
 
 Counterpart of ``akka_allreduce_tpu/serving``: ``engine.py`` (slot and
-paged engines, ``serve_loop``), ``paging.py`` (the page allocator),
+paged engines, ``serve_loop``, the drain file), ``paging.py`` (the page allocator),
 ``scheduler.py`` (admission queue, backpressure, retry budget),
 ``metrics.py`` (``ServingMetrics``) and ``admission.price``. Replicas,
 routers, the stress load generator and the admission controller are
@@ -12,12 +13,19 @@ Entry point: ``python -m akka_allreduce_tpu_torch.cli serve`` (cli.py).
 """
 
 from akka_allreduce_tpu_torch.serving.engine import (
+    DRAIN_STATE_NAME,
+    RETRYABLE_REASONS,
     EngineConfig,
     PagedEngineConfig,
     PagedServingEngine,
     PagedSpeculativeEngine,
+    ResumableRequest,
     ServingEngine,
     SpeculativeEngine,
+    WatchdogTimeout,
+    clear_drained,
+    load_drained,
+    persist_drained,
     serve_loop,
 )
 from akka_allreduce_tpu_torch.serving.metrics import (
@@ -35,6 +43,7 @@ from akka_allreduce_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "AdmitPlan",
+    "DRAIN_STATE_NAME",
     "EngineConfig",
     "Histogram",
     "PagePool",
@@ -43,12 +52,18 @@ __all__ = [
     "PagedSpeculativeEngine",
     "QueueFull",
     "Request",
+    "RETRYABLE_REASONS",
     "RequestScheduler",
+    "ResumableRequest",
     "RetryPolicy",
     "SchedulerConfig",
     "ServingEngine",
     "ServingMetrics",
     "SpeculativeEngine",
+    "WatchdogTimeout",
+    "clear_drained",
+    "load_drained",
     "pages_for",
+    "persist_drained",
     "serve_loop",
 ]

@@ -45,15 +45,53 @@ What differs from the JAX engine:
   pool keeps the JAX layout, which the kernel reads as it is.
 * The per-lane vectors are uploaded before every block instead of
   carried as device outputs between blocks.
-* Left for ROADMAP A6, part 2: the watchdog and fault injection,
-  drain/restore, tracer spans and device timers. The finite-logits
-  guard (a NaN-poisoned lane fails its request, not the engine) is
-  kept.
+
+Faults (the JAX engine's story, ``runtime/faults.py`` sites
+``<site_prefix>.dispatch`` and ``<site_prefix>.logits``): a lane whose
+logits turn non-finite fails its request (``nan``), not the engine; with
+``watchdog_timeout_s`` every decode dispatch runs, readback included, on
+a guard thread, and a dispatch that is not back in time
+(:class:`WatchdogTimeout`) or raises an injected fault fails every
+in-flight request into the scheduler's retry budget and rebuilds the
+device state (``_recover``): fresh caches from ``_fresh_state()``, pages
+released through ``_free_slot``. The live pool is never zeroed in place,
+and every operand of a dispatch (state dict, position and lane vectors,
+page tables) is taken before it is submitted, so a dispatch that wakes
+after it was abandoned writes only into the tensors it was given. The
+guard thread enters the engine's CUDA stream (recorded when the engine
+is built) and ``no_grad``, both thread-local. What the watchdog can do on
+a GPU: turn a host-side stall (an injected hang, a host late to read
+back) into recovery. A kernel that never returns still holds the
+stream, and the rebuilt engine's next dispatch queues behind it; the
+watchdog then trips again and again until the retry budget
+dead-letters the requests. A CUDA error, a failed kernel build or a
+failed launch is no injected fault: it propagates and fails the run.
+Recovery never moves the engine to the CPU or the kernel path to the
+gather path.
+
+Preemption: :meth:`ServingEngine.request_drain` (a SIGTERM handler, the
+preemption watcher, or an injected ``preempt`` at ``serve.loop``) makes
+``serve_loop`` snapshot every in-flight request as a
+:class:`ResumableRequest` (prompt + tokens so far) and return;
+``persist_drained`` / ``load_drained`` carry them across a process
+boundary in the JAX package's JSON layout, and ``restore`` replays
+prompt + generated through prefill and decodes the rest of the budget
+(a sampled lane resumes at its emitted-token index, with its request's
+own key).
+
+Tracing: with a ``tracer`` every decode dispatch is a ``serve_step``
+span and every prefill a ``serve_prefill`` span; recoveries and drains
+are ``serve_recover`` / ``serve_drain`` records and COW splits
+``serve_cow_split``. ``device_time_summary`` splits each decode
+dispatch into host (launch) and device (blocking readback) wall time
+(telemetry/device.py).
 """
 
 from __future__ import annotations
 
 import bisect
+import concurrent.futures
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -85,6 +123,7 @@ from akka_allreduce_tpu_torch.models.transformer import (
 )
 from akka_allreduce_tpu_torch.ops.kernels import attention as kernels
 from akka_allreduce_tpu_torch.parallel.ring_attention import NEG_INF
+from akka_allreduce_tpu_torch.runtime.faults import InjectedFault, maybe_fail
 from akka_allreduce_tpu_torch.serving.paging import PagePool, pages_for
 from akka_allreduce_tpu_torch.serving.scheduler import (
     Request,
@@ -96,9 +135,14 @@ from akka_allreduce_tpu_torch.serving.scheduler import (
 MAX_STOP_TOKENS = 4
 
 
+class WatchdogTimeout(RuntimeError):
+    """The decode dispatch and its readback exceeded
+    ``watchdog_timeout_s``."""
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine shape knobs (the JAX config's, less the watchdog).
+    """Engine shape knobs (the JAX config's).
 
     ``prefill_buckets``: strictly increasing prompt-length buckets; a
     prompt pads up to the smallest covering one and its logits are read
@@ -117,13 +161,21 @@ class EngineConfig:
     every pick with the request's key (``sample``); 0 is greedy.
 
     ``draft_steps`` > 0 arms speculation (the speculative engines); it
-    excludes ``decode_steps > 1`` and ``prefill_buckets``."""
+    excludes ``decode_steps > 1`` and ``prefill_buckets``.
+
+    ``watchdog_timeout_s``: bound on a decode dispatch and its blocking
+    readback. None dispatches inline; set, every decode dispatch runs on
+    a guard thread and one not back in time raises
+    :class:`WatchdogTimeout`, which the engine turns into per-request
+    failures and a rebuilt state. Size it at several times the worst
+    healthy dispatch, and arm it after a warm-up."""
 
     num_slots: int = 4
     prefill_buckets: tuple = ()
     kv_dtype: Optional[str] = None
     decode_steps: int = 1
     max_stop_tokens: int = MAX_STOP_TOKENS
+    watchdog_timeout_s: Optional[float] = None
     temperature: float = 0.0
     top_k: Optional[int] = None
     top_p: Optional[float] = None
@@ -141,6 +193,10 @@ class EngineConfig:
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, "
                              f"got {self.num_slots}")
+        if self.watchdog_timeout_s is not None \
+                and self.watchdog_timeout_s <= 0:
+            raise ValueError(f"watchdog_timeout_s must be > 0, "
+                             f"got {self.watchdog_timeout_s}")
         if self.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, "
                              f"got {self.decode_steps}")
@@ -820,14 +876,35 @@ class _SlotState:
     emitted: list
 
 
+@dataclasses.dataclass(frozen=True)
+class ResumableRequest:
+    """A drained in-flight request: what a fresh engine needs to continue
+    it. ``generated`` is the tokens emitted so far; :meth:`ServingEngine
+    .restore` replays ``req.prompt + generated`` through prefill and
+    decodes the remaining budget. ``slot`` is the slot the request held
+    at drain time (the serve loop releases the scheduler's binding of
+    it); -1 for a snapshot that crossed a process boundary."""
+
+    req: Request
+    generated: tuple
+    slot: int
+
+
 class ServingEngine:
     """Slot owner + device-state holder. The scheduler decides WHAT runs
     (serving/scheduler.py); the engine runs it. The device is the
-    parameters' device."""
+    parameters' device.
+
+    ``tracer`` (runtime/tracing.py) receives the engine's spans and
+    records; ``site_prefix`` names its fault sites (``<prefix>.dispatch``,
+    ``<prefix>.logits``) so a plan can script a fault into one engine of
+    several. :meth:`close` (or the context manager) stops the watchdog's
+    guard thread."""
 
     def __init__(self, params: dict, cfg: TransformerConfig,
                  ecfg: EngineConfig = EngineConfig(), metrics=None,
-                 clock=time.monotonic):
+                 tracer=None, clock=time.monotonic,
+                 site_prefix: str = "engine"):
         if ecfg.prefill_buckets and ecfg.prefill_buckets[-1] > cfg.max_seq:
             raise ValueError(
                 f"largest prefill bucket {ecfg.prefill_buckets[-1]} "
@@ -836,8 +913,14 @@ class ServingEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.metrics = metrics
+        self.tracer = tracer
         self.clock = clock
+        self.site_prefix = site_prefix
         self.device = params["embed"].device
+        # the stream every dispatch runs on, whichever thread runs it (a
+        # thread's current stream is its own)
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self._state = self._fresh_state()
         n = ecfg.num_slots
         self._pos = np.zeros((n,), np.int32)
@@ -862,12 +945,28 @@ class ServingEngine:
         # tokens decoded for requests later failed or evicted
         self.discarded_tokens = 0
         self.evictions = 0
+        self.watchdog_trips = 0
+        self._draining = False
+        self.drained: list[ResumableRequest] = []
+        # the watchdog's guard thread, made at the first guarded dispatch;
+        # a tripped (still stalled) one is abandoned and replaced
+        self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = \
+            None
+        # the futures of the dispatches the watchdog gave up: each may
+        # still wake and run, and a caller may wait for them
+        self.abandoned: list = []
+        # device-time attribution (telemetry/device.py), made at the first
+        # dispatch so that it lands on the registry the serve loop attaches
+        self._dtimer = None
 
     def _needs_keys(self) -> bool:
         """Does any dispatch of this engine draw from PRNG keys?"""
         return self.ecfg.sample is not None
 
     def _fresh_state(self) -> dict:
+        """The device state as built: at construction, and after a hung
+        or raising dispatch (new tensors; the abandoned ones stay with
+        the dispatch that holds them)."""
         base = init_kv_cache(self.cfg, self.ecfg.num_slots,
                              device=self.device,
                              kv_dtype=self.ecfg.kv_dtype)
@@ -877,6 +976,46 @@ class ServingEngine:
     def _zero_logits(self) -> torch.Tensor:
         return torch.zeros((self.ecfg.num_slots, self.cfg.vocab_size),
                            dtype=self.cfg.dtype, device=self.device)
+
+    def _on_stream(self):
+        """The engine's stream as the calling thread's current stream."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _device_timer(self):
+        if self._dtimer is None:
+            from akka_allreduce_tpu_torch.telemetry.device import DeviceTimer
+            # annotate_site="dispatch": profiler ranges are thread-local,
+            # and with the watchdog armed the dispatch runs on the guard
+            # thread, so the range opens inside the dispatched callable
+            self._dtimer = DeviceTimer(
+                "engine",
+                registry=(self.metrics.registry
+                          if self.metrics is not None else None),
+                tracer=self.tracer, annotate_site="dispatch")
+        return self._dtimer
+
+    def close(self) -> None:
+        """Stop the watchdog's guard thread (idempotent). The engine stays
+        readable (summaries, drained snapshots) but must not dispatch
+        again."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            self._executor = None
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def device_time_summary(self) -> dict:
+        """Host / device / dispatch-gap histograms over this engine's
+        decode dispatches (telemetry/device.py): host ms launches the
+        dispatch's work, device ms waits for its readback, and
+        ``dispatch_gap_ms`` is the host's bubble between dispatches."""
+        return self._device_timer().summary()
 
     # -- slot introspection -------------------------------------------
 
@@ -909,7 +1048,7 @@ class ServingEngine:
                 f"{buckets[-1]}")
         return buckets[i]
 
-    def _validate_admit(self, req: Request) -> tuple:
+    def _validate_admit(self, req: Request, emitted: tuple) -> tuple:
         """The admission contract checks; returns the stop-token tuple."""
         n = len(req.prompt)
         if n < 1:
@@ -933,51 +1072,70 @@ class ServingEngine:
                 f"request {req.rid}: {len(stops)} stop tokens exceed the "
                 f"block's static width max_stop_tokens="
                 f"{self.ecfg.max_stop_tokens}")
+        if len(emitted) >= req.max_new_tokens:
+            raise ValueError(
+                f"request {req.rid}: restore carries {len(emitted)} "
+                f"generated tokens, >= its budget {req.max_new_tokens}")
         return stops
 
-    def can_admit(self, req: Request) -> bool:
+    def can_admit(self, req: Request, emitted: tuple = ()) -> bool:
         """Memory gate beyond a free slot: always true for the slot
         engine (a slot IS its reservation)."""
         return True
 
+    def _prefill_span(self, req: Request, slot: int, n_full: int,
+                      **fields):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span("serve_prefill", rid=req.rid, slot=slot,
+                                prompt_len=n_full, **fields)
+
     @torch.no_grad()
-    def _prefill_into(self, slot: int, req: Request) -> None:
-        """The slot engine's lane write, exact-length or padded up to
-        its bucket."""
-        n = len(req.prompt)
+    def _prefill_into(self, slot: int, req: Request, full: tuple) -> None:
+        """The slot engine's lane write of ``full`` (the prompt, and on a
+        restore the tokens generated before the drain), exact-length or
+        padded up to its bucket."""
+        n = len(full)
         length = self._bucket_len(n)
         padded = torch.zeros((1, length), dtype=torch.long,
                              device=self.device)
-        padded[0, :n] = torch.as_tensor(req.prompt, dtype=torch.long)
-        self._state = _engine_prefill(
-            self.params, self._state, padded, slot, self.cfg,
-            true_len=n if length != n else None)
+        padded[0, :n] = torch.as_tensor(full, dtype=torch.long)
+        with self._prefill_span(req, slot, n, bucket=length):
+            self._state = _engine_prefill(
+                self.params, self._state, padded, slot, self.cfg,
+                true_len=n if length != n else None)
         self.prefill_dispatches += 1
         self.prefill_shapes.add(length)
 
-    def admit(self, req: Request) -> int:
-        """Prefill ``req`` into a free slot; returns the slot index."""
-        stops = self._validate_admit(req)
+    def admit(self, req: Request, emitted: tuple = ()) -> int:
+        """Prefill ``req`` into a free slot; returns the slot index.
+
+        ``emitted`` is the restore hook: tokens the request generated in
+        an earlier engine, replayed through prefill after the prompt. The
+        decode budget shrinks by ``len(emitted)``, and a sampled lane's
+        emitted-token index starts there."""
+        stops = self._validate_admit(req, emitted)
         try:
             slot = self._slots.index(None)
         except ValueError:
             raise RuntimeError("no free slot (admit gated on "
                                "free_slot_count)") from None
-        self._prefill_into(slot, req)
-        self._pos[slot] = len(req.prompt)
+        full = tuple(req.prompt) + tuple(emitted)
+        self._prefill_into(slot, req, full)
+        self._pos[slot] = len(full)
         self._eos[slot] = -1 if req.eos_token is None else req.eos_token
         self._stops[slot, :] = -1
         for j, t in enumerate(stops[:self.ecfg.max_stop_tokens]):
             self._stops[slot, j] = t
-        self._remaining[slot] = req.max_new_tokens
-        self._step_idx[slot] = 0
+        self._remaining[slot] = req.max_new_tokens - len(emitted)
+        self._step_idx[slot] = len(emitted)
         if self._needs_keys():
             seed = req.seed if req.seed is not None else req.rid
             self._key_data[slot] = prng.key(seed).numpy()
-        self._slots[slot] = _SlotState(req=req, emitted=[])
+        self._slots[slot] = _SlotState(req=req, emitted=list(emitted))
         self.peak_occupied = max(self.peak_occupied, self.occupied)
         if self.metrics is not None:
-            self.metrics.on_admit(req.rid, slot, len(req.prompt))
+            self.metrics.on_admit(req.rid, slot, len(full))
         return slot
 
     # -- decode ---------------------------------------------------------
@@ -1003,6 +1161,8 @@ class ServingEngine:
         self._step_idx[i] = 0
         self._key_data[i, :] = 0
 
+    # -- failure handling ----------------------------------------------
+
     def _fail_lane(self, i: int, reason: str) -> tuple:
         """Fail slot ``i``'s request (its partial decode discarded) and
         free the slot; returns the completion tuple the serve loop
@@ -1013,9 +1173,99 @@ class ServingEngine:
         if self.metrics is not None:
             self.metrics.on_discard(slot.req.rid, n)
             self.metrics.on_failure(slot.req.rid, reason)
-            self.metrics.on_fault_survived(reason)
         self._free_slot(i)
         return (i, slot.req, [], reason)
+
+    def _fail_poisoned(self, i: int) -> tuple:
+        """A lane whose logits went non-finite: its request fails, the
+        engine serves on."""
+        out = self._fail_lane(i, "nan")
+        if self.metrics is not None:
+            self.metrics.on_fault_survived("nan")
+        return out
+
+    def _recover(self, reason: str) -> list[tuple]:
+        """A dispatch hung past the watchdog or raised: fail every
+        occupied slot's request (the serve loop retries or dead-letters
+        them) and rebuild the device state as built. The tensors the
+        failed dispatch holds are dropped with it, never reused or zeroed
+        in place."""
+        failures = [self._fail_lane(i, reason)
+                    for i, s in enumerate(self._slots) if s is not None]
+        self._state = self._fresh_state()
+        if self._dtimer is not None:
+            # the stall and rebuild are recovery, not a scheduling bubble
+            self._dtimer.reset_gap()
+        if self.metrics is not None:
+            self.metrics.on_fault_survived(reason)
+        if self.tracer is not None:
+            self.tracer.record("serve_recover", reason=reason,
+                               failed=len(failures))
+        return failures
+
+    def _guarded_dispatch(self, fn):
+        """Run one dispatch and its readback, under the watchdog when
+        armed. The fault site ``<prefix>.dispatch`` lives inside the
+        guarded callable, so an injected hang stalls what a late readback
+        would stall. The callable enters the engine's stream and
+        ``no_grad`` (both thread-local). A tripped thread is abandoned
+        with its executor, which is replaced for the next dispatch."""
+        wd = self.ecfg.watchdog_timeout_s
+        site = f"{self.site_prefix}.dispatch"
+
+        def guarded():
+            maybe_fail(site)
+            with torch.no_grad(), self._on_stream():
+                return fn()
+
+        if wd is None:
+            return guarded()
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="engine-dispatch")
+        fut = self._executor.submit(guarded)
+        try:
+            return fut.result(timeout=wd)
+        except concurrent.futures.TimeoutError:
+            fut.cancel()
+            self.abandoned.append(fut)
+            self._executor.shutdown(wait=False)
+            self._executor = None
+            raise WatchdogTimeout(
+                f"decode dispatch exceeded watchdog_timeout_s={wd}"
+            ) from None
+
+    def _dispatch(self, run, **fields):
+        """One decode dispatch: ``run(dspan)`` (the device work and its
+        readback, on operands the caller took beforehand) under the
+        ``serve_step`` span, the device timer and the watchdog. Returns
+        ``(result, None)``, or ``(None, failures)`` after a hung or
+        raising dispatch was recovered."""
+        span = (self.tracer.span("serve_step", **fields)
+                if self.tracer is not None else contextlib.nullcontext())
+        try:
+            with span, self._device_timer().span(**fields) as dspan:
+                return self._guarded_dispatch(lambda: run(dspan)), None
+        except WatchdogTimeout:
+            self.watchdog_trips += 1
+            if self.metrics is not None:
+                self.metrics.on_watchdog_trip()
+            return None, self._recover("watchdog")
+        except InjectedFault:
+            return None, self._recover("fault")
+
+    def _maybe_poison(self) -> None:
+        """The ``nan`` fault hook: overwrite the scheduled lane's carried
+        logits (every lane's when the point names none) with NaN before
+        the dispatch, which the finite guard must catch."""
+        pt = maybe_fail(f"{self.site_prefix}.logits")
+        if pt is None or pt.kind != "nan":
+            return
+        logits = self._state["logits"]
+        if pt.slot is None:
+            logits.fill_(float("nan"))
+        else:
+            logits[pt.slot] = float("nan")
 
     def _evict_expired(self, finished: list) -> None:
         """Mid-flight deadline enforcement: between dispatches, a running
@@ -1038,6 +1288,42 @@ class ServingEngine:
                 finished.append((i, req, [], "evicted"))
                 self._free_slot(i)
 
+    # -- drain / restore (preemption) ----------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def request_drain(self) -> None:
+        """Preemption signal (a SIGTERM handler, the preemption watcher,
+        an injected fault): the serve loop stops admitting and calls
+        :meth:`drain`. Only sets a flag, so any thread may call it."""
+        self._draining = True
+
+    def drain(self) -> list[ResumableRequest]:
+        """Snapshot every in-flight request as a :class:`ResumableRequest`
+        and free its slot; host bookkeeping only. The snapshots are also
+        kept on ``self.drained``."""
+        out = []
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            out.append(ResumableRequest(
+                req=slot.req, generated=tuple(slot.emitted), slot=i))
+            self._free_slot(i)
+        self.drained = out
+        if self.tracer is not None:
+            self.tracer.record("serve_drain", in_flight=len(out))
+        return out
+
+    def restore(self, rr: ResumableRequest) -> int:
+        """Continue a drained request in this engine: replay prompt +
+        generated through prefill and decode the remaining budget.
+        Returns the slot; the caller binds it in its scheduler."""
+        return self.admit(rr.req, emitted=rr.generated)
+
+    # -- the dispatch paths --------------------------------------------
+
     def _lane_step(self):
         """The lane decode the dispatches run: (params, kv, tok, pos,
         write_mask) -> (kv, logits)."""
@@ -1046,7 +1332,10 @@ class ServingEngine:
         return decode
 
     def _vector(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr, device=self.device)
+        """A copy of host vector ``arr`` on the engine's device (never a
+        view of it: the host changes it while a dispatch may still hold
+        it)."""
+        return torch.tensor(arr, device=self.device)
 
     def _sample_operands(self) -> dict:
         """The sampled dispatch's extra operands; empty when greedy."""
@@ -1078,15 +1367,33 @@ class ServingEngine:
         """Advance every occupied slot by ``decode_steps`` tokens.
         Returns completions ``(slot, request, tokens, reason)`` — reason
         ``eos`` / ``stop`` / ``max_tokens`` for successes, ``nan`` for a
-        poisoned lane, ``evicted`` (terminal, no tokens) for a request
-        whose deadline passed. Finished slots are freed before
-        returning."""
+        poisoned lane, ``watchdog`` / ``fault`` for every in-flight
+        request of a hung or raising dispatch (the state is rebuilt),
+        ``evicted`` (terminal, no tokens) for a request whose deadline
+        passed. Finished slots are freed before returning."""
         if self.ecfg.decode_steps > 1:
             return self._step_block()
-        self._state, packed = _engine_step(
-            self.params, self._state, self._vector(self._pos),
-            self._lane_step(), **self._sample_operands())
-        packed = packed.cpu().numpy()  # the one host readback
+        self._maybe_poison()
+        # every operand is taken now, on the engine's stream: a dispatch
+        # the watchdog abandons may wake after recovery and must find
+        # only what it was given
+        with self._on_stream():
+            state_in = self._state
+            pos_in = self._vector(self._pos)
+            decode = self._lane_step()
+            ops = self._sample_operands()
+
+        def run(dspan):
+            with dspan.annotation():
+                state, packed = _engine_step(self.params, state_in, pos_in,
+                                             decode, **ops)
+                dspan.mark_dispatched()
+                return state, packed.cpu().numpy()  # the one readback
+
+        out, failures = self._dispatch(run, occupied=self.occupied)
+        if failures is not None:
+            return failures
+        self._state, packed = out
         self.decode_dispatches += 1
         toks, finite = packed[0], packed[1]
         finished = []
@@ -1094,7 +1401,7 @@ class ServingEngine:
             if slot is None:
                 continue
             if not finite[i]:
-                finished.append(self._fail_lane(i, "nan"))
+                finished.append(self._fail_poisoned(i))
                 continue
             reason = self._consume(i, int(toks[i]))
             if self.metrics is not None:
@@ -1119,11 +1426,26 @@ class ServingEngine:
         its tokens (mirroring the device latch) and counts the block steps
         after it as wasted."""
         s_steps = self.ecfg.decode_steps
-        self._state, packed = _engine_multi_step(
-            self.params, self._state, self._vector(self._pos),
-            steps=s_steps, decode_fn=self._lane_step(),
-            **self._block_vectors(), **self._sample_operands())
-        block = packed.cpu().numpy()  # ONE readback per S steps
+        self._maybe_poison()
+        with self._on_stream():
+            state_in = self._state
+            pos_in = self._vector(self._pos)
+            decode = self._lane_step()
+            ops = {**self._block_vectors(), **self._sample_operands()}
+
+        def run(dspan):
+            with dspan.annotation():
+                state, packed = _engine_multi_step(
+                    self.params, state_in, pos_in, steps=s_steps,
+                    decode_fn=decode, **ops)
+                dspan.mark_dispatched()
+                return state, packed.cpu().numpy()  # ONE readback per S
+
+        out, failures = self._dispatch(run, occupied=self.occupied,
+                                       decode_steps=s_steps)
+        if failures is not None:
+            return failures
+        self._state, block = out
         self.decode_dispatches += 1
         toks, dev_pos, bad = \
             block[:s_steps], block[s_steps], block[s_steps + 1]
@@ -1132,7 +1454,7 @@ class ServingEngine:
             if slot is None:
                 continue
             if bad[i]:
-                finished.append(self._fail_lane(i, "nan"))
+                finished.append(self._fail_poisoned(i))
                 continue
             req = slot.req
             reason = None
@@ -1172,7 +1494,8 @@ class PagedServingEngine(ServingEngine):
 
     def __init__(self, params: dict, cfg: TransformerConfig,
                  ecfg: PagedEngineConfig = PagedEngineConfig(),
-                 metrics=None, clock=time.monotonic):
+                 metrics=None, tracer=None, clock=time.monotonic,
+                 site_prefix: str = "engine"):
         if not isinstance(ecfg, PagedEngineConfig):
             raise TypeError(
                 f"PagedServingEngine needs a PagedEngineConfig, got "
@@ -1204,7 +1527,8 @@ class PagedServingEngine(ServingEngine):
         self._unshared_pages_now = 0
         self.peak_pages_in_use = 0
         self.peak_pages_unshared = 0
-        super().__init__(params, cfg, ecfg, metrics=metrics, clock=clock)
+        super().__init__(params, cfg, ecfg, metrics=metrics, tracer=tracer,
+                         clock=clock, site_prefix=site_prefix)
         if ecfg.attention_impl == "kernel" and self.device.type == "cuda":
             kernels.build.load("paged_attention")  # set-up, not TTFT
 
@@ -1216,15 +1540,16 @@ class PagedServingEngine(ServingEngine):
 
     # -- admission ------------------------------------------------------
 
-    def can_admit(self, req: Request) -> bool:
-        return self.pool.can_admit(tuple(req.prompt), req.max_new_tokens)
+    def can_admit(self, req: Request, emitted: tuple = ()) -> bool:
+        return self.pool.can_admit(tuple(req.prompt) + tuple(emitted),
+                                   req.max_new_tokens - len(emitted))
 
-    def _allocate(self, slot: int, req: Request, budget: int) -> list:
-        """Allocate (or share) ``slot``'s target pages for prompt +
-        ``budget`` positions and write its table row."""
-        full = tuple(req.prompt)
+    def _allocate(self, slot: int, full: tuple, budget: int) -> tuple:
+        """Allocate (or share) ``slot``'s target pages for ``full`` (the
+        prompt and any replayed tokens) + ``budget`` positions and write
+        its table row; returns (pages, pages shared)."""
         n = len(full)
-        pages, _writes = self.pool.admit(full, budget)
+        pages, writes = self.pool.admit(full, budget)
         self._lane_pages[slot] = pages
         self._lane_end[slot] = n + budget
         self._pt[slot, :] = 0
@@ -1236,21 +1561,24 @@ class PagedServingEngine(ServingEngine):
                                      self.pool.pages_in_use)
         self.peak_pages_unshared = max(self.peak_pages_unshared,
                                        self._unshared_pages_now)
-        return pages
+        return pages, sum(1 for w in writes if not w)
 
     def _prompt_pages(self, pages: list, n: int) -> torch.Tensor:
         return torch.as_tensor(pages[:pages_for(n, self.ecfg.page_size)],
                                dtype=torch.long, device=self.device)
 
     @torch.no_grad()
-    def _prefill_into(self, slot: int, req: Request) -> None:
-        n = len(req.prompt)
-        pages = self._allocate(slot, req, req.max_new_tokens)
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+    def _prefill_into(self, slot: int, req: Request, full: tuple) -> None:
+        n = len(full)
+        budget = req.max_new_tokens - (n - len(req.prompt))
+        pages, shared = self._allocate(slot, full, budget)
+        prompt = torch.as_tensor(full, dtype=torch.long,
                                  device=self.device)[None]
-        self._state = _engine_paged_prefill(
-            self.params, self._state, prompt,
-            self._prompt_pages(pages, n), slot, self.cfg)
+        with self._prefill_span(req, slot, n, pages=len(pages),
+                                shared=shared):
+            self._state = _engine_paged_prefill(
+                self.params, self._state, prompt,
+                self._prompt_pages(pages, n), slot, self.cfg)
         self.prefill_dispatches += 1
         self.prefill_shapes.add(n)
 
@@ -1297,6 +1625,10 @@ class PagedServingEngine(ServingEngine):
                 pages[c] = new
                 self._pt[i, c] = new
                 self._pt_dirty = True
+                if self.tracer is not None:
+                    self.tracer.record("serve_cow_split", slot=i,
+                                       rid=self._slots[i].req.rid,
+                                       src=page, dst=new)
 
     def step(self) -> list:
         self._prepare_writes()
@@ -1306,7 +1638,7 @@ class PagedServingEngine(ServingEngine):
 
     def _page_table_device(self) -> torch.Tensor:
         if self._pt_dirty or self._dev_pt is None:
-            self._dev_pt = torch.as_tensor(self._pt, device=self.device)
+            self._dev_pt = self._vector(self._pt)
             self._pt_dirty = False
         return self._dev_pt
 
@@ -1408,8 +1740,8 @@ class _SpeculativeMixin:
                    for n, t in self._state.items()
                    if n not in ("logits", "q_res"))
 
-    def _validate_admit(self, req: Request) -> tuple:
-        stops = super()._validate_admit(req)
+    def _validate_admit(self, req: Request, emitted: tuple) -> tuple:
+        stops = super()._validate_admit(req, emitted)
         k = self.ecfg.draft_steps
         n = len(req.prompt)
         if n + req.max_new_tokens + k > self.cfg.max_seq:
@@ -1439,6 +1771,10 @@ class _SpeculativeMixin:
     def step(self) -> list:
         return self._step_spec()
 
+    def _spec_tables(self) -> dict:
+        """The block's page-table operands (none for the slot engine)."""
+        return {}
+
     @torch.no_grad()
     def _step_spec(self) -> list:
         """One speculative block dispatch + unpack: the token rows are
@@ -1446,11 +1782,25 @@ class _SpeculativeMixin:
         (the host replays the device latch token for token), then the
         draft ledger settles from what entered the stream."""
         k = self.ecfg.draft_steps
-        self._state, packed = self._dispatch_spec(
-            self._vector(self._pos), **self._block_vectors(),
-            step_idx=self._vector(self._step_idx),
-            key_data=self._vector(self._key_data))
-        block = packed.cpu().numpy()
+        self._maybe_poison()
+        with self._on_stream():
+            state_in = self._state
+            pos_in = self._vector(self._pos)
+            ops = {**self._block_vectors(), **self._spec_tables(),
+                   "step_idx": self._vector(self._step_idx),
+                   "key_data": self._vector(self._key_data)}
+
+        def run(dspan):
+            with dspan.annotation():
+                state, packed = self._dispatch_spec(state_in, pos_in, **ops)
+                dspan.mark_dispatched()
+                return state, packed.cpu().numpy()
+
+        out, failures = self._dispatch(run, occupied=self.occupied,
+                                       draft_steps=k)
+        if failures is not None:
+            return failures
+        self._state, block = out
         self.decode_dispatches += 1
         toks, n_accs, dev_pos, bad = \
             block[:k + 1], block[k + 1], block[k + 2], block[k + 3]
@@ -1459,7 +1809,7 @@ class _SpeculativeMixin:
             if slot is None:
                 continue
             if bad[i]:
-                finished.append(self._fail_lane(i, "nan"))
+                finished.append(self._fail_poisoned(i))
                 continue
             req = slot.req
             reason = None
@@ -1514,9 +1864,11 @@ class SpeculativeEngine(_SpeculativeMixin, ServingEngine):
     def __init__(self, params: dict, cfg: TransformerConfig,
                  draft_params: dict, draft_cfg: TransformerConfig,
                  ecfg: EngineConfig = EngineConfig(draft_steps=4),
-                 metrics=None, clock=time.monotonic):
+                 metrics=None, tracer=None, clock=time.monotonic,
+                 site_prefix: str = "engine"):
         self._init_spec(draft_params, draft_cfg, cfg, ecfg)
-        super().__init__(params, cfg, ecfg, metrics=metrics, clock=clock)
+        super().__init__(params, cfg, ecfg, metrics=metrics, tracer=tracer,
+                         clock=clock, site_prefix=site_prefix)
 
     def _fresh_state(self) -> dict:
         state = super()._fresh_state()
@@ -1528,18 +1880,19 @@ class SpeculativeEngine(_SpeculativeMixin, ServingEngine):
         return state
 
     @torch.no_grad()
-    def _prefill_into(self, slot: int, req: Request) -> None:
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+    def _prefill_into(self, slot: int, req: Request, full: tuple) -> None:
+        prompt = torch.as_tensor(full, dtype=torch.long,
                                  device=self.device)[None]
-        self._state = _engine_spec_prefill(
-            self.params, self.draft_params, self._state, prompt, slot,
-            self.cfg, self.draft_cfg)
+        with self._prefill_span(req, slot, len(full), speculative=True):
+            self._state = _engine_spec_prefill(
+                self.params, self.draft_params, self._state, prompt, slot,
+                self.cfg, self.draft_cfg)
         self.prefill_dispatches += 1
-        self.prefill_shapes.add(len(req.prompt))
+        self.prefill_shapes.add(len(full))
 
-    def _dispatch_spec(self, pos, **vectors):
+    def _dispatch_spec(self, state, pos, **operands):
         return _engine_speculative_step(
-            self.params, self.draft_params, self._state, pos, **vectors,
+            self.params, self.draft_params, state, pos, **operands,
             cfg=self.cfg, draft_cfg=self.draft_cfg,
             k=self.ecfg.draft_steps, sample=self.ecfg.sample)
 
@@ -1556,7 +1909,8 @@ class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
     def __init__(self, params: dict, cfg: TransformerConfig,
                  draft_params: dict, draft_cfg: TransformerConfig,
                  ecfg: "PagedEngineConfig | None" = None,
-                 metrics=None, clock=time.monotonic):
+                 metrics=None, tracer=None, clock=time.monotonic,
+                 site_prefix: str = "engine"):
         if ecfg is None:
             ecfg = PagedEngineConfig(draft_steps=4)
         self._init_spec(draft_params, draft_cfg, cfg, ecfg)
@@ -1572,7 +1926,8 @@ class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
             [None] * ecfg.num_slots
         self._draft_pt = np.zeros(
             (ecfg.num_slots, self._draft_pages_per_seq), np.int32)
-        super().__init__(params, cfg, ecfg, metrics=metrics, clock=clock)
+        super().__init__(params, cfg, ecfg, metrics=metrics, tracer=tracer,
+                         clock=clock, site_prefix=site_prefix)
 
     def _fresh_state(self) -> dict:
         state = super()._fresh_state()
@@ -1582,33 +1937,35 @@ class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
         state.update(self._spec_extra_state())
         return state
 
-    def _spec_budget(self, req: Request) -> int:
-        """Pages a lane reserves: its decode budget plus the
+    def _spec_budget(self, req: Request, emitted: tuple) -> int:
+        """Pages a lane reserves: its remaining decode budget plus the
         draft_steps positions a final verify writes past the frontier."""
-        return req.max_new_tokens + self.ecfg.draft_steps
+        return req.max_new_tokens - len(emitted) + self.ecfg.draft_steps
 
-    def can_admit(self, req: Request) -> bool:
-        full = tuple(req.prompt)
-        budget = self._spec_budget(req)
+    def can_admit(self, req: Request, emitted: tuple = ()) -> bool:
+        full = tuple(req.prompt) + tuple(emitted)
+        budget = self._spec_budget(req, emitted)
         return (self.pool.can_admit(full, budget)
                 and self.draft_pool.can_admit(full, budget, share=False))
 
     @torch.no_grad()
-    def _prefill_into(self, slot: int, req: Request) -> None:
-        n = len(req.prompt)
-        budget = self._spec_budget(req)
-        pages = self._allocate(slot, req, budget)
-        d_pages, _ = self.draft_pool.admit(tuple(req.prompt), budget,
-                                           share=False)
+    def _prefill_into(self, slot: int, req: Request, full: tuple) -> None:
+        n = len(full)
+        budget = self._spec_budget(req, full[len(req.prompt):])
+        pages, shared = self._allocate(slot, full, budget)
+        d_pages, _ = self.draft_pool.admit(full, budget, share=False)
         self._draft_lane_pages[slot] = d_pages
         self._draft_pt[slot, :] = 0
         self._draft_pt[slot, :len(d_pages)] = d_pages
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+        prompt = torch.as_tensor(full, dtype=torch.long,
                                  device=self.device)[None]
-        self._state = _engine_paged_spec_prefill(
-            self.params, self.draft_params, self._state, prompt,
-            self._prompt_pages(pages, n), self._prompt_pages(d_pages, n),
-            slot, self.cfg, self.draft_cfg)
+        with self._prefill_span(req, slot, n, pages=len(pages),
+                                shared=shared, speculative=True):
+            self._state = _engine_paged_spec_prefill(
+                self.params, self.draft_params, self._state, prompt,
+                self._prompt_pages(pages, n),
+                self._prompt_pages(d_pages, n), slot, self.cfg,
+                self.draft_cfg)
         self.prefill_dispatches += 1
         self.prefill_shapes.add(n)
 
@@ -1627,13 +1984,15 @@ class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
                 self._resolve_lane_writes(i, self.ecfg.draft_steps + 1)
         return self._step_spec()
 
-    def _dispatch_spec(self, pos, **vectors):
+    def _spec_tables(self) -> dict:
+        return {"page_table": self._page_table_device(),
+                "draft_page_table": self._vector(self._draft_pt)}
+
+    def _dispatch_spec(self, state, pos, **operands):
         return _engine_paged_speculative_step(
-            self.params, self.draft_params, self._state, pos, **vectors,
-            page_table=self._page_table_device(),
-            draft_page_table=self._vector(self._draft_pt), cfg=self.cfg,
-            draft_cfg=self.draft_cfg, k=self.ecfg.draft_steps,
-            sample=self.ecfg.sample)
+            self.params, self.draft_params, state, pos, **operands,
+            cfg=self.cfg, draft_cfg=self.draft_cfg,
+            k=self.ecfg.draft_steps, sample=self.ecfg.sample)
 
     def paging_summary(self) -> dict:
         out = super().paging_summary()
@@ -1642,14 +2001,88 @@ class PagedSpeculativeEngine(_SpeculativeMixin, PagedServingEngine):
         return out
 
 
+# -- drain persistence ----------------------------------------------------
+#
+# A drain snapshots in-flight requests as ResumableRequests; these helpers
+# carry them through runtime/checkpoint.py's atomic JSON sidecar, so the
+# NEXT process restores them (``serve --drain-dir``). The layout is the
+# JAX package's: either package restores the other's drain.
+
+DRAIN_STATE_NAME = "drained_requests"
+
+
+def _req_to_json(req: Request) -> dict:
+    return {"rid": req.rid, "prompt": list(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "eos_token": req.eos_token,
+            "stop_tokens": list(req.stop_tokens or ()),
+            "attempts": req.attempts,
+            # the sampled stream's identity (None stays rid-derived)
+            "seed": req.seed,
+            "tenant": req.tenant}
+
+
+def _req_from_json(d: dict) -> Request:
+    # arrival / deadline / submitted_at are instants of the dead
+    # process's monotonic clock and are not persisted: a restored request
+    # is due at once and keeps its remaining token budget
+    return Request(rid=d["rid"], prompt=tuple(d["prompt"]),
+                   max_new_tokens=d["max_new_tokens"],
+                   eos_token=d["eos_token"],
+                   stop_tokens=tuple(d["stop_tokens"]),
+                   arrival=0.0, submitted_at=None,
+                   attempts=d["attempts"],
+                   seed=d.get("seed"), tenant=d.get("tenant"))
+
+
+def persist_drained(directory: str, drained, metrics=None) -> str:
+    """Write ``drained`` (:class:`ResumableRequest` list) under
+    ``directory`` atomically; returns the path. Ticks
+    ``serve_drain_persisted_total`` when ``metrics`` is given."""
+    from akka_allreduce_tpu_torch.runtime.checkpoint import save_state_json
+    payload = {"version": 1, "requests": [
+        {"req": _req_to_json(rr.req), "generated": list(rr.generated),
+         "slot": rr.slot} for rr in drained]}
+    path = save_state_json(directory, DRAIN_STATE_NAME, payload)
+    if metrics is not None:
+        metrics.on_drain_persisted(len(drained))
+    return path
+
+
+def load_drained(directory: str) -> "list[ResumableRequest]":
+    """Read a :func:`persist_drained` file back into restorable snapshots
+    (empty when none exists). The caller deletes it
+    (:func:`clear_drained`) once the restored requests finished, so a
+    second preemption mid-restore still finds it."""
+    from akka_allreduce_tpu_torch.runtime.checkpoint import load_state_json
+    payload = load_state_json(directory, DRAIN_STATE_NAME)
+    if payload is None:
+        return []
+    if payload.get("version") != 1:
+        raise ValueError(
+            f"drained-requests state version "
+            f"{payload.get('version')!r} not supported (have 1)")
+    return [ResumableRequest(req=_req_from_json(e["req"]),
+                             generated=tuple(e["generated"]),
+                             slot=e["slot"])
+            for e in payload["requests"]]
+
+
+def clear_drained(directory: str) -> bool:
+    from akka_allreduce_tpu_torch.runtime.checkpoint import \
+        delete_state_json
+    return delete_state_json(directory, DRAIN_STATE_NAME)
+
+
 # failure reasons the serve loop hands back to the scheduler's retry
-# budget (everything else in a completion tuple is terminal); the port's
-# engines fail a request only on a non-finite decode
-RETRYABLE_REASONS = frozenset({"nan"})
+# budget (everything else in a completion tuple is terminal). The JAX
+# package's "replica_dead" comes with the replica fleet (ROADMAP A8).
+RETRYABLE_REASONS = frozenset({"watchdog", "fault", "nan"})
 
 
 def serve_loop(engine: ServingEngine, scheduler: RequestScheduler,
-               metrics=None, max_dispatches: Optional[int] = None) -> dict:
+               metrics=None, max_dispatches: Optional[int] = None,
+               resume=()) -> dict:
     """Drive engine + scheduler until both drain. Returns ``{rid:
     (tokens, reason)}``; a terminal failure carries ``[]`` and its status
     (``evicted``, ``dead_letter``, ``rejected_infeasible``).
@@ -1657,10 +2090,20 @@ def serve_loop(engine: ServingEngine, scheduler: RequestScheduler,
     Per iteration: admit every arrived request into free slots (the paged
     engine's free-page gate rides ``pop_ready``), then step — unless
     occupancy is below the scheduler's quorum and more work is due, in
-    which case wait for it. A retryable failure goes back through
-    ``requeue_failed``. ``max_dispatches`` bounds decode dispatches
-    (raises instead of hanging)."""
+    which case wait for it. A retryable failure (``watchdog`` / ``fault``
+    / ``nan``) goes back through ``requeue_failed``. A preemption (an
+    injected ``preempt`` at ``serve.loop``, or ``engine.request_drain()``
+    from a signal handler or the preemption watcher) stops admission and
+    returns after ``engine.drain()``: the snapshots wait on
+    ``engine.drained``. ``max_dispatches`` bounds decode dispatches
+    (raises instead of hanging).
+
+    ``resume`` is the drain handoff: :class:`ResumableRequest` snapshots
+    (a previous engine's drain, or ``load_drained`` across a process
+    boundary) restored into free slots ahead of queue admission, holding
+    their head-of-line place while they wait for pages."""
     results: dict = {}
+    pending_resume = list(resume)
     if metrics is not None and engine.metrics is None:
         engine.metrics = metrics
     clock = scheduler.clock
@@ -1672,8 +2115,37 @@ def serve_loop(engine: ServingEngine, scheduler: RequestScheduler,
                 metrics.on_drop(req.rid, reason)
 
     while True:
+        pt = maybe_fail("serve.loop")
+        if pt is not None and pt.kind == "preempt":
+            engine.request_drain()
+            if metrics is not None:
+                metrics.on_fault_survived("preempt")
+        if engine.draining:
+            for rr in engine.drain():
+                scheduler.release(rr.slot)
+            # resumables not yet re-admitted stay resumable: a second
+            # preemption mid-restore must not drop them
+            engine.drained.extend(pending_resume)
+            drain_drops()
+            return results
         now = clock()
-        while engine.free_slot_count > 0:
+        resume_blocked = False
+        while engine.free_slot_count > 0 and pending_resume:
+            rr = pending_resume[0]
+            if not engine.can_admit(rr.req, rr.generated):
+                # the replay waits for pages and keeps its place: fresh
+                # admissions must not take the pages decode frees (an
+                # empty engine has an empty pool, where any valid
+                # request fits, so this cannot deadlock)
+                resume_blocked = True
+                break
+            pending_resume.pop(0)
+            if rr.req.submitted_at is None:
+                # restored across a process boundary: TTFT counts from
+                # the restore
+                rr.req.submitted_at = now
+            scheduler.bind(rr.req, engine.restore(rr))
+        while not resume_blocked and engine.free_slot_count > 0:
             req = scheduler.pop_ready(now, can_admit=engine.can_admit)
             if req is None:
                 break

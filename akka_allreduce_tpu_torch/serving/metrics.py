@@ -3,11 +3,17 @@
 Counterpart of ``akka_allreduce_tpu/serving/metrics.py``
 :class:`ServingMetrics`: TTFT (submit -> first token delivery), TPOT
 (decode cadence after the first delivery), queue depth, slot occupancy
-and wasted tokens, the speculative engines' draft-token ledger and
-mid-flight evictions, re-registered on a :class:`MetricsRegistry` as
-pull collectors, and ``summary()`` with the JAX key names so the two
-serve commands print the same report shape. Tracer events, admission
-blocks, host sampling and ``FleetMetrics`` are later slices.
+and wasted tokens, the speculative engines' draft-token ledger,
+mid-flight evictions and the fault counters (watchdog trips, retries,
+dead letters, injected and survived faults, drains persisted),
+re-registered on a :class:`MetricsRegistry` as pull collectors, and
+``summary()`` with the JAX key names so the two serve commands print the
+same report shape. With a :class:`~akka_allreduce_tpu_torch.runtime.
+tracing.Tracer` every lifecycle hook also records the JAX package's
+``serve_*`` event (``serve_submit`` ... ``serve_complete``), which
+``serve --trace-file`` writes as JSONL beside the engine's
+``serve_prefill`` / ``serve_step`` spans. Admission blocks, host sampling
+and ``FleetMetrics`` are later slices (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ class ServingMetrics:
     """The engine and serve loop call the ``on_*`` hooks; ``summary()``
     renders one JSON-able dict (the serve CLI's stdout line)."""
 
-    def __init__(self, clock=time.monotonic, registry=None):
+    def __init__(self, clock=time.monotonic, tracer=None, registry=None):
         self.clock = clock
+        self.tracer = tracer
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.ttft_s = Histogram()
@@ -63,6 +70,12 @@ class ServingMetrics:
         self._t0: Optional[float] = None
         self._t_end: Optional[float] = None
         self._paging = None
+        # drained requests persisted across a process boundary: a
+        # registry-owned counter (the drain runbook watches it)
+        self._drain_persisted = self.registry.counter(
+            "serve_drain_persisted_total",
+            help="drained ResumableRequests persisted across a process "
+                 "boundary (serving/engine.py persist_drained)")
         self._register(self.registry)
 
     def _register(self, r) -> None:
@@ -75,7 +88,10 @@ class ServingMetrics:
             ("serve_evictions_total", lambda: self.evictions_total),
             ("serve_deadline_misses_total",
              lambda: self.deadline_misses_total),
+            ("serve_watchdog_trips_total",
+             lambda: self.watchdog_trips_total),
             ("serve_dead_letter_total", lambda: self.dead_letter_total),
+            ("serve_fault_injected_total", lambda: self.fault_injected),
             ("serve_fault_survived_total", lambda: self.fault_survived),
             ("serve_prefill_tokens_total", lambda: self.prefill_tokens),
             ("serve_decode_tokens_total", lambda: self.decode_tokens),
@@ -119,16 +135,24 @@ class ServingMetrics:
 
     # -- lifecycle hooks ----------------------------------------------
 
+    def _record(self, kind: str, **fields) -> None:
+        if self.tracer is not None:
+            self.tracer.record(kind, **fields)
+
     def on_submit(self, rid: int) -> None:
         self.requests_submitted += 1
         if self._t0 is None:
             self._t0 = self.clock()
+        self._record("serve_submit", rid=rid)
 
     def on_reject(self, rid: int) -> None:
         self.requests_rejected += 1
+        self._record("serve_reject", rid=rid)
 
     def on_admit(self, rid: int, slot: int, prompt_len: int) -> None:
         self.prefill_tokens += prompt_len
+        self._record("serve_admit", rid=rid, slot=slot,
+                     prompt_len=prompt_len)
 
     def on_token(self, rid: int, submitted_at: float) -> None:
         self.on_block_tokens(rid, submitted_at, 1)
@@ -146,6 +170,8 @@ class ServingMetrics:
             self._first[rid] = now
             self._first_count[rid] = n
             self.ttft_s.record(now - submitted_at)
+            self._record("serve_first_token", rid=rid,
+                         ttft_s=now - submitted_at, tokens=n)
 
     def on_failure(self, rid: int, reason: str) -> None:
         """One failed attempt (the retry budget decides what is
@@ -153,24 +179,45 @@ class ServingMetrics:
         self.requests_failed += 1
         self._first.pop(rid, None)
         self._first_count.pop(rid, None)
+        self._record("serve_failure", rid=rid, reason=reason)
 
     def on_discard(self, rid: int, n: int) -> None:
         """``n`` partial-decode tokens thrown away: moved from the decode
         count to the wasted count."""
         self.decode_tokens -= n
         self.wasted_tokens += n
+        self._record("serve_discard", rid=rid, tokens=n)
 
     def on_retry(self, rid: int) -> None:
         self.retries_total += 1
+        self._record("serve_retry", rid=rid)
+
+    def on_watchdog_trip(self) -> None:
+        self.watchdog_trips_total += 1
+        self._record("serve_watchdog_trip")
 
     def on_drop(self, rid: int, reason: str) -> None:
         if reason == "dead_letter":
             self.dead_letter_total += 1
         elif reason == "rejected_infeasible":
             self.deadline_misses_total += 1
+        self._record("serve_drop", rid=rid, reason=reason)
+
+    def on_fault_injected(self, n: int = 1) -> None:
+        """Stamped by the chaos harness from ``FaultPlan.fired``: the
+        engine cannot tell an injected hang from a real one."""
+        self.fault_injected += n
 
     def on_fault_survived(self, kind: str) -> None:
         self.fault_survived += 1
+        self._record("serve_fault_survived", fault=kind)
+
+    def on_drain_persisted(self, n: int) -> None:
+        """``n`` drained ResumableRequests written through
+        runtime/checkpoint.py: the preemption survived a process
+        boundary, not just a loop exit."""
+        self._drain_persisted.inc(n)
+        self._record("serve_drain_persisted", count=n)
 
     def on_evict(self, rid: int, n_tokens: int) -> None:
         """Mid-flight deadline eviction: terminal, and a deadline miss.
@@ -180,6 +227,7 @@ class ServingMetrics:
         self.deadline_misses_total += 1
         self._first.pop(rid, None)
         self._first_count.pop(rid, None)
+        self._record("serve_evict", rid=rid, tokens=n_tokens)
 
     def on_draft_block(self, rid: int, proposed: int,
                        accepted: int) -> None:
@@ -192,15 +240,20 @@ class ServingMetrics:
         rejected = proposed - accepted
         self.draft_rejected += rejected
         self.wasted_tokens += rejected
+        self._record("serve_draft_block", rid=rid, proposed=proposed,
+                     accepted=accepted)
 
     def on_draft_complete(self, rid: int, rate: float) -> None:
         """A speculative request finished: bank its lifetime acceptance
         rate (accepted / proposed)."""
         self.draft_acceptance.record(rate)
+        self._record("serve_draft_complete", rid=rid,
+                     acceptance=round(rate, 4))
 
     def on_wasted(self, rid: int, n: int) -> None:
         self.wasted_tokens += n
         self.wasted_per_completion.record(n)
+        self._record("serve_wasted", rid=rid, tokens=n)
 
     def on_complete(self, rid: int, n_tokens: int, reason: str) -> None:
         self.requests_completed += 1
@@ -210,6 +263,8 @@ class ServingMetrics:
         later = n_tokens - self._first_count.pop(rid, 1)
         if first is not None and later > 0:
             self.tpot_s.record((now - first) / later)
+        self._record("serve_complete", rid=rid, tokens=n_tokens,
+                     reason=reason)
 
     def observe(self, queue_depth: int, occupancy: float) -> None:
         """Sampled once per serve-loop iteration."""

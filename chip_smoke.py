@@ -446,13 +446,53 @@ build) and runs every such batch there as a fresh spawn would:
    and device ms, idle share). Wall ms a step graphed and eager, each
    replay's boundary ms, capture seconds. The phase must end within
    ``A5R_SECONDS`` (120 s).
+24. A6, part 2 (runs after phase 23, the rank pools closed) — the
+   watchdog and faults, drain/restore across processes and the serve
+   trace at phase 4's gqa4 shape on ``--paged --paged-attention
+   kernel``. (a) ``cli serve --selfcheck --chaos 3`` in process at
+   decode steps 1 and 4 (its tiny slot engine: a hang, a raise, a NaN
+   lane and a preemption; see ``cli.run_chaos_selfcheck``) must say ok.
+   (b) The gqa4 engine's fault-free run (the warm-up, no watchdog), then
+   the same 16 requests on an armed engine (``A24_WATCHDOG_S``) under
+   ``FaultPlan.chaos(3)``, its hang held until the run ends
+   (``cli.held_hang_plan``), the drain restored into a fresh engine
+   (``cli.serve_until_done``), row 13's count set to 0 just before:
+   every rid ends once, one watchdog trip, retries + dead letters ==
+   failed attempts, faults injected == survived, the pool at capacity
+   right after the recovery and at the end, retried and untouched
+   streams bitwise the fault-free run's and restored ones under
+   ``greedy_agree``; row 13's launches n_layers x 4 x (dispatches + the
+   abandoned one, which runs after the run) and no live engine's K/V
+   touched by that late dispatch; the control, a restored stream less
+   its last replayed token, must fail the comparison. (c) The watchdog's
+   cost: the same requests served unarmed and armed
+   (``A24_COST_WATCHDOG_S``, no faults) in turns, wall ms a decode step
+   from the device timer and TPOT, tokens bitwise (b)'s; then on one
+   engine of 8 long lanes, blocks of 4 dispatches with the watchdog off
+   and on in turns (``a24_interleaved``: median wall ms a step each way)
+   and a torch.profiler window of each (wall and device ms a step); the
+   guard thread's round trip alone (``a24_handoff_us``). (d) Two ``cli serve`` children (``run_serve``, as
+   ``cli serve`` runs it, ``SERVE_CHILD``) with ``--drain-dir`` and
+   ``--preempt-poll`` at a metadata server on 127.0.0.1
+   (``MetadataServer``): child 1's ``A24_CHILD_REQUESTS`` requests are
+   drained by its ``A24_PREEMPT_AT_POLL``-th poll and persisted, child 2
+   restores them and serves one fresh request: drained > 0,
+   drain_persisted == drained, resumed == drained, the drain file gone
+   after child 2, rids 0-7 finished once across the two, restored
+   streams against (b)'s fault-free run as in (b), child 2's fresh
+   request bitwise rid 0's. (e) Child 2's ``--trace-file``: one
+   ``serve_step`` span a decode dispatch and one ``serve_prefill`` a
+   prefill; its ``--metrics-file`` snapshot's ``serve_*`` counters the
+   report's (and child 1's ``serve_drain_persisted_total`` its drained
+   count). The phase must end within ``A24_SECONDS`` (100 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
 rank 0's in phases 9, 13, 16, 17, 21 and 23; the masked reduce's with phases
 19's and 20's; the bf16 flash kernels' and the sync kernels' with phase
 21's, ``a5_launches`` apart on the sync rows; the paged kernel's with
-phase 22's, ``a6_launches`` apart; the flash, ring, sync and transport
+phase 22's and 24's, ``a6_launches`` and ``a24_launches`` apart; the
+flash, ring, sync and transport
 rows with phase 23's, ``a5r_launches`` apart on the sync rows, row 4's
 ``pointer_seed_ms`` its launch reading the seed from device memory), and
 last ``{"ok": true, "device": {...}}``.
@@ -846,6 +886,24 @@ A5R_SP_SPD = 2
 A5R_RESUME_LAYERS = 2
 # (d): the rank whose chunk seeds are those of the next step
 A5R_CONTROL_RANK = 1
+# phase 24: the serving of ROADMAP A6 part 2 at phase 4's gqa4 shape
+A24_SECONDS = 100
+A24_CHAOS_SEED = 3
+A24_CHAOS_STEPS = (1, 4)
+A24_WATCHDOG_S = 0.3  # (b): several times a healthy 4-step dispatch
+A24_COST_WATCHDOG_S = 30.0  # (c): armed, and never reached
+A24_COST_TURNS = ("unarmed", "armed", "armed", "unarmed")
+A24_PROFILE_STEPS = 4
+# (c)'s A/B on one engine: 8 lanes of 240 tokens (60 dispatches of 4), in
+# blocks of 4 dispatches, 6 rounds of (off, on) / (on, off)
+A24_AB_TOKENS = 240
+A24_AB_BLOCK = 4
+A24_AB_ROUNDS = 6
+A24_HANDOFF_REPS = 1000  # (c): no-op round trips through a guard thread
+A24_CHILD_REQUESTS = 8  # (d): every request in flight on the 8 lanes
+A24_PREEMPT_INTERVAL_S = 0.1
+A24_PREEMPT_AT_POLL = 4  # (d): child 1's 4th poll reads TRUE, ~0.3 s in
+A24_CHILD_TIMEOUT_S = 180
 ALLREDUCE_SOURCE = ("akka_allreduce_tpu_torch/ops/kernels/csrc/"
                     "ring_allreduce.cu")
 ALLREDUCE_REPLACES = {
@@ -5972,6 +6030,588 @@ def phase_a5_ranks(torch) -> dict:
     return totals
 
 
+# -- phase 24: the serving of ROADMAP A6, part 2 ----------------------------
+
+def a24_selfcheck(torch) -> dict:
+    """(a) ``cli serve --selfcheck --chaos A24_CHAOS_SEED`` in process at
+    each of ``A24_CHAOS_STEPS``: its report must say ok."""
+    from akka_allreduce_tpu_torch import cli
+    out = {}
+    for steps in A24_CHAOS_STEPS:
+        args = cli.build_parser().parse_args(
+            ["serve", "--selfcheck", "--chaos", str(A24_CHAOS_SEED),
+             "--decode-steps", str(steps), "--device", DEVICE])
+        t0 = time.perf_counter()
+        out[steps] = cli.run_chaos_selfcheck(args)
+        emit("a24_selfcheck", seconds=time.perf_counter() - t0,
+             **out[steps])
+        if out[steps]["selfcheck"] != "ok":
+            raise AssertionError(f"phase 24 (a), decode steps {steps}: "
+                                 f"{out[steps]['failures']}")
+    return out
+
+
+def a24_args(torch, extra: list):
+    from akka_allreduce_tpu_torch import cli
+    return cli.build_parser().parse_args(
+        set_flag(SERVE_ARGV, "--device", DEVICE)
+        + ["--paged-attention", "kernel"] + extra)
+
+
+def a24_requests(args) -> list:
+    from akka_allreduce_tpu_torch import cli
+    return cli.make_requests(args, *cli._validate(args))
+
+
+def a24_stream_check(torch, params, cfg, reqs: dict, want: dict, got: dict,
+                     rids) -> dict:
+    """``got``'s streams of ``rids`` against the fault-free ``want``:
+    (bitwise count, ``greedy_agree`` failures)."""
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    bitwise, failures = 0, []
+    for rid in sorted(rids):
+        ref, toks = want[rid][0], got[rid][0]
+        if list(toks) == list(ref):
+            bitwise += 1
+            continue
+        ok, why = greedy_agree(ref, toks, reference_logits(
+            torch, params, cfg, reqs[rid].prompt, ref))
+        if not ok:
+            failures.append((rid, why))
+    return {"requests": len(list(rids)), "bitwise": bitwise,
+            "failures": failures}
+
+
+def a24_faults(torch) -> dict:
+    """(b) the gqa4 paged-kernel engine under ``FaultPlan.chaos``: a hang
+    held past the watchdog, a raise, a NaN lane and a preemption whose
+    snapshots are restored into a fresh engine; the fault-free run first
+    (the warm-up, no watchdog), then the armed run with row 13's count
+    set to 0."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.runtime.faults import FaultPlan
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    from akka_allreduce_tpu_torch.serving import (RequestScheduler,
+                                                  RetryPolicy,
+                                                  SchedulerConfig,
+                                                  ServingMetrics)
+    warm_args = a24_args(torch, [])
+    args = a24_args(torch, ["--watchdog-timeout", str(A24_WATCHDOG_S)])
+    mcfg, params = cli.serve_model(args, torch.device(DEVICE))
+    reqs = {r.rid: r for r in a24_requests(args)}
+    scfg = SchedulerConfig(retry=RetryPolicy(max_attempts=4,
+                                             base_delay=0.0))
+
+    def sched_of():
+        sched = RequestScheduler(scfg, num_slots=args.slots)
+        for r in a24_requests(args):
+            sched.submit(r)
+        return sched
+
+    t0 = time.perf_counter()
+    base, _, _ = cli.serve_until_done(
+        lambda: cli.build_engine(warm_args, params, mcfg), sched_of())
+    sync(torch)
+    t_base = time.perf_counter() - t0
+    plan = cli.held_hang_plan(FaultPlan.chaos(A24_CHAOS_SEED,
+                                              slots=args.slots).points,
+                              seed=A24_CHAOS_SEED)
+    tracer = Tracer()
+    metrics = ServingMetrics(tracer=tracer)
+    for rid in reqs:
+        metrics.on_submit(rid)
+    pool_after_recover = []
+
+    def make_engine():
+        engine = cli.build_engine(args, params, mcfg)
+        recover = engine._recover
+
+        def recover_and_look(reason):
+            out = recover(reason)
+            pool_after_recover.append((engine.pool.pages_in_use,
+                                       engine.pool.free_pages,
+                                       engine.pool.capacity))
+            return out
+        engine._recover = recover_and_look
+        return engine
+
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        got, engines, restored = cli.serve_until_done(
+            make_engine, sched_of(), metrics=metrics, plan=plan,
+            max_dispatches=2000)
+        sync(torch)
+        t_chaos = time.perf_counter() - t0
+        # the live state of every engine, before the abandoned dispatch
+        # wakes: it must write only into the tensors it was given
+        live = [{n: e._state[n].clone() for n in ("k", "v")}
+                for e in engines]
+    finally:
+        plan.release.set()
+    # the abandoned dispatches wake now and run to their readback (one
+    # cancelled before its thread took it never runs)
+    abandoned = [f for e in engines for f in e.abandoned]
+    for fut in abandoned:
+        if not fut.cancelled():
+            fut.result(timeout=60)
+    abandoned = [f for f in abandoned if not f.cancelled()]
+    sync(torch)
+    for e in engines:
+        e.close()
+    launches = attention.PAGED_ATTENTION_LAUNCHES
+    metrics.on_fault_injected(len(plan.fired))
+    dispatches = sum(e.decode_dispatches for e in engines)
+    expected = mcfg.n_layers * args.decode_steps * (dispatches
+                                                    + len(abandoned))
+    untouched = all(torch.equal(e._state[n], st[n])
+                    for e, st in zip(engines, live) for n in st)
+    ends = collections.Counter(
+        ev.fields["rid"] for ev in tracer.events
+        if ev.kind in ("serve_complete", "serve_drop"))
+    failed = {ev.fields["rid"] for ev in tracer.events
+              if ev.kind == "serve_failure"}
+    kinds = {k for _site, k, _hit in plan.fired}
+    retried = failed - restored
+    parity = {
+        "restored": a24_stream_check(torch, params, mcfg, reqs, base, got,
+                                     restored),
+        "retried": a24_stream_check(torch, params, mcfg, reqs, base, got,
+                                    retried),
+        "untouched": a24_stream_check(torch, params, mcfg, reqs, base, got,
+                                      set(reqs) - failed - restored)}
+    # the control: the restored stream with the most replayed tokens,
+    # less the last of them (dropping it from the snapshot instead would
+    # only make the restore generate it again)
+    replayed = {rr.req.rid: len(rr.generated) for e in engines
+                for rr in e.drained}
+    victim = max(replayed, key=replayed.get, default=None)
+    control = {"failures": []}
+    if victim is not None and replayed[victim]:
+        cut = replayed[victim]
+        toks = got[victim][0]
+        control = a24_stream_check(
+            torch, params, mcfg, reqs, base,
+            {victim: (toks[:cut - 1] + toks[cut:], got[victim][1])},
+            [victim])
+    out = {"seconds": {"fault_free": t_base, "chaos": t_chaos},
+           "faults_fired": [list(f) for f in plan.fired],
+           "watchdog_s": A24_WATCHDOG_S,
+           "watchdog_trips": metrics.watchdog_trips_total,
+           "failed_attempts": metrics.requests_failed,
+           "retries": metrics.retries_total,
+           "dead_letters": metrics.dead_letter_total,
+           "fault_injected": metrics.fault_injected,
+           "fault_survived": metrics.fault_survived,
+           "engines": len(engines), "restored": sorted(restored),
+           "retried": sorted(retried), "ends": dict(ends),
+           "pool_after_recover": pool_after_recover,
+           "pool_at_end": [(e.pool.pages_in_use, e.pool.capacity)
+                           for e in engines],
+           "launches": launches, "expected_launches": expected,
+           "decode_dispatches": dispatches,
+           "abandoned_dispatches": len(abandoned),
+           "live_state_untouched": untouched, "parity": parity,
+           "control": {"rid": victim,
+                       "replayed_tokens": replayed.get(victim),
+                       "passed": not control["failures"],
+                       "failures": control["failures"]}}
+    emit("a24_faults", **out)
+    fail = []
+    if not {"hang", "raise", "nan", "preempt"} <= kinds:
+        fail.append(f"not every fault fired: {plan.fired}")
+    if set(got) != set(reqs) or any(ends[r] != 1 for r in reqs):
+        fail.append(f"rids did not each end once: {dict(ends)}")
+    if metrics.watchdog_trips_total != 1:
+        fail.append(f"{metrics.watchdog_trips_total} watchdog trips")
+    if metrics.retries_total + metrics.dead_letter_total \
+            != metrics.requests_failed:
+        fail.append("retries + dead letters != failed attempts")
+    if metrics.fault_injected != metrics.fault_survived:
+        fail.append("faults injected != survived")
+    if not pool_after_recover or any(
+            used or free != cap for used, free, cap in pool_after_recover):
+        fail.append(f"pool not back to capacity: {pool_after_recover}")
+    if any(used for used, _ in out["pool_at_end"]):
+        fail.append(f"pages held at the end: {out['pool_at_end']}")
+    if not restored or not retried:
+        fail.append(f"no restored ({restored}) or retried ({retried}) "
+                    f"request to hold")
+    for kind in ("restored", "retried", "untouched"):
+        if parity[kind]["failures"]:
+            fail.append(f"{kind} streams disagree: {parity[kind]}")
+    for kind in ("retried", "untouched"):
+        # a retry replays from scratch through the same shapes
+        if parity[kind]["bitwise"] != parity[kind]["requests"]:
+            fail.append(f"{kind} streams not bitwise: {parity[kind]}")
+    if DEVICE == "cuda" and (launches != expected or launches == 0):
+        fail.append(f"paged_attention launched {launches}, expected "
+                    f"{expected}")
+    if not untouched:
+        fail.append("the abandoned dispatch wrote into a live engine")
+    if out["control"]["passed"]:
+        fail.append("the control (a restored stream less one token) "
+                    "passed the comparison")
+    if fail:
+        raise AssertionError("phase 24 (b): " + "; ".join(fail))
+    return {"launches": launches, "params": params, "cfg": mcfg,
+            "base": base, "reqs": reqs}
+
+
+def a24_interleaved(torch, params, mcfg) -> dict:
+    """(c)'s A/B on one engine: 8 lanes of the load's first requests, at
+    ``A24_AB_TOKENS`` tokens each, decoded in blocks of ``A24_AB_BLOCK``
+    dispatches with the watchdog off and on in turns (unarmed, armed,
+    then armed, unarmed), each block's wall ms a decode step to a
+    synchronize; then a torch.profiler window of ``A24_PROFILE_STEPS``
+    dispatches each way (wall and device ms a step). Row 13's launches
+    are counted."""
+    import dataclasses
+
+    from akka_allreduce_tpu_torch import cli
+    args = a24_args(torch, [])
+    engine = cli.build_engine(args, params, mcfg)
+    for r in a24_requests(args)[:engine.num_slots]:
+        engine.admit(dataclasses.replace(r, max_new_tokens=A24_AB_TOKENS))
+    ecfg = {"unarmed": engine.ecfg,
+            "armed": dataclasses.replace(
+                engine.ecfg, watchdog_timeout_s=A24_COST_WATCHDOG_S)}
+    steps = engine.ecfg.decode_steps
+
+    def run(kind: str, n: int) -> float:
+        engine.ecfg = ecfg[kind]
+        sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if engine.step():
+                raise AssertionError("phase 24 (c): a lane finished or "
+                                     "failed inside the A/B")
+        sync(torch)
+        return (time.perf_counter() - t0) * 1e3 / (n * steps)
+
+    run("armed", 1)  # the guard thread is made outside the timing
+    run("unarmed", 1)
+    blocks = collections.defaultdict(list)
+    for i in range(A24_AB_ROUNDS):
+        for kind in (("unarmed", "armed") if i % 2 == 0
+                     else ("armed", "unarmed")):
+            blocks[kind].append(run(kind, A24_AB_BLOCK))
+    profiles = {}
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    for kind in ("unarmed", "armed"):
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_ms = run(kind, A24_PROFILE_STEPS)
+        rows = device_kernel_rows(torch, prof.key_averages(),
+                                  A24_PROFILE_STEPS * steps)
+        device_ms = sum(ms for _, ms in rows)
+        profiles[kind] = {
+            "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms if rows else "not measured",
+            "device_idle_share": (1 - device_ms / wall_ms) if rows
+            else "not measured"}
+    engine.close()
+    med = {k: statistics.median(v) for k, v in blocks.items()}
+    return {"blocks_ms_per_step": dict(blocks), "median_ms_per_step": med,
+            "quartiles_ms_per_step": {
+                k: statistics.quantiles(v, n=4)[::2]
+                for k, v in blocks.items()},
+            "armed_over_unarmed": med["armed"] / med["unarmed"],
+            "profiles": profiles,
+            "dispatches": engine.decode_dispatches}
+
+
+def a24_handoff_us() -> float:
+    """What the guard thread adds to a dispatch apart from where the
+    dispatch runs: one submit to a one-thread executor and one wait for
+    its result, µs each (``A24_HANDOFF_REPS`` no-op calls)."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ex.submit(int).result()
+        t0 = time.perf_counter()
+        for _ in range(A24_HANDOFF_REPS):
+            ex.submit(int).result(timeout=A24_COST_WATCHDOG_S)
+        return (time.perf_counter() - t0) * 1e6 / A24_HANDOFF_REPS
+
+
+def a24_cost(torch, faults: dict) -> dict:
+    """(c) the watchdog's cost: the same requests served end to end
+    unarmed and armed (``A24_COST_WATCHDOG_S``, no faults) in turns, the
+    tokens (b)'s fault-free ones, each run's wall ms a decode step from
+    the device timer (host + device means of a dispatch) and TPOT; then
+    the interleaved A/B on one engine (``a24_interleaved``). Row 13's
+    count is set to 0 before each run and read after it."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.serving import (RequestScheduler,
+                                                  SchedulerConfig,
+                                                  ServingMetrics,
+                                                  serve_loop)
+    params, mcfg = faults["params"], faults["cfg"]
+    argv = {"unarmed": [],
+            "armed": ["--watchdog-timeout", str(A24_COST_WATCHDOG_S)]}
+    runs, launches = collections.defaultdict(list), 0
+    for kind in A24_COST_TURNS:
+        args = a24_args(torch, argv[kind])
+        engine = cli.build_engine(args, params, mcfg)
+        metrics = ServingMetrics()
+        sched = RequestScheduler(SchedulerConfig(), num_slots=args.slots)
+        for r in a24_requests(args):
+            metrics.on_submit(r.rid)
+            sched.submit(r)
+        attention.PAGED_ATTENTION_LAUNCHES = 0
+        results = serve_loop(engine, sched, metrics=metrics)
+        sync(torch)
+        launches += attention.PAGED_ATTENTION_LAUNCHES
+        engine.close()
+        dt = engine.device_time_summary()
+        per_dispatch = dt["host_ms"]["mean"] + dt["device_ms"]["mean"]
+        runs[kind].append({
+            "dispatch_wall_ms_per_step": per_dispatch / args.decode_steps,
+            "host_ms_p50": dt["host_ms"]["p50"],
+            "device_ms_p50": dt["device_ms"]["p50"],
+            "tpot_ms_p50": metrics.summary()["tpot_ms"].get("p50"),
+            "decode_dispatches": engine.decode_dispatches,
+            "watchdog_trips": engine.watchdog_trips})
+        if engine.watchdog_trips or any(
+                results[r][0] != faults["base"][r][0] for r in results):
+            raise AssertionError(f"phase 24 (c), {kind}: a trip or "
+                                 f"tokens off the fault-free run")
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    ab = a24_interleaved(torch, params, mcfg)
+    launches += attention.PAGED_ATTENTION_LAUNCHES
+    mean = {k: statistics.mean(r["dispatch_wall_ms_per_step"]
+                               for r in runs[k]) for k in runs}
+    out = {"runs": dict(runs), "wall_ms_per_step": mean,
+           "runs_armed_over_unarmed": mean["armed"] / mean["unarmed"],
+           "interleaved": ab, "handoff_us_per_dispatch": a24_handoff_us()}
+    emit("a24_watchdog_cost", **out)
+    return {**out, "launches": launches}
+
+
+class MetadataServer:
+    """A 127.0.0.1 stand-in for the GCE metadata endpoint that
+    ``--preempt-poll`` reads: ``FALSE``, and once armed ``TRUE`` from the
+    ``trip_at``-th GET on (counted from the arming)."""
+
+    def __init__(self):
+        import http.server
+        import threading
+        self.gets, self.armed_at, self.trip_at = 0, None, 0
+        server_self = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 - the stdlib's name
+                server_self.gets += 1
+                tripped = server_self.armed_at is not None and (
+                    server_self.gets - server_self.armed_at
+                    >= server_self.trip_at)
+                body = b"TRUE" if tripped else b"FALSE"
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.url = (f"http://127.0.0.1:{self.httpd.server_address[1]}"
+                    f"/computeMetadata/v1/instance/preempted")
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def arm(self, trip_at: int) -> None:
+        self.armed_at, self.trip_at = self.gets, trip_at
+
+    def disarm(self) -> None:
+        self.armed_at = None
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=5)
+
+
+# a ``cli serve`` child: ``run_serve`` (what ``cli serve`` runs) with the
+# per-request streams written to argv[1] beside the printed report
+SERVE_CHILD = (
+    "import json, sys\n"
+    "from akka_allreduce_tpu_torch import cli\n"
+    "args = cli.build_parser().parse_args(sys.argv[2:])\n"
+    "report, results, _ = cli.run_serve(args)\n"
+    "print(json.dumps(report), flush=True)\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump({r: [list(t), why] for r, (t, why) in results.items()},"
+    " f)\n")
+
+
+def a24_child(argv: list, results_path: str) -> "tuple[dict, dict]":
+    """Run one ``cli serve`` child to its end: (report, {rid: (tokens,
+    reason)})."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    out = subprocess.run([sys.executable, "-c", SERVE_CHILD, results_path,
+                          *argv], cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=A24_CHILD_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"phase 24 (d): a serve child exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    with open(results_path) as f:
+        results = {int(r): (t, why) for r, (t, why) in json.load(f).items()}
+    return json.loads(out.stdout.strip().splitlines()[-1]), results
+
+
+def a24_processes(torch, faults: dict) -> dict:
+    """(d) two ``cli serve`` children on one drain directory, polling a
+    local metadata server: child 1 (``A24_CHILD_REQUESTS`` requests, all
+    in flight on the 8 lanes) is drained by the poll, child 2 restores
+    them (and serves one fresh request); (e) child 2's trace and metrics
+    snapshot against its report."""
+    from akka_allreduce_tpu_torch.runtime.checkpoint import load_state_json
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    from akka_allreduce_tpu_torch.serving import DRAIN_STATE_NAME
+    from akka_allreduce_tpu_torch.telemetry.registry import \
+        parse_prometheus_text
+    server = MetadataServer()
+    try:
+        with tempfile.TemporaryDirectory(prefix="a24-") as work:
+            def argv(n: int, name: str) -> list:
+                return set_flag(SERVE_ARGV, "--device", DEVICE) + [
+                    "--paged-attention", "kernel", "--requests", str(n),
+                    "--drain-dir", os.path.join(work, "drain"),
+                    "--preempt-poll", server.url, "--preempt-interval",
+                    str(A24_PREEMPT_INTERVAL_S),
+                    "--trace-file", os.path.join(work, f"{name}.jsonl"),
+                    "--metrics-file", os.path.join(work, f"{name}.prom")]
+            server.arm(A24_PREEMPT_AT_POLL)
+            t0 = time.perf_counter()
+            rep1, res1 = a24_child(argv(A24_CHILD_REQUESTS, "child1"),
+                                   os.path.join(work, "child1.json"))
+            t1 = time.perf_counter()
+            server.disarm()
+            drained = load_state_json(os.path.join(work, "drain"),
+                                      DRAIN_STATE_NAME)
+            rep2, res2 = a24_child(argv(1, "child2"),
+                                   os.path.join(work, "child2.json"))
+            t2 = time.perf_counter()
+            cleared = load_state_json(os.path.join(work, "drain"),
+                                      DRAIN_STATE_NAME) is None
+            trace = Tracer.read_jsonl(os.path.join(work, "child2.jsonl"))
+            with open(os.path.join(work, "child2.prom")) as f:
+                snap2 = parse_prometheus_text(f.read())
+            with open(os.path.join(work, "child1.prom")) as f:
+                snap1 = parse_prometheus_text(f.read())
+    finally:
+        server.close()
+    reqs, base = faults["reqs"], faults["base"]
+    first = set(range(A24_CHILD_REQUESTS))
+    resumed = {e["req"]["rid"] for e in (drained or {"requests": []})
+               ["requests"]}
+    generated = {e["req"]["rid"]: len(e["generated"])
+                 for e in (drained or {"requests": []})["requests"]}
+    fresh = A24_CHILD_REQUESTS  # child 2's own request: prompt of rid 0
+    parity = a24_stream_check(torch, faults["params"], faults["cfg"], reqs,
+                              base, res2, resumed)
+    fresh_bitwise = res2.get(fresh, ([], None))[0] == base[0][0]
+    kinds = collections.Counter(ev["kind"] for ev in trace)
+    counters = {
+        "serve_submitted_total": rep2["requests"]["submitted"],
+        "serve_completed_total": rep2["requests"]["completed"],
+        "serve_failed_attempts_total": rep2["requests"]["failed_attempts"],
+        "serve_retries_total": rep2["faults"]["retries_total"],
+        "serve_watchdog_trips_total": rep2["faults"]["watchdog_trips_total"],
+        "serve_dead_letter_total": rep2["faults"]["dead_letter_total"],
+        "serve_fault_survived_total": rep2["faults"]["fault_survived"],
+        "serve_prefill_tokens_total": rep2["tokens"]["prefill"],
+        "serve_decode_tokens_total": rep2["tokens"]["decode"],
+        "serve_wasted_tokens_total": rep2["tokens"]["wasted"],
+        "serve_drain_persisted_total": rep2["drain_persisted"]}
+    snap_off = {k: (snap2.get((k, ())), v) for k, v in counters.items()
+                if snap2.get((k, ())) != v}
+    out = {"seconds": {"child1": t1 - t0, "child2": t2 - t1},
+           "child1": {"drained": rep1["drained"],
+                      "drain_persisted": rep1["drain_persisted"],
+                      "preempt_notice": rep1.get("preempt_notice"),
+                      "preempt_polls": rep1.get("preempt_polls"),
+                      "completed": sorted(res1),
+                      "generated_at_drain": generated,
+                      "snapshot_drain_persisted": snap1.get(
+                          ("serve_drain_persisted_total", ()))},
+           "child2": {"resumed": rep2["resumed"],
+                      "preempt_notice": rep2.get("preempt_notice"),
+                      "completed": sorted(res2),
+                      "decode_dispatches": rep2["decode_dispatches"],
+                      "prefill_dispatches": rep2["prefill_dispatches"],
+                      "device_time": rep2["device_time"]},
+           "drain_file_cleared": cleared, "parity": parity,
+           "fresh_request_bitwise": fresh_bitwise,
+           "trace": {"serve_step": kinds["serve_step"],
+                     "serve_prefill": kinds["serve_prefill"],
+                     "engine_dispatch": kinds["engine_dispatch"]},
+           "snapshot_counters_off": snap_off}
+    emit("a24_processes", **out)
+    fail = []
+    if not rep1["drained"] or not rep1.get("preempt_notice"):
+        fail.append("child 1 was not drained by the poll")
+    if rep1["drain_persisted"] != rep1["drained"] \
+            or snap1.get(("serve_drain_persisted_total", ())) \
+            != rep1["drained"]:
+        fail.append("drain_persisted != drained")
+    if rep2["resumed"] != rep1["drained"] or len(resumed) != rep1["drained"]:
+        fail.append("resumed != drained")
+    if not cleared:
+        fail.append("the drain file outlived child 2")
+    if rep2.get("preempt_notice"):
+        fail.append("child 2 saw a preemption notice")
+    done1, done2 = set(res1), set(res2) - {fresh}
+    if done1 & done2 or done1 | done2 != first or set(res2) - first \
+            != {fresh} or done2 != resumed:
+        fail.append(f"rids did not each finish once: {sorted(done1)} / "
+                    f"{sorted(res2)}")
+    if parity["failures"]:
+        fail.append(f"restored streams disagree: {parity['failures']}")
+    if not fresh_bitwise:
+        fail.append("child 2's fresh request is not the fault-free rid 0")
+    if kinds["serve_step"] != rep2["decode_dispatches"] \
+            or kinds["serve_prefill"] != rep2["prefill_dispatches"]:
+        fail.append(f"trace spans {dict(kinds)} against the report")
+    if snap_off:
+        fail.append(f"snapshot counters off the report: {snap_off}")
+    if fail:
+        raise AssertionError("phase 24 (d)/(e): " + "; ".join(fail))
+    return out
+
+
+def phase_a24(torch) -> dict:
+    """Phase 24: (a) the chaos selfcheck, (b) faults on the gqa4
+    paged-kernel engine, (c) the watchdog's cost, (d) drain/restore
+    across processes, (e) their trace and metrics."""
+    t0 = time.perf_counter()
+    a24_selfcheck(torch)
+    ta = time.perf_counter()
+    faults = a24_faults(torch)
+    tb = time.perf_counter()
+    cost = a24_cost(torch, faults)
+    tc = time.perf_counter()
+    processes = a24_processes(torch, faults)
+    td = time.perf_counter()
+    seconds = td - t0
+    emit("a24_phase_seconds", seconds=seconds, selfcheck=ta - t0,
+         faults=tb - ta, watchdog_cost=tc - tb, processes=td - tc,
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A24_SECONDS:
+        raise AssertionError(f"phase 24 took {seconds:.1f} s, over its "
+                             f"{A24_SECONDS} s")
+    return {"launches": {"faults": faults["launches"],
+                         "watchdog_cost": cost["launches"]},
+            "cost": cost, "processes": processes}
+
+
 def chunk_of(world: int) -> int:
     """The transport's chunk for a world of ``world`` ranks with no axis
     lines (dp only)."""
@@ -6119,6 +6759,9 @@ def run_phases(torch) -> int:
     # the ipc transport
     a5r = phase_a5_ranks(torch)
     close_pools()  # every rank process ended before the closing lines
+    # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
+    # across processes, the serve trace
+    a24 = phase_a24(torch)
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
@@ -6141,8 +6784,10 @@ def run_phases(torch) -> int:
         "source": "akka_allreduce_tpu_torch/ops/kernels/csrc/"
                   "paged_attention.cu",
         "replaces": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:516",
-        "launches": served["launches"] + sum(a6["launches"].values()),
+        "launches": served["launches"] + sum(a6["launches"].values())
+        + sum(a24["launches"].values()),
         "serve_launches": served["launches"], "a6_launches": a6["launches"],
+        "a24_launches": a24["launches"],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

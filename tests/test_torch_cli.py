@@ -355,7 +355,10 @@ def test_train_a5_flags_match_the_jax_command(flag):
     "kv_cache", "prefill_buckets", "temperature", "top_k", "top_p",
     "speculative", "draft_steps", "draft_layers", "policy",
     "deadline_slack_s", "ckpt_dir", "use_ema", "tie_embeddings",
-    "watchdog_timeout", "chaos", "drain_dir", "preempt_poll"])
+    "watchdog_timeout", "chaos", "drain_dir", "preempt_poll",
+    "preempt_interval", "max_attempts", "retry_base_delay", "retry_jitter",
+    "tpot_estimate", "queue_depth", "th_step", "trace_file",
+    "metrics_file", "metrics_interval", "selfcheck"])
 def test_serve_a6_flags_match_the_jax_command(flag):
     from akka_allreduce_tpu import cli as jax_cli
     jax_parser = argparse.ArgumentParser()
@@ -433,13 +436,87 @@ def test_serve_evicts_requests_past_their_deadline(capsys):
     (["--top-k", "5"], "require --temperature > 0"),
     (["--temperature", "-1"], "--temperature must be >= 0"),
     (["--temperature", "1", "--top-p", "2"], "--top-p must be in (0, 1]"),
-    (["--watchdog-timeout", "1"], "ROADMAP A6, part 2"),
-    (["--chaos", "3"], "ROADMAP A6, part 2"),
-    (["--drain-dir", "d"], "ROADMAP A6, part 2"),
-    (["--preempt-poll", "gce"], "ROADMAP A6, part 2")])
+    (["--watchdog-timeout", "-1"], "--watchdog-timeout must be >= 0"),
+    (["--chaos", "3"], "--chaos requires --selfcheck"),
+    (["--selfcheck", "--chaos", "3", "--paged"],
+     "--chaos runs the slot-engine fault matrix"),
+    (["--selfcheck"], "ROADMAP A10")])
 def test_serve_a6_refusals_exit_2(capsys, flags, match):
     assert cli.main(["serve", "--device", "cpu", *TINY, *flags]) == 2
     assert match in capsys.readouterr().err
+
+
+def test_serve_fault_and_telemetry_flags_on_the_cpu(capsys, tmp_path):
+    """The scheduler's flags reach it (a queue of 3 sheds 2 of 5 closed
+    submits), the armed watchdog never trips a healthy run, the trace
+    holds one serve_step span a decode dispatch and one serve_prefill a
+    prefill, and the metrics snapshot's counters are the report's."""
+    from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+    from akka_allreduce_tpu_torch.telemetry.registry import \
+        parse_prometheus_text
+    trace, prom = tmp_path / "t.jsonl", tmp_path / "m.prom"
+    assert cli.main(["serve", "--device", "cpu", *TINY, "--paged",
+                     "--page-size", "4", "--paged-attention", "kernel",
+                     "--watchdog-timeout", "30", "--max-attempts", "2",
+                     "--retry-base-delay", "0.01", "--queue-depth", "3",
+                     "--th-step", "0.5", "--trace-file", str(trace),
+                     "--metrics-file", str(prom), "--metrics-interval",
+                     "0.05"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["requests"] == {"submitted": 5, "completed": 3,
+                                  "rejected": 2, "failed_attempts": 0}
+    assert report["config"]["th_step"] == 0.5
+    assert report["watchdog_trips"] == 0
+    assert report["drained"] == report["resumed"] == 0
+    assert report["device_time"]["host_ms"]["count"] \
+        == report["decode_dispatches"]
+    kinds = [ev["kind"] for ev in Tracer.read_jsonl(str(trace))]
+    assert kinds.count("serve_step") == report["decode_dispatches"]
+    assert kinds.count("engine_dispatch") == report["decode_dispatches"]
+    assert kinds.count("serve_prefill") == report["prefill_dispatches"]
+    assert kinds.count("serve_reject") == 2
+    assert kinds.count("serve_complete") == 3
+    snap = parse_prometheus_text(prom.read_text())
+    for name, want in (
+            ("serve_submitted_total", 5), ("serve_rejected_total", 2),
+            ("serve_completed_total", 3),
+            ("serve_decode_tokens_total", report["tokens"]["decode"]),
+            ("serve_watchdog_trips_total", 0),
+            ("serve_drain_persisted_total", 0)):
+        assert snap[(name, ())] == want, name
+    assert snap[("engine_dispatch_host_ms_count", ())] \
+        == report["decode_dispatches"]
+
+
+@pytest.mark.parametrize("steps", ["1", "4"])
+def test_serve_selfcheck_chaos_on_the_cpu(capsys, steps):
+    """``serve --selfcheck --chaos 3``: the fault matrix passes and its
+    ledger is the JAX harness's for this seed."""
+    assert cli.main(["serve", "--selfcheck", "--chaos", "3",
+                     "--decode-steps", steps, "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["selfcheck"] == "ok", out["failures"]
+    assert out["faults_fired"] == [["engine.dispatch", "hang", 1],
+                                   ["engine.dispatch", "raise", 3],
+                                   ["engine.logits", "nan", 6],
+                                   ["serve.loop", "preempt", 12]]
+    assert (out["watchdog_trips"], out["retries"], out["dead_letters"]) \
+        == (1, 7, 0)
+    assert out["churn_new_prefill_shapes"] == 0
+    assert out["churn_kernel_libraries_loaded"] == 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--selfcheck", "--chaos", "3"],
+    [*TINY, "--watchdog-timeout", "1", "--drain-dir", "never-made"]])
+def test_serve_fault_paths_without_cuda_raise(flags):
+    """Without CUDA and without ``--device cpu`` the selfcheck and an
+    armed serve raise before any work (no drain directory is made)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal needs one without")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main(["serve", *flags])
+    assert not (REPO / "never-made").exists()
 
 
 def test_serve_from_a_checkpoint(capsys, tmp_path):

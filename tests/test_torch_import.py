@@ -5,7 +5,8 @@ Three pins: a fresh interpreter imports every module of
 attention's, the peer-memory allreduce's, the round pacer's, the
 deadline trainer's, the collective autotuner's, the rank transport's,
 the bench rows' and the protocol plane's modules included, the
-optimizer families, the MLP and the telemetry's, the wire
+optimizer families, the MLP and the telemetry's, the serving fault
+injection and preemption watcher, the wire
 codec, the TCP router, the remote runners, the C++ cluster and the
 ``native`` loader among them) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``, nor, once it has loaded the
@@ -46,6 +47,8 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.runtime.checkpoint",
             "akka_allreduce_tpu_torch.runtime.pacer",
             "akka_allreduce_tpu_torch.runtime.straggler",
+            "akka_allreduce_tpu_torch.runtime.faults",
+            "akka_allreduce_tpu_torch.runtime.preempt",
             "akka_allreduce_tpu_torch.parallel.group",
             "akka_allreduce_tpu_torch.parallel.dp",
             "akka_allreduce_tpu_torch.ops.bucketing",
