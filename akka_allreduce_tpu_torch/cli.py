@@ -143,6 +143,7 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--d-ff", type=int, default=512)
     p.add_argument("--ffn", choices=("gelu", "swiglu"), default="gelu")
+    _add_moe_args(p)
     p.add_argument("--rope", action="store_true",
                    help="rotary position embeddings instead of a learned "
                         "positional table")
@@ -350,6 +351,26 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "[j*T/S, (j+1)*T/S) of its rows, attention runs "
                         "around the ring of the S ranks, and the gradient "
                         "sync spans all dp x S ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron: heads and d_ff "
+                        "sharded, one sum over tp per projection pair); "
+                        "the mesh is dp x ep x sp x tp processes, tp "
+                        "innermost")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages: not ported yet (ROADMAP A7 part "
+                        "2); only 1")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (needs --moe-experts): "
+                        "each ep rank owns n_experts / ep experts, and "
+                        "the batch rows shard over dp x ep")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatches (0 = pp): with --pp, not "
+                        "ported yet (ROADMAP A7 part 2)")
+    _add_moe_args(p)
+    p.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
+                   default="gpipe",
+                   help="pipeline schedule when --pp > 1: not ported yet "
+                        "(ROADMAP A7 part 2); only gpipe")
     p.add_argument("--dist-backend", choices=("nccl", "gloo", "ipc"),
                    default=None,
                    help="process-group backend with dp x sp > 1 (default: "
@@ -517,35 +538,44 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tie-embeddings", action="store_true",
                    help="output head reuses the input embedding "
                         "(GPT-2-style weight tying)")
-    p.add_argument("--moe-experts", type=int, default=0,
-                   help="mixture-of-experts layers: not ported (ROADMAP "
-                        "A7); > 0 exits 2")
-    p.add_argument("--moe-every", type=int, default=1)
-    p.add_argument("--capacity-factor", type=float, default=1.25)
-    p.add_argument("--router-k", type=int, default=2)
+    _add_moe_args(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without CUDA raises")
 
 
+def _add_moe_args(p: argparse.ArgumentParser) -> None:
+    """The MoE model flags of the JAX commands (``train`` and every
+    checkpoint consumer)."""
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="experts per MoE layer (0 = dense model)")
+    p.add_argument("--moe-every", type=int, default=1,
+                   help="every Nth layer is MoE")
+    p.add_argument("--capacity-factor", type=float, default=1.25)
+    p.add_argument("--router-k", type=int, default=2)
+
+
+def moe_config(args: argparse.Namespace):
+    """The ``--moe-experts`` flags -> a ``parallel/ep.py MoEConfig`` (its
+    d_ff is ``--d-ff``), or None for a dense model."""
+    if not args.moe_experts:
+        return None
+    from akka_allreduce_tpu_torch.parallel.ep import MoEConfig
+    return MoEConfig(n_experts=args.moe_experts, d_ff=args.d_ff,
+                     capacity_factor=args.capacity_factor,
+                     router_k=args.router_k)
+
+
 def _build_model_config(args: argparse.Namespace, max_seq: int):
-    """args (as declared by _add_model_args) -> TransformerConfig (dense:
-    ``--moe-experts`` is refused before this)."""
+    """args (as declared by _add_model_args) -> TransformerConfig."""
     from akka_allreduce_tpu_torch.models.transformer import \
         TransformerConfig
     return TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_seq=max_seq,
+        moe=moe_config(args), moe_every=args.moe_every,
         n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
         attn_window=args.attn_window or None,
         tie_embeddings=args.tie_embeddings)
-
-
-def _refuse_moe(args: argparse.Namespace) -> bool:
-    if args.moe_experts > 0:
-        print("error: --moe-experts > 0: mixture-of-experts models are "
-              "not ported (ROADMAP A7)", file=sys.stderr)
-        return True
-    return False
 
 
 def _restore_params(args: argparse.Namespace, mcfg, device
@@ -741,8 +771,6 @@ def _cmd_generate(args: argparse.Namespace) -> int:
     if refusal is not None:
         print(f"error: {refusal}", file=sys.stderr)
         return 2
-    if _refuse_moe(args):
-        return 2
     device = resolve_device(args.device)
     mcfg = _build_model_config(args, args.max_seq)
     restored = _restore_params(args, mcfg, device)
@@ -798,8 +826,6 @@ def _cmd_eval(args: argparse.Namespace) -> int:
         corpus = load_corpus(args.data_file)
     except FileNotFoundError:
         print(f"error: no such corpus {args.data_file}", file=sys.stderr)
-        return 2
-    if _refuse_moe(args):
         return 2
     mcfg = _build_model_config(args, args.max_seq)
     if corpus.max_token() >= mcfg.vocab_size:
@@ -1475,6 +1501,7 @@ def serve_model(args: argparse.Namespace, device, dtype=None):
     mcfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_seq=args.max_seq,
+        moe=moe_config(args), moe_every=args.moe_every,
         n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
         attn_window=args.attn_window or None,
         tie_embeddings=args.tie_embeddings,
@@ -1919,6 +1946,7 @@ def train_config(args: argparse.Namespace, seq: int,
     mcfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_seq=seq,
+        moe=moe_config(args), moe_every=args.moe_every,
         n_kv_heads=args.kv_heads or None, rope=args.rope, ffn=args.ffn,
         attn_window=args.attn_window or None,
         tie_embeddings=args.tie_embeddings)
@@ -1957,15 +1985,53 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     """Flag checks with the arithmetic spelled out; returns (global batch,
     global sequence, backend). ValueError / NotImplementedError on a bad
     or an unported combination."""
-    from akka_allreduce_tpu_torch.models.train import check_supported
+    from akka_allreduce_tpu_torch.models.train import (check_mesh_sizes,
+                                                       check_supported)
     from akka_allreduce_tpu_torch.parallel.group import check_backend
     from akka_allreduce_tpu_torch.parallel.ring_attention import \
         _check_window_fits
     if args.steps < 0 or args.grad_accum < 1:
         raise ValueError("--steps must be >= 0 and --grad-accum >= 1")
-    if args.dp < 1 or args.sp < 1:
-        raise ValueError(f"--dp and --sp must be >= 1, got {args.dp} and "
-                         f"{args.sp}")
+    if args.dp < 0:
+        raise ValueError(f"--dp must be >= 0 (0 = every device), got "
+                         f"{args.dp}")
+    if min(args.sp, args.tp, args.ep, args.pp) < 1:
+        raise ValueError(f"--sp, --tp, --ep and --pp must be >= 1, got "
+                         f"{args.sp}, {args.tp}, {args.ep} and {args.pp}")
+    model_par = args.tp * args.sp * args.pp * args.ep
+    if args.dp == 0:
+        # the JAX command's dp = 0: the devices left after the model axes
+        n_dev = (1 if args.device == "cpu" else torch.cuda.device_count()
+                 if torch.cuda.is_available() else 0)
+        dp = max(1, n_dev // model_par)
+        if dp * model_par != n_dev:
+            raise ValueError(f"dp*tp*sp*pp*ep = {dp * model_par} != "
+                             f"{n_dev} devices")
+        args.dp = dp
+    if args.microbatches > 1 and args.pp == 1:
+        raise ValueError("--microbatches requires --pp > 1 (microbatching "
+                         "only exists on the pipeline path)")
+    if args.pp > 1 and args.moe_experts and args.moe_every != 1:
+        raise ValueError("--pp > 1 needs homogeneous layers: use "
+                         "--moe-every 1 or drop --moe-experts")
+    for flag, value, default in (("--pp", args.pp, 1),
+                                 ("--microbatches", args.microbatches, 0),
+                                 ("--pp-schedule", args.pp_schedule,
+                                  "gpipe")):
+        if value != default:
+            raise NotImplementedError(
+                f"{flag} {value}: pipeline parallelism is not ported yet "
+                f"(ROADMAP A7 part 2)")
+    sharded = args.tp > 1 or args.ep > 1
+    if sharded and args.deadline_ms > 0:
+        raise NotImplementedError(
+            "--deadline-ms with --tp or --ep > 1 is not ported yet "
+            "(ROADMAP A7 part 2)")
+    if sharded and args.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "--steps-per-dispatch > 1 with --tp or --ep > 1 is not ported "
+            "yet (ROADMAP A7 part 2: its ipc capture is checked for the dp "
+            "and sp collectives only)")
     if args.grad_windows < 1:
         raise ValueError(f"--grad-windows must be >= 1, got "
                          f"{args.grad_windows}")
@@ -1986,15 +2052,22 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
         # the JAX command leaves this to RoundPacer; checked here before
         # any rank is spawned
         raise ValueError("max_lag must be >= 0")
-    dp, sp = args.dp, args.sp
-    b = args.batch or 2 * dp * args.grad_accum
+    dp, sp, ep = args.dp, args.sp, args.ep
+    # the batch's rows shard over the dp x ep data ranks (ep doubles as
+    # a data axis), dp-major
+    shards = dp * ep
+    b = args.batch or 2 * shards * args.grad_accum
     t = args.seq or 32 * sp
-    if b % dp:
-        raise ValueError(f"--batch {b} must divide over --dp {dp} ranks")
-    if (b // dp) % args.grad_accum:
+    if b % shards:
+        raise ValueError(
+            f"--batch {b} must divide over --dp {dp} ranks" if ep == 1
+            else f"--batch {b} must divide over {shards} data ranks "
+                 f"(dp x ep)")
+    if (b // shards) % args.grad_accum:
         raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
-                         f"per-rank batch {b // dp} (= batch {b} / {dp} "
-                         f"ranks)")
+                         f"per-rank batch {b // shards} (= batch {b} / "
+                         f"{shards} {'ranks' if ep == 1 else 'data ranks'}"
+                         f")")
     if t % sp:
         raise ValueError(f"--seq {t} must divide over --sp {sp} ranks "
                          f"(each holds T / sp positions)")
@@ -2003,7 +2076,7 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     # the quantized wires and the windowed and swing schedules need
     # exactly one >1 data axis (and swing a power-of-two one); the
     # hierarchical schedule is the ef8 wire over exactly two
-    data_axes = {"dp": dp, "sp": sp}
+    data_axes = {"dp": dp, "sp": sp, "ep": ep}
     wire = grad_wire(args)
     if args.grad_schedule == "hierarchical":
         if wire != "ef8":
@@ -2039,11 +2112,14 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
             power_of_two=args.grad_schedule == "swing")
         if err:
             raise ValueError(err)
-    check_supported(train_config(args, t))
+    cfg = train_config(args, t)
+    check_supported(cfg)
+    check_mesh_sizes(cfg, args.tp, ep)
     device = "cuda" if args.device.startswith("cuda") else args.device
     backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
-    if dp * sp > 1:
-        check_backend(backend, device, dp * sp)
+    world = dp * model_par
+    if world > 1:
+        check_backend(backend, device, world)
         if args.steps_per_dispatch > 1 and device == "cuda" \
                 and backend != "ipc":
             # a chunk is one CUDA graph; the host-staged wire is not
@@ -2067,9 +2143,11 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     are random from seed 0. ``attn_impl`` overrides the config's "auto"
     (the flash or ring-flash path).
 
-    With ``--dp N`` x ``--sp S`` > 1 the CUDA kernels are built here
-    first (the ranks never race ``nvcc``), then N x S rank processes
-    train (``parallel/group.py spawn_ranks``); only rank 0 prints, and
+    With ``--dp N`` x ``--ep E`` x ``--sp S`` x ``--tp P`` > 1 the CUDA
+    kernels are built here first (the ranks never race ``nvcc``), then
+    N x E x S x P rank processes train (``parallel/group.py
+    spawn_ranks``; a tp / ep rank keeps its shard of the model, the
+    checkpoint the full layout); only rank 0 prints, and
     the report is rank 0's, with ``dist`` (backend, world) and ``ranks``
     (each rank's peak memory, sync and attention-exchange ms per step and
     parameter checksum) added. With ``--deadline-ms`` the rounds run
@@ -2088,25 +2166,28 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
 
     device = resolve_device(args.device)
     _b, _t, backend = _check_train_flags(args)
-    world = args.dp * args.sp
+    world = args.dp * args.sp * args.ep * args.tp
     if world == 1:
         return _train(args, params, attn_impl, None, device, on_step)
     if on_step is not None:
-        raise ValueError("on_step observes one rank's state: dp x sp = 1")
+        raise ValueError("on_step observes one rank's state: dp x ep x sp "
+                         "x tp = 1")
     if device.type == "cuda":
         from akka_allreduce_tpu_torch.ops.kernels import build
         build.build_all()
     host = None if params is None else tree_map(
         lambda p: p.detach().cpu(), params)
     reports = spawn_ranks(_train_rank, world, backend, device.type, args,
-                          host, attn_impl, sp=args.sp)
+                          host, attn_impl, sp=args.sp, ep=args.ep,
+                          tp=args.tp)
     report = reports[0]
     report["ranks"] = [r.pop("rank_info") for r in reports]
     return report
 
 
 def _train_rank(group, args: argparse.Namespace, params, attn_impl):
-    """One rank of a ``--dp`` / ``--sp`` run (a spawned process)."""
+    """One rank of a ``--dp`` / ``--sp`` / ``--ep`` / ``--tp`` run (a
+    spawned process)."""
     return _train(args, params, attn_impl, group, group.device)
 
 
@@ -2137,13 +2218,20 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     from akka_allreduce_tpu_torch.ops.kernels import transport as tp
     from akka_allreduce_tpu_torch.parallel import ring_attention as ra
 
+    from akka_allreduce_tpu_torch.models.train import (full_layout,
+                                                       is_sharded,
+                                                       shard_optimizer_state)
+
     world = 1 if group is None else group.world
     rank = 0 if group is None else group.rank
-    dp_i = 0 if group is None else group.axis_index("dp")
+    # the batch's row block: (dp, ep), dp-major; its column block: sp
+    row_blk = 0 if group is None else (
+        group.axis_index("dp") * args.ep + group.axis_index("ep"))
     sp_j = 0 if group is None else group.axis_index("sp")
     log = print if rank == 0 else (lambda *a, **k: None)
     b, t, backend = _check_train_flags(args)
-    local_b, local_t = b // args.dp, t // args.sp
+    local_b, local_t = b // (args.dp * args.ep), t // args.sp
+    sharded = is_sharded(group)
     log_every = max(1, args.log_every)
     corpus = None
     if args.data_file:
@@ -2167,7 +2255,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     # chunks keep the step count, and read the learning rate, beside the
     # parameters (a captured chunk runs no host code)
     state = make_train_state(cfg, generator=generator, params=params,
-                             device=device, device_step=spd > 1)
+                             device=device, device_step=spd > 1,
+                             group=group)
     plan_report = None
     if cfg.transport_schedule == "auto":
         cfg, plan_report = _collective_plan(args, cfg, state.params, group,
@@ -2195,21 +2284,42 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                                   line=mask_line(cfg, group))
         trainer.pacer.on_harvest = lambda _r: read_round()
 
+    def saved_layout():
+        """(params, optimizer state, EMA) as the checkpoint keeps them:
+        the full layout on a tp / ep mesh (every rank gathers)."""
+        if not sharded:
+            return state.params, _opt_state(state), state.ema
+        full, opt, ema = full_layout(state, group)
+        return full, {"optimizer": opt, "count": state.step}, ema
+
     start, mgr = 0, None
     if args.ckpt_dir:
+        from akka_allreduce_tpu_torch.convert import shard_params
         from akka_allreduce_tpu_torch.runtime.checkpoint import (
             CheckpointConfig, restore_or_init)
+        params_like, opt_like, ema_like = saved_layout()
         start, loaded, opt_state, extra, mgr = restore_or_init(
             CheckpointConfig(args.ckpt_dir,
                              save_interval_steps=args.ckpt_every),
-            state.params, _opt_state(state), ema=state.ema)
+            params_like, opt_like, ema=ema_like)
         if start:
+            saved_opt = opt_state["optimizer"]
+            if sharded:  # the full layout sliced back to this rank's
+                loaded = shard_params(loaded, cfg.model, group)
+                saved_opt = shard_optimizer_state(state, saved_opt, group)
+                if ema_like is not None:
+                    with torch.no_grad():
+                        for live, saved in zip(
+                                tree_leaves(state.ema), tree_leaves(
+                                    shard_params(ema_like, cfg.model,
+                                                 group))):
+                            live.copy_(saved)
             with torch.no_grad():
                 for live, saved in zip(tree_leaves(state.params),
                                        tree_leaves(loaded)):
                     live.copy_(saved)
             state.step = int(opt_state["count"])
-            load_optimizer_state(state, opt_state["optimizer"])
+            load_optimizer_state(state, saved_opt)
             log(f"resumed from step {start - 1} "
                 f"(data position {extra.get('data_step', '?')})")
             if state.residual is not None:
@@ -2219,9 +2329,17 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                     log("note: no ef8 residual in the checkpoint; error "
                         "feedback restarts from zero")
                 else:
-                    state.residual.copy_(saved)
+                    for live, value in zip(tree_leaves(state.residual),
+                                           tree_leaves(saved)):
+                        live.copy_(value)
 
+    # the mesh, as the JAX command names it
+    log(f"mesh dp={args.dp} tp={args.tp} sp={args.sp} pp={args.pp} "
+        f"ep={args.ep}; batch={b} seq={t} microbatches=1"
+        + (f" moe_experts={args.moe_experts}" if cfg.model.moe else ""))
     sp_note = f" sp={args.sp}" if args.sp > 1 else ""
+    sp_note += "".join(f" {a}={n}" for a, n in (("ep", args.ep),
+                                                 ("tp", args.tp)) if n > 1)
     dist_note = (f" dp={args.dp}{sp_note} ({backend}) "
                  f"wire={cfg.grad_transport} "
                  f"schedule={cfg.transport_schedule}" if world > 1 else "")
@@ -2240,7 +2358,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         else:
             batch = step_rng.integers(0, args.vocab, size=(b, t),
                                       dtype=np.int32)
-        return step_rng, batch[dp_i * local_b:(dp_i + 1) * local_b,
+        return step_rng, batch[row_blk * local_b:(row_blk + 1) * local_b,
                                sp_j * local_t:(sp_j + 1) * local_t]
 
     counters = (lambda: (fa.FLASH_FWD_LAUNCHES, fa.FLASH_DQ_LAUNCHES,
@@ -2250,6 +2368,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                 rf.counts, tp.counts)
     before = [c() for c in counters]
     losses, step_ms, sync_ms, exchange_ms, min_counts = [], [], [], [], []
+    moe_metrics: list = []  # (aux_loss, dispatch_fraction) a step
     dispatched: list = []  # host time each step's dispatch began
     # rounds dispatched and not yet read: (step, dispatch time, metrics,
     # the step's sync marks)
@@ -2271,6 +2390,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             sync_ms.append(sum(elapsed_ms(*m) for m in marks))
         losses.append(loss)
         min_counts.append(int(metrics["min_bucket_count"]))
+        moe_metrics.append((float(metrics["aux_loss"]),
+                            float(metrics["dispatch_fraction"])))
         clocks["window"] += 1
         if i == start or (i + 1) % log_every == 0:
             toks = float(metrics["tokens"])
@@ -2339,10 +2460,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             sync_times.clear()
             if on_step is not None:
                 on_step(i, state)
-            if mgr is not None:
-                mgr.maybe_save(i, state.params, _opt_state(state),
-                               {"data_step": i}, sync=state.residual,
-                               group=group, ema=state.ema)
+            if mgr is not None and mgr.due(i):
+                params_, opt_, ema_ = saved_layout()
+                mgr.save(i, params_, opt_, {"data_step": i}, force=True,
+                         sync=state.residual, group=group, ema=ema_)
             if trainer is None:
                 read_round()  # waits for the step's device work
         if trainer is not None:
@@ -2353,9 +2474,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                 f"({fell} all-masked, ran exact for liveness)", flush=True)
         if mgr is not None and args.steps > start \
                 and mgr.latest_step() != args.steps - 1:
-            mgr.save(args.steps - 1, state.params, _opt_state(state),
+            params_, opt_, ema_ = saved_layout()
+            mgr.save(args.steps - 1, params_, opt_,
                      {"data_step": args.steps - 1}, force=True,
-                     sync=state.residual, group=group, ema=state.ema)
+                     sync=state.residual, group=group, ema=ema_)
     finally:
         try:
             telem.close()  # the final metrics snapshot
@@ -2390,7 +2512,11 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                    "attn_impl": cfg.attn_impl, "n_layers": args.n_layers,
                    "params": sum(p.numel()
                                  for p in tree_leaves(state.params)),
-                   "dp": args.dp, "sp": args.sp,
+                   "dp": args.dp, "sp": args.sp, "tp": args.tp,
+                   "ep": args.ep, "pp": args.pp,
+                   "mesh": f"dp={args.dp} tp={args.tp} sp={args.sp} "
+                           f"pp={args.pp} ep={args.ep}",
+                   "moe_experts": args.moe_experts,
                    "grad_transport": cfg.grad_transport,
                    "transport_schedule": cfg.transport_schedule,
                    "bucket_elems": cfg.bucket_elems},
@@ -2400,6 +2526,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                    "matmul_allow_tf32":
                        torch.backends.cuda.matmul.allow_tf32},
         "losses": losses,
+        # the MoE metrics a step (0 and 1 for a dense model; not read on
+        # the chunked path)
+        "aux_loss": [a for a, _ in moe_metrics],
+        "dispatch_fraction": [d for _, d in moe_metrics],
         "step_ms": step_ms,
         "wall_ms_per_step": step_s * 1e3 if step_s else None,
         "tokens_per_s": b * t / step_s if step_s else None,
@@ -2475,18 +2605,31 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             # the ef8 state's shape, and its largest entry in each sp
             # column shard (the hierarchical sync updates only the shard
             # this rank owns)
-            res = state.residual
+            # (an MoE run's dense plane; the expert plane beside it)
+            planes = state.residual if isinstance(state.residual, dict) \
+                else {"dense": state.residual}
+            res = planes["dense"]
             cols = -(-res.shape[1] // args.sp)
             report["rank_info"].update(
                 residual_shape=list(res.shape),
                 # its 32-bit patterns summed, a block of rows at a time
-                residual_checksum=sum(
-                    int(blk.contiguous().view(torch.int32).sum(
-                        dtype=torch.int64)) for blk in res.split(256)),
+                residual_checksum=_bits_checksum(res),
                 residual_abs_max_by_sp_shard=[
                     float(res[:, j * cols:(j + 1) * cols].abs().max())
                     for j in range(args.sp)])
+            if "expert" in planes:
+                report["rank_info"].update(
+                    expert_residual_shape=list(planes["expert"].shape),
+                    expert_residual_checksum=_bits_checksum(
+                        planes["expert"]))
     return report
+
+
+def _bits_checksum(x: torch.Tensor) -> int:
+    """The 32-bit patterns of an f32 tensor summed, a block of rows at a
+    time."""
+    return sum(int(blk.contiguous().view(torch.int32).sum(dtype=torch.int64))
+               for blk in x.split(256))
 
 
 def _wait(device) -> None:
@@ -2675,18 +2818,24 @@ def _collective_plan(args: argparse.Namespace, cfg, params, group, device,
     report's ``collective_plan`` entry."""
     import dataclasses
 
-    from akka_allreduce_tpu_torch.models.train import dense_bucket_count
+    from akka_allreduce_tpu_torch.models.train import (dense_bucket_count,
+                                                       expert_bucket_count,
+                                                       sync_groups)
     from akka_allreduce_tpu_torch.ops.autotune import load_or_measure
     from akka_allreduce_tpu_torch.parallel.group import RankGroup
     shapes = [(dense_bucket_count(cfg, params), cfg.bucket_elems)]
+    if cfg.model.moe is not None:
+        shapes.append((expert_bucket_count(cfg, params), cfg.bucket_elems))
     plan_dir = args.plan_dir or args.ckpt_dir
     if plan_dir is None:
         log("note: --grad-schedule auto without --plan-dir/--ckpt-dir: "
             "the plan is measured fresh every start (give it a directory "
             "to reload on restart)")
     t_plan = time.perf_counter()
+    # measured on the dense sync's group (the JAX _data_axes)
     plan, reused = load_or_measure(
-        plan_dir, group or RankGroup.single(device), shapes,
+        plan_dir, RankGroup.single(device) if group is None
+        else sync_groups(cfg, group)[0], shapes,
         wire=cfg.grad_transport, log=log)
     seconds = time.perf_counter() - t_plan
     winners = {k: (e.schedule if e.schedule != "windowed"

@@ -65,6 +65,87 @@ def params_to_jax(params):
     return _leaf_to_numpy(params)
 
 
+# -- tensor- and expert-parallel shards --------------------------------------
+#
+# The JAX package's ``param_specs`` (models/train.py): wq/wk/wv/w1/w3
+# ``P(None, "tp")``, wo/w2 ``P("tp", None)``, we1/we2 ``P("ep", None,
+# None)``, every other leaf replicated. A rank keeps the contiguous block
+# at its coordinate along the leaf's axis.
+
+_LAYER_SPLITS = {"wq": ("tp", 1), "wk": ("tp", 1), "wv": ("tp", 1),
+                 "w1": ("tp", 1), "w3": ("tp", 1), "wo": ("tp", 0),
+                 "w2": ("tp", 0), "we1": ("ep", 0), "we2": ("ep", 0)}
+
+
+def layer_split(name: str) -> "Optional[tuple]":
+    """``(mesh axis, dim)`` a layer leaf ``name`` is split along, or None
+    for a replicated leaf."""
+    return _LAYER_SPLITS.get(name)
+
+
+def shard_leaf(name: str, x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the full layer leaf ``x`` (a detached copy),
+    or ``x`` itself when the leaf is replicated or its axis has one
+    rank."""
+    split = layer_split(name)
+    if split is None or group.axis_size(split[0]) == 1:
+        return x
+    axis, dim = split
+    n = group.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"{axis}={n} must divide dim {dim} of {name} "
+                         f"{tuple(x.shape)}")
+    c = x.shape[dim] // n
+    return x.detach().narrow(dim, group.axis_index(axis) * c, c).clone()
+
+
+def gather_leaf(name: str, x: torch.Tensor, group) -> torch.Tensor:
+    """The full layer leaf from every rank's block ``x`` (detached; an
+    all-gather along the leaf's axis line: a collective over that
+    line)."""
+    split = layer_split(name)
+    if split is None or group.axis_size(split[0]) == 1:
+        return x
+    axis, dim = split
+    blocks = group.along(axis).all_gather(
+        x.detach().movedim(dim, 0).contiguous())
+    return blocks.movedim(0, dim).contiguous()
+
+
+def _check_mesh(cfg, group) -> None:
+    tp, ep = group.axis_size("tp"), group.axis_size("ep")
+    if cfg.n_heads % tp or cfg.d_ff % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={cfg.n_heads}, "
+            f"n_kv_heads={cfg.kv_heads}, and d_ff={cfg.d_ff}")
+    if cfg.moe is not None and cfg.moe.n_experts % ep:
+        raise ValueError(f"ep={ep} must divide "
+                         f"n_experts={cfg.moe.n_experts}")
+
+
+def shard_params(full: dict, cfg, group) -> dict:
+    """A full (unsharded) parameter tree -> this rank's shard of it on
+    the mesh of ``group`` (a ``RankGroup``), as the JAX ``param_specs``
+    lay it out; ``cfg`` is the ``TransformerConfig``. Replicated leaves
+    are the full tree's own tensors."""
+    _check_mesh(cfg, group)
+    out = {k: v for k, v in full.items() if k != "layers"}
+    out["layers"] = [{k: shard_leaf(k, v, group) for k, v in layer.items()}
+                     for layer in full["layers"]]
+    return out
+
+
+def gather_params(shard: dict, cfg, group) -> dict:
+    """The inverse of :func:`shard_params`: every rank's shard -> the
+    full tree, on every rank (a collective over the mesh: each rank
+    calls it with its own shard)."""
+    _check_mesh(cfg, group)
+    out = {k: v for k, v in shard.items() if k != "layers"}
+    out["layers"] = [{k: gather_leaf(k, v, group) for k, v in layer.items()}
+                     for layer in shard["layers"]]
+    return out
+
+
 # -- training checkpoints ---------------------------------------------------
 #
 # The JAX chain (akka_allreduce_tpu/models/train.py make_optimizer) is

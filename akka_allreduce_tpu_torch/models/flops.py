@@ -6,8 +6,9 @@ arithmetic:
 * :func:`transformer_step_flops` — useful FLOPs of one training step of
   the dense flagship transformer (matmul terms only): QKVO projections,
   causal attention scores + AV counted at the causal half (the flash
-  kernels skip future tiles, so that is the executed work), the FF and
-  the LM head; backward = 2x forward. Rematerialisation recompute is not
+  kernels skip future tiles, so that is the executed work), the FF (an
+  MoE layer's: the router and ``router_k`` expert FFs a token) and the
+  LM head; backward = 2x forward. Rematerialisation recompute is not
   counted: MFU measures useful FLOPs.
 * :func:`chip_peak_flops` — the card's dense bf16 peak. MFU is reported
   against it for both dtypes (the JAX package's convention, which
@@ -60,9 +61,19 @@ def transformer_fwd_flops(cfg: TransformerConfig, batch: int,
     # dense FF matmul count: gelu = w1+w2, swiglu adds the w3 gate
     n_ff_mats = 3 if cfg.ffn == "swiglu" else 2
     dense_ff = n_ff_mats * 2 * tokens * d * cfg.d_ff
+    if cfg.moe is not None:
+        # routed FF: router (d x E) + top-k expert FFs per token
+        k = cfg.moe.router_k
+        moe_ff = (2 * tokens * d * cfg.moe.n_experts
+                  + k * 4 * tokens * d * cfg.moe.d_ff)
+        moe_layers = sum(1 for i in range(cfg.n_layers)
+                         if cfg.is_moe_layer(i))
+        layer_ff = (moe_layers * moe_ff
+                    + (cfg.n_layers - moe_layers) * dense_ff)
+    else:
+        layer_ff = cfg.n_layers * dense_ff
     head = 2 * tokens * d * cfg.vocab_size
-    return (cfg.n_layers * (per_layer_attn + attn_core)
-            + cfg.n_layers * dense_ff + head)
+    return (cfg.n_layers * (per_layer_attn + attn_core) + layer_ff + head)
 
 
 def transformer_step_flops(cfg: TransformerConfig, batch: int,

@@ -14,6 +14,12 @@ Python loops and caches update in place. Sampling draws its noise from
 ``models/prng.py``, a copy of JAX's threefry, with JAX's key schedule
 (:func:`sample_step_key`), so a sampled stream is JAX's token for token
 wherever the perturbed scores are not a tie.
+
+An MoE layer's FF is ``moe_ffn`` with every expert local, on exactly the
+tensor the JAX function routes: its capacity comes from that call's own
+token count, so a full forward over t tokens may drop a popular expert's
+overflow where one-token decode does not (the JAX module's documented
+exception; parity is exact wherever capacity does not bind).
 """
 
 from __future__ import annotations
@@ -174,7 +180,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
         attn = _cached_attention(q, k_all, v_all, pos,
                                  window=cfg.attn_window)
         x = x + attn.reshape(b, 1, -1) @ layer["wo"]
-        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]), cfg)
     logits = lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
     cache["pos"] = pos + 1
     return cache, logits[:, 0, :]
@@ -205,7 +211,7 @@ def prefill_kv(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
         vs.append(v)
         attn = local_causal_attention(q, k, v, window=cfg.attn_window)
         x = x + attn.reshape(b, t, -1) @ layer["wo"]
-        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]), cfg)
     at = t - 1 if logit_pos is None else logit_pos
     logits = lm_logits(params, rmsnorm(x[:, at:at + 1], params["out_norm"]),
                        cfg)

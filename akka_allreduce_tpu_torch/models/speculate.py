@@ -13,9 +13,10 @@ masked by the position check and overwritten by the next round's writes
 (the cache is updated in place, so nothing is ever cleared). Batch is 1:
 speculation is the latency path. PyTorch runs eagerly, so the JAX
 function's ``while_loop`` is a Python loop with one host readback a
-round (the accepted count). The port has no MoE layers (ROADMAP A7):
-:func:`extend` runs the dense FFN, and a ``moe`` config is refused by
-``TransformerConfig``.
+round (the accepted count). An MoE target routes each call's tokens
+through ``moe_ffn`` with every expert local, its capacity from the
+call's own token count (as the JAX ``extend`` does): greedy speculation
+emits the target's greedy tokens where that capacity does not bind.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def extend(params: dict, cache: dict, tokens: torch.Tensor,
         attn = _block_cached_attention(q, k_all, v_all, pos,
                                        window=cfg.attn_window)
         x = x + attn.reshape(b, t, -1) @ layer["wo"]
-        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]), cfg)
     logits = lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
     cache["pos"] = pos + t
     return cache, logits

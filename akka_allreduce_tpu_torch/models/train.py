@@ -1,10 +1,10 @@
-"""The training step of the dense flagship transformer, on one rank or many.
+"""The training step of the flagship transformer, on one rank or many.
 
 Counterpart of ``akka_allreduce_tpu/models/train.py``: loss, backprop,
-the bucketed gradient sync across the data- and sequence-parallel ranks,
-and the optimizer update. With a group of more than one rank
-(``parallel/group.py``, a ``(dp, sp)`` mesh) the step works as the JAX
-``grad_local`` / ``sync_and_metrics`` pair does:
+the bucketed gradient sync across the data ranks, and the optimizer
+update. With a group of more than one rank (``parallel/group.py``, a
+``(dp, ep, sp, tp)`` mesh) the step works as the JAX ``grad_local`` /
+``sync_and_metrics`` pair does:
 
 * under sequence parallelism (``sp`` > 1) rank ``(i, j)`` holds columns
   ``[j T, (j + 1) T)`` of its rows: positions (learned embeddings, rope)
@@ -14,18 +14,35 @@ and the optimizer update. With a group of more than one rank
 * each rank's loss divides by the GLOBAL token count, the weights summed
   over every rank (the JAX psum over the data axes), so the sum of the
   ranks' gradients is the gradient of the global mean;
-* the gradients go through ``parallel/dp.py allreduce_gradients`` over
-  the whole ``(dp, sp)`` world (the JAX ``grad_axes=("dp", "sp")``;
-  ``rescale_target`` = world, ``average=True``, no per-element counts)
-  on the configured wire and schedule; int8/ef8 rounding keys derive
-  from ``(17, step count, 0)`` as the JAX ``derive_quant_key`` and the
-  dense sync's tag do;
+* under tensor parallelism (``tp`` > 1) each rank holds its Megatron
+  shard of the weights (``convert.shard_params``: every rank draws the
+  full tree from the seed and keeps its slice), the attention runs on
+  its ``H / tp`` heads and the block's sums over ``tp`` are
+  ``parallel/tp.py``'s; the ``tp`` ranks of a line take the same batch
+  rows and need no gradient sync;
+* with MoE layers and ``ep`` > 1 each rank owns ``n_experts / ep``
+  experts and routes its tokens over the ``ep`` line
+  (``parallel/ep.py``); ``ep`` is also a data axis: the batch's rows are
+  sharded over ``(dp, ep)``, dp-major (the JAX ``batch_axes``);
+* the DENSE gradients (every leaf but ``we1``/``we2``) go through
+  ``parallel/dp.py allreduce_gradients`` over the sub-mesh of the data
+  axes ``GRAD_AXES + ("ep",)`` = ``("dp", "sp", "ep")`` in that order
+  (the JAX ``_data_axes``: the order sets the sum order and the int8/ef8
+  rounding; ``rescale_target`` its rank count, ``average=True``, no
+  per-element counts) on the configured wire and schedule, the EXPERT
+  gradients (ep-rank-owned) over ``GRAD_AXES`` alone with their own
+  rescale target; int8/ef8 rounding keys derive from ``(17, step count,
+  0)`` for the dense sync and ``(17, step count, 1)`` for the expert
+  sync, as the JAX ``derive_quant_key`` and the two syncs' tags do;
 * global-norm clipping comes after the sync (it is in the optax chain
-  after ``sync_and_metrics``);
-* the loss metric is the ranks' losses summed, ``min_bucket_count`` the
-  smallest per-bucket count;
-* the ef8 residual is ``TrainState.residual`` (buckets-shaped f32),
-  threaded through every step;
+  after ``sync_and_metrics``), over the norm of the whole model: the
+  squares of the ``tp`` and ``ep`` shards summed over their lines;
+* the loss metric is the data ranks' losses summed, ``aux_loss`` and
+  ``dispatch_fraction`` their mean, ``min_bucket_count`` the smallest
+  per-bucket count of either sync;
+* the ef8 residual is ``TrainState.residual`` (buckets-shaped f32; for
+  an MoE model the two planes ``{"dense", "expert"}``, each riding its
+  own sync), threaded through every step;
 * with ``dynamic_valid=True`` the step takes the round's contribution
   mask, the JAX ``(n_data_ranks, num_buckets)`` f32 array with rows in
   the data-axis order (dp-major, then sp: a rank's row is its global
@@ -35,7 +52,7 @@ and the optimizer update. With a group of more than one rank
   hierarchical schedule the rows of one ``sp`` line must agree, which
   its ``DeadlineTrainer`` holds when given :func:`mask_line`).
 
-On one rank the sync is the identity and is skipped, as the JAX step's
+A sync over one rank is the identity and is skipped, as the JAX step's
 reduces over size-1 mesh axes; ``min_bucket_count`` is then 1.
 
 PyTorch idiom in place of the JAX package's pure functions:
@@ -83,6 +100,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from akka_allreduce_tpu_torch.convert import layer_split, shard_params
 from akka_allreduce_tpu_torch.models.optim import SGD, Adafactor, Lion
 from akka_allreduce_tpu_torch.models.transformer import (
     TransformerConfig, init_transformer, next_token_loss_and_aux)
@@ -101,6 +119,9 @@ from akka_allreduce_tpu_torch.parallel.ring_attention import (
     local_causal_attention, ring_attention, windowed_sp_attention)
 
 OPTIMIZERS = ("adamw", "adafactor", "sgd", "lion")
+# the JAX TrainConfig.grad_axes: the axes the expert gradients sync over
+# (the dense ones add ep)
+GRAD_AXES = ("dp", "sp")
 ACCUM_SCHEDULES = ("deferred", "overlap")
 # the JAX derive_quant_key's root key, key(17)
 QUANT_ROOT = 17
@@ -143,9 +164,10 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters, their optimizer, the ef8 error-feedback residual (None
-    on the other wires), the EMA weights (None without ``ema_decay``) and
-    the step count (optax's ``count``: the steps taken, which the LR
+    """Parameters (this rank's shard under tp / ep), their optimizer, the
+    ef8 error-feedback residual (None on the other wires; the
+    ``{"dense", "expert"}`` planes for an MoE model), the EMA weights
+    (None without ``ema_decay``) and the step count (optax's ``count``: the steps taken, which the LR
     schedule and the rounding keys read before it increments). The train
     step mutates them all.
 
@@ -158,7 +180,7 @@ class TrainState:
 
     params: dict
     optimizer: torch.optim.Optimizer
-    residual: Optional[torch.Tensor] = None
+    residual: "torch.Tensor | dict | None" = None
     ema: Optional[dict] = None
     count: Optional[torch.Tensor] = None
     lr_table: Optional[torch.Tensor] = None
@@ -188,15 +210,85 @@ def sync_config(cfg: TrainConfig, world: int) -> GradSyncConfig:
                           plan=cfg.collective_plan)
 
 
-def quant_key(step: int, microbatch: Optional[int] = None) -> tuple:
-    """The dense sync's rounding key of step ``step``: the JAX
-    ``fold_in(fold_in(key(17), step), 0)`` as a key tuple. On the
-    overlapped schedule microbatch ``i``'s sync folds ``i`` in before the
-    dense tag, as the JAX scan does: ``fold_in(fold_in(fold_in(key(17),
-    step), i), 0)``."""
+def quant_key(step: int, microbatch: Optional[int] = None,
+              tag: int = 0) -> tuple:
+    """A sync's rounding key of step ``step``: the JAX
+    ``fold_in(fold_in(key(17), step), tag)`` as a key tuple, ``tag`` 0
+    for the dense sync and 1 for the expert sync. On the overlapped
+    schedule microbatch ``i``'s syncs fold ``i`` in before the tag, as
+    the JAX scan does: ``fold_in(fold_in(fold_in(key(17), step), i),
+    tag)``."""
     if microbatch is None:
-        return (QUANT_ROOT, int(step), 0)
-    return (QUANT_ROOT, int(step), int(microbatch), 0)
+        return (QUANT_ROOT, int(step), int(tag))
+    return (QUANT_ROOT, int(step), int(microbatch), int(tag))
+
+
+def split_expert_leaves(grads: dict) -> tuple:
+    """A params-shaped tree -> (dense, expert): the expert leaves
+    (``we1``/``we2``, ep-rank-owned, synced over the data axes without
+    ``ep``) in a list of per-layer dicts (``{}`` for a dense layer), the
+    rest (the router included, replicated over ``ep``) in the dense
+    tree."""
+    dense = dict(grads)
+    dense_layers, expert_layers = [], []
+    for lyr in grads["layers"]:
+        lyr = dict(lyr)
+        expert_layers.append({k: lyr.pop(k) for k in ("we1", "we2")
+                              if k in lyr})
+        dense_layers.append(lyr)
+    dense["layers"] = dense_layers
+    return dense, expert_layers
+
+
+def merge_expert_leaves(dense: dict, expert_layers: list) -> dict:
+    """The inverse of :func:`split_expert_leaves`."""
+    out = dict(dense)
+    out["layers"] = [{**lyr, **ex}
+                     for lyr, ex in zip(dense["layers"], expert_layers)]
+    return out
+
+
+def data_axes(cfg: TrainConfig, group: Optional[RankGroup]) -> tuple:
+    """The axes the DENSE gradient sync reduces over: ``GRAD_AXES``,
+    plus ``ep`` when the mesh has it (the JAX ``_data_axes``)."""
+    has_ep = group is not None and group.axis_size("ep") > 1
+    return GRAD_AXES + (("ep",) if has_ep else ())
+
+
+def sync_groups(cfg: TrainConfig, group: Optional[RankGroup]) -> tuple:
+    """(dense, expert) sync groups: the sub-meshes of ``group`` over
+    :func:`data_axes` and over ``GRAD_AXES``, in those axis orders (a
+    group of one when a sub-mesh has one rank)."""
+    if group is None:
+        return RankGroup.single(), RankGroup.single()
+    return group.over(data_axes(cfg, group)), group.over(GRAD_AXES)
+
+
+def check_mesh(cfg: TrainConfig, group: Optional[RankGroup]) -> None:
+    """Refuse a mesh the model cannot take, as the JAX package does:
+    ``ep`` must divide ``n_experts``, and ``tp`` the heads, the KV heads
+    and ``d_ff``. adafactor's factored statistics and update clipping
+    read whole leaves, which a tp or ep shard is not: refused there
+    (ROADMAP A7 part 2)."""
+    if group is not None:
+        check_mesh_sizes(cfg, group.axis_size("tp"), group.axis_size("ep"))
+
+
+def check_mesh_sizes(cfg: TrainConfig, tp: int, ep: int) -> None:
+    """:func:`check_mesh` from the ``tp`` and ``ep`` sizes alone."""
+    mcfg = cfg.model
+    if mcfg.moe is not None and mcfg.moe.n_experts % ep:
+        raise ValueError(f"ep={ep} must divide "
+                         f"n_experts={mcfg.moe.n_experts}")
+    if mcfg.n_heads % tp or mcfg.d_ff % tp or mcfg.kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={mcfg.n_heads}, "
+            f"n_kv_heads={mcfg.kv_heads}, and d_ff={mcfg.d_ff}")
+    if cfg.optimizer == "adafactor" and (tp > 1 or ep > 1):
+        raise ValueError(
+            "adafactor over tp/ep shards is not ported yet (ROADMAP A7 "
+            "part 2): its factored moments and update clipping read "
+            "whole leaves; use adamw, lion or sgd")
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -313,13 +405,48 @@ def load_optimizer_state(state: TrainState, saved: dict) -> None:
                 state.count.device, torch.float32)
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def _leaf_axes(params: dict) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order): the mesh axis the
+    leaf is sharded along (``convert.layer_split``), or None."""
+    out = []
+    for k in sorted(params):
+        if k != "layers":
+            out += [None] * len(tree_leaves(params[k]))
+            continue
+        for layer in params["layers"]:
+            out += [(layer_split(n) or (None,))[0] for n in sorted(layer)]
+    return out
+
+
+def _sum_over(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """The sum of a 0-dim tensor over ``group`` (a host-side gather of
+    one float a rank; no kernel)."""
+    if group.world == 1:
+        return x
+    return group.all_gather(x.reshape(1)).sum()
+
+
+def clip_by_global_norm_(grads: list, max_norm: float,
+                         group: Optional[RankGroup] = None,
+                         leaf_axes: Optional[list] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: when the global norm is
     not below ``max_norm`` every gradient becomes ``g / norm * max_norm``;
     below it they stay as they are (``clip_grad_norm_`` would instead
     scale by ``max_norm / (norm + 1e-6)`` whenever the ratio is < 1).
-    Returns the norm. No host synchronisation."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    Under tp / ep the norm is the whole model's, as the JAX chain takes
+    it on the global arrays: each sharded leaf's squares (``leaf_axes``:
+    its axis per leaf) summed over its axis line. Returns the norm. No
+    host synchronisation on one rank."""
+    if group is None or leaf_axes is None:
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    else:
+        parts: dict = {}
+        for g, axis in zip(grads, leaf_axes):
+            sq = (g.float() ** 2).sum()
+            parts[axis] = sq if axis not in parts else parts[axis] + sq
+        norm = torch.sqrt(sum(
+            v if axis is None else _sum_over(v, group.along(axis))
+            for axis, v in parts.items()))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -376,33 +503,51 @@ def select_ring_attention(cfg: TrainConfig, group: RankGroup):
     return partial(ring_attention, group=group, causal=True)
 
 
+def _zero_plane(tree, bucket_elems: int, device) -> torch.Tensor:
+    spec = tree_bucket_spec(tree, bucket_elems)
+    return torch.zeros((spec.num_buckets, spec.bucket_elems),
+                       dtype=torch.float32, device=device)
+
+
 def make_train_state(cfg: TrainConfig,
                      generator: Optional[torch.Generator] = None,
                      params: Optional[dict] = None,
                      device: "torch.device | str | None" = None,
-                     device_step: bool = False) -> TrainState:
-    """Parameters (``params``, or random from ``generator``) as leaves
-    that require grad, their optimizer, on the ef8 wire a zero residual
-    of the bucket matrix's shape (the JAX ``init_ef_state``), and with
-    ``ema_decay`` the EMA as a copy of the initial masters (the JAX
-    ``param_ema`` init). ``device_step`` keeps the step count on the
-    parameters' device (``TrainState.count``) with the schedule's rates
-    beside it, and the optimizer's learning rate as a tensor there: the
-    state of :func:`make_multi_step`'s chunks."""
+                     device_step: bool = False,
+                     group: Optional[RankGroup] = None) -> TrainState:
+    """Parameters (``params``, or random from ``generator``: the full
+    tree either way) as leaves that require grad, their optimizer, on
+    the ef8 wire a zero residual of the bucket matrix's shape (the JAX
+    ``init_ef_state``; an MoE model's is the ``{"dense", "expert"}``
+    planes, one per sync), and with ``ema_decay`` the EMA as a copy of
+    the initial masters (the JAX ``param_ema`` init). On a mesh
+    ``group`` with tp or ep > 1 the rank keeps its shard of the full
+    tree (``convert.shard_params``). ``device_step`` keeps the step
+    count on the parameters' device (``TrainState.count``) with the
+    schedule's rates beside it, and the optimizer's learning rate as a
+    tensor there: the state of :func:`make_multi_step`'s chunks."""
+    check_mesh(cfg, group)
     if params is None:
         if generator is None:
             raise ValueError("make_train_state needs params or a generator")
-        params = init_transformer(generator, cfg.model, device)
+        tp = 1 if group is None else group.axis_size("tp")
+        params = init_transformer(generator, cfg.model, device, tp=tp)
     elif device is not None:
         params = tree_map(lambda p: p.to(device), params)
+    if is_sharded(group):
+        params = shard_params(params, cfg.model, group)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     where = tree_leaves(params)[0].device
     residual = None
     if cfg.grad_transport == "ef8":
-        spec = tree_bucket_spec(params, cfg.bucket_elems)
-        residual = torch.zeros((spec.num_buckets, spec.bucket_elems),
-                               dtype=torch.float32, device=where)
+        if cfg.model.moe is None:
+            residual = _zero_plane(params, cfg.bucket_elems, where)
+        else:
+            dense, expert = split_expert_leaves(params)
+            residual = {"dense": _zero_plane(dense, cfg.bucket_elems, where),
+                        "expert": _zero_plane(expert, cfg.bucket_elems,
+                                              where)}
     ema = None
     if cfg.ema_decay > 0:
         ema = tree_map(lambda p: p.detach().clone().float(), params)
@@ -415,6 +560,73 @@ def make_train_state(cfg: TrainConfig,
                       optimizer=make_optimizer(cfg, params, lr),
                       residual=residual, ema=ema, count=count,
                       lr_table=table)
+
+
+def is_sharded(group: Optional[RankGroup]) -> bool:
+    """Whether ``group``'s ranks hold shards of the model (tp or ep >
+    1)."""
+    return group is not None and (group.axis_size("tp") > 1
+                                  or group.axis_size("ep") > 1)
+
+
+def optimizer_leaf_names(state: TrainState) -> list:
+    """Per parameter of ``state.optimizer``, in its ``state_dict`` index
+    order: the layer leaf's name (``wq``, ``we1``, ...), or None for a
+    leaf outside the layers."""
+    names = {}
+    for k in sorted(state.params):
+        if k != "layers":
+            names.update((id(x), None) for x in tree_leaves(state.params[k]))
+            continue
+        for layer in state.params["layers"]:
+            names.update((id(layer[n]), n) for n in layer)
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
+def _map_optimizer_tensors(saved: dict, names: list, fn) -> dict:
+    """``saved`` (a ``state_dict``) with ``fn(name, tensor)`` applied to
+    every per-parameter tensor of more than 0 dims."""
+    out = dict(saved)
+    out["state"] = {
+        i: {k: fn(names[i], v) if isinstance(v, torch.Tensor) and v.dim()
+            else v for k, v in per.items()}
+        for i, per in saved["state"].items()}
+    return out
+
+
+def full_layout(state: TrainState, group: RankGroup) -> tuple:
+    """(params, optimizer state dict, EMA) of a tp / ep rank in the full,
+    unsharded layout (``convert.gather_leaf``), as the JAX package's
+    checkpoint of its global arrays holds them. A collective over the
+    mesh: every rank calls it; every rank gets the full trees."""
+    from akka_allreduce_tpu_torch.convert import gather_leaf
+    gather = partial(_gather_tree, group=group)
+    opt = _map_optimizer_tensors(
+        state.optimizer.state_dict(), optimizer_leaf_names(state),
+        lambda name, v: v if name is None else gather_leaf(name, v, group))
+    ema = None if state.ema is None else gather(state.ema)
+    return gather(state.params), opt, ema
+
+
+def _gather_tree(tree: dict, group: RankGroup) -> dict:
+    from akka_allreduce_tpu_torch.convert import gather_leaf
+    out = {k: v.detach() if isinstance(v, torch.Tensor) else v
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [{k: gather_leaf(k, v.detach(), group)
+                      for k, v in layer.items()}
+                     for layer in tree["layers"]]
+    return out
+
+
+def shard_optimizer_state(state: TrainState, saved: dict,
+                          group: RankGroup) -> dict:
+    """A full-layout optimizer ``state_dict`` (:func:`full_layout`) ->
+    this rank's, for ``load_optimizer_state``."""
+    from akka_allreduce_tpu_torch.convert import shard_leaf
+    return _map_optimizer_tensors(
+        saved, optimizer_leaf_names(state),
+        lambda name, v: v if name is None else shard_leaf(name, v, group))
 
 
 @torch.no_grad()
@@ -447,16 +659,32 @@ def elapsed_ms(start, end) -> float:
 
 def data_rank_count(cfg: TrainConfig, group: Optional[RankGroup] = None
                     ) -> int:
-    """How many data ranks contribute to the gradient sync: the row count
-    of a dynamic ``valid`` mask (dp x sp, rows dp-major)."""
-    return 1 if group is None else group.world
+    """How many data ranks contribute to the dense gradient sync: the row
+    count of a dynamic ``valid`` mask (dp x sp, x ep when the mesh has
+    it; rows in that order, dp-major)."""
+    return sync_groups(cfg, group)[0].world
 
 
 def dense_bucket_count(cfg: TrainConfig, params: dict) -> int:
-    """Bucket count of the rank-local gradient tree (every rank holds
-    whole parameters): the column count of a dynamic ``valid`` mask and
-    the ef8 residual's row count."""
+    """Bucket count of the rank-local dense gradient tree (this rank's
+    shard; an MoE model's without the expert leaves): the column count
+    of a dynamic ``valid`` mask and the dense ef8 plane's row count."""
+    if _has_experts(params):
+        params = split_expert_leaves(params)[0]
     return tree_bucket_spec(params, cfg.bucket_elems).num_buckets
+
+
+def _has_experts(params: dict) -> bool:
+    return any("we1" in layer for layer in params["layers"])
+
+
+def expert_bucket_count(cfg: TrainConfig, params: dict) -> int:
+    """Bucket count of the rank-local expert gradient tree (the ep-owned
+    ``we1``/``we2``): the expert ef8 plane's row count."""
+    if not _has_experts(params):
+        raise ValueError("expert_bucket_count needs an MoE model")
+    return tree_bucket_spec(split_expert_leaves(params)[1],
+                            cfg.bucket_elems).num_buckets
 
 
 def _mask_row(valid, rank: int, world: int, device: torch.device
@@ -514,19 +742,35 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
 
     ``dynamic_valid=True`` makes ``valid`` required: the round's
     ``(data_rank_count, num_buckets)`` f32 mask, of which this rank
-    sends its own row (the global rank's) to the sync; a new mask every
-    round changes nothing else. ``min_bucket_count`` is then the
-    smallest count over the buckets, exact on every rank."""
+    sends its own row (its rank in the dense sync's order) to the dense
+    sync; a new mask every round changes nothing else.
+    ``min_bucket_count`` is then the smallest count over the buckets,
+    exact on every rank.
+
+    On a mesh with tp / ep (see the module docstring) ``params`` are this
+    rank's shard, the tokens its rows of the batch (sharded over ``(dp,
+    ep)``), and the returned gradients its shard's."""
     check_supported(cfg)
     mcfg = cfg.model
-    world = 1 if group is None else group.world
+    check_mesh(cfg, group)
     has_sp = group is not None and group.axis_size("sp") > 1
     attn = (select_ring_attention(cfg, group) if has_sp
             else select_local_attention(cfg))
     accum = cfg.grad_accum
-    gcfg = sync_config(cfg, world)
+    # the dense sync over ("dp", "sp", "ep"), the expert sync over
+    # GRAD_AXES; tp ranks hold different shards and sync nothing
+    dense_group, expert_group = sync_groups(cfg, group)
+    n_dense = dense_group.world
+    has_moe = mcfg.moe is not None
+    tp_group = None if group is None else group.along("tp")
+    ep_group = None if group is None else group.along("ep")
+    gcfg = sync_config(cfg, n_dense)
+    gcfg_expert = sync_config(cfg, expert_group.world)
     quantized = cfg.grad_transport in ("int8", "ef8")
     use_ef = cfg.grad_transport == "ef8"
+    # a sync over one rank is the identity, skipped as the JAX step's
+    # reduce over size-1 axes is
+    wide = n_dense > 1 or (has_moe and expert_group.world > 1)
 
     def cast_compute(params):
         if cfg.compute_dtype == "f32":
@@ -557,10 +801,10 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         first item is the global token count."""
         b, _ = tokens.shape
         targets, weights, positions = targets_and_weights(tokens)
-        # the global count: the weights summed over every rank
+        # the global count: the weights summed over the data ranks
         total_count = weights.sum()
-        if world > 1:
-            total_count = group.all_gather(total_count[None]).sum()
+        if n_dense > 1:
+            total_count = dense_group.all_gather(total_count[None]).sum()
         yield total_count
         leaves = tree_leaves(params)
         if b % accum:
@@ -570,27 +814,58 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
                                weights.chunk(accum)):
             loss_sum, _, mb_aux = next_token_loss_and_aux(
                 cast_compute(params), tok, mcfg, positions, attn,
-                targets=tgt, weights=w, remat=cfg.remat)
+                targets=tgt, weights=w, remat=cfg.remat,
+                tp_group=tp_group, ep_group=ep_group)
             mb_loss = loss_sum / total_count
-            yield (mb_loss.detach(), mb_aux,
-                   list(torch.autograd.grad(mb_loss, leaves)))
+            grads = list(torch.autograd.grad(mb_loss, leaves))
+            yield (mb_loss.detach(),
+                   {k: torch.as_tensor(v).detach() for k, v in mb_aux.items()},
+                   grads)
 
-    rank = 0 if group is None else group.rank
+    def sync_plane(tree, config, plane_group, key, residual, row):
+        """One sync of a gradient tree: (synced tree, its smallest bucket
+        count, the residual); over one rank without a mask, the tree
+        itself, count 1."""
+        if plane_group.world == 1 and row is None:
+            return tree, torch.ones((), dtype=torch.int32,
+                                    device=tree_leaves(tree)[0].device), \
+                residual
+        res = allreduce_gradients(tree, config, plane_group, valid=row,
+                                  quant_key=key, residual=residual)
+        return res.grads, res.bucket_counts.min(), res.residual
 
-    def sync(params, grads, key, residual, row):
-        """One gradient sync of a grads list: (synced list, the smallest
-        bucket count, the residual)."""
+    def sync(params, grads, step_seed, microbatch, residual, row):
+        """The step's syncs of a grads list: (synced list, the smallest
+        bucket count, the residual). An MoE model's dense and expert
+        leaves go through their own syncs, keys and residual planes;
+        the mask rides the dense sync alone (an ep-owned expert has no
+        replica to stand in for it)."""
         device = grads[0].device
         # a sync that a CUDA graph captures is not timed
         timed = sync_times is not None and not (
             device.type == "cuda" and torch.cuda.is_current_stream_capturing())
         start = _timer_mark(device) if timed else None
-        res = allreduce_gradients(tree_unflatten(params, grads), gcfg, group,
-                                  valid=row, quant_key=key,
-                                  residual=residual)
+        keys = [quant_key(step_seed, microbatch, tag) if quantized else None
+                for tag in (0, 1)]
+        tree = tree_unflatten(params, grads)
+        if not has_moe:
+            out, count, residual = sync_plane(tree, gcfg, dense_group,
+                                              keys[0], residual, row)
+        else:
+            dense, expert = split_expert_leaves(tree)
+            d_out, d_count, d_res = sync_plane(
+                dense, gcfg, dense_group, keys[0],
+                residual["dense"] if use_ef else None, row)
+            e_out, e_count, e_res = sync_plane(
+                expert, gcfg_expert, expert_group, keys[1],
+                residual["expert"] if use_ef else None, None)
+            out = merge_expert_leaves(d_out, e_out)
+            count = torch.minimum(d_count, e_count)
+            residual = ({"dense": d_res, "expert": e_res} if use_ef
+                        else None)
         if timed:
             sync_times.append((start, _timer_mark(device)))
-        return tree_leaves(res.grads), res.bucket_counts.min(), res.residual
+        return tree_leaves(out), count, residual
 
     def grad_step(params, tokens, quant_seed=None, residual=None,
                   valid=None):
@@ -600,20 +875,21 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         if valid is not None and not dynamic_valid:
             raise ValueError("valid needs make_grad_step(..., "
                              "dynamic_valid=True)")
-        if world > 1 and quantized and quant_seed is None:
+        if wide and quantized and quant_seed is None:
             raise ValueError(f"{cfg.grad_transport} grad transport needs a "
                              f"per-round quant_seed")
-        if world > 1 and use_ef and residual is None:
+        if wide and use_ef and residual is None:
             raise ValueError(
                 "ef8 grad transport needs the error-feedback state "
                 "(TrainState.residual, from make_train_state): dropping it "
                 "silently degrades ef8 to plain block-int8")
         # one rank with a mask still masks (the JAX sync over size-1
         # axes); without one its sync is the identity and is skipped
-        synced = world > 1 or valid is not None
-        # the round's mask row: the same on every tick of the overlap
-        row = None if valid is None else _mask_row(valid, rank, world,
-                                                   tokens.device)
+        synced = wide or valid is not None
+        # the round's mask row (this rank's in the dense sync's order):
+        # the same on every tick of the overlap
+        row = None if valid is None else _mask_row(
+            valid, dense_group.rank, n_dense, tokens.device)
         overlap = synced and cfg.accum_schedule == "overlap"
         parts = microbatch_grads(params, tokens)
         total_count = next(parts)
@@ -629,10 +905,8 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
             # each microbatch synced as produced, with its own rounding
             # key and the residual threaded through; the previous tick's
             # in-flight result is folded in only now
-            out, count, residual = sync(
-                params, mb_grads,
-                quant_key(quant_seed, i) if quantized else None,
-                residual, row)
+            out, count, residual = sync(params, mb_grads, quant_seed, i,
+                                        residual, row)
             if fly is not None:
                 grads = fly if grads is None else [
                     g + f for g, f in zip(grads, fly)]
@@ -642,22 +916,22 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         if overlap:
             grads = fold_in_flight(grads, fly)
         elif synced:
-            grads, min_count, residual = sync(
-                params, grads, quant_key(quant_seed) if quantized else None,
-                residual, row)
+            grads, min_count, residual = sync(params, grads, quant_seed,
+                                              None, residual, row)
         else:
             min_count = torch.ones((), dtype=torch.int32,
                                    device=tokens.device)
         # aux terms are per-microbatch diagnostics: the mean
         aux_loss = aux["aux_loss"] / accum
         dispatch = aux["dispatch_fraction"] / accum
-        if world > 1:
-            # the metrics' psum: the ranks' (loss, aux, dispatch) summed
+        if n_dense > 1:
+            # the metrics' psum over the data axes: the ranks' (loss,
+            # aux, dispatch) summed, the aux terms over the rank count
             mine = torch.stack([torch.as_tensor(loss), aux_loss, dispatch])
-            loss, aux_loss, dispatch = group.all_gather(
+            loss, aux_loss, dispatch = dense_group.all_gather(
                 mine.float()[None]).sum(dim=0)
-            aux_loss = aux_loss / world
-            dispatch = dispatch / world
+            aux_loss = aux_loss / n_dense
+            dispatch = dispatch / n_dense
         metrics = {"loss": loss, "tokens": total_count,
                    "min_bucket_count": min_count, "aux_loss": aux_loss,
                    "dispatch_fraction": dispatch}
@@ -669,16 +943,21 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     return grad_step
 
 
-def apply_update(cfg: TrainConfig, state: TrainState, grads: list) -> None:
+def apply_update(cfg: TrainConfig, state: TrainState, grads: list,
+                 group: Optional[RankGroup] = None) -> None:
     """The optax chain after the sync, in place: global-norm clip
-    (``clip_norm > 0``), the family's update at the schedule's rate for
-    the step count, then the EMA of the post-update masters; then the
-    count advances. On a device count (``state.count``) the rate is the
+    (``clip_norm > 0``; over the whole model's norm on a tp / ep mesh
+    ``group``), the family's update at the schedule's rate for the step
+    count, then the EMA of the post-update masters; then the count
+    advances. On a device count (``state.count``) the rate is the
     count's entry of ``state.lr_table``, copied into the groups' shared
     rate tensor, and the count advances on the device: no host code reads
     or writes a value, so a CUDA graph can capture the update."""
     if cfg.clip_norm > 0:
-        clip_by_global_norm_(grads, cfg.clip_norm)
+        sharded = is_sharded(group)
+        clip_by_global_norm_(grads, cfg.clip_norm,
+                             group if sharded else None,
+                             _leaf_axes(state.params) if sharded else None)
     opt = state.optimizer
     if state.count is None:
         lr = lr_at(cfg, state.host_count)
@@ -718,8 +997,10 @@ def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     instead (a step that a CUDA graph captures reads nothing back)."""
     grad_step = make_grad_step(cfg, group, sync_times, dynamic_valid)
     use_ef = cfg.grad_transport == "ef8"
+    dense_group, expert_group = sync_groups(cfg, group)
     keyed = cfg.grad_transport in ("int8", "ef8") and (
-        (group is not None and group.world > 1) or dynamic_valid)
+        dense_group.world > 1 or dynamic_valid
+        or (cfg.model.moe is not None and expert_group.world > 1))
 
     def step(state: TrainState, tokens: torch.Tensor, valid=None,
              host_step: Optional[int] = None) -> dict:
@@ -733,8 +1014,10 @@ def make_train_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
             # in place: a CUDA graph that captured the step reads and
             # writes the state's own residual on every replay
             with torch.no_grad():
-                state.residual.copy_(out[2])
-        apply_update(cfg, state, tree_leaves(grads))
+                for live, new in zip(tree_leaves(state.residual),
+                                     tree_leaves(out[2])):
+                    live.copy_(new)
+        apply_update(cfg, state, tree_leaves(grads), group)
         return metrics
 
     return step
@@ -786,7 +1069,9 @@ def _state_tensors(state: TrainState) -> list:
     out = list(tree_leaves(state.params))
     if state.ema is not None:
         out += tree_leaves(state.ema)
-    return out + [t for t in (state.residual, state.count) if t is not None]
+    if state.residual is not None:
+        out += tree_leaves(state.residual)
+    return out + ([] if state.count is None else [state.count])
 
 
 def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> list:

@@ -1,11 +1,23 @@
-"""The flagship causal transformer LM, dense and single-device.
+"""The flagship causal transformer LM, dense or mixture-of-experts.
 
 Counterpart of ``akka_allreduce_tpu/models/transformer.py``. Parameters
 are a plain nested dict with the JAX pytree's names, shapes and layout
 (``wq`` is ``(d_model, d_model)`` and used as ``h @ wq``), so
 ``convert.params_from_jax`` carries weights across unchanged and both
-packages compute the same function. The tensor-parallel and expert axes
-are not ported yet; a config with ``moe`` raises.
+packages compute the same function. Parallelism is passed in, as in the
+JAX package:
+
+* ``attn_fn`` — the local causal attention, the flash kernels, or a
+  ring over the ``sp`` ranks;
+* ``tp_group`` — the rank's ``tp`` line: the layer's ``wq``/``wk``/
+  ``wv``/``w1``/``w3`` are its column shards and ``wo``/``w2`` its row
+  shards (``convert.shard_params``), the attention sees this rank's
+  ``H / tp`` query heads and ``H_kv / tp`` KV heads, and the output
+  projections sum over ``tp`` (``parallel/tp.py``);
+* ``ep_group`` — the rank's ``ep`` line: the MoE layers (every
+  ``moe_every``-th, holding ``router``/``we1``/``we2``) route their
+  tokens to the experts' ranks (``parallel/ep.py``). The expert FF is
+  replicated across ``tp``.
 """
 
 from __future__ import annotations
@@ -17,15 +29,22 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from akka_allreduce_tpu_torch.parallel.ep import (MoEConfig, init_moe_layer,
+                                                  moe_ffn)
+from akka_allreduce_tpu_torch.parallel.group import RankGroup
 from akka_allreduce_tpu_torch.parallel.ring_attention import \
     local_causal_attention
+from akka_allreduce_tpu_torch.parallel.tp import (column_parallel_dense,
+                                                  row_parallel_dense,
+                                                  tp_grad_boundary)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields and validation as the JAX config; ``dtype`` is a
-    torch dtype. ``moe`` must stay None (the expert layers are a later
-    slice of the port)."""
+    torch dtype. With ``moe`` (a ``parallel/ep.py MoEConfig``) every
+    ``moe_every``-th layer (``(i + 1) % moe_every == 0``) has a routed
+    expert FF instead of the dense one."""
 
     vocab_size: int = 256
     d_model: int = 128
@@ -34,7 +53,7 @@ class TransformerConfig:
     d_ff: int = 512
     max_seq: int = 128
     dtype: torch.dtype = torch.float32
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     moe_every: int = 1
     n_kv_heads: Optional[int] = None
     rope: bool = False
@@ -52,11 +71,10 @@ class TransformerConfig:
         return self.n_kv_heads if self.n_kv_heads is not None \
             else self.n_heads
 
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe is not None and (i + 1) % self.moe_every == 0
+
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md queue A, the "
-                "tp/sp/pp/ep slice); use a dense config")
         if self.n_kv_heads is not None and not (
                 0 < self.n_kv_heads <= self.n_heads):
             raise ValueError(
@@ -125,11 +143,18 @@ def lm_logits(params: dict, x: torch.Tensor,
 
 
 def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
-                     device: "torch.device | str | None" = None) -> dict:
+                     device: "torch.device | str | None" = None,
+                     tp: int = 1) -> dict:
     """Random parameters from ``generator`` (normal * d_model^-0.5, norms
-    at 1), on ``device`` (default: the generator's device). The draws
-    differ from ``jax.random``'s; tests carry JAX weights across with
-    ``convert.params_from_jax`` instead."""
+    at 1), on ``device`` (default: the generator's device): the full,
+    unsharded tree whatever ``tp``, which is only checked to divide the
+    heads, the KV heads and d_ff (``convert.shard_params`` slices a
+    rank's shard). The draws differ from ``jax.random``'s; tests carry
+    JAX weights across with ``convert.params_from_jax`` instead."""
+    if cfg.n_heads % tp or cfg.d_ff % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={cfg.n_heads}, "
+            f"n_kv_heads={cfg.kv_heads}, and d_ff={cfg.d_ff}")
     device = torch.device(device if device is not None
                           else generator.device)
     dt = cfg.dtype
@@ -149,17 +174,21 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
         params["lm_head"] = normal(cfg.d_model, cfg.vocab_size)
     if not cfg.rope:
         params["pos"] = normal(cfg.max_seq, cfg.d_model)
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         layer = {"ln1": ones(cfg.d_model),
                  "wq": normal(cfg.d_model, cfg.d_model),
                  "wk": normal(cfg.d_model, d_kv),
                  "wv": normal(cfg.d_model, d_kv),
                  "wo": normal(cfg.d_model, cfg.d_model),
-                 "ln2": ones(cfg.d_model),
-                 "w1": normal(cfg.d_model, cfg.d_ff),
-                 "w2": normal(cfg.d_ff, cfg.d_model)}
-        if cfg.ffn == "swiglu":
-            layer["w3"] = normal(cfg.d_model, cfg.d_ff)
+                 "ln2": ones(cfg.d_model)}
+        if cfg.is_moe_layer(i):
+            layer.update(init_moe_layer(generator, cfg.d_model, cfg.moe,
+                                        dtype=dt, device=device))
+        else:
+            layer["w1"] = normal(cfg.d_model, cfg.d_ff)
+            layer["w2"] = normal(cfg.d_ff, cfg.d_model)
+            if cfg.ffn == "swiglu":
+                layer["w3"] = normal(cfg.d_model, cfg.d_ff)
         params["layers"].append(layer)
     return params
 
@@ -169,20 +198,39 @@ def attention_projections(layer: dict, h: torch.Tensor,
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """(B, T, d_model) normed input -> q (B, T, H, D), k and v
-    (B, T, H_kv, D)."""
+    (B, T, H_kv, D); H and H_kv are the layer's own (a ``tp`` rank's
+    column shards hold H / tp and H_kv / tp heads)."""
     b, t, _ = h.shape
-    q = (h @ layer["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = (h @ layer["wv"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    return q, k, v
+    q = column_parallel_dense(h, layer["wq"])
+    k = column_parallel_dense(h, layer["wk"])
+    v = column_parallel_dense(h, layer["wv"])
+    d = cfg.head_dim
+    return (q.reshape(b, t, q.shape[-1] // d, d),
+            k.reshape(b, t, k.shape[-1] // d, d),
+            v.reshape(b, t, v.shape[-1] // d, d))
 
 
-def feed_forward(layer: dict, h: torch.Tensor) -> torch.Tensor:
-    """The dense FF: gelu (tanh approximation, ``jax.nn.gelu``'s
-    default) or swiglu when the layer carries ``w3``."""
+def _dense_ff_hidden(layer: dict, h: torch.Tensor) -> torch.Tensor:
+    """The dense FF's hidden activation: gelu (tanh approximation,
+    ``jax.nn.gelu``'s default), or swiglu when the layer carries
+    ``w3``."""
     if "w3" in layer:
-        return (F.silu(h @ layer["w1"]) * (h @ layer["w3"])) @ layer["w2"]
-    return F.gelu(h @ layer["w1"], approximate="tanh") @ layer["w2"]
+        return F.silu(column_parallel_dense(h, layer["w1"])) \
+            * column_parallel_dense(h, layer["w3"])
+    return F.gelu(column_parallel_dense(h, layer["w1"]), approximate="tanh")
+
+
+def feed_forward(layer: dict, h: torch.Tensor,
+                 cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
+    """The FF of one layer on one rank, as the decode paths call it: the
+    dense FF, or for an MoE layer (``router`` in it) ``moe_ffn`` with
+    every expert local (the JAX ``axis_name=None``), its capacity from
+    this call's own token count, ``cfg.moe`` its config."""
+    if "router" in layer:
+        if cfg is None or cfg.moe is None:
+            raise ValueError("an MoE layer needs the model config's moe")
+        return moe_ffn(h, layer, cfg.moe)[0]
+    return _dense_ff_hidden(layer, h) @ layer["w2"]
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -190,39 +238,74 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 def transformer_block(layer: dict, x: torch.Tensor, cfg: TransformerConfig,
                       attn_fn: Optional[AttnFn] = None,
-                      positions: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-    """One residual block (attention + FF). ``positions`` feed rope
+                      positions: Optional[torch.Tensor] = None,
+                      tp_group: Optional[RankGroup] = None,
+                      ep_group: Optional[RankGroup] = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """One residual block (attention + FF). Returns (x, aux): aux is
+    empty for a dense layer and holds ``aux_loss`` and
+    ``dispatch_fraction`` for an MoE layer. ``positions`` feed rope
     (default 0..T-1); ``attn_fn`` defaults to the window-aware causal
-    oracle and receives the narrow GQA K/V."""
+    oracle and receives the narrow GQA K/V. ``tp_group`` and
+    ``ep_group`` as in the module docstring."""
     b, t, _ = x.shape
     if attn_fn is None:
         def attn_fn(q, k, v):
             return local_causal_attention(q, k, v, window=cfg.attn_window)
-    q, k, v = attention_projections(layer, rmsnorm(x, layer["ln1"]), cfg)
+    # identity forward, the sum over tp backward: completes dL/dh across
+    # the column-parallel shards
+    h = tp_grad_boundary(rmsnorm(x, layer["ln1"]), tp_group)
+    q, k, v = attention_projections(layer, h, cfg)
     if cfg.rope:
         if positions is None:
             positions = torch.arange(t, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    x = x + attn_fn(q, k, v).reshape(b, t, -1) @ layer["wo"]
-    return x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+    x = x + row_parallel_dense(attn_fn(q, k, v).reshape(b, t, -1),
+                               layer["wo"], tp_group)
+    h = rmsnorm(x, layer["ln2"])
+    if "router" in layer:
+        # the routed expert FF, replicated across tp (no boundary)
+        y, aux = moe_ffn(h, layer, cfg.moe, ep_group)
+        return x + y, aux
+    hh = _dense_ff_hidden(layer, tp_grad_boundary(h, tp_group))
+    return x + row_parallel_dense(hh, layer["w2"], tp_group), {}
 
 
-def _finalize_aux(device) -> dict:
-    """The aux of a dense model, as the JAX ``_finalize_aux`` gives it
-    for no MoE layers: no load-balance loss, every token dispatched."""
-    return {"aux_loss": torch.zeros((), device=device),
-            "dispatch_fraction": torch.ones((), device=device)}
+def _merge_aux(total: dict, aux: dict) -> dict:
+    if not aux:
+        return total
+    if not total:
+        return {**aux, "_n_moe": 1.0}
+    return {"aux_loss": total["aux_loss"] + aux["aux_loss"],
+            "dispatch_fraction": total["dispatch_fraction"]
+            + aux["dispatch_fraction"],
+            "_n_moe": total["_n_moe"] + 1.0}
+
+
+def _finalize_aux(total: dict, device) -> dict:
+    """aux_loss stays a sum over the MoE layers, dispatch_fraction
+    becomes their mean; with no MoE layer no load-balance loss and every
+    token dispatched (the JAX ``_finalize_aux``)."""
+    if not total:
+        return {"aux_loss": torch.zeros((), device=device),
+                "dispatch_fraction": torch.ones((), device=device)}
+    return {"aux_loss": total["aux_loss"],
+            "dispatch_fraction": total["dispatch_fraction"]
+            / total["_n_moe"]}
 
 
 def transformer_apply_with_aux(params: dict, tokens: torch.Tensor,
                                cfg: TransformerConfig,
                                positions: Optional[torch.Tensor] = None,
                                attn_fn: Optional[AttnFn] = None,
-                               remat: bool = False
+                               remat: bool = False,
+                               tp_group: Optional[RankGroup] = None,
+                               ep_group: Optional[RankGroup] = None
                                ) -> tuple[torch.Tensor, dict]:
-    """tokens (B, T) int -> (logits (B, T, vocab), aux). ``remat``
+    """tokens (B, T) int -> (logits (B, T, vocab), aux): ``aux_loss``
+    (the MoE layers' load-balance losses summed) and
+    ``dispatch_fraction`` (their mean; 1 with none). ``remat``
     checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
     its activations are recomputed in the backward pass instead of
     stored; the gradients are the same."""
@@ -232,16 +315,18 @@ def transformer_apply_with_aux(params: dict, tokens: torch.Tensor,
     x = params["embed"][tokens]
     if not cfg.rope:
         x = x + params["pos"][positions]
+    aux_total: dict = {}
     for layer in params["layers"]:
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 transformer_block, layer, x, cfg, attn_fn, positions,
-                use_reentrant=False)
+                tp_group, ep_group, use_reentrant=False)
         else:
-            x = transformer_block(layer, x, cfg, attn_fn,
-                                  positions=positions)
+            x, aux = transformer_block(layer, x, cfg, attn_fn, positions,
+                                       tp_group, ep_group)
+        aux_total = _merge_aux(aux_total, aux)
     logits = lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
-    return logits, _finalize_aux(tokens.device)
+    return logits, _finalize_aux(aux_total, tokens.device)
 
 
 def transformer_apply(params: dict, tokens: torch.Tensor,
@@ -270,16 +355,21 @@ def next_token_loss_and_aux(params: dict, tokens: torch.Tensor,
                             attn_fn: Optional[AttnFn] = None,
                             targets: Optional[torch.Tensor] = None,
                             weights: Optional[torch.Tensor] = None,
-                            remat: bool = False
+                            remat: bool = False,
+                            tp_group: Optional[RankGroup] = None,
+                            ep_group: Optional[RankGroup] = None
                             ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Weighted summed next-token cross-entropy, total weight and aux
     (sums, not means, so losses over several pieces combine exactly).
     Without ``targets`` the shift happens here (the last token has no
     target and is dropped); with them, ``weights`` masks the positions
     that do not count. The aux loss (0 for a dense model) is folded in
-    scaled by the token weight, as the JAX function does."""
+    scaled by the token weight, as the JAX function does, so the global
+    mean stays exact when the ranks' sums are added."""
     logits, aux = transformer_apply_with_aux(params, tokens, cfg, positions,
-                                             attn_fn, remat=remat)
+                                             attn_fn, remat=remat,
+                                             tp_group=tp_group,
+                                             ep_group=ep_group)
     if targets is None:
         logits = logits[:, :-1]
         targets = tokens[:, 1:]

@@ -51,7 +51,6 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from akka_allreduce_tpu_torch.parallel.group import AXES
 
 PLAN_VERSION = 1
 PLAN_SIDECAR = "collective_plan"
@@ -154,8 +153,11 @@ class CollectivePlan:
 
 def live_axes(group) -> tuple:
     """The (axis, size) pairs of ``group``'s axes that move bytes (size
-    > 1), outer first: the plan's ``axes``."""
-    return tuple((a, group.axis_size(a)) for a in AXES
+    > 1), outer first in the group's own order (a sub-mesh's, such as
+    the dense sync's ``("dp", "sp", "ep")``): the plan's ``axes``. A
+    group object without an ``axis_order`` has the ``(dp, sp)`` mesh."""
+    order = getattr(group, "axis_order", ("dp", "sp"))
+    return tuple((a, group.axis_size(a)) for a in order
                  if group.axis_size(a) > 1)
 
 

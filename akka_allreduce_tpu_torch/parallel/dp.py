@@ -15,8 +15,9 @@ Wires (``transport``): ``f32``; ``bf16`` (the payload cast, sums in f32
 on the device, the result rounded to bf16 once); ``int8`` (per-row
 scales, stochastic rounding); ``ef8`` (block scales and a carried
 error-feedback residual). Schedules: ``fused``, ``windowed``, ``swing``;
-``hierarchical`` (the ef8 ICI x DCN hybrid over the ``(dp, sp)`` mesh's
-two axes, ``ops/collectives.py hierarchical_allreduce``); ``auto``
+``hierarchical`` (the ef8 ICI x DCN hybrid over the group's two live
+axes, outer first in its order, ``ops/collectives.py
+hierarchical_allreduce``); ``auto``
 (each bucket matrix's ``(rows, cols)`` class resolved against
 ``GradSyncConfig.plan``, a ``CollectivePlan`` of ``ops/autotune.py``,
 before dispatch: a frozen plan gives every class one fixed schedule on
@@ -142,8 +143,10 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
         group = RankGroup.single(buckets.device)
     n = group.world
     live = n > 1
-    # the mesh axes that move bytes, outer (DCN) first
-    live_sizes = [size for _, size in live_axes(group)]
+    # the mesh axes that move bytes, outer (DCN) first, in the group's
+    # order (the dense sync's sub-mesh is ("dp", "sp", "ep"))
+    live = live_axes(group)
+    live_sizes = [size for _, size in live]
     schedule, n_windows = config.transport_schedule, config.num_windows
     if schedule == "auto":
         # one resolution per bucket class against the frozen plan: the
@@ -161,7 +164,8 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
             raise ValueError(
                 f"hierarchical schedule needs exactly two (>1) data "
                 f"axes (outer = DCN group, inner = ICI axis); got "
-                f"{live_axes(group)} — fold the extra parallelism away")
+                f"{[a for a, _ in live]} — fold the extra parallelism "
+                f"away")
         if len(live_sizes) < 2:
             # the mesh shrank under the flag: the fused ef8 two-phase
             # over whatever is left
@@ -210,9 +214,12 @@ def allreduce_gradients(grads: Any, config: GradSyncConfig = GradSyncConfig(),
                 mat * vmask.to(mat.dtype)[:, None]
         if config.transport == "ef8":
             if hier:
+                # outer (first in the group's order) = the DCN group,
+                # inner (last) = the ICI axis
                 out, new_residual = hierarchical_allreduce(
                     mat, quant_key, group, residual=residual, valid=vmask,
-                    block_elems=DEFAULT_EF_BLOCK)
+                    block_elems=DEFAULT_EF_BLOCK, dcn_axis=live[0][0],
+                    ici_axis=live[-1][0])
             elif swing:
                 out, new_residual = quantized_swing_allreduce(
                     mat, quant_key, group, residual=residual, valid=vmask,

@@ -1,30 +1,39 @@
-"""Process groups of the port's data- and sequence-parallel ranks.
+"""Process groups of the port's ranks: the JAX package's rank mesh.
 
-Counterpart of ``akka_allreduce_tpu/parallel/mesh.py`` (the ``dp`` and
-``sp`` axes) and ``utils/vma.py`` ``psum_all`` for ranks that are
-processes. The JAX package's rank-local collectives name a mesh axis; the
-port's name a :class:`RankGroup`: this rank, the world size, the backend
-and the mesh's ``sp`` size.
+Counterpart of ``akka_allreduce_tpu/parallel/mesh.py`` (``MeshSpec``'s
+axes) and ``utils/vma.py`` ``psum_all`` for ranks that are processes. The
+JAX package's rank-local collectives name mesh axes; the port's name a
+:class:`RankGroup`: this rank, the world size, the backend and the sizes
+of the mesh's axes.
 
-The mesh is the JAX package's ``(dp, sp)`` slice of its axis order
-``("pp", "dp", "ep", "sp", "tp")``: global rank ``r = dp_i * sp + sp_j``,
-so the ``sp`` ranks of one ``dp`` row are neighbours. The gradient sync
-runs over the whole world (the JAX ``grad_axes=("dp", "sp")``);
+The mesh is the JAX axis order ``("pp", "dp", "ep", "sp", "tp")``,
+row-major, ``tp`` innermost: global rank ``r = ((dp_i * ep + ep_k) * sp
++ sp_j) * tp + tp_l``. ``pp`` is 1 (pipeline stages are not ported:
+ROADMAP A7 part 2). With ``ep = tp = 1`` this is ``r = dp_i * sp +
+sp_j``, so the ``sp`` ranks of one ``dp`` row are neighbours.
 :meth:`RankGroup.ppermute` moves blocks along one named axis (the ring
 attention's K/V rotation along ``sp``).
 
-Axis lines. :meth:`RankGroup.along` is the group of the ranks on this
-rank's line along one axis (the JAX collective over one mesh axis, such
-as ``lax.psum_scatter(..., "sp")``): a ``RankGroup`` whose ``rank`` and
-``world`` are the coordinate and size along that axis, so every
-rank-local collective of ``ops/collectives.py`` runs unchanged on a line
-of the mesh. Its ``all_to_all``, ``all_gather`` and ``barrier`` go
-through a ``torch.distributed`` subgroup of the line's ranks; a line of
-one rank is a group of one, a line that spans the world is the world.
+Axis lines and sub-meshes. :meth:`RankGroup.along` is the group of the
+ranks on this rank's line along one axis (the JAX collective over one
+mesh axis, such as ``lax.psum_scatter(..., "sp")``), and
+:meth:`RankGroup.over` the sub-mesh over several axes, in the order
+given (the JAX collective over an axis tuple, such as the dense
+gradient sync's ``psum`` over ``("dp", "sp", "ep")``): the ranks that
+share this rank's other coordinates, whose ``rank`` is this rank's index
+in that order (row-major, the last axis fastest). Either is a
+``RankGroup`` whose axes are the ones it spans, so every rank-local
+collective of ``ops/collectives.py`` runs unchanged on it. Its
+``all_to_all``, ``all_gather`` and ``barrier`` go through a
+``torch.distributed`` subgroup of its ranks (a group's rank order may
+differ from the subgroup's, which sorts its members: the blocks are put
+in the group's order); a group of one rank is a group of one, a group
+that spans the world in the world's order is the world.
 ``dist.new_group`` is collective over the whole world, so
-:func:`make_axis_subgroups` makes every line's subgroup on every rank,
-in one order, before the rank's function runs (``spawn_ranks`` does),
-and :func:`free_axis_subgroups` destroys them before the process group.
+:func:`make_axis_subgroups` makes the subgroup of every line and
+sub-mesh on every rank, in one order, before the rank's function runs
+(``spawn_ranks`` does), and :func:`free_axis_subgroups` destroys them
+before the process group.
 
 The group moves bytes and never reduces. Its collectives are the ones
 that the JAX sync and ring issue besides ``psum``: ``all_to_all`` (split
@@ -77,6 +86,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import importlib
+import itertools
 import os
 import pickle
 import queue as queue_mod
@@ -92,7 +102,7 @@ import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo", "ipc")
-AXES = ("dp", "sp")  # the ported mesh axes, in the JAX mesh order
+AXES = ("pp", "dp", "ep", "sp", "tp")  # the JAX mesh order, outer first
 
 # all_gather_into_tensor was renamed all_gather_single (same arguments)
 _all_gather_flat = getattr(dist, "all_gather_single", None) \
@@ -101,43 +111,94 @@ _all_gather_flat = getattr(dist, "all_gather_single", None) \
 
 @dataclasses.dataclass(frozen=True)
 class RankGroup:
-    """This process's place in the ``(dp, sp)`` mesh of ``world`` ranks
-    (``sp`` divides ``world``; ``dp = world / sp``). ``backend`` is
+    """This process's place in a mesh of ``world`` ranks. ``backend`` is
     ``"nccl"``, ``"gloo"``, ``"ipc"`` or ``"none"`` (a group of one, no
     process group behind it); ``device`` is where this rank's tensors
-    live."""
+    live.
+
+    The whole mesh has the axes ``("pp", "dp", "ep", "sp", "tp")`` of
+    sizes ``(1, world / (ep sp tp), ep, sp, tp)``. A line or sub-mesh
+    (:meth:`along`, :meth:`over`) has ``dims``, its own axes and sizes
+    in its rank order, and ``line``, the global ranks of its indices."""
 
     rank: int
     world: int
     backend: str
     device: torch.device
     sp: int = 1
-    # the global ranks of an axis line (:meth:`along`), in line order;
-    # None for the whole world
+    # the global ranks of a line or sub-mesh, in its rank order; None for
+    # the whole world
     line: Optional[tuple] = None
+    ep: int = 1
+    tp: int = 1
+    # ((axis, size), ...) of a line or sub-mesh, in its rank order; None
+    # for the whole mesh
+    dims: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.sp < 1 or self.world % self.sp:
-            raise ValueError(f"sp={self.sp} must divide the world of "
-                             f"{self.world} ranks")
+        if self.dims is None:
+            inner = self.ep * self.sp * self.tp
+            if min(self.ep, self.sp, self.tp) < 1 or self.world % inner:
+                raise ValueError(
+                    f"ep x sp x tp = {self.ep} x {self.sp} x {self.tp} "
+                    f"must divide the world of {self.world} ranks")
 
     @staticmethod
     def single(device: "torch.device | str" = "cpu") -> "RankGroup":
         return RankGroup(0, 1, "none", torch.device(device))
 
+    @property
+    def mesh_dims(self) -> tuple:
+        """``((axis, size), ...)`` of this group's axes in its rank order
+        (row-major: the last axis varies fastest)."""
+        if self.dims is not None:
+            return self.dims
+        dp = self.world // (self.ep * self.sp * self.tp)
+        return (("pp", 1), ("dp", dp), ("ep", self.ep), ("sp", self.sp),
+                ("tp", self.tp))
+
+    @property
+    def axis_order(self) -> tuple:
+        """This group's axes in its rank order, outer first."""
+        return tuple(a for a, _ in self.mesh_dims)
+
     def along(self, axis: str) -> "RankGroup":
         """The ranks on this rank's line along ``axis``, as a group of
         ``axis_size(axis)`` ranks with ``rank`` = ``axis_index(axis)``
-        and ``sp`` 1 (a JAX collective over that one mesh axis)."""
-        line = tuple(self._global(self.axis_rank(axis, q))
-                     for q in range(self.axis_size(axis)))
-        if len(line) == 1:
+        (a JAX collective over that one mesh axis)."""
+        return self.over((axis,))
+
+    def over(self, axes) -> "RankGroup":
+        """The sub-mesh over ``axes`` through this rank: the ranks whose
+        coordinates on every other axis are this rank's, as a group whose
+        rank order is row-major in ``axes`` as given (a JAX collective
+        over the axis tuple ``axes``; ``over(("dp", "sp", "ep"))`` orders
+        its ranks dp-major, then sp, then ep). A sub-mesh of one rank is
+        a group of one."""
+        axes = tuple(axes)
+        for a in axes:
+            self._check_axis(a)
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"repeated mesh axis in {axes}")
+        sizes = [self.axis_size(a) for a in axes]
+        n = int(np.prod(sizes)) if sizes else 1
+        if n == 1:
             return RankGroup.single(self.device)
-        if len(line) == self.world:
-            return self if self.sp == 1 else dataclasses.replace(
-                self, rank=self.axis_index(axis), sp=1)
-        return RankGroup(self.axis_index(axis), len(line), self.backend,
-                         self.device, 1, line)
+        coords = self._coords(self.rank)
+        members, me = [], 0
+        for index in range(n):
+            sub, rest = {}, index
+            for a, size in zip(reversed(axes), reversed(sizes)):
+                sub[a] = rest % size
+                rest //= size
+            members.append(self._global(self._index({**coords, **sub})))
+            if all(sub[a] == coords[a] for a in axes):
+                me = index
+        line = tuple(members)
+        if self.line is None and line == tuple(range(self.world)):
+            line = None  # the world, in the world's order
+        return RankGroup(me, n, self.backend, self.device, line=line,
+                         dims=tuple((a, s) for a, s in zip(axes, sizes)))
 
     def _global(self, index: int) -> int:
         """The global rank of this group's rank ``index``."""
@@ -145,43 +206,64 @@ class RankGroup:
 
     def _pg(self):
         """The process group of this group's collectives: the default
-        (world) group, or the line's subgroup."""
+        (world) group, or the subgroup of its members."""
         if self.line is None:
             return None
-        pg = _SUBGROUPS.get(self.line)
-        if pg is None:
-            raise RuntimeError(
-                f"no process subgroup for ranks {self.line}: "
-                f"make_axis_subgroups must run on every rank first")
-        return pg
+        return _line_pg(self.line)
+
+    def _pg_order(self) -> Optional[list]:
+        """Where each of the process group's ranks (sorted global ranks)
+        sits in this group's order, or None when the orders agree."""
+        if self.line is None:
+            return None
+        members = sorted(self.line)
+        if list(self.line) == members:
+            return None
+        return [self.line.index(g) for g in members]
 
     # -- mesh coordinates ----------------------------------------------------
 
-    def axis_size(self, axis: str) -> int:
-        """``lax.axis_size``: the ranks along ``axis`` ("dp" or "sp")."""
+    def _check_axis(self, axis: str) -> None:
         if axis not in AXES:
             raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
-        return self.sp if axis == "sp" else self.world // self.sp
+
+    def _coords(self, index: int) -> dict:
+        """The coordinates of this group's rank ``index`` on its axes."""
+        out = {}
+        for a, size in reversed(self.mesh_dims):
+            out[a] = index % size
+            index //= size
+        return out
+
+    def _index(self, coords: dict) -> int:
+        """This group's rank at ``coords`` (one per axis of the group)."""
+        index = 0
+        for a, size in self.mesh_dims:
+            index = index * size + coords[a]
+        return index
+
+    def axis_size(self, axis: str) -> int:
+        """``lax.axis_size``: the ranks along ``axis`` (1 for an axis the
+        group does not span)."""
+        self._check_axis(axis)
+        return dict(self.mesh_dims).get(axis, 1)
 
     def axis_index(self, axis: str) -> int:
         """``lax.axis_index``: this rank's coordinate along ``axis``."""
-        if axis not in AXES:
-            raise ValueError(f"unknown mesh axis {axis!r}: {AXES}")
-        return self.rank % self.sp if axis == "sp" else self.rank // self.sp
+        self._check_axis(axis)
+        return self._coords(self.rank).get(axis, 0)
 
     def _shifted(self, axis: str, shift: int) -> int:
-        """The global rank ``shift`` steps along ``axis`` (wrapping), the
-        other coordinate kept."""
-        dp_i, sp_j = self.axis_index("dp"), self.axis_index("sp")
-        if axis == "sp":
-            sp_j = (sp_j + shift) % self.sp
-        else:
-            dp_i = (dp_i + shift) % self.axis_size("dp")
-        return dp_i * self.sp + sp_j
+        """This group's rank ``shift`` steps along ``axis`` (wrapping),
+        the other coordinates kept."""
+        coords = self._coords(self.rank)
+        if axis in coords:
+            coords[axis] = (coords[axis] + shift) % self.axis_size(axis)
+        return self._index(coords)
 
     def axis_rank(self, axis: str, index: int) -> int:
-        """The global rank at coordinate ``index`` along ``axis``, the
-        other coordinate kept."""
+        """The group's rank at coordinate ``index`` along ``axis``, the
+        other coordinates kept."""
         return self._shifted(axis, index - self.axis_index(axis))
 
     def _ranks(self, axis: Optional[str] = None) -> tuple:
@@ -226,8 +308,13 @@ class RankGroup:
         if self.backend == "ipc":
             return _transport().all_to_all(self, x)
         src = self._stage(x)
+        order = self._pg_order()
+        if order is not None:  # the subgroup's block p is ours order[p]
+            src = src[order].contiguous()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self._pg())
+        if order is not None:
+            out = out[_inverse(order)]
         return self._unstage(out, x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -241,6 +328,10 @@ class RankGroup:
         out = torch.empty((self.world * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
         _all_gather_flat(out, src, group=self._pg())
+        order = self._pg_order()
+        if order is not None:  # the subgroup's block p is ours order[p]
+            out = out.reshape((self.world, -1) + tuple(src.shape[1:]))[
+                _inverse(order)].reshape(out.shape)
         return self._unstage(out, x)
 
     def exchange(self, x: torch.Tensor, peer: int) -> torch.Tensor:
@@ -388,23 +479,41 @@ def _transport():
     return transport
 
 
-def axis_lines(world: int, sp: int) -> list:
-    """Every axis line of the ``(world / sp, sp)`` mesh that needs a
-    subgroup (more than one rank, fewer than the world), as tuples of
-    global ranks: the ``sp`` lines (one per ``dp`` row), then the ``dp``
-    lines (one per ``sp`` column)."""
-    dp = world // sp
-    if sp == 1 or dp == 1:
-        return []
-    return ([tuple(i * sp + j for j in range(sp)) for i in range(dp)]
-            + [tuple(i * sp + j for i in range(dp)) for j in range(sp)])
+def _inverse(order: list) -> list:
+    """The inverse permutation of ``order``."""
+    inv = [0] * len(order)
+    for p, i in enumerate(order):
+        inv[i] = p
+    return inv
+
+
+def axis_lines(world: int, sp: int, ep: int = 1, tp: int = 1) -> list:
+    """The member sets (sorted global ranks) of every line and sub-mesh
+    of the mesh ``(world / (ep sp tp), ep, sp, tp)`` that needs a
+    subgroup (more than one rank, fewer than the world): for each
+    nonempty proper subset of the axes of size > 1, every sub-mesh over
+    it. Single axes first, inner axis first (with ``dp`` and ``sp``
+    alone: the ``sp`` lines, one per ``dp`` row, then the ``dp`` lines,
+    one per ``sp`` column), then the subsets of two axes and more."""
+    mesh = RankGroup(0, world, "gloo", torch.device("cpu"), sp, ep=ep,
+                     tp=tp)
+    live = [a for a, size in mesh.mesh_dims if size > 1][::-1]
+    subsets = []
+    for k in range(1, len(live)):
+        subsets += [list(c) for c in itertools.combinations(live, k)]
+    out: dict = {}
+    for axes in subsets:
+        for r in range(world):
+            group = dataclasses.replace(mesh, rank=r).over(axes)
+            out.setdefault(tuple(sorted(group._ranks())), None)
+    return list(out)
 
 
 def make_axis_subgroups(group: RankGroup) -> None:
-    """Make the subgroup of every axis line on this rank. A collective:
-    ``dist.new_group`` must be called by every rank of the world for
-    every line, in the same order, members or not."""
-    for line in axis_lines(group.world, group.sp):
+    """Make the subgroup of every axis line and sub-mesh on this rank. A
+    collective: ``dist.new_group`` must be called by every rank of the
+    world for every member set, in the same order, members or not."""
+    for line in axis_lines(group.world, group.sp, group.ep, group.tp):
         pg = dist.new_group(list(line))
         if group.rank in line:
             _SUBGROUPS[line] = pg
@@ -457,11 +566,12 @@ def _ipc_call(name: str, *args) -> None:
 
 
 def _line_pg(line: tuple):
-    """The process group of the ranks ``line``: the default (world)
-    group when it spans the world, else the line's subgroup."""
+    """The process group of the ranks ``line`` (in any order): the
+    default (world) group when it spans the world, else the subgroup of
+    its members, whose ranks are the members sorted."""
     if len(line) == dist.get_world_size():
         return None
-    pg = _SUBGROUPS.get(line)
+    pg = _SUBGROUPS.get(tuple(sorted(line)))
     if pg is None:
         raise RuntimeError(
             f"no process subgroup for ranks {line}: make_axis_subgroups "
@@ -504,7 +614,8 @@ def _open_peer_buffers(group: RankGroup, line: tuple, nbytes: int
         _all_gather_flat(handles, mine[None], group=pg)
         handles = handles.cpu()
         mapped = {}
-        for q, peer in enumerate(line):
+        # the process group's order: the members sorted
+        for q, peer in enumerate(sorted(line)):
             if peer == me:
                 continue
             ptr = ctypes.c_void_p()
@@ -582,7 +693,7 @@ def check_backend(backend: str, device: str, world: int) -> None:
                 f"wire then goes through host memory)")
 
 
-def _worker(rank: int, world: int, sp: int, backend: str, device: str,
+def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
             store: str, fn: Callable, args: tuple, results) -> None:
     try:
         dev = rank_device(device, rank, backend)
@@ -595,7 +706,8 @@ def _worker(rank: int, world: int, sp: int, backend: str, device: str,
         dist.init_process_group("gloo" if backend == "ipc" else backend,
                                 init_method=f"file://{store}",
                                 rank=rank, world_size=world)
-        group = RankGroup(rank, world, backend, dev, sp)
+        sp, ep, tp = mesh
+        group = RankGroup(rank, world, backend, dev, sp, ep=ep, tp=tp)
         try:
             make_axis_subgroups(group)
             out = fn(group, *args)
@@ -624,21 +736,23 @@ def _to_cpu(obj: Any) -> Any:
 
 
 def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
-                *args, sp: int = 1, timeout: float = 900.0) -> list:
-    """Run ``fn(group, *args)`` in ``world`` new processes, a ``(world /
-    sp, sp)`` mesh, and return their results in rank order (tensors come
-    back on the CPU). A rank that raises, dies or outlasts ``timeout``
-    seconds ends every rank and raises here with that rank's
-    traceback."""
+                *args, sp: int = 1, ep: int = 1, tp: int = 1,
+                timeout: float = 900.0) -> list:
+    """Run ``fn(group, *args)`` in ``world`` new processes, the mesh
+    ``(dp, ep, sp, tp)`` with ``dp = world / (ep sp tp)``, and return
+    their results in rank order (tensors come back on the CPU). A rank
+    that raises, dies or outlasts ``timeout`` seconds ends every rank and
+    raises here with that rank's traceback."""
     check_backend(backend, device, world)
-    if world < 1 or sp < 1 or world % sp:
-        raise ValueError(f"world must be >= 1 and a multiple of sp; got "
-                         f"world={world}, sp={sp}")
+    if world < 1 or min(sp, ep, tp) < 1 or world % (sp * ep * tp):
+        raise ValueError(f"world must be >= 1 and a multiple of ep x sp x "
+                         f"tp; got world={world}, ep={ep}, sp={sp}, "
+                         f"tp={tp}")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks-")
     results = ctx.Queue()
     procs = [ctx.Process(target=_worker, daemon=True,
-                         args=(r, world, sp, backend, device,
+                         args=(r, world, (sp, ep, tp), backend, device,
                                os.path.join(tmp, "store"), fn, args,
                                results))
              for r in range(world)]

@@ -17,7 +17,16 @@ error-feedback residual as ``sync-<rank>.pt`` (the JAX package's ``sync``
 item, one plane per rank), and barriers hold the rename of the step
 directory until every rank has written, and every rank until it is
 renamed. :meth:`CheckpointManager.restore_sync` gives a rank its residual
-back bitwise.
+back bitwise (an MoE run's file holds both planes, ``{"dense",
+"expert"}``).
+
+A run with tensor or expert parallelism (tp or ep > 1) saves params, EMA
+and optimizer state in the full, unsharded layout, as the JAX package's
+checkpoint of its global arrays holds them: its ranks gather them first
+(``models/train.py full_layout``) and slice them again on restore
+(``convert.shard_params``, ``train.shard_optimizer_state``), so a ``--tp
+2`` checkpoint restores at one rank into ``generate``, ``eval`` and
+``serve``.
 
 The JAX package's orbax checkpoints are not read here (nor these by it):
 the formats differ. ``scripts/orbax_to_torch.py``, run where JAX is
@@ -141,11 +150,8 @@ class CheckpointManager:
         ``save`` with the same step and takes the same decision (it
         reads the directory before any rank renames into it). ``ema``,
         when given, is saved as the ``ema`` item."""
-        if not force:
-            latest = self.latest_step()
-            if step % max(1, self.config.save_interval_steps) or (
-                    latest is not None and latest >= step):
-                return False
+        if not force and not self.due(step):
+            return False
         rank = 0 if group is None else group.rank
         final = self._path(step)
         tmp = f"{final}.tmp" if group is not None \
@@ -175,6 +181,15 @@ class CheckpointManager:
         if group is not None:
             group.barrier()  # no rank reads before the rename
         return True
+
+    def due(self, step: int) -> bool:
+        """Whether the interval policy saves at ``step``: a multiple of
+        ``save_interval_steps`` past the latest saved step (orbax's
+        policy). Ranks that must gather their state before a save ask
+        this first, every rank alike."""
+        latest = self.latest_step()
+        return not (step % max(1, self.config.save_interval_steps) or (
+            latest is not None and latest >= step))
 
     def maybe_save(self, step: int, params: Any, opt_state: Any,
                    extra: Optional[dict] = None,
@@ -263,13 +278,14 @@ class CheckpointManager:
     def restore_sync(self, like: torch.Tensor, step: Optional[int] = None,
                      rank: int = 0) -> Optional[torch.Tensor]:
         """This rank's saved ef8 residual at ``step`` (latest by default)
-        on ``like``'s device, bitwise; None when the checkpoint has none
-        (a resume then restarts the error accumulator at zero)."""
+        on ``like``'s device, bitwise (an MoE run's ``{"dense",
+        "expert"}`` planes both); None when the checkpoint has none (a
+        resume then restarts the error accumulator at zero)."""
         step = self._resolve_step(step)
         path = os.path.join(self._path(step), f"sync-{rank}.pt")
         if not os.path.exists(path):
             return None
-        return _like(like, torch.load(path, map_location=like.device,
+        return _like(like, torch.load(path, map_location=_first_device(like),
                                       weights_only=True))
 
     # -- lifecycle ---------------------------------------------------------

@@ -27,8 +27,10 @@ prompt.
   anchor and every proposal, and each lane emits its accepted prefix.
   Rejected positions are left in the cache behind the lane's position,
   masked, and overwritten by the next block: the rewind is the position
-  vector. Greedy output is the plain greedy engine's. (Reference fault
-  C5, MoE targets under speculation, waits for MoE layers: ROADMAP A7.)
+  vector. Greedy output is the plain greedy engine's wherever an MoE
+  target's expert capacity does not bind: the verify extend routes its
+  block's tokens with a capacity from their own count (reference fault
+  C5; MoE parity on speculation uses a generous ``capacity_factor``).
 
 With ``temperature > 0`` every pick samples: lane s's token j draws with
 ``fold_in(key(seed), j)``, the seed being the request's ``seed`` (its
@@ -337,7 +339,7 @@ def _lane_forward(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
             k = rotate_half_split(k, cos, sin)
         attn = attend(i, q, k, v)
         x = x + attn.reshape(s, t, -1) @ layer["wo"]
-        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]))
+        x = x + feed_forward(layer, rmsnorm(x, layer["ln2"]), cfg)
     return lm_logits(params, rmsnorm(x, params["out_norm"]), cfg)
 
 

@@ -485,6 +485,34 @@ build) and runs every such batch there as a fresh spawn would:
    prefill; its ``--metrics-file`` snapshot's ``serve_*`` counters the
    report's (and child 1's ``serve_drain_persisted_total`` its drained
    count). The phase must end within ``A24_SECONDS`` (100 s).
+25. expert and tensor parallelism (ROADMAP A7 part 1; runs after phase
+   23, before the rank pools close, on the world-2 pool's ``ipc``
+   ranks). (a) At full width and depth 2, f32, one grad step on the ep=2
+   mesh (every second layer MoE: 8 experts, top-2, capacity factor 4,
+   which cannot bind; no load-balance term) and one on the tp=2 mesh
+   (the dense flagship), their gradients gathered to the full layout,
+   against the one-rank step on the full tree and batch: every leaf
+   within ``A7_GRAD_TOL`` (1e-4) of that leaf's largest value,
+   ``dispatch_fraction`` 1; the fault controls (rank 0's outgoing
+   all_to_all blocks swapped; the step's first tp sum skipped on both
+   ranks) must land outside. (b) ``train`` on the flagship's MoE variant
+   (``A7_MOE_FLAGS``: every second layer 8 experts, top-2, capacity
+   1.25) at ep=2, bf16, ``A7_STEPS`` steps; (c) the flagship at tp=2:
+   finite losses, ``dispatch_fraction`` in (0, 1] and a positive aux
+   loss on (b), every rank's launches of rows 1 and 10-12 those the
+   path implies (``a7_expected_launches``), wall ms a step, tokens/s, peak
+   GB a rank and the ep all_to_all's and tp sums' ms a step (CUDA events
+   around each call, ``ExchangeTimer``). (d) ``serve`` on phase 4's gqa4
+   model with every second layer MoE (capacity 4) through the gather
+   path, then the paged kernel, row 13's count set to 0 between: every
+   request completes, the kernel's launches n_layers x 4 x dispatches,
+   greedy tokens within ``greedy_agree`` of the gather run, and the
+   control (the first requests' streams from the experts rolled by
+   one) outside it. (e) ``train --tp 2 --ckpt-dir`` at depth 2 (its
+   final full tree gathered in memory), then ``cli generate
+   --ckpt-dir`` as a one-rank process: its greedy tokens equal the
+   in-memory model's, and the control's (wq's tp halves swapped)
+   differ. The phase must end within ``A7_SECONDS`` (250 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
@@ -494,8 +522,10 @@ rank 0's in phases 9, 13, 16, 17, 21 and 23; the masked reduce's with phases
 phase 22's and 24's, ``a6_launches`` and ``a24_launches`` apart; the
 flash, ring, sync and transport
 rows with phase 23's, ``a5r_launches`` apart on the sync rows, row 4's
-``pointer_seed_ms`` its launch reading the seed from device memory), and
-last ``{"ok": true, "device": {...}}``.
+``pointer_seed_ms`` its launch reading the seed from device memory; the
+bf16 flash, masked reduce, paged and transport rows with phase 25's,
+``a7_launches`` apart on the sync and paged rows), and last ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2037,28 +2067,30 @@ def batch_rank(group, jobs: list) -> list:
 
 
 def spawn_batch(torch, jobs: list, world: "int | None" = None,
-                backend: "str | None" = None, sp: int = 1) -> list:
+                backend: "str | None" = None, sp: int = 1, ep: int = 1,
+                tp: int = 1) -> list:
     """Every job of ``jobs`` (:func:`batch_rank`) in one spawn of the
     ranks, so the ranks' start (processes, CUDA contexts, the process
     group and the ipc buffers: ~20 s a spawn on the card) is paid once;
     with ``POOLED`` (set by :func:`main`) in the :class:`RankPool` of
     ``world`` ranks, whose start is paid once for the whole script.
-    Train jobs must share their world, mesh and backend, which they
-    give (their counters are per run: each report's launches are the
-    run's own). Returns per job a train job's report as ``run_train``
-    returns it (rank 0's, with ``ranks``) or a call job's per-rank
-    results, each with the job's seconds on rank 0."""
+    Train jobs must share their world, mesh (``(dp, ep, sp, tp)``) and
+    backend, which they give (their counters are per run: each report's
+    launches are the run's own). Returns per job a train job's report as
+    ``run_train`` returns it (rank 0's, with ``ranks``) or a call job's
+    per-rank results, each with the job's seconds on rank 0."""
     from akka_allreduce_tpu_torch import cli
     from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     meshes = set()
     for kind, args, _ in jobs:
         if kind == "train":
-            meshes.add((args.dp * args.sp, args.sp,
-                        cli._check_train_flags(args)[2]))
+            backend_ = cli._check_train_flags(args)[2]
+            meshes.add((args.dp * args.ep * args.sp * args.tp, args.sp,
+                        args.ep, args.tp, backend_))
     if len(meshes) > 1:
         raise ValueError(f"one spawn runs one mesh, got {meshes}")
     if meshes:
-        world, sp, backend = meshes.pop()
+        world, sp, ep, tp, backend = meshes.pop()
     if DEVICE == "cuda":
         import gc
 
@@ -2067,10 +2099,10 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
         gc.collect()  # this process's dropped tensors, before the ranks'
         torch.cuda.empty_cache()
     if POOLED:
-        per_rank = rank_pool(world).run(backend or DIST, sp, jobs)
+        per_rank = rank_pool(world).run(backend or DIST, (sp, ep, tp), jobs)
     else:
         per_rank = spawn_ranks(batch_rank, world, backend or DIST, DEVICE,
-                               jobs, sp=sp)
+                               jobs, sp=sp, ep=ep, tp=tp)
     out = []
     for k, (kind, _, _) in enumerate(jobs):
         results = [r[k][0] for r in per_rank]
@@ -2096,8 +2128,9 @@ def pool_rank(rank: int, world: int, device: str, store: str, inbox,
     (``parallel/group.py``: its device, intra-op threads and the world's
     gloo process group) once, then each batch ``(n, backend, sp, jobs)``
     from ``inbox`` as a fresh spawn runs it: the batch's ``RankGroup``
-    and axis subgroups, :func:`batch_rank`, the stream drained, the peer
-    buffers and subgroups freed, then the allocator's cache emptied.
+    (``sp``, or the mesh's ``(sp, ep, tp)``) and axis subgroups,
+    :func:`batch_rank`, the stream drained, the peer buffers and
+    subgroups freed, then the allocator's cache emptied.
     Puts ``(rank, n, ok, payload)`` on ``results``; ends at ``None`` or
     after a batch that raised."""
     import gc
@@ -2124,9 +2157,11 @@ def pool_rank(rank: int, world: int, device: str, store: str, inbox,
             msg = inbox.get()
             if msg is None:
                 return
-            n, backend, sp, jobs = msg
+            n, backend, mesh, jobs = msg
+            sp, ep, tp = mesh if isinstance(mesh, tuple) else (mesh, 1, 1)
             try:
-                group = G.RankGroup(rank, world, backend, dev, sp)
+                group = G.RankGroup(rank, world, backend, dev, sp, ep=ep,
+                                    tp=tp)
                 try:
                     G.make_axis_subgroups(group)
                     out = batch_rank(group, jobs)
@@ -2177,9 +2212,10 @@ class RankPool:
         for p in self.procs:
             p.start()
 
-    def run(self, backend: str, sp: int, jobs: list) -> list:
-        """One batch on every rank: each rank's :func:`batch_rank`
-        results, in rank order."""
+    def run(self, backend: str, sp: "int | tuple", jobs: list) -> list:
+        """One batch on every rank, on the mesh of ``sp`` (or of ``(sp,
+        ep, tp)``): each rank's :func:`batch_rank` results, in rank
+        order."""
         import pickle
         import queue
 
@@ -5737,8 +5773,8 @@ def keys_off_rank(group, args, params, attn_impl):
     def fill_off(keys, base):
         fill(keys, base + off)
 
-    def key_off(step, microbatch=None):
-        return quant_key(step + off, microbatch)
+    def key_off(step, microbatch=None, tag=0):
+        return quant_key(step + off, microbatch, tag)
 
     def replay_traced(runner, state, tokens):
         if runner.replays != 1 or group.rank != 0:
@@ -6612,6 +6648,465 @@ def phase_a24(torch) -> dict:
             "cost": cost, "processes": processes}
 
 
+# -- phase 25: expert and tensor parallelism (ROADMAP A7, part 1) ----------
+
+A7_WORLD = 2
+A7_MOE_FLAGS = ["--moe-experts", "8", "--router-k", "2",
+                "--capacity-factor", "1.25", "--moe-every", "2"]
+# (b) and (c): the flagship of phase 6, 3 steps, on the ep and tp axes
+A7_STEPS = 3
+A7_MOE_ARGV = TRAIN_ARGV + A7_MOE_FLAGS
+A7_TP_ARGV = list(TRAIN_ARGV)
+# (a): full width at depth 2, f32, one step: an ep=2 and a tp=2 step
+# against the one-rank step on the same global batch; every gradient
+# leaf within A7_GRAD_TOL of that leaf's largest value (f32, TF32 off:
+# the sums differ in order only)
+A7_PARITY_MODEL = dict(vocab_size=32768, d_model=2048, n_heads=16,
+                       n_layers=2, d_ff=8192, max_seq=512, moe_every=2)
+# capacity_factor n_experts / router_k: a capacity of N slots an expert,
+# which cannot bind; no load-balance term (its statistics are a shard's,
+# legitimately: the JAX gold test's setting)
+A7_PARITY_MOE = dict(n_experts=8, d_ff=8192, capacity_factor=4.0,
+                     router_k=2, aux_loss_coef=0.0)
+A7_PARITY_BATCH = (2, 512)
+A7_GRAD_TOL = 1e-4
+# (d): phase 4's gqa4 serve model with every second layer MoE
+A7_SERVE_ARGV = SERVE_ARGV + ["--moe-experts", "8", "--moe-every", "2",
+                              "--router-k", "2", "--capacity-factor", "4.0"]
+# (e): a tp=2 checkpoint at depth 2, restored by a one-rank generate
+A7_CKPT_ARGV = ["train", "--d-model", "2048", "--n-heads", "16",
+                "--n-layers", "2", "--d-ff", "8192", "--vocab", "32768",
+                "--seq", "256", "--batch", "2", "--lr", "1e-4", "--steps",
+                "2", "--log-every", "1", "--device", "cuda"]
+A7_PROMPT = list(range(1, 9))
+A7_GEN_TOKENS = 16
+A7_CHILD_TIMEOUT_S = 300
+A7_SECONDS = 250
+
+
+def a7_model(torch, model: dict, moe: "dict | None", device):
+    """(TrainConfig, the full tree from seed 0 on ``device``)."""
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer)
+    from akka_allreduce_tpu_torch.parallel.ep import MoEConfig
+    mcfg = TransformerConfig(**model,
+                             moe=None if moe is None else MoEConfig(**moe))
+    cfg = train.TrainConfig(model=mcfg, bucket_elems=BUCKET_ELEMS)
+    return cfg, init_transformer(torch.Generator(device).manual_seed(0),
+                                 mcfg, device)
+
+
+def a7_fault(kind: str, group):
+    """The fault control of (a): on ep, rank 0's outgoing all_to_all
+    blocks swapped; on tp, the first forward tp sum of the step skipped
+    on every rank (both ranks skip the same call: no rank waits on the
+    other). Returns the undo."""
+    from akka_allreduce_tpu_torch.parallel import ep as E
+    from akka_allreduce_tpu_torch.parallel import tp as T
+    if kind == "ep":
+        real = E._AllToAll.forward
+        line = group.along("ep")
+
+        def swapped(ctx, blocks, g):
+            return real(ctx, blocks.flip(0) if line.rank == 0 else blocks,
+                        g)
+        E._AllToAll.forward = staticmethod(swapped)
+        return lambda: setattr(E._AllToAll, "forward", staticmethod(real))
+    real = T._TpPsum.forward
+    calls = []
+
+    def skipped(ctx, x, g):
+        calls.append(1)
+        return x.clone() if len(calls) == 1 else real(ctx, x, g)
+    T._TpPsum.forward = staticmethod(skipped)
+    return lambda: setattr(T._TpPsum, "forward", staticmethod(real))
+
+
+def a7_parity_rank(group, kind: str, model: dict, moe, batch) -> dict:
+    """(a) on one rank: one grad step on this rank's shard (``kind`` "ep"
+    or "tp" the mesh's sharded axis), its gradients gathered to the full
+    layout, and the same step under the fault control; on rank 0 the
+    one-rank step on the full tree and batch, and each run's largest
+    leaf error relative to that leaf's largest reference value."""
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.convert import gather_params
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    dev = group.device
+    cfg, full = a7_model(torch, model, moe, dev)
+    tokens = torch.from_numpy(np.array(batch)).to(dev)
+    rows = tokens.shape[0] // group.axis_size("ep")
+    r = group.axis_index("ep")
+    mine = tokens[r * rows:(r + 1) * rows]
+    state = train.make_train_state(cfg, params=full, device=dev,
+                                   group=group)
+    step = train.make_grad_step(cfg, group)
+    out = {}
+    for name, fault in (("sharded", False), ("control", True)):
+        undo = a7_fault(kind, group) if fault else None
+        try:
+            grads, metrics = step(state.params, mine)
+        finally:
+            if undo is not None:
+                undo()
+        out[name] = (tree_leaves(gather_params(grads, cfg.model, group)),
+                     float(metrics["dispatch_fraction"]))
+        del grads
+    res = {"dispatch_fraction": out["sharded"][1],
+           "control_dispatch_fraction": out["control"][1]}
+    del state
+    if group.rank == 0:
+        ref_state = train.make_train_state(cfg, params=full, device=dev)
+        ref, _ = train.make_grad_step(cfg)(ref_state.params, tokens)
+        ref = tree_leaves(ref)
+        for name in ("sharded", "control"):
+            res[f"{name}_rel_err"] = max(
+                float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(out[name][0], ref))
+    return res
+
+
+def a7_parity(torch) -> dict:
+    """(a): the ep=2 and the tp=2 step against the one-rank step."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    batch = rng.integers(0, A7_PARITY_MODEL["vocab_size"],
+                         size=A7_PARITY_BATCH, dtype=np.int32)
+    rows = {}
+    for kind, moe in (("ep", A7_PARITY_MOE), ("tp", None)):
+        t0 = time.perf_counter()
+        (ranks, _), = spawn_batch(
+            torch, [("call", a7_parity_rank,
+                     (kind, A7_PARITY_MODEL, moe, batch))],
+            world=A7_WORLD, **{kind: A7_WORLD})
+        row = {**ranks[0], "tol": A7_GRAD_TOL,
+               "seconds": time.perf_counter() - t0,
+               "dispatch_fractions": [r["dispatch_fraction"]
+                                      for r in ranks]}
+        row["held"] = (row["sharded_rel_err"] <= A7_GRAD_TOL
+                       and all(d == 1.0 for d in row["dispatch_fractions"]))
+        row["control_outside"] = row["control_rel_err"] > A7_GRAD_TOL
+        emit("a7_parity", run=f"{kind}=2", **row)
+        if not (row["held"] and row["control_outside"]):
+            raise AssertionError(f"phase 25 (a) {kind}=2: {row}")
+        rows[kind] = row
+    return rows
+
+
+class ExchangeTimer:
+    """CUDA events around every call of the ep all_to_all and the two tp
+    operators' sums, forward and backward (the patched
+    ``autograd.Function`` methods), by kind; on the CPU (``device``)
+    the calls are counted and not timed."""
+
+    def __init__(self, torch, device):
+        from akka_allreduce_tpu_torch.parallel import ep as E
+        from akka_allreduce_tpu_torch.parallel import tp as T
+        self.torch, self.marks, self.undo = torch, {}, []
+        self.cuda = device.type == "cuda"
+        for kind, cls, names in (("all_to_all", E._AllToAll,
+                                  ("forward", "backward")),
+                                 ("tp_psum", T._TpPsum, ("forward",)),
+                                 ("tp_psum", T._GradBoundary,
+                                  ("backward",))):
+            for name in names:
+                self._wrap(kind, cls, name)
+
+    def _wrap(self, kind, cls, name):
+        real = getattr(cls, name)
+        torch = self.torch
+
+        def timed(ctx, *a):
+            if not self.cuda:
+                self.marks.setdefault(kind, []).append(None)
+                return real(ctx, *a)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(ctx, *a)
+            end.record()
+            self.marks.setdefault(kind, []).append((start, end))
+            return out
+        setattr(cls, name, staticmethod(timed))
+        self.undo.append(lambda: setattr(cls, name, staticmethod(real)))
+
+    def close(self, steps: int) -> dict:
+        for u in self.undo:
+            u()
+        if self.cuda:
+            self.torch.cuda.synchronize()
+        out = {}
+        for kind, marks in self.marks.items():
+            ms = [m[0].elapsed_time(m[1]) for m in marks if m is not None]
+            out[kind] = {"calls_per_step": len(marks) / steps,
+                         "ms_per_step": sum(ms) / steps if ms
+                         else "not measured"}
+        return out
+
+
+def a7_timed_train_rank(group, args, params, attn_impl):
+    """``cli``'s train rank with the ep and tp exchanges timed
+    (:class:`ExchangeTimer`), their ms and calls a step in the rank's
+    ``rank_info["exchanges"]``."""
+    import torch
+
+    from akka_allreduce_tpu_torch import cli
+    timer = ExchangeTimer(torch, group.device)
+    try:
+        report = cli._train_rank(group, args, params, attn_impl)
+    finally:
+        exchanges = timer.close(args.steps)
+    report["rank_info"]["exchanges"] = exchanges
+    return report
+
+
+RANK_MODES["a7_timed"] = a7_timed_train_rank
+
+
+def a7_expected_launches(kind: str, n_layers: int, steps: int) -> dict:
+    """A rank's launches of rows 1 and 10-12 that (b) / (c) imply: the
+    flash kernels once a layer a step; the masked reduce once a step for
+    the dense sync over the ep line (the expert sync at dp=1 is over one
+    rank, skipped) on (b), and the tp sums 2 forward and 2 backward a
+    layer on (c), whose sync at dp=1 is over one rank."""
+    # the fused f32 sync sums its ranks' blocks with one masked reduce
+    reduce = (expected_sync_launches("f32", "fused", A7_WORLD, 1)[
+        "masked_reduce"] if kind == "ep" else 4 * n_layers)
+    if DEVICE != "cuda":
+        return {"flash": dict.fromkeys(FLASH_REPLACES, 0),
+                "masked_reduce": 0}
+    return {"flash": dict.fromkeys(FLASH_REPLACES, n_layers * steps),
+            "masked_reduce": reduce * steps}
+
+
+def a7_train(torch, kind: str, argv: list) -> dict:
+    """(b) / (c): ``train`` on the ep or tp axis at full width: its
+    numbers, the exchanges' ms a step and every rank's launches against
+    :func:`a7_expected_launches`."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        set_flag(set_flag(argv, "--steps", A7_STEPS), "--dist-backend",
+                 DIST) + [f"--{kind}", str(A7_WORLD)])
+    ((report, seconds),) = spawn_batch(torch, [("train", args, "a7_timed")])
+    cfg = report["config"]
+    want = a7_expected_launches(kind, cfg["n_layers"], A7_STEPS)
+    # every rank's launches (rank 0's are the report's)
+    per_rank = [{"flash": r["launches"],
+                 "masked_reduce": r["sync_launches"]["masked_reduce"]}
+                for r in report["ranks"]]
+    got = per_rank[0]
+    row = {"mesh": cfg["mesh"], "seconds": seconds,
+           "losses": report["losses"],
+           "wall_ms_per_step": report["wall_ms_per_step"],
+           "tokens_per_s": report["tokens_per_s"], "mfu": report["mfu"],
+           "aux_loss": report["aux_loss"],
+           "dispatch_fraction": report["dispatch_fraction"],
+           "exchanges": [r["exchanges"] for r in report["ranks"]],
+           "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                       for r in report["ranks"]],
+           "transport_buffer_gb_per_rank": [r["transport_buffer_gb"]
+                                            for r in report["ranks"]],
+           "launches": got, "rank_launches": per_rank,
+           "expected_launches": want,
+           "transport_launches":
+               report["transport"].get("transport_launches", 0)}
+    emit("a7_train", run=f"{kind}=2", **row)
+    ok = (all(np.isfinite(row["losses"]))
+          and all(r == want for r in per_rank)
+          and all(0.0 < d <= 1.0 for d in row["dispatch_fraction"]))
+    if kind == "ep":
+        ok = ok and all(np.isfinite(a) and a > 0 for a in row["aux_loss"])
+    if not ok:
+        raise AssertionError(f"phase 25 ({'b' if kind == 'ep' else 'c'}): "
+                             f"{row}")
+    return row
+
+
+def a7_serve(torch, served: "dict | None") -> dict:
+    """(d): MoE serving on the paged kernel engine and on the gather
+    path; the kernel's launches; greedy parity with the gather run, and
+    the control (the kernel run's tokens against a gather run whose
+    experts are rolled by one) outside it."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.ops.kernels import attention
+    from akka_allreduce_tpu_torch.parity import greedy_agree
+    argv = A7_SERVE_ARGV if DEVICE == "cuda" else set_flag(
+        A7_SERVE_ARGV, "--device", DEVICE)
+    _, g_report, g_results, g_engine = a6_serve(
+        torch, set_flag(argv, "--paged-attention", "gather"), "a7 gather")
+    attention.PAGED_ATTENTION_LAUNCHES = 0
+    args, report, results, engine = a6_serve(
+        torch, set_flag(argv, "--paged-attention", "kernel"), "a7 kernel")
+    launches = a6_main_path(attention, engine, "a7 moe kernel")
+    reqs = cli.make_requests(args, *cli._validate(args))
+    rolled = {**engine.params, "layers": [
+        {**lyr, **{k: lyr[k].roll(1, dims=0) for k in ("we1", "we2")
+                   if k in lyr}} for lyr in engine.params["layers"]]}
+    verdicts, control = [], []
+    for req in reqs:
+        ref = g_results[req.rid][0]
+        logits = reference_logits(torch, engine.params, engine.cfg,
+                                  req.prompt, ref)
+        verdicts.append(greedy_agree(ref, results[req.rid][0], logits)[0])
+    # the control: the kernel run's tokens against the rolled experts'
+    # own greedy streams (one full forward a token, the reference rule)
+    from akka_allreduce_tpu_torch.models.generate import generate
+    for req in reqs[:4]:
+        want = generate(rolled, torch.tensor([req.prompt],
+                                             device=engine.device),
+                        engine.cfg, steps=8)[0].tolist()
+        logits = reference_logits(torch, rolled, engine.cfg, req.prompt,
+                                  want)
+        control.append(greedy_agree(want, results[req.rid][0][:8],
+                                    logits)[0])
+    dense_tok_s = None if served is None else served["report"].get(
+        "decode_tokens_per_s")
+    row = {"completed": report["requests"]["completed"],
+           "requests": args.requests, "launches": launches,
+           "decode_tokens_per_s": report.get("decode_tokens_per_s"),
+           "gather_decode_tokens_per_s": g_report.get("decode_tokens_per_s"),
+           "phase4_dense_decode_tokens_per_s": dense_tok_s,
+           "greedy_agree": sum(verdicts), "control_agree": sum(control),
+           "control_requests": len(control)}
+    emit("a7_serve", **row)
+    if (row["completed"] != args.requests or not all(verdicts)
+            or any(control)):
+        raise AssertionError(f"phase 25 (d): {row}")
+    return row
+
+
+def a7_ckpt_rank(group, args, steps: int) -> dict:
+    """(e) on one rank: ``cli train --tp 2 --ckpt-dir`` (its ``_train``
+    with an ``on_step`` that gathers the final full tree, every rank);
+    rank 0 then decodes the prompt greedily from the tree in memory and
+    from the tree with wq's two tp halves swapped (the control)."""
+    import torch
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.convert import gather_params
+    from akka_allreduce_tpu_torch.models.generate import generate
+    held = {}
+
+    def on_step(i, state):
+        if i == steps - 1:
+            held["cfg"] = cli.train_config(args, args.seq).model
+            held["full"] = gather_params(state.params, held["cfg"], group)
+    report = cli._train(args, None, None, group, group.device, on_step)
+    out = {"losses": report["losses"]}
+    if group.rank == 0:
+        full, cfg = held["full"], held["cfg"]
+        prompt = torch.tensor([A7_PROMPT], device=group.device)
+        with torch.no_grad():
+            out["tokens"] = generate(full, prompt, cfg,
+                                     steps=A7_GEN_TOKENS)[0].tolist()
+            swapped = {**full, "layers": [
+                {**lyr, "wq": lyr["wq"].roll(lyr["wq"].shape[1] // 2, 1)}
+                for lyr in full["layers"]]}
+            out["control_tokens"] = generate(
+                swapped, prompt, cfg, steps=A7_GEN_TOKENS)[0].tolist()
+    return out
+
+
+GENERATE_CHILD = (
+    "import sys\n"
+    "from akka_allreduce_tpu_torch import cli\n"
+    "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+def a7_checkpoint(torch) -> dict:
+    """(e): a tp=2 train with a checkpoint, then ``cli generate`` from it
+    as a one-rank process: its greedy tokens must equal the trained
+    model's in memory, and the control's (wq's tp halves swapped) must
+    not."""
+    from akka_allreduce_tpu_torch import cli
+    work = tempfile.mkdtemp(prefix="a7-")
+    try:
+        ckpt = os.path.join(work, "ckpt")
+        argv = set_flag(set_flag(A7_CKPT_ARGV, "--device", DEVICE),
+                        "--dist-backend", DIST) + [
+            "--tp", str(A7_WORLD), "--ckpt-dir", ckpt]
+        args = cli.build_parser().parse_args(argv)
+        steps = args.steps
+        ((ranks, seconds),) = spawn_batch(
+            torch, [("call", a7_ckpt_rank, (args, steps))], world=A7_WORLD,
+            tp=A7_WORLD)
+        model = ["--d-model", str(args.d_model), "--n-heads",
+                 str(args.n_heads), "--n-layers", str(args.n_layers),
+                 "--d-ff", str(args.d_ff), "--vocab", str(args.vocab)]
+        gen = ["generate", "--ckpt-dir", ckpt, *model, "--max-seq",
+               str(args.seq), "--prompt-tokens",
+               ",".join(map(str, A7_PROMPT)), "--tokens",
+               str(A7_GEN_TOKENS), "--device", DEVICE]
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", GENERATE_CHILD, *gen], cwd=repo,
+            env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+            text=True, timeout=A7_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    if child.returncode != 0:
+        raise AssertionError(f"phase 25 (e): generate exited "
+                             f"{child.returncode}: {child.stderr[-3000:]}")
+    restored = [int(t) for t in child.stdout.strip().splitlines()[-1]
+                .split(",")]
+    tokens = ranks[0]["tokens"]
+    row = {"train_seconds": seconds, "generate_seconds": child_s,
+           "losses": ranks[0]["losses"],
+           "restored_tokens": restored,
+           "in_memory_tokens": tokens[-A7_GEN_TOKENS:],
+           "control_tokens": ranks[0]["control_tokens"][-A7_GEN_TOKENS:]}
+    row["equal"] = row["restored_tokens"] == row["in_memory_tokens"]
+    row["control_equal"] = row["restored_tokens"] == row["control_tokens"]
+    emit("a7_checkpoint", **row)
+    if not row["equal"] or row["control_equal"]:
+        raise AssertionError(f"phase 25 (e): {row}")
+    return row
+
+
+def phase_a7(torch, served: "dict | None" = None) -> dict:
+    """Phase 25: (a) ep=2 and tp=2 steps against the one-rank step, (b)
+    MoE at full width on ep=2, (c) the dense flagship on tp=2, (d) MoE
+    serving on the paged kernel engine, (e) a tp=2 checkpoint restored
+    by a one-rank generate. Returns the main-path launches of rows 1,
+    10-12 and 13, and the transport's."""
+    t0 = time.perf_counter()
+    parity = a7_parity(torch)
+    ta = time.perf_counter()
+    moe = a7_train(torch, "ep", A7_MOE_ARGV)
+    tb = time.perf_counter()
+    tp = a7_train(torch, "tp", A7_TP_ARGV)
+    tc = time.perf_counter()
+    serve = a7_serve(torch, served)
+    td = time.perf_counter()
+    ckpt = a7_checkpoint(torch)
+    te = time.perf_counter()
+    seconds = te - t0
+    emit("a7_phase_seconds", seconds=seconds, parity=ta - t0,
+         moe_train=tb - ta, tp_train=tc - tb, serve=td - tc,
+         checkpoint=te - td, script_seconds=time.perf_counter() - T_START)
+    if seconds > A7_SECONDS:
+        raise AssertionError(f"phase 25 took {seconds:.1f} s, over its "
+                             f"{A7_SECONDS} s")
+    sync = dict.fromkeys(SYNC_KERNELS, 0)
+    sync["masked_reduce"] = (moe["launches"]["masked_reduce"]
+                             + tp["launches"]["masked_reduce"])
+    return {"sync": sync,
+            "flash": {k: moe["launches"]["flash"][k]
+                      + tp["launches"]["flash"][k] for k in FLASH_REPLACES},
+            "paged": serve["launches"],
+            "transport": moe["transport_launches"]
+            + tp["transport_launches"],
+            "parity": parity, "checkpoint": ckpt}
+
+
 def chunk_of(world: int) -> int:
     """The transport's chunk for a world of ``world`` ranks with no axis
     lines (dp only)."""
@@ -6758,6 +7253,9 @@ def run_phases(torch) -> int:
     # 23. train --steps-per-dispatch across ranks: CUDA-graph chunks on
     # the ipc transport
     a5r = phase_a5_ranks(torch)
+    # 25. expert and tensor parallelism: parity, MoE and tp at full width,
+    # MoE serving, a tp checkpoint restored at one rank
+    a7 = phase_a7(torch, served)
     close_pools()  # every rank process ended before the closing lines
     # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
     # across processes, the serve trace
@@ -6765,12 +7263,12 @@ def run_phases(torch) -> int:
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
-                     for k in SYNC_KERNELS}
+                     + a7["sync"][k] for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
         + cluster["launches"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"] + a5["transport"]
-                          + a5r["transport"]
+                          + a5r["transport"] + a7["transport"]
                           + sum(sp_launches[d]["transport"]
                                 for d in sp_launches))
     if not transport_launches:
@@ -6785,9 +7283,9 @@ def run_phases(torch) -> int:
                   "paged_attention.cu",
         "replaces": "akka_allreduce_tpu/ops/pallas_kernels/attention.py:516",
         "launches": served["launches"] + sum(a6["launches"].values())
-        + sum(a24["launches"].values()),
+        + sum(a24["launches"].values()) + a7["paged"],
         "serve_launches": served["launches"], "a6_launches": a6["launches"],
-        "a24_launches": a24["launches"],
+        "a24_launches": a24["launches"], "a7_launches": a7["paged"],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -6797,7 +7295,7 @@ def run_phases(torch) -> int:
     # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
         k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
-        + a5r["flash"][k] for k in FLASH_REPLACES})
+        + a5r["flash"][k] + a7["flash"][k] for k in FLASH_REPLACES})
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]
@@ -6813,6 +7311,7 @@ def run_phases(torch) -> int:
             "bound_by": srow["bound_by"], "library_ms": srow["library_ms"]})
         kernels[-1]["a5_launches"] = a5["sync"][kernel]
         kernels[-1]["a5r_launches"] = a5r["sync"][kernel]
+        kernels[-1]["a7_launches"] = a7["sync"][kernel]
         if kernel == "quantize_int8_prng":
             # the seed read from device memory (phase 23's int8 chunks)
             kernels[-1]["pointer_seed_ms"] = srow["pointer_seed_ms"]

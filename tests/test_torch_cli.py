@@ -551,3 +551,127 @@ def test_serve_from_a_checkpoint(capsys, tmp_path):
     assert cli.main(["serve", "--device", "cpu", "--ckpt-dir",
                      str(tmp_path / "none"), *model]) == 2
     assert "no checkpoint found" in capsys.readouterr().err
+
+
+# -- expert and tensor parallelism (ROADMAP A7 part 1) ----------------------
+
+@pytest.mark.parametrize("flags,mesh", [
+    (["--tp", "2"], "dp=1 tp=2 sp=1 pp=1 ep=1"),
+    (["--ep", "2", "--moe-experts", "4"], "dp=1 tp=1 sp=1 pp=1 ep=2")])
+def test_train_tp_and_ep_print_the_jax_step_lines(capfd, flags, mesh):
+    """``train --tp 2`` and ``--ep 2 --moe-experts 4`` on two gloo ranks:
+    rank 0 alone prints the JAX command's mesh line and step lines."""
+    assert cli.main(TRAIN_TINY + ["--log-every", "1"] + flags) == 0
+    out = capfd.readouterr().out.strip().splitlines()
+    steps = [ln for ln in out if ln.startswith("step ")]
+    assert [ln.split(":")[0] for ln in steps] == [
+        "step    1", "step    2", "step    3"]
+    assert all("loss" in ln and "tok/s)" in ln for ln in steps)
+    assert sum(ln.startswith(f"mesh {mesh}; batch=") for ln in out) == 1
+    assert ("moe_experts=4" in "".join(out)) == ("--moe-experts" in flags)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--dp", "0", "--tp", "2"], "dp*tp*sp*pp*ep = 2 != 1 devices"),
+    (["--pp", "2"], "ROADMAP A7 part 2"),
+    (["--pp-schedule", "1f1b"], "ROADMAP A7 part 2"),
+    (["--microbatches", "2"], "--microbatches requires --pp > 1"),
+    (["--pp", "2", "--moe-experts", "4", "--moe-every", "2"],
+     "--pp > 1 needs homogeneous layers"),
+    (["--tp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 2"),
+    (["--ep", "2", "--steps-per-dispatch", "2"], "ROADMAP A7 part 2"),
+    (["--tp", "3"], "tp=3 must divide n_heads=4"),
+    (["--ep", "3", "--moe-experts", "4", "--batch", "6"],
+     "ep=3 must divide n_experts=4"),
+    (["--ep", "2", "--moe-experts", "4", "--batch", "3"],
+     "must divide over 2 data ranks (dp x ep)"),
+    (["--tp", "2", "--optimizer", "adafactor"], "ROADMAP A7 part 2"),
+    (["--dp", "2", "--sp", "2", "--ep", "2", "--moe-experts", "2",
+      "--grad-quant", "ef8", "--grad-schedule", "hierarchical"],
+     "needs exactly two >1 data axes")])
+def test_train_mesh_refusals_exit_2(capsys, flags, match):
+    assert cli.main(TRAIN_TINY + flags) == 2
+    assert match in capsys.readouterr().err
+
+
+def test_moe_checkpoint_runs_generate_eval_and_serve(capsys, tmp_path):
+    """An MoE model trained at ep=2 (its checkpoint in the full layout)
+    decodes with ``generate``, scores with ``eval`` and serves with
+    ``serve`` at one rank on the CPU, each given the MoE flags."""
+    ckpt = str(tmp_path / "moe")
+    moe = ["--moe-experts", "4", "--moe-every", "2", "--router-k", "2",
+           "--capacity-factor", "2.0"]
+    assert cli.main(TRAIN_TINY + moe + ["--ep", "2", "--steps", "2",
+                                        "--ckpt-dir", ckpt]) == 0
+    model = ["--vocab", "61", "--d-model", "64", "--n-heads", "4",
+             "--kv-heads", "2", "--rope", "--d-ff", "128", *moe]
+    capsys.readouterr()
+    assert cli.main(["generate", "--device", "cpu", "--ckpt-dir", ckpt,
+                     *model, "--max-seq", "24", "--prompt-tokens", "1,2,3",
+                     "--tokens", "5"]) == 0
+    toks = capsys.readouterr().out.strip().split(",")
+    assert len(toks) == 5 and all(0 <= int(t) < 61 for t in toks)
+    corpus = tmp_path / "c.bin"
+    np.random.default_rng(0).integers(0, 61, 200).astype("<u2").tofile(
+        corpus)
+    assert cli.main(["eval", "--device", "cpu", "--ckpt-dir", ckpt, *model,
+                     "--max-seq", "24", "--data-file", str(corpus)]) == 0
+    assert np.isfinite(json.loads(
+        capsys.readouterr().out.strip().splitlines()[-1])[
+        "ce_nats_per_token"])
+    assert cli.main(["serve", "--device", "cpu", "--ckpt-dir", ckpt, *model,
+                     "--max-seq", "24", "--requests", "3", "--prompt-len",
+                     "3:5", "--max-new-tokens", "4", "--slots", "2",
+                     "--paged", "--page-size", "4", "--paged-attention",
+                     "kernel"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["requests"]["completed"] == 3
+
+
+def test_tp_checkpoint_restores_at_one_rank_and_resumes(capfd, tmp_path):
+    """``train --tp 2 --ckpt-dir`` saves the full, unsharded layout: one
+    rank restores it (its params the tp=1 run's from the same seed within
+    1e-5, on sgd with global-norm clipping), ``generate`` decodes from it
+    at one rank, and a tp=2 run that resumes from its step-1 checkpoint
+    ends bitwise where the uninterrupted run ended (losses and
+    checkpointed params)."""
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    from akka_allreduce_tpu_torch.runtime.checkpoint import (
+        CheckpointConfig, CheckpointManager)
+    # sgd: an update linear in the gradient (adam's division by sqrt(v)
+    # would magnify the f32 order of the tp sums where a gradient is
+    # near 0); the clip reads the norm of the whole model
+    base = TRAIN_TINY + ["--clip-norm", "0.5", "--optimizer", "sgd"]
+    one, two, part = (str(tmp_path / n) for n in ("one", "two", "part"))
+    r1 = cli.run_train(cli.build_parser().parse_args(
+        base + ["--ckpt-dir", one]))
+    r2 = cli.run_train(cli.build_parser().parse_args(
+        base + ["--tp", "2", "--ckpt-dir", two, "--ckpt-every", "1"]))
+    np.testing.assert_allclose(r2["losses"], r1["losses"], rtol=1e-5)
+    cfg = cli.train_config(cli.build_parser().parse_args(base), 24).model
+    like = init_transformer(torch.Generator().manual_seed(0), cfg)
+
+    def restored(path):
+        return tree_leaves(CheckpointManager(CheckpointConfig(path))
+                           .restore_params(like)[1])
+    for a, b in zip(restored(two), restored(one)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    capfd.readouterr()
+    assert cli.main(["generate", "--device", "cpu", "--ckpt-dir", two,
+                     "--vocab", "61", "--d-model", "64", "--n-heads", "4",
+                     "--kv-heads", "2", "--rope", "--d-ff", "128",
+                     "--max-seq", "24", "--prompt-tokens", "1,2",
+                     "--tokens", "4"]) == 0
+    assert len(capfd.readouterr().out.strip().split(",")) == 4
+    # resume: the run's step-1 checkpoint alone, step 3 from it
+    import shutil
+    shutil.copytree(two, part)
+    shutil.rmtree(os.path.join(part, "2"))
+    resumed = cli.run_train(cli.build_parser().parse_args(
+        base + ["--tp", "2", "--ckpt-dir", part]))
+    assert resumed["config"]["start_step"] == 2
+    assert resumed["losses"] == r2["losses"][2:]
+    for a, b in zip(restored(part), restored(two)):
+        assert torch.equal(a, b)

@@ -123,8 +123,20 @@ def test_convert_keeps_bfloat16_bits():
 
 
 def test_config_validation_and_moe_refusal():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.TransformerConfig(moe=object())
+    """MoE configs are ported: accepted, every moe_every-th layer routed;
+    what stays refused is an ep that does not divide the experts and a tp
+    that does not divide the heads."""
+    from akka_allreduce_tpu_torch.parallel.ep import MoEConfig, \
+        init_moe_layer
+    cfg = ttf.TransformerConfig(n_layers=4, moe=MoEConfig(n_experts=4),
+                                moe_every=2)
+    assert [cfg.is_moe_layer(i) for i in range(4)] == [False, True,
+                                                       False, True]
+    with pytest.raises(ValueError, match="must divide n_experts"):
+        init_moe_layer(torch.Generator().manual_seed(0), 8,
+                       MoEConfig(n_experts=4), ep=3)
+    with pytest.raises(ValueError, match="tp=3 must divide"):
+        ttf.init_transformer(torch.Generator().manual_seed(0), cfg, tp=3)
     with pytest.raises(ValueError):
         ttf.TransformerConfig(n_heads=4, n_kv_heads=3)
     with pytest.raises(ValueError):
