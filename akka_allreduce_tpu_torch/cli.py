@@ -357,20 +357,24 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "the mesh is dp x ep x sp x tp processes, tp "
                         "innermost")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages: not ported yet (ROADMAP A7 part "
-                        "2); only 1")
+                   help="pipeline stages (layers stack-sharded: each of the "
+                        "pp ranks of a line holds n_layers / pp contiguous "
+                        "layers; pp outermost in the mesh)")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel degree (needs --moe-experts): "
                         "each ep rank owns n_experts / ep experts, and "
                         "the batch rows shard over dp x ep")
     p.add_argument("--microbatches", type=int, default=0,
-                   help="pipeline microbatches (0 = pp): with --pp, not "
-                        "ported yet (ROADMAP A7 part 2)")
+                   help="pipeline microbatches (0 = pp)")
     _add_moe_args(p)
     p.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
                    default="gpipe",
-                   help="pipeline schedule when --pp > 1: not ported yet "
-                        "(ROADMAP A7 part 2); only gpipe")
+                   help="pipeline schedule when --pp > 1: gpipe (the "
+                        "forward ticks, then the backward ticks in "
+                        "reverse, O(microbatches) activation residency) "
+                        "or 1f1b (one forward and one backward unit a "
+                        "tick, O(pp) residency, the stage forward "
+                        "recomputed; dense layers only)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo", "ipc"),
                    default=None,
                    help="process-group backend with dp x sp > 1 (default: "
@@ -1959,7 +1963,14 @@ def train_config(args: argparse.Namespace, seq: int,
         grad_accum=args.grad_accum, accum_schedule=args.accum_schedule,
         ema_decay=args.ema_decay,
         attn_impl=attn_impl or "auto", grad_transport=grad_wire(args),
-        transport_schedule=args.grad_schedule, num_windows=args.grad_windows)
+        transport_schedule=args.grad_schedule, num_windows=args.grad_windows,
+        microbatches=microbatches(args), pp_schedule=args.pp_schedule)
+
+
+def microbatches(args: argparse.Namespace) -> int:
+    """The pipeline's microbatches a step: ``--microbatches``, or ``--pp``
+    (the JAX command's ``micro``); 1 without a pipeline."""
+    return args.microbatches or (args.pp if args.pp > 1 else 1)
 
 
 def _two_phase_geometry_error(feature: str, data_axes: dict, remedy: str,
@@ -2014,24 +2025,22 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     if args.pp > 1 and args.moe_experts and args.moe_every != 1:
         raise ValueError("--pp > 1 needs homogeneous layers: use "
                          "--moe-every 1 or drop --moe-experts")
-    for flag, value, default in (("--pp", args.pp, 1),
-                                 ("--microbatches", args.microbatches, 0),
-                                 ("--pp-schedule", args.pp_schedule,
-                                  "gpipe")):
-        if value != default:
-            raise NotImplementedError(
-                f"{flag} {value}: pipeline parallelism is not ported yet "
-                f"(ROADMAP A7 part 2)")
-    sharded = args.tp > 1 or args.ep > 1
+    if args.grad_accum > 1 and args.pp > 1:
+        raise ValueError("--grad-accum does not compose with --pp (the "
+                         "pipeline path has its own --microbatches)")
+    if args.microbatches < 0:
+        raise ValueError(f"--microbatches must be >= 0 (0 = --pp), got "
+                         f"{args.microbatches}")
+    sharded = args.tp > 1 or args.ep > 1 or args.pp > 1
     if sharded and args.deadline_ms > 0:
         raise NotImplementedError(
-            "--deadline-ms with --tp or --ep > 1 is not ported yet "
-            "(ROADMAP A7 part 2)")
+            "--deadline-ms with --tp, --ep or --pp > 1 is not ported yet "
+            "(ROADMAP A7 part 3)")
     if sharded and args.steps_per_dispatch > 1:
         raise NotImplementedError(
-            "--steps-per-dispatch > 1 with --tp or --ep > 1 is not ported "
-            "yet (ROADMAP A7 part 2: its ipc capture is checked for the dp "
-            "and sp collectives only)")
+            "--steps-per-dispatch > 1 with --tp, --ep or --pp > 1 is not "
+            "ported yet (ROADMAP A7 part 3: its ipc capture is checked for "
+            "the dp and sp collectives only)")
     if args.grad_windows < 1:
         raise ValueError(f"--grad-windows must be >= 1, got "
                          f"{args.grad_windows}")
@@ -2056,13 +2065,18 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     # the batch's rows shard over the dp x ep data ranks (ep doubles as
     # a data axis), dp-major
     shards = dp * ep
-    b = args.batch or 2 * shards * args.grad_accum
+    micro = microbatches(args)
+    b = args.batch or 2 * shards * micro * args.grad_accum
     t = args.seq or 32 * sp
     if b % shards:
         raise ValueError(
             f"--batch {b} must divide over --dp {dp} ranks" if ep == 1
             else f"--batch {b} must divide over {shards} data ranks "
                  f"(dp x ep)")
+    if args.pp > 1 and (b // shards) % micro:
+        raise ValueError(f"--microbatches {micro} must divide the per-rank "
+                         f"batch {b // shards} (= batch {b} / {shards} "
+                         f"{'ranks' if ep == 1 else 'data ranks'})")
     if (b // shards) % args.grad_accum:
         raise ValueError(f"--grad-accum {args.grad_accum} must divide the "
                          f"per-rank batch {b // shards} (= batch {b} / "
@@ -2114,7 +2128,7 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
             raise ValueError(err)
     cfg = train_config(args, t)
     check_supported(cfg)
-    check_mesh_sizes(cfg, args.tp, ep)
+    check_mesh_sizes(cfg, args.tp, ep, args.pp)
     device = "cuda" if args.device.startswith("cuda") else args.device
     backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
     world = dp * model_par
@@ -2143,11 +2157,12 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     are random from seed 0. ``attn_impl`` overrides the config's "auto"
     (the flash or ring-flash path).
 
-    With ``--dp N`` x ``--ep E`` x ``--sp S`` x ``--tp P`` > 1 the CUDA
-    kernels are built here first (the ranks never race ``nvcc``), then
-    N x E x S x P rank processes train (``parallel/group.py
-    spawn_ranks``; a tp / ep rank keeps its shard of the model, the
-    checkpoint the full layout); only rank 0 prints, and
+    With ``--pp Q`` x ``--dp N`` x ``--ep E`` x ``--sp S`` x ``--tp P`` >
+    1 the CUDA kernels are built here first (the ranks never race
+    ``nvcc``), then Q x N x E x S x P rank processes train
+    (``parallel/group.py spawn_ranks``; a tp / ep rank keeps its shard
+    of the model, a pp rank its stage's layers stacked, the checkpoint
+    the full layout); only rank 0 prints, and
     the report is rank 0's, with ``dist`` (backend, world) and ``ranks``
     (each rank's peak memory, sync and attention-exchange ms per step and
     parameter checksum) added. With ``--deadline-ms`` the rounds run
@@ -2166,12 +2181,12 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
 
     device = resolve_device(args.device)
     _b, _t, backend = _check_train_flags(args)
-    world = args.dp * args.sp * args.ep * args.tp
+    world = args.dp * args.sp * args.ep * args.tp * args.pp
     if world == 1:
         return _train(args, params, attn_impl, None, device, on_step)
     if on_step is not None:
-        raise ValueError("on_step observes one rank's state: dp x ep x sp "
-                         "x tp = 1")
+        raise ValueError("on_step observes one rank's state: pp x dp x ep "
+                         "x sp x tp = 1")
     if device.type == "cuda":
         from akka_allreduce_tpu_torch.ops.kernels import build
         build.build_all()
@@ -2179,15 +2194,15 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
         lambda p: p.detach().cpu(), params)
     reports = spawn_ranks(_train_rank, world, backend, device.type, args,
                           host, attn_impl, sp=args.sp, ep=args.ep,
-                          tp=args.tp)
+                          tp=args.tp, pp=args.pp)
     report = reports[0]
     report["ranks"] = [r.pop("rank_info") for r in reports]
     return report
 
 
 def _train_rank(group, args: argparse.Namespace, params, attn_impl):
-    """One rank of a ``--dp`` / ``--sp`` / ``--ep`` / ``--tp`` run (a
-    spawned process)."""
+    """One rank of a ``--dp`` / ``--sp`` / ``--ep`` / ``--tp`` / ``--pp``
+    run (a spawned process)."""
     return _train(args, params, attn_impl, group, group.device)
 
 
@@ -2216,6 +2231,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     from akka_allreduce_tpu_torch.ops.kernels import quantized as qz
     from akka_allreduce_tpu_torch.ops.kernels import ring_flash as rf
     from akka_allreduce_tpu_torch.ops.kernels import transport as tp
+    from akka_allreduce_tpu_torch.parallel import pp as pipeline
     from akka_allreduce_tpu_torch.parallel import ring_attention as ra
 
     from akka_allreduce_tpu_torch.models.train import (full_layout,
@@ -2286,7 +2302,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
 
     def saved_layout():
         """(params, optimizer state, EMA) as the checkpoint keeps them:
-        the full layout on a tp / ep mesh (every rank gathers)."""
+        the full layout on a tp / ep / pp mesh (every rank gathers)."""
         if not sharded:
             return state.params, _opt_state(state), state.ema
         full, opt, ema = full_layout(state, group)
@@ -2334,12 +2350,23 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                         live.copy_(value)
 
     # the mesh, as the JAX command names it
+    micro = cfg.microbatches
     log(f"mesh dp={args.dp} tp={args.tp} sp={args.sp} pp={args.pp} "
-        f"ep={args.ep}; batch={b} seq={t} microbatches=1"
+        f"ep={args.ep}; batch={b} seq={t} microbatches={micro}"
         + (f" moe_experts={args.moe_experts}" if cfg.model.moe else ""))
+    pp_stats = None
+    if args.pp > 1:
+        pp_stats = pipeline.pp_schedule_stats(args.pp, micro)
+        log(f"pp={args.pp} x {micro} microbatches, schedule "
+            f"{args.pp_schedule}: bubble gpipe "
+            f"{pp_stats['gpipe']['bubble_fraction']:.1%} (resident "
+            f"{pp_stats['gpipe']['resident_microbatches']} microbatches) | "
+            f"1f1b {pp_stats['1f1b']['bubble_fraction']:.1%} (resident "
+            f"{pp_stats['1f1b']['resident_microbatches']})")
     sp_note = f" sp={args.sp}" if args.sp > 1 else ""
     sp_note += "".join(f" {a}={n}" for a, n in (("ep", args.ep),
-                                                 ("tp", args.tp)) if n > 1)
+                                                 ("tp", args.tp),
+                                                 ("pp", args.pp)) if n > 1)
     dist_note = (f" dp={args.dp}{sp_note} ({backend}) "
                  f"wire={cfg.grad_transport} "
                  f"schedule={cfg.transport_schedule}" if world > 1 else "")
@@ -2368,6 +2395,9 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                 rf.counts, tp.counts)
     before = [c() for c in counters]
     losses, step_ms, sync_ms, exchange_ms, min_counts = [], [], [], [], []
+    # ms a step in the transfers along pp (the pipeline's ppermutes)
+    transfer_ms: list = []
+    pipeline.TRANSFER_MARKS = [] if args.pp > 1 else None
     moe_metrics: list = []  # (aux_loss, dispatch_fraction) a step
     dispatched: list = []  # host time each step's dispatch began
     # rounds dispatched and not yet read: (step, dispatch time, metrics,
@@ -2456,6 +2486,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                     loss_now = float(metrics["loss"])
             telem.on_step(b * t, loss=loss_now)
             exchange_ms.append((ra.EXCHANGE_SECONDS - ex0) * 1e3)
+            if pipeline.TRANSFER_MARKS is not None:
+                transfer_ms.append(sum(elapsed_ms(*m_)
+                                       for m_ in pipeline.TRANSFER_MARKS))
+                pipeline.TRANSFER_MARKS.clear()
             unread.append((i, t0, metrics, list(sync_times)))
             sync_times.clear()
             if on_step is not None:
@@ -2479,6 +2513,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                      {"data_step": args.steps - 1}, force=True,
                      sync=state.residual, group=group, ema=ema_)
     finally:
+        pipeline.TRANSFER_MARKS = None
         try:
             telem.close()  # the final metrics snapshot
         except Exception as exc:
@@ -2514,6 +2549,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                                  for p in tree_leaves(state.params)),
                    "dp": args.dp, "sp": args.sp, "tp": args.tp,
                    "ep": args.ep, "pp": args.pp,
+                   "microbatches": micro, "pp_schedule": args.pp_schedule,
                    "mesh": f"dp={args.dp} tp={args.tp} sp={args.sp} "
                            f"pp={args.pp} ep={args.ep}",
                    "moe_experts": args.moe_experts,
@@ -2543,6 +2579,10 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         "transport": {k: after[3][k] - before[3][k] for k in after[3]},
         # host ms per step in the attention's exchanges (sp > 1)
         "attn_exchange_ms": exchange_ms,
+        # pp > 1: the schedules' bubble and residency, and the ms a step
+        # in the transfers along pp (CUDA events around each ppermute)
+        "pp_schedule_stats": pp_stats,
+        "pp_transfer_ms": transfer_ms,
         "optimizer": cfg.optimizer,
         # the optimizer's state tensors (state_dict), EMA excluded
         "optimizer_state_gb": _state_bytes(state.optimizer) / 1e9,
@@ -2590,6 +2630,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         report["dist"] = {"backend": backend, "world": world}
         report["rank_info"] = {
             "rank": rank, "sync_ms": sync_ms, "attn_exchange_ms": exchange_ms,
+            "pp_transfer_ms": transfer_ms,
             **{k: report[k] for k in ("launches", "ring_launches",
                                       "sync_launches", "transport")},
             "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9

@@ -27,6 +27,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from akka_allreduce_tpu_torch.parallel.pp import (stack_layer_params,
+                                                  unstack_layer_params)
+
 
 def _leaf_to_torch(x, device) -> torch.Tensor:
     a = np.asarray(x)
@@ -65,12 +68,15 @@ def params_to_jax(params):
     return _leaf_to_numpy(params)
 
 
-# -- tensor- and expert-parallel shards --------------------------------------
+# -- tensor-, expert- and pipeline-parallel shards ---------------------------
 #
 # The JAX package's ``param_specs`` (models/train.py): wq/wk/wv/w1/w3
 # ``P(None, "tp")``, wo/w2 ``P("tp", None)``, we1/we2 ``P("ep", None,
 # None)``, every other leaf replicated. A rank keeps the contiguous block
-# at its coordinate along the leaf's axis.
+# at its coordinate along the leaf's axis. With ``pp > 1`` the layers are
+# stacked (``parallel/pp.py stack_layer_params``: ``params["layers"]`` a
+# dict of ``(L, ...)`` leaves, ``P("pp", *spec)``): a rank keeps its
+# stage's ``L / pp`` layers, each leaf's split dim shifted by one.
 
 _LAYER_SPLITS = {"wq": ("tp", 1), "wk": ("tp", 1), "wv": ("tp", 1),
                  "w1": ("tp", 1), "w3": ("tp", 1), "wo": ("tp", 0),
@@ -83,36 +89,73 @@ def layer_split(name: str) -> "Optional[tuple]":
     return _LAYER_SPLITS.get(name)
 
 
-def shard_leaf(name: str, x: torch.Tensor, group) -> torch.Tensor:
+def leaf_splits(name: str, group, stacked: bool = False) -> tuple:
+    """The ``(dim, mesh axis)`` pairs a layer leaf ``name`` is split along
+    on ``group``'s mesh, axes of one rank left out: for a ``stacked``
+    leaf dim 0 along ``pp``, then its own split one dim on."""
+    out = []
+    if stacked and group.axis_size("pp") > 1:
+        out.append((0, "pp"))
+    split = layer_split(name)
+    if split is not None and group.axis_size(split[0]) > 1:
+        out.append((split[1] + int(stacked), split[0]))
+    return tuple(out)
+
+
+def narrow_splits(x: torch.Tensor, splits: tuple, group) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` along each ``(dim,
+    axis)`` of ``splits`` (a detached copy, or ``x`` when there is
+    none)."""
+    for dim, axis in splits:
+        n = group.axis_size(axis)
+        if x.shape[dim] % n:
+            raise ValueError(f"{axis}={n} must divide dim {dim} of "
+                             f"{tuple(x.shape)}")
+        c = x.shape[dim] // n
+        x = x.detach().narrow(dim, group.axis_index(axis) * c, c).clone()
+    return x
+
+
+def gather_splits(x: torch.Tensor, splits: tuple, group) -> torch.Tensor:
+    """The whole tensor from every rank's block ``x`` (detached): an
+    all-gather along each split's axis line, a collective over them."""
+    for dim, axis in reversed(splits):
+        blocks = group.along(axis).all_gather(
+            x.detach().movedim(dim, 0).contiguous())
+        x = blocks.movedim(0, dim).contiguous()
+    return x
+
+
+def shard_leaf(name: str, x: torch.Tensor, group,
+               stacked: bool = False) -> torch.Tensor:
     """This rank's block of the full layer leaf ``x`` (a detached copy),
     or ``x`` itself when the leaf is replicated or its axis has one
-    rank."""
-    split = layer_split(name)
-    if split is None or group.axis_size(split[0]) == 1:
-        return x
-    axis, dim = split
-    n = group.axis_size(axis)
-    if x.shape[dim] % n:
-        raise ValueError(f"{axis}={n} must divide dim {dim} of {name} "
-                         f"{tuple(x.shape)}")
-    c = x.shape[dim] // n
-    return x.detach().narrow(dim, group.axis_index(axis) * c, c).clone()
+    rank. A ``stacked`` leaf is this stage's layers already: its own
+    split is taken one dim on."""
+    splits = tuple(sp for sp in leaf_splits(name, group, stacked)
+                   if sp[1] != "pp")
+    return narrow_splits(x, splits, group) if splits else x
 
 
-def gather_leaf(name: str, x: torch.Tensor, group) -> torch.Tensor:
+def gather_leaf(name: str, x: torch.Tensor, group,
+                stacked: bool = False) -> torch.Tensor:
     """The full layer leaf from every rank's block ``x`` (detached; an
-    all-gather along the leaf's axis line: a collective over that
-    line)."""
-    split = layer_split(name)
-    if split is None or group.axis_size(split[0]) == 1:
-        return x
-    axis, dim = split
-    blocks = group.along(axis).all_gather(
-        x.detach().movedim(dim, 0).contiguous())
-    return blocks.movedim(0, dim).contiguous()
+    all-gather along the leaf's axis lines: a collective over them). A
+    ``stacked`` leaf gathers its stages along ``pp`` too, into ``(L,
+    ...)``."""
+    splits = leaf_splits(name, group, stacked)
+    return gather_splits(x, splits, group) if splits else x
 
 
 def _check_mesh(cfg, group) -> None:
+    pp = group.axis_size("pp")
+    if pp > 1:
+        if cfg.n_layers % pp:
+            raise ValueError(f"pp={pp} must divide n_layers={cfg.n_layers}")
+        if cfg.moe is not None and cfg.moe_every != 1:
+            raise ValueError(
+                "pipeline stages need homogeneous layers: use moe_every=1 "
+                "(all-MoE) or moe=None (all-dense) when pp > 1")
     tp, ep = group.axis_size("tp"), group.axis_size("ep")
     if cfg.n_heads % tp or cfg.d_ff % tp or cfg.kv_heads % tp:
         raise ValueError(
@@ -123,24 +166,57 @@ def _check_mesh(cfg, group) -> None:
                          f"n_experts={cfg.moe.n_experts}")
 
 
+def stage_layers(n_layers: int, group) -> range:
+    """The layers of this rank's pipeline stage: ``[h L / pp, (h + 1) L /
+    pp)`` at stage ``h``."""
+    pp = group.axis_size("pp")
+    per = n_layers // pp
+    h = group.axis_index("pp")
+    return range(h * per, (h + 1) * per)
+
+
 def shard_params(full: dict, cfg, group) -> dict:
     """A full (unsharded) parameter tree -> this rank's shard of it on
     the mesh of ``group`` (a ``RankGroup``), as the JAX ``param_specs``
     lay it out; ``cfg`` is the ``TransformerConfig``. Replicated leaves
-    are the full tree's own tensors."""
+    are the full tree's own tensors. With ``pp > 1`` the rank's stage's
+    layers are stacked (``full``'s layers a list, or a stacked dict of
+    all ``L``)."""
     _check_mesh(cfg, group)
     out = {k: v for k, v in full.items() if k != "layers"}
-    out["layers"] = [{k: shard_leaf(k, v, group) for k, v in layer.items()}
-                     for layer in full["layers"]]
+    layers = full["layers"]
+    if isinstance(layers, dict):
+        layers = unstack_layer_params(layers, cfg.n_layers)
+    if group.axis_size("pp") == 1:
+        out["layers"] = [{k: shard_leaf(k, v, group)
+                          for k, v in layer.items()} for layer in layers]
+        return out
+    stacked = stack_layer_params(
+        [layers[i] for i in stage_layers(cfg.n_layers, group)])
+    out["layers"] = {k: shard_leaf(k, v, group, stacked=True)
+                     for k, v in stacked.items()}
     return out
 
 
 def gather_params(shard: dict, cfg, group) -> dict:
     """The inverse of :func:`shard_params`: every rank's shard -> the
-    full tree, on every rank (a collective over the mesh: each rank
-    calls it with its own shard)."""
+    full tree in the list layout (the stacked stages unstacked), on
+    every rank (a collective over the mesh: each rank calls it with its
+    own shard)."""
     _check_mesh(cfg, group)
-    out = {k: v for k, v in shard.items() if k != "layers"}
+    return gather_tree(shard, group)
+
+
+def gather_tree(shard: dict, group) -> dict:
+    """:func:`gather_params` of any params-shaped tree (gradients, the
+    EMA), its leaves detached."""
+    out = {k: v.detach() for k, v in shard.items() if k != "layers"}
+    if isinstance(shard["layers"], dict):
+        full = {k: gather_leaf(k, v, group, stacked=True)
+                for k, v in shard["layers"].items()}
+        out["layers"] = unstack_layer_params(
+            full, next(iter(full.values())).shape[0])
+        return out
     out["layers"] = [{k: gather_leaf(k, v, group) for k, v in layer.items()}
                      for layer in shard["layers"]]
     return out
@@ -243,6 +319,81 @@ def optimizer_state_from_jax(cfg, params: dict, opt_state) -> dict:
     return {"optimizer": opt.state_dict(), "count": count}
 
 
+def _unstack_numpy(tree, n_layers: int, name: str = "", placeholders=False):
+    """A pp-stacked JAX tree (``layers`` a dict of ``(L, ...)`` arrays)
+    -> the list layout; other trees unchanged. ``placeholders`` keeps a
+    ``(1,)`` layer leaf (adafactor's unused moment) as it is in every
+    layer."""
+    if not (isinstance(tree, dict) and isinstance(tree.get("layers"), dict)):
+        return tree
+    out = dict(tree)
+    layers = {}
+    for k, v in tree["layers"].items():
+        a = np.asarray(v)
+        if placeholders and a.shape == (1,):
+            layers[k] = [a] * n_layers
+        elif a.ndim == 0 or a.shape[0] != n_layers:
+            raise ValueError(f"{name}layers.{k} is {a.shape}, not "
+                             f"stacked over {n_layers} layers")
+        else:
+            layers[k] = [a[i] for i in range(n_layers)]
+    out["layers"] = [{k: v[i] for k, v in layers.items()}
+                     for i in range(n_layers)]
+    return out
+
+
+def _check_stacked_factoring(params: dict) -> None:
+    """Refuse stacked adafactor moments that do not unstack: a stacked
+    ``(L, ...)`` layer leaf whose two factored dims are not its
+    unstacked leaf's, one dim on (the stacked dim among the two largest,
+    or a leaf factored only when stacked)."""
+    from akka_allreduce_tpu_torch.models.optim import factored_dims
+    for k, v in params["layers"].items():
+        shape = tuple(np.shape(v))
+        dims, inner = factored_dims(shape), factored_dims(shape[1:])
+        want = None if inner is None else (inner[0] + 1, inner[1] + 1)
+        if dims != want:
+            raise ValueError(
+                f"the stacked adafactor moments of layers.{k} {shape} "
+                f"factor dims {dims}, the unstacked leaf's {inner}: they "
+                f"do not unstack into per-layer moments")
+
+
+def unstack_jax_items(items: dict) -> dict:
+    """A JAX training checkpoint of a pp-stacked run (``params["layers"]``
+    a dict of ``(L, ...)`` arrays, the ``param_specs(pp > 1)`` layout)
+    -> the same items in the list layout: params, the EMA item and slot,
+    and the family slot's moments (adamw / lion ``mu``, ``nu``;
+    adafactor ``v``, ``v_row``, ``v_col``, each stacked like its leaf)
+    unstacked layer by layer. Items of a list-layout run come back
+    unchanged."""
+    params = items.get("params")
+    if not (isinstance(params, dict) and isinstance(params.get("layers"),
+                                                    dict)):
+        return items
+    n = int(np.shape(next(iter(params["layers"].values())))[0])
+    out = dict(items)
+    out["params"] = _unstack_numpy(params, n, "params.")
+    if items.get("ema") is not None:
+        out["ema"] = _unstack_numpy(items["ema"], n, "ema.")
+    chain = []
+    for slot in items.get("opt_state") or []:
+        if isinstance(slot, list) and slot and isinstance(slot[0], dict):
+            first = dict(slot[0])
+            if "v_row" in first:
+                _check_stacked_factoring(params)
+            for k, tree in first.items():
+                if k != "count":
+                    first[k] = _unstack_numpy(tree, n, f"{k}.",
+                                              placeholders=True)
+            slot = [first] + list(slot[1:])
+        elif isinstance(slot, dict) and set(slot) == {"ema"}:
+            slot = {"ema": _unstack_numpy(slot["ema"], n, "ema.")}
+        chain.append(slot)
+    out["opt_state"] = chain
+    return out
+
+
 def train_state_from_jax(items: dict, cfg, device="cpu") -> dict:
     """A JAX training checkpoint step -> the port's checkpoint items.
     ``items`` are the orbax items as numpy trees (template-free:
@@ -253,8 +404,11 @@ def train_state_from_jax(items: dict, cfg, device="cpu") -> dict:
     checkpoint keeps it: ``{"optimizer": state_dict, "count": steps}``),
     ``ema`` (the ``ema`` item, or the chain's EMA slot; None without
     ``ema_decay``), ``sync`` (each rank's ef8 residual, the JAX item's
-    planes; None without one) and ``extra``. Raises ``ValueError``
-    naming what is missing or does not match."""
+    planes; None without one) and ``extra``. A pp-stacked checkpoint
+    comes back in the list layout (:func:`unstack_jax_items`), which is
+    what the port's checkpoint holds at any ``pp``. Raises
+    ``ValueError`` naming what is missing or does not match."""
+    items = unstack_jax_items(items)
     held = sorted(k for k, v in items.items() if v is not None)
     missing = [k for k in ("params", "opt_state") if k not in held]
     if missing:

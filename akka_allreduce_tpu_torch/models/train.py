@@ -3,8 +3,9 @@
 Counterpart of ``akka_allreduce_tpu/models/train.py``: loss, backprop,
 the bucketed gradient sync across the data ranks, and the optimizer
 update. With a group of more than one rank (``parallel/group.py``, a
-``(dp, ep, sp, tp)`` mesh) the step works as the JAX ``grad_local`` /
-``sync_and_metrics`` pair does:
+``(pp, dp, ep, sp, tp)`` mesh) the step works as the JAX ``grad_local``
+(``grad_local_pp``, ``grad_local_1f1b``) / ``sync_and_metrics`` pair
+does:
 
 * under sequence parallelism (``sp`` > 1) rank ``(i, j)`` holds columns
   ``[j T, (j + 1) T)`` of its rows: positions (learned embeddings, rope)
@@ -24,6 +25,11 @@ update. With a group of more than one rank (``parallel/group.py``, a
   experts and routes its tokens over the ``ep`` line
   (``parallel/ep.py``); ``ep`` is also a data axis: the batch's rows are
   sharded over ``(dp, ep)``, dp-major (the JAX ``batch_axes``);
+* with ``pp`` > 1 each rank holds its stage's ``L / pp`` layers stacked
+  (the JAX ``param_specs(pp > 1)``), the ``pp`` ranks of a line take the
+  same batch rows, ``cfg.microbatches`` microbatches go through the
+  stages on the gpipe or 1f1b schedule (``parallel/pp.py``), and the
+  non-layer gradients are summed over the ``pp`` line before the sync;
 * the DENSE gradients (every leaf but ``we1``/``we2``) go through
   ``parallel/dp.py allreduce_gradients`` over the sub-mesh of the data
   axes ``GRAD_AXES + ("ep",)`` = ``("dp", "sp", "ep")`` in that order
@@ -36,7 +42,8 @@ update. With a group of more than one rank (``parallel/group.py``, a
   sync, as the JAX ``derive_quant_key`` and the two syncs' tags do;
 * global-norm clipping comes after the sync (it is in the optax chain
   after ``sync_and_metrics``), over the norm of the whole model: the
-  squares of the ``tp`` and ``ep`` shards summed over their lines;
+  squares of the ``tp``, ``ep`` and ``pp`` shards summed over their
+  lines;
 * the loss metric is the data ranks' losses summed, ``aux_loss`` and
   ``dispatch_fraction`` their mean, ``min_bucket_count`` the smallest
   per-bucket count of either sync;
@@ -100,20 +107,26 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-from akka_allreduce_tpu_torch.convert import layer_split, shard_params
-from akka_allreduce_tpu_torch.models.optim import SGD, Adafactor, Lion
+from akka_allreduce_tpu_torch import convert
+from akka_allreduce_tpu_torch.convert import shard_params
+from akka_allreduce_tpu_torch.models.optim import (SGD, Adafactor, Lion,
+                                                   Shard, factored_dims)
 from akka_allreduce_tpu_torch.models.transformer import (
-    TransformerConfig, init_transformer, next_token_loss_and_aux)
+    TransformerConfig, init_transformer, lm_logits, next_token_loss_and_aux,
+    rmsnorm, transformer_block, weighted_ce)
 from akka_allreduce_tpu_torch.ops.bucketing import (
     tree_bucket_spec, tree_leaves, tree_map, tree_unflatten)
 from akka_allreduce_tpu_torch.ops.kernels.flash_attention import \
     flash_causal_attention
 from akka_allreduce_tpu_torch.ops.kernels.ring_flash import \
     ring_flash_attention
+from akka_allreduce_tpu_torch.ops.collectives import psum_allreduce
 from akka_allreduce_tpu_torch.parallel.dp import (GradSyncConfig,
                                                   allreduce_gradients,
                                                   check_sync_config)
 from akka_allreduce_tpu_torch.parallel.group import RankGroup
+from akka_allreduce_tpu_torch.parallel.pp import (gpipe_apply, one_f_one_b,
+                                                  scan_blocks)
 from akka_allreduce_tpu_torch.parallel.ring_attention import (
     blockwise_causal_attention, flash_windowed_sp_attention,
     local_causal_attention, ring_attention, windowed_sp_attention)
@@ -160,12 +173,16 @@ class TrainConfig:
     transport_schedule: str = "fused"
     num_windows: int = 4
     collective_plan: Any = None
+    # pipeline parallelism (read when the mesh has pp > 1): microbatches a
+    # step and the schedule, "gpipe" or "1f1b" (parallel/pp.py)
+    microbatches: int = 1
+    pp_schedule: str = "gpipe"
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Parameters (this rank's shard under tp / ep), their optimizer, the
-    ef8 error-feedback residual (None on the other wires; the
+    """Parameters (this rank's shard under tp / ep / pp), their optimizer,
+    the ef8 error-feedback residual (None on the other wires; the
     ``{"dense", "expert"}`` planes for an MoE model), the EMA weights
     (None without ``ema_decay``) and the step count (optax's ``count``: the steps taken, which the LR
     schedule and the rounding keys read before it increments). The train
@@ -226,10 +243,15 @@ def quant_key(step: int, microbatch: Optional[int] = None,
 def split_expert_leaves(grads: dict) -> tuple:
     """A params-shaped tree -> (dense, expert): the expert leaves
     (``we1``/``we2``, ep-rank-owned, synced over the data axes without
-    ``ep``) in a list of per-layer dicts (``{}`` for a dense layer), the
-    rest (the router included, replicated over ``ep``) in the dense
-    tree."""
+    ``ep``) in a list of per-layer dicts (``{}`` for a dense layer; for
+    pp-stacked layers one dict of the stacked leaves), the rest (the
+    router included, replicated over ``ep``) in the dense tree."""
     dense = dict(grads)
+    if isinstance(grads["layers"], dict):  # pp-stacked
+        layers = dict(grads["layers"])
+        expert = {k: layers.pop(k) for k in ("we1", "we2") if k in layers}
+        dense["layers"] = layers
+        return dense, expert
     dense_layers, expert_layers = [], []
     for lyr in grads["layers"]:
         lyr = dict(lyr)
@@ -243,6 +265,9 @@ def split_expert_leaves(grads: dict) -> tuple:
 def merge_expert_leaves(dense: dict, expert_layers: list) -> dict:
     """The inverse of :func:`split_expert_leaves`."""
     out = dict(dense)
+    if isinstance(dense["layers"], dict):
+        out["layers"] = {**dense["layers"], **expert_layers}
+        return out
     out["layers"] = [{**lyr, **ex}
                      for lyr, ex in zip(dense["layers"], expert_layers)]
     return out
@@ -266,17 +291,38 @@ def sync_groups(cfg: TrainConfig, group: Optional[RankGroup]) -> tuple:
 
 def check_mesh(cfg: TrainConfig, group: Optional[RankGroup]) -> None:
     """Refuse a mesh the model cannot take, as the JAX package does:
-    ``ep`` must divide ``n_experts``, and ``tp`` the heads, the KV heads
-    and ``d_ff``. adafactor's factored statistics and update clipping
-    read whole leaves, which a tp or ep shard is not: refused there
-    (ROADMAP A7 part 2)."""
+    ``ep`` must divide ``n_experts``, ``tp`` the heads, the KV heads
+    and ``d_ff``, and ``pp`` the layers, which must be homogeneous
+    (MoE only at ``moe_every`` 1); ``pp > 1`` takes no ``grad_accum``
+    (its microbatches are ``cfg.microbatches``) and MoE only on the
+    gpipe schedule."""
     if group is not None:
-        check_mesh_sizes(cfg, group.axis_size("tp"), group.axis_size("ep"))
+        check_mesh_sizes(cfg, group.axis_size("tp"), group.axis_size("ep"),
+                         group.axis_size("pp"))
 
 
-def check_mesh_sizes(cfg: TrainConfig, tp: int, ep: int) -> None:
-    """:func:`check_mesh` from the ``tp`` and ``ep`` sizes alone."""
+def check_mesh_sizes(cfg: TrainConfig, tp: int, ep: int,
+                     pp: int = 1) -> None:
+    """:func:`check_mesh` from the ``tp``, ``ep`` and ``pp`` sizes
+    alone."""
     mcfg = cfg.model
+    if pp > 1:
+        if mcfg.n_layers % pp:
+            raise ValueError(f"pp={pp} must divide n_layers={mcfg.n_layers}")
+        if mcfg.moe is not None and mcfg.moe_every != 1:
+            raise ValueError(
+                "pipeline stages need homogeneous layers: use moe_every=1 "
+                "(all-MoE) or moe=None (all-dense) when pp > 1")
+        if cfg.grad_accum > 1:
+            raise ValueError(
+                "grad_accum > 1 does not compose with pp > 1 — the "
+                "pipeline path has its own microbatching "
+                "(cfg.microbatches)")
+        if cfg.pp_schedule == "1f1b" and mcfg.moe is not None:
+            raise ValueError(
+                "pp_schedule='1f1b' supports dense layers only (the "
+                "fused backward has no aux-loss channel) — use gpipe "
+                "for MoE pipelines")
     if mcfg.moe is not None and mcfg.moe.n_experts % ep:
         raise ValueError(f"ep={ep} must divide "
                          f"n_experts={mcfg.moe.n_experts}")
@@ -284,11 +330,6 @@ def check_mesh_sizes(cfg: TrainConfig, tp: int, ep: int) -> None:
         raise ValueError(
             f"tp={tp} must divide n_heads={mcfg.n_heads}, "
             f"n_kv_heads={mcfg.kv_heads}, and d_ff={mcfg.d_ff}")
-    if cfg.optimizer == "adafactor" and (tp > 1 or ep > 1):
-        raise ValueError(
-            "adafactor over tp/ep shards is not ported yet (ROADMAP A7 "
-            "part 2): its factored moments and update clipping read "
-            "whole leaves; use adamw, lion or sgd")
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -306,6 +347,11 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
     if cfg.compute_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+    if cfg.pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pp_schedule {cfg.pp_schedule!r}")
+    if cfg.microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got "
+                         f"{cfg.microbatches}")
     check_sync_config(sync_config(cfg, 1))
 
 
@@ -350,12 +396,74 @@ def lr_table(cfg: TrainConfig, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def _stacked(params: dict) -> bool:
+    """Whether ``params`` holds pp-stacked layers (a dict of ``(L/pp,
+    ...)`` leaves)."""
+    return isinstance(params.get("layers"), dict)
+
+
+def leaf_paths(params: dict) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order) its path: ``(key,)``
+    outside the layers, ``("layers", i, name)`` in the list layout and
+    ``("layers", name)`` for a stacked leaf."""
+    out = []
+    for k in sorted(params):
+        if k != "layers":
+            out += [(k,)] * len(tree_leaves(params[k]))
+        elif _stacked(params):
+            out += [("layers", n) for n in sorted(params["layers"])]
+        else:
+            out += [("layers", i, n)
+                    for i, layer in enumerate(params["layers"])
+                    for n in sorted(layer)]
+    return out
+
+
+def _decays(params: dict) -> list:
+    """optax's decay mask per leaf: rank >= 2, a stacked layer leaf
+    ranked by its unstacked shape (the JAX ``make_optimizer(...,
+    stacked_layers=True)``: a stacked (L, d) norm gain does not
+    decay)."""
+    return [p.dim() - (len(path) == 2) >= 2
+            for p, path in zip(tree_leaves(params), leaf_paths(params))]
+
+
+def optimizer_order(params: dict, n_groups: int) -> list:
+    """The indices (``tree_leaves`` order) of ``params``'s leaves in the
+    order of :func:`make_optimizer`'s ``state_dict``: every leaf (sgd,
+    one group), or the decayed leaves then the rest."""
+    if n_groups == 1:
+        return list(range(len(tree_leaves(params))))
+    decays = _decays(params)
+    return ([i for i, d in enumerate(decays) if d]
+            + [i for i, d in enumerate(decays) if not d])
+
+
+def leaf_splits(params: dict, group: Optional[RankGroup]) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order) the ``(dim, mesh
+    axis)`` pairs it is split along on ``group``'s mesh (none outside
+    the layers, which every rank holds whole)."""
+    return [() if group is None or len(path) == 1 else
+            convert.leaf_splits(path[-1], group, stacked=len(path) == 2)
+            for path in leaf_paths(params)]
+
+
+def _global_shape(p: torch.Tensor, splits: tuple,
+                  group: RankGroup) -> tuple:
+    shape = list(p.shape)
+    for dim, axis in splits:
+        shape[dim] *= group.axis_size(axis)
+    return tuple(shape)
+
+
 def make_optimizer(cfg: TrainConfig, params: dict,
-                   lr: "float | torch.Tensor | None" = None
+                   lr: "float | torch.Tensor | None" = None,
+                   group: Optional[RankGroup] = None
                    ) -> torch.optim.Optimizer:
     """The family of ``cfg.optimizer`` over ``params`` with optax's decay
     mask (rank >= 2 leaves decay, the rest — norm gains, vectors — do
-    not; sgd has no decay, as ``optax.sgd``): adamw (b1 0.9, b2 0.999,
+    not; a pp-stacked layer leaf by its unstacked rank; sgd has no
+    decay, as ``optax.sgd``): adamw (b1 0.9, b2 0.999,
     eps 1e-8, ``torch.optim.AdamW``), lion (b1 0.9, b2 0.99), adafactor
     (optax's defaults; ``weight_decay`` 0 is none) or sgd
     (``sgd_momentum``, nesterov when > 0). The learning rate is set per
@@ -363,21 +471,27 @@ def make_optimizer(cfg: TrainConfig, params: dict,
     0-dim tensor makes it that tensor in every group (shared, and
     written in place): the optimizer of a device step count, on the card
     a step that a CUDA graph captures (adamw is then capturable, which
-    PyTorch allows on the card only)."""
+    PyTorch allows on the card only). ``group``, the rank's mesh, gives
+    adafactor the :class:`~akka_allreduce_tpu_torch.models.optim.Shard`
+    of each split leaf: its statistics are the whole leaf's."""
     check_supported(cfg)
     if lr is None:
         lr = lr_at(cfg, 0)
     leaves = tree_leaves(params)
     if cfg.optimizer == "sgd":
         return SGD(leaves, lr=lr, momentum=cfg.sgd_momentum)
-    groups = [{"params": [p for p in leaves if p.dim() >= 2],
+    decays = _decays(params)
+    groups = [{"params": [p for p, d in zip(leaves, decays) if d],
                "weight_decay": cfg.weight_decay},
-              {"params": [p for p in leaves if p.dim() < 2],
+              {"params": [p for p, d in zip(leaves, decays) if not d],
                "weight_decay": 0.0}]
     if cfg.optimizer == "lion":
         return Lion(groups, lr=lr, betas=(0.9, 0.99))
     if cfg.optimizer == "adafactor":
-        return Adafactor(groups, lr=lr)
+        shards = {id(p): Shard(_global_shape(p, sp, group), sp, group)
+                  for p, sp in zip(leaves, leaf_splits(params, group))
+                  if sp}
+        return Adafactor(groups, lr=lr, shards=shards)
     extra = {"capturable": True} if (isinstance(lr, torch.Tensor)
                                      and lr.device.type == "cuda") else {}
     return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
@@ -405,17 +519,11 @@ def load_optimizer_state(state: TrainState, saved: dict) -> None:
                 state.count.device, torch.float32)
 
 
-def _leaf_axes(params: dict) -> list:
-    """Per leaf of ``params`` (``tree_leaves`` order): the mesh axis the
-    leaf is sharded along (``convert.layer_split``), or None."""
-    out = []
-    for k in sorted(params):
-        if k != "layers":
-            out += [None] * len(tree_leaves(params[k]))
-            continue
-        for layer in params["layers"]:
-            out += [(layer_split(n) or (None,))[0] for n in sorted(layer)]
-    return out
+def _leaf_axes(params: dict, group: RankGroup) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order): the mesh axes the
+    leaf is split along (a stacked layer leaf's ``pp`` first), ``()``
+    for a leaf every rank holds whole."""
+    return [tuple(a for _, a in sp) for sp in leaf_splits(params, group)]
 
 
 def _sum_over(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
@@ -433,20 +541,22 @@ def clip_by_global_norm_(grads: list, max_norm: float,
     not below ``max_norm`` every gradient becomes ``g / norm * max_norm``;
     below it they stay as they are (``clip_grad_norm_`` would instead
     scale by ``max_norm / (norm + 1e-6)`` whenever the ratio is < 1).
-    Under tp / ep the norm is the whole model's, as the JAX chain takes
-    it on the global arrays: each sharded leaf's squares (``leaf_axes``:
-    its axis per leaf) summed over its axis line. Returns the norm. No
-    host synchronisation on one rank."""
+    Under tp / ep / pp the norm is the whole model's, as the JAX chain
+    takes it on the global arrays: each sharded leaf's squares
+    (``leaf_axes``: its axes per leaf, ``()`` for a whole leaf) summed
+    over the sub-mesh of its axes (a stacked layer leaf's over ``pp``
+    and its tp or ep line). Returns the norm. No host synchronisation on
+    one rank."""
     if group is None or leaf_axes is None:
         norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     else:
         parts: dict = {}
-        for g, axis in zip(grads, leaf_axes):
+        for g, axes in zip(grads, leaf_axes):
             sq = (g.float() ** 2).sum()
-            parts[axis] = sq if axis not in parts else parts[axis] + sq
+            parts[axes] = sq if axes not in parts else parts[axes] + sq
         norm = torch.sqrt(sum(
-            v if axis is None else _sum_over(v, group.along(axis))
-            for axis, v in parts.items()))
+            v if not axes else _sum_over(v, group.over(axes))
+            for axes, v in parts.items()))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -516,12 +626,14 @@ def make_train_state(cfg: TrainConfig,
                      device_step: bool = False,
                      group: Optional[RankGroup] = None) -> TrainState:
     """Parameters (``params``, or random from ``generator``: the full
-    tree either way) as leaves that require grad, their optimizer, on
+    tree either way; on a pp mesh the rank's stage's layers stacked, the
+    JAX ``param_specs(pp > 1)`` layout) as leaves that require grad,
+    their optimizer, on
     the ef8 wire a zero residual of the bucket matrix's shape (the JAX
     ``init_ef_state``; an MoE model's is the ``{"dense", "expert"}``
     planes, one per sync), and with ``ema_decay`` the EMA as a copy of
     the initial masters (the JAX ``param_ema`` init). On a mesh
-    ``group`` with tp or ep > 1 the rank keeps its shard of the full
+    ``group`` with tp, ep or pp > 1 the rank keeps its shard of the full
     tree (``convert.shard_params``). ``device_step`` keeps the step
     count on the parameters' device (``TrainState.count``) with the
     schedule's rates beside it, and the optimizer's learning rate as a
@@ -557,76 +669,135 @@ def make_train_state(cfg: TrainConfig,
         table = lr_table(cfg, where)
         lr = table[0].clone()
     return TrainState(params=params,
-                      optimizer=make_optimizer(cfg, params, lr),
+                      optimizer=make_optimizer(cfg, params, lr, group),
                       residual=residual, ema=ema, count=count,
                       lr_table=table)
 
 
 def is_sharded(group: Optional[RankGroup]) -> bool:
-    """Whether ``group``'s ranks hold shards of the model (tp or ep >
+    """Whether ``group``'s ranks hold shards of the model (tp, ep or pp >
     1)."""
-    return group is not None and (group.axis_size("tp") > 1
-                                  or group.axis_size("ep") > 1)
+    return group is not None and any(group.axis_size(a) > 1
+                                     for a in ("tp", "ep", "pp"))
 
 
-def optimizer_leaf_names(state: TrainState) -> list:
-    """Per parameter of ``state.optimizer``, in its ``state_dict`` index
-    order: the layer leaf's name (``wq``, ``we1``, ...), or None for a
-    leaf outside the layers."""
-    names = {}
-    for k in sorted(state.params):
-        if k != "layers":
-            names.update((id(x), None) for x in tree_leaves(state.params[k]))
-            continue
-        for layer in state.params["layers"]:
-            names.update((id(layer[n]), n) for n in layer)
-    return [names[id(p)] for g in state.optimizer.param_groups
-            for p in g["params"]]
+def _state_splits(key: str, splits: tuple, shape: tuple) -> tuple:
+    """The splits of the optimizer state tensor ``key`` of a leaf of whole
+    shape ``shape`` split along ``splits``: the leaf's, except
+    adafactor's ``v_row`` / ``v_col``, which lose their reduced dim (a
+    split along it is summed away: every rank of that line holds the
+    whole statistic)."""
+    if key not in ("v_row", "v_col"):
+        return splits
+    d1, d0 = factored_dims(shape)
+    gone = d0 if key == "v_row" else d1
+    return tuple((d - (d > gone), a) for d, a in splits if d != gone)
 
 
-def _map_optimizer_tensors(saved: dict, names: list, fn) -> dict:
-    """``saved`` (a ``state_dict``) with ``fn(name, tensor)`` applied to
-    every per-parameter tensor of more than 0 dims."""
-    out = dict(saved)
-    out["state"] = {
-        i: {k: fn(names[i], v) if isinstance(v, torch.Tensor) and v.dim()
-            else v for k, v in per.items()}
-        for i, per in saved["state"].items()}
+def _opt_groups(saved: dict, like: dict) -> list:
+    """``saved``'s param groups with their parameter indices those of
+    :func:`make_optimizer` over ``like``."""
+    n = len(tree_leaves(like))
+    sizes = [n]
+    if len(saved["param_groups"]) == 2:
+        sizes = [sum(_decays(like)), n - sum(_decays(like))]
+    out, j = [], 0
+    for g, size in zip(saved["param_groups"], sizes):
+        out.append({**g, "params": list(range(j, j + size))})
+        j += size
+    return out
+
+
+def _list_layout_like(params: dict, n_layers: int) -> dict:
+    """A stand-in of the full list-layout tree of a rank's ``params``,
+    for the optimizer's order (which reads the leaves' ranks): a stacked
+    leaf's first layer, once a layer."""
+    if not _stacked(params):
+        return params
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v[0] for k, v in params["layers"].items()}
+                     for _ in range(n_layers)]
     return out
 
 
 def full_layout(state: TrainState, group: RankGroup) -> tuple:
-    """(params, optimizer state dict, EMA) of a tp / ep rank in the full,
-    unsharded layout (``convert.gather_leaf``), as the JAX package's
-    checkpoint of its global arrays holds them. A collective over the
-    mesh: every rank calls it; every rank gets the full trees."""
-    from akka_allreduce_tpu_torch.convert import gather_leaf
-    gather = partial(_gather_tree, group=group)
-    opt = _map_optimizer_tensors(
-        state.optimizer.state_dict(), optimizer_leaf_names(state),
-        lambda name, v: v if name is None else gather_leaf(name, v, group))
-    ema = None if state.ema is None else gather(state.ema)
-    return gather(state.params), opt, ema
-
-
-def _gather_tree(tree: dict, group: RankGroup) -> dict:
-    from akka_allreduce_tpu_torch.convert import gather_leaf
-    out = {k: v.detach() if isinstance(v, torch.Tensor) else v
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{k: gather_leaf(k, v.detach(), group)
-                      for k, v in layer.items()}
-                     for layer in tree["layers"]]
-    return out
+    """(params, optimizer state dict, EMA) of a tp / ep / pp rank in the
+    full, unsharded list layout (``convert.gather_splits``; pp-stacked
+    layers gathered over ``pp`` and unstacked, their moments too), as
+    the JAX package's checkpoint of its global arrays holds them at pp =
+    1; the state dict is the one :func:`make_optimizer` makes over the
+    full tree. A collective over the mesh: every rank calls it; every
+    rank gets the full trees."""
+    params = state.params
+    leaves, paths = tree_leaves(params), leaf_paths(params)
+    splits = leaf_splits(params, group)
+    saved = state.optimizer.state_dict()
+    order = optimizer_order(params, len(saved["param_groups"]))
+    per_leaf = [{}] * len(leaves)
+    for j, i in enumerate(order):
+        per_leaf[i] = saved["state"].get(j, {})
+    by_path: dict = {}
+    for i, per in enumerate(per_leaf):
+        shape = _global_shape(leaves[i], splits[i], group)
+        full = {k: convert.gather_splits(
+                    v, _state_splits(k, splits[i], shape), group)
+                if isinstance(v, torch.Tensor) and v.dim() else v
+                for k, v in per.items()}
+        if len(paths[i]) != 2:
+            by_path[paths[i]] = full
+            continue
+        for layer in range(shape[0]):  # a stacked leaf: its layers
+            by_path[("layers", layer, paths[i][1])] = {
+                k: v[layer].clone() if isinstance(v, torch.Tensor)
+                and v.dim() else v for k, v in full.items()}
+    full_params = convert.gather_tree(params, group)
+    full_order = optimizer_order(full_params, len(saved["param_groups"]))
+    full_paths = leaf_paths(full_params)
+    opt = {"state": {j: by_path[full_paths[i]]
+                     for j, i in enumerate(full_order)
+                     if by_path[full_paths[i]]},
+           "param_groups": _opt_groups(saved, full_params)}
+    ema = None if state.ema is None else convert.gather_tree(state.ema, group)
+    return full_params, opt, ema
 
 
 def shard_optimizer_state(state: TrainState, saved: dict,
                           group: RankGroup) -> dict:
     """A full-layout optimizer ``state_dict`` (:func:`full_layout`) ->
-    this rank's, for ``load_optimizer_state``."""
-    from akka_allreduce_tpu_torch.convert import shard_leaf
-    return _map_optimizer_tensors(
-        saved, optimizer_leaf_names(state),
-        lambda name, v: v if name is None else shard_leaf(name, v, group))
+    this rank's, for ``load_optimizer_state``: each leaf's moments cut
+    to its block, a pp stage's layers' moments stacked."""
+    params = state.params
+    leaves, paths = tree_leaves(params), leaf_paths(params)
+    splits = leaf_splits(params, group)
+    n_groups = len(saved["param_groups"])
+    n_layers = None
+    if _stacked(params):
+        n_layers = (next(iter(params["layers"].values())).shape[0]
+                    * group.axis_size("pp"))
+    like = _list_layout_like(params, n_layers)
+    full_paths = leaf_paths(like)
+    by_path = {full_paths[i]: saved["state"].get(j, {})
+               for j, i in enumerate(optimizer_order(like, n_groups))}
+    mine: list = []
+    for i, path in enumerate(paths):
+        shape = _global_shape(leaves[i], splits[i], group)
+        if len(path) == 2:  # stacked: this stage's layers
+            layer_states = [by_path[("layers", layer, path[1])]
+                            for layer in convert.stage_layers(n_layers,
+                                                              group)]
+            per = {k: torch.stack([s_[k] for s_ in layer_states])
+                   if isinstance(v, torch.Tensor) and v.dim() else v
+                   for k, v in layer_states[0].items()}
+        else:
+            per = by_path[path]
+        mine.append({k: convert.narrow_splits(
+            v, tuple(sp for sp in _state_splits(k, splits[i], shape)
+                     if sp[1] != "pp" or len(path) != 2), group)
+            if isinstance(v, torch.Tensor) and v.dim() else v
+            for k, v in per.items()})
+    order = optimizer_order(params, n_groups)
+    return {"state": {j: mine[i] for j, i in enumerate(order) if mine[i]},
+            "param_groups": _opt_groups(saved, params)}
 
 
 @torch.no_grad()
@@ -749,10 +920,30 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
 
     On a mesh with tp / ep (see the module docstring) ``params`` are this
     rank's shard, the tokens its rows of the batch (sharded over ``(dp,
-    ep)``), and the returned gradients its shard's."""
+    ep)``), and the returned gradients its shard's.
+
+    With ``pp > 1`` (the JAX ``grad_local_pp`` / ``grad_local_1f1b``)
+    ``params`` hold the rank's stage, its layers stacked, and the batch
+    splits into ``cfg.microbatches`` microbatches that flow through the
+    stages (``parallel/pp.py``: ``gpipe_apply`` and its written-out
+    backward, or ``one_f_one_b``); each rank of a ``pp`` line takes the
+    same tokens. The loss is the last stage's cross-entropy plus each
+    stage's MoE aux term, the embedding's gradient comes from stage 0
+    and the head's from the last, and the non-layer gradients are summed
+    over the ``pp`` line (one flat buffer, ``psum_allreduce``) before the
+    dense sync. The metrics sum over the data axes and ``pp``;
+    ``dispatch_fraction`` is the mean over the MoE layers and ranks.
+    gpipe takes its gradients in the compute dtype's cast once a step
+    (every tick's added in f32); 1f1b casts inside its stage, embedding
+    and head, so the gradients reach the f32 masters through the cast,
+    as JAX's do."""
     check_supported(cfg)
     mcfg = cfg.model
     check_mesh(cfg, group)
+    if dynamic_valid and group is not None and group.axis_size("pp") > 1:
+        raise NotImplementedError(
+            "a per-round valid mask (deadlines) with pp > 1 is not ported "
+            "yet (ROADMAP A7 part 3)")
     has_sp = group is not None and group.axis_size("sp") > 1
     attn = (select_ring_attention(cfg, group) if has_sp
             else select_local_attention(cfg))
@@ -771,6 +962,11 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     # a sync over one rank is the identity, skipped as the JAX step's
     # reduce over size-1 axes is
     wide = n_dense > 1 or (has_moe and expert_group.world > 1)
+    n_pp = 1 if group is None else group.axis_size("pp")
+    # the metrics' sum: the data axes, and pp, whose stages hold the loss
+    # and the aux terms of their own layers
+    metric_group = (group.over(data_axes(cfg, group) + ("pp",)) if n_pp > 1
+                    else dense_group)
 
     def cast_compute(params):
         if cfg.compute_dtype == "f32":
@@ -821,6 +1017,113 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
             yield (mb_loss.detach(),
                    {k: torch.as_tensor(v).detach() for k, v in mb_aux.items()},
                    grads)
+
+    def block(layer, h, positions):
+        if cfg.remat:
+            return torch.utils.checkpoint.checkpoint(
+                transformer_block, layer, h, mcfg, attn, positions,
+                tp_group, ep_group, use_reentrant=False)
+        return transformer_block(layer, h, mcfg, attn, positions, tp_group,
+                                 ep_group)
+
+    def embed(top, tokens, positions):
+        x = top["embed"][tokens]
+        if not mcfg.rope:
+            x = x + top["pos"][positions]
+        return x
+
+    def pipelined_grads(params, tokens):
+        """The pp step's (total count, loss, aux, grads list): the stages
+        on ``cfg.microbatches`` microbatches, the non-layer gradients
+        summed over the pp line."""
+        targets, weights, positions = targets_and_weights(tokens)
+        total_count = weights.sum()
+        if n_dense > 1:
+            total_count = dense_group.all_gather(total_count[None]).sum()
+        m = cfg.microbatches
+        b, t = tokens.shape
+        if b % m:
+            raise ValueError(f"local batch {b} must divide into "
+                             f"microbatches={m}")
+        first = group.axis_index("pp") == 0
+        last = group.axis_index("pp") == n_pp - 1
+        top = {k: params[k] for k in params if k != "layers"}
+        top_leaves = tree_leaves(top)
+        stage_block = partial(block, positions=positions)
+        zero = torch.zeros((), device=tokens.device)
+        if cfg.pp_schedule == "1f1b":
+            tgt_m = targets.reshape(m, b // m, t)
+            w_m = weights.reshape(m, b // m, t)
+
+            def head_fn(top_p, h, mb):
+                pc = cast_compute(top_p)
+                logits = lm_logits(pc, rmsnorm(h, pc["out_norm"]), mcfg)
+                return weighted_ce(logits, tgt_m[mb], w_m[mb])[0] \
+                    / total_count
+
+            loss, d_stage, d_top = one_f_one_b(
+                params["layers"], top, tokens.reshape(m, b // m, t),
+                lambda st, h: scan_blocks(cast_compute(st), h,
+                                          stage_block)[0],
+                lambda top_p, tok: embed(cast_compute(top_p), tok,
+                                         positions),
+                head_fn, group, "pp")
+            d_top = tree_leaves(d_top)
+            aux = {"aux_loss": zero, "dispatch_fraction": zero + 1.0}
+        else:
+            pc = cast_compute(params)
+            top_c = {k: pc[k] for k in top}
+            if first:
+                x = embed(top_c, tokens, positions)
+            else:  # only stage 0's microbatches are read
+                x = torch.zeros((b, t, mcfg.d_model),
+                                dtype=pc["layers"]["ln1"].dtype,
+                                device=tokens.device)
+            xm = x.reshape(m, b // m, t, x.shape[-1])
+            run = gpipe_apply(pc["layers"], xm,
+                              lambda st, h: scan_blocks(st, h, stage_block),
+                              group, "pp")
+            local = zero
+            if "aux_loss" in run.aux:
+                # each stage owns its layers' load-balance term
+                local = local + run.aux["aux_loss"] * weights.sum()
+            if last:
+                h = run.outputs.reshape(b, t, -1)
+                logits = lm_logits(top_c, rmsnorm(h, top_c["out_norm"]),
+                                   mcfg)
+                local = local + weighted_ce(logits, targets, weights)[0]
+            loss = local / total_count
+            aux_keys = [k for k, v in run.aux.items() if v.requires_grad]
+            wrt = (top_leaves + ([run.outputs] if last else [])
+                   + [run.aux[k] for k in aux_keys])
+            grads = (torch.autograd.grad(loss, wrt, allow_unused=True)
+                     if loss.requires_grad else [None] * len(wrt))
+            n_top = len(top_leaves)
+            d_top = list(grads[:n_top])
+            d_aux = dict(zip(aux_keys, grads[n_top + int(last):]))
+            d_stage, d_x = run.backward(grads[n_top] if last else None,
+                                        d_aux)
+            if first:
+                emb = torch.autograd.grad(xm, top_leaves, d_x.to(xm.dtype),
+                                          allow_unused=True)
+                d_top = [e if d is None else d if e is None else d + e
+                         for d, e in zip(d_top, emb)]
+            d_top = [torch.zeros_like(p) if d is None else d
+                     for d, p in zip(d_top, top_leaves)]
+            aux = {"aux_loss": run.aux.get("aux_loss", zero).detach(),
+                   # the mean over this stage's MoE layers
+                   "dispatch_fraction": run.aux["dispatch_fraction"].detach()
+                   / (mcfg.n_layers // n_pp)
+                   if "dispatch_fraction" in run.aux else zero + 1.0}
+        # the embedding's gradient is stage 0's, the head's the last
+        # stage's: every stage's summed over the pp line, one flat
+        # buffer (the JAX psum over pp of the non-layer leaves)
+        flat = torch.cat([g.reshape(-1).float() for g in d_top])
+        flat = psum_allreduce(flat, group.along("pp"))
+        d_top = list(torch.split(flat, [g.numel() for g in d_top]))
+        d_top = [g.reshape(p.shape) for g, p in zip(d_top, top_leaves)]
+        grads = {**tree_unflatten(top, d_top), "layers": d_stage}
+        return total_count, loss.detach(), aux, tree_leaves(grads)
 
     def sync_plane(tree, config, plane_group, key, residual, row):
         """One sync of a gradient tree: (synced tree, its smallest bucket
@@ -890,10 +1193,15 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         # the same on every tick of the overlap
         row = None if valid is None else _mask_row(
             valid, dense_group.rank, n_dense, tokens.device)
-        overlap = synced and cfg.accum_schedule == "overlap"
-        parts = microbatch_grads(params, tokens)
-        total_count = next(parts)
+        overlap = (synced and cfg.accum_schedule == "overlap"
+                   and n_pp == 1)
         loss, aux, grads, fly, min_count = 0.0, None, None, None, None
+        if n_pp > 1:
+            total_count, loss, aux, grads = pipelined_grads(params, tokens)
+            parts = ()
+        else:
+            parts = microbatch_grads(params, tokens)
+            total_count = next(parts)
         for i, (mb_loss, mb_aux, mb_grads) in enumerate(parts):
             loss = loss + mb_loss
             aux = mb_aux if aux is None else {
@@ -924,14 +1232,15 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
         # aux terms are per-microbatch diagnostics: the mean
         aux_loss = aux["aux_loss"] / accum
         dispatch = aux["dispatch_fraction"] / accum
-        if n_dense > 1:
-            # the metrics' psum over the data axes: the ranks' (loss,
-            # aux, dispatch) summed, the aux terms over the rank count
+        if metric_group.world > 1:
+            # the metrics' psum over the data axes (and pp): the ranks'
+            # (loss, aux, dispatch) summed, the aux terms over the data
+            # rank count, dispatch also over the stages
             mine = torch.stack([torch.as_tensor(loss), aux_loss, dispatch])
-            loss, aux_loss, dispatch = dense_group.all_gather(
+            loss, aux_loss, dispatch = metric_group.all_gather(
                 mine.float()[None]).sum(dim=0)
             aux_loss = aux_loss / n_dense
-            dispatch = dispatch / n_dense
+            dispatch = dispatch / (n_dense * n_pp)
         metrics = {"loss": loss, "tokens": total_count,
                    "min_bucket_count": min_count, "aux_loss": aux_loss,
                    "dispatch_fraction": dispatch}
@@ -946,7 +1255,7 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
 def apply_update(cfg: TrainConfig, state: TrainState, grads: list,
                  group: Optional[RankGroup] = None) -> None:
     """The optax chain after the sync, in place: global-norm clip
-    (``clip_norm > 0``; over the whole model's norm on a tp / ep mesh
+    (``clip_norm > 0``; over the whole model's norm on a tp / ep / pp mesh
     ``group``), the family's update at the schedule's rate for the step
     count, then the EMA of the post-update masters; then the count
     advances. On a device count (``state.count``) the rate is the
@@ -957,7 +1266,8 @@ def apply_update(cfg: TrainConfig, state: TrainState, grads: list,
         sharded = is_sharded(group)
         clip_by_global_norm_(grads, cfg.clip_norm,
                              group if sharded else None,
-                             _leaf_axes(state.params) if sharded else None)
+                             _leaf_axes(state.params, group) if sharded
+                             else None)
     opt = state.optimizer
     if state.count is None:
         lr = lr_at(cfg, state.host_count)
@@ -1086,6 +1396,10 @@ class _MultiStep:
                  group: Optional[RankGroup] = None):
         if n < 1:
             raise ValueError(f"steps per dispatch must be >= 1, got {n}")
+        if group is not None and group.axis_size("pp") > 1:
+            raise NotImplementedError(
+                "a multi-step graph with pp > 1 is not ported yet (ROADMAP "
+                "A7 part 3: the pipeline's backward loop runs on the host)")
         self.cfg, self.n, self.group = cfg, n, group
         self.ranks = group is not None and group.world > 1
         self._step = make_train_step(cfg, group)

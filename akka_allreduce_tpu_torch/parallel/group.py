@@ -7,12 +7,13 @@ JAX package's rank-local collectives name mesh axes; the port's name a
 of the mesh's axes.
 
 The mesh is the JAX axis order ``("pp", "dp", "ep", "sp", "tp")``,
-row-major, ``tp`` innermost: global rank ``r = ((dp_i * ep + ep_k) * sp
-+ sp_j) * tp + tp_l``. ``pp`` is 1 (pipeline stages are not ported:
-ROADMAP A7 part 2). With ``ep = tp = 1`` this is ``r = dp_i * sp +
-sp_j``, so the ``sp`` ranks of one ``dp`` row are neighbours.
-:meth:`RankGroup.ppermute` moves blocks along one named axis (the ring
-attention's K/V rotation along ``sp``).
+row-major, ``pp`` outermost and ``tp`` innermost: global rank ``r =
+(((pp_h * dp + dp_i) * ep + ep_k) * sp + sp_j) * tp + tp_l`` (the JAX
+``make_device_mesh`` order). With ``pp = ep = tp = 1`` this is ``r =
+dp_i * sp + sp_j``, so the ``sp`` ranks of one ``dp`` row are
+neighbours. :meth:`RankGroup.ppermute` moves blocks along one named axis
+(the ring attention's K/V rotation along ``sp``, the pipeline's
+activations and cotangents along ``pp``).
 
 Axis lines and sub-meshes. :meth:`RankGroup.along` is the group of the
 ranks on this rank's line along one axis (the JAX collective over one
@@ -117,7 +118,7 @@ class RankGroup:
     live.
 
     The whole mesh has the axes ``("pp", "dp", "ep", "sp", "tp")`` of
-    sizes ``(1, world / (ep sp tp), ep, sp, tp)``. A line or sub-mesh
+    sizes ``(pp, world / (pp ep sp tp), ep, sp, tp)``. A line or sub-mesh
     (:meth:`along`, :meth:`over`) has ``dims``, its own axes and sizes
     in its rank order, and ``line``, the global ranks of its indices."""
 
@@ -134,14 +135,17 @@ class RankGroup:
     # ((axis, size), ...) of a line or sub-mesh, in its rank order; None
     # for the whole mesh
     dims: Optional[tuple] = None
+    pp: int = 1
 
     def __post_init__(self):
         if self.dims is None:
-            inner = self.ep * self.sp * self.tp
-            if min(self.ep, self.sp, self.tp) < 1 or self.world % inner:
+            inner = self.pp * self.ep * self.sp * self.tp
+            if min(self.pp, self.ep, self.sp, self.tp) < 1 \
+                    or self.world % inner:
                 raise ValueError(
-                    f"ep x sp x tp = {self.ep} x {self.sp} x {self.tp} "
-                    f"must divide the world of {self.world} ranks")
+                    f"pp x ep x sp x tp = {self.pp} x {self.ep} x "
+                    f"{self.sp} x {self.tp} must divide the world of "
+                    f"{self.world} ranks")
 
     @staticmethod
     def single(device: "torch.device | str" = "cpu") -> "RankGroup":
@@ -153,9 +157,9 @@ class RankGroup:
         (row-major: the last axis varies fastest)."""
         if self.dims is not None:
             return self.dims
-        dp = self.world // (self.ep * self.sp * self.tp)
-        return (("pp", 1), ("dp", dp), ("ep", self.ep), ("sp", self.sp),
-                ("tp", self.tp))
+        dp = self.world // (self.pp * self.ep * self.sp * self.tp)
+        return (("pp", self.pp), ("dp", dp), ("ep", self.ep),
+                ("sp", self.sp), ("tp", self.tp))
 
     @property
     def axis_order(self) -> tuple:
@@ -192,7 +196,7 @@ class RankGroup:
                 sub[a] = rest % size
                 rest //= size
             members.append(self._global(self._index({**coords, **sub})))
-            if all(sub[a] == coords[a] for a in axes):
+            if all(sub[a] == coords.get(a, 0) for a in axes):
                 me = index
         line = tuple(members)
         if self.line is None and line == tuple(range(self.world)):
@@ -487,16 +491,17 @@ def _inverse(order: list) -> list:
     return inv
 
 
-def axis_lines(world: int, sp: int, ep: int = 1, tp: int = 1) -> list:
+def axis_lines(world: int, sp: int, ep: int = 1, tp: int = 1,
+               pp: int = 1) -> list:
     """The member sets (sorted global ranks) of every line and sub-mesh
-    of the mesh ``(world / (ep sp tp), ep, sp, tp)`` that needs a
+    of the mesh ``(pp, world / (pp ep sp tp), ep, sp, tp)`` that needs a
     subgroup (more than one rank, fewer than the world): for each
     nonempty proper subset of the axes of size > 1, every sub-mesh over
     it. Single axes first, inner axis first (with ``dp`` and ``sp``
     alone: the ``sp`` lines, one per ``dp`` row, then the ``dp`` lines,
     one per ``sp`` column), then the subsets of two axes and more."""
     mesh = RankGroup(0, world, "gloo", torch.device("cpu"), sp, ep=ep,
-                     tp=tp)
+                     tp=tp, pp=pp)
     live = [a for a, size in mesh.mesh_dims if size > 1][::-1]
     subsets = []
     for k in range(1, len(live)):
@@ -513,7 +518,8 @@ def make_axis_subgroups(group: RankGroup) -> None:
     """Make the subgroup of every axis line and sub-mesh on this rank. A
     collective: ``dist.new_group`` must be called by every rank of the
     world for every member set, in the same order, members or not."""
-    for line in axis_lines(group.world, group.sp, group.ep, group.tp):
+    for line in axis_lines(group.world, group.sp, group.ep, group.tp,
+                           group.pp):
         pg = dist.new_group(list(line))
         if group.rank in line:
             _SUBGROUPS[line] = pg
@@ -706,8 +712,9 @@ def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
         dist.init_process_group("gloo" if backend == "ipc" else backend,
                                 init_method=f"file://{store}",
                                 rank=rank, world_size=world)
-        sp, ep, tp = mesh
-        group = RankGroup(rank, world, backend, dev, sp, ep=ep, tp=tp)
+        sp, ep, tp, pp = mesh
+        group = RankGroup(rank, world, backend, dev, sp, ep=ep, tp=tp,
+                          pp=pp)
         try:
             make_axis_subgroups(group)
             out = fn(group, *args)
@@ -737,22 +744,23 @@ def _to_cpu(obj: Any) -> Any:
 
 def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
                 *args, sp: int = 1, ep: int = 1, tp: int = 1,
-                timeout: float = 900.0) -> list:
+                pp: int = 1, timeout: float = 900.0) -> list:
     """Run ``fn(group, *args)`` in ``world`` new processes, the mesh
-    ``(dp, ep, sp, tp)`` with ``dp = world / (ep sp tp)``, and return
+    ``(pp, dp, ep, sp, tp)`` with ``dp = world / (pp ep sp tp)``, and return
     their results in rank order (tensors come back on the CPU). A rank
     that raises, dies or outlasts ``timeout`` seconds ends every rank and
     raises here with that rank's traceback."""
     check_backend(backend, device, world)
-    if world < 1 or min(sp, ep, tp) < 1 or world % (sp * ep * tp):
-        raise ValueError(f"world must be >= 1 and a multiple of ep x sp x "
-                         f"tp; got world={world}, ep={ep}, sp={sp}, "
-                         f"tp={tp}")
+    if world < 1 or min(sp, ep, tp, pp) < 1 \
+            or world % (sp * ep * tp * pp):
+        raise ValueError(f"world must be >= 1 and a multiple of pp x ep x "
+                         f"sp x tp; got world={world}, pp={pp}, ep={ep}, "
+                         f"sp={sp}, tp={tp}")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks-")
     results = ctx.Queue()
     procs = [ctx.Process(target=_worker, daemon=True,
-                         args=(r, world, (sp, ep, tp), backend, device,
+                         args=(r, world, (sp, ep, tp, pp), backend, device,
                                os.path.join(tmp, "store"), fn, args,
                                results))
              for r in range(world)]

@@ -20,13 +20,15 @@ renamed. :meth:`CheckpointManager.restore_sync` gives a rank its residual
 back bitwise (an MoE run's file holds both planes, ``{"dense",
 "expert"}``).
 
-A run with tensor or expert parallelism (tp or ep > 1) saves params, EMA
-and optimizer state in the full, unsharded layout, as the JAX package's
-checkpoint of its global arrays holds them: its ranks gather them first
-(``models/train.py full_layout``) and slice them again on restore
+A run with tensor, expert or pipeline parallelism (tp, ep or pp > 1)
+saves params, EMA and optimizer state in the full, unsharded list
+layout, as the JAX package's checkpoint of its global arrays holds them
+at pp = 1: its ranks gather them first (``models/train.py
+full_layout``: a pp stage's stacked layers, and their moments, gathered
+over ``pp`` and unstacked) and slice (and stack) them again on restore
 (``convert.shard_params``, ``train.shard_optimizer_state``), so a ``--tp
-2`` checkpoint restores at one rank into ``generate``, ``eval`` and
-``serve``.
+2`` or ``--pp 2`` checkpoint restores at one rank into ``generate``,
+``eval`` and ``serve``, and at any other mesh into ``train``.
 
 The JAX package's orbax checkpoints are not read here (nor these by it):
 the formats differ. ``scripts/orbax_to_torch.py``, run where JAX is

@@ -5,7 +5,7 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero). The
 multi-rank runs of one mesh within a phase share one spawn of the rank
-processes (``spawn_batch``: phases 9, 10, 12-14, 16-18, 21 and 23),
+processes (``spawn_batch``: phases 9, 10, 12-14, 16-18, 21, 23, 25 and 26),
 each run's launches and peak its own; run whole, the script keeps one
 pool of rank processes a world size (``RankPool``, started beside the
 build) and runs every such batch there as a fresh spawn would:
@@ -513,6 +513,30 @@ build) and runs every such batch there as a fresh spawn would:
    --ckpt-dir`` as a one-rank process: its greedy tokens equal the
    in-memory model's, and the control's (wq's tp halves swapped)
    differ. The phase must end within ``A7_SECONDS`` (250 s).
+26. pipeline parallelism (ROADMAP A7 part 2; runs after phase 25, on
+   the world-2 pool's ``ipc`` ranks, a ``pp`` mesh of two stages). (a)
+   ``A7PP_PARITY_MODEL`` (phase 25's widths, dense, depth 4), f32, one
+   grad step at pp=2 with 2 microbatches under gpipe and under 1f1b,
+   gathered to the full layout, against the one-rank step on the full
+   tree and batch: every leaf within ``A7_GRAD_TOL`` of that leaf's
+   largest value; the control (gpipe with the two stages' layers
+   swapped) must land above ``A7PP_CONTROL_MIN``. (b) ``train --pp 2
+   --microbatches 4`` on the flagship (bf16, 4 layers a stage),
+   ``A7PP_STEPS`` steps; (c) the same under ``--pp-schedule 1f1b``:
+   finite losses, every rank's launches of rows 1 and 10-12 those the
+   path implies (``a7pp_expected_launches``: the flash kernels m x L/pp
+   a step, 1f1b's forward twice that; the pp sum of the non-layer
+   gradients once a step), wall ms a step, tokens/s, MFU, peak GB a rank
+   and the transfers along pp in ms a step (CUDA events around each
+   ``ppermute``, ``ExchangeTimer``, and the report's
+   ``pp_transfer_ms``); then both schedules at ``A7PP_MEM_MICRO``
+   microbatches, ``A7PP_MEM_STEPS`` steps: 1f1b's peak GB must be below
+   gpipe's (the stats: 9 resident stage inputs against 3). The four runs
+   share one batch of the ranks. (d) ``train --pp 2 --ckpt-dir`` at
+   depth 2 (its final full tree gathered in memory), then ``cli
+   generate --ckpt-dir`` as a one-rank process: its greedy tokens equal
+   the in-memory model's, and the control's (the stages' layers
+   swapped) differ. The phase must end within ``A7PP_SECONDS`` (100 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
@@ -524,8 +548,9 @@ flash, ring, sync and transport
 rows with phase 23's, ``a5r_launches`` apart on the sync rows, row 4's
 ``pointer_seed_ms`` its launch reading the seed from device memory; the
 bf16 flash, masked reduce, paged and transport rows with phase 25's,
-``a7_launches`` apart on the sync and paged rows), and last ``{"ok":
-true, "device": {...}}``.
+``a7_launches`` apart on the sync and paged rows; the bf16 flash, masked
+reduce and transport rows with phase 26's, ``pp_launches`` apart on
+rows 1 and 10-12), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2068,13 +2093,13 @@ def batch_rank(group, jobs: list) -> list:
 
 def spawn_batch(torch, jobs: list, world: "int | None" = None,
                 backend: "str | None" = None, sp: int = 1, ep: int = 1,
-                tp: int = 1) -> list:
+                tp: int = 1, pp: int = 1) -> list:
     """Every job of ``jobs`` (:func:`batch_rank`) in one spawn of the
     ranks, so the ranks' start (processes, CUDA contexts, the process
     group and the ipc buffers: ~20 s a spawn on the card) is paid once;
     with ``POOLED`` (set by :func:`main`) in the :class:`RankPool` of
     ``world`` ranks, whose start is paid once for the whole script.
-    Train jobs must share their world, mesh (``(dp, ep, sp, tp)``) and
+    Train jobs must share their world, mesh (``(pp, dp, ep, sp, tp)``) and
     backend, which they give (their counters are per run: each report's
     launches are the run's own). Returns per job a train job's report as
     ``run_train`` returns it (rank 0's, with ``ranks``) or a call job's
@@ -2085,12 +2110,12 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
     for kind, args, _ in jobs:
         if kind == "train":
             backend_ = cli._check_train_flags(args)[2]
-            meshes.add((args.dp * args.ep * args.sp * args.tp, args.sp,
-                        args.ep, args.tp, backend_))
+            meshes.add((args.dp * args.ep * args.sp * args.tp * args.pp,
+                        args.sp, args.ep, args.tp, args.pp, backend_))
     if len(meshes) > 1:
         raise ValueError(f"one spawn runs one mesh, got {meshes}")
     if meshes:
-        world, sp, ep, tp, backend = meshes.pop()
+        world, sp, ep, tp, pp, backend = meshes.pop()
     if DEVICE == "cuda":
         import gc
 
@@ -2099,10 +2124,11 @@ def spawn_batch(torch, jobs: list, world: "int | None" = None,
         gc.collect()  # this process's dropped tensors, before the ranks'
         torch.cuda.empty_cache()
     if POOLED:
-        per_rank = rank_pool(world).run(backend or DIST, (sp, ep, tp), jobs)
+        per_rank = rank_pool(world).run(backend or DIST, (sp, ep, tp, pp),
+                                        jobs)
     else:
         per_rank = spawn_ranks(batch_rank, world, backend or DIST, DEVICE,
-                               jobs, sp=sp, ep=ep, tp=tp)
+                               jobs, sp=sp, ep=ep, tp=tp, pp=pp)
     out = []
     for k, (kind, _, _) in enumerate(jobs):
         results = [r[k][0] for r in per_rank]
@@ -2128,7 +2154,7 @@ def pool_rank(rank: int, world: int, device: str, store: str, inbox,
     (``parallel/group.py``: its device, intra-op threads and the world's
     gloo process group) once, then each batch ``(n, backend, sp, jobs)``
     from ``inbox`` as a fresh spawn runs it: the batch's ``RankGroup``
-    (``sp``, or the mesh's ``(sp, ep, tp)``) and axis subgroups,
+    (``sp``, or the mesh's ``(sp, ep, tp, pp)``) and axis subgroups,
     :func:`batch_rank`, the stream drained, the peer buffers and
     subgroups freed, then the allocator's cache emptied.
     Puts ``(rank, n, ok, payload)`` on ``results``; ends at ``None`` or
@@ -2158,10 +2184,11 @@ def pool_rank(rank: int, world: int, device: str, store: str, inbox,
             if msg is None:
                 return
             n, backend, mesh, jobs = msg
-            sp, ep, tp = mesh if isinstance(mesh, tuple) else (mesh, 1, 1)
+            sp, ep, tp, pp = (mesh if isinstance(mesh, tuple)
+                              else (mesh, 1, 1, 1))
             try:
                 group = G.RankGroup(rank, world, backend, dev, sp, ep=ep,
-                                    tp=tp)
+                                    tp=tp, pp=pp)
                 try:
                     G.make_axis_subgroups(group)
                     out = batch_rank(group, jobs)
@@ -2214,7 +2241,7 @@ class RankPool:
 
     def run(self, backend: str, sp: "int | tuple", jobs: list) -> list:
         """One batch on every rank, on the mesh of ``sp`` (or of ``(sp,
-        ep, tp)``): each rank's :func:`batch_rank` results, in rank
+        ep, tp, pp)``): each rank's :func:`batch_rank` results, in rank
         order."""
         import pickle
         import queue
@@ -6799,12 +6826,14 @@ def a7_parity(torch) -> dict:
 class ExchangeTimer:
     """CUDA events around every call of the ep all_to_all and the two tp
     operators' sums, forward and backward (the patched
-    ``autograd.Function`` methods), by kind; on the CPU (``device``)
+    ``autograd.Function`` methods), and of ``RankGroup.ppermute`` along
+    ``pp`` (the pipeline's transfers), by kind; on the CPU (``device``)
     the calls are counted and not timed."""
 
     def __init__(self, torch, device):
         from akka_allreduce_tpu_torch.parallel import ep as E
         from akka_allreduce_tpu_torch.parallel import tp as T
+        from akka_allreduce_tpu_torch.parallel.group import RankGroup
         self.torch, self.marks, self.undo = torch, {}, []
         self.cuda = device.type == "cuda"
         for kind, cls, names in (("all_to_all", E._AllToAll,
@@ -6814,22 +6843,33 @@ class ExchangeTimer:
                                   ("backward",))):
             for name in names:
                 self._wrap(kind, cls, name)
+        real = RankGroup.ppermute
+
+        def ppermute(group, x, axis, shift):
+            if axis != "pp":
+                return real(group, x, axis, shift)
+            return self._timed("pp_ppermute",
+                               lambda: real(group, x, axis, shift))
+        RankGroup.ppermute = ppermute
+        self.undo.append(lambda: setattr(RankGroup, "ppermute", real))
+
+    def _timed(self, kind, call):
+        if not self.cuda:
+            self.marks.setdefault(kind, []).append(None)
+            return call()
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call()
+        end.record()
+        self.marks.setdefault(kind, []).append((start, end))
+        return out
 
     def _wrap(self, kind, cls, name):
         real = getattr(cls, name)
-        torch = self.torch
 
         def timed(ctx, *a):
-            if not self.cuda:
-                self.marks.setdefault(kind, []).append(None)
-                return real(ctx, *a)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = real(ctx, *a)
-            end.record()
-            self.marks.setdefault(kind, []).append((start, end))
-            return out
+            return self._timed(kind, lambda: real(ctx, *a))
         setattr(cls, name, staticmethod(timed))
         self.undo.append(lambda: setattr(cls, name, staticmethod(real)))
 
@@ -7107,6 +7147,288 @@ def phase_a7(torch, served: "dict | None" = None) -> dict:
             "parity": parity, "checkpoint": ckpt}
 
 
+# -- phase 26: pipeline parallelism (ROADMAP A7, part 2) --------------------
+
+A7PP_WORLD = 2
+# (b) and (c): the flagship of phase 6 on two pipeline stages of four
+# layers each, A7PP_MICRO microbatches, A7PP_STEPS steps; then both
+# schedules at A7PP_MEM_MICRO microbatches for each rank's peak
+A7PP_ARGV = list(TRAIN_ARGV)
+A7PP_STEPS = 3
+A7PP_MICRO = 4
+A7PP_MEM_MICRO = 8
+A7PP_MEM_STEPS = 2
+# (a): A7_PARITY_MODEL's widths, dense, at depth 4, f32 (TF32 off), one
+# step of each schedule at pp=2 against the one-rank step on the same
+# batch: every gradient leaf within A7_GRAD_TOL of its largest value
+A7PP_PARITY_MODEL = dict(vocab_size=32768, d_model=2048, n_heads=16,
+                         n_layers=4, d_ff=8192, max_seq=512)
+A7PP_PARITY_MICRO = 2
+A7PP_CONTROL_MIN = 1e-1  # the stage-swapped control lands above this
+# (d): a pp=2 checkpoint at depth 2, restored by a one-rank generate
+A7PP_CKPT_ARGV = list(A7_CKPT_ARGV)
+A7PP_SECONDS = 100
+
+
+def a7pp_parity_rank(group, model: dict, batch, micro: int) -> dict:
+    """(a) on one rank: a grad step on this rank's stage at pp=2 under
+    gpipe and under 1f1b, and the control (gpipe on the full tree with
+    the two stages' layers swapped), each gathered to the full layout;
+    on rank 0 the one-rank step on the full tree and batch, and each
+    run's largest leaf error relative to that leaf's largest reference
+    value."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.convert import gather_params
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    dev = group.device
+    cfg, full = a7_model(torch, model, None, dev)
+    tokens = torch.from_numpy(np.array(batch)).to(dev)
+    half = model["n_layers"] // 2
+    swapped = {**full, "layers": full["layers"][half:]
+               + full["layers"][:half]}
+    got = {}
+    for name, sched, tree in (("gpipe", "gpipe", full),
+                              ("1f1b", "1f1b", full),
+                              ("control", "gpipe", swapped)):
+        c = dataclasses.replace(cfg, microbatches=micro, pp_schedule=sched)
+        state = train.make_train_state(c, params=tree, device=dev,
+                                       group=group)
+        grads, _ = train.make_grad_step(c, group)(state.params, tokens)
+        got[name] = tree_leaves(gather_params(grads, c.model, group))
+        del grads, state
+    res = {}
+    if group.rank == 0:
+        ref_state = train.make_train_state(cfg, params=full, device=dev)
+        ref = tree_leaves(train.make_grad_step(cfg)(ref_state.params,
+                                                    tokens)[0])
+        for name, leaves in got.items():
+            res[f"{name}_rel_err"] = max(
+                float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(leaves, ref))
+    return res
+
+
+def a7pp_parity(torch) -> dict:
+    """(a): gpipe and 1f1b at pp=2 against the one-rank step."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    batch = rng.integers(0, A7PP_PARITY_MODEL["vocab_size"],
+                         size=A7_PARITY_BATCH, dtype=np.int32)
+    t0 = time.perf_counter()
+    (ranks, _), = spawn_batch(
+        torch, [("call", a7pp_parity_rank,
+                 (A7PP_PARITY_MODEL, batch, A7PP_PARITY_MICRO))],
+        world=A7PP_WORLD, pp=A7PP_WORLD)
+    row = {**ranks[0], "tol": A7_GRAD_TOL, "control_min": A7PP_CONTROL_MIN,
+           "microbatches": A7PP_PARITY_MICRO,
+           "seconds": time.perf_counter() - t0}
+    row["held"] = (row["gpipe_rel_err"] <= A7_GRAD_TOL
+                   and row["1f1b_rel_err"] <= A7_GRAD_TOL)
+    row["control_outside"] = row["control_rel_err"] > A7PP_CONTROL_MIN
+    emit("a7pp_parity", run="pp=2", **row)
+    if not (row["held"] and row["control_outside"]):
+        raise AssertionError(f"phase 26 (a): {row}")
+    return row
+
+
+def a7pp_expected_launches(schedule: str, n_layers: int, micro: int,
+                           steps: int) -> dict:
+    """A rank's launches of rows 1 and 10-12 that (b) / (c) imply: the
+    flash kernels once a stage layer a microbatch a step (1f1b's forward
+    twice: the forward unit and the backward unit's recompute); one
+    masked reduce a step, the sum of the non-layer gradients over the pp
+    line (the dense sync at dp=1 is over one rank, skipped)."""
+    if DEVICE != "cuda":
+        return {"flash": dict.fromkeys(FLASH_REPLACES, 0),
+                "masked_reduce": 0}
+    per = micro * (n_layers // A7PP_WORLD) * steps
+    flash = dict.fromkeys(FLASH_REPLACES, per)
+    if schedule == "1f1b":
+        flash["flash_fwd"] = 2 * per
+    return {"flash": flash, "masked_reduce": steps}
+
+
+def a7pp_train(torch) -> dict:
+    """(b), (c): ``train --pp 2`` at full width under gpipe and 1f1b at
+    ``A7PP_MICRO`` microbatches (their numbers, the transfers' ms a step
+    and every rank's launches against :func:`a7pp_expected_launches`),
+    then both at ``A7PP_MEM_MICRO`` for each rank's peak: 1f1b's must be
+    below gpipe's. The four runs share one batch of the ranks."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    runs = [("gpipe", A7PP_MICRO, A7PP_STEPS), ("1f1b", A7PP_MICRO,
+                                                 A7PP_STEPS),
+            ("gpipe", A7PP_MEM_MICRO, A7PP_MEM_STEPS),
+            ("1f1b", A7PP_MEM_MICRO, A7PP_MEM_STEPS)]
+    jobs = []
+    for sched, micro, steps in runs:
+        argv = set_flag(set_flag(A7PP_ARGV, "--steps", steps),
+                        "--dist-backend", DIST)
+        if DEVICE != "cuda":
+            argv = set_flag(argv, "--device", DEVICE)
+        jobs.append(("train", cli.build_parser().parse_args(
+            argv + ["--pp", str(A7PP_WORLD), "--microbatches", str(micro),
+                    "--pp-schedule", sched]), "a7_timed"))
+    out = spawn_batch(torch, jobs)
+    rows = {}
+    for (sched, micro, steps), (report, seconds) in zip(runs, out):
+        cfg = report["config"]
+        want = a7pp_expected_launches(sched, cfg["n_layers"], micro, steps)
+        per_rank = [{"flash": r["launches"],
+                     "masked_reduce": r["sync_launches"]["masked_reduce"]}
+                    for r in report["ranks"]]
+        transfer = [steady(r["pp_transfer_ms"]) for r in report["ranks"]]
+        row = {"schedule": sched, "microbatches": micro, "steps": steps,
+               "mesh": cfg["mesh"], "seconds": seconds,
+               "losses": report["losses"],
+               "wall_ms_per_step": report["wall_ms_per_step"],
+               "tokens_per_s": report["tokens_per_s"], "mfu": report["mfu"],
+               "pp_schedule_stats": report["pp_schedule_stats"],
+               "pp_transfer_ms_per_step": transfer,
+               "exchanges": [r["exchanges"] for r in report["ranks"]],
+               "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                           for r in report["ranks"]],
+               "transport_buffer_gb_per_rank": [r["transport_buffer_gb"]
+                                                for r in report["ranks"]],
+               "launches": per_rank[0], "rank_launches": per_rank,
+               "expected_launches": want,
+               "transport_launches":
+                   report["transport"].get("transport_launches", 0)}
+        emit("a7pp_train", run=f"{sched} m={micro}", **row)
+        if not (all(np.isfinite(row["losses"]))
+                and all(r == want for r in per_rank)):
+            part = "b" if sched == "gpipe" else "c"
+            raise AssertionError(f"phase 26 ({part}): {row}")
+        rows[sched, micro] = row
+    if DEVICE == "cuda":
+        peaks = {s: max(rows[s, A7PP_MEM_MICRO]["peak_memory_gb_per_rank"])
+                 for s in ("gpipe", "1f1b")}
+        emit("a7pp_memory", microbatches=A7PP_MEM_MICRO, peak_gb=peaks,
+             resident=report["pp_schedule_stats"])
+        if not peaks["1f1b"] < peaks["gpipe"]:
+            raise AssertionError(f"phase 26 (c): 1f1b's peak is not below "
+                                 f"gpipe's at {A7PP_MEM_MICRO} "
+                                 f"microbatches: {peaks}")
+    return rows
+
+
+def a7pp_ckpt_rank(group, args, steps: int) -> dict:
+    """(d) on one rank: ``cli train --pp 2 --ckpt-dir`` (its ``_train``
+    with an ``on_step`` that gathers the final full tree, every rank);
+    rank 0 then decodes the prompt greedily from the tree in memory and
+    from the tree with the two stages' layers swapped (the control)."""
+    import torch
+
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.convert import gather_params
+    from akka_allreduce_tpu_torch.models.generate import generate
+    held = {}
+
+    def on_step(i, state):
+        if i == steps - 1:
+            held["cfg"] = cli.train_config(args, args.seq).model
+            held["full"] = gather_params(state.params, held["cfg"], group)
+    report = cli._train(args, None, None, group, group.device, on_step)
+    out = {"losses": report["losses"]}
+    if group.rank == 0:
+        full, cfg = held["full"], held["cfg"]
+        half = cfg.n_layers // 2
+        prompt = torch.tensor([A7_PROMPT], device=group.device)
+        with torch.no_grad():
+            out["tokens"] = generate(full, prompt, cfg,
+                                     steps=A7_GEN_TOKENS)[0].tolist()
+            swapped = {**full, "layers": full["layers"][half:]
+                       + full["layers"][:half]}
+            out["control_tokens"] = generate(
+                swapped, prompt, cfg, steps=A7_GEN_TOKENS)[0].tolist()
+    return out
+
+
+def a7pp_checkpoint(torch) -> dict:
+    """(d): a pp=2 train with a checkpoint (the gathered full list
+    layout), then ``cli generate`` from it as a one-rank process: its
+    greedy tokens must equal the pipelined model's in memory, and the
+    control's (the stages' layers swapped) must not."""
+    from akka_allreduce_tpu_torch import cli
+    work = tempfile.mkdtemp(prefix="a7pp-")
+    try:
+        ckpt = os.path.join(work, "ckpt")
+        argv = set_flag(set_flag(A7PP_CKPT_ARGV, "--device", DEVICE),
+                        "--dist-backend", DIST) + [
+            "--pp", str(A7PP_WORLD), "--microbatches", "2",
+            "--ckpt-dir", ckpt]
+        args = cli.build_parser().parse_args(argv)
+        ((ranks, seconds),) = spawn_batch(
+            torch, [("call", a7pp_ckpt_rank, (args, args.steps))],
+            world=A7PP_WORLD, pp=A7PP_WORLD)
+        gen = ["generate", "--ckpt-dir", ckpt, "--d-model",
+               str(args.d_model), "--n-heads", str(args.n_heads),
+               "--n-layers", str(args.n_layers), "--d-ff", str(args.d_ff),
+               "--vocab", str(args.vocab), "--max-seq", str(args.seq),
+               "--prompt-tokens", ",".join(map(str, A7_PROMPT)), "--tokens",
+               str(A7_GEN_TOKENS), "--device", DEVICE]
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", GENERATE_CHILD, *gen], cwd=repo,
+            env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+            text=True, timeout=A7_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    if child.returncode != 0:
+        raise AssertionError(f"phase 26 (d): generate exited "
+                             f"{child.returncode}: {child.stderr[-3000:]}")
+    restored = [int(t) for t in child.stdout.strip().splitlines()[-1]
+                .split(",")]
+    row = {"train_seconds": seconds, "generate_seconds": child_s,
+           "losses": ranks[0]["losses"], "restored_tokens": restored,
+           "in_memory_tokens": ranks[0]["tokens"][-A7_GEN_TOKENS:],
+           "control_tokens": ranks[0]["control_tokens"][-A7_GEN_TOKENS:]}
+    row["equal"] = row["restored_tokens"] == row["in_memory_tokens"]
+    row["control_equal"] = row["restored_tokens"] == row["control_tokens"]
+    emit("a7pp_checkpoint", **row)
+    if not row["equal"] or row["control_equal"]:
+        raise AssertionError(f"phase 26 (d): {row}")
+    return row
+
+
+def phase_a7pp(torch) -> dict:
+    """Phase 26: (a) gpipe and 1f1b at pp=2 against the one-rank step,
+    (b) gpipe and (c) 1f1b at full width on two stages, and both
+    schedules' peak at more microbatches, (d) a pp=2 checkpoint restored
+    by a one-rank generate. Returns the main-path launches of rows 1 and
+    10-12 (rank 0's), and the transport's."""
+    t0 = time.perf_counter()
+    parity = a7pp_parity(torch)
+    ta = time.perf_counter()
+    runs = a7pp_train(torch)
+    tb = time.perf_counter()
+    ckpt = a7pp_checkpoint(torch)
+    tc = time.perf_counter()
+    seconds = tc - t0
+    emit("a7pp_phase_seconds", seconds=seconds, parity=ta - t0,
+         train=tb - ta, checkpoint=tc - tb,
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A7PP_SECONDS:
+        raise AssertionError(f"phase 26 took {seconds:.1f} s, over its "
+                             f"{A7PP_SECONDS} s")
+    return {"flash": {k: sum(r["launches"]["flash"][k]
+                             for r in runs.values())
+                      for k in FLASH_REPLACES},
+            "masked_reduce": sum(r["launches"]["masked_reduce"]
+                                 for r in runs.values()),
+            "transport": sum(r["transport_launches"] for r in runs.values()),
+            "parity": parity, "checkpoint": ckpt}
+
+
 def chunk_of(world: int) -> int:
     """The transport's chunk for a world of ``world`` ranks with no axis
     lines (dp only)."""
@@ -7256,6 +7578,9 @@ def run_phases(torch) -> int:
     # 25. expert and tensor parallelism: parity, MoE and tp at full width,
     # MoE serving, a tp checkpoint restored at one rank
     a7 = phase_a7(torch, served)
+    # 26. pipeline parallelism: gpipe and 1f1b parity, both schedules at
+    # full width on two stages, a pp checkpoint restored at one rank
+    a7pp = phase_a7pp(torch)
     close_pools()  # every rank process ended before the closing lines
     # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
     # across processes, the serve trace
@@ -7265,10 +7590,11 @@ def run_phases(torch) -> int:
                      + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
                      + a7["sync"][k] for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
-        + cluster["launches"]
+        + cluster["launches"] + a7pp["masked_reduce"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"] + a5["transport"]
                           + a5r["transport"] + a7["transport"]
+                          + a7pp["transport"]
                           + sum(sp_launches[d]["transport"]
                                 for d in sp_launches))
     if not transport_launches:
@@ -7295,7 +7621,10 @@ def run_phases(torch) -> int:
     # run, phase 13's one-card f32 run and phase 15's one-card run
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
         k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
-        + a5r["flash"][k] + a7["flash"][k] for k in FLASH_REPLACES})
+        + a5r["flash"][k] + a7["flash"][k] + a7pp["flash"][k]
+        for k in FLASH_REPLACES})
+    for row in kernels[-3:]:  # phase 26's share, rank 0's
+        row["pp_launches"] = a7pp["flash"][row["name"]]
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]
@@ -7320,6 +7649,7 @@ def run_phases(torch) -> int:
             strided = sync["masked_reduce_strided"]
             kernels[-1].update(protocol_launches=protocol["launches"],
                                cluster_launches=cluster["launches"],
+                               pp_launches=a7pp["masked_reduce"],
                                strided_ms=strided["ms"],
                                strided_plain_ms=strided["plain_ms"],
                                strided_bound_ms=strided["bound_ms"])

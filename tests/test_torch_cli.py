@@ -573,19 +573,22 @@ def test_train_tp_and_ep_print_the_jax_step_lines(capfd, flags, mesh):
 
 @pytest.mark.parametrize("flags,match", [
     (["--dp", "0", "--tp", "2"], "dp*tp*sp*pp*ep = 2 != 1 devices"),
-    (["--pp", "2"], "ROADMAP A7 part 2"),
-    (["--pp-schedule", "1f1b"], "ROADMAP A7 part 2"),
+    (["--pp", "2", "--grad-accum", "2"],
+     "--grad-accum does not compose with --pp"),
+    (["--pp", "3"], "pp=3 must divide n_layers=2"),
+    (["--pp", "2", "--pp-schedule", "1f1b", "--moe-experts", "4",
+      "--moe-every", "1"], "dense layers only"),
+    (["--pp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 3"),
     (["--microbatches", "2"], "--microbatches requires --pp > 1"),
     (["--pp", "2", "--moe-experts", "4", "--moe-every", "2"],
      "--pp > 1 needs homogeneous layers"),
-    (["--tp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 2"),
-    (["--ep", "2", "--steps-per-dispatch", "2"], "ROADMAP A7 part 2"),
+    (["--tp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 3"),
+    (["--ep", "2", "--steps-per-dispatch", "2"], "ROADMAP A7 part 3"),
     (["--tp", "3"], "tp=3 must divide n_heads=4"),
     (["--ep", "3", "--moe-experts", "4", "--batch", "6"],
      "ep=3 must divide n_experts=4"),
     (["--ep", "2", "--moe-experts", "4", "--batch", "3"],
      "must divide over 2 data ranks (dp x ep)"),
-    (["--tp", "2", "--optimizer", "adafactor"], "ROADMAP A7 part 2"),
     (["--dp", "2", "--sp", "2", "--ep", "2", "--moe-experts", "2",
       "--grad-quant", "ef8", "--grad-schedule", "hierarchical"],
      "needs exactly two >1 data axes")])
@@ -675,3 +678,151 @@ def test_tp_checkpoint_restores_at_one_rank_and_resumes(capfd, tmp_path):
     assert resumed["losses"] == r2["losses"][2:]
     for a, b in zip(restored(part), restored(two)):
         assert torch.equal(a, b)
+
+
+# -- pipeline parallelism (ROADMAP A7 part 2) --------------------------------
+
+def test_train_pp_prints_the_jax_schedule_line(capfd):
+    """``train --pp 2 --microbatches 2`` on two gloo ranks: rank 0 prints
+    the JAX command's mesh line with the real microbatch count and its
+    schedule line."""
+    assert cli.main(TRAIN_TINY + ["--pp", "2", "--microbatches", "2",
+                                  "--steps", "2", "--log-every", "1"]) == 0
+    out = capfd.readouterr().out.strip().splitlines()
+    assert sum(ln.startswith("mesh dp=1 tp=1 sp=1 pp=2 ep=1; batch=4 "
+                             "seq=24 microbatches=2") for ln in out) == 1
+    assert ("pp=2 x 2 microbatches, schedule gpipe: bubble gpipe 33.3% "
+            "(resident 3 microbatches) | 1f1b 50.0% (resident 2)") in out
+    assert [ln.split(":")[0] for ln in out if ln.startswith("step ")] == [
+        "step    1", "step    2"]
+
+
+def test_pp_checkpoint_restores_at_one_rank_and_resumes(capfd, tmp_path):
+    """``train --pp 2 --ckpt-dir`` saves the gathered full list layout:
+    its losses and params are the pp=1 run's within 1e-5, ``generate``
+    at one rank decodes the same greedy tokens from either checkpoint,
+    and its step-1 checkpoint (the adam moments in it) resumes at pp=1
+    within 1e-5 of the pp=2 run's last loss and at pp=2 bitwise (losses
+    and checkpointed params)."""
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    from akka_allreduce_tpu_torch.runtime.checkpoint import (
+        CheckpointConfig, CheckpointManager)
+    base = TRAIN_TINY + ["--batch", "4"]
+    pp2 = ["--pp", "2", "--microbatches", "2"]
+    one, two, part = (str(tmp_path / n) for n in ("one", "two", "part"))
+    r1 = cli.run_train(cli.build_parser().parse_args(
+        base + ["--ckpt-dir", one]))
+    r2 = cli.run_train(cli.build_parser().parse_args(
+        base + pp2 + ["--ckpt-dir", two, "--ckpt-every", "1"]))
+    np.testing.assert_allclose(r2["losses"], r1["losses"], rtol=1e-5)
+    cfg = cli.train_config(cli.build_parser().parse_args(base), 24).model
+    like = init_transformer(torch.Generator().manual_seed(0), cfg)
+
+    def restored(path):
+        return tree_leaves(CheckpointManager(CheckpointConfig(path))
+                           .restore_params(like)[1])
+    for a, b in zip(restored(two), restored(one)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    tokens = []
+    for path in (two, one):
+        capfd.readouterr()
+        assert cli.main(["generate", "--device", "cpu", "--ckpt-dir", path,
+                         "--vocab", "61", "--d-model", "64", "--n-heads",
+                         "4", "--kv-heads", "2", "--rope", "--d-ff", "128",
+                         "--max-seq", "24", "--prompt-tokens", "1,2",
+                         "--tokens", "6"]) == 0
+        tokens.append(capfd.readouterr().out.strip().splitlines()[-1])
+    assert tokens[0] == tokens[1] and len(tokens[0].split(",")) == 6
+    import shutil
+    shutil.copytree(two, part)
+    shutil.rmtree(os.path.join(part, "2"))
+    at_one = cli.run_train(cli.build_parser().parse_args(
+        base + ["--ckpt-dir", part]))
+    assert at_one["config"]["start_step"] == 2
+    np.testing.assert_allclose(at_one["losses"], r2["losses"][2:],
+                               rtol=1e-5)
+    shutil.rmtree(part)
+    shutil.copytree(two, part)
+    shutil.rmtree(os.path.join(part, "2"))
+    at_two = cli.run_train(cli.build_parser().parse_args(
+        base + pp2 + ["--ckpt-dir", part]))
+    assert at_two["config"]["start_step"] == 2
+    assert at_two["losses"] == r2["losses"][2:]
+    for a, b in zip(restored(part), restored(two)):
+        assert torch.equal(a, b)
+
+
+def test_pp_stacked_jax_train_state_converts_to_the_ports(tmp_path):
+    """A JAX training checkpoint of a pp=2 run (its layers stacked: the
+    params and adafactor's stacked ``v_row`` / ``v_col``) goes through
+    ``convert.train_state_from_jax`` into the list layout, and equals
+    the port's own state after the same step at pp=2 (``full_layout``),
+    from the same weights and batch: params within 1e-5, moments within
+    1e-4 relative, the counts equal."""
+    import importlib.util
+
+    import jax
+    import jax.numpy as jnp
+
+    from akka_allreduce_tpu.models import train as jtrain
+    from akka_allreduce_tpu.models import transformer as jtf
+    from akka_allreduce_tpu.parallel.mesh import MeshSpec, make_device_mesh
+    from akka_allreduce_tpu.parallel.pp import unstack_layer_params
+    from akka_allreduce_tpu.runtime.checkpoint import (CheckpointConfig,
+                                                       CheckpointManager)
+    from akka_allreduce_tpu_torch import convert
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
+
+    from torch_pp_ranks import mesh_cases
+    model = dict(vocab_size=256, d_model=128, n_heads=4, n_layers=2,
+                 d_ff=256, max_seq=16)
+    kw = dict(bucket_elems=256, optimizer="adafactor", learning_rate=1e-2,
+              attn_impl="local", microbatches=2)
+    tokens = np.random.default_rng(0).integers(0, 256, size=(4, 16),
+                                               dtype=np.int32)
+    mesh = make_device_mesh(MeshSpec(pp=2), devices=jax.devices()[:2])
+    jcfg = jtrain.TrainConfig(model=jtf.TransformerConfig(**model), **kw)
+    params, opt_state, opt = jtrain.make_train_state(jax.random.key(0),
+                                                     jcfg, mesh)
+    init = jax.tree.map(np.asarray, dict(params, layers=unstack_layer_params(
+        params["layers"], model["n_layers"])))
+    step = jtrain.make_train_step(jcfg, mesh, opt, donate=False)
+    params, opt_state, _ = step(params, opt_state, jnp.asarray(tokens))
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path / "jax")))
+    mgr.save(0, params, opt_state, {"data_step": 0}, force=True)
+    mgr.wait_until_finished()
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" \
+        / "orbax_to_torch.py"
+    spec = importlib.util.spec_from_file_location("orbax_to_torch", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    _, items = script.read_orbax_step(str(tmp_path / "jax"))
+    assert isinstance(items["params"]["layers"], dict)  # stacked
+    cfg = cli.train_config(cli.build_parser().parse_args(
+        ["train", "--optimizer", "adafactor", "--d-model", "128",
+         "--vocab", "256", "--d-ff", "256", "--n-layers", "2",
+         "--bucket-elems", "256"]), 16)
+    conv = convert.train_state_from_jax(items, cfg)
+    port = spawn_ranks(mesh_cases, 2, "gloo", "cpu", [
+        ("train_state_case", {"pp": 2}, (model, kw, init, tokens))])[0][0]
+    for a, b in zip(tree_leaves(conv["params"]),
+                    tree_leaves(port["params"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    got, want = conv["opt_state"]["optimizer"], port["opt"]
+    assert conv["opt_state"]["count"] == 1
+    assert [g["params"] for g in got["param_groups"]] == [
+        g["params"] for g in want["param_groups"]]
+    assert sorted(got["state"]) == sorted(want["state"])
+    for j, per in want["state"].items():
+        assert sorted(got["state"][j]) == sorted(per)
+        for k, v in per.items():
+            if v.dim():
+                np.testing.assert_allclose(
+                    got["state"][j][k].numpy(), v.numpy(), rtol=1e-4,
+                    atol=1e-4 * float(v.abs().max()), err_msg=f"{j} {k}")
+            else:
+                assert float(got["state"][j][k]) == float(v)

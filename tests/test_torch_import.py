@@ -4,6 +4,7 @@ Three pins: a fresh interpreter imports every module of
 ``akka_allreduce_tpu_torch`` (the CLI, the gradient sync's, the ring
 attention's, the peer-memory allreduce's, the round pacer's, the
 deadline trainer's, the collective autotuner's, the rank transport's,
+the pipeline schedules',
 the bench rows' and the protocol plane's modules included, the
 optimizer families, the MLP and the telemetry's, the serving fault
 injection and preemption watcher, the wire
@@ -51,6 +52,7 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.runtime.preempt",
             "akka_allreduce_tpu_torch.parallel.group",
             "akka_allreduce_tpu_torch.parallel.dp",
+            "akka_allreduce_tpu_torch.parallel.pp",
             "akka_allreduce_tpu_torch.ops.bucketing",
             "akka_allreduce_tpu_torch.ops.masked",
             "akka_allreduce_tpu_torch.ops.collectives",
