@@ -49,9 +49,10 @@ exactly over each sp line and on the ef8 wire over each dp line;
 startup and keeps the plan in ``--plan-dir`` (``ops/autotune.py``). With
 ``--deadline-ms`` a
 data rank that misses a round's deadline is masked out of that round's
-sync (``runtime/straggler.py``); ``--straggle-prob`` simulates late
-ranks from each step's seeded generator, and ``--max-lag`` bounds the
-rounds in flight::
+sync (``runtime/straggler.py``; on a tp / ep / pp mesh every model
+rank of a data rank sends its row, and the expert sync stays exact);
+``--straggle-prob`` simulates late ranks from each step's seeded
+generator, and ``--max-lag`` bounds the rounds in flight::
 
     python -m akka_allreduce_tpu_torch.cli train --d-model 2048 \\
         --n-heads 16 --n-layers 8 --d-ff 8192 --vocab 32768 --seq 2048 \\
@@ -65,7 +66,8 @@ adamw | lion | adafactor | sgd``), keeps EMA weights (``--ema-decay``,
 saved as the checkpoint's ``ema`` item), accumulates on the overlapped
 schedule (``--grad-accum K --accum-schedule overlap``), runs ``N`` steps
 a dispatch as one CUDA graph replay (``--steps-per-dispatch N``; across
-ranks with ``--dist-backend ipc``), writes a Prometheus metrics snapshot
+ranks with ``--dist-backend ipc``, on any dp / sp / tp / ep / pp mesh),
+writes a Prometheus metrics snapshot
 (``--metrics-file``) and a ``torch.profiler`` device trace
 (``--xprof-dir``). ``generate`` decodes
 from a checkpoint — greedily, sampled (``--temperature --top-k --top-p
@@ -478,8 +480,9 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                    help="run N train steps per host dispatch: on the card "
                         "one CUDA graph holding N steps, replayed once a "
                         "chunk (models/train.py make_multi_step; across "
-                        "ranks the gradient sync and the ring exchanges "
-                        "inside it, on --dist-backend ipc only); on the "
+                        "ranks the gradient syncs, the ring exchanges and "
+                        "the tp / ep / pp collectives inside it, on "
+                        "--dist-backend ipc only); on the "
                         "cpu the same steps in a loop. Exact path only "
                         "(no --deadline-ms); a tail shorter than N runs "
                         "step by step; checkpoints land at chunk "
@@ -494,7 +497,9 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--deadline-ms", type=float, default=0,
                    help="per-round straggler deadline: data ranks whose "
                         "contribution misses it are masked that round and "
-                        "the mean is count-rescaled (dynamic lossy sync)")
+                        "the mean is count-rescaled (dynamic lossy sync of "
+                        "the dense gradients; an ep run's expert sync "
+                        "stays exact)")
     p.add_argument("--straggle-prob", type=float, default=0.0,
                    help="simulated probability per data rank per round of "
                         "missing the deadline (demo/testing; real "
@@ -2031,16 +2036,6 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     if args.microbatches < 0:
         raise ValueError(f"--microbatches must be >= 0 (0 = --pp), got "
                          f"{args.microbatches}")
-    sharded = args.tp > 1 or args.ep > 1 or args.pp > 1
-    if sharded and args.deadline_ms > 0:
-        raise NotImplementedError(
-            "--deadline-ms with --tp, --ep or --pp > 1 is not ported yet "
-            "(ROADMAP A7 part 3)")
-    if sharded and args.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "--steps-per-dispatch > 1 with --tp, --ep or --pp > 1 is not "
-            "ported yet (ROADMAP A7 part 3: its ipc capture is checked for "
-            "the dp and sp collectives only)")
     if args.grad_windows < 1:
         raise ValueError(f"--grad-windows must be >= 1, got "
                          f"{args.grad_windows}")
@@ -2452,8 +2447,8 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             multi = make_multi_step(cfg, spd, group)
             _train_chunks(args, state, multi, build_batch, device, start,
                           mgr, xprof, telem, log, on_step,
-                          (losses, step_ms, min_counts, dispatched, clocks),
-                          group)
+                          (losses, step_ms, min_counts, dispatched, clocks,
+                           transfer_ms), group, saved_layout)
             first = args.steps
         for i in range(first, args.steps):
             xprof.tick(i)
@@ -2608,9 +2603,16 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                                         else tcap.stream_waits),
             "transport_per_replay": (None if tcap is None
                                      else dict(tcap.per_replay)),
-            # the attention's exchanges are timed on eager steps only: a
-            # replay's run inside its graph, untimed
-            "attn_exchange_ms": "eager steps only"}
+            # a replay's calls and stream waits on each buffer (the
+            # world's, each axis line's and each sync's sub-mesh's)
+            "transport_lines_per_replay": (None if tcap is None
+                                           else tcap.by_line()),
+            # the attention's exchanges and the transfers along pp are
+            # timed on eager steps only (the capture's warm-up, a tail):
+            # a replay's run inside its graph, untimed
+            "attn_exchange_ms": "eager steps only",
+            "pp_transfer_ms": "eager steps only"}
+        multi.close()  # the graph's memory back before the next run
     if plan_report is not None:
         report["collective_plan"] = plan_report
     if trainer is not None:
@@ -2688,16 +2690,23 @@ def _state_bytes(optimizer) -> int:
 
 
 def _train_chunks(args, state, multi, build_batch, device, start, mgr,
-                  xprof, telem, log, on_step, sinks, group=None) -> None:
+                  xprof, telem, log, on_step, sinks, group,
+                  layout) -> None:
     """``--steps-per-dispatch``'s loop (the JAX command's chunked path):
     a full chunk of N steps is one dispatch (``multi``: one CUDA graph
     replay on the card), a tail shorter than N runs step by step; the
     trace window ticks at chunk starts; a checkpoint is forced at a
-    chunk's end whenever the chunk crossed a ``--ckpt-every`` line.
-    Fills ``sinks`` (losses, step ms, min counts, dispatch times, clocks)
-    as the per-step loop does; ``clocks["wall_s"]`` is the wall time a
-    step from the second dispatch to the last read."""
-    losses, step_ms, min_counts, dispatched, clocks = sinks
+    chunk's end whenever the chunk crossed a ``--ckpt-every`` line
+    (``layout()``: the (params, optimizer state, EMA) it saves, the full
+    layout on a tp / ep / pp mesh). Fills ``sinks`` (losses, step ms,
+    min counts, dispatch times, clocks, and at pp > 1 the ms of the
+    transfers along pp of each eager step: the capture's warm-up and the
+    tail; a replay's are not timed) as the per-step loop does;
+    ``clocks["wall_s"]`` is the wall time a step from the second
+    dispatch to the last read."""
+    from akka_allreduce_tpu_torch.models.train import elapsed_ms
+    from akka_allreduce_tpu_torch.parallel import pp as pipeline
+    losses, step_ms, min_counts, dispatched, clocks, transfer_ms = sinks
     spd, log_every = multi.n, max(1, args.log_every)
     marks = []  # (dispatch start, steps in it)
     window, tic = 0, time.perf_counter()
@@ -2722,6 +2731,10 @@ def _train_chunks(args, state, multi, build_batch, device, start, mgr,
                     loss_now = float(ms["loss"][-1])
             telem.on_step(piece.numel(), loss=loss_now, steps=k)
             losses.extend(ms["loss"].tolist())  # waits for the dispatch
+            if pipeline.TRANSFER_MARKS:  # the eager steps' transfers
+                transfer_ms.append(sum(elapsed_ms(*m_)
+                                       for m_ in pipeline.TRANSFER_MARKS))
+                pipeline.TRANSFER_MARKS.clear()
             now = time.perf_counter()
             step_ms.extend([(now - t0) * 1e3 / k] * k)
             min_counts.extend(int(c) for c in ms["min_bucket_count"])
@@ -2732,9 +2745,9 @@ def _train_chunks(args, state, multi, build_batch, device, start, mgr,
         # --ckpt-every 0 is save-every-chunk (an interval of 1)
         every = max(1, args.ckpt_every)
         if mgr is not None and i // every != (last + 1) // every:
-            mgr.save(last, state.params, _opt_state(state),
-                     {"data_step": last}, force=True, sync=state.residual,
-                     group=group, ema=state.ema)
+            params_, opt_, ema_ = layout()
+            mgr.save(last, params_, opt_, {"data_step": last}, force=True,
+                     sync=state.residual, group=group, ema=ema_)
         window += n
         if i == start or i // log_every != (last + 1) // log_every:
             toks = float(ms["tokens"][-1])

@@ -12,7 +12,8 @@ template-free from orbax (``scripts/orbax_to_torch.py`` reads them where
 JAX is installed; here they are numpy trees), to what the port's
 ``runtime/checkpoint.py`` restores: the params, the optimizer chain's
 state as the port optimizer's ``state_dict()`` and the step count, the
-EMA weights, each rank's ef8 residual and the ``extra`` dict.
+EMA weights, each rank's ef8 residual (its shard's or stage's plane,
+in the port's rank order, on any mesh) and the ``extra`` dict.
 
 :func:`buffer_state_from_numpy` carries a protocol staging buffer's
 state (the numpy ring of the JAX host plane, its counts and its offset)
@@ -183,16 +184,21 @@ def shard_params(full: dict, cfg, group) -> dict:
     layers are stacked (``full``'s layers a list, or a stacked dict of
     all ``L``)."""
     _check_mesh(cfg, group)
+    return _shard(full, cfg.n_layers, group)
+
+
+def _shard(full: dict, n_layers: int, group) -> dict:
+    """:func:`shard_params` past its checks, for ``n_layers`` layers."""
     out = {k: v for k, v in full.items() if k != "layers"}
     layers = full["layers"]
     if isinstance(layers, dict):
-        layers = unstack_layer_params(layers, cfg.n_layers)
+        layers = unstack_layer_params(layers, n_layers)
     if group.axis_size("pp") == 1:
         out["layers"] = [{k: shard_leaf(k, v, group)
                           for k, v in layer.items()} for layer in layers]
         return out
     stacked = stack_layer_params(
-        [layers[i] for i in stage_layers(cfg.n_layers, group)])
+        [layers[i] for i in stage_layers(n_layers, group)])
     out["layers"] = {k: shard_leaf(k, v, group, stacked=True)
                      for k, v in stacked.items()}
     return out
@@ -394,20 +400,115 @@ def unstack_jax_items(items: dict) -> dict:
     return out
 
 
-def train_state_from_jax(items: dict, cfg, device="cpu") -> dict:
+# the JAX ``_ef_state_axes`` order: the axes a run's ef8 planes stack over
+JAX_PLANE_AXES = ("dp", "sp", "ep", "tp", "pp")
+
+
+def jax_plane_index(group) -> int:
+    """The index, in a JAX run's stacked ef8 residual, of the plane of
+    the port rank ``group.rank`` on ``group``'s mesh: JAX stacks the
+    planes row-major over ``(dp, sp, ep, tp, pp)`` (``_ef_state_axes``),
+    the port numbers its ranks row-major over ``(pp, dp, ep, sp, tp)``
+    (``parallel/group.py``)."""
+    index = 0
+    for axis in JAX_PLANE_AXES:
+        index = index * group.axis_size(axis) + group.axis_index(axis)
+    return index
+
+
+def _rank_bucket_counts(params: dict, cfg, group) -> dict:
+    """Bucket counts of the rank's dense and expert gradient trees (its
+    shard of the full list-layout ``params``, a pp stage's layers
+    stacked; shapes only): the rows of its ef8 planes."""
+    from akka_allreduce_tpu_torch.models.train import (_has_experts,
+                                                       dense_bucket_count,
+                                                       expert_bucket_count)
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_map
+    meta = tree_map(lambda p: torch.empty(p.shape, device="meta"), params)
+    shard = _shard(meta, len(meta["layers"]), group)
+    counts = {"dense": dense_bucket_count(cfg, shard)}
+    if _has_experts(shard):
+        counts["expert"] = expert_bucket_count(cfg, shard)
+    return counts
+
+
+MESH_FLAGS = "--dp --sp --ep --tp --pp"
+
+
+def sync_planes_from_jax(residual, params: dict, cfg, mesh: dict,
+                         device="cpu") -> list:
+    """A JAX run's ef8 ``sync`` residual -> each port rank's, in the
+    port's rank order on the mesh ``mesh`` (``{"dp", "sp", "ep", "tp",
+    "pp"}`` sizes, 1 where absent): rank r takes the JAX plane
+    :func:`jax_plane_index` names. ``residual`` is one ``(ranks,
+    num_buckets, bucket_elems)`` array, or an MoE run's ``{"dense",
+    "expert"}`` of two; each plane must have the row count of that
+    rank's shard or stage at ``cfg.bucket_elems`` (the JAX
+    ``dense_bucket_count`` / ``expert_bucket_count`` at that mesh).
+    Raises ``ValueError`` naming the mesh flags when the planes do not
+    fit the mesh."""
+    from akka_allreduce_tpu_torch.parallel.group import RankGroup
+    bucket_elems = cfg.bucket_elems
+    sizes = {a: int(mesh.get(a, 1)) for a in JAX_PLANE_AXES}
+    world = int(np.prod(list(sizes.values())))
+    named = " ".join(f"--{a} {n}" for a, n in sizes.items())
+    stacks = ({k: np.asarray(v, dtype=np.float32)
+               for k, v in residual.items()}
+              if isinstance(residual, dict)
+              else {"dense": np.asarray(residual, dtype=np.float32)})
+    out = []
+    for rank in range(world):
+        group = RankGroup(rank, world, "gloo", torch.device("cpu"),
+                          sizes["sp"], ep=sizes["ep"], tp=sizes["tp"],
+                          pp=sizes["pp"])
+        try:
+            counts = _rank_bucket_counts(params, cfg, group)
+        except ValueError as exc:
+            raise ValueError(f"the model does not split over the mesh "
+                             f"{named} ({MESH_FLAGS}): {exc}") from exc
+        if set(counts) != set(stacks):
+            raise ValueError(
+                f"the ef8 residual holds the planes {sorted(stacks)}; a "
+                f"{'MoE' if 'expert' in counts else 'dense'} model's are "
+                f"{sorted(counts)}")
+        j = jax_plane_index(group)
+        planes = {}
+        for k, stack in stacks.items():
+            want = (counts[k], bucket_elems)
+            if (stack.ndim != 3 or stack.shape[0] != world
+                    or stack.shape[1:] != want):
+                raise ValueError(
+                    f"the ef8 residual's {k} planes are {stack.shape}; at "
+                    f"{named} ({MESH_FLAGS}, the mesh of the run that "
+                    f"wrote it) rank {rank}'s are ({world},) + {want} "
+                    f"(--bucket-elems {bucket_elems})")
+            planes[k] = torch.from_numpy(stack[j].copy()).to(device)
+        out.append(planes if isinstance(residual, dict)
+                   else planes["dense"])
+    return out
+
+
+def train_state_from_jax(items: dict, cfg, device="cpu",
+                         mesh: Optional[dict] = None) -> dict:
     """A JAX training checkpoint step -> the port's checkpoint items.
     ``items`` are the orbax items as numpy trees (template-free:
     ``params``, ``opt_state``, optionally ``ema``, ``sync``, ``extra``);
     ``cfg`` the port ``TrainConfig`` of the run that resumes (its
-    optimizer family, clip, EMA, sgd momentum and bucket size). Returns
+    optimizer family, clip, EMA, sgd momentum and bucket size); ``mesh``
+    the ``{"dp", "sp", "ep", "tp", "pp"}`` sizes of the run that wrote
+    it (``dp`` by default the planes left by the others). Returns
     ``params`` (torch, on ``device``), ``opt_state`` (as the port's
     checkpoint keeps it: ``{"optimizer": state_dict, "count": steps}``),
     ``ema`` (the ``ema`` item, or the chain's EMA slot; None without
-    ``ema_decay``), ``sync`` (each rank's ef8 residual, the JAX item's
-    planes; None without one) and ``extra``. A pp-stacked checkpoint
-    comes back in the list layout (:func:`unstack_jax_items`), which is
-    what the port's checkpoint holds at any ``pp``. Raises
-    ``ValueError`` naming what is missing or does not match."""
+    ``ema_decay``), ``sync`` (each port rank's ef8 residual, its shard's
+    or stage's plane of the JAX item — an MoE run's ``{"dense",
+    "expert"}`` planes — in the port's rank order,
+    :func:`sync_planes_from_jax`; None without one) and ``extra``. A
+    pp-stacked checkpoint comes back in the list layout
+    (:func:`unstack_jax_items`), which is what the port's checkpoint
+    holds at any ``pp``. The residual resumes at the mesh that wrote
+    it, as JAX's does. Raises ``ValueError`` naming what is missing or
+    does not match."""
     items = unstack_jax_items(items)
     held = sorted(k for k, v in items.items() if v is not None)
     missing = [k for k in ("params", "opt_state") if k not in held]
@@ -425,15 +526,15 @@ def train_state_from_jax(items: dict, cfg, device="cpu") -> dict:
         ema = params_from_jax(tree, device)
     sync = None
     if items.get("sync") is not None:
-        from akka_allreduce_tpu_torch.models.train import dense_bucket_count
-        planes = np.asarray(items["sync"]["residual"], dtype=np.float32)
-        want = (dense_bucket_count(cfg, params), cfg.bucket_elems)
-        if planes.ndim != 3 or planes.shape[1:] != want:
-            raise ValueError(f"the ef8 residual is {planes.shape}; this "
-                             f"run's is (ranks,) + {want} (--bucket-elems "
-                             f"{cfg.bucket_elems})")
-        sync = [torch.from_numpy(plane.copy()).to(device)
-                for plane in planes]
+        residual = items["sync"]["residual"]
+        mesh = dict(mesh or {})
+        if "dp" not in mesh:  # the planes left by the other axes
+            first = (next(iter(residual.values()))
+                     if isinstance(residual, dict) else residual)
+            rest = int(np.prod([mesh.get(a, 1) for a in JAX_PLANE_AXES]))
+            mesh["dp"] = max(1, (int(np.shape(first)[0])
+                                 if np.ndim(first) else 1) // rest)
+        sync = sync_planes_from_jax(residual, params, cfg, mesh, device)
     return {"params": params, "opt_state": opt_state, "ema": ema,
             "sync": sync, "extra": dict(items.get("extra") or {})}
 

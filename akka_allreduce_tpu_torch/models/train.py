@@ -52,12 +52,16 @@ does:
   own sync), threaded through every step;
 * with ``dynamic_valid=True`` the step takes the round's contribution
   mask, the JAX ``(n_data_ranks, num_buckets)`` f32 array with rows in
-  the data-axis order (dp-major, then sp: a rank's row is its global
-  rank), and each rank hands its own row to the sync; masked buckets
-  contribute exact zeros and the counts report the gap
+  the dense sync's order (dp-major, then sp, then ep: a rank's row is
+  its rank in that sub-mesh; every tp shard and pp stage of a data rank
+  sends the same row, the JAX ``P(dense_axes, None)``), and each rank
+  hands its own row to the dense sync, after the pp sum of the
+  non-layer gradients; masked buckets contribute exact zeros and the
+  counts report the gap; the expert sync stays exact
   (``runtime/straggler.py`` builds the masks from deadlines; on the
-  hierarchical schedule the rows of one ``sp`` line must agree, which
-  its ``DeadlineTrainer`` holds when given :func:`mask_line`).
+  hierarchical schedule the rows of one line of its ICI axis must
+  agree, which its ``DeadlineTrainer`` holds when given
+  :func:`mask_line`).
 
 A sync over one rank is the identity and is skipped, as the JAX step's
 reduces over size-1 mesh axes; ``min_bucket_count`` is then 1.
@@ -91,9 +95,10 @@ PyTorch idiom in place of the JAX package's pure functions:
   current stream, so on the card nothing hides behind the next
   microbatch yet;
 * :func:`make_multi_step` runs ``N`` steps a dispatch (the JAX
-  ``lax.scan`` chunk) on one rank or many: on the card one CUDA graph
-  replay a chunk (across ranks on the ``ipc`` transport), on the CPU the
-  same steps in a loop.
+  ``lax.scan`` chunk) on one rank or many, on any mesh: on the card one
+  CUDA graph replay a chunk (across ranks on the ``ipc`` transport; the
+  tp sums, the ep exchanges, the pp transfers and the pipeline's
+  hand-run backward inside it), on the CPU the same steps in a loop.
 """
 
 from __future__ import annotations
@@ -846,6 +851,10 @@ def dense_bucket_count(cfg: TrainConfig, params: dict) -> int:
 
 
 def _has_experts(params: dict) -> bool:
+    """Whether ``params`` (the list layout or a pp stage's stacked
+    layers) holds expert leaves."""
+    if _stacked(params):
+        return "we1" in params["layers"]
     return any("we1" in layer for layer in params["layers"])
 
 
@@ -870,16 +879,17 @@ def _mask_row(valid, rank: int, world: int, device: torch.device
 
 
 def mask_line(cfg: TrainConfig, group: Optional[RankGroup]) -> int:
-    """How many consecutive data ranks must share a round's mask row:
-    the ``sp`` line on the hierarchical schedule (ef8 over two live axes,
-    flagged, or "auto", whose only arm and fallback there is
-    hierarchical), whose ICI leg needs the line's masks to agree; else
-    1."""
+    """How many consecutive data ranks must share a round's mask row: on
+    the hierarchical schedule (ef8 over two live data axes, flagged, or
+    "auto", whose only arm and fallback there is hierarchical) the size
+    of the dense group's last live axis, the line its exact ICI leg runs
+    on (``parallel/dp.py``: ``sp`` at dp x sp, ``ep`` at dp x ep or sp x
+    ep), whose masks must agree; else 1."""
     if (group is None or cfg.grad_transport != "ef8"
-            or cfg.transport_schedule not in ("hierarchical", "auto")
-            or group.axis_size("dp") == 1):
+            or cfg.transport_schedule not in ("hierarchical", "auto")):
         return 1
-    return group.axis_size("sp")
+    live = [a for a in data_axes(cfg, group) if group.axis_size(a) > 1]
+    return group.axis_size(live[-1]) if len(live) == 2 else 1
 
 
 def fold_in_flight(acc: Optional[list], fly: list) -> list:
@@ -913,10 +923,11 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
 
     ``dynamic_valid=True`` makes ``valid`` required: the round's
     ``(data_rank_count, num_buckets)`` f32 mask, of which this rank
-    sends its own row (its rank in the dense sync's order) to the dense
-    sync; a new mask every round changes nothing else.
-    ``min_bucket_count`` is then the smallest count over the buckets,
-    exact on every rank.
+    sends its own row (its rank in the dense sync's order; every tp
+    shard and pp stage of a data rank the same row) to the dense sync;
+    a new mask every round changes nothing else, and an MoE model's
+    expert sync stays exact. ``min_bucket_count`` is then the smallest
+    count over the buckets of both syncs, exact on every rank.
 
     On a mesh with tp / ep (see the module docstring) ``params`` are this
     rank's shard, the tokens its rows of the batch (sharded over ``(dp,
@@ -940,10 +951,6 @@ def make_grad_step(cfg: TrainConfig, group: Optional[RankGroup] = None,
     check_supported(cfg)
     mcfg = cfg.model
     check_mesh(cfg, group)
-    if dynamic_valid and group is not None and group.axis_size("pp") > 1:
-        raise NotImplementedError(
-            "a per-round valid mask (deadlines) with pp > 1 is not ported "
-            "yet (ROADMAP A7 part 3)")
     has_sp = group is not None and group.axis_size("sp") > 1
     attn = (select_ring_attention(cfg, group) if has_sp
             else select_local_attention(cfg))
@@ -1396,10 +1403,6 @@ class _MultiStep:
                  group: Optional[RankGroup] = None):
         if n < 1:
             raise ValueError(f"steps per dispatch must be >= 1, got {n}")
-        if group is not None and group.axis_size("pp") > 1:
-            raise NotImplementedError(
-                "a multi-step graph with pp > 1 is not ported yet (ROADMAP "
-                "A7 part 3: the pipeline's backward loop runs on the host)")
         self.cfg, self.n, self.group = cfg, n, group
         self.ranks = group is not None and group.world > 1
         self._step = make_train_step(cfg, group)
@@ -1419,6 +1422,14 @@ class _MultiStep:
         """The transport's capture record (``transport.Captured``: calls,
         stream waits and copies a replay), or None."""
         return None if self._captured is None else self._captured[3]
+
+    def close(self) -> None:
+        """Release the captured graph and its memory pool (the chunk's
+        key generators hold the graph, so dropping the runner alone may
+        not free it); the next full chunk captures anew."""
+        if self._captured is not None:
+            self._captured[0].reset()
+        self._captured, self._state = None, None
 
     def __call__(self, state: TrainState, tokens: torch.Tensor) -> dict:
         if state.count is None:
@@ -1543,8 +1554,11 @@ def make_multi_step(cfg: TrainConfig, n: int,
     that holds the ``n`` steps, captured at the first such chunk after
     one eager warm-up step that is then undone (the residual and the
     device count too); it replays only on the state it captured. Across
-    ranks the graph holds the ``ipc`` transport's calls (gloo and nccl
-    refuse), and each replay starts with ``RankGroup.replay_boundary``
+    ranks the graph holds the ``ipc`` transport's calls on every buffer
+    the step uses (the syncs' sub-meshes, the tp, ep and pp lines; gloo
+    and nccl refuse); at pp > 1 it holds the pipeline's forward ticks
+    and its written-out backward (gpipe) or its fused ring (1f1b). Each
+    replay starts with ``RankGroup.replay_boundary``
     (drain, barrier, the counters rewound, barrier) and the chunk's
     rounding seeds written for its steps (``ops/collectives.py
     ChunkKeys``), so every replay is bitwise the eager steps. A graph

@@ -254,9 +254,10 @@ def rank_plan(sends: list, recvs: list, pair_bytes: int, sent: dict,
 
 
 class _Emulation:
-    """The transport's schedule for n simulated ranks on numpy bytes: every
-    rank's slots, the halves' occupants, the counters and the host
-    mirrors (``sent``, ``received``) that :func:`rank_plan` reads."""
+    """One buffer of the transport's schedule for the n simulated ranks
+    of a line, on numpy bytes: every rank's slots, the halves'
+    occupants, the counters and the host mirrors (``sent``,
+    ``received``) that :func:`rank_plan` reads."""
 
     def __init__(self, n: int, chunk: int):
         peers = max(n - 1, 1)
@@ -268,52 +269,49 @@ class _Emulation:
         self.sent = [dict.fromkeys(range(n), 0) for _ in range(n)]
         self.received = [dict.fromkeys(range(n), 0) for _ in range(n)]
 
-    def enqueue(self, calls: list) -> "tuple[list, list]":
-        """Every rank's ops of ``calls`` in its stream order (the host
-        mirrors advance as each call is planned), and per call the n
-        output buffers they fill."""
+    def enqueue(self, kind: str, xs: list, kwargs: dict
+                ) -> "tuple[list, list]":
+        """Every rank's ops of one call in its stream order, as ``(self,
+        rank, op, src, out, routes)`` (the host mirrors advance as the
+        call is planned), and the n outputs it fills."""
         n, chunk = self.n, self.chunk
         streams: list = [[] for _ in range(n)]
-        results = []
-        for kind, xs, kwargs in calls:
-            outs = []
-            for r in range(n):
-                x = np.ascontiguousarray(xs[r])
-                src = x.reshape(-1).view(np.uint8)
-                if (kind == "exchange" and kwargs["peers"][r] == r) or (
-                        kind == "ppermute" and kwargs["shift"] % n == 0):
-                    outs.append((src.copy(), x.dtype, x.shape))  # no call
-                    continue
-                rt = routes(kind, r, n, src.size,
-                            peer=kwargs.get("peers", [0] * n)[r],
-                            shift=kwargs.get("shift", 0))
-                out = np.zeros(rt["out_bytes"], np.uint8)
-                for a, b, nb in rt["local"]:
-                    out[b:b + nb] = src[a:a + nb]
-                ops = rank_plan([p for p, _ in rt["sends"]],
-                                [p for p, _ in rt["recvs"]],
-                                rt["pair_bytes"], self.sent[r],
-                                self.received[r], chunk)
-                streams[r] += [(op, src, out, rt) for op in ops]
-                for p, _ in rt["sends"]:
-                    self.sent[r][p] += chunk_count(rt["pair_bytes"], chunk)
-                for p, _ in rt["recvs"]:
-                    self.received[r][p] += chunk_count(rt["pair_bytes"],
-                                                       chunk)
-                shape = ((n * x.shape[0],) + x.shape[1:]
-                         if kind == "all_gather" else x.shape)
-                outs.append((out, x.dtype, shape))
-            results.append(outs)
-        return streams, results
+        outs = []
+        for r in range(n):
+            x = np.ascontiguousarray(xs[r])
+            src = x.reshape(-1).view(np.uint8)
+            if (kind == "exchange" and kwargs["peers"][r] == r) or (
+                    kind == "ppermute" and kwargs["shift"] % n == 0):
+                outs.append((src.copy(), x.dtype, x.shape))  # no call
+                continue
+            rt = routes(kind, r, n, src.size,
+                        peer=kwargs.get("peers", [0] * n)[r],
+                        shift=kwargs.get("shift", 0))
+            out = np.zeros(rt["out_bytes"], np.uint8)
+            for a, b, nb in rt["local"]:
+                out[b:b + nb] = src[a:a + nb]
+            ops = rank_plan([p for p, _ in rt["sends"]],
+                            [p for p, _ in rt["recvs"]],
+                            rt["pair_bytes"], self.sent[r],
+                            self.received[r], chunk)
+            streams[r] += [(self, r, op, src, out, rt) for op in ops]
+            for p, _ in rt["sends"]:
+                self.sent[r][p] += chunk_count(rt["pair_bytes"], chunk)
+            for p, _ in rt["recvs"]:
+                self.received[r][p] += chunk_count(rt["pair_bytes"], chunk)
+            shape = ((n * x.shape[0],) + x.shape[1:]
+                     if kind == "all_gather" else x.shape)
+            outs.append((out, x.dtype, shape))
+        return streams, outs
 
-    def _runnable(self, r: int, op) -> bool:
+    def runnable(self, r: int, op) -> bool:
         if op[0] != "wait":
             return True
         _, which, p, v = op
         table = self.ready if which == "ready" else self.consumed
         return table[r, slot(p, r, self.n)] >= v
 
-    def _run(self, r: int, op, src, out, rt) -> None:
+    def run(self, r: int, op, src, out, rt) -> None:
         n, chunk = self.n, self.chunk
         kind, c = op[0], op[1]
         lo, hi = chunk_ranges(rt["pair_bytes"], chunk)[c]
@@ -341,6 +339,48 @@ class _Emulation:
                 q = slot(r, p, n)
                 self.consumed[p, q] = max(self.consumed[p, q], g + 1)
 
+    def mirrors(self) -> tuple:
+        """The host mirrors and counters, copied (a capture's base)."""
+        return ([dict(d) for d in self.sent],
+                [dict(d) for d in self.received], self.ready.copy(),
+                self.consumed.copy())
+
+
+class _Mesh:
+    """The transport's buffers of ``n`` simulated ranks: one
+    :class:`_Emulation` a line (the tuple of the global ranks of a group
+    or of an axis line), made on first use."""
+
+    def __init__(self, n: int, chunk: int):
+        self.n, self.chunk = n, chunk
+        self.wires: dict = {}
+
+    def enqueue(self, calls: list) -> "tuple[list, list]":
+        """Every rank's ops of ``calls`` in its stream order, and per call
+        the n outputs they fill (global rank order). A call's
+        ``kwargs["lines"]`` (default: the world) are the lines it runs
+        on, each on its own buffer; ``peers`` of an exchange index a
+        rank's own line."""
+        streams: list = [[] for _ in range(self.n)]
+        results = []
+        for kind, xs, kwargs in calls:
+            lines = kwargs.get("lines") or [tuple(range(self.n))]
+            outs: list = [None] * self.n
+            for line in map(tuple, lines):
+                wire = self.wires.get(line)
+                if wire is None:
+                    wire = self.wires[line] = _Emulation(len(line),
+                                                         self.chunk)
+                kw = {k: v for k, v in kwargs.items() if k != "lines"}
+                if "peers" in kw:
+                    kw["peers"] = [kw["peers"][g] for g in line]
+                sub, got = wire.enqueue(kind, [xs[g] for g in line], kw)
+                for i, g in enumerate(line):
+                    streams[g] += sub[i]
+                    outs[g] = got[i]
+            results.append(outs)
+        return streams, results
+
     def drain(self, streams: list, rng) -> None:
         """Run every rank's ops: at each step one rank whose next op can
         run, drawn from ``rng``, runs it (a rank may run calls ahead of
@@ -350,12 +390,13 @@ class _Emulation:
         pc = [0] * n
         while any(pc[r] < len(streams[r]) for r in range(n)):
             able = [r for r in range(n) if pc[r] < len(streams[r])
-                    and self._runnable(r, streams[r][pc[r]][0])]
+                    and streams[r][pc[r]][0].runnable(
+                        streams[r][pc[r]][1], streams[r][pc[r]][2])]
             assert able, f"deadlock: every rank waits, at ops {pc}"
             r = able[rng.integers(len(able))]
-            op, src, out, rt = streams[r][pc[r]]
+            wire, local, op, src, out, rt = streams[r][pc[r]]
             if op[0] != "wait":
-                self._run(r, op, src, out, rt)
+                wire.run(local, op, src, out, rt)
             pc[r] += 1
 
 
@@ -369,13 +410,16 @@ def emulate(calls: list, n: int, chunk: int, seed: int = 0) -> list:
     transport's schedule, on numpy bytes. ``calls``: ``(kind, xs,
     kwargs)`` with ``xs`` each rank's input (a contiguous numpy array;
     for ``exchange`` ``kwargs["peers"][r]`` is rank r's peer, for
-    ``ppermute`` ``kwargs["shift"]``). Each rank's ops of every call run
-    in its stream order; at each step one rank whose next op can run, drawn
+    ``ppermute`` ``kwargs["shift"]``; ``kwargs["lines"]``, optional, the
+    lines of global ranks the call runs on, each its own buffer, as an
+    axis line's call does). Each rank's ops of every call run in its
+    stream order; at each step one rank whose next op can run, drawn
     from ``seed``, runs it (a rank may run calls ahead of its peers).
-    Raises AssertionError when a push would overwrite a half its receiver
-    has not copied out, or when no rank can move (deadlock). Returns per
-    call the n outputs (numpy arrays shaped as the group's)."""
-    wire = _Emulation(n, chunk)
+    Raises AssertionError when a push would overwrite a half its
+    receiver has not copied out, or when no rank can move (deadlock).
+    Returns per call the n outputs (numpy arrays shaped as the
+    group's)."""
+    wire = _Mesh(n, chunk)
     streams, results = wire.enqueue(calls)
     wire.drain(streams, np.random.default_rng(seed))
     return _outputs(results)
@@ -386,25 +430,24 @@ def emulate_replays(replays: list, n: int, chunk: int, seed: int = 0,
                     ) -> "tuple[list, list]":
     """A captured chunk of calls replayed ``len(replays)`` times, as
     :func:`capture` and ``RankGroup.replay_boundary`` run it, on numpy
-    bytes. ``warmup`` (calls as :func:`emulate` takes them) runs first,
-    eagerly; then the chunk's plan is made once from the host mirrors
-    there (the capture: every replay runs those ops with those targets)
-    and ``replays[k]`` gives replay k's inputs, the same calls and sizes
-    each time (a graph's buffers are fixed; only their contents change).
-    Each replay runs until every rank has drained (the stream sync and
-    the barrier), then, with ``rewind``, every rank's ``ready`` and
-    ``consumed`` go back to their values at the capture. Without the
-    rewind the second replay's waits are already met and it fails:
-    AssertionError (a half overwritten or pulled before its push) or a
-    wrong output. Returns ``(warmup outputs, per replay the outputs)``."""
-    wire = _Emulation(n, chunk)
+    bytes. ``warmup`` (calls as :func:`emulate` takes them, lines
+    included) runs first, eagerly; then the chunk's plan is made once
+    from every buffer's host mirrors there (the capture: every replay
+    runs those ops with those targets) and ``replays[k]`` gives replay
+    k's inputs, the same calls and sizes each time (a graph's buffers
+    are fixed; only their contents change). Each replay runs until every
+    rank has drained (the stream sync and the barrier), then, with
+    ``rewind``, every rank's ``ready`` and ``consumed`` of every buffer
+    go back to their values at the capture. Without the rewind the
+    second replay's waits are already met and it fails: AssertionError
+    (a half overwritten or pulled before its push) or a wrong output.
+    Returns ``(warmup outputs, per replay the outputs)``."""
+    mesh = _Mesh(n, chunk)
     rng = np.random.default_rng(seed)
-    streams, results = wire.enqueue(list(warmup))
-    wire.drain(streams, rng)
+    streams, results = mesh.enqueue(list(warmup))
+    mesh.drain(streams, rng)
     warm = _outputs(results)
-    sent = [dict(d) for d in wire.sent]
-    received = [dict(d) for d in wire.received]
-    ready, consumed = wire.ready.copy(), wire.consumed.copy()
+    base = {line: w.mirrors() for line, w in mesh.wires.items()}
     shapes = None
     out = []
     for k, calls in enumerate(replays):
@@ -417,13 +460,21 @@ def emulate_replays(replays: list, n: int, chunk: int, seed: int = 0,
             raise ValueError(f"replay {k} makes other calls than the "
                              f"captured chunk: {got} != {shapes}")
         # every replay runs the captured plan: the mirrors at the capture
-        wire.sent = [dict(d) for d in sent]
-        wire.received = [dict(d) for d in received]
-        streams, results = wire.enqueue(calls)
-        if k and rewind:
-            wire.ready[:] = ready
-            wire.consumed[:] = consumed
-        wire.drain(streams, rng)
+        # (a buffer the warm-up did not reach starts from zero)
+        for line, w in mesh.wires.items():
+            sent, received, ready, consumed = base.setdefault(
+                line, w.mirrors())
+            w.sent = [dict(d) for d in sent]
+            w.received = [dict(d) for d in received]
+            if k and rewind:
+                w.ready[:], w.consumed[:] = ready, consumed
+        streams, results = mesh.enqueue(calls)
+        if not k:
+            for line, w in mesh.wires.items():
+                if line not in base:  # made by the capture's calls
+                    zero = _Emulation(w.n, chunk)
+                    base[line] = zero.mirrors()
+        mesh.drain(streams, rng)
         out.append(_outputs(results))
     return warm, out
 
@@ -771,6 +822,8 @@ def _enqueue(rec: _Line, kind: str, x: torch.Tensor, out_shape: tuple,
     if captured is not None:
         # the graph's calls are watched as one, around each replay
         captured.calls[bufs.line] = captured.calls.get(bufs.line, 0) + 1
+        captured.line_waits[bufs.line] = captured.line_waits.get(
+            bufs.line, 0) + sum(1 for op in ops if op[0] == "wait")
         if waits:
             captured.waits[bufs.line] = waits
     else:
@@ -791,19 +844,28 @@ class Captured:
     """The transport calls that one CUDA graph captured, on this rank:
     per buffer (keyed by its line's global ranks) the host mirrors at the
     capture's start (``base``, what a replay's targets count from) and
-    end (``end``), its calls and the last wait of each counter it waits
-    on, and what one replay adds to :func:`counts` and
-    :func:`stream_waits` (``per_replay``)."""
+    end (``end``), its calls, the stream waits it enqueued
+    (``line_waits``) and the last wait of each counter it waits on, and
+    what one replay adds to :func:`counts` and :func:`stream_waits`
+    (``per_replay``)."""
 
     base: dict
     end: dict = dataclasses.field(default_factory=dict)
     calls: dict = dataclasses.field(default_factory=dict)
+    line_waits: dict = dataclasses.field(default_factory=dict)
     waits: dict = dataclasses.field(default_factory=dict)
     per_replay: dict = dataclasses.field(default_factory=dict)
 
     @property
     def stream_waits(self) -> int:
         return self.per_replay.get("stream_waits", 0)
+
+    def by_line(self) -> dict:
+        """A replay's calls and stream waits on each buffer, keyed by its
+        line's global ranks joined with commas."""
+        return {",".join(map(str, line)): {
+            "calls": k, "stream_waits": self.line_waits.get(line, 0)}
+            for line, k in sorted(self.calls.items())}
 
 
 _CAPTURE: dict = {"active": None}

@@ -51,7 +51,8 @@ StageFn = Callable[[Any, torch.Tensor], "tuple[torch.Tensor, dict]"]
 
 # (start, end) marks around each transfer along the pipeline axis (CUDA
 # events on the card, the host clock on the CPU), appended while this is
-# a list (``cli train`` sets one for its report's ``pp_transfer_ms``)
+# a list (``cli train`` sets one for its report's ``pp_transfer_ms``);
+# a transfer that a CUDA graph captures is not marked
 TRANSFER_MARKS: Optional[list] = None
 
 
@@ -66,9 +67,11 @@ def _mark(device: torch.device):
 def _transfer(group: RankGroup, x: torch.Tensor, axis: str,
               shift: int) -> torch.Tensor:
     """``group.ppermute(x, axis, shift)``, marked in
-    :data:`TRANSFER_MARKS` when that is a list."""
+    :data:`TRANSFER_MARKS` when that is a list and no CUDA graph is
+    being captured."""
     marks = TRANSFER_MARKS
-    if marks is None:
+    if marks is None or (x.device.type == "cuda"
+                         and torch.cuda.is_current_stream_capturing()):
         return group.ppermute(x, axis, shift)
     start = _mark(x.device)
     out = group.ppermute(x, axis, shift)

@@ -14,9 +14,13 @@ dynamic_valid=True)``), and
 :class:`~akka_allreduce_tpu_torch.runtime.pacer.RoundPacer` bounds how far
 the host runs ahead of the CUDA stream: the ``maxLag`` window.
 
-A "peer" is a data rank, global rank ``dp_i * sp + sp_j`` of the ``(dp,
-sp)`` mesh (``parallel/group.py``): the JAX package's dp-major data-axis
-order.
+A "peer" is a data rank: a rank of the dense gradient sync's group,
+the sub-mesh over ``(dp, sp, ep)`` in that order (``models/train.py
+data_rank_count``), the JAX package's dp-major data-axis order. On a
+mesh with tp or pp every model rank of a data rank (its ``tp`` shards,
+its ``pp`` stages) sends that data rank's row, as the JAX mask's
+``P(dense_axes, None)`` replicates a row over tp and pp; an ep run's
+expert gradients sync exactly, unmasked.
 
 Every rank process runs its own trainer and clock, and they must agree
 on every round's mask and fallback: the wires' collectives desynchronise
@@ -70,9 +74,10 @@ class DeadlineTrainer:
     level down (``allreduce_gradients(valid=...)``).
 
     ``line`` > 1 masks peers in consecutive groups of that many (the
-    ``sp`` lines of the hierarchical schedule, whose exact ICI leg needs
-    the masks of a line to agree): a late peer masks its whole line, and
-    a round whose every line has a late peer falls back to exact."""
+    lines of the hierarchical schedule's ICI axis, the dense group's
+    last live axis, whose exact leg needs the masks of a line to agree:
+    ``models/train.py mask_line``): a late peer masks its whole line,
+    and a round whose every line has a late peer falls back to exact."""
 
     def __init__(self, step: Callable, clock: RoundClock, num_buckets: int,
                  max_lag: int = 1, line: int = 1):

@@ -5,7 +5,7 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero). The
 multi-rank runs of one mesh within a phase share one spawn of the rank
-processes (``spawn_batch``: phases 9, 10, 12-14, 16-18, 21, 23, 25 and 26),
+processes (``spawn_batch``: phases 9, 10, 12-14, 16-18, 21, 23 and 25-27),
 each run's launches and peak its own; run whole, the script keeps one
 pool of rank processes a world size (``RankPool``, started beside the
 build) and runs every such batch there as a fresh spawn would:
@@ -537,6 +537,40 @@ build) and runs every such batch there as a fresh spawn would:
    generate --ckpt-dir`` as a one-rank process: its greedy tokens equal
    the in-memory model's, and the control's (the stages' layers
    swapped) differ. The phase must end within ``A7PP_SECONDS`` (100 s).
+27. the parallel axes' compositions (ROADMAP A7 part 3; runs after
+   phase 26, on the world-4 pool kept open since phase 17, closed after
+   (a)'s four-rank meshes, and the world-2 pool's ``ipc`` ranks). (a)
+   ``A7C_MASK_MODEL`` (phase 25's widths
+   at depth 4), f32, TF32 off, at dp=2 x tp=2 and dp=2 x pp=2 (gpipe, 2
+   microbatches) on four ranks and MoE (every second layer, capacity 4,
+   no load-balance term) at ep=2 on two: two rounds of the dynamic-valid
+   grad step through a ``DeadlineTrainer`` whose clock sees every data
+   rank on time, then data rank 1 late, on the same parameters and
+   tokens (two rows a data rank): the masked round's dense gradients,
+   gathered, within ``A7_GRAD_TOL`` of each leaf's largest value of the
+   one-rank step on data rank 0's rows alone (the masked reduce
+   rescales by count), the unmasked round outside it (the control), the
+   reports (0, 0) then (1, 1) masked / dropped on every rank, and at ep
+   the expert gradients of both rounds bitwise. (b) ``train
+   --steps-per-dispatch 3``, 6 steps (two replays), at full width: the
+   flagship at tp=2, the MoE flagship (phase 25's, cut to
+   ``A7C_MOE_LAYERS`` = 4 layers) at ep=2 on the f32 and ef8 wires, the
+   flagship at pp=2 with 4 microbatches under gpipe
+   and under 1f1b, each against the same command with its chunks run
+   eagerly (``EagerChunks``): losses, every rank's parameter checksum
+   and the ef8 residuals bitwise; every rank's launches a replay of
+   rows 1, 5-7 and 10-12 those of ``a7c_per_step`` x 3; wall ms a step
+   graphed and eager, capture seconds, each replay's boundary ms, and
+   calls and stream waits a replay on each transport buffer. The
+   control (``stale_keys_rank``: the ef8 run's chunk key table left at
+   the first chunk's steps) must differ. (c) ``train`` on the MoE
+   flagship at ep=2 under ``--deadline-ms 50`` for 6 steps at the
+   straggle probability ``a7c_straggle`` picks (a clean step 1, a
+   one-rank step, a fallback): the rounds the draws predict
+   (``min_bucket_count`` 1: the expert sync at dp 1 is one rank's),
+   rank 0's flash kernels once a layer a step and one masked reduce a
+   step, wall ms a step beside phase 25's exact run. The phase must end
+   within ``A7C_SECONDS`` (120 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
@@ -550,7 +584,9 @@ rows with phase 23's, ``a5r_launches`` apart on the sync rows, row 4's
 bf16 flash, masked reduce, paged and transport rows with phase 25's,
 ``a7_launches`` apart on the sync and paged rows; the bf16 flash, masked
 reduce and transport rows with phase 26's, ``pp_launches`` apart on
-rows 1 and 10-12), and last ``{"ok": true, "device": {...}}``.
+rows 1 and 10-12; the bf16 flash, masked reduce, ef8 block and
+transport rows with phase 27's, ``a7c_launches`` apart on rows 1, 5-7
+and 10-12), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5730,6 +5766,9 @@ class EagerChunks:
         self.replays, self.captured_launches = 0, None
         self.capture_seconds, self.boundary_ms, self.transport = None, [], None
 
+    def close(self) -> None:
+        """Nothing captured, nothing to release."""
+
     def __call__(self, state, tokens):
         import torch
         ms = [self._step(state, tokens[i]) for i in range(tokens.shape[0])]
@@ -6828,7 +6867,8 @@ class ExchangeTimer:
     operators' sums, forward and backward (the patched
     ``autograd.Function`` methods), and of ``RankGroup.ppermute`` along
     ``pp`` (the pipeline's transfers), by kind; on the CPU (``device``)
-    the calls are counted and not timed."""
+    the calls are counted and not timed. A call that a CUDA graph
+    captures is neither timed nor counted."""
 
     def __init__(self, torch, device):
         from akka_allreduce_tpu_torch.parallel import ep as E
@@ -6854,6 +6894,8 @@ class ExchangeTimer:
         self.undo.append(lambda: setattr(RankGroup, "ppermute", real))
 
     def _timed(self, kind, call):
+        if self.cuda and self.torch.cuda.is_current_stream_capturing():
+            return call()  # a captured call records no event
         if not self.cuda:
             self.marks.setdefault(kind, []).append(None)
             return call()
@@ -7144,7 +7186,8 @@ def phase_a7(torch, served: "dict | None" = None) -> dict:
             "paged": serve["launches"],
             "transport": moe["transport_launches"]
             + tp["transport_launches"],
-            "parity": parity, "checkpoint": ckpt}
+            "parity": parity, "checkpoint": ckpt,
+            "moe_wall_ms_per_step": moe["wall_ms_per_step"]}
 
 
 # -- phase 26: pipeline parallelism (ROADMAP A7, part 2) --------------------
@@ -7429,6 +7472,435 @@ def phase_a7pp(torch) -> dict:
             "parity": parity, "checkpoint": ckpt}
 
 
+# -- phase 27: the parallel axes' compositions (ROADMAP A7, part 3) ------
+
+A7C_SECONDS = 120
+# (a): A7_PARITY_MODEL's widths at depth 4, f32 (TF32 off), two rows a
+# data rank; one round that masks data rank A7C_MASKED_RANK against one
+# that masks none, on the same parameters and tokens
+A7C_MASK_MODEL = dict(A7_PARITY_MODEL, n_layers=4)
+A7C_MASK_BATCH = (4, 512)
+A7C_MASKED_RANK = 1
+# (name, world, mesh, MoE or None, TrainConfig fields)
+A7C_MASK_MESHES = (("dp=2 tp=2", 4, {"tp": 2}, None, {}),
+                   ("dp=2 pp=2", 4, {"pp": 2}, None,
+                    {"microbatches": 2, "pp_schedule": "gpipe"}),
+                   ("ep=2 moe", 2, {"ep": 2}, A7_PARITY_MOE, {}))
+# (b): chunks of A7C_SPD steps, two replays a run (the wall ms a step is
+# the second's; the control needs a replay after the first)
+A7C_SPD = 3
+A7C_STEPS = 6
+A7C_PP_MICRO = 4
+# the MoE chunks' depth: at 8 layers the ef8 capture took 32.8 GB a rank,
+# past what the card had left beside the script's other processes
+A7C_MOE_LAYERS = 4
+# (name, argv, mesh flags): the flagship of phase 6 and its MoE variant
+A7C_CHUNK_RUNS = (
+    ("tp=2", TRAIN_ARGV, ["--tp", "2"]),
+    ("ep=2 f32", with_layers(A7_MOE_ARGV, A7C_MOE_LAYERS), ["--ep", "2"]),
+    ("ep=2 ef8", with_layers(A7_MOE_ARGV, A7C_MOE_LAYERS),
+     ["--ep", "2", "--grad-quant", "ef8"]),
+    ("pp=2 gpipe", TRAIN_ARGV, ["--pp", "2", "--microbatches",
+                                str(A7C_PP_MICRO)]),
+    ("pp=2 1f1b", TRAIN_ARGV, ["--pp", "2", "--microbatches",
+                               str(A7C_PP_MICRO), "--pp-schedule", "1f1b"]))
+A7C_CONTROL_RUN = "ep=2 ef8"
+# the sync rows whose launches phase 27's main path adds (rows 1, 5-7)
+A7C_SYNC_ROWS = ("masked_reduce", "quantize_int8_block",
+                 "quantize_int8_block_rtn", "dequantize_int8_block")
+# (c): the MoE flagship at ep=2 under deadlines
+A7C_DEADLINE_STEPS = 6
+
+
+def a7c_tokens(group, tokens):
+    """This data rank's rows of the global batch (sharded over ``(dp,
+    ep)``, dp-major), and how many rows a data rank takes."""
+    rows = tokens.shape[0] // (group.axis_size("dp")
+                               * group.axis_size("ep"))
+    blk = (group.axis_index("dp") * group.axis_size("ep")
+           + group.axis_index("ep"))
+    return tokens[blk * rows:(blk + 1) * rows], rows
+
+
+def a7c_mask_rank(group, model: dict, moe, kw: dict, batch) -> dict:
+    """(a) on one rank: two rounds of the dynamic-valid grad step through
+    a ``DeadlineTrainer`` whose clock sees every data rank on time, then
+    data rank ``A7C_MASKED_RANK`` late, on the same parameters and
+    tokens; the reports, whether the expert gradients of the two rounds
+    are bitwise equal (MoE), and on rank 0 each round's largest dense
+    leaf error, gathered to the full layout, against the one-rank step
+    on data rank 0's rows alone (relative to that leaf's largest
+    value)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from akka_allreduce_tpu_torch.convert import gather_params
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.ops.bucketing import tree_leaves
+    from akka_allreduce_tpu_torch.runtime.pacer import RoundClock
+    from akka_allreduce_tpu_torch.runtime.straggler import DeadlineTrainer
+    dev = group.device
+    cfg, full = a7_model(torch, model, moe, dev)
+    cfg = dataclasses.replace(cfg, **kw)
+    tokens = torch.from_numpy(np.array(batch)).to(dev)
+    mine, rows = a7c_tokens(group, tokens)
+    state = train.make_train_state(cfg, params=full, device=dev,
+                                   group=group)
+    grad_step = train.make_grad_step(cfg, group, dynamic_valid=True)
+    n_data = train.data_rank_count(cfg, group)
+    rounds = []
+
+    def step(state_, tokens_, valid):
+        grads, metrics = grad_step(state_.params, tokens_, valid=valid)
+        rounds.append(grads)
+        return metrics
+    clock = RoundClock(n_data, deadline_s=1.0)
+    trainer = DeadlineTrainer(step, clock,
+                              train.dense_bucket_count(cfg, state.params),
+                              max_lag=0, line=train.mask_line(cfg, group))
+    for late in (None, A7C_MASKED_RANK):
+        r = trainer.open_round()
+        for peer in range(n_data):
+            clock.report_offset(r, peer, 2.0 if peer == late else 0.0)
+        trainer.run_round(state, mine)
+    trainer.drain()
+    res = {"n_data_ranks": n_data,
+           "reports": [{"n_masked": rep.n_masked,
+                        "n_dropped": rep.n_dropped,
+                        "fell_back": rep.fell_back}
+                       for rep in trainer.reports]}
+    def dense_leaves(tree):
+        return tree_leaves(train.split_expert_leaves(tree)[0]
+                           if moe is not None else tree)
+    if moe is not None:  # this rank's experts: the exact sync's alone
+        res["expert_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+            *(tree_leaves(train.split_expert_leaves(g)[1])
+              for g in rounds)))
+    dense = [dense_leaves(gather_params(g, cfg.model, group))
+             for g in rounds]
+    del state, rounds
+    if group.rank == 0:
+        one = dataclasses.replace(cfg, microbatches=1)
+        ref_state = train.make_train_state(one, params=full, device=dev)
+        ref, _ = train.make_grad_step(one)(ref_state.params, tokens[:rows])
+        ref = dense_leaves(ref)
+        for name, leaves in zip(("unmasked", "masked"), dense):
+            res[f"{name}_rel_err"] = max(
+                float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(leaves, ref))
+    return res
+
+
+def a7c_mask(results: dict) -> dict:
+    """(a): for each of ``A7C_MASK_MESHES`` (``results``: its ranks'
+    :func:`a7c_mask_rank` results by name): the masked round within
+    ``A7_GRAD_TOL`` of data rank 0's gradients alone, the unmasked
+    round outside it (the control), the trainer's reports those of the
+    script's clock, and at ep the expert gradients bitwise."""
+    want = [{"n_masked": 0, "n_dropped": 0, "fell_back": False},
+            {"n_masked": 1, "n_dropped": 1, "fell_back": False}]
+    rows = {}
+    for name, _, _, moe, _ in A7C_MASK_MESHES:
+        ranks = results[name]
+        row = {"mesh": name, "tol": A7_GRAD_TOL,
+               "masked_rel_err": ranks[0]["masked_rel_err"],
+               "unmasked_rel_err": ranks[0]["unmasked_rel_err"],
+               "reports": [r["reports"] for r in ranks],
+               "expected_reports": want,
+               "n_data_ranks": ranks[0]["n_data_ranks"]}
+        row["held"] = row["masked_rel_err"] <= A7_GRAD_TOL
+        row["control_outside"] = row["unmasked_rel_err"] > A7_GRAD_TOL
+        row["reports_agree"] = all(r == want for r in row["reports"])
+        if moe is not None:
+            row["expert_bitwise"] = [r["expert_bitwise"] for r in ranks]
+        ok = row["held"] and row["control_outside"] and row[
+            "reports_agree"] and all(row.get("expert_bitwise", [True]))
+        emit("a7c_mask", **row)
+        if not ok:
+            raise AssertionError(f"phase 27 (a) {name}: {row}")
+        rows[name] = row
+    return rows
+
+
+def stale_keys_rank(group, args, params, attn_impl):
+    """(b)'s control: ``cli``'s train rank whose chunk key table is left
+    at the first chunk's steps (``ChunkKeys.fill`` runs once: the second
+    replay rounds with the first chunk's seeds and generators); on the
+    CPU, where chunks run step by step, each step of a later chunk
+    rounds with the key of the step a chunk before."""
+    from akka_allreduce_tpu_torch.models import train
+    from akka_allreduce_tpu_torch.ops import collectives
+    fill, quant_key = collectives.ChunkKeys.fill, train.quant_key
+    n = args.steps_per_dispatch
+
+    def fill_once(keys, base):
+        if not getattr(keys, "stale", False):
+            keys.stale = True
+            fill(keys, base)
+
+    def key_stale(step, microbatch=None, tag=0):
+        return quant_key(step - n if step >= n else step, microbatch, tag)
+    patches = ([(collectives.ChunkKeys, "fill", fill_once)]
+               if group.device.type == "cuda"
+               else [(train, "quant_key", key_stale)])
+    return _patched_train_rank(group, args, params, attn_impl, patches)
+
+
+RANK_MODES["stale_keys"] = stale_keys_rank
+
+
+def a7c_argv(argv: list, mesh: list, extra: "list | None" = None) -> list:
+    """A phase 27 train argv: ``argv`` on ``DIST`` and ``DEVICE`` for
+    ``A7C_STEPS`` steps in chunks of ``A7C_SPD``, on the mesh flags
+    ``mesh`` (``extra`` in place of the chunks)."""
+    out = set_flag(set_flag(argv, "--steps", A7C_STEPS), "--dist-backend",
+                   DIST)
+    if DEVICE != "cuda":
+        out = set_flag(out, "--device", DEVICE)
+    return out + mesh + (extra if extra is not None else [
+        "--steps-per-dispatch", str(A7C_SPD)])
+
+
+def a7c_per_step(name: str, n_layers: int) -> dict:
+    """A rank's launches of rows 1, 5-7 and 10-12 a step on (b)'s run
+    ``name`` (on the card): the flash kernels once a layer (at pp once a
+    stage layer a microbatch, 1f1b's forward twice); the masked reduce:
+    the tp sums (2 forward, 2 backward a layer), the dense sync over the
+    ep line (f32: one; ef8: the fused ef8's quantizes and dequantizes),
+    the pp sum of the non-layer gradients."""
+    out = dict.fromkeys(("masked_reduce", "quantize_int8_block",
+                         "quantize_int8_block_rtn",
+                         "dequantize_int8_block"), 0)
+    flash = dict.fromkeys(FLASH_REPLACES, n_layers)
+    if name == "tp=2":
+        out["masked_reduce"] = 4 * n_layers
+    elif name.startswith("ep=2"):
+        wire = name.split()[1]
+        sync = expected_sync_launches(wire, "fused", 2, 1)
+        out.update({k: sync[k] for k in out})
+    else:
+        flash = dict.fromkeys(FLASH_REPLACES,
+                              A7C_PP_MICRO * n_layers // 2)
+        if name.endswith("1f1b"):
+            flash["flash_fwd"] *= 2
+        out["masked_reduce"] = 1
+    return {**flash, **out}
+
+
+def a7c_pair(torch, name: str, graph: dict, eager: dict) -> dict:
+    """(b): a graphed run against its eager chunks: losses, every rank's
+    parameter checksum and ef8 residual checksum bitwise; two replays;
+    each rank's launches a replay those of :func:`a7c_per_step` x
+    ``A7C_SPD``; the graphed and eager wall ms a step, capture seconds,
+    boundary ms and what a replay enqueues on each transport line."""
+    layers = graph["config"]["n_layers"]
+    ranks, eranks = graph["ranks"], eager["ranks"]
+    multi = [r["multi_step"] for r in ranks]
+    want = {k: v * A7C_SPD for k, v in a7c_per_step(name, layers).items()}
+    row = {
+        "run": name, "mesh": graph["config"]["mesh"],
+        "steps": graph["config"]["steps"], "steps_per_dispatch": A7C_SPD,
+        "losses": graph["losses"], "eager_losses": eager["losses"],
+        "losses_bitwise": graph["losses"] == eager["losses"],
+        "param_checksums": [r["param_checksum"] for r in ranks],
+        "params_bitwise": ([r["param_checksum"] for r in ranks]
+                           == [r["param_checksum"] for r in eranks]),
+        "wall_ms_per_step": graph["wall_ms_per_step"],
+        "eager_wall_ms_per_step": eager["wall_ms_per_step"],
+        "replays": [m["graph_replays"] for m in multi],
+        "capture_seconds": [m["capture_seconds"] for m in multi],
+        "boundary_ms": [m["boundary_ms"] for m in multi],
+        "captured_launches": [{k: m["captured_launches"].get(k, 0)
+                               for k in want} for m in multi],
+        "expected_launches_per_replay": want,
+        "stream_waits_per_replay": [m["stream_waits_per_replay"]
+                                    for m in multi],
+        "transport_lines_per_replay": [m["transport_lines_per_replay"]
+                                       for m in multi],
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks]}
+    if "residual_checksum" in ranks[0]:
+        row["residuals_bitwise"] = [r["residual_checksum"] for r in ranks] \
+            == [r["residual_checksum"] for r in eranks]
+    bad = [k for k in ("losses_bitwise", "params_bitwise",
+                       "residuals_bitwise") if row.get(k) is False]
+    if not all(math.isfinite(x) for x in graph["losses"]):
+        bad.append("non-finite losses")
+    if DEVICE == "cuda":
+        if any(n != A7C_STEPS // A7C_SPD for n in row["replays"]):
+            bad.append(f"replays {row['replays']}")
+        if any(got != want for got in row["captured_launches"]):
+            bad.append("launches a replay")
+    emit("a7c_chunks", **row)
+    if bad:
+        raise AssertionError(f"phase 27 (b) {name}: the graphed run "
+                             f"against its eager chunks: {bad}: {row}")
+    return row
+
+
+def a7c_deadline(torch, report: dict, prob: float, want: list,
+                 phase25_ms: "float | None") -> dict:
+    """(c): the MoE flagship at ep=2 under ``--deadline-ms``: each
+    round's ``n_masked`` / ``fell_back`` those of the straggle draws and
+    its ``min_bucket_count`` the smaller of the two syncs' (the expert
+    sync at dp 1 is over one rank: 1), finite losses, rank 0's flash
+    kernels once a layer a step and one masked reduce a step."""
+    steps = A7C_DEADLINE_STEPS
+    rounds = [{k: r[k] for k in ("n_masked", "fell_back",
+                                 "min_bucket_count")}
+              for r in report["deadline"]["rounds"]]
+    want = [{**w, "min_bucket_count": 1} for w in want]
+    n_layers = report["config"]["n_layers"]
+    expect = ({"flash": dict.fromkeys(FLASH_REPLACES, n_layers * steps),
+               "masked_reduce": steps} if DEVICE == "cuda" else
+              {"flash": dict.fromkeys(FLASH_REPLACES, 0),
+               "masked_reduce": 0})
+    got = {"flash": report["launches"],
+           "masked_reduce": report["sync_launches"]["masked_reduce"]}
+    row = {"steps": steps, "straggle_prob": prob,
+           "deadline_ms": DEADLINE_MS, "rounds": rounds,
+           "predicted_rounds": want,
+           "masked_round_count": report["deadline"]["masked_round_count"],
+           "fallback_count": sum(r["fell_back"] for r in rounds),
+           "losses": report["losses"],
+           "wall_ms_per_step": report["wall_ms_per_step"],
+           "phase25_exact_wall_ms_per_step": phase25_ms,
+           "launches": got, "expected_launches": expect,
+           "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                       for r in report["ranks"]]}
+    emit("a7c_deadline", **row)
+    if (rounds != want or got != expect
+            or not all(math.isfinite(x) for x in report["losses"])):
+        raise AssertionError(f"phase 27 (c): {row}")
+    return row
+
+
+def a7c_straggle(draws) -> float:
+    """(c)'s --straggle-prob over all of ``draws``: the first midpoint
+    between sorted draws whose rounds have a clean step 1, a step that
+    masks one rank and a step that masks both (the fallback); without
+    such a gap, the first with the first two."""
+    edges = sorted(set(float(d) for d in draws.ravel()))
+    probs = [(lo + hi) / 2 for lo, hi in zip(edges, edges[1:])]
+    for need_fallback in (True, False):
+        for prob in probs:
+            rounds = predicted_rounds(draws, prob)
+            if (rounds[0]["n_masked"] == 0
+                    and any(r["n_masked"] == 1 for r in rounds)
+                    and (any(r["fell_back"] for r in rounds)
+                         or not need_fallback)):
+                return prob
+    raise ValueError("no --straggle-prob gives a clean step 1 and a "
+                     "one-rank step within these draws")
+
+
+def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
+    """Phase 27: (a) masked rounds on dp x tp, dp x pp and ep meshes
+    against data rank 0 alone, (b) CUDA-graph chunks at full width on
+    tp=2, ep=2 (f32, ef8) and pp=2 (gpipe, 1f1b), bitwise their eager
+    chunks, with the stale-keys control, (c) the MoE flagship at ep=2
+    under deadlines. Returns rank 0's launches of rows 1, 5-7 and 10-12
+    on (b)'s graphed runs and (c)."""
+    import numpy as np
+
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    t0 = time.perf_counter()
+    base = parse(A7_MOE_ARGV)
+    draws = straggle_draws(A7C_DEADLINE_STEPS, A7_WORLD, base.batch,
+                           base.seq, base.vocab)
+    prob = a7c_straggle(draws)
+    want_rounds = predicted_rounds(draws, prob)
+    deadline_argv = a7c_argv(A7_MOE_ARGV, ["--ep", "2"], [
+        "--deadline-ms", str(DEADLINE_MS), "--straggle-prob", repr(prob)])
+    deadline_argv = set_flag(deadline_argv, "--steps", A7C_DEADLINE_STEPS)
+    rng = np.random.default_rng(0)
+    mask_batch = rng.integers(0, A7C_MASK_MODEL["vocab_size"],
+                              size=A7C_MASK_BATCH, dtype=np.int32)
+    # (a)'s four-rank meshes first, then their pool closes: its ranks'
+    # memory back before the full-width runs of two
+    masks, extra = {}, {}
+    for name, world, mesh, moe, kw in A7C_MASK_MESHES:
+        if world == 2:
+            continue
+        t1 = time.perf_counter()
+        (masks[name], _), = spawn_batch(
+            torch, [("call", a7c_mask_rank,
+                     (A7C_MASK_MODEL, moe, kw, mask_batch))],
+            world=world, **mesh)
+        extra[name] = time.perf_counter() - t1
+    close_pools(4)
+    (mask_name, _, _, mask_moe, mask_kw), = [
+        m for m in A7C_MASK_MESHES if m[1] == 2]
+    groups: dict = {}
+    for name, argv, mesh in A7C_CHUNK_RUNS:
+        groups.setdefault(mesh[:2][0], []).append((name, argv, mesh))
+    runs = {}
+    for key, members in groups.items():
+        jobs, names = [], []
+        for name, argv, mesh in members:
+            args = parse(a7c_argv(argv, mesh))
+            jobs += [("train", args, None), ("train", args, "eager_chunks")]
+            names += [name, f"{name} eager"]
+            if name == A7C_CONTROL_RUN:
+                jobs.append(("train", args, "stale_keys"))
+                names.append("control")
+        if key == "--ep":
+            jobs += [("train", parse(deadline_argv), None),
+                     ("call", a7c_mask_rank, (A7C_MASK_MODEL, mask_moe,
+                                              mask_kw, mask_batch))]
+            names += ["deadline", mask_name]
+        t1 = time.perf_counter()
+        out = spawn_batch(torch, jobs)
+        runs.update(zip(names, (o[0] for o in out)))
+        extra[key] = time.perf_counter() - t1
+    mask = a7c_mask({**masks, mask_name: runs[mask_name]})
+    chunks, totals = {}, {"sync": dict.fromkeys(SYNC_KERNELS, 0),
+                          "flash": dict.fromkeys(FLASH_REPLACES, 0)}
+    for name, _, _ in A7C_CHUNK_RUNS:
+        chunks[name] = a7c_pair(torch, name, runs[name],
+                                runs[f"{name} eager"])
+    control = runs["control"]
+    c_row = {"run": A7C_CONTROL_RUN, "control_losses": control["losses"],
+             "eager_losses": runs[f"{A7C_CONTROL_RUN} eager"]["losses"],
+             "control_passed": (
+                 control["losses"]
+                 == runs[f"{A7C_CONTROL_RUN} eager"]["losses"]
+                 and [r["param_checksum"] for r in control["ranks"]]
+                 == [r["param_checksum"]
+                     for r in runs[f"{A7C_CONTROL_RUN} eager"]["ranks"]])}
+    emit("a7c_control", **c_row)
+    if c_row["control_passed"]:
+        raise AssertionError(f"phase 27 (b): the stale key table landed "
+                             f"inside the bitwise check: {c_row}")
+    deadline = a7c_deadline(torch, runs["deadline"], prob, want_rounds,
+                            phase25_ms)
+    totals["transport"] = 0
+    for name in [n for n, _, _ in A7C_CHUNK_RUNS] + ["deadline"]:
+        report = runs[name]
+        totals["transport"] += report["transport"].get(
+            "transport_launches", 0)
+        for k in SYNC_KERNELS:
+            totals["sync"][k] += report["sync_launches"][k]
+        for k in FLASH_REPLACES:
+            totals["flash"][k] += report["launches"][k]
+    seconds = time.perf_counter() - t0
+    emit("a7c_phase_seconds", seconds=seconds, limit_s=A7C_SECONDS,
+         batches=extra,
+         wall_ms_per_step={n: (r["wall_ms_per_step"],
+                               r["eager_wall_ms_per_step"])
+                           for n, r in chunks.items()},
+         boundary_ms={n: r["boundary_ms"][0] for n, r in chunks.items()},
+         capture_seconds={n: r["capture_seconds"][0]
+                          for n, r in chunks.items()},
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A7C_SECONDS:
+        raise AssertionError(f"phase 27 took {seconds:.1f} s, over its "
+                             f"{A7C_SECONDS} s")
+    return {**totals, "mask": mask, "chunks": chunks, "deadline": deadline}
+
+
 def chunk_of(world: int) -> int:
     """The transport's chunk for a world of ``world`` ranks with no axis
     lines (dp only)."""
@@ -7556,7 +8028,7 @@ def run_phases(torch) -> int:
         phase_auto(torch, plan_dir)
     t17c = time.perf_counter()
     phase_bench_rows(torch)
-    close_pools(4)  # no later phase runs four ranks of its own
+    # the four-rank pool stays for phase 27's dp x tp and dp x pp meshes
     emit("hierarchical_auto_phase_seconds",
          seconds=time.perf_counter() - t17, hierarchical_train=t17b - t17,
          auto=t17c - t17b, bench_rows=time.perf_counter() - t17c,
@@ -7581,6 +8053,9 @@ def run_phases(torch) -> int:
     # 26. pipeline parallelism: gpipe and 1f1b parity, both schedules at
     # full width on two stages, a pp checkpoint restored at one rank
     a7pp = phase_a7pp(torch)
+    # 27. the parallel axes' compositions: masked rounds on tp / pp / ep
+    # meshes, graph chunks on tp, ep and pp, MoE under deadlines
+    a7c = phase_a7c(torch, a7["moe_wall_ms_per_step"])
     close_pools()  # every rank process ended before the closing lines
     # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
     # across processes, the serve trace
@@ -7588,13 +8063,13 @@ def run_phases(torch) -> int:
     emit("script_seconds", seconds=time.perf_counter() - T_START)
     sync_launches = {k: dp["launches"][k] + deadline["sync"][k]
                      + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
-                     + a7["sync"][k] for k in SYNC_KERNELS}
+                     + a7["sync"][k] + a7c["sync"][k] for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
         + cluster["launches"] + a7pp["masked_reduce"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"] + a5["transport"]
                           + a5r["transport"] + a7["transport"]
-                          + a7pp["transport"]
+                          + a7pp["transport"] + a7c["transport"]
                           + sum(sp_launches[d]["transport"]
                                 for d in sp_launches))
     if not transport_launches:
@@ -7622,9 +8097,10 @@ def run_phases(torch) -> int:
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
         k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
         + a5r["flash"][k] + a7["flash"][k] + a7pp["flash"][k]
-        for k in FLASH_REPLACES})
-    for row in kernels[-3:]:  # phase 26's share, rank 0's
+        + a7c["flash"][k] for k in FLASH_REPLACES})
+    for row in kernels[-3:]:  # phases 26's and 27's shares, rank 0's
         row["pp_launches"] = a7pp["flash"][row["name"]]
+        row["a7c_launches"] = a7c["flash"][row["name"]]
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]
@@ -7641,6 +8117,8 @@ def run_phases(torch) -> int:
         kernels[-1]["a5_launches"] = a5["sync"][kernel]
         kernels[-1]["a5r_launches"] = a5r["sync"][kernel]
         kernels[-1]["a7_launches"] = a7["sync"][kernel]
+        if kernel in A7C_SYNC_ROWS:
+            kernels[-1]["a7c_launches"] = a7c["sync"][kernel]
         if kernel == "quantize_int8_prng":
             # the seed read from device memory (phase 23's int8 chunks)
             kernels[-1]["pointer_seed_ms"] = srow["pointer_seed_ms"]

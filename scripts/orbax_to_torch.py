@@ -13,12 +13,18 @@ Runs where JAX and orbax are installed: it reads one step of a JAX
 
     python scripts/orbax_to_torch.py JAX_DIR OUT_DIR [--step S] \\
         [--optimizer adamw|lion|adafactor|sgd] [--ema-decay D] \\
-        [--clip-norm C] [--sgd-momentum M] [--bucket-elems N]
+        [--clip-norm C] [--sgd-momentum M] [--bucket-elems N] \\
+        [--dp N --sp S --ep E --tp P --pp Q]
 
 The flags are the train command's that shape the optimizer chain and the
 ef8 residual: give those of the run that wrote the checkpoint (the
-chain's slots are matched in order and checked against them). The
-model's shapes come from the params.
+chain's slots are matched in order and checked against them). The mesh
+flags name its mesh: the JAX run stacks one ef8 plane a rank over
+``(dp, sp, ep, tp, pp)``, each of its rank's shard or stage (an MoE
+run's dense and expert planes both), and ``sync-<r>.pt`` is the plane of
+the port's rank r on the same mesh, which the port resumes at that mesh
+(the others default to 1, ``--dp`` to the planes they leave). The model's
+shapes come from the params.
 """
 
 import argparse
@@ -99,16 +105,19 @@ def port_config(optimizer="adamw", ema_decay=0.0, clip_norm=0.0,
                        bucket_elems=bucket_elems)
 
 
-def convert(jax_dir: str, out_dir: str, cfg, step=None) -> str:
+def convert(jax_dir: str, out_dir: str, cfg, step=None,
+            mesh: "dict | None" = None) -> str:
     """Convert step ``step`` (the latest by default) of ``jax_dir`` into
-    ``out_dir``; returns the written step directory."""
+    ``out_dir``; ``mesh`` is the ``{"dp", "sp", "ep", "tp", "pp"}`` sizes
+    of the run that wrote it (``dp`` by default the planes left by the
+    other axes). Returns the written step directory."""
     import torch
 
     from akka_allreduce_tpu_torch.convert import train_state_from_jax
     from akka_allreduce_tpu_torch.runtime.checkpoint import (
         CheckpointConfig, CheckpointManager)
     step, items = read_orbax_step(jax_dir, step)
-    got = train_state_from_jax(items, cfg)
+    got = train_state_from_jax(items, cfg, mesh=mesh)
     mgr = CheckpointManager(CheckpointConfig(out_dir))
     mgr.save(step, got["params"], got["opt_state"], got["extra"],
              force=True, ema=got["ema"])
@@ -130,10 +139,16 @@ def main(argv=None) -> int:
     p.add_argument("--clip-norm", type=float, default=0.0)
     p.add_argument("--sgd-momentum", type=float, default=0.9)
     p.add_argument("--bucket-elems", type=int, default=1 << 16)
+    for axis in ("dp", "sp", "ep", "tp", "pp"):
+        p.add_argument(f"--{axis}", type=int, default=None,
+                       help=f"the {axis} size of the run that wrote the "
+                            f"checkpoint")
     a = p.parse_args(argv)
+    mesh = {k: getattr(a, k) for k in ("dp", "sp", "ep", "tp", "pp")
+            if getattr(a, k) is not None}
     path = convert(a.jax_dir, a.out_dir, port_config(
         a.optimizer, a.ema_decay, a.clip_norm, a.sgd_momentum,
-        a.bucket_elems), a.step)
+        a.bucket_elems), a.step, mesh or None)
     print(f"wrote {path}: {sorted(os.listdir(path))}")
     return 0
 

@@ -578,12 +578,11 @@ def test_train_tp_and_ep_print_the_jax_step_lines(capfd, flags, mesh):
     (["--pp", "3"], "pp=3 must divide n_layers=2"),
     (["--pp", "2", "--pp-schedule", "1f1b", "--moe-experts", "4",
       "--moe-every", "1"], "dense layers only"),
-    (["--pp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 3"),
     (["--microbatches", "2"], "--microbatches requires --pp > 1"),
     (["--pp", "2", "--moe-experts", "4", "--moe-every", "2"],
      "--pp > 1 needs homogeneous layers"),
-    (["--tp", "2", "--deadline-ms", "50"], "ROADMAP A7 part 3"),
-    (["--ep", "2", "--steps-per-dispatch", "2"], "ROADMAP A7 part 3"),
+    (["--tp", "2", "--steps-per-dispatch", "2", "--deadline-ms", "50"],
+     "single-process exact path"),
     (["--tp", "3"], "tp=3 must divide n_heads=4"),
     (["--ep", "3", "--moe-experts", "4", "--batch", "6"],
      "ep=3 must divide n_experts=4"),
@@ -595,6 +594,51 @@ def test_train_tp_and_ep_print_the_jax_step_lines(capfd, flags, mesh):
 def test_train_mesh_refusals_exit_2(capsys, flags, match):
     assert cli.main(TRAIN_TINY + flags) == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--tp", "2", "--deadline-ms", "50", "--straggle-prob", "0.5"],
+     "lossy rounds:"),
+    (["--pp", "2", "--deadline-ms", "50", "--straggle-prob", "0.5"],
+     "lossy rounds:"),
+    (["--ep", "2", "--moe-experts", "4", "--steps-per-dispatch", "2"],
+     "step    3:")], ids=["tp-deadline", "pp-deadline", "ep-chunks"])
+def test_train_deadlines_and_chunks_run_on_sharded_meshes(capfd, flags,
+                                                          line):
+    """``--deadline-ms`` with ``--tp`` / ``--pp`` and
+    ``--steps-per-dispatch`` with ``--ep`` run on two gloo ranks: rank 0
+    prints the deadline's ``[masked k/n ranks ...]`` step lines and its
+    summary, or the chunks' step lines (the last chunk's step)."""
+    assert cli.main(TRAIN_TINY + ["--log-every", "1"] + flags) == 0
+    out = capfd.readouterr().out
+    assert line in out
+    if "--deadline-ms" in flags:
+        steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        assert len(steps) == 3
+        assert all("[masked " in ln and "/1 ranks" in ln for ln in steps)
+
+
+def test_train_chunks_on_tp_checkpoint_the_full_layout(tmp_path):
+    """``--tp 2 --steps-per-dispatch 2 --ckpt-dir``: a checkpoint at a
+    chunk's end holds the full layout (wq whole), as the per-step run's
+    does, and the run resumes from it at tp=2 with the per-step run's
+    losses."""
+    flags = ["--tp", "2", "--steps-per-dispatch", "2", "--ckpt-every",
+             "2", "--log-every", "1"]
+    chunked = cli.run_train(cli.build_parser().parse_args(
+        TRAIN_TINY + flags + ["--steps", "2", "--ckpt-dir",
+                              str(tmp_path / "c")]))
+    params = torch.load(tmp_path / "c" / "1" / "params.pt",
+                        weights_only=True)
+    assert tuple(params["layers"][0]["wq"].shape) == (64, 64)
+    resumed = cli.run_train(cli.build_parser().parse_args(
+        TRAIN_TINY + flags + ["--steps", "4", "--ckpt-dir",
+                              str(tmp_path / "c")]))
+    assert resumed["config"]["start_step"] == 2
+    plain = cli.run_train(cli.build_parser().parse_args(
+        TRAIN_TINY + ["--tp", "2", "--steps", "4"]))
+    np.testing.assert_allclose(chunked["losses"] + resumed["losses"],
+                               plain["losses"], rtol=1e-6)
 
 
 def test_moe_checkpoint_runs_generate_eval_and_serve(capsys, tmp_path):

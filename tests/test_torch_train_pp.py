@@ -18,7 +18,8 @@ the fill and drain ticks, which the port skips). On the ef8 wire at
 (dp=2, pp=2) each rank's dense plane has JAX's ``dense_bucket_count``
 rows for that mesh, and it and the synced gradients are bitwise those
 of the rank's stacked tree synced alone. The refusals carry JAX's
-messages. All the cases of one world size share one spawn.
+messages; a valid mask and a chunk runner build on a pp group. All the
+cases of one world size share one spawn.
 """
 
 import jax
@@ -238,13 +239,27 @@ def test_refusals_carry_jax_messages(kw, mesh, model, match):
         jtrain.make_grad_step(jcfg, jmesh)
 
 
-def test_deadline_mask_and_graph_chunks_refuse_pp():
-    """A per-round valid mask and a multi-step graph with pp > 1 refuse,
-    naming ROADMAP A7 part 3 (the CLI refuses their flags the same
-    way)."""
+def test_deadline_mask_and_graph_chunks_build_on_pp():
+    """A per-round valid mask and a multi-step chunk runner build on a pp
+    group (the JAX ``make_grad_step(dynamic_valid=True)`` and
+    ``make_multi_step`` take any mesh): the mask's rows are the data
+    ranks, its columns the stage's stacked tree's buckets."""
     cfg = make_cfg(MODEL, None, **KW, microbatches=2)
-    group = RankGroup(0, 2, "gloo", torch.device("cpu"), pp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 part 3"):
-        train.make_grad_step(cfg, group, dynamic_valid=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 part 3"):
-        train.make_multi_step(cfg, 2, group)
+    group = RankGroup(0, 4, "gloo", torch.device("cpu"), pp=2)
+    step = train.make_grad_step(cfg, group, dynamic_valid=True)
+    assert callable(step)
+    multi = train.make_multi_step(cfg, 2, group)
+    assert multi.n == 2 and multi.replays == 0
+    assert train.data_rank_count(cfg, group) == 2
+    from akka_allreduce_tpu_torch.convert import shard_params
+    from akka_allreduce_tpu_torch.models.transformer import init_transformer
+    stage = shard_params(init_transformer(torch.Generator().manual_seed(0),
+                                          cfg.model), cfg.model, group)
+    assert isinstance(stage["layers"], dict)
+    mesh = make_device_mesh(MeshSpec(dp=2, pp=2),
+                            devices=jax.devices()[:4])
+    jcfg = jtrain.TrainConfig(model=jtf.TransformerConfig(**MODEL),
+                              bucket_elems=256, microbatches=2)
+    jparams, _, _ = jtrain.make_train_state(jax.random.key(0), jcfg, mesh)
+    assert train.dense_bucket_count(cfg, stage) == \
+        jtrain.dense_bucket_count(jcfg, mesh, jparams)
