@@ -515,6 +515,54 @@ def _add_train(sub: argparse._SubParsersAction) -> None:
                         "deterministic in the step index")
     p.add_argument("--log-every", type=int, default=10,
                    help="print a progress line every N steps")
+    p.add_argument("--guard-recompiles", action="store_true",
+                   help="the JAX post-warmup compile guard (ROADMAP A11, "
+                        "not ported); refused with --coordinator and "
+                        "--steps-per-dispatch > 1 as in JAX")
+    # -- training across processes
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process: the coordinator's address (process "
+                        "0 hosts a TCPStore there; run the same command in "
+                        "every process with its own --process-id). Without "
+                        "--deadline-ms one process group spans the "
+                        "processes' ranks (--dp etc. size the whole mesh); "
+                        "with --deadline-ms each process runs its local "
+                        "dp x sp mesh exact and the processes sync through "
+                        "the store, deadline-gated (the hybrid)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--retain-rounds", type=int, default=64,
+                   help="hybrid (--coordinator --deadline-ms) only: how "
+                        "many rounds of masks/payloads stay in the store "
+                        "for straggler catch-up replay; beyond it a "
+                        "straggler rejoins via checkpoint snapshot (needs "
+                        "a shared --ckpt-dir)")
+    p.add_argument("--th-allreduce", type=float, default=1.0,
+                   help="hybrid only: completion fraction that closes a "
+                        "round early (the reference master's threshold "
+                        "advance); 1.0 = wait for every non-downed "
+                        "process until the deadline")
+    p.add_argument("--down-after", type=int, default=4,
+                   help="hybrid only: auto-down a process masked this "
+                        "many consecutive rounds (it re-ups by reporting "
+                        "at the frontier); 0 = never down")
+    p.add_argument("--dcn-bucket-elems", type=int, default=0,
+                   help="hybrid only: chunk the cross-process gradient "
+                        "wire into buckets of N elements (per-bucket masks "
+                        "and honest counts for a publish cut midway); 0 = "
+                        "one whole-vector bucket")
+    p.add_argument("--master-timeout-s", type=float, default=10.0,
+                   help="hybrid only: workers fail once the master's "
+                        "heartbeat has been silent this long; 0 disables "
+                        "the watch")
+    p.add_argument("--check-every", type=int, default=None,
+                   help="hybrid only: compare the processes' parameter "
+                        "CRCs every N rounds (default --retain-rounds; 0 "
+                        "disables)")
+    p.add_argument("--trace-file", default=None,
+                   help="hybrid only: write the round trace (JSONL: "
+                        "round_complete / mask_published / catch_up / "
+                        "snapshot events) on exit")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without CUDA raises")
 
@@ -2046,9 +2094,21 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
         raise ValueError("--straggle-prob needs --deadline-ms")
     if args.steps_per_dispatch < 1:
         raise ValueError("--steps-per-dispatch must be >= 1")
-    if args.steps_per_dispatch > 1 and args.deadline_ms > 0:
-        # deadline masking interacts with the host every round; a
-        # captured chunk has no host-visible round boundary inside it
+    nprocs = _check_coordinator_flags(args)
+    if args.guard_recompiles:
+        if args.coordinator or args.steps_per_dispatch > 1:
+            raise ValueError("--guard-recompiles needs the per-step loop "
+                             "(--steps-per-dispatch 1, no --coordinator): "
+                             "the chunked tail and the hybrid's "
+                             "catch-up/rejoin paths compile programs after "
+                             "warmup by design")
+        raise NotImplementedError("--guard-recompiles (the JAX compile "
+                                  "guard) is ROADMAP A11, not ported")
+    if args.steps_per_dispatch > 1 and (args.deadline_ms > 0
+                                        or args.coordinator):
+        # deadline masking and the processes' sync interact with the host
+        # every round; a captured chunk has no host-visible round
+        # boundary inside it
         raise ValueError("--steps-per-dispatch > 1 needs the "
                          "single-process exact path (no --deadline-ms / "
                          "--coordinator)")
@@ -2058,8 +2118,8 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
         raise ValueError("max_lag must be >= 0")
     dp, sp, ep = args.dp, args.sp, args.ep
     # the batch's rows shard over the dp x ep data ranks (ep doubles as
-    # a data axis), dp-major
-    shards = dp * ep
+    # a data axis), dp-major; in the hybrid over the processes first
+    shards = dp * ep * (nprocs if is_hybrid(args) else 1)
     micro = microbatches(args)
     b = args.batch or 2 * shards * micro * args.grad_accum
     t = args.seq or 32 * sp
@@ -2127,6 +2187,9 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
     device = "cuda" if args.device.startswith("cuda") else args.device
     backend = args.dist_backend or ("nccl" if device == "cuda" else "gloo")
     world = dp * model_par
+    if args.coordinator and not is_hybrid(args) and world % nprocs:
+        raise ValueError(f"the mesh's {world} ranks (dp*tp*sp*pp*ep) must "
+                         f"divide over --num-processes {nprocs}")
     if world > 1:
         check_backend(backend, device, world)
         if args.steps_per_dispatch > 1 and device == "cuda" \
@@ -2139,6 +2202,34 @@ def _check_train_flags(args: argparse.Namespace) -> "tuple[int, int, str]":
                 f"needs --dist-backend ipc (the {backend} wire stages "
                 f"payloads through the host)")
     return b, t, backend
+
+
+def is_hybrid(args: argparse.Namespace) -> bool:
+    """``--coordinator`` with ``--deadline-ms``: each process's local mesh
+    exact, the processes' sync deadline-gated through the store."""
+    return bool(args.coordinator) and args.deadline_ms > 0
+
+
+def _check_coordinator_flags(args: argparse.Namespace) -> int:
+    """The multi-process flags; returns the process count (1 without
+    ``--coordinator``)."""
+    if not args.coordinator:
+        if args.num_processes is not None or args.process_id is not None:
+            raise ValueError("--num-processes / --process-id need "
+                             "--coordinator")
+        return 1
+    n, pid = args.num_processes, args.process_id
+    if n is None or pid is None:
+        raise ValueError("--coordinator needs --num-processes and "
+                         "--process-id")
+    if n < 1 or not 0 <= pid < n:
+        raise ValueError(f"--process-id {pid} must be in 0..{n - 1} "
+                         f"(--num-processes {n})")
+    if is_hybrid(args) and max(args.tp, args.ep, args.pp) > 1:
+        raise ValueError("--coordinator --deadline-ms runs a dp x sp local "
+                         "mesh in each process; a local --tp / --ep / --pp "
+                         "mesh is ROADMAP A9 part 2")
+    return n
 
 
 def run_train(args: argparse.Namespace, params: "dict | None" = None,
@@ -2167,18 +2258,35 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
     and its ``min_bucket_count``. ``on_step(i, state)`` (one rank only),
     when given, is called after step ``i``'s update with the live
     ``TrainState`` (after each chunk's last step under
-    ``--steps-per-dispatch``). Raises ValueError on bad flags,
-    NotImplementedError on what the port has not ported, RuntimeError
-    when CUDA is asked for and absent."""
+    ``--steps-per-dispatch``). With ``--coordinator`` this process joins
+    the others through the coordinator's store
+    (:func:`_train_coordinated`); under ``--deadline-ms`` the report adds
+    ``hybrid`` (per round ``valid_peers``, ``n_masked``, ``n_partial``
+    and the phases' ``times``; the peak RSS) and ``param_checksum``.
+    Raises ValueError on bad flags, NotImplementedError on what the port
+    has not ported, RuntimeError when CUDA is asked for and absent."""
     from akka_allreduce_tpu_torch.device import resolve_device
-    from akka_allreduce_tpu_torch.models.train import tree_map
-    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
 
     device = resolve_device(args.device)
     _b, _t, backend = _check_train_flags(args)
+    if args.coordinator:
+        return _train_coordinated(args, params, attn_impl, device, backend,
+                                  on_step)
     world = args.dp * args.sp * args.ep * args.tp * args.pp
     if world == 1:
         return _train(args, params, attn_impl, None, device, on_step)
+    return _spawn_train(args, params, attn_impl, device, backend, world,
+                        on_step)
+
+
+def _spawn_train(args: argparse.Namespace, params, attn_impl, device,
+                 backend: str, world: int, on_step=None,
+                 join: "tuple | None" = None) -> dict:
+    """Train on ``world`` spawned rank processes (this process's share
+    of them with ``join``, see ``spawn_ranks``); rank 0's report with
+    every rank's ``rank_info`` as ``ranks``."""
+    from akka_allreduce_tpu_torch.models.train import tree_map
+    from akka_allreduce_tpu_torch.parallel.group import spawn_ranks
     if on_step is not None:
         raise ValueError("on_step observes one rank's state: pp x dp x ep "
                          "x sp x tp = 1")
@@ -2189,9 +2297,39 @@ def run_train(args: argparse.Namespace, params: "dict | None" = None,
         lambda p: p.detach().cpu(), params)
     reports = spawn_ranks(_train_rank, world, backend, device.type, args,
                           host, attn_impl, sp=args.sp, ep=args.ep,
-                          tp=args.tp, pp=args.pp)
+                          tp=args.tp, pp=args.pp, join=join)
     report = reports[0]
     report["ranks"] = [r.pop("rank_info") for r in reports]
+    return report
+
+
+def _train_coordinated(args: argparse.Namespace, params, attn_impl, device,
+                       backend: str, on_step=None) -> dict:
+    """``train --coordinator``: join the coordinator's store (process 0
+    hosts it), train, and leave only when every process has finished
+    (process 0's store serves the others to their last read). The hybrid
+    runs the process's local dp x sp mesh (in this process at a local
+    world of one); the exact path runs this process's share of one mesh
+    over every process's ranks."""
+    from akka_allreduce_tpu_torch.runtime import coordinator
+    nprocs, pid = args.num_processes, args.process_id
+    coordinator.initialize_distributed(args.coordinator, nprocs, pid)
+    try:
+        if is_hybrid(args):
+            local = args.dp * args.sp
+            report = (_train(args, params, attn_impl, None, device, on_step)
+                      if local == 1 else
+                      _spawn_train(args, params, attn_impl, device, backend,
+                                   local, on_step))
+        else:
+            host, port = coordinator.parse_address(args.coordinator)
+            world = args.dp * args.sp * args.ep * args.tp * args.pp
+            report = _spawn_train(args, params, attn_impl, device, backend,
+                                  world, on_step,
+                                  join=(host, port, pid, nprocs))
+        coordinator.finish(timeout_s=max(60.0, 4 * args.deadline_ms / 1e3))
+    finally:
+        coordinator.shutdown()
     return report
 
 
@@ -2241,7 +2379,16 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     sp_j = 0 if group is None else group.axis_index("sp")
     log = print if rank == 0 else (lambda *a, **k: None)
     b, t, backend = _check_train_flags(args)
-    local_b, local_t = b // (args.dp * args.ep), t // args.sp
+    hybrid = is_hybrid(args)
+    # the hybrid's processes take the batch's row blocks, each over its
+    # local dp
+    procs, pid = ((args.num_processes, args.process_id) if hybrid
+                  else (1, 0))
+    local_b, local_t = b // (procs * args.dp * args.ep), t // args.sp
+    row_blk += pid * args.dp
+    if pid:  # the master's process narrates (and a catching-up worker)
+        log = lambda *a, **k: None  # noqa: E731
+    hybrid_report = None
     sharded = is_sharded(group)
     log_every = max(1, args.log_every)
     corpus = None
@@ -2273,8 +2420,9 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         cfg, plan_report = _collective_plan(args, cfg, state.params, group,
                                             device, log)
     sync_times: list = []
-    deadline = args.deadline_ms > 0
-    step = make_train_step(cfg, group, sync_times, dynamic_valid=deadline)
+    deadline = args.deadline_ms > 0 and not hybrid
+    step = None if hybrid else make_train_step(cfg, group, sync_times,
+                                               dynamic_valid=deadline)
     trainer = None
     if deadline:
         from akka_allreduce_tpu_torch.runtime.pacer import RoundClock
@@ -2450,6 +2598,12 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                           (losses, step_ms, min_counts, dispatched, clocks,
                            transfer_ms), group, saved_layout)
             first = args.steps
+        if hybrid:  # every round across the processes
+            hybrid_report = _train_hybrid(
+                args, cfg, state, group, build_batch, device, start, mgr,
+                xprof, telem, log, on_step, saved_layout,
+                (losses, step_ms, min_counts, dispatched, clocks), b * t)
+            first = args.steps
         for i in range(first, args.steps):
             xprof.tick(i)
             t0 = time.perf_counter()
@@ -2457,7 +2611,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             ex0 = ra.EXCHANGE_SECONDS
             step_rng, batch = build_batch(i)
             tokens = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-            with telem.step_span(step=i) as ds:
+            with telem.step_span(step=i) as ds, xprof.step(i):
                 if trainer is None:
                     metrics = step(state, tokens)
                 else:
@@ -2501,7 +2655,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
             log(f"lossy rounds: {trainer.masked_round_count}/"
                 f"{len(trainer.reports)} had masked contributions "
                 f"({fell} all-masked, ran exact for liveness)", flush=True)
-        if mgr is not None and args.steps > start \
+        if mgr is not None and args.steps > start and not hybrid \
                 and mgr.latest_step() != args.steps - 1:
             params_, opt_, ema_ = saved_layout()
             mgr.save(args.steps - 1, params_, opt_,
@@ -2615,6 +2769,9 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         multi.close()  # the graph's memory back before the next run
     if plan_report is not None:
         report["collective_plan"] = plan_report
+    if hybrid:
+        report["hybrid"] = hybrid_report
+        report["param_checksum"] = _param_checksum(state.params)
     if trainer is not None:
         report["deadline"] = {
             "deadline_ms": args.deadline_ms, "max_lag": args.max_lag,
@@ -2666,6 +2823,242 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                     expert_residual_checksum=_bits_checksum(
                         planes["expert"]))
     return report
+
+
+# the connections a process's store client moves a payload's parts on
+# (scripts/store_probe.py measures one against several)
+STORE_LANES = 4
+
+
+def _train_hybrid(args: argparse.Namespace, cfg, state, group,
+                  build_batch, device, start: int, mgr, xprof, telem, log,
+                  on_step, saved_layout, sinks: tuple,
+                  step_tokens: int) -> dict:
+    """The hybrid's round loop (the JAX ``train`` under ``--coordinator
+    --deadline-ms``): ``catch_up`` before each round, then the round
+    (``runtime/dcn_train.py``); driven by the trainer's round, not a
+    loop counter, so every process stops at the same round. A stall
+    beyond the retention window rejoins from the master's snapshot in
+    the shared ``--ckpt-dir``. The master's process serves snapshot
+    requests every 4th round and saves the checkpoints, at the applied
+    frontier. ``--straggle-prob`` makes a worker process sleep 1.5
+    deadlines before a round when its draw (``step_rng.random(nprocs)
+    [process]`` after the batch) falls under it. Returns the report's
+    ``hybrid`` entry."""
+    from akka_allreduce_tpu_torch.protocol.kv import StoreKv
+    from akka_allreduce_tpu_torch.runtime.coordinator import parse_address
+    from akka_allreduce_tpu_torch.runtime.dcn_train import (
+        DcnDeadlineTrainer, StalledBeyondRetention)
+    losses, step_ms, min_counts, dispatched, clocks = sinks
+    nprocs, pid = args.num_processes, args.process_id
+    lead = group is None or group.rank == 0
+    tracer = None
+    if args.trace_file and lead:
+        from akka_allreduce_tpu_torch.runtime.tracing import Tracer
+        tracer = Tracer()
+    wire = grad_wire(args)
+    dcn = DcnDeadlineTrainer(
+        cfg, group, deadline_s=args.deadline_ms / 1e3,
+        client=(StoreKv.connect(*parse_address(args.coordinator),
+                                lanes=STORE_LANES) if lead else None),
+        rank=pid, num_processes=nprocs,
+        # the DCN wire of an ef8 local sync is the stochastic int8 wire
+        # (zero-mean across rounds: it needs no residual)
+        wire="int8" if wire == "ef8" else wire, max_lag=args.max_lag,
+        retain_rounds=args.retain_rounds, th_allreduce=args.th_allreduce,
+        down_after=args.down_after,
+        dcn_bucket_elems=args.dcn_bucket_elems or None,
+        check_every=args.check_every, hb_timeout_s=args.master_timeout_s,
+        tracer=tracer)
+    if state.residual is not None:
+        dcn.set_ef_state(state.residual)
+    # the master's process owns the checkpoint writer (the parameters are
+    # replicated); every process restores from the shared directory
+    saver = mgr if pid == 0 else None
+
+    def save(r: int, force: bool = False) -> None:
+        if saver is None or not (force or saver.due(r)):
+            return
+        params_, opt_, ema_ = saved_layout()
+        saver.save(r, params_, opt_, {"data_step": r}, force=True,
+                   sync=state.residual, group=group, ema=ema_)
+
+    def serve_snapshot_requests(rep) -> None:
+        # master: a beyond-retention straggler asked to rejoin; polled
+        # every 4th round (the request scan is a directory read)
+        if not dcn.master or rep.round % 4:
+            return
+        if not dcn.pending_snapshot_requests():
+            return
+        if saver is None:
+            print("WARNING: rejoin snapshot requested but no --ckpt-dir; "
+                  "the straggler cannot recover", file=sys.stderr)
+            return
+        save(rep.round, force=True)
+        dcn.publish_snapshot_step(rep.round)
+        log(f"served rejoin snapshot at step {rep.round}")
+
+    def rejoin_from_snapshot(exc) -> None:
+        # worker: stalled beyond retention; restore the master's snapshot
+        from akka_allreduce_tpu_torch.models.train import (
+            load_optimizer_state, tree_leaves)
+        from akka_allreduce_tpu_torch.runtime.checkpoint import (
+            CheckpointConfig, restore_or_init)
+        if not args.ckpt_dir:
+            raise exc
+        if lead:
+            print(f"process {pid}: {exc}; requesting rejoin snapshot")
+        prev = dcn.request_snapshot()
+        snap = dcn.wait_snapshot(prev,
+                                 timeout_s=max(120.0, 8 * dcn.deadline_s + 60))
+        params_like, opt_like, ema_like = saved_layout()
+        s2, loaded, opt_state, _extra, _m = restore_or_init(
+            CheckpointConfig(args.ckpt_dir), params_like, opt_like,
+            ema=ema_like)
+        if s2 <= snap:
+            raise RuntimeError(
+                f"rejoin restore found step {s2 - 1} but the master "
+                f"published {snap} — is --ckpt-dir on storage shared with "
+                f"the master?")
+        with torch.no_grad():
+            for live, saved in zip(tree_leaves(state.params),
+                                   tree_leaves(loaded)):
+                live.copy_(saved)
+        state.step = int(opt_state["count"])
+        load_optimizer_state(state, opt_state["optimizer"])
+        dcn.reset_to_round(s2)
+        if lead:
+            print(f"process {pid}: elastic rejoin via checkpoint snapshot "
+                  f"at step {s2 - 1}")
+
+    def after_round(rep, drained: bool = False) -> None:
+        now = time.perf_counter()
+        t0 = dispatched[-1] if dispatched else now
+        step_ms.append((now - max(t0, clocks["read"])) * 1e3)
+        clocks["read"] = now
+        losses.append(rep.loss)
+        min_counts.append(min(rep.bucket_counts))
+        telem.on_step(step_tokens, loss=rep.loss)
+        serve_snapshot_requests(rep)
+        if rep.downed != clocks.get("downed", ()):
+            # membership changes always narrate: auto-down is the event an
+            # operator must see
+            log(f"auto-downed processes now: {list(rep.downed) or 'none'} "
+                f"(round {rep.round + 1})")
+            clocks["downed"] = rep.downed
+        save(rep.round)
+        if on_step is not None:
+            on_step(rep.round, state)
+        clocks["window"] += 1
+        if drained or rep.round == start \
+                or (rep.round + 1) % max(1, args.log_every) == 0:
+            pace = step_tokens * clocks["window"] / (now - clocks["tic"])
+            partial = f", {rep.n_partial} partial" if rep.n_partial else ""
+            log(f"step {rep.round + 1:4d}: loss {rep.loss:.4f} "
+                + ("(drained)" if drained else f"({pace:.0f} tok/s)")
+                + f" [masked {rep.n_masked}/{nprocs} procs{partial}]",
+                flush=True)
+            clocks["tic"], clocks["window"] = time.perf_counter(), 0
+
+    dcn.set_start_round(start)
+    rss = _RssPeak()
+    try:
+        while True:
+            try:
+                replayed = dcn.catch_up(state)
+            except StalledBeyondRetention as exc:
+                rejoin_from_snapshot(exc)
+                continue
+            if replayed and lead:
+                print(f"process {pid}: caught up {replayed} rounds from DCN "
+                      f"retention (stall ended at round {dcn.round})")
+            i = dcn.round
+            if i >= args.steps:
+                break
+            xprof.tick(i)
+            dispatched.append(time.perf_counter())
+            step_rng, batch = build_batch(i)
+            tokens = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+            if args.straggle_prob and pid > 0 \
+                    and step_rng.random(nprocs)[pid] < args.straggle_prob:
+                # a straggler on the real clock: this process publishes
+                # late (the master, which paces the rounds, never does)
+                time.sleep(1.5 * dcn.deadline_s)
+            try:
+                rep = dcn.run_round(state, tokens)
+            except StalledBeyondRetention as exc:
+                rejoin_from_snapshot(exc)
+                continue
+            if rep is not None:
+                after_round(rep)
+        # one round at a time, so every checkpoint pairs the round with
+        # the parameters applied through it
+        while dcn.in_flight:
+            after_round(dcn.harvest(state), drained=True)
+        log(f"lossy rounds: {dcn.masked_round_count}/{len(dcn.reports)} "
+            f"had masked processes", flush=True)
+        if tracer is not None:
+            n = tracer.write_jsonl(args.trace_file)
+            log(f"wrote {n} trace events to {args.trace_file}")
+        final = args.steps - 1
+        if args.steps > start and saver is not None \
+                and saver.latest_step() != final:
+            save(final, force=True)
+        # a straggler whose rejoin request landed in the master's last
+        # rounds gets the final checkpoint on the way out
+        if dcn.master and saver is not None and args.steps > start \
+                and dcn.pending_snapshot_requests():
+            dcn.publish_snapshot_step(final)
+            log(f"served rejoin snapshot at step {final} (final)")
+    finally:
+        dcn.close()
+        rss.stop()
+    return {"process_id": pid, "num_processes": nprocs, "wire": dcn.wire,
+            "deadline_ms": args.deadline_ms, "max_lag": args.max_lag,
+            "rounds": [{"step": rep.round,
+                        "valid_peers": list(rep.valid_peers),
+                        "n_masked": rep.n_masked, "n_partial": rep.n_partial,
+                        "bucket_counts": list(rep.bucket_counts),
+                        "caught_up": rep.caught_up,
+                        "downed": list(rep.downed), "loss": rep.loss,
+                        "times": rep.times}
+                       for rep in dcn.reports],
+            "masked_round_count": dcn.masked_round_count,
+            # this process's resident memory at the first round and its
+            # peak over the rounds (the master's holds the store's
+            # payloads)
+            "start_rss_gb": rss.start / 1e9, "peak_rss_gb": rss.peak / 1e9}
+
+
+class _RssPeak:
+    """This process's resident memory sampled every 50 ms on a thread
+    from construction to :meth:`stop`: ``start`` the first sample and
+    ``peak`` the largest, in bytes (the kernel's lifetime peak would
+    count what a long-lived process ran before)."""
+
+    def __init__(self, interval_s: float = 0.05):
+        import threading
+        self.peak = 0
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._sample()
+        self.start = self.peak
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(interval_s,),
+                                        daemon=True, name="rss-peak")
+        self._thread.start()
+
+    def _sample(self) -> None:
+        with open("/proc/self/statm") as f:
+            self.peak = max(self.peak, int(f.read().split()[1]) * self._page)
+
+    def _run(self, interval_s: float) -> None:
+        while not self._stop.wait(interval_s):
+            self._sample()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        self._sample()
 
 
 def _bits_checksum(x: torch.Tensor) -> int:
@@ -2788,6 +3181,14 @@ class _XprofWindow:
             self._state = 1
         elif self._state == 1 and i >= self.start + self.n:
             self._stop()
+
+    def step(self, i: int):
+        """A ``train_step i`` range around step ``i``'s work in the trace
+        (on the card also a span over the kernels it launched); nothing
+        outside the window."""
+        if self._state != 1:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"train_step {i}")
 
     def _stop(self) -> None:
         self._state = 2

@@ -700,8 +700,14 @@ def check_backend(backend: str, device: str, world: int) -> None:
 
 
 def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
-            store: str, fn: Callable, args: tuple, results) -> None:
+            store: "str | tuple", fn: Callable, args: tuple, results) -> None:
+    index = rank
     try:
+        # a joined mesh: (coordinator host, port, this process's first
+        # global rank); else the path of a file store
+        joined = isinstance(store, tuple)
+        if joined:
+            rank += store[2]
         dev = rank_device(device, rank, backend)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -709,9 +715,17 @@ def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
                               else max(1, (os.cpu_count() or 1) // world))
         # ipc: gloo carries the control plane, the payloads go through
         # peer memory
-        dist.init_process_group("gloo" if backend == "ipc" else backend,
-                                init_method=f"file://{store}",
-                                rank=rank, world_size=world)
+        pg_backend = "gloo" if backend == "ipc" else backend
+        if joined:
+            tcp = dist.TCPStore(store[0], store[1], is_master=False,
+                                wait_for_workers=False)
+            dist.init_process_group(pg_backend,
+                                    store=dist.PrefixStore("mesh", tcp),
+                                    rank=rank, world_size=world)
+        else:
+            dist.init_process_group(pg_backend,
+                                    init_method=f"file://{store}",
+                                    rank=rank, world_size=world)
         sp, ep, tp, pp = mesh
         group = RankGroup(rank, world, backend, dev, sp, ep=ep, tp=tp,
                           pp=pp)
@@ -724,9 +738,9 @@ def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
         finally:
             free_axis_subgroups()
             dist.destroy_process_group()
-        results.put((rank, True, pickle.dumps(_to_cpu(out))))
+        results.put((index, True, pickle.dumps(_to_cpu(out))))
     except Exception:  # noqa: BLE001 - the rank's boundary: reported
-        results.put((rank, False, traceback.format_exc()))
+        results.put((index, False, traceback.format_exc()))
     finally:
         sys.stdout.flush()
         sys.stderr.flush()
@@ -744,32 +758,49 @@ def _to_cpu(obj: Any) -> Any:
 
 def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
                 *args, sp: int = 1, ep: int = 1, tp: int = 1,
-                pp: int = 1, timeout: float = 900.0) -> list:
+                pp: int = 1, timeout: float = 900.0,
+                join: Optional[tuple] = None) -> list:
     """Run ``fn(group, *args)`` in ``world`` new processes, the mesh
     ``(pp, dp, ep, sp, tp)`` with ``dp = world / (pp ep sp tp)``, and return
     their results in rank order (tensors come back on the CPU). A rank
     that raises, dies or outlasts ``timeout`` seconds ends every rank and
-    raises here with that rank's traceback."""
+    raises here with that rank's traceback.
+
+    ``join = (host, port, process_id, num_processes)`` makes this
+    process's share of a mesh that spans ``num_processes`` processes
+    (each calls ``spawn_ranks`` with the same mesh): it runs ranks
+    ``process_id * world / num_processes`` onward, ``world /
+    num_processes`` of them, whose process group meets through the
+    coordinator's TCPStore at ``host:port`` (under the prefix ``mesh``),
+    and returns their results."""
     check_backend(backend, device, world)
     if world < 1 or min(sp, ep, tp, pp) < 1 \
             or world % (sp * ep * tp * pp):
         raise ValueError(f"world must be >= 1 and a multiple of pp x ep x "
                          f"sp x tp; got world={world}, pp={pp}, ep={ep}, "
                          f"sp={sp}, tp={tp}")
+    local = world
+    if join is not None:
+        host, port, pid, nprocs = join
+        if world % nprocs:
+            raise ValueError(f"the mesh's {world} ranks must divide over "
+                             f"{nprocs} processes")
+        local = world // nprocs
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks-")
     results = ctx.Queue()
+    store = (os.path.join(tmp, "store") if join is None
+             else (host, int(port), pid * local))
     procs = [ctx.Process(target=_worker, daemon=True,
                          args=(r, world, (sp, ep, tp, pp), backend, device,
-                               os.path.join(tmp, "store"), fn, args,
-                               results))
-             for r in range(world)]
+                               store, fn, args, results))
+             for r in range(local)]
     try:
         for p in procs:
             p.start()
         got: dict = {}
         deadline = time.monotonic() + timeout
-        while len(got) < world:
+        while len(got) < local:
             try:
                 rank, ok, payload = results.get(timeout=1.0)
             except queue_mod.Empty:
@@ -788,7 +819,7 @@ def spawn_ranks(fn: Callable, world: int, backend: str, device: str,
             got[rank] = pickle.loads(payload)
         for p in procs:
             p.join(timeout=60)
-        return [got[r] for r in range(world)]
+        return [got[r] for r in range(local)]
     finally:
         for p in procs:
             if p.is_alive():

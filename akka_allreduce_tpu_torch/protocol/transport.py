@@ -13,8 +13,8 @@ probe exposes its entire outbound traffic to assertions.
 
 Messages are handed over by reference: a payload tensor stays on the
 device it was made on, and the receiver's buffer copies it from there.
-(The TCP transport that carries the same surface between processes is
-ROADMAP A4's third part.)
+(``protocol/tcp.py`` carries the same surface between processes over
+TCP, and ``protocol/kv.py`` through the coordinator's key-value store.)
 """
 
 from __future__ import annotations

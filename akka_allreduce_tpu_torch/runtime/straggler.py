@@ -27,8 +27,9 @@ on every round's mask and fallback: the wires' collectives desynchronise
 if one rank falls back alone. Here they agree because every clock is fed
 the same scripted offsets (``cli.py train`` draws them from the step's
 seeded generator on every rank). Real wall-clock arrivals, which differ
-from process to process, need a store shared by the ranks; that is
-ROADMAP.md A9 (``runtime/coordinator.py`` on a ``TCPStore``).
+from process to process, reach one clock, the master's, through the
+coordinator's store: ``runtime/dcn_train.py`` (``train --coordinator
+--deadline-ms``), whose master publishes the mask every process reads.
 """
 
 from __future__ import annotations

@@ -569,8 +569,38 @@ build) and runs every such batch there as a fresh spawn would:
    one-rank step, a fallback): the rounds the draws predict
    (``min_bucket_count`` 1: the expert sync at dp 1 is one rank's),
    rank 0's flash kernels once a layer a step and one masked reduce a
-   step, wall ms a step beside phase 25's exact run. The phase must end
+   step, wall ms a step beside phase 25's exact run; a torch.profiler
+   window on rank 0 over steps 2-5 (``--xprof-dir``, each step's work in
+   a ``train_step i`` range), split into each step's host span and the
+   device time of the kernels it launched, by kind, and their means over
+   the masked and the exact rounds (``a7c_profile``). The phase must end
    within ``A7C_SECONDS`` (120 s).
+28. training across processes (ROADMAP A9 part 1; runs after phase 27,
+   on the world-2 pool's ranks: as ``ipc`` ranks, and as the two
+   processes of ``train --coordinator``, each rank calling the command's
+   ``cli.run_train`` with its own ``--process-id``, joined through rank
+   0's TCPStore). (a) ``A9_MODEL`` (``A7_PARITY_MODEL`` without
+   experts: depth 2 at the flagship's widths, f32, TF32 off), batch 4 x
+   512, 3 steps, ``--deadline-ms --max-lag 0 --dcn-bucket-elems
+   1048576``: (a1) with a deadline no round misses, each step's loss
+   within ``A9_LOSS_TOL`` (1e-5 relative) of the same command at ``--dp
+   2`` on ``ipc`` ranks, no round masked, both processes' losses and
+   parameter checksums equal; (a2) with ``--straggle-prob`` from
+   ``a9_straggle`` (process 1 late in round 1: it sleeps 1.5 deadlines,
+   the deadline ``A9_DEADLINE_FACTOR`` times (a1)'s publish on the
+   master, at least 2 s, so that none of its buckets lands in time):
+   round 1 masked on both processes, process 1's report of it
+   ``valid_peers [True, False]`` (it applied the recorded update without
+   its own contribution), the checksums equal (``--check-every 1``: the
+   master compared the CRCs every round), and round 2's loss outside
+   ``A9_LOSS_TOL`` of (a1)'s (the control). (b) the flagship as two
+   such processes on the bf16 wire (``--bf16-grads``, one whole-vector
+   bucket of 1.08 GB in the store's 6 MiB parts), 3 steps: each
+   process's last round split into its grad step, flatten and D2H,
+   encode, store set (MB/s), report to mask, fetch (MB/s), decode and
+   mean, H2D and apply, and its resident memory, beside phase 9's
+   exact dp=2 step; rows 10-12 8 launches a step in each process, row 1
+   none. The phase must end within ``A9_SECONDS`` (200 s).
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
@@ -586,7 +616,8 @@ bf16 flash, masked reduce, paged and transport rows with phase 25's,
 reduce and transport rows with phase 26's, ``pp_launches`` apart on
 rows 1 and 10-12; the bf16 flash, masked reduce, ef8 block and
 transport rows with phase 27's, ``a7c_launches`` apart on rows 1, 5-7
-and 10-12), and last ``{"ok": true, "device": {...}}``.
+and 10-12; the bf16 and f32 flash rows with phase 28's process 0's,
+``a9_launches`` apart), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -598,6 +629,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -7776,6 +7808,92 @@ def a7c_deadline(torch, report: dict, prob: float, want: list,
     return row
 
 
+# (c)'s torch.profiler window on rank 0: steps 2..A7C_PROFILE_STEPS + 1
+# of the deadline run (its masked and exact rounds), each step's work in
+# a ``train_step i`` range (``cli train --xprof-dir``)
+A7C_PROFILE_STEPS = 4
+
+
+def trace_step_split(path: str) -> dict:
+    """Per ``train_step i`` range of a ``cli train --xprof-dir`` Chrome
+    trace: the host span of the step's work (ms), the device time of the
+    kernels, copies and fills it launched (ms, matched to their launches
+    by correlation id) by kind (flash kernels, GEMMs, the masked reduce,
+    the ipc transport, copies, the rest), the span from its first to its
+    last on the device, and the device's idle gap before its first (after
+    the previous step's last)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    steps = sorted((e["ts"], e["ts"] + e["dur"], int(e["name"].split()[1]))
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("train_step "))
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {i: {"host_ms": (hi - lo) / 1e3, "device_ms": 0.0,
+               "by_kind_ms": {}} for lo, hi, i in steps}
+    edges: dict = {}  # step -> [first start, last end] on the device
+
+    def kind(e) -> str:
+        name = e["name"].lower()
+        if e.get("cat") in ("gpu_memcpy", "gpu_memset"):
+            return "copies"
+        for key, words in (("flash", ("flash",)),
+                           ("masked_reduce", ("masked_reduce",)),
+                           ("transport", ("transport", "copy_stretch")),
+                           ("gemm", ("gemm", "xmma", "cutlass", "sm90_",
+                                     "nvjet"))):
+            if any(w in name for w in words):
+                return key
+        return "other"
+
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        at = launched.get(e.get("args", {}).get("correlation"))
+        step = next((i for lo, hi, i in steps
+                     if at is not None and lo <= at <= hi), None)
+        if step is None:
+            continue
+        row = out[step]
+        row["device_ms"] += e["dur"] / 1e3
+        k = kind(e)
+        row["by_kind_ms"][k] = row["by_kind_ms"].get(k, 0.0) + e["dur"] / 1e3
+        span = edges.setdefault(step, [e["ts"], e["ts"] + e["dur"]])
+        span[0], span[1] = min(span[0], e["ts"]), max(span[1],
+                                                       e["ts"] + e["dur"])
+    last_end = None
+    for step in sorted(edges):
+        first, end = edges[step]
+        out[step]["device_span_ms"] = (end - first) / 1e3
+        out[step]["gap_before_ms"] = (None if last_end is None
+                                      else (first - last_end) / 1e3)
+        last_end = end
+    return out
+
+
+def a7c_profile(trace: str, want: list) -> dict:
+    """(c)'s profiler window split into its steps, and their means over
+    the masked and the exact rounds."""
+    split = trace_step_split(trace)
+    means = {}
+    for label, pick in (("masked", lambda r: r["n_masked"] > 0),
+                        ("exact", lambda r: r["n_masked"] == 0)):
+        rows = [split[i] for i in split if pick(want[i])]
+        kinds = sorted({k for r in rows for k in r["by_kind_ms"]})
+        means[label] = {
+            "steps": [i for i in split if pick(want[i])],
+            "host_ms": statistics.fmean(r["host_ms"] for r in rows)
+            if rows else None,
+            "device_ms": statistics.fmean(r["device_ms"] for r in rows)
+            if rows else None,
+            "device_span_ms": statistics.fmean(
+                r.get("device_span_ms", 0.0) for r in rows) if rows else None,
+            "by_kind_ms": {k: statistics.fmean(
+                r["by_kind_ms"].get(k, 0.0) for r in rows) for k in kinds}}
+    return {"steps": split, "means": means}
+
+
 def a7c_straggle(draws) -> float:
     """(c)'s --straggle-prob over all of ``draws``: the first midpoint
     between sorted draws whose rounds have a clean step 1, a step that
@@ -7815,6 +7933,9 @@ def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
     deadline_argv = a7c_argv(A7_MOE_ARGV, ["--ep", "2"], [
         "--deadline-ms", str(DEADLINE_MS), "--straggle-prob", repr(prob)])
     deadline_argv = set_flag(deadline_argv, "--steps", A7C_DEADLINE_STEPS)
+    trace_dir = tempfile.mkdtemp(prefix="a7c-trace-")
+    deadline_argv += ["--xprof-dir", trace_dir, "--xprof-steps",
+                      str(A7C_PROFILE_STEPS)]
     rng = np.random.default_rng(0)
     mask_batch = rng.integers(0, A7C_MASK_MODEL["vocab_size"],
                               size=A7C_MASK_BATCH, dtype=np.int32)
@@ -7876,6 +7997,9 @@ def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
                              f"inside the bitwise check: {c_row}")
     deadline = a7c_deadline(torch, runs["deadline"], prob, want_rounds,
                             phase25_ms)
+    profile = a7c_profile(runs["deadline"]["xprof_trace"], want_rounds)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    emit("a7c_profile", window_steps=A7C_PROFILE_STEPS, **profile)
     totals["transport"] = 0
     for name in [n for n, _, _ in A7C_CHUNK_RUNS] + ["deadline"]:
         report = runs[name]
@@ -7899,6 +8023,215 @@ def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
         raise AssertionError(f"phase 27 took {seconds:.1f} s, over its "
                              f"{A7C_SECONDS} s")
     return {**totals, "mask": mask, "chunks": chunks, "deadline": deadline}
+
+
+# -- phase 28: training across processes (ROADMAP A9) --------------------
+# (a): A7_PARITY_MODEL without experts (depth 2 at the flagship's widths,
+# ~236M parameters, 0.94 GB f32), f32 with TF32 off, batch 4 x 512, as two
+# ``cli train --coordinator --deadline-ms`` processes: (a1) held to the
+# same command at --dp 2 on ipc ranks, (a2) with process 1 late in the
+# round the straggle draws predict
+A9_MODEL = {k: v for k, v in A7_PARITY_MODEL.items() if k != "moe_every"}
+A9_ARGV = ["train", "--d-model", str(A9_MODEL["d_model"]), "--n-heads",
+           str(A9_MODEL["n_heads"]), "--n-layers", str(A9_MODEL["n_layers"]),
+           "--d-ff", str(A9_MODEL["d_ff"]), "--vocab",
+           str(A9_MODEL["vocab_size"]), "--seq", "512", "--batch", "4",
+           "--lr", "1e-4", "--steps", "3", "--log-every", "1", "--device",
+           "cuda"]
+A9_PROCS = 2
+# lockstep (the --dp 2 run applies each step before the next), buckets
+# of 1Mi elements, the least retention; (a2) compares the CRCs every
+# round (a round's host copy and CRC of the parameters: (a1) holds the
+# processes' final parameters bitwise instead)
+A9_HYBRID = ["--max-lag", "0", "--dcn-bucket-elems", "1048576",
+             "--retain-rounds", "8"]
+# f32 sums in other orders (the token-weighted mean against the ranks'
+# allreduce), ~1e-7 a step, against a masked round's ~1e-4
+A9_LOSS_TOL = 1e-5
+# (a1)'s deadline, which no round may miss. (a2)'s: a late process
+# sleeps 1.5 deadlines, then publishes bucket by bucket, and the master
+# credits the buckets that landed by its deadline (a process with some
+# is partial, not masked). The master's deadline opens after its own
+# publish, P, so the late process lands nothing in time when 1.5 D > P
+# + D, i.e. D > 2 P: D is A9_DEADLINE_FACTOR times (a1)'s last round's
+# publish on the master (flatten, D2H, encode, set), at least
+# A9_DEADLINE_FLOOR_MS
+A9_CLEAN_DEADLINE_MS = 120000.0
+A9_DEADLINE_FACTOR = 2.5
+A9_DEADLINE_FLOOR_MS = 2000.0
+# (b): the flagship of phase 6 (541.1M parameters, bf16, batch 8 x 2048)
+# as two processes on the bf16 wire (1.08 GB a payload), one whole-vector
+# bucket (the store client's parts), 3 steps
+A9_FULL_STEPS = 3
+A9_FULL_ARGV = set_flag(TRAIN_ARGV, "--steps", A9_FULL_STEPS) + [
+    "--bf16-grads", "--max-lag", "0", "--retain-rounds", "8",
+    "--deadline-ms", str(A9_CLEAN_DEADLINE_MS)]
+A9_SECONDS = 200
+def a9_rank(group, argv: list) -> dict:
+    """One process of a phase-28 run on a pool rank: ``cli.run_train`` at
+    ``argv`` as process ``group.rank`` (the rank pool's processes have
+    torch and the card's context up already)."""
+    from akka_allreduce_tpu_torch import cli
+    return cli.run_train(cli.build_parser().parse_args(
+        argv + ["--process-id", str(group.rank)]))
+
+
+def a9_processes(torch, argv: list) -> list:
+    """``argv`` as A9_PROCS ``train --coordinator`` processes, the world-2
+    pool's ranks, joined through a store that rank 0 hosts on a free local
+    port; returns each process's train report."""
+    from akka_allreduce_tpu_torch.protocol.remote import free_port
+    coord = ["--coordinator", f"127.0.0.1:{free_port()}",
+             "--num-processes", str(A9_PROCS)]
+    (reports, _), = spawn_batch(torch, [("call", a9_rank, (argv + coord,))],
+                                world=A9_PROCS)
+    return reports
+
+
+def a9_straggle(late_draws) -> "tuple[float, int]":
+    """(a2)'s --straggle-prob from process 1's draws a round: the
+    midpoint that makes exactly one round after round 0 late, with a
+    round after it to show the control, and round 0 (the barrier) on
+    time. Returns (prob, the late round)."""
+    draws = [float(d) for d in late_draws]
+    for r in range(1, len(draws) - 1):
+        others = [d for i, d in enumerate(draws) if i != r]
+        above = [d for d in others if d > draws[r]]
+        if len(above) == len(others):
+            return (draws[r] + min(above)) / 2, r
+    raise ValueError(f"no --straggle-prob makes one round after round 0 "
+                     f"late with a round after it: {draws}")
+
+
+def a9_check_pair(name: str, pair: list, want_masked: list) -> dict:
+    """Both processes' reports of one run: the same losses, the same
+    final parameters (the CRC check ran every round), the rounds'
+    n_masked as predicted on both."""
+    r0, r1 = pair
+    masked = [[r["n_masked"] for r in rep["hybrid"]["rounds"]]
+              for rep in (r0, r1)]
+    row = {"run": name, "losses": r0["losses"],
+           "losses_equal": r0["losses"] == r1["losses"],
+           "checksums_equal": r0["param_checksum"] == r1["param_checksum"],
+           "n_masked": masked, "want_n_masked": want_masked}
+    if not (row["losses_equal"] and row["checksums_equal"]
+            and masked == [want_masked, want_masked]
+            and all(math.isfinite(x) for x in r0["losses"])):
+        raise AssertionError(f"phase 28 {name}: {row}")
+    return row
+
+
+def a9_split(report: dict) -> dict:
+    """The last round of a process, in the phases the trainer times: ms
+    each, the store's MB/s, and the process's peak RSS."""
+    t = report["hybrid"]["rounds"][-1]["times"]
+    return {"grad_ms": t["grad_s"] * 1e3,
+            "flatten_d2h_ms": t["flatten_d2h_s"] * 1e3,
+            "encode_ms": t["encode_s"] * 1e3,
+            "set_ms": t["set_s"] * 1e3,
+            "set_mb_per_s": t["set_bytes"] / t["set_s"] / 1e6,
+            "report_to_mask_ms": t["mask_wait_s"] * 1e3,
+            "fetch_ms": t["fetch_s"] * 1e3,
+            "fetch_mb_per_s": (t["fetch_bytes"] / t["fetch_s"] / 1e6
+                               if t["fetch_s"] else None),
+            "decode_mean_ms": t["decode_mean_s"] * 1e3,
+            "h2d_apply_ms": t["h2d_apply_s"] * 1e3,
+            "checksum_ms": t.get("checksum_s", 0.0) * 1e3,
+            "payload_gb": t["set_bytes"] / 1e9,
+            "start_rss_gb": report["hybrid"]["start_rss_gb"],
+            "peak_rss_gb": report["hybrid"]["peak_rss_gb"]}
+
+
+def phase_a9(torch, phase9_ms: "float | None" = None) -> dict:
+    """Phase 28: (a) the parity model as two ``train --coordinator
+    --deadline-ms`` processes, (a1) each step's loss within A9_LOSS_TOL
+    of ``--dp 2`` on ipc ranks, (a2) process 1 late in the round its
+    draws predict: that round masked on both processes (process 1
+    applies it without its own contribution), the CRCs equal, and the
+    next round's loss outside A9_LOSS_TOL of (a1)'s (the control); (b)
+    the flagship on the bf16 wire, its last round split into its phases
+    beside phase 9's exact dp=2 step (``phase9_ms``, the f32 wire's wall
+    ms a step in this run). Returns process 0's flash
+    launches: (a)'s f32 (the ipc reference's rank 0 added) and (b)'s
+    bf16."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    t0 = time.perf_counter()
+    base = parse(A9_ARGV)
+    steps = base.steps
+    draws = straggle_draws(steps, A9_PROCS, base.batch, base.seq,
+                           base.vocab)
+    prob, late = a9_straggle(draws[:, 1])
+    want_late = [int(i == late) for i in range(steps)]
+    (ref, _), = spawn_batch(torch, [(
+        "train", parse(A9_ARGV + ["--dp", str(A9_PROCS), "--dist-backend",
+                                  DIST]), None)])
+    t1 = time.perf_counter()
+    hybrid = A9_ARGV + A9_HYBRID
+    a1 = a9_processes(torch, hybrid + ["--deadline-ms",
+                                       str(A9_CLEAN_DEADLINE_MS)])
+    t2 = time.perf_counter()
+    a1_row = a9_check_pair("a1", a1, [0] * steps)
+    rel = [abs(h - w) / abs(w) for h, w in zip(a1_row["losses"],
+                                              ref["losses"])]
+    a1_row.update(dp2_losses=ref["losses"], rel_err=rel, tol=A9_LOSS_TOL,
+                  split={p: a9_split(rep) for p, rep in enumerate(a1)})
+    emit("a9_parity", **a1_row)
+    if max(rel) > A9_LOSS_TOL:
+        raise AssertionError(f"phase 28 (a1): {a1_row}")
+    t = a1[0]["hybrid"]["rounds"][-1]["times"]
+    publish_s = t["flatten_d2h_s"] + t["encode_s"] + t["set_s"]
+    deadline_ms = max(A9_DEADLINE_FLOOR_MS,
+                      A9_DEADLINE_FACTOR * publish_s * 1e3)
+    a2 = a9_processes(torch, hybrid + ["--deadline-ms", repr(deadline_ms),
+                                "--straggle-prob", repr(prob),
+                                "--check-every", "1"])
+    t3 = time.perf_counter()
+    a2_row = a9_check_pair("a2", a2, want_late)
+    worker_round = a2[1]["hybrid"]["rounds"][late]
+    after = late + 1
+    control = abs(a2_row["losses"][after] - a1_row["losses"][after]) \
+        / abs(a1_row["losses"][after])
+    a2_row.update(straggle_prob=prob, late_round=late,
+                  deadline_ms=deadline_ms, master_publish_s=publish_s,
+                  n_partial=[[r["n_partial"] for r in rep["hybrid"]["rounds"]]
+                             for rep in a2],
+                  worker_valid_peers=worker_round["valid_peers"],
+                  worker_caught_up=[r["caught_up"] for r in
+                                    a2[1]["hybrid"]["rounds"]],
+                  control_rel_err=control, tol=A9_LOSS_TOL)
+    emit("a9_straggle", **a2_row)
+    if worker_round["valid_peers"] != [True, False] \
+            or control <= A9_LOSS_TOL:
+        raise AssertionError(f"phase 28 (a2): {a2_row}")
+    full = a9_processes(torch, A9_FULL_ARGV)
+    t4 = time.perf_counter()
+    f_row = a9_check_pair("b", full, [0] * A9_FULL_STEPS)
+    n_layers = full[0]["config"]["n_layers"]
+    flash_want = dict.fromkeys(
+        FLASH_REPLACES, n_layers * A9_FULL_STEPS if DEVICE == "cuda" else 0)
+    launches = [rep["launches"] for rep in full]
+    masked_reduce = [rep["sync_launches"]["masked_reduce"] for rep in full]
+    f_row.update(split={p: a9_split(rep) for p, rep in enumerate(full)},
+                 phase9_exact_wall_ms_per_step=phase9_ms,
+                 wall_ms_per_step=[rep["wall_ms_per_step"] for rep in full],
+                 flash_launches=launches, expected_flash=flash_want,
+                 masked_reduce_launches=masked_reduce,
+                 params=full[0]["config"]["params"])
+    emit("a9_full_width", **f_row)
+    if launches != [flash_want] * A9_PROCS or masked_reduce != [0, 0]:
+        raise AssertionError(f"phase 28 (b): {f_row}")
+    f32 = {k: ref["launches"][k] + a1[0]["launches"][k]
+           + a2[0]["launches"][k] for k in FLASH_REPLACES}
+    seconds = time.perf_counter() - t0
+    emit("a9_phase_seconds", seconds=seconds, limit_s=A9_SECONDS,
+         parts={"dp2_reference": t1 - t0, "a1": t2 - t1, "a2": t3 - t2,
+                "b": t4 - t3},
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A9_SECONDS:
+        raise AssertionError(f"phase 28 took {seconds:.1f} s, over its "
+                             f"{A9_SECONDS} s")
+    return {"flash": launches[0], "flash_f32": f32}
 
 
 def chunk_of(world: int) -> int:
@@ -8056,6 +8389,9 @@ def run_phases(torch) -> int:
     # 27. the parallel axes' compositions: masked rounds on tp / pp / ep
     # meshes, graph chunks on tp, ep and pp, MoE under deadlines
     a7c = phase_a7c(torch, a7["moe_wall_ms_per_step"])
+    # 28. training across processes: two train --coordinator processes
+    # against --dp 2, a straggling process masked, the flagship's round
+    a9 = phase_a9(torch, dp["runs"]["none"]["wall_ms_per_step"])
     close_pools()  # every rank process ended before the closing lines
     # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
     # across processes, the serve trace
@@ -8097,15 +8433,18 @@ def run_phases(torch) -> int:
     kernels += flash_kernel_rows(flash["torch.bfloat16"], {
         k: trained["launches"][k] + deadline["flash"][k] + a5["flash"][k]
         + a5r["flash"][k] + a7["flash"][k] + a7pp["flash"][k]
-        + a7c["flash"][k] for k in FLASH_REPLACES})
-    for row in kernels[-3:]:  # phases 26's and 27's shares, rank 0's
+        + a7c["flash"][k] + a9["flash"][k] for k in FLASH_REPLACES})
+    for row in kernels[-3:]:  # phases 26-28's shares, rank 0's
         row["pp_launches"] = a7pp["flash"][row["name"]]
         row["a7c_launches"] = a7c["flash"][row["name"]]
+        row["a9_launches"] = a9["flash"][row["name"]]
     f32_launches = {k: parity["float32"]["flash_launches"][k]
                     + sp_launches["float32"]["flash"][k]
                     + defaults["one_card"]["flash"][k]
-                    for k in FLASH_REPLACES}
+                    + a9["flash_f32"][k] for k in FLASH_REPLACES}
     kernels += flash_kernel_rows(flash["torch.float32"], f32_launches, "_f32")
+    for row, k in zip(kernels[-3:], FLASH_REPLACES):
+        row["a9_launches"] = a9["flash_f32"][k]
     for kernel, (source, replaces) in SYNC_KERNELS.items():
         srow = sync[kernel]
         kernels.append({

@@ -81,6 +81,14 @@ def test_phase27_rehearsal(monkeypatch, capfd):
     (deadline,) = by["a7c_deadline"]
     assert deadline["rounds"] == deadline["predicted_rounds"]
     assert deadline["masked_round_count"] >= 1
+    # the profiler window on rank 0: steps 2-5 (indices 1-4), each its
+    # range, split into the masked and the exact rounds
+    (profile,) = by["a7c_profile"]
+    assert sorted(map(int, profile["steps"])) == [1, 2, 3, 4]
+    assert all(row["host_ms"] > 0 for row in profile["steps"].values())
+    means = profile["means"]
+    assert sorted(means["masked"]["steps"] + means["exact"]["steps"]) == [
+        1, 2, 3, 4]
     assert out["flash"] == dict.fromkeys(chip_smoke.FLASH_REPLACES, 0)
     assert out["sync"] == dict.fromkeys(chip_smoke.SYNC_KERNELS, 0)
     assert out["transport"] == 0

@@ -870,3 +870,47 @@ def test_pp_stacked_jax_train_state_converts_to_the_ports(tmp_path):
                     atol=1e-4 * float(v.abs().max()), err_msg=f"{j} {k}")
             else:
                 assert float(got["state"][j][k]) == float(v)
+
+
+COORD = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+         "--process-id", "0"]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (COORD + ["--deadline-ms", "50", "--tp", "2"], "ROADMAP A9 part 2"),
+    (COORD + ["--deadline-ms", "50", "--ep", "2", "--moe-experts", "4"],
+     "ROADMAP A9 part 2"),
+    (COORD + ["--deadline-ms", "50", "--pp", "2"], "ROADMAP A9 part 2"),
+    (COORD + ["--deadline-ms", "50", "--steps-per-dispatch", "2"],
+     "single-process exact path (no --deadline-ms / --coordinator)"),
+    (COORD + ["--steps-per-dispatch", "2", "--dp", "2"],
+     "single-process exact path (no --deadline-ms / --coordinator)"),
+    (COORD + ["--deadline-ms", "50", "--guard-recompiles"],
+     "--guard-recompiles needs the per-step loop"),
+    (["--guard-recompiles"], "ROADMAP A11"),
+    (["--coordinator", "127.0.0.1:1"], "needs --num-processes"),
+    (["--num-processes", "2"], "need --coordinator"),
+    (COORD[:4] + ["--process-id", "2"], "must be in 0..1"),
+    (COORD + ["--dp", "3"], "must divide over --num-processes 2")],
+    ids=["hybrid-tp", "hybrid-ep", "hybrid-pp", "hybrid-chunks",
+         "exact-chunks", "hybrid-guard", "guard", "no-count", "no-coord",
+         "bad-id", "exact-mesh"])
+def test_train_coordinator_refusals_exit_2(capsys, flags, match):
+    """What ``--coordinator`` refuses before any store is joined (the
+    JAX command's refusals, and the local meshes of A9 part 2)."""
+    assert cli.main(TRAIN_TINY + flags) == 2
+    assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    "coordinator", "num_processes", "process_id", "retain_rounds",
+    "th_allreduce", "down_after", "dcn_bucket_elems", "master_timeout_s",
+    "trace_file", "guard_recompiles"])
+def test_train_a9_flags_match_the_jax_command(flag):
+    from akka_allreduce_tpu import cli as jax_cli
+    jax_parser = argparse.ArgumentParser()
+    sub = jax_parser.add_subparsers(dest="cmd")
+    jax_cli._add_train(sub)
+    want = _flags(_subparser(jax_parser, "train"))[flag]
+    got = _flags(_subparser(cli.build_parser(), "train"))[flag]
+    assert got[:2] + got[3:] == want[:2] + want[3:]
