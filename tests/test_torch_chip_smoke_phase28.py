@@ -25,8 +25,9 @@ TINY = ["train", "--d-model", "32", "--n-heads", "2", "--n-layers", "2",
         "--d-ff", "64", "--vocab", "97", "--seq", "32", "--batch", "4",
         "--lr", "1e-2", "--steps", "3", "--log-every", "1", "--device",
         "cpu"]
-# the script's last whole run on the card (PERF.md §5, PR 25's archive
-# run) and the contract's limit
+# the whole script's slowest run on the card before phase 28 (PERF.md
+# §5, "The script": NVIDIA H100 80GB HBM3, 700 W) and the limit the
+# script must end within
 SCRIPT_S, LIMIT_S = 934.1, 1200.0
 
 
