@@ -2225,10 +2225,6 @@ def _check_coordinator_flags(args: argparse.Namespace) -> int:
     if n < 1 or not 0 <= pid < n:
         raise ValueError(f"--process-id {pid} must be in 0..{n - 1} "
                          f"(--num-processes {n})")
-    if is_hybrid(args) and max(args.tp, args.ep, args.pp) > 1:
-        raise ValueError("--coordinator --deadline-ms runs a dp x sp local "
-                         "mesh in each process; a local --tp / --ep / --pp "
-                         "mesh is ROADMAP A9 part 2")
     return n
 
 
@@ -2308,15 +2304,15 @@ def _train_coordinated(args: argparse.Namespace, params, attn_impl, device,
     """``train --coordinator``: join the coordinator's store (process 0
     hosts it), train, and leave only when every process has finished
     (process 0's store serves the others to their last read). The hybrid
-    runs the process's local dp x sp mesh (in this process at a local
-    world of one); the exact path runs this process's share of one mesh
-    over every process's ranks."""
+    runs the process's local pp x dp x ep x sp x tp mesh (in this
+    process at a local world of one); the exact path runs this process's
+    share of one mesh over every process's ranks."""
     from akka_allreduce_tpu_torch.runtime import coordinator
     nprocs, pid = args.num_processes, args.process_id
     coordinator.initialize_distributed(args.coordinator, nprocs, pid)
     try:
         if is_hybrid(args):
-            local = args.dp * args.sp
+            local = args.dp * args.sp * args.ep * args.tp * args.pp
             report = (_train(args, params, attn_impl, None, device, on_step)
                       if local == 1 else
                       _spawn_train(args, params, attn_impl, device, backend,
@@ -2327,9 +2323,51 @@ def _train_coordinated(args: argparse.Namespace, params, attn_impl, device,
             report = _spawn_train(args, params, attn_impl, device, backend,
                                   world, on_step,
                                   join=(host, port, pid, nprocs))
-        coordinator.finish(timeout_s=max(60.0, 4 * args.deadline_ms / 1e3))
+        _finish_coordinated(args, report)
     finally:
         coordinator.shutdown()
+    return report
+
+
+def _finish_coordinated(args: argparse.Namespace, report: dict) -> None:
+    """Mark this process finished on the coordinator's store; process 0
+    waits for the others, and for the processes it auto-downed only
+    four deadlines (stopped or dead, or catching up)."""
+    from akka_allreduce_tpu_torch.runtime import coordinator
+    rounds = (report.get("hybrid") or {}).get("rounds") or [{}]
+    coordinator.finish(args.deadline_ms / 1e3,
+                       absent=len(rounds[-1].get("downed", ())))
+
+
+def run_hybrid_process(args: argparse.Namespace, group) -> dict:
+    """One local rank of a ``train --coordinator --deadline-ms`` process
+    whose local mesh is ``group``, a ``RankGroup`` the caller made (with
+    its axis subgroups: a line of a larger world of rank processes, as
+    ``chip_smoke.py`` runs it on a rank pool) instead of the ranks that
+    :func:`run_train` spawns. Its mesh must be the flags' local pp x dp
+    x ep x sp x tp. Local rank 0 joins the coordinator's store (process
+    0's hosts it) and, after the run, marks the process finished.
+    Returns this rank's train report."""
+    from akka_allreduce_tpu_torch.runtime import coordinator
+    _check_train_flags(args)
+    if not is_hybrid(args):
+        raise ValueError("run_hybrid_process runs the hybrid: "
+                         "--coordinator with --deadline-ms")
+    want = {a: getattr(args, a) for a in ("pp", "dp", "ep", "sp", "tp")}
+    if {a: group.axis_size(a) for a in want} != want:
+        raise ValueError(f"the local group's mesh {group.mesh_dims} is "
+                         f"not the flags' {want}")
+    lead = group.rank == 0
+    if lead:
+        coordinator.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    try:
+        report = _train(args, None, None, group, group.device)
+        if lead:
+            _finish_coordinated(args, report)
+    finally:
+        if lead:
+            coordinator.shutdown()
     return report
 
 
@@ -2385,7 +2423,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
     procs, pid = ((args.num_processes, args.process_id) if hybrid
                   else (1, 0))
     local_b, local_t = b // (procs * args.dp * args.ep), t // args.sp
-    row_blk += pid * args.dp
+    row_blk += pid * args.dp * args.ep
     if pid:  # the master's process narrates (and a catching-up worker)
         log = lambda *a, **k: None  # noqa: E731
     hybrid_report = None
@@ -2451,9 +2489,30 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         full, opt, ema = full_layout(state, group)
         return full, {"optimizer": opt, "count": state.step}, ema
 
+    def install_saved(loaded, opt_state, ema_like) -> None:
+        """A restored checkpoint (:func:`saved_layout`'s trees, the EMA
+        restored into ``ema_like``) into the live state: on a tp / ep /
+        pp mesh the full layout sliced back to this rank's."""
+        from akka_allreduce_tpu_torch.convert import shard_params
+        saved_opt = opt_state["optimizer"]
+        if sharded:
+            loaded = shard_params(loaded, cfg.model, group)
+            saved_opt = shard_optimizer_state(state, saved_opt, group)
+            if ema_like is not None:
+                with torch.no_grad():
+                    for live, saved in zip(
+                            tree_leaves(state.ema), tree_leaves(
+                                shard_params(ema_like, cfg.model, group))):
+                        live.copy_(saved)
+        with torch.no_grad():
+            for live, saved in zip(tree_leaves(state.params),
+                                   tree_leaves(loaded)):
+                live.copy_(saved)
+        state.step = int(opt_state["count"])
+        load_optimizer_state(state, saved_opt)
+
     start, mgr = 0, None
     if args.ckpt_dir:
-        from akka_allreduce_tpu_torch.convert import shard_params
         from akka_allreduce_tpu_torch.runtime.checkpoint import (
             CheckpointConfig, restore_or_init)
         params_like, opt_like, ema_like = saved_layout()
@@ -2462,23 +2521,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
                              save_interval_steps=args.ckpt_every),
             params_like, opt_like, ema=ema_like)
         if start:
-            saved_opt = opt_state["optimizer"]
-            if sharded:  # the full layout sliced back to this rank's
-                loaded = shard_params(loaded, cfg.model, group)
-                saved_opt = shard_optimizer_state(state, saved_opt, group)
-                if ema_like is not None:
-                    with torch.no_grad():
-                        for live, saved in zip(
-                                tree_leaves(state.ema), tree_leaves(
-                                    shard_params(ema_like, cfg.model,
-                                                 group))):
-                            live.copy_(saved)
-            with torch.no_grad():
-                for live, saved in zip(tree_leaves(state.params),
-                                       tree_leaves(loaded)):
-                    live.copy_(saved)
-            state.step = int(opt_state["count"])
-            load_optimizer_state(state, saved_opt)
+            install_saved(loaded, opt_state, ema_like)
             log(f"resumed from step {start - 1} "
                 f"(data position {extra.get('data_step', '?')})")
             if state.residual is not None:
@@ -2601,7 +2644,7 @@ def _train(args: argparse.Namespace, params, attn_impl, group, device,
         if hybrid:  # every round across the processes
             hybrid_report = _train_hybrid(
                 args, cfg, state, group, build_batch, device, start, mgr,
-                xprof, telem, log, on_step, saved_layout,
+                xprof, telem, log, on_step, (saved_layout, install_saved),
                 (losses, step_ms, min_counts, dispatched, clocks), b * t)
             first = args.steps
         for i in range(first, args.steps):
@@ -2832,7 +2875,7 @@ STORE_LANES = 4
 
 def _train_hybrid(args: argparse.Namespace, cfg, state, group,
                   build_batch, device, start: int, mgr, xprof, telem, log,
-                  on_step, saved_layout, sinks: tuple,
+                  on_step, layouts: tuple, sinks: tuple,
                   step_tokens: int) -> dict:
     """The hybrid's round loop (the JAX ``train`` under ``--coordinator
     --deadline-ms``): ``catch_up`` before each round, then the round
@@ -2844,12 +2887,15 @@ def _train_hybrid(args: argparse.Namespace, cfg, state, group,
     frontier. ``--straggle-prob`` makes a worker process sleep 1.5
     deadlines before a round when its draw (``step_rng.random(nprocs)
     [process]`` after the batch) falls under it. Returns the report's
-    ``hybrid`` entry."""
+    ``hybrid`` entry. ``layouts`` is ``(saved_layout, install_saved)``
+    of :func:`_train`: the checkpoint's trees, and a restored one into
+    the live state (the full layout on a local tp / ep / pp mesh)."""
     from akka_allreduce_tpu_torch.protocol.kv import StoreKv
     from akka_allreduce_tpu_torch.runtime.coordinator import parse_address
     from akka_allreduce_tpu_torch.runtime.dcn_train import (
         DcnDeadlineTrainer, StalledBeyondRetention)
     losses, step_ms, min_counts, dispatched, clocks = sinks
+    saved_layout, install_saved = layouts
     nprocs, pid = args.num_processes, args.process_id
     lead = group is None or group.rank == 0
     tracer = None
@@ -2900,8 +2946,6 @@ def _train_hybrid(args: argparse.Namespace, cfg, state, group,
 
     def rejoin_from_snapshot(exc) -> None:
         # worker: stalled beyond retention; restore the master's snapshot
-        from akka_allreduce_tpu_torch.models.train import (
-            load_optimizer_state, tree_leaves)
         from akka_allreduce_tpu_torch.runtime.checkpoint import (
             CheckpointConfig, restore_or_init)
         if not args.ckpt_dir:
@@ -2920,12 +2964,7 @@ def _train_hybrid(args: argparse.Namespace, cfg, state, group,
                 f"rejoin restore found step {s2 - 1} but the master "
                 f"published {snap} — is --ckpt-dir on storage shared with "
                 f"the master?")
-        with torch.no_grad():
-            for live, saved in zip(tree_leaves(state.params),
-                                   tree_leaves(loaded)):
-                live.copy_(saved)
-        state.step = int(opt_state["count"])
-        load_optimizer_state(state, opt_state["optimizer"])
+        install_saved(loaded, opt_state, ema_like)
         dcn.reset_to_round(s2)
         if lead:
             print(f"process {pid}: elastic rejoin via checkpoint snapshot "
@@ -3010,6 +3049,18 @@ def _train_hybrid(args: argparse.Namespace, cfg, state, group,
                 and dcn.pending_snapshot_requests():
             dcn.publish_snapshot_step(final)
             log(f"served rejoin snapshot at step {final} (final)")
+        # the replica check's CRC of the final parameters (whole; every
+        # local rank takes part in the gather)
+        crc = dcn.param_crc(state)
+    except torch.distributed.DistNetworkError as exc:
+        if not pid:
+            raise
+        # process 0 hosts the store: its death takes the store with it
+        raise RuntimeError(
+            f"process {pid}: the coordinator's store at "
+            f"{args.coordinator} is gone — process 0, which hosts it, died "
+            f"or closed it (its death halts the run); restart every "
+            f"process from the last checkpoint") from exc
     finally:
         dcn.close()
         rss.stop()
@@ -3024,6 +3075,7 @@ def _train_hybrid(args: argparse.Namespace, cfg, state, group,
                         "times": rep.times}
                        for rep in dcn.reports],
             "masked_round_count": dcn.masked_round_count,
+            "param_crc": crc,
             # this process's resident memory at the first round and its
             # peak over the rounds (the master's holds the store's
             # payloads)

@@ -213,13 +213,19 @@ def gather_params(shard: dict, cfg, group) -> dict:
     return gather_tree(shard, group)
 
 
-def gather_tree(shard: dict, group) -> dict:
+def gather_tree(shard: dict, group, unstack: bool = True) -> dict:
     """:func:`gather_params` of any params-shaped tree (gradients, the
-    EMA), its leaves detached."""
+    EMA), its leaves detached. With ``unstack=False`` a pp-stacked tree
+    stays stacked, its leaves ``(L, ...)``: the JAX package's global
+    tree at pp > 1 (``stack_layer_params``), which :func:`shard_params`
+    cuts back."""
     out = {k: v.detach() for k, v in shard.items() if k != "layers"}
     if isinstance(shard["layers"], dict):
         full = {k: gather_leaf(k, v, group, stacked=True)
                 for k, v in shard["layers"].items()}
+        if not unstack:
+            out["layers"] = full
+            return out
         out["layers"] = unstack_layer_params(
             full, next(iter(full.values())).shape[0])
         return out

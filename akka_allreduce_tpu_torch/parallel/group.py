@@ -377,6 +377,28 @@ class RankGroup:
             w.wait()
         return self._unstage(out, x)
 
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Group rank ``src``'s ``x`` on every rank (elsewhere ``x`` gives
+        the shape and dtype; its values are not read). On ``ipc`` device
+        to device: ``src``'s bytes scattered in ``world`` blocks through
+        :meth:`all_to_all`, then the blocks all-gathered; on gloo and
+        nccl ``dist.broadcast``, staged like the other collectives."""
+        if self.world == 1:
+            return x
+        if self.backend != "ipc":
+            buf = self._stage(x)
+            dist.broadcast(buf, src=self._global(src), group=self._pg())
+            return self._unstage(buf, x)
+        flat = x.contiguous().reshape(-1).view(torch.uint8)
+        blk = -(-flat.numel() // self.world)
+        send = torch.zeros((self.world, blk), dtype=torch.uint8,
+                           device=x.device)
+        if self.rank == src:
+            send.view(-1)[:flat.numel()] = flat
+        mine = self.all_to_all(send)[src].contiguous()
+        whole = self.all_gather(mine)[:flat.numel()]
+        return whole.view(x.dtype).reshape(x.shape)
+
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier(group=self._pg())
@@ -737,7 +759,9 @@ def _worker(rank: int, world: int, mesh: tuple, backend: str, device: str,
             free_peer_buffers(group)
         finally:
             free_axis_subgroups()
-            dist.destroy_process_group()
+            # a rank an elastic re-formation left idle has none
+            if dist.is_initialized():
+                dist.destroy_process_group()
         results.put((index, True, pickle.dumps(_to_cpu(out))))
     except Exception:  # noqa: BLE001 - the rank's boundary: reported
         results.put((index, False, traceback.format_exc()))

@@ -120,21 +120,35 @@ def topology_summary(device: str = "cuda") -> TopologySummary:
                            platform=platform)
 
 
-def finish(timeout_s: float = 60.0) -> bool:
-    """Mark this process finished; process 0 then waits, up to
-    ``timeout_s``, for every process to do so (its store serves their
-    last reads). Returns whether all finished in time."""
+def finish(deadline_s: float = 0.0, absent: int = 0) -> bool:
+    """Mark this process finished; process 0 then waits, up to the
+    larger of 60 s and four deadlines (``deadline_s``), for every
+    process but ``absent`` of them (the ones the run auto-downed, which
+    may be stopped or dead) to do so, and up to four deadlines more for
+    those (one still catching up reads the store to its last round):
+    its store serves their last reads. Returns whether all finished in
+    time."""
     if STORE is None:
         return True
     pid, nprocs = PROCESS[:2]
     done = STORE.add("finished", 1)
     if pid != 0:
         return True
+    timeout_s, grace_s = max(60.0, 4 * deadline_s), 4 * deadline_s
     deadline = time.monotonic() + timeout_s
-    while done < nprocs:
+    while done < nprocs - absent:
         if time.monotonic() >= deadline:
             log.warning("%d of %d processes finished within %.0f s",
                         done, nprocs, timeout_s)
+            return False
+        time.sleep(0.05)
+        done = STORE.add("finished", 0)
+    deadline = time.monotonic() + grace_s
+    while done < nprocs:
+        if time.monotonic() >= deadline:
+            log.warning("%d of %d processes finished (%d auto-downed "
+                        "given %.0f s more)", done, nprocs, absent,
+                        grace_s)
             return False
         time.sleep(0.05)
         done = STORE.add("finished", 0)

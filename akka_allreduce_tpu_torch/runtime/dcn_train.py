@@ -4,8 +4,8 @@ Counterpart of ``akka_allreduce_tpu/runtime/dcn_train.py``, the names
 kept. The hybrid topology:
 
 * **Within a process** the gradient sync runs exact: the process's local
-  mesh (a ``RankGroup`` over its own ranks, dp and sp) syncs through the
-  port's collectives (``models/train.py make_grad_step``).
+  mesh (a ``RankGroup`` over its own ranks: pp, dp, ep, sp and tp) syncs
+  through the port's collectives (``models/train.py make_grad_step``).
 * **Across processes** the host plane runs the reference's protocol:
   every round each process publishes its locally reduced gradient
   vector to the coordinator's key-value store (``protocol/kv.py
@@ -25,10 +25,24 @@ The mask is per process: a process is a whole local mesh, so no process
 is ever masked as half of a line of its own mesh (ROADMAP C11's concern
 does not arise here). Within a process, local rank 0 is the DCN
 participant: it alone publishes, reads the store and talks to the
-master, and it hands every result (the round's mean vector, its report,
-a replay, a stall) to its local peers over the local group, so every
-local rank applies bitwise the same update and no payload is published
-twice.
+master. It hands its results (a round's report, a replay, a stall, an
+error) to its local peers as pickled objects over the local group, and
+the round's mean vector as a tensor broadcast over it
+(``RankGroup.broadcast``: device to device on ``ipc``), so every local
+rank applies bitwise the same update and no payload is published twice.
+
+The wire vector is JAX's for the same local mesh: the process's whole
+gradient tree (JAX's global arrays) in ``tree_bucket_spec`` order. On a
+local tp / ep / pp mesh every local rank takes part in the all-gathers
+of the shards along their axes (``convert.gather_tree``), at pp > 1
+into the stacked ``(L, ...)`` layers of JAX's tree (the non-layer
+leaves after the pp sum, local rank 0's copy), and each rank cuts the
+mean to its own shard (``convert.shard_params``) before the update,
+whose clip then takes the whole model's norm. The replica check's CRC
+is of the gathered whole parameters; at pp > 1 their replicated leaves
+are local rank 0's (stage 0's) copy: on the f32 and bf16 wires every
+stage applies the same mean to the same values, and on an ef8 local
+sync the stages' copies drift (ROADMAP C15).
 
 Straggler semantics at three granularities, as in JAX: per wire bucket
 (``dcn_bucket_elems``: a process cut mid-publish still contributes the
@@ -233,6 +247,12 @@ class DcnRoundReport:
     times: dict = dataclasses.field(default_factory=dict)
 
 
+def _report_only(out):
+    """A (mean vector, report) pair as local rank 0 shares it: the report
+    alone (the vector follows as a tensor broadcast)."""
+    return None if out is None else (None, out[1])
+
+
 def _host_vector(tree) -> np.ndarray:
     """A gradient tree (tensors, or numpy arrays from a host-math step)
     as one f32 host vector in ``tree_leaves`` order."""
@@ -320,6 +340,10 @@ class DcnDeadlineTrainer:
         self._local_world = 1 if group is None else group.world
         # local rank 0 is the process's DCN participant
         self._lead = group is None or group.rank == 0
+        # a local tp / ep / pp mesh: each rank holds a shard, the wire
+        # the whole tree
+        self._sharded = group is not None and any(
+            group.axis_size(a) > 1 for a in ("tp", "ep", "pp"))
         self.wire = wire
         self.tracer = tracer
         self.th = float(th_allreduce)
@@ -450,9 +474,11 @@ class DcnDeadlineTrainer:
                                    group=self.group._pg())
         return box[0]
 
-    def _on_lead(self, fn):
+    def _on_lead(self, fn, share=None):
         """``fn()`` on local rank 0 (the only rank that touches the
-        store); its result, or its failure, on every local rank."""
+        store); its result (or ``share(result)``: a round's report
+        without its mean vector, which :meth:`_apply_vector` broadcasts
+        as a tensor), or its failure, on every local rank."""
         if self._local_world == 1:
             return fn()
         if not self._lead:
@@ -470,8 +496,18 @@ class DcnDeadlineTrainer:
         except Exception as exc:
             self._share(("error", f"{type(exc).__name__}: {exc}"))
             raise
-        self._share(("ok", out))
+        self._share(("ok", out if share is None else share(out)))
         return out
+
+    def _full(self, tree):
+        """A params-shaped tree whole, in the JAX global layout (the
+        stacked layers at pp > 1): on a local tp / ep / pp mesh the
+        all-gathers of every shard along its axes (a collective over the
+        local mesh), else the tree itself."""
+        if not self._sharded:
+            return tree
+        from akka_allreduce_tpu_torch.convert import gather_tree
+        return gather_tree(tree, self.group, unstack=False)
 
     # -- master liveness ------------------------------------------------------
 
@@ -689,10 +725,11 @@ class DcnDeadlineTrainer:
 
     def _ensure_apply(self, tree) -> None:
         """The vector's geometry and the wire chunks, from the params (or
-        grads: one structure)."""
+        grads: one structure; on a local tp / ep / pp mesh gathered whole
+        once, a collective over it)."""
         if self._spec is not None:
             return
-        self._spec = tree_bucket_spec(tree, self.cfg.bucket_elems)
+        self._spec = tree_bucket_spec(self._full(tree), self.cfg.bucket_elems)
         total = self._spec.total_size
         self._chunk_elems = (self.dcn_bucket_elems
                              if self.dcn_bucket_elems else total)
@@ -723,7 +760,12 @@ class DcnDeadlineTrainer:
                      wait_s: float = 30.0) -> bytes:
         """One contributor wire chunk, polled, with a message naming the
         round, rank and bucket when it never comes (a replay passes a
-        short window: its payloads exist already or were collected)."""
+        short window: its payloads exist already or were collected). A
+        process stopped between its mask read and this fetch until the
+        cluster passed the retention window raises
+        StalledBeyondRetention, as at the mask (the snapshot rejoin
+        recovers it; JAX's waits out the window and fails: ROADMAP
+        C17)."""
         deadline = time.monotonic() + wait_s
         while True:
             try:
@@ -731,6 +773,13 @@ class DcnDeadlineTrainer:
             except Exception as exc:
                 if not _is_not_found(exc):
                     raise
+            cur_s = self._try_get(self._roundkey)
+            if cur_s is not None and int(cur_s) - r >= self.retain:
+                raise StalledBeyondRetention(
+                    f"stalled at round {r} while the cluster reached "
+                    f"{cur_s}, beyond the {self.retain}-round retention "
+                    f"window (its payloads collected)",
+                    current_round=int(cur_s))
             if time.monotonic() >= deadline:
                 raise RuntimeError(
                     f"round {r}: contributor {p}'s gradient bucket {b} is "
@@ -850,18 +899,34 @@ class DcnDeadlineTrainer:
                 torch.int16).cpu().numpy()
         return _host_vector(grads)
 
-    def _apply_vector(self, state, vec: np.ndarray) -> float:
-        """Apply the round's mean vector through the exact path's update
-        (clip, schedule, optimizer, EMA); returns the seconds of the
-        host-to-device copy and the update."""
+    def _apply_vector(self, state, vec: Optional[np.ndarray]) -> dict:
+        """Apply the round's mean vector (local rank 0's; None on its
+        peers) through the exact path's update (clip, schedule,
+        optimizer, EMA): on a local mesh of several ranks the vector is
+        broadcast over it as a tensor (device to device on ``ipc``), and
+        on a tp / ep / pp mesh each rank applies its own shard of it.
+        Returns the seconds of the broadcast (``bcast_s``) and of the
+        host-to-device copy and the update (``h2d_apply_s``)."""
         from akka_allreduce_tpu_torch.models.train import apply_update
-        leaves = tree_leaves(state.params)
-        device = leaves[0].device
+        device = tree_leaves(state.params)[0].device
         t0 = time.perf_counter()
-        flat = torch.from_numpy(np.ascontiguousarray(vec)).to(device)
-        grads = tree_leaves(vector_to_tree(flat, self._spec))
-        apply_update(self.cfg, state, grads, self.group)
-        return _now(device) - t0
+        if vec is not None:
+            flat = torch.from_numpy(np.ascontiguousarray(vec)).to(device)
+        else:
+            flat = torch.empty(self._spec.total_size, dtype=torch.float32,
+                               device=device)
+        times = {}
+        if self._local_world > 1:
+            t1 = _now(device)
+            flat = self.group.broadcast(flat, 0)
+            times["bcast_s"] = _now(device) - t1
+        tree = vector_to_tree(flat, self._spec)
+        if self._sharded:
+            from akka_allreduce_tpu_torch.convert import shard_params
+            tree = shard_params(tree, self.cfg.model, self.group)
+        apply_update(self.cfg, state, tree_leaves(tree), self.group)
+        times["h2d_apply_s"] = _now(device) - t0 - times.get("bcast_s", 0.0)
+        return times
 
     def _apply_round(self, state, r: int, rows: list,
                      own: Optional[list], replay: bool = False,
@@ -871,27 +936,35 @@ class DcnDeadlineTrainer:
         vec, rep = self._mean_vector(r, rows, own, replay, times)
         return self._record(state, vec, rep, replay)
 
-    def _record(self, state, vec: np.ndarray, rep: DcnRoundReport,
-                replay: bool) -> DcnRoundReport:
-        rep.times["h2d_apply_s"] = self._apply_vector(state, vec)
+    def _record(self, state, vec: Optional[np.ndarray],
+                rep: DcnRoundReport, replay: bool) -> DcnRoundReport:
+        rep.times.update(self._apply_vector(state, vec))
         self.reports.append(rep)
         self._trace("round_complete", round=rep.round,
                     n_masked=rep.n_masked, n_partial=rep.n_partial,
                     count=sum(rep.valid_peers), replay=replay)
-        if self._lead:
+        r = rep.round
+        if self.check_every and not (r + 1) % self.check_every:
             t0 = time.perf_counter()
-            self._publish_checksum(state.params, rep.round)
+            params = self._full(state.params)  # every local rank
+            self._on_lead(lambda: self._publish_checksum(params, r))
             rep.times["checksum_s"] = time.perf_counter() - t0
         return rep
+
+    def param_crc(self, state) -> int:
+        """The CRC the replica check publishes: of the whole parameters
+        in the JAX global layout (on a local tp / ep / pp mesh gathered,
+        a collective over it; at pp > 1 the replicated leaves are local
+        rank 0's copy, stage 0's)."""
+        return zlib.crc32(_host_vector(self._full(state.params)).tobytes())
 
     # -- replica-divergence detection -----------------------------------------
 
     def _publish_checksum(self, params, r: int) -> None:
         """Every ``check_every`` applied rounds publish a CRC of the
-        parameters; the master compares the previous check's CRCs (by
-        then a round-lagged peer's has landed)."""
-        if not self.check_every or (r + 1) % self.check_every:
-            return
+        parameters (whole: :meth:`param_crc`'s); the master compares the
+        previous check's CRCs (by then a round-lagged peer's has
+        landed)."""
         crc = zlib.crc32(_host_vector(params).tobytes())
         self._kv.key_value_set(self._chkkey(r, self.rank), str(crc),
                                allow_overwrite=True)
@@ -1076,7 +1149,7 @@ class DcnDeadlineTrainer:
                     return None  # the master is mid-round r
                 return self._mean_vector(r, self._parse_mask(mask_s),
                                          own=None, replay=True)
-            got = self._on_lead(replay)
+            got = self._on_lead(replay, share=_report_only)
             if got is None:
                 break
             self._record(state, got[0], got[1], replay=True)
@@ -1119,6 +1192,12 @@ class DcnDeadlineTrainer:
         t0 = _now(device)
         grads, metrics = self._gstep(state.params, tokens, r)
         times = {"grad_s": _now(device) - t0}
+        if self._sharded:
+            # the wire is the whole tree (JAX's global gradient): every
+            # local rank takes part in the all-gathers
+            t0 = time.perf_counter()
+            grads = self._full(grads)
+            times["gather_s"] = _now(device) - t0
         own = None
         if self._lead:
             t0 = time.perf_counter()
@@ -1177,7 +1256,7 @@ class DcnDeadlineTrainer:
                     else self._read_mask(r0))
             times["mask_wait_s"] = time.perf_counter() - t0
             return self._mean_vector(r0, rows, own0, times=times)
-        vec, rep = self._on_lead(mean)
+        vec, rep = self._on_lead(mean, share=_report_only)
         rep = self._record(state, vec, rep, replay=False)
         if self._lead:
             self._cleanup(r0)

@@ -575,32 +575,42 @@ build) and runs every such batch there as a fresh spawn would:
    device time of the kernels it launched, by kind, and their means over
    the masked and the exact rounds (``a7c_profile``). The phase must end
    within ``A7C_SECONDS`` (120 s).
-28. training across processes (ROADMAP A9 part 1; runs after phase 27,
-   on the world-2 pool's ranks: as ``ipc`` ranks, and as the two
-   processes of ``train --coordinator``, each rank calling the command's
-   ``cli.run_train`` with its own ``--process-id``, joined through rank
-   0's TCPStore). (a) ``A9_MODEL`` (``A7_PARITY_MODEL`` without
-   experts: depth 2 at the flagship's widths, f32, TF32 off), batch 4 x
-   512, 3 steps, ``--deadline-ms --max-lag 0 --dcn-bucket-elems
-   1048576``: (a1) with a deadline no round misses, each step's loss
-   within ``A9_LOSS_TOL`` (1e-5 relative) of the same command at ``--dp
-   2`` on ``ipc`` ranks, no round masked, both processes' losses and
-   parameter checksums equal; (a2) with ``--straggle-prob`` from
-   ``a9_straggle`` (process 1 late in round 1: it sleeps 1.5 deadlines,
-   the deadline ``A9_DEADLINE_FACTOR`` times (a1)'s publish on the
-   master, at least 2 s, so that none of its buckets lands in time):
-   round 1 masked on both processes, process 1's report of it
-   ``valid_peers [True, False]`` (it applied the recorded update without
-   its own contribution), the checksums equal (``--check-every 1``: the
-   master compared the CRCs every round), and round 2's loss outside
-   ``A9_LOSS_TOL`` of (a1)'s (the control). (b) the flagship as two
-   such processes on the bf16 wire (``--bf16-grads``, one whole-vector
-   bucket of 1.08 GB in the store's 6 MiB parts), 3 steps: each
-   process's last round split into its grad step, flatten and D2H,
-   encode, store set (MB/s), report to mask, fetch (MB/s), decode and
-   mean, H2D and apply, and its resident memory, beside phase 9's
-   exact dp=2 step; rows 10-12 8 launches a step in each process, row 1
-   none. The phase must end within ``A9_SECONDS`` (200 s).
+28. training across processes (ROADMAP A9; (a) and (b) run after
+   phase 27, (c) and (d) inside it, on its world-4 pool before it
+   closes, (e) beside phase 2's build; each process a pool rank calling
+   the command's ``cli.run_train`` with its own ``--process-id`` (in
+   (c) ``cli.run_hybrid_process`` on the pool's tp line), joined through
+   rank 0's TCPStore). (a) ``A9_MODEL`` (``A7_PARITY_MODEL`` without
+   experts: the flagship's widths, f32, TF32 off) at depth 1, batch 4 x
+   512, 2 steps, ``--deadline-ms --max-lag 0 --dcn-bucket-elems
+   1048576`` with a deadline no round misses, as two processes of one
+   rank (the world-2 pool): each step's loss within ``A9_LOSS_TOL``
+   (1e-5 relative) of the same command at ``--dp 2`` on ``ipc`` ranks,
+   no round masked, both processes' losses and parameter checksums
+   equal. (b) the flagship as two such processes on the bf16 wire
+   (``--bf16-grads``, one whole-vector bucket of 1.08 GB in the store's
+   6 MiB parts), 2 steps: each process's last round split into its grad
+   step, flatten and D2H, encode, store set (MB/s), report to mask, fetch
+   (MB/s), decode and mean, H2D and apply, and its resident memory,
+   beside phase 9's exact dp=2 step; rows 10-12 8 launches a step in
+   each process, row 1 none. The phase must end within ``A9_SECONDS``
+   (200 s). (c) (a)'s run at ``A9_MODEL``'s depth 2 as two processes of
+   a local tp=2 mesh each: within ``A9_LOSS_TOL`` of ``--dp 2 --tp 2``
+   on ``ipc`` ranks, the processes' losses, checksums and
+   whole-parameter CRCs equal, every rank's rows 10-12 once a layer a
+   step and row 1 four times (the tp sums), the round's phases with the
+   local all-gather and the mean's broadcast. (d) three processes of one
+   rank, depth 1, the bf16 wire, batch 15 x 640, 5 steps at
+   ``--down-after 2`` with process 2 late in rounds 1 and 2
+   (``a9_two_late``; the deadline ``A9D_DEADLINE_FACTOR`` times (c)'s
+   round, at least 2 s): masked on every process, the mean counting the
+   two others, auto-downed after round 2, caught up from the retained
+   rounds, its re-up reported, the CRCs equal (the straggling-process
+   check of two processes, folded in). (c) and (d) must end within
+   ``A9_MESH_SECONDS``. (e) the int8 DCN codec on 541,130,752 values, in
+   a process of its own beside the build: encode and decode seconds and
+   the resident memory each adds, the decoded values within one int8
+   step of each chunk's scale, within ``A9_CODEC_SECONDS``.
 
 Then, on lines of their own: nvidia-smi's name and power limit, the
 kernels JSON line (the transport's copy kernel among them, its launches
@@ -617,6 +627,7 @@ reduce and transport rows with phase 26's, ``pp_launches`` apart on
 rows 1 and 10-12; the bf16 flash, masked reduce, ef8 block and
 transport rows with phase 27's, ``a7c_launches`` apart on rows 1, 5-7
 and 10-12; the bf16 and f32 flash rows with phase 28's process 0's,
+and the masked reduce with (c)'s rank 0's and its reference's,
 ``a9_launches`` apart), and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -7913,13 +7924,16 @@ def a7c_straggle(draws) -> float:
                      "one-rank step within these draws")
 
 
-def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
+def phase_a7c(torch, phase25_ms: "float | None" = None,
+              on_four=None) -> dict:
     """Phase 27: (a) masked rounds on dp x tp, dp x pp and ep meshes
     against data rank 0 alone, (b) CUDA-graph chunks at full width on
     tp=2, ep=2 (f32, ef8) and pp=2 (gpipe, 1f1b), bitwise their eager
     chunks, with the stale-keys control, (c) the MoE flagship at ep=2
-    under deadlines. Returns rank 0's launches of rows 1, 5-7 and 10-12
-    on (b)'s graphed runs and (c)."""
+    under deadlines. ``on_four()``, when given, runs after (a) on the
+    world-4 pool before it closes (phase 28 (c) and (d)); its seconds
+    are not phase 27's. Returns rank 0's launches of rows 1, 5-7 and
+    10-12 on (b)'s graphed runs and (c)."""
     import numpy as np
 
     from akka_allreduce_tpu_torch import cli
@@ -7951,6 +7965,10 @@ def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
                      (A7C_MASK_MODEL, moe, kw, mask_batch))],
             world=world, **mesh)
         extra[name] = time.perf_counter() - t1
+    t_four = time.perf_counter()
+    if on_four is not None:
+        on_four()
+    t0 += time.perf_counter() - t_four
     close_pools(4)
     (mask_name, _, _, mask_moe, mask_kw), = [
         m for m in A7C_MASK_MESHES if m[1] == 2]
@@ -8027,42 +8045,35 @@ def phase_a7c(torch, phase25_ms: "float | None" = None) -> dict:
 
 # -- phase 28: training across processes (ROADMAP A9) --------------------
 # (a): A7_PARITY_MODEL without experts (depth 2 at the flagship's widths,
-# ~236M parameters, 0.94 GB f32), f32 with TF32 off, batch 4 x 512, as two
-# ``cli train --coordinator --deadline-ms`` processes: (a1) held to the
-# same command at --dp 2 on ipc ranks, (a2) with process 1 late in the
-# round the straggle draws predict
+# ~236M parameters, 0.94 GB f32), f32 with TF32 off, batch 4 x 512, 2
+# steps, as two ``cli train --coordinator --deadline-ms`` processes held
+# to the same command at --dp 2 on ipc ranks (a late process is
+# (d)'s)
 A9_MODEL = {k: v for k, v in A7_PARITY_MODEL.items() if k != "moe_every"}
 A9_ARGV = ["train", "--d-model", str(A9_MODEL["d_model"]), "--n-heads",
            str(A9_MODEL["n_heads"]), "--n-layers", str(A9_MODEL["n_layers"]),
            "--d-ff", str(A9_MODEL["d_ff"]), "--vocab",
            str(A9_MODEL["vocab_size"]), "--seq", "512", "--batch", "4",
-           "--lr", "1e-4", "--steps", "3", "--log-every", "1", "--device",
+           "--lr", "1e-4", "--steps", "2", "--log-every", "1", "--device",
            "cuda"]
 A9_PROCS = 2
+# (a1)'s depth, cut from A9_MODEL's 2 for time ((c) runs A9_MODEL's)
+A9A_LAYERS = 1
 # lockstep (the --dp 2 run applies each step before the next), buckets
-# of 1Mi elements, the least retention; (a2) compares the CRCs every
-# round (a round's host copy and CRC of the parameters: (a1) holds the
-# processes' final parameters bitwise instead)
+# of 1Mi elements, the least retention
 A9_HYBRID = ["--max-lag", "0", "--dcn-bucket-elems", "1048576",
              "--retain-rounds", "8"]
 # f32 sums in other orders (the token-weighted mean against the ranks'
 # allreduce), ~1e-7 a step, against a masked round's ~1e-4
 A9_LOSS_TOL = 1e-5
-# (a1)'s deadline, which no round may miss. (a2)'s: a late process
-# sleeps 1.5 deadlines, then publishes bucket by bucket, and the master
-# credits the buckets that landed by its deadline (a process with some
-# is partial, not masked). The master's deadline opens after its own
-# publish, P, so the late process lands nothing in time when 1.5 D > P
-# + D, i.e. D > 2 P: D is A9_DEADLINE_FACTOR times (a1)'s last round's
-# publish on the master (flatten, D2H, encode, set), at least
-# A9_DEADLINE_FLOOR_MS
+# (a)'s and (c)'s deadline, which no round may miss; (d)'s least
+# deadline
 A9_CLEAN_DEADLINE_MS = 120000.0
-A9_DEADLINE_FACTOR = 2.5
 A9_DEADLINE_FLOOR_MS = 2000.0
 # (b): the flagship of phase 6 (541.1M parameters, bf16, batch 8 x 2048)
 # as two processes on the bf16 wire (1.08 GB a payload), one whole-vector
-# bucket (the store client's parts), 3 steps
-A9_FULL_STEPS = 3
+# bucket (the store client's parts), 2 steps
+A9_FULL_STEPS = 2
 A9_FULL_ARGV = set_flag(TRAIN_ARGV, "--steps", A9_FULL_STEPS) + [
     "--bf16-grads", "--max-lag", "0", "--retain-rounds", "8",
     "--deadline-ms", str(A9_CLEAN_DEADLINE_MS)]
@@ -8086,21 +8097,6 @@ def a9_processes(torch, argv: list) -> list:
     (reports, _), = spawn_batch(torch, [("call", a9_rank, (argv + coord,))],
                                 world=A9_PROCS)
     return reports
-
-
-def a9_straggle(late_draws) -> "tuple[float, int]":
-    """(a2)'s --straggle-prob from process 1's draws a round: the
-    midpoint that makes exactly one round after round 0 late, with a
-    round after it to show the control, and round 0 (the barrier) on
-    time. Returns (prob, the late round)."""
-    draws = [float(d) for d in late_draws]
-    for r in range(1, len(draws) - 1):
-        others = [d for i, d in enumerate(draws) if i != r]
-        above = [d for d in others if d > draws[r]]
-        if len(above) == len(others):
-            return (draws[r] + min(above)) / 2, r
-    raise ValueError(f"no --straggle-prob makes one round after round 0 "
-                     f"late with a round after it: {draws}")
 
 
 def a9_check_pair(name: str, pair: list, want_masked: list) -> dict:
@@ -8143,33 +8139,26 @@ def a9_split(report: dict) -> dict:
 
 
 def phase_a9(torch, phase9_ms: "float | None" = None) -> dict:
-    """Phase 28: (a) the parity model as two ``train --coordinator
-    --deadline-ms`` processes, (a1) each step's loss within A9_LOSS_TOL
-    of ``--dp 2`` on ipc ranks, (a2) process 1 late in the round its
-    draws predict: that round masked on both processes (process 1
-    applies it without its own contribution), the CRCs equal, and the
-    next round's loss outside A9_LOSS_TOL of (a1)'s (the control); (b)
-    the flagship on the bf16 wire, its last round split into its phases
-    beside phase 9's exact dp=2 step (``phase9_ms``, the f32 wire's wall
-    ms a step in this run). Returns process 0's flash
+    """Phase 28 (a) and (b): (a) the parity model at depth A9A_LAYERS as
+    two ``train --coordinator --deadline-ms`` processes, each step's loss
+    within A9_LOSS_TOL of ``--dp 2`` on ipc ranks; (b) the flagship on the bf16
+    wire, its last round split into its phases beside phase 9's exact
+    dp=2 step (``phase9_ms``, the f32 wire's wall ms a step in this run).
+    (A straggling process masked is (d)'s: three processes,
+    :func:`phase_a9_mesh`.) Returns process 0's flash
     launches: (a)'s f32 (the ipc reference's rank 0 added) and (b)'s
     bf16."""
     from akka_allreduce_tpu_torch import cli
     parse = cli.build_parser().parse_args
     t0 = time.perf_counter()
-    base = parse(A9_ARGV)
-    steps = base.steps
-    draws = straggle_draws(steps, A9_PROCS, base.batch, base.seq,
-                           base.vocab)
-    prob, late = a9_straggle(draws[:, 1])
-    want_late = [int(i == late) for i in range(steps)]
+    argv = set_flag(A9_ARGV, "--n-layers", A9A_LAYERS)
+    steps = parse(argv).steps
     (ref, _), = spawn_batch(torch, [(
-        "train", parse(A9_ARGV + ["--dp", str(A9_PROCS), "--dist-backend",
-                                  DIST]), None)])
+        "train", parse(argv + ["--dp", str(A9_PROCS), "--dist-backend",
+                               DIST]), None)])
     t1 = time.perf_counter()
-    hybrid = A9_ARGV + A9_HYBRID
-    a1 = a9_processes(torch, hybrid + ["--deadline-ms",
-                                       str(A9_CLEAN_DEADLINE_MS)])
+    a1 = a9_processes(torch, argv + A9_HYBRID + [
+        "--deadline-ms", str(A9_CLEAN_DEADLINE_MS)])
     t2 = time.perf_counter()
     a1_row = a9_check_pair("a1", a1, [0] * steps)
     rel = [abs(h - w) / abs(w) for h, w in zip(a1_row["losses"],
@@ -8179,37 +8168,13 @@ def phase_a9(torch, phase9_ms: "float | None" = None) -> dict:
     emit("a9_parity", **a1_row)
     if max(rel) > A9_LOSS_TOL:
         raise AssertionError(f"phase 28 (a1): {a1_row}")
-    t = a1[0]["hybrid"]["rounds"][-1]["times"]
-    publish_s = t["flatten_d2h_s"] + t["encode_s"] + t["set_s"]
-    deadline_ms = max(A9_DEADLINE_FLOOR_MS,
-                      A9_DEADLINE_FACTOR * publish_s * 1e3)
-    a2 = a9_processes(torch, hybrid + ["--deadline-ms", repr(deadline_ms),
-                                "--straggle-prob", repr(prob),
-                                "--check-every", "1"])
-    t3 = time.perf_counter()
-    a2_row = a9_check_pair("a2", a2, want_late)
-    worker_round = a2[1]["hybrid"]["rounds"][late]
-    after = late + 1
-    control = abs(a2_row["losses"][after] - a1_row["losses"][after]) \
-        / abs(a1_row["losses"][after])
-    a2_row.update(straggle_prob=prob, late_round=late,
-                  deadline_ms=deadline_ms, master_publish_s=publish_s,
-                  n_partial=[[r["n_partial"] for r in rep["hybrid"]["rounds"]]
-                             for rep in a2],
-                  worker_valid_peers=worker_round["valid_peers"],
-                  worker_caught_up=[r["caught_up"] for r in
-                                    a2[1]["hybrid"]["rounds"]],
-                  control_rel_err=control, tol=A9_LOSS_TOL)
-    emit("a9_straggle", **a2_row)
-    if worker_round["valid_peers"] != [True, False] \
-            or control <= A9_LOSS_TOL:
-        raise AssertionError(f"phase 28 (a2): {a2_row}")
     full = a9_processes(torch, A9_FULL_ARGV)
-    t4 = time.perf_counter()
-    f_row = a9_check_pair("b", full, [0] * A9_FULL_STEPS)
+    t3 = time.perf_counter()
+    full_steps = parse(A9_FULL_ARGV).steps
+    f_row = a9_check_pair("b", full, [0] * full_steps)
     n_layers = full[0]["config"]["n_layers"]
     flash_want = dict.fromkeys(
-        FLASH_REPLACES, n_layers * A9_FULL_STEPS if DEVICE == "cuda" else 0)
+        FLASH_REPLACES, n_layers * full_steps if DEVICE == "cuda" else 0)
     launches = [rep["launches"] for rep in full]
     masked_reduce = [rep["sync_launches"]["masked_reduce"] for rep in full]
     f_row.update(split={p: a9_split(rep) for p, rep in enumerate(full)},
@@ -8222,16 +8187,331 @@ def phase_a9(torch, phase9_ms: "float | None" = None) -> dict:
     if launches != [flash_want] * A9_PROCS or masked_reduce != [0, 0]:
         raise AssertionError(f"phase 28 (b): {f_row}")
     f32 = {k: ref["launches"][k] + a1[0]["launches"][k]
-           + a2[0]["launches"][k] for k in FLASH_REPLACES}
+           for k in FLASH_REPLACES}
     seconds = time.perf_counter() - t0
     emit("a9_phase_seconds", seconds=seconds, limit_s=A9_SECONDS,
-         parts={"dp2_reference": t1 - t0, "a1": t2 - t1, "a2": t3 - t2,
-                "b": t4 - t3},
+         parts={"dp2_reference": t1 - t0, "a1": t2 - t1, "b": t3 - t2},
          script_seconds=time.perf_counter() - T_START)
     if seconds > A9_SECONDS:
         raise AssertionError(f"phase 28 took {seconds:.1f} s, over its "
                              f"{A9_SECONDS} s")
     return {"flash": launches[0], "flash_f32": f32}
+
+
+# (c): A9_MODEL as two processes, each a local tp=2 mesh (a ``tp`` line
+# of the world-4 pool: process = the rank's dp index), f32, 2 steps, held
+# to the same command at --dp 2 --tp 2 on ipc ranks
+A9C_FLAGS = ["--tp", "2"]
+# (d): three processes of one rank on the bf16 wire, one whole-vector
+# bucket (a late process lands nothing in time, whatever the deadline),
+# --down-after 2, depth 1: process 2 late in two rounds in a row
+# (a9_two_late; at batch 15 x 640 the draws give rounds 1 and 2 and no
+# other late worker round in 5): masked on every process, auto-downed,
+# caught up from the retained rounds (catch_up replays the rounds the
+# master closed while it slept). A late process sleeps 1.5 deadlines D
+# and the master waits D for it, so it ends each late round D / 2 and a
+# payload fetch F behind. Its late report of the second round re-ups it
+# at once if it lands before the master, which no longer waits for it,
+# ends its next round; it catches up instead (and stays a round behind)
+# if D + F exceeds that round's span, the master's grad step, publish,
+# fetch and two decode-and-applies (c + P + F + 2A: 3.8-4.4 s on the
+# card, where D 2.8 s re-upped it with nothing to replay while D 6.1 s
+# caught it up; PERF.md §6). D is (c)'s round (just measured on the same
+# host and store: the f32 wire's 0.94 GB payload to (d)'s 0.37 GB, 7.9
+# s to c + P + F + 2A's 4.2 s in one run), at least
+# A9_DEADLINE_FLOOR_MS. Its re-up is reported, not required: a woken
+# process a round or more behind is never within the master's window
+# again at full width, as it fetches one payload more a round.
+A9D_PROCS = 3
+A9D_SHAPE = (15, 640, 5)  # batch, seq, steps
+A9D_LAYERS = 1
+A9D_FLAGS = ["--bf16-grads", "--down-after", "2", "--max-lag", "0",
+             "--retain-rounds", "8", "--check-every", "3"]
+A9D_DEADLINE_FACTOR = 1.0
+A9_MESH_SECONDS = 120
+# (e): the int8 DCN wire's codec (numpy stochastic rounding, JAX's bytes)
+# on a vector of the flagship's 541,130,752 gradient values
+A9_CODEC_ELEMS = 541_130_752
+A9_CODEC_SECONDS = 60
+
+
+def a9_mesh_rank(group, argv: list) -> dict:
+    """One local rank of a phase-28 (c) process on a world-4 pool rank:
+    process = the rank's dp index, its local mesh the pool's tp line
+    through the rank (``cli.run_hybrid_process``)."""
+    from akka_allreduce_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        argv + ["--process-id", str(group.axis_index("dp"))])
+    return cli.run_hybrid_process(args, group.along("tp"))
+
+
+def a9_first_ranks(group, argv: list, procs: int):
+    """A phase-28 process on each of a pool's first ``procs`` ranks
+    (:func:`a9_rank`); the others idle."""
+    return a9_rank(group, argv) if group.rank < procs else None
+
+
+def a9_first_processes(torch, argv: list) -> list:
+    """``argv`` as A9D_PROCS ``train --coordinator`` processes on the
+    world-4 pool's first ranks; returns each process's train report."""
+    from akka_allreduce_tpu_torch.protocol.remote import free_port
+    coord = ["--coordinator", f"127.0.0.1:{free_port()}",
+             "--num-processes", str(A9D_PROCS)]
+    (reports, _), = spawn_batch(torch, [("call", a9_first_ranks, (
+        argv + coord, A9D_PROCS))], world=4)
+    return reports[:A9D_PROCS]
+
+
+def a9_two_late(draws) -> "tuple[float, int]":
+    """(d)'s --straggle-prob from the straggle draws a round (rows) of
+    every process (columns; process 0, the master, never sleeps): the
+    midpoint that makes the last process late in exactly two rounds in a
+    row, ``r`` and ``r + 1`` with ``r >= 1`` and two rounds after them
+    (the catch-up and the re-up), and every other worker on time in
+    every round. Returns (prob, r)."""
+    last = [float(d) for d in draws[:, -1]]
+    workers = [float(d) for d in draws[:, 1:-1].ravel()]
+    for r in range(1, len(last) - 3):
+        late = (last[r], last[r + 1])
+        others = [d for i, d in enumerate(last) if i not in (r, r + 1)]
+        if max(late) < min(others + workers):
+            return (max(late) + min(others + workers)) / 2, r
+    raise ValueError(f"no --straggle-prob makes the last process late in "
+                     f"exactly two rounds in a row: {draws.tolist()}")
+
+
+def a9_mesh_split(report: dict) -> dict:
+    """:func:`a9_split` with the local mesh's phases: the all-gathers of
+    the gradient shards, and the mean's broadcast over the local group."""
+    t = report["hybrid"]["rounds"][-1]["times"]
+    return {**a9_split(report), "gather_ms": t["gather_s"] * 1e3,
+            "bcast_ms": t["bcast_s"] * 1e3}
+
+
+def phase_a9_mesh(torch) -> dict:
+    """Phase 28 (c) and (d), on the world-4 pool. (c) A9_MODEL as two
+    ``train --coordinator --deadline-ms`` processes, each a local tp=2
+    mesh: each step within A9_LOSS_TOL of ``--dp 2 --tp 2`` on ipc ranks,
+    both processes' losses, parameter checksums and whole-parameter CRCs
+    equal, no round masked, every rank's rows 10-12 once a layer a step
+    and row 1 four times (the tp sums), the round's phases with the
+    local gather and the broadcast. (d) three processes of one rank on
+    the bf16 wire with --down-after 2, process 2 late in two rounds in a
+    row, the deadline (c)'s round: masked on every process (the mean
+    counting the two others), auto-downed and caught up (its re-up
+    reported), the CRCs equal. Returns rank 0's f32 flash launches and
+    row 1's."""
+    from akka_allreduce_tpu_torch import cli
+    from akka_allreduce_tpu_torch.protocol.remote import free_port
+    parse = cli.build_parser().parse_args
+    t0 = time.perf_counter()
+    base = A9_ARGV + A9C_FLAGS + ["--dist-backend", DIST]
+    steps = parse(base).steps
+    (ref, _), = spawn_batch(torch, [("train", parse(base + ["--dp", "2"]),
+                                     None)])
+    t1 = time.perf_counter()
+    coord = ["--coordinator", f"127.0.0.1:{free_port()}",
+             "--num-processes", str(A9_PROCS)]
+    (ranks, _), = spawn_batch(torch, [("call", a9_mesh_rank, (
+        base + ["--dp", "1"] + A9_HYBRID
+        + ["--deadline-ms", str(A9_CLEAN_DEADLINE_MS)] + coord,))],
+        world=4, tp=2)
+    t2 = time.perf_counter()
+    # the pool's (dp=2, tp=2) mesh: ranks 0-1 process 0, 2-3 process 1
+    leads = [ranks[0], ranks[2]]
+    row = a9_check_pair("c", leads, [0] * steps)
+    n_layers = leads[0]["config"]["n_layers"]
+    on_card = DEVICE == "cuda"
+    flash_want = dict.fromkeys(FLASH_REPLACES,
+                               n_layers * steps if on_card else 0)
+    reduce_want = 4 * n_layers * steps if on_card else 0
+    rel = [abs(h - w) / abs(w) for h, w in zip(row["losses"],
+                                              ref["losses"])]
+    crcs = [r["hybrid"]["param_crc"] for r in leads]
+    launches = [r["launches"] for r in ranks]
+    reduces = [r["sync_launches"]["masked_reduce"] for r in ranks]
+    row.update(dp2_tp2_losses=ref["losses"], rel_err=rel, tol=A9_LOSS_TOL,
+               crcs=crcs, crcs_equal=len(set(crcs)) == 1,
+               local_losses_equal=all(r["losses"] == ranks[0]["losses"]
+                                      for r in ranks),
+               flash_launches=launches, expected_flash=flash_want,
+               masked_reduce_launches=reduces, expected_reduce=reduce_want,
+               split={p: a9_mesh_split(rep) for p, rep in enumerate(leads)},
+               wall_ms_per_step=[r["wall_ms_per_step"] for r in leads],
+               dp2_tp2_wall_ms_per_step=ref["wall_ms_per_step"])
+    emit("a9_mesh", **row)
+    if max(rel) > A9_LOSS_TOL or not row["crcs_equal"] \
+            or not row["local_losses_equal"] \
+            or launches != [flash_want] * 4 or reduces != [reduce_want] * 4:
+        raise AssertionError(f"phase 28 (c): {row}")
+    three = phase_a9_three(torch, sum(row["wall_ms_per_step"]) / 2)
+    seconds = time.perf_counter() - t0
+    emit("a9_mesh_phase_seconds", seconds=seconds, limit_s=A9_MESH_SECONDS,
+         parts={"dp2_tp2_reference": t1 - t0, "c": t2 - t1,
+                "d": three["seconds"]},
+         script_seconds=time.perf_counter() - T_START)
+    if seconds > A9_MESH_SECONDS:
+        raise AssertionError(f"phase 28 (c), (d) took {seconds:.1f} s, "
+                             f"over its {A9_MESH_SECONDS} s")
+    f32 = {k: ref["launches"][k] + ranks[0]["launches"][k]
+           + three["flash_f32"][k] for k in FLASH_REPLACES}
+    return {"flash_f32": f32,
+            "masked_reduce": ref["sync_launches"]["masked_reduce"]
+            + reduces[0]}
+
+
+def phase_a9_three(torch, round_ms: float) -> dict:
+    """Phase 28 (d) (:func:`phase_a9_mesh`'s), on the world-4 pool's
+    first three ranks, its deadline A9D_DEADLINE_FACTOR times
+    ``round_ms``, (c)'s round. Returns process 0's f32 flash launches
+    and the run's seconds."""
+    from akka_allreduce_tpu_torch import cli
+    parse = cli.build_parser().parse_args
+    t0 = time.perf_counter()
+    batch, seq, d_steps = A9D_SHAPE
+    argv = A9_ARGV
+    for flag, value in (("--batch", batch), ("--seq", seq),
+                        ("--n-layers", A9D_LAYERS), ("--steps", d_steps)):
+        argv = set_flag(argv, flag, value)
+    argv += A9D_FLAGS
+    deadline_ms = max(A9_DEADLINE_FLOOR_MS, A9D_DEADLINE_FACTOR * round_ms)
+    vocab = parse(argv).vocab
+    prob, late = a9_two_late(straggle_draws(d_steps, A9D_PROCS, batch, seq,
+                                            vocab))
+    procs = a9_first_processes(torch, argv + [
+        "--deadline-ms", repr(deadline_ms), "--straggle-prob", repr(prob)])
+    rounds = [rep["hybrid"]["rounds"] for rep in procs]
+    by_step = [{r["step"]: r for r in rs} for rs in rounds]
+    last = A9D_PROCS - 1
+    master = rounds[0]
+    d_row = {
+        "run": "d", "straggle_prob": prob, "late_rounds": [late, late + 1],
+        "deadline_ms": deadline_ms, "c_round_ms": round_ms,
+        "n_masked": [[r["n_masked"] for r in rs] for rs in rounds],
+        "steps": [[r["step"] for r in rs] for rs in rounds],
+        "late_masked_everywhere": all(
+            bs[i]["n_masked"] >= 1 and not bs[i]["valid_peers"][last]
+            and all(bs[i]["valid_peers"][:last])
+            for bs in by_step for i in (late, late + 1)),
+        # the mean's contributions a bucket: every process in the clean
+        # first round, the two others in the late ones (the control: the
+        # masked mean divides by the processes that landed)
+        "bucket_counts": [r["bucket_counts"] for r in master],
+        "downed": [r["downed"] for r in master],
+        "downed_after_late": master[late + 1]["downed"] == [last],
+        "caught_up": [r["caught_up"] for r in rounds[last]],
+        # the master's downed set emptied after the auto-down: re-upped
+        # (reported, not required: see A9D_SHAPE's note)
+        "reupped_at": next((k for k in range(late + 2, d_steps)
+                            if master[k]["downed"] == []), None),
+        "crcs": [rep["hybrid"]["param_crc"] for rep in procs],
+        "losses": [r["loss"] for r in master],
+        "losses_equal": all({k: v["loss"] for k, v in bs.items()}
+                            == {k: v["loss"] for k, v in by_step[0].items()}
+                            for bs in by_step),
+        "all_steps": all(sorted(bs) == list(range(d_steps))
+                         for bs in by_step),
+        "split": {p: a9_split(rep) for p, rep in enumerate(procs)}}
+    d_row["crcs_equal"] = len(set(d_row["crcs"])) == 1
+    counts = d_row["bucket_counts"]
+    d_row["counts_as_masked"] = (
+        set(counts[0]) == {A9D_PROCS}
+        and all(set(counts[i]) == {A9D_PROCS - 1} for i in (late, late + 1)))
+    emit("a9_three", **d_row)
+    if not (d_row["late_masked_everywhere"] and d_row["downed_after_late"]
+            and d_row["counts_as_masked"] and sum(d_row["caught_up"]) > 0
+            and d_row["crcs_equal"] and d_row["losses_equal"]
+            and d_row["all_steps"] and master[0]["n_masked"] == 0
+            and all(math.isfinite(x) for x in d_row["losses"])):
+        raise AssertionError(f"phase 28 (d): {d_row}")
+    return {"flash_f32": dict(procs[0]["launches"]),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_a9_codec() -> dict:
+    """Phase 28 (e): the int8 DCN wire's ``encode_payload`` and
+    ``decode_payload`` on a vector of the flagship's 541,130,752 values
+    (host only): the seconds of each, and the resident memory each adds
+    at its peak (``cli._RssPeak``: sampled every 50 ms). The decoded
+    vector is checked against the input: within one int8 step of each
+    chunk's scale."""
+    import torch
+
+    from akka_allreduce_tpu_torch.cli import _RssPeak
+    from akka_allreduce_tpu_torch.runtime import dcn_train as dcn
+    t0 = time.perf_counter()
+    n = A9_CODEC_ELEMS
+    vec = (torch.randn(n, generator=torch.Generator().manual_seed(0))
+           * 1e-3).numpy()
+    rss = _RssPeak()
+    t1 = time.perf_counter()
+    data = dcn.encode_payload(vec, 2.5, 16384.0, "int8", seed=7)
+    encode_s = time.perf_counter() - t1
+    rss.stop()
+    encode_gb = (rss.peak - rss.start) / 1e9
+    rss = _RssPeak()
+    t1 = time.perf_counter()
+    loss, tokens, out = dcn.decode_payload(data)
+    decode_s = time.perf_counter() - t1
+    rss.stop()
+    decode_gb = (rss.peak - rss.start) / 1e9
+    # the check on torch's threads (numpy's one-thread passes over 2 GB
+    # took seconds each)
+    pad = (-n) % dcn._INT8_CHUNK
+    rows = torch.nn.functional.pad(torch.from_numpy(vec), (0, pad)).view(
+        -1, dcn._INT8_CHUNK)
+    err = torch.nn.functional.pad(
+        (torch.from_numpy(out) - torch.from_numpy(vec)).abs(),
+        (0, pad)).view(rows.shape)
+    scales = rows.abs().amax(dim=1) / 127.0
+    within = bool((err <= scales[:, None] * (1 + 1e-6) + 1e-12).all())
+    row = {"elems": n, "encode_s": encode_s, "decode_s": decode_s,
+           "encode_rss_gb": encode_gb, "decode_rss_gb": decode_gb,
+           "payload_gb": len(data) / 1e9, "f32_gb": vec.nbytes / 1e9,
+           "header": [loss, tokens], "within_one_step": within,
+           "seconds": time.perf_counter() - t0, "limit_s": A9_CODEC_SECONDS,
+           "script_seconds": time.perf_counter() - T_START}
+    emit("a9_int8_codec", **row)
+    if not within or out.shape != (n,) or (loss, tokens) != (2.5, 16384.0):
+        raise AssertionError(f"phase 28 (e): {row}")
+    if row["seconds"] > A9_CODEC_SECONDS:
+        raise AssertionError(f"phase 28 (e) took {row['seconds']:.1f} s, "
+                             f"over its {A9_CODEC_SECONDS} s")
+    return row
+
+
+def a9_codec_start() -> subprocess.Popen:
+    """Phase 28 (e) in a process of its own (``chip_smoke.py
+    --a9-codec N``: :func:`phase_a9_codec` on one intra-op thread, N
+    this process's ``A9_CODEC_ELEMS``),
+    started beside the build: the host's codec needs none of the card,
+    and its ~13 GB of temporaries leave with the process. Its seconds
+    are taken beside the build's nvcc processes."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--a9-codec",
+         str(A9_CODEC_ELEMS)], stdout=subprocess.PIPE, text=True)
+
+
+def a9_codec_join(proc: subprocess.Popen) -> dict:
+    """(e)'s row from the process of :func:`a9_codec_start`, whose
+    checks ran there, emitted here with this script's seconds. Raises
+    when the process failed or outlived twice (e)'s limit."""
+    try:
+        out, _ = proc.communicate(timeout=2 * A9_CODEC_SECONDS)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 28 (e) ran over {2 * A9_CODEC_SECONDS}"
+                             f" s") from None
+    rows = [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith('{"phase": "a9_int8_codec"')]
+    if proc.returncode or len(rows) != 1:
+        raise AssertionError(f"phase 28 (e): its process exited "
+                             f"{proc.returncode}: {out[-2000:]}")
+    row = {k: v for k, v in rows[0].items() if k != "phase"}
+    row.update(beside="build", script_seconds=time.perf_counter() - T_START)
+    emit("a9_int8_codec", **row)
+    return row
 
 
 def chunk_of(world: int) -> int:
@@ -8288,17 +8568,26 @@ def run_phases(torch) -> int:
 
     from akka_allreduce_tpu_torch import native
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(lambda: (native.build_library(),
-                                    time.perf_counter() - t0)[1])
-        info = build.build_all()
-        for kernel in build.KERNELS:
-            build.load(kernel)
-        host_seconds = host.result()
-    emit("build", seconds=time.perf_counter() - t0, kernels=info,
-         native_seconds=host_seconds,
-         mma_kernels=check_mma_spills(info),
-         paged_kernels=ptxas_kernels(info["paged_attention"]["ptxas"]))
+    # 28 (e). the int8 DCN codec at the flagship's width, on the host
+    # beside the build
+    codec = a9_codec_start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            host = pool.submit(lambda: (native.build_library(),
+                                        time.perf_counter() - t0)[1])
+            info = build.build_all()
+            for kernel in build.KERNELS:
+                build.load(kernel)
+            host_seconds = host.result()
+        emit("build", seconds=time.perf_counter() - t0, kernels=info,
+             native_seconds=host_seconds,
+             mma_kernels=check_mma_spills(info),
+             paged_kernels=ptxas_kernels(info["paged_attention"]["ptxas"]))
+    except BaseException:
+        codec.kill()
+        codec.wait()
+        raise
+    a9_codec_join(codec)
 
     # 3. kernels vs plain versions
     timed = phase_kernels(torch)
@@ -8388,10 +8677,17 @@ def run_phases(torch) -> int:
     a7pp = phase_a7pp(torch)
     # 27. the parallel axes' compositions: masked rounds on tp / pp / ep
     # meshes, graph chunks on tp, ep and pp, MoE under deadlines
-    a7c = phase_a7c(torch, a7["moe_wall_ms_per_step"])
+    # and, on its world-4 pool before it closes, phase 28 (c) and (d):
+    # two processes of a local tp=2 mesh, three processes with one
+    # auto-downed and caught up
+    a9_mesh: dict = {}
+    a7c = phase_a7c(torch, a7["moe_wall_ms_per_step"],
+                    on_four=lambda: a9_mesh.update(phase_a9_mesh(torch)))
     # 28. training across processes: two train --coordinator processes
-    # against --dp 2, a straggling process masked, the flagship's round
+    # against --dp 2, the flagship's round
     a9 = phase_a9(torch, dp["runs"]["none"]["wall_ms_per_step"])
+    for k in FLASH_REPLACES:
+        a9["flash_f32"][k] += a9_mesh["flash_f32"][k]
     close_pools()  # every rank process ended before the closing lines
     # 24. the A6 part 2 serving paths: watchdog and faults, drain/restore
     # across processes, the serve trace
@@ -8401,7 +8697,8 @@ def run_phases(torch) -> int:
                      + hier["launches"][k] + a5["sync"][k] + a5r["sync"][k]
                      + a7["sync"][k] + a7c["sync"][k] for k in SYNC_KERNELS}
     sync_launches["masked_reduce"] += protocol["launches"] \
-        + cluster["launches"] + a7pp["masked_reduce"]
+        + cluster["launches"] + a7pp["masked_reduce"] \
+        + a9_mesh["masked_reduce"]
     transport_launches = (dp["transport"] + deadline["transport"]
                           + hier["transport"] + a5["transport"]
                           + a5r["transport"] + a7["transport"]
@@ -8467,6 +8764,7 @@ def run_phases(torch) -> int:
             kernels[-1].update(protocol_launches=protocol["launches"],
                                cluster_launches=cluster["launches"],
                                pp_launches=a7pp["masked_reduce"],
+                               a9_launches=a9_mesh["masked_reduce"],
                                strided_ms=strided["ms"],
                                strided_plain_ms=strided["plain_ms"],
                                strided_bound_ms=strided["bound_ms"])
@@ -8513,4 +8811,10 @@ def run_phases(torch) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--a9-codec"]:  # phase 28 (e): a9_codec_start
+        import torch
+        torch.set_num_threads(1)
+        A9_CODEC_ELEMS = int(sys.argv[2])
+        phase_a9_codec()
+        sys.exit(0)
     sys.exit(main())

@@ -876,11 +876,23 @@ COORD = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
          "--process-id", "0"]
 
 
+@pytest.mark.parametrize("flags,local", [
+    (COORD + ["--deadline-ms", "50", "--tp", "2"], 2),
+    (COORD + ["--deadline-ms", "50", "--ep", "2", "--moe-experts", "4"], 2),
+    (COORD + ["--deadline-ms", "50", "--pp", "2"], 2)],
+    ids=["hybrid-tp", "hybrid-ep", "hybrid-pp"])
+def test_train_coordinator_local_meshes_accepted(flags, local):
+    """The hybrid on a local tp / ep / pp mesh (ROADMAP A9 part 2): the
+    flags pass every check before a store is joined; each process's
+    local mesh is its tp x ep x pp ranks, over its rows of the batch."""
+    args = cli.build_parser().parse_args(TRAIN_TINY + flags)
+    b, _t, backend = cli._check_train_flags(args)
+    assert cli.is_hybrid(args) and backend == "gloo"
+    assert args.dp * args.sp * args.ep * args.tp * args.pp == local
+    assert b % (args.num_processes * args.dp * args.ep) == 0
+
+
 @pytest.mark.parametrize("flags,match", [
-    (COORD + ["--deadline-ms", "50", "--tp", "2"], "ROADMAP A9 part 2"),
-    (COORD + ["--deadline-ms", "50", "--ep", "2", "--moe-experts", "4"],
-     "ROADMAP A9 part 2"),
-    (COORD + ["--deadline-ms", "50", "--pp", "2"], "ROADMAP A9 part 2"),
     (COORD + ["--deadline-ms", "50", "--steps-per-dispatch", "2"],
      "single-process exact path (no --deadline-ms / --coordinator)"),
     (COORD + ["--steps-per-dispatch", "2", "--dp", "2"],
@@ -892,12 +904,11 @@ COORD = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
     (["--num-processes", "2"], "need --coordinator"),
     (COORD[:4] + ["--process-id", "2"], "must be in 0..1"),
     (COORD + ["--dp", "3"], "must divide over --num-processes 2")],
-    ids=["hybrid-tp", "hybrid-ep", "hybrid-pp", "hybrid-chunks",
-         "exact-chunks", "hybrid-guard", "guard", "no-count", "no-coord",
-         "bad-id", "exact-mesh"])
+    ids=["hybrid-chunks", "exact-chunks", "hybrid-guard", "guard",
+         "no-count", "no-coord", "bad-id", "exact-mesh"])
 def test_train_coordinator_refusals_exit_2(capsys, flags, match):
     """What ``--coordinator`` refuses before any store is joined (the
-    JAX command's refusals, and the local meshes of A9 part 2)."""
+    JAX command's refusals)."""
     assert cli.main(TRAIN_TINY + flags) == 2
     assert match in capsys.readouterr().err
 

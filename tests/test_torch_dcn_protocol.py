@@ -28,6 +28,7 @@ from akka_allreduce_tpu_torch.models.train import (TrainConfig, TrainState,
 from akka_allreduce_tpu_torch.models.transformer import TransformerConfig
 from akka_allreduce_tpu_torch.runtime.dcn_train import (
     DcnDeadlineTrainer,
+    StalledBeyondRetention,
     decode_payload,
     encode_payload,
 )
@@ -315,6 +316,30 @@ class TestBucketGranularWire:
             exp[32:] += -lr * 1.0   # buckets 2-3: master alone
             np.testing.assert_allclose(weights(state), exp,
                                        rtol=1e-6)
+
+
+class TestStallAtTheFetch:
+    def test_collected_payload_raises_stalled(self):
+        """A worker stopped between its mask read and its fetch until the
+        cluster passed the retention window: the payload is gone and the
+        round key past the window, so the fetch raises
+        StalledBeyondRetention at once (the CLI's snapshot rejoin), not a
+        RuntimeError after its 30 s wait (ROADMAP C17). Within the
+        window a missing payload is still waited for."""
+        tr = make_trainer(1, 2, FakeKvClient(), retain_rounds=8,
+                          deadline_s=1.0)
+        try:
+            tr._kv.key_value_set(tr._roundkey, "10", allow_overwrite=True)
+            t0 = time.monotonic()
+            with pytest.raises(StalledBeyondRetention) as exc:
+                tr._get_payload(2, 0, 0)
+            assert time.monotonic() - t0 < 5.0
+            assert exc.value.current_round == 10
+            tr._kv.key_value_set(tr._roundkey, "9", allow_overwrite=True)
+            with pytest.raises(RuntimeError, match="missing from the KV"):
+                tr._get_payload(2, 0, 0, wait_s=0.2)
+        finally:
+            tr.close()
 
 
 class TestMasterLiveness:

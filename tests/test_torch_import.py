@@ -9,7 +9,8 @@ the bench rows' and the protocol plane's modules included, the
 optimizer families, the MLP and the telemetry's, the serving fault
 injection and preemption watcher, the wire
 codec, the TCP router, the remote runners, the C++ cluster, the
-store-backed KV client and router, the coordinator and the DCN trainer, and the
+store-backed KV client and router, the coordinator, the DCN trainer and
+the elastic re-formation, and the
 ``native`` loader among them) and finds neither ``jax`` nor
 ``akka_allreduce_tpu`` in ``sys.modules``, nor, once it has loaded the
 port's C++ library, the JAX package's library among its mappings; a rank process that
@@ -85,6 +86,7 @@ def test_importing_every_module_loads_no_jax():
             "akka_allreduce_tpu_torch.protocol.kv",
             "akka_allreduce_tpu_torch.runtime.coordinator",
             "akka_allreduce_tpu_torch.runtime.dcn_train",
+            "akka_allreduce_tpu_torch.runtime.elastic",
             "akka_allreduce_tpu_torch.native",
             "akka_allreduce_tpu_torch.models.optim",
             "akka_allreduce_tpu_torch.models.mlp",
@@ -162,7 +164,8 @@ def test_ast_scan_finds_no_jax_import():
         "protocol/master", "protocol/cluster", "protocol/explorer",
         "protocol/wire", "protocol/tcp", "protocol/remote",
         "protocol/native_cluster", "native/__init__", "protocol/kv",
-        "runtime/coordinator", "runtime/dcn_train")} <= scanned
+        "runtime/coordinator", "runtime/dcn_train",
+        "runtime/elastic")} <= scanned
 
 
 def test_a_rank_that_loads_the_transport_loads_no_jax():
